@@ -1,0 +1,110 @@
+"""The PyTorch port as a package: it imports no JAX and nothing of the JAX package,
+its entry points refuse to run without a card unless asked for the CPU, its tensor
+schemas speak the JAX package's dtype names, and chip_smoke.py refuses to run
+without a card."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from hivemind_tpu.utils.tensor_descr import BatchTensorDescriptor as JaxBatchTensorDescriptor
+from hivemind_tpu_torch.ops import _build
+from hivemind_tpu_torch.utils.tensor_descr import BatchTensorDescriptor
+
+REPO = Path(__file__).resolve().parent.parent
+PACKAGE = REPO / "hivemind_tpu_torch"
+
+_ISOLATION_PROBE = """
+import importlib, pkgutil, sys
+import numpy as np
+import torch
+import hivemind_tpu_torch
+
+for module in pkgutil.walk_packages(hivemind_tpu_torch.__path__, "hivemind_tpu_torch."):
+    importlib.import_module(module.name)
+leaked = sorted(name for name in sys.modules
+                if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "hivemind_tpu"))
+assert not leaked, leaked
+
+assert not torch.cuda.is_available()
+from hivemind_tpu_torch.moe.server.layers import NopExpert
+from hivemind_tpu_torch.moe.server.llama_loader import device_hbm_bytes, load_llama_blocks
+from hivemind_tpu_torch.moe.server.module_backend import ModuleBackend
+refused = 0
+for entry_point in (
+    lambda: ModuleBackend("nop", NopExpert(4), sample_input=np.zeros((1, 4), np.float32)),
+    lambda: load_llama_blocks("/nonexistent"),
+    lambda: device_hbm_bytes(),
+):
+    try:
+        entry_point()
+    except RuntimeError as e:
+        assert "no CUDA device" in str(e), e
+        refused += 1
+assert refused == 3, refused
+backend = ModuleBackend("nop", NopExpert(4), sample_input=np.zeros((1, 4), np.float32), device="cpu")
+assert backend.forward(np.ones((2, 4), np.float32))[0].tolist() == [[1.0] * 4] * 2
+print("isolated")
+"""
+
+
+def test_package_imports_no_jax_and_refuses_to_run_without_cuda():
+    """In a fresh interpreter (the test process itself has jax loaded by conftest)."""
+    result = subprocess.run(
+        [sys.executable, "-c", _ISOLATION_PROBE], cwd=REPO, capture_output=True, text=True, timeout=120
+    )
+    assert result.returncode == 0, result.stderr
+    assert result.stdout.strip().endswith("isolated")
+
+
+def test_package_sources_never_name_the_jax_stack():
+    forbidden = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|hivemind_tpu)(\.|\s|$)", re.MULTILINE)
+    offenders = [
+        str(path.relative_to(REPO)) for path in PACKAGE.rglob("*.py") if forbidden.search(path.read_text())
+    ]
+    assert not offenders, offenders
+
+
+@pytest.mark.parametrize(
+    "array,tensor",
+    [
+        (np.zeros((3, 64, 8), np.float32), torch.zeros((3, 64, 8), dtype=torch.float32)),
+        (np.zeros((2, 5), ml_dtypes.bfloat16), torch.zeros((2, 5), dtype=torch.bfloat16)),
+        (np.zeros((4, 2), np.int8), torch.zeros((4, 2), dtype=torch.int8)),
+    ],
+    ids=["float32", "bfloat16", "int8"],
+)
+def test_batch_descriptors_match_the_jax_package(array, tensor):
+    theirs = JaxBatchTensorDescriptor.from_array(array)
+    for ours in (BatchTensorDescriptor.from_tensor(tensor), BatchTensorDescriptor.from_tensor(array)):
+        assert (ours.shape, ours.dtype, ours.requires_grad) == (theirs.shape, theirs.dtype, theirs.requires_grad)
+
+
+def test_kernel_build_is_keyed_by_source_and_needs_nvcc(tmp_path, monkeypatch):
+    paths = {name: _build.library_path(name) for name in _build.SOURCES}
+    assert len(set(paths.values())) == len(paths)
+    assert all(path.parent == REPO / "build" / "hivemind_tpu_torch" for path in paths.values())
+    assert paths == {name: _build.library_path(name) for name in _build.SOURCES}  # stable
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.find_nvcc()
+
+
+@pytest.mark.parametrize("where", ["repo", "alone"])
+def test_chip_smoke_refuses_to_run_without_a_card(tmp_path, where):
+    script = REPO / "chip_smoke.py"
+    if where == "alone":  # a directory holding chip_smoke.py and nothing else of the repo
+        (tmp_path / "chip_smoke.py").write_text(script.read_text())
+        script, cwd = tmp_path / "chip_smoke.py", tmp_path
+    else:
+        cwd = REPO
+    result = subprocess.run([sys.executable, str(script)], cwd=cwd, capture_output=True, text=True, timeout=120)
+    assert result.returncode != 0
+    assert '"ok"' not in result.stdout
