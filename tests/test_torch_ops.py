@@ -8,6 +8,7 @@ held to these plain versions on the card by ``chip_smoke.py``."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import scipy.optimize  # noqa: F401  (see the note below the imports)
 import torch
 
 from hivemind_tpu.ops.pallas_attention import flash_attention_lse as jax_flash_attention_lse
@@ -28,6 +29,13 @@ from hivemind_tpu_torch.parallel.ring_attention import plain_attention
 # the shapes are tiny: one intra-op thread is enough, and it leaves the cores to
 # the timing-sensitive swarm tests that share the machine with this file
 torch.set_num_threads(1)
+
+# The JAX package's averager imports scipy.optimize lazily, on its event loop, in
+# the middle of an all-reduce round (averaging/load_balancing.py). Cold, that
+# import outlasts the round's timeouts, so whether a swarm test such as
+# test_averaging.py::test_averaging_basic_group passed hung on which files had run
+# before it in the same process. Every process collects this file, so the import
+# at its top leaves scipy.optimize loaded before any test runs.
 
 # ------------------------------------------------------------------ flash attention
 
