@@ -34,12 +34,26 @@ SEED = 0
 # Llama-2-7B widths (meta-llama/Llama-2-7b-hf config.json); depth cut from 32 to 2 layers
 LLAMA2_7B = dict(hidden_size=4096, num_attention_heads=32, num_key_value_heads=32, intermediate_size=11008,
                  num_hidden_layers=2, rope_theta=10000.0, rms_norm_eps=1e-5)
-# the serving path's [B, T, H, D] (2000: a ragged tail tile), then head_dim 64, the kernel's other width
-FLASH_SHAPES = [(1, t, 32, 128) for t in (512, 2048, 2000)] + [(2, 1000, 16, 64)]
-FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-4}  # max abs error on out and lse vs the plain version
+# the serving path's [B, T, H, D] (2000: a ragged tail tile; batch 4: the merged 512-long
+# requests), then head_dim 64, the kernel's other width
+FLASH_SHAPES = [(1, t, 32, 128) for t in (512, 2048, 2000)] + [(4, 512, 32, 128), (2, 1000, 16, 64)]
+# Flash vs its plain version. Each element's error within atol + rtol*scale, where an
+# output's scale is sum_j p_j*|v_j| (the plain version run on |v|; it bounds the output,
+# and the rounding of the terms). The bf16 kernel rounds each p_j to bf16 and both
+# versions round the output, so with u = 2^-8 (bf16's unit roundoff) an exact
+# computation errs by at most 3u*scale. The largest error stays within max_abs, and the
+# error's norm over the reference's norm within rel_l2 (about u for bf16): what catches
+# a kernel that is a few percent off on the many small outputs, each within its own limit.
+BF16_UNIT_ROUNDOFF = 2.0**-8
+FLASH_TOL = {
+    "bfloat16": dict(atol=1e-5, rtol=3 * BF16_UNIT_ROUNDOFF, max_abs=2e-2, rel_l2=BF16_UNIT_ROUNDOFF),
+    "float32": dict(atol=1e-4, rtol=0.0, max_abs=1e-4, rel_l2=1e-4),
+}
+LSE_TOL = dict(atol=1e-4, rtol=0.0, max_abs=1e-4, rel_l2=1e-5)  # lse is fp32 on both paths
+MANTISSA_BITS = {"bfloat16": 7, "float32": 23}
 SERVING_TOL = 2e-2  # max relative error, card vs CPU (hivemind_tpu/ops/device_check.py's tolerance)
 REQUEST_LENGTHS = (512, 512, 512, 512, 2048)
-REFERENCE_LENGTH = 256
+REFERENCE_LENGTH = 256  # a request of its own; the first 512-long request is checked too
 
 
 def log(message: str) -> None:
@@ -101,6 +115,30 @@ def phase_build(torch):
                 log(f"[build] {name}: {line.strip()}")
 
 
+def error_reading(got, ref, scale, tol: dict, mantissa_bits: int) -> dict:
+    """How ``got`` differs from ``ref``: the largest absolute error, the error's norm
+    over the reference's, and the worst element against atol + rtol*scale (its share
+    of that limit, its error, its reference value, and its error in ulps of the
+    reference in a type with ``mantissa_bits`` explicit bits). ``ok`` holds all three
+    to ``tol``."""
+    got, ref, scale = (t.float().reshape(-1) for t in (got, ref, scale))
+    err = (got - ref).abs()
+    share = err / (tol["atol"] + tol["rtol"] * scale)
+    worst = int(share.argmax())
+    worst_err, worst_ref = err[worst].item(), ref[worst].item()
+    ulp = 2.0 ** (math.floor(math.log2(abs(worst_ref))) - mantissa_bits) if worst_ref else 2.0 ** -149
+    reading = dict(max_abs=err.max().item(), rel_l2=(err.norm() / ref.norm().clamp_min(1e-30)).item(),
+                   share=share[worst].item(), err=worst_err, ref=worst_ref, ulps=worst_err / ulp)
+    reading["ok"] = (math.isfinite(reading["max_abs"]) and reading["max_abs"] <= tol["max_abs"]
+                     and reading["share"] <= 1.0 and reading["rel_l2"] <= tol["rel_l2"])
+    return reading
+
+
+def format_reading(reading: dict) -> str:
+    return (f"max_err={reading['max_abs']:.3e} rel_l2={reading['rel_l2']:.3e} worst={reading['share']:.3f} of its "
+            f"limit (err {reading['err']:.3e} at ref {reading['ref']:.4g}, {reading['ulps']:.2f} ulp)")
+
+
 def phase_flash(torch, peaks) -> dict:
     import torch.nn.functional as F
 
@@ -113,15 +151,21 @@ def phase_flash(torch, peaks) -> dict:
         base = [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda() for _ in range(3)]
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = (t.to(dtype) for t in base)
+            dtype_name = str(dtype).removeprefix("torch.")
+            tol = FLASH_TOL[dtype_name]
             for causal in (False, True):
                 out, lse = flash_attention_lse(q, k, v, causal)
                 ref_out, ref_lse = flash_attention_plain(q, k, v, causal)
                 torch.cuda.synchronize()
-                err = (out.float() - ref_out.float()).abs().max().item()
-                lse_err = (lse - ref_lse).abs().max().item()
-                tol = FLASH_TOL[str(dtype).removeprefix("torch.")]
-                if not (math.isfinite(err) and err <= tol and lse_err <= tol):
-                    raise AssertionError(f"flash {shape} {dtype} causal={causal}: out err {err}, lse err {lse_err} > {tol}")
+                out_scale = flash_attention_plain(q, k, v.abs(), causal)[0]
+                torch.cuda.synchronize()
+                out_reading = error_reading(out, ref_out, out_scale, tol, MANTISSA_BITS[dtype_name])
+                lse_reading = error_reading(lse, ref_lse, ref_lse.abs(), LSE_TOL, MANTISSA_BITS["float32"])
+                readings = f"out {format_reading(out_reading)}; lse {format_reading(lse_reading)}"
+                if not (out_reading["ok"] and lse_reading["ok"]):
+                    raise AssertionError(f"flash B={batch} T={seq} H={heads} D={dim} {dtype_name} causal={causal} "
+                                         f"exceeds out {tol}, lse {LSE_TOL}: {readings}")
+                err, lse_err = out_reading["max_abs"], lse_reading["max_abs"]
                 ms = time_ms(torch, lambda: flash_attention_lse(q, k, v, causal))
                 plain_ms = time_ms(torch, lambda: flash_attention_plain(q, k, v, causal))
                 qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -131,8 +175,9 @@ def phase_flash(torch, peaks) -> dict:
                 nbytes = 4 * q.numel() * q.element_size() + lse.numel() * 4
                 rate = peaks["bf16"] if dtype == torch.bfloat16 else peaks["fp32"]
                 bound, bound_by = bound_ms(operations, rate, nbytes, peaks["bytes"])
-                log(f"[flash] B={batch} T={seq} H={heads} D={dim} {str(dtype)[6:]} causal={causal}: max_err={err:.3e} lse_err={lse_err:.3e} "
+                log(f"[flash] B={batch} T={seq} H={heads} D={dim} {dtype_name} causal={causal}: max_err={err:.3e} lse_err={lse_err:.3e} "
                     f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} bound_ms={bound:.4f} ({bound_by})")
+                log(f"[flash]   {readings}")
                 if shape == (1, 2048, 32, 128) and causal and dtype == torch.bfloat16:  # the longest served request
                     main_entry = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                                       bound_by=bound_by, library_ms=library_ms)
@@ -226,13 +271,43 @@ def write_safetensors(path: Path, tensors: dict) -> None:
             f.write(np.ascontiguousarray(array).tobytes())
 
 
-async def serve(backends_by_mode: dict, requests: list) -> dict:
+class RecordedForward:
+    """A backend's forward as a TaskPool's process function. It notes each batch's
+    [batch, seq] and whether the batch that held the watched request's input also
+    held another request; it hands that request's output on to the next block's
+    recorder, which watches for it in turn."""
+
+    def __init__(self, forward, downstream=None):
+        self.forward, self.downstream, self.watched = forward, downstream, None
+        self.batches, self.watched_merged = [], False
+
+    def __call__(self, x: np.ndarray):
+        self.batches.append(tuple(x.shape[:2]))
+        outputs = self.forward(x)
+        if self.watched is not None and x.shape[1:] == self.watched.shape[1:]:
+            for row in range(x.shape[0]):
+                if np.array_equal(x[row], self.watched[0]):
+                    self.watched_merged |= x.shape[0] > 1
+                    if self.downstream is not None:
+                        self.downstream.watched = outputs[0][row : row + 1]
+        return outputs
+
+
+async def serve(backends_by_mode: dict, requests: list, watched: np.ndarray) -> dict:
     """Run every request through block 0 → block 1 of every mode concurrently;
-    returns {mode: [(output, latency_s), ...]} and the runtime's batch count."""
+    returns {mode: [(output, latency_s), ...]}, the runtime's batch count and each
+    pool's RecordedForward."""
     from hivemind_tpu_torch.moe.server.runtime import Runtime
     from hivemind_tpu_torch.moe.server.task_pool import TaskPool
 
-    pools = {mode: [TaskPool(b.forward, f"{mode}:{uid}", max_batch_size=8) for uid, b in backends.items()]
+    recorded = {}
+    for mode, backends in backends_by_mode.items():
+        downstream, recorded[mode] = None, {}
+        for uid, backend in reversed(list(backends.items())):  # the last block first: each hands on to the next
+            downstream = recorded[mode][uid] = RecordedForward(backend.forward, downstream)
+        downstream.watched = watched
+        recorded[mode] = dict(reversed(list(recorded[mode].items())))
+    pools = {mode: [TaskPool(recorded[mode][uid], f"{mode}:{uid}", max_batch_size=8) for uid in backends]
              for mode, backends in backends_by_mode.items()}
     runtime = Runtime([pool for chain in pools.values() for pool in chain])
     runtime.start()
@@ -252,7 +327,7 @@ async def serve(backends_by_mode: dict, requests: list) -> dict:
     for mode in jobs:
         results[mode] = flat[i : i + len(requests)]
         i += len(requests)
-    return results, runtime.batches_processed
+    return results, runtime.batches_processed, recorded
 
 
 def profile_forward(torch, backend, x):
@@ -296,14 +371,18 @@ def phase_serving(torch, wrappers: dict) -> dict:
         }
         torch.cuda.synchronize()
         log(f"[serving] loaded 2 x 2 blocks on the card in {time.perf_counter() - started:.1f} s")
-        results, batches = asyncio.run(serve(backends, requests))
+        merged_index = 0  # the first 512-long request: checked below, and it must share a batch
+        results, batches, recorded = asyncio.run(serve(backends, requests, requests[merged_index]))
         torch.cuda.synchronize()
         launches = {name: wrapper.launches for name, wrapper in wrappers.items()}
         log(f"[serving] {len(requests) * 2} chained requests ran as {batches} batches "
             f"(of {len(requests) * 2 * 2} block calls: same-length requests share a batch)")
         for mode, backend_map in backends.items():
             for uid, backend in backend_map.items():
-                log(f"[serving] {mode} {uid}: {backend.param_bytes()} resident parameter bytes")
+                log(f"[serving] {mode} {uid}: {backend.param_bytes()} resident parameter bytes; "
+                    f"batches [batch, seq]: {recorded[mode][uid].batches}")
+                if not recorded[mode][uid].watched_merged:
+                    raise AssertionError(f"{mode} {uid}: request {merged_index} never shared a batch with another request")
             for x, (y, latency) in zip(requests, results[mode]):
                 if y.shape != x.shape or not np.isfinite(y).all():
                     raise AssertionError(f"{mode}: output of shape {y.shape} (finite={np.isfinite(y).all()})")
@@ -316,17 +395,18 @@ def phase_serving(torch, wrappers: dict) -> dict:
             for name, us in device_us[:10]:
                 log(f"[profile]   {us / 1e3:8.3f} ms  {name[:100]}")
 
-        reference_in = requests[-1]
         for mode, quantization in (("fp", None), ("int8", "int8")):
             cpu_blocks = load_llama_blocks(tmp, device="cpu", weight_quantization=quantization)[0]
-            expected = reference_in
-            for backend in cpu_blocks.values():
-                expected = backend.forward(expected)[0]
-            got = results[mode][-1][0]
-            rel_err = float(np.abs(got - expected).max() / (np.abs(expected).max() + 1e-9))
-            log(f"[serving] {mode} card vs CPU plain path, [1, {REFERENCE_LENGTH}, {hid}]: max_rel_err={rel_err:.3e}")
-            if not rel_err < SERVING_TOL:
-                raise AssertionError(f"{mode}: card output differs from the CPU reference by {rel_err} >= {SERVING_TOL}")
+            for index, what in ((len(requests) - 1, "a batch of its own"), (merged_index, "a merged batch")):
+                expected = requests[index]
+                for backend in cpu_blocks.values():
+                    expected = backend.forward(expected)[0]
+                got = results[mode][index][0]
+                rel_err = float(np.abs(got - expected).max() / (np.abs(expected).max() + 1e-9))
+                log(f"[serving] {mode} card vs CPU plain path, [1, {requests[index].shape[1]}, {hid}] "
+                    f"({what}): max_rel_err={rel_err:.3e}")
+                if not rel_err < SERVING_TOL:
+                    raise AssertionError(f"{mode}: card output differs from the CPU reference by {rel_err} >= {SERVING_TOL}")
             del cpu_blocks
     return launches
 

@@ -163,7 +163,8 @@ def load_llama_blocks(
     ``device`` (``"cuda"`` unless the caller asks for the CPU).
 
     ``layers`` defaults to all of them; uid = ``f"{uid_prefix}{layer}"``. Blocks are
-    built on the meta device and allocated once, on ``device``.
+    built on the meta device; each block's checkpoint tensors are copied to
+    ``device`` once and, for int8, quantized once.
     """
     device = resolve_device(device)
     config = LlamaCheckpointConfig.load(checkpoint_dir)
@@ -185,11 +186,11 @@ def load_llama_blocks(
             f"{uid_prefix}{layer}",
             module,
             sample_input=np.zeros((2, 8, config.hidden_size), np.float32),
+            params=_block_params_from_hf(reader, layer),
             max_batch_size=max_batch_size,
             weight_quantization=weight_quantization,
             device=device,
         )
-        backend.load_params(_block_params_from_hf(reader, layer))
         backends[backend.name] = backend
         logger.info(
             f"loaded block {layer} as {backend.name!r} "

@@ -49,6 +49,9 @@ class ModuleBackend:
     :param module: an ``nn.Module`` taking one tensor and returning one tensor or
         a tuple of tensors
     :param sample_input: schema-defining input WITH batch dim
+    :param params: the expert's weights (``name -> tensor``, matching the module's
+        parameter names and shapes), e.g. a checkpoint's; when omitted, the
+        parameters are initialized from ``rng_seed``
     :param rng_seed: seeds the ``torch.Generator`` that initializes the parameters
     :param weight_quantization: ``"int8"`` stores the expert's weight matrices with
         the blockwise absmax codec (4x less resident memory; dense weights are
@@ -63,6 +66,7 @@ class ModuleBackend:
         module: nn.Module,
         *,
         sample_input: np.ndarray,
+        params: Optional[Dict[str, torch.Tensor]] = None,
         max_batch_size: int = 4096,
         rng_seed: int = 0,
         weight_quantization: Optional[str] = None,
@@ -77,14 +81,20 @@ class ModuleBackend:
 
         if any(True for _ in module.buffers()):
             raise ValueError("ModuleBackend serves modules whose state is parameters only")
-        # to_empty + a seeded init: a module built on the meta device (as the
-        # loader builds 7B-width blocks) is allocated once, on the target device
-        module = module.to_empty(device=self.device).eval().requires_grad_(False)
-        init_parameters(module, torch.Generator(device=self.device).manual_seed(rng_seed))
+        if params is None:
+            # to_empty + a seeded init: a module built on the meta device is
+            # allocated once, on the target device
+            module = module.to_empty(device=self.device)
+            init_parameters(module, torch.Generator(device=self.device).manual_seed(rng_seed))
+            dense = {key: tensor.detach() for key, tensor in module.state_dict().items()}
+        # a stateless shell: the backend owns the parameters
+        self.module = module.to("meta").eval().requires_grad_(False)
+        self._shapes = {key: tuple(tensor.shape) for key, tensor in self.module.state_dict().items()}
+        if params is not None:
+            dense = self._dense_params(params)
         with torch.inference_mode():
-            sample_out = _as_tuple(module(self._to_device(np.asarray(sample_input)[:1])))
-        dense = {key: tensor.detach() for key, tensor in module.state_dict().items()}
-        self.module = module.to("meta")  # a stateless shell: the backend owns the parameters
+            sample = self._to_device(np.asarray(sample_input)[:1])
+            sample_out = _as_tuple(torch.func.functional_call(self.module, dense, (sample,)))
         self.params = quantize_params(dense) if weight_quantization else dense
 
         self.forward_schema = (BatchTensorDescriptor.from_tensor(np.asarray(sample_input)),)
@@ -92,6 +102,16 @@ class ModuleBackend:
 
     def _to_device(self, array: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(array, dtype=np.float32)).to(self.device)
+
+    def _dense_params(self, params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """``params`` checked against the module's names and shapes, as fp32 on the device."""
+        if set(params) != set(self._shapes):
+            missing, unexpected = sorted(set(self._shapes) - set(params)), sorted(set(params) - set(self._shapes))
+            raise KeyError(f"expert {self.name!r}: missing {missing}, unexpected {unexpected}")
+        for key, tensor in params.items():
+            if tuple(tensor.shape) != self._shapes[key]:
+                raise ValueError(f"expert {self.name!r}: {key} has shape {tuple(tensor.shape)}, expected {self._shapes[key]}")
+        return {key: torch.as_tensor(tensor).to(self.device, torch.float32) for key, tensor in params.items()}
 
     # ------------------------------------------------------------------ execution
 
@@ -104,14 +124,7 @@ class ModuleBackend:
         """Replace the expert's weights (e.g. with a pretrained checkpoint's). The
         dict must match the init schema (names and shapes); quantized backends
         re-encode to int8 on the device."""
-        current = self.snapshot_params()
-        if set(params) != set(current):
-            missing, unexpected = sorted(set(current) - set(params)), sorted(set(params) - set(current))
-            raise KeyError(f"expert {self.name!r}: missing {missing}, unexpected {unexpected}")
-        for key, tensor in params.items():
-            if tuple(tensor.shape) != tuple(current[key].shape):
-                raise ValueError(f"expert {self.name!r}: {key} has shape {tuple(tensor.shape)}, expected {tuple(current[key].shape)}")
-        dense = {key: torch.as_tensor(tensor).to(self.device, torch.float32) for key, tensor in params.items()}
+        dense = self._dense_params(params)
         new_params = quantize_params(dense) if self.weight_quantization else dense
         with self._state_lock:
             self.params = new_params

@@ -36,9 +36,6 @@ class Runtime:
                     waiter.cancel()
                 await asyncio.gather(*waiters, return_exceptions=True)
             pool = min(self.pools, key=lambda p: p.priority)
-            if pool.priority == float("inf"):
-                await asyncio.sleep(0.001)  # a sub-min_batch_size queue waits out its flush_timeout
-                continue
             batch = pool.pop_batch()
             if not batch:
                 continue

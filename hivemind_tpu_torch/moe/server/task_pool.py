@@ -52,15 +52,11 @@ class TaskPool:
         name: str,
         *,
         max_batch_size: int = 4096,
-        min_batch_size: int = 1,
-        flush_timeout: float = 0.1,
         max_queue_size: int = 1024,
     ):
         self.process_func = process_func
         self.name = name
         self.max_batch_size = max_batch_size
-        self.min_batch_size = min_batch_size
-        self.flush_timeout = flush_timeout  # sub-min batches run anyway after this age
         self.max_queue_size = max_queue_size  # queued tasks beyond this are SHED
         self._queue: Deque[_Task] = deque()
         # reused batch-assembly buffers, keyed (arg index, bucket, trailing shape, dtype)
@@ -90,16 +86,8 @@ class TaskPool:
 
     @property
     def priority(self) -> float:
-        """Lower is more urgent: timestamp of the oldest queued task. A queue below
-        min_batch_size is deprioritized only until its oldest task exceeds
-        flush_timeout — never starved."""
-        if not self._queue:
-            return float("inf")
-        total = sum(t.batch_size for t in self._queue)
-        oldest = self._queue[0].timestamp
-        if total < self.min_batch_size and get_dht_time() - oldest < self.flush_timeout:
-            return float("inf")
-        return oldest
+        """Lower is more urgent: timestamp of the oldest queued task (inf when empty)."""
+        return self._queue[0].timestamp if self._queue else float("inf")
 
     def pop_batch(self) -> List[_Task]:
         """Remove up to max_batch_size samples' worth of consecutive tasks that
