@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
 """On-card smoke test of hivemind_tpu_torch: builds the port's Hopper kernels,
-holds each against its plain PyTorch version at the serving path's shapes, then
-serves two Llama-2-7B-width blocks (fp and int8 weight-only) through
-load_llama_blocks → ModuleBackend → TaskPool/Runtime and checks the answers
-against the same blocks run on the CPU.
+holds each against its plain PyTorch version at the shapes of the paths that run
+it, then drives three paths and checks each against the CPU:
+- serving: two Llama-2-7B-width blocks (fp and int8 weight-only) through
+  load_llama_blocks → ModuleBackend → TaskPool/Runtime;
+- expert training: ModuleBackend.backward (one SGD step) on a Llama-2-7B-width block;
+- ALBERT-base MLM training: make_train_step with AdamW at batch 32 × seq 512.
 
 Run from the repository root on a machine with one NVIDIA card:
 
     python3 chip_smoke.py
 
 It exits non-zero, printing no result, when CUDA is unavailable, when the package
-is not beside it, or when any phase fails. The last line of its output is
+is not beside it, or when any phase fails (every phase runs; the failures are
+listed at the end). The last line of its output is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and power
 limit, and before that a JSON line with every kernel's launches, error and times.
 Weights and requests are synthesized from fixed seeds; nothing is downloaded.
@@ -20,6 +23,7 @@ Needs no JAX and imports nothing of the JAX package.
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import json
 import math
 import subprocess
@@ -34,9 +38,13 @@ SEED = 0
 # Llama-2-7B widths (meta-llama/Llama-2-7b-hf config.json); depth cut from 32 to 2 layers
 LLAMA2_7B = dict(hidden_size=4096, num_attention_heads=32, num_key_value_heads=32, intermediate_size=11008,
                  num_hidden_layers=2, rope_theta=10000.0, rms_norm_eps=1e-5)
+ALBERT_ATTENTION = (32, 512, 12, 64)  # ALBERT-base's [B, T, H, D] at batch 32, seq 512
+EXPERT_TOKENS = 256  # [1, 256, 4096] through ModuleBackend.backward
+EXPERT_ATTENTION = (1, EXPERT_TOKENS, 32, 128)  # that block's [B, T, H, D]
 # the serving path's [B, T, H, D] (2000: a ragged tail tile; batch 4: the merged 512-long
-# requests), then head_dim 64, the kernel's other width
-FLASH_SHAPES = [(1, t, 32, 128) for t in (512, 2048, 2000)] + [(4, 512, 32, 128), (2, 1000, 16, 64)]
+# requests), head_dim 64 (the kernel's other width), ALBERT's and the expert backward's
+FLASH_SHAPES = ([(1, t, 32, 128) for t in (512, 2048, 2000)] + [(4, 512, 32, 128), (2, 1000, 16, 64)]
+                + [ALBERT_ATTENTION, EXPERT_ATTENTION])
 # Flash vs its plain version. Each element's error within atol + rtol*scale, where an
 # output's scale is sum_j p_j*|v_j| (the plain version run on |v|; it bounds the output,
 # and the rounding of the terms). The bf16 kernel rounds each p_j to bf16 and both
@@ -52,6 +60,48 @@ FLASH_TOL = {
 LSE_TOL = dict(atol=1e-4, rtol=0.0, max_abs=1e-4, rel_l2=1e-5)  # lse is fp32 on both paths
 MANTISSA_BITS = {"bfloat16": 7, "float32": 23}
 SERVING_TOL = 2e-2  # max relative error, card vs CPU (hivemind_tpu/ops/device_check.py's tolerance)
+# The flash backward passes vs their plain versions: (shape, dtype, causal). The
+# training path's shape, the expert backward's as chip_smoke drives it, a Llama
+# request at full length, a ragged tail, head_dim 64 both ways, and the fp32 path.
+FLASH_BWD_CASES = [
+    (ALBERT_ATTENTION, "bfloat16", False), (EXPERT_ATTENTION, "bfloat16", True), ((1, 2048, 32, 128), "bfloat16", True),
+    ((1, 2000, 32, 128), "bfloat16", True), ((2, 1000, 16, 64), "bfloat16", False),
+    ((2, 1000, 16, 64), "bfloat16", True), ((2, 1000, 16, 64), "float32", False),
+    ((2, 1000, 16, 64), "float32", True), ((1, 512, 32, 128), "float32", True),
+]
+# Each backward output element within atol + rtol*scale, where scale is the plain
+# backward run on absolute values: sum_k |dS||K| for dq, sum_q |dS||Q| for dk,
+# sum_q P|dO| for dv. The bf16 kernels round each P and dS term to bf16 (relative
+# error <= u = 2^-8) and both versions round the output (<= u each), so an exact
+# sum errs by at most 3u*scale. The error's norm over the reference's norm is held
+# to 2u: rounding reads about 0.67u (a CPU emulation of the kernel's rounding at
+# [2, 512, 4, 64] and [1, 1024, 2, 128]: 2.5e-3 to 2.7e-3), while dS 5% off on half
+# the tiles reads about 9u (2.5e-2 to 3.6e-2). The cap is two bf16 ulps of an
+# output in [4, 8). fp32: only the order of fp32 sums differs, bounded by
+# T*2^-24*scale (1.2e-4 at T = 2048).
+FLASH_BWD_TOL = {
+    "bfloat16": dict(atol=1e-5, rtol=3 * BF16_UNIT_ROUNDOFF, max_abs=6.25e-2, rel_l2=2 * BF16_UNIT_ROUNDOFF),
+    "float32": dict(atol=1e-5, rtol=1.2e-4, max_abs=1e-3, rel_l2=1e-5),
+}
+FAULTY_TILE = 64  # a planted fault the check must reject: dS 5% too large on every other 64-wide tile
+# ALBERT-base MLM training, bench.py's workload: its first batch candidate
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_WARMUP, TRAIN_STEPS = 32, 512, 2, 10
+TRAIN_MASKED_FRACTION = 0.25
+TRAIN_CHECK_BATCH = 2  # the sub-batch held against the CPU plain path
+# card vs CPU on the same weights and sub-batch (bf16 compute on both; the CPU's
+# attention is plain_attention in bf16, the card's the flash kernels with fp32
+# softmax): the loss's relative gap and each gradient's error norm over its norm.
+# Measured on these seeds: loss 2.8e-5, gradients <= 1.6e-2 (about 4u, u = 2^-8:
+# bf16 rounding carried through 12 applications of the shared layer). The limits
+# are about 10x and 2x those: 3e-4 for the loss (a mean over ~150 masked positions)
+# and 8u for the gradients. Remat recomputes a deterministic forward, so it is held
+# to the card's own loss exactly and to 1e-6 on the gradients (measured: identical).
+TRAIN_LOSS_RTOL = 3e-4
+TRAIN_GRAD_REL_L2 = 8 * BF16_UNIT_ROUNDOFF
+REMAT_GRAD_REL_L2 = 1e-6
+ZERO_GRADIENT = "key.bias"  # softmax ignores it: its gradient is rounding noise on both sides
+EXPERT_LR = 1e-3  # SGD; the steps are compared, not the (barely moved) weights
+EXPERT_TOL = SERVING_TOL
 REQUEST_LENGTHS = (512, 512, 512, 512, 2048)
 REFERENCE_LENGTH = 256  # a request of its own; the first 512-long request is checked too
 
@@ -231,6 +281,294 @@ def phase_quantization(torch, peaks):
     return quantize_entry, dequantize_entry
 
 
+def faulty_backward(torch, q, k, v, dout, lse, delta, causal):
+    """dq and dk with dS 5% too large on every other tile (of keys for dq, of
+    queries for dk), in fp32 with outputs rounded to q's dtype: what the check must
+    reject."""
+    from hivemind_tpu_torch.ops.flash_attention import flash_backward_terms
+
+    _, ds = flash_backward_terms(q, k, v, dout, lse, delta, causal)
+    off = 1.0 + 0.05 * ((torch.arange(q.shape[1], device=q.device) // FAULTY_TILE) % 2)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds * off, k.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds * off[:, None], q.float())
+    return dq.to(q.dtype), dk.to(k.dtype)
+
+
+def backward_scales(torch, q, k, v, dout, lse, delta, causal):
+    """The plain backward on absolute values: sum |dS||K|, sum |dS||Q|, sum P|dO|."""
+    from hivemind_tpu_torch.ops.flash_attention import flash_backward_terms
+
+    p, ds = flash_backward_terms(q, k, v, dout, lse, delta, causal)
+    ds = ds.abs()
+    return (torch.einsum("bhqk,bkhd->bqhd", ds, k.float().abs()),
+            torch.einsum("bhqk,bqhd->bkhd", ds, q.float().abs()),
+            torch.einsum("bhqk,bqhd->bkhd", p, dout.float().abs()))
+
+
+def read_backward(dtype_name, got, ref, scales) -> dict:
+    tol = FLASH_BWD_TOL[dtype_name]
+    return {name: error_reading(g, r, sc, tol, MANTISSA_BITS[dtype_name])
+            for name, g, r, sc in zip(("dq", "dk", "dv"), got, ref, scales)}
+
+
+def phase_flash_bwd(torch, peaks) -> dict:
+    import torch.nn.functional as F
+
+    from hivemind_tpu_torch.ops.flash_attention import (
+        _delta,
+        flash_attention_backward_dkv,
+        flash_attention_backward_dkv_plain,
+        flash_attention_backward_dq,
+        flash_attention_backward_dq_plain,
+        flash_attention_plain,
+    )
+
+    rng = np.random.default_rng(SEED + 5)
+    entries = {}
+    for shape, dtype_name, causal in FLASH_BWD_CASES:
+        batch, seq, heads, dim = shape
+        dtype = getattr(torch, dtype_name)
+        q, k, v, dout = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda().to(dtype)
+                         for _ in range(4))
+        out, lse = flash_attention_plain(q, k, v, causal)
+        delta = _delta(out, dout)
+        args = (q, k, v, dout, lse, delta, causal)
+        got = (flash_attention_backward_dq(*args), *flash_attention_backward_dkv(*args))
+        ref = (flash_attention_backward_dq_plain(*args), *flash_attention_backward_dkv_plain(*args))
+        scales = backward_scales(torch, *args)
+        readings = read_backward(dtype_name, got, ref, scales)
+        text = "; ".join(f"{name} {format_reading(r)}" for name, r in readings.items())
+        label = f"B={batch} T={seq} H={heads} D={dim} {dtype_name} causal={causal}"
+        if not all(r["ok"] for r in readings.values()):
+            raise AssertionError(f"flash backward {label} exceeds {FLASH_BWD_TOL[dtype_name]}: {text}")
+        if shape == ALBERT_ATTENTION:  # the check must reject a planted fault at the training path's shape
+            faulty = read_backward(dtype_name, (*faulty_backward(torch, *args), ref[2]), ref, scales)
+            log(f"[flash_bwd] {label}, dS x 1.05 on every other tile (planted in the plain version): " +
+                "; ".join(f"{name} {format_reading(faulty[name])} ok={faulty[name]['ok']}" for name in ("dq", "dk")))
+            if faulty["dq"]["ok"] or faulty["dk"]["ok"]:
+                raise AssertionError("flash backward check passed a dS that is 5% off on half the tiles")
+        del got, ref, scales
+
+        ms = {"dq": time_ms(torch, lambda: flash_attention_backward_dq(*args)),
+              "dkv": time_ms(torch, lambda: flash_attention_backward_dkv(*args))}
+        plain_ms = {"dq": time_ms(torch, lambda: flash_attention_backward_dq_plain(*args), budget_ms=100.0),
+                    "dkv": time_ms(torch, lambda: flash_attention_backward_dkv_plain(*args), budget_ms=100.0)}
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        dot = dout.transpose(1, 2)
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        library_ms = (time_ms(torch, lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot))
+                      - time_ms(torch, sdpa))  # its backward: fwd+bwd minus fwd
+        pairs = seq * (seq + 1) / 2 if causal else seq * seq  # query-key pairs this data needs
+        element, rows = q.numel() * q.element_size(), batch * heads * seq * 4
+        rate = peaks["bf16"] if dtype == torch.bfloat16 else peaks["fp32"]
+        bounds = {"dq": bound_ms(6.0 * batch * heads * dim * pairs, rate, 5 * element + 2 * rows, peaks["bytes"]),
+                  "dkv": bound_ms(8.0 * batch * heads * dim * pairs, rate, 6 * element + 2 * rows, peaks["bytes"])}
+        log(f"[flash_bwd] {label}: dq ms={ms['dq']:.4f} plain_ms={plain_ms['dq']:.4f} bound_ms={bounds['dq'][0]:.4f} "
+            f"({bounds['dq'][1]}); dkv ms={ms['dkv']:.4f} plain_ms={plain_ms['dkv']:.4f} "
+            f"bound_ms={bounds['dkv'][0]:.4f} ({bounds['dkv'][1]}); library (whole backward) ms={library_ms:.4f}")
+        log(f"[flash_bwd]   {text}")
+        if shape == ALBERT_ATTENTION:  # the training path's shape
+            for kernel, names in (("dq", ("dq",)), ("dkv", ("dk", "dv"))):
+                entries[f"flash_attention_backward_{kernel}"] = dict(
+                    max_abs_err=max(readings[n]["max_abs"] for n in names), ms=ms[kernel], plain_ms=plain_ms[kernel],
+                    bound_ms=bounds[kernel][0], bound_by=bounds[kernel][1], library_ms=library_ms)
+    return entries
+
+
+def flops_per_token(config, seq_len: int, head_fraction: float = 1.0) -> float:
+    """fwd+bwd FLOPs per token ~= 6 * (matmul params-equivalent per token) (a copy of
+    bench.py's); ``head_fraction``: the MLM head runs on that fraction of positions."""
+    h, i, L = config.hidden_size, config.intermediate_size, config.num_layers
+    per_layer = 4 * h * h + 2 * h * i  # qkv+out projections + ffn (MACs per token)
+    attention_quadratic = 2 * seq_len * h  # QK^T + PV MACs per token (x6 below -> FLOPs)
+    head = h * config.embedding_size + config.embedding_size * config.vocab_size
+    total_params_equiv = L * (per_layer + attention_quadratic) + head_fraction * head
+    return 6.0 * total_params_equiv
+
+
+def loss_and_grads(model, loss_fn, batch):
+    model.zero_grad(set_to_none=True)
+    loss = loss_fn(batch)
+    loss.backward()
+    return loss.item(), {name: p.grad.detach().float().cpu() for name, p in model.named_parameters()}
+
+
+def compare_grads(torch, got: dict, ref: dict, limit: float, what: str) -> float:
+    """The largest gradient error norm over reference norm; raises past ``limit``.
+    The key bias (exact gradient 0) is held to 1% of the largest gradient instead."""
+    largest = max(g.abs().max().item() for g in ref.values())
+    worst, worst_name = 0.0, ""
+    for name, g in ref.items():
+        if name.endswith(ZERO_GRADIENT):
+            if max(got[name].abs().max().item(), g.abs().max().item()) > 1e-2 * largest:
+                raise AssertionError(f"{what}: {name} (exact gradient 0) is above 1% of the largest gradient")
+            continue
+        rel = ((got[name] - g).norm() / g.norm().clamp_min(1e-30)).item()
+        if not rel <= worst:
+            worst, worst_name = rel, name
+    log(f"[train] {what}: largest gradient error norm / norm {worst:.3e} ({worst_name})")
+    if not worst <= limit:
+        raise AssertionError(f"{what}: gradient {worst_name} differs by {worst:.3e} > {limit}")
+    return worst
+
+
+GEMM_KERNEL_MARKS = ("gemm", "gemv", "xmma", "cutlass", "wgmma", "nvjet")  # cuBLAS/cuBLASLt kernel names
+THE_REST = "the rest (elementwise, norms, reductions, copies)"
+
+
+def profile_step(torch, train_step, batch):
+    """Device time of one train step by kernel family (torch.profiler), and the
+    largest kernels of the family left over."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        started = time.perf_counter()
+        train_step(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - started) * 1e3
+    families, rest = {}, {}
+    for event in prof.events():
+        if event.device_type != DeviceType.CUDA:
+            continue
+        name = event.name.lower()
+        if "flash_bwd" in name:
+            family = "flash backward (this repo's kernels)"
+        elif "flash_forward" in name:
+            family = "flash forward (this repo's kernel)"
+        elif any(mark in name for mark in GEMM_KERNEL_MARKS):
+            family = "GEMMs (cuBLAS)"
+        elif "adam" in name or "multi_tensor" in name or "foreach" in name:
+            family = "optimizer"
+        else:
+            family = THE_REST
+            rest[event.name] = rest.get(event.name, 0.0) + event.time_range.elapsed_us() / 1e3
+        families[family] = families.get(family, 0.0) + event.time_range.elapsed_us() / 1e3
+    by_time = lambda item: -item[1]
+    return wall_ms, sorted(families.items(), key=by_time), sorted(rest.items(), key=by_time)[:6]
+
+
+def phase_train(torch, peaks, wrappers: dict) -> dict:
+    from hivemind_tpu_torch.models import (
+        AlbertConfig,
+        AlbertForMaskedLM,
+        make_mlm_loss_fn,
+        make_synthetic_mlm_batch,
+        make_train_step,
+    )
+
+    config = AlbertConfig.base(max_position=TRAIN_SEQ)
+    adamw = lambda params: torch.optim.AdamW(params, lr=1e-4, weight_decay=1e-4)  # optax.adamw(1e-4)
+    batch = make_synthetic_mlm_batch(torch.Generator(device="cuda").manual_seed(SEED + 6), config, TRAIN_BATCH, TRAIN_SEQ)
+    model, train_step = make_train_step(config, adamw, masked_loss_fraction=TRAIN_MASKED_FRACTION, device="cuda",
+                                        rng_seed=SEED + 7)
+    initial = {key: value.detach().clone() for key, value in model.state_dict().items()}
+
+    torch.cuda.reset_peak_memory_stats()
+    for wrapper in wrappers.values():
+        wrapper.launches = 0  # the main path starts here: the train steps
+    losses = [train_step(batch) for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    started = time.perf_counter()
+    losses += [train_step(batch) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - started) * 1e3 / TRAIN_STEPS
+    launches = {name: wrapper.launches for name, wrapper in wrappers.items()}
+    losses = [loss.item() for loss in losses]
+    tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
+    mfu = tokens_per_s * flops_per_token(config, TRAIN_SEQ, TRAIN_MASKED_FRACTION) / peaks["bf16"]
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    log(f"[train] ALBERT-base batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, AdamW, masked_loss_fraction "
+        f"{TRAIN_MASKED_FRACTION}: step {step_ms:.3f} ms, {tokens_per_s:.0f} tokens/s, MFU {mfu:.2%} of the "
+        f"published bf16 peak; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"[train] losses: {[round(loss, 5) for loss in losses]}")
+    log(f"[train] launches per step: " + json.dumps({name: count / steps for name, count in launches.items()}))
+    if not all(math.isfinite(loss) for loss in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    per_step = config.num_layers
+    for name in ("flash_attention_forward", "flash_attention_backward_dq", "flash_attention_backward_dkv"):
+        if launches[name] != per_step * steps:
+            raise AssertionError(f"{name}: {launches[name]} launches in {steps} steps, expected {per_step} per step")
+
+    wall_ms, families, rest = profile_step(torch, train_step, batch)
+    busy = sum(ms for _, ms in families)
+    log(f"[profile] one train step: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms ({busy / wall_ms:.1%})")
+    for family, ms in families:
+        log(f"[profile]   {ms:8.3f} ms  {family}")
+    for kernel, ms in rest:
+        log(f"[profile]     {ms:8.3f} ms  of the rest: {kernel[:100]}")
+
+    # the same initial weights and a sub-batch: card vs the CPU plain path, and remat
+    sub = {key: value[:TRAIN_CHECK_BATCH] for key, value in batch.items()}
+    graded = {}
+    for where, remat in (("cuda", False), ("cuda", True), ("cpu", False)):
+        check = AlbertForMaskedLM(dataclasses.replace(config, remat=remat), device=where)
+        check.load_state_dict(initial)
+        loss_fn = make_mlm_loss_fn(check, TRAIN_MASKED_FRACTION)
+        forward_before = wrappers["flash_attention_forward"].launches
+        graded[(where, remat)] = loss_and_grads(check, loss_fn, {key: value.to(where) for key, value in sub.items()})
+        if where == "cuda":
+            torch.cuda.synchronize()
+            forwards = wrappers["flash_attention_forward"].launches - forward_before
+            if forwards != per_step * (2 if remat else 1):
+                raise AssertionError(f"remat={remat}: {forwards} flash forward launches in one step")
+        del check
+    card_loss, card_grads = graded[("cuda", False)]
+    cpu_loss, cpu_grads = graded[("cpu", False)]
+    remat_loss, remat_grads = graded[("cuda", True)]
+    loss_gap = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    log(f"[train] [{TRAIN_CHECK_BATCH}, {TRAIN_SEQ}] sub-batch, initial weights: card loss {card_loss:.6f}, "
+        f"CPU plain path {cpu_loss:.6f} (relative gap {loss_gap:.3e}), card with remat {remat_loss:.6f}")
+    if not loss_gap <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"card loss differs from the CPU's by {loss_gap:.3e} > {TRAIN_LOSS_RTOL}")
+    if remat_loss != card_loss:
+        raise AssertionError(f"remat changed the loss: {remat_loss} != {card_loss}")
+    compare_grads(torch, card_grads, cpu_grads, TRAIN_GRAD_REL_L2, "card vs CPU")
+    compare_grads(torch, remat_grads, card_grads, REMAT_GRAD_REL_L2, "remat vs not, on the card")
+    return launches
+
+
+def phase_expert_backward(torch, checkpoint_dir: str, wrappers: dict) -> dict:
+    from hivemind_tpu_torch.moe.server.llama_loader import load_llama_blocks
+
+    rng = np.random.default_rng(SEED + 8)
+    hid = LLAMA2_7B["hidden_size"]
+    x, grad_out = (rng.standard_normal((1, EXPERT_TOKENS, hid), dtype=np.float32) for _ in range(2))
+    sgd = lambda params: torch.optim.SGD(params, lr=EXPERT_LR)
+
+    backend = load_llama_blocks(checkpoint_dir, layers=[0], device="cuda", optimizer=sgd)[0]["llama.0"]
+    initial = {key: tensor.to("cpu", copy=True) for key, tensor in backend.snapshot_params().items()}
+    for wrapper in wrappers.values():
+        wrapper.launches = 0  # the main path starts here: one backward with its SGD step
+    started = time.perf_counter()
+    (grad_x,) = backend.backward(x, grad_out)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - started) * 1e3
+    launches = {name: wrapper.launches for name, wrapper in wrappers.items()}
+    log(f"[expert_backward] llama.0 backward [1, {EXPERT_TOKENS}, {hid}] with SGD(lr={EXPERT_LR}): "
+        f"{wall_ms:.1f} ms wall; launches {json.dumps(launches)}")
+    if backend.update_count != 1 or backend.get_info()["updates"] != 1:
+        raise AssertionError(f"update_count {backend.update_count}, get_info updates {backend.get_info()['updates']}")
+    for name in ("flash_attention_backward_dq", "flash_attention_backward_dkv"):
+        if launches[name] != 1:
+            raise AssertionError(f"{name} launched {launches[name]} times in one block backward")
+    steps = {key: tensor.to("cpu") - initial[key] for key, tensor in backend.snapshot_params().items()}
+    del backend
+
+    cpu_backend = load_llama_blocks(checkpoint_dir, layers=[0], device="cpu", optimizer=sgd)[0]["llama.0"]
+    cpu_initial = {key: tensor.clone() for key, tensor in cpu_backend.snapshot_params().items()}
+    (cpu_grad_x,) = cpu_backend.backward(x, grad_out)
+    readings = {"input gradient": float(np.abs(grad_x - cpu_grad_x).max() / np.abs(cpu_grad_x).max())}
+    for key, tensor in cpu_backend.snapshot_params().items():
+        expected = tensor - cpu_initial[key]
+        readings[key] = ((steps[key] - expected).abs().max() / expected.abs().max().clamp_min(1e-30)).item()
+    log("[expert_backward] card vs CPU, max relative error: " + ", ".join(f"{k} {v:.3e}" for k, v in readings.items()))
+    worst = max(readings, key=readings.get)
+    if not readings[worst] < EXPERT_TOL:
+        raise AssertionError(f"expert backward: {worst} differs from the CPU by {readings[worst]:.3e} >= {EXPERT_TOL}")
+    return launches
+
+
 def write_checkpoint(path: Path, config: dict, seed: int) -> None:
     """A synthetic HF-layout Llama checkpoint in fp16 safetensors, one shard per layer."""
     rng = np.random.default_rng(seed)
@@ -350,64 +688,58 @@ def profile_forward(torch, backend, x):
     return wall_us, sorted(device_us.items(), key=lambda item: -item[1])
 
 
-def phase_serving(torch, wrappers: dict) -> dict:
+def phase_serving(torch, checkpoint_dir: str, wrappers: dict) -> dict:
     from hivemind_tpu_torch.moe.server.llama_loader import load_llama_blocks
 
     rng = np.random.default_rng(SEED + 2)
     hid = LLAMA2_7B["hidden_size"]
     requests = [rng.standard_normal((1, t, hid), dtype=np.float32) for t in (*REQUEST_LENGTHS, REFERENCE_LENGTH)]
-    with tempfile.TemporaryDirectory(prefix="llama2_7b_width_") as tmp:
-        started = time.perf_counter()
-        write_checkpoint(Path(tmp), LLAMA2_7B, SEED + 3)
-        log(f"[serving] wrote a {LLAMA2_7B['num_hidden_layers']}-layer Llama-2-7B-width fp16 checkpoint "
-            f"in {time.perf_counter() - started:.1f} s")
+    for wrapper in wrappers.values():
+        wrapper.launches = 0  # the main path starts here: loading (int8 quantizes on the card) and serving
+    started = time.perf_counter()
+    backends = {
+        "fp": load_llama_blocks(checkpoint_dir, device="cuda")[0],
+        "int8": load_llama_blocks(checkpoint_dir, device="cuda", weight_quantization="int8")[0],
+    }
+    torch.cuda.synchronize()
+    log(f"[serving] loaded 2 x 2 blocks on the card in {time.perf_counter() - started:.1f} s")
+    merged_index = 0  # the first 512-long request: checked below, and it must share a batch
+    results, batches, recorded = asyncio.run(serve(backends, requests, requests[merged_index]))
+    torch.cuda.synchronize()
+    launches = {name: wrapper.launches for name, wrapper in wrappers.items()}
+    log(f"[serving] {len(requests) * 2} chained requests ran as {batches} batches "
+        f"(of {len(requests) * 2 * 2} block calls: same-length requests share a batch)")
+    for mode, backend_map in backends.items():
+        for uid, backend in backend_map.items():
+            log(f"[serving] {mode} {uid}: {backend.param_bytes()} resident parameter bytes; "
+                f"batches [batch, seq]: {recorded[mode][uid].batches}")
+            if not recorded[mode][uid].watched_merged:
+                raise AssertionError(f"{mode} {uid}: request {merged_index} never shared a batch with another request")
+        for x, (y, latency) in zip(requests, results[mode]):
+            if y.shape != x.shape or not np.isfinite(y).all():
+                raise AssertionError(f"{mode}: output of shape {y.shape} (finite={np.isfinite(y).all()})")
+            log(f"[serving] {mode} request [1, {x.shape[1]}, {hid}]: latency {latency * 1e3:.1f} ms")
+        x = requests[len(REQUEST_LENGTHS) - 1]
+        wall_us, device_us = profile_forward(torch, backend_map["llama.0"], x)
+        busy_us = sum(us for _, us in device_us)
+        log(f"[profile] {mode} llama.0 forward [1, {x.shape[1]}, {hid}]: wall {wall_us / 1e3:.3f} ms, "
+            f"device busy {busy_us / 1e3:.3f} ms ({busy_us / wall_us:.1%})")
+        for name, us in device_us[:10]:
+            log(f"[profile]   {us / 1e3:8.3f} ms  {name[:100]}")
 
-        for wrapper in wrappers.values():
-            wrapper.launches = 0  # the main path starts here: loading (int8 quantizes on the card) and serving
-        started = time.perf_counter()
-        backends = {
-            "fp": load_llama_blocks(tmp, device="cuda")[0],
-            "int8": load_llama_blocks(tmp, device="cuda", weight_quantization="int8")[0],
-        }
-        torch.cuda.synchronize()
-        log(f"[serving] loaded 2 x 2 blocks on the card in {time.perf_counter() - started:.1f} s")
-        merged_index = 0  # the first 512-long request: checked below, and it must share a batch
-        results, batches, recorded = asyncio.run(serve(backends, requests, requests[merged_index]))
-        torch.cuda.synchronize()
-        launches = {name: wrapper.launches for name, wrapper in wrappers.items()}
-        log(f"[serving] {len(requests) * 2} chained requests ran as {batches} batches "
-            f"(of {len(requests) * 2 * 2} block calls: same-length requests share a batch)")
-        for mode, backend_map in backends.items():
-            for uid, backend in backend_map.items():
-                log(f"[serving] {mode} {uid}: {backend.param_bytes()} resident parameter bytes; "
-                    f"batches [batch, seq]: {recorded[mode][uid].batches}")
-                if not recorded[mode][uid].watched_merged:
-                    raise AssertionError(f"{mode} {uid}: request {merged_index} never shared a batch with another request")
-            for x, (y, latency) in zip(requests, results[mode]):
-                if y.shape != x.shape or not np.isfinite(y).all():
-                    raise AssertionError(f"{mode}: output of shape {y.shape} (finite={np.isfinite(y).all()})")
-                log(f"[serving] {mode} request [1, {x.shape[1]}, {hid}]: latency {latency * 1e3:.1f} ms")
-            x = requests[len(REQUEST_LENGTHS) - 1]
-            wall_us, device_us = profile_forward(torch, backend_map["llama.0"], x)
-            busy_us = sum(us for _, us in device_us)
-            log(f"[profile] {mode} llama.0 forward [1, {x.shape[1]}, {hid}]: wall {wall_us / 1e3:.3f} ms, "
-                f"device busy {busy_us / 1e3:.3f} ms ({busy_us / wall_us:.1%})")
-            for name, us in device_us[:10]:
-                log(f"[profile]   {us / 1e3:8.3f} ms  {name[:100]}")
-
-        for mode, quantization in (("fp", None), ("int8", "int8")):
-            cpu_blocks = load_llama_blocks(tmp, device="cpu", weight_quantization=quantization)[0]
-            for index, what in ((len(requests) - 1, "a batch of its own"), (merged_index, "a merged batch")):
-                expected = requests[index]
-                for backend in cpu_blocks.values():
-                    expected = backend.forward(expected)[0]
-                got = results[mode][index][0]
-                rel_err = float(np.abs(got - expected).max() / (np.abs(expected).max() + 1e-9))
-                log(f"[serving] {mode} card vs CPU plain path, [1, {requests[index].shape[1]}, {hid}] "
-                    f"({what}): max_rel_err={rel_err:.3e}")
-                if not rel_err < SERVING_TOL:
-                    raise AssertionError(f"{mode}: card output differs from the CPU reference by {rel_err} >= {SERVING_TOL}")
-            del cpu_blocks
+    for mode, quantization in (("fp", None), ("int8", "int8")):
+        cpu_blocks = load_llama_blocks(checkpoint_dir, device="cpu", weight_quantization=quantization)[0]
+        for index, what in ((len(requests) - 1, "a batch of its own"), (merged_index, "a merged batch")):
+            expected = requests[index]
+            for backend in cpu_blocks.values():
+                expected = backend.forward(expected)[0]
+            got = results[mode][index][0]
+            rel_err = float(np.abs(got - expected).max() / (np.abs(expected).max() + 1e-9))
+            log(f"[serving] {mode} card vs CPU plain path, [1, {requests[index].shape[1]}, {hid}] "
+                f"({what}): max_rel_err={rel_err:.3e}")
+            if not rel_err < SERVING_TOL:
+                raise AssertionError(f"{mode}: card output differs from the CPU reference by {rel_err} >= {SERVING_TOL}")
+        del cpu_blocks
     return launches
 
 
@@ -430,31 +762,70 @@ def main() -> int:
 
     wrappers = {
         "flash_attention_forward": flash_attention.flash_attention_lse,
+        "flash_attention_backward_dq": flash_attention.flash_attention_backward_dq,
+        "flash_attention_backward_dkv": flash_attention.flash_attention_backward_dkv,
         "blockwise_int8_quantize": blockwise_int8.blockwise_int8_quantize,
         "blockwise_int8_dequantize": blockwise_int8.blockwise_int8_dequantize,
+    }
+    # each path, and the kernels that must launch in its run
+    path_kernels = {
+        "serving": ("flash_attention_forward", "blockwise_int8_quantize", "blockwise_int8_dequantize"),
+        "expert_backward": ("flash_attention_forward", "flash_attention_backward_dq", "flash_attention_backward_dkv"),
+        "train": ("flash_attention_forward", "flash_attention_backward_dq", "flash_attention_backward_dkv"),
     }
 
     line = card_line()
     log(f"[card] {line}")
     name = torch.cuda.get_device_name(0)
     peaks = card_peaks(name)
-    phase_build(torch)
-    entries = {"flash_attention_forward": phase_flash(torch, peaks)}
-    entries["blockwise_int8_quantize"], entries["blockwise_int8_dequantize"] = phase_quantization(torch, peaks)
-    launches = phase_serving(torch, wrappers)
-    log(f"[launches] main path: {json.dumps(launches)}")
-    missing = [kernel for kernel, count in launches.items() if count <= 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
+    entries, path_launches, failures = {}, {}, []
+    checkpoint = tempfile.TemporaryDirectory(prefix="llama2_7b_width_")
+
+    def run(phase: str, fn, *args):
+        started = time.perf_counter()
+        try:
+            return fn(*args)
+        except Exception as e:  # every phase runs; the failures are listed at the end
+            failures.append(f"[{phase}] {type(e).__name__}: {e}")
+            log(f"[{phase}] FAILED: {type(e).__name__}: {e}")
+        finally:
+            log(f"[time] {phase}: {time.perf_counter() - started:.1f} s")
+
+    try:
+        run("build", phase_build, torch)
+        entries["flash_attention_forward"] = run("flash", phase_flash, torch, peaks)
+        entries["blockwise_int8_quantize"], entries["blockwise_int8_dequantize"] = (
+            run("quantize", phase_quantization, torch, peaks) or (None, None))
+        entries.update(run("flash_bwd", phase_flash_bwd, torch, peaks) or {})
+        run("checkpoint", write_checkpoint, Path(checkpoint.name), LLAMA2_7B, SEED + 3)
+        path_launches["serving"] = run("serving", phase_serving, torch, checkpoint.name, wrappers)
+        path_launches["expert_backward"] = run("expert_backward", phase_expert_backward, torch, checkpoint.name, wrappers)
+        path_launches["train"] = run("train", phase_train, torch, peaks, wrappers)
+    finally:
+        checkpoint.cleanup()
+
+    for path, kernels in path_kernels.items():
+        counts = path_launches.get(path)
+        if counts is None:
+            continue
+        log(f"[launches] {path} path: {json.dumps(counts)}")
+        missing = [kernel for kernel in kernels if counts[kernel] <= 0]
+        if missing:
+            failures.append(f"[launches] kernels never launched on the {path} path: {missing}")
+    if failures:
+        print("chip_smoke: failed phases:\n" + "\n".join(failures), file=sys.stderr)
+        return 1
 
     meta = {
         "flash_attention_forward": ("hivemind_tpu_torch/csrc/flash_attention.cu", "hivemind_tpu/ops/pallas_attention.py:108"),
+        "flash_attention_backward_dq": ("hivemind_tpu_torch/csrc/flash_attention_bwd.cu", "hivemind_tpu/ops/pallas_attention.py:279"),
+        "flash_attention_backward_dkv": ("hivemind_tpu_torch/csrc/flash_attention_bwd.cu", "hivemind_tpu/ops/pallas_attention.py:292"),
         "blockwise_int8_quantize": ("hivemind_tpu_torch/csrc/blockwise_int8.cu", "hivemind_tpu/ops/pallas_quantization.py:46"),
         "blockwise_int8_dequantize": ("hivemind_tpu_torch/csrc/blockwise_int8.cu", "hivemind_tpu/ops/pallas_quantization.py:73"),
     }
     kernels = [
         {"name": kernel, "route": "cuda", "source": meta[kernel][0], "replaces": meta[kernel][1],
-         "launches": launches[kernel], **entries[kernel]}
+         "launches": sum(counts[kernel] for counts in path_launches.values()), **entries[kernel]}
         for kernel in wrappers
     ]
     print(json.dumps({"kernels": kernels}))

@@ -54,22 +54,29 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
 
 
 class Dense(nn.Linear):
-    """flax ``nn.Dense(dtype=bfloat16, param_dtype=float32)``: fp32 weight
-    ``[out, in]``, bf16 compute and output."""
+    """flax ``nn.Dense(dtype=dtype, param_dtype=float32)``: fp32 weight
+    ``[out, in]``, compute and output in ``dtype`` (bf16 by default)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True, device=None,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__(in_features, out_features, bias=bias, device=device)
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        bias = None if self.bias is None else self.bias.to(torch.bfloat16)
-        return F.linear(x.to(torch.bfloat16), self.weight.to(torch.bfloat16), bias)
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
 
 
 class LayerNorm(nn.LayerNorm):
-    """flax ``nn.LayerNorm(dtype=bfloat16)``: eps 1e-6, fp32 statistics, bf16 out."""
+    """flax ``nn.LayerNorm(dtype=dtype)``: eps 1e-6, fp32 statistics, output in
+    ``dtype`` (bf16 by default)."""
 
-    def __init__(self, dim: int, device=None):
+    def __init__(self, dim: int, device=None, dtype: torch.dtype = torch.bfloat16):
         super().__init__(dim, eps=1e-6, device=device)
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.to(torch.float32), self.normalized_shape, self.weight, self.bias, self.eps).to(torch.bfloat16)
+        return F.layer_norm(x.to(torch.float32), self.normalized_shape, self.weight, self.bias, self.eps).to(self.dtype)
 
 
 class RMSNorm(nn.Module):

@@ -23,7 +23,7 @@ import json
 import struct
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -158,13 +158,16 @@ def load_llama_blocks(
     weight_quantization: Optional[str] = None,
     max_batch_size: int = 64,
     device: Union[str, torch.device] = "cuda",
+    optimizer: Optional[Callable[[Iterable[torch.Tensor]], torch.optim.Optimizer]] = None,
 ) -> Tuple[Dict[str, ModuleBackend], LlamaCheckpointConfig]:
     """Build ``{uid: ModuleBackend}`` serving the checkpoint's decoder layers on
     ``device`` (``"cuda"`` unless the caller asks for the CPU).
 
     ``layers`` defaults to all of them; uid = ``f"{uid_prefix}{layer}"``. Blocks are
     built on the meta device; each block's checkpoint tensors are copied to
-    ``device`` once and, for int8, quantized once.
+    ``device`` once and, for int8, quantized once. ``optimizer`` (a factory over a
+    block's parameter tensors) trains the fp blocks on ``backward``; None is SGD
+    with learning rate 0, as the JAX package's ``optax.sgd(0.0)``.
     """
     device = resolve_device(device)
     config = LlamaCheckpointConfig.load(checkpoint_dir)
@@ -186,6 +189,7 @@ def load_llama_blocks(
             f"{uid_prefix}{layer}",
             module,
             sample_input=np.zeros((2, 8, config.hidden_size), np.float32),
+            optimizer=optimizer,
             params=_block_params_from_hf(reader, layer),
             max_batch_size=max_batch_size,
             weight_quantization=weight_quantization,

@@ -9,12 +9,22 @@ module itself is kept as a shell on the ``meta`` device, so an int8 backend hold
 only its int8 codes resident. PyTorch runs eagerly on any batch size, so nothing
 is padded to a bucket; ``bucket_batch_size`` still sizes the TaskPool's reused
 assembly buffers.
+
+Training: ``backward`` takes the gradients with ``functional_call`` on parameter
+tensors that require grad and ``torch.autograd.grad``, then applies one step of
+the backend's optimizer (built by the ``optimizer`` factory over the parameter
+tensors). The step updates the parameters IN PLACE, so a 7B-width block keeps no
+second copy of its weights. ``forward`` and ``backward`` both hold
+``_state_lock`` for as long as they use the parameters, so no forward reads a
+tensor while a step rewrites it (the ``Runtime`` thread runs one batch at a time
+anyway; the lock covers callers outside it). Every kernel is queued on the same
+stream, so work queued before a step runs before it on the card too.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Callable, Dict, Iterable, List, Optional, Union
 
 import numpy as np
 import torch
@@ -49,13 +59,17 @@ class ModuleBackend:
     :param module: an ``nn.Module`` taking one tensor and returning one tensor or
         a tuple of tensors
     :param sample_input: schema-defining input WITH batch dim
+    :param optimizer: a factory ``params -> torch.optim.Optimizer`` over the
+        expert's parameter tensors, stepped on every ``backward``; None is plain
+        SGD with learning rate 0 (the expert reports gradients and stays as it is)
     :param params: the expert's weights (``name -> tensor``, matching the module's
         parameter names and shapes), e.g. a checkpoint's; when omitted, the
         parameters are initialized from ``rng_seed``
     :param rng_seed: seeds the ``torch.Generator`` that initializes the parameters
     :param weight_quantization: ``"int8"`` stores the expert's weight matrices with
         the blockwise absmax codec (4x less resident memory; dense weights are
-        materialized transiently inside each forward). Serving-only.
+        materialized transiently inside each forward). Serving-only: ``backward``
+        raises.
     :param device: ``"cuda"`` by default; ``"cpu"`` runs the plain PyTorch path.
         Without a card, the default raises.
     """
@@ -66,6 +80,7 @@ class ModuleBackend:
         module: nn.Module,
         *,
         sample_input: np.ndarray,
+        optimizer: Optional[Callable[[Iterable[torch.Tensor]], torch.optim.Optimizer]] = None,
         params: Optional[Dict[str, torch.Tensor]] = None,
         max_batch_size: int = 4096,
         rng_seed: int = 0,
@@ -78,6 +93,8 @@ class ModuleBackend:
         self.name, self.max_batch_size = name, max_batch_size
         self.weight_quantization = weight_quantization
         self._state_lock = threading.Lock()
+        self._make_optimizer = optimizer or (lambda tensors: torch.optim.SGD(tensors, lr=0.0))
+        self.update_count = 0
 
         if any(True for _ in module.buffers()):
             raise ValueError("ModuleBackend serves modules whose state is parameters only")
@@ -96,6 +113,7 @@ class ModuleBackend:
             sample = self._to_device(np.asarray(sample_input)[:1])
             sample_out = _as_tuple(torch.func.functional_call(self.module, dense, (sample,)))
         self.params = quantize_params(dense) if weight_quantization else dense
+        self.optimizer = None if weight_quantization else self._make_optimizer(list(self.params.values()))
 
         self.forward_schema = (BatchTensorDescriptor.from_tensor(np.asarray(sample_input)),)
         self.outputs_schema = tuple(BatchTensorDescriptor.from_tensor(out) for out in sample_out)
@@ -111,23 +129,27 @@ class ModuleBackend:
         for key, tensor in params.items():
             if tuple(tensor.shape) != self._shapes[key]:
                 raise ValueError(f"expert {self.name!r}: {key} has shape {tuple(tensor.shape)}, expected {self._shapes[key]}")
-        return {key: torch.as_tensor(tensor).to(self.device, torch.float32) for key, tensor in params.items()}
+        # copied: the optimizer updates the backend's tensors in place
+        return {key: torch.as_tensor(tensor).to(self.device, torch.float32, copy=True) for key, tensor in params.items()}
 
     # ------------------------------------------------------------------ execution
 
     def snapshot_params(self) -> Dict[str, Union[torch.Tensor, QuantizedTensor]]:
-        """The current parameter dict under the state lock (for read-only use)."""
+        """The current parameter dict under the state lock (for read-only use; a
+        later ``backward`` updates its tensors in place)."""
         with self._state_lock:
             return self.params
 
     def load_params(self, params: Dict[str, torch.Tensor]) -> None:
         """Replace the expert's weights (e.g. with a pretrained checkpoint's). The
         dict must match the init schema (names and shapes); quantized backends
-        re-encode to int8 on the device."""
+        re-encode to int8 on the device; trainable ones restart the optimizer's
+        statistics for the new weights."""
         dense = self._dense_params(params)
         new_params = quantize_params(dense) if self.weight_quantization else dense
+        new_optimizer = None if self.weight_quantization else self._make_optimizer(list(new_params.values()))
         with self._state_lock:
-            self.params = new_params
+            self.params, self.optimizer = new_params, new_optimizer
 
     def param_bytes(self) -> int:
         """Resident bytes of this expert's weights (int8 codes count, not the
@@ -136,16 +158,35 @@ class ModuleBackend:
 
     def forward(self, x: np.ndarray) -> List[np.ndarray]:
         """Inference on a concatenated batch (no parameter updates)."""
-        params = self.snapshot_params()
-        with torch.inference_mode():
-            outs = _as_tuple(torch.func.functional_call(self.module, dequantize_tree(params), (self._to_device(x),)))
-        return [out.to("cpu").numpy() for out in outs]
+        x = self._to_device(x)
+        with self._state_lock, torch.inference_mode():
+            outs = _as_tuple(torch.func.functional_call(self.module, dequantize_tree(self.params), (x,)))
+            return [out.to("cpu").numpy() for out in outs]
 
     def backward(self, *tensors: np.ndarray) -> List[np.ndarray]:
-        raise NotImplementedError(
-            f"expert {self.name!r}: backward and training come with the training slice of the "
-            f"PyTorch port (flash backward kernels, ALBERT MLM); this slice serves forward only"
-        )
+        """Gradients with respect to the input; ALSO applies one optimizer step to
+        the expert (the server trains on every backward call). ``tensors`` = the
+        forward input followed by one gradient per output."""
+        if self.weight_quantization is not None:
+            raise RuntimeError(
+                f"expert {self.name!r} serves int8 weight-only (inference-only): "
+                f"backward/training is not supported on quantized weights"
+            )
+        if len(tensors) != 1 + len(self.outputs_schema):
+            raise ValueError(f"expert {self.name!r}: expected the input and {len(self.outputs_schema)} output "
+                             f"gradient(s), got {len(tensors)} tensors")
+        x = self._to_device(tensors[0]).requires_grad_(True)
+        grad_outputs = [self._to_device(g) for g in tensors[1:]]
+        with self._state_lock, torch.enable_grad():
+            leaves = {key: tensor.detach().requires_grad_(True) for key, tensor in self.params.items()}
+            outs = _as_tuple(torch.func.functional_call(self.module, leaves, (x,)))
+            grads = torch.autograd.grad(outs, [x, *leaves.values()], grad_outputs=grad_outputs, allow_unused=True)
+            for tensor, grad in zip(self.params.values(), grads[1:]):
+                tensor.grad = grad
+            self.optimizer.step()
+            self.optimizer.zero_grad(set_to_none=True)
+            self.update_count += 1
+            return [grads[0].to("cpu").numpy()]
 
     # ------------------------------------------------------------------ metadata
 
@@ -154,5 +195,5 @@ class ModuleBackend:
             forward_schema=list(self.forward_schema),
             outputs_schema=list(self.outputs_schema),
             max_batch_size=self.max_batch_size,
-            updates=0,  # serving only: no optimizer steps until the training slice
+            updates=self.update_count,
         )

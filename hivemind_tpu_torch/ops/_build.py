@@ -25,7 +25,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "hivemind_tpu_torch"
-SOURCES = ("blockwise_int8", "flash_attention")
+SOURCES = ("blockwise_int8", "flash_attention", "flash_attention_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo",

@@ -1,14 +1,19 @@
-"""Fused flash-attention forward: the wrapper of the Hopper kernel in
-``csrc/flash_attention.cu`` (the port of the forward half of
-hivemind_tpu/ops/pallas_attention.py), its plain PyTorch version, and
-``attention_auto``, the dispatch the expert blocks call.
+"""Fused flash attention, both directions: the wrappers of the Hopper kernels in
+``csrc/flash_attention.cu`` (forward) and ``csrc/flash_attention_bwd.cu`` (the dQ
+pass and the dK/dV pass of the backward), the port of
+hivemind_tpu/ops/pallas_attention.py; their plain PyTorch versions; the
+``torch.autograd.Function`` that joins them; and ``attention_auto``, the dispatch
+the expert blocks and ALBERT call.
 
 Layout is the JAX package's: q, k, v ``[B, T, H, D]`` → out ``[B, T, H, D]`` in the
-input dtype and lse ``[B, H, T]`` fp32. Forward-only in this slice: the
-``torch.autograd.Function`` with the two backward kernels comes with training.
+input dtype and lse ``[B, H, T]`` fp32. The backward recomputes the probabilities
+from the saved lse (``p = exp(s·scale − lse)``), with ``δ = rowsum(dO∘O)`` taken
+outside the kernels, as the JAX package does.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it launches
-the kernel or raises. ``flash_attention_lse.launches`` counts kernel launches.
+the kernel or raises. Each kernel wrapper counts its launches in ``.launches``
+(``flash_attention_lse``, ``flash_attention_backward_dq``,
+``flash_attention_backward_dkv``).
 """
 
 from __future__ import annotations
@@ -25,15 +30,20 @@ SUPPORTED_HEAD_DIMS = (64, 128)
 _NEG_INF = -1e30  # large-but-finite: keeps fully-masked rows NaN-free
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """What the kernel computes, in plain PyTorch: fp32 math on any input dtype
-    (the TPU kernel also casts its tiles to fp32), masking with -1e30."""
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
+    """``q·kᵀ·D^-½`` in fp32 as ``[B, H, T, T]``, causal entries set to -1e30."""
     seq = q.shape[1]
-    scale = q.shape[-1] ** -0.5
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32), k.to(torch.float32)) * scale
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32), k.to(torch.float32)) * q.shape[-1] ** -0.5
     if causal:
         positions = torch.arange(seq, device=q.device)
         scores = scores.masked_fill(positions[None, :] > positions[:, None], _NEG_INF)
+    return scores
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What the kernel computes, in plain PyTorch: fp32 math on any input dtype
+    (the TPU kernel also casts its tiles to fp32), masking with -1e30."""
+    scores = _scores(q, k, causal)
     lse = torch.logsumexp(scores, dim=-1)
     probs = torch.exp(scores - lse[..., None])
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v.to(torch.float32))
@@ -54,15 +64,21 @@ def _library() -> ctypes.CDLL:
     return library
 
 
-def _check_cuda_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    for name, tensor in (("q", q), ("k", k), ("v", v)):
+def _bf16_aligned(t: torch.Tensor) -> bool:
+    """What the bf16 kernels' 16-byte loads need: a 16-byte aligned base and
+    batch, time and head strides that are multiples of 8 elements."""
+    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
+
+
+def _check_cuda_inputs(q: torch.Tensor, *others: Tuple[str, torch.Tensor]) -> None:
+    for name, tensor in (("q", q), *others):
         if tensor.device != q.device or tensor.device.type != "cuda":
             raise ValueError(f"q, k, v must lie on one CUDA device; {name} is on {tensor.device}")
         if tensor.dtype != q.dtype:
             raise TypeError(f"q, k, v must share a dtype; {name} is {tensor.dtype}, q is {q.dtype}")
         if tensor.stride(-1) != 1:
             raise ValueError(f"{name}'s last (head_dim) dimension must be contiguous")
-        if q.dtype == torch.bfloat16 and (tensor.data_ptr() % 16 or any(s % 8 for s in tensor.stride()[:3])):
+        if q.dtype == torch.bfloat16 and not _bf16_aligned(tensor):
             raise ValueError(f"bf16 {name} must be 16-byte aligned with strides that are multiples of 8")
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"the flash kernel takes bfloat16 or float32, got {q.dtype}")
@@ -72,14 +88,23 @@ def _check_cuda_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Non
         raise ValueError(f"shape {tuple(q.shape)} exceeds the kernel's grid")
 
 
-def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fused attention on full ``[B, T, H, D]`` sequences (q, k, v of one shape)
-    returning ``(out, lse)``; ``lse`` is ``[B, H, T]`` fp32."""
+def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"expected q, k, v of one [B, T, H, D] shape, got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
+
+
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused attention on full ``[B, T, H, D]`` sequences (q, k, v of one shape)
+    returning ``(out, lse)``; ``lse`` is ``[B, H, T]`` fp32. Forward only, as in
+    the JAX package: ``flash_attention`` is the differentiable entry."""
+    _check_shapes(q, k, v)
+    if _on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, causal)
-    _check_cuda_inputs(q, k, v)
+    _check_cuda_inputs(q, ("k", k), ("v", v))
     batch, seq, heads, head_dim = q.shape
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((batch, heads, seq), dtype=torch.float32, device=q.device)
@@ -105,16 +130,170 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causa
 flash_attention_lse.launches = 0
 
 
+# ------------------------------------------------------------------ backward
+
+
+def flash_backward_terms(q, k, v, dout, lse, delta, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The per-pair terms both backward passes share (the JAX ``_bwd_tile``), in
+    fp32 as ``[B, H, T, T]``: ``p = exp(s·scale − lse)`` recomputed from the saved
+    lse, and ``dS = p∘(dO·Vᵀ − δ)·scale``. ``delta`` is ``[B, H, T]`` fp32."""
+    p = torch.exp(_scores(q, k, causal) - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", dout.to(torch.float32), v.to(torch.float32))
+    ds = p * (dp - delta[..., None]) * q.shape[-1] ** -0.5
+    return p, ds
+
+
+def flash_attention_backward_dq_plain(q, k, v, dout, lse, delta, causal: bool = False) -> torch.Tensor:
+    """The dQ pass in plain PyTorch: ``dQ = Σ_kv dS·K``, fp32 math, q's dtype out."""
+    _, ds = flash_backward_terms(q, k, v, dout, lse, delta, causal)
+    return torch.einsum("bhqk,bkhd->bqhd", ds, k.to(torch.float32)).to(q.dtype)
+
+
+def flash_attention_backward_dkv_plain(q, k, v, dout, lse, delta, causal: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dK/dV pass in plain PyTorch: ``dK = Σ_q dSᵀ·Q``, ``dV = Σ_q Pᵀ·dO``."""
+    p, ds = flash_backward_terms(q, k, v, dout, lse, delta, causal)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.to(torch.float32))
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dout.to(torch.float32))
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """``δ = rowsum(dO∘O)`` in fp32, as ``[B, H, T]`` contiguous."""
+    return (dout.to(torch.float32) * out.to(torch.float32)).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_attention_backward_plain(q, k, v, out, lse, dout, causal: bool = False) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The whole backward in plain PyTorch, from the forward's ``(out, lse)``: the
+    algorithm of the JAX kernels' two passes, without autograd."""
+    dout = dout.to(q.dtype)
+    delta = _delta(out, dout)
+    dq = flash_attention_backward_dq_plain(q, k, v, dout, lse, delta, causal)
+    return (dq, *flash_attention_backward_dkv_plain(q, k, v, dout, lse, delta, causal))
+
+
+def _bwd_library() -> ctypes.CDLL:
+    library = _build.load_library("flash_attention_bwd")
+    for fn, outputs in ((library.hm_flash_backward_dq, 1), (library.hm_flash_backward_dkv, 2)):
+        if fn.argtypes is None:
+            # q, k, v, dout, lse, delta, outputs; B, T, H, D; strides of q, k, v, dout
+            # and of the outputs (one layout for all outputs); causal, is_bf16, scale, stream
+            fn.argtypes = (
+                [ctypes.c_void_p] * (6 + outputs)
+                + [ctypes.c_int] * 4
+                + [ctypes.c_longlong] * 15
+                + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+            )
+            fn.restype = ctypes.c_int
+    return library
+
+
+def _launch_backward(name: str, q, k, v, dout, lse, delta, outputs, causal: bool) -> None:
+    batch, seq, heads, head_dim = q.shape
+    library = _bwd_library()
+    out0 = outputs[0]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        status = getattr(library, name)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            *(t.data_ptr() for t in outputs),
+            batch, seq, heads, head_dim,
+            *(t.stride(i) for t in (q, k, v, dout, out0) for i in range(3)),
+            int(causal), int(q.dtype == torch.bfloat16), head_dim ** -0.5, stream,
+        )
+    _build.check_launch(library, status, name)
+
+
+def _check_backward_inputs(q, k, v, dout, lse, delta) -> None:
+    _check_shapes(q, k, v)
+    if dout.shape != q.shape:
+        raise ValueError(f"dout has shape {tuple(dout.shape)}, expected {tuple(q.shape)}")
+    _check_cuda_inputs(q, ("k", k), ("v", v), ("dout", dout))
+    rows = (q.shape[0], q.shape[2], q.shape[1])
+    for name, tensor in (("lse", lse), ("delta", delta)):
+        if tensor.shape != rows or tensor.dtype != torch.float32 or not tensor.is_contiguous() or tensor.device != q.device:
+            raise ValueError(f"{name} must be a contiguous fp32 [B, H, T] tensor on {q.device}")
+
+
+def flash_attention_backward_dq(q, k, v, dout, lse, delta, causal: bool = False) -> torch.Tensor:
+    """The dQ pass (``_flash_bwd_dq_kernel``): ``dq`` in q's dtype."""
+    if _on_cpu(q, k, v, dout, lse, delta):
+        return flash_attention_backward_dq_plain(q, k, v, dout, lse, delta, causal)
+    _check_backward_inputs(q, k, v, dout, lse, delta)
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    if dq.numel() == 0:
+        return dq
+    _launch_backward("hm_flash_backward_dq", q, k, v, dout, lse, delta, (dq,), causal)
+    flash_attention_backward_dq.launches += 1
+    return dq
+
+
+def flash_attention_backward_dkv(q, k, v, dout, lse, delta, causal: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dK/dV pass (``_flash_bwd_dkv_kernel``): ``(dk, dv)`` in k's and v's dtype."""
+    if _on_cpu(q, k, v, dout, lse, delta):
+        return flash_attention_backward_dkv_plain(q, k, v, dout, lse, delta, causal)
+    _check_backward_inputs(q, k, v, dout, lse, delta)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    if dk.numel() == 0:
+        return dk, dv
+    _launch_backward("hm_flash_backward_dkv", q, k, v, dout, lse, delta, (dk, dv), causal)
+    flash_attention_backward_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_backward_dq.launches = 0
+flash_attention_backward_dkv.launches = 0
+
+
+def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when the kernels can read it through its strides, else a
+    contiguous copy (a gradient from autograd may be broadcast or misaligned)."""
+    readable = t.stride(-1) == 1 and (t.dtype != torch.bfloat16 or _bf16_aligned(t))
+    return t if readable else t.contiguous()
+
+
+def flash_attention_backward(q, k, v, out, lse, dout, causal: bool = False) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` from the forward's ``(out, lse)`` and the cotangent ``dout``
+    (cast to q's dtype first, as the JAX package's ``_flash_bwd``): the dQ kernel,
+    then the dK/dV kernel; ``δ`` is computed here, outside both."""
+    dout = dout.to(q.dtype)
+    if _on_cpu(q, k, v, out, lse, dout):
+        return flash_attention_backward_plain(q, k, v, out, lse, dout, causal)
+    dout = _kernel_layout(dout)
+    delta = _delta(out, dout)
+    dq = flash_attention_backward_dq(q, k, v, dout, lse, delta, causal)
+    return (dq, *flash_attention_backward_dkv(q, k, v, dout, lse, delta, causal))
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """``flash_attention`` with its fused backward (the JAX ``custom_vjp``): the
+    forward saves ``(q, k, v, out, lse)``; the backward runs the two passes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        out, lse = flash_attention_lse(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, dout, ctx.causal)
+        return dq, dk, dv, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False) -> torch.Tensor:
     """Fused flash attention on ``[B, T, H, D]`` (full sequences; for padded batches
-    use the mask-capable ``plain_attention``). Forward only in this slice."""
-    return flash_attention_lse(q, k, v, causal)[0]
+    use the mask-capable ``plain_attention``), differentiable through the two
+    backward kernels."""
+    return FlashAttentionFunction.apply(q, k, v, causal)
 
 
 def attention_auto(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[torch.Tensor] = None, causal: bool = False) -> torch.Tensor:
-    """The attention core of the expert blocks: the flash kernel for unmasked square
-    attention on CUDA tensors, ``plain_attention`` for a padding mask, for
-    q_len != k_len (its causal mask is end-aligned) and on the CPU."""
+    """The attention core of the expert blocks and ALBERT: the flash kernels for
+    unmasked square attention on CUDA tensors, ``plain_attention`` for a padding
+    mask, for q_len != k_len (its causal mask is end-aligned) and on the CPU."""
     if mask is None and q.shape[1] == k.shape[1] and q.is_cuda:
         return flash_attention(q, k, v, causal)
     return plain_attention(q, k, v, mask=mask, causal=causal)

@@ -1,10 +1,10 @@
-"""The plain attention core (the port of ``plain_attention``,
-hivemind_tpu/parallel/ring_attention.py:186-211). Ring attention over several
-cards waits for the multi-GPU slice."""
+"""The attention cores of hivemind_tpu/parallel/ring_attention.py: ``plain_attention``
+and the single-device branch of ``mesh_attention_core``. Ring attention over
+several cards (any mesh) waits for the multi-GPU slice."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
@@ -33,3 +33,22 @@ def plain_attention(
         scores = scores.masked_fill(~tri, neg)
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def mesh_attention_core(
+    mesh: Any,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    causal: bool = False,
+) -> torch.Tensor:
+    """The attention dispatch of mesh-aware models. With ``mesh`` None it is
+    ``attention_auto``: the flash kernels on unmasked CUDA tensors (the ALBERT
+    train step, whose loss encodes without a mask), ``plain_attention`` otherwise.
+    Any mesh raises: sequence-parallel ring attention comes with the multi-GPU slice."""
+    if mesh is not None:
+        raise NotImplementedError("a mesh (sequence-parallel ring attention) comes with the multi-GPU slice of the port")
+    from hivemind_tpu_torch.ops.flash_attention import attention_auto
+
+    return attention_auto(q, k, v, mask=mask, causal=causal)

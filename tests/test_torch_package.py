@@ -36,20 +36,27 @@ assert not torch.cuda.is_available()
 from hivemind_tpu_torch.moe.server.layers import NopExpert
 from hivemind_tpu_torch.moe.server.llama_loader import device_hbm_bytes, load_llama_blocks
 from hivemind_tpu_torch.moe.server.module_backend import ModuleBackend
+from hivemind_tpu_torch.models.albert import AlbertConfig, make_train_step
 refused = 0
 for entry_point in (
     lambda: ModuleBackend("nop", NopExpert(4), sample_input=np.zeros((1, 4), np.float32)),
     lambda: load_llama_blocks("/nonexistent"),
     lambda: device_hbm_bytes(),
+    lambda: make_train_step(AlbertConfig.tiny(), lambda params: torch.optim.AdamW(params)),
 ):
     try:
         entry_point()
     except RuntimeError as e:
         assert "no CUDA device" in str(e), e
         refused += 1
-assert refused == 3, refused
+assert refused == 4, refused
 backend = ModuleBackend("nop", NopExpert(4), sample_input=np.zeros((1, 4), np.float32), device="cpu")
 assert backend.forward(np.ones((2, 4), np.float32))[0].tolist() == [[1.0] * 4] * 2
+assert backend.backward(np.ones((2, 4), np.float32), np.ones((2, 4), np.float32))[0].tolist() == [[1.0] * 4] * 2
+import hivemind_tpu_torch.models.albert
+assert "flash_attention_bwd" in hivemind_tpu_torch.ops._build.SOURCES
+leaked = sorted(name for name in sys.modules if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "hivemind_tpu"))
+assert not leaked, leaked
 print("isolated")
 """
 

@@ -207,8 +207,9 @@ def test_int8_backend_stays_close_to_fp_and_refuses_backward():
     q8 = ModuleBackend("q8", make(), sample_input=x, device="cpu", rng_seed=3, weight_quantization="int8")
     assert q8.param_bytes() < fp.param_bytes() / 3
     assert _max_rel_err(q8.forward(x)[0], fp.forward(x)[0]) < INT8_VS_FP_REL_ERR
-    with pytest.raises(NotImplementedError, match="training slice"):
-        fp.backward(x, x)
+    with pytest.raises(RuntimeError, match="int8 weight-only"):  # as the JAX backend
+        q8.backward(x, x)
+    assert q8.get_info()["updates"] == 0
     with pytest.raises(KeyError, match="missing"):
         fp.load_params({})
 
@@ -224,6 +225,22 @@ def test_int8_backend_stays_close_to_fp_and_refuses_backward():
         ModuleBackend("bad", make(), sample_input=x, device="cpu", params=wrong_shape)
     with pytest.raises(KeyError, match="missing"):
         ModuleBackend("bad", make(), sample_input=x, device="cpu", params={})
+
+    # the fp backend trains: the default optimizer is SGD at learning rate 0, so it
+    # reports input gradients and counts the update without moving its weights
+    before = {key: tensor.clone() for key, tensor in fp.snapshot_params().items()}
+    (grad,) = fp.backward(x, np.ones_like(x))
+    assert grad.shape == x.shape and np.isfinite(grad).all() and np.abs(grad).max() > 0
+    assert fp.update_count == fp.get_info()["updates"] == 1
+    assert all(torch.equal(before[key], tensor) for key, tensor in fp.snapshot_params().items())
+    with pytest.raises(ValueError, match="gradient"):
+        fp.backward(x)
+    # weights given at construction are copied: training one backend leaves the other as it was
+    trained = ModuleBackend("trained", make(), sample_input=x, device="cpu", params=fp.snapshot_params(),
+                            optimizer=lambda tensors: torch.optim.SGD(tensors, lr=1e-2))
+    trained.backward(x, np.ones_like(x))
+    assert not np.array_equal(trained.forward(x)[0], fp.forward(x)[0])
+    np.testing.assert_array_equal(given.forward(x)[0], fp.forward(x)[0])
 
 
 # ------------------------------------------------------------------ task pool
