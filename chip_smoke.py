@@ -26,6 +26,7 @@ import asyncio
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -83,7 +84,12 @@ FLASH_BWD_TOL = {
     "bfloat16": dict(atol=1e-5, rtol=3 * BF16_UNIT_ROUNDOFF, max_abs=6.25e-2, rel_l2=2 * BF16_UNIT_ROUNDOFF),
     "float32": dict(atol=1e-5, rtol=1.2e-4, max_abs=1e-3, rel_l2=1e-5),
 }
-FAULTY_TILE = 64  # a planted fault the check must reject: dS 5% too large on every other 64-wide tile
+FAULTY_TILE = 64  # planted faults the checks must reject: P (forward) or dS (backward) 5% too large on every other 64-wide tile
+# q, k, v sliced from one fused [B, T, 3, H, D] tensor (T stride 3*H*D): the TMA views of a
+# projection that is not split into three tensors, for each head_dim, held like FLASH_SHAPES
+STRIDED_CASES = [((2, 1000, 16, 64), True), ((1, 512, 32, 128), False)]
+# the kernels that issue wgmma fed by TMA, with setmaxnreg: the build fails if one spills
+WGMMA_KERNELS = ("flash_forward_bf16", "flash_bwd_dkv_bf16")
 # ALBERT-base MLM training, bench.py's workload: its first batch candidate
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_WARMUP, TRAIN_STEPS = 32, 512, 2, 10
 TRAIN_MASKED_FRACTION = 0.25
@@ -132,16 +138,26 @@ def bound_ms(operations: float, op_rate: float, nbytes: float, byte_rate: float)
     return (op_ms, "operations") if op_ms >= byte_ms else (byte_ms, "bytes")
 
 
+SPIN_CYCLES_PER_MS = 2.0e6  # at least an H100's clock (1.98 GHz boost): n ms of cycles spin >= n ms
+
+
 def time_ms(torch, fn, budget_ms: float = 300.0) -> float:
-    """Mean device time of one call, by CUDA events over a run of calls after warm-up."""
+    """Mean device time of one call, by CUDA events over a run of calls after
+    warm-up. The run is queued behind a spin kernel that outlasts the host's time
+    to queue it, so the calls run back to back on the card and the reading is
+    device time even where a call's host overhead exceeds it (``host_us`` reads
+    that overhead)."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    started = time.perf_counter()
     start.record()
     fn()
     end.record()
+    host_ms = (time.perf_counter() - started) * 1e3
     torch.cuda.synchronize()
     iters = int(max(3, min(100, budget_ms / max(start.elapsed_time(end), 1e-3))))
+    torch.cuda._sleep(int(SPIN_CYCLES_PER_MS * (2.0 * iters * host_ms + 1.0)))
     start.record()
     for _ in range(iters):
         fn()
@@ -153,16 +169,73 @@ def time_ms(torch, fn, budget_ms: float = 300.0) -> float:
 # ---------------------------------------------------------------- phases
 
 
+def kernel_name(mangled: str) -> str:
+    """``name<D>`` from an Itanium-mangled kernel symbol (the last of its nested names)."""
+    names, i = [], mangled.find("N") + 1
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        names.append(mangled[j : j + int(mangled[i:j])])
+        i = j + int(mangled[i:j])
+    template = re.match(r"ILi(\d+)E", mangled[i:])
+    return (names[-1] if names else mangled) + (f"<{template.group(1)}>" if template else "")
+
+
+def ptxas_report(log: str):
+    """Per kernel, from nvcc's ``-Xptxas -v`` log: registers at launch (setmaxnreg
+    moves them between warpgroups later) and spill stores/loads in bytes; and
+    every warning line and numbered note (C7508: a setmaxnreg that ptxas ignored;
+    C7520: wgmmas that ptxas serialized)."""
+    kernels, warnings, current = {}, [], None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)", line)
+        if entry:
+            current = kernel_name(entry.group(1))
+            kernels[current] = {}
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill and current:
+            kernels[current]["spill"] = (int(spill.group(1)), int(spill.group(2)))
+        used = re.search(r"Used (\d+) registers", line)
+        if used and current:
+            kernels[current]["registers"] = int(used.group(1))
+        if "warning" in line.lower() or re.search(r"\(C\d{4}\)", line):
+            warnings.append(line.strip())
+    return kernels, warnings
+
+
 def phase_build(torch):
     from hivemind_tpu_torch.ops import _build
 
     started = time.perf_counter()
     _build.build_all()
     log(f"[build] {len(_build.SOURCES)} kernel libraries built in {time.perf_counter() - started:.2f} s")
+    faults = []
     for name in _build.SOURCES:
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+        kernels, warnings = ptxas_report(_build.build_log(name))
+        for kernel, info in kernels.items():
+            stores, loads = info.get("spill", (0, 0))
+            log(f"[build] {name}: {kernel}: {info.get('registers')} registers, spill stores {stores} B, loads {loads} B")
+            if kernel.split("<")[0] in WGMMA_KERNELS and stores + loads:
+                faults.append(f"{kernel} spills {stores} + {loads} bytes")
+        for warning in warnings:
+            log(f"[build] {name}: {warning}")
+            if any(mark in warning for mark in ("C7508", "setmaxnreg", "C7520")):
+                faults.append(f"{name}: {warning}")
+    if faults:
+        raise AssertionError("; ".join(faults))
+
+
+def host_us(torch, fn, calls: int = 50) -> float:
+    """Mean host time of one call of ``fn``, which only enqueues work: the
+    wrapper's overhead (checks, TMA geometry, map encoding, launch)."""
+    torch.cuda.synchronize()
+    started = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - started
+    torch.cuda.synchronize()
+    return elapsed / calls * 1e6
 
 
 def error_reading(got, ref, scale, tol: dict, mantissa_bits: int) -> dict:
@@ -189,6 +262,34 @@ def format_reading(reading: dict) -> str:
             f"limit (err {reading['err']:.3e} at ref {reading['ref']:.4g}, {reading['ulps']:.2f} ulp)")
 
 
+def faulty_forward(torch, q, k, v, causal):
+    """The forward with P 5% too large on every other 64-wide KV tile, in fp32 with
+    the output rounded to q's dtype: what the check must reject."""
+    from hivemind_tpu_torch.ops.flash_attention import _scores
+
+    scores = _scores(q, k, causal)
+    probs = torch.exp(scores - torch.logsumexp(scores, dim=-1, keepdim=True))
+    off = 1.0 + 0.05 * ((torch.arange(q.shape[1], device=q.device) // FAULTY_TILE) % 2)
+    return torch.einsum("bhqk,bkhd->bqhd", probs * off, v.float()).to(q.dtype)
+
+
+def plain_forward(torch, q, k, v, causal):
+    """The plain version's (out, lse) and each output's scale, sum_j p_j*|v_j|."""
+    from hivemind_tpu_torch.ops.flash_attention import flash_attention_plain
+
+    ref_out, ref_lse = flash_attention_plain(q, k, v, causal)
+    out_scale = flash_attention_plain(q, k, v.abs(), causal)[0]
+    torch.cuda.synchronize()
+    return ref_out, ref_lse, out_scale
+
+
+def read_forward(out, lse, reference, dtype_name):
+    """The kernel's (out, lse) against ``plain_forward``'s: (out reading, lse reading)."""
+    ref_out, ref_lse, out_scale = reference
+    return (error_reading(out, ref_out, out_scale, FLASH_TOL[dtype_name], MANTISSA_BITS[dtype_name]),
+            error_reading(lse, ref_lse, ref_lse.abs(), LSE_TOL, MANTISSA_BITS["float32"]))
+
+
 def phase_flash(torch, peaks) -> dict:
     import torch.nn.functional as F
 
@@ -202,21 +303,24 @@ def phase_flash(torch, peaks) -> dict:
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = (t.to(dtype) for t in base)
             dtype_name = str(dtype).removeprefix("torch.")
-            tol = FLASH_TOL[dtype_name]
             for causal in (False, True):
                 out, lse = flash_attention_lse(q, k, v, causal)
-                ref_out, ref_lse = flash_attention_plain(q, k, v, causal)
-                torch.cuda.synchronize()
-                out_scale = flash_attention_plain(q, k, v.abs(), causal)[0]
-                torch.cuda.synchronize()
-                out_reading = error_reading(out, ref_out, out_scale, tol, MANTISSA_BITS[dtype_name])
-                lse_reading = error_reading(lse, ref_lse, ref_lse.abs(), LSE_TOL, MANTISSA_BITS["float32"])
+                reference = plain_forward(torch, q, k, v, causal)
+                out_reading, lse_reading = read_forward(out, lse, reference, dtype_name)
                 readings = f"out {format_reading(out_reading)}; lse {format_reading(lse_reading)}"
+                label = f"B={batch} T={seq} H={heads} D={dim} {dtype_name} causal={causal}"
                 if not (out_reading["ok"] and lse_reading["ok"]):
-                    raise AssertionError(f"flash B={batch} T={seq} H={heads} D={dim} {dtype_name} causal={causal} "
-                                         f"exceeds out {tol}, lse {LSE_TOL}: {readings}")
+                    raise AssertionError(f"flash {label} exceeds out {FLASH_TOL[dtype_name]}, lse {LSE_TOL}: {readings}")
+                if shape == ALBERT_ATTENTION and dtype == torch.bfloat16 and not causal:  # a planted fault, rejected
+                    faulty = read_forward(faulty_forward(torch, q, k, v, causal), lse, reference, dtype_name)[0]
+                    log(f"[flash] {label}, P x 1.05 on every other KV tile (planted in the plain version): "
+                        f"out {format_reading(faulty)} ok={faulty['ok']}")
+                    if faulty["ok"]:
+                        raise AssertionError("flash check passed a P that is 5% off on half the KV tiles")
+                del reference
                 err, lse_err = out_reading["max_abs"], lse_reading["max_abs"]
                 ms = time_ms(torch, lambda: flash_attention_lse(q, k, v, causal))
+                host = host_us(torch, lambda: flash_attention_lse(q, k, v, causal))
                 plain_ms = time_ms(torch, lambda: flash_attention_plain(q, k, v, causal))
                 qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
                 library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal))
@@ -225,12 +329,22 @@ def phase_flash(torch, peaks) -> dict:
                 nbytes = 4 * q.numel() * q.element_size() + lse.numel() * 4
                 rate = peaks["bf16"] if dtype == torch.bfloat16 else peaks["fp32"]
                 bound, bound_by = bound_ms(operations, rate, nbytes, peaks["bytes"])
-                log(f"[flash] B={batch} T={seq} H={heads} D={dim} {dtype_name} causal={causal}: max_err={err:.3e} lse_err={lse_err:.3e} "
-                    f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} bound_ms={bound:.4f} ({bound_by})")
+                log(f"[flash] {label}: max_err={err:.3e} lse_err={lse_err:.3e} ms={ms:.4f} "
+                    f"({operations / ms / 1e9:.1f} TFLOP/s) host_us={host:.1f} plain_ms={plain_ms:.4f} "
+                    f"library_ms={library_ms:.4f} bound_ms={bound:.4f} ({bound_by})")
                 log(f"[flash]   {readings}")
                 if shape == (1, 2048, 32, 128) and causal and dtype == torch.bfloat16:  # the longest served request
                     main_entry = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                                       bound_by=bound_by, library_ms=library_ms)
+    for (batch, seq, heads, dim), causal in STRIDED_CASES:
+        fused = torch.from_numpy(rng.standard_normal((batch, seq, 3, heads, dim), dtype=np.float32)).cuda().bfloat16()
+        q, k, v = fused.unbind(2)
+        out, lse = flash_attention_lse(q, k, v, causal)
+        out_reading, lse_reading = read_forward(out, lse, plain_forward(torch, q, k, v, causal), "bfloat16")
+        readings = f"out {format_reading(out_reading)}; lse {format_reading(lse_reading)}"
+        log(f"[flash] q, k, v of one fused [{batch}, {seq}, 3, {heads}, {dim}] bf16 tensor, causal={causal}: {readings}")
+        if not (out_reading["ok"] and lse_reading["ok"]):
+            raise AssertionError(f"flash on a fused qkv tensor exceeds its limits: {readings}")
     return main_entry
 
 
@@ -354,24 +468,38 @@ def phase_flash_bwd(torch, peaks) -> dict:
         plain_ms = {"dq": time_ms(torch, lambda: flash_attention_backward_dq_plain(*args), budget_ms=100.0),
                     "dkv": time_ms(torch, lambda: flash_attention_backward_dkv_plain(*args), budget_ms=100.0)}
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-        dot = dout.transpose(1, 2)
-        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
-        library_ms = (time_ms(torch, lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot))
-                      - time_ms(torch, sdpa))  # its backward: fwd+bwd minus fwd
+        sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)  # one retained forward
+        library_ms = time_ms(torch, lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dout.transpose(1, 2),
+                                                                retain_graph=True))
+        del sdpa_out
         pairs = seq * (seq + 1) / 2 if causal else seq * seq  # query-key pairs this data needs
         element, rows = q.numel() * q.element_size(), batch * heads * seq * 4
         rate = peaks["bf16"] if dtype == torch.bfloat16 else peaks["fp32"]
-        bounds = {"dq": bound_ms(6.0 * batch * heads * dim * pairs, rate, 5 * element + 2 * rows, peaks["bytes"]),
-                  "dkv": bound_ms(8.0 * batch * heads * dim * pairs, rate, 6 * element + 2 * rows, peaks["bytes"])}
-        log(f"[flash_bwd] {label}: dq ms={ms['dq']:.4f} plain_ms={plain_ms['dq']:.4f} bound_ms={bounds['dq'][0]:.4f} "
-            f"({bounds['dq'][1]}); dkv ms={ms['dkv']:.4f} plain_ms={plain_ms['dkv']:.4f} "
-            f"bound_ms={bounds['dkv'][0]:.4f} ({bounds['dkv'][1]}); library (whole backward) ms={library_ms:.4f}")
+        operations = {"dq": 6.0 * batch * heads * dim * pairs, "dkv": 8.0 * batch * heads * dim * pairs}
+        bounds = {"dq": bound_ms(operations["dq"], rate, 5 * element + 2 * rows, peaks["bytes"]),
+                  "dkv": bound_ms(operations["dkv"], rate, 6 * element + 2 * rows, peaks["bytes"])}
+        log(f"[flash_bwd] {label}: " + "; ".join(
+            f"{kernel} ms={ms[kernel]:.4f} ({operations[kernel] / ms[kernel] / 1e9:.1f} TFLOP/s) "
+            f"plain_ms={plain_ms[kernel]:.4f} bound_ms={bounds[kernel][0]:.4f} ({bounds[kernel][1]})"
+            for kernel in ("dq", "dkv")) + f"; library (whole backward) ms={library_ms:.4f}")
         log(f"[flash_bwd]   {text}")
         if shape == ALBERT_ATTENTION:  # the training path's shape
             for kernel, names in (("dq", ("dq",)), ("dkv", ("dk", "dv"))):
                 entries[f"flash_attention_backward_{kernel}"] = dict(
                     max_abs_err=max(readings[n]["max_abs"] for n in names), ms=ms[kernel], plain_ms=plain_ms[kernel],
                     bound_ms=bounds[kernel][0], bound_by=bounds[kernel][1], library_ms=library_ms)
+    for (batch, seq, heads, dim), causal in STRIDED_CASES:
+        fused = torch.from_numpy(rng.standard_normal((batch, seq, 4, heads, dim), dtype=np.float32)).cuda().bfloat16()
+        q, k, v, dout = fused.unbind(2)
+        out, lse = flash_attention_plain(q, k, v, causal)
+        args = (q, k, v, dout, lse, _delta(out, dout), causal)
+        got = (flash_attention_backward_dq(*args), *flash_attention_backward_dkv(*args))
+        ref = (flash_attention_backward_dq_plain(*args), *flash_attention_backward_dkv_plain(*args))
+        readings = read_backward("bfloat16", got, ref, backward_scales(torch, *args))
+        text = "; ".join(f"{name} {format_reading(r)}" for name, r in readings.items())
+        log(f"[flash_bwd] q, k, v, dout of one fused [{batch}, {seq}, 4, {heads}, {dim}] bf16 tensor, causal={causal}: {text}")
+        if not all(r["ok"] for r in readings.values()):
+            raise AssertionError(f"flash backward on a fused tensor exceeds its limits: {text}")
     return entries
 
 

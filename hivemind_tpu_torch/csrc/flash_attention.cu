@@ -10,26 +10,41 @@
 // 2048) the two products do 4*T*T*D*H operations (half of that causal) against
 // 4*T*H*D*2 bytes in and out: hundreds of operations per byte, above the H100's
 // ~295 bf16 operations per byte. The design keeps every score and probability in
-// registers (never in device memory) and feeds the tensor cores.
+// registers (never in device memory) and keeps the tensor cores fed from tiles
+// that TMA brings in ahead of use.
 //
-// Design, bf16 (the serving path):
-//  * One thread block per (query tile of 64 rows, batch*head); 4 warps, each owning
-//    16 query rows. The TPU kernel carried its online-softmax state in VMEM across
-//    sequential grid steps; blocks here run in parallel in no order, so the KV loop
-//    runs inside the block and the carry (row max, row sum, fp32 accumulator) lives
-//    in registers.
-//  * Q, K and V tiles (64 x D bf16, rows padded by 16 bytes) are staged in dynamic
-//    shared memory (52 KB at D = 128, above the 48 KB static cap, hence the opt-in).
-//    Rows past T load as zeros; nothing is transposed or padded on the host.
-//  * Both products run on mma.sync m16n8k16 (bf16 in, fp32 accumulate). The score
-//    accumulator's register layout is exactly the A-operand layout of the P*V
-//    product, so probabilities go from registers to the tensor cores as bf16
-//    without a trip through shared memory.
-//  * Causal: the KV loop ends at the diagonal tile, so no block is skipped by a
-//    branch; within a tile, kv_pos > q_pos and kv_pos >= T take the finite -1e30
-//    (as the TPU kernel), so fully masked rows stay finite.
-//  * Later work (not here): wgmma, TMA loads with an mbarrier pipeline, ldmatrix
-//    for the transposed V operand.
+// Design, bf16 (the serving and training path; the building blocks are sm90.cuh):
+//  * One thread block per (128 query rows, batch*head); three warpgroups. Two
+//    consumer warpgroups own 64 query rows each; one warp of the third (the
+//    producer) issues the TMA loads: the block's Q tile once, then K and V tiles
+//    of 128 rows through a ring of two stages. Each K and V slot has a "full"
+//    mbarrier (TMA bytes) and an "empty" one (the 8 consumer warps), so a K slot
+//    is refilled as soon as its S product is done. The producer warpgroup gives
+//    its registers to the consumers (setmaxnreg 24 / 240), which hold two
+//    64 x 128 fp32 accumulators at D = 128.
+//  * Tiles live in shared memory in the 128-byte-swizzled layout TMA writes and
+//    wgmma reads: Q 32 KB, K and V 2 x 2 x 32 KB at D = 128 (160 KB in all).
+//  * S = Q K^T is wgmma m64n128k16 with Q and K both K-major in shared memory.
+//    O += P V is wgmma with P from registers (the S accumulator's layout is the
+//    A-register layout, so P is packed to bf16 in place) and V read MN-major
+//    through the transpose-B flag: no transposed copy of V exists anywhere.
+//  * The consumer warpgroups take turns on the tensor cores ("ping-pong", two
+//    named barriers): a turn issues S of tile j and P V of tile j - 1 as one
+//    wgmma group, then hands the turn over, so one warpgroup's softmax runs while
+//    the other's products do. Every wgmma is issued outside any branch (the
+//    first and last turns are peeled): under a branch ptxas serializes them.
+//  * Online softmax in base 2: 2^x (ex2.approx) of the raw score times
+//    D^-1/2 * log2(e), less the running row maximum likewise scaled; lse is
+//    stored as a natural log (the backward recomputes P = exp(S * scale - lse)).
+//  * Masking only where it can bite: the diagonal tile when causal (column >
+//    row takes the finite -1e30, as the TPU kernel) and the tile holding T.
+//    TMA reads rows past T as zeros, which still score 0, so columns past T are
+//    masked there; rows past T are never stored.
+//  * Query tiles are launched heaviest first (the last tile of each batch*head
+//    first), so the causal tail is short.
+//  * Later work (not here): a persistent grid, so that one tile's loads and
+//    epilogue overlap another's products (at D = 64 and T = 512 a block runs
+//    only 4 KV tiles), and TMA stores of O.
 //
 // Design, fp32: the same online softmax on the CUDA cores with fp32 FMAs only (no
 // TF32): a warp owns 4 query rows, lane j scores key j of a 32-key tile, and each
@@ -40,6 +55,7 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -62,188 +78,258 @@ struct Params {
 
 // ------------------------------------------------------------------ bf16 path
 
-constexpr int kTile = 64;      // query rows and KV rows per tile
-constexpr int kWarpsBf16 = 4;  // 16 query rows per warp
-constexpr int kPad = 8;        // bf16 elements of padding per shared-memory row
+constexpr int kRows = 128;        // query rows per block, and KV rows per tile
+constexpr int kStages = 2;        // depth of the K/V ring
+constexpr int kConsumerWarps = 8;
+constexpr int kThreadsBf16 = 384;  // two consumer warpgroups and the producer's
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;  // 128 * 24 + 256 * 240 = 384 * 168
 
-__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+struct Bf16Params {
+    void* out;
+    float* lse;  // [B, H, T] contiguous
+    int seq, heads;
+    long long o_sb, o_st, o_sh;
+    float scale;
+    int causal;
+};
 
-__device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* ptr) {
-    return *reinterpret_cast<const uint32_t*>(ptr);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    __nv_bfloat162 pair = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low 16 bits
-    return *reinterpret_cast<uint32_t*>(&pair);
-}
-
-// Stage rows [row0, row0 + kTile) of one (batch, head) slice into shared memory,
-// 16 bytes per access; rows at or past `seq` become zeros.
+// Shared-memory layout (byte offsets from a 1024-aligned base).
 template <int D>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                               long long row_stride, int row0, int seq) {
-    constexpr int kChunksPerRow = D / 8;
-    for (int i = threadIdx.x; i < kTile * kChunksPerRow; i += kWarpsBf16 * 32) {
-        const int row = i / kChunksPerRow, chunk = i % kChunksPerRow;
-        uint4 value = make_uint4(0u, 0u, 0u, 0u);
-        if (row0 + row < seq) {
-            value = *reinterpret_cast<const uint4*>(src + (row0 + row) * row_stride + chunk * 8);
-        }
-        *reinterpret_cast<uint4*>(dst + row * (D + kPad) + chunk * 8) = value;
+struct ForwardTiles {
+    static constexpr uint32_t kBox = kRows * sm90::kSwizzleRowBytes;  // 64 columns x 128 rows: 16 KB
+    static constexpr uint32_t kTile = kBox * (D / sm90::kBoxCols);
+    static constexpr uint32_t kQ = 0, kK = kTile, kV = kK + kStages * kTile;
+    static constexpr uint32_t kBarriers = kV + kStages * kTile;  // full_q, full_k[S], full_v[S], empty_k[S], empty_v[S]
+    static constexpr uint32_t kBytes = kBarriers + (1 + 4 * kStages) * 8 + sm90::kSwizzleAtomBytes;  // + alignment
+};
+
+// TMA of one 128-row tile: D/64 boxes of 64 columns, each its own swizzle region.
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar, int h, int row0, int b) {
+#pragma unroll
+    for (int box = 0; box < D / sm90::kBoxCols; ++box) {
+        sm90::tma_load_4d(dst + box * ForwardTiles<D>::kBox, map, bar, box * sm90::kBoxCols, h, row0, b);
     }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kWarpsBf16 * 32) flash_forward_bf16(const Params p) {
-    constexpr int S = D + kPad;  // shared-memory row stride in elements
-    constexpr int kChunksD = D / 16;
-    constexpr int kTilesN = kTile / 8;
-    constexpr int kTilesD = D / 8;
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-    __nv_bfloat16* k_s = q_s + kTile * S;
-    __nv_bfloat16* v_s = k_s + kTile * S;
-    const uint16_t* v_u16 = reinterpret_cast<const uint16_t*>(v_s);
+__global__ void __launch_bounds__(kThreadsBf16, 1)
+    flash_forward_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v, const Bf16Params p) {
+    using L = ForwardTiles<D>;
+    extern __shared__ unsigned char smem_raw[];
+    const uint32_t base = (sm90::smem_addr(smem_raw) + sm90::kSwizzleAtomBytes - 1) & ~(sm90::kSwizzleAtomBytes - 1);
+    const uint32_t full_q = base + L::kBarriers;
+    const auto full_k = [&](int s) { return full_q + 8 * (1 + s); };
+    const auto full_v = [&](int s) { return full_q + 8 * (1 + kStages + s); };
+    const auto empty_k = [&](int s) { return full_q + 8 * (1 + 2 * kStages + s); };
+    const auto empty_v = [&](int s) { return full_q + 8 * (1 + 3 * kStages + s); };
 
-    const int bh = blockIdx.y;
+    const int bh = blockIdx.x;
     const int b = bh / p.heads, h = bh % p.heads;
-    const int q0 = blockIdx.x * kTile;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int g = lane >> 2, t = lane & 3;
+    const int q_tiles = (p.seq + kRows - 1) / kRows;
+    const int q_tile = q_tiles - 1 - static_cast<int>(blockIdx.y);  // heaviest first
+    const int q0 = q_tile * kRows;
+    const int kv_tiles = p.causal ? q_tile + 1 : q_tiles;  // causal: up to the diagonal tile
 
-    const __nv_bfloat16* q_base = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-    const __nv_bfloat16* k_base = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * p.k_sh;
-    const __nv_bfloat16* v_base = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * p.v_sh;
-
-    load_tile_bf16<D>(q_s, q_base, p.q_st, q0, p.seq);
+    if (threadIdx.x == 0) {
+        sm90::mbar_init(full_q, 1);
+        for (int s = 0; s < kStages; ++s) {
+            sm90::mbar_init(full_k(s), 1);
+            sm90::mbar_init(full_v(s), 1);
+            sm90::mbar_init(empty_k(s), kConsumerWarps);
+            sm90::mbar_init(empty_v(s), kConsumerWarps);
+        }
+        sm90::fence_mbar_init();
+    }
     __syncthreads();
-    uint32_t q_frag[kChunksD][4];
-    const int r_lo = warp * 16 + g;  // this thread's two rows in the tile: r_lo, r_lo + 8
-#pragma unroll
-    for (int kk = 0; kk < kChunksD; ++kk) {
-        q_frag[kk][0] = load_pair(q_s + r_lo * S + kk * 16 + t * 2);
-        q_frag[kk][1] = load_pair(q_s + (r_lo + 8) * S + kk * 16 + t * 2);
-        q_frag[kk][2] = load_pair(q_s + r_lo * S + kk * 16 + t * 2 + 8);
-        q_frag[kk][3] = load_pair(q_s + (r_lo + 8) * S + kk * 16 + t * 2 + 8);
-    }
-    const int row_a = q0 + r_lo, row_b = row_a + 8;  // sequence positions of the two rows
 
-    float acc[kTilesD][4];
-#pragma unroll
-    for (int n = 0; n < kTilesD; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
-    float max_a = kNegInf, max_b = kNegInf, sum_a = 0.0f, sum_b = 0.0f;
-
-    const int kv_end = p.causal ? min(p.seq, q0 + kTile) : p.seq;  // causal: stop at the diagonal tile
-    for (int kv0 = 0; kv0 < kv_end; kv0 += kTile) {
-        __syncthreads();  // every warp is done with the previous K/V tile
-        load_tile_bf16<D>(k_s, k_base, p.k_st, kv0, p.seq);
-        load_tile_bf16<D>(v_s, v_base, p.v_st, kv0, p.seq);
-        __syncthreads();
-
-        float s[kTilesN][4];
-#pragma unroll
-        for (int j = 0; j < kTilesN; ++j) {
-            s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-#pragma unroll
-            for (int kk = 0; kk < kChunksD; ++kk) {
-                uint32_t b_frag[2];
-                b_frag[0] = load_pair(k_s + (j * 8 + g) * S + kk * 16 + t * 2);
-                b_frag[1] = load_pair(k_s + (j * 8 + g) * S + kk * 16 + t * 2 + 8);
-                mma_bf16_16816(s[j], q_frag[kk], b_frag);
+    if (threadIdx.x >= kConsumerWarps * 32) {  // the producer warpgroup; one thread issues every load
+        sm90::setmaxnreg_dec<kProducerRegs>();
+        if (threadIdx.x == kConsumerWarps * 32) {
+            sm90::mbar_arrive_expect_tx(full_q, L::kTile);
+            load_tile<D>(base + L::kQ, &tm_q, full_q, h, q0, b);
+            for (int j = 0; j < kv_tiles; ++j) {
+                const int s = j % kStages;
+                const uint32_t parity = ((j / kStages) & 1) ^ 1;  // the first round passes at once
+                sm90::mbar_wait(empty_k(s), parity);
+                sm90::mbar_arrive_expect_tx(full_k(s), L::kTile);
+                load_tile<D>(base + L::kK + s * L::kTile, &tm_k, full_k(s), h, j * kRows, b);
+                sm90::mbar_wait(empty_v(s), parity);
+                sm90::mbar_arrive_expect_tx(full_v(s), L::kTile);
+                load_tile<D>(base + L::kV + s * L::kTile, &tm_v, full_v(s), h, j * kRows, b);
             }
         }
+    } else {  // two consumer warpgroups, 64 query rows each
+        sm90::setmaxnreg_inc<kConsumerRegs>();
+        const int wg = threadIdx.x / 128;
+        const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+        const int g = lane / 4, t = lane % 4;
+        const int row_lo = wg * 64 + warp * 16 + g;  // this thread's rows of the tile: row_lo, row_lo + 8
+        const float scale2 = p.scale * sm90::kLog2e;
 
-        float tile_max_a = kNegInf, tile_max_b = kNegInf;
+        float o[D / 2];
 #pragma unroll
-        for (int j = 0; j < kTilesN; ++j) {
+        for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+        float m_lo = kNegInf, m_hi = kNegInf, l_lo = 0.0f, l_hi = 0.0f;  // raw row maxima, partial row sums
+
+        const uint32_t q_wg = base + L::kQ + wg * 64 * sm90::kSwizzleRowBytes;  // this warpgroup's 64 rows
+        float sc[kRows / 2];         // S = Q K^T of one KV tile, 64 x 128, then its P
+        uint32_t pf[kRows / 16][4];  // P as the A operand of P V, one 16-column k-step each
+        float corr_lo = 0.0f, corr_hi = 0.0f;
+
+        // S = Q K^T of KV tile j into sc
+        const auto issue_s = [&](int j) {
+            const uint32_t k_tile = base + L::kK + (j % kStages) * L::kTile;
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int col = kv0 + j * 8 + t * 2 + (e & 1);
-                const int row = e < 2 ? row_a : row_b;
-                const bool masked = col >= p.seq || (p.causal && col > row);
-                s[j][e] = masked ? kNegInf : s[j][e] * p.scale;
+            for (int kk = 0; kk < D / 16; ++kk) {
+                // box kk / 4, then 32 bytes (16 columns) along its swizzled 128-byte rows
+                const uint32_t off = (kk / 4) * L::kBox + (kk % 4) * 32;
+                sm90::wgmma_ss(sc, sm90::desc_kmajor(q_wg + off), sm90::desc_kmajor(k_tile + off), kk > 0);
             }
-            tile_max_a = fmaxf(tile_max_a, fmaxf(s[j][0], s[j][1]));
-            tile_max_b = fmaxf(tile_max_b, fmaxf(s[j][2], s[j][3]));
-        }
+        };
+        // O += P V of KV tile j, P from pf
+        const auto issue_pv = [&](int j) {
+            const uint32_t v_tile = base + L::kV + (j % kStages) * L::kTile;
 #pragma unroll
-        for (int offset = 1; offset < 4; offset <<= 1) {  // the 4 threads of a quad share a row
-            tile_max_a = fmaxf(tile_max_a, __shfl_xor_sync(0xffffffffu, tile_max_a, offset));
-            tile_max_b = fmaxf(tile_max_b, __shfl_xor_sync(0xffffffffu, tile_max_b, offset));
-        }
-        const float new_max_a = fmaxf(max_a, tile_max_a), new_max_b = fmaxf(max_b, tile_max_b);
-        const float corr_a = expf(max_a - new_max_a), corr_b = expf(max_b - new_max_b);
-        max_a = new_max_a;
-        max_b = new_max_b;
+            for (int kc = 0; kc < kRows / 16; ++kc) {  // 16 KV rows per k-step: 2048 bytes down V's boxes
+                sm90::wgmma_rs_tb(o, pf[kc], sm90::desc_mnmajor(v_tile + kc * 16 * sm90::kSwizzleRowBytes, L::kBox), 1);
+            }
+        };
+        // Mask and exponentiate tile j's scores in place; fold them into the row
+        // maxima and partial sums; corr_* take the factor that rescales O.
+        const auto softmax = [&](int j) {
+            const int kv0 = j * kRows;
+            if ((p.causal && j == q_tile) || kv0 + kRows > p.seq) {
+#pragma unroll
+                for (int i = 0; i < kRows / 2; ++i) {
+                    const int col = kv0 + (i / 4) * 8 + 2 * t + (i & 1);
+                    const int row = q0 + row_lo + (i & 2) * 4;
+                    if (col >= p.seq || (p.causal && col > row)) sc[i] = kNegInf;
+                }
+            }
+            float max_lo = m_lo, max_hi = m_hi;
+#pragma unroll
+            for (int i = 0; i < kRows / 2; ++i) {
+                if (i & 2) {
+                    max_hi = fmaxf(max_hi, sc[i]);
+                } else {
+                    max_lo = fmaxf(max_lo, sc[i]);
+                }
+            }
+#pragma unroll
+            for (int offset = 1; offset < 4; offset <<= 1) {  // the 4 threads of a quad share a row
+                max_lo = fmaxf(max_lo, __shfl_xor_sync(0xffffffffu, max_lo, offset));
+                max_hi = fmaxf(max_hi, __shfl_xor_sync(0xffffffffu, max_hi, offset));
+            }
+            corr_lo = sm90::exp2_approx((m_lo - max_lo) * scale2);
+            corr_hi = sm90::exp2_approx((m_hi - max_hi) * scale2);
+            m_lo = max_lo;
+            m_hi = max_hi;
+            const float shift_lo = max_lo * scale2, shift_hi = max_hi * scale2;
+            float sum_lo = 0.0f, sum_hi = 0.0f;
+#pragma unroll
+            for (int i = 0; i < kRows / 2; ++i) {
+                if (i & 2) {
+                    sc[i] = sm90::exp2_approx(fmaf(sc[i], scale2, -shift_hi));
+                    sum_hi += sc[i];
+                } else {
+                    sc[i] = sm90::exp2_approx(fmaf(sc[i], scale2, -shift_lo));
+                    sum_lo += sc[i];
+                }
+            }
+            l_lo = l_lo * corr_lo + sum_lo;  // per-thread partial; the quad is summed at the end
+            l_hi = l_hi * corr_hi + sum_hi;
+        };
 
-        float part_a = 0.0f, part_b = 0.0f;
+        const auto pack_p = [&]() {
 #pragma unroll
-        for (int j = 0; j < kTilesN; ++j) {
-            s[j][0] = expf(s[j][0] - new_max_a);
-            s[j][1] = expf(s[j][1] - new_max_a);
-            s[j][2] = expf(s[j][2] - new_max_b);
-            s[j][3] = expf(s[j][3] - new_max_b);
-            part_a += s[j][0] + s[j][1];
-            part_b += s[j][2] + s[j][3];
-        }
-        sum_a = sum_a * corr_a + part_a;  // per-thread partial; the quad is summed at the end
-        sum_b = sum_b * corr_b + part_b;
+            for (int kc = 0; kc < kRows / 16; ++kc) {
 #pragma unroll
-        for (int n = 0; n < kTilesD; ++n) {
-            acc[n][0] *= corr_a;
-            acc[n][1] *= corr_a;
-            acc[n][2] *= corr_b;
-            acc[n][3] *= corr_b;
+                for (int r = 0; r < 4; ++r) pf[kc][r] = sm90::pack_bf16(sc[8 * kc + 2 * r], sc[8 * kc + 2 * r + 1]);
+            }
+        };
+        // Turn j issues S of tile j and P V of tile j - 1 as one wgmma group (the
+        // first turn S only, the last P V only). The two warpgroups take turns
+        // (named barriers 1 and 2, warpgroup 0 first), so one warpgroup's softmax
+        // runs while the other's products occupy the tensor cores. Every wgmma is
+        // issued on a path without branches: under a branch ptxas serializes them
+        // (C7520).
+        const auto take_turn = [&]() {
+            sm90::named_bar_sync(1 + wg, 2 * 128);
+            sm90::fence_regs(sc);
+            sm90::fence_regs(o);
+            sm90::fence_regs(pf);
+            sm90::wgmma_fence();
+        };
+        const auto pass_turn = [&]() { sm90::named_bar_arrive(2 - wg, 2 * 128); };
+        const auto finish_turn = [&]() {
+            sm90::wgmma_wait<0>();
+            sm90::fence_regs(sc);
+            sm90::fence_regs(o);
+        };
+        if (wg == 1) pass_turn();
+        sm90::mbar_wait(full_q, 0);
+        sm90::mbar_wait(full_k(0), 0);
+        take_turn();
+        issue_s(0);
+        sm90::wgmma_commit();
+        pass_turn();
+        finish_turn();
+        if (lane == 0) sm90::mbar_arrive(empty_k(0));
+        softmax(0);  // O is still 0: no rescale
+        pack_p();
+        for (int j = 1; j < kv_tiles; ++j) {
+            sm90::mbar_wait(full_k(j % kStages), (j / kStages) & 1);
+            sm90::mbar_wait(full_v((j - 1) % kStages), ((j - 1) / kStages) & 1);
+            take_turn();
+            issue_s(j);
+            issue_pv(j - 1);
+            sm90::wgmma_commit();
+            pass_turn();
+            finish_turn();
+            if (lane == 0) {  // this warp is done with K of tile j and V of tile j - 1
+                sm90::mbar_arrive(empty_k(j % kStages));
+                sm90::mbar_arrive(empty_v((j - 1) % kStages));
+            }
+            softmax(j);
+#pragma unroll
+            for (int i = 0; i < D / 2; ++i) o[i] *= (i & 2) ? corr_hi : corr_lo;
+            pack_p();
         }
+        const int last = kv_tiles - 1;
+        sm90::mbar_wait(full_v(last % kStages), (last / kStages) & 1);
+        take_turn();
+        issue_pv(last);
+        sm90::wgmma_commit();
+        if (wg == 0) pass_turn();  // warpgroup 1's last turn has no taker
+        finish_turn();
 
 #pragma unroll
-        for (int kc = 0; kc < kTile / 16; ++kc) {
-            uint32_t p_frag[4];
-            p_frag[0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
-            p_frag[1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
-            p_frag[2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-            p_frag[3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-            const int k_row = kc * 16 + t * 2;
+        for (int offset = 1; offset < 4; offset <<= 1) {
+            l_lo += __shfl_xor_sync(0xffffffffu, l_lo, offset);
+            l_hi += __shfl_xor_sync(0xffffffffu, l_hi, offset);
+        }
+        const float denom_lo = fmaxf(l_lo, 1e-30f), denom_hi = fmaxf(l_hi, 1e-30f);
+        const int row_a = q0 + row_lo, row_b = row_a + 8;
+        __nv_bfloat16* o_base = static_cast<__nv_bfloat16*>(p.out) + b * p.o_sb + h * p.o_sh;
 #pragma unroll
-            for (int n = 0; n < kTilesD; ++n) {
-                const int col = n * 8 + g;
-                uint32_t b_frag[2];
-                b_frag[0] = uint32_t(v_u16[k_row * S + col]) | (uint32_t(v_u16[(k_row + 1) * S + col]) << 16);
-                b_frag[1] = uint32_t(v_u16[(k_row + 8) * S + col]) | (uint32_t(v_u16[(k_row + 9) * S + col]) << 16);
-                mma_bf16_16816(acc[n], p_frag, b_frag);
+        for (int c = 0; c < D / 8; ++c) {
+            const int col = c * 8 + t * 2;
+            if (row_a < p.seq) {
+                *reinterpret_cast<__nv_bfloat162*>(o_base + row_a * p.o_st + col) =
+                    __floats2bfloat162_rn(o[4 * c] / denom_lo, o[4 * c + 1] / denom_lo);
+            }
+            if (row_b < p.seq) {
+                *reinterpret_cast<__nv_bfloat162*>(o_base + row_b * p.o_st + col) =
+                    __floats2bfloat162_rn(o[4 * c + 2] / denom_hi, o[4 * c + 3] / denom_hi);
             }
         }
-    }
-
-#pragma unroll
-    for (int offset = 1; offset < 4; offset <<= 1) {
-        sum_a += __shfl_xor_sync(0xffffffffu, sum_a, offset);
-        sum_b += __shfl_xor_sync(0xffffffffu, sum_b, offset);
-    }
-    const float denom_a = fmaxf(sum_a, 1e-30f), denom_b = fmaxf(sum_b, 1e-30f);
-    __nv_bfloat16* o_base = static_cast<__nv_bfloat16*>(p.out) + b * p.o_sb + h * p.o_sh;
-#pragma unroll
-    for (int n = 0; n < kTilesD; ++n) {
-        const int col = n * 8 + t * 2;
-        if (row_a < p.seq) {
-            *reinterpret_cast<__nv_bfloat162*>(o_base + row_a * p.o_st + col) =
-                __floats2bfloat162_rn(acc[n][0] / denom_a, acc[n][1] / denom_a);
+        if (t == 0) {
+            float* lse = p.lse + static_cast<long long>(bh) * p.seq;
+            if (row_a < p.seq) lse[row_a] = m_lo * p.scale + logf(denom_lo);
+            if (row_b < p.seq) lse[row_b] = m_hi * p.scale + logf(denom_hi);
         }
-        if (row_b < p.seq) {
-            *reinterpret_cast<__nv_bfloat162*>(o_base + row_b * p.o_st + col) =
-                __floats2bfloat162_rn(acc[n][2] / denom_b, acc[n][3] / denom_b);
-        }
-    }
-    if (t == 0) {
-        float* lse = p.lse + static_cast<long long>(bh) * p.seq;
-        if (row_a < p.seq) lse[row_a] = max_a + logf(denom_a);
-        if (row_b < p.seq) lse[row_b] = max_b + logf(denom_b);
     }
 }
 
@@ -353,48 +439,68 @@ __global__ void __launch_bounds__(kWarpsF32 * 32) flash_forward_f32(const Params
 
 // ------------------------------------------------------------------ launch
 
-template <typename Kernel>
-int launch(Kernel kernel, const Params& p, int rows_per_block, int threads, size_t smem, cudaStream_t stream) {
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((p.seq + rows_per_block - 1) / rows_per_block, p.batch * p.heads);
-    kernel<<<grid, threads, smem, stream>>>(p);
-    return static_cast<int>(cudaGetLastError());
-}
-
 template <int D>
-int launch_bf16(const Params& p, cudaStream_t stream) {
-    const size_t smem = 3 * kTile * (D + kPad) * sizeof(__nv_bfloat16);
-    return launch(flash_forward_bf16<D>, p, kTile, kWarpsBf16 * 32, smem, stream);
+int launch_bf16(const CUtensorMap& q, const CUtensorMap& k, const CUtensorMap& v, const Bf16Params& p, int batch,
+                cudaStream_t stream) {
+    constexpr size_t smem = ForwardTiles<D>::kBytes;
+    cudaError_t err = cudaFuncSetAttribute(flash_forward_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid(batch * p.heads, (p.seq + kRows - 1) / kRows);
+    flash_forward_bf16<D><<<grid, kThreadsBf16, smem, stream>>>(q, k, v, p);
+    return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch_f32(const Params& p, cudaStream_t stream) {
     const size_t smem = (kRowsF32 * D + kKeysF32 * (D + 1) + kKeysF32 * D) * sizeof(float);
-    return launch(flash_forward_f32<D>, p, kRowsF32, kWarpsF32 * 32, smem, stream);
+    cudaError_t err = cudaFuncSetAttribute(flash_forward_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((p.seq + kRowsF32 - 1) / kRowsF32, p.batch * p.heads);
+    flash_forward_f32<D><<<grid, kWarpsF32 * 32, smem, stream>>>(p);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q, k, v: [B, T, H, D] (bf16 or fp32, last dim contiguous, strides in elements)
-// -> out [B, T, H, D] in the same dtype and lse [B, H, T] fp32 contiguous.
-extern "C" int hm_flash_forward(const void* q, const void* k, const void* v, void* out, float* lse,
-                                int batch, int seq, int heads, int head_dim,
-                                long long q_sb, long long q_st, long long q_sh,
-                                long long k_sb, long long k_st, long long k_sh,
-                                long long v_sb, long long v_st, long long v_sh,
-                                long long o_sb, long long o_st, long long o_sh,
-                                int causal, int is_bf16, float scale, cudaStream_t stream) {
+// q, k, v: [B, T, H, D] bf16, each described by its TMA geometry (sm90::TmaGeometry:
+// dims, byte strides, box of 64 columns x 128 rows) -> out [B, T, H, D] bf16
+// (strides in elements) and lse [B, H, T] fp32 contiguous.
+extern "C" int hm_flash_forward_bf16(const void* q, const void* k, const void* v, void* out, float* lse,
+                                     int batch, int seq, int heads, int head_dim,
+                                     const long long* q_geometry, const long long* k_geometry,
+                                     const long long* v_geometry, long long o_sb, long long o_st, long long o_sh,
+                                     int causal, float scale, cudaStream_t stream) {
+    if (batch <= 0 || seq <= 0 || heads <= 0) return 0;
+    if (head_dim != 64 && head_dim != 128) return static_cast<int>(cudaErrorInvalidValue);
+    const void* bases[3] = {q, k, v};
+    const long long* geometries[3] = {q_geometry, k_geometry, v_geometry};
+    CUtensorMap maps[3];
+    for (int i = 0; i < 3; ++i) {
+        const int err = sm90::encode_tma_map(&maps[i], bases[i], *reinterpret_cast<const sm90::TmaGeometry*>(geometries[i]),
+                                             kRows, head_dim);
+        if (err != 0) return err;
+    }
+    const Bf16Params p{out, lse, seq, heads, o_sb, o_st, o_sh, scale, causal};
+    if (head_dim == 64) return launch_bf16<64>(maps[0], maps[1], maps[2], p, batch, stream);
+    return launch_bf16<128>(maps[0], maps[1], maps[2], p, batch, stream);
+}
+
+// q, k, v: [B, T, H, D] fp32 (last dim contiguous, strides in elements)
+// -> out [B, T, H, D] fp32 and lse [B, H, T] fp32 contiguous.
+extern "C" int hm_flash_forward_f32(const void* q, const void* k, const void* v, void* out, float* lse,
+                                    int batch, int seq, int heads, int head_dim,
+                                    long long q_sb, long long q_st, long long q_sh,
+                                    long long k_sb, long long k_st, long long k_sh,
+                                    long long v_sb, long long v_st, long long v_sh,
+                                    long long o_sb, long long o_st, long long o_sh,
+                                    int causal, float scale, cudaStream_t stream) {
     const Params p{q, k, v, out, lse, batch, seq, heads,
                    q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_st, o_sh,
                    scale, causal};
     if (batch <= 0 || seq <= 0 || heads <= 0) return 0;
-    if (is_bf16) {
-        if (head_dim == 64) return launch_bf16<64>(p, stream);
-        if (head_dim == 128) return launch_bf16<128>(p, stream);
-    } else {
-        if (head_dim == 64) return launch_f32<64>(p, stream);
-        if (head_dim == 128) return launch_f32<128>(p, stream);
-    }
+    if (head_dim == 64) return launch_f32<64>(p, stream);
+    if (head_dim == 128) return launch_f32<128>(p, stream);
     return static_cast<int>(cudaErrorInvalidValue);
 }

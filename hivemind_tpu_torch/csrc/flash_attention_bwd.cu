@@ -20,42 +20,54 @@
 // every score, probability and dS in registers (never in device memory) and feeds
 // the tensor cores; the accumulators stay in registers across the whole sweep.
 //
-// Design, bf16:
-//  * The TPU carried dq_acc and dk_acc/dv_acc in VMEM across sequential grid
-//    steps; blocks here run in parallel in no order, so each sweep is a loop
-//    inside the block and its accumulators live in registers in fp32. Two passes
-//    and no atomics: the result is deterministic.
-//  * dQ kernel: one block per (64 query rows, batch*head), 4 warps of 16 rows; it
-//    loops over 64-row KV tiles, ending at the diagonal tile when causal.
-//  * dK/dV kernel: one block per (64 KV rows, batch*head), 4 warps of 16 KV rows;
-//    it loops over 64-row query tiles, starting at the diagonal tile when causal.
-//    It computes S^T = K Q^T and dP^T = V dO^T directly, so P^T and dS^T come out
-//    in the mma.sync accumulator layout, which is the A-operand layout of P^T dO
-//    and dS^T Q (the forward's trick for P V); lse and delta are read per column.
-//  * Each tile is walked 16 columns at a time: the scores of two 8-column mma
-//    tiles are computed, turned into P and dS, rounded to bf16 and fed straight to
-//    the next product, so only 16 score values are live per thread besides the
-//    accumulators (64 fp32 per 16 x D tile at D = 128; 128 for dK and dV).
-//  * mma.sync m16n8k16, bf16 in, fp32 accumulate. P and dS are rounded to bf16
-//    before their products: that rounding is the kernel's main difference from
-//    the TPU kernel, which multiplied fp32 tiles.
-//  * Rows at or past T load as zeros; columns past T (and above the diagonal when
-//    causal) are masked to P = 0 explicitly, so nothing relies on a padded lse.
-//  * Later work (not here): ldmatrix.trans for the transposed operands (K in dS K,
-//    Q in dS^T Q, dO in P^T dO, read here as 16-bit scalars), cp.async or TMA
-//    pipelining, wgmma.
+// The TPU carried dq_acc and dk_acc/dv_acc in VMEM across sequential grid steps;
+// blocks here run in parallel in no order, so each sweep is a loop inside the
+// block and its accumulators live in registers in fp32. Two passes and no
+// atomics: the result is deterministic. P and dS are rounded to bf16 before their
+// products: that rounding is the kernels' main difference from the TPU kernel,
+// which multiplied fp32 tiles. Columns past T (and above the diagonal when
+// causal) are masked to P = 0 explicitly, so nothing relies on a padded lse.
 //
-// Design, fp32 (no served or trained path uses it on the card; it exists so that
-// fp32 CUDA tensors differentiate): plain FMAs on the CUDA cores, no TF32. A warp
-// owns 4 rows (query rows in the dQ kernel, KV rows in the dK/dV kernel); lane j
-// takes column j of a 32-wide tile, and each lane accumulates D/32 output columns
-// from the per-column terms broadcast by shuffles.
+// dK/dV pass, bf16 (building blocks in sm90.cuh):
+//  * One thread block per (128 KV rows, batch*head); three warpgroups. Two
+//    consumer warpgroups own 64 KV rows each, whose K and V stay resident in
+//    shared memory; one warp of the third (the producer) streams 64-row Q and dO
+//    tiles through a ring of two stages by TMA, and with plain loads the tile's
+//    lse (times log2 e) and delta, which a TMA map on [B*H, T] fp32 could not
+//    take for a T that is not a multiple of 4. The producer warpgroup gives its
+//    registers to the consumers (setmaxnreg 24 / 240): at D = 128 each consumer
+//    thread holds dK and dV (64 + 64 fp32) and S^T, dP^T (32 + 32).
+//  * S^T = K Q^T and dP^T = V dO^T are wgmma m64n64k16 with every operand
+//    K-major in shared memory; P^T and dS^T come out in the accumulator layout,
+//    which is the A-register layout, so they are rounded to bf16 in place.
+//  * dV += P^T dO and dK += dS^T Q are wgmma with the A operand from registers
+//    and dO, Q read MN-major through the transpose-B flag.
+//  * Causal: the query loop starts at the diagonal tile; the mask is evaluated
+//    only on the two query tiles that meet the diagonal and on the tile holding T.
+//  * P^T = 2^(S^T * D^-1/2 * log2(e) - lse * log2(e)) by ex2.approx.
+//  * Later work (not here): the forward's ping-pong of the two consumer
+//    warpgroups. It holds P^T and dS^T of one tile beside S^T and dP^T of the
+//    next: 224 accumulator and fragment registers at D = 128, of the 240 a
+//    consumer thread has.
+//
+// dQ pass, bf16: one block per (64 query rows, batch*head), 4 warps of 16 rows,
+// mma.sync m16n8k16; it loops over 64-row KV tiles staged in shared memory
+// (ending at the diagonal tile when causal), 16 keys at a time: the scores of two
+// 8-column mma tiles are turned into dS, rounded to bf16 and fed straight to the
+// dS K product. Later work (not here): the dK/dV pass's design.
+//
+// fp32 (no served or trained path uses it on the card; it exists so that fp32
+// CUDA tensors differentiate): plain FMAs on the CUDA cores, no TF32. A warp owns
+// 4 rows (query rows in the dQ kernel, KV rows in the dK/dV kernel); lane j takes
+// column j of a 32-wide tile, and each lane accumulates D/32 output columns from
+// the per-column terms broadcast by shuffles.
 
 #include <cuda_bf16.h>
 
 #include <cstdint>
 
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -94,11 +106,6 @@ __device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4], 
 
 __device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* ptr) {
     return *reinterpret_cast<const uint32_t*>(ptr);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    __nv_bfloat162 pair = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low 16 bits
-    return *reinterpret_cast<uint32_t*>(&pair);
 }
 
 // Stage rows [row0, row0 + kTile) of one (batch, head) slice into shared memory,
@@ -162,19 +169,23 @@ __device__ __forceinline__ void mma_ab(float acc[][4], const uint32_t frag[4], c
     }
 }
 
-// Write a warp's 16 x D fp32 accumulator as bf16 rows `row_a` and `row_a + 8`.
+// Write a warp's 16 x D fp32 accumulator as bf16 rows `row_a` and `row_a + 8`:
+// acc[4n + e] holds row row_a + 8*(e >> 1), column 8n + 2t + (e & 1), the layout
+// of both an mma.sync m16n8 accumulator and a wgmma m64nD one.
 template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* base, long long row_stride, const float acc[][4],
+__device__ __forceinline__ void store_rows(__nv_bfloat16* base, long long row_stride, const float* acc,
                                            int row_a, int seq, int t) {
     const int row_b = row_a + 8;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
         const int col = n * 8 + t * 2;
         if (row_a < seq) {
-            *reinterpret_cast<__nv_bfloat162*>(base + row_a * row_stride + col) = __floats2bfloat162_rn(acc[n][0], acc[n][1]);
+            *reinterpret_cast<__nv_bfloat162*>(base + row_a * row_stride + col) =
+                __floats2bfloat162_rn(acc[4 * n], acc[4 * n + 1]);
         }
         if (row_b < seq) {
-            *reinterpret_cast<__nv_bfloat162*>(base + row_b * row_stride + col) = __floats2bfloat162_rn(acc[n][2], acc[n][3]);
+            *reinterpret_cast<__nv_bfloat162*>(base + row_b * row_stride + col) =
+                __floats2bfloat162_rn(acc[4 * n + 2], acc[4 * n + 3]);
         }
     }
 }
@@ -239,99 +250,208 @@ __global__ void __launch_bounds__(kWarps * 32) flash_bwd_dq_bf16(const Params p)
                 }
             }
             uint32_t ds_frag[4];
-            ds_frag[0] = pack_bf16(ds[0][0], ds[0][1]);
-            ds_frag[1] = pack_bf16(ds[0][2], ds[0][3]);
-            ds_frag[2] = pack_bf16(ds[1][0], ds[1][1]);
-            ds_frag[3] = pack_bf16(ds[1][2], ds[1][3]);
+            ds_frag[0] = sm90::pack_bf16(ds[0][0], ds[0][1]);
+            ds_frag[1] = sm90::pack_bf16(ds[0][2], ds[0][3]);
+            ds_frag[2] = sm90::pack_bf16(ds[1][0], ds[1][1]);
+            ds_frag[3] = sm90::pack_bf16(ds[1][2], ds[1][3]);
             mma_ab<D>(acc, ds_frag, k_s, kc * 16, g, t);
         }
     }
     __nv_bfloat16* o_base = static_cast<__nv_bfloat16*>(p.out0) + b * p.o_sb + h * p.o_sh;
-    store_rows<D>(o_base, p.o_st, acc, row_a, p.seq, t);
+    store_rows<D>(o_base, p.o_st, &acc[0][0], row_a, p.seq, t);
+}
+
+constexpr int kKvRows = 128;  // KV rows per dK/dV block: two consumer warpgroups of 64
+constexpr int kQRows = 64;    // query rows per streamed Q / dO tile
+constexpr int kStages = 2;    // depth of the Q / dO ring
+constexpr int kConsumerWarps = 8;
+constexpr int kThreadsDkv = 384;  // two consumer warpgroups and the producer's
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;  // 128 * 24 + 256 * 240 = 384 * 168
+
+struct DkvParams {
+    const float* lse;    // [B, H, T]
+    const float* delta;  // [B, H, T]
+    void* dk;
+    void* dv;
+    int seq, heads;
+    long long o_sb, o_st, o_sh;  // the layout of dk and dv
+    float scale;
+    int causal;
+};
+
+// Shared-memory layout (byte offsets from a 1024-aligned base).
+template <int D>
+struct DkvTiles {
+    static constexpr uint32_t kKvBox = kKvRows * sm90::kSwizzleRowBytes;  // 64 columns x 128 rows: 16 KB
+    static constexpr uint32_t kQBox = kQRows * sm90::kSwizzleRowBytes;    // 64 columns x 64 rows: 8 KB
+    static constexpr uint32_t kKvTile = kKvBox * (D / sm90::kBoxCols);
+    static constexpr uint32_t kQTile = kQBox * (D / sm90::kBoxCols);
+    static constexpr uint32_t kK = 0, kV = kKvTile, kQ = 2 * kKvTile, kDo = kQ + kStages * kQTile;
+    static constexpr uint32_t kLse = kDo + kStages * kQTile;          // [S][64] fp32: lse * log2(e)
+    static constexpr uint32_t kDelta = kLse + kStages * kQRows * 4;    // [S][64] fp32
+    static constexpr uint32_t kBarriers = kDelta + kStages * kQRows * 4;  // full_kv, full[S], empty[S]
+    static constexpr uint32_t kBytes = kBarriers + (1 + 2 * kStages) * 8 + sm90::kSwizzleAtomBytes;  // + alignment
+};
+
+// TMA of one tile of `rows` rows: D/64 boxes of 64 columns, `box_bytes` apart.
+template <int D>
+__device__ __forceinline__ void load_tile_tma(uint32_t dst, uint32_t box_bytes, const CUtensorMap* map, uint32_t bar,
+                                              int h, int row0, int b) {
+#pragma unroll
+    for (int box = 0; box < D / sm90::kBoxCols; ++box) {
+        sm90::tma_load_4d(dst + box * box_bytes, map, bar, box * sm90::kBoxCols, h, row0, b);
+    }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kWarps * 32) flash_bwd_dkv_bf16(const Params p) {
-    constexpr int S = D + kPad;
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-    __nv_bfloat16* v_s = k_s + kTile * S;
-    __nv_bfloat16* q_s = v_s + kTile * S;
-    __nv_bfloat16* do_s = q_s + kTile * S;
-    float* lse_s = reinterpret_cast<float*>(do_s + kTile * S);
-    float* delta_s = lse_s + kTile;
+__global__ void __launch_bounds__(kThreadsDkv, 1)
+    flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                       const DkvParams p) {
+    using L = DkvTiles<D>;
+    extern __shared__ unsigned char smem_raw[];
+    const uint32_t raw = sm90::smem_addr(smem_raw);
+    const uint32_t base = (raw + sm90::kSwizzleAtomBytes - 1) & ~(sm90::kSwizzleAtomBytes - 1);
+    float* lse_s = reinterpret_cast<float*>(smem_raw + (base - raw) + L::kLse);
+    float* delta_s = reinterpret_cast<float*>(smem_raw + (base - raw) + L::kDelta);
+    const uint32_t full_kv = base + L::kBarriers;
+    const auto full = [&](int s) { return full_kv + 8 * (1 + s); };
+    const auto empty = [&](int s) { return full_kv + 8 * (1 + kStages + s); };
 
-    const int bh = blockIdx.y;
+    const int bh = blockIdx.x;
     const int b = bh / p.heads, h = bh % p.heads;
-    const int kv0 = blockIdx.x * kTile;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int g = lane >> 2, t = lane & 3;
-    const int r0 = warp * 16;
+    const int kv0 = blockIdx.y * kKvRows;
+    const int q_tiles = (p.seq + kQRows - 1) / kQRows;
+    const int q_begin = p.causal ? kv0 / kQRows : 0;  // causal: start at the diagonal tile
 
-    const __nv_bfloat16* q_base = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-    const __nv_bfloat16* k_base = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * p.k_sh;
-    const __nv_bfloat16* v_base = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * p.v_sh;
-    const __nv_bfloat16* d_base = static_cast<const __nv_bfloat16*>(p.dout) + b * p.d_sb + h * p.d_sh;
-    load_tile<D>(k_s, k_base, p.k_st, kv0, p.seq);
-    load_tile<D>(v_s, v_base, p.v_st, kv0, p.seq);
-
-    const int row_a = kv0 + r0 + g, row_b = row_a + 8;  // this thread's two KV rows
-    const long long rows = static_cast<long long>(bh) * p.seq;
-
-    float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-        dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = 0.0f;
-        dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.0f;
-    }
-
-    const int q_begin = p.causal ? kv0 : 0;  // causal: start at the diagonal tile
-    for (int q0 = q_begin; q0 < p.seq; q0 += kTile) {
-        __syncthreads();  // every warp is done with the previous Q/dO tile
-        load_tile<D>(q_s, q_base, p.q_st, q0, p.seq);
-        load_tile<D>(do_s, d_base, p.d_st, q0, p.seq);
-        for (int i = threadIdx.x; i < kTile; i += kWarps * 32) {
-            const bool valid = q0 + i < p.seq;
-            lse_s[i] = valid ? p.lse[rows + q0 + i] : 0.0f;
-            delta_s[i] = valid ? p.delta[rows + q0 + i] : 0.0f;
+    if (threadIdx.x == 0) {
+        sm90::mbar_init(full_kv, 1);
+        for (int s = 0; s < kStages; ++s) {
+            sm90::mbar_init(full(s), 32);  // the producer warp's lanes, one of them with the TMA bytes
+            sm90::mbar_init(empty(s), kConsumerWarps);
         }
-        __syncthreads();
+        sm90::fence_mbar_init();
+    }
+    __syncthreads();
 
+    if (threadIdx.x >= kConsumerWarps * 32) {  // the producer warpgroup; its first warp loads
+        sm90::setmaxnreg_dec<kProducerRegs>();
+        const int lane = threadIdx.x - kConsumerWarps * 32;
+        if (lane < 32) {
+            if (lane == 0) {
+                sm90::mbar_arrive_expect_tx(full_kv, 2 * L::kKvTile);
+                load_tile_tma<D>(base + L::kK, L::kKvBox, &tm_k, full_kv, h, kv0, b);
+                load_tile_tma<D>(base + L::kV, L::kKvBox, &tm_v, full_kv, h, kv0, b);
+            }
+            const float* lse = p.lse + static_cast<long long>(bh) * p.seq;
+            const float* delta = p.delta + static_cast<long long>(bh) * p.seq;
+            for (int i = q_begin; i < q_tiles; ++i) {
+                const int n = i - q_begin, s = n % kStages;
+                sm90::mbar_wait(empty(s), ((n / kStages) & 1) ^ 1);  // the first round passes at once
+                const int q0 = i * kQRows;
 #pragma unroll
-        for (int kc = 0; kc < kTile / 16; ++kc) {  // 16 queries at a time
-            float pt[2][4], dst[2][4];
-#pragma unroll
-            for (int jj = 0; jj < 2; ++jj) {
-                const int j = 2 * kc + jj;
-                float st[4], dpt[4];
-                mma_abt<D>(st, k_s, r0, q_s, j * 8, g, t);
-                mma_abt<D>(dpt, v_s, r0, do_s, j * 8, g, t);
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    const int c = j * 8 + t * 2 + (e & 1);  // query column within the tile
-                    const int col = q0 + c;
-                    const int row = e < 2 ? row_a : row_b;
-                    const bool masked = col >= p.seq || (p.causal && row > col);
-                    const float prob = masked ? 0.0f : __expf(st[e] * p.scale - lse_s[c]);
-                    pt[jj][e] = prob;
-                    dst[jj][e] = prob * (dpt[e] - delta_s[c]) * p.scale;
+                for (int r = lane; r < kQRows; r += 32) {
+                    const bool valid = q0 + r < p.seq;
+                    lse_s[s * kQRows + r] = valid ? lse[q0 + r] * sm90::kLog2e : 0.0f;
+                    delta_s[s * kQRows + r] = valid ? delta[q0 + r] : 0.0f;
+                }
+                if (lane == 0) {
+                    sm90::mbar_arrive_expect_tx(full(s), 2 * L::kQTile);
+                    load_tile_tma<D>(base + L::kQ + s * L::kQTile, L::kQBox, &tm_q, full(s), h, q0, b);
+                    load_tile_tma<D>(base + L::kDo + s * L::kQTile, L::kQBox, &tm_do, full(s), h, q0, b);
+                } else {
+                    sm90::mbar_arrive(full(s));
                 }
             }
-            uint32_t p_frag[4], ds_frag[4];
-            p_frag[0] = pack_bf16(pt[0][0], pt[0][1]);
-            p_frag[1] = pack_bf16(pt[0][2], pt[0][3]);
-            p_frag[2] = pack_bf16(pt[1][0], pt[1][1]);
-            p_frag[3] = pack_bf16(pt[1][2], pt[1][3]);
-            ds_frag[0] = pack_bf16(dst[0][0], dst[0][1]);
-            ds_frag[1] = pack_bf16(dst[0][2], dst[0][3]);
-            ds_frag[2] = pack_bf16(dst[1][0], dst[1][1]);
-            ds_frag[3] = pack_bf16(dst[1][2], dst[1][3]);
-            mma_ab<D>(dv, p_frag, do_s, kc * 16, g, t);
-            mma_ab<D>(dk, ds_frag, q_s, kc * 16, g, t);
         }
+    } else {  // two consumer warpgroups, 64 KV rows each
+        sm90::setmaxnreg_inc<kConsumerRegs>();
+        const int wg = threadIdx.x / 128;
+        const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+        const int g = lane / 4, t = lane % 4;
+        const int row_a = kv0 + wg * 64 + warp * 16 + g;  // this thread's KV rows: row_a, row_a + 8
+        const float scale2 = p.scale * sm90::kLog2e;
+
+        float dk[D / 2], dv[D / 2];
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.0f;
+
+        const uint32_t k_wg = base + L::kK + wg * 64 * sm90::kSwizzleRowBytes;  // this warpgroup's 64 rows
+        const uint32_t v_wg = base + L::kV + wg * 64 * sm90::kSwizzleRowBytes;
+        sm90::mbar_wait(full_kv, 0);
+        for (int i = q_begin; i < q_tiles; ++i) {
+            const int n = i - q_begin, s = n % kStages;
+            const uint32_t q_tile = base + L::kQ + s * L::kQTile, do_tile = base + L::kDo + s * L::kQTile;
+
+            float st[kQRows / 2], dpt[kQRows / 2];  // S^T = K Q^T and dP^T = V dO^T: 64 x 64 each
+            sm90::mbar_wait(full(s), (n / kStages) & 1);
+            sm90::wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < D / 16; ++kk) {
+                // box kk / 4, then 32 bytes (16 columns) along its swizzled 128-byte rows
+                const uint32_t kv_off = (kk / 4) * L::kKvBox + (kk % 4) * 32;
+                const uint32_t q_off = (kk / 4) * L::kQBox + (kk % 4) * 32;
+                sm90::wgmma_ss(st, sm90::desc_kmajor(k_wg + kv_off), sm90::desc_kmajor(q_tile + q_off), kk > 0);
+            }
+#pragma unroll
+            for (int kk = 0; kk < D / 16; ++kk) {
+                const uint32_t kv_off = (kk / 4) * L::kKvBox + (kk % 4) * 32;
+                const uint32_t q_off = (kk / 4) * L::kQBox + (kk % 4) * 32;
+                sm90::wgmma_ss(dpt, sm90::desc_kmajor(v_wg + kv_off), sm90::desc_kmajor(do_tile + q_off), kk > 0);
+            }
+            sm90::wgmma_commit();
+            sm90::wgmma_wait<0>();
+            sm90::fence_regs(st);
+            sm90::fence_regs(dpt);
+
+            // P^T and dS^T in place, column c of the tile being query q0 + c
+            const int q0 = i * kQRows;
+            const float* lse_t = lse_s + s * kQRows;
+            const float* delta_t = delta_s + s * kQRows;
+            const bool edge = q0 + kQRows > p.seq || (p.causal && q0 < kv0 + kKvRows);
+#pragma unroll
+            for (int e = 0; e < kQRows / 2; ++e) {
+                const int c = (e / 4) * 8 + 2 * t + (e & 1);
+                float prob = sm90::exp2_approx(fmaf(st[e], scale2, -lse_t[c]));
+                if (edge) {
+                    const int row = row_a + (e & 2) * 4;
+                    if (q0 + c >= p.seq || (p.causal && row > q0 + c)) prob = 0.0f;
+                }
+                st[e] = prob;
+                dpt[e] = prob * (dpt[e] - delta_t[c]) * p.scale;
+            }
+            uint32_t pf[kQRows / 16][4], df[kQRows / 16][4];  // P^T and dS^T as A operands, 16 queries each
+#pragma unroll
+            for (int kc = 0; kc < kQRows / 16; ++kc) {
+#pragma unroll
+                for (int r = 0; r < 4; ++r) {
+                    pf[kc][r] = sm90::pack_bf16(st[8 * kc + 2 * r], st[8 * kc + 2 * r + 1]);
+                    df[kc][r] = sm90::pack_bf16(dpt[8 * kc + 2 * r], dpt[8 * kc + 2 * r + 1]);
+                }
+            }
+
+            sm90::fence_regs(dv);
+            sm90::fence_regs(dk);
+            sm90::fence_regs(pf);
+            sm90::fence_regs(df);
+            sm90::wgmma_fence();
+#pragma unroll
+            for (int kc = 0; kc < kQRows / 16; ++kc) {  // 16 query rows per k-step: 2048 bytes down the boxes
+                sm90::wgmma_rs_tb(dv, pf[kc], sm90::desc_mnmajor(do_tile + kc * 16 * sm90::kSwizzleRowBytes, L::kQBox), 1);
+            }
+#pragma unroll
+            for (int kc = 0; kc < kQRows / 16; ++kc) {
+                sm90::wgmma_rs_tb(dk, df[kc], sm90::desc_mnmajor(q_tile + kc * 16 * sm90::kSwizzleRowBytes, L::kQBox), 1);
+            }
+            sm90::wgmma_commit();
+            sm90::wgmma_wait<0>();
+            sm90::fence_regs(dv);
+            sm90::fence_regs(dk);
+            if (lane == 0) sm90::mbar_arrive(empty(s));  // this warp is done with stage s
+        }
+        store_rows<D>(static_cast<__nv_bfloat16*>(p.dk) + b * p.o_sb + h * p.o_sh, p.o_st, dk, row_a, p.seq, t);
+        store_rows<D>(static_cast<__nv_bfloat16*>(p.dv) + b * p.o_sb + h * p.o_sh, p.o_st, dv, row_a, p.seq, t);
     }
-    store_rows<D>(static_cast<__nv_bfloat16*>(p.out0) + b * p.o_sb + h * p.o_sh, p.o_st, dk, row_a, p.seq, t);
-    store_rows<D>(static_cast<__nv_bfloat16*>(p.out1) + b * p.o_sb + h * p.o_sh, p.o_st, dv, row_a, p.seq, t);
 }
 
 // ------------------------------------------------------------------ fp32 path
@@ -538,12 +658,19 @@ int launch_dq(const Params& p, int is_bf16, cudaStream_t stream) {
 }
 
 template <int D>
-int launch_dkv(const Params& p, int is_bf16, cudaStream_t stream) {
-    if (is_bf16) {
-        const size_t smem = 4 * kTile * (D + kPad) * sizeof(__nv_bfloat16) + 2 * kTile * sizeof(float);
-        return launch(flash_bwd_dkv_bf16<D>, p, kTile, smem, stream);
-    }
+int launch_dkv_f32(const Params& p, cudaStream_t stream) {
     return launch(flash_bwd_dkv_f32<D>, p, kRowsF32, (2 * kRowsF32 + 2 * kColsF32) * (D + 1) * sizeof(float), stream);
+}
+
+template <int D>
+int launch_dkv_bf16(const CUtensorMap (&maps)[4], const DkvParams& p, int batch, cudaStream_t stream) {
+    constexpr size_t smem = DkvTiles<D>::kBytes;
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid(batch * p.heads, (p.seq + kKvRows - 1) / kKvRows);
+    flash_bwd_dkv_bf16<D><<<grid, kThreadsDkv, smem, stream>>>(maps[0], maps[1], maps[2], maps[3], p);
+    return static_cast<int>(cudaGetLastError());
 }
 
 Params make_params(const void* q, const void* k, const void* v, const void* dout, const float* lse,
@@ -578,21 +705,48 @@ extern "C" int hm_flash_backward_dq(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// As above -> dk, dv [B, T, H, D] in k's dtype, sharing one layout (o_*).
-extern "C" int hm_flash_backward_dkv(const void* q, const void* k, const void* v, const void* dout,
-                                     const float* lse, const float* delta, void* dk, void* dv,
-                                     int batch, int seq, int heads, int head_dim,
-                                     long long q_sb, long long q_st, long long q_sh,
-                                     long long k_sb, long long k_st, long long k_sh,
-                                     long long v_sb, long long v_st, long long v_sh,
-                                     long long d_sb, long long d_st, long long d_sh,
-                                     long long o_sb, long long o_st, long long o_sh,
-                                     int causal, int is_bf16, float scale, cudaStream_t stream) {
+// As above, fp32 only -> dk, dv [B, T, H, D] fp32, sharing one layout (o_*).
+extern "C" int hm_flash_backward_dkv_f32(const void* q, const void* k, const void* v, const void* dout,
+                                         const float* lse, const float* delta, void* dk, void* dv,
+                                         int batch, int seq, int heads, int head_dim,
+                                         long long q_sb, long long q_st, long long q_sh,
+                                         long long k_sb, long long k_st, long long k_sh,
+                                         long long v_sb, long long v_st, long long v_sh,
+                                         long long d_sb, long long d_st, long long d_sh,
+                                         long long o_sb, long long o_st, long long o_sh,
+                                         int causal, float scale, cudaStream_t stream) {
     const Params p = make_params(q, k, v, dout, lse, delta, dk, dv, batch, seq, heads, q_sb, q_st, q_sh,
                                  k_sb, k_st, k_sh, v_sb, v_st, v_sh, d_sb, d_st, d_sh, o_sb, o_st, o_sh,
                                  causal, scale);
     if (batch <= 0 || seq <= 0 || heads <= 0) return 0;
-    if (head_dim == 64) return launch_dkv<64>(p, is_bf16, stream);
-    if (head_dim == 128) return launch_dkv<128>(p, is_bf16, stream);
+    if (head_dim == 64) return launch_dkv_f32<64>(p, stream);
+    if (head_dim == 128) return launch_dkv_f32<128>(p, stream);
     return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// q, k, v, dout: [B, T, H, D] bf16, each described by its TMA geometry
+// (sm90::TmaGeometry; boxes of 64 columns x 64 rows for q and dout, x 128 rows for
+// k and v); lse, delta: [B, H, T] fp32 contiguous -> dk, dv [B, T, H, D] bf16,
+// sharing one layout (o_*, strides in elements).
+extern "C" int hm_flash_backward_dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
+                                          const float* lse, const float* delta, void* dk, void* dv,
+                                          int batch, int seq, int heads, int head_dim,
+                                          const long long* q_geometry, const long long* k_geometry,
+                                          const long long* v_geometry, const long long* d_geometry,
+                                          long long o_sb, long long o_st, long long o_sh,
+                                          int causal, float scale, cudaStream_t stream) {
+    if (batch <= 0 || seq <= 0 || heads <= 0) return 0;
+    if (head_dim != 64 && head_dim != 128) return static_cast<int>(cudaErrorInvalidValue);
+    const void* bases[4] = {q, k, v, dout};
+    const long long* geometries[4] = {q_geometry, k_geometry, v_geometry, d_geometry};
+    const int rows[4] = {kQRows, kKvRows, kKvRows, kQRows};
+    CUtensorMap maps[4];
+    for (int i = 0; i < 4; ++i) {
+        const int err = sm90::encode_tma_map(&maps[i], bases[i], *reinterpret_cast<const sm90::TmaGeometry*>(geometries[i]),
+                                             rows[i], head_dim);
+        if (err != 0) return err;
+    }
+    const DkvParams p{lse, delta, dk, dv, seq, heads, o_sb, o_st, o_sh, scale, causal};
+    if (head_dim == 64) return launch_dkv_bf16<64>(maps, p, batch, stream);
+    return launch_dkv_bf16<128>(maps, p, batch, stream);
 }

@@ -14,12 +14,16 @@ A wrapper given CPU tensors runs the plain version; given CUDA tensors it launch
 the kernel or raises. Each kernel wrapper counts its launches in ``.launches``
 (``flash_attention_lse``, ``flash_attention_backward_dq``,
 ``flash_attention_backward_dkv``).
+
+The bf16 forward and the bf16 dK/dV pass read q, k, v (and dout) by TMA: the
+wrapper describes each tensor to the kernel's C entry point as a 4-D view
+(:func:`tma_geometry`), from which the entry point encodes the tensor maps.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -50,17 +54,65 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cau
     return out.to(q.dtype), lse
 
 
+# ------------------------------------------------------------------ TMA geometry
+
+TMA_BOX_COLS = 64  # bf16 columns per TMA box: one 128-byte swizzled row
+FORWARD_TILE_ROWS = 128  # the forward's query and KV tiles
+DKV_KV_ROWS, DKV_Q_ROWS = 128, 64  # the dK/dV pass's resident K/V tile and streamed Q/dO tiles
+_TMA_MAX_STRIDE = 2**40  # cuTensorMapEncodeTiled's bound on a byte stride
+
+
+class TmaGeometry(NamedTuple):
+    """A bf16 ``[B, T, H, D]`` tensor as a 4-D TMA view, innermost dimension first:
+    ``dims`` (D, H, T, B), the byte ``strides`` of H, T and B, and the ``box`` one
+    load copies, (64, 1, rows, 1). A tile row of D columns takes D / 64 such
+    boxes, each its own 128-byte swizzle region in shared memory."""
+
+    dims: Tuple[int, int, int, int]
+    strides: Tuple[int, int, int]
+    box: Tuple[int, int, int, int]
+
+    def as_ctypes(self) -> ctypes.Array:
+        """The 11 int64s the C entry points read as ``sm90::TmaGeometry``."""
+        return (ctypes.c_longlong * 11)(*self.dims, *self.strides, *self.box)
+
+
+def tma_geometry(t: torch.Tensor, rows: int) -> TmaGeometry:
+    """The TMA view of ``t`` (bf16 ``[B, T, H, D]``) with boxes of 64 columns by
+    ``rows`` rows; raises ``ValueError`` on a view TMA cannot take: a head dim that
+    is not contiguous or not a multiple of 64, a base address that is not 16-byte
+    aligned, or a B, T or H stride that is not a multiple of 16 bytes below 2^40."""
+    if t.dim() != 4 or t.dtype != torch.bfloat16:
+        raise ValueError(f"TMA views take bf16 [B, T, H, D] tensors, got {t.dtype} of shape {tuple(t.shape)}")
+    batch, seq, heads, dim = t.shape
+    stride_b, stride_t, stride_h, stride_d = t.stride()
+    if stride_d != 1 or dim % TMA_BOX_COLS:
+        raise ValueError(f"TMA needs a contiguous head dim that is a multiple of {TMA_BOX_COLS}, got "
+                         f"shape {tuple(t.shape)}, strides {t.stride()}")
+    strides = (2 * stride_h, 2 * stride_t, 2 * stride_b)  # bf16: 2 bytes an element
+    if (strides[0] | strides[1] | strides[2]) % 16 or max(strides) >= _TMA_MAX_STRIDE:
+        raise ValueError(f"TMA needs H, T and B strides that are multiples of 16 bytes below 2^40, got {strides} bytes")
+    if t.data_ptr() % 16:
+        raise ValueError("TMA needs a 16-byte aligned base address")
+    return TmaGeometry((dim, heads, seq, batch), strides, (TMA_BOX_COLS, 1, rows, 1))
+
+
+# ------------------------------------------------------------------ forward
+
+
 def _library() -> ctypes.CDLL:
     library = _build.load_library("flash_attention")
-    fn = library.hm_flash_forward
-    if fn.argtypes is None:
-        fn.argtypes = (
-            [ctypes.c_void_p] * 5
-            + [ctypes.c_int] * 4
-            + [ctypes.c_longlong] * 12
-            + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-        )
-        fn.restype = ctypes.c_int
+    bf16, f32 = library.hm_flash_forward_bf16, library.hm_flash_forward_f32
+    if bf16.argtypes is None:
+        geometry = ctypes.POINTER(ctypes.c_longlong)
+        # q, k, v, out, lse; B, T, H, D; geometries of q, k, v; out's strides; causal, scale, stream
+        bf16.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [geometry] * 3 + [ctypes.c_longlong] * 3
+                         + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+        bf16.restype = ctypes.c_int
+        # q, k, v, out, lse; B, T, H, D; strides of q, k, v, out; causal, scale, stream
+        f32.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 12
+                        + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+        f32.restype = ctypes.c_int
     return library
 
 
@@ -97,6 +149,11 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
+def _strides(*tensors: torch.Tensor) -> Tuple[int, ...]:
+    """The B, T and H strides of each tensor, in elements."""
+    return tuple(s for t in tensors for s in t.stride()[:3])
+
+
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused attention on full ``[B, T, H, D]`` sequences (q, k, v of one shape)
     returning ``(out, lse)``; ``lse`` is ``[B, H, T]`` fp32. Forward only, as in
@@ -111,17 +168,19 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causa
     if out.numel() == 0:
         return out, lse
     library = _library()
+    pointers = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        status = library.hm_flash_forward(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            batch, seq, heads, head_dim,
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            out.stride(0), out.stride(1), out.stride(2),
-            int(causal), int(q.dtype == torch.bfloat16), head_dim ** -0.5, stream,
-        )
+        if q.dtype == torch.bfloat16:
+            status = library.hm_flash_forward_bf16(
+                *pointers, batch, seq, heads, head_dim,
+                *(tma_geometry(t, FORWARD_TILE_ROWS).as_ctypes() for t in (q, k, v)), *out.stride()[:3],
+                int(causal), head_dim ** -0.5, stream,
+            )
+        else:
+            status = library.hm_flash_forward_f32(
+                *pointers, batch, seq, heads, head_dim, *_strides(q, k, v, out), int(causal), head_dim ** -0.5, stream,
+            )
     _build.check_launch(library, status, "flash_attention_lse")
     flash_attention_lse.launches += 1
     return out, lse
@@ -173,32 +232,33 @@ def flash_attention_backward_plain(q, k, v, out, lse, dout, causal: bool = False
 
 def _bwd_library() -> ctypes.CDLL:
     library = _build.load_library("flash_attention_bwd")
-    for fn, outputs in ((library.hm_flash_backward_dq, 1), (library.hm_flash_backward_dkv, 2)):
-        if fn.argtypes is None:
-            # q, k, v, dout, lse, delta, outputs; B, T, H, D; strides of q, k, v, dout
-            # and of the outputs (one layout for all outputs); causal, is_bf16, scale, stream
-            fn.argtypes = (
-                [ctypes.c_void_p] * (6 + outputs)
-                + [ctypes.c_int] * 4
-                + [ctypes.c_longlong] * 15
-                + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-            )
+    dq, dkv_f32, dkv_bf16 = (library.hm_flash_backward_dq, library.hm_flash_backward_dkv_f32,
+                             library.hm_flash_backward_dkv_bf16)
+    if dq.argtypes is None:
+        # each: q, k, v, dout, lse, delta, its outputs; B, T, H, D; then the layout
+        # (the strides of q, k, v, dout and of the outputs, or, bf16 dK/dV, the
+        # geometries of q, k, v, dout and the outputs' strides); causal; for dq
+        # is_bf16; scale, stream
+        strides = [ctypes.c_longlong] * 15
+        dq.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + strides + [ctypes.c_int] * 2
+        dkv_f32.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + strides + [ctypes.c_int]
+        dkv_bf16.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)] * 4
+                             + [ctypes.c_longlong] * 3 + [ctypes.c_int])
+        for fn in (dq, dkv_f32, dkv_bf16):
+            fn.argtypes += [ctypes.c_float, ctypes.c_void_p]
             fn.restype = ctypes.c_int
     return library
 
 
-def _launch_backward(name: str, q, k, v, dout, lse, delta, outputs, causal: bool) -> None:
-    batch, seq, heads, head_dim = q.shape
+def _launch_backward(name: str, q, k, v, dout, lse, delta, outputs, layout: tuple, flags: tuple) -> None:
+    """Call the entry point ``name`` on the pointers of q, k, v, dout, lse, delta and
+    ``outputs``, then (B, T, H, D), ``layout`` and ``flags``."""
     library = _bwd_library()
-    out0 = outputs[0]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = getattr(library, name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            *(t.data_ptr() for t in outputs),
-            batch, seq, heads, head_dim,
-            *(t.stride(i) for t in (q, k, v, dout, out0) for i in range(3)),
-            int(causal), int(q.dtype == torch.bfloat16), head_dim ** -0.5, stream,
+            *(t.data_ptr() for t in outputs), *q.shape, *layout, *flags, q.shape[-1] ** -0.5, stream,
         )
     _build.check_launch(library, status, name)
 
@@ -222,7 +282,8 @@ def flash_attention_backward_dq(q, k, v, dout, lse, delta, causal: bool = False)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     if dq.numel() == 0:
         return dq
-    _launch_backward("hm_flash_backward_dq", q, k, v, dout, lse, delta, (dq,), causal)
+    _launch_backward("hm_flash_backward_dq", q, k, v, dout, lse, delta, (dq,), _strides(q, k, v, dout, dq),
+                     (int(causal), int(q.dtype == torch.bfloat16)))
     flash_attention_backward_dq.launches += 1
     return dq
 
@@ -236,7 +297,14 @@ def flash_attention_backward_dkv(q, k, v, dout, lse, delta, causal: bool = False
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     if dk.numel() == 0:
         return dk, dv
-    _launch_backward("hm_flash_backward_dkv", q, k, v, dout, lse, delta, (dk, dv), causal)
+    if q.dtype == torch.bfloat16:
+        geometries = tuple(tma_geometry(t, rows).as_ctypes()
+                           for t, rows in ((q, DKV_Q_ROWS), (k, DKV_KV_ROWS), (v, DKV_KV_ROWS), (dout, DKV_Q_ROWS)))
+        _launch_backward("hm_flash_backward_dkv_bf16", q, k, v, dout, lse, delta, (dk, dv),
+                         (*geometries, *dk.stride()[:3]), (int(causal),))
+    else:
+        _launch_backward("hm_flash_backward_dkv_f32", q, k, v, dout, lse, delta, (dk, dv),
+                         _strides(q, k, v, dout, dk), (int(causal),))
     flash_attention_backward_dkv.launches += 1
     return dk, dv
 

@@ -20,6 +20,9 @@ from hivemind_tpu.ops.quantized_params import tree_param_bytes as jax_tree_param
 from hivemind_tpu.parallel.ring_attention import plain_attention as jax_plain_attention
 from hivemind_tpu_torch.ops.blockwise_int8 import blockwise_int8_dequantize, blockwise_int8_quantize
 from hivemind_tpu_torch.ops.flash_attention import (
+    DKV_KV_ROWS,
+    DKV_Q_ROWS,
+    FORWARD_TILE_ROWS,
     FlashAttentionFunction,
     attention_auto,
     flash_attention,
@@ -28,6 +31,7 @@ from hivemind_tpu_torch.ops.flash_attention import (
     flash_attention_backward_dq,
     flash_attention_backward_plain,
     flash_attention_lse,
+    tma_geometry,
 )
 from hivemind_tpu_torch.ops.quantized_params import (
     QuantizedTensor,
@@ -149,6 +153,41 @@ def test_flash_wrapper_refuses_what_it_cannot_take():
             backward_pass(meta, meta, meta, meta, rows, rows)
     with pytest.raises(ValueError, match="dout"):
         flash_attention_backward_dq(meta, meta, meta, torch.zeros(1, 4, 2, 16, device="meta"), rows, rows)
+
+
+def _fused_q() -> torch.Tensor:
+    """q sliced out of a fused [B, T, 3, H, D] projection: T stride 3·H·D."""
+    return torch.empty(2, 512, 3, 12, 64, dtype=torch.bfloat16, device="meta")[:, :, 0]
+
+
+# (tensor, box rows) -> dims (D, H, T, B), byte strides of (H, T, B), box, and the boxes
+# a tile row takes (D / 64), worked out by hand: bf16 is 2 bytes, so a stride of s
+# elements is 2s bytes
+@pytest.mark.parametrize("make, rows, dims, strides, box, boxes", [
+    (lambda: torch.empty(2, 1000, 16, 64, dtype=torch.bfloat16, device="meta"), FORWARD_TILE_ROWS,
+     (64, 16, 1000, 2), (2 * 64, 2 * 16 * 64, 2 * 1000 * 16 * 64), (64, 1, 128, 1), 1),
+    (lambda: torch.empty(32, 512, 12, 64, dtype=torch.bfloat16, device="meta"), DKV_Q_ROWS,  # ALBERT's
+     (64, 12, 512, 32), (128, 1536, 786432), (64, 1, 64, 1), 1),
+    (lambda: torch.empty(1, 2048, 32, 128, dtype=torch.bfloat16, device="meta"), DKV_KV_ROWS,  # D = 128: two boxes
+     (128, 32, 2048, 1), (256, 8192, 16777216), (64, 1, 128, 1), 2),
+    (_fused_q, DKV_Q_ROWS, (64, 12, 512, 2), (128, 2 * 3 * 12 * 64, 2 * 512 * 3 * 12 * 64), (64, 1, 64, 1), 1),
+], ids=["contiguous", "albert", "head_dim_128", "fused_qkv"])
+def test_tma_geometry_describes_the_kernels_views(make, rows, dims, strides, box, boxes):
+    geometry = tma_geometry(make(), rows)
+    assert (geometry.dims, geometry.strides, geometry.box) == (dims, strides, box)
+    assert geometry.dims[0] // geometry.box[0] == boxes
+    assert list(geometry.as_ctypes()) == [*dims, *strides, *box]  # the order sm90::TmaGeometry reads
+
+
+@pytest.mark.parametrize("make, match", [
+    (lambda: torch.empty(1, 64, 8, 66, dtype=torch.bfloat16, device="meta")[..., :64], "multiples of 16 bytes"),
+    (lambda: torch.empty(1, 64, 8, 72, dtype=torch.bfloat16, device="meta")[..., 1:65], "16-byte aligned"),
+    (lambda: torch.empty(1, 64, 64, 8, dtype=torch.bfloat16, device="meta").transpose(2, 3), "contiguous head dim"),
+    (lambda: torch.empty(1, 64, 8, 64, dtype=torch.float32, device="meta"), "bf16"),
+], ids=["head_stride_132_bytes", "misaligned_base", "strided_head_dim", "fp32"])
+def test_tma_geometry_refuses_views_tma_cannot_take(make, match):
+    with pytest.raises(ValueError, match=match):
+        tma_geometry(make(), FORWARD_TILE_ROWS)
 
 
 # ------------------------------------------------------------------ blockwise int8
