@@ -85,11 +85,14 @@ FLASH_BWD_TOL = {
     "float32": dict(atol=1e-5, rtol=1.2e-4, max_abs=1e-3, rel_l2=1e-5),
 }
 FAULTY_TILE = 64  # planted faults the checks must reject: P (forward) or dS (backward) 5% too large on every other 64-wide tile
+# where the backward's planted fault is checked: the training path's shape, and a Llama
+# request at full length, causal (the dQ kernel masks only its diagonal tiles)
+FAULTY_BWD_SHAPES = (ALBERT_ATTENTION, (1, 2048, 32, 128))
 # q, k, v sliced from one fused [B, T, 3, H, D] tensor (T stride 3*H*D): the TMA views of a
 # projection that is not split into three tensors, for each head_dim, held like FLASH_SHAPES
 STRIDED_CASES = [((2, 1000, 16, 64), True), ((1, 512, 32, 128), False)]
 # the kernels that issue wgmma fed by TMA, with setmaxnreg: the build fails if one spills
-WGMMA_KERNELS = ("flash_forward_bf16", "flash_bwd_dkv_bf16")
+WGMMA_KERNELS = ("flash_forward_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16")
 # ALBERT-base MLM training, bench.py's workload: its first batch candidate
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_WARMUP, TRAIN_STEPS = 32, 512, 2, 10
 TRAIN_MASKED_FRACTION = 0.25
@@ -430,6 +433,7 @@ def phase_flash_bwd(torch, peaks) -> dict:
 
     from hivemind_tpu_torch.ops.flash_attention import (
         _delta,
+        flash_attention_backward,
         flash_attention_backward_dkv,
         flash_attention_backward_dkv_plain,
         flash_attention_backward_dq,
@@ -455,7 +459,7 @@ def phase_flash_bwd(torch, peaks) -> dict:
         label = f"B={batch} T={seq} H={heads} D={dim} {dtype_name} causal={causal}"
         if not all(r["ok"] for r in readings.values()):
             raise AssertionError(f"flash backward {label} exceeds {FLASH_BWD_TOL[dtype_name]}: {text}")
-        if shape == ALBERT_ATTENTION:  # the check must reject a planted fault at the training path's shape
+        if shape in FAULTY_BWD_SHAPES and dtype == torch.bfloat16:  # the check must reject a planted fault
             faulty = read_backward(dtype_name, (*faulty_backward(torch, *args), ref[2]), ref, scales)
             log(f"[flash_bwd] {label}, dS x 1.05 on every other tile (planted in the plain version): " +
                 "; ".join(f"{name} {format_reading(faulty[name])} ok={faulty[name]['ok']}" for name in ("dq", "dk")))
@@ -472,6 +476,11 @@ def phase_flash_bwd(torch, peaks) -> dict:
         library_ms = time_ms(torch, lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dout.transpose(1, 2),
                                                                 retain_graph=True))
         del sdpa_out
+        host = ""
+        if dtype == torch.bfloat16:  # the wrappers' host time per call: each pass, and the whole backward
+            host = "; host_us " + " ".join(f"{name}={host_us(torch, fn):.1f}" for name, fn in (
+                ("dq", lambda: flash_attention_backward_dq(*args)), ("dkv", lambda: flash_attention_backward_dkv(*args)),
+                ("backward", lambda: flash_attention_backward(q, k, v, out, lse, dout, causal))))
         pairs = seq * (seq + 1) / 2 if causal else seq * seq  # query-key pairs this data needs
         element, rows = q.numel() * q.element_size(), batch * heads * seq * 4
         rate = peaks["bf16"] if dtype == torch.bfloat16 else peaks["fp32"]
@@ -481,7 +490,7 @@ def phase_flash_bwd(torch, peaks) -> dict:
         log(f"[flash_bwd] {label}: " + "; ".join(
             f"{kernel} ms={ms[kernel]:.4f} ({operations[kernel] / ms[kernel] / 1e9:.1f} TFLOP/s) "
             f"plain_ms={plain_ms[kernel]:.4f} bound_ms={bounds[kernel][0]:.4f} ({bounds[kernel][1]})"
-            for kernel in ("dq", "dkv")) + f"; library (whole backward) ms={library_ms:.4f}")
+            for kernel in ("dq", "dkv")) + f"; library (whole backward) ms={library_ms:.4f}{host}")
         log(f"[flash_bwd]   {text}")
         if shape == ALBERT_ATTENTION:  # the training path's shape
             for kernel, names in (("dq", ("dq",)), ("dkv", ("dk", "dv"))):

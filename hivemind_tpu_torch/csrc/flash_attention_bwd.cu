@@ -28,33 +28,62 @@
 // which multiplied fp32 tiles. Columns past T (and above the diagonal when
 // causal) are masked to P = 0 explicitly, so nothing relies on a padded lse.
 //
-// dK/dV pass, bf16 (building blocks in sm90.cuh):
-//  * One thread block per (128 KV rows, batch*head); three warpgroups. Two
-//    consumer warpgroups own 64 KV rows each, whose K and V stay resident in
-//    shared memory; one warp of the third (the producer) streams 64-row Q and dO
-//    tiles through a ring of two stages by TMA, and with plain loads the tile's
-//    lse (times log2 e) and delta, which a TMA map on [B*H, T] fp32 could not
-//    take for a T that is not a multiple of 4. The producer warpgroup gives its
-//    registers to the consumers (setmaxnreg 24 / 240): at D = 128 each consumer
-//    thread holds dK and dV (64 + 64 fp32) and S^T, dP^T (32 + 32).
-//  * S^T = K Q^T and dP^T = V dO^T are wgmma m64n64k16 with every operand
-//    K-major in shared memory; P^T and dS^T come out in the accumulator layout,
-//    which is the A-register layout, so they are rounded to bf16 in place.
+// Both bf16 passes (building blocks in sm90.cuh) run one thread block per 128
+// rows (query rows for dQ, KV rows for dK/dV) of one batch*head, in three
+// warpgroups: two consumer warpgroups own 64 of those rows each, whose tiles stay
+// resident in shared memory, and one warp of the third (the producer) streams the
+// other side's 64-row tiles by TMA through a ring. The producer warpgroup gives
+// its registers to the consumers (setmaxnreg 24 / 240). Every tensor is read by
+// TMA through one geometry shared by both passes: boxes of 64 columns x 64 rows,
+// so a 128-row tile is two boxes per 64 columns, which land where one 128-row box
+// would. Every wgmma is issued outside any branch (ptxas serializes them all
+// otherwise, note C7520). The exponent is 2^(S * D^-1/2 * log2(e) - lse * log2(e))
+// by ex2.approx. Masking is applied only on the tiles that meet the diagonal when
+// causal and on the tile holding T; TMA reads rows past T as zeros, and rows past
+// T are never stored.
+//
+// dQ pass, bf16:
+//  * Grid (B*H, query tiles), the heaviest query tiles first when causal (the
+//    last tile of each batch*head first), as the forward. Q and dO of the block's
+//    128 rows are loaded once; K and V tiles of 64 rows stream through a ring of
+//    four stages, with separate full / empty mbarriers for K and for V: V's slot
+//    is freed once dP is done, K's once dS K is (Q, dO and the ring: 192 KB of
+//    shared memory at D = 128). Each consumer thread keeps lse
+//    (times log2 e) and delta of its two rows in registers for the whole sweep.
+//  * S = Q K^T and dP = dO V^T are wgmma m64n64k16 with every operand K-major in
+//    shared memory; dS = P * (dP - delta) * D^-1/2 is computed in place in the
+//    accumulator layout, which is the A-register layout, and packed to bf16.
+//  * dQ += dS K is wgmma with dS from registers and K read MN-major through the
+//    transpose-B flag (the k dimension is K's rows): no transposed copy of K.
+//  * One wgmma group per KV tile: S and dP of tile j with dS K of tile j - 1
+//    (the first group S and dP only, a last one dS K only), so each tile waits on
+//    the tensor cores once. At D = 128 a consumer thread holds S, dP (32 + 32),
+//    dQ (64) and the dS fragments (16): 144 of its 240 registers.
+//  * The two consumer warpgroups take turns issuing their groups (ping-pong, two
+//    named barriers, as the forward), so one computes dS while the other's
+//    products run: faster on an H100 than letting them issue freely, at every
+//    shape timed. The ring is deep because a K slot is freed only a turn after
+//    its tile's S: at ALBERT's shape two stages were slower than three, and
+//    three slower than four (PERF.md, the dQ pass's redesign).
+//  * Causal: the KV loop ends at the block's diagonal tiles; warpgroup 0 also runs
+//    the last KV tile, which lies wholly above its rows and masks to zero, so that
+//    both warpgroups release every ring slot.
+//
+// dK/dV pass, bf16:
+//  * Grid (B*H, KV tiles of 128 rows). K and V of the block stay resident; Q and
+//    dO tiles of 64 rows stream through a ring of two stages, and the producer
+//    warp stages their lse (times log2 e) and delta by plain loads, which a TMA
+//    map on [B*H, T] fp32 could not take for a T that is not a multiple of 4. At
+//    D = 128 each consumer thread holds dK and dV (64 + 64 fp32) and S^T, dP^T
+//    (32 + 32).
+//  * S^T = K Q^T and dP^T = V dO^T are wgmma m64n64k16 with every operand K-major
+//    in shared memory; P^T and dS^T are rounded to bf16 in place as A operands.
 //  * dV += P^T dO and dK += dS^T Q are wgmma with the A operand from registers
 //    and dO, Q read MN-major through the transpose-B flag.
-//  * Causal: the query loop starts at the diagonal tile; the mask is evaluated
-//    only on the two query tiles that meet the diagonal and on the tile holding T.
-//  * P^T = 2^(S^T * D^-1/2 * log2(e) - lse * log2(e)) by ex2.approx.
-//  * Later work (not here): the forward's ping-pong of the two consumer
-//    warpgroups. It holds P^T and dS^T of one tile beside S^T and dP^T of the
-//    next: 224 accumulator and fragment registers at D = 128, of the 240 a
-//    consumer thread has.
+//  * Causal: the query loop starts at the diagonal tile.
 //
-// dQ pass, bf16: one block per (64 query rows, batch*head), 4 warps of 16 rows,
-// mma.sync m16n8k16; it loops over 64-row KV tiles staged in shared memory
-// (ending at the diagonal tile when causal), 16 keys at a time: the scores of two
-// 8-column mma tiles are turned into dS, rounded to bf16 and fed straight to the
-// dS K product. Later work (not here): the dK/dV pass's design.
+// Later work (not here): the ping-pong of the two consumer warpgroups and a deeper
+// ring in the dK/dV pass, a persistent grid, TMA stores of the outputs.
 //
 // fp32 (no served or trained path uses it on the card; it exists so that fp32
 // CUDA tensors differentiate): plain FMAs on the CUDA cores, no TF32. A warp owns
@@ -90,88 +119,30 @@ struct Params {
     int causal;
 };
 
+constexpr int kWarps = 4;  // warps of an fp32 block
+
 // ------------------------------------------------------------------ bf16 path
 
-constexpr int kTile = 64;  // rows of every tile (query and KV)
-constexpr int kWarps = 4;  // 16 rows per warp
-constexpr int kPad = 8;    // bf16 elements of padding per shared-memory row
+constexpr int kBlockRows = 128;  // rows a bf16 block owns: two consumer warpgroups of 64
+constexpr int kBoxRows = 64;     // rows of a TMA box, and of every streamed tile
+constexpr int kConsumerWarps = 8;
+constexpr int kThreads = 384;  // two consumer warpgroups and the producer's
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;  // 128 * 24 + 256 * 240 = 384 * 168
 
-__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+struct Bf16Params {
+    const float* lse;    // [B, H, T]
+    const float* delta;  // [B, H, T]
+    void* out0;          // dq, or dk
+    void* out1;          // dv (dK/dV pass)
+    int seq, heads;
+    long long o_sb, o_st, o_sh;  // the outputs' layout
+    float scale;
+    int causal;
+};
 
-__device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* ptr) {
-    return *reinterpret_cast<const uint32_t*>(ptr);
-}
-
-// Stage rows [row0, row0 + kTile) of one (batch, head) slice into shared memory,
-// 16 bytes per access; rows at or past `seq` become zeros.
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src, long long row_stride,
-                                          int row0, int seq) {
-    constexpr int kChunksPerRow = D / 8;
-    for (int i = threadIdx.x; i < kTile * kChunksPerRow; i += kWarps * 32) {
-        const int row = i / kChunksPerRow, chunk = i % kChunksPerRow;
-        uint4 value = make_uint4(0u, 0u, 0u, 0u);
-        if (row0 + row < seq) {
-            value = *reinterpret_cast<const uint4*>(src + (row0 + row) * row_stride + chunk * 8);
-        }
-        *reinterpret_cast<uint4*>(dst + row * (D + kPad) + chunk * 8) = value;
-    }
-}
-
-// A-operand fragment of rows [r0, r0 + 16), columns [kk*16, kk*16 + 16) of a tile.
-template <int S>
-__device__ __forceinline__ void load_a(uint32_t a[4], const __nv_bfloat16* tile, int r0, int kk, int g, int t) {
-    a[0] = load_pair(tile + (r0 + g) * S + kk * 16 + t * 2);
-    a[1] = load_pair(tile + (r0 + g + 8) * S + kk * 16 + t * 2);
-    a[2] = load_pair(tile + (r0 + g) * S + kk * 16 + t * 2 + 8);
-    a[3] = load_pair(tile + (r0 + g + 8) * S + kk * 16 + t * 2 + 8);
-}
-
-// acc[16 x 8] += rows [r0, r0+16) of `a_tile` times rows [n0, n0+8) of `b_tile`
-// transposed, over the full head dimension: the A·Bᵀ products (S = Q Kᵀ and friends).
-template <int D>
-__device__ __forceinline__ void mma_abt(float acc[4], const __nv_bfloat16* a_tile, int r0,
-                                        const __nv_bfloat16* b_tile, int n0, int g, int t) {
-    constexpr int S = D + kPad;
-    acc[0] = acc[1] = acc[2] = acc[3] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t a[4], b[2];
-        load_a<S>(a, a_tile, r0, kk, g, t);
-        b[0] = load_pair(b_tile + (n0 + g) * S + kk * 16 + t * 2);
-        b[1] = load_pair(b_tile + (n0 + g) * S + kk * 16 + t * 2 + 8);
-        mma_bf16_16816(acc, a, b);
-    }
-}
-
-// acc[n] (16 x D in 8-column tiles) += frag (16 x 16, A layout) times rows
-// [k0, k0 + 16) of `tile` (16 x D): the products whose B operand is a tile read
-// down its rows (dS K, P^T dO, dS^T Q).
-template <int D>
-__device__ __forceinline__ void mma_ab(float acc[][4], const uint32_t frag[4], const __nv_bfloat16* tile,
-                                       int k0, int g, int t) {
-    constexpr int S = D + kPad;
-    const uint16_t* u16 = reinterpret_cast<const uint16_t*>(tile);
-    const int k_row = k0 + t * 2;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-        const int col = n * 8 + g;
-        uint32_t b[2];
-        b[0] = uint32_t(u16[k_row * S + col]) | (uint32_t(u16[(k_row + 1) * S + col]) << 16);
-        b[1] = uint32_t(u16[(k_row + 8) * S + col]) | (uint32_t(u16[(k_row + 9) * S + col]) << 16);
-        mma_bf16_16816(acc[n], frag, b);
-    }
-}
-
-// Write a warp's 16 x D fp32 accumulator as bf16 rows `row_a` and `row_a + 8`:
-// acc[4n + e] holds row row_a + 8*(e >> 1), column 8n + 2t + (e & 1), the layout
-// of both an mma.sync m16n8 accumulator and a wgmma m64nD one.
+// Write a warpgroup's 64 x D fp32 accumulator as bf16 rows `row_a` and `row_a + 8`
+// of this thread: acc[4n + e] holds row row_a + 8*(e >> 1), column 8n + 2t + (e & 1)
+// (the wgmma m64nD accumulator layout); rows at or past `seq` are not stored.
 template <int D>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* base, long long row_stride, const float* acc,
                                            int row_a, int seq, int t) {
@@ -190,124 +161,228 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* base, long long row_st
     }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kWarps * 32) flash_bwd_dq_bf16(const Params p) {
-    constexpr int S = D + kPad;
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-    __nv_bfloat16* do_s = q_s + kTile * S;
-    __nv_bfloat16* k_s = do_s + kTile * S;
-    __nv_bfloat16* v_s = k_s + kTile * S;
-
-    const int bh = blockIdx.y;
-    const int b = bh / p.heads, h = bh % p.heads;
-    const int q0 = blockIdx.x * kTile;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int g = lane >> 2, t = lane & 3;
-    const int r0 = warp * 16;
-
-    const __nv_bfloat16* q_base = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-    const __nv_bfloat16* k_base = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * p.k_sh;
-    const __nv_bfloat16* v_base = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * p.v_sh;
-    const __nv_bfloat16* d_base = static_cast<const __nv_bfloat16*>(p.dout) + b * p.d_sb + h * p.d_sh;
-    load_tile<D>(q_s, q_base, p.q_st, q0, p.seq);
-    load_tile<D>(do_s, d_base, p.d_st, q0, p.seq);
-
-    const int row_a = q0 + r0 + g, row_b = row_a + 8;  // this thread's two query rows
-    const long long rows = static_cast<long long>(bh) * p.seq;
-    const float lse_a = row_a < p.seq ? p.lse[rows + row_a] : 0.0f;
-    const float lse_b = row_b < p.seq ? p.lse[rows + row_b] : 0.0f;
-    const float delta_a = row_a < p.seq ? p.delta[rows + row_a] : 0.0f;
-    const float delta_b = row_b < p.seq ? p.delta[rows + row_b] : 0.0f;
-
-    float acc[D / 8][4];
+// TMA of one tile of kRows rows (a multiple of 64) from row `row0`: D/64 regions of
+// 64 columns x kRows rows, one after the other, each loaded as kRows/64 boxes of
+// 64 rows (8 rows of 128 bytes are one swizzle period, so a box lands where the
+// same rows of one taller box would).
+template <int D, int kRows>
+__device__ __forceinline__ void load_tile_tma(uint32_t dst, const CUtensorMap* map, uint32_t bar, int h, int row0,
+                                              int b) {
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
-
-    const int kv_end = p.causal ? min(p.seq, q0 + kTile) : p.seq;  // causal: stop at the diagonal tile
-    for (int kv0 = 0; kv0 < kv_end; kv0 += kTile) {
-        __syncthreads();  // every warp is done with the previous K/V tile (and Q/dO are staged)
-        load_tile<D>(k_s, k_base, p.k_st, kv0, p.seq);
-        load_tile<D>(v_s, v_base, p.v_st, kv0, p.seq);
-        __syncthreads();
-
+    for (int col = 0; col < D / sm90::kBoxCols; ++col) {
 #pragma unroll
-        for (int kc = 0; kc < kTile / 16; ++kc) {  // 16 keys at a time
-            float ds[2][4];
-#pragma unroll
-            for (int jj = 0; jj < 2; ++jj) {
-                const int j = 2 * kc + jj;
-                float s[4], dp[4];
-                mma_abt<D>(s, q_s, r0, k_s, j * 8, g, t);
-                mma_abt<D>(dp, do_s, r0, v_s, j * 8, g, t);
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    const int col = kv0 + j * 8 + t * 2 + (e & 1);
-                    const int row = e < 2 ? row_a : row_b;
-                    const bool masked = col >= p.seq || (p.causal && col > row);
-                    const float prob = masked ? 0.0f : __expf(s[e] * p.scale - (e < 2 ? lse_a : lse_b));
-                    ds[jj][e] = prob * (dp[e] - (e < 2 ? delta_a : delta_b)) * p.scale;
-                }
-            }
-            uint32_t ds_frag[4];
-            ds_frag[0] = sm90::pack_bf16(ds[0][0], ds[0][1]);
-            ds_frag[1] = sm90::pack_bf16(ds[0][2], ds[0][3]);
-            ds_frag[2] = sm90::pack_bf16(ds[1][0], ds[1][1]);
-            ds_frag[3] = sm90::pack_bf16(ds[1][2], ds[1][3]);
-            mma_ab<D>(acc, ds_frag, k_s, kc * 16, g, t);
+        for (int part = 0; part < kRows / kBoxRows; ++part) {
+            sm90::tma_load_4d(dst + (col * kRows + part * kBoxRows) * sm90::kSwizzleRowBytes, map, bar,
+                              col * sm90::kBoxCols, h, row0 + part * kBoxRows, b);
         }
     }
-    __nv_bfloat16* o_base = static_cast<__nv_bfloat16*>(p.out0) + b * p.o_sb + h * p.o_sh;
-    store_rows<D>(o_base, p.o_st, &acc[0][0], row_a, p.seq, t);
 }
 
-constexpr int kKvRows = 128;  // KV rows per dK/dV block: two consumer warpgroups of 64
-constexpr int kQRows = 64;    // query rows per streamed Q / dO tile
-constexpr int kStages = 2;    // depth of the Q / dO ring
-constexpr int kConsumerWarps = 8;
-constexpr int kThreadsDkv = 384;  // two consumer warpgroups and the producer's
-constexpr int kProducerRegs = 24, kConsumerRegs = 240;  // 128 * 24 + 256 * 240 = 384 * 168
-
-struct DkvParams {
-    const float* lse;    // [B, H, T]
-    const float* delta;  // [B, H, T]
-    void* dk;
-    void* dv;
-    int seq, heads;
-    long long o_sb, o_st, o_sh;  // the layout of dk and dv
-    float scale;
-    int causal;
-};
-
-// Shared-memory layout (byte offsets from a 1024-aligned base).
+// dQ pass: shared-memory layout (byte offsets from a 1024-aligned base).
+constexpr int kDqStages = 4;  // depth of the K / V ring
 template <int D>
-struct DkvTiles {
-    static constexpr uint32_t kKvBox = kKvRows * sm90::kSwizzleRowBytes;  // 64 columns x 128 rows: 16 KB
-    static constexpr uint32_t kQBox = kQRows * sm90::kSwizzleRowBytes;    // 64 columns x 64 rows: 8 KB
-    static constexpr uint32_t kKvTile = kKvBox * (D / sm90::kBoxCols);
+struct DqTiles {
+    static constexpr uint32_t kQBox = kBlockRows * sm90::kSwizzleRowBytes;  // 64 columns x 128 rows: 16 KB
+    static constexpr uint32_t kKvBox = kBoxRows * sm90::kSwizzleRowBytes;   // 64 columns x 64 rows: 8 KB
     static constexpr uint32_t kQTile = kQBox * (D / sm90::kBoxCols);
-    static constexpr uint32_t kK = 0, kV = kKvTile, kQ = 2 * kKvTile, kDo = kQ + kStages * kQTile;
-    static constexpr uint32_t kLse = kDo + kStages * kQTile;          // [S][64] fp32: lse * log2(e)
-    static constexpr uint32_t kDelta = kLse + kStages * kQRows * 4;    // [S][64] fp32
-    static constexpr uint32_t kBarriers = kDelta + kStages * kQRows * 4;  // full_kv, full[S], empty[S]
-    static constexpr uint32_t kBytes = kBarriers + (1 + 2 * kStages) * 8 + sm90::kSwizzleAtomBytes;  // + alignment
+    static constexpr uint32_t kKvTile = kKvBox * (D / sm90::kBoxCols);
+    static constexpr uint32_t kQ = 0, kDo = kQTile, kK = 2 * kQTile, kV = kK + kDqStages * kKvTile;
+    static constexpr uint32_t kBarriers = kV + kDqStages * kKvTile;  // full_qdo, full_k[S], full_v[S], empty_k[S], empty_v[S]
+    static constexpr uint32_t kBytes = kBarriers + (1 + 4 * kDqStages) * 8 + sm90::kSwizzleAtomBytes;  // + alignment
 };
 
-// TMA of one tile of `rows` rows: D/64 boxes of 64 columns, `box_bytes` apart.
 template <int D>
-__device__ __forceinline__ void load_tile_tma(uint32_t dst, uint32_t box_bytes, const CUtensorMap* map, uint32_t bar,
-                                              int h, int row0, int b) {
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                      const Bf16Params p) {
+    using L = DqTiles<D>;
+    extern __shared__ unsigned char smem_raw[];
+    const uint32_t base = (sm90::smem_addr(smem_raw) + sm90::kSwizzleAtomBytes - 1) & ~(sm90::kSwizzleAtomBytes - 1);
+    const uint32_t full_qdo = base + L::kBarriers;
+    const auto full_k = [&](int s) { return full_qdo + 8 * (1 + s); };
+    const auto full_v = [&](int s) { return full_qdo + 8 * (1 + kDqStages + s); };
+    const auto empty_k = [&](int s) { return full_qdo + 8 * (1 + 2 * kDqStages + s); };
+    const auto empty_v = [&](int s) { return full_qdo + 8 * (1 + 3 * kDqStages + s); };
+
+    const int bh = blockIdx.x;
+    const int b = bh / p.heads, h = bh % p.heads;
+    const int q_tiles = (p.seq + kBlockRows - 1) / kBlockRows;
+    const int q0 = (q_tiles - 1 - static_cast<int>(blockIdx.y)) * kBlockRows;  // heaviest first
+    const int kv_end = p.causal ? min(p.seq, q0 + kBlockRows) : p.seq;   // causal: up to the diagonal
+    const int kv_tiles = (kv_end + kBoxRows - 1) / kBoxRows;
+
+    if (threadIdx.x == 0) {
+        sm90::mbar_init(full_qdo, 1);
+        for (int s = 0; s < kDqStages; ++s) {
+            sm90::mbar_init(full_k(s), 1);
+            sm90::mbar_init(full_v(s), 1);
+            sm90::mbar_init(empty_k(s), kConsumerWarps);
+            sm90::mbar_init(empty_v(s), kConsumerWarps);
+        }
+        sm90::fence_mbar_init();
+    }
+    __syncthreads();
+
+    if (threadIdx.x >= kConsumerWarps * 32) {  // the producer warpgroup; one thread issues every load
+        sm90::setmaxnreg_dec<kProducerRegs>();
+        if (threadIdx.x == kConsumerWarps * 32) {
+            sm90::mbar_arrive_expect_tx(full_qdo, 2 * L::kQTile);
+            load_tile_tma<D, kBlockRows>(base + L::kQ, &tm_q, full_qdo, h, q0, b);
+            load_tile_tma<D, kBlockRows>(base + L::kDo, &tm_do, full_qdo, h, q0, b);
+            for (int j = 0; j < kv_tiles; ++j) {
+                const int s = j % kDqStages;
+                const uint32_t parity = ((j / kDqStages) & 1) ^ 1;  // the first round passes at once
+                sm90::mbar_wait(empty_k(s), parity);
+                sm90::mbar_arrive_expect_tx(full_k(s), L::kKvTile);
+                load_tile_tma<D, kBoxRows>(base + L::kK + s * L::kKvTile, &tm_k, full_k(s), h, j * kBoxRows, b);
+                sm90::mbar_wait(empty_v(s), parity);
+                sm90::mbar_arrive_expect_tx(full_v(s), L::kKvTile);
+                load_tile_tma<D, kBoxRows>(base + L::kV + s * L::kKvTile, &tm_v, full_v(s), h, j * kBoxRows, b);
+            }
+        }
+    } else {  // two consumer warpgroups, 64 query rows each
+        sm90::setmaxnreg_inc<kConsumerRegs>();
+        const int wg = threadIdx.x / 128;
+        const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+        const int g = lane / 4, t = lane % 4;
+        const int row_a = q0 + wg * 64 + warp * 16 + g, row_b = row_a + 8;  // this thread's query rows
+        const float scale2 = p.scale * sm90::kLog2e;
+        const long long rows = static_cast<long long>(bh) * p.seq;
+        const float lse_a = row_a < p.seq ? p.lse[rows + row_a] * sm90::kLog2e : 0.0f;
+        const float lse_b = row_b < p.seq ? p.lse[rows + row_b] * sm90::kLog2e : 0.0f;
+        const float delta_a = row_a < p.seq ? p.delta[rows + row_a] : 0.0f;
+        const float delta_b = row_b < p.seq ? p.delta[rows + row_b] : 0.0f;
+
+        float dq[D / 2];
 #pragma unroll
-    for (int box = 0; box < D / sm90::kBoxCols; ++box) {
-        sm90::tma_load_4d(dst + box * box_bytes, map, bar, box * sm90::kBoxCols, h, row0, b);
+        for (int i = 0; i < D / 2; ++i) dq[i] = 0.0f;
+        float sc[kBoxRows / 2], dp[kBoxRows / 2];  // S = Q K^T (then dS) and dP = dO V^T of one KV tile: 64 x 64
+        uint32_t df[kBoxRows / 16][4];             // dS as the A operand of dS K, 16 keys each
+
+        const uint32_t q_wg = base + L::kQ + wg * 64 * sm90::kSwizzleRowBytes;  // this warpgroup's 64 rows
+        const uint32_t do_wg = base + L::kDo + wg * 64 * sm90::kSwizzleRowBytes;
+        // S and dP of KV tile j
+        const auto issue_s_dp = [&](int j) {
+            const uint32_t k_tile = base + L::kK + (j % kDqStages) * L::kKvTile;
+            const uint32_t v_tile = base + L::kV + (j % kDqStages) * L::kKvTile;
+#pragma unroll
+            for (int kk = 0; kk < D / 16; ++kk) {
+                // box kk / 4, then 32 bytes (16 columns) along its swizzled 128-byte rows
+                const uint32_t q_off = (kk / 4) * L::kQBox + (kk % 4) * 32;
+                const uint32_t kv_off = (kk / 4) * L::kKvBox + (kk % 4) * 32;
+                sm90::wgmma_ss(sc, sm90::desc_kmajor(q_wg + q_off), sm90::desc_kmajor(k_tile + kv_off), kk > 0);
+            }
+#pragma unroll
+            for (int kk = 0; kk < D / 16; ++kk) {
+                const uint32_t q_off = (kk / 4) * L::kQBox + (kk % 4) * 32;
+                const uint32_t kv_off = (kk / 4) * L::kKvBox + (kk % 4) * 32;
+                sm90::wgmma_ss(dp, sm90::desc_kmajor(do_wg + q_off), sm90::desc_kmajor(v_tile + kv_off), kk > 0);
+            }
+        };
+        // dQ += dS K of KV tile j, dS from df
+        const auto issue_dq = [&](int j) {
+            const uint32_t k_tile = base + L::kK + (j % kDqStages) * L::kKvTile;
+#pragma unroll
+            for (int kc = 0; kc < kBoxRows / 16; ++kc) {  // 16 keys per k-step: 2048 bytes down K's boxes
+                sm90::wgmma_rs_tb(dq, df[kc], sm90::desc_mnmajor(k_tile + kc * 16 * sm90::kSwizzleRowBytes, L::kKvBox), 1);
+            }
+        };
+        // dS of tile j in place of its scores (column c of the tile is key kv0 + c), packed into df
+        const auto make_ds = [&](int j) {
+            const int kv0 = j * kBoxRows;
+            const bool edge = kv0 + kBoxRows > p.seq || (p.causal && kv0 + kBoxRows - 1 > q0 + wg * 64);
+#pragma unroll
+            for (int e = 0; e < kBoxRows / 2; ++e) {
+                const bool hi = e & 2;  // row_b's entries
+                float prob = sm90::exp2_approx(fmaf(sc[e], scale2, -(hi ? lse_b : lse_a)));
+                if (edge) {
+                    const int col = kv0 + (e / 4) * 8 + 2 * t + (e & 1);
+                    if (col >= p.seq || (p.causal && col > (hi ? row_b : row_a))) prob = 0.0f;
+                }
+                sc[e] = prob * (dp[e] - (hi ? delta_b : delta_a)) * p.scale;
+            }
+#pragma unroll
+            for (int kc = 0; kc < kBoxRows / 16; ++kc) {
+#pragma unroll
+                for (int r = 0; r < 4; ++r) df[kc][r] = sm90::pack_bf16(sc[8 * kc + 2 * r], sc[8 * kc + 2 * r + 1]);
+            }
+        };
+        // Turn j issues S and dP of tile j and dS K of tile j - 1 as one wgmma group
+        // (the first turn S and dP only, the last dS K only). The two warpgroups
+        // take turns (named barriers 1 and 2, warpgroup 0 first), so one
+        // warpgroup's dS runs while the other's products occupy the tensor cores.
+        const auto take_turn = [&]() {
+            sm90::named_bar_sync(1 + wg, 2 * 128);
+            sm90::fence_regs(sc);
+            sm90::fence_regs(dp);
+            sm90::fence_regs(dq);
+            sm90::fence_regs(df);
+            sm90::wgmma_fence();
+        };
+        const auto pass_turn = [&]() { sm90::named_bar_arrive(2 - wg, 2 * 128); };
+        const auto finish_turn = [&]() {
+            sm90::wgmma_wait<0>();
+            sm90::fence_regs(sc);
+            sm90::fence_regs(dp);
+            sm90::fence_regs(dq);
+        };
+        if (wg == 1) pass_turn();
+        sm90::mbar_wait(full_qdo, 0);
+        sm90::mbar_wait(full_k(0), 0);
+        sm90::mbar_wait(full_v(0), 0);
+        take_turn();
+        issue_s_dp(0);
+        sm90::wgmma_commit();
+        pass_turn();
+        finish_turn();
+        if (lane == 0) sm90::mbar_arrive(empty_v(0));  // this warp is done with V of tile 0
+        make_ds(0);
+        for (int j = 1; j < kv_tiles; ++j) {
+            const int s = j % kDqStages;
+            sm90::mbar_wait(full_k(s), (j / kDqStages) & 1);
+            sm90::mbar_wait(full_v(s), (j / kDqStages) & 1);
+            take_turn();
+            issue_s_dp(j);
+            issue_dq(j - 1);
+            sm90::wgmma_commit();
+            pass_turn();
+            finish_turn();
+            if (lane == 0) {  // this warp is done with V of tile j and K of tile j - 1
+                sm90::mbar_arrive(empty_v(s));
+                sm90::mbar_arrive(empty_k((j - 1) % kDqStages));
+            }
+            make_ds(j);
+        }
+        take_turn();
+        issue_dq(kv_tiles - 1);
+        sm90::wgmma_commit();
+        if (wg == 0) pass_turn();  // warpgroup 1's last turn has no taker
+        finish_turn();
+        store_rows<D>(static_cast<__nv_bfloat16*>(p.out0) + b * p.o_sb + h * p.o_sh, p.o_st, dq, row_a, p.seq, t);
     }
 }
 
+// dK/dV pass: shared-memory layout (byte offsets from a 1024-aligned base).
+constexpr int kDkvStages = 2;  // depth of the Q / dO ring
 template <int D>
-__global__ void __launch_bounds__(kThreadsDkv, 1)
+struct DkvTiles {
+    static constexpr uint32_t kKvBox = kBlockRows * sm90::kSwizzleRowBytes;  // 64 columns x 128 rows: 16 KB
+    static constexpr uint32_t kQBox = kBoxRows * sm90::kSwizzleRowBytes;     // 64 columns x 64 rows: 8 KB
+    static constexpr uint32_t kKvTile = kKvBox * (D / sm90::kBoxCols);
+    static constexpr uint32_t kQTile = kQBox * (D / sm90::kBoxCols);
+    static constexpr uint32_t kK = 0, kV = kKvTile, kQ = 2 * kKvTile, kDo = kQ + kDkvStages * kQTile;
+    static constexpr uint32_t kLse = kDo + kDkvStages * kQTile;             // [S][64] fp32: lse * log2(e)
+    static constexpr uint32_t kDelta = kLse + kDkvStages * kBoxRows * 4;    // [S][64] fp32
+    static constexpr uint32_t kBarriers = kDelta + kDkvStages * kBoxRows * 4;  // full_kv, full[S], empty[S]
+    static constexpr uint32_t kBytes = kBarriers + (1 + 2 * kDkvStages) * 8 + sm90::kSwizzleAtomBytes;  // + alignment
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
-                       const DkvParams p) {
+                       const Bf16Params p) {
     using L = DkvTiles<D>;
     extern __shared__ unsigned char smem_raw[];
     const uint32_t raw = sm90::smem_addr(smem_raw);
@@ -316,17 +391,17 @@ __global__ void __launch_bounds__(kThreadsDkv, 1)
     float* delta_s = reinterpret_cast<float*>(smem_raw + (base - raw) + L::kDelta);
     const uint32_t full_kv = base + L::kBarriers;
     const auto full = [&](int s) { return full_kv + 8 * (1 + s); };
-    const auto empty = [&](int s) { return full_kv + 8 * (1 + kStages + s); };
+    const auto empty = [&](int s) { return full_kv + 8 * (1 + kDkvStages + s); };
 
     const int bh = blockIdx.x;
     const int b = bh / p.heads, h = bh % p.heads;
-    const int kv0 = blockIdx.y * kKvRows;
-    const int q_tiles = (p.seq + kQRows - 1) / kQRows;
-    const int q_begin = p.causal ? kv0 / kQRows : 0;  // causal: start at the diagonal tile
+    const int kv0 = blockIdx.y * kBlockRows;
+    const int q_tiles = (p.seq + kBoxRows - 1) / kBoxRows;
+    const int q_begin = p.causal ? kv0 / kBoxRows : 0;  // causal: start at the diagonal tile
 
     if (threadIdx.x == 0) {
         sm90::mbar_init(full_kv, 1);
-        for (int s = 0; s < kStages; ++s) {
+        for (int s = 0; s < kDkvStages; ++s) {
             sm90::mbar_init(full(s), 32);  // the producer warp's lanes, one of them with the TMA bytes
             sm90::mbar_init(empty(s), kConsumerWarps);
         }
@@ -340,25 +415,25 @@ __global__ void __launch_bounds__(kThreadsDkv, 1)
         if (lane < 32) {
             if (lane == 0) {
                 sm90::mbar_arrive_expect_tx(full_kv, 2 * L::kKvTile);
-                load_tile_tma<D>(base + L::kK, L::kKvBox, &tm_k, full_kv, h, kv0, b);
-                load_tile_tma<D>(base + L::kV, L::kKvBox, &tm_v, full_kv, h, kv0, b);
+                load_tile_tma<D, kBlockRows>(base + L::kK, &tm_k, full_kv, h, kv0, b);
+                load_tile_tma<D, kBlockRows>(base + L::kV, &tm_v, full_kv, h, kv0, b);
             }
             const float* lse = p.lse + static_cast<long long>(bh) * p.seq;
             const float* delta = p.delta + static_cast<long long>(bh) * p.seq;
             for (int i = q_begin; i < q_tiles; ++i) {
-                const int n = i - q_begin, s = n % kStages;
-                sm90::mbar_wait(empty(s), ((n / kStages) & 1) ^ 1);  // the first round passes at once
-                const int q0 = i * kQRows;
+                const int n = i - q_begin, s = n % kDkvStages;
+                sm90::mbar_wait(empty(s), ((n / kDkvStages) & 1) ^ 1);  // the first round passes at once
+                const int q0 = i * kBoxRows;
 #pragma unroll
-                for (int r = lane; r < kQRows; r += 32) {
+                for (int r = lane; r < kBoxRows; r += 32) {
                     const bool valid = q0 + r < p.seq;
-                    lse_s[s * kQRows + r] = valid ? lse[q0 + r] * sm90::kLog2e : 0.0f;
-                    delta_s[s * kQRows + r] = valid ? delta[q0 + r] : 0.0f;
+                    lse_s[s * kBoxRows + r] = valid ? lse[q0 + r] * sm90::kLog2e : 0.0f;
+                    delta_s[s * kBoxRows + r] = valid ? delta[q0 + r] : 0.0f;
                 }
                 if (lane == 0) {
                     sm90::mbar_arrive_expect_tx(full(s), 2 * L::kQTile);
-                    load_tile_tma<D>(base + L::kQ + s * L::kQTile, L::kQBox, &tm_q, full(s), h, q0, b);
-                    load_tile_tma<D>(base + L::kDo + s * L::kQTile, L::kQBox, &tm_do, full(s), h, q0, b);
+                    load_tile_tma<D, kBoxRows>(base + L::kQ + s * L::kQTile, &tm_q, full(s), h, q0, b);
+                    load_tile_tma<D, kBoxRows>(base + L::kDo + s * L::kQTile, &tm_do, full(s), h, q0, b);
                 } else {
                     sm90::mbar_arrive(full(s));
                 }
@@ -380,11 +455,11 @@ __global__ void __launch_bounds__(kThreadsDkv, 1)
         const uint32_t v_wg = base + L::kV + wg * 64 * sm90::kSwizzleRowBytes;
         sm90::mbar_wait(full_kv, 0);
         for (int i = q_begin; i < q_tiles; ++i) {
-            const int n = i - q_begin, s = n % kStages;
+            const int n = i - q_begin, s = n % kDkvStages;
             const uint32_t q_tile = base + L::kQ + s * L::kQTile, do_tile = base + L::kDo + s * L::kQTile;
 
-            float st[kQRows / 2], dpt[kQRows / 2];  // S^T = K Q^T and dP^T = V dO^T: 64 x 64 each
-            sm90::mbar_wait(full(s), (n / kStages) & 1);
+            float st[kBoxRows / 2], dpt[kBoxRows / 2];  // S^T = K Q^T and dP^T = V dO^T: 64 x 64 each
+            sm90::mbar_wait(full(s), (n / kDkvStages) & 1);
             sm90::wgmma_fence();
 #pragma unroll
             for (int kk = 0; kk < D / 16; ++kk) {
@@ -405,12 +480,12 @@ __global__ void __launch_bounds__(kThreadsDkv, 1)
             sm90::fence_regs(dpt);
 
             // P^T and dS^T in place, column c of the tile being query q0 + c
-            const int q0 = i * kQRows;
-            const float* lse_t = lse_s + s * kQRows;
-            const float* delta_t = delta_s + s * kQRows;
-            const bool edge = q0 + kQRows > p.seq || (p.causal && q0 < kv0 + kKvRows);
+            const int q0 = i * kBoxRows;
+            const float* lse_t = lse_s + s * kBoxRows;
+            const float* delta_t = delta_s + s * kBoxRows;
+            const bool edge = q0 + kBoxRows > p.seq || (p.causal && q0 < kv0 + kBlockRows);
 #pragma unroll
-            for (int e = 0; e < kQRows / 2; ++e) {
+            for (int e = 0; e < kBoxRows / 2; ++e) {
                 const int c = (e / 4) * 8 + 2 * t + (e & 1);
                 float prob = sm90::exp2_approx(fmaf(st[e], scale2, -lse_t[c]));
                 if (edge) {
@@ -420,9 +495,9 @@ __global__ void __launch_bounds__(kThreadsDkv, 1)
                 st[e] = prob;
                 dpt[e] = prob * (dpt[e] - delta_t[c]) * p.scale;
             }
-            uint32_t pf[kQRows / 16][4], df[kQRows / 16][4];  // P^T and dS^T as A operands, 16 queries each
+            uint32_t pf[kBoxRows / 16][4], df[kBoxRows / 16][4];  // P^T and dS^T as A operands, 16 queries each
 #pragma unroll
-            for (int kc = 0; kc < kQRows / 16; ++kc) {
+            for (int kc = 0; kc < kBoxRows / 16; ++kc) {
 #pragma unroll
                 for (int r = 0; r < 4; ++r) {
                     pf[kc][r] = sm90::pack_bf16(st[8 * kc + 2 * r], st[8 * kc + 2 * r + 1]);
@@ -436,11 +511,11 @@ __global__ void __launch_bounds__(kThreadsDkv, 1)
             sm90::fence_regs(df);
             sm90::wgmma_fence();
 #pragma unroll
-            for (int kc = 0; kc < kQRows / 16; ++kc) {  // 16 query rows per k-step: 2048 bytes down the boxes
+            for (int kc = 0; kc < kBoxRows / 16; ++kc) {  // 16 query rows per k-step: 2048 bytes down the boxes
                 sm90::wgmma_rs_tb(dv, pf[kc], sm90::desc_mnmajor(do_tile + kc * 16 * sm90::kSwizzleRowBytes, L::kQBox), 1);
             }
 #pragma unroll
-            for (int kc = 0; kc < kQRows / 16; ++kc) {
+            for (int kc = 0; kc < kBoxRows / 16; ++kc) {
                 sm90::wgmma_rs_tb(dk, df[kc], sm90::desc_mnmajor(q_tile + kc * 16 * sm90::kSwizzleRowBytes, L::kQBox), 1);
             }
             sm90::wgmma_commit();
@@ -449,8 +524,8 @@ __global__ void __launch_bounds__(kThreadsDkv, 1)
             sm90::fence_regs(dk);
             if (lane == 0) sm90::mbar_arrive(empty(s));  // this warp is done with stage s
         }
-        store_rows<D>(static_cast<__nv_bfloat16*>(p.dk) + b * p.o_sb + h * p.o_sh, p.o_st, dk, row_a, p.seq, t);
-        store_rows<D>(static_cast<__nv_bfloat16*>(p.dv) + b * p.o_sb + h * p.o_sh, p.o_st, dv, row_a, p.seq, t);
+        store_rows<D>(static_cast<__nv_bfloat16*>(p.out0) + b * p.o_sb + h * p.o_sh, p.o_st, dk, row_a, p.seq, t);
+        store_rows<D>(static_cast<__nv_bfloat16*>(p.out1) + b * p.o_sb + h * p.o_sh, p.o_st, dv, row_a, p.seq, t);
     }
 }
 
@@ -642,35 +717,41 @@ __global__ void __launch_bounds__(kWarps * 32) flash_bwd_dkv_f32(const Params p)
 
 // ------------------------------------------------------------------ launch
 
+// Both fp32 passes: a block per (16 rows, batch*head), its rows and a 32-row tile of
+// the other side staged as [rows][D + 1] floats.
 template <typename Kernel>
-int launch(Kernel kernel, const Params& p, int rows_per_block, size_t smem, cudaStream_t stream) {
+int launch_f32(Kernel kernel, const Params& p, int head_dim, cudaStream_t stream) {
+    const size_t smem = (2 * kRowsF32 + 2 * kColsF32) * (head_dim + 1) * sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((p.seq + rows_per_block - 1) / rows_per_block, p.batch * p.heads);
+    const dim3 grid((p.seq + kRowsF32 - 1) / kRowsF32, p.batch * p.heads);
     kernel<<<grid, kWarps * 32, smem, stream>>>(p);
     return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int launch_dq(const Params& p, int is_bf16, cudaStream_t stream) {
-    if (is_bf16) return launch(flash_bwd_dq_bf16<D>, p, kTile, 4 * kTile * (D + kPad) * sizeof(__nv_bfloat16), stream);
-    return launch(flash_bwd_dq_f32<D>, p, kRowsF32, (2 * kRowsF32 + 2 * kColsF32) * (D + 1) * sizeof(float), stream);
-}
-
-template <int D>
-int launch_dkv_f32(const Params& p, cudaStream_t stream) {
-    return launch(flash_bwd_dkv_f32<D>, p, kRowsF32, (2 * kRowsF32 + 2 * kColsF32) * (D + 1) * sizeof(float), stream);
-}
-
-template <int D>
-int launch_dkv_bf16(const CUtensorMap (&maps)[4], const DkvParams& p, int batch, cudaStream_t stream) {
-    constexpr size_t smem = DkvTiles<D>::kBytes;
-    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
+// Both bf16 passes: a block per (batch*head, 128 rows).
+template <typename Kernel>
+int launch_bf16(Kernel kernel, size_t smem, const CUtensorMap (&maps)[4], const Bf16Params& p, int batch,
+                cudaStream_t stream) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid(batch * p.heads, (p.seq + kKvRows - 1) / kKvRows);
-    flash_bwd_dkv_bf16<D><<<grid, kThreadsDkv, smem, stream>>>(maps[0], maps[1], maps[2], maps[3], p);
+    const dim3 grid(batch * p.heads, (p.seq + kBlockRows - 1) / kBlockRows);
+    kernel<<<grid, kThreads, smem, stream>>>(maps[0], maps[1], maps[2], maps[3], p);
     return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor maps of q, k, v, dout from their geometries (boxes of 64 x 64).
+int encode_maps(CUtensorMap (&maps)[4], const void* q, const void* k, const void* v, const void* dout,
+                const long long* q_geometry, const long long* k_geometry, const long long* v_geometry,
+                const long long* d_geometry, int head_dim) {
+    const void* bases[4] = {q, k, v, dout};
+    const long long* geometries[4] = {q_geometry, k_geometry, v_geometry, d_geometry};
+    for (int i = 0; i < 4; ++i) {
+        const int err = sm90::encode_tma_map(&maps[i], bases[i], *reinterpret_cast<const sm90::TmaGeometry*>(geometries[i]),
+                                             kBoxRows, head_dim);
+        if (err != 0) return err;
+    }
+    return 0;
 }
 
 Params make_params(const void* q, const void* k, const void* v, const void* dout, const float* lse,
@@ -685,27 +766,27 @@ Params make_params(const void* q, const void* k, const void* v, const void* dout
 
 }  // namespace
 
-// q, k, v, dout: [B, T, H, D] (bf16 or fp32, last dim contiguous, strides in
-// elements); lse, delta: [B, H, T] fp32 contiguous -> dq [B, T, H, D] in q's dtype.
-extern "C" int hm_flash_backward_dq(const void* q, const void* k, const void* v, const void* dout,
-                                    const float* lse, const float* delta, void* dq,
-                                    int batch, int seq, int heads, int head_dim,
-                                    long long q_sb, long long q_st, long long q_sh,
-                                    long long k_sb, long long k_st, long long k_sh,
-                                    long long v_sb, long long v_st, long long v_sh,
-                                    long long d_sb, long long d_st, long long d_sh,
-                                    long long o_sb, long long o_st, long long o_sh,
-                                    int causal, int is_bf16, float scale, cudaStream_t stream) {
+// q, k, v, dout: [B, T, H, D] fp32 (last dim contiguous, strides in elements);
+// lse, delta: [B, H, T] fp32 contiguous -> dq [B, T, H, D] fp32.
+extern "C" int hm_flash_backward_dq_f32(const void* q, const void* k, const void* v, const void* dout,
+                                        const float* lse, const float* delta, void* dq,
+                                        int batch, int seq, int heads, int head_dim,
+                                        long long q_sb, long long q_st, long long q_sh,
+                                        long long k_sb, long long k_st, long long k_sh,
+                                        long long v_sb, long long v_st, long long v_sh,
+                                        long long d_sb, long long d_st, long long d_sh,
+                                        long long o_sb, long long o_st, long long o_sh,
+                                        int causal, float scale, cudaStream_t stream) {
     const Params p = make_params(q, k, v, dout, lse, delta, dq, nullptr, batch, seq, heads, q_sb, q_st, q_sh,
                                  k_sb, k_st, k_sh, v_sb, v_st, v_sh, d_sb, d_st, d_sh, o_sb, o_st, o_sh,
                                  causal, scale);
     if (batch <= 0 || seq <= 0 || heads <= 0) return 0;
-    if (head_dim == 64) return launch_dq<64>(p, is_bf16, stream);
-    if (head_dim == 128) return launch_dq<128>(p, is_bf16, stream);
+    if (head_dim == 64) return launch_f32(flash_bwd_dq_f32<64>, p, 64, stream);
+    if (head_dim == 128) return launch_f32(flash_bwd_dq_f32<128>, p, 128, stream);
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// As above, fp32 only -> dk, dv [B, T, H, D] fp32, sharing one layout (o_*).
+// As above -> dk, dv [B, T, H, D] fp32, sharing one layout (o_*).
 extern "C" int hm_flash_backward_dkv_f32(const void* q, const void* k, const void* v, const void* dout,
                                          const float* lse, const float* delta, void* dk, void* dv,
                                          int batch, int seq, int heads, int head_dim,
@@ -719,15 +800,33 @@ extern "C" int hm_flash_backward_dkv_f32(const void* q, const void* k, const voi
                                  k_sb, k_st, k_sh, v_sb, v_st, v_sh, d_sb, d_st, d_sh, o_sb, o_st, o_sh,
                                  causal, scale);
     if (batch <= 0 || seq <= 0 || heads <= 0) return 0;
-    if (head_dim == 64) return launch_dkv_f32<64>(p, stream);
-    if (head_dim == 128) return launch_dkv_f32<128>(p, stream);
+    if (head_dim == 64) return launch_f32(flash_bwd_dkv_f32<64>, p, 64, stream);
+    if (head_dim == 128) return launch_f32(flash_bwd_dkv_f32<128>, p, 128, stream);
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // q, k, v, dout: [B, T, H, D] bf16, each described by its TMA geometry
-// (sm90::TmaGeometry; boxes of 64 columns x 64 rows for q and dout, x 128 rows for
-// k and v); lse, delta: [B, H, T] fp32 contiguous -> dk, dv [B, T, H, D] bf16,
-// sharing one layout (o_*, strides in elements).
+// (sm90::TmaGeometry, boxes of 64 columns x 64 rows; one set serves both passes);
+// lse, delta: [B, H, T] fp32 contiguous -> dq [B, T, H, D] bf16 (strides o_*, in
+// elements).
+extern "C" int hm_flash_backward_dq_bf16(const void* q, const void* k, const void* v, const void* dout,
+                                         const float* lse, const float* delta, void* dq,
+                                         int batch, int seq, int heads, int head_dim,
+                                         const long long* q_geometry, const long long* k_geometry,
+                                         const long long* v_geometry, const long long* d_geometry,
+                                         long long o_sb, long long o_st, long long o_sh,
+                                         int causal, float scale, cudaStream_t stream) {
+    if (batch <= 0 || seq <= 0 || heads <= 0) return 0;
+    if (head_dim != 64 && head_dim != 128) return static_cast<int>(cudaErrorInvalidValue);
+    CUtensorMap maps[4];
+    const int err = encode_maps(maps, q, k, v, dout, q_geometry, k_geometry, v_geometry, d_geometry, head_dim);
+    if (err != 0) return err;
+    const Bf16Params p{lse, delta, dq, nullptr, seq, heads, o_sb, o_st, o_sh, scale, causal};
+    if (head_dim == 64) return launch_bf16(flash_bwd_dq_bf16<64>, DqTiles<64>::kBytes, maps, p, batch, stream);
+    return launch_bf16(flash_bwd_dq_bf16<128>, DqTiles<128>::kBytes, maps, p, batch, stream);
+}
+
+// As above -> dk, dv [B, T, H, D] bf16, sharing one layout (o_*).
 extern "C" int hm_flash_backward_dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
                                           const float* lse, const float* delta, void* dk, void* dv,
                                           int batch, int seq, int heads, int head_dim,
@@ -737,16 +836,10 @@ extern "C" int hm_flash_backward_dkv_bf16(const void* q, const void* k, const vo
                                           int causal, float scale, cudaStream_t stream) {
     if (batch <= 0 || seq <= 0 || heads <= 0) return 0;
     if (head_dim != 64 && head_dim != 128) return static_cast<int>(cudaErrorInvalidValue);
-    const void* bases[4] = {q, k, v, dout};
-    const long long* geometries[4] = {q_geometry, k_geometry, v_geometry, d_geometry};
-    const int rows[4] = {kQRows, kKvRows, kKvRows, kQRows};
     CUtensorMap maps[4];
-    for (int i = 0; i < 4; ++i) {
-        const int err = sm90::encode_tma_map(&maps[i], bases[i], *reinterpret_cast<const sm90::TmaGeometry*>(geometries[i]),
-                                             rows[i], head_dim);
-        if (err != 0) return err;
-    }
-    const DkvParams p{lse, delta, dk, dv, seq, heads, o_sb, o_st, o_sh, scale, causal};
-    if (head_dim == 64) return launch_dkv_bf16<64>(maps, p, batch, stream);
-    return launch_dkv_bf16<128>(maps, p, batch, stream);
+    const int err = encode_maps(maps, q, k, v, dout, q_geometry, k_geometry, v_geometry, d_geometry, head_dim);
+    if (err != 0) return err;
+    const Bf16Params p{lse, delta, dk, dv, seq, heads, o_sb, o_st, o_sh, scale, causal};
+    if (head_dim == 64) return launch_bf16(flash_bwd_dkv_bf16<64>, DkvTiles<64>::kBytes, maps, p, batch, stream);
+    return launch_bf16(flash_bwd_dkv_bf16<128>, DkvTiles<128>::kBytes, maps, p, batch, stream);
 }

@@ -15,9 +15,11 @@ the kernel or raises. Each kernel wrapper counts its launches in ``.launches``
 (``flash_attention_lse``, ``flash_attention_backward_dq``,
 ``flash_attention_backward_dkv``).
 
-The bf16 forward and the bf16 dK/dV pass read q, k, v (and dout) by TMA: the
-wrapper describes each tensor to the kernel's C entry point as a 4-D view
-(:func:`tma_geometry`), from which the entry point encodes the tensor maps.
+The bf16 kernels read q, k, v (and dout) by TMA: the wrapper describes each
+tensor to the kernel's C entry point as a 4-D view (:func:`tma_geometry`), from
+which the entry point encodes the tensor maps. The two backward passes share one
+view of each tensor (:func:`backward_geometries`), which
+``flash_attention_backward`` computes once for both.
 """
 
 from __future__ import annotations
@@ -58,7 +60,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cau
 
 TMA_BOX_COLS = 64  # bf16 columns per TMA box: one 128-byte swizzled row
 FORWARD_TILE_ROWS = 128  # the forward's query and KV tiles
-DKV_KV_ROWS, DKV_Q_ROWS = 128, 64  # the dK/dV pass's resident K/V tile and streamed Q/dO tiles
+BACKWARD_BOX_ROWS = 64  # both backward passes: a box is a streamed tile, or half of a resident one
 _TMA_MAX_STRIDE = 2**40  # cuTensorMapEncodeTiled's bound on a byte stride
 
 
@@ -95,6 +97,12 @@ def tma_geometry(t: torch.Tensor, rows: int) -> TmaGeometry:
     if t.data_ptr() % 16:
         raise ValueError("TMA needs a 16-byte aligned base address")
     return TmaGeometry((dim, heads, seq, batch), strides, (TMA_BOX_COLS, 1, rows, 1))
+
+
+def backward_geometries(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor) -> Tuple[TmaGeometry, ...]:
+    """The TMA views of q, k, v, dout (bf16 ``[B, T, H, D]``) that both backward
+    passes read: boxes of 64 columns by 64 rows."""
+    return tuple(tma_geometry(t, BACKWARD_BOX_ROWS) for t in (q, k, v, dout))
 
 
 # ------------------------------------------------------------------ forward
@@ -232,35 +240,20 @@ def flash_attention_backward_plain(q, k, v, out, lse, dout, causal: bool = False
 
 def _bwd_library() -> ctypes.CDLL:
     library = _build.load_library("flash_attention_bwd")
-    dq, dkv_f32, dkv_bf16 = (library.hm_flash_backward_dq, library.hm_flash_backward_dkv_f32,
-                             library.hm_flash_backward_dkv_bf16)
-    if dq.argtypes is None:
-        # each: q, k, v, dout, lse, delta, its outputs; B, T, H, D; then the layout
-        # (the strides of q, k, v, dout and of the outputs, or, bf16 dK/dV, the
-        # geometries of q, k, v, dout and the outputs' strides); causal; for dq
-        # is_bf16; scale, stream
-        strides = [ctypes.c_longlong] * 15
-        dq.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + strides + [ctypes.c_int] * 2
-        dkv_f32.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + strides + [ctypes.c_int]
-        dkv_bf16.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)] * 4
-                             + [ctypes.c_longlong] * 3 + [ctypes.c_int])
-        for fn in (dq, dkv_f32, dkv_bf16):
-            fn.argtypes += [ctypes.c_float, ctypes.c_void_p]
+    if library.hm_flash_backward_dq_bf16.argtypes is None:
+        # each: q, k, v, dout, lse, delta, its outputs (dq, or dk and dv); B, T, H, D;
+        # then the layout: fp32, the strides of q, k, v, dout and of the outputs;
+        # bf16, the geometries of q, k, v, dout and the outputs' strides; causal,
+        # scale, stream
+        f32_layout = [ctypes.c_longlong] * 15
+        bf16_layout = [ctypes.POINTER(ctypes.c_longlong)] * 4 + [ctypes.c_longlong] * 3
+        for name, outputs, layout in (("dq_f32", 1, f32_layout), ("dkv_f32", 2, f32_layout),
+                                      ("dq_bf16", 1, bf16_layout), ("dkv_bf16", 2, bf16_layout)):
+            fn = getattr(library, f"hm_flash_backward_{name}")
+            fn.argtypes = ([ctypes.c_void_p] * (6 + outputs) + [ctypes.c_int] * 4 + layout
+                           + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
             fn.restype = ctypes.c_int
     return library
-
-
-def _launch_backward(name: str, q, k, v, dout, lse, delta, outputs, layout: tuple, flags: tuple) -> None:
-    """Call the entry point ``name`` on the pointers of q, k, v, dout, lse, delta and
-    ``outputs``, then (B, T, H, D), ``layout`` and ``flags``."""
-    library = _bwd_library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        status = getattr(library, name)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            *(t.data_ptr() for t in outputs), *q.shape, *layout, *flags, q.shape[-1] ** -0.5, stream,
-        )
-    _build.check_launch(library, status, name)
 
 
 def _check_backward_inputs(q, k, v, dout, lse, delta) -> None:
@@ -274,22 +267,46 @@ def _check_backward_inputs(q, k, v, dout, lse, delta) -> None:
             raise ValueError(f"{name} must be a contiguous fp32 [B, H, T] tensor on {q.device}")
 
 
-def flash_attention_backward_dq(q, k, v, dout, lse, delta, causal: bool = False) -> torch.Tensor:
-    """The dQ pass (``_flash_bwd_dq_kernel``): ``dq`` in q's dtype."""
+def _launch_pass(name: str, q, k, v, dout, lse, delta, outputs, causal: bool, geometries) -> None:
+    """Launch the pass ``name`` ("dq" or "dkv") in q's dtype on the pointers of q,
+    k, v, dout, lse, delta and ``outputs``: bf16 reads the four TMA views
+    ``geometries`` (:func:`backward_geometries` when None), fp32 the strides."""
+    if q.dtype == torch.bfloat16:
+        if geometries is None:
+            geometries = backward_geometries(q, k, v, dout)
+        entry = f"hm_flash_backward_{name}_bf16"
+        layout = (*(g.as_ctypes() for g in geometries), *outputs[0].stride()[:3])
+    else:
+        entry, layout = f"hm_flash_backward_{name}_f32", _strides(q, k, v, dout, outputs[0])
+    library = _bwd_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        status = getattr(library, entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            *(t.data_ptr() for t in outputs), *q.shape, *layout, int(causal), q.shape[-1] ** -0.5, stream,
+        )
+    _build.check_launch(library, status, entry)
+
+
+def flash_attention_backward_dq(q, k, v, dout, lse, delta, causal: bool = False,
+                                geometries: Optional[Tuple[TmaGeometry, ...]] = None) -> torch.Tensor:
+    """The dQ pass (``_flash_bwd_dq_kernel``): ``dq`` in q's dtype. ``geometries``:
+    the bf16 inputs' TMA views, if the caller has them already."""
     if _on_cpu(q, k, v, dout, lse, delta):
         return flash_attention_backward_dq_plain(q, k, v, dout, lse, delta, causal)
     _check_backward_inputs(q, k, v, dout, lse, delta)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     if dq.numel() == 0:
         return dq
-    _launch_backward("hm_flash_backward_dq", q, k, v, dout, lse, delta, (dq,), _strides(q, k, v, dout, dq),
-                     (int(causal), int(q.dtype == torch.bfloat16)))
+    _launch_pass("dq", q, k, v, dout, lse, delta, (dq,), causal, geometries)
     flash_attention_backward_dq.launches += 1
     return dq
 
 
-def flash_attention_backward_dkv(q, k, v, dout, lse, delta, causal: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The dK/dV pass (``_flash_bwd_dkv_kernel``): ``(dk, dv)`` in k's and v's dtype."""
+def flash_attention_backward_dkv(q, k, v, dout, lse, delta, causal: bool = False,
+                                 geometries: Optional[Tuple[TmaGeometry, ...]] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dK/dV pass (``_flash_bwd_dkv_kernel``): ``(dk, dv)`` in k's and v's
+    dtype. ``geometries`` as for the dQ pass."""
     if _on_cpu(q, k, v, dout, lse, delta):
         return flash_attention_backward_dkv_plain(q, k, v, dout, lse, delta, causal)
     _check_backward_inputs(q, k, v, dout, lse, delta)
@@ -297,14 +314,7 @@ def flash_attention_backward_dkv(q, k, v, dout, lse, delta, causal: bool = False
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     if dk.numel() == 0:
         return dk, dv
-    if q.dtype == torch.bfloat16:
-        geometries = tuple(tma_geometry(t, rows).as_ctypes()
-                           for t, rows in ((q, DKV_Q_ROWS), (k, DKV_KV_ROWS), (v, DKV_KV_ROWS), (dout, DKV_Q_ROWS)))
-        _launch_backward("hm_flash_backward_dkv_bf16", q, k, v, dout, lse, delta, (dk, dv),
-                         (*geometries, *dk.stride()[:3]), (int(causal),))
-    else:
-        _launch_backward("hm_flash_backward_dkv_f32", q, k, v, dout, lse, delta, (dk, dv),
-                         _strides(q, k, v, dout, dk), (int(causal),))
+    _launch_pass("dkv", q, k, v, dout, lse, delta, (dk, dv), causal, geometries)
     flash_attention_backward_dkv.launches += 1
     return dk, dv
 
@@ -323,14 +333,16 @@ def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
 def flash_attention_backward(q, k, v, out, lse, dout, causal: bool = False) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` from the forward's ``(out, lse)`` and the cotangent ``dout``
     (cast to q's dtype first, as the JAX package's ``_flash_bwd``): the dQ kernel,
-    then the dK/dV kernel; ``δ`` is computed here, outside both."""
+    then the dK/dV kernel; ``δ`` and, for bf16, the TMA views both read are
+    computed here, once."""
     dout = dout.to(q.dtype)
     if _on_cpu(q, k, v, out, lse, dout):
         return flash_attention_backward_plain(q, k, v, out, lse, dout, causal)
     dout = _kernel_layout(dout)
     delta = _delta(out, dout)
-    dq = flash_attention_backward_dq(q, k, v, dout, lse, delta, causal)
-    return (dq, *flash_attention_backward_dkv(q, k, v, dout, lse, delta, causal))
+    geometries = backward_geometries(q, k, v, dout) if q.dtype == torch.bfloat16 else None
+    dq = flash_attention_backward_dq(q, k, v, dout, lse, delta, causal, geometries)
+    return (dq, *flash_attention_backward_dkv(q, k, v, dout, lse, delta, causal, geometries))
 
 
 class FlashAttentionFunction(torch.autograd.Function):

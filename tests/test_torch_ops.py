@@ -18,12 +18,13 @@ from hivemind_tpu.ops.pallas_quantization import pallas_blockwise_dequantize, pa
 from hivemind_tpu.ops.quantized_params import quantize_params as jax_quantize_params
 from hivemind_tpu.ops.quantized_params import tree_param_bytes as jax_tree_param_bytes
 from hivemind_tpu.parallel.ring_attention import plain_attention as jax_plain_attention
+from hivemind_tpu_torch.ops import flash_attention as flash_module
 from hivemind_tpu_torch.ops.blockwise_int8 import blockwise_int8_dequantize, blockwise_int8_quantize
 from hivemind_tpu_torch.ops.flash_attention import (
-    DKV_KV_ROWS,
-    DKV_Q_ROWS,
+    BACKWARD_BOX_ROWS,
     FORWARD_TILE_ROWS,
     FlashAttentionFunction,
+    TmaGeometry,
     attention_auto,
     flash_attention,
     flash_attention_backward,
@@ -166,11 +167,11 @@ def _fused_q() -> torch.Tensor:
 @pytest.mark.parametrize("make, rows, dims, strides, box, boxes", [
     (lambda: torch.empty(2, 1000, 16, 64, dtype=torch.bfloat16, device="meta"), FORWARD_TILE_ROWS,
      (64, 16, 1000, 2), (2 * 64, 2 * 16 * 64, 2 * 1000 * 16 * 64), (64, 1, 128, 1), 1),
-    (lambda: torch.empty(32, 512, 12, 64, dtype=torch.bfloat16, device="meta"), DKV_Q_ROWS,  # ALBERT's
+    (lambda: torch.empty(32, 512, 12, 64, dtype=torch.bfloat16, device="meta"), BACKWARD_BOX_ROWS,  # ALBERT's
      (64, 12, 512, 32), (128, 1536, 786432), (64, 1, 64, 1), 1),
-    (lambda: torch.empty(1, 2048, 32, 128, dtype=torch.bfloat16, device="meta"), DKV_KV_ROWS,  # D = 128: two boxes
-     (128, 32, 2048, 1), (256, 8192, 16777216), (64, 1, 128, 1), 2),
-    (_fused_q, DKV_Q_ROWS, (64, 12, 512, 2), (128, 2 * 3 * 12 * 64, 2 * 512 * 3 * 12 * 64), (64, 1, 64, 1), 1),
+    (lambda: torch.empty(1, 2048, 32, 128, dtype=torch.bfloat16, device="meta"), BACKWARD_BOX_ROWS,  # D = 128: two boxes
+     (128, 32, 2048, 1), (256, 8192, 16777216), (64, 1, 64, 1), 2),
+    (_fused_q, BACKWARD_BOX_ROWS, (64, 12, 512, 2), (128, 2 * 3 * 12 * 64, 2 * 512 * 3 * 12 * 64), (64, 1, 64, 1), 1),
 ], ids=["contiguous", "albert", "head_dim_128", "fused_qkv"])
 def test_tma_geometry_describes_the_kernels_views(make, rows, dims, strides, box, boxes):
     geometry = tma_geometry(make(), rows)
@@ -188,6 +189,42 @@ def test_tma_geometry_describes_the_kernels_views(make, rows, dims, strides, box
 def test_tma_geometry_refuses_views_tma_cannot_take(make, match):
     with pytest.raises(ValueError, match=match):
         tma_geometry(make(), FORWARD_TILE_ROWS)
+
+
+def _backward_inputs(batch, seq, heads, dim, fused):
+    """q, k, v, dout as bf16 meta tensors: four of one shape, or four views of one
+    fused [B, T, 4, H, D] tensor (T stride 4·H·D)."""
+    if fused:
+        return torch.empty(batch, seq, 4, heads, dim, dtype=torch.bfloat16, device="meta").unbind(2)
+    return [torch.empty(batch, seq, heads, dim, dtype=torch.bfloat16, device="meta") for _ in range(4)]
+
+
+# [B, T, H, D] and fused or not -> the dims (D, H, T, B) and byte strides of (H, T, B) of
+# all four views, worked out by hand; every box is 64 columns x 64 rows
+@pytest.mark.parametrize("shape, fused, dims, strides", [
+    ((32, 512, 12, 64), False, (64, 12, 512, 32), (128, 1536, 786432)),  # ALBERT's
+    ((2, 1000, 16, 64), True, (64, 16, 1000, 2), (128, 4 * 16 * 128, 1000 * 4 * 16 * 128)),  # ragged T
+    ((1, 2000, 32, 128), False, (128, 32, 2000, 1), (256, 8192, 2000 * 8192)),  # ragged T, D = 128
+    ((1, 256, 32, 128), True, (128, 32, 256, 1), (256, 4 * 32 * 256, 256 * 4 * 32 * 256)),  # the expert's, fused
+], ids=["albert", "fused_ragged_d64", "ragged_d128", "fused_d128"])
+def test_backward_hands_both_passes_one_geometry_per_tensor(monkeypatch, shape, fused, dims, strides):
+    """``flash_attention_backward`` computes the TMA views of q, k, v, dout once and
+    hands the same four to the dQ and the dK/dV pass. Meta tensors stand in for CUDA
+    ones; the launches are recorded instead of made."""
+    q, k, v, dout = _backward_inputs(*shape, fused)
+    batch, seq, heads, _ = shape
+    views, launched = [], []
+    tma_geometry_of = flash_module.tma_geometry
+    monkeypatch.setattr(flash_module, "tma_geometry", lambda t, rows: views.append(rows) or tma_geometry_of(t, rows))
+    monkeypatch.setattr(flash_module, "_check_cuda_inputs", lambda *tensors: None)
+    monkeypatch.setattr(flash_module, "_launch_pass", lambda name, *args: launched.append((name, args[-1])))
+    monkeypatch.setattr(flash_attention_backward_dq, "launches", 0)
+    monkeypatch.setattr(flash_attention_backward_dkv, "launches", 0)
+    lse = torch.empty(batch, heads, seq, device="meta")
+    flash_attention_backward(q, k, v, torch.empty_like(q), lse, dout, causal=True)
+    assert views == [BACKWARD_BOX_ROWS] * 4  # one view per tensor, for both passes
+    assert [name for name, _ in launched] == ["dq", "dkv"] and launched[0][1] is launched[1][1]
+    assert launched[0][1] == (TmaGeometry(dims, strides, (64, 1, 64, 1)),) * 4
 
 
 # ------------------------------------------------------------------ blockwise int8
