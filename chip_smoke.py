@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """On-card smoke test of hivemind_tpu_torch: builds the port's Hopper kernels,
 holds each against its plain PyTorch version at the shapes of the paths that run
-it, then drives three paths and checks each against the CPU:
+it, then drives four paths and checks each against the CPU:
 - serving: two Llama-2-7B-width blocks (fp and int8 weight-only) through
-  load_llama_blocks → ModuleBackend → TaskPool/Runtime;
+  load_llama_blocks → ModuleBackend → TaskPool/Runtime, and an expert of
+  head_dim 32, which the flash kernel does not take, through ModuleBackend;
+- decode: greedy generation and continuous batching of single-token steps through
+  DecodeSessionManager's KV-cache sessions on the same blocks;
 - expert training: ModuleBackend.backward (one SGD step) on a Llama-2-7B-width block;
 - ALBERT-base MLM training: make_train_step with AdamW at batch 32 × seq 512.
 
@@ -38,7 +41,7 @@ import numpy as np
 SEED = 0
 # Llama-2-7B widths (meta-llama/Llama-2-7b-hf config.json); depth cut from 32 to 2 layers
 LLAMA2_7B = dict(hidden_size=4096, num_attention_heads=32, num_key_value_heads=32, intermediate_size=11008,
-                 num_hidden_layers=2, rope_theta=10000.0, rms_norm_eps=1e-5)
+                 num_hidden_layers=2, rope_theta=10000.0, rms_norm_eps=1e-5, vocab_size=32000)
 ALBERT_ATTENTION = (32, 512, 12, 64)  # ALBERT-base's [B, T, H, D] at batch 32, seq 512
 EXPERT_TOKENS = 256  # [1, 256, 4096] through ModuleBackend.backward
 EXPERT_ATTENTION = (1, EXPERT_TOKENS, 32, 128)  # that block's [B, T, H, D]
@@ -53,13 +56,30 @@ FLASH_SHAPES = ([(1, t, 32, 128) for t in (512, 2048, 2000)] + [(4, 512, 32, 128
 # computation errs by at most 3u*scale. The largest error stays within max_abs, and the
 # error's norm over the reference's norm within rel_l2 (about u for bf16): what catches
 # a kernel that is a few percent off on the many small outputs, each within its own limit.
+# fp16 (the SIMT kernel: fp32 math, the output rounded once) is held the same way with
+# fp16's unit roundoff; its cap is one fp16 ulp of an output in [4, 8).
 BF16_UNIT_ROUNDOFF = 2.0**-8
+FP16_UNIT_ROUNDOFF = 2.0**-11
 FLASH_TOL = {
     "bfloat16": dict(atol=1e-5, rtol=3 * BF16_UNIT_ROUNDOFF, max_abs=2e-2, rel_l2=BF16_UNIT_ROUNDOFF),
+    "float16": dict(atol=1e-5, rtol=3 * FP16_UNIT_ROUNDOFF, max_abs=2.0**-8, rel_l2=FP16_UNIT_ROUNDOFF),
     "float32": dict(atol=1e-4, rtol=0.0, max_abs=1e-4, rel_l2=1e-4),
 }
 LSE_TOL = dict(atol=1e-4, rtol=0.0, max_abs=1e-4, rel_l2=1e-5)  # lse is fp32 on both paths
-MANTISSA_BITS = {"bfloat16": 7, "float32": 23}
+MANTISSA_BITS = {"bfloat16": 7, "float16": 10, "float32": 23}
+# The SIMT kernels (fp32, fp16, and bf16 at a head_dim other than 64 or 128) beyond the
+# fp32 cases of FLASH_SHAPES, each held and timed like them: (shape, dtype, causal).
+# The head_dim-32 expert's attention ([head_dim32] below), head dims 16, 32, 80, 96
+# and 256, fp16 at a Llama request's shape, and B*H = 65536 on both designs.
+FLASH_EXTRA_CASES = [
+    ((2, 64, 8, 32), "bfloat16", False), ((2, 1000, 16, 32), "bfloat16", True), ((2, 1000, 16, 16), "bfloat16", True),
+    ((2, 1000, 16, 80), "bfloat16", False), ((1, 512, 8, 96), "bfloat16", True), ((1, 512, 4, 256), "float16", True),
+    ((2, 1000, 16, 64), "float16", True), ((1, 2048, 32, 128), "float16", True),
+    ((65536, 16, 1, 64), "bfloat16", True), ((32768, 16, 2, 32), "float16", False),
+]
+# views whose base is one element off 16-byte alignment, which TMA cannot read: the
+# wrappers copy them first (bf16, head_dim 64), or the SIMT kernel reads them (head_dim 32)
+UNALIGNED_CASES = [((2, 1000, 16, 64), True), ((2, 64, 8, 32), False)]
 SERVING_TOL = 2e-2  # max relative error, card vs CPU (hivemind_tpu/ops/device_check.py's tolerance)
 # The flash backward passes vs their plain versions: (shape, dtype, causal). The
 # training path's shape, the expert backward's as chip_smoke drives it, a Llama
@@ -69,6 +89,10 @@ FLASH_BWD_CASES = [
     ((1, 2000, 32, 128), "bfloat16", True), ((2, 1000, 16, 64), "bfloat16", False),
     ((2, 1000, 16, 64), "bfloat16", True), ((2, 1000, 16, 64), "float32", False),
     ((2, 1000, 16, 64), "float32", True), ((1, 512, 32, 128), "float32", True),
+    # the SIMT kernels at other head dims and in fp16, and B*H = 65536 on both designs
+    ((2, 64, 8, 32), "bfloat16", False), ((2, 1000, 16, 32), "bfloat16", True), ((1, 512, 8, 80), "bfloat16", False),
+    ((2, 1000, 16, 64), "float16", True), ((1, 512, 4, 256), "float16", False),
+    ((65536, 16, 1, 64), "bfloat16", True), ((32768, 16, 2, 32), "float16", False),
 ]
 # Each backward output element within atol + rtol*scale, where scale is the plain
 # backward run on absolute values: sum_k |dS||K| for dq, sum_q |dS||Q| for dk,
@@ -79,9 +103,11 @@ FLASH_BWD_CASES = [
 # [2, 512, 4, 64] and [1, 1024, 2, 128]: 2.5e-3 to 2.7e-3), while dS 5% off on half
 # the tiles reads about 9u (2.5e-2 to 3.6e-2). The cap is two bf16 ulps of an
 # output in [4, 8). fp32: only the order of fp32 sums differs, bounded by
-# T*2^-24*scale (1.2e-4 at T = 2048).
+# T*2^-24*scale (1.2e-4 at T = 2048). fp16 (the SIMT kernels: P and dS in fp32, the
+# output rounded once) is held like bf16 with fp16's unit roundoff.
 FLASH_BWD_TOL = {
     "bfloat16": dict(atol=1e-5, rtol=3 * BF16_UNIT_ROUNDOFF, max_abs=6.25e-2, rel_l2=2 * BF16_UNIT_ROUNDOFF),
+    "float16": dict(atol=1e-5, rtol=3 * FP16_UNIT_ROUNDOFF, max_abs=2.0**-7, rel_l2=2 * FP16_UNIT_ROUNDOFF),
     "float32": dict(atol=1e-5, rtol=1.2e-4, max_abs=1e-3, rel_l2=1e-5),
 }
 FAULTY_TILE = 64  # planted faults the checks must reject: P (forward) or dS (backward) 5% too large on every other 64-wide tile
@@ -113,10 +139,28 @@ EXPERT_LR = 1e-3  # SGD; the steps are compared, not the (barely moved) weights
 EXPERT_TOL = SERVING_TOL
 REQUEST_LENGTHS = (512, 512, 512, 512, 2048)
 REFERENCE_LENGTH = 256  # a request of its own; the first 512-long request is checked too
+# an expert of head_dim 32, which the SIMT flash kernel serves on the card
+SMALL_HEADS_EXPERT = dict(hidden=256, heads=8, shape=(2, 64, 256))
+# decode sessions on the served blocks: greedy generation from a 512-token prompt, then
+# 8 sessions with prompts of 128, 136, ..., 184 tokens stepping in lock-step through
+# decode_async (each merged step writes, masks and rotates every row at its own position)
+DECODE_MAX_LEN, DECODE_PROMPT, DECODE_NEW = 1024, 512, 32
+DECODE_CHECKED_STEPS = (1, 16, DECODE_NEW - 1)  # single-token steps held to the no-cache forward
+DECODE_SESSIONS, DECODE_ROUNDS = 8, 16
+DECODE_SESSION_PROMPTS = tuple(128 + 8 * i for i in range(DECODE_SESSIONS))
+# the generated token's logit within this share of the best one's (at least 1) in the
+# teacher-forced replay (tests/test_llama_loader.py's rule: bf16 noise may flip a near tie)
+GREEDY_LOGIT_RTOL = 2e-2
 
 
 def log(message: str) -> None:
     print(message, flush=True)
+
+
+def max_rel_err(got, expected) -> float:
+    """The largest absolute difference over the reference's largest magnitude
+    (hivemind_tpu/ops/device_check.py's measure)."""
+    return float(np.abs(got - expected).max() / (np.abs(expected).max() + 1e-9))
 
 
 def card_line() -> str:
@@ -172,8 +216,12 @@ def time_ms(torch, fn, budget_ms: float = 300.0) -> float:
 # ---------------------------------------------------------------- phases
 
 
+MANGLED_TYPES = {"f": "float", "d": "double", "i": "int", "b": "bool"}
+
+
 def kernel_name(mangled: str) -> str:
-    """``name<D>`` from an Itanium-mangled kernel symbol (the last of its nested names)."""
+    """``name<args>`` from an Itanium-mangled kernel symbol (the last of its nested
+    names; template arguments that are literals, builtin types or named types)."""
     names, i = [], mangled.find("N") + 1
     while i < len(mangled) and mangled[i].isdigit():
         j = i
@@ -181,8 +229,22 @@ def kernel_name(mangled: str) -> str:
             j += 1
         names.append(mangled[j : j + int(mangled[i:j])])
         i = j + int(mangled[i:j])
-    template = re.match(r"ILi(\d+)E", mangled[i:])
-    return (names[-1] if names else mangled) + (f"<{template.group(1)}>" if template else "")
+    args = []
+    if mangled[i : i + 1] == "I":
+        i += 1
+        while i < len(mangled) and mangled[i] != "E":
+            literal, named = re.match(r"L[a-z](\d+)E", mangled[i:]), re.match(r"(\d+)", mangled[i:])
+            if literal:
+                args.append(literal.group(1))
+                i += literal.end()
+            elif named:
+                start = i + named.end()
+                args.append(mangled[start : start + int(named.group(1))])
+                i = start + int(named.group(1))
+            else:
+                args.append(MANGLED_TYPES.get(mangled[i], mangled[i]))
+                i += 1
+    return (names[-1] if names else mangled) + (f"<{', '.join(args)}>" if args else "")
 
 
 def ptxas_report(log: str):
@@ -296,7 +358,7 @@ def read_forward(out, lse, reference, dtype_name):
 def phase_flash(torch, peaks) -> dict:
     import torch.nn.functional as F
 
-    from hivemind_tpu_torch.ops.flash_attention import flash_attention_lse, flash_attention_plain
+    from hivemind_tpu_torch.ops.flash_attention import flash_attention_lse, flash_attention_plain, flash_route, needs_copy
 
     rng = np.random.default_rng(SEED)
     main_entry = None
@@ -339,16 +401,56 @@ def phase_flash(torch, peaks) -> dict:
                 if shape == (1, 2048, 32, 128) and causal and dtype == torch.bfloat16:  # the longest served request
                     main_entry = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                                       bound_by=bound_by, library_ms=library_ms)
+    for shape, dtype_name, causal in FLASH_EXTRA_CASES:
+        batch, seq, heads, dim = shape
+        q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda().to(getattr(torch, dtype_name))
+                   for _ in range(3))
+        label = f"B={batch} T={seq} H={heads} D={dim} {dtype_name} causal={causal} ({flash_route(q)})"
+        readings = check_forward(torch, q, k, v, causal, dtype_name, label)
+        ms = time_ms(torch, lambda: flash_attention_lse(q, k, v, causal))
+        plain_ms = time_ms(torch, lambda: flash_attention_plain(q, k, v, causal))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal))
+        pairs = seq * (seq + 1) / 2 if causal else seq * seq
+        operations = 4.0 * batch * heads * dim * pairs
+        nbytes = 4 * q.numel() * q.element_size() + batch * heads * seq * 4
+        bound, bound_by = bound_ms(operations, peaks["bf16"], nbytes, peaks["bytes"])
+        log(f"[flash] {label}: ms={ms:.4f} ({operations / ms / 1e9:.1f} TFLOP/s) plain_ms={plain_ms:.4f} "
+            f"library_ms={library_ms:.4f} bound_ms={bound:.4f} ({bound_by})")
+        log(f"[flash]   {readings}")
     for (batch, seq, heads, dim), causal in STRIDED_CASES:
         fused = torch.from_numpy(rng.standard_normal((batch, seq, 3, heads, dim), dtype=np.float32)).cuda().bfloat16()
         q, k, v = fused.unbind(2)
-        out, lse = flash_attention_lse(q, k, v, causal)
-        out_reading, lse_reading = read_forward(out, lse, plain_forward(torch, q, k, v, causal), "bfloat16")
-        readings = f"out {format_reading(out_reading)}; lse {format_reading(lse_reading)}"
+        readings = check_forward(torch, q, k, v, causal, "bfloat16", "on a fused qkv tensor")
         log(f"[flash] q, k, v of one fused [{batch}, {seq}, 3, {heads}, {dim}] bf16 tensor, causal={causal}: {readings}")
-        if not (out_reading["ok"] and lse_reading["ok"]):
-            raise AssertionError(f"flash on a fused qkv tensor exceeds its limits: {readings}")
+    for shape, causal in UNALIGNED_CASES:
+        q, k, v = (unaligned(torch, torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda().bfloat16())
+                   for _ in range(3))
+        readings = check_forward(torch, q, k, v, causal, "bfloat16", "on unaligned views")
+        log(f"[flash] q, k, v bf16 {list(shape)} one element off 16-byte alignment ({flash_route(q)}, "
+            f"copied first: {needs_copy(q)}), causal={causal}: {readings}")
     return main_entry
+
+
+def unaligned(torch, t):
+    """A copy of ``t`` whose base lies one element past a 16-byte boundary."""
+    storage = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = storage[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def check_forward(torch, q, k, v, causal, dtype_name, label) -> str:
+    """The forward kernel's (out, lse) held to the plain version's; raises past the
+    limits, else returns the readings."""
+    from hivemind_tpu_torch.ops.flash_attention import flash_attention_lse
+
+    out, lse = flash_attention_lse(q, k, v, causal)
+    out_reading, lse_reading = read_forward(out, lse, plain_forward(torch, q, k, v, causal), dtype_name)
+    readings = f"out {format_reading(out_reading)}; lse {format_reading(lse_reading)}"
+    if not (out_reading["ok"] and lse_reading["ok"]):
+        raise AssertionError(f"flash {label} exceeds out {FLASH_TOL[dtype_name]}, lse {LSE_TOL}: {readings}")
+    return readings
 
 
 def phase_quantization(torch, peaks):
@@ -428,9 +530,29 @@ def read_backward(dtype_name, got, ref, scales) -> dict:
             for name, g, r, sc in zip(("dq", "dk", "dv"), got, ref, scales)}
 
 
-def phase_flash_bwd(torch, peaks) -> dict:
+def library_backward_ms(torch, q, k, v, dout, causal) -> float:
+    """Device time of the library's whole attention backward, alone, on one
+    retained ``scaled_dot_product_attention`` forward. Where its fused backends
+    refuse a shape (cuDNN's graph, and the others' grid, at B*H = 65536), its
+    math backend is timed."""
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
+    def timed():
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        return time_ms(torch, lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dout.transpose(1, 2),
+                                                          retain_graph=True))
+
+    try:
+        return timed()
+    except RuntimeError as e:
+        log(f"[flash_bwd]   the library's first backend refused {list(q.shape)}: {str(e)[:80]}; timing its math backend")
+        with sdpa_kernel([SDPBackend.MATH]):
+            return timed()
+
+
+def phase_flash_bwd(torch, peaks) -> dict:
     from hivemind_tpu_torch.ops.flash_attention import (
         _delta,
         flash_attention_backward,
@@ -439,6 +561,7 @@ def phase_flash_bwd(torch, peaks) -> dict:
         flash_attention_backward_dq,
         flash_attention_backward_dq_plain,
         flash_attention_plain,
+        flash_route,
     )
 
     rng = np.random.default_rng(SEED + 5)
@@ -456,7 +579,7 @@ def phase_flash_bwd(torch, peaks) -> dict:
         scales = backward_scales(torch, *args)
         readings = read_backward(dtype_name, got, ref, scales)
         text = "; ".join(f"{name} {format_reading(r)}" for name, r in readings.items())
-        label = f"B={batch} T={seq} H={heads} D={dim} {dtype_name} causal={causal}"
+        label = f"B={batch} T={seq} H={heads} D={dim} {dtype_name} causal={causal} ({flash_route(q)})"
         if not all(r["ok"] for r in readings.values()):
             raise AssertionError(f"flash backward {label} exceeds {FLASH_BWD_TOL[dtype_name]}: {text}")
         if shape in FAULTY_BWD_SHAPES and dtype == torch.bfloat16:  # the check must reject a planted fault
@@ -471,11 +594,7 @@ def phase_flash_bwd(torch, peaks) -> dict:
               "dkv": time_ms(torch, lambda: flash_attention_backward_dkv(*args))}
         plain_ms = {"dq": time_ms(torch, lambda: flash_attention_backward_dq_plain(*args), budget_ms=100.0),
                     "dkv": time_ms(torch, lambda: flash_attention_backward_dkv_plain(*args), budget_ms=100.0)}
-        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-        sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)  # one retained forward
-        library_ms = time_ms(torch, lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dout.transpose(1, 2),
-                                                                retain_graph=True))
-        del sdpa_out
+        library_ms = library_backward_ms(torch, q, k, v, dout, causal)
         host = ""
         if dtype == torch.bfloat16:  # the wrappers' host time per call: each pass, and the whole backward
             host = "; host_us " + " ".join(f"{name}={host_us(torch, fn):.1f}" for name, fn in (
@@ -483,7 +602,7 @@ def phase_flash_bwd(torch, peaks) -> dict:
                 ("backward", lambda: flash_attention_backward(q, k, v, out, lse, dout, causal))))
         pairs = seq * (seq + 1) / 2 if causal else seq * seq  # query-key pairs this data needs
         element, rows = q.numel() * q.element_size(), batch * heads * seq * 4
-        rate = peaks["bf16"] if dtype == torch.bfloat16 else peaks["fp32"]
+        rate = peaks["fp32"] if dtype == torch.float32 else peaks["bf16"]
         operations = {"dq": 6.0 * batch * heads * dim * pairs, "dkv": 8.0 * batch * heads * dim * pairs}
         bounds = {"dq": bound_ms(operations["dq"], rate, 5 * element + 2 * rows, peaks["bytes"]),
                   "dkv": bound_ms(operations["dkv"], rate, 6 * element + 2 * rows, peaks["bytes"])}
@@ -497,18 +616,22 @@ def phase_flash_bwd(torch, peaks) -> dict:
                 entries[f"flash_attention_backward_{kernel}"] = dict(
                     max_abs_err=max(readings[n]["max_abs"] for n in names), ms=ms[kernel], plain_ms=plain_ms[kernel],
                     bound_ms=bounds[kernel][0], bound_by=bounds[kernel][1], library_ms=library_ms)
-    for (batch, seq, heads, dim), causal in STRIDED_CASES:
-        fused = torch.from_numpy(rng.standard_normal((batch, seq, 4, heads, dim), dtype=np.float32)).cuda().bfloat16()
-        q, k, v, dout = fused.unbind(2)
+    views = [(f"q, k, v, dout of one fused [{b}, {t}, 4, {h}, {d}] bf16 tensor, causal={causal}",
+              torch.from_numpy(rng.standard_normal((b, t, 4, h, d), dtype=np.float32)).cuda().bfloat16().unbind(2), causal)
+             for (b, t, h, d), causal in STRIDED_CASES]
+    views += [(f"q, k, v, dout bf16 {list(shape)} one element off 16-byte alignment, causal={causal}",
+               [unaligned(torch, torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda().bfloat16())
+                for _ in range(4)], causal) for shape, causal in UNALIGNED_CASES]
+    for what, (q, k, v, dout), causal in views:
         out, lse = flash_attention_plain(q, k, v, causal)
         args = (q, k, v, dout, lse, _delta(out, dout), causal)
         got = (flash_attention_backward_dq(*args), *flash_attention_backward_dkv(*args))
         ref = (flash_attention_backward_dq_plain(*args), *flash_attention_backward_dkv_plain(*args))
         readings = read_backward("bfloat16", got, ref, backward_scales(torch, *args))
         text = "; ".join(f"{name} {format_reading(r)}" for name, r in readings.items())
-        log(f"[flash_bwd] q, k, v, dout of one fused [{batch}, {seq}, 4, {heads}, {dim}] bf16 tensor, causal={causal}: {text}")
+        log(f"[flash_bwd] {what}: {text}")
         if not all(r["ok"] for r in readings.values()):
-            raise AssertionError(f"flash backward on a fused tensor exceeds its limits: {text}")
+            raise AssertionError(f"flash backward with {what} exceeds its limits: {text}")
     return entries
 
 
@@ -707,7 +830,8 @@ def phase_expert_backward(torch, checkpoint_dir: str, wrappers: dict) -> dict:
 
 
 def write_checkpoint(path: Path, config: dict, seed: int) -> None:
-    """A synthetic HF-layout Llama checkpoint in fp16 safetensors, one shard per layer."""
+    """A synthetic HF-layout Llama checkpoint in fp16 safetensors, one shard per layer
+    and one for the embedding, final norm and LM head."""
     rng = np.random.default_rng(seed)
     hid, inner = config["hidden_size"], config["intermediate_size"]
     kv = config["num_key_value_heads"] * hid // config["num_attention_heads"]
@@ -728,6 +852,13 @@ def write_checkpoint(path: Path, config: dict, seed: int) -> None:
         shard = f"model-{layer:05d}-of-{config['num_hidden_layers']:05d}.safetensors"
         write_safetensors(path / shard, {name: t.astype(np.float16) for name, t in tensors.items()})
         weight_map.update({name: shard for name in tensors})
+    # the client's ends, untied as Llama-2-7B publishes them
+    vocab = config["vocab_size"]
+    head = {"model.embed_tokens.weight": rng.standard_normal((vocab, hid), dtype=np.float32),
+            "model.norm.weight": 1.0 + 0.1 * rng.standard_normal(hid, dtype=np.float32),
+            "lm_head.weight": rng.standard_normal((vocab, hid), dtype=np.float32) * np.float32(hid ** -0.5)}
+    write_safetensors(path / "model-head.safetensors", {name: t.astype(np.float16) for name, t in head.items()})
+    weight_map.update({name: "model-head.safetensors" for name in head})
     (path / "model.safetensors.index.json").write_text(json.dumps({"weight_map": weight_map}))
 
 
@@ -805,17 +936,16 @@ async def serve(backends_by_mode: dict, requests: list, watched: np.ndarray) -> 
     return results, runtime.batches_processed, recorded
 
 
-def profile_forward(torch, backend, x):
-    """Where one block forward's time goes: device time by kernel and copy
-    (torch.profiler), against the forward's wall time on the host."""
+def profile_call(torch, fn):
+    """Where one call's time goes: device time by kernel and copy (torch.profiler),
+    against the call's wall time on the host. ``fn`` runs once, warm."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    backend.forward(x)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         started = time.perf_counter()
-        backend.forward(x)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - started) * 1e6
     device_us = {}
@@ -857,7 +987,8 @@ def phase_serving(torch, checkpoint_dir: str, wrappers: dict) -> dict:
                 raise AssertionError(f"{mode}: output of shape {y.shape} (finite={np.isfinite(y).all()})")
             log(f"[serving] {mode} request [1, {x.shape[1]}, {hid}]: latency {latency * 1e3:.1f} ms")
         x = requests[len(REQUEST_LENGTHS) - 1]
-        wall_us, device_us = profile_forward(torch, backend_map["llama.0"], x)
+        backend_map["llama.0"].forward(x)  # warm
+        wall_us, device_us = profile_call(torch, lambda: backend_map["llama.0"].forward(x))
         busy_us = sum(us for _, us in device_us)
         log(f"[profile] {mode} llama.0 forward [1, {x.shape[1]}, {hid}]: wall {wall_us / 1e3:.3f} ms, "
             f"device busy {busy_us / 1e3:.3f} ms ({busy_us / wall_us:.1%})")
@@ -870,13 +1001,219 @@ def phase_serving(torch, checkpoint_dir: str, wrappers: dict) -> dict:
             expected = requests[index]
             for backend in cpu_blocks.values():
                 expected = backend.forward(expected)[0]
-            got = results[mode][index][0]
-            rel_err = float(np.abs(got - expected).max() / (np.abs(expected).max() + 1e-9))
+            rel_err = max_rel_err(results[mode][index][0], expected)
             log(f"[serving] {mode} card vs CPU plain path, [1, {requests[index].shape[1]}, {hid}] "
                 f"({what}): max_rel_err={rel_err:.3e}")
             if not rel_err < SERVING_TOL:
                 raise AssertionError(f"{mode}: card output differs from the CPU reference by {rel_err} >= {SERVING_TOL}")
         del cpu_blocks
+    return launches
+
+
+def phase_small_heads(torch, wrappers: dict) -> dict:
+    """A served ``transformer`` expert of head_dim 32 on the card, through the SIMT
+    flash kernel, against the same expert on the CPU (``plain_attention``)."""
+    from hivemind_tpu_torch.moe.server.layers import name_to_block
+    from hivemind_tpu_torch.moe.server.module_backend import ModuleBackend
+
+    hid, heads, shape = SMALL_HEADS_EXPERT["hidden"], SMALL_HEADS_EXPERT["heads"], SMALL_HEADS_EXPERT["shape"]
+    x = np.random.default_rng(SEED + 10).standard_normal(shape, dtype=np.float32)
+    card = ModuleBackend("transformer.0", name_to_block["transformer"](hid, num_heads=heads, device="meta"),
+                         sample_input=x, device="cuda", rng_seed=SEED)
+    cpu = ModuleBackend("transformer.0", name_to_block["transformer"](hid, num_heads=heads, device="meta"),
+                        sample_input=x, device="cpu", params={k: t.cpu() for k, t in card.snapshot_params().items()})
+    torch.cuda.synchronize()
+    for wrapper in wrappers.values():
+        wrapper.launches = 0  # the main path starts here: one forward of the expert
+    got = card.forward(x)[0]
+    torch.cuda.synchronize()
+    launches = {name: wrapper.launches for name, wrapper in wrappers.items()}
+    rel_err = max_rel_err(got, cpu.forward(x)[0])
+    log(f"[head_dim32] transformer expert hidden {hid}, {heads} heads, input {list(shape)}: "
+        f"{launches['flash_attention_forward']} flash forward launch(es) on the card; card vs CPU (plain_attention) "
+        f"max_rel_err={rel_err:.3e}")
+    if not (got.shape == x.shape and np.isfinite(got).all() and rel_err < SERVING_TOL):
+        raise AssertionError(f"head_dim-32 expert: output {got.shape}, card vs CPU {rel_err} >= {SERVING_TOL}")
+    return launches
+
+
+class LocalPipe:
+    """``decode_step`` chained over a server's block uids through its
+    DecodeSessionManager (the stand-in for the transport slice's remote pipe);
+    notes each call's wall time and output."""
+
+    def __init__(self, manager, uids):
+        self.manager, self.uids, self.calls = manager, list(uids), []
+
+    def decode_step(self, hidden, session_id, reset=False):
+        x = hidden.cpu().numpy() if hasattr(hidden, "cpu") else np.asarray(hidden, np.float32)
+        started = time.perf_counter()
+        for uid in self.uids:
+            x = self.manager.decode(uid, session_id, x, reset)
+        self.calls.append((time.perf_counter() - started, x))
+        return x
+
+
+def forward_chain(backends: dict, x: np.ndarray) -> np.ndarray:
+    """The no-cache forward through every block (``ModuleBackend.forward``)."""
+    for backend in backends.values():
+        x = backend.forward(x)[0]
+    return x
+
+
+def log_profile(label: str, wall_us: float, device_us: list, top: int = 6) -> None:
+    busy_us = sum(us for _, us in device_us)
+    log(f"[profile] {label}: wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms ({busy_us / wall_us:.1%})")
+    for name, us in device_us[:top]:
+        log(f"[profile]   {us / 1e3:8.3f} ms  {name[:100]}")
+
+
+async def lockstep_rounds(manager, uids, sessions, inputs, rounds: int = DECODE_ROUNDS):
+    """``rounds`` rounds in which every session advances one token through every
+    block by ``decode_async``; returns (outputs[session][round], latencies in s,
+    wall time of all rounds in s)."""
+    outputs, latencies = {sid: [] for sid in sessions}, []
+
+    async def step(sid, x):
+        started = time.perf_counter()
+        for uid in uids:
+            x = await manager.decode_async(uid, sid, x, False)
+        latencies.append(time.perf_counter() - started)
+        outputs[sid].append(x)
+
+    started = time.perf_counter()
+    for round_index in range(rounds):
+        await asyncio.gather(*(step(sid, inputs[sid][round_index]) for sid in sessions))
+    return outputs, latencies, time.perf_counter() - started
+
+
+def phase_decode(torch, checkpoint_dir: str, wrappers: dict, peaks: dict) -> dict:
+    from hivemind_tpu_torch.moe.server.decode_session import DecodeSessionManager
+    from hivemind_tpu_torch.moe.server.llama_loader import (
+        LlamaCheckpointConfig,
+        LlamaClientHead,
+        decode_cache_bytes,
+        generate_greedy,
+        load_llama_blocks,
+        plan_block_capacity,
+        predict_block_param_bytes,
+    )
+
+    config = LlamaCheckpointConfig.load(checkpoint_dir)
+    hid, vocab = config.hidden_size, LLAMA2_7B["vocab_size"]
+    kv_bytes_per_position = 2 * 2 * config.num_key_value_heads * (hid // config.num_attention_heads)  # K + V, bf16
+    rng = np.random.default_rng(SEED + 9)
+    prompt = rng.integers(0, vocab, size=(1, DECODE_PROMPT))
+    session_prompts = [rng.integers(0, vocab, size=(1, length)) for length in DECODE_SESSION_PROMPTS]
+    session_tokens = rng.integers(0, vocab, size=(DECODE_SESSIONS, DECODE_ROUNDS, 1, 1))
+    head = LlamaClientHead.load(checkpoint_dir, device="cuda")
+    modes = {"fp": None, "int8": "int8"}
+    backends = {mode: load_llama_blocks(checkpoint_dir, device="cuda", weight_quantization=q)[0] for mode, q in modes.items()}
+    managers = {mode: DecodeSessionManager(blocks, max_len=DECODE_MAX_LEN) for mode, blocks in backends.items()}
+    merged = {mode: [] for mode in modes}
+    for mode, manager in managers.items():  # a recorder on the merged step: how many sessions each call held
+        batched_step = manager._batched_step
+        manager._batched_step = (lambda step, sizes: lambda uid, x, *args: sizes.append(x.shape[0]) or step(uid, x, *args))(
+            batched_step, merged[mode])
+    sessions = [f"lockstep-{i}" for i in range(DECODE_SESSIONS)]
+    inputs = {sid: [head.embed(tokens).cpu().numpy() for tokens in session_tokens[i]] for i, sid in enumerate(sessions)}
+
+    torch.cuda.synchronize()
+    for wrapper in wrappers.values():
+        wrapper.launches = 0  # the main path starts here: decode steps only
+    pipes, generated, lockstep = {}, {}, {}
+    for mode, manager in managers.items():
+        pipes[mode] = LocalPipe(manager, backends[mode])
+        generated[mode] = generate_greedy(head, pipes[mode], prompt, DECODE_NEW, session_id="solo")
+        for i, sid in enumerate(sessions):
+            pipes[mode].decode_step(head.embed(session_prompts[i]), sid, reset=True)
+        lockstep[mode] = asyncio.run(lockstep_rounds(manager, list(backends[mode]), sessions, inputs))
+    torch.cuda.synchronize()
+    launches = {name: wrapper.launches for name, wrapper in wrappers.items()}
+
+    for mode, manager in managers.items():
+        pipe, ids = pipes[mode], generated[mode]
+        param_bytes = sum(backend.param_bytes() for backend in backends[mode].values())
+        blocks = len(backends[mode])
+        prefill_s, prefill_out = pipe.calls[0]
+        steps = pipe.calls[1:DECODE_NEW]
+        step_s = np.array([seconds for seconds, _ in steps])
+        # the bytes a step must read: the resident weights and the cache up to its index
+        solo_bytes = param_bytes + blocks * kv_bytes_per_position * (DECODE_PROMPT + DECODE_NEW / 2)
+        round_bytes = param_bytes + blocks * kv_bytes_per_position * sum(n + DECODE_ROUNDS / 2 for n in DECODE_SESSION_PROMPTS)
+        outputs, latencies, wall_s = lockstep[mode]
+        log(f"[decode] {mode}: prefill [1, {DECODE_PROMPT}, {hid}] through {blocks} blocks {prefill_s * 1e3:.3f} ms; "
+            f"solo per-token latency median {np.median(step_s) * 1e3:.3f} ms, p90 {np.percentile(step_s, 90) * 1e3:.3f} ms "
+            f"over {len(step_s)} steps; per-token bound {solo_bytes / peaks['bytes'] * 1e3:.4f} ms "
+            f"({solo_bytes / 1e9:.3f} GB of resident weights and caches over the card's HBM peak)")
+        log(f"[decode] {mode}: {DECODE_SESSIONS} sessions x {DECODE_ROUNDS} lock-step rounds: per-token latency median "
+            f"{np.median(latencies) * 1e3:.3f} ms, p90 {np.percentile(latencies, 90) * 1e3:.3f} ms; "
+            f"{DECODE_SESSIONS * DECODE_ROUNDS / wall_s:.1f} tokens/s aggregate; per-round bound "
+            f"{round_bytes / peaks['bytes'] * 1e3:.4f} ms ({DECODE_SESSIONS * peaks['bytes'] / round_bytes:.1f} tokens/s); "
+            f"merged step sizes {sorted(set(merged[mode]))} in {len(merged[mode])} calls")
+        cache_bytes = decode_cache_bytes(config, 1, DECODE_MAX_LEN)
+        block_bytes = predict_block_param_bytes(config, modes[mode])
+        capacity = plan_block_capacity(block_bytes, device="cuda", decode_sessions=DECODE_SESSIONS,
+                                       cache_bytes_per_session_block=cache_bytes)
+        log(f"[decode] {mode}: decode_cache_bytes(batch 1, max_len {DECODE_MAX_LEN}) = {cache_bytes}; "
+            f"plan_block_capacity({block_bytes} B per block, {DECODE_SESSIONS} sessions) = {capacity} blocks on this card")
+        if not merged[mode] or max(merged[mode]) < 2:
+            raise AssertionError(f"{mode}: no device call merged 2 or more sessions: {merged[mode]}")
+
+        # cached steps against the no-cache forward of the whole prefix (the flash kernel)
+        if prefill_out.shape != (1, DECODE_PROMPT, hid) or not np.isfinite(prefill_out).all():
+            raise AssertionError(f"{mode}: prefill output {prefill_out.shape}")
+        for step in DECODE_CHECKED_STEPS:
+            prefix = head.embed(ids[:, : DECODE_PROMPT + step]).cpu().numpy()
+            expected = forward_chain(backends[mode], prefix)[:, -1:]
+            rel_err = max_rel_err(pipe.calls[step][1], expected)
+            log(f"[decode] {mode}: step {step} (position {DECODE_PROMPT + step - 1}) vs the no-cache forward of its "
+                f"prefix: max_rel_err={rel_err:.3e}")
+            if not rel_err < SERVING_TOL:
+                raise AssertionError(f"{mode}: cached step {step} differs from the no-cache forward by {rel_err}")
+        # the generated ids, by a teacher-forced replay without cache
+        replay = forward_chain(backends[mode], head.embed(ids[:, :-1]).cpu().numpy())
+        logits = head.logits(replay[:, DECODE_PROMPT - 1 :]).cpu().numpy()[0]
+        chosen = logits[np.arange(DECODE_NEW), ids[0, DECODE_PROMPT:]]
+        gaps = (logits.max(axis=-1) - chosen) / np.maximum(np.abs(logits.max(axis=-1)), 1.0)
+        flips = int((gaps > 0).sum())
+        log(f"[decode] {mode}: generated {DECODE_NEW} tokens {ids[0, DECODE_PROMPT:DECODE_PROMPT + 8].tolist()}...; "
+            f"teacher-forced replay: {flips} near-tie flips, largest logit gap {gaps.max():.3e} (limit {GREEDY_LOGIT_RTOL})")
+        if not gaps.max() <= GREEDY_LOGIT_RTOL:
+            raise AssertionError(f"{mode}: a generated token's logit lies {gaps.max()} below the best")
+        # every lock-step session against the same session decoded alone
+        worst = 0.0
+        for i, sid in enumerate(sessions):
+            alone = f"alone-{i}"
+            pipe.decode_step(head.embed(session_prompts[i]), alone, reset=True)
+            for round_index, x in enumerate(inputs[sid]):
+                worst = max(worst, max_rel_err(outputs[sid][round_index], pipe.decode_step(x, alone)))
+        log(f"[decode] {mode}: lock-step sessions vs each decoded alone: max_rel_err={worst:.3e}")
+        if not worst < SERVING_TOL:
+            raise AssertionError(f"{mode}: merged steps differ from the sessions decoded alone by {worst}")
+        # where a step's time goes: one more solo step, and one more lock-step round
+        pipe.decode_step(head.embed(prompt), "profiled", reset=True)
+        token = head.embed(ids[:, DECODE_PROMPT : DECODE_PROMPT + 1])
+        log_profile(f"{mode} solo decode step through {blocks} blocks",
+                    *profile_call(torch, lambda: pipe.decode_step(token, "profiled")))
+        extra = {sid: inputs[sid][:1] for sid in sessions}
+        log_profile(f"{mode} lock-step round of {DECODE_SESSIONS} sessions through {blocks} blocks",
+                    *profile_call(torch, lambda: asyncio.run(lockstep_rounds(manager, list(backends[mode]), sessions,
+                                                                              extra, rounds=1))))
+
+    # the prefill and the first step against the CPU plain path
+    for mode, quantization in modes.items():
+        cpu_blocks = load_llama_blocks(checkpoint_dir, device="cpu", weight_quantization=quantization)[0]
+        cpu_pipe = LocalPipe(DecodeSessionManager(cpu_blocks, max_len=DECODE_MAX_LEN), cpu_blocks)
+        ids = generated[mode]
+        cpu_pipe.decode_step(head.embed(prompt).cpu(), "cpu", reset=True)
+        cpu_pipe.decode_step(head.embed(ids[:, DECODE_PROMPT : DECODE_PROMPT + 1]).cpu(), "cpu")
+        for index, what in ((0, "prefill"), (1, "first step")):
+            rel_err = max_rel_err(pipes[mode].calls[index][1], cpu_pipe.calls[index][1])
+            log(f"[decode] {mode}: {what} card vs CPU plain path: max_rel_err={rel_err:.3e}")
+            if not rel_err < SERVING_TOL:
+                raise AssertionError(f"{mode}: decode {what} differs from the CPU by {rel_err}")
+        del cpu_blocks, cpu_pipe
     return launches
 
 
@@ -909,6 +1246,8 @@ def main() -> int:
         "serving": ("flash_attention_forward", "blockwise_int8_quantize", "blockwise_int8_dequantize"),
         "expert_backward": ("flash_attention_forward", "flash_attention_backward_dq", "flash_attention_backward_dkv"),
         "train": ("flash_attention_forward", "flash_attention_backward_dq", "flash_attention_backward_dkv"),
+        "head_dim32": ("flash_attention_forward",),
+        "decode": ("blockwise_int8_dequantize",),
     }
 
     line = card_line()
@@ -936,6 +1275,8 @@ def main() -> int:
         entries.update(run("flash_bwd", phase_flash_bwd, torch, peaks) or {})
         run("checkpoint", write_checkpoint, Path(checkpoint.name), LLAMA2_7B, SEED + 3)
         path_launches["serving"] = run("serving", phase_serving, torch, checkpoint.name, wrappers)
+        path_launches["head_dim32"] = run("head_dim32", phase_small_heads, torch, wrappers)
+        path_launches["decode"] = run("decode", phase_decode, torch, checkpoint.name, wrappers, peaks)
         path_launches["expert_backward"] = run("expert_backward", phase_expert_backward, torch, checkpoint.name, wrappers)
         path_launches["train"] = run("train", phase_train, torch, peaks, wrappers)
     finally:

@@ -46,9 +46,14 @@
 //    epilogue overlap another's products (at D = 64 and T = 512 a block runs
 //    only 4 KV tiles), and TMA stores of O.
 //
-// Design, fp32: the same online softmax on the CUDA cores with fp32 FMAs only (no
-// TF32): a warp owns 4 query rows, lane j scores key j of a 32-key tile, and each
-// lane accumulates D/32 output columns from probabilities broadcast by shuffles.
+// Design, SIMT (every input the bf16 design does not take: fp32, fp16, and bf16 at
+// a head_dim other than 64 or 128, any head_dim up to 256, as the TPU kernel takes
+// the whole head_dim as its block): the same online softmax on the CUDA cores in
+// fp32 FMAs only (no TF32), the inputs widened to fp32 as they are staged, as the
+// TPU kernel casts its tiles. A block owns 16 query rows of one batch*head, a warp
+// 4 of them; lane j scores key j of a 32-key tile, and each lane accumulates
+// kD/32 output columns from probabilities broadcast by shuffles. kD is head_dim
+// rounded up to 32, 64, 96, 128 or 256, its extra columns zeros.
 
 #include <cuda_bf16.h>
 
@@ -67,7 +72,7 @@ struct Params {
     const void* v;
     void* out;
     float* lse;  // [B, H, T] contiguous
-    int batch, seq, heads;
+    int batch, seq, heads, head_dim;
     long long q_sb, q_st, q_sh;
     long long k_sb, k_st, k_sh;
     long long v_sb, v_st, v_sh;
@@ -333,32 +338,35 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
     }
 }
 
-// ------------------------------------------------------------------ fp32 path
+// ------------------------------------------------------------------ SIMT path
 
-constexpr int kWarpsF32 = 4;
+constexpr int kWarpsSimt = 4;
 constexpr int kRowsPerWarp = 4;
-constexpr int kRowsF32 = kWarpsF32 * kRowsPerWarp;  // query rows per block
-constexpr int kKeysF32 = 32;                        // keys per tile: one per lane
+constexpr int kRowsSimt = kWarpsSimt * kRowsPerWarp;  // query rows per block
+constexpr int kKeysSimt = 32;                         // keys per tile: one per lane
 
-template <int D>
-__global__ void __launch_bounds__(kWarpsF32 * 32) flash_forward_f32(const Params p) {
-    constexpr int kCols = D / 32;  // output columns per lane
+// T: the element type (float, bf16 or fp16), widened on load. kD: head_dim padded
+// to a multiple of 32; columns at or past p.head_dim are staged as zeros, which
+// add nothing to a score or an output, and are never stored.
+template <typename T, int kD>
+__global__ void __launch_bounds__(kWarpsSimt * 32) flash_forward_simt(const Params p) {
+    constexpr int kCols = kD / 32;  // output columns per lane
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    float* q_s = reinterpret_cast<float*>(smem_raw);  // [kRowsF32][D], read as broadcasts
-    float* k_s = q_s + kRowsF32 * D;                   // [kKeysF32][D + 1]: lane j reads row j, no bank conflicts
-    float* v_s = k_s + kKeysF32 * (D + 1);             // [kKeysF32][D]: lanes read neighbouring columns
+    float* q_s = reinterpret_cast<float*>(smem_raw);  // [kRowsSimt][kD], read as broadcasts
+    float* k_s = q_s + kRowsSimt * kD;                 // [kKeysSimt][kD + 1]: lane j reads row j, no bank conflicts
+    float* v_s = k_s + kKeysSimt * (kD + 1);           // [kKeysSimt][kD]: lanes read neighbouring columns
 
-    const int bh = blockIdx.y;
+    const int bh = blockIdx.x;
     const int b = bh / p.heads, h = bh % p.heads;
-    const int q0 = blockIdx.x * kRowsF32;
+    const int q0 = (gridDim.y - 1 - blockIdx.y) * kRowsSimt;  // heaviest first when causal
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const float* q_base = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-    const float* k_base = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
-    const float* v_base = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+    const T* q_base = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+    const T* k_base = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+    const T* v_base = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
 
-    for (int i = threadIdx.x; i < kRowsF32 * D; i += kWarpsF32 * 32) {
-        const int row = i / D, col = i % D;
-        q_s[i] = q0 + row < p.seq ? q_base[(q0 + row) * p.q_st + col] : 0.0f;
+    for (int i = threadIdx.x; i < kRowsSimt * kD; i += kWarpsSimt * 32) {
+        const int row = i / kD, col = i % kD;
+        q_s[i] = q0 + row < p.seq && col < p.head_dim ? to_float(q_base[(q0 + row) * p.q_st + col]) : 0.0f;
     }
 
     float acc[kRowsPerWarp][kCols];
@@ -372,14 +380,14 @@ __global__ void __launch_bounds__(kWarpsF32 * 32) flash_forward_f32(const Params
     }
     const int row0 = q0 + warp * kRowsPerWarp;  // sequence position of this warp's first row
 
-    const int kv_end = p.causal ? min(p.seq, q0 + kRowsF32) : p.seq;
-    for (int kv0 = 0; kv0 < kv_end; kv0 += kKeysF32) {
+    const int kv_end = p.causal ? min(p.seq, q0 + kRowsSimt) : p.seq;
+    for (int kv0 = 0; kv0 < kv_end; kv0 += kKeysSimt) {
         __syncthreads();
-        for (int i = threadIdx.x; i < kKeysF32 * D; i += kWarpsF32 * 32) {
-            const int row = i / D, col = i % D;
-            const bool valid = kv0 + row < p.seq;
-            k_s[row * (D + 1) + col] = valid ? k_base[(kv0 + row) * p.k_st + col] : 0.0f;
-            v_s[row * D + col] = valid ? v_base[(kv0 + row) * p.v_st + col] : 0.0f;
+        for (int i = threadIdx.x; i < kKeysSimt * kD; i += kWarpsSimt * 32) {
+            const int row = i / kD, col = i % kD;
+            const bool valid = kv0 + row < p.seq && col < p.head_dim;
+            k_s[row * (kD + 1) + col] = valid ? to_float(k_base[(kv0 + row) * p.k_st + col]) : 0.0f;
+            v_s[row * kD + col] = valid ? to_float(v_base[(kv0 + row) * p.v_st + col]) : 0.0f;
         }
         __syncthreads();
 
@@ -387,11 +395,11 @@ __global__ void __launch_bounds__(kWarpsF32 * 32) flash_forward_f32(const Params
         float score[kRowsPerWarp];
 #pragma unroll
         for (int r = 0; r < kRowsPerWarp; ++r) score[r] = 0.0f;
-        for (int d = 0; d < D; ++d) {
-            const float k_val = k_s[lane * (D + 1) + d];
+        for (int d = 0; d < kD; ++d) {
+            const float k_val = k_s[lane * (kD + 1) + d];
 #pragma unroll
             for (int r = 0; r < kRowsPerWarp; ++r) {
-                score[r] = fmaf(q_s[(warp * kRowsPerWarp + r) * D + d], k_val, score[r]);
+                score[r] = fmaf(q_s[(warp * kRowsPerWarp + r) * kD + d], k_val, score[r]);
             }
         }
 #pragma unroll
@@ -411,17 +419,17 @@ __global__ void __launch_bounds__(kWarpsF32 * 32) flash_forward_f32(const Params
 #pragma unroll
             for (int c = 0; c < kCols; ++c) acc[r][c] *= corr;
         }
-        for (int j = 0; j < kKeysF32; ++j) {
+        for (int j = 0; j < kKeysSimt; ++j) {
 #pragma unroll
             for (int r = 0; r < kRowsPerWarp; ++r) {
                 const float prob = __shfl_sync(0xffffffffu, score[r], j);
 #pragma unroll
-                for (int c = 0; c < kCols; ++c) acc[r][c] = fmaf(prob, v_s[j * D + c * 32 + lane], acc[r][c]);
+                for (int c = 0; c < kCols; ++c) acc[r][c] = fmaf(prob, v_s[j * kD + c * 32 + lane], acc[r][c]);
             }
         }
     }
 
-    float* o_base = static_cast<float*>(p.out) + b * p.o_sb + h * p.o_sh;
+    T* o_base = static_cast<T*>(p.out) + b * p.o_sb + h * p.o_sh;
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
         float total = lane_sum[r];
@@ -431,7 +439,10 @@ __global__ void __launch_bounds__(kWarpsF32 * 32) flash_forward_f32(const Params
         const int row = row0 + r;
         if (row < p.seq) {
 #pragma unroll
-            for (int c = 0; c < kCols; ++c) o_base[row * p.o_st + c * 32 + lane] = acc[r][c] / denom;
+            for (int c = 0; c < kCols; ++c) {
+                const int col = c * 32 + lane;
+                if (col < p.head_dim) o_base[row * p.o_st + col] = from_float<T>(acc[r][c] / denom);
+            }
             if (lane == 0) p.lse[static_cast<long long>(bh) * p.seq + row] = row_max[r] + logf(denom);
         }
     }
@@ -451,16 +462,23 @@ int launch_bf16(const CUtensorMap& q, const CUtensorMap& k, const CUtensorMap& v
     return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int launch_f32(const Params& p, cudaStream_t stream) {
-    const size_t smem = (kRowsF32 * D + kKeysF32 * (D + 1) + kKeysF32 * D) * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(flash_forward_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((p.seq + kRowsF32 - 1) / kRowsF32, p.batch * p.heads);
-    flash_forward_f32<D><<<grid, kWarpsF32 * 32, smem, stream>>>(p);
-    return static_cast<int>(cudaGetLastError());
-}
+// A block per (batch*head, 16 query rows): grid (B*H, ceil(T / 16)).
+template <typename T>
+struct ForwardSimt {
+    const Params& p;
+    cudaStream_t stream;
+
+    template <int kD>
+    int run() const {
+        const size_t smem = (kRowsSimt * kD + kKeysSimt * (kD + 1) + kKeysSimt * kD) * sizeof(float);
+        cudaError_t err = cudaFuncSetAttribute(flash_forward_simt<T, kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
+        if (err != cudaSuccess) return static_cast<int>(err);
+        const dim3 grid(p.batch * p.heads, (p.seq + kRowsSimt - 1) / kRowsSimt);
+        flash_forward_simt<T, kD><<<grid, kWarpsSimt * 32, smem, stream>>>(p);
+        return static_cast<int>(cudaGetLastError());
+    }
+};
 
 }  // namespace
 
@@ -487,20 +505,22 @@ extern "C" int hm_flash_forward_bf16(const void* q, const void* k, const void* v
     return launch_bf16<128>(maps[0], maps[1], maps[2], p, batch, stream);
 }
 
-// q, k, v: [B, T, H, D] fp32 (last dim contiguous, strides in elements)
-// -> out [B, T, H, D] fp32 and lse [B, H, T] fp32 contiguous.
-extern "C" int hm_flash_forward_f32(const void* q, const void* k, const void* v, void* out, float* lse,
-                                    int batch, int seq, int heads, int head_dim,
-                                    long long q_sb, long long q_st, long long q_sh,
-                                    long long k_sb, long long k_st, long long k_sh,
-                                    long long v_sb, long long v_st, long long v_sh,
-                                    long long o_sb, long long o_st, long long o_sh,
-                                    int causal, float scale, cudaStream_t stream) {
-    const Params p{q, k, v, out, lse, batch, seq, heads,
+// q, k, v: [B, T, H, D] of one element type `dtype` (SimtDtype: fp32, bf16 or
+// fp16; last dim contiguous, strides in elements), head_dim 1 to 256 -> out
+// [B, T, H, D] of that type and lse [B, H, T] fp32 contiguous.
+extern "C" int hm_flash_forward_simt(const void* q, const void* k, const void* v, void* out, float* lse, int dtype,
+                                     int batch, int seq, int heads, int head_dim,
+                                     long long q_sb, long long q_st, long long q_sh,
+                                     long long k_sb, long long k_st, long long k_sh,
+                                     long long v_sb, long long v_st, long long v_sh,
+                                     long long o_sb, long long o_st, long long o_sh,
+                                     int causal, float scale, cudaStream_t stream) {
+    const Params p{q, k, v, out, lse, batch, seq, heads, head_dim,
                    q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_st, o_sh,
                    scale, causal};
     if (batch <= 0 || seq <= 0 || heads <= 0) return 0;
-    if (head_dim == 64) return launch_f32<64>(p, stream);
-    if (head_dim == 128) return launch_f32<128>(p, stream);
+    if (dtype == kSimtF32) return dispatch_simt_width(head_dim, ForwardSimt<float>{p, stream});
+    if (dtype == kSimtBf16) return dispatch_simt_width(head_dim, ForwardSimt<__nv_bfloat16>{p, stream});
+    if (dtype == kSimtF16) return dispatch_simt_width(head_dim, ForwardSimt<__half>{p, stream});
     return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -85,11 +85,14 @@
 // Later work (not here): the ping-pong of the two consumer warpgroups and a deeper
 // ring in the dK/dV pass, a persistent grid, TMA stores of the outputs.
 //
-// fp32 (no served or trained path uses it on the card; it exists so that fp32
-// CUDA tensors differentiate): plain FMAs on the CUDA cores, no TF32. A warp owns
-// 4 rows (query rows in the dQ kernel, KV rows in the dK/dV kernel); lane j takes
-// column j of a 32-wide tile, and each lane accumulates D/32 output columns from
-// the per-column terms broadcast by shuffles.
+// SIMT (every input the bf16 passes do not take: fp32, fp16, and bf16 at a head_dim
+// other than 64 or 128, any head_dim up to 256, as the TPU kernels take the whole
+// head_dim as their block): plain fp32 FMAs on the CUDA cores, no TF32, the inputs
+// widened to fp32 as they are staged and P and dS kept in fp32, as the TPU
+// kernels. A warp owns 4 rows (query rows in the dQ kernel, KV rows in the dK/dV
+// kernel); lane j takes column j of a 32-wide tile, and each lane accumulates
+// kD/32 output columns from the per-column terms broadcast by shuffles. kD is
+// head_dim rounded up to 32, 64, 96, 128 or 256, its extra columns zeros.
 
 #include <cuda_bf16.h>
 
@@ -109,7 +112,7 @@ struct Params {
     const float* delta;  // [B, H, T]
     void* out0;          // dq, or dk
     void* out1;          // dv (dK/dV pass)
-    int batch, seq, heads;
+    int batch, seq, heads, head_dim;
     long long q_sb, q_st, q_sh;
     long long k_sb, k_st, k_sh;
     long long v_sb, v_st, v_sh;
@@ -529,45 +532,47 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
 }
 
-// ------------------------------------------------------------------ fp32 path
+// ------------------------------------------------------------------ SIMT path
 
 constexpr int kRowsPerWarp = 4;
-constexpr int kRowsF32 = kWarps * kRowsPerWarp;  // rows a block owns
-constexpr int kColsF32 = 32;                     // columns per tile: one per lane
+constexpr int kRowsSimt = kWarps * kRowsPerWarp;  // rows a block owns
+constexpr int kColsSimt = 32;                     // columns per tile: one per lane
 
-// Stage `count` rows of one slice from row `row0` as [count][D + 1] floats (the
+// Stage `count` rows of one slice from row `row0` as [count][kD + 1] floats (the
 // padding keeps both row-per-lane and column-per-lane reads free of bank
-// conflicts); rows at or past `seq` become zeros.
-template <int D>
-__device__ __forceinline__ void load_rows_f32(float* dst, const float* src, long long row_stride, int row0,
-                                              int count, int seq) {
-    for (int i = threadIdx.x; i < count * D; i += kWarps * 32) {
-        const int row = i / D, col = i % D;
-        dst[row * (D + 1) + col] = row0 + row < seq ? src[(row0 + row) * row_stride + col] : 0.0f;
+// conflicts), widened from T; rows at or past `seq` and columns at or past
+// `head_dim` become zeros.
+template <typename T, int kD>
+__device__ __forceinline__ void load_rows_simt(float* dst, const T* src, long long row_stride, int row0, int count,
+                                               int seq, int head_dim) {
+    for (int i = threadIdx.x; i < count * kD; i += kWarps * 32) {
+        const int row = i / kD, col = i % kD;
+        dst[row * (kD + 1) + col] = row0 + row < seq && col < head_dim ? to_float(src[(row0 + row) * row_stride + col]) : 0.0f;
     }
 }
 
-// dQ pass: a warp owns 4 query rows; lane j takes key j of a 32-key tile.
-template <int D>
-__global__ void __launch_bounds__(kWarps * 32) flash_bwd_dq_f32(const Params p) {
-    constexpr int kCols = D / 32;
-    constexpr int S = D + 1;
+// dQ pass: a warp owns 4 query rows; lane j takes key j of a 32-key tile. T and kD
+// as in the forward's SIMT kernel.
+template <typename T, int kD>
+__global__ void __launch_bounds__(kWarps * 32) flash_bwd_dq_simt(const Params p) {
+    constexpr int kCols = kD / 32;
+    constexpr int S = kD + 1;
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    float* q_s = reinterpret_cast<float*>(smem_raw);  // [kRowsF32][S]
-    float* do_s = q_s + kRowsF32 * S;
-    float* k_s = do_s + kRowsF32 * S;  // [kColsF32][S]
-    float* v_s = k_s + kColsF32 * S;
+    float* q_s = reinterpret_cast<float*>(smem_raw);  // [kRowsSimt][S]
+    float* do_s = q_s + kRowsSimt * S;
+    float* k_s = do_s + kRowsSimt * S;  // [kColsSimt][S]
+    float* v_s = k_s + kColsSimt * S;
 
-    const int bh = blockIdx.y;
+    const int bh = blockIdx.x;
     const int b = bh / p.heads, h = bh % p.heads;
-    const int q0 = blockIdx.x * kRowsF32;
+    const int q0 = (gridDim.y - 1 - blockIdx.y) * kRowsSimt;  // heaviest first when causal
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const float* q_base = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-    const float* k_base = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
-    const float* v_base = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
-    const float* d_base = static_cast<const float*>(p.dout) + b * p.d_sb + h * p.d_sh;
-    load_rows_f32<D>(q_s, q_base, p.q_st, q0, kRowsF32, p.seq);
-    load_rows_f32<D>(do_s, d_base, p.d_st, q0, kRowsF32, p.seq);
+    const T* q_base = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+    const T* k_base = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+    const T* v_base = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+    const T* d_base = static_cast<const T*>(p.dout) + b * p.d_sb + h * p.d_sh;
+    load_rows_simt<T, kD>(q_s, q_base, p.q_st, q0, kRowsSimt, p.seq, p.head_dim);
+    load_rows_simt<T, kD>(do_s, d_base, p.d_st, q0, kRowsSimt, p.seq, p.head_dim);
 
     const long long rows = static_cast<long long>(bh) * p.seq;
     const int row0 = q0 + warp * kRowsPerWarp;
@@ -581,17 +586,17 @@ __global__ void __launch_bounds__(kWarps * 32) flash_bwd_dq_f32(const Params p) 
         for (int c = 0; c < kCols; ++c) acc[r][c] = 0.0f;
     }
 
-    const int kv_end = p.causal ? min(p.seq, q0 + kRowsF32) : p.seq;
-    for (int kv0 = 0; kv0 < kv_end; kv0 += kColsF32) {
+    const int kv_end = p.causal ? min(p.seq, q0 + kRowsSimt) : p.seq;
+    for (int kv0 = 0; kv0 < kv_end; kv0 += kColsSimt) {
         __syncthreads();
-        load_rows_f32<D>(k_s, k_base, p.k_st, kv0, kColsF32, p.seq);
-        load_rows_f32<D>(v_s, v_base, p.v_st, kv0, kColsF32, p.seq);
+        load_rows_simt<T, kD>(k_s, k_base, p.k_st, kv0, kColsSimt, p.seq, p.head_dim);
+        load_rows_simt<T, kD>(v_s, v_base, p.v_st, kv0, kColsSimt, p.seq, p.head_dim);
         __syncthreads();
 
         float s[kRowsPerWarp], dp[kRowsPerWarp];
 #pragma unroll
         for (int r = 0; r < kRowsPerWarp; ++r) s[r] = dp[r] = 0.0f;
-        for (int d = 0; d < D; ++d) {
+        for (int d = 0; d < kD; ++d) {
             const float k_val = k_s[lane * S + d], v_val = v_s[lane * S + d];
 #pragma unroll
             for (int r = 0; r < kRowsPerWarp; ++r) {
@@ -608,7 +613,7 @@ __global__ void __launch_bounds__(kWarps * 32) flash_bwd_dq_f32(const Params p) 
             const float prob = masked ? 0.0f : expf(s[r] * p.scale - lse[r]);
             ds[r] = prob * (dp[r] - delta[r]) * p.scale;
         }
-        for (int j = 0; j < kColsF32; ++j) {
+        for (int j = 0; j < kColsSimt; ++j) {
 #pragma unroll
             for (int r = 0; r < kRowsPerWarp; ++r) {
                 const float term = __shfl_sync(0xffffffffu, ds[r], j);
@@ -617,37 +622,40 @@ __global__ void __launch_bounds__(kWarps * 32) flash_bwd_dq_f32(const Params p) 
             }
         }
     }
-    float* o_base = static_cast<float*>(p.out0) + b * p.o_sb + h * p.o_sh;
+    T* o_base = static_cast<T*>(p.out0) + b * p.o_sb + h * p.o_sh;
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
         if (row0 + r < p.seq) {
 #pragma unroll
-            for (int c = 0; c < kCols; ++c) o_base[(row0 + r) * p.o_st + c * 32 + lane] = acc[r][c];
+            for (int c = 0; c < kCols; ++c) {
+                const int col = c * 32 + lane;
+                if (col < p.head_dim) o_base[(row0 + r) * p.o_st + col] = from_float<T>(acc[r][c]);
+            }
         }
     }
 }
 
 // dK/dV pass: a warp owns 4 KV rows; lane j takes query j of a 32-query tile.
-template <int D>
-__global__ void __launch_bounds__(kWarps * 32) flash_bwd_dkv_f32(const Params p) {
-    constexpr int kCols = D / 32;
-    constexpr int S = D + 1;
+template <typename T, int kD>
+__global__ void __launch_bounds__(kWarps * 32) flash_bwd_dkv_simt(const Params p) {
+    constexpr int kCols = kD / 32;
+    constexpr int S = kD + 1;
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    float* k_s = reinterpret_cast<float*>(smem_raw);  // [kRowsF32][S]
-    float* v_s = k_s + kRowsF32 * S;
-    float* q_s = v_s + kRowsF32 * S;  // [kColsF32][S]
-    float* do_s = q_s + kColsF32 * S;
+    float* k_s = reinterpret_cast<float*>(smem_raw);  // [kRowsSimt][S]
+    float* v_s = k_s + kRowsSimt * S;
+    float* q_s = v_s + kRowsSimt * S;  // [kColsSimt][S]
+    float* do_s = q_s + kColsSimt * S;
 
-    const int bh = blockIdx.y;
+    const int bh = blockIdx.x;
     const int b = bh / p.heads, h = bh % p.heads;
-    const int kv0 = blockIdx.x * kRowsF32;
+    const int kv0 = blockIdx.y * kRowsSimt;  // the first KV tiles are the heaviest when causal
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const float* q_base = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-    const float* k_base = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
-    const float* v_base = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
-    const float* d_base = static_cast<const float*>(p.dout) + b * p.d_sb + h * p.d_sh;
-    load_rows_f32<D>(k_s, k_base, p.k_st, kv0, kRowsF32, p.seq);
-    load_rows_f32<D>(v_s, v_base, p.v_st, kv0, kRowsF32, p.seq);
+    const T* q_base = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+    const T* k_base = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+    const T* v_base = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+    const T* d_base = static_cast<const T*>(p.dout) + b * p.d_sb + h * p.d_sh;
+    load_rows_simt<T, kD>(k_s, k_base, p.k_st, kv0, kRowsSimt, p.seq, p.head_dim);
+    load_rows_simt<T, kD>(v_s, v_base, p.v_st, kv0, kRowsSimt, p.seq, p.head_dim);
 
     const long long rows = static_cast<long long>(bh) * p.seq;
     const int row0 = kv0 + warp * kRowsPerWarp;
@@ -658,11 +666,11 @@ __global__ void __launch_bounds__(kWarps * 32) flash_bwd_dkv_f32(const Params p)
         for (int c = 0; c < kCols; ++c) dk[r][c] = dv[r][c] = 0.0f;
     }
 
-    const int q_begin = p.causal ? kv0 / kColsF32 * kColsF32 : 0;  // causal: from the diagonal tile
-    for (int q0 = q_begin; q0 < p.seq; q0 += kColsF32) {
+    const int q_begin = p.causal ? kv0 / kColsSimt * kColsSimt : 0;  // causal: from the diagonal tile
+    for (int q0 = q_begin; q0 < p.seq; q0 += kColsSimt) {
         __syncthreads();
-        load_rows_f32<D>(q_s, q_base, p.q_st, q0, kColsF32, p.seq);
-        load_rows_f32<D>(do_s, d_base, p.d_st, q0, kColsF32, p.seq);
+        load_rows_simt<T, kD>(q_s, q_base, p.q_st, q0, kColsSimt, p.seq, p.head_dim);
+        load_rows_simt<T, kD>(do_s, d_base, p.d_st, q0, kColsSimt, p.seq, p.head_dim);
         __syncthreads();
 
         const int query = q0 + lane;
@@ -672,7 +680,7 @@ __global__ void __launch_bounds__(kWarps * 32) flash_bwd_dkv_f32(const Params p)
         float st[kRowsPerWarp], dpt[kRowsPerWarp];
 #pragma unroll
         for (int r = 0; r < kRowsPerWarp; ++r) st[r] = dpt[r] = 0.0f;
-        for (int d = 0; d < D; ++d) {
+        for (int d = 0; d < kD; ++d) {
             const float q_val = q_s[lane * S + d], do_val = do_s[lane * S + d];
 #pragma unroll
             for (int r = 0; r < kRowsPerWarp; ++r) {
@@ -688,7 +696,7 @@ __global__ void __launch_bounds__(kWarps * 32) flash_bwd_dkv_f32(const Params p)
             pt[r] = masked ? 0.0f : expf(st[r] * p.scale - lse);
             dst[r] = pt[r] * (dpt[r] - delta) * p.scale;
         }
-        for (int j = 0; j < kColsF32; ++j) {
+        for (int j = 0; j < kColsSimt; ++j) {
 #pragma unroll
             for (int r = 0; r < kRowsPerWarp; ++r) {
                 const float prob = __shfl_sync(0xffffffffu, pt[r], j);
@@ -701,15 +709,18 @@ __global__ void __launch_bounds__(kWarps * 32) flash_bwd_dkv_f32(const Params p)
             }
         }
     }
-    float* dk_base = static_cast<float*>(p.out0) + b * p.o_sb + h * p.o_sh;
-    float* dv_base = static_cast<float*>(p.out1) + b * p.o_sb + h * p.o_sh;
+    T* dk_base = static_cast<T*>(p.out0) + b * p.o_sb + h * p.o_sh;
+    T* dv_base = static_cast<T*>(p.out1) + b * p.o_sb + h * p.o_sh;
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
         if (row0 + r < p.seq) {
 #pragma unroll
             for (int c = 0; c < kCols; ++c) {
-                dk_base[(row0 + r) * p.o_st + c * 32 + lane] = dk[r][c];
-                dv_base[(row0 + r) * p.o_st + c * 32 + lane] = dv[r][c];
+                const int col = c * 32 + lane;
+                if (col < p.head_dim) {
+                    dk_base[(row0 + r) * p.o_st + col] = from_float<T>(dk[r][c]);
+                    dv_base[(row0 + r) * p.o_st + col] = from_float<T>(dv[r][c]);
+                }
             }
         }
     }
@@ -717,16 +728,32 @@ __global__ void __launch_bounds__(kWarps * 32) flash_bwd_dkv_f32(const Params p)
 
 // ------------------------------------------------------------------ launch
 
-// Both fp32 passes: a block per (16 rows, batch*head), its rows and a 32-row tile of
-// the other side staged as [rows][D + 1] floats.
-template <typename Kernel>
-int launch_f32(Kernel kernel, const Params& p, int head_dim, cudaStream_t stream) {
-    const size_t smem = (2 * kRowsF32 + 2 * kColsF32) * (head_dim + 1) * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((p.seq + kRowsF32 - 1) / kRowsF32, p.batch * p.heads);
-    kernel<<<grid, kWarps * 32, smem, stream>>>(p);
-    return static_cast<int>(cudaGetLastError());
+// Both SIMT passes: a block per (batch*head, 16 rows), grid (B*H, ceil(T / 16)), its
+// rows and a 32-row tile of the other side staged as [rows][kD + 1] floats.
+template <typename T, bool kDq>
+struct BackwardSimt {
+    const Params& p;
+    cudaStream_t stream;
+
+    template <int kD>
+    int run() const {
+        const auto kernel = kDq ? flash_bwd_dq_simt<T, kD> : flash_bwd_dkv_simt<T, kD>;
+        const size_t smem = (2 * kRowsSimt + 2 * kColsSimt) * (kD + 1) * sizeof(float);
+        cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        if (err != cudaSuccess) return static_cast<int>(err);
+        const dim3 grid(p.batch * p.heads, (p.seq + kRowsSimt - 1) / kRowsSimt);
+        kernel<<<grid, kWarps * 32, smem, stream>>>(p);
+        return static_cast<int>(cudaGetLastError());
+    }
+};
+
+template <bool kDq>
+int launch_simt(const Params& p, int dtype, cudaStream_t stream) {
+    if (p.batch <= 0 || p.seq <= 0 || p.heads <= 0) return 0;
+    if (dtype == kSimtF32) return dispatch_simt_width(p.head_dim, BackwardSimt<float, kDq>{p, stream});
+    if (dtype == kSimtBf16) return dispatch_simt_width(p.head_dim, BackwardSimt<__nv_bfloat16, kDq>{p, stream});
+    if (dtype == kSimtF16) return dispatch_simt_width(p.head_dim, BackwardSimt<__half, kDq>{p, stream});
+    return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Both bf16 passes: a block per (batch*head, 128 rows).
@@ -755,40 +782,22 @@ int encode_maps(CUtensorMap (&maps)[4], const void* q, const void* k, const void
 }
 
 Params make_params(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-                   const float* delta, void* out0, void* out1, int batch, int seq, int heads,
+                   const float* delta, void* out0, void* out1, int batch, int seq, int heads, int head_dim,
                    long long q_sb, long long q_st, long long q_sh, long long k_sb, long long k_st, long long k_sh,
                    long long v_sb, long long v_st, long long v_sh, long long d_sb, long long d_st, long long d_sh,
                    long long o_sb, long long o_st, long long o_sh, int causal, float scale) {
-    return Params{q, k, v, dout, lse, delta, out0, out1, batch, seq, heads,
+    return Params{q, k, v, dout, lse, delta, out0, out1, batch, seq, heads, head_dim,
                   q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, d_sb, d_st, d_sh, o_sb, o_st, o_sh,
                   scale, causal};
 }
 
 }  // namespace
 
-// q, k, v, dout: [B, T, H, D] fp32 (last dim contiguous, strides in elements);
-// lse, delta: [B, H, T] fp32 contiguous -> dq [B, T, H, D] fp32.
-extern "C" int hm_flash_backward_dq_f32(const void* q, const void* k, const void* v, const void* dout,
-                                        const float* lse, const float* delta, void* dq,
-                                        int batch, int seq, int heads, int head_dim,
-                                        long long q_sb, long long q_st, long long q_sh,
-                                        long long k_sb, long long k_st, long long k_sh,
-                                        long long v_sb, long long v_st, long long v_sh,
-                                        long long d_sb, long long d_st, long long d_sh,
-                                        long long o_sb, long long o_st, long long o_sh,
-                                        int causal, float scale, cudaStream_t stream) {
-    const Params p = make_params(q, k, v, dout, lse, delta, dq, nullptr, batch, seq, heads, q_sb, q_st, q_sh,
-                                 k_sb, k_st, k_sh, v_sb, v_st, v_sh, d_sb, d_st, d_sh, o_sb, o_st, o_sh,
-                                 causal, scale);
-    if (batch <= 0 || seq <= 0 || heads <= 0) return 0;
-    if (head_dim == 64) return launch_f32(flash_bwd_dq_f32<64>, p, 64, stream);
-    if (head_dim == 128) return launch_f32(flash_bwd_dq_f32<128>, p, 128, stream);
-    return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// As above -> dk, dv [B, T, H, D] fp32, sharing one layout (o_*).
-extern "C" int hm_flash_backward_dkv_f32(const void* q, const void* k, const void* v, const void* dout,
-                                         const float* lse, const float* delta, void* dk, void* dv,
+// q, k, v, dout: [B, T, H, D] of one element type `dtype` (SimtDtype: fp32, bf16
+// or fp16; last dim contiguous, strides in elements), head_dim 1 to 256; lse,
+// delta: [B, H, T] fp32 contiguous -> dq [B, T, H, D] of that type.
+extern "C" int hm_flash_backward_dq_simt(const void* q, const void* k, const void* v, const void* dout,
+                                         const float* lse, const float* delta, void* dq, int dtype,
                                          int batch, int seq, int heads, int head_dim,
                                          long long q_sb, long long q_st, long long q_sh,
                                          long long k_sb, long long k_st, long long k_sh,
@@ -796,13 +805,26 @@ extern "C" int hm_flash_backward_dkv_f32(const void* q, const void* k, const voi
                                          long long d_sb, long long d_st, long long d_sh,
                                          long long o_sb, long long o_st, long long o_sh,
                                          int causal, float scale, cudaStream_t stream) {
-    const Params p = make_params(q, k, v, dout, lse, delta, dk, dv, batch, seq, heads, q_sb, q_st, q_sh,
+    const Params p = make_params(q, k, v, dout, lse, delta, dq, nullptr, batch, seq, heads, head_dim, q_sb, q_st, q_sh,
                                  k_sb, k_st, k_sh, v_sb, v_st, v_sh, d_sb, d_st, d_sh, o_sb, o_st, o_sh,
                                  causal, scale);
-    if (batch <= 0 || seq <= 0 || heads <= 0) return 0;
-    if (head_dim == 64) return launch_f32(flash_bwd_dkv_f32<64>, p, 64, stream);
-    if (head_dim == 128) return launch_f32(flash_bwd_dkv_f32<128>, p, 128, stream);
-    return static_cast<int>(cudaErrorInvalidValue);
+    return launch_simt<true>(p, dtype, stream);
+}
+
+// As above -> dk, dv [B, T, H, D] of that type, sharing one layout (o_*).
+extern "C" int hm_flash_backward_dkv_simt(const void* q, const void* k, const void* v, const void* dout,
+                                          const float* lse, const float* delta, void* dk, void* dv, int dtype,
+                                          int batch, int seq, int heads, int head_dim,
+                                          long long q_sb, long long q_st, long long q_sh,
+                                          long long k_sb, long long k_st, long long k_sh,
+                                          long long v_sb, long long v_st, long long v_sh,
+                                          long long d_sb, long long d_st, long long d_sh,
+                                          long long o_sb, long long o_st, long long o_sh,
+                                          int causal, float scale, cudaStream_t stream) {
+    const Params p = make_params(q, k, v, dout, lse, delta, dk, dv, batch, seq, heads, head_dim, q_sb, q_st, q_sh,
+                                 k_sb, k_st, k_sh, v_sb, v_st, v_sh, d_sb, d_st, d_sh, o_sb, o_st, o_sh,
+                                 causal, scale);
+    return launch_simt<false>(p, dtype, stream);
 }
 
 // q, k, v, dout: [B, T, H, D] bf16, each described by its TMA geometry

@@ -14,13 +14,18 @@ block server of BASELINE config #5.
 - **Int8 serving**: ``weight_quantization="int8"`` stores the matrices with the
   blockwise absmax codec, quantized on the device by the port's kernel.
 - **Memory budgeting**: :func:`plan_block_capacity` decides how many blocks fit
-  one card from per-block bytes + decode-session KV budget + headroom.
+  one card from per-block bytes + decode-session KV budget (:func:`decode_cache_bytes`)
+  + headroom.
+- **Generation**: :class:`LlamaClientHead` holds the client's ends of the
+  pipeline (embedding, final norm, LM head), and :func:`generate_greedy` decodes
+  through any pipe of KV-cache sessions.
 """
 
 from __future__ import annotations
 
 import json
 import struct
+import uuid
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple, Union
@@ -233,6 +238,13 @@ def predict_block_param_bytes(config: LlamaCheckpointConfig, weight_quantization
     return sum(matrices) * 4 + norm_bytes
 
 
+def decode_cache_bytes(config: LlamaCheckpointConfig, batch: int, max_len: int) -> int:
+    """KV-cache bytes ONE session costs for ONE block (bf16 K + V in the compact
+    kv-heads layout, see ``LlamaBlockExpert.init_decode_cache``)."""
+    head_dim = config.hidden_size // config.num_attention_heads
+    return 2 * 2 * batch * max_len * config.num_key_value_heads * head_dim
+
+
 def device_hbm_bytes(device: Union[str, torch.device] = "cuda") -> Optional[int]:
     """The card's total memory (``torch.cuda.mem_get_info``); None for the CPU,
     where callers pass an explicit budget."""
@@ -264,3 +276,76 @@ def plan_block_capacity(
     if per_block <= 0:
         return 0
     return max(usable // per_block, 0)
+
+
+class LlamaClientHead:
+    """The client-side ends of a Petals-style pipeline: token embedding in, final
+    RMSNorm + LM head out, as fp32 tensors on ``device``. Loaded from the
+    checkpoint's ``model.embed_tokens.weight``, ``model.norm.weight`` and
+    ``lm_head.weight`` (absent: tied with the embedding)."""
+
+    def __init__(self, embed: torch.Tensor, norm_scale: torch.Tensor, lm_head: torch.Tensor,
+                 rms_eps: float = 1e-6):
+        self.embed_matrix = embed  # [vocab, hid]
+        self.norm_scale = norm_scale  # [hid]
+        self.lm_head_matrix = lm_head  # [vocab, hid]
+        self.rms_eps = rms_eps
+
+    @classmethod
+    def load(cls, checkpoint_dir, device: Union[str, torch.device] = "cuda") -> "LlamaClientHead":
+        device = resolve_device(device)
+        reader = ShardedSafetensorsReader(checkpoint_dir)
+        config = LlamaCheckpointConfig.load(checkpoint_dir)
+
+        def tensor(name: str) -> torch.Tensor:
+            return torch.from_numpy(np.ascontiguousarray(reader.get(name), dtype=np.float32)).to(device)
+
+        embed = tensor("model.embed_tokens.weight")
+        try:
+            lm_head = tensor("lm_head.weight")
+        except KeyError:
+            lm_head = embed  # tied embeddings
+        return cls(embed, tensor("model.norm.weight"), lm_head, rms_eps=config.rms_norm_eps)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed_matrix.device
+
+    @property
+    def vocab_size(self) -> int:
+        return self.embed_matrix.shape[0]
+
+    def embed(self, token_ids) -> torch.Tensor:
+        """[batch, seq] int ids -> [batch, seq, hid] fp32 hidden states on the head's device."""
+        return self.embed_matrix[torch.as_tensor(np.asarray(token_ids, np.int64), device=self.device)]
+
+    def logits(self, hidden) -> torch.Tensor:
+        """[batch, seq, hid] block-stack output (a tensor or an array) -> [batch,
+        seq, vocab] fp32 logits: RMSNorm, then the LM projection, as HF's
+        LlamaForCausalLM ends."""
+        hidden = torch.as_tensor(hidden, dtype=torch.float32, device=self.device)
+        rms = torch.sqrt(hidden.pow(2).mean(dim=-1, keepdim=True) + self.rms_eps)
+        return (hidden / rms * self.norm_scale) @ self.lm_head_matrix.T
+
+
+def generate_greedy(head: LlamaClientHead, pipe, prompt_ids, max_new_tokens: int,
+                    session_id: Optional[str] = None) -> np.ndarray:
+    """Greedy decoding through a pipe of KV-cache sessions: one prefill, then one
+    single-token step per new token (the last token needs none: its cache entry
+    would go unread). ``pipe`` is any object with ``decode_step(hidden,
+    session_id, reset=False)`` returning the block stack's output. ``session_id``
+    defaults to a fresh unique id: servers key sessions by (uid, session_id), so a
+    shared constant would let concurrent generations overwrite each other's caches.
+    ``prompt_ids``: [batch, prompt_len]; returns [batch, prompt_len + new] int64."""
+    if session_id is None:
+        session_id = f"gen-{uuid.uuid4().hex}"
+    prompt = np.asarray(prompt_ids, np.int64)
+    ids = np.empty((prompt.shape[0], prompt.shape[1] + max_new_tokens), np.int64)
+    ids[:, : prompt.shape[1]] = prompt
+    hidden = pipe.decode_step(head.embed(prompt), session_id, reset=True)
+    for step in range(max_new_tokens):
+        next_ids = torch.argmax(head.logits(hidden[:, -1:]), dim=-1).cpu().numpy()
+        ids[:, prompt.shape[1] + step] = next_ids[:, 0]
+        if step + 1 < max_new_tokens:
+            hidden = pipe.decode_step(head.embed(next_ids), session_id)
+    return ids

@@ -180,7 +180,10 @@ class ModuleBackend:
         with self._state_lock, torch.enable_grad():
             leaves = {key: tensor.detach().requires_grad_(True) for key, tensor in self.params.items()}
             outs = _as_tuple(torch.func.functional_call(self.module, leaves, (x,)))
-            grads = torch.autograd.grad(outs, [x, *leaves.values()], grad_outputs=grad_outputs, allow_unused=True)
+            # an unused parameter gets a zero gradient, not None: optimizers skip a
+            # None, while optax updates it (weight decay, moment decay) as the JAX backend does
+            grads = torch.autograd.grad(outs, [x, *leaves.values()], grad_outputs=grad_outputs,
+                                        allow_unused=True, materialize_grads=True)
             for tensor, grad in zip(self.params.values(), grads[1:]):
                 tensor.grad = grad
             self.optimizer.step()

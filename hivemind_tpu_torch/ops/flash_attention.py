@@ -11,11 +11,18 @@ from the saved lse (``p = exp(s·scale − lse)``), with ``δ = rowsum(dO∘O)``
 outside the kernels, as the JAX package does.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it launches
-the kernel or raises. Each kernel wrapper counts its launches in ``.launches``
+a kernel or raises. Each kernel wrapper counts its launches in ``.launches``
 (``flash_attention_lse``, ``flash_attention_backward_dq``,
 ``flash_attention_backward_dkv``).
 
-The bf16 kernels read q, k, v (and dout) by TMA: the wrapper describes each
+Each direction has two designs (:func:`flash_route`): ``"wgmma"`` for bf16 at
+head_dim 64 or 128 (the served and trained widths), and ``"simt"`` for the rest:
+fp32, fp16, and bf16 at any other head_dim up to 256, as the TPU kernels take any
+head_dim as their block. :func:`flash_refusal` names the few inputs neither takes.
+A view a kernel cannot read through its strides is copied first
+(:func:`_kernel_layout`).
+
+The wgmma kernels read q, k, v (and dout) by TMA: the wrapper describes each
 tensor to the kernel's C entry point as a 4-D view (:func:`tma_geometry`), from
 which the entry point encodes the tensor maps. The two backward passes share one
 view of each tensor (:func:`backward_geometries`), which
@@ -32,7 +39,11 @@ import torch
 from hivemind_tpu_torch.ops import _build
 from hivemind_tpu_torch.parallel.ring_attention import plain_attention
 
-SUPPORTED_HEAD_DIMS = (64, 128)
+WGMMA_HEAD_DIMS = (64, 128)  # the bf16 head dims of the wgmma kernels
+SIMT_MAX_HEAD_DIM = 256  # the SIMT kernels take head_dim 1 to 256
+SIMT_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}  # the C entry points' dtype codes
+SIMT_ROWS = 16  # rows a SIMT block owns
+_MAX_ROW_TILES = 65535  # the grid's y dimension: row tiles of one batch*head
 _NEG_INF = -1e30  # large-but-finite: keeps fully-masked rows NaN-free
 
 
@@ -110,42 +121,74 @@ def backward_geometries(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout:
 
 def _library() -> ctypes.CDLL:
     library = _build.load_library("flash_attention")
-    bf16, f32 = library.hm_flash_forward_bf16, library.hm_flash_forward_f32
+    bf16, simt = library.hm_flash_forward_bf16, library.hm_flash_forward_simt
     if bf16.argtypes is None:
         geometry = ctypes.POINTER(ctypes.c_longlong)
         # q, k, v, out, lse; B, T, H, D; geometries of q, k, v; out's strides; causal, scale, stream
         bf16.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [geometry] * 3 + [ctypes.c_longlong] * 3
                          + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
         bf16.restype = ctypes.c_int
-        # q, k, v, out, lse; B, T, H, D; strides of q, k, v, out; causal, scale, stream
-        f32.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 12
-                        + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
-        f32.restype = ctypes.c_int
+        # q, k, v, out, lse; dtype, B, T, H, D; strides of q, k, v, out; causal, scale, stream
+        simt.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12
+                         + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+        simt.restype = ctypes.c_int
     return library
 
 
+def flash_route(q: torch.Tensor) -> str:
+    """Which design runs ``q`` (and k, v of its shape and dtype): ``"wgmma"`` for
+    bf16 at head_dim 64 or 128, ``"simt"`` otherwise."""
+    return "wgmma" if q.dtype == torch.bfloat16 and q.shape[-1] in WGMMA_HEAD_DIMS else "simt"
+
+
 def _bf16_aligned(t: torch.Tensor) -> bool:
-    """What the bf16 kernels' 16-byte loads need: a 16-byte aligned base and
-    batch, time and head strides that are multiples of 8 elements."""
+    """What TMA needs of a bf16 view: a 16-byte aligned base and batch, time and
+    head strides that are multiples of 8 elements."""
     return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
+
+
+def needs_copy(t: torch.Tensor) -> bool:
+    """Whether the kernels must read a contiguous copy of ``t`` rather than ``t``
+    through its strides: a head dim that is not contiguous, or a view the wgmma
+    kernels' TMA cannot take (an unaligned base or stride)."""
+    return t.stride(-1) != 1 or (flash_route(t) == "wgmma" and not _bf16_aligned(t))
+
+
+def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when the kernels can read it through its strides, else a
+    contiguous copy in a fresh allocation (a fused projection's unaligned slice,
+    or a gradient from autograd that is broadcast or misaligned; ``contiguous()``
+    would return a contiguous view with an unaligned base as it is)."""
+    return t.clone(memory_format=torch.contiguous_format) if needs_copy(t) else t
+
+
+def flash_refusal(q: torch.Tensor, *others: Tuple[str, torch.Tensor]) -> Optional[Tuple[type, str]]:
+    """Why no flash kernel can take ``q`` and ``others`` (named tensors of q's
+    shape), as ``(exception type, message)``, or None when one can (after a copy,
+    where :func:`needs_copy` says so). It reads shapes and dtypes only, so it
+    answers for ``meta`` tensors too; the caller tests the device."""
+    for name, tensor in others:
+        if tensor.dtype != q.dtype:
+            return TypeError, f"q, k, v must share a dtype; {name} is {tensor.dtype}, q is {q.dtype}"
+    if q.dtype not in SIMT_DTYPES:
+        return TypeError, f"the flash kernels take bfloat16, float16 or float32, got {q.dtype}"
+    batch, seq, heads, head_dim = q.shape
+    if not 0 < head_dim <= SIMT_MAX_HEAD_DIM:
+        return ValueError, f"the flash kernels take head_dim 1 to {SIMT_MAX_HEAD_DIM}, got {head_dim}"
+    rows = FORWARD_TILE_ROWS if flash_route(q) == "wgmma" else SIMT_ROWS
+    if batch * heads >= 2**31 or -(-seq // rows) > _MAX_ROW_TILES:
+        return ValueError, f"shape {tuple(q.shape)} exceeds the kernels' grid (B*H < 2^31, T <= {rows * _MAX_ROW_TILES})"
+    return None
 
 
 def _check_cuda_inputs(q: torch.Tensor, *others: Tuple[str, torch.Tensor]) -> None:
     for name, tensor in (("q", q), *others):
         if tensor.device != q.device or tensor.device.type != "cuda":
             raise ValueError(f"q, k, v must lie on one CUDA device; {name} is on {tensor.device}")
-        if tensor.dtype != q.dtype:
-            raise TypeError(f"q, k, v must share a dtype; {name} is {tensor.dtype}, q is {q.dtype}")
-        if tensor.stride(-1) != 1:
-            raise ValueError(f"{name}'s last (head_dim) dimension must be contiguous")
-        if q.dtype == torch.bfloat16 and not _bf16_aligned(tensor):
-            raise ValueError(f"bf16 {name} must be 16-byte aligned with strides that are multiples of 8")
-    if q.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"the flash kernel takes bfloat16 or float32, got {q.dtype}")
-    if q.shape[-1] not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"the flash kernel takes head_dim in {SUPPORTED_HEAD_DIMS}, got {q.shape[-1]}")
-    if q.shape[0] * q.shape[2] >= 65536 or q.shape[1] >= 2**31 - 64:
-        raise ValueError(f"shape {tuple(q.shape)} exceeds the kernel's grid")
+    refusal = flash_refusal(q, *others)
+    if refusal is not None:
+        error, message = refusal
+        raise error(message)
 
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -170,6 +213,7 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causa
     if _on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, causal)
     _check_cuda_inputs(q, ("k", k), ("v", v))
+    q, k, v = (_kernel_layout(t) for t in (q, k, v))
     batch, seq, heads, head_dim = q.shape
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((batch, heads, seq), dtype=torch.float32, device=q.device)
@@ -179,15 +223,16 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causa
     pointers = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if q.dtype == torch.bfloat16:
+        if flash_route(q) == "wgmma":
             status = library.hm_flash_forward_bf16(
                 *pointers, batch, seq, heads, head_dim,
                 *(tma_geometry(t, FORWARD_TILE_ROWS).as_ctypes() for t in (q, k, v)), *out.stride()[:3],
                 int(causal), head_dim ** -0.5, stream,
             )
         else:
-            status = library.hm_flash_forward_f32(
-                *pointers, batch, seq, heads, head_dim, *_strides(q, k, v, out), int(causal), head_dim ** -0.5, stream,
+            status = library.hm_flash_forward_simt(
+                *pointers, SIMT_DTYPES[q.dtype], batch, seq, heads, head_dim, *_strides(q, k, v, out),
+                int(causal), head_dim ** -0.5, stream,
             )
     _build.check_launch(library, status, "flash_attention_lse")
     flash_attention_lse.launches += 1
@@ -241,16 +286,17 @@ def flash_attention_backward_plain(q, k, v, out, lse, dout, causal: bool = False
 def _bwd_library() -> ctypes.CDLL:
     library = _build.load_library("flash_attention_bwd")
     if library.hm_flash_backward_dq_bf16.argtypes is None:
-        # each: q, k, v, dout, lse, delta, its outputs (dq, or dk and dv); B, T, H, D;
-        # then the layout: fp32, the strides of q, k, v, dout and of the outputs;
-        # bf16, the geometries of q, k, v, dout and the outputs' strides; causal,
-        # scale, stream
-        f32_layout = [ctypes.c_longlong] * 15
+        # each: q, k, v, dout, lse, delta, its outputs (dq, or dk and dv); then SIMT
+        # its dtype code; B, T, H, D; then the layout: SIMT, the strides of q, k, v,
+        # dout and of the outputs; bf16, the geometries of q, k, v, dout and the
+        # outputs' strides; causal, scale, stream
+        simt_layout = [ctypes.c_longlong] * 15
         bf16_layout = [ctypes.POINTER(ctypes.c_longlong)] * 4 + [ctypes.c_longlong] * 3
-        for name, outputs, layout in (("dq_f32", 1, f32_layout), ("dkv_f32", 2, f32_layout),
-                                      ("dq_bf16", 1, bf16_layout), ("dkv_bf16", 2, bf16_layout)):
+        for name, outputs, dtype, layout in (("dq_simt", 1, [ctypes.c_int], simt_layout),
+                                             ("dkv_simt", 2, [ctypes.c_int], simt_layout),
+                                             ("dq_bf16", 1, [], bf16_layout), ("dkv_bf16", 2, [], bf16_layout)):
             fn = getattr(library, f"hm_flash_backward_{name}")
-            fn.argtypes = ([ctypes.c_void_p] * (6 + outputs) + [ctypes.c_int] * 4 + layout
+            fn.argtypes = ([ctypes.c_void_p] * (6 + outputs) + dtype + [ctypes.c_int] * 4 + layout
                            + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
             fn.restype = ctypes.c_int
     return library
@@ -268,22 +314,23 @@ def _check_backward_inputs(q, k, v, dout, lse, delta) -> None:
 
 
 def _launch_pass(name: str, q, k, v, dout, lse, delta, outputs, causal: bool, geometries) -> None:
-    """Launch the pass ``name`` ("dq" or "dkv") in q's dtype on the pointers of q,
-    k, v, dout, lse, delta and ``outputs``: bf16 reads the four TMA views
-    ``geometries`` (:func:`backward_geometries` when None), fp32 the strides."""
-    if q.dtype == torch.bfloat16:
+    """Launch the pass ``name`` ("dq" or "dkv") of q's route on the pointers of q,
+    k, v, dout, lse, delta and ``outputs``: wgmma reads the four TMA views
+    ``geometries`` (:func:`backward_geometries` when None), SIMT the strides."""
+    if flash_route(q) == "wgmma":
         if geometries is None:
             geometries = backward_geometries(q, k, v, dout)
-        entry = f"hm_flash_backward_{name}_bf16"
+        entry, dtype = f"hm_flash_backward_{name}_bf16", ()
         layout = (*(g.as_ctypes() for g in geometries), *outputs[0].stride()[:3])
     else:
-        entry, layout = f"hm_flash_backward_{name}_f32", _strides(q, k, v, dout, outputs[0])
+        entry, dtype = f"hm_flash_backward_{name}_simt", (SIMT_DTYPES[q.dtype],)
+        layout = _strides(q, k, v, dout, outputs[0])
     library = _bwd_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = getattr(library, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            *(t.data_ptr() for t in outputs), *q.shape, *layout, int(causal), q.shape[-1] ** -0.5, stream,
+            *(t.data_ptr() for t in outputs), *dtype, *q.shape, *layout, int(causal), q.shape[-1] ** -0.5, stream,
         )
     _build.check_launch(library, status, entry)
 
@@ -295,6 +342,7 @@ def flash_attention_backward_dq(q, k, v, dout, lse, delta, causal: bool = False,
     if _on_cpu(q, k, v, dout, lse, delta):
         return flash_attention_backward_dq_plain(q, k, v, dout, lse, delta, causal)
     _check_backward_inputs(q, k, v, dout, lse, delta)
+    q, k, v, dout = (_kernel_layout(t) for t in (q, k, v, dout))
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     if dq.numel() == 0:
         return dq
@@ -310,6 +358,7 @@ def flash_attention_backward_dkv(q, k, v, dout, lse, delta, causal: bool = False
     if _on_cpu(q, k, v, dout, lse, delta):
         return flash_attention_backward_dkv_plain(q, k, v, dout, lse, delta, causal)
     _check_backward_inputs(q, k, v, dout, lse, delta)
+    q, k, v, dout = (_kernel_layout(t) for t in (q, k, v, dout))
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     if dk.numel() == 0:
@@ -323,13 +372,6 @@ flash_attention_backward_dq.launches = 0
 flash_attention_backward_dkv.launches = 0
 
 
-def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
-    """``t`` itself when the kernels can read it through its strides, else a
-    contiguous copy (a gradient from autograd may be broadcast or misaligned)."""
-    readable = t.stride(-1) == 1 and (t.dtype != torch.bfloat16 or _bf16_aligned(t))
-    return t if readable else t.contiguous()
-
-
 def flash_attention_backward(q, k, v, out, lse, dout, causal: bool = False) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` from the forward's ``(out, lse)`` and the cotangent ``dout``
     (cast to q's dtype first, as the JAX package's ``_flash_bwd``): the dQ kernel,
@@ -338,9 +380,9 @@ def flash_attention_backward(q, k, v, out, lse, dout, causal: bool = False) -> T
     dout = dout.to(q.dtype)
     if _on_cpu(q, k, v, out, lse, dout):
         return flash_attention_backward_plain(q, k, v, out, lse, dout, causal)
-    dout = _kernel_layout(dout)
+    q, k, v, dout = (_kernel_layout(t) for t in (q, k, v, dout))
     delta = _delta(out, dout)
-    geometries = backward_geometries(q, k, v, dout) if q.dtype == torch.bfloat16 else None
+    geometries = backward_geometries(q, k, v, dout) if flash_route(q) == "wgmma" else None
     dq = flash_attention_backward_dq(q, k, v, dout, lse, delta, causal, geometries)
     return (dq, *flash_attention_backward_dkv(q, k, v, dout, lse, delta, causal, geometries))
 
@@ -351,6 +393,8 @@ class FlashAttentionFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool):
+        if not _on_cpu(q, k, v):  # the views the kernels read, copied once for both directions
+            q, k, v = (_kernel_layout(t) for t in (q, k, v))
         out, lse = flash_attention_lse(q, k, v, causal)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
@@ -371,9 +415,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: b
 
 
 def attention_auto(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[torch.Tensor] = None, causal: bool = False) -> torch.Tensor:
-    """The attention core of the expert blocks and ALBERT: the flash kernels for
-    unmasked square attention on CUDA tensors, ``plain_attention`` for a padding
-    mask, for q_len != k_len (its causal mask is end-aligned) and on the CPU."""
-    if mask is None and q.shape[1] == k.shape[1] and q.is_cuda:
+    """The attention core of the expert blocks and ALBERT, dispatched as the JAX
+    package's: the flash kernels for unmasked square attention on CUDA tensors
+    (they raise where none can run: :func:`flash_refusal`), ``plain_attention``
+    for a padding mask, for q_len != k_len (its causal mask is end-aligned) and on
+    the CPU, as the JAX package falls back to the einsum core off the TPU."""
+    if mask is None and q.shape == k.shape == v.shape and q.dim() == 4 and q.is_cuda:
         return flash_attention(q, k, v, causal)
     return plain_attention(q, k, v, mask=mask, causal=causal)

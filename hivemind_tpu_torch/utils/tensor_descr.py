@@ -1,7 +1,10 @@
 """Tensor schemas for expert signatures (the port's copy of
 hivemind_tpu/utils/tensor_descr.py). Dtypes are canonical NUMPY names
 (``"float32"``, ``"bfloat16"``), never torch's ``"torch.float32"``, so the
-descriptors a torch peer publishes match a JAX peer's byte for byte."""
+descriptors a torch peer publishes match a JAX peer's byte for byte.
+
+``packb``/``unpackb`` import the msgpack serializer when called, never at import:
+the card's path needs no msgpack."""
 
 from __future__ import annotations
 
@@ -40,6 +43,29 @@ class TensorDescriptor:
         """From a torch tensor or a numpy array."""
         requires_grad = bool(getattr(tensor, "requires_grad", False))
         return cls(tuple(tensor.shape), canonical_dtype_name(tensor.dtype), requires_grad, compression)
+
+    @property
+    def numel(self) -> int:
+        out = 1
+        for dim in self.shape:
+            out *= dim
+        return out
+
+    @property
+    def itemsize(self) -> int:
+        return 2 if self.dtype == "bfloat16" else np.dtype(self.dtype).itemsize
+
+    def packb(self) -> bytes:
+        from hivemind_tpu_torch.utils.serializer import MSGPackSerializer
+
+        return MSGPackSerializer.dumps([list(self.shape), self.dtype, self.requires_grad, self.compression])
+
+    @classmethod
+    def unpackb(cls, data: bytes) -> "TensorDescriptor":
+        from hivemind_tpu_torch.utils.serializer import MSGPackSerializer
+
+        shape, dtype, requires_grad, compression = MSGPackSerializer.loads(data)
+        return cls(tuple(shape), dtype, requires_grad, compression)
 
 
 @dataclasses.dataclass(frozen=True)

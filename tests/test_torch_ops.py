@@ -32,6 +32,9 @@ from hivemind_tpu_torch.ops.flash_attention import (
     flash_attention_backward_dq,
     flash_attention_backward_plain,
     flash_attention_lse,
+    flash_refusal,
+    flash_route,
+    needs_copy,
     tma_geometry,
 )
 from hivemind_tpu_torch.ops.quantized_params import (
@@ -139,6 +142,59 @@ def test_attention_auto_routes_cpu_and_masked_calls_to_plain_attention():
     mask = torch.ones(1, 16, dtype=torch.bool)
     torch.testing.assert_close(attention_auto(q, k, v, mask=mask), plain_attention(q, k, v, mask=mask), rtol=0, atol=0)
     assert flash_attention_lse.launches == before  # no kernel runs on the CPU
+
+
+def _meta(shape, dtype=torch.bfloat16) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _misaligned_view(shape) -> torch.Tensor:
+    """A bf16 view one element into its storage: 2 bytes off 16-byte alignment."""
+    return torch.empty(int(np.prod(shape)) + 1, dtype=torch.bfloat16, device="meta")[1:].view(shape)
+
+
+@pytest.mark.parametrize(
+    "make,route,copy,refusal",
+    [
+        (lambda: _meta((2, 64, 4, 16)), "simt", False, None),
+        (lambda: _meta((2, 64, 4, 32)), "simt", False, None),
+        (lambda: _meta((2, 64, 4, 64)), "wgmma", False, None),
+        (lambda: _meta((2, 64, 4, 80)), "simt", False, None),
+        (lambda: _meta((2, 64, 4, 96)), "simt", False, None),
+        (lambda: _meta((2, 64, 4, 128)), "wgmma", False, None),
+        (lambda: _meta((2, 64, 4, 256)), "simt", False, None),
+        (lambda: _meta((2, 64, 4, 64), torch.float32), "simt", False, None),
+        (lambda: _meta((2, 64, 4, 64), torch.float16), "simt", False, None),
+        (lambda: _meta((4096, 8, 16, 64)), "wgmma", False, None),  # B·H = 65536
+        (lambda: _meta((4096, 8, 16, 32), torch.float16), "simt", False, None),  # B·H = 65536
+        (lambda: _misaligned_view((2, 64, 4, 64)), "wgmma", True, None),  # TMA needs a copy
+        (lambda: _misaligned_view((2, 64, 4, 32)), "simt", False, None),  # read through its strides
+        (lambda: _meta((2, 4, 64, 64)).transpose(1, 2), "wgmma", False, None),  # a strided view TMA takes
+        (lambda: _meta((2, 64, 64, 4)).transpose(2, 3), "wgmma", True, None),  # head dim not contiguous
+        (lambda: _meta((2, 64, 4, 64), torch.float64), "simt", False, (TypeError, "bfloat16, float16 or float32")),
+        (lambda: _meta((2, 64, 4, 512)), "simt", False, (ValueError, "head_dim")),
+        (lambda: _meta((1, 16 * 65535 + 1, 1, 32)), "simt", False, (ValueError, "grid")),
+        (lambda: _meta((1, 128 * 65535 + 1, 1, 64)), "wgmma", False, (ValueError, "grid")),
+    ],
+    ids=["d16", "d32", "d64", "d80", "d96", "d128", "d256", "fp32", "fp16", "bh65536", "bh65536_fp16",
+         "misaligned", "misaligned_d32", "strided", "d_strided", "fp64", "d512", "simt_rows", "wgmma_rows"],
+)
+def test_flash_refusal_predicts_what_the_kernel_takes(make, route, copy, refusal):
+    """The wrappers' predicates, on meta tensors: which design runs an input, whether
+    the kernels read a copy of it, and what no kernel takes (the wrapper raises it;
+    every other unmasked square call on the card runs a flash kernel)."""
+    q = make()
+    assert flash_route(q) == route
+    assert needs_copy(q) is copy
+    laid_out = flash_module._kernel_layout(q)
+    assert (laid_out is not q) is copy and not needs_copy(laid_out)  # a copy the kernels can read
+    got = flash_refusal(q, ("k", q), ("v", q))
+    if refusal is None:
+        assert got is None
+    else:
+        assert got[0] is refusal[0] and refusal[1] in got[1], got
+    mixed = flash_refusal(_meta((2, 64, 4, 64)), ("k", _meta((2, 64, 4, 64), torch.float32)))
+    assert mixed[0] is TypeError and "share a dtype" in mixed[1]
 
 
 def test_flash_wrapper_refuses_what_it_cannot_take():

@@ -20,16 +20,34 @@ from hivemind_tpu_torch.utils.tensor_descr import BatchTensorDescriptor
 REPO = Path(__file__).resolve().parent.parent
 PACKAGE = REPO / "hivemind_tpu_torch"
 
+# the wire layer needs msgpack and protobuf, which the card's machine lacks; every
+# other module of the port (the card's path) and chip_smoke.py load neither
+WIRE_MODULES = ("hivemind_tpu_torch.compression", "hivemind_tpu_torch.proto", "hivemind_tpu_torch.utils.serializer")
+
 _ISOLATION_PROBE = """
-import importlib, pkgutil, sys
+import importlib, importlib.util, pathlib, sys
 import numpy as np
 import torch
 import hivemind_tpu_torch
 
-for module in pkgutil.walk_packages(hivemind_tpu_torch.__path__, "hivemind_tpu_torch."):
-    importlib.import_module(module.name)
+WIRE = %r
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+# from the file system: pkgutil.walk_packages would import each package to walk it
+root = pathlib.Path(hivemind_tpu_torch.__file__).parent
+modules = sorted(".".join(("hivemind_tpu_torch",) + path.relative_to(root).with_suffix("").parts).removesuffix(".__init__")
+                 for path in root.rglob("*.py"))
+for name in modules:
+    if not name.startswith(WIRE):
+        importlib.import_module(name)
+assert "hivemind_tpu_torch.moe.server.decode_session" in sys.modules
+wire_leaked = sorted(name for name in sys.modules if name.split(".")[0] == "msgpack" or name.startswith("google.protobuf"))
+assert not wire_leaked, wire_leaked
+for name in modules:
+    importlib.import_module(name)
+assert "msgpack" in sys.modules and "google.protobuf" in sys.modules
 leaked = sorted(name for name in sys.modules
-                if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "hivemind_tpu"))
+                if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "hivemind_tpu", "ml_dtypes"))
 assert not leaked, leaked
 
 assert not torch.cuda.is_available()
@@ -58,7 +76,7 @@ assert "flash_attention_bwd" in hivemind_tpu_torch.ops._build.SOURCES
 leaked = sorted(name for name in sys.modules if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "hivemind_tpu"))
 assert not leaked, leaked
 print("isolated")
-"""
+""" % (WIRE_MODULES,)
 
 
 def test_package_imports_no_jax_and_refuses_to_run_without_cuda():
@@ -71,11 +89,19 @@ def test_package_imports_no_jax_and_refuses_to_run_without_cuda():
 
 
 def test_package_sources_never_name_the_jax_stack():
-    forbidden = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|hivemind_tpu)(\.|\s|$)", re.MULTILINE)
-    offenders = [
-        str(path.relative_to(REPO)) for path in PACKAGE.rglob("*.py") if forbidden.search(path.read_text())
-    ]
+    forbidden = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|hivemind_tpu|ml_dtypes)(\.|\s|$)", re.MULTILINE)
+    sources = sorted(PACKAGE.rglob("*.py"))
+    assert {"compression", "proto", "moe"} <= {path.relative_to(PACKAGE).parts[0] for path in sources}
+    offenders = [str(path.relative_to(REPO)) for path in sources if forbidden.search(path.read_text())]
     assert not offenders, offenders
+    # the card's path imports no wire module at its top (the wire layer imports
+    # msgpack and protobuf at its own top), and chip_smoke.py none anywhere
+    wire = r"(import|from)\s+(msgpack|google\.protobuf|" + "|".join(map(re.escape, WIRE_MODULES)) + r")(\.|\s|$)"
+    card_path = [path for path in sources
+                 if not ".".join(path.relative_to(REPO).with_suffix("").parts).startswith(WIRE_MODULES)]
+    offenders = [str(path.relative_to(REPO)) for path in card_path if re.search("^" + wire, path.read_text(), re.MULTILINE)]
+    assert not offenders, offenders
+    assert not re.search(r"^\s*" + wire, (REPO / "chip_smoke.py").read_text(), re.MULTILINE)
 
 
 @pytest.mark.parametrize(

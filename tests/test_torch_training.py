@@ -9,6 +9,7 @@ point is the algorithm; the expert blocks compute in bf16 on both sides, so thei
 limits are bf16-sized. Each test states its limit and the gap measured on these
 seeds."""
 
+import flax.linen as flax_nn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -248,3 +249,45 @@ def test_module_backend_backward_matches_jax(block, kwargs, shape):
             assert _max_rel_err(step, expected_step) < BACKWARD_MAX_REL_ERR, name
     assert backend.update_count == jax_backend.update_count == 1
     assert backend.get_info()["updates"] == jax_backend.get_info()["updates"] == 1
+
+
+def test_module_backend_decays_an_unused_parameter_as_optax_adamw():
+    """An unused parameter gets a zero gradient, not None: AdamW then decays it,
+    as optax.adamw does on the JAX backend (a None would make torch skip it)."""
+
+    class JaxUnused(flax_nn.Module):
+        @flax_nn.compact
+        def __call__(self, x):
+            self.param("unused", flax_nn.initializers.ones, (4,))
+            return flax_nn.Dense(4, use_bias=False)(x)
+
+    class Unused(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.Dense_0 = torch.nn.Linear(4, 4, bias=False)
+            self.unused = torch.nn.Parameter(torch.ones(4))
+
+        def forward(self, x):
+            return self.Dense_0(x)
+
+    rng = np.random.RandomState(11)
+    x, grad_out = (rng.randn(3, 4).astype(np.float32) for _ in range(2))
+    # lr 1: one step decays a parameter by lr·wd = 1e-4 of itself, far above the limit
+    lr, weight_decay = 1.0, 1e-4
+    jax_backend = JaxModuleBackend("jax", JaxUnused(), optimizer=optax.adamw(lr, weight_decay=weight_decay),
+                                   sample_input=x)
+    params = {"Dense_0": {"kernel": rng.randn(4, 4).astype(np.float32)}, "unused": 1.0 + rng.rand(4).astype(np.float32)}
+    jax_backend.load_params(params)
+    backend = ModuleBackend("torch", Unused(), sample_input=x, device="cpu",
+                            params={"Dense_0.weight": torch.from_numpy(params["Dense_0"]["kernel"].T.copy()),
+                                    "unused": torch.from_numpy(params["unused"])},
+                            optimizer=lambda tensors: torch.optim.AdamW(tensors, lr=lr, weight_decay=weight_decay))
+    jax_backend.backward(x, grad_out)
+    backend.backward(x, grad_out)
+    expected = np.asarray(jax_backend.params["unused"])
+    got = backend.snapshot_params()["unused"].numpy()
+    np.testing.assert_allclose(expected, params["unused"] * (1 - lr * weight_decay), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got, expected, rtol=0, atol=1e-6)
+    assert np.abs(got - params["unused"]).min() > 50e-6  # decayed, not skipped
+    np.testing.assert_allclose(backend.snapshot_params()["Dense_0.weight"].numpy().T,
+                               np.asarray(jax_backend.params["Dense_0"]["kernel"]), rtol=0, atol=1e-5)
