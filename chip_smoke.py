@@ -9,6 +9,10 @@ it, then drives four paths and checks each against the CPU:
   DecodeSessionManager's KV-cache sessions on the same blocks;
 - expert training: ModuleBackend.backward (one SGD step) on a Llama-2-7B-width block;
 - ALBERT-base MLM training: make_train_step with AdamW at batch 32 × seq 512.
+Telemetry rides the serving and decode runs, as a server would arm it (the event-loop
+watchdog, the device memory sampler, a ``/metrics`` exporter, a ``serving.request`` span
+around each request): ``[telemetry]`` holds its counters to exact counts and prints where
+the host time of a request and of a decode step goes.
 
 Run from the repository root on a machine with one NVIDIA card:
 
@@ -26,9 +30,11 @@ Needs no JAX and imports nothing of the JAX package.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import dataclasses
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -93,6 +99,8 @@ FLASH_BWD_CASES = [
     ((2, 64, 8, 32), "bfloat16", False), ((2, 1000, 16, 32), "bfloat16", True), ((1, 512, 8, 80), "bfloat16", False),
     ((2, 1000, 16, 64), "float16", True), ((1, 512, 4, 256), "float16", False),
     ((65536, 16, 1, 64), "bfloat16", True), ((32768, 16, 2, 32), "float16", False),
+    # the forward's SIMT shapes of [flash], so each kernel's SIMT row is timed at one shape
+    ((1, 512, 8, 96), "bfloat16", True), ((1, 512, 4, 256), "float16", True),
 ]
 # Each backward output element within atol + rtol*scale, where scale is the plain
 # backward run on absolute values: sum_k |dS||K| for dq, sum_q |dS||Q| for dk,
@@ -151,6 +159,16 @@ DECODE_SESSION_PROMPTS = tuple(128 + 8 * i for i in range(DECODE_SESSIONS))
 # the generated token's logit within this share of the best one's (at least 1) in the
 # teacher-forced replay (tests/test_llama_loader.py's rule: bf16 noise may flip a near tie)
 GREEDY_LOGIT_RTOL = 2e-2
+# [telemetry]: the watchdog's heartbeat every 10 ms (its HIVEMIND_WATCHDOG_INTERVAL_S, 0.25 s
+# by default), so a run of a second gives the loop-lag histogram tens of samples
+WATCHDOG_INTERVAL_S = "0.01"
+# a serving record rounds its duration and each phase to 1 us: the phases' sum may exceed
+# the duration by that rounding alone
+PHASE_ROUNDING_S = 2e-6
+# the hooks' cost: solo decode steps with every hook on ("all"), span tracing off
+# ("metrics"), and tracing off with the registry's updates as no-ops ("none"), rotated
+# step by step (ABC, then CBA) for HOOK_COST_ROUNDS rounds
+HOOK_COST_STATES, HOOK_COST_ROUNDS = ("all", "metrics", "none"), 100
 
 
 def log(message: str) -> None:
@@ -183,6 +201,63 @@ def card_peaks(name: str) -> dict:
 def bound_ms(operations: float, op_rate: float, nbytes: float, byte_rate: float):
     op_ms, byte_ms = operations / op_rate * 1e3, nbytes / byte_rate * 1e3
     return (op_ms, "operations") if op_ms >= byte_ms else (byte_ms, "bytes")
+
+
+def metric_value(name: str, **labels) -> float:
+    """One series of the port's process-wide registry: a value, or a histogram's count."""
+    from hivemind_tpu_torch.telemetry import REGISTRY
+
+    metric = REGISTRY.get(name)
+    if metric is None:
+        return 0.0
+    child = metric.labels(**labels)
+    return float(child.count) if metric.metric_type == "histogram" else child.value
+
+
+def metric_total(name: str) -> float:
+    """Every series of a family summed: values, or a histogram's counts."""
+    from hivemind_tpu_torch.telemetry import REGISTRY
+
+    metric = REGISTRY.get(name)
+    if metric is None:
+        return 0.0
+    return sum(float(child.count) if metric.metric_type == "histogram" else child.value for _key, child in metric.series())
+
+
+def lag_buckets(loop: str):
+    """(bucket bounds, cumulative counts) of the watchdog's loop-lag histogram for ``loop``."""
+    from hivemind_tpu_torch.telemetry import REGISTRY
+
+    metric = REGISTRY.get("hivemind_event_loop_lag_seconds")
+    buckets, _total, count = metric.labels(loop).snapshot()
+    return metric.buckets, buckets + [count]
+
+
+def bucket_quantile(bounds, cumulative, q: float) -> str:
+    """The upper bound of the histogram bucket that holds quantile ``q``."""
+    count = cumulative[-1]
+    if not count:
+        return "n/a"
+    for bound, below in zip(bounds, cumulative):
+        if below >= q * count:
+            return f"<= {bound * 1e3:g} ms"
+    return f"> {bounds[-1] * 1e3:g} ms"
+
+
+def median_p90(values) -> str:
+    return f"{np.median(values) * 1e3:.3f} / {np.percentile(values, 90) * 1e3:.3f} ms"
+
+
+class Telemetry:
+    """What ``[telemetry]`` reads: each phase leaves its readings here, and a watchdog
+    tick sampler keeps the largest backlog of the port's executor since ``backlog`` was
+    last reset (it runs right after the watchdog sets the backlog gauge)."""
+
+    def __init__(self):
+        self.readings, self.backlog = {}, 0
+
+    def sample_backlog(self) -> None:
+        self.backlog = max(self.backlog, int(metric_value("hivemind_executor_queue_depth", executor="blocking")))
 
 
 SPIN_CYCLES_PER_MS = 2.0e6  # at least an H100's clock (1.98 GHz boost): n ms of cycles spin >= n ms
@@ -269,12 +344,19 @@ def ptxas_report(log: str):
     return kernels, warnings
 
 
-def phase_build(torch):
+def phase_build(torch, telemetry: Telemetry):
     from hivemind_tpu_torch.ops import _build
+    from hivemind_tpu_torch.telemetry.device import COMPILE_TRACKER
 
+    compiled = [name for name in _build.SOURCES if not _build.library_path(name).exists()]
+    before = COMPILE_TRACKER.counts()
     started = time.perf_counter()
     _build.build_all()
     log(f"[build] {len(_build.SOURCES)} kernel libraries built in {time.perf_counter() - started:.2f} s")
+    recorded = {site: count - before.get(site, 0) for site, count in COMPILE_TRACKER.counts().items()}
+    telemetry.readings["build"] = dict(compiled=compiled, recorded=recorded)
+    log(f"[build] compiled {compiled} (the rest from the build cache); compiles recorded: "
+        f"{ {site: round(seconds['seconds'], 2) for site, seconds in COMPILE_TRACKER.summary()['sites'].items()} } s")
     faults = []
     for name in _build.SOURCES:
         kernels, warnings = ptxas_report(_build.build_log(name))
@@ -886,10 +968,13 @@ class RecordedForward:
     def __init__(self, forward, downstream=None):
         self.forward, self.downstream, self.watched = forward, downstream, None
         self.batches, self.watched_merged = [], False
+        self.bytes_in = self.bytes_out = 0  # what the batches carry to the card and back
 
     def __call__(self, x: np.ndarray):
         self.batches.append(tuple(x.shape[:2]))
         outputs = self.forward(x)
+        self.bytes_in += x.nbytes
+        self.bytes_out += sum(out.nbytes for out in outputs)
         if self.watched is not None and x.shape[1:] == self.watched.shape[1:]:
             for row in range(x.shape[0]):
                 if np.array_equal(x[row], self.watched[0]):
@@ -900,11 +985,17 @@ class RecordedForward:
 
 
 async def serve(backends_by_mode: dict, requests: list, watched: np.ndarray) -> dict:
-    """Run every request through block 0 → block 1 of every mode concurrently;
-    returns {mode: [(output, latency_s), ...]}, the runtime's batch count and each
-    pool's RecordedForward."""
+    """Run every request through block 0 → block 1 of every mode concurrently, each
+    block call inside a ``serving.request`` span as the connection handler opens
+    one; returns {mode: [(output, latency_s), ...]}, the runtime's batch count,
+    each pool's RecordedForward and the run's wall seconds. Returns once the
+    runtime has counted every batch (it counts a batch after its callers' results)."""
     from hivemind_tpu_torch.moe.server.runtime import Runtime
     from hivemind_tpu_torch.moe.server.task_pool import TaskPool
+    from hivemind_tpu_torch.telemetry import ensure_watchdog, trace
+    from hivemind_tpu_torch.telemetry.serving import SERVING_SPAN
+
+    ensure_watchdog(asyncio.get_running_loop(), name="serving")
 
     recorded = {}
     for mode, backends in backends_by_mode.items():
@@ -918,22 +1009,30 @@ async def serve(backends_by_mode: dict, requests: list, watched: np.ndarray) -> 
     runtime = Runtime([pool for chain in pools.values() for pool in chain])
     runtime.start()
 
-    async def chain(mode, x):
+    async def chain(mode, index, x):
         started = time.perf_counter()
-        for pool in pools[mode]:
-            (x,) = await pool.submit_task(x)
+        for uid, pool in zip(backends_by_mode[mode], pools[mode]):
+            with trace(SERVING_SPAN, kind="forward", expert=pool.name, peer="chip_smoke", client=f"request-{index}",
+                       batch=int(x.shape[0])):
+                (x,) = await pool.submit_task(x)
         return x, time.perf_counter() - started
 
+    started = time.perf_counter()
     try:
-        jobs = {mode: [chain(mode, x) for x in requests] for mode in pools}
+        jobs = {mode: [chain(mode, i, x) for i, x in enumerate(requests)] for mode in pools}
         flat = await asyncio.wait_for(asyncio.gather(*(job for mode in jobs for job in jobs[mode])), timeout=600)
+        formed = sum(len(forward.batches) for chain in recorded.values() for forward in chain.values())
+        deadline = time.perf_counter() + 60
+        while runtime.batches_processed < formed and time.perf_counter() < deadline:
+            await asyncio.sleep(0.001)
     finally:
         await runtime.shutdown()
+    wall_s = time.perf_counter() - started
     results, i = {}, 0
     for mode in jobs:
         results[mode] = flat[i : i + len(requests)]
         i += len(requests)
-    return results, runtime.batches_processed, recorded
+    return results, runtime.batches_processed, recorded, wall_s
 
 
 def profile_call(torch, fn):
@@ -955,8 +1054,23 @@ def profile_call(torch, fn):
     return wall_us, sorted(device_us.items(), key=lambda item: -item[1])
 
 
-def phase_serving(torch, checkpoint_dir: str, wrappers: dict) -> dict:
+def serving_counters(pools) -> dict:
+    """The served path's counters, per pool, and the transfer totals."""
+    from hivemind_tpu_torch.telemetry import REGISTRY
+
+    counters = {f"{name}:{pool}": metric_value(name, pool=pool) for pool in pools for name in (
+        "hivemind_moe_batches_total", "hivemind_moe_samples_total", "hivemind_moe_queue_wait_seconds")}
+    latency = REGISTRY.get("hivemind_moe_batch_latency_seconds")
+    counters["latency_sum"] = sum(latency.labels(pool).sum for pool in pools) if latency is not None else 0.0
+    for direction in ("host_to_device", "device_to_host"):
+        counters[direction] = metric_value("hivemind_device_transfer_bytes_total", direction=direction)
+    return counters
+
+
+def phase_serving(torch, checkpoint_dir: str, wrappers: dict, telemetry: Telemetry) -> dict:
     from hivemind_tpu_torch.moe.server.llama_loader import load_llama_blocks
+    from hivemind_tpu_torch.telemetry.device import MEMORY_MONITOR
+    from hivemind_tpu_torch.telemetry.serving import SERVING_LEDGER
 
     rng = np.random.default_rng(SEED + 2)
     hid = LLAMA2_7B["hidden_size"]
@@ -971,9 +1085,28 @@ def phase_serving(torch, checkpoint_dir: str, wrappers: dict) -> dict:
     torch.cuda.synchronize()
     log(f"[serving] loaded 2 x 2 blocks on the card in {time.perf_counter() - started:.1f} s")
     merged_index = 0  # the first 512-long request: checked below, and it must share a batch
-    results, batches, recorded = asyncio.run(serve(backends, requests, requests[merged_index]))
+    pools = [f"{mode}:{uid}" for mode, backend_map in backends.items() for uid in backend_map]
+    SERVING_LEDGER.clear()
+    counters, lag, telemetry.backlog = serving_counters(pools), lag_buckets("serving"), 0
+    stalls = metric_value("hivemind_event_loop_stalls_total", loop="serving")
+    results, batches, recorded, wall_s = asyncio.run(serve(backends, requests, requests[merged_index]))
     torch.cuda.synchronize()
     launches = {name: wrapper.launches for name, wrapper in wrappers.items()}
+    after = serving_counters(pools)
+    memory = MEMORY_MONITOR.sample()  # synchronous, with the served blocks resident
+    gauge_bytes = metric_value("hivemind_device_memory_bytes", device="cuda:0")
+    allocated = torch.cuda.memory_allocated(0)
+    bounds, lag_after = lag_buckets("serving")
+    telemetry.readings["serving"] = dict(
+        pools=pools, requests=len(requests), tokens=sum(x.shape[1] for x in requests), batches=batches,
+        formed=sum(len(forward.batches) for chain in recorded.values() for forward in chain.values()),
+        deltas={key: after[key] - counters[key] for key in after},
+        bytes_in=sum(forward.bytes_in for chain in recorded.values() for forward in chain.values()),
+        bytes_out=sum(forward.bytes_out for chain in recorded.values() for forward in chain.values()),
+        records=SERVING_LEDGER.records(), wall_s=wall_s, backlog=telemetry.backlog,
+        lag=(bounds, [b - a for a, b in zip(lag[1], lag_after)]), memory=memory, allocated=allocated,
+        gauge_bytes=gauge_bytes, stalls=metric_value("hivemind_event_loop_stalls_total", loop="serving") - stalls,
+        param_bytes=sum(backend.param_bytes() for backend_map in backends.values() for backend in backend_map.values()))
     log(f"[serving] {len(requests) * 2} chained requests ran as {batches} batches "
         f"(of {len(requests) * 2 * 2} block calls: same-length requests share a batch)")
     for mode, backend_map in backends.items():
@@ -1039,17 +1172,27 @@ def phase_small_heads(torch, wrappers: dict) -> dict:
 
 class LocalPipe:
     """``decode_step`` chained over a server's block uids through its
-    DecodeSessionManager (the stand-in for the transport slice's remote pipe);
-    notes each call's wall time and output."""
+    DecodeSessionManager (the stand-in for the transport slice's remote pipe), each
+    block call inside a ``serving.request`` span as the connection handler opens
+    one; notes each call's wall time and output, and the activation bytes its block
+    calls carry to the card and back."""
 
     def __init__(self, manager, uids):
         self.manager, self.uids, self.calls = manager, list(uids), []
+        self.block_calls = self.bytes_in = self.bytes_out = 0
 
     def decode_step(self, hidden, session_id, reset=False):
+        from hivemind_tpu_torch.telemetry import trace
+        from hivemind_tpu_torch.telemetry.serving import SERVING_SPAN
+
         x = hidden.cpu().numpy() if hasattr(hidden, "cpu") else np.asarray(hidden, np.float32)
         started = time.perf_counter()
         for uid in self.uids:
-            x = self.manager.decode(uid, session_id, x, reset)
+            self.bytes_in += np.asarray(x, np.float32).nbytes
+            with trace(SERVING_SPAN, kind="decode", expert=uid, peer="chip_smoke", client=session_id):
+                x = self.manager.decode(uid, session_id, x, reset)
+            self.block_calls += 1
+            self.bytes_out += x.nbytes
         self.calls.append((time.perf_counter() - started, x))
         return x
 
@@ -1070,24 +1213,97 @@ def log_profile(label: str, wall_us: float, device_us: list, top: int = 6) -> No
 
 async def lockstep_rounds(manager, uids, sessions, inputs, rounds: int = DECODE_ROUNDS):
     """``rounds`` rounds in which every session advances one token through every
-    block by ``decode_async``; returns (outputs[session][round], latencies in s,
-    wall time of all rounds in s)."""
-    outputs, latencies = {sid: [] for sid in sessions}, []
+    block by ``decode_async``, under the loop's watchdog; returns
+    (outputs[session][round], latencies in s, wall time of all rounds in s, the
+    live-session gauge right after each round, [activation bytes to the card, back])."""
+    from hivemind_tpu_torch.telemetry import ensure_watchdog
+
+    ensure_watchdog(asyncio.get_running_loop(), name="decode")
+    outputs, latencies, live, moved = {sid: [] for sid in sessions}, [], [], [0, 0]
 
     async def step(sid, x):
         started = time.perf_counter()
         for uid in uids:
+            moved[0] += np.asarray(x, np.float32).nbytes
             x = await manager.decode_async(uid, sid, x, False)
+            moved[1] += x.nbytes
         latencies.append(time.perf_counter() - started)
         outputs[sid].append(x)
 
     started = time.perf_counter()
     for round_index in range(rounds):
         await asyncio.gather(*(step(sid, inputs[sid][round_index]) for sid in sessions))
-    return outputs, latencies, time.perf_counter() - started
+        live.append(metric_value("hivemind_moe_decode_sessions"))
+    return outputs, latencies, time.perf_counter() - started, live, moved
 
 
-def phase_decode(torch, checkpoint_dir: str, wrappers: dict, peaks: dict) -> dict:
+DECODE_COUNTERS = (
+    ("resets", "hivemind_moe_decode_session_resets_total", {}),
+    ("ttl_evictions", "hivemind_moe_decode_session_evictions_total", {"reason": "ttl"}),
+    ("cap_evictions", "hivemind_moe_decode_session_evictions_total", {"reason": "cap"}),
+    ("direct", "hivemind_moe_decode_steps_total", {"path": "direct"}),
+    ("batched", "hivemind_moe_decode_steps_total", {"path": "batched"}),
+    ("host_to_device", "hivemind_device_transfer_bytes_total", {"direction": "host_to_device"}),
+    ("device_to_host", "hivemind_device_transfer_bytes_total", {"direction": "device_to_host"}),
+)
+
+
+def decode_counters() -> dict:
+    return {key: metric_value(name, **labels) for key, name, labels in DECODE_COUNTERS}
+
+
+@contextlib.contextmanager
+def registry_updates_off(counted: list):
+    """Every counter, gauge and histogram update of the port's registry skipped (the
+    values hold still) and counted in ``counted[0]``; the call sites still run up to
+    the update, label lookups included."""
+    from hivemind_tpu_torch.telemetry import registry
+
+    def skipped(self, *args):
+        counted[0] += 1
+
+    saved = registry._Child.inc, registry._Child.dec, registry._Child.set, registry._HistogramChild.observe
+    registry._Child.inc = registry._Child.dec = registry._Child.set = registry._HistogramChild.observe = skipped
+    try:
+        yield
+    finally:
+        registry._Child.inc, registry._Child.dec, registry._Child.set, registry._HistogramChild.observe = saved
+
+
+def labeled_update_us(calls: int = 100_000) -> float:
+    """Host microseconds of one labeled counter update, whole (label lookup, lock, add)."""
+    from hivemind_tpu_torch.telemetry import MetricsRegistry
+
+    counter = MetricsRegistry().counter("hooks_cost_probe", "a labeled counter", ("path",))
+    started = time.perf_counter()
+    for _ in range(calls):
+        counter.inc(path="direct")
+    return (time.perf_counter() - started) / calls * 1e6
+
+
+def hooks_cost(pipe, head, prompt, token) -> dict:
+    """Per-token latency (median, in s) of solo decode steps in each of
+    HOOK_COST_STATES, rotated step by step within one session; the registry updates
+    a step makes (counted while they are off); one labeled update's host cost."""
+    from hivemind_tpu_torch.telemetry import tracing
+
+    pipe.decode_step(head.embed(prompt), "hooks", reset=True)
+    per_step, counted = {state: [] for state in HOOK_COST_STATES}, [0]
+    try:
+        for round_index in range(HOOK_COST_ROUNDS):
+            for state in HOOK_COST_STATES[:: 1 if round_index % 2 == 0 else -1]:
+                tracing.enabled = state == "all"
+                with registry_updates_off(counted) if state == "none" else contextlib.nullcontext():
+                    started = time.perf_counter()
+                    pipe.decode_step(token, "hooks")
+                    per_step[state].append(time.perf_counter() - started)
+    finally:
+        tracing.enabled = True
+    cost = {state: float(np.median(steps)) for state, steps in per_step.items()}
+    return dict(cost, updates_per_step=counted[0] / HOOK_COST_ROUNDS, update_us=labeled_update_us())
+
+
+def phase_decode(torch, checkpoint_dir: str, wrappers: dict, peaks: dict, telemetry: Telemetry) -> dict:
     from hivemind_tpu_torch.moe.server.decode_session import DecodeSessionManager
     from hivemind_tpu_torch.moe.server.llama_loader import (
         LlamaCheckpointConfig,
@@ -1121,17 +1337,30 @@ def phase_decode(torch, checkpoint_dir: str, wrappers: dict, peaks: dict) -> dic
     torch.cuda.synchronize()
     for wrapper in wrappers.values():
         wrapper.launches = 0  # the main path starts here: decode steps only
-    pipes, generated, lockstep = {}, {}, {}
+    pipes, generated, lockstep, decode_readings = {}, {}, {}, {}
     for mode, manager in managers.items():
+        before, telemetry.backlog = decode_counters(), 0
+        bounds, lag = lag_buckets("decode")
+        stalls = metric_value("hivemind_event_loop_stalls_total", loop="decode")
         pipes[mode] = LocalPipe(manager, backends[mode])
         generated[mode] = generate_greedy(head, pipes[mode], prompt, DECODE_NEW, session_id="solo")
         for i, sid in enumerate(sessions):
             pipes[mode].decode_step(head.embed(session_prompts[i]), sid, reset=True)
         lockstep[mode] = asyncio.run(lockstep_rounds(manager, list(backends[mode]), sessions, inputs))
+        after = decode_counters()
+        decode_readings[mode] = dict(
+            deltas={key: after[key] - before[key] for key in after}, live=lockstep[mode][3], blocks=len(backends[mode]),
+            lag=(bounds, [b - a for a, b in zip(lag, lag_buckets("decode")[1])]), backlog=telemetry.backlog,
+            stalls=metric_value("hivemind_event_loop_stalls_total", loop="decode") - stalls,
+            block_calls=pipes[mode].block_calls,
+            lockstep_steps=DECODE_SESSIONS * DECODE_ROUNDS * len(backends[mode]), merged=list(merged[mode]),
+            sessions=1 + DECODE_SESSIONS, tokens=DECODE_NEW + DECODE_SESSIONS * DECODE_ROUNDS,
+            bytes_in=pipes[mode].bytes_in + lockstep[mode][4][0], bytes_out=pipes[mode].bytes_out + lockstep[mode][4][1])
     torch.cuda.synchronize()
     launches = {name: wrapper.launches for name, wrapper in wrappers.items()}
+    telemetry.readings["decode"] = decode_readings
 
-    for mode, manager in managers.items():
+    for mode in managers:
         pipe, ids = pipes[mode], generated[mode]
         param_bytes = sum(backend.param_bytes() for backend in backends[mode].values())
         blocks = len(backends[mode])
@@ -1141,7 +1370,7 @@ def phase_decode(torch, checkpoint_dir: str, wrappers: dict, peaks: dict) -> dic
         # the bytes a step must read: the resident weights and the cache up to its index
         solo_bytes = param_bytes + blocks * kv_bytes_per_position * (DECODE_PROMPT + DECODE_NEW / 2)
         round_bytes = param_bytes + blocks * kv_bytes_per_position * sum(n + DECODE_ROUNDS / 2 for n in DECODE_SESSION_PROMPTS)
-        outputs, latencies, wall_s = lockstep[mode]
+        outputs, latencies, wall_s, _live, _moved = lockstep[mode]
         log(f"[decode] {mode}: prefill [1, {DECODE_PROMPT}, {hid}] through {blocks} blocks {prefill_s * 1e3:.3f} ms; "
             f"solo per-token latency median {np.median(step_s) * 1e3:.3f} ms, p90 {np.percentile(step_s, 90) * 1e3:.3f} ms "
             f"over {len(step_s)} steps; per-token bound {solo_bytes / peaks['bytes'] * 1e3:.4f} ms "
@@ -1198,8 +1427,10 @@ def phase_decode(torch, checkpoint_dir: str, wrappers: dict, peaks: dict) -> dic
                     *profile_call(torch, lambda: pipe.decode_step(token, "profiled")))
         extra = {sid: inputs[sid][:1] for sid in sessions}
         log_profile(f"{mode} lock-step round of {DECODE_SESSIONS} sessions through {blocks} blocks",
-                    *profile_call(torch, lambda: asyncio.run(lockstep_rounds(manager, list(backends[mode]), sessions,
-                                                                              extra, rounds=1))))
+                    *profile_call(torch, lambda: asyncio.run(lockstep_rounds(managers[mode], list(backends[mode]),
+                                                                              sessions, extra, rounds=1))))
+        # the hooks' cost: spans and registry updates, on and off
+        decode_readings[mode]["hooks"] = hooks_cost(pipe, head, prompt, token)
 
     # the prefill and the first step against the CPU plain path
     for mode, quantization in modes.items():
@@ -1217,6 +1448,145 @@ def phase_decode(torch, checkpoint_dir: str, wrappers: dict, peaks: dict) -> dic
     return launches
 
 
+PROMETHEUS_SAMPLE = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})? (\S+)$')
+PROMETHEUS_LABEL = re.compile(r'(\w+)="((?:[^"\\]|\\.)*)"')
+
+
+def parse_prometheus(text: str) -> dict:
+    """{(sample name, labels): value} of a text exposition; raises on a line that does not parse."""
+    samples = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        match = PROMETHEUS_SAMPLE.match(line)
+        if match is None:
+            raise AssertionError(f"/metrics line does not parse: {line!r}")
+        name, labels, value = match.groups()
+        samples[(name, tuple(PROMETHEUS_LABEL.findall(labels or "")))] = float(value)
+    return samples
+
+
+def registry_samples() -> dict:
+    """The same keys as ``parse_prometheus``, read from the registry's series directly
+    (histograms: their count and sum)."""
+    from hivemind_tpu_torch.telemetry import REGISTRY
+
+    samples = {}
+    for metric in REGISTRY.collect():
+        for key, child in metric.series():
+            labels = tuple(zip(metric.labelnames, key))
+            if metric.metric_type == "histogram":
+                _buckets, total, count = child.snapshot()
+                samples[(metric.name + "_count", labels)], samples[(metric.name + "_sum", labels)] = float(count), total
+            else:
+                name = metric.name if metric.metric_type != "counter" or metric.name.endswith("_total") else metric.name + "_total"
+                samples[(name, labels)] = child.value
+    return samples
+
+
+def phase_telemetry(torch, telemetry: Telemetry, exporter_port: int) -> None:
+    """The served path's telemetry after [serving] and [decode], held to exact
+    counts; then where the host time of a request and of a decode step goes."""
+    import urllib.request
+
+    faults = []
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            faults.append(what)
+
+    build = telemetry.readings["build"]
+    expected = {f"build.{name}": 1 for name in build["compiled"]}
+    check({site: n for site, n in build["recorded"].items() if n} == expected,
+          f"[build] recorded compiles {build['recorded']}, expected one per library it compiled {expected}")
+    check(metric_total("hivemind_device_compiles_total") == len(build["compiled"]),
+          f"hivemind_device_compiles_total {metric_total('hivemind_device_compiles_total')} != "
+          f"{len(build['compiled'])} libraries compiled")
+
+    serving = telemetry.readings["serving"]
+    deltas, pools, requests = serving["deltas"], serving["pools"], serving["requests"]
+    batches = sum(deltas[f"hivemind_moe_batches_total:{pool}"] for pool in pools)
+    check(batches == serving["batches"] == serving["formed"],
+          f"batches: counted {batches}, runtime {serving['batches']}, formed {serving['formed']}")
+    samples = {pool: deltas[f"hivemind_moe_samples_total:{pool}"] for pool in pools}
+    check(all(n == requests for n in samples.values()), f"samples per pool {samples}, submitted {requests} each")
+    waits = sum(deltas[f"hivemind_moe_queue_wait_seconds:{pool}"] for pool in pools)
+    check(waits == requests * len(pools), f"queue waits observed {waits}, tasks {requests * len(pools)}")
+    moved = (deltas["host_to_device"], deltas["device_to_host"])
+    check(moved == (serving["bytes_in"], serving["bytes_out"]),
+          f"serving transfers {moved}, the batches carried {(serving['bytes_in'], serving['bytes_out'])}")
+    records = serving["records"]
+    check(len(records) == requests * len(pools), f"{len(records)} serving records, {requests * len(pools)} requests")
+    unsound = [r for r in records if not (r.get("compute_s", 0.0) > 0 and r.get("queue_wait_s", 0.0) + r.get("assembly_s", 0.0)
+                                         + r.get("compute_s", 0.0) <= r["total_s"] + PHASE_ROUNDING_S)]
+    check(not unsound, f"records whose phases exceed the span or carry no compute: {unsound[:2]}")
+    memory = serving["memory"] or {}
+    check(serving["gauge_bytes"] == serving["allocated"] == memory.get("devices", {}).get("cuda:0", {}).get("bytes")
+          and serving["allocated"] >= serving["param_bytes"],
+          f"memory gauge {serving['gauge_bytes']}, allocated {serving['allocated']}, sample {memory}, "
+          f"resident parameters {serving['param_bytes']}")
+
+    for mode, reading in telemetry.readings["decode"].items():
+        deltas, blocks = reading["deltas"], reading["blocks"]
+        check(reading["live"] and set(reading["live"]) == {reading["sessions"] * blocks},
+              f"{mode}: live-session gauge during the lock-step {reading['live']}, expected the server's "
+              f"{reading['sessions']} sessions (solo and {DECODE_SESSIONS} lock-step) x {blocks} blocks")
+        merged = sum(reading["merged"])
+        direct = reading["block_calls"] + reading["lockstep_steps"] - merged
+        check((deltas["batched"], deltas["direct"]) == (merged, direct),
+              f"{mode}: steps batched/direct {deltas['batched']}/{deltas['direct']}, made {merged}/{direct}")
+        check(deltas["ttl_evictions"] == deltas["cap_evictions"] == 0, f"{mode}: evictions {deltas}")
+        check(deltas["resets"] == reading["sessions"] * blocks,
+              f"{mode}: resets {deltas['resets']}, sessions opened {reading['sessions']} x {blocks} blocks")
+        moved = (deltas["host_to_device"], deltas["device_to_host"])
+        check(moved == (reading["bytes_in"], reading["bytes_out"]),
+              f"{mode}: decode transfers {moved}, the steps carried {(reading['bytes_in'], reading['bytes_out'])}")
+
+    time.sleep(0.1)  # the watchdogs of the closed loops have stopped: the registry holds still
+    scraped = parse_prometheus(urllib.request.urlopen(f"http://127.0.0.1:{exporter_port}/metrics", timeout=30).read().decode())
+    direct_read = registry_samples()
+    check(all(key in scraped for key in direct_read) and all(scraped[key] == value for key, value in direct_read.items()),
+          f"/metrics differs from the registry at {[key for key in direct_read if scraped.get(key) != direct_read[key]][:4]}")
+    log(f"[telemetry] /metrics over HTTP: {len(scraped)} samples parsed, {len(direct_read)} read back from the registry")
+
+    for mode in ("fp", "int8"):
+        mine = [r for r in records if r["expert"].startswith(f"{mode}:")]
+        phases = {field: [r.get(field, 0.0) for r in mine] for field in ("queue_wait_s", "assembly_s", "compute_s", "total_s")}
+        log(f"[telemetry] serving {mode}: {len(mine)} block requests, median / p90: queue wait "
+            f"{median_p90(phases['queue_wait_s'])}, batch assembly {median_p90(phases['assembly_s'])}, device compute "
+            f"{median_p90(phases['compute_s'])}, request wall {median_p90(phases['total_s'])}; phases "
+            f"{sum(map(sum, (phases[f] for f in ('queue_wait_s', 'assembly_s', 'compute_s')))) / sum(phases['total_s']):.1%}"
+            f" of the requests' wall")
+    bounds, lag = serving["lag"]
+    moved = serving["deltas"]["host_to_device"] + serving["deltas"]["device_to_host"]
+    log(f"[telemetry] serving: runtime busy {serving['deltas']['latency_sum'] / serving['wall_s']:.1%} of the run's "
+        f"{serving['wall_s']:.3f} s (batch latency sum over wall; all requests submitted at once); loop lag "
+        f"p50 {bucket_quantile(bounds, lag, 0.5)}, p99 {bucket_quantile(bounds, lag, 0.99)} over {lag[-1]} heartbeats, "
+        f"{serving['stalls']:.0f} stalls; largest executor backlog {serving['backlog']}; host<->device "
+        f"{moved:.0f} B: {moved / (requests * len(pools)):.0f} B per block request, "
+        f"{moved / (serving['tokens'] * len(pools)):.0f} B per token and block; memory {serving['allocated']} B allocated, "
+        f"{serving['param_bytes']} B resident parameters")
+    for mode, reading in telemetry.readings["decode"].items():
+        deltas, (bounds, lag), hooks = reading["deltas"], reading["lag"], reading.get("hooks", {})
+        moved = deltas["host_to_device"] + deltas["device_to_host"]
+        cost = ""
+        if hooks:
+            cost = (f"; hooks: solo per-token median with every hook {hooks['all'] * 1e3:.4f} ms, spans off "
+                    f"{hooks['metrics'] * 1e3:.4f} ms, spans and registry updates off {hooks['none'] * 1e3:.4f} ms "
+                    f"(spans {(hooks['all'] - hooks['metrics']) * 1e3:+.4f} ms, registry updates "
+                    f"{(hooks['metrics'] - hooks['none']) * 1e3:+.4f} ms; {HOOK_COST_ROUNDS} steps each, rotated); "
+                    f"{hooks['updates_per_step']:g} registry updates a step x {hooks['update_us']:.3f} us per labeled "
+                    f"update timed alone = {hooks['updates_per_step'] * hooks['update_us']:.1f} us a step")
+        log(f"[telemetry] decode {mode}: steps direct {deltas['direct']:.0f} / batched {deltas['batched']:.0f} "
+            f"(block calls), live sessions in the lock-step {sorted(set(reading['live']))} ({reading['sessions']} x "
+            f"{reading['blocks']} blocks), resets {deltas['resets']:.0f}, evictions 0; lock-step loop lag p50 "
+            f"{bucket_quantile(bounds, lag, 0.5)}, p99 {bucket_quantile(bounds, lag, 0.99)} over {lag[-1]} heartbeats, "
+            f"{reading['stalls']:.0f} stalls; largest executor backlog {reading['backlog']}; host<->device {moved:.0f} B, "
+            f"{moved / reading['tokens']:.0f} B per generated token (prefills included){cost}")
+    if faults:
+        raise AssertionError("; ".join(faults))
+
+
 def main() -> int:
     try:
         import torch
@@ -1226,8 +1596,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this smoke test runs only on the card", file=sys.stderr)
         return 2
+    # read when the telemetry package is imported, so set before the first import
+    os.environ.setdefault("HIVEMIND_WATCHDOG_INTERVAL_S", WATCHDOG_INTERVAL_S)
     try:
         from hivemind_tpu_torch.ops import blockwise_int8, flash_attention
+        from hivemind_tpu_torch.telemetry import MetricsExporter, arm_device_telemetry
+        from hivemind_tpu_torch.telemetry.watchdog import add_tick_sampler
     except ImportError as e:
         print(f"chip_smoke: cannot import the hivemind_tpu_torch package beside this script: {e}", file=sys.stderr)
         return 2
@@ -1256,6 +1630,12 @@ def main() -> int:
     peaks = card_peaks(name)
     entries, path_launches, failures = {}, {}, []
     checkpoint = tempfile.TemporaryDirectory(prefix="llama2_7b_width_")
+    # telemetry as a serving process arms it: the memory sampler on the watchdog tick,
+    # a /metrics exporter; and the largest executor backlog on each tick
+    telemetry = Telemetry()
+    arm_device_telemetry()
+    add_tick_sampler(telemetry.sample_backlog)
+    exporter = MetricsExporter(port=0, host="127.0.0.1")
 
     def run(phase: str, fn, *args):
         started = time.perf_counter()
@@ -1268,19 +1648,21 @@ def main() -> int:
             log(f"[time] {phase}: {time.perf_counter() - started:.1f} s")
 
     try:
-        run("build", phase_build, torch)
+        run("build", phase_build, torch, telemetry)
         entries["flash_attention_forward"] = run("flash", phase_flash, torch, peaks)
         entries["blockwise_int8_quantize"], entries["blockwise_int8_dequantize"] = (
             run("quantize", phase_quantization, torch, peaks) or (None, None))
         entries.update(run("flash_bwd", phase_flash_bwd, torch, peaks) or {})
         run("checkpoint", write_checkpoint, Path(checkpoint.name), LLAMA2_7B, SEED + 3)
-        path_launches["serving"] = run("serving", phase_serving, torch, checkpoint.name, wrappers)
+        path_launches["serving"] = run("serving", phase_serving, torch, checkpoint.name, wrappers, telemetry)
         path_launches["head_dim32"] = run("head_dim32", phase_small_heads, torch, wrappers)
-        path_launches["decode"] = run("decode", phase_decode, torch, checkpoint.name, wrappers, peaks)
+        path_launches["decode"] = run("decode", phase_decode, torch, checkpoint.name, wrappers, peaks, telemetry)
+        run("telemetry", phase_telemetry, torch, telemetry, exporter.port)
         path_launches["expert_backward"] = run("expert_backward", phase_expert_backward, torch, checkpoint.name, wrappers)
         path_launches["train"] = run("train", phase_train, torch, peaks, wrappers)
     finally:
         checkpoint.cleanup()
+        exporter.shutdown()
 
     for path, kernels in path_kernels.items():
         counts = path_launches.get(path)

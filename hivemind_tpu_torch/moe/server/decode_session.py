@@ -20,9 +20,16 @@ no session holds a view of the stack.
 What the JAX package does and this module does not: it buckets prefill lengths
 and merged batch sizes to powers of two, padding with dummy rows, only to bound
 its jit cache. Eager PyTorch keeps no compile cache, so every call runs at its
-own size; the outputs of real rows are the same (prefill is causal). The
-session gauges and counters, ``record_transfer`` and ``tracked_jit`` come with
-the telemetry slice, and ``shard_decode_cache`` with the multi-GPU one.
+own size; the outputs of real rows are the same (prefill is causal). There is
+no ``tracked_jit`` (no jit), and ``shard_decode_cache`` comes with the
+multi-GPU slice.
+
+Telemetry, under the JAX package's metric names: the live-session and occupancy
+gauges, evictions by reason (``ttl``/``cap``), resets, steps by path
+(``direct``: one session's call; ``batched``: merged into one call with
+others), and the activation bytes each step copies to and from the device
+(``record_transfer``; the caches stay on the device). Steps run on the shared
+executor of ``utils/asyncio_utils.py``, whose backlog the watchdog samples.
 
 Weights: a step holds the backend's ``_state_lock`` while it reads the
 parameters, since ``ModuleBackend.backward`` updates them in place; int8
@@ -43,10 +50,37 @@ import numpy as np
 import torch
 
 from hivemind_tpu_torch.ops.quantized_params import dequantize_tree
-from hivemind_tpu_torch.utils.asyncio_utils import spawn
+from hivemind_tpu_torch.telemetry import REGISTRY as _TELEMETRY
+from hivemind_tpu_torch.telemetry.device import record_transfer
+from hivemind_tpu_torch.utils.asyncio_utils import run_in_executor, spawn
 from hivemind_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
+
+# the session table is the serving peer's scarcest resource: each session pins
+# device cache memory
+_SESSIONS = _TELEMETRY.gauge(
+    "hivemind_moe_decode_sessions", "live KV-cache decode sessions on this server"
+)
+_SESSION_OCCUPANCY = _TELEMETRY.gauge(
+    "hivemind_moe_decode_session_occupancy",
+    "live decode sessions / max_sessions (1.0 = the LRU cap is about to evict)",
+)
+_EVICTIONS = _TELEMETRY.counter(
+    "hivemind_moe_decode_session_evictions_total",
+    "decode sessions evicted, by reason (ttl = idle expiry, cap = LRU over max_sessions)",
+    ("reason",),
+)
+_RESETS = _TELEMETRY.counter(
+    "hivemind_moe_decode_session_resets_total",
+    "decode sessions created or re-prefilled via reset=True",
+)
+_STEPS = _TELEMETRY.counter(
+    "hivemind_moe_decode_steps_total",
+    "decode session steps served, by path (direct = per-session call, "
+    "batched = merged into one continuous-batch call)",
+    ("path",),
+)
 
 
 class _Session:
@@ -102,11 +136,19 @@ class DecodeSessionManager:
         expired = [key for key, s in self._sessions.items() if now - s.last_used > self.session_ttl and id(s) not in pinned]
         for key in expired:
             del self._sessions[key]
+        if expired:
+            _EVICTIONS.inc(len(expired), reason="ttl")
         evictable = [key for key in self._sessions if id(self._sessions[key]) not in pinned]
         while len(self._sessions) > self.max_sessions and evictable:
             oldest = min(evictable, key=lambda key: self._sessions[key].last_used)
             evictable.remove(oldest)
             del self._sessions[oldest]
+            _EVICTIONS.inc(reason="cap")
+        self._sample_gauges_locked()
+
+    def _sample_gauges_locked(self) -> None:
+        _SESSIONS.set(len(self._sessions))
+        _SESSION_OCCUPANCY.set(round(len(self._sessions) / max(self.max_sessions, 1), 4))
 
     def _step(self, uid: str, x: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor, index):
         """One block call on the current weights (the caller holds inference mode):
@@ -144,6 +186,8 @@ class DecodeSessionManager:
                 with torch.inference_mode():
                     caches = backend.module.init_decode_cache(batch, self.max_len, backend.device)
                 session = self._sessions[key] = _Session(*caches)
+                _RESETS.inc()
+                self._sample_gauges_locked()
             elif session is None:
                 # never prefill a continuation silently: its output would be garbage
                 raise _unknown_session(uid, session_id)
@@ -157,10 +201,13 @@ class DecodeSessionManager:
                 raise ValueError(f"session {session_id!r} is full ({session.index}/{self.max_len})")
             if session.cache_k.shape[0] != batch:
                 raise ValueError(f"session {session_id!r} batch is {session.cache_k.shape[0]}, got {batch}")
+            record_transfer(x.nbytes, "host_to_device")
             with torch.inference_mode():
                 y, session.cache_k, session.cache_v = self._step(
                     uid, backend._to_device(x), session.cache_k, session.cache_v, session.index)
                 out = y.to("cpu").numpy()
+            record_transfer(out.nbytes, "device_to_host")
+            _STEPS.inc(path="direct")
             session.index += new_len
             # stamped again after the step: a long prefill must not make the session
             # look idle to _concurrent_sessions the moment it returns
@@ -182,7 +229,7 @@ class DecodeSessionManager:
         if not batchable:
             # a lone decoding stream has nothing to merge: the flush window would
             # only add latency (same-session order is kept by the session lock)
-            return await loop.run_in_executor(None, self.decode, uid, session_id, x, reset)
+            return await run_in_executor(self.decode, uid, session_id, x, reset)
 
         future = loop.create_future()
         with self._lock:
@@ -207,7 +254,6 @@ class DecodeSessionManager:
         return recent > 1
 
     async def _drain(self, uid: str) -> None:
-        loop = asyncio.get_running_loop()
         try:
             with self._lock:
                 window = self.flush_window if self._concurrent_sessions(uid) else 0.0
@@ -239,7 +285,7 @@ class DecodeSessionManager:
                 batch_entries.append(entry)
         try:
             try:
-                results = await loop.run_in_executor(None, self._decode_batch, uid, batch_entries)
+                results = await run_in_executor(self._decode_batch, uid, batch_entries)
             except Exception as e:
                 results = [e] * len(batch_entries)
             for (future, _session, _x), result in zip(batch_entries, results):
@@ -298,8 +344,10 @@ class DecodeSessionManager:
             if not live:
                 return results
             sessions = [entries[i][1] for i in live]
+            host_x = np.concatenate([entries[i][2] for i in live])
+            record_transfer(host_x.nbytes, "host_to_device")
             with torch.inference_mode():
-                x = backend._to_device(np.concatenate([entries[i][2] for i in live]))
+                x = backend._to_device(host_x)
                 if len(live) == 1:
                     # one stream: the per-session step, without stacking its caches
                     [session] = sessions
@@ -316,6 +364,9 @@ class DecodeSessionManager:
                         session.cache_k[0, session.index] = cache_k[row, session.index]
                         session.cache_v[0, session.index] = cache_v[row, session.index]
                 y = y.to("cpu").numpy()
+            record_transfer(y.nbytes, "device_to_host")
+            # one session alone is a direct step: nothing was merged
+            _STEPS.inc(len(live), path="direct" if len(live) == 1 else "batched")
             now = time.monotonic()
             for row, (i, session) in enumerate(zip(live, sessions)):
                 session.index += 1

@@ -19,6 +19,10 @@ second copy of its weights. ``forward`` and ``backward`` both hold
 tensor while a step rewrites it (the ``Runtime`` thread runs one batch at a time
 anyway; the lock covers callers outside it). Every kernel is queued on the same
 stream, so work queued before a step runs before it on the card too.
+
+Telemetry: ``forward`` and ``backward`` count the bytes they copy between host
+and device in ``hivemind_device_transfer_bytes_total``: the unpadded batch, as
+the port sends it (the JAX backend counts its padded bucket).
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from hivemind_tpu_torch.ops.quantized_params import (
     quantize_params,
     tree_param_bytes,
 )
+from hivemind_tpu_torch.telemetry.device import record_transfer
 from hivemind_tpu_torch.utils.device import resolve_device
 from hivemind_tpu_torch.utils.tensor_descr import BatchTensorDescriptor
 
@@ -47,6 +52,11 @@ def bucket_batch_size(n: int, max_batch_size: int) -> int:
     while bucket < n:
         bucket *= 2
     return min(bucket, max(max_batch_size, n))
+
+
+def tensor_nbytes(tensor: torch.Tensor) -> int:
+    """Bytes of a tensor's elements, read from its metadata (no device sync)."""
+    return tensor.numel() * tensor.element_size()
 
 
 def _as_tuple(value) -> tuple:
@@ -159,9 +169,12 @@ class ModuleBackend:
     def forward(self, x: np.ndarray) -> List[np.ndarray]:
         """Inference on a concatenated batch (no parameter updates)."""
         x = self._to_device(x)
+        record_transfer(tensor_nbytes(x), "host_to_device")
         with self._state_lock, torch.inference_mode():
             outs = _as_tuple(torch.func.functional_call(self.module, dequantize_tree(self.params), (x,)))
-            return [out.to("cpu").numpy() for out in outs]
+            results = [out.to("cpu").numpy() for out in outs]
+        record_transfer(sum(r.nbytes for r in results), "device_to_host")
+        return results
 
     def backward(self, *tensors: np.ndarray) -> List[np.ndarray]:
         """Gradients with respect to the input; ALSO applies one optimizer step to
@@ -177,6 +190,7 @@ class ModuleBackend:
                              f"gradient(s), got {len(tensors)} tensors")
         x = self._to_device(tensors[0]).requires_grad_(True)
         grad_outputs = [self._to_device(g) for g in tensors[1:]]
+        record_transfer(tensor_nbytes(x) + sum(tensor_nbytes(g) for g in grad_outputs), "host_to_device")
         with self._state_lock, torch.enable_grad():
             leaves = {key: tensor.detach().requires_grad_(True) for key, tensor in self.params.items()}
             outs = _as_tuple(torch.func.functional_call(self.module, leaves, (x,)))
@@ -189,7 +203,9 @@ class ModuleBackend:
             self.optimizer.step()
             self.optimizer.zero_grad(set_to_none=True)
             self.update_count += 1
-            return [grads[0].to("cpu").numpy()]
+            grad_x = grads[0].to("cpu").numpy()
+        record_transfer(grad_x.nbytes, "device_to_host")
+        return [grad_x]
 
     # ------------------------------------------------------------------ metadata
 

@@ -1,17 +1,24 @@
 """Batching queues between request handlers and the device runtime (the port of
-hivemind_tpu/moe/server/task_pool.py; its telemetry hooks come with the telemetry
-slice).
+hivemind_tpu/moe/server/task_pool.py).
 
 The queue is BOUNDED: past ``max_queue_size`` waiting tasks a submit is shed with
-a typed :class:`ServerOverloadedError`. A batch merges consecutive tasks whose
-inputs share trailing shapes (requests of different sequence lengths run as
-separate batches, where the JAX pool would have failed the merged batch) and is
-assembled into reused buffers; outputs are checked to cover the batch before they
-are split per task."""
+a typed :class:`ServerOverloadedError` (counted in ``hivemind_moe_shed_total``).
+A batch merges consecutive tasks whose inputs share trailing shapes (requests of
+different sequence lengths run as separate batches, where the JAX pool would
+have failed the merged batch) and is assembled into reused buffers; outputs are
+checked to cover the batch before they are split per task.
+
+Telemetry, under the JAX package's metric names: queue depth and oldest-task age
+are gauged on submit AND drain; each task is stamped with its queue-wait /
+batch-assembly / device-compute phases, which ``submit_task`` accrues onto the
+caller's active ``serving.request`` span for the ServingLedger; every batch
+observes the occupancy it ran at (samples ÷ max_batch_size)."""
 
 from __future__ import annotations
 
 import asyncio
+import time
+import weakref
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable, Deque, List, Optional, Sequence, Tuple
@@ -19,7 +26,40 @@ from typing import Callable, Deque, List, Optional, Sequence, Tuple
 import numpy as np
 
 from hivemind_tpu_torch.moe.server.module_backend import bucket_batch_size
+from hivemind_tpu_torch.telemetry import REGISTRY as _TELEMETRY
+from hivemind_tpu_torch.telemetry.serving import accrue_span_phase
+from hivemind_tpu_torch.telemetry.tracing import current_span
 from hivemind_tpu_torch.utils.timed_storage import get_dht_time
+
+# sampled on the submit/drain path, so the queue is visible while it GROWS, not
+# only after a drain happens to run
+_QUEUE_DEPTH = _TELEMETRY.gauge(
+    "hivemind_moe_pool_queue_depth", "tasks waiting in a pool (sampled on submit and drain)",
+    ("pool",),
+)
+_QUEUE_AGE = _TELEMETRY.gauge(
+    "hivemind_moe_queue_age_seconds", "age of the oldest task waiting in a pool", ("pool",)
+)
+_QUEUE_WAIT = _TELEMETRY.histogram(
+    "hivemind_moe_queue_wait_seconds", "submit-to-drain wait of one task", ("pool",)
+)
+_SHEDS = _TELEMETRY.counter(
+    "hivemind_moe_shed_total",
+    "tasks shed because the pool's bounded queue was full (ServerOverloadedError)",
+    ("pool",),
+)
+_OCCUPANCY = _TELEMETRY.histogram(
+    "hivemind_moe_batch_occupancy",
+    "samples per device batch / max_batch_size (1.0 = the batch dimension is full)",
+    ("pool",),
+    buckets=(0.05, 0.1, 0.25, 0.5, 0.75, 0.9, 1.0),
+)
+_CANCELLED_SKIPPED = _TELEMETRY.counter(
+    "hivemind_moe_pool_cancelled_skipped_total",
+    "queued tasks dropped at drain time because their caller already gave up "
+    "(hedge loser cancelled through the mux, abandoned deadline) — compute saved",
+    ("pool",),
+)
 
 
 class ServerOverloadedError(RuntimeError):
@@ -27,11 +67,31 @@ class ServerOverloadedError(RuntimeError):
     back off (the expert's circuit breaker counts sheds as failures)."""
 
 
+# every live pool, so read-time consumers (the serving ledger's saturation view)
+# can refresh the gauges on demand: during a FULL stall nothing submits or
+# drains, and event-driven sampling alone would freeze the age gauge
+_LIVE_POOLS: "weakref.WeakSet[TaskPool]" = weakref.WeakSet()
+
+
+def sample_all_pool_gauges() -> None:
+    """Refresh depth/age gauges for every live pool (thread-safe best effort)."""
+    for pool in list(_LIVE_POOLS):
+        pool._sample_gauges()
+
+
 @dataclass
 class _Task:
     args: Tuple[np.ndarray, ...]
     future: asyncio.Future
     timestamp: float = field(default_factory=get_dht_time)
+    # phase stamps (perf_counter): queue-wait is submitted -> popped; assembly,
+    # compute and occupancy are shared by the tasks of one device batch. Set on
+    # the executor thread, read by submit_task on the loop thread after the result.
+    submitted_pc: float = field(default_factory=time.perf_counter)
+    popped_pc: Optional[float] = None
+    assembly_s: Optional[float] = None
+    compute_s: Optional[float] = None
+    occupancy: Optional[float] = None
 
     @property
     def batch_size(self) -> int:
@@ -62,11 +122,28 @@ class TaskPool:
         # reused batch-assembly buffers, keyed (arg index, bucket, trailing shape, dtype)
         self._batch_buffers: dict = {}
         self._task_added: Optional[asyncio.Event] = None
+        # cached metric children (pool names are stable for the pool's lifetime)
+        self._depth_gauge = _QUEUE_DEPTH.labels(name)
+        self._age_gauge = _QUEUE_AGE.labels(name)
+        self._wait_histogram = _QUEUE_WAIT.labels(name)
+        self._shed_counter = _SHEDS.labels(name)
+        self._occupancy_histogram = _OCCUPANCY.labels(name)
+        self._cancelled_counter = _CANCELLED_SKIPPED.labels(name)
+        _LIVE_POOLS.add(self)
 
     def _event(self) -> asyncio.Event:
         if self._task_added is None:
             self._task_added = asyncio.Event()
         return self._task_added
+
+    def _sample_gauges(self) -> None:
+        self._depth_gauge.set(len(self._queue))
+        try:
+            # may run off-loop (sample_all_pool_gauges): guard the popleft race
+            oldest = self._queue[0].timestamp
+        except IndexError:
+            oldest = None
+        self._age_gauge.set(max(get_dht_time() - oldest, 0.0) if oldest is not None else 0.0)
 
     async def submit_task(self, *args: np.ndarray) -> Sequence[np.ndarray]:
         """Enqueue one task; resolves with its slice of the batched output.
@@ -75,14 +152,37 @@ class TaskPool:
         if batch_size > self.max_batch_size:
             raise ValueError(f"task of {batch_size} items exceeds max_batch_size={self.max_batch_size}")
         if len(self._queue) >= self.max_queue_size:
+            self._shed_counter.inc()
+            self._sample_gauges()
             raise ServerOverloadedError(
                 f"pool {self.name!r} is overloaded: {len(self._queue)} tasks queued "
                 f"(max_queue_size={self.max_queue_size}); request shed"
             )
         task = _Task(tuple(np.asarray(a) for a in args), asyncio.get_running_loop().create_future())
         self._queue.append(task)
+        self._sample_gauges()
         self._event().set()
-        return await task.future
+        outputs = await task.future
+        # phase attribution onto the caller's serving.request span (on the loop
+        # thread: the span is the caller's contextvar, never the executor's)
+        if task.popped_pc is not None:
+            queue_wait = max(task.popped_pc - task.submitted_pc, 0.0)
+            self._wait_histogram.observe(queue_wait)
+            accrue_span_phase("queue_wait_s", queue_wait)
+        if task.assembly_s is not None:
+            accrue_span_phase("assembly_s", task.assembly_s)
+        if task.compute_s is not None:
+            accrue_span_phase("compute_s", task.compute_s)
+        if task.occupancy is not None:
+            span = current_span()
+            if span is not None:
+                # a chain of pools accumulates phases, but occupancy and pool keep
+                # the WORST-occupancy hop: the under-filled batch is the lever
+                previous = (span.attributes or {}).get("occupancy")
+                if previous is None or task.occupancy < float(previous):
+                    span.set("occupancy", task.occupancy)
+                    span.set("pool", self.name)
+        return outputs
 
     @property
     def priority(self) -> float:
@@ -94,15 +194,19 @@ class TaskPool:
         share the first live task's trailing shapes. Tasks whose future is already
         done (the caller gave up) are dropped instead of burning a batch slot."""
         batch, total = [], 0
+        popped_at = time.perf_counter()
         while self._queue and total + self._queue[0].batch_size <= self.max_batch_size:
             head = self._queue[0]
             if head.future.done():
                 self._queue.popleft()
+                self._cancelled_counter.inc()
                 continue
             if batch and head.trailing_shapes != batch[0].trailing_shapes:
                 break
+            head.popped_pc = popped_at
             batch.append(self._queue.popleft())
             total += head.batch_size
+        self._sample_gauges()
         if self._task_added is not None and not self._queue:
             self._task_added.clear()
         return batch
@@ -129,6 +233,7 @@ class TaskPool:
         """Run process_func on the assembled batch; split outputs per task.
         Called from the Runtime's executor thread."""
         num_args = len(tasks[0].args)
+        assembly_start = time.perf_counter()
         total = sum(t.batch_size for t in tasks)
         if len(tasks) == 1:
             joined: List[np.ndarray] = list(tasks[0].args)  # zero copies for one task
@@ -142,7 +247,9 @@ class TaskPool:
                     buffer[offset : offset + task.batch_size] = task.args[i]
                     offset += task.batch_size
                 joined.append(buffer[:total])  # eager PyTorch: no need to compute padding rows
+        compute_start = time.perf_counter()
         outputs = self.process_func(*joined)
+        compute_end = time.perf_counter()
         if isinstance(outputs, np.ndarray):
             outputs = [outputs]
         # a process_func returning the wrong leading dim would mis-slice per-task
@@ -156,9 +263,14 @@ class TaskPool:
                     f"{out_len} but the batch holds {total} samples ({len(tasks)} tasks) "
                     f"— refusing to mis-slice per-task outputs"
                 )
+        occupancy = round(total / max(self.max_batch_size, 1), 4)
+        self._occupancy_histogram.observe(occupancy)
         offset = 0
         for task in tasks:
             size = task.batch_size
+            task.assembly_s = compute_start - assembly_start
+            task.compute_s = compute_end - compute_start
+            task.occupancy = occupancy
             task_out = [np.asarray(out[offset : offset + size]) for out in outputs]
             offset += size
             task.future.get_loop().call_soon_threadsafe(

@@ -9,6 +9,10 @@ Libraries land in ``build/hivemind_tpu_torch/`` beside the package, named by a
 hash of the sources and flags, so an edited kernel is rebuilt and an unchanged
 one is reused. ``nvcc`` is looked up on ``PATH``, then under ``$CUDA_HOME/bin``
 (default ``/usr/local/cuda``, as ``torch.utils.cpp_extension`` assumes).
+
+Each build is the port's compile event: it is recorded on the device telemetry's
+compile tracker under the site ``build.<source>`` with its wall seconds. A
+library loaded from the build cache is not a compile.
 """
 
 from __future__ import annotations
@@ -20,8 +24,11 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 from typing import Dict
+
+from hivemind_tpu_torch.telemetry.device import COMPILE_TRACKER
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "hivemind_tpu_torch"
@@ -71,6 +78,7 @@ class _Build:
         fd, self.tmp = tempfile.mkstemp(prefix=f".{target.name}.", dir=target.parent)
         os.close(fd)
         cmd = [find_nvcc(), *NVCC_FLAGS, "-o", self.tmp, str(CSRC / f"{name}.cu")]
+        self.started = time.perf_counter()
         self.proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
     def finish(self) -> None:
@@ -80,6 +88,8 @@ class _Build:
             os.unlink(self.tmp)
             raise RuntimeError(f"nvcc failed to build {self.name} (exit {self.proc.returncode}):\n{log}")
         os.replace(self.tmp, self.target)
+        COMPILE_TRACKER.record_compile(f"build.{self.name}", duration_s=time.perf_counter() - self.started,
+                                       signature=self.target.name)
 
 
 def build_all() -> Dict[str, Path]:

@@ -20,9 +20,11 @@ from hivemind_tpu_torch.utils.tensor_descr import BatchTensorDescriptor
 REPO = Path(__file__).resolve().parent.parent
 PACKAGE = REPO / "hivemind_tpu_torch"
 
-# the wire layer needs msgpack and protobuf, which the card's machine lacks; every
-# other module of the port (the card's path) and chip_smoke.py load neither
-WIRE_MODULES = ("hivemind_tpu_torch.compression", "hivemind_tpu_torch.proto", "hivemind_tpu_torch.utils.serializer")
+# the wire layer and the black-box spool (msgpack frames) need msgpack or protobuf,
+# which the card's machine lacks; every other module of the port (the card's path,
+# telemetry and resilience included) and chip_smoke.py load neither
+WIRE_MODULES = ("hivemind_tpu_torch.compression", "hivemind_tpu_torch.proto", "hivemind_tpu_torch.utils.serializer",
+                "hivemind_tpu_torch.telemetry.blackbox")
 
 _ISOLATION_PROBE = """
 import importlib, importlib.util, pathlib, sys
@@ -40,12 +42,17 @@ modules = sorted(".".join(("hivemind_tpu_torch",) + path.relative_to(root).with_
 for name in modules:
     if not name.startswith(WIRE):
         importlib.import_module(name)
-assert "hivemind_tpu_torch.moe.server.decode_session" in sys.modules
+for name in ("hivemind_tpu_torch.moe.server.decode_session", "hivemind_tpu_torch.telemetry.device",
+             "hivemind_tpu_torch.telemetry.monitor", "hivemind_tpu_torch.resilience.chaos",
+             "hivemind_tpu_torch.utils.profiling"):
+    assert name in sys.modules, name
+assert "hivemind_tpu_torch.telemetry.blackbox" not in sys.modules
 wire_leaked = sorted(name for name in sys.modules if name.split(".")[0] == "msgpack" or name.startswith("google.protobuf"))
 assert not wire_leaked, wire_leaked
 for name in modules:
     importlib.import_module(name)
 assert "msgpack" in sys.modules and "google.protobuf" in sys.modules
+assert "hivemind_tpu_torch.telemetry.blackbox" in sys.modules
 leaked = sorted(name for name in sys.modules
                 if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "hivemind_tpu", "ml_dtypes"))
 assert not leaked, leaked
@@ -102,6 +109,17 @@ def test_package_sources_never_name_the_jax_stack():
     offenders = [str(path.relative_to(REPO)) for path in card_path if re.search("^" + wire, path.read_text(), re.MULTILINE)]
     assert not offenders, offenders
     assert not re.search(r"^\s*" + wire, (REPO / "chip_smoke.py").read_text(), re.MULTILINE)
+
+
+def test_no_source_names_a_jax_package_module_as_a_string():
+    """A copied module that looks a JAX-package module up by name (``sys.modules``
+    lookups of executors and pools) silently reads nothing: every such name in
+    the port and chip_smoke.py must be a ``hivemind_tpu_torch`` one."""
+    sources = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert {"telemetry", "resilience"} <= {path.relative_to(PACKAGE).parts[0] for path in sources[:-1]}
+    offenders = [str(path.relative_to(REPO)) for path in sources
+                 if re.search(r"""["']hivemind_tpu\.""", path.read_text())]
+    assert not offenders, offenders
 
 
 @pytest.mark.parametrize(
