@@ -1,18 +1,23 @@
 #!/usr/bin/env python3
 """On-card smoke test of hivemind_tpu_torch: builds the port's Hopper kernels,
 holds each against its plain PyTorch version at the shapes of the paths that run
-it, then drives four paths and checks each against the CPU:
+it, then drives five paths and checks each against the CPU or the local path:
 - serving: two Llama-2-7B-width blocks (fp and int8 weight-only) through
   load_llama_blocks → ModuleBackend → TaskPool/Runtime, and an expert of
   head_dim 32, which the flash kernel does not take, through ModuleBackend;
 - decode: greedy generation and continuous batching of single-token steps through
   DecodeSessionManager's KV-cache sessions on the same blocks;
+- remote: the same blocks served over the wire, in this process over loopback TCP
+  (P2P → ConnectionHandler → TaskPool/Runtime and DecodeSessionManager, a
+  RemoteExpert per block as the client): forward, decode and autograd backward,
+  against the local path;
 - expert training: ModuleBackend.backward (one SGD step) on a Llama-2-7B-width block;
 - ALBERT-base MLM training: make_train_step with AdamW at batch 32 × seq 512.
 Telemetry rides the serving and decode runs, as a server would arm it (the event-loop
-watchdog, the device memory sampler, a ``/metrics`` exporter, a ``serving.request`` span
-around each request): ``[telemetry]`` holds its counters to exact counts and prints where
-the host time of a request and of a decode step goes.
+watchdog, the device memory sampler, a ``/metrics`` exporter; over the wire the
+connection handler opens a ``serving.request`` span around each request): ``[telemetry]``
+holds its counters to exact counts and prints where the host time of a request and of a
+decode step goes.
 
 Run from the repository root on a machine with one NVIDIA card:
 
@@ -169,6 +174,13 @@ PHASE_ROUNDING_S = 2e-6
 # ("metrics"), and tracing off with the registry's updates as no-ops ("none"), rotated
 # step by step (ABC, then CBA) for HOOK_COST_ROUNDS rounds
 HOOK_COST_STATES, HOOK_COST_ROUNDS = ("all", "metrics", "none"), 100
+# [remote]: forward parity over the wire at [1, T, 4096]: T = 128 is the largest unary
+# request (2 MiB of fp32, the client's cap), 512 and 2048 stream; with the lossless
+# "none" wire the remote chain runs the same kernels on the same batch as the local one
+REMOTE_PARITY_LENGTHS = (128, 512, 2048)
+REMOTE_LOSSLESS_TOL = 1e-6
+REMOTE_STREAM_BYTES = 16 << 20  # the transport's throughput: one stream of this many bytes
+REMOTE_PHASE_LIMIT_S = 60.0
 
 
 def log(message: str) -> None:
@@ -985,15 +997,14 @@ class RecordedForward:
 
 
 async def serve(backends_by_mode: dict, requests: list, watched: np.ndarray) -> dict:
-    """Run every request through block 0 → block 1 of every mode concurrently, each
-    block call inside a ``serving.request`` span as the connection handler opens
-    one; returns {mode: [(output, latency_s), ...]}, the runtime's batch count,
+    """Run every request through block 0 → block 1 of every mode concurrently,
+    handed to the pools as the connection handler hands them over ([remote] drives
+    the handler itself); returns {mode: [(output, latency_s), ...]}, the runtime's batch count,
     each pool's RecordedForward and the run's wall seconds. Returns once the
     runtime has counted every batch (it counts a batch after its callers' results)."""
     from hivemind_tpu_torch.moe.server.runtime import Runtime
     from hivemind_tpu_torch.moe.server.task_pool import TaskPool
-    from hivemind_tpu_torch.telemetry import ensure_watchdog, trace
-    from hivemind_tpu_torch.telemetry.serving import SERVING_SPAN
+    from hivemind_tpu_torch.telemetry import ensure_watchdog
 
     ensure_watchdog(asyncio.get_running_loop(), name="serving")
 
@@ -1009,17 +1020,15 @@ async def serve(backends_by_mode: dict, requests: list, watched: np.ndarray) -> 
     runtime = Runtime([pool for chain in pools.values() for pool in chain])
     runtime.start()
 
-    async def chain(mode, index, x):
+    async def chain(mode, x):
         started = time.perf_counter()
-        for uid, pool in zip(backends_by_mode[mode], pools[mode]):
-            with trace(SERVING_SPAN, kind="forward", expert=pool.name, peer="chip_smoke", client=f"request-{index}",
-                       batch=int(x.shape[0])):
-                (x,) = await pool.submit_task(x)
+        for pool in pools[mode]:
+            (x,) = await pool.submit_task(x)
         return x, time.perf_counter() - started
 
     started = time.perf_counter()
     try:
-        jobs = {mode: [chain(mode, i, x) for i, x in enumerate(requests)] for mode in pools}
+        jobs = {mode: [chain(mode, x) for x in requests] for mode in pools}
         flat = await asyncio.wait_for(asyncio.gather(*(job for mode in jobs for job in jobs[mode])), timeout=600)
         formed = sum(len(forward.batches) for chain in recorded.values() for forward in chain.values())
         deadline = time.perf_counter() + 60
@@ -1070,7 +1079,6 @@ def serving_counters(pools) -> dict:
 def phase_serving(torch, checkpoint_dir: str, wrappers: dict, telemetry: Telemetry) -> dict:
     from hivemind_tpu_torch.moe.server.llama_loader import load_llama_blocks
     from hivemind_tpu_torch.telemetry.device import MEMORY_MONITOR
-    from hivemind_tpu_torch.telemetry.serving import SERVING_LEDGER
 
     rng = np.random.default_rng(SEED + 2)
     hid = LLAMA2_7B["hidden_size"]
@@ -1086,7 +1094,6 @@ def phase_serving(torch, checkpoint_dir: str, wrappers: dict, telemetry: Telemet
     log(f"[serving] loaded 2 x 2 blocks on the card in {time.perf_counter() - started:.1f} s")
     merged_index = 0  # the first 512-long request: checked below, and it must share a batch
     pools = [f"{mode}:{uid}" for mode, backend_map in backends.items() for uid in backend_map]
-    SERVING_LEDGER.clear()
     counters, lag, telemetry.backlog = serving_counters(pools), lag_buckets("serving"), 0
     stalls = metric_value("hivemind_event_loop_stalls_total", loop="serving")
     results, batches, recorded, wall_s = asyncio.run(serve(backends, requests, requests[merged_index]))
@@ -1103,7 +1110,8 @@ def phase_serving(torch, checkpoint_dir: str, wrappers: dict, telemetry: Telemet
         deltas={key: after[key] - counters[key] for key in after},
         bytes_in=sum(forward.bytes_in for chain in recorded.values() for forward in chain.values()),
         bytes_out=sum(forward.bytes_out for chain in recorded.values() for forward in chain.values()),
-        records=SERVING_LEDGER.records(), wall_s=wall_s, backlog=telemetry.backlog,
+        latencies={mode: [latency for _y, latency in results[mode]] for mode in results},
+        wall_s=wall_s, backlog=telemetry.backlog,
         lag=(bounds, [b - a for a, b in zip(lag[1], lag_after)]), memory=memory, allocated=allocated,
         gauge_bytes=gauge_bytes, stalls=metric_value("hivemind_event_loop_stalls_total", loop="serving") - stalls,
         param_bytes=sum(backend.param_bytes() for backend_map in backends.values() for backend in backend_map.values()))
@@ -1172,9 +1180,8 @@ def phase_small_heads(torch, wrappers: dict) -> dict:
 
 class LocalPipe:
     """``decode_step`` chained over a server's block uids through its
-    DecodeSessionManager (the stand-in for the transport slice's remote pipe), each
-    block call inside a ``serving.request`` span as the connection handler opens
-    one; notes each call's wall time and output, and the activation bytes its block
+    DecodeSessionManager, in this process (RemotePipe is the same over the wire);
+    notes each call's wall time and output, and the activation bytes its block
     calls carry to the card and back."""
 
     def __init__(self, manager, uids):
@@ -1182,15 +1189,11 @@ class LocalPipe:
         self.block_calls = self.bytes_in = self.bytes_out = 0
 
     def decode_step(self, hidden, session_id, reset=False):
-        from hivemind_tpu_torch.telemetry import trace
-        from hivemind_tpu_torch.telemetry.serving import SERVING_SPAN
-
         x = hidden.cpu().numpy() if hasattr(hidden, "cpu") else np.asarray(hidden, np.float32)
         started = time.perf_counter()
         for uid in self.uids:
             self.bytes_in += np.asarray(x, np.float32).nbytes
-            with trace(SERVING_SPAN, kind="decode", expert=uid, peer="chip_smoke", client=session_id):
-                x = self.manager.decode(uid, session_id, x, reset)
+            x = self.manager.decode(uid, session_id, x, reset)
             self.block_calls += 1
             self.bytes_out += x.nbytes
         self.calls.append((time.perf_counter() - started, x))
@@ -1429,8 +1432,6 @@ def phase_decode(torch, checkpoint_dir: str, wrappers: dict, peaks: dict, teleme
         log_profile(f"{mode} lock-step round of {DECODE_SESSIONS} sessions through {blocks} blocks",
                     *profile_call(torch, lambda: asyncio.run(lockstep_rounds(managers[mode], list(backends[mode]),
                                                                               sessions, extra, rounds=1))))
-        # the hooks' cost: spans and registry updates, on and off
-        decode_readings[mode]["hooks"] = hooks_cost(pipe, head, prompt, token)
 
     # the prefill and the first step against the CPU plain path
     for mode, quantization in modes.items():
@@ -1445,6 +1446,397 @@ def phase_decode(torch, checkpoint_dir: str, wrappers: dict, peaks: dict, teleme
             if not rel_err < SERVING_TOL:
                 raise AssertionError(f"{mode}: decode {what} differs from the CPU by {rel_err}")
         del cpu_blocks, cpu_pipe
+    return launches
+
+
+# ------------------------------------------------------------------ [remote]: the served blocks over the wire
+
+
+class RemotePipe:
+    """``decode_step`` chained over block uids by ``RemoteExpert.decode_np``, one
+    RPC per block (the remote counterpart of LocalPipe); notes each call's wall
+    time and output."""
+
+    def __init__(self, experts):
+        self.experts, self.calls, self.traced_block_calls = list(experts), [], 0
+
+    def decode_step(self, hidden, session_id, reset=False):
+        from hivemind_tpu_torch.telemetry import tracing
+
+        x = hidden.cpu().numpy() if hasattr(hidden, "cpu") else np.asarray(hidden, np.float32)
+        started = time.perf_counter()
+        for expert in self.experts:
+            x = expert.decode_np(x, session_id, reset=reset)
+            self.traced_block_calls += tracing.enabled  # a block request leaves a serving record when traced
+        self.calls.append((time.perf_counter() - started, x))
+        return x
+
+
+def remote_chain(experts, x: np.ndarray) -> np.ndarray:
+    """One request through every block over the wire, a forward RPC per block."""
+    for expert in experts:
+        (x,) = expert.forward_np(x)
+    return x
+
+
+def wire_counters(handlers) -> dict:
+    """The serving wire's byte counters on both sides, and the transport's per RPC handler."""
+    counters = {f"moe:{kind}:{side}": metric_value(f"hivemind_moe_bytes_{kind}_total", direction=side)
+                for kind in ("sent", "received") for side in ("client", "server")}
+    for handler in handlers:
+        for direction in ("in", "out"):
+            counters[f"rpc:{handler}:{direction}"] = metric_value("hivemind_p2p_rpc_bytes_total", handler=handler,
+                                                                  direction=direction)
+    return counters
+
+
+async def transport_readings(client, server_id, nbytes: int) -> dict:
+    """One stream of ``nbytes`` in 1 MiB messages to a sink on the server (MB/s), and
+    the same bytes echoed back by another handler (the round trip of the transport
+    alone: AEAD, framing, sockets, parsing)."""
+    from hivemind_tpu_torch.proto import runtime_pb2
+
+    chunk = runtime_pb2.ExpertInfoResponse(serialized_info=np.random.default_rng(SEED + 12).bytes(1 << 20))
+
+    async def messages():
+        for _ in range(nbytes >> 20):
+            yield chunk
+
+    started = time.perf_counter()
+    async for _reply in client.iterate_protobuf_handler(server_id, "chip_smoke.sink", messages(),
+                                                       runtime_pb2.ExpertUID):
+        pass
+    stream_s = time.perf_counter() - started
+    started = time.perf_counter()
+    echoed = 0
+    async for reply in client.iterate_protobuf_handler(server_id, "chip_smoke.echo", messages(),
+                                                      runtime_pb2.ExpertInfoResponse):
+        echoed += len(reply.serialized_info)
+    echo_s = time.perf_counter() - started
+    if echoed != (nbytes >> 20) << 20:
+        raise AssertionError(f"echo returned {echoed} of {nbytes} bytes")
+    return dict(stream_s=stream_s, echo_s=echo_s)
+
+
+async def add_transport_probes(server) -> None:
+    """A sink and an echo on the server, for ``transport_readings``."""
+    from hivemind_tpu_torch.proto import runtime_pb2
+
+    async def sink(requests, context):
+        total = 0
+        async for request in requests:
+            total += len(request.serialized_info)
+        yield runtime_pb2.ExpertUID(uid=str(total))
+
+    async def echo(requests, context):
+        async for request in requests:
+            yield request
+
+    await server.add_protobuf_handler("chip_smoke.sink", sink, runtime_pb2.ExpertInfoResponse,
+                                      stream_input=True, stream_output=True)
+    await server.add_protobuf_handler("chip_smoke.echo", echo, runtime_pb2.ExpertInfoResponse,
+                                      stream_input=True, stream_output=True)
+
+
+def aead_seconds_per_byte(nbytes: int = 16 << 20) -> float:
+    """Seal and open of one frame of ``nbytes`` on this host, one thread, per byte."""
+    from hivemind_tpu_torch.utils._libcrypto import ChaCha20Poly1305
+
+    cipher, nonce = ChaCha20Poly1305(bytes(32)), bytes(12)
+    payload = np.random.default_rng(SEED + 13).bytes(nbytes)
+    cipher.decrypt(nonce, cipher.encrypt(nonce, payload))  # warm
+    started = time.perf_counter()
+    for _ in range(3):
+        cipher.decrypt(nonce, cipher.encrypt(nonce, payload))
+    return (time.perf_counter() - started) / (3 * nbytes)
+
+
+def codec_seconds(tokens: int, hid: int, repeats: int = 5) -> dict:
+    """Encode and parse times of the port's proto3 codec (``proto/wire.py``) for an
+    expert request holding one fp16 [1, tokens, hid] activation and one holding a
+    decode step's [1, 1, hid], and of its msgpack codec for a decode step's
+    metadata: the least of ``repeats`` each, on this host."""
+    from hivemind_tpu_torch.compression import resolve_activation_codec, serialize_tensor
+    from hivemind_tpu_torch.proto import runtime_pb2
+    from hivemind_tpu_torch.utils.serializer import MSGPackSerializer
+
+    def best(fn) -> float:
+        times = []
+        for _ in range(repeats):
+            started = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - started)
+        return min(times)
+
+    fp16 = resolve_activation_codec("float16")
+    rng = np.random.default_rng(SEED + 14)
+    readings = {}
+    for size, length in (("large", tokens), ("small", 1)):
+        tensor = serialize_tensor(rng.standard_normal((1, length, hid), dtype=np.float32), fp16)
+        request = runtime_pb2.ExpertRequest(uid="llama_fp.0", tensors=[tensor])
+        blob = request.SerializeToString()
+        readings[f"{size}_bytes"] = len(blob)
+        readings[f"{size}_encode"] = best(request.SerializeToString)
+        readings[f"{size}_parse"] = best(lambda: runtime_pb2.ExpertRequest.FromString(blob))
+    metadata = {"session_id": "remote", "reset": False}
+    packed = MSGPackSerializer.dumps(metadata)
+    readings["meta_encode"] = best(lambda: MSGPackSerializer.dumps(metadata))
+    readings["meta_parse"] = best(lambda: MSGPackSerializer.loads(packed))
+    return readings
+
+
+def phase_remote(torch, checkpoint_dir: str, wrappers: dict, telemetry: Telemetry) -> dict:
+    """The served blocks answer over the wire: a server P2P with two
+    ConnectionHandlers (fp16 wire, the default, and "none") over the fp and int8
+    blocks on one Runtime, and a client P2P with a RemoteExpert per block, in this
+    process over loopback TCP. Forward parity against the local chain, [serving]'s
+    six requests at once, greedy decode through a remote pipe, autograd backward
+    against a twin backend, the transport's throughput and the hooks' cost."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from hivemind_tpu_torch.moe.client import RemoteExpert
+    from hivemind_tpu_torch.moe.expert_uid import ExpertInfo
+    from hivemind_tpu_torch.moe.server import ConnectionHandler, DecodeSessionManager, Runtime
+    from hivemind_tpu_torch.moe.server.llama_loader import LlamaClientHead, generate_greedy, load_llama_blocks
+    from hivemind_tpu_torch.p2p import P2P
+    from hivemind_tpu_torch.telemetry.serving import SERVING_LEDGER
+    from hivemind_tpu_torch.utils.loop import get_loop_runner
+
+    phase_started = time.perf_counter()
+    hid, vocab = LLAMA2_7B["hidden_size"], LLAMA2_7B["vocab_size"]
+    rng = np.random.default_rng(SEED + 11)
+    sgd = lambda params: torch.optim.SGD(params, lr=EXPERT_LR)
+    backends = {
+        "fp": load_llama_blocks(checkpoint_dir, uid_prefix="llama_fp.", device="cuda", optimizer=sgd)[0],
+        "int8": load_llama_blocks(checkpoint_dir, uid_prefix="llama_int8.", device="cuda", weight_quantization="int8")[0],
+    }
+    head = LlamaClientHead.load(checkpoint_dir, device="cuda")
+    parity_inputs = [rng.standard_normal((1, t, hid), dtype=np.float32) for t in REMOTE_PARITY_LENGTHS]
+    serving_inputs = [np.random.default_rng(SEED + 2).standard_normal((1, t, hid), dtype=np.float32)
+                      for t in (*REQUEST_LENGTHS, REFERENCE_LENGTH)]  # [serving]'s requests, from its seed
+    prompt = np.random.default_rng(SEED + 9).integers(0, vocab, size=(1, DECODE_PROMPT))  # [decode]'s prompt
+    x_bwd = torch.tensor(rng.standard_normal((1, EXPERT_TOKENS, hid), dtype=np.float32), device="cuda")
+    w_bwd = torch.tensor(rng.standard_normal((1, EXPERT_TOKENS, hid), dtype=np.float32), device="cuda")
+
+    # local references, before the remote path's launches are counted
+    expected = {mode: [forward_chain(blocks, x) for x in parity_inputs] for mode, blocks in backends.items()}
+    expected_burst = {mode: [forward_chain(blocks, x) for x in serving_inputs] for mode, blocks in backends.items()}
+    local_pipes, local_ids = {}, {}
+    for mode, blocks in backends.items():
+        local_pipes[mode] = LocalPipe(DecodeSessionManager(blocks, max_len=DECODE_MAX_LEN), blocks)
+        local_ids[mode] = generate_greedy(head, local_pipes[mode], prompt, DECODE_NEW, session_id="local")
+    torch.cuda.synchronize()
+    log(f"[remote] loaded the blocks and ran the local references in {time.perf_counter() - phase_started:.1f} s")
+
+    runner = get_loop_runner()
+    served = {uid: backend for blocks in backends.values() for uid, backend in blocks.items()}
+    wire_names = ("float16", "none")
+
+    async def start():
+        handlers = {name: ConnectionHandler(dict(served), decode_max_len=DECODE_MAX_LEN, activation_compression=name)
+                    for name in wire_names}
+        servers = {name: await P2P.create(listen_host="127.0.0.1") for name in wire_names}
+        for name in wire_names:
+            await handlers[name].add_p2p_handlers(servers[name])
+        await add_transport_probes(servers["float16"])
+        runtime = Runtime([pool for handler in handlers.values() for pool in handler.all_pools()])
+        runtime.start()
+        client = await P2P.create(listen_host="127.0.0.1")
+        for server in servers.values():
+            client.add_peer_addr(server.peer_id, server.get_visible_maddrs()[0])
+        return handlers, servers, runtime, client
+
+    handlers, servers, runtime, client = runner.run_coroutine(start(), return_future=True).result(60)
+    experts = {name: {mode: [RemoteExpert(ExpertInfo(uid, servers[name].peer_id), client) for uid in blocks]
+                      for mode, blocks in backends.items()} for name in wire_names}
+    rpc_names = [f"ConnectionHandler.rpc_{kind}{suffix}" for kind in ("forward", "backward", "decode")
+                 for suffix in ("", "_stream")]
+    records, block_requests = [], [0]
+    SERVING_LEDGER.clear()
+    listener = lambda kind, record: records.append(record)  # noqa: E731
+    SERVING_LEDGER.add_record_listener(listener)
+    counters = wire_counters(rpc_names)
+    readings = {}
+    try:
+        for wrapper in wrappers.values():
+            wrapper.launches = 0  # the main path starts here: every request below goes over the wire
+        # 1. forward parity, unary ([1, 128, 4096] is 2 MiB of fp32) and streamed
+        parity = {}
+        for name in wire_names:
+            for mode in backends:
+                for x, reference in zip(parity_inputs, expected[mode]):
+                    got = remote_chain(experts[name][mode], x)
+                    block_requests[0] += len(backends[mode])
+                    parity[(name, mode, x.shape[1])] = max_rel_err(got, reference)
+        # 2. [serving]'s requests, every one submitted at once, both modes
+        SERVING_LEDGER.clear()
+        burst_records = len(records)
+
+        def timed_chain(mode, x):
+            started = time.perf_counter()
+            y = remote_chain(experts["float16"][mode], x)
+            return y, time.perf_counter() - started
+
+        jobs = [(mode, x) for mode in backends for x in serving_inputs]
+        started = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=len(jobs), thread_name_prefix="chip-smoke-client") as pool:
+            burst = list(pool.map(lambda job: timed_chain(*job), jobs))
+        burst_wall = time.perf_counter() - started
+        block_requests[0] += len(jobs) * 2
+        burst_records = records[burst_records:]
+        # 3. greedy decode through a remote pipe, and the hooks' cost on it
+        remote_pipes, remote_ids, hooks, token_bytes = {}, {}, {}, {}
+        for mode in backends:
+            remote_pipes[mode] = RemotePipe(experts["float16"][mode])
+            decode_before = wire_counters([])
+            remote_ids[mode] = generate_greedy(head, remote_pipes[mode], prompt, DECODE_NEW, session_id="remote")
+            decode_after = wire_counters([])
+            token_bytes[mode] = sum(decode_after[f"moe:{kind}:client"] - decode_before[f"moe:{kind}:client"]
+                                    for kind in ("sent", "received")) / DECODE_NEW
+            token = head.embed(remote_ids[mode][:, DECODE_PROMPT : DECODE_PROMPT + 1])
+            hooks[mode] = hooks_cost(remote_pipes[mode], head, prompt, token)
+            block_requests[0] += remote_pipes[mode].traced_block_calls
+        # 4. autograd through the RemoteExpert on the fp block 0 (the server steps its SGD)
+        server_block = backends["fp"]["llama_fp.0"]
+        before = {key: tensor.clone() for key, tensor in server_block.snapshot_params().items()}
+        x_remote = x_bwd.clone().requires_grad_(True)
+        y_remote = experts["float16"]["fp"][0](x_remote)
+        (y_remote * w_bwd).sum().backward()
+        torch.cuda.synchronize()
+        block_requests[0] += 2
+        launches = {name: wrapper.launches for name, wrapper in wrappers.items()}
+        # 5. the transport alone: a 16 MiB stream, and the same bytes echoed
+        transport = runner.run_coroutine(transport_readings(client, servers["float16"].peer_id, REMOTE_STREAM_BYTES),
+                                         return_future=True).result(60)
+        timed_request = parity_inputs[-1]
+        started = time.perf_counter()
+        experts["float16"]["fp"][0].forward_np(timed_request)
+        request_wall = time.perf_counter() - started
+        block_requests[0] += 1
+        deadline = time.perf_counter() + 30  # the Runtime counts a batch after its callers' results
+        while len(records) < block_requests[0] and time.perf_counter() < deadline:
+            time.sleep(0.001)
+    finally:
+        SERVING_LEDGER.remove_record_listener(listener)
+
+        async def stop():
+            await runtime.shutdown()
+            await client.shutdown()
+            for server in servers.values():
+                await server.shutdown()
+
+        runner.run_coroutine(stop(), return_future=True).result(60)
+    after = wire_counters(rpc_names)
+    delta = {key: after[key] - counters[key] for key in after}
+    faults = []
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            faults.append(what)
+
+    for (name, mode, length), err in sorted(parity.items()):
+        limit = REMOTE_LOSSLESS_TOL if name == "none" else SERVING_TOL
+        log(f"[remote] forward parity, {name} wire, {mode}, [1, {length}, {hid}] "
+            f"({'unary' if length * hid * 4 <= 2 << 20 else 'stream'}) through 2 blocks vs the local chain: "
+            f"max_rel_err={err:.3e} (limit {'<=' if name == 'none' else '<'} {limit:g})")
+        check(err <= limit if name == "none" else err < limit, f"{name} {mode} [1, {length}]: rel err {err}")
+    # 4. backward: the twin backend takes the same SGD step locally
+    twin = load_llama_blocks(checkpoint_dir, layers=[0], uid_prefix="llama_fp.", device="cuda", optimizer=sgd)[0]["llama_fp.0"]
+    twin_before = {key: tensor.clone() for key, tensor in twin.snapshot_params().items()}
+    (twin_grad,) = twin.backward(x_bwd.cpu().numpy(), w_bwd.cpu().numpy())
+    grad_err = max_rel_err(x_remote.grad.cpu().numpy(), twin_grad)
+    step_err = max(max_rel_err((server_block.params[key] - before[key]).cpu().numpy(),
+                               (twin.params[key] - twin_before[key]).cpu().numpy()) for key in before)
+    log(f"[remote] autograd through RemoteExpert llama_fp.0 at [1, {EXPERT_TOKENS}, {hid}] (fp16 wire): input gradient "
+        f"vs the twin's ModuleBackend.backward max_rel_err={grad_err:.3e}; the server's SGD step vs the twin's: "
+        f"max_rel_err={step_err:.3e} (limit {SERVING_TOL}); server updates {server_block.update_count}")
+    check(grad_err < SERVING_TOL and step_err < SERVING_TOL and server_block.update_count == 1,
+          f"backward: gradient {grad_err}, step {step_err}, updates {server_block.update_count}")
+    with torch.no_grad():  # the weights the decode run used, for its replay below
+        for key, tensor in before.items():
+            server_block.params[key].copy_(tensor)
+    del twin, twin_before
+    local_serving = telemetry.readings.get("serving", {}).get("latencies", {})
+    for mode in backends:
+        walls = [seconds for (job_mode, _x), (_y, seconds) in zip(jobs, burst) if job_mode == mode]
+        outputs = [y for (job_mode, _x), (y, _s) in zip(jobs, burst) if job_mode == mode]
+        check(all(y.shape == x.shape and np.isfinite(y).all() for y, x in zip(outputs, serving_inputs)),
+              f"{mode}: a burst output is not finite or has the wrong shape")
+        # requests of many clients share the pools' batches: each must get its own rows back
+        burst_err = max(max_rel_err(y, reference) for y, reference in zip(outputs, expected_burst[mode]))
+        check(burst_err < SERVING_TOL, f"{mode}: a burst output differs from its local chain by {burst_err}")
+        local = local_serving.get(mode)
+        log(f"[remote] {mode}: [serving]'s {len(serving_inputs)} requests at once through the wire (fp16): each "
+            f"output vs the local chain on its input max_rel_err={burst_err:.3e} (limit {SERVING_TOL}); request "
+            f"wall median / p90 {median_p90(walls)}" + (f"; in [serving], locally: {median_p90(local)}" if local else ""))
+    log(f"[remote] the burst of {len(jobs)} chained requests took {burst_wall * 1e3:.1f} ms")
+    for mode in backends:
+        mine = [r for r in burst_records if r["expert"].startswith(f"llama_{mode}.")]
+        phases = {field: [r.get(field, 0.0) for r in mine]
+                  for field in ("queue_wait_s", "assembly_s", "compute_s", "serialize_s", "total_s")}
+        log(f"[remote] serving records, {mode} burst: {len(mine)} block requests, median / p90: queue wait "
+            f"{median_p90(phases['queue_wait_s'])}, assembly {median_p90(phases['assembly_s'])}, compute "
+            f"{median_p90(phases['compute_s'])}, serialize {median_p90(phases['serialize_s'])} (streamed responses "
+            f"serialize lazily and carry none), request wall {median_p90(phases['total_s'])}")
+    for mode in backends:
+        remote_step = np.array([s for s, _ in remote_pipes[mode].calls[1:DECODE_NEW]])
+        local_step = np.array([s for s, _ in local_pipes[mode].calls[1:DECODE_NEW]])
+        equal = bool(np.array_equal(remote_ids[mode], local_ids[mode]))
+        replay = forward_chain(backends[mode], head.embed(remote_ids[mode][:, :-1]).cpu().numpy())
+        logits = head.logits(replay[:, DECODE_PROMPT - 1 :]).cpu().numpy()[0]
+        chosen = logits[np.arange(DECODE_NEW), remote_ids[mode][0, DECODE_PROMPT:]]
+        gaps = (logits.max(axis=-1) - chosen) / np.maximum(np.abs(logits.max(axis=-1)), 1.0)
+        decode_records = [r for r in records if r["kind"] == "decode" and r["expert"].startswith(f"llama_{mode}.")]
+        span_s = [r["total_s"] for r in decode_records]
+        compute = [r.get("compute_s", 0.0) for r in decode_records]
+        serialize = [r.get("serialize_s", 0.0) for r in decode_records]
+        log(f"[remote] decode {mode}: {DECODE_NEW} tokens from a {DECODE_PROMPT}-token prompt through a remote pipe; "
+            f"ids equal to the local pipe's: {equal}; teacher-forced replay largest logit gap {gaps.max():.3e} "
+            f"(limit {GREEDY_LOGIT_RTOL}); per-token latency median / p90 remote {median_p90(remote_step)}, local "
+            f"{median_p90(local_step)} (ratio {np.median(remote_step) / np.median(local_step):.2f}); prefill remote "
+            f"{remote_pipes[mode].calls[0][0] * 1e3:.3f} ms, local {local_pipes[mode].calls[0][0] * 1e3:.3f} ms; "
+            f"the server's decode records ({len(decode_records)}, prefills included) median / p90: span "
+            f"{median_p90(span_s)}, compute {median_p90(compute)}, serialize {median_p90(serialize)}; "
+            f"{token_bytes[mode]:.0f} B on the wire per generated token (the prefill included)")
+        check(gaps.max() <= GREEDY_LOGIT_RTOL, f"{mode}: a remotely generated token's logit lies {gaps.max()} below the best")
+        readings[mode] = dict(remote_step=remote_step, local_step=local_step, equal=equal, hooks=hooks[mode])
+    # counters, exact: both sides of the serving wire and of the transport
+    check(delta["moe:sent:client"] == delta["moe:received:server"] > 0,
+          f"client sent {delta['moe:sent:client']} B, server received {delta['moe:received:server']} B")
+    check(delta["moe:sent:server"] == delta["moe:received:client"] > 0,
+          f"server sent {delta['moe:sent:server']} B, client received {delta['moe:received:client']} B")
+    rpc_out = sum(delta[f"rpc:{name}:out"] for name in rpc_names)
+    rpc_in = sum(delta[f"rpc:{name}:in"] for name in rpc_names)
+    check(rpc_out == rpc_in == delta["moe:sent:client"] + delta["moe:sent:server"],
+          f"transport bytes out {rpc_out}, in {rpc_in}, serving wire {delta['moe:sent:client'] + delta['moe:sent:server']}")
+    check(len(records) == block_requests[0], f"{len(records)} serving records, {block_requests[0]} block requests")
+    unsound = [r for r in records if not (r.get("compute_s", 0.0) > 0 and sum(r.get(field, 0.0) for field in (
+        "queue_wait_s", "assembly_s", "compute_s", "serialize_s")) <= r["total_s"] + PHASE_ROUNDING_S)]
+    check(not unsound, f"records whose phases exceed the span or carry no compute: {unsound[:2]}")
+    log(f"[remote] counters: client sent {delta['moe:sent:client']:.0f} B = server received; server sent "
+        f"{delta['moe:sent:server']:.0f} B = client received; transport out {rpc_out:.0f} B = in; "
+        f"{len(records)} serving records for {block_requests[0]} block requests")
+    aead_s = aead_seconds_per_byte()
+    request_bytes = 2 * timed_request.size * 2  # fp16 both ways
+    stream_mb_s = REMOTE_STREAM_BYTES / transport["stream_s"] / 1e6
+    log(f"[remote] transport on this host: one {REMOTE_STREAM_BYTES >> 20} MiB stream at {stream_mb_s:.1f} MB/s; the "
+        f"same bytes echoed back in {transport['echo_s'] * 1e3:.1f} ms; AEAD seal + open {1 / aead_s / 1e6:.1f} MB/s "
+        f"on one thread; a remote [1, {timed_request.shape[1]}, {hid}] block request (fp16 wire, {request_bytes} B "
+        f"both ways) took {request_wall * 1e3:.1f} ms, of which AEAD {aead_s * request_bytes / request_wall:.1%} "
+        f"and the transport's round trip of its bytes {transport['echo_s'] * request_bytes / (2 * REMOTE_STREAM_BYTES) / request_wall:.1%}")
+    codec = codec_seconds(timed_request.shape[1], hid)
+    log(f"[remote] the port's own codecs on this host (best of 5): a [1, {timed_request.shape[1]}, {hid}] fp16 "
+        f"request message ({codec['large_bytes']} B) encodes in {codec['large_encode'] * 1e3:.3f} ms and parses in "
+        f"{codec['large_parse'] * 1e3:.3f} ms, {2 * (codec['large_encode'] + codec['large_parse']) / request_wall:.1%} "
+        f"of the remote request above (request and response); a decode step's [1, 1, {hid}] request "
+        f"({codec['small_bytes']} B) {codec['small_encode'] * 1e6:.1f} / {codec['small_parse'] * 1e6:.1f} us, its "
+        f"msgpack metadata {codec['meta_encode'] * 1e6:.1f} / {codec['meta_parse'] * 1e6:.1f} us")
+    elapsed = time.perf_counter() - phase_started
+    log(f"[remote] phase wall {elapsed:.1f} s (limit {REMOTE_PHASE_LIMIT_S} s)")
+    check(elapsed <= REMOTE_PHASE_LIMIT_S, f"[remote] took {elapsed:.1f} s > {REMOTE_PHASE_LIMIT_S} s")
+    telemetry.readings["remote"] = dict(records=burst_records, decode=readings)
+    if faults:
+        raise AssertionError("; ".join(faults))
     return launches
 
 
@@ -1485,8 +1877,8 @@ def registry_samples() -> dict:
 
 
 def phase_telemetry(torch, telemetry: Telemetry, exporter_port: int) -> None:
-    """The served path's telemetry after [serving] and [decode], held to exact
-    counts; then where the host time of a request and of a decode step goes."""
+    """The served path's telemetry after [serving], [decode] and [remote], held to
+    exact counts; then where the host time of a request and of a decode step goes."""
     import urllib.request
 
     faults = []
@@ -1515,11 +1907,6 @@ def phase_telemetry(torch, telemetry: Telemetry, exporter_port: int) -> None:
     moved = (deltas["host_to_device"], deltas["device_to_host"])
     check(moved == (serving["bytes_in"], serving["bytes_out"]),
           f"serving transfers {moved}, the batches carried {(serving['bytes_in'], serving['bytes_out'])}")
-    records = serving["records"]
-    check(len(records) == requests * len(pools), f"{len(records)} serving records, {requests * len(pools)} requests")
-    unsound = [r for r in records if not (r.get("compute_s", 0.0) > 0 and r.get("queue_wait_s", 0.0) + r.get("assembly_s", 0.0)
-                                         + r.get("compute_s", 0.0) <= r["total_s"] + PHASE_ROUNDING_S)]
-    check(not unsound, f"records whose phases exceed the span or carry no compute: {unsound[:2]}")
     memory = serving["memory"] or {}
     check(serving["gauge_bytes"] == serving["allocated"] == memory.get("devices", {}).get("cuda:0", {}).get("bytes")
           and serving["allocated"] >= serving["param_bytes"],
@@ -1549,14 +1936,17 @@ def phase_telemetry(torch, telemetry: Telemetry, exporter_port: int) -> None:
           f"/metrics differs from the registry at {[key for key in direct_read if scraped.get(key) != direct_read[key]][:4]}")
     log(f"[telemetry] /metrics over HTTP: {len(scraped)} samples parsed, {len(direct_read)} read back from the registry")
 
-    for mode in ("fp", "int8"):
-        mine = [r for r in records if r["expert"].startswith(f"{mode}:")]
-        phases = {field: [r.get(field, 0.0) for r in mine] for field in ("queue_wait_s", "assembly_s", "compute_s", "total_s")}
-        log(f"[telemetry] serving {mode}: {len(mine)} block requests, median / p90: queue wait "
+    remote = telemetry.readings.get("remote", {})
+    for mode in ("fp", "int8"):  # the serving records of [remote]'s burst: the handler opens the spans
+        mine = [r for r in remote.get("records", ()) if r["expert"].startswith(f"llama_{mode}.")]
+        if not mine:
+            continue
+        fields = ("queue_wait_s", "assembly_s", "compute_s", "serialize_s")
+        phases = {field: [r.get(field, 0.0) for r in mine] for field in (*fields, "total_s")}
+        log(f"[telemetry] serving {mode} over the wire: {len(mine)} block requests, median / p90: queue wait "
             f"{median_p90(phases['queue_wait_s'])}, batch assembly {median_p90(phases['assembly_s'])}, device compute "
             f"{median_p90(phases['compute_s'])}, request wall {median_p90(phases['total_s'])}; phases "
-            f"{sum(map(sum, (phases[f] for f in ('queue_wait_s', 'assembly_s', 'compute_s')))) / sum(phases['total_s']):.1%}"
-            f" of the requests' wall")
+            f"{sum(map(sum, (phases[f] for f in fields))) / sum(phases['total_s']):.1%} of the requests' wall")
     bounds, lag = serving["lag"]
     moved = serving["deltas"]["host_to_device"] + serving["deltas"]["device_to_host"]
     log(f"[telemetry] serving: runtime busy {serving['deltas']['latency_sum'] / serving['wall_s']:.1%} of the run's "
@@ -1567,11 +1957,12 @@ def phase_telemetry(torch, telemetry: Telemetry, exporter_port: int) -> None:
         f"{moved / (serving['tokens'] * len(pools)):.0f} B per token and block; memory {serving['allocated']} B allocated, "
         f"{serving['param_bytes']} B resident parameters")
     for mode, reading in telemetry.readings["decode"].items():
-        deltas, (bounds, lag), hooks = reading["deltas"], reading["lag"], reading.get("hooks", {})
+        deltas, (bounds, lag) = reading["deltas"], reading["lag"]
+        hooks = remote.get("decode", {}).get(mode, {}).get("hooks", {})
         moved = deltas["host_to_device"] + deltas["device_to_host"]
         cost = ""
         if hooks:
-            cost = (f"; hooks: solo per-token median with every hook {hooks['all'] * 1e3:.4f} ms, spans off "
+            cost = (f"; hooks, on [remote]'s pipe: solo per-token median with every hook {hooks['all'] * 1e3:.4f} ms, spans off "
                     f"{hooks['metrics'] * 1e3:.4f} ms, spans and registry updates off {hooks['none'] * 1e3:.4f} ms "
                     f"(spans {(hooks['all'] - hooks['metrics']) * 1e3:+.4f} ms, registry updates "
                     f"{(hooks['metrics'] - hooks['none']) * 1e3:+.4f} ms; {HOOK_COST_ROUNDS} steps each, rotated); "
@@ -1622,6 +2013,8 @@ def main() -> int:
         "train": ("flash_attention_forward", "flash_attention_backward_dq", "flash_attention_backward_dkv"),
         "head_dim32": ("flash_attention_forward",),
         "decode": ("blockwise_int8_dequantize",),
+        "remote": ("flash_attention_forward", "flash_attention_backward_dq", "flash_attention_backward_dkv",
+                   "blockwise_int8_dequantize"),
     }
 
     line = card_line()
@@ -1657,6 +2050,7 @@ def main() -> int:
         path_launches["serving"] = run("serving", phase_serving, torch, checkpoint.name, wrappers, telemetry)
         path_launches["head_dim32"] = run("head_dim32", phase_small_heads, torch, wrappers)
         path_launches["decode"] = run("decode", phase_decode, torch, checkpoint.name, wrappers, peaks, telemetry)
+        path_launches["remote"] = run("remote", phase_remote, torch, checkpoint.name, wrappers, telemetry)
         run("telemetry", phase_telemetry, torch, telemetry, exporter.port)
         path_launches["expert_backward"] = run("expert_backward", phase_expert_backward, torch, checkpoint.name, wrappers)
         path_launches["train"] = run("train", phase_train, torch, peaks, wrappers)

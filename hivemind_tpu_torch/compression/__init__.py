@@ -1,7 +1,6 @@
 """The wire layer's tensor codecs (the port of hivemind_tpu/compression/): torch
 tensors or numpy arrays to ``runtime_pb2.Tensor`` messages and back, byte for byte
-as the JAX package writes them. It needs protobuf; the card's path imports none
-of it."""
+as the JAX package writes them, on the port's own proto3 codec."""
 
 from hivemind_tpu_torch.compression.adaptive import (
     PerTensorCompression,

@@ -4,8 +4,7 @@ frames whose tensor buffers ride as separate scatter-gather buffers
 (:class:`~hivemind_tpu_torch.utils.streaming.WireParts`) instead of being copied
 into one ``SerializeToString`` blob (the port of
 hivemind_tpu/compression/serialization.py). The frames are byte-identical to
-protobuf's own encoding, so the receive side parses them with the generated
-classes."""
+protobuf's own encoding, so the receive side parses them as usual."""
 
 from __future__ import annotations
 
@@ -26,6 +25,7 @@ from hivemind_tpu_torch.compression.quantization import (
     Uniform8BitQuantization,
 )
 from hivemind_tpu_torch.proto import runtime_pb2
+from hivemind_tpu_torch.proto.wire import LENGTH_DELIMITED, encode_tag, encode_varint
 from hivemind_tpu_torch.utils.asyncio_utils import run_in_executor
 from hivemind_tpu_torch.utils.streaming import WireParts, split_for_streaming
 
@@ -136,24 +136,12 @@ def split_tensor_for_streaming(serialized: runtime_pb2.Tensor, chunk_size_bytes:
 # [metadata fields], with the buffer as its own scatter-gather part. The tags
 # follow proto/runtime.proto.
 
-_TENSOR_BUFFER_TAG = b"\x0a"  # Tensor.buffer = 1, wire type 2
-_REQUEST_UID_TAG = b"\x0a"  # ExpertRequest.uid = 1
-_REQUEST_TENSOR_TAG = b"\x12"  # ExpertRequest.tensors = 2
-_REQUEST_METADATA_TAG = b"\x1a"  # ExpertRequest.metadata = 3
-_RESPONSE_TENSOR_TAG = b"\x0a"  # ExpertResponse.tensors = 1
-_RESPONSE_METADATA_TAG = b"\x12"  # ExpertResponse.metadata = 2
-
-
-def _varint(value: int) -> bytes:
-    out = bytearray()
-    while True:
-        bits = value & 0x7F
-        value >>= 7
-        if value:
-            out.append(bits | 0x80)
-        else:
-            out.append(bits)
-            return bytes(out)
+_TENSOR_BUFFER_TAG = encode_tag(1, LENGTH_DELIMITED)  # Tensor.buffer
+_REQUEST_UID_TAG = encode_tag(1, LENGTH_DELIMITED)  # ExpertRequest.uid
+_REQUEST_TENSOR_TAG = encode_tag(2, LENGTH_DELIMITED)  # ExpertRequest.tensors
+_REQUEST_METADATA_TAG = encode_tag(3, LENGTH_DELIMITED)  # ExpertRequest.metadata
+_RESPONSE_TENSOR_TAG = encode_tag(1, LENGTH_DELIMITED)  # ExpertResponse.tensors
+_RESPONSE_METADATA_TAG = encode_tag(2, LENGTH_DELIMITED)  # ExpertResponse.metadata
 
 
 def _tensor_field_parts(serialized: runtime_pb2.Tensor, field_tag: bytes) -> List[bytes]:
@@ -164,8 +152,8 @@ def _tensor_field_parts(serialized: runtime_pb2.Tensor, field_tag: bytes) -> Lis
     meta.chunks = serialized.chunks
     meta_bytes = meta.SerializeToString()
     # the buffer (field 1) precedes the metadata fields (2..6), as protobuf emits them
-    inner = [_TENSOR_BUFFER_TAG + _varint(len(buffer)), buffer, meta_bytes] if buffer else [meta_bytes]
-    return [field_tag + _varint(sum(len(part) for part in inner)), *inner]
+    inner = [_TENSOR_BUFFER_TAG + encode_varint(len(buffer)), buffer, meta_bytes] if buffer else [meta_bytes]
+    return [field_tag + encode_varint(sum(len(part) for part in inner)), *inner]
 
 
 def expert_request_parts(uid: str, tensors: Sequence[runtime_pb2.Tensor], metadata: bytes = b"") -> WireParts:
@@ -173,11 +161,11 @@ def expert_request_parts(uid: str, tensors: Sequence[runtime_pb2.Tensor], metada
     parts: List[Any] = []
     if uid:
         uid_bytes = uid.encode("utf-8")
-        parts.append(_REQUEST_UID_TAG + _varint(len(uid_bytes)) + uid_bytes)
+        parts.append(_REQUEST_UID_TAG + encode_varint(len(uid_bytes)) + uid_bytes)
     for tensor in tensors:
         parts.extend(_tensor_field_parts(tensor, _REQUEST_TENSOR_TAG))
     if metadata:
-        parts.append(_REQUEST_METADATA_TAG + _varint(len(metadata)) + metadata)
+        parts.append(_REQUEST_METADATA_TAG + encode_varint(len(metadata)) + metadata)
     return WireParts(*parts)
 
 
@@ -187,7 +175,7 @@ def expert_response_parts(tensors: Sequence[runtime_pb2.Tensor], metadata: bytes
     for tensor in tensors:
         parts.extend(_tensor_field_parts(tensor, _RESPONSE_TENSOR_TAG))
     if metadata:
-        parts.append(_RESPONSE_METADATA_TAG + _varint(len(metadata)) + metadata)
+        parts.append(_RESPONSE_METADATA_TAG + encode_varint(len(metadata)) + metadata)
     return WireParts(*parts)
 
 
@@ -205,8 +193,8 @@ def split_response_for_wire(serialized: runtime_pb2.Tensor, chunk_size_bytes: in
         chunk = view[index * chunk_size_bytes : (index + 1) * chunk_size_bytes]
         inner: List[Any] = []
         if len(chunk):
-            inner.extend([_TENSOR_BUFFER_TAG + _varint(len(chunk)), chunk])
+            inner.extend([_TENSOR_BUFFER_TAG + encode_varint(len(chunk)), chunk])
         if index == 0:
             inner.append(meta_bytes)
-        out.append(WireParts(_RESPONSE_TENSOR_TAG + _varint(sum(len(part) for part in inner)), *inner))
+        out.append(WireParts(_RESPONSE_TENSOR_TAG + encode_varint(sum(len(part) for part in inner)), *inner))
     return out

@@ -15,3 +15,4 @@ from hivemind_tpu_torch.moe.server.layers.common import (
     name_to_input,
     register_expert_class,
 )
+from hivemind_tpu_torch.moe.server.layers.dropout import DeterministicDropout, DeterministicDropoutExpert

@@ -28,7 +28,7 @@ the port sends it (the JAX backend counts its padded bucket).
 from __future__ import annotations
 
 import threading
-from typing import Any, Callable, Dict, Iterable, List, Optional, Union
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -66,9 +66,10 @@ def _as_tuple(value) -> tuple:
 class ModuleBackend:
     """See module docstring.
 
-    :param module: an ``nn.Module`` taking one tensor and returning one tensor or
-        a tuple of tensors
-    :param sample_input: schema-defining input WITH batch dim
+    :param module: an ``nn.Module`` taking one or several tensors and returning one
+        tensor or a tuple of tensors
+    :param sample_input: schema-defining input WITH batch dim (single-input experts)
+    :param sample_inputs: schema-defining inputs for multi-input experts
     :param optimizer: a factory ``params -> torch.optim.Optimizer`` over the
         expert's parameter tensors, stepped on every ``backward``; None is plain
         SGD with learning rate 0 (the expert reports gradients and stays as it is)
@@ -89,7 +90,8 @@ class ModuleBackend:
         name: str,
         module: nn.Module,
         *,
-        sample_input: np.ndarray,
+        sample_input: Optional[np.ndarray] = None,
+        sample_inputs: Optional[Sequence[np.ndarray]] = None,
         optimizer: Optional[Callable[[Iterable[torch.Tensor]], torch.optim.Optimizer]] = None,
         params: Optional[Dict[str, torch.Tensor]] = None,
         max_batch_size: int = 4096,
@@ -99,6 +101,11 @@ class ModuleBackend:
     ):
         if weight_quantization not in (None, "int8"):
             raise ValueError(f"unsupported weight_quantization {weight_quantization!r}")
+        if (sample_input is None) == (sample_inputs is None):
+            raise ValueError("provide exactly one of sample_input / sample_inputs")
+        if sample_inputs is None:
+            sample_inputs = (sample_input,)
+        sample_inputs = tuple(np.asarray(sample) for sample in sample_inputs)
         self.device = resolve_device(device)
         self.name, self.max_batch_size = name, max_batch_size
         self.weight_quantization = weight_quantization
@@ -120,12 +127,13 @@ class ModuleBackend:
         if params is not None:
             dense = self._dense_params(params)
         with torch.inference_mode():
-            sample = self._to_device(np.asarray(sample_input)[:1])
-            sample_out = _as_tuple(torch.func.functional_call(self.module, dense, (sample,)))
+            samples = tuple(self._to_device(sample[:1]) for sample in sample_inputs)
+            sample_out = _as_tuple(torch.func.functional_call(self.module, dense, samples))
         self.params = quantize_params(dense) if weight_quantization else dense
         self.optimizer = None if weight_quantization else self._make_optimizer(list(self.params.values()))
 
-        self.forward_schema = (BatchTensorDescriptor.from_tensor(np.asarray(sample_input)),)
+        self.num_inputs, self.num_outputs = len(sample_inputs), len(sample_out)
+        self.forward_schema = tuple(BatchTensorDescriptor.from_tensor(sample) for sample in sample_inputs)
         self.outputs_schema = tuple(BatchTensorDescriptor.from_tensor(out) for out in sample_out)
 
     def _to_device(self, array: np.ndarray) -> torch.Tensor:
@@ -166,46 +174,50 @@ class ModuleBackend:
         transient dense copies) — the device-memory budgeting input."""
         return tree_param_bytes(self.snapshot_params())
 
-    def forward(self, x: np.ndarray) -> List[np.ndarray]:
+    def _check_count(self, what: str, tensors: Sequence[np.ndarray], expected: int) -> None:
+        if len(tensors) != expected:
+            raise ValueError(f"expert {self.name!r}: {what} takes {expected} tensors, got {len(tensors)}")
+
+    def forward(self, *inputs: np.ndarray) -> List[np.ndarray]:
         """Inference on a concatenated batch (no parameter updates)."""
-        x = self._to_device(x)
-        record_transfer(tensor_nbytes(x), "host_to_device")
+        self._check_count("forward", inputs, self.num_inputs)
+        xs = tuple(self._to_device(x) for x in inputs)
+        record_transfer(sum(tensor_nbytes(x) for x in xs), "host_to_device")
         with self._state_lock, torch.inference_mode():
-            outs = _as_tuple(torch.func.functional_call(self.module, dequantize_tree(self.params), (x,)))
+            outs = _as_tuple(torch.func.functional_call(self.module, dequantize_tree(self.params), xs))
             results = [out.to("cpu").numpy() for out in outs]
         record_transfer(sum(r.nbytes for r in results), "device_to_host")
         return results
 
     def backward(self, *tensors: np.ndarray) -> List[np.ndarray]:
-        """Gradients with respect to the input; ALSO applies one optimizer step to
+        """Gradients with respect to every input; ALSO applies one optimizer step to
         the expert (the server trains on every backward call). ``tensors`` = the
-        forward input followed by one gradient per output."""
+        forward inputs followed by one gradient per output."""
         if self.weight_quantization is not None:
             raise RuntimeError(
                 f"expert {self.name!r} serves int8 weight-only (inference-only): "
                 f"backward/training is not supported on quantized weights"
             )
-        if len(tensors) != 1 + len(self.outputs_schema):
-            raise ValueError(f"expert {self.name!r}: expected the input and {len(self.outputs_schema)} output "
-                             f"gradient(s), got {len(tensors)} tensors")
-        x = self._to_device(tensors[0]).requires_grad_(True)
-        grad_outputs = [self._to_device(g) for g in tensors[1:]]
-        record_transfer(tensor_nbytes(x) + sum(tensor_nbytes(g) for g in grad_outputs), "host_to_device")
+        self._check_count("backward (inputs, then output gradients)", tensors, self.num_inputs + self.num_outputs)
+        xs = [self._to_device(x).requires_grad_(True) for x in tensors[: self.num_inputs]]
+        grad_outputs = [self._to_device(g) for g in tensors[self.num_inputs:]]
+        record_transfer(sum(tensor_nbytes(t) for t in (*xs, *grad_outputs)), "host_to_device")
         with self._state_lock, torch.enable_grad():
             leaves = {key: tensor.detach().requires_grad_(True) for key, tensor in self.params.items()}
-            outs = _as_tuple(torch.func.functional_call(self.module, leaves, (x,)))
-            # an unused parameter gets a zero gradient, not None: optimizers skip a
-            # None, while optax updates it (weight decay, moment decay) as the JAX backend does
-            grads = torch.autograd.grad(outs, [x, *leaves.values()], grad_outputs=grad_outputs,
+            outs = _as_tuple(torch.func.functional_call(self.module, leaves, tuple(xs)))
+            # an unused parameter (or input) gets a zero gradient, not None: optimizers
+            # skip a None, while optax updates it (weight decay, moment decay) as the
+            # JAX backend does
+            grads = torch.autograd.grad(outs, [*xs, *leaves.values()], grad_outputs=grad_outputs,
                                         allow_unused=True, materialize_grads=True)
-            for tensor, grad in zip(self.params.values(), grads[1:]):
+            for tensor, grad in zip(self.params.values(), grads[self.num_inputs:]):
                 tensor.grad = grad
             self.optimizer.step()
             self.optimizer.zero_grad(set_to_none=True)
             self.update_count += 1
-            grad_x = grads[0].to("cpu").numpy()
-        record_transfer(grad_x.nbytes, "device_to_host")
-        return [grad_x]
+            grads_in = [grad.to("cpu").numpy() for grad in grads[: self.num_inputs]]
+        record_transfer(sum(grad.nbytes for grad in grads_in), "device_to_host")
+        return grads_in
 
     # ------------------------------------------------------------------ metadata
 

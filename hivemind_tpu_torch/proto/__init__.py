@@ -1,3 +1,2 @@
-"""Protobuf messages of the wire layer (``runtime.proto``; generated module
-``runtime_pb2``, checked in so the package needs no build step). Only the
-wire layer imports them: the card's path needs no protobuf."""
+"""Protobuf messages of the wire layer (``runtime.proto``), declared by field
+tables on the port's own proto3 codec (``wire.py``): no ``google.protobuf``."""

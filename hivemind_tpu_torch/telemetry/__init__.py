@@ -27,8 +27,7 @@ both.
   telemetry sampled by the watchdog tick, and the StepTimeline's comm/compute
   overlap scoring.
 - :mod:`~hivemind_tpu_torch.telemetry.blackbox` — the black-box flight recorder:
-  crash-durable on-disk spools of msgpack frames. It is NOT imported here:
-  importing this package loads no msgpack. Import the module itself for it.
+  crash-durable on-disk spools of msgpack frames (the port's own codec).
 """
 
 from hivemind_tpu_torch.telemetry.device import (
@@ -47,6 +46,14 @@ from hivemind_tpu_torch.telemetry.device import (
     remove_device_listener,
     reset_device_telemetry,
     span_lane,
+)
+from hivemind_tpu_torch.telemetry.blackbox import (
+    BlackBox,
+    SpoolWriter,
+    active_blackbox,
+    arm_blackbox,
+    disarm_blackbox,
+    read_spool,
 )
 from hivemind_tpu_torch.telemetry.exporter import MetricsExporter, render_prometheus
 from hivemind_tpu_torch.telemetry.ledger import LEDGER, RoundLedger
@@ -101,6 +108,12 @@ __all__ = [
     "record_transfer",
     "reset_device_telemetry",
     "span_lane",
+    "BlackBox",
+    "SpoolWriter",
+    "read_spool",
+    "arm_blackbox",
+    "disarm_blackbox",
+    "active_blackbox",
     "LEDGER",
     "RoundLedger",
     "SERVING_LEDGER",

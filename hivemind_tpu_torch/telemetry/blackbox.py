@@ -1,6 +1,6 @@
 """Black-box flight recorder: crash-durable telemetry spools (the port's copy of
-hivemind_tpu/telemetry/blackbox.py). Its frames are msgpack, so it stays off the
-card's path and ``hivemind_tpu_torch.telemetry`` does not import it.
+hivemind_tpu/telemetry/blackbox.py). Its frames are msgpack, written by the
+port's own codec, so it loads on the card's machine too.
 
 The in-memory observability stack (metrics, the span ring, the round/serving
 ledgers) is live-only: a crash-killed peer takes its evidence with it, exactly

@@ -21,7 +21,7 @@ loud and attributable:
   episode counts once, however long it lasts;
 - **executor gauges** — each tick samples the shared thread pools' backlog
   into ``hivemind_executor_queue_depth`` (label: ``executor`` ∈ ``blocking`` /
-  ``aead``; the port's transport, which owns the ``aead`` pool, comes later): a deep blocking-pool queue with a healthy loop means
+  ``lock`` / ``aead``): a deep blocking-pool queue with a healthy loop means
   the *executor* is the bottleneck, not the loop.
 
 Wiring: :func:`ensure_watchdog` is idempotent per loop and called wherever a
@@ -106,9 +106,10 @@ def _executor_queue_depths() -> Dict[str, int]:
     depths: Dict[str, int] = {}
     asyncio_utils = sys.modules.get("hivemind_tpu_torch.utils.asyncio_utils")
     if asyncio_utils is not None:
-        executor = getattr(asyncio_utils, "_blocking_executor", None)
-        if executor is not None:
-            depths["blocking"] = executor._work_queue.qsize()
+        for label, attr in (("blocking", "_blocking_executor"), ("lock", "_lock_executor")):
+            executor = getattr(asyncio_utils, attr, None)
+            if executor is not None:
+                depths[label] = executor._work_queue.qsize()
     crypto_channel = sys.modules.get("hivemind_tpu_torch.p2p.crypto_channel")
     if crypto_channel is not None:
         aead = getattr(crypto_channel, "_aead_executor", None)

@@ -1,15 +1,38 @@
-"""Asyncio helpers (the port's copy of ``spawn`` and ``run_in_executor`` from
+"""Asyncio helpers (the port's copy of ``spawn``, ``run_in_executor``,
+``enter_asynchronously`` and ``aiter_with_timeout`` from
 hivemind_tpu/utils/asyncio_utils.py, with its background-task error counter)."""
 
 from __future__ import annotations
 
 import asyncio
 from concurrent.futures import ThreadPoolExecutor
-from typing import Awaitable, Callable, TypeVar
+from contextlib import asynccontextmanager
+from typing import AsyncIterable, AsyncIterator, Awaitable, Callable, Optional, TypeVar, Union
 
 from hivemind_tpu_torch.utils.logging import get_logger
 
 T = TypeVar("T")
+
+_SENTINEL = object()
+
+
+async def anext_safe(aiter: AsyncIterator[T]) -> Union[T, object]:
+    """Like anext() but returns a sentinel instead of raising StopAsyncIteration."""
+    try:
+        return await aiter.__anext__()
+    except StopAsyncIteration:
+        return _SENTINEL
+
+
+async def aiter_with_timeout(iterable: AsyncIterable[T], timeout: Optional[float]) -> AsyncIterator[T]:
+    """Iterate over an async iterable, raising asyncio.TimeoutError if any single item
+    takes longer than ``timeout`` seconds."""
+    iterator = iterable.__aiter__()
+    while True:
+        item = await asyncio.wait_for(anext_safe(iterator), timeout=timeout)
+        if item is _SENTINEL:
+            return
+        yield item
 
 # strong refs: asyncio keeps only a weak reference to running tasks, so a spawned
 # task with no other referent is garbage-collectable MID-FLIGHT
@@ -66,3 +89,18 @@ _blocking_executor = ThreadPoolExecutor(max_workers=32, thread_name_prefix="hmtp
 async def run_in_executor(fn: Callable[..., T], *args) -> T:
     """Run a blocking function in the shared background thread pool."""
     return await asyncio.get_event_loop().run_in_executor(_blocking_executor, fn, *args)
+
+
+# lock acquisition can block indefinitely, so it must never share a bounded pool with
+# productive work; the watchdog reports this pool's backlog as ``lock``
+_lock_executor = ThreadPoolExecutor(max_workers=2**16, thread_name_prefix="hmtpu-torch-lock")
+
+
+@asynccontextmanager
+async def enter_asynchronously(lock):
+    """Acquire a synchronous threading.Lock without blocking the event loop."""
+    await asyncio.get_event_loop().run_in_executor(_lock_executor, lock.acquire)
+    try:
+        yield lock
+    finally:
+        lock.release()

@@ -1,8 +1,9 @@
 """MessagePack serialization with an extension-type registry, the wire format of
 DHT values and control metadata (the port's copy of
 hivemind_tpu/utils/serializer.py, with the same extension codes: 0x40 for tuples,
-0x50 and up for registered classes). Only the wire layer imports it: the card's
-path needs no msgpack."""
+0x50 and up for registered classes), on the port's own MessagePack codec
+(``utils/msgpack_codec.py``), so it loads where the ``msgpack`` package is
+missing."""
 
 from __future__ import annotations
 
@@ -10,8 +11,7 @@ import threading
 from abc import ABC, abstractmethod
 from typing import Any, Callable, Dict, Type, TypeVar
 
-import msgpack
-
+from hivemind_tpu_torch.utils import msgpack_codec
 from hivemind_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -62,22 +62,21 @@ class MSGPackSerializer(SerializerBase):
         # subclass registered under its own code is not shadowed by its base
         for code, ext_type in cls._ext_types.items():
             if type(obj) is ext_type:
-                return msgpack.ExtType(code, obj.packb())
+                return msgpack_codec.ExtType(code, obj.packb())
         best = None
         for code, ext_type in cls._ext_types.items():
             if isinstance(obj, ext_type) and (best is None or issubclass(ext_type, best[1])):
                 best = (code, ext_type)
         if best is not None:
-            return msgpack.ExtType(best[0], obj.packb())
+            return msgpack_codec.ExtType(best[0], obj.packb())
         if isinstance(obj, tuple):
-            data = msgpack.packb(list(obj), strict_types=True, use_bin_type=True, default=cls._encode_ext_types)
-            return msgpack.ExtType(_TUPLE_EXT_CODE, data)
+            return msgpack_codec.ExtType(_TUPLE_EXT_CODE, msgpack_codec.packb(list(obj), default=cls._encode_ext_types))
         raise TypeError(f"cannot serialize {obj!r} ({type(obj)})")
 
     @classmethod
     def _decode_ext_types(cls, code: int, data: bytes):
         if code == _TUPLE_EXT_CODE:
-            return tuple(msgpack.unpackb(data, ext_hook=cls._decode_ext_types, raw=False, strict_map_key=False))
+            return tuple(msgpack_codec.unpackb(data, ext_hook=cls._decode_ext_types))
         if code in cls._ext_types:
             return cls._ext_types[code].unpackb(data)
         logger.warning(f"unknown msgpack ext code {code}, returning raw bytes")
@@ -85,15 +84,14 @@ class MSGPackSerializer(SerializerBase):
 
     @classmethod
     def dumps(cls, obj: Any) -> bytes:
-        return msgpack.packb(obj, use_bin_type=True, strict_types=True, default=cls._encode_ext_types)
+        return msgpack_codec.packb(obj, default=cls._encode_ext_types)
 
     @classmethod
     def loads(cls, buf: bytes) -> Any:
-        return msgpack.unpackb(buf, ext_hook=cls._decode_ext_types, raw=False, strict_map_key=False)
+        return msgpack_codec.unpackb(buf, ext_hook=cls._decode_ext_types)
 
 
-# the tensor descriptors' codes, as the JAX package registers them; registered
-# here, so that importing the descriptors loads no msgpack
+# the tensor descriptors' codes, as the JAX package registers them
 from hivemind_tpu_torch.utils.tensor_descr import BatchTensorDescriptor, TensorDescriptor  # noqa: E402
 
 MSGPackSerializer.ext_serializable(0x51)(TensorDescriptor)

@@ -3,8 +3,8 @@ hivemind_tpu/utils/tensor_descr.py). Dtypes are canonical NUMPY names
 (``"float32"``, ``"bfloat16"``), never torch's ``"torch.float32"``, so the
 descriptors a torch peer publishes match a JAX peer's byte for byte.
 
-``packb``/``unpackb`` import the msgpack serializer when called, never at import:
-the card's path needs no msgpack."""
+``packb``/``unpackb`` import the msgpack serializer when called: the serializer
+imports this module to register the descriptors' extension codes."""
 
 from __future__ import annotations
 

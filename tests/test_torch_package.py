@@ -20,11 +20,11 @@ from hivemind_tpu_torch.utils.tensor_descr import BatchTensorDescriptor
 REPO = Path(__file__).resolve().parent.parent
 PACKAGE = REPO / "hivemind_tpu_torch"
 
-# the wire layer and the black-box spool (msgpack frames) need msgpack or protobuf,
-# which the card's machine lacks; every other module of the port (the card's path,
-# telemetry and resilience included) and chip_smoke.py load neither
-WIRE_MODULES = ("hivemind_tpu_torch.compression", "hivemind_tpu_torch.proto", "hivemind_tpu_torch.utils.serializer",
-                "hivemind_tpu_torch.telemetry.blackbox")
+# what the port never loads: the JAX stack, and the wire libraries the JAX package
+# uses (the port has its own msgpack, proto3 and libcrypto codecs, so it also loads
+# on a machine without them)
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "hivemind_tpu", "ml_dtypes", "msgpack", "google.protobuf",
+             "cryptography")
 
 _ISOLATION_PROBE = """
 import importlib, importlib.util, pathlib, sys
@@ -32,7 +32,11 @@ import numpy as np
 import torch
 import hivemind_tpu_torch
 
-WIRE = %r
+FORBIDDEN = %r
+def leaked():
+    return sorted(name for name in sys.modules
+                  if any(name == top or name.startswith(top + ".") for top in FORBIDDEN))
+
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 # from the file system: pkgutil.walk_packages would import each package to walk it
@@ -40,22 +44,13 @@ root = pathlib.Path(hivemind_tpu_torch.__file__).parent
 modules = sorted(".".join(("hivemind_tpu_torch",) + path.relative_to(root).with_suffix("").parts).removesuffix(".__init__")
                  for path in root.rglob("*.py"))
 for name in modules:
-    if not name.startswith(WIRE):
-        importlib.import_module(name)
-for name in ("hivemind_tpu_torch.moe.server.decode_session", "hivemind_tpu_torch.telemetry.device",
-             "hivemind_tpu_torch.telemetry.monitor", "hivemind_tpu_torch.resilience.chaos",
-             "hivemind_tpu_torch.utils.profiling"):
-    assert name in sys.modules, name
-assert "hivemind_tpu_torch.telemetry.blackbox" not in sys.modules
-wire_leaked = sorted(name for name in sys.modules if name.split(".")[0] == "msgpack" or name.startswith("google.protobuf"))
-assert not wire_leaked, wire_leaked
-for name in modules:
     importlib.import_module(name)
-assert "msgpack" in sys.modules and "google.protobuf" in sys.modules
-assert "hivemind_tpu_torch.telemetry.blackbox" in sys.modules
-leaked = sorted(name for name in sys.modules
-                if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "hivemind_tpu", "ml_dtypes"))
-assert not leaked, leaked
+for name in ("hivemind_tpu_torch.moe.server.decode_session", "hivemind_tpu_torch.telemetry.blackbox",
+             "hivemind_tpu_torch.p2p.p2p", "hivemind_tpu_torch.p2p.crypto_channel",
+             "hivemind_tpu_torch.moe.server.connection_handler", "hivemind_tpu_torch.moe.client.expert",
+             "hivemind_tpu_torch.proto.runtime_pb2", "hivemind_tpu_torch.utils.msgpack_codec"):
+    assert name in sys.modules, name
+assert not leaked(), leaked()
 
 assert not torch.cuda.is_available()
 from hivemind_tpu_torch.moe.server.layers import NopExpert
@@ -80,10 +75,26 @@ assert backend.forward(np.ones((2, 4), np.float32))[0].tolist() == [[1.0] * 4] *
 assert backend.backward(np.ones((2, 4), np.float32), np.ones((2, 4), np.float32))[0].tolist() == [[1.0] * 4] * 2
 import hivemind_tpu_torch.models.albert
 assert "flash_attention_bwd" in hivemind_tpu_torch.ops._build.SOURCES
-leaked = sorted(name for name in sys.modules if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "hivemind_tpu"))
-assert not leaked, leaked
+# the transport runs: a handshake over loopback loads no wire library either
+import asyncio
+from hivemind_tpu_torch.p2p import P2P
+from hivemind_tpu_torch.proto import runtime_pb2
+
+async def _echo():
+    server, client = await P2P.create(), await P2P.create()
+    async def echo(request, context):
+        return runtime_pb2.ExpertUID(uid=request.uid + "!")
+    await server.add_protobuf_handler("echo", echo, runtime_pb2.ExpertUID)
+    client.add_peer_addr(server.peer_id, server.get_visible_maddrs()[0])
+    reply = await client.call_protobuf_handler(server.peer_id, "echo", runtime_pb2.ExpertUID(uid="a"),
+                                               runtime_pb2.ExpertUID)
+    await client.shutdown()
+    await server.shutdown()
+    return reply.uid
+assert asyncio.run(_echo()) == "a!"
+assert not leaked(), leaked()
 print("isolated")
-""" % (WIRE_MODULES,)
+""" % (FORBIDDEN,)
 
 
 def test_package_imports_no_jax_and_refuses_to_run_without_cuda():
@@ -96,19 +107,14 @@ def test_package_imports_no_jax_and_refuses_to_run_without_cuda():
 
 
 def test_package_sources_never_name_the_jax_stack():
-    forbidden = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|hivemind_tpu|ml_dtypes)(\.|\s|$)", re.MULTILINE)
-    sources = sorted(PACKAGE.rglob("*.py"))
-    assert {"compression", "proto", "moe"} <= {path.relative_to(PACKAGE).parts[0] for path in sources}
+    """Nor the wire libraries, not even lazily: no import statement anywhere in the
+    port or in chip_smoke.py names one."""
+    names = "|".join(re.escape(name) for name in FORBIDDEN)
+    forbidden = re.compile(r"^\s*(import|from)\s+(" + names + r")(\.|\s|$)", re.MULTILINE)
+    sources = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert {"compression", "proto", "moe", "p2p"} <= {path.relative_to(PACKAGE).parts[0] for path in sources[:-1]}
     offenders = [str(path.relative_to(REPO)) for path in sources if forbidden.search(path.read_text())]
     assert not offenders, offenders
-    # the card's path imports no wire module at its top (the wire layer imports
-    # msgpack and protobuf at its own top), and chip_smoke.py none anywhere
-    wire = r"(import|from)\s+(msgpack|google\.protobuf|" + "|".join(map(re.escape, WIRE_MODULES)) + r")(\.|\s|$)"
-    card_path = [path for path in sources
-                 if not ".".join(path.relative_to(REPO).with_suffix("").parts).startswith(WIRE_MODULES)]
-    offenders = [str(path.relative_to(REPO)) for path in card_path if re.search("^" + wire, path.read_text(), re.MULTILINE)]
-    assert not offenders, offenders
-    assert not re.search(r"^\s*" + wire, (REPO / "chip_smoke.py").read_text(), re.MULTILINE)
 
 
 def test_no_source_names_a_jax_package_module_as_a_string():
