@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke test of hivemind_tpu_torch: builds the port's Hopper kernels,
 holds each against its plain PyTorch version at the shapes of the paths that run
-it, then drives five paths and checks each against the CPU or the local path:
+it, then drives six paths and checks each against the CPU or the local path:
 - serving: two Llama-2-7B-width blocks (fp and int8 weight-only) through
   load_llama_blocks → ModuleBackend → TaskPool/Runtime, and an expert of
   head_dim 32, which the flash kernel does not take, through ModuleBackend;
@@ -11,6 +11,11 @@ it, then drives five paths and checks each against the CPU or the local path:
   (P2P → ConnectionHandler → TaskPool/Runtime and DecodeSessionManager, a
   RemoteExpert per block as the client): forward, decode and autograd backward,
   against the local path;
+- swarm: the same blocks in three server processes found through the DHT (each a
+  DHT peer with a Server; block 1 on two replicas) and a client of DHT,
+  RemoteSequential and the client head in this process: forward, greedy decode,
+  failover when a replica process is killed, and autograd backward, against the
+  local path;
 - expert training: ModuleBackend.backward (one SGD step) on a Llama-2-7B-width block;
 - ALBERT-base MLM training: make_train_step with AdamW at batch 32 × seq 512.
 Telemetry rides the serving and decode runs, as a server would arm it (the event-loop
@@ -41,6 +46,7 @@ import json
 import math
 import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -181,6 +187,18 @@ REMOTE_PARITY_LENGTHS = (128, 512, 2048)
 REMOTE_LOSSLESS_TOL = 1e-6
 REMOTE_STREAM_BYTES = 16 << 20  # the transport's throughput: one stream of this many bytes
 REMOTE_PHASE_LIMIT_S = 60.0
+# [swarm]: three server processes found through the DHT: S1 serves block 0, S2 and S3 each
+# serve block 1 (replicas), every block as fp (SGD) and int8 under two uid prefixes. The
+# client forwards [1, 512, 4096], generates DECODE_NEW tokens from [decode]'s prompt (fp
+# and int8), fails over when the replica its session pinned for block 1 is killed after
+# SWARM_KILL_AFTER tokens, and backpropagates [1, EXPERT_TOKENS, 4096] last (it steps the
+# servers). Children that hang past the limit are killed, which fails the phase.
+SWARM_PREFIXES = {"fp": "swarm_fp.", "int8": "swarm_int8."}
+SWARM_LAYOUT = (0, 1, 1)  # the block each server process serves
+SWARM_FORWARD_LENGTH = 512
+SWARM_KILL_AFTER = 12
+SWARM_STARTUP_LIMIT_S = 120.0
+SWARM_PHASE_LIMIT_S = 180.0
 
 
 def log(message: str) -> None:
@@ -1207,6 +1225,15 @@ def forward_chain(backends: dict, x: np.ndarray) -> np.ndarray:
     return x
 
 
+def greedy_gaps(head, blocks: dict, ids: np.ndarray, prompt_len: int) -> np.ndarray:
+    """The teacher-forced replay of generated ids through the local blocks: for each
+    generated token, how far its logit lies below the best one (relative, at least 1)."""
+    replay = forward_chain(blocks, head.embed(ids[:, :-1]).cpu().numpy())
+    logits = head.logits(replay[:, prompt_len - 1:]).cpu().numpy()[0]
+    chosen = logits[np.arange(ids.shape[1] - prompt_len), ids[0, prompt_len:]]
+    return (logits.max(axis=-1) - chosen) / np.maximum(np.abs(logits.max(axis=-1)), 1.0)
+
+
 def log_profile(label: str, wall_us: float, device_us: list, top: int = 6) -> None:
     busy_us = sum(us for _, us in device_us)
     log(f"[profile] {label}: wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms ({busy_us / wall_us:.1%})")
@@ -1404,10 +1431,7 @@ def phase_decode(torch, checkpoint_dir: str, wrappers: dict, peaks: dict, teleme
             if not rel_err < SERVING_TOL:
                 raise AssertionError(f"{mode}: cached step {step} differs from the no-cache forward by {rel_err}")
         # the generated ids, by a teacher-forced replay without cache
-        replay = forward_chain(backends[mode], head.embed(ids[:, :-1]).cpu().numpy())
-        logits = head.logits(replay[:, DECODE_PROMPT - 1 :]).cpu().numpy()[0]
-        chosen = logits[np.arange(DECODE_NEW), ids[0, DECODE_PROMPT:]]
-        gaps = (logits.max(axis=-1) - chosen) / np.maximum(np.abs(logits.max(axis=-1)), 1.0)
+        gaps = greedy_gaps(head, backends[mode], ids, DECODE_PROMPT)
         flips = int((gaps > 0).sum())
         log(f"[decode] {mode}: generated {DECODE_NEW} tokens {ids[0, DECODE_PROMPT:DECODE_PROMPT + 8].tolist()}...; "
             f"teacher-forced replay: {flips} near-tie flips, largest logit gap {gaps.max():.3e} (limit {GREEDY_LOGIT_RTOL})")
@@ -1782,10 +1806,7 @@ def phase_remote(torch, checkpoint_dir: str, wrappers: dict, telemetry: Telemetr
         remote_step = np.array([s for s, _ in remote_pipes[mode].calls[1:DECODE_NEW]])
         local_step = np.array([s for s, _ in local_pipes[mode].calls[1:DECODE_NEW]])
         equal = bool(np.array_equal(remote_ids[mode], local_ids[mode]))
-        replay = forward_chain(backends[mode], head.embed(remote_ids[mode][:, :-1]).cpu().numpy())
-        logits = head.logits(replay[:, DECODE_PROMPT - 1 :]).cpu().numpy()[0]
-        chosen = logits[np.arange(DECODE_NEW), remote_ids[mode][0, DECODE_PROMPT:]]
-        gaps = (logits.max(axis=-1) - chosen) / np.maximum(np.abs(logits.max(axis=-1)), 1.0)
+        gaps = greedy_gaps(head, backends[mode], remote_ids[mode], DECODE_PROMPT)
         decode_records = [r for r in records if r["kind"] == "decode" and r["expert"].startswith(f"llama_{mode}.")]
         span_s = [r["total_s"] for r in decode_records]
         compute = [r.get("compute_s", 0.0) for r in decode_records]
@@ -1835,6 +1856,347 @@ def phase_remote(torch, checkpoint_dir: str, wrappers: dict, telemetry: Telemetr
     log(f"[remote] phase wall {elapsed:.1f} s (limit {REMOTE_PHASE_LIMIT_S} s)")
     check(elapsed <= REMOTE_PHASE_LIMIT_S, f"[remote] took {elapsed:.1f} s > {REMOTE_PHASE_LIMIT_S} s")
     telemetry.readings["remote"] = dict(records=burst_records, decode=readings)
+    if faults:
+        raise AssertionError("; ".join(faults))
+    return launches
+
+
+def swarm_server_main(conn, checkpoint_dir: str, layer: int, initial_peers: list) -> None:
+    """One server process of ``[swarm]``: its own DHT peer, bootstrapped from the
+    parent's, and a Server over ``load_llama_blocks`` on ``cuda`` for one block, fp
+    (SGD) and int8. Answers the parent's commands over ``conn``: ``reset`` (kernel
+    launch counts and serving records to 0), ``clear`` (serving records), ``report``
+    (launch counts, the medians of its ``serving.request`` spans by prefix and kind,
+    and its blocks' update counts) and ``stop``."""
+    import traceback
+
+    try:
+        import torch
+
+        from hivemind_tpu_torch.dht import DHT
+        from hivemind_tpu_torch.moe.server import Server, load_llama_blocks
+        from hivemind_tpu_torch.ops import blockwise_int8, flash_attention
+        from hivemind_tpu_torch.telemetry.serving import SERVING_LEDGER
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        wrappers = {
+            "flash_attention_forward": flash_attention.flash_attention_lse,
+            "flash_attention_backward_dq": flash_attention.flash_attention_backward_dq,
+            "flash_attention_backward_dkv": flash_attention.flash_attention_backward_dkv,
+            "blockwise_int8_quantize": blockwise_int8.blockwise_int8_quantize,
+            "blockwise_int8_dequantize": blockwise_int8.blockwise_int8_dequantize,
+        }
+        sgd = lambda params: torch.optim.SGD(params, lr=EXPERT_LR)  # noqa: E731
+        backends = {}
+        for mode, prefix in SWARM_PREFIXES.items():
+            options = {"weight_quantization": "int8"} if mode == "int8" else {"optimizer": sgd}
+            backends.update(load_llama_blocks(checkpoint_dir, layers=[layer], uid_prefix=prefix, device="cuda",
+                                              **options)[0])
+        devices = sorted({backend.device.type for backend in backends.values()})
+        if devices != ["cuda"]:
+            raise RuntimeError(f"a swarm server's blocks are on {devices}, not the card")
+        records = []
+        SERVING_LEDGER.add_record_listener(lambda kind, record: records.append(record))
+        dht = DHT(initial_peers=initial_peers, start=True)
+        server = Server(dht, backends, decode_max_len=DECODE_MAX_LEN)
+        server.run_in_background(await_ready=True, timeout=60)
+        conn.send(("ready", dht.peer_id.to_base58(), torch.cuda.get_device_name(torch.cuda.current_device())))
+        while True:
+            command = conn.recv()
+            if command == "reset":
+                for wrapper in wrappers.values():
+                    wrapper.launches = 0
+                records.clear()
+            elif command == "clear":
+                records.clear()
+            elif command == "report":
+                spans = {}
+                for mode, prefix in SWARM_PREFIXES.items():
+                    for kind in ("forward", "backward", "decode"):
+                        mine = [r["total_s"] for r in records if r["kind"] == kind and r["expert"].startswith(prefix)]
+                        if mine:
+                            spans[f"{mode}:{kind}"] = (float(np.median(mine)), float(np.percentile(mine, 90)), len(mine))
+                updates = {uid: backend.update_count for uid, backend in backends.items()}
+                conn.send(("report", {name: wrapper.launches for name, wrapper in wrappers.items()}, spans, updates))
+                continue
+            elif command == "stop":
+                server.shutdown()
+                dht.shutdown()
+                conn.send(("stopped",))
+                return
+            conn.send(("ok",))
+    except BaseException:
+        conn.send(("error", traceback.format_exc()))
+        raise
+
+
+class SwarmChild:
+    """The parent's handle on one server process of ``[swarm]``."""
+
+    def __init__(self, context, checkpoint_dir: str, layer: int, initial_peers: list):
+        self.layer = layer
+        self.conn, child_conn = context.Pipe()
+        self.process = context.Process(target=swarm_server_main, args=(child_conn, checkpoint_dir, layer, initial_peers),
+                                       daemon=True)
+        self.process.start()
+        child_conn.close()
+        self.peer_id = self.device = self.last_report = None
+
+    def receive(self, timeout: float):
+        if not self.conn.poll(max(timeout, 0.0)):
+            raise TimeoutError(f"the server process of block {self.layer} (pid {self.process.pid}) did not answer in "
+                               f"{timeout:.0f} s")
+        try:
+            reply = self.conn.recv()
+        except EOFError:
+            raise RuntimeError(f"the server process of block {self.layer} exited with code "
+                               f"{self.process.exitcode}") from None
+        if reply[0] == "error":
+            raise RuntimeError(f"the server process of block {self.layer} failed:\n{reply[1]}")
+        return reply
+
+    def ask(self, command: str, timeout: float = 30.0):
+        self.conn.send(command)
+        return self.receive(timeout)
+
+    def report(self) -> dict:
+        _, counts, spans, updates = self.ask("report")
+        self.last_report = dict(counts=counts, spans=spans, updates=updates)
+        return self.last_report
+
+    def kill(self) -> None:
+        if self.process.is_alive():
+            os.kill(self.process.pid, signal.SIGKILL)
+        self.process.join(10)
+
+
+class SwarmPipe:
+    """``decode_step`` through a RemoteSequential, noting each call's wall time and
+    output; ``after_prefill()`` runs once the prefill has returned, and
+    ``before_step(n)`` before the n-th call."""
+
+    def __init__(self, sequential, after_prefill=None, before_step=None):
+        self.sequential, self.after_prefill, self.before_step = sequential, after_prefill, before_step
+        self.calls = []
+
+    def decode_step(self, hidden, session_id, reset=False):
+        if self.before_step is not None:
+            self.before_step(len(self.calls))
+        started = time.perf_counter()
+        out = self.sequential.decode_step(hidden, session_id, reset=reset)
+        self.calls.append((time.perf_counter() - started, out))
+        if reset and self.after_prefill is not None:
+            self.after_prefill()
+        return out
+
+
+def phase_swarm(torch, checkpoint_dir: str, wrappers: dict, telemetry: Telemetry) -> dict:
+    """Peers find the blocks through the DHT and generate over them, across processes:
+    this process is a bootstrap DHT peer and the client (``DHT(initial_peers=...)``,
+    ``RemoteSequential``, ``LlamaClientHead``); three spawned server processes are each
+    a DHT peer with a ``Server`` over ``load_llama_blocks`` on the card (SWARM_LAYOUT).
+    Forward, greedy decode (fp and int8), failover when the replica pinned for block 1
+    is killed, and autograd backward last, each against the local chain. Returns the
+    launch counts summed over the server processes."""
+    import multiprocessing
+    import threading
+
+    from hivemind_tpu_torch.dht import DHT
+    from hivemind_tpu_torch.moe import RemoteSequential, get_experts
+    from hivemind_tpu_torch.moe.server import DecodeSessionManager
+    from hivemind_tpu_torch.moe.server.llama_loader import LlamaClientHead, generate_greedy, load_llama_blocks
+
+    phase_started = time.perf_counter()
+    hid, vocab = LLAMA2_7B["hidden_size"], LLAMA2_7B["vocab_size"]
+    rng = np.random.default_rng(SEED + 13)
+    backends = {  # the local twins: SGD at learning rate 0, so their backward leaves the replay's weights alone
+        "fp": load_llama_blocks(checkpoint_dir, uid_prefix=SWARM_PREFIXES["fp"], device="cuda")[0],
+        "int8": load_llama_blocks(checkpoint_dir, uid_prefix=SWARM_PREFIXES["int8"], device="cuda",
+                                  weight_quantization="int8")[0],
+    }
+    head = LlamaClientHead.load(checkpoint_dir, device="cuda")
+    x_forward = rng.standard_normal((1, SWARM_FORWARD_LENGTH, hid), dtype=np.float32)
+    prompt = np.random.default_rng(SEED + 9).integers(0, vocab, size=(1, DECODE_PROMPT))  # [decode]'s prompt
+    x_bwd = rng.standard_normal((1, EXPERT_TOKENS, hid), dtype=np.float32)
+    w_bwd = rng.standard_normal((1, EXPERT_TOKENS, hid), dtype=np.float32)
+
+    # local references, in this process (the servers count their own launches)
+    expected = {mode: forward_chain(blocks, x_forward) for mode, blocks in backends.items()}
+    local_pipes, local_ids = {}, {}
+    for mode, blocks in backends.items():
+        local_pipes[mode] = LocalPipe(DecodeSessionManager(blocks, max_len=DECODE_MAX_LEN), blocks)
+        local_ids[mode] = generate_greedy(head, local_pipes[mode], prompt, DECODE_NEW, session_id="local")
+    fp0, fp1 = backends["fp"].values()
+    hidden_1 = fp0.forward(x_bwd)[0]
+    (grad_1,) = fp1.backward(hidden_1, w_bwd)
+    (twin_grad,) = fp0.backward(x_bwd, grad_1)
+    torch.cuda.synchronize()
+    log(f"[swarm] loaded the blocks and ran the local references in {time.perf_counter() - phase_started:.1f} s")
+
+    context = multiprocessing.get_context("spawn")
+    children, dhts, faults, readings = [], [], [], {}
+    timer = None
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            faults.append(what)
+
+    def kill_all() -> None:
+        for child in children:
+            child.kill()
+
+    try:
+        started = time.perf_counter()
+        bootstrap = DHT(start=True)
+        dhts.append(bootstrap)
+        initial_peers = [str(maddr) for maddr in bootstrap.get_visible_maddrs()]
+        children.extend(SwarmChild(context, checkpoint_dir, layer, initial_peers) for layer in SWARM_LAYOUT)
+        # a child or a call that hangs past the limit: the servers are killed, which fails every call in flight
+        timer = threading.Timer(SWARM_PHASE_LIMIT_S, kill_all)
+        timer.daemon = True
+        timer.start()
+        for child in children:
+            _, child.peer_id, child.device = child.receive(SWARM_STARTUP_LIMIT_S - (time.perf_counter() - started))
+        servers_up = time.perf_counter() - started
+        by_peer = {child.peer_id: child for child in children}
+        started = time.perf_counter()
+        client_dht = DHT(initial_peers=initial_peers, start=True)
+        dhts.append(client_dht)
+        bootstrap_s = time.perf_counter() - started
+        # every block of both prefixes resolves through the DHT alone, block 1 with both replicas
+        uids = [f"{prefix}{index}" for prefix in SWARM_PREFIXES.values() for index in range(2)]
+        started = time.perf_counter()
+        while True:
+            infos = get_experts(client_dht, uids)
+            replicas = [len(info.replica_set) if info is not None else 0 for info in infos]
+            if replicas == [1, 2, 1, 2] or time.perf_counter() - started > 30:
+                break
+            time.sleep(0.05)
+        resolve_s = time.perf_counter() - started
+        if replicas != [1, 2, 1, 2]:
+            raise AssertionError(f"the DHT resolved {dict(zip(uids, replicas))} replicas")
+        owners = {uid: sorted(by_peer[r.peer_id.to_base58()].layer for r in info.replica_set)
+                  for uid, info in zip(uids, infos)}
+        log(f"[swarm] 3 server processes up in {servers_up:.1f} s (devices {sorted({c.device for c in children})}); "
+            f"the client's DHT bootstrapped in {bootstrap_s * 1e3:.1f} ms; {len(uids)} block uids resolved through "
+            f"the DHT in {resolve_s * 1e3:.1f} ms, served by the processes of blocks {owners}")
+        pipes = {mode: RemoteSequential(client_dht, prefix, 2) for mode, prefix in SWARM_PREFIXES.items()}
+        for child in children:
+            child.ask("reset")
+        for wrapper in wrappers.values():
+            wrapper.launches = 0  # the main path starts here; the servers count their own launches
+        # 1. forward through the pipe
+        with torch.no_grad():
+            for mode, pipe in pipes.items():
+                got = pipe(torch.tensor(x_forward, device="cuda")).cpu().numpy()
+                err = max_rel_err(got, expected[mode])
+                log(f"[swarm] forward {mode} [1, {SWARM_FORWARD_LENGTH}, {hid}] through the pipe (2 server "
+                    f"processes, fp16 wire) vs the local chain: max_rel_err={err:.3e} (limit {SERVING_TOL})")
+                check(err < SERVING_TOL, f"forward {mode}: rel err {err}")
+        # 2. solo greedy generation, fp and int8; the servers' records then hold the steps alone
+        swarm_pipes, swarm_ids, token_bytes, spans = {}, {}, {}, {}
+        for mode, pipe in pipes.items():
+            swarm_pipes[mode] = SwarmPipe(pipe, after_prefill=lambda: [child.ask("clear") for child in children])
+            before = wire_counters([])
+            swarm_ids[mode] = generate_greedy(head, swarm_pipes[mode], prompt, DECODE_NEW, session_id=f"swarm-{mode}")
+            after = wire_counters([])
+            token_bytes[mode] = sum(after[f"moe:{kind}:client"] - before[f"moe:{kind}:client"]
+                                    for kind in ("sent", "received")) / DECODE_NEW
+            route = [by_peer[block.peer_id.to_base58()] for block, _span in pipe._decode_routes[f"swarm-{mode}"]["route"]]
+            spans[mode] = [(child, child.report()["spans"].get(f"{mode}:decode")) for child in route]
+        # 3. failover: kill the process of the replica this session pinned for block 1
+        killed = {}
+        failover_pipe = RemoteSequential(client_dht, SWARM_PREFIXES["fp"], 2, max_retries=4)
+
+        def kill_pinned(calls: int) -> None:
+            if calls != SWARM_KILL_AFTER or killed:  # before that call, SWARM_KILL_AFTER tokens are out
+                return
+            victim = by_peer[failover_pipe._decode_routes["swarm-failover"]["route"][-1][0].peer_id.to_base58()]
+            victim.report()  # its launch counts, before it dies
+            victim.kill()
+            killed.update(child=victim, exitcode=victim.process.exitcode)
+
+        failover = SwarmPipe(failover_pipe, before_step=kill_pinned)
+        failover_ids = generate_greedy(head, failover, prompt, DECODE_NEW, session_id="swarm-failover")
+        final_route = [by_peer[block.peer_id.to_base58()]
+                       for block, _span in failover_pipe._decode_routes["swarm-failover"]["route"]]
+        # 4. autograd backward through the pipe (the servers step their SGD)
+        x_remote = torch.tensor(x_bwd, device="cuda", requires_grad=True)
+        y_remote = pipes["fp"](x_remote)
+        (y_remote * torch.tensor(w_bwd, device="cuda")).sum().backward()
+        torch.cuda.synchronize()
+        grad_err = max_rel_err(x_remote.grad.cpu().numpy(), twin_grad)
+        for child in children:
+            if child.process.is_alive():
+                child.report()
+    finally:
+        if timer is not None:
+            timer.cancel()
+        for child in children:
+            if child.process.is_alive():
+                with contextlib.suppress(Exception):
+                    child.ask("stop", timeout=20)
+            child.kill()
+        for dht in reversed(dhts):
+            dht.shutdown()
+
+    launches = {name: sum(child.last_report["counts"][name] for child in children if child.last_report)
+                for name in wrappers}
+    log(f"[swarm] launches summed over the server processes (the killed one's read just before its kill): "
+        f"{json.dumps(launches)}")
+    for mode in pipes:
+        steps = np.array([seconds for seconds, _ in swarm_pipes[mode].calls[1:]])
+        equal = bool(np.array_equal(swarm_ids[mode], local_ids[mode]))
+        gaps = greedy_gaps(head, backends[mode], swarm_ids[mode], DECODE_PROMPT)
+        local_step = np.array([seconds for seconds, _ in local_pipes[mode].calls[1:]])
+        in_process = telemetry.readings.get("remote", {}).get("decode", {}).get(mode, {}).get("remote_step")
+        served = [(child.layer, span) for child, span in spans[mode] if span is not None]
+        outside = float(np.median(steps)) - sum(span[0] for _, span in served)
+        log(f"[swarm] decode {mode}: {DECODE_NEW} tokens from a {DECODE_PROMPT}-token prompt across processes; ids "
+            f"equal to the local pipe's: {equal}; teacher-forced replay largest logit gap {gaps.max():.3e} (limit "
+            f"{GREEDY_LOGIT_RTOL}); per-token latency median / p90 {median_p90(steps)}; locally ([decode]'s pipe) "
+            f"{median_p90(local_step)}"
+            + (f"; in one process over loopback ([remote]) {median_p90(in_process)}" if in_process is not None else "")
+            + f"; prefill (the server processes' first decode call) {swarm_pipes[mode].calls[0][0] * 1e3:.3f} ms; each server's span of a decode step, median "
+            f"(p90, steps): " + ", ".join(f"block {layer} {span[0] * 1e3:.3f} ms ({span[1] * 1e3:.3f} ms, {span[2]})"
+                                          for layer, span in served)
+            + f"; the client's time outside the servers' spans {outside * 1e3:.3f} ms a step; "
+            f"{token_bytes[mode]:.0f} B on the wire per generated token (the prefill included)")
+        check(gaps.max() <= GREEDY_LOGIT_RTOL, f"{mode}: a token generated across processes lies {gaps.max()} "
+                                               f"below the best")
+        check(len(served) == 2, f"{mode}: {len(served)} servers reported decode spans")
+        readings[mode] = dict(steps=steps, outside=outside, served=served, token_bytes=token_bytes[mode])
+    check(bool(killed), "no replica was killed during the failover run")
+    if killed:
+        failover_equal = bool(np.array_equal(failover_ids, swarm_ids["fp"]))
+        gaps = greedy_gaps(head, backends["fp"], failover_ids, DECODE_PROMPT)
+        steps = [seconds for seconds, _ in failover.calls[1:]]
+        failed_over = failover.calls[SWARM_KILL_AFTER][0]
+        others = np.array(steps[:SWARM_KILL_AFTER - 1] + steps[SWARM_KILL_AFTER:])
+        log(f"[swarm] failover: the process of the block-1 replica pinned by the session was SIGKILLed (exit code "
+            f"{killed['exitcode']}) after {SWARM_KILL_AFTER} tokens; the session went on through the processes of "
+            f"blocks {[child.layer for child in final_route]}; ids equal to the uninterrupted run: {failover_equal}; "
+            f"teacher-forced replay largest logit gap {gaps.max():.3e} (limit {GREEDY_LOGIT_RTOL}); the failed-over "
+            f"token took {failed_over * 1e3:.1f} ms (re-resolution and re-prefill of the retained "
+            f"{DECODE_PROMPT + SWARM_KILL_AFTER} positions), the other tokens median / p90 {median_p90(others)}")
+        check(killed["exitcode"] == -signal.SIGKILL, f"the killed replica exited with {killed['exitcode']}")
+        check(killed["child"].layer == 1 and final_route[-1].layer == 1 and final_route[-1] is not killed["child"],
+              f"the session did not move to the other replica: blocks {[child.layer for child in final_route]}")
+        check(failover_equal or gaps.max() <= GREEDY_LOGIT_RTOL, f"failover: a token lies {gaps.max()} below the best")
+        readings["failover"] = dict(token_s=failed_over, others=others, equal=failover_equal)
+    updates = sorted((uid, child.layer, child is killed.get("child"), count) for child in children if child.last_report
+                     for uid, count in child.last_report["updates"].items() if uid.startswith(SWARM_PREFIXES["fp"]))
+    log(f"[swarm] autograd through the pipe at [1, {EXPERT_TOKENS}, {hid}] (fp16 wire): input gradient vs the local "
+        f"chain's ModuleBackend.backward max_rel_err={grad_err:.3e} (limit {SERVING_TOL}); updates of the fp blocks "
+        f"(uid, process's block, killed, updates): {updates}")
+    check(grad_err < SERVING_TOL, f"backward: gradient rel err {grad_err}")
+    check([count for *_, killed_one, count in updates if not killed_one] == [1, 1],
+          f"backward: each live fp block steps once, the updates are {updates}")
+    elapsed = time.perf_counter() - phase_started
+    log(f"[swarm] phase wall {elapsed:.1f} s (limit {SWARM_PHASE_LIMIT_S} s)")
+    check(elapsed <= SWARM_PHASE_LIMIT_S, f"[swarm] took {elapsed:.1f} s > {SWARM_PHASE_LIMIT_S} s")
+    telemetry.readings["swarm"] = readings
     if faults:
         raise AssertionError("; ".join(faults))
     return launches
@@ -2015,6 +2377,8 @@ def main() -> int:
         "decode": ("blockwise_int8_dequantize",),
         "remote": ("flash_attention_forward", "flash_attention_backward_dq", "flash_attention_backward_dkv",
                    "blockwise_int8_dequantize"),
+        "swarm": ("flash_attention_forward", "flash_attention_backward_dq", "flash_attention_backward_dkv",
+                  "blockwise_int8_dequantize"),
     }
 
     line = card_line()
@@ -2052,6 +2416,9 @@ def main() -> int:
         path_launches["decode"] = run("decode", phase_decode, torch, checkpoint.name, wrappers, peaks, telemetry)
         path_launches["remote"] = run("remote", phase_remote, torch, checkpoint.name, wrappers, telemetry)
         run("telemetry", phase_telemetry, torch, telemetry, exporter.port)
+        # after [telemetry]: the swarm's DHT and server arm a watchdog on the port's shared
+        # loop, which stays open, so the registry would not hold still for its scrape
+        path_launches["swarm"] = run("swarm", phase_swarm, torch, checkpoint.name, wrappers, telemetry)
         path_launches["expert_backward"] = run("expert_backward", phase_expert_backward, torch, checkpoint.name, wrappers)
         path_launches["train"] = run("train", phase_train, torch, peaks, wrappers)
     finally:

@@ -1,0 +1,12 @@
+"""The DHT (the port of hivemind_tpu/dht/): Kademlia routing, storage, the
+ping/store/find protocol, beam-search traversal, the DHTNode and the sync ``DHT``
+facade, on the JAX package's wire, so port and JAX peers share one swarm. The
+pydantic schema validator waits for the collaborative optimizer."""
+
+from hivemind_tpu_torch.dht.crypto import Ed25519SignatureValidator
+from hivemind_tpu_torch.dht.dht import DHT
+from hivemind_tpu_torch.dht.node import Blacklist, DHTNode
+from hivemind_tpu_torch.dht.protocol import DHTProtocol
+from hivemind_tpu_torch.dht.routing import DHTID, DHTKey, PeerInfo, RoutingTable, Subkey
+from hivemind_tpu_torch.dht.storage import DHTLocalStorage, DictionaryDHTValue
+from hivemind_tpu_torch.dht.validation import CompositeValidator, DHTRecord, RecordValidatorBase

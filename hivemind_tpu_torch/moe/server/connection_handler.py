@@ -81,26 +81,34 @@ class ConnectionHandler(ServicerBase):
     _idempotent_rpcs = IDEMPOTENT_CONNECTION_RPCS
 
     def __init__(self, backends: Dict[str, ModuleBackend], decode_max_len: int = 256,
-                 activation_compression: str = "float16"):
+                 decode_max_sessions: int = 64, max_queue_size: int = 1024,
+                 activation_compression: str = "float16",
+                 client_rate: Optional[float] = None,
+                 client_burst: Optional[float] = None):
         self.backends = backends
         self.activation_codec = resolve_activation_codec(activation_compression)
         self.forward_pools: Dict[str, TaskPool] = {}
         self.backward_pools: Dict[str, TaskPool] = {}
-        self.decode_sessions = DecodeSessionManager(backends, max_len=decode_max_len)
+        self._max_queue_size = max_queue_size
+        self.decode_sessions = DecodeSessionManager(backends, max_len=decode_max_len,
+                                                    max_sessions=decode_max_sessions)
         # fair-share admission: per-client token buckets ahead of the bounded
         # queues; one hot tenant sheds at its own budget, typed exactly like a
-        # queue shed, while other clients keep flowing. Opt-in: the owner assigns
-        # a FairShareAdmission here.
-        self.admission: Optional[FairShareAdmission] = None
+        # queue shed, while other clients keep flowing. Opt-in (``client_rate``).
+        self.admission: Optional[FairShareAdmission] = (
+            FairShareAdmission(client_rate, burst=client_burst) if client_rate else None
+        )
         for name, backend in backends.items():
             self._register_pools(name, backend)
 
     def _register_pools(self, name: str, backend: ModuleBackend) -> None:
         self.forward_pools[name] = TaskPool(
-            backend.forward, f"{name}_forward", max_batch_size=backend.max_batch_size
+            backend.forward, f"{name}_forward", max_batch_size=backend.max_batch_size,
+            max_queue_size=self._max_queue_size,
         )
         self.backward_pools[name] = TaskPool(
-            backend.backward, f"{name}_backward", max_batch_size=backend.max_batch_size
+            backend.backward, f"{name}_backward", max_batch_size=backend.max_batch_size,
+            max_queue_size=self._max_queue_size,
         )
 
     def _admit(self, context: P2PContext, tensors, kind: str) -> None:

@@ -3,15 +3,20 @@ calls, so that the port's messages load where ``google.protobuf`` is missing.
 
 A message class lists its fields in ``FIELDS`` (name, number, type; repeated or
 not; the message or enum type), the table that ``protoc`` would compile from the
-``.proto`` file. The types are the ones ``runtime.proto`` uses: bytes, string,
-uint32, bool, enum and repeated messages. Instances take keyword constructors and
-attribute access; a repeated field is a list with ``add()`` for message elements.
-The bytes are proto3's:
+``.proto`` file. The types are the ones ``runtime.proto`` and ``dht.proto`` use:
+bytes, string, uint32, bool, enum, double and messages, singular or repeated.
+Instances take keyword constructors and attribute access; a repeated field is a
+list with ``add()`` for message elements. The bytes are proto3's:
 
 - fields are written in ascending field number;
-- a field that holds its default (0, "", b"", False, an empty list) is not
-  written;
-- repeated scalars are packed.
+- a scalar field that holds its default (0, 0.0 but not -0.0, "", b"", False,
+  an empty list) is not written;
+- repeated scalars are packed (a double as 8 little-endian bytes);
+- a singular message field has presence, as in protobuf: an absent one reads as
+  a default instance and is not written, ``HasField`` tells the two apart, a
+  set one is written even when it is empty, and setting a field of the default
+  instance (``msg.peer.node_id = ...``) makes it present. It is set through the
+  constructor, ``CopyFrom`` or its own fields, never by assignment.
 
 The parser also takes the unpacked form of a repeated scalar, skips unknown
 fields of every wire type, and keeps the last value of a scalar field that
@@ -26,16 +31,19 @@ scatter-gather frames of ``compression/serialization.py``.
 from __future__ import annotations
 
 import operator
+import struct
 from typing import Any, Dict, Iterable, List, Mapping, NamedTuple, Optional, Tuple, Type
 
 VARINT, FIXED64, LENGTH_DELIMITED, START_GROUP, END_GROUP, FIXED32 = 0, 1, 2, 3, 4, 5
 
 # field types, with protobuf's names
-BOOL, STRING, MESSAGE, BYTES, UINT32, ENUM = "bool", "string", "message", "bytes", "uint32", "enum"
+BOOL, STRING, MESSAGE, BYTES, UINT32, ENUM, DOUBLE = (
+    "bool", "string", "message", "bytes", "uint32", "enum", "double")
 _WIRE_TYPES = {BOOL: VARINT, STRING: LENGTH_DELIMITED, MESSAGE: LENGTH_DELIMITED, BYTES: LENGTH_DELIMITED,
-               UINT32: VARINT, ENUM: VARINT}
-_DEFAULTS = {BOOL: False, STRING: "", BYTES: b"", UINT32: 0, ENUM: 0}
-_PACKABLE = frozenset({BOOL, UINT32, ENUM})
+               UINT32: VARINT, ENUM: VARINT, DOUBLE: FIXED64}
+_DEFAULTS = {BOOL: False, STRING: "", BYTES: b"", UINT32: 0, ENUM: 0, DOUBLE: 0.0}
+_PACKABLE = frozenset({BOOL, UINT32, ENUM, DOUBLE})
+_DOUBLE = struct.Struct("<d")
 _INT_RANGES = {UINT32: (0, 1 << 32), ENUM: (-(1 << 31), 1 << 31)}
 _MASK64 = (1 << 64) - 1
 
@@ -162,6 +170,10 @@ def _coerce(field: Field, value: Any) -> Any:
         return value
     if kind == BOOL:
         return bool(operator.index(value))
+    if kind == DOUBLE:
+        if not isinstance(value, (int, float)):
+            raise TypeError(f"field {field.name!r} takes a number, not {type(value).__name__}")
+        return float(value)
     if kind == STRING:
         if isinstance(value, bytes):
             return value.decode("utf-8")
@@ -181,24 +193,32 @@ class RepeatedField(list):
     """A repeated field: a list whose elements are checked as they arrive, with
     ``add(**fields)`` for message elements."""
 
-    __slots__ = ("_field",)
+    __slots__ = ("_field", "_owner")
 
-    def __init__(self, field: Field, values: Iterable[Any] = ()):
+    def __init__(self, field: Field, values: Iterable[Any] = (), owner: Optional["Message"] = None):
         super().__init__(_coerce(field, value) for value in values)
         self._field = field
+        self._owner = owner  # the message holding this list, told when it grows
 
     def append(self, value: Any) -> None:
         super().append(_coerce(self._field, value))
+        self._touched()
 
     def extend(self, values: Iterable[Any]) -> None:
         super().extend(_coerce(self._field, value) for value in values)
+        self._touched()
 
     def add(self, **fields: Any) -> "Message":
         if self._field.message_type is None:
             raise AttributeError(f"add() is for message fields; {self._field.name!r} holds {self._field.type}")
         message = self._field.message_type(**fields)
         super().append(message)
+        self._touched()
         return message
+
+    def _touched(self) -> None:
+        if self._owner is not None:
+            self._owner._touched()
 
 
 class _MessageMeta(type):
@@ -208,22 +228,51 @@ class _MessageMeta(type):
     def __new__(mcs, name, bases, namespace):
         fields = tuple(sorted(namespace.get("FIELDS", ()), key=lambda field: field.number))
         for field in fields:
-            if field.type not in _WIRE_TYPES or (field.type == MESSAGE and not field.repeated):
-                raise TypeError(f"{name}.{field.name}: a {field.type} field{'' if field.repeated else ' (singular)'} "
-                                f"is not in the codec's subset")
-        namespace.update(FIELDS=fields, __slots__=tuple(field.name for field in fields),
+            if field.type not in _WIRE_TYPES:
+                raise TypeError(f"{name}.{field.name}: a {field.type} field is not in the codec's subset")
+            if field.type == MESSAGE and field.message_type is None:
+                raise TypeError(f"{name}.{field.name}: a message field names its message type")
+        singular = tuple(field for field in fields if field.type == MESSAGE and not field.repeated)
+        slots = [field.name for field in fields if field not in singular]
+        # a singular message lives in a slot of its own behind a property, which makes
+        # the default instance on first read
+        slots += [f"_m_{field.name}" for field in singular] + ["_present", "_owner"]
+        for field in singular:
+            namespace[field.name] = _singular_message_property(field)
+        namespace.update(FIELDS=fields, __slots__=tuple(slots),
                          _FIELDS_BY_NAME={field.name: field for field in fields},
                          _FIELDS_BY_NUMBER={field.number: field for field in fields})
         return super().__new__(mcs, name, bases, namespace)
 
 
-def _is_default(value: Any) -> bool:
+def _singular_message_property(field: Field) -> property:
+    slot = f"_m_{field.name}"
+
+    def get(self: "Message") -> "Message":
+        value = object.__getattribute__(self, slot)
+        if value is None:  # absent: a default instance that makes the field present once it is set
+            value = field.message_type()
+            object.__setattr__(value, "_owner", (self, field.name))
+            object.__setattr__(self, slot, value)
+        return value
+
+    def refuse(self: "Message", value: Any) -> None:
+        raise AttributeError(f'Assignment not allowed to message field "{field.name}" in protocol message object.')
+
+    return property(get, refuse)
+
+
+def _is_default(field: Field, value: Any) -> bool:
+    if field.type == DOUBLE and not field.repeated:
+        return _DOUBLE.pack(value) == b"\0" * 8  # 0.0 is the default, -0.0 is written
     return not value  # 0, False, "", b"" or an empty repeated field
 
 
 def _scalar_bytes(field: Field, value: Any) -> bytes:
     if field.type == STRING:
         return value.encode("utf-8")
+    if field.type == DOUBLE:
+        return _DOUBLE.pack(value)
     return encode_varint(int(value))
 
 
@@ -235,31 +284,74 @@ class Message(metaclass=_MessageMeta):
     _FIELDS_BY_NUMBER: Dict[int, Field] = {}
 
     def __init__(self, **fields: Any):
+        object.__setattr__(self, "_present", set())
+        if not hasattr(self, "_owner"):
+            object.__setattr__(self, "_owner", None)
         for field in self.FIELDS:
             value = fields.pop(field.name, None)
             if field.repeated:
-                object.__setattr__(self, field.name, RepeatedField(field, value if value is not None else ()))
+                object.__setattr__(self, field.name,
+                                   RepeatedField(field, value if value is not None else (), owner=self))
+            elif field.type == MESSAGE:
+                object.__setattr__(self, f"_m_{field.name}", None)
+                if value is not None:
+                    self._set_message(field, _coerce(field, value))
             else:
                 object.__setattr__(self, field.name, _DEFAULTS[field.type] if value is None else _coerce(field, value))
         if fields:
             raise ValueError(f"{type(self).__name__} has no field(s) {sorted(fields)}")
 
+    def _set_message(self, field: Field, value: "Message") -> None:
+        """Make a singular message field present, holding a copy of ``value``."""
+        getattr(self, field.name).CopyFrom(value)
+        self._present.add(field.name)
+
     def __setattr__(self, name: str, value: Any) -> None:
         field = self._FIELDS_BY_NAME.get(name)
         if field is None:
             raise AttributeError(f"{type(self).__name__} has no field {name!r}")
-        object.__setattr__(self, name, RepeatedField(field, value) if field.repeated else _coerce(field, value))
+        if field.type == MESSAGE and not field.repeated:
+            getattr(type(self), name).fset(self, value)  # refuses, as protobuf does
+        object.__setattr__(self, name, RepeatedField(field, value, owner=self) if field.repeated
+                           else _coerce(field, value))
+        self._touched()
+
+    def _touched(self) -> None:
+        """A field of this message was set: a default instance read from its parent's
+        absent field becomes present there (and so on up)."""
+        owner = self._owner
+        if owner is not None:
+            parent, name = owner
+            object.__setattr__(self, "_owner", None)
+            parent._present.add(name)
+            parent._touched()
+
+    def HasField(self, name: str) -> bool:
+        field = self._FIELDS_BY_NAME.get(name)
+        if field is None:
+            raise ValueError(f'Protocol message {type(self).__name__} has no field {name}.')
+        if field.type != MESSAGE or field.repeated:
+            raise ValueError(f"Field {type(self).__name__}.{name} does not have presence.")
+        return name in self._present
+
+    def _value_or_absent(self, field: Field) -> Any:
+        if field.type == MESSAGE and not field.repeated:
+            return getattr(self, field.name) if field.name in self._present else None
+        return getattr(self, field.name)
 
     def __eq__(self, other: Any) -> bool:
         if type(other) is not type(self):
             return NotImplemented
-        return all(getattr(self, f.name) == getattr(other, f.name) for f in self.FIELDS)
+        return all(self._value_or_absent(f) == other._value_or_absent(f) for f in self.FIELDS)
 
     def __repr__(self) -> str:
         shown = []
         for field in self.FIELDS:
-            value = getattr(self, field.name)
-            if not _is_default(value):
+            value = self._value_or_absent(field)
+            if field.type == MESSAGE and not field.repeated:
+                if value is not None:
+                    shown.append(f"{field.name}={value!r}")
+            elif not _is_default(field, value):
                 if field.type == BYTES and not field.repeated and len(value) > 32:
                     value = f"<{len(value)} bytes>"
                 shown.append(f"{field.name}={value!r}")
@@ -269,9 +361,14 @@ class Message(metaclass=_MessageMeta):
 
     def _encode_into(self, out: List[Any]) -> None:
         for field in self.FIELDS:
-            value = getattr(self, field.name)
-            if _is_default(value):
-                continue
+            if field.type == MESSAGE and not field.repeated:
+                if field.name not in self._present:
+                    continue
+                value = getattr(self, field.name)
+            else:
+                value = getattr(self, field.name)
+                if _is_default(field, value):
+                    continue
             if field.repeated and field.type in _PACKABLE:
                 body = b"".join(_scalar_bytes(field, item) for item in value)
                 out += (encode_tag(field.number, LENGTH_DELIMITED), encode_varint(len(body)), body)
@@ -299,9 +396,14 @@ class Message(metaclass=_MessageMeta):
     def ByteSize(self) -> int:
         size = 0
         for field in self.FIELDS:
-            value = getattr(self, field.name)
-            if _is_default(value):
-                continue
+            if field.type == MESSAGE and not field.repeated:
+                if field.name not in self._present:
+                    continue
+                value = getattr(self, field.name)
+            else:
+                value = getattr(self, field.name)
+                if _is_default(field, value):
+                    continue
             tag_size = varint_size(field.number << 3)
             if field.repeated and field.type in _PACKABLE:
                 body = sum(len(_scalar_bytes(field, item)) for item in value)
@@ -350,9 +452,13 @@ class Message(metaclass=_MessageMeta):
                         raise DecodeError(f"packed field {field.name!r} overruns its length")
                     continue
                 if field.type == MESSAGE:
-                    message = field.message_type()
-                    message._merge(chunk)
-                    list.append(getattr(self, field.name), message)
+                    if field.repeated:
+                        message = field.message_type()
+                        message._merge(chunk)
+                        list.append(getattr(self, field.name), message)
+                    else:  # a singular message merges every occurrence, as protobuf does
+                        getattr(self, field.name)._merge(chunk)
+                        self._present.add(field.name)
                     continue
                 if field.type == STRING:
                     try:
@@ -389,15 +495,29 @@ class Message(metaclass=_MessageMeta):
         if other is self:
             return
         for field in self.FIELDS:
+            if field.type == MESSAGE and not field.repeated:
+                copy = field.message_type()
+                if field.name in other._present:
+                    copy.CopyFrom(getattr(other, field.name))
+                    self._present.add(field.name)
+                else:
+                    self._present.discard(field.name)
+                    copy = None
+                object.__setattr__(self, f"_m_{field.name}", copy)
+                continue
             value = getattr(other, field.name)
             if field.type == MESSAGE:  # repeated: copied element by element
                 value = [type(item)() for item in value]
                 for copy, item in zip(value, getattr(other, field.name)):
                     copy.CopyFrom(item)
-            object.__setattr__(self, field.name, RepeatedField(field, value) if field.repeated else value)
-
+            object.__setattr__(self, field.name, RepeatedField(field, value, owner=self) if field.repeated else value)
+        self._touched()
 
 def _read_scalar(field: Field, buf: memoryview, pos: int) -> Tuple[Any, int]:
+    if field.type == DOUBLE:
+        if pos + 8 > len(buf):
+            raise DecodeError(f"truncated double in field {field.name!r}")
+        return _DOUBLE.unpack_from(buf, pos)[0], pos + 8
     raw, pos = decode_varint(buf, pos)
     if field.type == BOOL:
         return raw != 0, pos

@@ -12,7 +12,7 @@ both.
 - :mod:`~hivemind_tpu_torch.telemetry.exporter` — ``GET /metrics`` + ``GET /trace``
   over stdlib HTTP.
 - :mod:`~hivemind_tpu_torch.telemetry.monitor` — the per-peer snapshot and the
-  swarm-wide aggregation view (its DHT publisher and monitor come with the DHT).
+  swarm-wide aggregation view (its DHT publisher and monitor come in a later slice).
 - :mod:`~hivemind_tpu_torch.telemetry.ledger` — the per-round attribution ledger:
   one structured record per averaging round / optimizer epoch with per-peer
   straggler scores, served at ``GET /ledger``.

@@ -3,8 +3,8 @@ peer's compact snapshot, its shrinking to a DHT record's budget, and the
 aggregation of all peers' snapshots into one view.
 
 The DHT-facing half of the JAX module — ``TelemetryPublisher``,
-``fetch_swarm_telemetry`` and ``SwarmMonitor`` — takes a DHT and comes with the
-port's DHT. The snapshot and the aggregation are plain dicts, byte-compatible
+``fetch_swarm_telemetry`` and ``SwarmMonitor`` — takes a DHT and comes in a
+later slice of the port, on the port's DHT. The snapshot and the aggregation are plain dicts, byte-compatible
 with the JAX package's, so a torch peer and a JAX peer read each other's.
 """
 

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import base64
 import binascii
+import threading
 from abc import ABC, abstractmethod
 from typing import Optional
 
@@ -34,6 +35,9 @@ class PublicKeyBase(ABC):
 
 
 class Ed25519PrivateKey(PrivateKeyBase):
+    _process_wide: Optional["Ed25519PrivateKey"] = None
+    _process_wide_lock = threading.Lock()
+
     def __init__(self, key: Optional[_libcrypto.Ed25519PrivateKey] = None):
         self._key = key if key is not None else _libcrypto.Ed25519PrivateKey.generate()
 
@@ -49,6 +53,20 @@ class Ed25519PrivateKey(PrivateKeyBase):
     @classmethod
     def from_bytes(cls, data: bytes) -> "Ed25519PrivateKey":
         return cls(_libcrypto.Ed25519PrivateKey.from_private_bytes(data))
+
+    @classmethod
+    def process_wide(cls) -> "Ed25519PrivateKey":
+        """A singleton key shared by all components in this process (the DHT's
+        record signer by default)."""
+        with cls._process_wide_lock:
+            if cls._process_wide is None:
+                cls._process_wide = cls()
+            return cls._process_wide
+
+    @classmethod
+    def reset_process_wide(cls) -> None:
+        with cls._process_wide_lock:
+            cls._process_wide = None
 
 
 class Ed25519PublicKey(PublicKeyBase):

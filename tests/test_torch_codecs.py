@@ -2,8 +2,9 @@
 in both directions: its msgpack subset against ``msgpack``, its MSGPackSerializer
 against the JAX package's, every ``runtime.proto`` message against the generated
 ``hivemind_tpu.proto.runtime_pb2`` (unknown fields, unpacked repeated input and
-default values included, and the field tables against the generated
-descriptors), and its libcrypto shim against ``cryptography`` for the same keys
+default values included, and the field tables of both schemas against the
+generated descriptors), ``dht.proto``'s doubles and singular messages against
+``hivemind_tpu.proto.dht_pb2``, and its libcrypto shim against ``cryptography`` for the same keys
 and nonces, PeerID included."""
 
 from __future__ import annotations
@@ -23,13 +24,14 @@ from hypothesis import HealthCheck, given, settings
 from hypothesis import strategies as st
 
 from hivemind_tpu.p2p.peer_id import PeerID as JaxPeerID
+from hivemind_tpu.proto import dht_pb2 as jax_dht_pb2
 from hivemind_tpu.proto import runtime_pb2 as jax_pb2
 from hivemind_tpu.utils.crypto import Ed25519PrivateKey as JaxEd25519PrivateKey
 from hivemind_tpu.utils.serializer import MSGPackSerializer as JaxMSGPackSerializer
 from hivemind_tpu.utils.tensor_descr import BatchTensorDescriptor as JaxBatchTensorDescriptor
 from hivemind_tpu_torch.p2p import P2P
 from hivemind_tpu_torch.p2p.peer_id import PeerID
-from hivemind_tpu_torch.proto import runtime_pb2, wire
+from hivemind_tpu_torch.proto import dht_pb2, runtime_pb2, wire
 from hivemind_tpu_torch.utils import _libcrypto, msgpack_codec
 from hivemind_tpu_torch.utils.crypto import Ed25519PrivateKey
 from hivemind_tpu_torch.utils.serializer import MSGPackSerializer
@@ -265,7 +267,9 @@ def test_malformed_messages_raise_decode_errors():
 
 _PROTO_TYPES = {wire.BYTES: FieldDescriptor.TYPE_BYTES, wire.UINT32: FieldDescriptor.TYPE_UINT32,
                 wire.STRING: FieldDescriptor.TYPE_STRING, wire.BOOL: FieldDescriptor.TYPE_BOOL,
-                wire.ENUM: FieldDescriptor.TYPE_ENUM, wire.MESSAGE: FieldDescriptor.TYPE_MESSAGE}
+                wire.ENUM: FieldDescriptor.TYPE_ENUM, wire.MESSAGE: FieldDescriptor.TYPE_MESSAGE,
+                wire.DOUBLE: FieldDescriptor.TYPE_DOUBLE}
+DHT_MESSAGES = tuple(jax_dht_pb2.DESCRIPTOR.message_types_by_name)
 
 
 def _is_repeated(field: FieldDescriptor) -> bool:
@@ -274,19 +278,78 @@ def _is_repeated(field: FieldDescriptor) -> bool:
     return field.label == FieldDescriptor.LABEL_REPEATED
 
 
-@pytest.mark.parametrize("name", MESSAGES)
+@pytest.mark.parametrize("name", MESSAGES + DHT_MESSAGES)
 def test_field_tables_match_the_generated_descriptors(name):
-    descriptor = jax_pb2.DESCRIPTOR.message_types_by_name[name]
+    ours_module, theirs_module, enum_name = ((runtime_pb2, jax_pb2, "CompressionType") if name in MESSAGES
+                                             else (dht_pb2, jax_dht_pb2, "ResultType"))
+    descriptor = theirs_module.DESCRIPTOR.message_types_by_name[name]
     theirs = [(f.name, f.number, f.type, _is_repeated(f),
                f.message_type.name if f.message_type else None, f.enum_type.name if f.enum_type else None)
               for f in descriptor.fields]
     ours = [(f.name, f.number, _PROTO_TYPES[f.type], f.repeated,
              f.message_type.__name__ if f.message_type else None, f.enum_type.name if f.enum_type else None)
-            for f in runtime_pb2.DESCRIPTOR.message_types_by_name[name].FIELDS]
+            for f in ours_module.DESCRIPTOR.message_types_by_name[name].FIELDS]
     assert ours == theirs
-    assert set(runtime_pb2.DESCRIPTOR.message_types_by_name) == set(jax_pb2.DESCRIPTOR.message_types_by_name)
-    enum_type = jax_pb2.DESCRIPTOR.enum_types_by_name["CompressionType"]
-    assert runtime_pb2.CompressionType.items() == [(v.name, v.number) for v in enum_type.values]
+    assert set(ours_module.DESCRIPTOR.message_types_by_name) == set(theirs_module.DESCRIPTOR.message_types_by_name)
+    enum_type = theirs_module.DESCRIPTOR.enum_types_by_name[enum_name]
+    assert getattr(ours_module, enum_name).items() == [(v.name, v.number) for v in enum_type.values]
+
+
+# ------------------------------------------------------------------ doubles and singular messages
+
+any_double = st.floats() | st.sampled_from([0.0, -0.0, float("nan"), float("inf"), -float("inf"), 5e-324])
+
+
+@SETTINGS
+@given(single=any_double, repeated=st.lists(any_double, max_size=6))
+def test_doubles_are_protobufs_bytes_both_ways(single, repeated):
+    ours = dht_pb2.FindResult(expiration_time=single)
+    theirs = jax_dht_pb2.FindResult(expiration_time=single)
+    assert ours.SerializeToString() == theirs.SerializeToString()  # 0.0 left out, -0.0 and nan written
+    ours_list = dht_pb2.StoreRequest(expiration_time=repeated)
+    theirs_list = jax_dht_pb2.StoreRequest(expiration_time=repeated)
+    encoded = theirs_list.SerializeToString()
+    assert ours_list.SerializeToString() == encoded and ours_list.ByteSize() == len(encoded)  # packed
+    parsed = dht_pb2.StoreRequest.FromString(encoded)
+    assert [struct.pack("<d", v) for v in parsed.expiration_time] == [struct.pack("<d", v) for v in repeated]
+    back = jax_dht_pb2.FindResult.FromString(ours.SerializeToString()).expiration_time
+    assert struct.pack("<d", back) == struct.pack("<d", single)
+
+
+def test_unpacked_doubles_parse_and_truncated_ones_raise():
+    unpacked = b"".join(wire.encode_tag(4, wire.FIXED64) + struct.pack("<d", v) for v in (1.5, -2.25))
+    packed = wire.encode_tag(4, wire.LENGTH_DELIMITED) + b"\x08" + struct.pack("<d", 8.0)
+    ours, theirs = dht_pb2.StoreRequest.FromString(unpacked + packed), jax_dht_pb2.StoreRequest.FromString(unpacked + packed)
+    assert list(ours.expiration_time) == list(theirs.expiration_time) == [1.5, -2.25, 8.0]
+    assert ours.SerializeToString() == theirs.SerializeToString()
+    with pytest.raises(wire.DecodeError):
+        dht_pb2.PingResponse.FromString(wire.encode_tag(2, wire.FIXED64) + b"\x00" * 7)
+    with pytest.raises(wire.DecodeError):
+        dht_pb2.StoreRequest.FromString(wire.encode_tag(4, wire.LENGTH_DELIMITED) + b"\x05" + b"\x00" * 5)
+
+
+def test_singular_messages_have_presence_merge_and_copy_as_in_protobuf():
+    first = jax_dht_pb2.NodeInfo(node_id=b"a", maddrs=["x"]).SerializeToString()
+    second = jax_dht_pb2.NodeInfo(maddrs=["y"], auth_token=b"t").SerializeToString()
+    tag = wire.encode_tag(1, wire.LENGTH_DELIMITED)
+    data = tag + wire.encode_varint(len(first)) + first + tag + wire.encode_varint(len(second)) + second
+    ours, theirs = dht_pb2.PingRequest.FromString(data), jax_dht_pb2.PingRequest.FromString(data)
+    assert (ours.peer.node_id, list(ours.peer.maddrs), ours.peer.auth_token) == (b"a", ["x", "y"], b"t")
+    assert ours.SerializeToString() == theirs.SerializeToString()
+    copy = dht_pb2.PingRequest()
+    copy.CopyFrom(ours)
+    assert copy == ours and copy.peer is not ours.peer and copy.HasField("peer")
+    copy.CopyFrom(dht_pb2.PingRequest(validate=True))
+    assert not copy.HasField("peer") and copy.SerializeToString() == b"\x10\x01"
+    nested = dht_pb2.FindResponse()
+    nested.results.add().nearest_contacts.add(peer_id=b"p")
+    nested.peer.auth_token = b"k"
+    theirs_nested = jax_dht_pb2.FindResponse()
+    theirs_nested.results.add().nearest_contacts.add(peer_id=b"p")
+    theirs_nested.peer.auth_token = b"k"
+    assert nested.SerializeToString() == theirs_nested.SerializeToString()
+    with pytest.raises(TypeError):
+        dht_pb2.PingRequest(peer=dht_pb2.PeerContact())
 
 
 # ------------------------------------------------------------------ crypto

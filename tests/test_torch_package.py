@@ -1,5 +1,6 @@
-"""The PyTorch port as a package: it imports no JAX and nothing of the JAX package,
-its entry points refuse to run without a card unless asked for the CPU, its tensor
+"""The PyTorch port as a package: it imports no JAX and nothing of the JAX package
+(nor pydantic or the wire libraries), its entry points refuse to run without a card
+unless asked for the CPU, the DHT runs without one and takes no device, its tensor
 schemas speak the JAX package's dtype names, and chip_smoke.py refuses to run
 without a card."""
 
@@ -20,11 +21,11 @@ from hivemind_tpu_torch.utils.tensor_descr import BatchTensorDescriptor
 REPO = Path(__file__).resolve().parent.parent
 PACKAGE = REPO / "hivemind_tpu_torch"
 
-# what the port never loads: the JAX stack, and the wire libraries the JAX package
-# uses (the port has its own msgpack, proto3 and libcrypto codecs, so it also loads
-# on a machine without them)
+# what the port never loads: the JAX stack, pydantic (the JAX package's DHT schema
+# validator), and the wire libraries the JAX package uses (the port has its own
+# msgpack, proto3 and libcrypto codecs, so it also loads on a machine without them)
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "hivemind_tpu", "ml_dtypes", "msgpack", "google.protobuf",
-             "cryptography")
+             "cryptography", "pydantic")
 
 _ISOLATION_PROBE = """
 import importlib, importlib.util, pathlib, sys
@@ -48,7 +49,9 @@ for name in modules:
 for name in ("hivemind_tpu_torch.moe.server.decode_session", "hivemind_tpu_torch.telemetry.blackbox",
              "hivemind_tpu_torch.p2p.p2p", "hivemind_tpu_torch.p2p.crypto_channel",
              "hivemind_tpu_torch.moe.server.connection_handler", "hivemind_tpu_torch.moe.client.expert",
-             "hivemind_tpu_torch.proto.runtime_pb2", "hivemind_tpu_torch.utils.msgpack_codec"):
+             "hivemind_tpu_torch.proto.runtime_pb2", "hivemind_tpu_torch.utils.msgpack_codec",
+             "hivemind_tpu_torch.proto.dht_pb2", "hivemind_tpu_torch.dht.dht", "hivemind_tpu_torch.dht.node",
+             "hivemind_tpu_torch.moe.server.server", "hivemind_tpu_torch.moe.client.remote_sequential"):
     assert name in sys.modules, name
 assert not leaked(), leaked()
 
@@ -57,19 +60,21 @@ from hivemind_tpu_torch.moe.server.layers import NopExpert
 from hivemind_tpu_torch.moe.server.llama_loader import device_hbm_bytes, load_llama_blocks
 from hivemind_tpu_torch.moe.server.module_backend import ModuleBackend
 from hivemind_tpu_torch.models.albert import AlbertConfig, make_train_step
+from hivemind_tpu_torch.moe.server.server import Server
 refused = 0
 for entry_point in (
     lambda: ModuleBackend("nop", NopExpert(4), sample_input=np.zeros((1, 4), np.float32)),
     lambda: load_llama_blocks("/nonexistent"),
     lambda: device_hbm_bytes(),
     lambda: make_train_step(AlbertConfig.tiny(), lambda params: torch.optim.AdamW(params)),
+    lambda: Server.create(expert_uids=["nop.0"], expert_cls="nop", hidden_dim=4),
 ):
     try:
         entry_point()
     except RuntimeError as e:
         assert "no CUDA device" in str(e), e
         refused += 1
-assert refused == 4, refused
+assert refused == 5, refused
 backend = ModuleBackend("nop", NopExpert(4), sample_input=np.zeros((1, 4), np.float32), device="cpu")
 assert backend.forward(np.ones((2, 4), np.float32))[0].tolist() == [[1.0] * 4] * 2
 assert backend.backward(np.ones((2, 4), np.float32), np.ones((2, 4), np.float32))[0].tolist() == [[1.0] * 4] * 2
@@ -92,6 +97,23 @@ async def _echo():
     await server.shutdown()
     return reply.uid
 assert asyncio.run(_echo()) == "a!"
+# the DHT runs on the host with no card and takes no device; a CPU server declares in it
+import inspect
+from hivemind_tpu_torch.dht import DHT, DHTNode
+from hivemind_tpu_torch.moe import RemoteSequential, get_experts
+assert not any("device" in inspect.signature(fn).parameters for fn in (DHT.__init__, DHTNode.create))
+server = Server.create(expert_uids=["nop.0"], expert_cls="nop", hidden_dim=4, device="cpu", start=True)
+client = DHT(initial_peers=[str(m) for m in server.dht.get_visible_maddrs()], start=True)
+assert client.store("k", {"v": (1, b"x")}, 2e9) and server.dht.get("k", latest=True).value == {"v": (1, b"x")}
+import time
+declared_by = time.monotonic() + 20  # the server declares in the background as it starts
+while get_experts(client, ["nop.0"])[0] is None and time.monotonic() < declared_by:
+    time.sleep(0.05)
+assert get_experts(client, ["nop.0"])[0].peer_id == server.dht.peer_id
+assert RemoteSequential(client, "nop.", 1)(torch.ones(2, 4)).tolist() == [[1.0] * 4] * 2
+client.shutdown()
+server.shutdown()
+server.dht.shutdown()
 assert not leaked(), leaked()
 print("isolated")
 """ % (FORBIDDEN,)
@@ -112,7 +134,7 @@ def test_package_sources_never_name_the_jax_stack():
     names = "|".join(re.escape(name) for name in FORBIDDEN)
     forbidden = re.compile(r"^\s*(import|from)\s+(" + names + r")(\.|\s|$)", re.MULTILINE)
     sources = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert {"compression", "proto", "moe", "p2p"} <= {path.relative_to(PACKAGE).parts[0] for path in sources[:-1]}
+    assert {"compression", "proto", "moe", "p2p", "dht"} <= {path.relative_to(PACKAGE).parts[0] for path in sources[:-1]}
     offenders = [str(path.relative_to(REPO)) for path in sources if forbidden.search(path.read_text())]
     assert not offenders, offenders
 
