@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke test of hivemind_tpu_torch: builds the port's Hopper kernels,
 holds each against its plain PyTorch version at the shapes of the paths that run
-it, then drives six paths and checks each against the CPU or the local path:
+it, then drives seven paths and checks each against the CPU or the local path:
 - serving: two Llama-2-7B-width blocks (fp and int8 weight-only) through
   load_llama_blocks → ModuleBackend → TaskPool/Runtime, and an expert of
   head_dim 32, which the flash kernel does not take, through ModuleBackend;
@@ -16,6 +16,11 @@ it, then drives six paths and checks each against the CPU or the local path:
   RemoteSequential and the client head in this process: forward, greedy decode,
   failover when a replica process is killed, and autograd backward, against the
   local path;
+- dmoe: the decentralized mixture of experts (BASELINE config 4: 64 ffn experts of
+  width 1024, top-4, a [2048, 1024] batch) on server processes found through the DHT,
+  fp32 and int8, with RemoteMixtureOfExperts as the client: beam search, forward and
+  backward against a twin mixture, hot-expert replication to a late volunteer, a
+  checkpoint restored in a fresh process, a killed server, the swarm monitor;
 - expert training: ModuleBackend.backward (one SGD step) on a Llama-2-7B-width block;
 - ALBERT-base MLM training: make_train_step with AdamW at batch 32 × seq 512.
 Telemetry rides the serving and decode runs, as a server would arm it (the event-loop
@@ -199,6 +204,33 @@ SWARM_FORWARD_LENGTH = 512
 SWARM_KILL_AFTER = 12
 SWARM_STARTUP_LIMIT_S = 120.0
 SWARM_PHASE_LIMIT_S = 180.0
+# [dmoe]: BASELINE config 4, the reference's MoE throughput setup (upstream hivemind
+# docs/user/benchmarks.md: ffn experts at hid_dim 1024, client batches of 2048): 64 `ffn`
+# experts (hid -> 4 hid -> hid with LayerNorm, 8.4 M parameters each) on the grid
+# ffn.[0:8].[0:8], top-4 gating, a fp32 [2048, 1024] batch, the fp16 wire (the Server's
+# default). Server processes, each a DHT peer bootstrapped from this one (the client):
+# A serves row 0 (8 experts, fp32, Adam, a checkpoint directory, hot-expert adverts),
+# B the next 28 (int8 weight-only), C the last 28 (fp32, Adam); D, a replica-only
+# volunteer with 2 slots watching the grid, starts after the first calls; E restores A's
+# checkpoint in a fresh process. Every expert gets its own weights from a seed.
+DMOE_HIDDEN = 1024
+DMOE_GRID = (8, 8)
+DMOE_PREFIX = "ffn."
+DMOE_BATCH = 2048
+DMOE_K = 4
+DMOE_UIDS = tuple(f"{DMOE_PREFIX}{i}.{j}" for i in range(DMOE_GRID[0]) for j in range(DMOE_GRID[1]))
+DMOE_LAYOUT = {"A": DMOE_UIDS[:8], "B": DMOE_UIDS[8:36], "C": DMOE_UIDS[36:]}
+# every expert of A gets ~one request per forward call (2048 x 4 picks over 64 experts):
+# a forward every ~0.5 s crosses 0.5 requests/s in each 1 s tick
+DMOE_POLICY = dict(qps_threshold=0.5, occupancy_threshold=0.5, max_replicas=2, period=1.0)
+DMOE_REPLICA_SLOTS = 2
+# each server declares its experts every 5 s (the Server's default is 30): the client's
+# beam search reads its DHT node's stored and cached records first, so a replica shows
+# in it once a declaration of the replica reaches that node
+DMOE_UPDATE_PERIOD = 5.0
+DMOE_TOL = SERVING_TOL  # the served path's fp16-wire limit
+DMOE_STARTUP_LIMIT_S = 90.0
+DMOE_PHASE_LIMIT_S = 120.0
 
 
 def log(message: str) -> None:
@@ -1935,7 +1967,7 @@ class SwarmChild:
     """The parent's handle on one server process of ``[swarm]``."""
 
     def __init__(self, context, checkpoint_dir: str, layer: int, initial_peers: list):
-        self.layer = layer
+        self.layer, self.name = layer, f"the server process of block {layer}"
         self.conn, child_conn = context.Pipe()
         self.process = context.Process(target=swarm_server_main, args=(child_conn, checkpoint_dir, layer, initial_peers),
                                        daemon=True)
@@ -1945,18 +1977,16 @@ class SwarmChild:
 
     def receive(self, timeout: float):
         if not self.conn.poll(max(timeout, 0.0)):
-            raise TimeoutError(f"the server process of block {self.layer} (pid {self.process.pid}) did not answer in "
-                               f"{timeout:.0f} s")
+            raise TimeoutError(f"{self.name} (pid {self.process.pid}) did not answer in {timeout:.0f} s")
         try:
             reply = self.conn.recv()
         except EOFError:
-            raise RuntimeError(f"the server process of block {self.layer} exited with code "
-                               f"{self.process.exitcode}") from None
+            raise RuntimeError(f"{self.name} exited with code {self.process.exitcode}") from None
         if reply[0] == "error":
-            raise RuntimeError(f"the server process of block {self.layer} failed:\n{reply[1]}")
+            raise RuntimeError(f"{self.name} failed:\n{reply[1]}")
         return reply
 
-    def ask(self, command: str, timeout: float = 30.0):
+    def ask(self, command, timeout: float = 30.0):
         self.conn.send(command)
         return self.receive(timeout)
 
@@ -2202,6 +2232,508 @@ def phase_swarm(torch, checkpoint_dir: str, wrappers: dict, telemetry: Telemetry
     return launches
 
 
+def dmoe_expert_weights(torch, uid: str) -> dict:
+    """One [dmoe] expert's weights, from a seed of its own, on the card (a CUDA
+    generator draws the same numbers in every process)."""
+    from hivemind_tpu_torch.moe.server.layers import init_parameters, name_to_block
+
+    module = name_to_block["ffn"](DMOE_HIDDEN, device="meta").to_empty(device="cuda")
+    init_parameters(module, torch.Generator(device="cuda").manual_seed(SEED + 100 + DMOE_UIDS.index(uid)))
+    return {key: tensor.detach() for key, tensor in module.state_dict().items()}
+
+
+def dmoe_server_main(conn, role: str, uids: list, initial_peers: list, checkpoint_dir: str) -> None:
+    """One server process of ``[dmoe]`` (``role`` A-D: a DHT peer, then on ``serve`` a
+    Server on the card, its experts loaded with their own weights; E: idle until it
+    restores A's checkpoint). Its kernel launch counts start at 0 before its
+    Server.create. Commands: ``serve``, ``report`` (launches, update counts, replication records),
+    ``publish`` (one telemetry snapshot to the DHT), ``store`` (A's checkpoint),
+    ``restore`` (E: ``Server.create(checkpoint_dir=...)``, then each blob's length
+    and digest), ``forward`` (each expert's local forward of a batch) and ``stop``."""
+    import hashlib
+    import traceback
+
+    try:
+        import torch
+
+        from hivemind_tpu_torch.dht import DHT
+        from hivemind_tpu_torch.moe.server import ReplicationPolicy, Server, store_experts
+        from hivemind_tpu_torch.ops import blockwise_int8, flash_attention
+        from hivemind_tpu_torch.telemetry.monitor import TelemetryPublisher
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        wrappers = {
+            "flash_attention_forward": flash_attention.flash_attention_lse,
+            "flash_attention_backward_dq": flash_attention.flash_attention_backward_dq,
+            "flash_attention_backward_dkv": flash_attention.flash_attention_backward_dkv,
+            "blockwise_int8_quantize": blockwise_int8.blockwise_int8_quantize,
+            "blockwise_int8_dequantize": blockwise_int8.blockwise_int8_dequantize,
+        }
+        for wrapper in wrappers.values():
+            wrapper.launches = 0
+        policy = ReplicationPolicy(**DMOE_POLICY)
+        options = {
+            "A": dict(checkpoint_dir=checkpoint_dir, replicate_hot_experts=True, replication_policy=policy),
+            "B": dict(weight_quantization="int8"),
+            "C": {},
+            "D": dict(replica_slots=DMOE_REPLICA_SLOTS, replication_watch_grids=[DMOE_PREFIX.rstrip(".")],
+                      replication_policy=policy),
+        }
+        torch.zeros(1, device="cuda")  # the CUDA context, as a serving process holds it before any request
+        server = dht = publisher = None
+        if role != "E":
+            dht = DHT(initial_peers=initial_peers, start=True)
+        conn.send(("dht", dht.peer_id.to_base58() if dht else None, torch.cuda.get_device_name(0)))
+        while True:
+            command, *args = conn.recv()
+            if command == "serve":  # once every peer is up: the declarations then reach them all
+                if dht is not None:
+                    server = Server.create(expert_uids=uids, expert_cls="ffn", hidden_dim=DMOE_HIDDEN, dht=dht,
+                                           device="cuda", **options[role])
+                    for uid, backend in server.backends.items():
+                        backend.load_params(dmoe_expert_weights(torch, uid))
+                    server.update_period = DMOE_UPDATE_PERIOD
+                    server.run_in_background(await_ready=True, timeout=60)
+                    publisher = TelemetryPublisher(dht, interval=60.0, start=False)
+                conn.send(("serving",))
+            elif command == "report":
+                replication = server.replication if server is not None else None
+                conn.send(("report", {name: wrapper.launches for name, wrapper in wrappers.items()},
+                           {uid: backend.update_count for uid, backend in server.backends.items()} if server else {},
+                           dict(advertised=dict(replication.advertised), acquisitions=list(replication.acquisitions))
+                           if replication is not None else {}))
+            elif command == "publish":
+                conn.send(("published", publisher.publish_once()))
+            elif command == "store":
+                started = time.perf_counter()
+                store_experts(server.backends, checkpoint_dir)
+                conn.send(("stored", time.perf_counter() - started))
+            elif command == "restore":
+                started = time.perf_counter()
+                server = Server.create(expert_uids=uids, expert_cls="ffn", hidden_dim=DMOE_HIDDEN, dht=DHT(start=False),
+                                       device="cuda", checkpoint_dir=checkpoint_dir)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - started
+                blobs = {uid: backend.state_dict() for uid, backend in server.backends.items()}
+                conn.send(("restored", seconds, {uid: (len(blob), hashlib.blake2b(blob).hexdigest())
+                                                 for uid, blob in blobs.items()}))
+            elif command == "forward":
+                conn.send(("forward", {uid: backend.forward(args[0])[0] for uid, backend in server.backends.items()}))
+            elif command == "stop":
+                if dht is not None:
+                    server.shutdown()
+                    dht.shutdown()
+                conn.send(("stopped",))
+                return
+    except BaseException:
+        conn.send(("error", traceback.format_exc()))
+        raise
+
+
+class DmoeChild(SwarmChild):
+    """The parent's handle on one server process of ``[dmoe]``."""
+
+    def __init__(self, context, role: str, uids, initial_peers: list, checkpoint_dir: str):
+        self.layer, self.name, self.role, self.uids = role, f"[dmoe] server process {role}", role, tuple(uids)
+        self.conn, child_conn = context.Pipe()
+        self.process = context.Process(target=dmoe_server_main,
+                                       args=(child_conn, role, list(uids), initial_peers, checkpoint_dir), daemon=True)
+        self.process.start()
+        child_conn.close()
+        self.peer_id = self.device = self.last_report = None
+
+    def ask(self, *command, timeout: float = 30.0):
+        self.conn.send(command)
+        return self.receive(timeout)
+
+    def report(self) -> dict:
+        _, counts, updates, replication = self.ask("report")
+        self.last_report = dict(counts=counts, updates=updates, replication=replication)
+        return self.last_report
+
+
+def dmoe_twin_mixture(torch, x, proj, experts, twins: dict, alive=None, detached=()):
+    """The mixture the served path must give, computed in this process: the gate
+    ``x @ proj``, each sample's chosen ``experts`` (uid lists) and alive mask, and each
+    expert's module on its twin's weights on the card, differentiable by autograd. The
+    outputs of the ``detached`` uids pass no input gradient (their servers refuse the
+    backward), as over the wire."""
+    from hivemind_tpu_torch.ops.quantized_params import dequantize_tree
+
+    batch, k = len(experts), max(len(row) for row in experts)
+    coords = np.zeros((batch, k, 2), np.int64)
+    valid = np.zeros((batch, k), bool)
+    jobs = {}
+    for sample, row in enumerate(experts):
+        for slot, uid in enumerate(row):
+            coords[sample, slot] = [int(c) for c in uid[len(DMOE_PREFIX):].split(".")]
+            valid[sample, slot] = True
+            jobs.setdefault(uid, []).append((sample, slot))
+    outputs = x.new_zeros(batch, k, DMOE_HIDDEN)
+    for uid, positions in jobs.items():
+        rows, slots = (torch.tensor(index, device=x.device) for index in zip(*positions))
+        out = torch.func.functional_call(twins[uid].module, dequantize_tree(twins[uid].params), (x[rows],))
+        outputs = outputs.index_put((rows, slots), out.detach() if uid in detached else out)
+    scores = torch.split(x @ proj, DMOE_GRID, dim=1)
+    coords = torch.from_numpy(coords).to(x.device)
+    logits = scores[0].gather(1, coords[:, :, 0]) + scores[1].gather(1, coords[:, :, 1])
+    mask = torch.from_numpy(valid).to(x.device)
+    if alive is not None:
+        mask &= torch.as_tensor(alive, device=x.device)
+    weights = torch.where(mask, torch.softmax(torch.where(mask, logits, torch.full_like(logits, -1e9)), dim=-1),
+                          torch.zeros_like(logits))
+    return torch.einsum("bk,bkd->bd", weights, outputs)
+
+
+def dmoe_slots_on(experts, k: int, uids) -> np.ndarray:
+    """``[batch, k]``: which slots of a call's chosen ``experts`` hold one of ``uids``."""
+    return np.array([[uid in uids for uid in row] + [False] * (k - len(row)) for row in experts])
+
+
+def phase_dmoe(torch, wrappers: dict, telemetry: Telemetry) -> dict:
+    """The decentralized mixture of experts across processes (BASELINE config 4): this
+    process is the bootstrap DHT peer and the client (``RemoteMixtureOfExperts``); the
+    spawned processes A, B, C serve the 64 experts on the card, D acquires hot experts
+    of A, E restores A's checkpoint. Checks, in order: beam search vs the exhaustive
+    top-4, forward vs a twin mixture, replication, backward vs the twins, checkpoint,
+    a killed server, the swarm monitor; returns the launch counts summed over the
+    server processes."""
+    import hashlib
+    import multiprocessing
+    import shutil
+    import threading
+
+    from hivemind_tpu_torch.dht import DHT
+    from hivemind_tpu_torch.moe import ExpertInfo, ModuleBackend, RemoteExpert, RemoteMixtureOfExperts, get_experts
+    from hivemind_tpu_torch.moe.client.call_many import EXPERT_BREAKERS
+    from hivemind_tpu_torch.moe.server.layers import name_to_block, name_to_input
+    from hivemind_tpu_torch.moe.server.replication import fetch_replica_state
+    from hivemind_tpu_torch.p2p import PeerID
+    from hivemind_tpu_torch.resilience import reset_all_boards
+    from hivemind_tpu_torch.telemetry.monitor import SwarmMonitor
+    from hivemind_tpu_torch.utils.loop import get_loop_runner
+
+    phase_started = time.perf_counter()
+    rng = np.random.default_rng(SEED + 21)
+    x = rng.standard_normal((DMOE_BATCH, DMOE_HIDDEN), dtype=np.float32)
+    w = rng.standard_normal((DMOE_BATCH, DMOE_HIDDEN), dtype=np.float32)
+    checkpoint_dir = tempfile.mkdtemp(prefix="dmoe_checkpoints_")
+    context = multiprocessing.get_context("spawn")
+    children, dhts, faults, readings = {}, [], [], {}
+    timer = None
+    line = card_line()
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            faults.append(what)
+
+    def kill_all() -> None:
+        for child in children.values():
+            child.kill()
+
+    def forward(moe, x_t):
+        """One mixture forward: (output, wall seconds, beam search seconds)."""
+        search = moe._search
+        timed = {}
+
+        def timed_search(grid_scores):
+            started = time.perf_counter()
+            try:
+                return search(grid_scores)
+            finally:
+                timed["search"] = time.perf_counter() - started
+
+        moe._search = timed_search
+        try:
+            started = time.perf_counter()
+            out = moe(x_t)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - started, timed["search"]
+        finally:
+            del moe._search
+
+    try:
+        started = time.perf_counter()
+        bootstrap = DHT(start=True)
+        dhts.append(bootstrap)
+        initial_peers = [str(maddr) for maddr in bootstrap.get_visible_maddrs()]
+        for role in ("A", "B", "C", "E"):
+            children[role] = DmoeChild(context, role, DMOE_LAYOUT.get(role, DMOE_LAYOUT["A"]), initial_peers,
+                                       checkpoint_dir)
+        timer = threading.Timer(DMOE_PHASE_LIMIT_S + 30.0, kill_all)  # a hang fails every call in flight
+        timer.daemon = True
+        timer.start()
+        # the local twins, built while the servers start: the same weights, B's as int8
+        twins = {}
+        for uid in DMOE_UIDS:
+            twins[uid] = ModuleBackend(uid, name_to_block["ffn"](DMOE_HIDDEN, device="meta"),
+                                       sample_input=name_to_input["ffn"](4, DMOE_HIDDEN),
+                                       params=dmoe_expert_weights(torch, uid), device="cuda",
+                                       weight_quantization="int8" if uid in DMOE_LAYOUT["B"] else None)
+        for child in children.values():
+            _, child.peer_id, child.device = child.receive(DMOE_STARTUP_LIMIT_S - (time.perf_counter() - started))
+        client_dht = DHT(initial_peers=initial_peers, start=True)
+        dhts.append(client_dht)
+        for child in children.values():
+            child.ask("serve", timeout=DMOE_STARTUP_LIMIT_S - (time.perf_counter() - started))
+        servers_up = time.perf_counter() - started
+        started = time.perf_counter()
+        rows = {DMOE_PREFIX.rstrip("."): set(range(DMOE_GRID[0])),
+                **{f"{DMOE_PREFIX}{i}": set(range(DMOE_GRID[1])) for i in range(DMOE_GRID[0])}}
+        while True:  # every uid and every prefix record complete, as the beam search reads them
+            resolved = all(info is not None for info in get_experts(client_dht, list(DMOE_UIDS)))
+            complete = resolved and all(
+                (entry := client_dht.get(prefix)) is not None and {c for c in entry.value if isinstance(c, int)} == coords
+                for prefix, coords in rows.items())
+            if complete or time.perf_counter() - started > 30:
+                break
+            time.sleep(0.1)
+        if not complete:
+            raise AssertionError("the client never resolved the 64 experts and their prefix records")
+        owner = {uid: role for role in "ABC" for uid in DMOE_LAYOUT[role]}
+        log(f"[dmoe] {line}: servers A (8 fp32 experts, Adam, checkpoints, hot-expert adverts), B (28 int8), C (28 "
+            f"fp32) and E up in {servers_up:.1f} s (devices {sorted({c.device for c in children.values()})}); 64 uids "
+            f"and their prefix records resolved in {time.perf_counter() - started:.2f} s")
+
+        moe = RemoteMixtureOfExperts(dht=client_dht, in_features=DMOE_HIDDEN, grid_size=DMOE_GRID,
+                                     uid_prefix=DMOE_PREFIX, k_best=DMOE_K, seed=SEED, device="cuda")
+        x_t = torch.tensor(x, device="cuda")
+        w_t = torch.tensor(w, device="cuda")
+        # 1. beam search vs the exhaustive top-4 of all 64 sums
+        with torch.no_grad():
+            scores = moe._split_scores(x_t @ moe.proj)
+        search_ms = []
+        for _ in range(3):
+            started = time.perf_counter()
+            chosen = moe._search(scores)
+            search_ms.append((time.perf_counter() - started) * 1e3)
+        host = [s.cpu().numpy().astype(np.float64) for s in scores]
+        sums = (host[0][:, :, None] + host[1][:, None, :]).reshape(DMOE_BATCH, -1)
+        best = np.argsort(-sums, axis=1, kind="stable")[:, :DMOE_K]
+        mismatched = 0
+        for sample, infos in enumerate(chosen):
+            got = [DMOE_UIDS.index(info.uid) for info in infos[:DMOE_K]]
+            if sorted(got) != sorted(best[sample].tolist()):
+                # an exact tie at the boundary may pick either expert
+                tied = np.isclose(sums[sample, got], sums[sample, best[sample]], rtol=0, atol=0).all()
+                mismatched += not tied
+        log(f"[dmoe] {line}: beam search (beam {moe.beam_size}) of a {DMOE_BATCH}-sample batch: "
+            f"{median_p90(np.array(search_ms) / 1e3)} (median / p90 of 3); top-{DMOE_K} vs the exhaustive top-{DMOE_K} "
+            f"of 64 sums: {mismatched} samples differ (limit 0, exact ties excepted)")
+        check(mismatched == 0, f"beam search: {mismatched} samples differ from the exhaustive top-{DMOE_K}")
+
+        # 2. forward vs the twin mixture
+        with torch.no_grad():
+            out, wall, search_s = forward(moe, x_t)
+            twin = dmoe_twin_mixture(torch, x_t, moe.proj, moe.last_experts, twins)
+        err = max_rel_err(out.cpu().numpy(), twin.cpu().numpy())
+        forward_walls = [(wall, search_s)]
+        log(f"[dmoe] {line}: forward [{DMOE_BATCH}, {DMOE_HIDDEN}] top-{DMOE_K} over 64 experts on 3 servers (fp16 "
+            f"wire) vs the twin mixture: max_rel_err={err:.3e} (limit {DMOE_TOL}); all slots alive: "
+            f"{bool(moe.last_alive.all())}; first call {wall * 1e3:.1f} ms (beam search {search_s * 1e3:.1f} ms)")
+        check(err < DMOE_TOL, f"forward: rel err {err}")
+        check(bool(moe.last_alive.all()), "forward: a slot was masked with every server alive")
+
+        # 3. replication: D starts, A's hot experts are advertised, D acquires two
+        children["D"] = DmoeChild(context, "D", (), initial_peers, checkpoint_dir)
+        started = time.perf_counter()
+        _, children["D"].peer_id, _ = children["D"].receive(DMOE_STARTUP_LIMIT_S)
+        children["D"].ask("serve", timeout=60)
+        d_serving = time.time()
+        acquired = []
+        while time.perf_counter() - started < 60 and len(acquired) < DMOE_REPLICA_SLOTS:
+            with torch.no_grad():
+                _out, wall, search_s = forward(moe, x_t)
+            forward_walls.append((wall, search_s))
+            acquired = children["D"].report()["replication"]["acquisitions"]
+        check(len(acquired) == DMOE_REPLICA_SLOTS, f"replication: D acquired {len(acquired)} replicas")
+        replica_sets = {}
+        waited = time.perf_counter()
+        while acquired and time.perf_counter() - waited < 4 * DMOE_UPDATE_PERIOD:
+            with torch.no_grad():
+                found = moe._search(scores)
+            replica_sets = {info.uid: len(info.replica_set) for row in found for info in row
+                            if info.uid in {a["uid"] for a in acquired}}
+            if len(replica_sets) == len(acquired) and set(replica_sets.values()) == {2}:
+                break
+            time.sleep(0.2)
+        check(len(replica_sets) == len(acquired) and set(replica_sets.values()) == {2},
+              f"replication: the client's beam search resolves {replica_sets} replicas")
+        advertised = children["A"].report()["replication"]["advertised"]
+        equal = []
+        for record in acquired:
+            uid = record["uid"]
+            outs = [RemoteExpert(ExpertInfo(uid, PeerID.from_base58(children[role].peer_id), "float16"),
+                                 client_dht.node.p2p).forward_np(x[:256])[0] for role in ("A", "D")]
+            equal.append(bool(np.array_equal(outs[0], outs[1])))
+            log(f"[dmoe] {line}: D acquired a replica of {uid} from A: advert to declared replica "
+                f"{record['declared_at'] - advertised.get(uid, float('nan')):.2f} s (D started serving "
+                f"{d_serving - advertised.get(uid, float('nan')):.2f} s after the advert, and declared the replica "
+                f"{record['declared_at'] - d_serving:.2f} s later); transfer of {record['bytes']} B "
+                f"in {record['fetch_s']:.3f} s ({record['bytes'] / record['fetch_s'] / 1e6:.1f} MB/s), built in "
+                f"{record['build_s']:.3f} s; the client resolves {replica_sets.get(uid)} replicas; the same [256, "
+                f"{DMOE_HIDDEN}] input through D and through A answers with equal bytes: {equal[-1]}")
+        check(all(equal) and len(equal) == len(acquired), f"replication: D and A answer differently: {equal}")
+        readings["replication"] = dict(acquired=acquired, advertised=advertised)
+
+        # 4. backward vs the twins' autograd (B's int8 experts refuse the backward, as the
+        # reference's do: their slots pass no input gradient and backward_k_min is 0)
+        moe.backward_k_min = 0
+        moe.proj.grad = None
+        x_b = x_t.clone().requires_grad_(True)
+        out, wall, search_s = forward(moe, x_b)
+        started = time.perf_counter()
+        (out * w_t).sum().backward()
+        torch.cuda.synchronize()
+        backward_wall = time.perf_counter() - started
+        experts = moe.last_experts
+        refused = set(DMOE_LAYOUT["B"])
+        x_twin = x_t.clone().requires_grad_(True)
+        proj_twin = moe.proj.detach().clone().requires_grad_(True)
+        (dmoe_twin_mixture(torch, x_twin, proj_twin, experts, twins, detached=refused) * w_t).sum().backward()
+        grad_err = max_rel_err(x_b.grad.cpu().numpy(), x_twin.grad.cpu().numpy())
+        proj_err = max_rel_err(moe.proj.grad.cpu().numpy(), proj_twin.grad.cpu().numpy())
+        refused_slots = sum(uid in refused for row in experts for uid in row)
+        updates = {role: children[role].report()["updates"] for role in ("A", "C", "D")}
+        stepped = {role: sum(count > 0 for count in counts.values()) for role, counts in updates.items()}
+        log(f"[dmoe] {line}: backward at [{DMOE_BATCH}, {DMOE_HIDDEN}]: d loss / d x max_rel_err={grad_err:.3e}, d loss "
+            f"/ d proj max_rel_err={proj_err:.3e} (limit {DMOE_TOL}); {refused_slots} of "
+            f"{sum(len(row) for row in experts)} slots on B's int8 experts (backward refused); experts stepped by "
+            f"Adam per server {stepped}; forward {wall * 1e3:.1f} ms + backward fan-out {backward_wall * 1e3:.1f} ms")
+        check(grad_err < DMOE_TOL and proj_err < DMOE_TOL, f"backward: rel errs {grad_err}, {proj_err}")
+        check(stepped["A"] > 0 and stepped["C"] > 0, f"backward: no fp32 expert stepped: {stepped}")
+        walls = np.array([wall for wall, _ in forward_walls[1:]])
+        searches = np.array([search for _, search in forward_walls[1:]])
+        readings["walls"] = dict(forward=walls, search=searches, backward=backward_wall, forward_with_grad=wall)
+        log(f"[dmoe] {line}: forward call wall over {len(walls)} calls (gate + beam search + fan-out + mix) "
+            f"{median_p90(walls)}, of which beam search {median_p90(searches)}; {DMOE_BATCH / np.median(walls):.0f} "
+            f"samples/s forward, {DMOE_BATCH / (wall + backward_wall):.0f} samples/s forward + backward")
+
+        # 5. checkpoint: A stores, E restores in a fresh process; blobs and a forward equal A's
+        _, store_s = children["A"].ask("store", timeout=120)
+        _, restore_s, digests = children["E"].ask("restore", timeout=120)
+        fetched, blobs, fetch_s = {}, {}, 0.0
+        for uid in DMOE_LAYOUT["A"]:
+            started = time.perf_counter()
+            _spec, blob = get_loop_runner().run_coroutine(
+                fetch_replica_state(client_dht.node.p2p, PeerID.from_base58(children["A"].peer_id), uid))
+            fetch_s += time.perf_counter() - started
+            fetched[uid] = (len(blob), hashlib.blake2b(blob).hexdigest())
+            blobs[uid] = blob
+        x_small = x[:256]
+        _, ours = children["A"].ask("forward", x_small, timeout=60)
+        _, restored = children["E"].ask("forward", x_small, timeout=60)
+        same_forward = all(np.array_equal(ours[uid], restored[uid]) for uid in DMOE_LAYOUT["A"])
+        total = sum(length for length, _ in fetched.values())
+        log(f"[dmoe] {line}: checkpoint of A's 8 experts stored in {store_s:.2f} s, restored by a fresh process "
+            f"(Server.create(checkpoint_dir=...)) in {restore_s:.2f} s; its 8 blobs equal A's over rpc_replica_state "
+            f"(length and blake2b-512): {digests == fetched} ({total} B fetched in {fetch_s:.2f} s, "
+            f"{total / fetch_s / 1e6:.1f} MB/s); a [256, {DMOE_HIDDEN}] forward through each restored expert equals "
+            f"A's: {same_forward}")
+        check(digests == fetched, "checkpoint: a restored blob differs from A's")
+        check(same_forward, "checkpoint: a restored expert's forward differs from A's")
+        readings["checkpoint"] = dict(store_s=store_s, restore_s=restore_s, fetch_mb_s=total / fetch_s / 1e6)
+
+        # 6. fault: C is killed; k_min=1 masks its slots, k_min=4 raises, then its breakers skip it.
+        # A sample whose four experts all sit on C has no live response, and k_min=1 raises for
+        # it (the reference's semantics): the masked call takes the samples that keep one
+        children["C"].report()  # its launch counts, before it dies
+        children["C"].kill()
+        killed_code = children["C"].process.exitcode
+        all_on_c = np.array([all(info.uid in DMOE_LAYOUT["C"] for info in row[:DMOE_K]) for row in chosen])
+        kept = torch.from_numpy(np.flatnonzero(~all_on_c)).to(x_t.device)
+        moe.k_min = 1
+        with torch.no_grad():
+            out, masked_wall, _ = forward(moe, x_t[kept])
+        experts, alive = moe.last_experts, moe.last_alive
+        on_c = dmoe_slots_on(experts, alive.shape[1], DMOE_LAYOUT["C"])
+        # the backward stepped the fp32 experts (Adam): the twins take the weights of the
+        # replica that answered this call (A's blobs as fetched above, D's over rpc_replica_state)
+        a_peer = PeerID.from_base58(children["A"].peer_id)
+        for uid in sorted({uid for row in experts for uid in row} & set(DMOE_LAYOUT["A"])):
+            peer = moe._experts[uid].peer_id
+            if peer != a_peer:
+                _spec, blobs[uid] = get_loop_runner().run_coroutine(fetch_replica_state(client_dht.node.p2p, peer, uid))
+            twins[uid].load_state_dict(blobs[uid])
+        with torch.no_grad():
+            twin = dmoe_twin_mixture(torch, x_t[kept], moe.proj, experts, twins, alive=alive)
+        masked_err = max_rel_err(out.cpu().numpy(), twin.cpu().numpy())
+        exact_mask = bool(np.array_equal(~alive, on_c))
+        moe.k_min = DMOE_K
+        started = time.perf_counter()
+        try:
+            with torch.no_grad():
+                moe(x_t)
+            raised = None
+        except RuntimeError as e:
+            raised = str(e)
+        strict_wall = time.perf_counter() - started
+        moe.k_min = 1
+        with torch.no_grad():
+            _out, next_wall, _ = forward(moe, x_t[kept])
+        next_on_c = dmoe_slots_on(moe.last_experts, moe.last_alive.shape[1], DMOE_LAYOUT["C"])
+        open_breakers = sum(uid in EXPERT_BREAKERS for uid in DMOE_LAYOUT["C"])
+        log(f"[dmoe] {line}: C SIGKILLed (exit code {killed_code}); {int(all_on_c.sum())} of {DMOE_BATCH} samples have "
+            f"all {DMOE_K} experts on C; the k_min=1 call over the other {len(kept)} masked {int(on_c.sum())} slots, "
+            f"the alive mask false exactly there: {exact_mask}; output vs the twin mixture over the live slots "
+            f"max_rel_err={masked_err:.3e} (limit {DMOE_TOL}); wall {masked_wall * 1e3:.1f} ms. The k_min={DMOE_K} "
+            f"call raised: {raised!r:.100} ({strict_wall * 1e3:.1f} ms). Then {open_breakers} of C's 28 breakers are "
+            f"open: the next call demotes C's experts below the live candidates, and skips the {int(next_on_c.sum())} "
+            f"slots still on C (samples with fewer than {DMOE_K} live candidates) without an RPC, masked: "
+            f"{bool(np.array_equal(~moe.last_alive, next_on_c))}; wall {next_wall * 1e3:.1f} ms")
+        check(killed_code == -signal.SIGKILL, f"C exited with {killed_code}")
+        check(exact_mask and on_c.any(), "fault: the alive mask is not false exactly at C's slots")
+        check(masked_err < DMOE_TOL, f"fault: masked output rel err {masked_err}")
+        check(raised is not None and f"fewer than k_min={DMOE_K}" in raised, f"fault: k_min={DMOE_K} gave {raised!r}")
+        check(open_breakers == len(DMOE_LAYOUT["C"]) and np.array_equal(~moe.last_alive, next_on_c)
+              and next_on_c.sum() < on_c.sum(), f"fault: {open_breakers} breakers open, the next call masked "
+              f"{int((~moe.last_alive).sum())} slots, {int(next_on_c.sum())} on C")
+        readings["fault"] = dict(masked_wall=masked_wall, next_wall=next_wall, all_on_c=int(all_on_c.sum()))
+
+        # 7. the swarm monitor sees a snapshot from every live server
+        live = [role for role in ("A", "B", "D")]
+        for role in live:
+            children[role].ask("publish")
+        expected_peers = {str(PeerID.from_base58(children[role].peer_id)) for role in live}
+        monitor = SwarmMonitor(client_dht)
+        started = time.perf_counter()
+        while True:
+            view = monitor.poll()
+            if expected_peers <= set(view["peers"]) or time.perf_counter() - started > 10:
+                break
+            time.sleep(0.2)
+        board = monitor.render_serving_board(view)
+        log(f"[dmoe] {line}: SwarmMonitor sees {view['num_peers']} peers, every live server among them: "
+            f"{expected_peers <= set(view['peers'])}; serving board:\n{board}")
+        check(expected_peers <= set(view["peers"]) and "serving board" in board, "monitor: a live server is missing")
+        for role in ("A", "B", "D", "E"):
+            children[role].report()
+    finally:
+        if timer is not None:
+            timer.cancel()
+        for child in children.values():
+            if child.process.is_alive():
+                with contextlib.suppress(Exception):
+                    child.ask("stop", timeout=20)
+            child.kill()
+        for dht in reversed(dhts):
+            dht.shutdown()
+        reset_all_boards()  # C's open breakers belong to this phase
+        shutil.rmtree(checkpoint_dir, ignore_errors=True)
+
+    launches = {name: sum(child.last_report["counts"][name] for child in children.values() if child.last_report)
+                for name in wrappers}
+    log(f"[dmoe] launches summed over the server processes (C's read just before its kill): {json.dumps(launches)}")
+    elapsed = time.perf_counter() - phase_started
+    log(f"[dmoe] phase wall {elapsed:.1f} s (limit {DMOE_PHASE_LIMIT_S} s)")
+    check(elapsed <= DMOE_PHASE_LIMIT_S, f"[dmoe] took {elapsed:.1f} s > {DMOE_PHASE_LIMIT_S} s")
+    telemetry.readings["dmoe"] = readings
+    if faults:
+        raise AssertionError("; ".join(faults))
+    return launches
+
+
 PROMETHEUS_SAMPLE = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})? (\S+)$')
 PROMETHEUS_LABEL = re.compile(r'(\w+)="((?:[^"\\]|\\.)*)"')
 
@@ -2379,6 +2911,7 @@ def main() -> int:
                    "blockwise_int8_dequantize"),
         "swarm": ("flash_attention_forward", "flash_attention_backward_dq", "flash_attention_backward_dkv",
                   "blockwise_int8_dequantize"),
+        "dmoe": ("blockwise_int8_quantize", "blockwise_int8_dequantize"),
     }
 
     line = card_line()
@@ -2419,6 +2952,7 @@ def main() -> int:
         # after [telemetry]: the swarm's DHT and server arm a watchdog on the port's shared
         # loop, which stays open, so the registry would not hold still for its scrape
         path_launches["swarm"] = run("swarm", phase_swarm, torch, checkpoint.name, wrappers, telemetry)
+        path_launches["dmoe"] = run("dmoe", phase_dmoe, torch, wrappers, telemetry)
         path_launches["expert_backward"] = run("expert_backward", phase_expert_backward, torch, checkpoint.name, wrappers)
         path_launches["train"] = run("train", phase_train, torch, peaks, wrappers)
     finally:

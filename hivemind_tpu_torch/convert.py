@@ -21,8 +21,6 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from hivemind_tpu_torch.moe.server.layers import name_to_block
-
 
 def from_flax_albert_params(params: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
     """A flax tree (under ``"params"``; the ``AlbertForMaskedLM`` tree or a block's)
@@ -49,6 +47,8 @@ def from_flax_albert_params(params: Mapping, prefix: str = "") -> Dict[str, torc
 def from_flax_params(block_name: str, params: Mapping) -> Dict[str, torch.Tensor]:
     """``params`` is the flax tree under ``"params"`` for a block registered as
     ``block_name``; returns fp32 CPU tensors keyed like the port block's state_dict."""
+    from hivemind_tpu_torch.moe.server.layers import name_to_block
+
     if block_name not in name_to_block:
         raise KeyError(f"unknown expert block {block_name!r}; known: {sorted(name_to_block)}")
     return from_flax_albert_params(params)
@@ -57,18 +57,35 @@ def from_flax_params(block_name: str, params: Mapping) -> Dict[str, torch.Tensor
 def to_flax_params(block_name: str, state: Mapping[str, torch.Tensor]) -> Dict[str, object]:
     """The inverse of :func:`from_flax_params` for a block: ``state`` (the block's
     parameters) as a flax tree of fp32 numpy arrays."""
+    from hivemind_tpu_torch.moe.server.layers import name_to_block
+
     if block_name not in name_to_block:
         raise KeyError(f"unknown expert block {block_name!r}; known: {sorted(name_to_block)}")
+    return to_flax_tree(state)
+
+
+def to_flax_tree(state: Mapping[str, torch.Tensor]) -> Dict[str, object]:
+    """Parameters keyed like a module's ``state_dict`` as a flax tree of fp32 numpy
+    arrays (copies), its keys sorted at every level as JAX's tree utilities order them (so
+    the tree serializes to the JAX package's bytes)."""
     tree: Dict[str, object] = {}
-    for key, tensor in state.items():
-        array = torch.as_tensor(tensor).detach().to("cpu", torch.float32).numpy()
-        if "." not in key:
-            tree[key] = array
-            continue
-        module, leaf = key.rsplit(".", 1)
-        if leaf == "weight":
-            leaf, array = ("kernel", np.ascontiguousarray(array.T)) if array.ndim == 2 else ("scale", array)
-        elif leaf != "bias":
-            raise KeyError(f"{block_name}: no flax leaf for parameter {key}")
-        tree.setdefault(module, {})[leaf] = array
+    for key in sorted(state):
+        # a copy: the tree must not alias parameters that a step later updates in place
+        array = torch.as_tensor(state[key]).detach().to("cpu", torch.float32, copy=True).numpy()
+        *modules, leaf = key.split(".")
+        if modules:
+            if leaf == "weight":
+                leaf, array = ("kernel", np.ascontiguousarray(array.T)) if array.ndim == 2 else ("scale", array)
+            elif leaf != "bias":
+                raise KeyError(f"no flax leaf for parameter {key}")
+        node = tree
+        for module in modules:
+            node = node.setdefault(module, {})
+        node[leaf] = array
+    return _sorted_tree(tree)
+
+
+def _sorted_tree(tree):
+    if isinstance(tree, dict):
+        return {key: _sorted_tree(tree[key]) for key in sorted(tree)}
     return tree

@@ -41,6 +41,7 @@ from hivemind_tpu_torch.compression import (
     serialize_tensor,
     split_tensor_for_streaming,
 )
+from hivemind_tpu_torch.moe.client.call_many import EXPERT_BREAKERS
 from hivemind_tpu_torch.moe.expert_uid import IDEMPOTENT_CONNECTION_RPCS, ExpertInfo, ReplicaInfo
 from hivemind_tpu_torch.p2p import P2P, PeerID
 from hivemind_tpu_torch.proto import runtime_pb2
@@ -68,15 +69,6 @@ _OFF_LOOP_CODEC_BYTES = 256 * 1024  # payloads past this compress/decompress in 
 EXPERT_RPC_TIMEOUT = 120.0
 _INFO_RPC_TIMEOUT = 10.0
 
-# the shared per-expert breaker board (uid keys and uid@peer replica keys), as the
-# JAX package declares it in moe/client/call_many.py
-EXPERT_BREAKERS = BreakerBoard(
-    "moe_expert",
-    failure_threshold=2,
-    recovery_time=30.0,
-    backoff_rate=2.0,
-    max_recovery_time=600.0,
-)
 
 # serving wire accounting, this process as the CALLER
 _CLIENT_BYTES_SENT = WIRE_BYTES_SENT.labels("client")

@@ -111,6 +111,16 @@ class ConnectionHandler(ServicerBase):
             max_queue_size=self._max_queue_size,
         )
 
+    def add_backend(self, uid: str, backend: ModuleBackend) -> List[TaskPool]:
+        """Serve an expert acquired at runtime (replication): its pools are made
+        here, and the caller (``Server.add_backend``) hands them to the Runtime
+        and declares the expert. Returns the new pools."""
+        if uid in self.backends and uid in self.forward_pools:
+            return []
+        self.backends[uid] = backend
+        self._register_pools(uid, backend)
+        return [self.forward_pools[uid], self.backward_pools[uid]]
+
     def _admit(self, context: P2PContext, tensors, kind: str) -> None:
         """Fair-share gate: draw this request's sample count from the calling
         client's token bucket (raises the typed ClientOverBudgetError shed).
@@ -320,9 +330,9 @@ class ConnectionHandler(ServicerBase):
         full ``state_dict`` blob to a peer acquiring a replica. The first message
         carries msgpack metadata (spec, byte length, blake2b digest); the blob
         follows in 1 MiB chunks riding Tensor buffers. Backends without a
-        ``replication_spec`` refuse: they replicate by loading the same
-        checkpoint, not over RPC. The port's ``ModuleBackend`` carries none until
-        replication and checkpoints are ported, so today every expert refuses."""
+        ``replication_spec`` (``Server.create`` sets one on every expert built from
+        the layer registry; a checkpoint-loaded Llama block has none) refuse: they
+        replicate by loading the same checkpoint, not over RPC."""
         backend = self.backends.get(request.uid)
         if backend is None:
             raise KeyError(f"unknown expert {request.uid!r}")

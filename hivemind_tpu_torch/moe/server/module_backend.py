@@ -20,6 +20,15 @@ tensor while a step rewrites it (the ``Runtime`` thread runs one batch at a time
 anyway; the lock covers callers outside it). Every kernel is queued on the same
 stream, so work queued before a step runs before it on the card too.
 
+State: ``state_dict()`` writes the JAX backend's blob, byte for byte where the
+state is the same: flax's msgpack format (``utils/flax_msgpack.py``) of
+``{"params", "opt_state", "updates"}``, the parameters in flax layout
+(``convert.to_flax_tree``: kernels ``[in, out]``) and the optimizer state in the
+layout of its optax twin. ``load_state_dict(blob)`` reads a blob of either
+package. Checkpoints (``checkpoints.py``) and replica transfers
+(``rpc_replica_state``) carry these blobs, so a port server restores a JAX
+server's checkpoint and the reverse.
+
 Telemetry: ``forward`` and ``backward`` count the bytes they copy between host
 and device in ``hivemind_device_transfer_bytes_total``: the unpadded batch, as
 the port sends it (the JAX backend counts its padded bucket).
@@ -34,6 +43,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from hivemind_tpu_torch.convert import from_flax_albert_params, to_flax_tree
 from hivemind_tpu_torch.moe.server.layers import init_parameters
 from hivemind_tpu_torch.ops.quantized_params import (
     QuantizedTensor,
@@ -42,6 +52,7 @@ from hivemind_tpu_torch.ops.quantized_params import (
     tree_param_bytes,
 )
 from hivemind_tpu_torch.telemetry.device import record_transfer
+from hivemind_tpu_torch.utils import flax_msgpack
 from hivemind_tpu_torch.utils.device import resolve_device
 from hivemind_tpu_torch.utils.tensor_descr import BatchTensorDescriptor
 
@@ -112,6 +123,9 @@ class ModuleBackend:
         self._state_lock = threading.Lock()
         self._make_optimizer = optimizer or (lambda tensors: torch.optim.SGD(tensors, lr=0.0))
         self.update_count = 0
+        # how a peer rebuilds this expert from the layer registry before loading its
+        # state blob (replication.py); None: it replicates from its checkpoint instead
+        self.replication_spec: Optional[Dict[str, Any]] = None
 
         if any(True for _ in module.buffers()):
             raise ValueError("ModuleBackend serves modules whose state is parameters only")
@@ -228,3 +242,94 @@ class ModuleBackend:
             max_batch_size=self.max_batch_size,
             updates=self.update_count,
         )
+
+    # ------------------------------------------------------------------ state
+
+    def state_dict(self) -> bytes:
+        """The expert's state as the JAX backend writes it: flax's msgpack bytes of
+        ``{"params": flax tree, "opt_state": optax tree, "updates": int}``. An int8
+        backend writes its dense (dequantized) weights and ``{}``, as the
+        reference does; ``load_state_dict`` quantizes them again."""
+        with self._state_lock:
+            params = to_flax_tree(dequantize_tree(self.params))
+            opt_state = {} if self.optimizer is None else optax_state(self.optimizer, self.params)
+            updates = self.update_count
+        return flax_msgpack.to_bytes({"params": params, "opt_state": opt_state, "updates": updates})
+
+    def load_state_dict(self, blob: bytes) -> None:
+        """Restore a blob of ``state_dict`` (either package's): the weights, the
+        optimizer's statistics where the optimizer has an optax twin (see
+        :func:`optax_state`; any other optimizer restarts its statistics, as
+        ``load_params`` does) and the update count. An int8 backend quantizes the
+        restored weights."""
+        restored = flax_msgpack.msgpack_restore(blob)
+        dense = self._dense_params(from_flax_albert_params(restored["params"]))
+        if self.weight_quantization:
+            new_params, new_optimizer = quantize_params(dense), None
+        else:
+            new_params, new_optimizer = dense, self._make_optimizer(list(dense.values()))
+            load_optax_state(new_optimizer, new_params, restored.get("opt_state") or {})
+        with self._state_lock:
+            self.params, self.optimizer = new_params, new_optimizer
+            self.update_count = int(restored.get("updates", 0))
+
+
+# ---------------------------------------------------------------------- optax twins
+#
+# A torch optimizer's statistics as the optax optimizer it equals writes them
+# (flax's state-dict form of optax's state tuple):
+# - Adam (no weight decay, no amsgrad) is optax.adam: {"0": {count, mu, nu}, "1": {}};
+# - SGD is optax.sgd: {"0": {}, "1": {}}, or {"0": {"trace": tree}, "1": {}} with
+#   momentum (no dampening, no Nesterov);
+# - any other optimizer writes {} and restarts its statistics on load.
+# ``count`` is optax's int32 step counter (torch's float ``step``), and the moments
+# of a 2-D weight are transposed as its kernel is.
+
+
+def _optax_layout(optimizer: torch.optim.Optimizer) -> Optional[str]:
+    group = optimizer.param_groups[0]
+    kind = type(optimizer)
+    if kind is torch.optim.Adam and not group.get("amsgrad") and not group.get("weight_decay"):
+        return "adam"
+    if kind is torch.optim.SGD and not group.get("nesterov") and not group.get("dampening"):
+        return "sgd_momentum" if group.get("momentum") else "sgd"
+    return None
+
+
+def optax_state(optimizer: torch.optim.Optimizer, params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """``optimizer``'s statistics over ``params`` in its optax twin's layout ({} when
+    it has none)."""
+    layout = _optax_layout(optimizer)
+    if layout is None:
+        return {}
+
+    def moments(slot: str) -> Dict[str, Any]:
+        return to_flax_tree({key: optimizer.state.get(tensor, {}).get(slot, torch.zeros_like(tensor))
+                             for key, tensor in params.items()})
+
+    if layout in ("sgd", "sgd_momentum"):
+        first = {"trace": moments("momentum_buffer")} if layout == "sgd_momentum" else {}
+        return {"0": first, "1": {}}
+    steps = [optimizer.state[tensor]["step"] for tensor in params.values() if "step" in optimizer.state.get(tensor, {})]
+    count = np.asarray(int(steps[0]) if steps else 0, np.int32)
+    return {"0": {"count": count, "mu": moments("exp_avg"), "nu": moments("exp_avg_sq")}, "1": {}}
+
+
+def load_optax_state(optimizer: torch.optim.Optimizer, params: Dict[str, torch.Tensor], state: Dict[str, Any]) -> None:
+    """Set ``optimizer``'s statistics from an optax state tree (the inverse of
+    :func:`optax_state`); a layout the optimizer does not have leaves it fresh."""
+    layout, first = _optax_layout(optimizer), state.get("0")
+    if layout is None or not isinstance(first, dict):
+        return
+
+    def tensors(tree) -> Dict[str, torch.Tensor]:
+        return {key: value.to(params[key].device) for key, value in from_flax_albert_params(tree).items()}
+
+    if layout == "sgd_momentum" and "trace" in first:
+        for key, value in tensors(first["trace"]).items():
+            optimizer.state[params[key]] = {"momentum_buffer": value}
+    elif layout == "adam" and {"count", "mu", "nu"} <= set(first):
+        mu, nu = tensors(first["mu"]), tensors(first["nu"])
+        for key, tensor in params.items():
+            optimizer.state[tensor] = {"step": torch.tensor(float(first["count"]), dtype=torch.float32),
+                                       "exp_avg": mu[key], "exp_avg_sq": nu[key]}

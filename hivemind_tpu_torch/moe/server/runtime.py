@@ -7,7 +7,12 @@ Telemetry, under the JAX package's metric names: per-pool batches, samples,
 failures and batch latency, and the drain loop's utilization. Every
 ``STATS_REPORT_INTERVAL`` seconds a log line reports each pool's batches, mean
 batch size and throughput as deltas of those counters, and the card's memory in
-use."""
+use.
+
+Pools may join after ``start()`` (``add_pool``: a server that acquires an expert
+replica at runtime). A Runtime may start with none: it then waits on the
+pools-changed event, and a pool added in the middle of a wait wakes it, so an
+idle Runtime never polls."""
 
 from __future__ import annotations
 
@@ -45,9 +50,8 @@ STATS_REPORT_INTERVAL = 60.0  # seconds between two of the runtime's log reports
 
 class Runtime:
     def __init__(self, pools: Sequence[TaskPool]):
-        if not pools:
-            raise ValueError("a Runtime drains at least one pool")
         self.pools = list(pools)
+        self._pools_changed = asyncio.Event()
         self._task: Optional[asyncio.Task] = None
         self.batches_processed = 0
         self._last_report = time.perf_counter()
@@ -73,9 +77,29 @@ class Runtime:
     def start(self) -> None:
         self._task = spawn(self._run(), name="runtime.run")
 
+    def add_pool(self, pool: TaskPool) -> None:
+        """Drain ``pool`` too, from the next turn of the loop on (call on the
+        Runtime's loop). The pools-changed event wakes a wait in progress."""
+        if pool in self.pools:
+            return
+        self.pools.append(pool)
+        children = (_BATCHES.labels(pool.name), _SAMPLES.labels(pool.name), _BATCH_LATENCY.labels(pool.name))
+        self._children[pool.name] = children
+        self._reported.setdefault(pool.name, (children[0].value, children[1].value, children[2].sum))
+        self._pools_changed.set()
+
     async def _run(self) -> None:
         while True:
+            if not self.pools:
+                # a replica-slot server starts empty and gains pools at runtime
+                self._pools_changed.clear()
+                await self._pools_changed.wait()
+                continue
+            self._pools_changed.clear()
             waiters = [asyncio.create_task(pool.wait_for_tasks()) for pool in self.pools]
+            # a pool added in the middle of the wait has no waiter here: its event
+            # wakes the wait, and the next turn waits on it too
+            waiters.append(asyncio.create_task(self._pools_changed.wait()))
             try:
                 await asyncio.wait(waiters, return_when=asyncio.FIRST_COMPLETED)
             finally:

@@ -1,19 +1,36 @@
-"""Swarm-wide telemetry (the port of hivemind_tpu/telemetry/monitor.py): one
-peer's compact snapshot, its shrinking to a DHT record's budget, and the
-aggregation of all peers' snapshots into one view.
+"""Swarm-wide telemetry (the port of hivemind_tpu/telemetry/monitor.py): publish
+each peer's snapshot to the DHT, and aggregate all peers' snapshots into one view.
 
-The DHT-facing half of the JAX module — ``TelemetryPublisher``,
-``fetch_swarm_telemetry`` and ``SwarmMonitor`` — takes a DHT and comes in a
-later slice of the port, on the port's DHT. The snapshot and the aggregation are plain dicts, byte-compatible
-with the JAX package's, so a torch peer and a JAX peer read each other's.
+Per-peer side, :class:`TelemetryPublisher`: a daemon thread stores a compact
+snapshot of the process-wide registry (and optional caller extras) under ``{key}``
+/ subkey ``peer_id`` on a timer, so one DHT read answers "where did the time go"
+for the whole swarm.
+
+Monitor side, :func:`fetch_swarm_telemetry` + :func:`aggregate_swarm_view` and
+the :class:`SwarmMonitor` wrapper with its four renders (report, serving board,
+epoch timeline, cross-peer span timeline).
+
+Snapshots are plain dicts stored through the DHT's msgpack, byte-compatible with
+the JAX package's, so a port monitor reads JAX peers and the reverse.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import threading
+import time
+from typing import Any, Callable, Dict, Optional
 
 from hivemind_tpu_torch.telemetry.registry import REGISTRY, MetricsRegistry
+from hivemind_tpu_torch.utils.logging import get_logger
 from hivemind_tpu_torch.utils.timed_storage import get_dht_time
+
+logger = get_logger(__name__)
+
+DEFAULT_TELEMETRY_KEY = "hivemind_telemetry"
+# the default TelemetryPublisher cadence, and how many missed publishes make a
+# peer STALE (shared by every renderer, so they agree about staleness)
+DEFAULT_PUBLISH_INTERVAL = 30.0
+STALE_AFTER_FACTOR = 3.0
 
 # a snapshot must stay a small DHT record: drop histogram series first, then
 # whole metrics, before giving up on the publish
@@ -173,6 +190,101 @@ def _compact_family(family: Dict[str, Any]) -> Dict[str, Any]:
     return {**family, "series": {"": round(total, 6)}, "compacted": True}
 
 
+class TelemetryPublisher:
+    """Periodically store this peer's snapshot in the DHT (one subkey per peer).
+
+    :param dht: the peer's :class:`~hivemind_tpu_torch.dht.DHT`
+    :param key: DHT key to publish under; swarm members must agree on it
+        (convention: ``f"{run_id}_telemetry"`` for training runs)
+    :param interval: seconds between publishes
+    :param extras_fn: zero-arg callable merged into every snapshot (e.g.
+        ``lambda: {"step_profiler": profiler.summary()}``)
+    """
+
+    def __init__(
+        self,
+        dht,
+        key: str = DEFAULT_TELEMETRY_KEY,
+        *,
+        interval: float = 30.0,
+        registry: MetricsRegistry = REGISTRY,
+        extras_fn: Optional[Callable[[], Dict[str, Any]]] = None,
+        start: bool = True,
+    ):
+        self.dht = dht
+        self.key = key
+        self.interval = interval
+        self.registry = registry
+        self.extras_fn = extras_fn
+        self.last_published: Optional[Dict[str, Any]] = None
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        if start:
+            self.start()
+
+    def start(self) -> None:
+        if self._thread is not None:
+            return
+        self._thread = threading.Thread(
+            target=self._run, name="telemetry-publisher", daemon=True
+        )
+        self._thread.start()
+
+    def publish_once(self) -> bool:
+        """Build + store one snapshot now (also used by the timer thread)."""
+        extras: Dict[str, Any] = {}
+        if self.extras_fn is not None:
+            try:
+                extras = dict(self.extras_fn())
+            except Exception as e:
+                logger.debug(f"telemetry extras_fn failed: {e!r}")
+        extras.setdefault("peer_id", str(self.dht.peer_id))
+        snapshot = _shrink_to_fit(build_peer_snapshot(self.registry, extras))
+        try:
+            ok = self.dht.store(
+                self.key,
+                value=snapshot,
+                subkey=self.dht.peer_id.to_bytes(),
+                expiration_time=get_dht_time() + max(self.interval * 3, 60.0),
+            )
+        except Exception as e:
+            logger.debug(f"telemetry publish failed: {e!r}")
+            return False
+        if ok:
+            self.last_published = snapshot
+        return bool(ok)
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.interval):
+            self.publish_once()
+
+    def shutdown(self) -> None:
+        self._stop.set()
+        thread, self._thread = self._thread, None
+        if thread is not None:
+            thread.join(timeout=2.0)
+
+
+# ------------------------------------------------------------------ monitor side
+
+
+def fetch_swarm_telemetry(dht, key: str = DEFAULT_TELEMETRY_KEY) -> Dict[str, Dict[str, Any]]:
+    """All peers' live snapshots: ``{peer_id_str: snapshot_dict}``."""
+    response = dht.get(key, latest=True)
+    records: Dict[str, Dict[str, Any]] = {}
+    if response is None or not isinstance(response.value, dict):
+        return records
+    for subkey, entry in response.value.items():
+        snapshot = entry.value if hasattr(entry, "value") else entry
+        if not isinstance(snapshot, dict):
+            continue
+        peer = snapshot.get("peer_id")
+        if not isinstance(peer, str):
+            peer = subkey.hex() if isinstance(subkey, bytes) else str(subkey)
+        records[peer] = snapshot
+    return records
+
+
 def aggregate_swarm_view(records: Dict[str, Dict[str, Any]]) -> Dict[str, Any]:
     """Collapse per-peer snapshots into the swarm-wide view: counter/gauge totals
     per metric (counters/histogram-counts sum; gauges also carry min/max so a
@@ -219,3 +331,212 @@ def aggregate_swarm_view(records: Dict[str, Dict[str, Any]]) -> Dict[str, Any]:
     for agg in totals.values():
         agg["total"] = round(agg["total"], 6)
     return {"num_peers": len(records), "metrics": totals, "peers": peers}
+
+
+class SwarmMonitor:
+    """Fetch + aggregate on demand, optionally appending each view to a sink (any
+    object with ``log(dict)``)."""
+
+    # the swarm's agreed TelemetryPublisher cadence: a peer whose snapshot age
+    # exceeds STALE_AFTER_FACTOR x this is flagged STALE (it stopped publishing
+    # — crashed, wedged, or partitioned — even if its last numbers look
+    # healthy). A class default so render-only monitors (tests build them
+    # without __init__) work.
+    publish_interval: float = DEFAULT_PUBLISH_INTERVAL
+
+    def __init__(
+        self,
+        dht,
+        key: str = DEFAULT_TELEMETRY_KEY,
+        sink=None,
+        publish_interval: float = DEFAULT_PUBLISH_INTERVAL,
+    ):
+        self.dht = dht
+        self.key = key
+        self.sink = sink
+        self.publish_interval = publish_interval
+
+    def poll(self) -> Dict[str, Any]:
+        view = aggregate_swarm_view(fetch_swarm_telemetry(self.dht, self.key))
+        view["time"] = round(time.time(), 3)
+        if self.sink is not None:
+            try:
+                self.sink.log({"swarm_telemetry": view})
+            except Exception as e:
+                logger.debug(f"telemetry sink write failed: {e!r}")
+        return view
+
+    def render_report(self, view: Optional[Dict[str, Any]] = None) -> str:
+        """Human-readable one-screen summary for log lines / CLIs. Peers whose
+        snapshot carries tripped breakers or slow spans are flagged DEGRADED —
+        the "which peer is the problem" line, not just its counters."""
+        view = view if view is not None else self.poll()
+        lines = [f"swarm telemetry: {view['num_peers']} peers"]
+        for name, agg in sorted(view.get("metrics", {}).items()):
+            extra = ""
+            if "sum" in agg:
+                extra = f", sum={agg['sum']:.3f}s"
+            if "min" in agg and agg.get("min") != agg.get("max"):
+                extra += f", min={agg['min']}, max={agg['max']}"
+            lines.append(f"  {name} [{agg['type']}] total={agg['total']}{extra} ({agg['peers']} peers)")
+        # recovery-path emergencies (docs/state_recovery.md): either of these
+        # growing means the swarm is quietly diverging — a peer claimed epochs
+        # it never trained, or adopted state no digest ever blessed
+        for name, what in (
+            ("hivemind_optimizer_epoch_adopted_without_state_total", "epoch(s) adopted WITHOUT state"),
+            ("hivemind_state_sync_unverified_adoptions_total", "unverified (manifest-less) state adoption(s)"),
+        ):
+            agg = view.get("metrics", {}).get(name)
+            if agg and agg.get("total"):
+                lines.append(f"  RECOVERY ALERT: {agg['total']:g} {what} across the swarm")
+        stale_after = STALE_AFTER_FACTOR * self.publish_interval
+        for peer, health in sorted(view.get("peers", {}).items()):
+            breakers = health.get("breakers") or {}
+            slow = health.get("slow_spans") or []
+            ledger = health.get("ledger") or {}
+            watchdog = health.get("watchdog") or {}
+            marker = " DEGRADED" if breakers or slow else ""
+            if float(health.get("age_s", 0.0)) > stale_after:
+                # stopped publishing: crashed, wedged, or partitioned — its
+                # numbers below are a snapshot of the PAST, not the present
+                marker = " STALE" + marker
+            printable = {
+                k: v for k, v in health.items() if k not in ("ledger", "watchdog", "serving")
+            }
+            lines.append(f"  peer {peer[:16]}…:{marker} {printable}")
+            for board, state in sorted(breakers.items()):
+                lines.append(f"    breaker {board}: {state.get('num_tripped', 0)} tripped {state.get('tripped')}")
+            for span in slow:
+                lines.append(
+                    f"    slow span {span.get('name')}: {span.get('dur_ms')}ms events={span.get('events', [])}"
+                )
+            if watchdog.get("stalls"):
+                lines.append(
+                    f"    WATCHDOG: {watchdog['stalls']} event-loop stall(s), "
+                    f"max lag {watchdog.get('max_lag_s', 0.0)}s — this peer's loop blocked; "
+                    f"it is NOT a network straggler"
+                )
+            for victim, score in list((ledger.get("stragglers") or {}).items())[:3]:
+                lines.append(
+                    f"    straggler seen: {str(victim)[:16]} slowest in "
+                    f"{score.get('rounds_slowest', 0)} round(s), +{score.get('excess_s', 0.0)}s excess"
+                )
+        serving_board = self.render_serving_board(view)
+        if serving_board:
+            lines.append(serving_board)
+        timeline = self.render_epoch_timeline(view)
+        if timeline:
+            lines.append(timeline)
+        return "\n".join(lines)
+
+    def render_serving_board(self, view: Optional[Dict[str, Any]] = None) -> str:
+        """The serving board: per-expert request counts / p95 / sheds
+        merged across every peer's serving section, the saturation gauges
+        (queue depth/age, session occupancy, shed totals), degraded client-side
+        scorecards, and the slowest-request exemplars — which expert on which
+        peer is eating serving time, as one screen (parsed by
+        ``telemetry.serving.collect_swarm_serving``)."""
+        from hivemind_tpu_torch.telemetry.serving import (
+            collect_swarm_serving,
+            format_saturation_parts,
+            format_scorecard_line,
+            format_slowest_line,
+        )
+
+        view = view if view is not None else self.poll()
+        data = collect_swarm_serving(view.get("peers") or {})
+        if not any(data[key] for key in ("experts", "saturation", "degraded_scorecards", "slowest", "malformed")):
+            return ""
+        lines = ["  serving board (expert @ peer / requests / p95 / sheds):"]
+        for peer, uid, stats in data["experts"][:16]:
+            p95 = stats["p95_s"]
+            lines.append(
+                f"    {uid[:24]:<24} @ {peer[:12]:<12} {stats['requests']:>6.0f} req "
+                f"p95={f'{p95 * 1e3:.1f}ms' if p95 is not None else '-':>9}"
+                + (f"  SHED x{stats['sheds']}" if stats["sheds"] else "")
+            )
+        for peer in data["malformed"]:
+            lines.append(f"    {peer[:16]:<16} <malformed serving section>")
+        if data["saturation"]:
+            lines.append("  serving saturation:")
+            lines.extend(
+                f"    {peer[:16]:<16} {', '.join(format_saturation_parts(entry))}"
+                for peer, entry in data["saturation"]
+            )
+        if data["degraded_scorecards"]:
+            lines.append("  degraded expert scorecards (client view):")
+            lines.extend(
+                "    " + format_scorecard_line(peer, uid, card)
+                for peer, uid, card in data["degraded_scorecards"][:8]
+            )
+        if data["slowest"]:
+            lines.append("  slowest requests:")
+            lines.extend(
+                "    " + format_slowest_line(total_s, peer, record)
+                for total_s, peer, record in data["slowest"][:5]
+            )
+        return "\n".join(lines)
+
+    def render_epoch_timeline(self, view: Optional[Dict[str, Any]] = None) -> str:
+        """Per-epoch swarm timeline with straggler attribution: every
+        peer's ledger epoch records, grouped by epoch — one line per peer per
+        epoch showing rounds run, averaging seconds spent, and which partner was
+        slowest. This is "where did epoch N's wall time go" as one screen."""
+        view = view if view is not None else self.poll()
+        by_epoch: Dict[int, list] = {}
+        for peer, health in (view.get("peers") or {}).items():
+            for entry in (health.get("ledger") or {}).get("epochs") or ():
+                # snapshots are DHT-supplied: one malformed (buggy/stale/hostile)
+                # peer must not crash every operator's report
+                if isinstance(entry, dict) and isinstance(entry.get("epoch"), (int, float)):
+                    by_epoch.setdefault(int(entry["epoch"]), []).append((peer, entry))
+        if not by_epoch:
+            return ""
+        lines = ["  epoch timeline (rounds / averaging seconds / slowest partner):"]
+        for epoch in sorted(by_epoch)[-8:]:
+            lines.append(f"    epoch {epoch}:")
+            for peer, entry in sorted(by_epoch[epoch], key=lambda kv: kv[0]):
+                try:
+                    rounds = int(entry.get("rounds", 0) or 0)
+                    round_s = float(entry.get("round_s", 0.0) or 0.0)
+                except (TypeError, ValueError):
+                    lines.append(f"      {str(peer)[:16]:<16} <malformed ledger entry>")
+                    continue
+                straggler = entry.get("straggler")
+                attribution = f" slowest={str(straggler)[:16]}" if straggler else ""
+                averaged = entry.get("averaged_ok")
+                outcome = "" if averaged is None else (" ok" if averaged else " DEGRADED_TO_LOCAL")
+                lines.append(
+                    f"      {str(peer)[:16]:<16} {rounds} round(s) "
+                    f"{round_s:.3f}s{attribution}{outcome}"
+                )
+        return "\n".join(lines)
+
+    def render_timeline(self, records: Optional[Dict[str, Dict[str, Any]]] = None) -> str:
+        """Cross-peer timeline: pull every peer's recent span summaries from the
+        DHT, group them by trace, and print each trace's spans in start order —
+        one line per span, labeled with the owning peer. This is how "why was
+        THIS round slow" reads without collecting per-peer /trace dumps."""
+        records = records if records is not None else fetch_swarm_telemetry(self.dht, self.key)
+        by_trace: Dict[str, list] = {}
+        for peer, snapshot in records.items():
+            for span in snapshot.get("recent_spans") or ():
+                if isinstance(span, dict) and span.get("trace"):
+                    by_trace.setdefault(span["trace"], []).append((peer, span))
+        lines = [f"swarm timeline: {len(by_trace)} traces from {len(records)} peers"]
+        # most recently started traces first; spans within a trace in time order
+        def trace_start(spans):
+            return min(float(s.get("start", 0.0)) for _p, s in spans)
+
+        for trace_id, spans in sorted(by_trace.items(), key=lambda kv: -trace_start(kv[1])):
+            spans.sort(key=lambda item: float(item[1].get("start", 0.0)))
+            origin = float(spans[0][1].get("start", 0.0))
+            lines.append(f"trace {trace_id}:")
+            for peer, span in spans:
+                offset_ms = (float(span.get("start", 0.0)) - origin) * 1e3
+                events = f" !{','.join(span['events'])}" if span.get("events") else ""
+                lines.append(
+                    f"  +{offset_ms:8.1f}ms {peer[:12]:<12} {span.get('name')}"
+                    f" ({span.get('dur_ms')}ms){events}"
+                )
+        return "\n".join(lines)

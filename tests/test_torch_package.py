@@ -51,7 +51,11 @@ for name in ("hivemind_tpu_torch.moe.server.decode_session", "hivemind_tpu_torch
              "hivemind_tpu_torch.moe.server.connection_handler", "hivemind_tpu_torch.moe.client.expert",
              "hivemind_tpu_torch.proto.runtime_pb2", "hivemind_tpu_torch.utils.msgpack_codec",
              "hivemind_tpu_torch.proto.dht_pb2", "hivemind_tpu_torch.dht.dht", "hivemind_tpu_torch.dht.node",
-             "hivemind_tpu_torch.moe.server.server", "hivemind_tpu_torch.moe.client.remote_sequential"):
+             "hivemind_tpu_torch.moe.server.server", "hivemind_tpu_torch.moe.client.remote_sequential",
+             "hivemind_tpu_torch.utils.flax_msgpack", "hivemind_tpu_torch.moe.server.checkpoints",
+             "hivemind_tpu_torch.moe.server.replication", "hivemind_tpu_torch.moe.client.call_many",
+             "hivemind_tpu_torch.moe.client.beam_search", "hivemind_tpu_torch.moe.client.moe",
+             "hivemind_tpu_torch.telemetry.monitor", "hivemind_tpu_torch.utils.auth"):
     assert name in sys.modules, name
 assert not leaked(), leaked()
 
@@ -61,6 +65,8 @@ from hivemind_tpu_torch.moe.server.llama_loader import device_hbm_bytes, load_ll
 from hivemind_tpu_torch.moe.server.module_backend import ModuleBackend
 from hivemind_tpu_torch.models.albert import AlbertConfig, make_train_step
 from hivemind_tpu_torch.moe.server.server import Server
+from hivemind_tpu_torch.moe.client.moe import RemoteMixtureOfExperts
+from hivemind_tpu_torch.dht import DHT
 refused = 0
 for entry_point in (
     lambda: ModuleBackend("nop", NopExpert(4), sample_input=np.zeros((1, 4), np.float32)),
@@ -68,13 +74,14 @@ for entry_point in (
     lambda: device_hbm_bytes(),
     lambda: make_train_step(AlbertConfig.tiny(), lambda params: torch.optim.AdamW(params)),
     lambda: Server.create(expert_uids=["nop.0"], expert_cls="nop", hidden_dim=4),
+    lambda: RemoteMixtureOfExperts(dht=DHT(), in_features=4, grid_size=(2,), uid_prefix="nop."),
 ):
     try:
         entry_point()
     except RuntimeError as e:
         assert "no CUDA device" in str(e), e
         refused += 1
-assert refused == 5, refused
+assert refused == 6, refused
 backend = ModuleBackend("nop", NopExpert(4), sample_input=np.zeros((1, 4), np.float32), device="cpu")
 assert backend.forward(np.ones((2, 4), np.float32))[0].tolist() == [[1.0] * 4] * 2
 assert backend.backward(np.ones((2, 4), np.float32), np.ones((2, 4), np.float32))[0].tolist() == [[1.0] * 4] * 2

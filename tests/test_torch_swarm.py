@@ -44,7 +44,7 @@ from hivemind_tpu_torch.convert import from_flax_albert_params
 from hivemind_tpu_torch.dht import DHT
 from hivemind_tpu_torch.moe import RemoteSequential, Server, background_server, get_experts
 from hivemind_tpu_torch.moe.client import RemoteExpert
-from hivemind_tpu_torch.moe.server import FairShareAdmission, ModuleBackend
+from hivemind_tpu_torch.moe.server import FairShareAdmission, ModuleBackend, store_experts
 from hivemind_tpu_torch.moe.server.layers.common import Dense
 from hivemind_tpu_torch.moe.server.llama_loader import LlamaClientHead, generate_greedy, load_llama_blocks
 from hivemind_tpu_torch.moe.server.server import _generate_uids, default_optimizer
@@ -481,7 +481,7 @@ def test_restored_handler_options_reach_admission_and_the_pools():
     assert default.handler.decode_sessions.max_sessions == 64
 
 
-def test_server_create_builds_experts_on_the_cpu_when_asked_and_refuses_later_slices():
+def test_server_create_builds_experts_on_the_cpu_when_asked_and_refuses_later_slices(tmp_path):
     with deadline(60):
         with background_server(expert_uids=["ffn_cpu.0"], expert_cls="ffn", hidden_dim=8, device="cpu",
                                activation_compression="none") as (dht, server):
@@ -495,9 +495,22 @@ def test_server_create_builds_experts_on_the_cpu_when_asked_and_refuses_later_sl
                 np.testing.assert_allclose(out, backend.forward(np.ones((2, 8), np.float32))[0], atol=FP32_TOL)
             finally:
                 client.shutdown()
-    for option in ({"checkpoint_dir": "/nonexistent"}, {"replica_slots": 2}, {"replicate_hot_experts": True}):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            Server.create(expert_uids=["x.0"], hidden_dim=8, device="cpu", **option)
+    # the options of the later slice are served now (the name of this test predates
+    # them): a checkpoint restores at create, a replica-only volunteer starts empty,
+    # and a hot-expert server carries a replication spec on every expert
+    with deadline(60):
+        dht = DHT(start=False)
+        donor = Server.create(expert_uids=["x.0"], hidden_dim=8, device="cpu", dht=dht, replicate_hot_experts=True)
+        assert donor.replication is not None and donor.replication.replica_slots == 0
+        assert donor.backends["x.0"].replication_spec["expert_cls"] == "ffn"
+        store_experts(donor.backends, tmp_path)
+        restored = Server.create(expert_uids=["x.0"], hidden_dim=8, device="cpu", dht=dht, rng_seed=7,
+                                 checkpoint_dir=tmp_path)
+        assert restored.backends["x.0"].state_dict() == donor.backends["x.0"].state_dict()
+        assert restored.checkpoint_saver is not None and restored.replication is None
+        volunteer = Server.create(dht=dht, device="cpu", replica_slots=2)
+        assert volunteer.backends == {} and volunteer.runtime.pools == []
+        assert volunteer.replication.replica_slots == 2 and volunteer.device.type == "cpu"
 
 
 def test_default_optimizer_is_optax_adam():
