@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke test of hivemind_tpu_torch: builds the port's Hopper kernels,
 holds each against its plain PyTorch version at the shapes of the paths that run
-it, then drives seven paths and checks each against the CPU or the local path:
+it, then drives eight paths and checks each against the CPU, the local path or
+the exact result:
 - serving: two Llama-2-7B-width blocks (fp and int8 weight-only) through
   load_llama_blocks → ModuleBackend → TaskPool/Runtime, and an expert of
   head_dim 32, which the flash kernel does not take, through ModuleBackend;
@@ -21,6 +22,10 @@ it, then drives seven paths and checks each against the CPU or the local path:
   fp32 and int8, with RemoteMixtureOfExperts as the client: beam search, forward and
   backward against a twin mixture, hot-expert replication to a late volunteer, a
   checkpoint restored in a fresh process, a killed server, the swarm monitor;
+- averaging: DecentralizedAverager (BASELINE config 2: 8 peer processes, 100M float32
+  parameters each made on the card, groups of 4, fp16 wire): three rounds held on the
+  card to the exact group mean, GB/s per peer, a peer killed mid-round, and a late
+  peer's verified state download (no kernel: the reduction is host numpy);
 - expert training: ModuleBackend.backward (one SGD step) on a Llama-2-7B-width block;
 - ALBERT-base MLM training: make_train_step with AdamW at batch 32 × seq 512.
 Telemetry rides the serving and decode runs, as a server would arm it (the event-loop
@@ -231,6 +236,27 @@ DMOE_UPDATE_PERIOD = 5.0
 DMOE_TOL = SERVING_TOL  # the served path's fp16-wire limit
 DMOE_STARTUP_LIMIT_S = 90.0
 DMOE_PHASE_LIMIT_S = 120.0
+# [averaging]: BASELINE config 2, benchmarks/benchmark_averaging.py's defaults at the
+# published size: 8 peers, groups of 4, 100M float32 parameters a peer in one tensor,
+# Float16Compression on the wire, 2 MiB parts, min_matchmaking_time 1 s. Each peer is a
+# spawned process and DHT peer on one host and one card; peers 0-3 hold group bits "0"
+# and 4-7 "1", reset before every round, and min_group_size is 4, so each round's two
+# groups are the same 4 and 4: a peer whose join misses the 1 s window makes its whole
+# group retry instead of leaving it to average as 3 + 1.
+AVG_PEERS = 8
+AVG_GROUP_SIZE = 4
+AVG_PARAMS = 100_000_000
+AVG_ROUNDS = 3
+AVG_PREFIX = "bench"
+AVG_MATCHMAKING_S = 1.0
+AVG_STEP_TIMEOUT_S = 60.0
+AVG_STARTUP_LIMIT_S = 120.0
+AVG_PHASE_LIMIT_S = 240.0
+AVG_KILL_LIMIT_S = 300.0  # a timer kills every peer process past this
+AVG_VICTIM = 1  # SIGKILLed in the fourth round, AVG_KILL_DELAY_S after its all-reduce began
+AVG_KILL_DELAY_S = 0.5
+AVG_FAULT_SEED = 100  # the fourth round's values: seed SEED + AVG_FAULT_SEED + peer
+AVG_U16, AVG_U32 = 2.0**-11, 2.0**-24  # unit roundoffs of fp16 and fp32
 
 
 def log(message: str) -> None:
@@ -2734,6 +2760,344 @@ def phase_dmoe(torch, wrappers: dict, telemetry: Telemetry) -> dict:
     return launches
 
 
+# ------------------------------------------------------------------ [averaging]
+
+
+def averaging_bits(index: int) -> str:
+    """A peer's group bits: the first AVG_GROUP_SIZE peers in bucket 0, the rest in 1."""
+    return format(index // AVG_GROUP_SIZE, "b")
+
+
+def averaging_group(index: int) -> list:
+    first = index // AVG_GROUP_SIZE * AVG_GROUP_SIZE
+    return list(range(first, first + AVG_GROUP_SIZE))
+
+
+def averaging_limit(rounds: int) -> float:
+    """The elementwise limit on |result - exact group mean|, as a multiple of the
+    group's largest input magnitude S at that element, after ``rounds`` rounds of the
+    fp16 wire. A round rounds each remote input part to fp16 (<= u16 S, so the reduced
+    mean errs by <= u16 S) and the returned delta, at most 2 S, to fp16 (<= 2 u16 S),
+    and the own input's rounding shows in the result once more (<= u16 S): 4 u16 S in
+    the first round. A later round averages values already within that of the mean,
+    so it adds the rounding of its inputs and of its near-zero delta: 2 u16 S. The
+    fp32 sums and divides add a few u32 S."""
+    return (2 + 2 * rounds) * AVG_U16 + 16 * AVG_U32
+
+
+def averaging_seeded(torch, seed: int):
+    generator = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(AVG_PARAMS, generator=generator, device="cuda")
+
+
+def hold_to_group_mean(torch, result, seeds: list, rounds: int) -> dict:
+    """``result`` (fp32 on the card) against the exact float64 mean of the tensors the
+    seeds make, element by element within ``averaging_limit(rounds)`` of the group's
+    largest magnitude: ``ratio`` is the worst error over its limit (<= 1 passes). The
+    planted fault, a mean that leaves the last member out, must fail the same check:
+    ``fault_ratio`` > 1."""
+    inputs = [averaging_seeded(torch, seed) for seed in seeds]
+    factor = averaging_limit(rounds)
+    ratio = fault_ratio = 0.0
+    chunk = 10_000_000
+    for start in range(0, AVG_PARAMS, chunk):
+        stacked = torch.stack([x[start:start + chunk] for x in inputs]).double()
+        total = stacked.sum(0)
+        limit = factor * stacked.abs().amax(0)
+        got = result[start:start + chunk].double()
+        ratio = max(ratio, ((got - total / len(inputs)).abs() / limit).max().item())
+        faulty = (total - stacked[-1]) / (len(inputs) - 1)
+        fault_ratio = max(fault_ratio, ((got - faulty).abs() / limit).max().item())
+    finite = bool(torch.isfinite(result).all().item()) and tuple(result.shape) == (AVG_PARAMS,)
+    return dict(ratio=ratio, fault_ratio=fault_ratio, finite=finite)
+
+
+def averaging_peer_main(conn, index: int, initial_peers: list) -> None:
+    """One peer of ``[averaging]`` (index AVG_PEERS: the late joiner that downloads the
+    state): its own DHT peer, bootstrapped from the parent's, and a
+    ``DecentralizedAverager`` over one seeded tensor of AVG_PARAMS on the card, fp16 on
+    the wire, uncompressed state for downloads. Answers the parent's commands over
+    ``conn``: ``step`` (one round; after it the averages are copied back to the card and
+    held there against the exact group mean, or saved for the parent), ``reseed``
+    (fresh seeded values), ``digest`` (blake2b-16 of its tensor's bytes), ``load``
+    (``load_state_from_peers``, verified) and ``stop``."""
+    import hashlib
+    import resource
+    import traceback
+
+    def cpu_seconds() -> float:
+        usage = resource.getrusage(resource.RUSAGE_SELF)
+        return usage.ru_utime + usage.ru_stime
+
+    try:
+        import torch
+
+        from hivemind_tpu_torch.averaging import DecentralizedAverager
+        from hivemind_tpu_torch.compression import Float16Compression, NoCompression
+        from hivemind_tpu_torch.dht import DHT
+        from hivemind_tpu_torch.telemetry import LEDGER
+
+        loader = index == AVG_PEERS
+        seed_base = SEED
+        params = torch.zeros(AVG_PARAMS, device="cuda") if loader else averaging_seeded(torch, seed_base + index)
+        dht = DHT(initial_peers=initial_peers, start=True)
+        averager = DecentralizedAverager(
+            [params], dht, prefix=AVG_PREFIX, start=True, target_group_size=AVG_GROUP_SIZE,
+            min_group_size=AVG_GROUP_SIZE, initial_group_bits=averaging_bits(index),
+            min_matchmaking_time=AVG_MATCHMAKING_S,
+            compression=Float16Compression(), state_compression=NoCompression(), allow_state_sharing=not loader)
+        del params
+        applied = [0.0]
+        apply_delta = averager._apply_delta
+
+        async def timed_apply(tensor_index, delta):
+            started = time.perf_counter()
+            await apply_delta(tensor_index, delta)
+            applied[0] += time.perf_counter() - started
+
+        averager._apply_delta = timed_apply
+        conn.send(("ready", dht.peer_id.to_base58(), torch.cuda.get_device_name(0)))
+        rounds = 0  # since the tensor was last seeded
+        while True:
+            command, *args = conn.recv()
+            if command == "step":
+                announce, save_path, check = args
+                averager.set_group_bits(averaging_bits(index))  # undo the last round's rebucketing
+                applied[0], cpu_before, started = 0.0, cpu_seconds(), time.perf_counter()
+                control = averager.step(gather=index, wait=False, timeout=AVG_STEP_TIMEOUT_S)
+                if announce:
+                    while not control.began_allreduce and not control.done():
+                        time.sleep(0.001)
+                    conn.send(("began",))
+                gathered = control.result(timeout=AVG_STEP_TIMEOUT_S + 30)
+                seconds, cpu = time.perf_counter() - started, cpu_seconds() - cpu_before
+                rounds += 1
+                record = [r for r in LEDGER.records() if r["peer"] == str(dht.peer_id)][-1]
+                with averager.get_tensors() as tensors:
+                    result = tensors[0].to("cuda")  # the caller's copy back to the card
+                torch.cuda.synchronize()
+                members = sorted(gathered.values())
+                reading = dict(members=members, seconds=seconds, cpu=cpu, apply=applied[0],
+                               matchmaking=record.get("matchmaking_wait_s"), allreduce=record["total_s"])
+                if check:
+                    reading.update(hold_to_group_mean(torch, result, [seed_base + j for j in members], rounds))
+                if save_path is not None:
+                    np.save(save_path, result.cpu().numpy())
+                del result
+                torch.cuda.empty_cache()
+                conn.send(("stepped", reading))
+            elif command == "reseed":
+                (seed_base,) = args
+                with averager.get_tensors() as tensors:
+                    tensors[0].copy_(averaging_seeded(torch, seed_base + index).cpu())
+                rounds = 0
+                conn.send(("ok",))
+            elif command == "digest":
+                with averager.get_tensors() as tensors:
+                    conn.send(("digest", hashlib.blake2b(tensors[0].numpy().tobytes(), digest_size=16).hexdigest()))
+            elif command == "load":
+                started = time.perf_counter()
+                result = averager._runner.run_coroutine(averager._load_state_from_peers_async(timeout=AVG_STEP_TIMEOUT_S))
+                seconds = time.perf_counter() - started
+                (state,) = result.tensors
+                on_card = state.to("cuda")
+                conn.send(("loaded", dict(
+                    seconds=seconds, bytes=result.bytes_received, verified=result.verified, donors=result.donors,
+                    digest=hashlib.blake2b(state.numpy().tobytes(), digest_size=16).hexdigest(),
+                    finite=bool(torch.isfinite(on_card).all().item()), shape=tuple(on_card.shape),
+                    dtype=str(on_card.dtype))))
+            elif command == "stop":
+                averager.shutdown()
+                dht.shutdown()
+                conn.send(("stopped",))
+                return
+    except BaseException:
+        conn.send(("error", traceback.format_exc()))
+        raise
+
+
+class AveragingChild(SwarmChild):
+    """The parent's handle on one peer process of ``[averaging]``."""
+
+    def __init__(self, context, index: int, initial_peers: list):
+        self.index = index
+        self.name = f"averaging peer {index}" if index < AVG_PEERS else "the state-loading peer"
+        self.conn, child_conn = context.Pipe()
+        self.process = context.Process(target=averaging_peer_main, args=(child_conn, index, initial_peers), daemon=True)
+        self.process.start()
+        child_conn.close()
+        self.peer_id = self.device = self.last_report = None
+
+
+def host_line() -> str:
+    """The host's cores, CPU model and memory: host-bound phases read against them."""
+    model, memory = "?", float("nan")
+    with open("/proc/cpuinfo") as cpuinfo:
+        model = next((line.split(":", 1)[1].strip() for line in cpuinfo if line.startswith("model name")), model)
+    with open("/proc/meminfo") as meminfo:
+        memory = next((int(line.split()[1]) / 2**20 for line in meminfo if line.startswith("MemTotal:")), memory)
+    return f"{os.cpu_count()} cores ({model}), {memory:.1f} GiB"
+
+
+def phase_averaging(torch) -> None:
+    """Decentralized averaging across processes (BASELINE config 2,
+    benchmarks/benchmark_averaging.py at its published size): this process is the
+    bootstrap DHT peer; AVG_PEERS spawned peers each average AVG_PARAMS float32
+    parameters made on the card, in two groups of AVG_GROUP_SIZE over the fp16 wire.
+    Checks, in order: three rounds held on the card to the exact group mean (a planted
+    fault must fail the same check); GB/s per peer, as benchmark_averaging.py computes
+    it; a fourth round in which one peer is SIGKILLed once its all-reduce has begun;
+    a late peer's verified state download. Launches no kernel."""
+    import importlib.metadata
+    import multiprocessing
+    import threading
+
+    from hivemind_tpu_torch.averaging.partition import DEFAULT_PART_SIZE_BYTES
+    from hivemind_tpu_torch.dht import DHT
+
+    phase_started = time.perf_counter()
+    context = multiprocessing.get_context("spawn")
+    children, dhts, faults = [], [], []
+    scratch = tempfile.TemporaryDirectory(prefix="averaging_")
+    timer = None
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            faults.append(what)
+
+    def kill_all() -> None:
+        for child in children:
+            child.kill()
+
+    log(f"[averaging] host {host_line()}; scipy {importlib.metadata.version("scipy")} (HiGHS cuts the parts); {AVG_PEERS} peers x "
+        f"{AVG_PARAMS:,} float32 parameters ({AVG_PARAMS * 4 / 1e6:.0f} MB each on the card), groups of {AVG_GROUP_SIZE} (bits "
+        f"{sorted({averaging_bits(i) for i in range(AVG_PEERS)})}), fp16 wire, parts of "
+        f"{DEFAULT_PART_SIZE_BYTES >> 20} MiB, min_matchmaking_time {AVG_MATCHMAKING_S} s")
+    try:
+        started = time.perf_counter()
+        bootstrap = DHT(start=True)
+        dhts.append(bootstrap)
+        initial_peers = [str(maddr) for maddr in bootstrap.get_visible_maddrs()]
+        children.extend(AveragingChild(context, index, initial_peers) for index in range(AVG_PEERS))
+        timer = threading.Timer(AVG_KILL_LIMIT_S, kill_all)  # a hung peer or call: every child dies
+        timer.daemon = True
+        timer.start()
+        for child in children:
+            _, child.peer_id, child.device = child.receive(AVG_STARTUP_LIMIT_S - (time.perf_counter() - started))
+        by_peer = {child.peer_id: child for child in children}
+        log(f"[averaging] {AVG_PEERS} peer processes up in {time.perf_counter() - started:.1f} s "
+            f"(devices {sorted({child.device for child in children})})")
+
+        # 1-2. three rounds, each held on the card; throughput over the three
+        walls, cpu = [], {child.index: 0.0 for child in children}
+        for round_index in range(1, AVG_ROUNDS + 1):
+            for child in children:  # announce nothing, save nothing, hold to the mean
+                child.conn.send(("step", False, None, True))
+            stepped = {child: child.receive(AVG_STEP_TIMEOUT_S + 60)[1] for child in children}
+            walls.append(max(reading["seconds"] for reading in stepped.values()))
+            for child, reading in stepped.items():
+                cpu[child.index] += reading["cpu"]
+                check(reading["members"] == averaging_group(child.index),
+                      f"round {round_index}: peer {child.index} averaged with {reading['members']}")
+                check(reading["finite"] and reading["ratio"] <= 1.0,
+                      f"round {round_index}: peer {child.index} is {reading['ratio']:.3f} x its limit off the mean")
+                check(reading["fault_ratio"] > 1.0,
+                      f"round {round_index}: peer {child.index}'s check passed a mean without peer "
+                      f"{reading['members'][-1]}")
+            values = list(stepped.values())
+            log(f"[averaging] round {round_index}: {walls[-1]:.3f} s (the slowest peer's step; median "
+                f"{np.median([r['seconds'] for r in values]):.3f} s); ledger split, median over peers: matchmaking "
+                f"{np.median([r['matchmaking'] or 0.0 for r in values]):.3f} s, all-reduce "
+                f"{np.median([r['allreduce'] for r in values]):.3f} s, of which apply "
+                f"{np.median([r['apply'] for r in values]):.3f} s; groups "
+                f"{sorted({tuple(r['members']) for r in values})}; worst error / limit "
+                f"{max(r['ratio'] for r in values):.4f} (limit {averaging_limit(round_index) / AVG_U16:.0f} u16 x the "
+                f"group's largest |x|, every element, on the card); the planted fault (a mean without the last "
+                f"member) at {min(r['fault_ratio'] for r in values):.1f} x the limit: rejected")
+        gbps = AVG_PARAMS * 4 * 2 * AVG_ROUNDS / sum(walls) / 1e9  # benchmark_averaging.py:106-107
+        log(f"[averaging] averaging_gbps_per_peer={gbps:.4f} ({AVG_ROUNDS} rounds, {sum(walls) / AVG_ROUNDS:.3f} s a "
+            f"round); CPU seconds of each peer over the {AVG_ROUNDS} rounds: "
+            + ", ".join(f"{index}: {seconds:.1f}" for index, seconds in sorted(cpu.items())))
+
+        # 3. a fourth round on fresh values, with a peer killed once its all-reduce has begun
+        for child in children:
+            child.ask(("reseed", SEED + AVG_FAULT_SEED))
+        victim = children[AVG_VICTIM]
+        saved = {index: os.path.join(scratch.name, f"peer{index}.npy") for index in averaging_group(AVG_VICTIM)
+                 if index != AVG_VICTIM}
+        commands = {child: (child is victim, saved.get(child.index), child.index not in saved and child is not victim)
+                    for child in children}
+        for child, command in commands.items():
+            child.conn.send(("step", *command))
+        victim.receive(AVG_STEP_TIMEOUT_S)  # its all-reduce has begun
+        time.sleep(AVG_KILL_DELAY_S)
+        victim.kill()
+        check(victim.process.exitcode == -signal.SIGKILL, f"the victim exited with {victim.process.exitcode}")
+        try:  # a dead child's pipe reads as EOF; a reply means its round had ended before the kill
+            finished = victim.conn.poll(0) and victim.conn.recv()[0] == "stepped"
+        except (EOFError, OSError):
+            finished = False
+        check(not finished, f"the kill came after peer {AVG_VICTIM}'s round had ended")
+        stepped = {child: child.receive(AVG_STEP_TIMEOUT_S + 60)[1] for child in children if child is not victim}
+        for child, reading in stepped.items():
+            check(reading["seconds"] <= AVG_STEP_TIMEOUT_S,
+                  f"round 4: peer {child.index} took {reading['seconds']:.1f} s > its step timeout")
+            if child.index in saved:
+                continue
+            check(reading["members"] == averaging_group(child.index) and reading["finite"] and reading["ratio"] <= 1.0,
+                  f"round 4: peer {child.index} of the other group: {reading['members']}, {reading['ratio']:.3f} x "
+                  f"its limit off the mean")
+        survivors = [torch.from_numpy(np.load(path)).to("cuda") for path in saved.values()]
+        inputs = [averaging_seeded(torch, SEED + AVG_FAULT_SEED + index) for index in averaging_group(AVG_VICTIM)]
+        tolerance = 2 * averaging_limit(1) * torch.stack(inputs).abs().amax(0)
+        agree = torch.ones(AVG_PARAMS, dtype=torch.bool, device="cuda")
+        for other in survivors[1:]:
+            agree &= (other - survivors[0]).abs() <= tolerance
+        agreement = agree.float().mean().item()
+        del survivors, inputs, tolerance, agree
+        torch.cuda.empty_cache()
+        survivor_seconds = [stepped[children[index]]["seconds"] for index in saved]
+        log(f"[averaging] round 4 (fresh seeded values): peer {AVG_VICTIM} SIGKILLed {AVG_KILL_DELAY_S} s after its "
+            f"all-reduce began; its group's survivors {list(saved)} ended in "
+            f"{', '.join(f'{s:.3f}' for s in survivor_seconds)} s (step timeout {AVG_STEP_TIMEOUT_S:.0f} s) and agree "
+            f"on {agreement:.1%} of the vector (at least 50%, within 2 x the fp16 limit); the other group "
+            f"{sorted({tuple(r['members']) for c, r in stepped.items() if c.index not in saved})} held to its mean, "
+            f"worst {max(r['ratio'] for c, r in stepped.items() if c.index not in saved):.4f} x the limit")
+        check(agreement >= 0.5, f"round 4: the survivors agree on {agreement:.1%} of the vector")
+
+        # 4. a late peer downloads the state from the swarm
+        loader = AveragingChild(context, AVG_PEERS, initial_peers)
+        children.append(loader)
+        loader.receive(AVG_STARTUP_LIMIT_S)
+        _, loaded = loader.ask(("load",), timeout=AVG_STEP_TIMEOUT_S + 30)
+        donor = by_peer.get(loaded["donors"][-1]) if loaded["donors"] else None
+        donor_digest = donor.ask(("digest",))[1] if donor is not None else None
+        rate = loaded["bytes"] / loaded["seconds"] / 1e6
+        log(f"[averaging] state download: a new peer loaded {loaded['bytes']:,} B ({loaded['shape']}, "
+            f"{loaded['dtype']}) from peer {donor.index if donor else '?'} in {loaded['seconds']:.3f} s = "
+            f"{rate:.1f} MB/s (one stream; [dmoe]'s replica transfers: 67-92 MB/s); every digest verified: "
+            f"{loaded['verified']}; bytes equal to the donor's: {loaded['digest'] == donor_digest}; finite on the card: "
+            f"{loaded['finite']}")
+        check(loaded["verified"] and loaded["digest"] == donor_digest and loaded["finite"]
+              and loaded["shape"] == (AVG_PARAMS,), f"state download: {loaded}, donor digest {donor_digest}")
+    finally:
+        if timer is not None:
+            timer.cancel()
+        for child in children:
+            if child.process.is_alive():
+                with contextlib.suppress(Exception):
+                    child.ask(("stop",), timeout=20)
+            child.kill()
+        for dht in reversed(dhts):
+            dht.shutdown()
+        scratch.cleanup()
+    elapsed = time.perf_counter() - phase_started
+    log(f"[averaging] phase wall {elapsed:.1f} s (limit {AVG_PHASE_LIMIT_S:.0f} s)")
+    check(elapsed <= AVG_PHASE_LIMIT_S, f"[averaging] took {elapsed:.1f} s > {AVG_PHASE_LIMIT_S:.0f} s")
+    if faults:
+        raise AssertionError("; ".join(faults))
+
+
 PROMETHEUS_SAMPLE = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})? (\S+)$')
 PROMETHEUS_LABEL = re.compile(r'(\w+)="((?:[^"\\]|\\.)*)"')
 
@@ -2915,7 +3279,7 @@ def main() -> int:
     }
 
     line = card_line()
-    log(f"[card] {line}")
+    log(f"[card] {line}; host {host_line()}")
     name = torch.cuda.get_device_name(0)
     peaks = card_peaks(name)
     entries, path_launches, failures = {}, {}, []
@@ -2953,6 +3317,7 @@ def main() -> int:
         # loop, which stays open, so the registry would not hold still for its scrape
         path_launches["swarm"] = run("swarm", phase_swarm, torch, checkpoint.name, wrappers, telemetry)
         path_launches["dmoe"] = run("dmoe", phase_dmoe, torch, wrappers, telemetry)
+        run("averaging", phase_averaging, torch)  # host numpy reduction: no kernel on its path
         path_launches["expert_backward"] = run("expert_backward", phase_expert_backward, torch, checkpoint.name, wrappers)
         path_launches["train"] = run("train", phase_train, torch, peaks, wrappers)
     finally:

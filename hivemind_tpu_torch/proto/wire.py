@@ -3,8 +3,9 @@ calls, so that the port's messages load where ``google.protobuf`` is missing.
 
 A message class lists its fields in ``FIELDS`` (name, number, type; repeated or
 not; the message or enum type), the table that ``protoc`` would compile from the
-``.proto`` file. The types are the ones ``runtime.proto`` and ``dht.proto`` use:
-bytes, string, uint32, bool, enum, double and messages, singular or repeated.
+``.proto`` file. The types are the ones ``runtime.proto``, ``dht.proto`` and
+``averaging.proto`` use: bytes, string, uint32, uint64, bool, enum, double and
+messages, singular or repeated.
 Instances take keyword constructors and attribute access; a repeated field is a
 list with ``add()`` for message elements. The bytes are proto3's:
 
@@ -37,14 +38,14 @@ from typing import Any, Dict, Iterable, List, Mapping, NamedTuple, Optional, Tup
 VARINT, FIXED64, LENGTH_DELIMITED, START_GROUP, END_GROUP, FIXED32 = 0, 1, 2, 3, 4, 5
 
 # field types, with protobuf's names
-BOOL, STRING, MESSAGE, BYTES, UINT32, ENUM, DOUBLE = (
-    "bool", "string", "message", "bytes", "uint32", "enum", "double")
+BOOL, STRING, MESSAGE, BYTES, UINT32, UINT64, ENUM, DOUBLE = (
+    "bool", "string", "message", "bytes", "uint32", "uint64", "enum", "double")
 _WIRE_TYPES = {BOOL: VARINT, STRING: LENGTH_DELIMITED, MESSAGE: LENGTH_DELIMITED, BYTES: LENGTH_DELIMITED,
-               UINT32: VARINT, ENUM: VARINT, DOUBLE: FIXED64}
-_DEFAULTS = {BOOL: False, STRING: "", BYTES: b"", UINT32: 0, ENUM: 0, DOUBLE: 0.0}
-_PACKABLE = frozenset({BOOL, UINT32, ENUM, DOUBLE})
+               UINT32: VARINT, UINT64: VARINT, ENUM: VARINT, DOUBLE: FIXED64}
+_DEFAULTS = {BOOL: False, STRING: "", BYTES: b"", UINT32: 0, UINT64: 0, ENUM: 0, DOUBLE: 0.0}
+_PACKABLE = frozenset({BOOL, UINT32, UINT64, ENUM, DOUBLE})
 _DOUBLE = struct.Struct("<d")
-_INT_RANGES = {UINT32: (0, 1 << 32), ENUM: (-(1 << 31), 1 << 31)}
+_INT_RANGES = {UINT32: (0, 1 << 32), UINT64: (0, 1 << 64), ENUM: (-(1 << 31), 1 << 31)}
 _MASK64 = (1 << 64) - 1
 
 # parsed bytes fields at least this long stay views of the input (a tensor buffer);
@@ -521,6 +522,8 @@ def _read_scalar(field: Field, buf: memoryview, pos: int) -> Tuple[Any, int]:
     raw, pos = decode_varint(buf, pos)
     if field.type == BOOL:
         return raw != 0, pos
+    if field.type == UINT64:
+        return raw, pos  # decode_varint already kept the low 64 bits
     raw &= 0xFFFFFFFF
     if field.type == UINT32:
         return raw, pos

@@ -1,13 +1,14 @@
-"""Asyncio helpers (the port's copy of ``spawn``, ``run_in_executor``,
-``enter_asynchronously`` and ``aiter_with_timeout`` from
-hivemind_tpu/utils/asyncio_utils.py, with its background-task error counter)."""
+"""Asyncio helpers (the port's copy of hivemind_tpu/utils/asyncio_utils.py without
+``switch_to_uvloop``: ``spawn`` with its background-task error counter,
+``run_in_executor``, ``enter_asynchronously``, the async-iterator helpers the
+averager streams parts through, and the cancellation helpers)."""
 
 from __future__ import annotations
 
 import asyncio
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import asynccontextmanager
-from typing import AsyncIterable, AsyncIterator, Awaitable, Callable, Optional, TypeVar, Union
+from typing import AsyncIterable, AsyncIterator, Awaitable, Callable, Optional, Tuple, TypeVar, Union
 
 from hivemind_tpu_torch.utils.logging import get_logger
 
@@ -33,6 +34,105 @@ async def aiter_with_timeout(iterable: AsyncIterable[T], timeout: Optional[float
         if item is _SENTINEL:
             return
         yield item
+
+
+async def as_aiter(*items: T) -> AsyncIterator[T]:
+    for item in items:
+        yield item
+
+
+async def azip(*iterables: AsyncIterable) -> AsyncIterator[Tuple]:
+    iterators = [it.__aiter__() for it in iterables]
+    while True:
+        results = await asyncio.gather(*(anext_safe(it) for it in iterators))
+        if any(r is _SENTINEL for r in results):
+            return
+        yield tuple(results)
+
+
+async def achain(*iterables: AsyncIterable[T]) -> AsyncIterator[T]:
+    for it in iterables:
+        async for item in it:
+            yield item
+
+
+async def aenumerate(iterable: AsyncIterable[T], start: int = 0) -> AsyncIterator[Tuple[int, T]]:
+    index = start
+    async for item in iterable:
+        yield index, item
+        index += 1
+
+
+async def amap_in_executor(
+    fn: Callable[..., T],
+    *iterables: AsyncIterable,
+    max_prefetch: int = 1,
+    executor: Optional[ThreadPoolExecutor] = None,
+) -> AsyncIterator[T]:
+    """Apply a blocking fn to items of async iterable(s) in a thread executor with
+    at most ``max_prefetch`` results computed ahead of the consumer: the averager
+    overlaps part compression with the network this way."""
+    assert max_prefetch > 0
+    loop = asyncio.get_event_loop()
+    queue: asyncio.Queue = asyncio.Queue(max_prefetch)
+
+    async def _producer():
+        try:
+            async for args in azip(*iterables):
+                await queue.put(loop.run_in_executor(executor, fn, *args))
+            await queue.put(None)
+        except asyncio.CancelledError:
+            # the consumer is gone; never block on a full queue in cleanup
+            try:
+                queue.put_nowait(None)
+            except asyncio.QueueFull:
+                pass
+            raise
+
+    producer = asyncio.create_task(_producer())
+    try:
+        while True:
+            future = await queue.get()
+            if future is None:
+                break
+            yield await future
+        await producer
+    finally:
+        if not producer.done():
+            producer.cancel()
+
+
+async def attach_event_on_finished(iterable: AsyncIterable[T], event: asyncio.Event) -> AsyncIterator[T]:
+    """Yield from iterable; set the event when iteration ends for any reason."""
+    try:
+        async for item in iterable:
+            yield item
+    finally:
+        event.set()
+
+
+async def cancel_and_wait(task: asyncio.Task) -> bool:
+    """Cancel a task and wait until the cancellation lands. True if it was cancelled
+    (rather than finishing or failing first)."""
+    task.cancel()
+    try:
+        await task
+        return False
+    except asyncio.CancelledError:
+        return True
+    except BaseException:
+        return False
+
+
+async def await_cancelled(awaitable: Awaitable) -> bool:
+    try:
+        await awaitable
+        return False
+    except asyncio.CancelledError:
+        return True
+    except BaseException:
+        return False
+
 
 # strong refs: asyncio keeps only a weak reference to running tasks, so a spawned
 # task with no other referent is garbage-collectable MID-FLIGHT

@@ -55,7 +55,9 @@ for name in ("hivemind_tpu_torch.moe.server.decode_session", "hivemind_tpu_torch
              "hivemind_tpu_torch.utils.flax_msgpack", "hivemind_tpu_torch.moe.server.checkpoints",
              "hivemind_tpu_torch.moe.server.replication", "hivemind_tpu_torch.moe.client.call_many",
              "hivemind_tpu_torch.moe.client.beam_search", "hivemind_tpu_torch.moe.client.moe",
-             "hivemind_tpu_torch.telemetry.monitor", "hivemind_tpu_torch.utils.auth"):
+             "hivemind_tpu_torch.telemetry.monitor", "hivemind_tpu_torch.utils.auth",
+             "hivemind_tpu_torch.averaging", "hivemind_tpu_torch.averaging.averager",
+             "hivemind_tpu_torch.averaging.load_balancing", "hivemind_tpu_torch.proto.averaging_pb2"):
     assert name in sys.modules, name
 assert not leaked(), leaked()
 
@@ -121,6 +123,21 @@ assert RemoteSequential(client, "nop.", 1)(torch.ones(2, 4)).tolist() == [[1.0] 
 client.shutdown()
 server.shutdown()
 server.dht.shutdown()
+# two port averagers find each other through the DHT and average on the host
+from hivemind_tpu_torch.averaging import DecentralizedAverager
+first = DHT(start=True)
+second = DHT(initial_peers=[str(m) for m in first.get_visible_maddrs()], start=True)
+averagers = [DecentralizedAverager([torch.full((8,), float(i))], dht, prefix="probe", start=True,
+                                   target_group_size=2, min_matchmaking_time=0.5)
+             for i, dht in enumerate((first, second))]
+controls = [averager.step(wait=False, timeout=30) for averager in averagers]
+assert all(control.result(timeout=60) is not None for control in controls)
+for averager in averagers:
+    with averager.get_tensors() as tensors:
+        assert tensors[0].tolist() == [0.5] * 8
+    averager.shutdown()
+second.shutdown()
+first.shutdown()
 assert not leaked(), leaked()
 print("isolated")
 """ % (FORBIDDEN,)
@@ -144,6 +161,15 @@ def test_package_sources_never_name_the_jax_stack():
     assert {"compression", "proto", "moe", "p2p", "dht"} <= {path.relative_to(PACKAGE).parts[0] for path in sources[:-1]}
     offenders = [str(path.relative_to(REPO)) for path in sources if forbidden.search(path.read_text())]
     assert not offenders, offenders
+
+
+def test_only_the_load_balancer_imports_scipy():
+    """scipy's HiGHS cuts the averaging spans, as in the JAX package; no other module of
+    the port, nor chip_smoke.py, imports scipy."""
+    importer = re.compile(r"^\s*(import|from)\s+scipy(\.|\s|$)", re.MULTILINE)
+    sources = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    importers = [str(path.relative_to(REPO)) for path in sources if importer.search(path.read_text())]
+    assert importers == ["hivemind_tpu_torch/averaging/load_balancing.py"], importers
 
 
 def test_no_source_names_a_jax_package_module_as_a_string():
