@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke test of hivemind_tpu_torch: builds the port's Hopper kernels,
 holds each against its plain PyTorch version at the shapes of the paths that run
-it, then drives eight paths and checks each against the CPU, the local path or
+it, then drives nine paths and checks each against the CPU, the local path or
 the exact result:
 - serving: two Llama-2-7B-width blocks (fp and int8 weight-only) through
   load_llama_blocks → ModuleBackend → TaskPool/Runtime, and an expert of
@@ -28,6 +28,9 @@ the exact result:
   peer's verified state download (no kernel: the reduction is host numpy);
 - expert training: ModuleBackend.backward (one SGD step) on a Llama-2-7B-width block;
 - ALBERT-base MLM training: make_train_step with AdamW at batch 32 × seq 512.
+- collab: collaborative ALBERT-base training (BASELINE config 3, examples/albert): four
+  peer processes train one model through the DHT with the collaborative Optimizer and
+  LAMB, held to large-batch training; a fifth joins by downloading the state.
 Telemetry rides the serving and decode runs, as a server would arm it (the event-loop
 watchdog, the device memory sampler, a ``/metrics`` exporter; over the wire the
 connection handler opens a ``serving.request`` span around each request): ``[telemetry]``
@@ -257,6 +260,43 @@ AVG_VICTIM = 1  # SIGKILLed in the fourth round, AVG_KILL_DELAY_S after its all-
 AVG_KILL_DELAY_S = 0.5
 AVG_FAULT_SEED = 100  # the fourth round's values: seed SEED + AVG_FAULT_SEED + peer
 AVG_U16, AVG_U32 = 2.0**-11, 2.0**-24  # unit roundoffs of fp16 and fp32
+# [collab]: BASELINE config 3, examples/albert at ALBERT-base widths (albert-base-v2's
+# config.json, not cut): 4 peer processes train one model through the collaborative
+# Optimizer, each local step batch 32 x seq 512 (bench.py's and [train]'s workload,
+# masked_loss_fraction 0.25), the JAX example's optimizer lamb_with_warmup(1e-3, 100,
+# 10_000) clipped at norm 1 and keyed by epoch, target_batch_size 4096 and
+# matchmaking_time 3 s (run_trainer.py:27,33), gradients averaged over the Optimizer's
+# default fp16 wire and the state every epoch over fp32 (upstream hivemind's default
+# state wire: the fp16 state wire turns small second moments negative, and LAMB's
+# square root of them NaN; PERF.md §6), min_group_size 4 and groups unbounded (so every
+# round holds every peer). After epoch 3 a fifth peer joins by load_state_from_peers()
+# and trains an epoch with the swarm. One card: what is measured is the protocol
+# between processes on one host, not a collective across cards.
+COLLAB_PEERS = 4
+COLLAB_RUN_ID = "albert_collab"
+COLLAB_TARGET = 4096
+COLLAB_MATCHMAKING_S = 3.0
+COLLAB_LAMB = (1e-3, 100, 10_000)  # peak lr, warmup epochs, total epochs
+COLLAB_EPOCHS = 3  # epochs 0-2 by the first four peers; the joiner's epoch is the fourth
+COLLAB_CHECKED = (0, 1)  # the transitions held to large-batch training
+COLLAB_FAULT_PEER = COLLAB_PEERS - 1  # the planted fault leaves its batches out of the reference
+COLLAB_STARTUP_LIMIT_S = 120.0
+COLLAB_EPOCH_LIMIT_S = 120.0
+COLLAB_PHASE_LIMIT_S = 240.0
+COLLAB_KILL_LIMIT_S = 420.0  # a timer kills every peer process past this
+COLLAB_INIT_SEED = SEED + 9  # every peer's initial weights
+# each fp16 rounding of a value below fp16's normal range (6.1e-5) errs by up to half
+# its subnormal spacing, 2^-25, whatever the value's size
+COLLAB_F16_ABS = 2.0**-25
+# the lossless state round: each peer's result is own + (mean - own), the mean a
+# weighted fp32 sum of at most 5 peers' values over their total weight: within
+# (n + 4) u32 of the largest magnitude S among them, so 16 u32 S
+COLLAB_STATE_FACTOR = 16 * AVG_U32
+
+
+def collab_batch_seed(peer: int, k: int) -> int:
+    """The seed of peer ``peer``'s ``k``-th batch (torch.Generator on the card)."""
+    return SEED + 1_000 + 100_000 * peer + k
 
 
 def log(message: str) -> None:
@@ -878,7 +918,7 @@ def profile_step(torch, train_step, batch):
     return wall_ms, sorted(families.items(), key=by_time), sorted(rest.items(), key=by_time)[:6]
 
 
-def phase_train(torch, peaks, wrappers: dict) -> dict:
+def phase_train(torch, peaks, wrappers: dict, telemetry: Telemetry) -> dict:
     from hivemind_tpu_torch.models import (
         AlbertConfig,
         AlbertForMaskedLM,
@@ -906,6 +946,7 @@ def phase_train(torch, peaks, wrappers: dict) -> dict:
     launches = {name: wrapper.launches for name, wrapper in wrappers.items()}
     losses = [loss.item() for loss in losses]
     tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
+    telemetry.readings["train"] = dict(tokens_per_s=tokens_per_s)  # [collab] prints its rate beside it
     mfu = tokens_per_s * flops_per_token(config, TRAIN_SEQ, TRAIN_MASKED_FRACTION) / peaks["bf16"]
     steps = TRAIN_WARMUP + TRAIN_STEPS
     log(f"[train] ALBERT-base batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, AdamW, masked_loss_fraction "
@@ -2484,9 +2525,11 @@ def phase_dmoe(torch, wrappers: dict, telemetry: Telemetry) -> dict:
         bootstrap = DHT(start=True)
         dhts.append(bootstrap)
         initial_peers = [str(maddr) for maddr in bootstrap.get_visible_maddrs()]
-        for role in ("A", "B", "C", "E"):
-            children[role] = DmoeChild(context, role, DMOE_LAYOUT.get(role, DMOE_LAYOUT["A"]), initial_peers,
-                                       checkpoint_dir)
+        # D, the volunteer, starts its process and DHT peer with the others and serves only
+        # after the first calls; E restores A's checkpoint
+        for role in ("A", "B", "C", "D", "E"):
+            uids = DMOE_LAYOUT.get(role, () if role == "D" else DMOE_LAYOUT["A"])
+            children[role] = DmoeChild(context, role, uids, initial_peers, checkpoint_dir)
         timer = threading.Timer(DMOE_PHASE_LIMIT_S + 30.0, kill_all)  # a hang fails every call in flight
         timer.daemon = True
         timer.start()
@@ -2501,8 +2544,8 @@ def phase_dmoe(torch, wrappers: dict, telemetry: Telemetry) -> dict:
             _, child.peer_id, child.device = child.receive(DMOE_STARTUP_LIMIT_S - (time.perf_counter() - started))
         client_dht = DHT(initial_peers=initial_peers, start=True)
         dhts.append(client_dht)
-        for child in children.values():
-            child.ask("serve", timeout=DMOE_STARTUP_LIMIT_S - (time.perf_counter() - started))
+        for role in ("A", "B", "C", "E"):
+            children[role].ask("serve", timeout=DMOE_STARTUP_LIMIT_S - (time.perf_counter() - started))
         servers_up = time.perf_counter() - started
         started = time.perf_counter()
         rows = {DMOE_PREFIX.rstrip("."): set(range(DMOE_GRID[0])),
@@ -2519,7 +2562,7 @@ def phase_dmoe(torch, wrappers: dict, telemetry: Telemetry) -> dict:
             raise AssertionError("the client never resolved the 64 experts and their prefix records")
         owner = {uid: role for role in "ABC" for uid in DMOE_LAYOUT[role]}
         log(f"[dmoe] {line}: servers A (8 fp32 experts, Adam, checkpoints, hot-expert adverts), B (28 int8), C (28 "
-            f"fp32) and E up in {servers_up:.1f} s (devices {sorted({c.device for c in children.values()})}); 64 uids "
+            f"fp32) and E up, and D's process waiting to serve, in {servers_up:.1f} s (devices {sorted({c.device for c in children.values()})}); 64 uids "
             f"and their prefix records resolved in {time.perf_counter() - started:.2f} s")
 
         moe = RemoteMixtureOfExperts(dht=client_dht, in_features=DMOE_HIDDEN, grid_size=DMOE_GRID,
@@ -2561,10 +2604,8 @@ def phase_dmoe(torch, wrappers: dict, telemetry: Telemetry) -> dict:
         check(err < DMOE_TOL, f"forward: rel err {err}")
         check(bool(moe.last_alive.all()), "forward: a slot was masked with every server alive")
 
-        # 3. replication: D starts, A's hot experts are advertised, D acquires two
-        children["D"] = DmoeChild(context, "D", (), initial_peers, checkpoint_dir)
+        # 3. replication: D starts serving, A's hot experts are advertised, D acquires two
         started = time.perf_counter()
-        _, children["D"].peer_id, _ = children["D"].receive(DMOE_STARTUP_LIMIT_S)
         children["D"].ask("serve", timeout=60)
         d_serving = time.time()
         acquired = []
@@ -2738,10 +2779,14 @@ def phase_dmoe(torch, wrappers: dict, telemetry: Telemetry) -> dict:
     finally:
         if timer is not None:
             timer.cancel()
+        live = [child for child in children.values() if child.process.is_alive()]
+        for child in live:  # the servers shut down side by side
+            with contextlib.suppress(Exception):
+                child.conn.send(("stop",))
+        for child in live:
+            with contextlib.suppress(Exception):
+                child.receive(20)
         for child in children.values():
-            if child.process.is_alive():
-                with contextlib.suppress(Exception):
-                    child.ask("stop", timeout=20)
             child.kill()
         for dht in reversed(dhts):
             dht.shutdown()
@@ -3098,6 +3143,576 @@ def phase_averaging(torch) -> None:
         raise AssertionError("; ".join(faults))
 
 
+def collab_layout(model) -> list:
+    """``(name, transposed, flax shape)`` of each parameter in the averaged view's order:
+    the flax tree's flatten order, Dense kernels ``[in, out]``, the embedding as it is
+    (hivemind_tpu_torch/convert.py)."""
+    from hivemind_tpu_torch.convert import flax_path
+
+    entries = []
+    for name, param in model.named_parameters():
+        path, transposed = flax_path(name, param.ndim)
+        entries.append((path, name, transposed, tuple(param.T.shape if transposed else param.shape)))
+    return [entry[1:] for entry in sorted(entries)]
+
+
+def collab_split(torch, flat: np.ndarray, layout: list) -> tuple:
+    """A peer's saved averaged view (parameters, mu, nu in the JAX package's layout, one
+    float32 array) as three dicts of tensors on the card in torch layout."""
+    tensor = torch.from_numpy(flat).to("cuda")
+    parts, offset = [], 0
+    for _ in range(3):
+        part = {}
+        for name, transposed, shape in layout:
+            view = tensor[offset:offset + math.prod(shape)].view(shape)
+            part[name] = (view.T if transposed else view).contiguous()
+            offset += math.prod(shape)
+        parts.append(part)
+    if offset != tensor.numel():
+        raise AssertionError(f"a saved view holds {tensor.numel()} values, the layout {offset}")
+    return tuple(parts)
+
+
+def collab_peer_main(conn, index: int, initial_peers: list, scratch: str) -> None:
+    """One peer of ``[collab]`` (index COLLAB_PEERS: the late joiner): its own DHT peer,
+    bootstrapped from the parent's, and ALBERT-base on the card trained through the
+    collaborative Optimizer. Answers the parent's commands over ``conn``: ``train``
+    (batches until the given epoch; the reading carries every accumulated batch's
+    ``(k, batch size, epoch)`` and the epoch's time split), ``save`` (its averaged
+    view to a file), ``load`` (``load_state_from_peers()``), ``digest`` (blake2b-16 of
+    its view) and ``stop``."""
+    import hashlib
+    import traceback
+
+    try:
+        import torch
+
+        from hivemind_tpu_torch.compression import NoCompression
+        from hivemind_tpu_torch.dht import DHT
+        from hivemind_tpu_torch.models import AlbertConfig, AlbertForMaskedLM, make_mlm_loss_fn, make_synthetic_mlm_batch
+        from hivemind_tpu_torch.moe.server.layers import lamb_with_warmup
+        from hivemind_tpu_torch.ops import flash_attention
+        from hivemind_tpu_torch.optim import Optimizer
+        from hivemind_tpu_torch.telemetry import LEDGER
+        from hivemind_tpu_torch.telemetry.tracing import add_span_listener
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        kernels = {"flash_attention_forward": flash_attention.flash_attention_lse,
+                   "flash_attention_backward_dq": flash_attention.flash_attention_backward_dq,
+                   "flash_attention_backward_dkv": flash_attention.flash_attention_backward_dkv}
+        config = AlbertConfig.base(max_position=TRAIN_SEQ)
+        model = AlbertForMaskedLM(config, device="cuda")
+        model.reset_parameters(torch.Generator(device="cuda").manual_seed(COLLAB_INIT_SEED))
+        loss_fn = make_mlm_loss_fn(model, TRAIN_MASKED_FRACTION)
+        dht = DHT(initial_peers=initial_peers, start=True)
+        opt = Optimizer(dht=dht, run_id=COLLAB_RUN_ID, target_batch_size=COLLAB_TARGET,
+                        params=model.named_parameters(), optimizer=lamb_with_warmup(*COLLAB_LAMB),
+                        batch_size_per_step=TRAIN_BATCH, matchmaking_time=COLLAB_MATCHMAKING_S, average_state_every=1,
+                        min_group_size=COLLAB_PEERS, state_averaging_compression=NoCompression())
+        me = str(dht.peer_id)
+        spans = {}  # this epoch's host seconds in the Optimizer's own spans, and the state rounds' outcomes
+
+        def on_span(span) -> None:
+            if span.name in ("optimizer.update", "state_averager.round"):
+                spans[span.name] = spans.get(span.name, 0.0) + span.duration
+            if span.name == "state_averager.round":
+                spans.setdefault("averaged", []).append(span.attributes.get("averaged"))
+
+        add_span_listener(on_span)
+
+        def view() -> np.ndarray:
+            return np.concatenate([t.reshape(-1) for t in opt.state_averager._host_state_tensors()])
+
+        conn.send(("ready", dht.peer_id.to_base58(), torch.cuda.get_device_name(0)))
+        k = steps = 0
+        while True:
+            command, *args = conn.recv()
+            if command == "train":
+                (until,) = args
+                if steps == 0:  # the path starts here: every count at 0
+                    for wrapper in kernels.values():
+                        wrapper.launches = 0
+                    torch.cuda.reset_peak_memory_stats()
+                spans.clear()
+                rounds_before = len(LEDGER.records())
+                batches, losses, compute, accumulate, transition = [], [], 0.0, 0.0, 0.0
+                started = time.perf_counter()
+                while opt.local_epoch < until:
+                    k += 1
+                    generator = torch.Generator(device="cuda").manual_seed(collab_batch_seed(index, k))
+                    batch = make_synthetic_mlm_batch(generator, config, TRAIN_BATCH, TRAIN_SEQ)
+                    epoch = opt.local_epoch
+                    begun = time.perf_counter()
+                    loss = loss_fn(batch)
+                    loss.backward()
+                    losses.append(loss.item())  # synchronizes: the step's card time ends here
+                    computed = time.perf_counter()
+                    opt.step(batch_size=TRAIN_BATCH)
+                    opt.zero_grad()
+                    stepped = time.perf_counter()
+                    compute += computed - begun
+                    if opt.local_epoch != epoch:
+                        transition += stepped - computed
+                    else:
+                        accumulate += stepped - computed
+                    batches.append((k, TRAIN_BATCH, epoch))
+                    steps += 1
+                rounds = [r for r in LEDGER.records()[rounds_before:] if r["peer"] == me]
+                update, state_round = spans.get("optimizer.update", 0.0), spans.get("state_averager.round", 0.0)
+                grad_allreduce = rounds[0]["total_s"] if rounds else float("nan")
+                conn.send(("trained", dict(
+                    epoch=opt.local_epoch, batches=batches, wall=time.perf_counter() - started, compute=compute,
+                    accumulate=accumulate, transition=transition, update=update, state_round=state_round,
+                    # the epoch's last step, less what the spans and the round record account for
+                    waiting=transition - update - state_round - grad_allreduce, grad_allreduce=grad_allreduce,
+                    state_allreduce=rounds[-1]["total_s"] if len(rounds) > 1 else float("nan"),
+                    group_sizes=[r.get("group_size") for r in rounds], failed=opt.consecutive_failed_averaging_rounds,
+                    state_ok=spans.get("averaged") == [True],
+                    counts=opt.state_averager._get_opt_counts(), losses=losses, steps=steps,
+                    launches={name: wrapper.launches for name, wrapper in kernels.items()},
+                    peak=torch.cuda.max_memory_allocated())))
+            elif command == "save":
+                (epoch,) = args
+                np.save(os.path.join(scratch, f"peer{index}_e{epoch}.npy"), view())
+                conn.send(("saved",))
+            elif command == "load":
+                started = time.perf_counter()
+                ok = opt.load_state_from_peers()
+                seconds = time.perf_counter() - started
+                result = opt.state_averager.last_download
+                mine = view()
+                conn.send(("loaded", dict(
+                    ok=ok, seconds=seconds, epoch=opt.local_epoch, counts=opt.state_averager._get_opt_counts(),
+                    donors=list(result.donors) if result else [], verified=bool(result and result.verified),
+                    bytes=result.bytes_received if result else 0, finite=bool(np.isfinite(mine).all()),
+                    digest=hashlib.blake2b(mine.tobytes(), digest_size=16).hexdigest())))
+            elif command == "digest":
+                mine = view()
+                conn.send(("digest", dict(
+                    epoch=opt.local_epoch, counts=opt.state_averager._get_opt_counts(),
+                    digest=hashlib.blake2b(mine.tobytes(), digest_size=16).hexdigest())))
+            elif command == "stop":
+                opt.shutdown()
+                dht.shutdown()
+                conn.send(("stopped",))
+                return
+    except BaseException:
+        conn.send(("error", traceback.format_exc()))
+        raise
+
+
+class CollabChild(SwarmChild):
+    """The parent's handle on one peer process of ``[collab]``."""
+
+    def __init__(self, context, index: int, initial_peers: list, scratch: str):
+        self.index = index
+        self.name = f"collab peer {index}" if index < COLLAB_PEERS else "the joining collab peer"
+        self.conn, child_conn = context.Pipe()
+        self.process = context.Process(target=collab_peer_main, args=(child_conn, index, initial_peers, scratch),
+                                       daemon=True)
+        self.process.start()
+        child_conn.close()
+        self.peer_id = self.device = self.last_report = None
+
+
+def collab_rate(torch, transition: int) -> float:
+    """``lamb_with_warmup``'s rate at ``transition``: its schedule reads the count before
+    the increment, so transition 0 has a rate of 0."""
+    from hivemind_tpu_torch.moe.server.layers import linear_warmup_schedule
+
+    return float(linear_warmup_schedule(*COLLAB_LAMB)(torch.tensor(transition, dtype=torch.int32)))
+
+
+def collab_step_bound(torch, transition: int, leaf_norm: float) -> float:
+    """The most one LAMB step of ``transition`` moves an element of a leaf of norm
+    ``leaf_norm``: lr x max(|p|, U). LAMB's step is lr x trust ratio x update, of size
+    lr |p| at most per element, or lr |update| when |p| = 0 (a ratio of 1), and Adam's
+    |m̂|/√v̂ is at most U = sqrt(Σ_k ((1−b1) b1^k)² / ((1−b2) b2^k)) x sqrt(1 − b2^t) /
+    (1 − b1^t) after t updates (Cauchy-Schwarz). 0 at transition 0, whose rate is 0."""
+    rate = collab_rate(torch, transition)
+    b1, b2, t = 0.9, 0.999, transition + 1  # optax.lamb's betas
+    adam_bound = math.sqrt(sum(((1 - b1) * b1**k) ** 2 / ((1 - b2) * b2**k) for k in range(t))) * math.sqrt(
+        1 - b2**t) / (1 - b1**t)
+    return rate * max(adam_bound, leaf_norm)
+
+
+def collab_step_error(torch, transition: int, param, mu, nu, dm, dv) -> float:
+    """The most ‖a peer's LAMB step − the reference's‖ / lr can be on one leaf at
+    ``transition``, when both start from ``param`` and the peer's new mu and nu lie
+    within ``dm`` and ``dv`` of the reference's ``mu`` and ``nu`` (elementwise):
+
+    - Adam's u = m̂/(√v̂ + eps) rises with m and falls in |u| with v, so over that box
+      each element of the peer's u lies within D of the reference's, D read at the box's
+      corners, plus 12 u32 |u| for the fp32 arithmetic of both;
+    - the step is lr ‖p‖ u/‖u‖ (the trust ratio), and ‖x/‖x‖ − y/‖y‖‖ ≤
+      min(2, 2 ‖x − y‖/‖y‖); a leaf with ‖p‖ = 0 steps by lr u (a ratio of 1);
+    - plus 4 u32 of the step for its own fp32 products."""
+    b1, b2, eps = 0.9, 0.999, 1e-6  # optax.lamb's
+    count = torch.tensor(transition + 1, dtype=torch.float32)
+    c1 = float(1 - torch.pow(torch.tensor(b1, dtype=torch.float32), count))  # as optax's bias correction
+    c2 = float(1 - torch.pow(torch.tensor(b2, dtype=torch.float32), count))
+    mu, nu = mu.double(), nu.double()
+    dm = dm.double() + 4 * AVG_U32 * mu.abs()
+    dv = dv.double() + 4 * AVG_U32 * nu.abs()
+    root = lambda v: (v.clamp_min(0) / c2).sqrt() + eps
+    u = (mu / c1) / root(nu)
+    near, far = root(nu - dv), root(nu + dv)
+    m_low, m_high = (mu - dm) / c1, (mu + dm) / c1
+    spread = torch.maximum(torch.maximum(m_high / near, m_high / far) - u,
+                           u - torch.minimum(m_low / near, m_low / far))
+    d_norm = float((spread + 12 * AVG_U32 * u.abs()).norm())
+    u_norm, p_norm = float(u.norm()), float(param.double().norm())
+    if p_norm == 0:
+        return d_norm + 4 * AVG_U32 * u_norm
+    return p_norm * (min(2.0, 2 * d_norm / u_norm) if u_norm > 0 else 2.0) + 4 * AVG_U32 * p_norm
+
+
+def collab_limits(torch, reference: list, pre: list, transition: int, layout: list, local_max: dict,
+                  grad: dict) -> tuple:
+    """The limits on a peer's state after ``transition`` against the reference (the
+    mean of ``reference``: one step of each peer's own state ``pre``), derived from the
+    wires:
+
+    - the state round averages each peer's post-update state losslessly: within
+      COLLAB_STATE_FACTOR (16 u32) of the largest magnitude S among the peers' values;
+    - each peer applied the gradient the fp16 all-reduce gave it, within
+      δ = averaging_limit(1) (4 u16 + 16 u32, PR 11's derivation) x the largest |local
+      mean gradient| + 4 x 2^-25 (each fp16 rounding of a value below fp16's normal range
+      errs by half the subnormal spacing) of the exact sample-weighted mean G; after clipping by c = min(1, 1/|G|), within
+      e = c δ + c r/(1−r) (|G| + δ), r = |δ|/|G| (the clip factor's own error);
+    - so mu moves by at most dm = (1 − b1) e more and nu by dv = (1 − b2)(2 c|G| e + e²),
+      elementwise;
+    - and a leaf of parameters by at most lr x ``collab_step_error`` more, in norm, plus
+      the state round's 16 u32 ‖S‖ and 3 u32 ‖S‖ for the fp32 sums p + step (the peer's
+      and the reference's).
+
+    Returns (the parameters' limit on the norm of the error, per leaf; mu's and nu's
+    elementwise limits)."""
+    rate = collab_rate(torch, transition)
+    factor = averaging_limit(1)
+    floor = 4 * COLLAB_F16_ABS
+    delta = {name: factor * local_max[name] + floor for name in grad}
+    g_norm = math.sqrt(sum(float((g.double() ** 2).sum()) for g in grad.values()))
+    d_norm = math.sqrt(sum(float((d.double() ** 2).sum()) for d in delta.values()))
+    clip, ratio = min(1.0, 1.0 / g_norm), d_norm / g_norm
+    error = {name: clip * delta[name] + clip * ratio / (1 - ratio) * (grad[name].abs() + delta[name]) for name in grad}
+    params, mu, nu = {}, {}, {}
+    for name, _, _ in layout:
+        scale = [torch.stack([peer[kind][name].abs() for peer in reference]).amax(0) for kind in range(3)]
+        dm = 0.1 * error[name]
+        dv = 1e-3 * (2 * clip * grad[name].abs() * error[name] + error[name] ** 2)
+        mu[name] = COLLAB_STATE_FACTOR * scale[1] + dm
+        nu[name] = COLLAB_STATE_FACTOR * scale[2] + dv
+        step = max(collab_step_error(torch, transition, own[0][name], ref[1][name], ref[2][name], dm, dv)
+                   for own, ref in zip(pre, reference)) if rate else 0.0
+        params[name] = (COLLAB_STATE_FACTOR + 3 * AVG_U32) * float(scale[0].double().norm()) + rate * step
+    return params, mu, nu
+
+
+def collab_reference_step(torch, pre: tuple, grad: dict, transition: int) -> tuple:
+    """One ``lamb_with_warmup`` step of the port's transforms from a peer's state before
+    ``transition`` (parameters, mu, nu; count = transition) with the gradient ``grad``."""
+    from hivemind_tpu_torch.moe.server.layers import lamb_with_warmup
+    from hivemind_tpu_torch.optim import transforms as T
+
+    params, mu, nu = pre
+    count = torch.tensor(transition, dtype=torch.int32, device="cuda")
+    state = (T.EmptyState(), (T.ScaleByAdamState(count=count, mu=mu, nu=nu), T.EmptyState(), T.EmptyState(),
+                              T.ScaleByScheduleState(count=count)))
+    updates, (_, (adam, *_)) = lamb_with_warmup(*COLLAB_LAMB).update(grad, state, params)
+    return T.apply_updates(params, updates), adam.mu, adam.nu
+
+
+# the planted faults in a peer's parameter step: post = pre + f x (its step)
+COLLAB_STEP_FAULTS = {"the update not applied": 0.0, "the update's sign flipped": -1.0,
+                      "the rate doubled (the schedule read one count late)": 2.0}
+
+
+def collab_hold(torch, transition: int, readings: dict, scratch: str, layout: list) -> dict:
+    """Large-batch equivalence at ``transition``: recompute on the card the gradient of
+    every batch each peer accumulated in that epoch, from that peer's parameters of the
+    epoch, take their sample-weighted mean in fp32, apply one ``lamb_with_warmup`` step
+    to each peer's state of the epoch, and hold each peer's state after the transition
+    to the mean of those steps within ``collab_limits``: mu and nu element by element,
+    the parameters leaf by leaf in norm (their step is lr ‖p‖ in norm, far below any
+    element's limit). Planted faults must fail it: the reference with peer
+    COLLAB_FAULT_PEER's batches left out, and, where the rate is not 0, each peer's
+    parameter step altered as COLLAB_STEP_FAULTS says. Returns the worst ratio error /
+    limit of each kind and each fault's, the update's card time and how many limits a
+    whole step spans."""
+    from hivemind_tpu_torch.models import AlbertConfig, AlbertForMaskedLM, make_mlm_loss_fn, make_synthetic_mlm_batch
+
+    config = AlbertConfig.base(max_position=TRAIN_SEQ)
+    model = AlbertForMaskedLM(config, device="cuda")
+    loss_fn = make_mlm_loss_fn(model, TRAIN_MASKED_FRACTION)
+    peers = sorted(readings[transition])
+    names = [name for name, _, _ in layout]
+    if transition == 0:
+        model.reset_parameters(torch.Generator(device="cuda").manual_seed(COLLAB_INIT_SEED))
+        initial = {name: p.detach().clone() for name, p in model.named_parameters()}
+        zeros = {name: torch.zeros_like(p) for name, p in initial.items()}
+        pre = {i: (initial, zeros, zeros) for i in peers}
+    else:
+        pre = {i: collab_split(torch, np.load(os.path.join(scratch, f"peer{i}_e{transition}.npy")), layout) for i in peers}
+    post = {i: collab_split(torch, np.load(os.path.join(scratch, f"peer{i}_e{transition + 1}.npy")), layout)
+            for i in peers}
+    sums, samples = {}, {}
+    for i in peers:
+        with torch.no_grad():
+            for name, param in model.named_parameters():
+                param.copy_(pre[i][0][name])
+        sums[i] = {name: torch.zeros_like(p) for name, p in model.named_parameters()}
+        samples[i] = 0
+        for k, size, epoch in readings[transition][i]["batches"]:
+            if epoch != transition:
+                raise AssertionError(f"peer {i} accumulated batch {k} in epoch {epoch} during epoch {transition}")
+            generator = torch.Generator(device="cuda").manual_seed(collab_batch_seed(i, k))
+            model.zero_grad(set_to_none=True)
+            loss_fn(make_synthetic_mlm_batch(generator, config, size, TRAIN_SEQ)).backward()
+            for name, param in model.named_parameters():
+                sums[i][name] += param.grad * size
+            samples[i] += size
+    del model
+    local_max = {name: torch.stack([sums[i][name] / samples[i] for i in peers]).abs().amax(0) for name in names}
+
+    def mean_gradient(members):
+        total = sum(samples[i] for i in members)
+        return {name: sum(sums[i][name] for i in members) / total for name in names}
+
+    def reference(gradient, timings=None):
+        stepped = []
+        for i in peers:
+            started, ended = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            started.record()
+            stepped.append(collab_reference_step(torch, pre[i], gradient, transition))
+            ended.record()
+            ended.synchronize()
+            if timings is not None:
+                timings.append(started.elapsed_time(ended))
+        mean = [{name: torch.stack([s[kind][name].double() for s in stepped]).mean(0) for name in names}
+                for kind in range(3)]
+        return stepped, mean
+
+    def over(error: float, limit: float) -> float:  # a leaf of zeros at rate 0 has a limit of 0
+        return error / limit if limit > 0 else (0.0 if error == 0 else float("inf"))
+
+    def worst(observed: dict, expected: list, limits: tuple, kinds=range(3)) -> list:
+        ratios = []
+        for kind in kinds:
+            ratio = 0.0
+            for name in names:
+                for i in peers:
+                    got = observed[i][kind][name].double()
+                    if not bool(torch.isfinite(got).all()):
+                        ratio = float("inf")
+                        continue
+                    if kind == 0:
+                        ratio = max(ratio, over(float((got - expected[0][name]).norm()), limits[0][name]))
+                    else:
+                        ratio = max(ratio, float(((got - expected[kind][name]).abs() / limits[kind][name]).max()))
+            ratios.append(ratio)
+        return ratios
+
+    grad = mean_gradient(peers)
+    update_ms = []
+    stepped, expected = reference(grad, update_ms)
+    limits = collab_limits(torch, stepped, [pre[i] for i in peers], transition, layout, local_max, grad)
+    held = dict(zip(("params", "mu", "nu"), worst(post, expected, limits)))
+    held["update_ms"] = float(np.median(update_ms[1:] or update_ms))  # the first call warms the schedule up
+    _, without = reference(mean_gradient([i for i in peers if i != COLLAB_FAULT_PEER]))
+    held["faults"] = {f"peer {COLLAB_FAULT_PEER}'s batches left out": max(worst(post, without, limits))}
+    pre_mean = {name: torch.stack([pre[i][0][name].double() for i in peers]).mean(0) for name in names}
+    steps = [over(float((expected[0][name] - pre_mean[name]).norm()), limits[0][name]) for name in names]
+    held["step_over_limit"] = (float(np.median(steps)), sum(step > 1 for step in steps), len(steps))
+    if collab_rate(torch, transition) > 0:  # at a rate of 0 there is no step to alter
+        for label, f in COLLAB_STEP_FAULTS.items():
+            faulty = {i: ({name: pre_mean[name] + f * (post[i][0][name].double() - pre_mean[name]) for name in names},)
+                      for i in peers}
+            held["faults"][label] = worst(faulty, expected, limits, kinds=(0,))[0]
+    torch.cuda.empty_cache()
+    held.update(samples=sum(samples.values()), batches={i: len(readings[transition][i]["batches"]) for i in peers})
+    return held
+
+
+def collab_agreement(torch, epoch: int, peers: list, scratch: str, layout: list) -> float:
+    """The peers' parameters after the transition into ``epoch`` against each other:
+    the worst |a − b| over 2 x COLLAB_STATE_FACTOR x S (each is within one lossless
+    state round of the mean), S the largest magnitude among the round's inputs: the
+    largest |value| now plus the most one peer's step can differ from the others',
+    ``collab_step_bound``; infinite when a value is not finite."""
+    params = [collab_split(torch, np.load(os.path.join(scratch, f"peer{i}_e{epoch}.npy")), layout)[0] for i in peers]
+    worst = 0.0
+    for name, _, _ in layout:
+        stacked = torch.stack([p[name] for p in params])
+        if not bool(torch.isfinite(stacked).all()):
+            return float("inf")
+        step = collab_step_bound(torch, epoch - 1, float(stacked.flatten(1).norm(dim=1).max()))
+        limit = 2 * COLLAB_STATE_FACTOR * (stacked.abs().amax(0) + 2 * step)
+        worst = max(worst, float(((stacked.amax(0) - stacked.amin(0)) / limit).max()))
+    return worst
+
+
+def phase_collab(torch, wrappers: dict, telemetry: Telemetry) -> dict:
+    """Collaborative ALBERT-base training (BASELINE config 3, examples/albert): this
+    process is the bootstrap DHT peer; COLLAB_PEERS spawned peers train one model
+    through the collaborative Optimizer on the card, epoch by epoch; a fifth joins by
+    downloading the state and trains an epoch with them. Checks, in order: large-batch
+    equivalence of transitions COLLAB_CHECKED (a planted fault must fail), agreement
+    after every epoch, the joiner's state against its donor's bytes, and throughput:
+    ALBERT-base tokens/s/chip over epochs 1-2 beside [train]'s solo step. The flash
+    launches are the children's, reported over their pipes."""
+    import multiprocessing
+    import threading
+
+    from hivemind_tpu_torch.dht import DHT
+    from hivemind_tpu_torch.models import AlbertConfig, AlbertForMaskedLM
+
+    phase_started = time.perf_counter()
+    torch.cuda.empty_cache()  # the peers need the card's memory, not this process's cache
+    context = multiprocessing.get_context("spawn")
+    children, dhts, faults = [], [], []
+    scratch = tempfile.TemporaryDirectory(prefix="collab_")
+    timer = None
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            faults.append(what)
+
+    def kill_all() -> None:
+        for child in children:
+            child.kill()
+
+    log(f"[collab] host {host_line()}; {COLLAB_PEERS} peers + 1 joiner, ALBERT-base (albert-base-v2 widths, 12 "
+        f"applications of the shared layer), batch {TRAIN_BATCH} x seq {TRAIN_SEQ} a step, masked_loss_fraction "
+        f"{TRAIN_MASKED_FRACTION}, lamb_with_warmup{COLLAB_LAMB} clipped at 1, target_batch_size {COLLAB_TARGET}, "
+        f"matchmaking_time {COLLAB_MATCHMAKING_S} s, fp16 wire for gradients, fp32 for the state, averaged every epoch, "
+        f"min_group_size {COLLAB_PEERS}, groups unbounded")
+    readings, walls = {}, {}
+    try:
+        started = time.perf_counter()
+        bootstrap = DHT(start=True)
+        dhts.append(bootstrap)
+        initial_peers = [str(maddr) for maddr in bootstrap.get_visible_maddrs()]
+        children.extend(CollabChild(context, index, initial_peers, scratch.name) for index in range(COLLAB_PEERS))
+        timer = threading.Timer(COLLAB_KILL_LIMIT_S, kill_all)  # a hung peer or call: every child dies
+        timer.daemon = True
+        timer.start()
+        for child in children:
+            _, child.peer_id, child.device = child.receive(COLLAB_STARTUP_LIMIT_S - (time.perf_counter() - started))
+        by_peer = {child.peer_id: child for child in children}
+        log(f"[collab] {COLLAB_PEERS} peer processes up in {time.perf_counter() - started:.1f} s")
+
+        def train(epoch: int, members: list) -> None:
+            begun = time.perf_counter()
+            for child in members:
+                child.conn.send(("train", epoch + 1))
+            readings[epoch] = {child.index: child.receive(COLLAB_EPOCH_LIMIT_S)[1] for child in members}
+            walls[epoch] = time.perf_counter() - begun
+            for child in members:
+                child.ask(("save", epoch + 1), timeout=60)
+            values = list(readings[epoch].values())
+            median = lambda key: float(np.median([r[key] for r in values]))
+            samples = sum(size for r in values for _, size, _ in r["batches"])
+            log(f"[collab] epoch {epoch} -> {epoch + 1}: wall {walls[epoch]:.3f} s, {samples} samples from "
+                f"{len(values)} peers ({[len(r['batches']) for r in values]} batches); median over peers: compute "
+                f"{median('compute'):.3f} s, accumulate on the host {median('accumulate'):.3f} s, waiting for the "
+                f"swarm {median('waiting'):.3f} s, gradient all-reduce {median('grad_allreduce'):.3f} s, update "
+                f"(host, span optimizer.update) {median('update'):.3f} s, state round (span state_averager.round, "
+                f"the update's card work included) {median('state_round'):.3f} s (its all-reduce "
+                f"{median('state_allreduce'):.3f} s); group sizes "
+                f"{sorted({tuple(r['group_sizes']) for r in values})}; losses (first, last) of peer 0 "
+                f"{values[0]['losses'][0]:.4f}, {values[0]['losses'][-1]:.4f}")
+            for child in members:
+                reading = readings[epoch][child.index]
+                check(reading["epoch"] == epoch + 1, f"epoch {epoch}: {child.name} ended at epoch {reading['epoch']}")
+                check(reading["failed"] == 0, f"epoch {epoch}: {child.name} fell back to local gradients")
+                check(reading["state_ok"], f"epoch {epoch}: {child.name}'s state round failed")
+                check(reading["counts"] == [epoch + 1] * 2, f"epoch {epoch}: {child.name}'s counts {reading['counts']}")
+                check(all(math.isfinite(loss) for loss in reading["losses"]), f"epoch {epoch}: {child.name} loss")
+                check(reading["group_sizes"][:1] == [len(members)],
+                      f"epoch {epoch}: {child.name}'s gradient round had {reading['group_sizes']} peers")
+
+        for epoch in range(COLLAB_EPOCHS):
+            train(epoch, children)
+
+        # the late joiner downloads the state, then trains an epoch with the swarm
+        joiner = CollabChild(context, COLLAB_PEERS, initial_peers, scratch.name)
+        children.append(joiner)
+        joiner.receive(COLLAB_STARTUP_LIMIT_S)
+        _, loaded = joiner.ask(("load",), timeout=120)
+        donor = by_peer.get(loaded["donors"][-1]) if loaded["donors"] else None
+        donor_state = donor.ask(("digest",))[1] if donor is not None else {}
+        log(f"[collab] the joiner loaded {loaded['bytes']:,} B from peer {donor.index if donor else '?'} in "
+            f"{loaded['seconds']:.3f} s at epoch {loaded['epoch']} (donor at {donor_state.get('epoch')}); every digest "
+            f"verified: {loaded['verified']}; its parameters, mu and nu equal the donor's, byte for byte: "
+            f"{loaded['digest'] == donor_state.get('digest')}; counts {loaded['counts']} (donor "
+            f"{donor_state.get('counts')})")
+        check(loaded["ok"] and loaded["verified"] and loaded["finite"] and loaded["epoch"] == COLLAB_EPOCHS
+              and loaded["epoch"] == donor_state.get("epoch") and loaded["digest"] == donor_state.get("digest")
+              and loaded["counts"] == donor_state.get("counts"), f"the joiner's download: {loaded}, donor {donor_state}")
+        train(COLLAB_EPOCHS, children)
+        for child in children:
+            child.ask(("stop",), timeout=60)
+
+        reading_of = {child.index: readings[COLLAB_EPOCHS][child.index] for child in children}
+        for child in children:
+            reading = reading_of[child.index]
+            per_step = {name: count / reading["steps"] for name, count in reading["launches"].items()}
+            log(f"[collab] {child.name}: {reading['steps']} steps, flash launches per step {json.dumps(per_step)}, "
+                f"peak memory {reading['peak'] / 2**30:.2f} GiB")
+            check(all(count == 12 * reading["steps"] for count in reading["launches"].values()),
+                  f"{child.name}: launches {reading['launches']} in {reading['steps']} steps, expected 12 each a step")
+        launches = {name: sum(r["launches"].get(name, 0) for r in reading_of.values()) for name in wrappers}
+
+        tokens = sum(size * TRAIN_SEQ for epoch in (1, 2) for r in readings[epoch].values() for _, size, _ in r["batches"])
+        rate = tokens / (walls[1] + walls[2])
+        log(f"[collab] ALBERT-base tokens/s/chip over epochs 1-2: {rate:.0f} ({tokens:,} tokens of {COLLAB_PEERS} peers "
+            f"in {walls[1] + walls[2]:.3f} s; one card); [train]'s solo step in this run: "
+            f"{telemetry.readings.get('train', {}).get('tokens_per_s', float('nan')):.0f} tokens/s")
+
+        # the checks that need the card's memory run after the peers are gone
+        layout = collab_layout(AlbertForMaskedLM(AlbertConfig.base(max_position=TRAIN_SEQ), device="meta"))
+        for transition in COLLAB_CHECKED:
+            held = collab_hold(torch, transition, readings, scratch.name, layout)
+            median_step, above, leaves = held["step_over_limit"]
+            log(f"[collab] transition {transition}: {held['samples']} samples in {held['batches']} batches a peer, "
+                f"recomputed on the card; worst error / limit: parameters {held['params']:.4f} (each leaf's error in "
+                f"norm), mu {held['mu']:.4f}, nu {held['nu']:.4f} (every element) of every peer; a whole parameter "
+                f"step spans {median_step:.2f} limits (median leaf; {above} of {leaves} leaves above 1); the update "
+                f"alone on the card (the reference's step, CUDA events) {held['update_ms']:.3f} ms; planted faults, "
+                f"each x the limit: " + "; ".join(f"{label} {ratio:.1f} ({'rejected' if ratio > 1 else 'NOT rejected'})"
+                                                   for label, ratio in held["faults"].items()))
+            check(max(held["params"], held["mu"], held["nu"]) <= 1.0,
+                  f"transition {transition} is off large-batch training: {held}")
+            check(all(ratio > 1.0 for ratio in held["faults"].values()),
+                  f"transition {transition}: the check passed a planted fault: {held['faults']}")
+            check(transition == 0 or len(held["faults"]) == 1 + len(COLLAB_STEP_FAULTS),
+                  f"transition {transition}: the parameter step faults were not planted (no step)")
+        for epoch in range(1, COLLAB_EPOCHS + 2):
+            peers = sorted(readings[epoch - 1])
+            worst = collab_agreement(torch, epoch, peers, scratch.name, layout)
+            log(f"[collab] after epoch {epoch - 1}: {len(peers)} peers at epoch {epoch}, parameters agree within "
+                f"{worst:.4f} of twice the state round's limit")
+            check(worst <= 1.0, f"epoch {epoch}: the peers' parameters differ by {worst:.3f} x the limit")
+    finally:
+        if timer is not None:
+            timer.cancel()
+        for child in children:
+            if child.process.is_alive():
+                with contextlib.suppress(Exception):
+                    child.ask(("stop",), timeout=20)
+            child.kill()
+        for dht in reversed(dhts):
+            dht.shutdown()
+        scratch.cleanup()
+    elapsed = time.perf_counter() - phase_started
+    log(f"[collab] phase wall {elapsed:.1f} s (limit {COLLAB_PHASE_LIMIT_S:.0f} s)")
+    check(elapsed <= COLLAB_PHASE_LIMIT_S, f"[collab] took {elapsed:.1f} s > {COLLAB_PHASE_LIMIT_S:.0f} s")
+    if faults:
+        raise AssertionError("; ".join(faults))
+    return launches
+
+
 PROMETHEUS_SAMPLE = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})? (\S+)$')
 PROMETHEUS_LABEL = re.compile(r'(\w+)="((?:[^"\\]|\\.)*)"')
 
@@ -3276,6 +3891,7 @@ def main() -> int:
         "swarm": ("flash_attention_forward", "flash_attention_backward_dq", "flash_attention_backward_dkv",
                   "blockwise_int8_dequantize"),
         "dmoe": ("blockwise_int8_quantize", "blockwise_int8_dequantize"),
+        "collab": ("flash_attention_forward", "flash_attention_backward_dq", "flash_attention_backward_dkv"),
     }
 
     line = card_line()
@@ -3319,7 +3935,9 @@ def main() -> int:
         path_launches["dmoe"] = run("dmoe", phase_dmoe, torch, wrappers, telemetry)
         run("averaging", phase_averaging, torch)  # host numpy reduction: no kernel on its path
         path_launches["expert_backward"] = run("expert_backward", phase_expert_backward, torch, checkpoint.name, wrappers)
-        path_launches["train"] = run("train", phase_train, torch, peaks, wrappers)
+        path_launches["train"] = run("train", phase_train, torch, peaks, wrappers, telemetry)
+        # after [train], whose solo step it reads beside its own: the swarm of peer processes
+        path_launches["collab"] = run("collab", phase_collab, torch, wrappers, telemetry)
     finally:
         checkpoint.cleanup()
         exporter.shutdown()

@@ -16,7 +16,7 @@ Module names are shared between the two packages (``query``, ``ffn_norm``,
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -64,6 +64,36 @@ def to_flax_params(block_name: str, state: Mapping[str, torch.Tensor]) -> Dict[s
     return to_flax_tree(state)
 
 
+# the port's ``nn.Embedding`` modules: flax's ``nn.Embed`` names the table
+# ``embedding`` and keeps the ``[vocab, features]`` layout (no transpose)
+EMBEDDING_MODULES = frozenset({"word_embeddings"})
+# module names that say "embedding table" (Llama's ``embed_tokens``; not ALBERT's Dense
+# ``embedding_projection``)
+EMBEDDING_SUFFIXES = ("embed", "embeds", "embedding", "embeddings", "embed_tokens")
+
+
+def flax_path(key: str, ndim: int) -> Tuple[Tuple[str, ...], bool]:
+    """The flax path of the parameter ``key`` (a ``state_dict`` name) of ``ndim``
+    dimensions, and whether its flax layout is the transpose of the torch one. A 2-D
+    weight of a module whose name ends like an embedding's (``EMBEDDING_SUFFIXES``) but
+    is not in ``EMBEDDING_MODULES`` raises: taking it for a Dense kernel would transpose
+    it silently."""
+    *modules, leaf = key.split(".")
+    if not modules:  # a parameter of the model itself
+        return (leaf,), False
+    if leaf == "weight":
+        if modules[-1] in EMBEDDING_MODULES:
+            return (*modules, "embedding"), False
+        if ndim == 2:
+            if modules[-1].lower().endswith(EMBEDDING_SUFFIXES):
+                raise KeyError(f"{key}: an embedding table not in convert.EMBEDDING_MODULES; add its module name")
+            return (*modules, "kernel"), True
+        return (*modules, "scale"), False
+    if leaf != "bias":
+        raise KeyError(f"no flax leaf for parameter {key}")
+    return (*modules, leaf), False
+
+
 def to_flax_tree(state: Mapping[str, torch.Tensor]) -> Dict[str, object]:
     """Parameters keyed like a module's ``state_dict`` as a flax tree of fp32 numpy
     arrays (copies), its keys sorted at every level as JAX's tree utilities order them (so
@@ -72,16 +102,11 @@ def to_flax_tree(state: Mapping[str, torch.Tensor]) -> Dict[str, object]:
     for key in sorted(state):
         # a copy: the tree must not alias parameters that a step later updates in place
         array = torch.as_tensor(state[key]).detach().to("cpu", torch.float32, copy=True).numpy()
-        *modules, leaf = key.split(".")
-        if modules:
-            if leaf == "weight":
-                leaf, array = ("kernel", np.ascontiguousarray(array.T)) if array.ndim == 2 else ("scale", array)
-            elif leaf != "bias":
-                raise KeyError(f"no flax leaf for parameter {key}")
+        (*modules, leaf), transposed = flax_path(key, array.ndim)
         node = tree
         for module in modules:
             node = node.setdefault(module, {})
-        node[leaf] = array
+        node[leaf] = np.ascontiguousarray(array.T) if transposed else array
     return _sorted_tree(tree)
 
 

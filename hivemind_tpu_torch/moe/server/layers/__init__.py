@@ -16,3 +16,4 @@ from hivemind_tpu_torch.moe.server.layers.common import (
     register_expert_class,
 )
 from hivemind_tpu_torch.moe.server.layers.dropout import DeterministicDropout, DeterministicDropoutExpert
+from hivemind_tpu_torch.moe.server.layers.optim import clipped, lamb_with_warmup, linear_warmup_schedule

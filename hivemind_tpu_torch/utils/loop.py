@@ -89,6 +89,10 @@ class LoopRunner:
         future = asyncio.run_coroutine_threadsafe(coro, self.loop)
         return future if return_future else future.result()
 
+    def call_soon(self, callback, *args) -> None:
+        self._ensure_started()
+        self.loop.call_soon_threadsafe(callback, *args)
+
     @property
     def is_running(self) -> bool:
         return self._started.is_set() and not self._closed

@@ -57,7 +57,9 @@ for name in ("hivemind_tpu_torch.moe.server.decode_session", "hivemind_tpu_torch
              "hivemind_tpu_torch.moe.client.beam_search", "hivemind_tpu_torch.moe.client.moe",
              "hivemind_tpu_torch.telemetry.monitor", "hivemind_tpu_torch.utils.auth",
              "hivemind_tpu_torch.averaging", "hivemind_tpu_torch.averaging.averager",
-             "hivemind_tpu_torch.averaging.load_balancing", "hivemind_tpu_torch.proto.averaging_pb2"):
+             "hivemind_tpu_torch.averaging.load_balancing", "hivemind_tpu_torch.proto.averaging_pb2",
+             "hivemind_tpu_torch.optim", "hivemind_tpu_torch.optim.optimizer", "hivemind_tpu_torch.dht.schema",
+             "hivemind_tpu_torch.moe.server.layers.optim", "hivemind_tpu_torch.examples.albert.run_trainer"):
     assert name in sys.modules, name
 assert not leaked(), leaked()
 
@@ -69,6 +71,7 @@ from hivemind_tpu_torch.models.albert import AlbertConfig, make_train_step
 from hivemind_tpu_torch.moe.server.server import Server
 from hivemind_tpu_torch.moe.client.moe import RemoteMixtureOfExperts
 from hivemind_tpu_torch.dht import DHT
+from hivemind_tpu_torch.examples.albert import run_trainer
 refused = 0
 for entry_point in (
     lambda: ModuleBackend("nop", NopExpert(4), sample_input=np.zeros((1, 4), np.float32)),
@@ -77,13 +80,14 @@ for entry_point in (
     lambda: make_train_step(AlbertConfig.tiny(), lambda params: torch.optim.AdamW(params)),
     lambda: Server.create(expert_uids=["nop.0"], expert_cls="nop", hidden_dim=4),
     lambda: RemoteMixtureOfExperts(dht=DHT(), in_features=4, grid_size=(2,), uid_prefix="nop."),
+    lambda: run_trainer.main(["--tiny", "--max_steps", "0"]),
 ):
     try:
         entry_point()
     except RuntimeError as e:
         assert "no CUDA device" in str(e), e
         refused += 1
-assert refused == 6, refused
+assert refused == 7, refused
 backend = ModuleBackend("nop", NopExpert(4), sample_input=np.zeros((1, 4), np.float32), device="cpu")
 assert backend.forward(np.ones((2, 4), np.float32))[0].tolist() == [[1.0] * 4] * 2
 assert backend.backward(np.ones((2, 4), np.float32), np.ones((2, 4), np.float32))[0].tolist() == [[1.0] * 4] * 2
