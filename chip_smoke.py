@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke test of hivemind_tpu_torch: builds the port's Hopper kernels,
 holds each against its plain PyTorch version at the shapes of the paths that run
-it, then drives nine paths and checks each against the CPU, the local path or
+it, then drives eleven paths and checks each against the CPU, the local path or
 the exact result:
 - serving: two Llama-2-7B-width blocks (fp and int8 weight-only) through
   load_llama_blocks → ModuleBackend → TaskPool/Runtime, and an expert of
@@ -31,6 +31,13 @@ the exact result:
 - collab: collaborative ALBERT-base training (BASELINE config 3, examples/albert): four
   peer processes train one model through the DHT with the collaborative Optimizer and
   LAMB, held to large-batch training; a fifth joins by downloading the state.
+- ring: ring attention over a mesh's sequence axis, four rank processes sharing the
+  card over gloo, the flash kernel at every ring step, at Llama-2-7B widths (T 8192,
+  causal) and ALBERT-base's, against plain fp32 attention and the whole-sequence
+  kernel, forward and gradients; and a one-rank nccl mesh;
+- slice: a mesh of four ranks (dp 2 x sp 2) as one swarm peer through SliceOptimizer,
+  with a collaborative Optimizer peer, ALBERT-base with [collab]'s recipe, held to a
+  single-rank step and to large-batch training.
 Telemetry rides the serving and decode runs, as a server would arm it (the event-loop
 watchdog, the device memory sampler, a ``/metrics`` exporter; over the wire the
 connection handler opens a ``serving.request`` span around each request): ``[telemetry]``
@@ -65,6 +72,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -863,7 +871,7 @@ def loss_and_grads(model, loss_fn, batch):
     return loss.item(), {name: p.grad.detach().float().cpu() for name, p in model.named_parameters()}
 
 
-def compare_grads(torch, got: dict, ref: dict, limit: float, what: str) -> float:
+def compare_grads(torch, got: dict, ref: dict, limit: float, what: str, phase: str = "train") -> float:
     """The largest gradient error norm over reference norm; raises past ``limit``.
     The key bias (exact gradient 0) is held to 1% of the largest gradient instead."""
     largest = max(g.abs().max().item() for g in ref.values())
@@ -876,7 +884,7 @@ def compare_grads(torch, got: dict, ref: dict, limit: float, what: str) -> float
         rel = ((got[name] - g).norm() / g.norm().clamp_min(1e-30)).item()
         if not rel <= worst:
             worst, worst_name = rel, name
-    log(f"[train] {what}: largest gradient error norm / norm {worst:.3e} ({worst_name})")
+    log(f"[{phase}] {what}: largest gradient error norm / norm {worst:.3e} ({worst_name})")
     if not worst <= limit:
         raise AssertionError(f"{what}: gradient {worst_name} differs by {worst:.3e} > {limit}")
     return worst
@@ -3173,8 +3181,9 @@ def collab_split(torch, flat: np.ndarray, layout: list) -> tuple:
     return tuple(parts)
 
 
-def collab_peer_main(conn, index: int, initial_peers: list, scratch: str) -> None:
-    """One peer of ``[collab]`` (index COLLAB_PEERS: the late joiner): its own DHT peer,
+def collab_peer_main(conn, index: int, initial_peers: list, scratch: str, recipe: dict) -> None:
+    """One peer of ``[collab]`` (index COLLAB_PEERS: the late joiner) or of ``[slice]``
+    (``recipe``: its run id, group size and initial weights' seed): its own DHT peer,
     bootstrapped from the parent's, and ALBERT-base on the card trained through the
     collaborative Optimizer. Answers the parent's commands over ``conn``: ``train``
     (batches until the given epoch; the reading carries every accumulated batch's
@@ -3202,13 +3211,13 @@ def collab_peer_main(conn, index: int, initial_peers: list, scratch: str) -> Non
                    "flash_attention_backward_dkv": flash_attention.flash_attention_backward_dkv}
         config = AlbertConfig.base(max_position=TRAIN_SEQ)
         model = AlbertForMaskedLM(config, device="cuda")
-        model.reset_parameters(torch.Generator(device="cuda").manual_seed(COLLAB_INIT_SEED))
+        model.reset_parameters(torch.Generator(device="cuda").manual_seed(recipe["init_seed"]))
         loss_fn = make_mlm_loss_fn(model, TRAIN_MASKED_FRACTION)
         dht = DHT(initial_peers=initial_peers, start=True)
-        opt = Optimizer(dht=dht, run_id=COLLAB_RUN_ID, target_batch_size=COLLAB_TARGET,
+        opt = Optimizer(dht=dht, run_id=recipe["run_id"], target_batch_size=COLLAB_TARGET,
                         params=model.named_parameters(), optimizer=lamb_with_warmup(*COLLAB_LAMB),
                         batch_size_per_step=TRAIN_BATCH, matchmaking_time=COLLAB_MATCHMAKING_S, average_state_every=1,
-                        min_group_size=COLLAB_PEERS, state_averaging_compression=NoCompression())
+                        min_group_size=recipe["min_group_size"], state_averaging_compression=NoCompression())
         me = str(dht.peer_id)
         spans = {}  # this epoch's host seconds in the Optimizer's own spans, and the state rounds' outcomes
 
@@ -3304,12 +3313,13 @@ def collab_peer_main(conn, index: int, initial_peers: list, scratch: str) -> Non
 class CollabChild(SwarmChild):
     """The parent's handle on one peer process of ``[collab]``."""
 
-    def __init__(self, context, index: int, initial_peers: list, scratch: str):
+    def __init__(self, context, index: int, initial_peers: list, scratch: str, recipe: Optional[dict] = None):
         self.index = index
         self.name = f"collab peer {index}" if index < COLLAB_PEERS else "the joining collab peer"
+        recipe = recipe or dict(run_id=COLLAB_RUN_ID, min_group_size=COLLAB_PEERS, init_seed=COLLAB_INIT_SEED)
         self.conn, child_conn = context.Pipe()
-        self.process = context.Process(target=collab_peer_main, args=(child_conn, index, initial_peers, scratch),
-                                       daemon=True)
+        self.process = context.Process(target=collab_peer_main,
+                                       args=(child_conn, index, initial_peers, scratch, recipe), daemon=True)
         self.process.start()
         child_conn.close()
         self.peer_id = self.device = self.last_report = None
@@ -3428,7 +3438,9 @@ COLLAB_STEP_FAULTS = {"the update not applied": 0.0, "the update's sign flipped"
                       "the rate doubled (the schedule read one count late)": 2.0}
 
 
-def collab_hold(torch, transition: int, readings: dict, scratch: str, layout: list) -> dict:
+def collab_hold(torch, transition: int, readings: dict, scratch: str, layout: list,
+                init_seed: int = COLLAB_INIT_SEED, precomputed: Optional[dict] = None,
+                fault_peer: int = COLLAB_FAULT_PEER) -> dict:
     """Large-batch equivalence at ``transition``: recompute on the card the gradient of
     every batch each peer accumulated in that epoch, from that peer's parameters of the
     epoch, take their sample-weighted mean in fp32, apply one ``lamb_with_warmup`` step
@@ -3439,16 +3451,19 @@ def collab_hold(torch, transition: int, readings: dict, scratch: str, layout: li
     COLLAB_FAULT_PEER's batches left out, and, where the rate is not 0, each peer's
     parameter step altered as COLLAB_STEP_FAULTS says. Returns the worst ratio error /
     limit of each kind and each fault's, the update's card time and how many limits a
-    whole step spans."""
+    whole step spans. ``precomputed`` gives a peer's gradient sums and samples instead (a
+    slice's, summed through its mesh); ``fault_peer`` is the peer whose batches the
+    planted fault leaves out; ``init_seed`` draws the weights before transition 0."""
     from hivemind_tpu_torch.models import AlbertConfig, AlbertForMaskedLM, make_mlm_loss_fn, make_synthetic_mlm_batch
 
+    precomputed = precomputed or {}
     config = AlbertConfig.base(max_position=TRAIN_SEQ)
     model = AlbertForMaskedLM(config, device="cuda")
     loss_fn = make_mlm_loss_fn(model, TRAIN_MASKED_FRACTION)
     peers = sorted(readings[transition])
     names = [name for name, _, _ in layout]
     if transition == 0:
-        model.reset_parameters(torch.Generator(device="cuda").manual_seed(COLLAB_INIT_SEED))
+        model.reset_parameters(torch.Generator(device="cuda").manual_seed(init_seed))
         initial = {name: p.detach().clone() for name, p in model.named_parameters()}
         zeros = {name: torch.zeros_like(p) for name, p in initial.items()}
         pre = {i: (initial, zeros, zeros) for i in peers}
@@ -3458,6 +3473,9 @@ def collab_hold(torch, transition: int, readings: dict, scratch: str, layout: li
             for i in peers}
     sums, samples = {}, {}
     for i in peers:
+        if i in precomputed:
+            sums[i], samples[i] = precomputed[i]
+            continue
         with torch.no_grad():
             for name, param in model.named_parameters():
                 param.copy_(pre[i][0][name])
@@ -3519,8 +3537,8 @@ def collab_hold(torch, transition: int, readings: dict, scratch: str, layout: li
     limits = collab_limits(torch, stepped, [pre[i] for i in peers], transition, layout, local_max, grad)
     held = dict(zip(("params", "mu", "nu"), worst(post, expected, limits)))
     held["update_ms"] = float(np.median(update_ms[1:] or update_ms))  # the first call warms the schedule up
-    _, without = reference(mean_gradient([i for i in peers if i != COLLAB_FAULT_PEER]))
-    held["faults"] = {f"peer {COLLAB_FAULT_PEER}'s batches left out": max(worst(post, without, limits))}
+    _, without = reference(mean_gradient([i for i in peers if i != fault_peer]))
+    held["faults"] = {f"peer {fault_peer}'s batches left out": max(worst(post, without, limits))}
     pre_mean = {name: torch.stack([pre[i][0][name].double() for i in peers]).mean(0) for name in names}
     steps = [over(float((expected[0][name] - pre_mean[name]).norm()), limits[0][name]) for name in names]
     held["step_over_limit"] = (float(np.median(steps)), sum(step > 1 for step in steps), len(steps))
@@ -3666,6 +3684,7 @@ def phase_collab(torch, wrappers: dict, telemetry: Telemetry) -> dict:
 
         tokens = sum(size * TRAIN_SEQ for epoch in (1, 2) for r in readings[epoch].values() for _, size, _ in r["batches"])
         rate = tokens / (walls[1] + walls[2])
+        telemetry.readings["collab"] = {"tokens_per_s": rate}
         log(f"[collab] ALBERT-base tokens/s/chip over epochs 1-2: {rate:.0f} ({tokens:,} tokens of {COLLAB_PEERS} peers "
             f"in {walls[1] + walls[2]:.3f} s; one card); [train]'s solo step in this run: "
             f"{telemetry.readings.get('train', {}).get('tokens_per_s', float('nan')):.0f} tokens/s")
@@ -3708,6 +3727,645 @@ def phase_collab(torch, wrappers: dict, telemetry: Telemetry) -> dict:
     elapsed = time.perf_counter() - phase_started
     log(f"[collab] phase wall {elapsed:.1f} s (limit {COLLAB_PHASE_LIMIT_S:.0f} s)")
     check(elapsed <= COLLAB_PHASE_LIMIT_S, f"[collab] took {elapsed:.1f} s > {COLLAB_PHASE_LIMIT_S:.0f} s")
+    if faults:
+        raise AssertionError("; ".join(faults))
+    return launches
+
+
+# ---------------------------------------------------------------- [ring]: ring attention on a mesh
+# Four ranks with sp = 4 share the one card and talk over gloo (NCCL refuses two ranks on
+# one device): the flash kernel runs on the card at every ring step, the rotated K/V
+# blocks pass through pinned host buffers. What is measured is the arithmetic and the
+# protocol of the ring, not a collective across cards. Shapes: Llama-2-7B attention at
+# T 8192 (2,048 positions a shard, [serving]'s prefill shape), causal, and ALBERT-base's
+# [32, 512, 12, 64] (128 a shard, one forward tile), not causal; bf16.
+RING_SP = 4
+RING_CASES = (((1, 8192, 32, 128), True), (ALBERT_ATTENTION, False))
+RING_TIMED_RUNS = 3
+RING_STARTUP_LIMIT_S = 90.0
+RING_KILL_LIMIT_S = 420.0  # a timer kills every rank process past this
+RING_HEAD_CHUNK = 4  # heads a time in the fp32 references (scores of [1, 4, 8192, 8192] are 1 GiB)
+# The ring's output against plain fp32 attention, each element within atol + rtol·scale
+# (scale = sum_j p_j·|v_j|, as [flash]): the flash kernel's 3u of each shard's own output,
+# plus one bf16 rounding of each shard's output before the fp32 merge, weighted by
+# w_i = exp(lse_i − lse) (summing to 1) and each within u·sum_{j in shard i} p_j|v_j|/w_i:
+# u·scale more, so 4u; the norm ratio within 2u. Against the whole-sequence kernel on the
+# card, both errors: 7u per element, 3u in norm, twice the cap.
+RING_TOL = dict(atol=1e-5, rtol=4 * BF16_UNIT_ROUNDOFF, max_abs=2e-2, rel_l2=2 * BF16_UNIT_ROUNDOFF)
+RING_FLASH_TOL = dict(atol=2e-5, rtol=7 * BF16_UNIT_ROUNDOFF, max_abs=4e-2, rel_l2=3 * BF16_UNIT_ROUNDOFF)
+# the einsum ring's gradients (bf16 throughout, as the JAX package's) against plain fp32
+# attention's, each gradient's error norm over its norm: [train]'s gradient limit
+RING_GRAD_REL_L2 = 8 * BF16_UNIT_ROUNDOFF
+RING_FAULTS = ("a ring step skipped", "the future-shard mask dropped")
+
+
+def ring_inputs(torch, shape, case: int):
+    """q, k, v (bf16) and the cotangent w (fp32) of a ``[ring]`` case, made on the card."""
+    generator = torch.Generator(device="cuda").manual_seed(SEED + 700 + case)
+    q, k, v = (torch.randn(shape, generator=generator, device="cuda").to(torch.bfloat16) for _ in range(3))
+    return q, k, v, torch.randn(shape, generator=generator, device="cuda")
+
+
+def faulty_ring_forward(torch, mesh, q, k, v, causal: bool, fault: str):
+    """The kernel ring's forward with a planted fault the check must reject: the block of
+    ring step 1 left out of the merge, or a future shard's lse left unmasked."""
+    from hivemind_tpu_torch.ops.flash_attention import flash_attention_lse
+    from hivemind_tpu_torch.parallel.ring_attention import _NEG_INF, _merge
+
+    size, here = mesh.shape["sp"], mesh.coordinate["sp"]
+    out, lse = flash_attention_lse(q, k, v, causal=causal)
+    out = out.float()
+    k_cur, v_cur = k, v
+    for step in range(1, size):
+        k_cur, v_cur = mesh.ring_shift((k_cur, v_cur), "sp", 1)
+        out_i, lse_i = flash_attention_lse(q, k_cur, v_cur)
+        if fault == RING_FAULTS[0] and step == 1:
+            continue
+        if causal and fault != RING_FAULTS[1] and (here - step) % size > here:
+            lse_i = torch.full_like(lse_i, _NEG_INF)
+        out, lse = _merge(out, lse, out_i, lse_i)
+    return out.to(q.dtype)
+
+
+def ring_rank_main(conn, rank: int, port: int, scratch: str, backend: str) -> None:
+    """One rank of ``[ring]``: a (1, 1, RING_SP) mesh over ``backend`` (gloo: the ranks
+    share the card; nccl: a card each, where the machine has RING_SP). For each case it
+    runs ``ring_flash_attention`` forward and backward (the path: its launches are
+    counted), the forward RING_TIMED_RUNS more times for its wall, and the planted
+    faults; its shards go to ``scratch`` for the parent."""
+    import traceback
+
+    try:
+        import torch
+
+        from hivemind_tpu_torch.ops import flash_attention
+        from hivemind_tpu_torch.parallel import make_mesh
+        from hivemind_tpu_torch.parallel.mesh import NamedSharding, P
+        from hivemind_tpu_torch.parallel.ring_attention import ring_flash_attention, ring_flash_forward
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        mesh = make_mesh(1, 1, RING_SP, backend=backend, device="cuda", init_method=f"tcp://localhost:{port}",
+                         rank=rank, world_size=RING_SP)
+        shard = NamedSharding(mesh, P(None, "sp")).shard
+        conn.send(("ready", str(mesh.device), mesh.stages_through_host))
+        readings = []
+        for case, (shape, causal) in enumerate(RING_CASES):
+            q, k, v, w = (shard(t).contiguous() for t in ring_inputs(torch, shape, case))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            flash_attention.flash_attention_lse.launches = 0  # the path starts here
+            inputs = [t.clone().requires_grad_() for t in (q, k, v)]
+            out = ring_flash_attention(*inputs, mesh, "sp", causal)
+            (out.float() * w).sum().backward()
+            torch.cuda.synchronize()
+            launches = flash_attention.flash_attention_lse.launches
+            walls = []
+            with torch.no_grad():
+                for _ in range(RING_TIMED_RUNS):
+                    torch.cuda.synchronize()
+                    started = time.perf_counter()
+                    ring_flash_forward(q, k, v, mesh, "sp", causal)
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - started)
+                faults = {fault: faulty_ring_forward(torch, mesh, q, k, v, causal, fault).cpu()
+                          for fault in RING_FAULTS if causal or fault == RING_FAULTS[0]}
+            torch.save(dict(out=out.detach().cpu(), grads=[t.grad.cpu() for t in inputs], faults=faults),
+                       os.path.join(scratch, f"ring{backend}{case}_{rank}.pt"))
+            readings.append(dict(launches=launches, walls=walls, peak=torch.cuda.max_memory_allocated()))
+            del q, k, v, w, inputs, out, faults
+            torch.cuda.empty_cache()
+        conn.send(("done", readings))
+        conn.recv()  # "stop": leave the process group together
+        torch.distributed.destroy_process_group()
+    except BaseException:
+        conn.send(("error", traceback.format_exc()))
+        raise
+
+
+def ring_nccl_main(conn, port: int) -> None:
+    """The nccl branch of make_mesh on the card: a one-rank mesh, a sum and a broadcast
+    of card tensors over it, and ring_flash_attention at sp = 1 (the local flash call)."""
+    import traceback
+
+    try:
+        import torch
+
+        from hivemind_tpu_torch.ops import flash_attention
+        from hivemind_tpu_torch.parallel import make_mesh
+        from hivemind_tpu_torch.parallel.ring_attention import ring_flash_attention
+
+        mesh = make_mesh(1, 1, 1, backend="nccl", device="cuda", init_method=f"tcp://localhost:{port}",
+                         rank=0, world_size=1)
+        x = torch.arange(8, dtype=torch.float32, device=mesh.device)
+        q, k, v, _ = ring_inputs(torch, ALBERT_ATTENTION, 1)
+        torch.distributed.all_reduce(x)  # a collective of the nccl group on the card
+        before = flash_attention.flash_attention_lse.launches
+        out = ring_flash_attention(q, k, v, mesh, "sp", False)
+        launches = flash_attention.flash_attention_lse.launches - before
+        expected, _ = flash_attention.flash_attention_lse(q, k, v)
+        torch.cuda.synchronize()
+        conn.send(("done", dict(backend=torch.distributed.get_backend(), device=str(mesh.device),
+                                sum_ok=bool(torch.equal(x, torch.arange(8, dtype=torch.float32, device=mesh.device))),
+                                equal=bool(torch.equal(out, expected)),
+                                launches=launches)))
+        torch.distributed.destroy_process_group()
+    except BaseException:
+        conn.send(("error", traceback.format_exc()))
+        raise
+
+
+class MeshChild(SwarmChild):
+    """The parent's handle on one rank process of a mesh phase."""
+
+    def __init__(self, context, name: str, target, *args):
+        self.name, self.index = name, None
+        self.conn, child_conn = context.Pipe()
+        self.process = context.Process(target=target, args=(child_conn, *args), daemon=True)
+        self.process.start()
+        child_conn.close()
+        self.peer_id = self.device = self.last_report = None
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def ring_references(torch, q, k, v, w, causal: bool):
+    """Plain whole-sequence attention in fp32, a few heads at a time: (out, scale, dq, dk,
+    dv) for sum(out·w), scale = sum_j p_j·|v_j|."""
+    from hivemind_tpu_torch.ops.flash_attention import flash_attention_plain
+    from hivemind_tpu_torch.parallel.ring_attention import plain_attention
+
+    outs, scales, grads = [], [], [[], [], []]
+    for h in range(0, q.shape[2], RING_HEAD_CHUNK):
+        part = [t[:, :, h:h + RING_HEAD_CHUNK].float() for t in (q, k, v)]
+        with torch.no_grad():
+            scales.append(flash_attention_plain(*part[:2], part[2].abs(), causal)[0])
+        leaves = [t.clone().requires_grad_() for t in part]
+        out = plain_attention(*leaves, causal=causal)
+        (out * w[:, :, h:h + RING_HEAD_CHUNK]).sum().backward()
+        outs.append(out.detach())
+        for index, leaf in enumerate(leaves):
+            grads[index].append(leaf.grad)
+        del out, leaves
+    return (torch.cat(outs, 2), torch.cat(scales, 2), *(torch.cat(g, 2) for g in grads))
+
+
+def ring_check(torch, context, backend: str, scratch: str, check) -> int:
+    """RING_SP spawned ranks run the ring over ``backend``; each case's assembled output is
+    held to plain fp32 attention and to the whole-sequence flash kernel, its gradients (the
+    einsum ring in bf16) to plain fp32 attention's, and the planted faults must fail.
+    Returns the launches of the ranks' counted calls."""
+    import threading
+
+    from hivemind_tpu_torch.ops.flash_attention import flash_attention_lse
+
+    children, timer, launches = [], None, 0
+    try:
+        port = free_port()
+        children.extend(MeshChild(context, f"ring rank {rank} ({backend})", ring_rank_main, rank, port, scratch, backend)
+                        for rank in range(RING_SP))
+        timer = threading.Timer(RING_KILL_LIMIT_S, lambda: [child.kill() for child in children])
+        timer.daemon = True
+        timer.start()
+        started = time.perf_counter()
+        ready = [child.receive(RING_STARTUP_LIMIT_S) for child in children]
+        staged = all(r[2] for r in ready)
+        log(f"[ring] {backend}: {RING_SP} ranks up in {time.perf_counter() - started:.1f} s on "
+            f"{sorted({r[1] for r in ready})}, blocks staged through pinned host buffers: {staged}")
+        check(staged == (backend == "gloo"), f"[ring] {backend}: host staging {staged}")
+        readings = [child.receive(RING_KILL_LIMIT_S)[1] for child in children]
+        for child in children:
+            child.conn.send(("stop",))
+        for case, (shape, causal) in enumerate(RING_CASES):
+            per_rank = [reading[case] for reading in readings]
+            shards = [torch.load(os.path.join(scratch, f"ring{backend}{case}_{rank}.pt")) for rank in range(RING_SP)]
+            out = torch.cat([s["out"] for s in shards], 1).to("cuda")
+            q, k, v, w = ring_inputs(torch, shape, case)
+            ref, scale, *ref_grads = ring_references(torch, q, k, v, w, causal)
+            whole, _ = flash_attention_lse(q, k, v, causal)
+            kernel_ms = time_ms(torch, lambda: flash_attention_lse(q, k, v, causal))
+            vs_plain = error_reading(out, ref, scale, RING_TOL, MANTISSA_BITS["bfloat16"])
+            vs_kernel = error_reading(out, whole, scale, RING_FLASH_TOL, MANTISSA_BITS["bfloat16"])
+            grad_errors = []
+            for index, ref_grad in enumerate(ref_grads):
+                got = torch.cat([s["grads"][index] for s in shards], 1).to("cuda").float()
+                grad_errors.append(float((got - ref_grad).norm() / ref_grad.norm()))
+            fault_readings = {}
+            for fault in shards[0]["faults"]:
+                faulty = torch.cat([s["faults"][fault] for s in shards], 1).to("cuda")
+                fault_readings[fault] = error_reading(faulty, ref, scale, RING_TOL, MANTISSA_BITS["bfloat16"])
+            wall = float(np.median([max(r["walls"][i] for r in per_rank) for i in range(RING_TIMED_RUNS)]))
+            case_launches = [r["launches"] for r in per_rank]
+            launches += sum(case_launches)
+            label = f"[ring] {backend}: {list(shape)} bf16 {'causal' if causal else 'full'}, sp={RING_SP}"
+            route = "blocks cross gloo through the host" if backend == "gloo" else "nccl between the cards"
+            log(f"{label}: vs plain fp32 {format_reading(vs_plain)}; vs the whole-sequence kernel "
+                f"{format_reading(vs_kernel)}; gradients (einsum ring) error norm / norm dq {grad_errors[0]:.3e} dk "
+                f"{grad_errors[1]:.3e} dv {grad_errors[2]:.3e} (limit {RING_GRAD_REL_L2:.3e}); flash_attention_lse "
+                f"launches per rank {case_launches}; ring forward wall {wall * 1e3:.3f} ms (host clock, the slowest rank, "
+                f"median of {RING_TIMED_RUNS}; {route}) vs the whole-sequence kernel alone {kernel_ms:.4f} ms (CUDA "
+                f"events); peak memory a rank {max(r['peak'] for r in per_rank) / 2**30:.2f} GiB")
+            for fault, reading in fault_readings.items():
+                log(f"{label}: planted fault '{fault}': {format_reading(reading)} -> "
+                    f"{'rejected' if not reading['ok'] else 'NOT rejected'}")
+                check(not reading["ok"], f"{label}: the check passed '{fault}'")
+            check(vs_plain["ok"] and vs_kernel["ok"], f"{label}: the ring's output is off")
+            check(max(grad_errors) <= RING_GRAD_REL_L2, f"{label}: gradients off by {grad_errors}")
+            check(all(n == RING_SP for n in case_launches), f"{label}: launches {case_launches}, expected {RING_SP}")
+            check(len(fault_readings) == (2 if causal else 1), f"{label}: faults planted {list(fault_readings)}")
+            del out, q, k, v, w, ref, scale, ref_grads, whole
+            torch.cuda.empty_cache()
+        for child in children:
+            child.process.join(30)
+    finally:
+        if timer is not None:
+            timer.cancel()
+        for child in children:
+            child.kill()
+    return launches
+
+
+def phase_ring(torch) -> dict:
+    """Ring attention over a mesh's sequence axis (``ring_flash_attention``): RING_SP ranks
+    sharing the card over gloo, and, on a machine with RING_SP cards, RING_SP ranks with a
+    card each over nccl (``ring_check``); then a one-rank nccl mesh. Returns the path's
+    launches (summed over the ranks)."""
+    import multiprocessing
+
+    torch.cuda.empty_cache()
+    context = multiprocessing.get_context("spawn")
+    scratch = tempfile.TemporaryDirectory(prefix="ring_")
+    faults, launches = [], 0
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            faults.append(what)
+
+    try:
+        backends = ("gloo", "nccl") if torch.cuda.device_count() >= RING_SP else ("gloo",)
+        if len(backends) == 1:
+            log(f"[ring] {torch.cuda.device_count()} card: the ranks share it over gloo (nccl needs a card per rank)")
+        for backend in backends:
+            launches += ring_check(torch, context, backend, scratch.name, check)
+        nccl = MeshChild(context, "the nccl rank", ring_nccl_main, free_port())
+        try:
+            _, reading = nccl.receive(RING_STARTUP_LIMIT_S)
+            nccl.process.join(30)
+        finally:
+            nccl.kill()
+        log(f"[ring] a one-rank nccl mesh on {reading['device']} ({reading['backend']}): an all_reduce of a card "
+            f"tensor {'ok' if reading['sum_ok'] else 'WRONG'}; ring_flash_attention at sp=1 equals the flash "
+            f"kernel: {reading['equal']}, {reading['launches']} launch")
+        check(reading["backend"] == "nccl" and reading["sum_ok"] and reading["equal"] and reading["launches"] == 1,
+              f"[ring] the nccl mesh: {reading}")
+    finally:
+        scratch.cleanup()
+    if faults:
+        raise AssertionError("; ".join(faults))
+    return {"flash_attention_forward": launches, "flash_attention_backward_dq": 0, "flash_attention_backward_dkv": 0,
+            "blockwise_int8_quantize": 0, "blockwise_int8_dequantize": 0}
+
+
+# ---------------------------------------------------------------- [slice]: a mesh as one swarm peer
+# One SliceOptimizer slice of SLICE_SHAPE ranks (dp 2 x sp 2) on the one card over gloo, and
+# one port Optimizer peer, train ALBERT-base with [collab]'s recipe (LAMB with warmup,
+# target 4096 samples an epoch, the fp16 gradient wire and the fp32 state wire) in one
+# swarm. The slice's step is a global microbatch of TRAIN_BATCH x TRAIN_SEQ, each rank
+# taking its [dp, sp] block (batch 16 x seq 256), ring attention over sp.
+SLICE_SHAPE = (2, 1, 2)
+SLICE_RANKS = SLICE_SHAPE[0] * SLICE_SHAPE[1] * SLICE_SHAPE[2]
+SLICE_RUN_ID = "albert_slice"
+SLICE_EPOCHS = 2  # transitions 0 and 1, both held to large-batch training
+SLICE_PEER = 1  # the port Optimizer peer's index (the slice is peer 0 of the reference)
+SLICE_INIT_SEED = SEED + 11
+SLICE_STARTUP_LIMIT_S = 150.0
+SLICE_EPOCH_LIMIT_S = 150.0
+SLICE_KILL_LIMIT_S = 600.0  # a timer kills every process past this
+
+
+def slice_rank_main(conn, rank: int, port: int, initial_peers: list, scratch: str) -> None:
+    """One rank of ``[slice]``: a SLICE_SHAPE gloo mesh on the card, ALBERT-base on it and
+    a SliceOptimizer (rank 0 builds the DHT peer). Commands: ``check`` (the mesh's loss
+    and summed gradients of batch 0 from the initial weights, saved by rank 0), ``train``
+    (global batches until the given epoch), ``save`` (rank 0 writes the state view;
+    every rank returns its view's digest), ``regrad`` (the sum of the mesh gradients of
+    the given batches from the view saved at an epoch, outside the optimizer, saved by
+    rank 0) and ``stop``."""
+    import hashlib
+    import traceback
+
+    try:
+        import torch
+
+        from hivemind_tpu_torch.compression import NoCompression
+        from hivemind_tpu_torch.dht import DHT
+        from hivemind_tpu_torch.models import AlbertConfig, AlbertForMaskedLM, make_mlm_loss_fn, make_synthetic_mlm_batch
+        from hivemind_tpu_torch.models.albert import reduce_gradients
+        from hivemind_tpu_torch.moe.server.layers import lamb_with_warmup
+        from hivemind_tpu_torch.ops import flash_attention
+        from hivemind_tpu_torch.optim import SliceOptimizer
+        from hivemind_tpu_torch.parallel import MeshTensorBridge, make_mesh, params_shardings, shard_batch
+        from hivemind_tpu_torch.parallel import shard_state_dict
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        kernels = {"flash_attention_forward": flash_attention.flash_attention_lse,
+                   "flash_attention_backward_dq": flash_attention.flash_attention_backward_dq,
+                   "flash_attention_backward_dkv": flash_attention.flash_attention_backward_dkv}
+        mesh = make_mesh(*SLICE_SHAPE, backend="gloo", device="cuda", init_method=f"tcp://localhost:{port}",
+                         rank=rank, world_size=SLICE_RANKS)
+        config = AlbertConfig.base(max_position=TRAIN_SEQ, mesh=mesh)
+        model = AlbertForMaskedLM(config, device="cuda")
+        model.reset_parameters(torch.Generator(device="cuda").manual_seed(SLICE_INIT_SEED))
+        loss_fn = make_mlm_loss_fn(model, TRAIN_MASKED_FRACTION)
+        bridge = MeshTensorBridge(mesh)
+        layout = collab_layout(AlbertForMaskedLM(AlbertConfig.base(max_position=TRAIN_SEQ), device="meta"))
+        opt = SliceOptimizer(mesh=mesh, params=model.named_parameters(), optimizer=lamb_with_warmup(*COLLAB_LAMB),
+                             dht_factory=lambda: DHT(initial_peers=initial_peers, start=True), run_id=SLICE_RUN_ID,
+                             target_batch_size=COLLAB_TARGET, batch_size_per_step=TRAIN_BATCH,
+                             matchmaking_time=COLLAB_MATCHMAKING_S, average_state_every=1, min_group_size=2,
+                             state_averaging_compression=NoCompression())
+
+        def batch_of(k: int):
+            generator = torch.Generator(device="cuda").manual_seed(collab_batch_seed(0, k))
+            return shard_batch(make_synthetic_mlm_batch(generator, config, TRAIN_BATCH, TRAIN_SEQ), mesh)
+
+        def summed_gradients(names_batches):
+            """Sum over ``(k, size)`` of size x the mesh gradient of batch k, over dp and sp."""
+            sums = {name: torch.zeros_like(p) for name, p in model.named_parameters()}
+            for k, size in names_batches:
+                model.zero_grad(set_to_none=True)
+                loss = loss_fn(batch_of(k))
+                loss.backward()
+                for name, p in model.named_parameters():
+                    sums[name] += p.grad * size
+            model.zero_grad(set_to_none=True)
+            flat = torch.cat([s.reshape(-1) for s in sums.values()])
+            mesh.all_reduce(flat, ("dp", "sp"))
+            return flat, loss
+
+        conn.send(("ready", str(mesh.device), opt.dht.peer_id.to_base58() if opt.dht is not None else None))
+        k = steps = 0
+        while True:
+            command, *args = conn.recv()
+            if command == "check":
+                model.zero_grad(set_to_none=True)
+                loss = loss_fn(batch_of(0))
+                loss.backward()
+                reduce_gradients(model, mesh)
+                named = dict(model.named_parameters())
+                grads = bridge.gather_to_host([p.grad for p in named.values()], list(params_shardings(named, mesh).values()))
+                if grads is not None:
+                    transposed = dict(zip(named, (s.transposed for s in params_shardings(named, mesh).values())))
+                    torch.save({name: torch.from_numpy(g.T.copy() if transposed[name] else g)
+                                for name, g in zip(named, grads)}, os.path.join(scratch, "slice_check.pt"))
+                model.zero_grad(set_to_none=True)
+                conn.send(("checked", loss.item()))
+            elif command == "train":
+                (until,) = args
+                if steps == 0:  # the path starts here: every count at 0
+                    for wrapper in kernels.values():
+                        wrapper.launches = 0
+                    torch.cuda.reset_peak_memory_stats()
+                batches, compute, accumulate, transition, peers, samples = [], 0.0, 0.0, 0.0, [], []
+                started = time.perf_counter()
+                while opt.local_epoch < until:
+                    k += 1
+                    epoch = opt.local_epoch
+                    begun = time.perf_counter()
+                    loss = loss_fn(batch_of(k))
+                    loss.backward()
+                    torch.cuda.synchronize()
+                    computed = time.perf_counter()
+                    pending = opt._samples + TRAIN_BATCH
+                    opt.step(batch_size=TRAIN_BATCH)
+                    opt.zero_grad()
+                    stepped = time.perf_counter()
+                    compute += computed - begun
+                    if opt.local_epoch != epoch:
+                        transition += stepped - computed
+                        samples.append(pending)
+                        if opt.tracker is not None:
+                            peers.append(opt.tracker.global_progress.num_peers)
+                    else:
+                        accumulate += stepped - computed
+                    batches.append((k, TRAIN_BATCH, epoch))
+                    steps += 1
+                conn.send(("trained", dict(
+                    epoch=opt.local_epoch, batches=batches, wall=time.perf_counter() - started, compute=compute,
+                    accumulate=accumulate, transition=transition, peers=peers, samples=samples,
+                    failed=opt.consecutive_failed_averaging_rounds, steps=steps,
+                    launches={name: wrapper.launches for name, wrapper in kernels.items()},
+                    peak=torch.cuda.max_memory_allocated())))
+            elif command == "save":
+                (epoch,) = args
+                view = np.concatenate([t.reshape(-1) for t in opt.state_dict()["tensors"]])
+                if rank == 0:
+                    np.save(os.path.join(scratch, f"peer0_e{epoch}.npy"), view)
+                conn.send(("saved", hashlib.blake2b(view.tobytes(), digest_size=16).hexdigest()))
+            elif command == "regrad":
+                transition, epoch_batches = args
+                if transition == 0:
+                    model.reset_parameters(torch.Generator(device="cuda").manual_seed(SLICE_INIT_SEED))
+                else:
+                    params = collab_split(torch, np.load(os.path.join(scratch, f"peer0_e{transition}.npy")), layout)[0]
+                    model.load_state_dict(shard_state_dict(params, mesh))
+                flat, _ = summed_gradients([(kk, size) for kk, size, _ in epoch_batches])
+                if rank == 0:
+                    sums, offset = {}, 0
+                    for name, p in model.named_parameters():
+                        sums[name] = flat[offset:offset + p.numel()].view_as(p).cpu()
+                        offset += p.numel()
+                    torch.save(sums, os.path.join(scratch, f"slice_sums_{transition}.pt"))
+                conn.send(("regraded",))
+            elif command == "stop":
+                opt.shutdown()
+                conn.send(("stopped",))
+                conn.recv()  # leave the process group together
+                torch.distributed.destroy_process_group()
+                return
+    except BaseException:
+        conn.send(("error", traceback.format_exc()))
+        raise
+
+
+def phase_slice(torch, wrappers: dict, telemetry: Telemetry) -> dict:
+    """A mesh as one swarm peer (the slice tier): this process is the bootstrap DHT peer;
+    a SliceOptimizer slice of SLICE_RANKS spawned ranks and one spawned port Optimizer
+    peer train ALBERT-base through one swarm with [collab]'s recipe. Checks, in order:
+    the mesh's loss and gradients of one batch against a single-rank step of the same
+    weights and batch ([train]'s limits); after SLICE_EPOCHS transitions, [collab]'s
+    large-batch equivalence of both peers (the slice's gradient sums recomputed through
+    the mesh outside the optimizer, a planted fault must fail), the peers' agreement,
+    the ranks identical bit for bit, and the slice counted as one peer with its global
+    microbatch as its samples. Returns the path's launches (the ranks' and the peer's)."""
+    import multiprocessing
+    import threading
+
+    from hivemind_tpu_torch.dht import DHT
+    from hivemind_tpu_torch.models import AlbertConfig, AlbertForMaskedLM, make_mlm_loss_fn, make_synthetic_mlm_batch
+
+    phase_started = time.perf_counter()
+    torch.cuda.empty_cache()
+    context = multiprocessing.get_context("spawn")
+    scratch = tempfile.TemporaryDirectory(prefix="slice_")
+    ranks, peer, dhts, faults, timer = [], None, [], [], None
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            faults.append(what)
+
+    def everyone():
+        return ranks + ([peer] if peer is not None else [])
+
+    log(f"[slice] host {host_line()}; a SliceOptimizer slice of {SLICE_RANKS} ranks (dp {SLICE_SHAPE[0]} x sp "
+        f"{SLICE_SHAPE[2]}, gloo, all on the one card: collectives through the host) + 1 port Optimizer peer; "
+        f"[collab]'s recipe: ALBERT-base, global microbatch {TRAIN_BATCH} x {TRAIN_SEQ}, lamb_with_warmup{COLLAB_LAMB}, "
+        f"target {COLLAB_TARGET}, fp16 gradient wire, fp32 state wire")
+    readings, extras = {}, {}  # by epoch: each peer's reading; the ranks' readings, wall and tokens
+    try:
+        bootstrap = DHT(start=True)
+        dhts.append(bootstrap)
+        initial_peers = [str(maddr) for maddr in bootstrap.get_visible_maddrs()]
+        port = free_port()
+        started = time.perf_counter()
+        ranks.extend(MeshChild(context, f"slice rank {rank}", slice_rank_main, rank, port, initial_peers, scratch.name)
+                     for rank in range(SLICE_RANKS))
+        peer = CollabChild(context, SLICE_PEER, initial_peers, scratch.name,
+                           dict(run_id=SLICE_RUN_ID, min_group_size=2, init_seed=SLICE_INIT_SEED))
+        timer = threading.Timer(SLICE_KILL_LIMIT_S, lambda: [child.kill() for child in everyone()])
+        timer.daemon = True
+        timer.start()
+        for child in everyone():
+            child.receive(SLICE_STARTUP_LIMIT_S - (time.perf_counter() - started))
+        log(f"[slice] {SLICE_RANKS} ranks and the peer up in {time.perf_counter() - started:.1f} s")
+
+        # the mesh step against a single-rank step of the same weights and batch
+        for child in ranks:
+            child.conn.send(("check",))
+        mesh_losses = [child.receive(120)[1] for child in ranks]
+        config = AlbertConfig.base(max_position=TRAIN_SEQ)
+        model = AlbertForMaskedLM(config, device="cuda")
+        model.reset_parameters(torch.Generator(device="cuda").manual_seed(SLICE_INIT_SEED))
+        generator = torch.Generator(device="cuda").manual_seed(collab_batch_seed(0, 0))
+        loss, grads = loss_and_grads(model, make_mlm_loss_fn(model, TRAIN_MASKED_FRACTION),
+                                     make_synthetic_mlm_batch(generator, config, TRAIN_BATCH, TRAIN_SEQ))
+        mesh_grads = torch.load(os.path.join(scratch.name, "slice_check.pt"))
+        del model
+        gap = max(abs(m - loss) for m in mesh_losses) / abs(loss)
+        log(f"[slice] one mesh step vs a single-rank step of the same weights and batch: loss {mesh_losses[0]:.6f} vs "
+            f"{loss:.6f} (gap {gap:.3e}, limit {TRAIN_LOSS_RTOL}; the 4 ranks' losses {len(set(mesh_losses))} distinct)")
+        check(gap <= TRAIN_LOSS_RTOL, f"[slice] the mesh loss is off by {gap:.3e}")
+        try:
+            compare_grads(torch, mesh_grads, grads, TRAIN_GRAD_REL_L2, "mesh vs single rank", phase="slice")
+        except AssertionError as e:
+            check(False, f"[slice] {e}")
+
+        def train(epoch: int) -> None:
+            begun = time.perf_counter()
+            for child in everyone():
+                child.conn.send(("train", epoch + 1))
+            readings[epoch] = {0: ranks[0].receive(SLICE_EPOCH_LIMIT_S)[1]}
+            others = [child.receive(SLICE_EPOCH_LIMIT_S)[1] for child in ranks[1:]]
+            readings[epoch][SLICE_PEER] = peer.receive(SLICE_EPOCH_LIMIT_S)[1]
+            wall = time.perf_counter() - begun
+            digests = [child.ask(("save", epoch + 1), timeout=60)[1] for child in ranks]
+            peer.ask(("save", epoch + 1), timeout=60)
+            slice_reading, peer_reading = readings[epoch][0], readings[epoch][SLICE_PEER]
+            tokens = sum(size * TRAIN_SEQ for r in readings[epoch].values() for _, size, _ in r["batches"])
+            extras[epoch] = dict(ranks=[slice_reading, *others], wall=wall, tokens=tokens)
+            log(f"[slice] epoch {epoch} -> {epoch + 1}: wall {wall:.3f} s, {tokens // TRAIN_SEQ} samples (the slice "
+                f"{len(slice_reading['batches'])} global microbatches, the peer {len(peer_reading['batches'])} batches); "
+                f"the slice: compute {slice_reading['compute']:.3f} s, accumulate {slice_reading['accumulate']:.3f} s, "
+                f"transition {slice_reading['transition']:.3f} s, samples at the transition {slice_reading['samples']}, "
+                f"peers seen {slice_reading['peers']}; the peer: compute {peer_reading['compute']:.3f} s, waiting "
+                f"{peer_reading['waiting']:.3f} s, gradient all-reduce {peer_reading['grad_allreduce']:.3f} s, state "
+                f"round {peer_reading['state_round']:.3f} s, group sizes {peer_reading['group_sizes']}; "
+                f"{tokens / wall:.0f} tokens/s/chip")
+            check(len(set(digests)) == 1, f"epoch {epoch}: the slice's ranks differ: {digests}")
+            check(all(r["epoch"] == epoch + 1 for r in [slice_reading, *others, peer_reading]),
+                  f"epoch {epoch}: epochs {[r['epoch'] for r in [slice_reading, *others, peer_reading]]}")
+            check(all(r["batches"] == slice_reading["batches"] for r in others), f"epoch {epoch}: ranks stepped apart")
+            check(slice_reading["peers"] == [2], f"epoch {epoch}: the slice saw {slice_reading['peers']} peers")
+            check(peer_reading["group_sizes"][:1] == [2], f"epoch {epoch}: the gradient round had "
+                                                          f"{peer_reading['group_sizes']} peers")
+            check(slice_reading["samples"] == [TRAIN_BATCH * len(slice_reading["batches"])],
+                  f"epoch {epoch}: the slice counted {slice_reading['samples']} samples for "
+                  f"{len(slice_reading['batches'])} global microbatches")
+            check(slice_reading["failed"] == 0 and peer_reading["failed"] == 0,
+                  f"epoch {epoch}: a peer fell back to local gradients")
+            log(f"[slice] epoch {epoch}: the {SLICE_RANKS} ranks' state views identical (blake2b {digests[0]}); peak "
+                f"memory a rank {[round(r['peak'] / 2**30, 2) for r in [slice_reading, *others]]} GiB, the peer "
+                f"{peer_reading['peak'] / 2**30:.2f} GiB")
+
+        for epoch in range(SLICE_EPOCHS):
+            train(epoch)
+        last = readings[SLICE_EPOCHS - 1]
+        rank_launches = [r["launches"] for r in extras[SLICE_EPOCHS - 1]["ranks"]]
+        peer_launches = last[SLICE_PEER]["launches"]
+        log(f"[slice] flash launches of each rank {json.dumps(rank_launches)} in {last[0]['steps']} steps (ring "
+            f"attention: {SLICE_SHAPE[2]} forward launches an application, the backward through the einsum ring); the "
+            f"peer {json.dumps(peer_launches)} in {last[SLICE_PEER]['steps']} steps")
+        check(all(r["flash_attention_forward"] == 12 * SLICE_SHAPE[2] * last[0]["steps"] for r in rank_launches),
+              f"[slice] the ranks launched {rank_launches} in {last[0]['steps']} steps")
+        tokens = sum(extras[e]["tokens"] for e in range(1, SLICE_EPOCHS))
+        walls = sum(extras[e]["wall"] for e in range(1, SLICE_EPOCHS))
+        log(f"[slice] ALBERT-base tokens/s/chip over epoch 1 (the slice and the peer): {tokens / walls:.0f}; "
+            f"[collab] in this run: {telemetry.readings.get('collab', {}).get('tokens_per_s', float('nan')):.0f}; "
+            f"[train]'s solo step: {telemetry.readings.get('train', {}).get('tokens_per_s', float('nan')):.0f}")
+
+        # large-batch equivalence: the slice's gradient sums recomputed through the mesh
+        layout = collab_layout(AlbertForMaskedLM(AlbertConfig.base(max_position=TRAIN_SEQ), device="meta"))
+        for transition in range(SLICE_EPOCHS):
+            batches = readings[transition][0]["batches"]
+            for child in ranks:
+                child.conn.send(("regrad", transition, batches))
+            for child in ranks:
+                child.receive(300)
+            sums = {name: t.to("cuda") for name, t in torch.load(os.path.join(scratch.name, f"slice_sums_{transition}.pt")).items()}
+            held = collab_hold(torch, transition, readings, scratch.name, layout, init_seed=SLICE_INIT_SEED,
+                               precomputed={0: (sums, sum(size for _, size, _ in batches))}, fault_peer=0)
+            median_step, above, leaves = held["step_over_limit"]
+            log(f"[slice] transition {transition}: {held['samples']} samples, worst error / limit: parameters "
+                f"{held['params']:.4f}, mu {held['mu']:.4f}, nu {held['nu']:.4f} (both peers); a whole step spans "
+                f"{median_step:.2f} limits (median leaf); planted faults, each x the limit: "
+                + "; ".join(f"{label} {ratio:.1f} ({'rejected' if ratio > 1 else 'NOT rejected'})"
+                            for label, ratio in held["faults"].items()))
+            check(max(held["params"], held["mu"], held["nu"]) <= 1.0, f"[slice] transition {transition}: {held}")
+            check(all(ratio > 1.0 for ratio in held["faults"].values()),
+                  f"[slice] transition {transition}: the check passed a planted fault: {held['faults']}")
+            check(transition == 0 or len(held["faults"]) == 1 + len(COLLAB_STEP_FAULTS),
+                  f"[slice] transition {transition}: the step faults were not planted")
+        for epoch in range(1, SLICE_EPOCHS + 1):
+            worst = collab_agreement(torch, epoch, [0, SLICE_PEER], scratch.name, layout)
+            log(f"[slice] after epoch {epoch - 1}: the slice and the peer agree within {worst:.4f} of twice the state "
+                f"round's limit")
+            check(worst <= 1.0, f"[slice] epoch {epoch}: the slice and the peer differ by {worst:.3f} x the limit")
+        launches = {name: sum(r.get(name, 0) for r in rank_launches) + peer_launches.get(name, 0) for name in wrappers}
+    finally:
+        if timer is not None:
+            timer.cancel()
+        for child in everyone():
+            if child.process.is_alive():
+                with contextlib.suppress(Exception):
+                    child.conn.send(("stop",))
+        for child in everyone():
+            with contextlib.suppress(Exception):
+                child.receive(30)
+        for child in ranks:
+            with contextlib.suppress(Exception):
+                child.conn.send(("exit",))
+        for child in everyone():
+            child.process.join(10)
+            child.kill()
+        for dht in reversed(dhts):
+            dht.shutdown()
+        scratch.cleanup()
+    log(f"[slice] phase wall {time.perf_counter() - phase_started:.1f} s")
     if faults:
         raise AssertionError("; ".join(faults))
     return launches
@@ -3892,6 +4550,8 @@ def main() -> int:
                   "blockwise_int8_dequantize"),
         "dmoe": ("blockwise_int8_quantize", "blockwise_int8_dequantize"),
         "collab": ("flash_attention_forward", "flash_attention_backward_dq", "flash_attention_backward_dkv"),
+        "ring": ("flash_attention_forward",),
+        "slice": ("flash_attention_forward", "flash_attention_backward_dq", "flash_attention_backward_dkv"),
     }
 
     line = card_line()
@@ -3938,6 +4598,9 @@ def main() -> int:
         path_launches["train"] = run("train", phase_train, torch, peaks, wrappers, telemetry)
         # after [train], whose solo step it reads beside its own: the swarm of peer processes
         path_launches["collab"] = run("collab", phase_collab, torch, wrappers, telemetry)
+        # the mesh tier: ranks that share the card over gloo
+        path_launches["ring"] = run("ring", phase_ring, torch)
+        path_launches["slice"] = run("slice", phase_slice, torch, wrappers, telemetry)
     finally:
         checkpoint.cleanup()
         exporter.shutdown()

@@ -22,7 +22,7 @@ and merged batch sizes to powers of two, padding with dummy rows, only to bound
 its jit cache. Eager PyTorch keeps no compile cache, so every call runs at its
 own size; the outputs of real rows are the same (prefill is causal). There is
 no ``tracked_jit`` (no jit), and ``shard_decode_cache`` comes with the
-multi-GPU slice.
+serving mesh.
 
 Telemetry, under the JAX package's metric names: the live-session and occupancy
 gauges, evictions by reason (``ttl``/``cap``), resets, steps by path

@@ -59,7 +59,11 @@ for name in ("hivemind_tpu_torch.moe.server.decode_session", "hivemind_tpu_torch
              "hivemind_tpu_torch.averaging", "hivemind_tpu_torch.averaging.averager",
              "hivemind_tpu_torch.averaging.load_balancing", "hivemind_tpu_torch.proto.averaging_pb2",
              "hivemind_tpu_torch.optim", "hivemind_tpu_torch.optim.optimizer", "hivemind_tpu_torch.dht.schema",
-             "hivemind_tpu_torch.moe.server.layers.optim", "hivemind_tpu_torch.examples.albert.run_trainer"):
+             "hivemind_tpu_torch.moe.server.layers.optim", "hivemind_tpu_torch.examples.albert.run_trainer",
+             "hivemind_tpu_torch.parallel", "hivemind_tpu_torch.parallel.mesh", "hivemind_tpu_torch.parallel.ici",
+             "hivemind_tpu_torch.averaging.ici", "hivemind_tpu_torch.averaging.slice",
+             "hivemind_tpu_torch.optim.slice_optimizer", "hivemind_tpu_torch.examples.slice_training",
+             "hivemind_tpu_torch.examples.slice_collaborative_training"):
     assert name in sys.modules, name
 assert not leaked(), leaked()
 
@@ -72,6 +76,7 @@ from hivemind_tpu_torch.moe.server.server import Server
 from hivemind_tpu_torch.moe.client.moe import RemoteMixtureOfExperts
 from hivemind_tpu_torch.dht import DHT
 from hivemind_tpu_torch.examples.albert import run_trainer
+from hivemind_tpu_torch.parallel import make_mesh
 refused = 0
 for entry_point in (
     lambda: ModuleBackend("nop", NopExpert(4), sample_input=np.zeros((1, 4), np.float32)),
@@ -81,13 +86,14 @@ for entry_point in (
     lambda: Server.create(expert_uids=["nop.0"], expert_cls="nop", hidden_dim=4),
     lambda: RemoteMixtureOfExperts(dht=DHT(), in_features=4, grid_size=(2,), uid_prefix="nop."),
     lambda: run_trainer.main(["--tiny", "--max_steps", "0"]),
+    lambda: make_mesh(2, backend="gloo"),
 ):
     try:
         entry_point()
     except RuntimeError as e:
         assert "no CUDA device" in str(e), e
         refused += 1
-assert refused == 7, refused
+assert refused == 8, refused
 backend = ModuleBackend("nop", NopExpert(4), sample_input=np.zeros((1, 4), np.float32), device="cpu")
 assert backend.forward(np.ones((2, 4), np.float32))[0].tolist() == [[1.0] * 4] * 2
 assert backend.backward(np.ones((2, 4), np.float32), np.ones((2, 4), np.float32))[0].tolist() == [[1.0] * 4] * 2
