@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke test of hivemind_tpu_torch: builds the port's Hopper kernels,
 holds each against its plain PyTorch version at the shapes of the paths that run
-it, then drives eleven paths and checks each against the CPU, the local path or
+it, then drives thirteen paths and checks each against the CPU, the local path or
 the exact result:
 - serving: two Llama-2-7B-width blocks (fp and int8 weight-only) through
   load_llama_blocks → ModuleBackend → TaskPool/Runtime, and an expert of
@@ -37,7 +37,13 @@ the exact result:
   kernel, forward and gradients; and a one-rank nccl mesh;
 - slice: a mesh of four ranks (dp 2 x sp 2) as one swarm peer through SliceOptimizer,
   with a collaborative Optimizer peer, ALBERT-base with [collab]'s recipe, held to a
-  single-rank step and to large-batch training.
+  single-rank step and to large-batch training;
+- mesh_serving: the same blocks tensor-parallel over a serving mesh of 4 shards
+  (MeshModuleBackend: one shard a card on a host of 4 cards, else all on one card), fp32
+  and int8: prefill and merged greedy decode of 8 sessions against the single-device
+  blocks, each card's memory against its shards, and the window dequantize kernel;
+- cli: the entry points as a user runs them, run_dht and run_server --mesh_devices
+  <every card> as child processes, and a RemoteSequential client generating through them.
 Telemetry rides the serving and decode runs, as a server would arm it (the event-loop
 watchdog, the device memory sampler, a ``/metrics`` exporter; over the wire the
 connection handler opens a ``serving.request`` span around each request): ``[telemetry]``
@@ -47,6 +53,11 @@ decode step goes.
 Run from the repository root on a machine with one NVIDIA card:
 
     python3 chip_smoke.py
+
+``--only mesh_serving,cli`` runs those phases alone (after [build] and [checkpoint]),
+e.g. on a host of four cards, where the mesh puts one shard on each. Such a partial
+run checks and logs as a whole run does, but prints neither the kernels line nor
+the ok line: it never reads as a whole run.
 
 It exits non-zero, printing no result, when CUDA is unavailable, when the package
 is not beside it, or when any phase fails (every phase runs; the failures are
@@ -2246,7 +2257,7 @@ def phase_swarm(torch, checkpoint_dir: str, wrappers: dict, telemetry: Telemetry
         for dht in reversed(dhts):
             dht.shutdown()
 
-    launches = {name: sum(child.last_report["counts"][name] for child in children if child.last_report)
+    launches = {name: sum(child.last_report["counts"].get(name, 0) for child in children if child.last_report)
                 for name in wrappers}
     log(f"[swarm] launches summed over the server processes (the killed one's read just before its kill): "
         f"{json.dumps(launches)}")
@@ -2801,7 +2812,7 @@ def phase_dmoe(torch, wrappers: dict, telemetry: Telemetry) -> dict:
         reset_all_boards()  # C's open breakers belong to this phase
         shutil.rmtree(checkpoint_dir, ignore_errors=True)
 
-    launches = {name: sum(child.last_report["counts"][name] for child in children.values() if child.last_report)
+    launches = {name: sum(child.last_report["counts"].get(name, 0) for child in children.values() if child.last_report)
                 for name in wrappers}
     log(f"[dmoe] launches summed over the server processes (C's read just before its kill): {json.dumps(launches)}")
     elapsed = time.perf_counter() - phase_started
@@ -4371,6 +4382,376 @@ def phase_slice(torch, wrappers: dict, telemetry: Telemetry) -> dict:
     return launches
 
 
+# ------------------------------------------------------------------ [mesh_serving] and [cli]: the serving mesh
+
+# [mesh_serving]: each Llama-2-7B-width block tensor-parallel over MESH_TP shards (8 heads and
+# an ffn width of 2752 a shard): one shard a card where the host has MESH_TP cards, else all
+# of them on card 0, one after another; fp32 and int8, against the single-device blocks
+MESH_TP = 4
+MESH_PREFILL = 2048
+MESH_PREFILL_RUNS = 3
+MESH_MAX_LEN = 256
+MESH_NEW = 32  # tokens each session generates greedily, the sessions stepping merged
+MESH_WINDOW = (4096, 11008, 1)  # the window kernel's shape: shard 1 of MESH_TP of an ffn_gate / ffn_up code grid
+# the row shards (shard 1 of MESH_TP, flax [in, out]) of ffn_down and attention_out: whole
+# rows of whole blocks, which the blockwise kernel takes as well as the window entry
+MESH_ROW_SHARDS = {"ffn_down": (11008, 4096), "attention_out": (4096, 4096)}
+MESH_PHASE_LIMIT_S = 150.0
+# [cli]: run_dht and run_server --mesh_devices <the host's cards> as child processes, a
+# RemoteSequential client forwarding [1, CLI_FORWARD, 4096] (the flash kernel on every
+# shard) and generating CLI_NEW tokens through them
+CLI_FORWARD, CLI_PROMPT, CLI_NEW = 512, 64, 16
+CLI_STARTUP_LIMIT_S = 90.0
+CLI_PHASE_LIMIT_S = 150.0
+
+
+def window_entry(torch, peaks) -> dict:
+    """The window dequantize (one column shard of a quantized [4096, 11008] weight) held
+    bit for bit to its plain version and to the whole tensor's dequantize, and timed."""
+    from hivemind_tpu_torch.ops.blockwise_int8 import (
+        blockwise_dequantize_window_plain,
+        blockwise_int8_dequantize,
+        blockwise_int8_dequantize_window,
+        blockwise_int8_quantize,
+    )
+
+    rows, out, shard = MESH_WINDOW
+    cols = out // MESH_TP
+    rng = np.random.default_rng(SEED + 21)
+    weight = torch.from_numpy(rng.standard_normal((rows, out), dtype=np.float32) * np.float32(rows ** -0.5)).cuda()
+    codes, absmax = blockwise_int8_quantize(weight.reshape(-1))
+    window = codes.reshape(rows, out)[:, shard * cols : (shard + 1) * cols].contiguous()
+    base = shard * cols
+    got = blockwise_int8_dequantize_window(window, absmax, out, base)
+    plain = blockwise_dequantize_window_plain(window, absmax, out, base)
+    whole = blockwise_int8_dequantize(codes, absmax).reshape(rows, out)[:, base : base + cols]
+    torch.cuda.synchronize()
+    if not (torch.equal(got, plain) and torch.equal(got, whole)):
+        raise AssertionError("window dequantize differs from its plain version or from the whole tensor's")
+    err = (got - plain).abs().max().item()
+    ms = time_ms(torch, lambda: blockwise_int8_dequantize_window(window, absmax, out, base))
+    plain_ms = time_ms(torch, lambda: blockwise_dequantize_window_plain(window, absmax, out, base))
+    n = rows * cols
+    touched = (base + (rows - 1) * out + cols - 1) // 4096 - base // 4096 + 1  # the absmax blocks it reads
+    bound, by = bound_ms(2.0 * n, peaks["fp32"], n + touched * 4 + n * 4, peaks["bytes"])
+    log(f"[mesh_serving] window dequantize [{rows}, {cols}] of [{rows}, {out}] at column {base}: max_err={err} "
+        f"(bit-identical to the plain version and the whole tensor's) ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"bound_ms={bound:.4f} ({by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None)
+
+
+def row_shard_routes(torch, peaks) -> None:
+    """The window entry and the blockwise kernel on the same row shards (whole rows of
+    whole blocks, which ``QuantizedWindow`` sends to the blockwise kernel), held bit for
+    bit to each other, and timed."""
+    from hivemind_tpu_torch.ops.blockwise_int8 import (
+        blockwise_int8_dequantize,
+        blockwise_int8_dequantize_window,
+        blockwise_int8_quantize,
+    )
+
+    shard = MESH_WINDOW[2]
+    rng = np.random.default_rng(SEED + 24)
+    for leaf, (whole_rows, width) in MESH_ROW_SHARDS.items():
+        height = whole_rows // MESH_TP
+        weight = torch.from_numpy(rng.standard_normal((whole_rows, width), dtype=np.float32)).cuda()
+        codes, absmax = blockwise_int8_quantize(weight.reshape(-1))
+        window = codes.reshape(whole_rows, width)[shard * height : (shard + 1) * height].contiguous()
+        base, blocks = shard * height * width, height * width // 4096
+        own_absmax = absmax[base // 4096 : base // 4096 + blocks]
+        routes = {"window entry": lambda: blockwise_int8_dequantize_window(window, absmax, width, base),
+                  "blockwise kernel": lambda: blockwise_int8_dequantize(window.reshape(blocks, 4096), own_absmax)}
+        got = [fn().reshape(height, width) for fn in routes.values()]
+        torch.cuda.synchronize()
+        if not torch.equal(*got):
+            raise AssertionError(f"{leaf}: the window entry and the blockwise kernel differ on a row shard")
+        times = {route: time_ms(torch, fn) for route, fn in routes.items()}
+        n = height * width
+        bound, by = bound_ms(2.0 * n, peaks["fp32"], n * 5 + blocks * 4, peaks["bytes"])
+        log(f"[mesh_serving] row shard {leaf} [{height}, {width}] of [{whole_rows}, {width}] at row {shard * height}: "
+            + ", ".join(f"{route} ms={t:.4f}" for route, t in times.items())
+            + f" (bit-identical); bound_ms={bound:.4f} ({by})")
+
+
+def merged_greedy(manager, uids, head, prompts: dict, new_tokens: int):
+    """Each session prefills its prompt, then all generate ``new_tokens`` greedily, the
+    single-token steps of every session in flight together (``decode_async``, which
+    merges them). Returns (ids per session, prefill seconds, seconds per round)."""
+    hidden, prefill_s, round_s = {}, [], []
+    for sid, prompt in prompts.items():
+        started, x = time.perf_counter(), head.embed(prompt).cpu().numpy()
+        for uid in uids:
+            x = manager.decode(uid, sid, x, True)
+        prefill_s.append(time.perf_counter() - started)
+        hidden[sid] = x
+    ids = {sid: [int(t) for t in prompt[0]] for sid, prompt in prompts.items()}
+
+    async def step(sid):
+        x = head.embed(np.asarray([[ids[sid][-1]]])).cpu().numpy()
+        for uid in uids:
+            x = await manager.decode_async(uid, sid, x, False)
+        hidden[sid] = x
+
+    async def rounds():
+        for index in range(new_tokens):
+            for sid in prompts:
+                ids[sid].append(int(head.logits(hidden[sid][:, -1:]).reshape(-1).argmax().item()))
+            if index + 1 == new_tokens:
+                return  # the last token needs no step
+            started = time.perf_counter()
+            await asyncio.gather(*(step(sid) for sid in prompts))
+            round_s.append(time.perf_counter() - started)
+
+    asyncio.run(rounds())
+    return {sid: np.asarray([tokens]) for sid, tokens in ids.items()}, prefill_s, round_s
+
+
+def profile_by_device(torch, fn, devices) -> tuple:
+    """One warm call under torch.profiler: its host wall (us) and, for each device, its
+    busy time and its three largest kernels or copies (us)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    for device in devices:
+        torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        started = time.perf_counter()
+        fn()
+        for device in devices:
+            torch.cuda.synchronize(device)
+        wall_us = (time.perf_counter() - started) * 1e6
+    by_device = {}
+    for event in prof.events():
+        if event.device_type == DeviceType.CUDA:
+            names = by_device.setdefault(event.device_index, {})
+            names[event.name] = names.get(event.name, 0.0) + event.time_range.elapsed_us()
+    return wall_us, {index: (sum(names.values()), sorted(names.items(), key=lambda item: -item[1])[:3])
+                     for index, names in sorted(by_device.items())}
+
+
+def shard_bytes(shard: dict) -> int:
+    return sum(value.numel() * value.element_size() if hasattr(value, "numel") else value.nbytes
+               for value in shard.values())
+
+
+def phase_mesh_serving(torch, checkpoint_dir: str, wrappers: dict, peaks: dict):
+    from hivemind_tpu_torch.moe.server.decode_session import DecodeSessionManager
+    from hivemind_tpu_torch.moe.server.llama_loader import LlamaClientHead, load_llama_blocks
+    from hivemind_tpu_torch.moe.server.mesh_backend import ServingMesh
+
+    phase_started = time.perf_counter()
+    entry = window_entry(torch, peaks)
+    row_shard_routes(torch, peaks)
+    cards = torch.cuda.device_count()
+    mesh = ServingMesh([f"cuda:{i}" for i in range(MESH_TP)] if cards >= MESH_TP else ["cuda:0"] * MESH_TP)
+    distinct = sorted(set(mesh.devices), key=str)
+    log(f"[mesh_serving] mesh {mesh}, {cards} card(s) on the host")
+    modes = {"fp": None, "int8": "int8"}
+    vocab, hid = LLAMA2_7B["vocab_size"], LLAMA2_7B["hidden_size"]
+    rng = np.random.default_rng(SEED + 22)
+    prefill_ids = rng.integers(0, vocab, size=(1, MESH_PREFILL))
+    prompts = {f"mesh-{i}": rng.integers(0, vocab, size=(1, length)) for i, length in enumerate(DECODE_SESSION_PROMPTS)}
+    head = LlamaClientHead.load(checkpoint_dir, device="cuda")
+    single = {mode: load_llama_blocks(checkpoint_dir, device="cuda", weight_quantization=q, uid_prefix="single.")[0]
+              for mode, q in modes.items()}
+    peers = {f"{a}->{b}": torch.cuda.can_device_access_peer(a, b) for a in distinct for b in distinct if a != b}
+    log(f"[mesh_serving] peer access between the mesh's cards: {peers or 'one card'}")
+    for device in distinct:  # the GEMM library's workspace on each card, made once, before the reading
+        torch.nn.functional.linear(torch.ones(8, 8, dtype=torch.bfloat16, device=device),
+                                   torch.ones(8, 8, dtype=torch.bfloat16, device=device))
+        torch.cuda.synchronize(device)
+    before = {device: torch.cuda.memory_allocated(device) for device in distinct}
+
+    for wrapper in wrappers.values():
+        wrapper.launches = 0  # the main path starts here: loading over the mesh, prefill, merged decode
+    meshed, sizes = {}, {}
+    for mode, q in modes.items():
+        meshed[mode] = load_llama_blocks(checkpoint_dir, mesh=mesh, weight_quantization=q, uid_prefix="mesh.")[0]
+        torch.cuda.synchronize()
+        if mode == "fp":
+            after = {device: torch.cuda.memory_allocated(device) for device in distinct}
+    prefill, generated, timing = {}, {}, {}
+    x = head.embed(prefill_ids).cpu().numpy()
+    for mode in modes:
+        prefill[mode] = forward_chain(meshed[mode], x)
+        manager = DecodeSessionManager(meshed[mode], max_len=MESH_MAX_LEN)
+        sizes[mode] = []
+        batched_step = manager._batched_step  # a recorder: how many sessions each merged call held
+        manager._batched_step = (lambda step, seen: lambda uid, x, *args: seen.append(x.shape[0]) or step(uid, x, *args))(
+            batched_step, sizes[mode])
+        generated[mode], prefill_s, round_s = merged_greedy(manager, list(meshed[mode]), head, prompts, MESH_NEW)
+        timing[mode] = dict(prefill_s=prefill_s, round_s=round_s)
+    torch.cuda.synchronize()
+    launches = {name: wrapper.launches for name, wrapper in wrappers.items()}
+
+    faults = []
+    for device in distinct:  # each card holds its shards of the fp blocks, and nothing whole
+        expected = sum(shard_bytes(shard) for backend in meshed["fp"].values() for shard, at in
+                       zip(backend.params, mesh.devices) if at == device)
+        grown = after[device] - before[device]
+        log(f"[mesh_serving] fp {device}: allocated +{grown} B over the load for {expected} B of shards "
+            f"(param_bytes_per_device {meshed['fp']['mesh.0'].param_bytes_per_device()} B a block, "
+            f"{mesh.devices.count(device)} shard(s) a block here)")
+        if not expected <= grown <= expected * 1.02 + (16 << 20):
+            faults.append(f"{device} grew by {grown} B over the fp load, for {expected} B of shards")
+    for mode in modes:
+        backend = meshed[mode]["mesh.0"]
+        log(f"[mesh_serving] {mode}: param_bytes {backend.param_bytes()} B a block, param_bytes_per_device "
+            f"{backend.param_bytes_per_device()} B (single device: {single[mode]['single.0'].param_bytes()} B); "
+            f"get_info mesh_devices={backend.get_info()['mesh_devices']}")
+        # the mesh's prefill against the single-device blocks, and both timed
+        expected = forward_chain(single[mode], x)
+        rel_err = max_rel_err(prefill[mode], expected)
+        walls = {}
+        for what, blocks in (("mesh", meshed[mode]), ("single", single[mode])):
+            runs = []
+            for _ in range(MESH_PREFILL_RUNS):
+                started = time.perf_counter()
+                forward_chain(blocks, x)
+                runs.append(time.perf_counter() - started)
+            walls[what] = float(np.median(runs))
+        log(f"[mesh_serving] {mode}: prefill [1, {MESH_PREFILL}, {hid}] through 2 blocks, mesh vs single device: "
+            f"max_rel_err={rel_err:.3e} (limit {SERVING_TOL}); wall {walls['mesh'] * 1e3:.3f} ms vs "
+            f"{walls['single'] * 1e3:.3f} ms (median of {MESH_PREFILL_RUNS})")
+        for what, backend in (("mesh", meshed[mode]["mesh.0"]), ("single", single[mode]["single.0"])):
+            wall_us, by_device = profile_by_device(torch, lambda: backend.forward(x), distinct)
+            log(f"[profile] {mode} {what} block forward [1, {MESH_PREFILL}, {hid}]: wall {wall_us / 1e3:.3f} ms; "
+                + "; ".join(f"cuda:{index} busy {busy / 1e3:.3f} ms (" + ", ".join(
+                    f"{name[:48]} {us / 1e3:.3f}" for name, us in top) + ")" for index, (busy, top) in by_device.items()))
+        if not (prefill[mode].shape == x.shape and np.isfinite(prefill[mode]).all() and rel_err < SERVING_TOL):
+            faults.append(f"{mode}: the mesh's prefill differs from the single device's by {rel_err}")
+        # the same merged greedy decode on the single-device blocks, for its times
+        manager = DecodeSessionManager(single[mode], max_len=MESH_MAX_LEN)
+        _ids, single_prefill_s, single_round_s = merged_greedy(manager, list(single[mode]), head, prompts, MESH_NEW)
+        log(f"[mesh_serving] {mode}: {len(prompts)} sessions x {MESH_NEW} tokens, merged: per-token latency "
+            f"(a round of every session) median / p90 mesh {median_p90(timing[mode]['round_s'])} vs single "
+            f"{median_p90(single_round_s)}; session prefill [1, {DECODE_SESSION_PROMPTS[0]}-"
+            f"{DECODE_SESSION_PROMPTS[-1]}] median mesh {np.median(timing[mode]['prefill_s']) * 1e3:.3f} ms vs "
+            f"single {np.median(single_prefill_s) * 1e3:.3f} ms; {len(prompts) / np.median(timing[mode]['round_s']):.1f} "
+            f"tokens/s mesh; merged step sizes {sorted(set(sizes[mode]))} in {len(sizes[mode])} calls")
+        if not sizes[mode] or max(sizes[mode]) < 2:
+            faults.append(f"{mode}: no merged step held 2 or more sessions: {sizes[mode]}")
+        # every session's ids by a teacher-forced replay through the single-device blocks
+        flips, worst = 0, 0.0
+        for sid, prompt in prompts.items():
+            gaps = greedy_gaps(head, single[mode], generated[mode][sid], prompt.shape[1])
+            flips, worst = flips + int((gaps > 0).sum()), max(worst, float(gaps.max()))
+        log(f"[mesh_serving] {mode}: teacher-forced replay of {len(prompts)} x {MESH_NEW} mesh tokens on the single "
+            f"device: {flips} near-tie flips, largest logit gap {worst:.3e} (limit {GREEDY_LOGIT_RTOL})")
+        if not worst <= GREEDY_LOGIT_RTOL:
+            faults.append(f"{mode}: a token the mesh generated lies {worst} below the best logit")
+    wall = time.perf_counter() - phase_started
+    log(f"[mesh_serving] phase wall {wall:.1f} s (limit {MESH_PHASE_LIMIT_S:.0f})")
+    if wall > MESH_PHASE_LIMIT_S:
+        faults.append(f"the phase took {wall:.1f} s, over its {MESH_PHASE_LIMIT_S:.0f} s")
+    if faults:
+        raise AssertionError("; ".join(faults))
+    return launches, entry
+
+
+def read_line(process, log_path: Path, pattern: str, limit_s: float) -> re.Match:
+    """Wait for ``pattern`` in a child's log file; raises at the limit or when the child exits."""
+    deadline = time.monotonic() + limit_s
+    while time.monotonic() < deadline:
+        found = re.search(pattern, log_path.read_text(errors="replace"))
+        if found:
+            return found
+        if process.poll() is not None:
+            raise RuntimeError(f"{process.args[2]} exited with code {process.returncode}:\n"
+                               f"{log_path.read_text(errors='replace')[-3000:]}")
+        time.sleep(0.2)
+    raise TimeoutError(f"{process.args[2]} logged no {pattern!r} in {limit_s:.0f} s")
+
+
+def phase_cli(torch, checkpoint_dir: str, wrappers: dict) -> dict:
+    """The entry points a user runs: run_dht, then run_server over every local card as a
+    mesh, as child processes; a client generates through them. The server logs its
+    kernel launches once loaded and again as it stops: the served path's launches are
+    the difference (loading runs each block's sample forward)."""
+    from hivemind_tpu_torch.dht import DHT
+    from hivemind_tpu_torch.moe.client.remote_sequential import RemoteSequential
+    from hivemind_tpu_torch.moe.server.llama_loader import LlamaClientHead, generate_greedy, load_llama_blocks
+
+    phase_started = time.perf_counter()
+    cards = torch.cuda.device_count()
+    scratch = tempfile.TemporaryDirectory(prefix="chip_smoke_cli_")
+    logs = {name: Path(scratch.name) / f"{name}.log" for name in ("run_dht", "run_server")}
+    children, client = [], None
+
+    def start(name, *args):
+        with open(logs[name], "w") as out:
+            children.append(subprocess.Popen([sys.executable, "-m", f"hivemind_tpu_torch.hivemind_cli.{name}", *args],
+                                             stdout=out, stderr=subprocess.STDOUT, cwd=Path(__file__).resolve().parent))
+        return children[-1]
+
+    try:
+        dht_process = start("run_dht", "--listen_host", "127.0.0.1")
+        maddr = read_line(dht_process, logs["run_dht"], r"--initial_peers (\S+)", CLI_STARTUP_LIMIT_S).group(1)
+        started = time.perf_counter()
+        server = start("run_server", "--llama_checkpoint", checkpoint_dir, "--mesh_devices", str(cards),
+                       "--decode_max_len", str(CLI_PROMPT + CLI_NEW), "--initial_peers", maddr)
+        plan = read_line(server, logs["run_server"], r"memory plan: .*", CLI_STARTUP_LIMIT_S).group(0)
+        read_line(server, logs["run_server"], r"serving \d+ experts", CLI_STARTUP_LIMIT_S)
+        loaded = json.loads(read_line(server, logs["run_server"], r"kernel launches while loading: (\{.*\})", 1).group(1))
+        log(f"[cli] run_dht at {maddr}; run_server --mesh_devices {cards} up in {time.perf_counter() - started:.1f} s: "
+            f"{plan}")
+        client = DHT(initial_peers=[maddr], start=True)
+        head = LlamaClientHead.load(checkpoint_dir, device="cuda")
+        pipe = RemoteSequential(client, "llama.", LLAMA2_7B["num_hidden_layers"])
+        rng = np.random.default_rng(SEED + 23)
+        x = rng.standard_normal((1, CLI_FORWARD, LLAMA2_7B["hidden_size"]), dtype=np.float32)
+        started = time.perf_counter()
+        forwarded = pipe(torch.from_numpy(x)).numpy()
+        forward_s = time.perf_counter() - started
+        prompt = rng.integers(0, LLAMA2_7B["vocab_size"], size=(1, CLI_PROMPT))
+        started = time.perf_counter()
+        ids = generate_greedy(head, pipe, prompt, CLI_NEW)
+        generate_s = time.perf_counter() - started
+        server.send_signal(signal.SIGINT)
+        counts = json.loads(read_line(server, logs["run_server"], r"kernel launches: (\{.*\})", 60).group(1))
+        server.wait(60)
+    finally:
+        if client is not None:
+            client.shutdown()
+        for child in children:
+            if child.poll() is None:
+                child.send_signal(signal.SIGINT)
+        for child in children:
+            try:
+                child.wait(15)
+            except subprocess.TimeoutExpired:
+                child.kill()
+                child.wait()
+        server_log = logs["run_server"].read_text(errors="replace")
+        scratch.cleanup()
+    launches = {name: counts[wrapper.__name__] - loaded[wrapper.__name__] for name, wrapper in wrappers.items()}
+    layers = LLAMA2_7B["num_hidden_layers"]
+    local = load_llama_blocks(checkpoint_dir, device="cuda")[0]
+    rel_err = max_rel_err(forwarded, forward_chain(local, x))
+    log(f"[cli] forward [1, {CLI_FORWARD}, {LLAMA2_7B['hidden_size']}] through the served mesh in "
+        f"{forward_s * 1e3:.1f} ms (fp16 wire): max_rel_err={rel_err:.3e} against one card's blocks (limit {SERVING_TOL})")
+    if not rel_err < SERVING_TOL:
+        raise AssertionError(f"the served mesh's forward differs from one card's by {rel_err}")
+    gaps = greedy_gaps(head, local, ids, CLI_PROMPT)
+    log(f"[cli] generated {CLI_NEW} tokens through the served mesh in {generate_s:.2f} s: "
+        f"{ids[0, CLI_PROMPT:].tolist()}; teacher-forced replay on one card: {int((gaps > 0).sum())} near-tie "
+        f"flips, largest logit gap {gaps.max():.3e} (limit {GREEDY_LOGIT_RTOL}); server's kernel launches while "
+        f"serving {json.dumps(launches)} (while loading {json.dumps(loaded)})")
+    if launches["flash_attention_forward"] < layers * cards:  # the forward: every block on every shard
+        raise AssertionError(f"the served forward launched the flash kernel {launches['flash_attention_forward']} "
+                             f"times, fewer than {layers} blocks x {cards} shards")
+    if "Traceback" in server_log:
+        raise AssertionError(f"run_server logged a traceback:\n{server_log[-3000:]}")
+    if not gaps.max() <= GREEDY_LOGIT_RTOL:
+        raise AssertionError(f"a token generated through run_server lies {gaps.max()} below the best logit")
+    wall = time.perf_counter() - phase_started
+    log(f"[cli] phase wall {wall:.1f} s (limit {CLI_PHASE_LIMIT_S:.0f})")
+    if wall > CLI_PHASE_LIMIT_S:
+        raise AssertionError(f"the phase took {wall:.1f} s, over its {CLI_PHASE_LIMIT_S:.0f} s")
+    return launches
+
+
 PROMETHEUS_SAMPLE = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})? (\S+)$')
 PROMETHEUS_LABEL = re.compile(r'(\w+)="((?:[^"\\]|\\.)*)"')
 
@@ -4509,7 +4890,15 @@ def phase_telemetry(torch, telemetry: Telemetry, exporter_port: int) -> None:
         raise AssertionError("; ".join(faults))
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description="On-card smoke test of hivemind_tpu_torch (every phase by default)")
+    parser.add_argument("--only", default=None,
+                        help="comma-separated phases to run after [build] and [checkpoint], e.g. mesh_serving,cli; "
+                             "a partial run prints neither the kernels line nor the ok line")
+    args = parser.parse_args(argv)
+    only = None if args.only is None else set(args.only.split(","))
     try:
         import torch
     except ImportError:
@@ -4536,6 +4925,7 @@ def main() -> int:
         "flash_attention_backward_dkv": flash_attention.flash_attention_backward_dkv,
         "blockwise_int8_quantize": blockwise_int8.blockwise_int8_quantize,
         "blockwise_int8_dequantize": blockwise_int8.blockwise_int8_dequantize,
+        "blockwise_int8_dequantize_window": blockwise_int8.blockwise_int8_dequantize_window,
     }
     # each path, and the kernels that must launch in its run
     path_kernels = {
@@ -4552,6 +4942,9 @@ def main() -> int:
         "collab": ("flash_attention_forward", "flash_attention_backward_dq", "flash_attention_backward_dkv"),
         "ring": ("flash_attention_forward",),
         "slice": ("flash_attention_forward", "flash_attention_backward_dq", "flash_attention_backward_dkv"),
+        "mesh_serving": ("flash_attention_forward", "blockwise_int8_quantize", "blockwise_int8_dequantize",
+                         "blockwise_int8_dequantize_window"),
+        "cli": ("flash_attention_forward",),
     }
 
     line = card_line()
@@ -4568,6 +4961,8 @@ def main() -> int:
     exporter = MetricsExporter(port=0, host="127.0.0.1")
 
     def run(phase: str, fn, *args):
+        if only is not None and phase not in only | {"build", "checkpoint"}:
+            return None
         started = time.perf_counter()
         try:
             return fn(*args)
@@ -4601,6 +4996,10 @@ def main() -> int:
         # the mesh tier: ranks that share the card over gloo
         path_launches["ring"] = run("ring", phase_ring, torch)
         path_launches["slice"] = run("slice", phase_slice, torch, wrappers, telemetry)
+        # the serving mesh: tensor-parallel blocks in this process, then the entry points as children
+        path_launches["mesh_serving"], entries["blockwise_int8_dequantize_window"] = (
+            run("mesh_serving", phase_mesh_serving, torch, checkpoint.name, wrappers, peaks) or (None, None))
+        path_launches["cli"] = run("cli", phase_cli, torch, checkpoint.name, wrappers)
     finally:
         checkpoint.cleanup()
         exporter.shutdown()
@@ -4610,12 +5009,15 @@ def main() -> int:
         if counts is None:
             continue
         log(f"[launches] {path} path: {json.dumps(counts)}")
-        missing = [kernel for kernel in kernels if counts[kernel] <= 0]
+        missing = [kernel for kernel in kernels if counts.get(kernel, 0) <= 0]
         if missing:
             failures.append(f"[launches] kernels never launched on the {path} path: {missing}")
     if failures:
         print("chip_smoke: failed phases:\n" + "\n".join(failures), file=sys.stderr)
         return 1
+    if only is not None:
+        print(f"chip_smoke: partial run of {sorted(only)} passed; no kernels or ok line", file=sys.stderr)
+        return 0
 
     meta = {
         "flash_attention_forward": ("hivemind_tpu_torch/csrc/flash_attention.cu", "hivemind_tpu/ops/pallas_attention.py:108"),
@@ -4623,10 +5025,13 @@ def main() -> int:
         "flash_attention_backward_dkv": ("hivemind_tpu_torch/csrc/flash_attention_bwd.cu", "hivemind_tpu/ops/pallas_attention.py:292"),
         "blockwise_int8_quantize": ("hivemind_tpu_torch/csrc/blockwise_int8.cu", "hivemind_tpu/ops/pallas_quantization.py:46"),
         "blockwise_int8_dequantize": ("hivemind_tpu_torch/csrc/blockwise_int8.cu", "hivemind_tpu/ops/pallas_quantization.py:73"),
+        # row 5 on a shard of the serving mesh, whose cut the JAX package leaves to GSPMD
+        "blockwise_int8_dequantize_window": ("hivemind_tpu_torch/csrc/blockwise_int8.cu",
+                                             "hivemind_tpu/ops/pallas_quantization.py:73"),
     }
     kernels = [
         {"name": kernel, "route": "cuda", "source": meta[kernel][0], "replaces": meta[kernel][1],
-         "launches": sum(counts[kernel] for counts in path_launches.values()), **entries[kernel]}
+         "launches": sum(counts.get(kernel, 0) for counts in path_launches.values() if counts), **entries[kernel]}
         for kernel in wrappers
     ]
     print(json.dumps({"kernels": kernels}))

@@ -24,6 +24,21 @@
 // by IEEE division (never built with fast math), rintf (round half to even, as
 // jnp.round; never roundf), then the clip; dequantize forms absmax/127 first and
 // then multiplies.
+//
+// The window entry (hm_blockwise_dequantize_window) replaces no TPU kernel of its
+// own: it is queue B row 5 on one shard of a tensor-parallel serving mesh
+// (moe/server/mesh_backend.py), where the JAX package leaves the same cut to GSPMD.
+// A 2-D weight is coded in flax [in, out] order, so a column-parallel shard (the
+// columns [c0, c0 + cols) of every row) is strided, and at out = 11008 its
+// 4096-element blocks straddle rows. The entry dequantizes a window of `rows` rows
+// of `cols` codes, stored densely, whose element (i, j) is element
+// base + i * row_stride + j of the whole tensor's flat codes: its scale is
+// absmax[(base + i * row_stride + j) / 4096] / 127. Bytes bound it too (1 B in,
+// 4 B out an element; absmax is 1/1024 of the codes and stays in L1/L2). Each
+// thread dequantizes 4 neighbouring elements of one row (a char4 load and a float4
+// store when `cols` is a multiple of 4, which every Llama width is) and looks up
+// the scale of each; a block of 256 threads covers 1024 columns of one row, and
+// the grid walks rows in its y dimension.
 
 #include <cstdint>
 
@@ -95,6 +110,31 @@ __global__ void __launch_bounds__(kThreads) dequantize_kernel(
     }
 }
 
+template <bool kVector>
+__global__ void __launch_bounds__(kThreads) dequantize_window_kernel(
+    const int8_t* __restrict__ codes, const float* __restrict__ absmax, float* __restrict__ out,
+    long long rows, long long cols, long long row_stride, long long base) {
+    const long long j = (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) * 4;
+    if (j >= cols) return;
+    for (long long i = blockIdx.y; i < rows; i += gridDim.y) {
+        const long long at = i * cols + j;  // in the window
+        const long long flat = base + i * row_stride + j;  // in the whole tensor
+        if (kVector) {
+            const char4 c = *reinterpret_cast<const char4*>(codes + at);
+            float4 v;
+            v.x = static_cast<float>(c.x) * (absmax[flat / kBlockSize] / 127.0f);
+            v.y = static_cast<float>(c.y) * (absmax[(flat + 1) / kBlockSize] / 127.0f);
+            v.z = static_cast<float>(c.z) * (absmax[(flat + 2) / kBlockSize] / 127.0f);
+            v.w = static_cast<float>(c.w) * (absmax[(flat + 3) / kBlockSize] / 127.0f);
+            *reinterpret_cast<float4*>(out + at) = v;
+        } else {
+            for (int e = 0; e < 4 && j + e < cols; ++e) {
+                out[at + e] = static_cast<float>(codes[at + e]) * (absmax[(flat + e) / kBlockSize] / 127.0f);
+            }
+        }
+    }
+}
+
 }  // namespace
 
 // x: fp32 [n_blocks * 4096], 16-byte aligned -> codes int8 [n_blocks, 4096], absmax fp32 [n_blocks]
@@ -110,5 +150,25 @@ extern "C" int hm_blockwise_dequantize(const int8_t* codes, const float* absmax,
                                        long long n_blocks, cudaStream_t stream) {
     if (n_blocks <= 0) return 0;
     dequantize_kernel<<<static_cast<unsigned int>(n_blocks), kThreads, 0, stream>>>(codes, absmax, out);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// codes int8 [rows, cols], the window of a tensor's flat codes whose element (i, j)
+// is flat element base + i * row_stride + j; absmax fp32, the whole tensor's
+// -> out fp32 [rows, cols]. The vector path needs cols % 4 == 0 and 16-byte aligned
+// codes and out (the wrapper checks both).
+extern "C" int hm_blockwise_dequantize_window(const int8_t* codes, const float* absmax, float* out,
+                                              long long rows, long long cols, long long row_stride,
+                                              long long base, int vector, cudaStream_t stream) {
+    if (rows <= 0 || cols <= 0) return 0;
+    const long long column_blocks = (cols + kThreads * 4 - 1) / (kThreads * 4);
+    if (column_blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    const dim3 grid(static_cast<unsigned int>(column_blocks),
+                    static_cast<unsigned int>(rows < 65535 ? rows : 65535));
+    if (vector) {
+        dequantize_window_kernel<true><<<grid, kThreads, 0, stream>>>(codes, absmax, out, rows, cols, row_stride, base);
+    } else {
+        dequantize_window_kernel<false><<<grid, kThreads, 0, stream>>>(codes, absmax, out, rows, cols, row_stride, base);
+    }
     return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,7 @@
 """Expert serving: ModuleBackend → TaskPool → Runtime, KV-cache decode sessions,
 the ConnectionHandler that serves them over the wire, the Server that declares
-them in the DHT, checkpoints and hot-expert replication, and the Llama checkpoint
-loader with its client head and greedy generation."""
+them in the DHT, checkpoints and hot-expert replication, tensor-parallel blocks
+over a serving mesh, and the Llama checkpoint loader with its client head and greedy generation."""
 
 from hivemind_tpu_torch.moe.server.admission import ClientOverBudgetError, FairShareAdmission
 from hivemind_tpu_torch.moe.server.checkpoints import CheckpointSaver, load_experts, store_experts
@@ -17,6 +17,7 @@ from hivemind_tpu_torch.moe.server.llama_loader import (
     plan_block_capacity,
     predict_block_param_bytes,
 )
+from hivemind_tpu_torch.moe.server.mesh_backend import MeshModuleBackend, ServingMesh
 from hivemind_tpu_torch.moe.server.module_backend import ModuleBackend
 from hivemind_tpu_torch.moe.server.replication import ReplicationManager, ReplicationPolicy
 from hivemind_tpu_torch.moe.server.runtime import Runtime

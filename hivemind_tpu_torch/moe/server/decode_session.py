@@ -4,25 +4,27 @@
 A client opens a session per block uid: the first call (``reset=True``) prefills
 the prompt into fresh caches, and every later call advances one token, so each
 generated token costs O(context) instead of the O(context²) recompute of the
-whole prefix. Caches live on the backend's device in the block's compact
-kv-heads layout (``init_decode_cache`` on the block class), and sessions expire
-by TTL and by an LRU cap, so an abandoned client cannot pin device memory.
+whole prefix. The backend makes a session's caches (``init_decode_cache``): a
+list of one tensor a shard, each in the block's compact kv-heads layout on its
+shard's device: one tensor on the backend's device for a ``ModuleBackend``, the
+shard's KV heads on each shard's device for a ``MeshModuleBackend``, so a
+session's cache is spread over the mesh as its weights are. Sessions expire by
+TTL and by an LRU cap, so an abandoned client cannot pin device memory.
 
 **Continuous batching** (``decode_async``): single-token steps of session-batch 1
 on one uid that arrive within a small window are merged into ONE device call.
 The JAX package ``vmap``s its per-session step; here one batched forward runs
-instead: x is ``[S, 1, hid]``, the sessions' caches are stacked to
+instead: x is ``[S, 1, hid]``, the sessions' caches are stacked shard by shard to
 ``[S, max_len, kv_heads, head_dim]``, and a per-row index tensor drives the cache
 write, the key mask and the RoPE offset (``layers/common.py``). The stack lives for
-that one call: each session's new position is copied back into its own cache, so
-no session holds a view of the stack.
+that one call: each session's new position is copied back into its own cache,
+shard by shard, so no session holds a view of the stack.
 
 What the JAX package does and this module does not: it buckets prefill lengths
 and merged batch sizes to powers of two, padding with dummy rows, only to bound
 its jit cache. Eager PyTorch keeps no compile cache, so every call runs at its
 own size; the outputs of real rows are the same (prefill is causal). There is
-no ``tracked_jit`` (no jit), and ``shard_decode_cache`` comes with the
-serving mesh.
+no ``tracked_jit`` (no jit).
 
 Telemetry, under the JAX package's metric names: the live-session and occupancy
 gauges, evictions by reason (``ttl``/``cap``), resets, steps by path
@@ -49,7 +51,6 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from hivemind_tpu_torch.ops.quantized_params import dequantize_tree
 from hivemind_tpu_torch.telemetry import REGISTRY as _TELEMETRY
 from hivemind_tpu_torch.telemetry.device import record_transfer
 from hivemind_tpu_torch.utils.asyncio_utils import run_in_executor, spawn
@@ -83,10 +84,26 @@ _STEPS = _TELEMETRY.counter(
 )
 
 
+# a session's cache: one tensor [batch, max_len, kv_heads, head_dim] a shard of the
+# block (one for a single-device backend), each with the shard's kv heads
+Cache = List[torch.Tensor]
+
+
+def _stack(caches: List[Cache]) -> Cache:
+    """The sessions' caches stacked along the batch, shard by shard."""
+    return [torch.cat(shards) for shards in zip(*caches)]
+
+
+def _copy_position(own: Cache, stacked: Cache, row: int, index: int) -> None:
+    """Copy row ``row``'s position ``index`` of a stacked cache into a session's own."""
+    for own_shard, stacked_shard in zip(own, stacked):
+        own_shard[0, index] = stacked_shard[row, index]
+
+
 class _Session:
     __slots__ = ("cache_k", "cache_v", "index", "last_used", "lock")
 
-    def __init__(self, cache_k: torch.Tensor, cache_v: torch.Tensor):
+    def __init__(self, cache_k: Cache, cache_v: Cache):
         self.cache_k, self.cache_v = cache_k, cache_v
         self.index = 0
         self.last_used = time.monotonic()
@@ -150,18 +167,16 @@ class DecodeSessionManager:
         _SESSIONS.set(len(self._sessions))
         _SESSION_OCCUPANCY.set(round(len(self._sessions) / max(self.max_sessions, 1), 4))
 
-    def _step(self, uid: str, x: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor, index):
+    def _step(self, uid: str, x: torch.Tensor, cache_k: Cache, cache_v: Cache, index):
         """One block call on the current weights (the caller holds inference mode):
         the direct path's ``index`` is an int, the merged step's a [S] tensor."""
         backend = self.backends[uid]
         with backend._state_lock:
-            return torch.func.functional_call(backend.module, dequantize_tree(backend.params),
-                                              (x, cache_k, cache_v, index))
+            return backend.decode_step(x, cache_k, cache_v, index)
 
-    def _batched_step(self, uid: str, x: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
-                      index: torch.Tensor):
+    def _batched_step(self, uid: str, x: torch.Tensor, cache_k: Cache, cache_v: Cache, index: torch.Tensor):
         """The merged step of several sessions: x ``[S, 1, hid]``, stacked caches
-        ``[S, max_len, kv_heads, head_dim]`` and one write index per row."""
+        ``[S, max_len, kv_heads, head_dim]`` a shard and one write index per row."""
         return self._step(uid, x, cache_k, cache_v, index)
 
     def decode(self, uid: str, session_id: str, x: np.ndarray, reset: bool) -> np.ndarray:
@@ -184,8 +199,7 @@ class DecodeSessionManager:
             session = self._sessions.get(key)
             if reset:
                 with torch.inference_mode():
-                    caches = backend.module.init_decode_cache(batch, self.max_len, backend.device)
-                session = self._sessions[key] = _Session(*caches)
+                    session = self._sessions[key] = _Session(*backend.init_decode_cache(batch, self.max_len))
                 _RESETS.inc()
                 self._sample_gauges_locked()
             elif session is None:
@@ -199,8 +213,8 @@ class DecodeSessionManager:
                                  f"only 1-token steps may follow the prefill (got chunk {new_len})")
             if session.index + new_len > self.max_len:
                 raise ValueError(f"session {session_id!r} is full ({session.index}/{self.max_len})")
-            if session.cache_k.shape[0] != batch:
-                raise ValueError(f"session {session_id!r} batch is {session.cache_k.shape[0]}, got {batch}")
+            if session.cache_k[0].shape[0] != batch:
+                raise ValueError(f"session {session_id!r} batch is {session.cache_k[0].shape[0]}, got {batch}")
             record_transfer(x.nbytes, "host_to_device")
             with torch.inference_mode():
                 y, session.cache_k, session.cache_v = self._step(
@@ -337,7 +351,7 @@ class DecodeSessionManager:
                     results[i] = KeyError(f"decode session for {uid!r} has no prefill yet")
                 elif session.index + 1 > self.max_len:
                     results[i] = ValueError(f"decode session is full ({session.index}/{self.max_len})")
-                elif session.cache_k.shape[0] != 1:
+                elif session.cache_k[0].shape[0] != 1:
                     results[i] = ValueError("batched decode requires session batch 1")
                 else:
                     live.append(i)
@@ -356,13 +370,12 @@ class DecodeSessionManager:
                 else:
                     index = torch.tensor([s.index for s in sessions], dtype=torch.long, device=x.device)
                     y, cache_k, cache_v = self._batched_step(
-                        uid, x, torch.cat([s.cache_k for s in sessions]), torch.cat([s.cache_v for s in sessions]),
-                        index)
+                        uid, x, _stack([s.cache_k for s in sessions]), _stack([s.cache_v for s in sessions]), index)
                     # the step wrote one position per row: copy it back into each
                     # session's own cache and let the stack go
                     for row, session in enumerate(sessions):
-                        session.cache_k[0, session.index] = cache_k[row, session.index]
-                        session.cache_v[0, session.index] = cache_v[row, session.index]
+                        _copy_position(session.cache_k, cache_k, row, session.index)
+                        _copy_position(session.cache_v, cache_v, row, session.index)
                 y = y.to("cpu").numpy()
             record_transfer(y.nbytes, "device_to_host")
             # one session alone is a direct step: nothing was merged

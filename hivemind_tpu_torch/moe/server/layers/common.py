@@ -70,8 +70,14 @@ class Dense(nn.Linear):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        bias = None if self.bias is None else self.bias.to(self.dtype)
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
+        return dense(x, self.weight, self.bias, self.dtype)
+
+
+def dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
+          dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """:class:`Dense`'s arithmetic on a weight ``[out, in]``: inputs, weight and bias
+    cast to ``dtype``, the product in ``dtype``."""
+    return F.linear(x.to(dtype), weight.to(dtype), None if bias is None else bias.to(dtype))
 
 
 class LayerNorm(nn.LayerNorm):
@@ -95,9 +101,14 @@ class RMSNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(dim, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x32 = x.to(torch.float32)
-        y = x32 * torch.rsqrt(x32.pow(2).mean(dim=-1, keepdim=True) + self.eps)
-        return (y * self.weight).to(torch.bfloat16)
+        return rms_norm(x, self.weight, self.eps)
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    """:class:`RMSNorm`'s arithmetic: fp32 statistics, the scale, bf16 out."""
+    x32 = x.to(torch.float32)
+    y = x32 * torch.rsqrt(x32.pow(2).mean(dim=-1, keepdim=True) + eps)
+    return (y * weight).to(torch.bfloat16)
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:

@@ -13,9 +13,12 @@ block server of BASELINE config #5.
   blocks' norms. HF's rotary convention (split halves) matches ``apply_rope``.
 - **Int8 serving**: ``weight_quantization="int8"`` stores the matrices with the
   blockwise absmax codec, quantized on the device by the port's kernel.
+- **Mesh serving**: with ``mesh=`` each block becomes a ``MeshModuleBackend``,
+  tensor-parallel over the mesh's devices; each leaf goes from the file straight
+  to its shards.
 - **Memory budgeting**: :func:`plan_block_capacity` decides how many blocks fit
-  one card from per-block bytes + decode-session KV budget (:func:`decode_cache_bytes`)
-  + headroom.
+  one card, or a mesh of cards, from per-block bytes + decode-session KV budget
+  (:func:`decode_cache_bytes`) + headroom.
 - **Generation**: :class:`LlamaClientHead` holds the client's ends of the
   pipeline (embedding, final norm, LM head), and :func:`generate_greedy` decodes
   through any pipe of KV-cache sessions.
@@ -34,6 +37,7 @@ import numpy as np
 import torch
 
 from hivemind_tpu_torch.moe.server.layers import name_to_block
+from hivemind_tpu_torch.moe.server.mesh_backend import MeshModuleBackend, ServingMesh
 from hivemind_tpu_torch.moe.server.module_backend import ModuleBackend
 from hivemind_tpu_torch.ops.quantized_params import QUANT_BLOCK_SIZE
 from hivemind_tpu_torch.utils.device import resolve_device
@@ -164,6 +168,8 @@ def load_llama_blocks(
     max_batch_size: int = 64,
     device: Union[str, torch.device] = "cuda",
     optimizer: Optional[Callable[[Iterable[torch.Tensor]], torch.optim.Optimizer]] = None,
+    mesh: Optional[ServingMesh] = None,
+    shard_axis: str = "tp",
 ) -> Tuple[Dict[str, ModuleBackend], LlamaCheckpointConfig]:
     """Build ``{uid: ModuleBackend}`` serving the checkpoint's decoder layers on
     ``device`` (``"cuda"`` unless the caller asks for the CPU).
@@ -172,9 +178,11 @@ def load_llama_blocks(
     built on the meta device; each block's checkpoint tensors are copied to
     ``device`` once and, for int8, quantized once. ``optimizer`` (a factory over a
     block's parameter tensors) trains the fp blocks on ``backward``; None is SGD
-    with learning rate 0, as the JAX package's ``optax.sgd(0.0)``.
+    with learning rate 0, as the JAX package's ``optax.sgd(0.0)``. With ``mesh``,
+    each block is a :class:`MeshModuleBackend` split over ``shard_axis`` of the
+    mesh's devices (``device`` is then the mesh's), one block at a time.
     """
-    device = resolve_device(device)
+    device = mesh.devices[0] if mesh is not None else resolve_device(device)
     config = LlamaCheckpointConfig.load(checkpoint_dir)
     reader = ShardedSafetensorsReader(checkpoint_dir)
     layers = list(layers) if layers is not None else list(range(config.num_hidden_layers))
@@ -190,20 +198,17 @@ def load_llama_blocks(
                 ffn_inner=config.intermediate_size,
                 rms_eps=config.rms_norm_eps,
             )
-        backend = ModuleBackend(
-            f"{uid_prefix}{layer}",
-            module,
-            sample_input=np.zeros((2, 8, config.hidden_size), np.float32),
-            optimizer=optimizer,
-            params=_block_params_from_hf(reader, layer),
-            max_batch_size=max_batch_size,
-            weight_quantization=weight_quantization,
-            device=device,
-        )
+        options = dict(sample_input=np.zeros((2, 8, config.hidden_size), np.float32), optimizer=optimizer,
+                       params=_block_params_from_hf(reader, layer), max_batch_size=max_batch_size,
+                       weight_quantization=weight_quantization)
+        if mesh is not None:
+            backend = MeshModuleBackend(f"{uid_prefix}{layer}", module, mesh=mesh, shard_axis=shard_axis, **options)
+        else:
+            backend = ModuleBackend(f"{uid_prefix}{layer}", module, device=device, **options)
         backends[backend.name] = backend
         logger.info(
             f"loaded block {layer} as {backend.name!r} "
-            f"({backend.param_bytes() / 1e6:.1f} MB resident on {device}"
+            f"({backend.param_bytes() / 1e6:.1f} MB resident on {mesh if mesh is not None else device}"
             f"{', int8' if weight_quantization else ''})"
         )
     return backends, config
@@ -263,15 +268,24 @@ def plan_block_capacity(
     decode_sessions: int = 0,
     cache_bytes_per_session_block: int = 0,
     reserve_fraction: float = 0.2,
+    mesh_devices: int = 1,
 ) -> int:
-    """How many blocks fit one card: ``(memory*(1-reserve) - sessions*cache) / block``.
-    ``reserve_fraction`` keeps headroom for activations, the transient dense
-    weights of int8 serving and the allocator's cache. Returns at least 0."""
+    """How many blocks fit the serving unit:
+    ``(memory*devices*(1-reserve) - sessions*cache) / block``.
+
+    ``mesh_devices`` > 1 plans a mesh-sharded server (``MeshModuleBackend``) from
+    the block's global bytes, assuming ideal ``1/mesh_devices`` residency:
+    ``hbm_bytes`` stays the per-card budget and the pooled budget scales with the
+    mesh. When a probe block exists, pass its ``param_bytes_per_device()`` with the
+    default ``mesh_devices=1`` instead (``run_server`` does); never both, which
+    would count the mesh twice. ``reserve_fraction`` keeps headroom for
+    activations, the transient dense weights of int8 serving and the allocator's
+    cache. Returns at least 0."""
     if hbm_bytes is None:
         hbm_bytes = device_hbm_bytes(device)
     if hbm_bytes is None:
         raise ValueError("the CPU reports no device memory limit; pass hbm_bytes explicitly")
-    usable = int(hbm_bytes * (1.0 - reserve_fraction))
+    usable = int(hbm_bytes * max(int(mesh_devices), 1) * (1.0 - reserve_fraction))
     per_block = block_bytes + decode_sessions * cache_bytes_per_session_block
     if per_block <= 0:
         return 0

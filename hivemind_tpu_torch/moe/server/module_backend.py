@@ -37,7 +37,7 @@ the port sends it (the JAX backend counts its padded bucket).
 from __future__ import annotations
 
 import threading
-from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Union
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -129,6 +129,16 @@ class ModuleBackend:
 
         if any(True for _ in module.buffers()):
             raise ValueError("ModuleBackend serves modules whose state is parameters only")
+        sample_out = self._init_state(module, params, rng_seed, sample_inputs)
+
+        self.num_inputs, self.num_outputs = len(sample_inputs), len(sample_out)
+        self.forward_schema = tuple(BatchTensorDescriptor.from_tensor(sample) for sample in sample_inputs)
+        self.outputs_schema = tuple(BatchTensorDescriptor.from_tensor(out) for out in sample_out)
+
+    def _init_state(self, module: nn.Module, params: Optional[Dict[str, torch.Tensor]], rng_seed: int,
+                    sample_inputs: Sequence[np.ndarray]) -> tuple:
+        """Set the module shell, ``params`` and the optimizer; returns the outputs of
+        the first sample row (they define the output schema)."""
         if params is None:
             # to_empty + a seeded init: a module built on the meta device is
             # allocated once, on the target device
@@ -143,24 +153,25 @@ class ModuleBackend:
         with torch.inference_mode():
             samples = tuple(self._to_device(sample[:1]) for sample in sample_inputs)
             sample_out = _as_tuple(torch.func.functional_call(self.module, dense, samples))
-        self.params = quantize_params(dense) if weight_quantization else dense
-        self.optimizer = None if weight_quantization else self._make_optimizer(list(self.params.values()))
-
-        self.num_inputs, self.num_outputs = len(sample_inputs), len(sample_out)
-        self.forward_schema = tuple(BatchTensorDescriptor.from_tensor(sample) for sample in sample_inputs)
-        self.outputs_schema = tuple(BatchTensorDescriptor.from_tensor(out) for out in sample_out)
+        self.params = quantize_params(dense) if self.weight_quantization else dense
+        self.optimizer = None if self.weight_quantization else self._make_optimizer(list(self.params.values()))
+        return sample_out
 
     def _to_device(self, array: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(array, dtype=np.float32)).to(self.device)
 
-    def _dense_params(self, params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """``params`` checked against the module's names and shapes, as fp32 on the device."""
+    def _check_params(self, params: Dict[str, torch.Tensor]) -> None:
+        """Raise unless ``params`` has the module's names and shapes."""
         if set(params) != set(self._shapes):
             missing, unexpected = sorted(set(self._shapes) - set(params)), sorted(set(params) - set(self._shapes))
             raise KeyError(f"expert {self.name!r}: missing {missing}, unexpected {unexpected}")
         for key, tensor in params.items():
             if tuple(tensor.shape) != self._shapes[key]:
                 raise ValueError(f"expert {self.name!r}: {key} has shape {tuple(tensor.shape)}, expected {self._shapes[key]}")
+
+    def _dense_params(self, params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """``params`` checked against the module's names and shapes, as fp32 on the device."""
+        self._check_params(params)
         # copied: the optimizer updates the backend's tensors in place
         return {key: torch.as_tensor(tensor).to(self.device, torch.float32, copy=True) for key, tensor in params.items()}
 
@@ -192,13 +203,31 @@ class ModuleBackend:
         if len(tensors) != expected:
             raise ValueError(f"expert {self.name!r}: {what} takes {expected} tensors, got {len(tensors)}")
 
+    def _apply(self, *args):
+        """The module on the current weights: a forward, or a decode step when
+        ``args`` carry caches. The caller holds ``_state_lock`` and inference mode."""
+        return torch.func.functional_call(self.module, dequantize_tree(self.params), args)
+
+    def init_decode_cache(self, batch: int, max_len: int) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+        """A decode session's fresh caches (``DecodeSessionManager``): a list of one
+        tensor a shard of the block, here one, on the backend's device."""
+        cache_k, cache_v = self.module.init_decode_cache(batch, max_len, self.device)
+        return [cache_k], [cache_v]
+
+    def decode_step(self, x: torch.Tensor, cache_k: List[torch.Tensor], cache_v: List[torch.Tensor], index):
+        """One decode step on caches made by ``init_decode_cache`` (or their stack):
+        returns ``(y, cache_k, cache_v)``. The caller holds ``_state_lock`` and
+        inference mode."""
+        y, new_k, new_v = self._apply(x, *cache_k, *cache_v, index)
+        return y, [new_k], [new_v]
+
     def forward(self, *inputs: np.ndarray) -> List[np.ndarray]:
         """Inference on a concatenated batch (no parameter updates)."""
         self._check_count("forward", inputs, self.num_inputs)
         xs = tuple(self._to_device(x) for x in inputs)
         record_transfer(sum(tensor_nbytes(x) for x in xs), "host_to_device")
         with self._state_lock, torch.inference_mode():
-            outs = _as_tuple(torch.func.functional_call(self.module, dequantize_tree(self.params), xs))
+            outs = _as_tuple(self._apply(*xs))
             results = [out.to("cpu").numpy() for out in outs]
         record_transfer(sum(r.nbytes for r in results), "device_to_host")
         return results

@@ -45,6 +45,19 @@ def blockwise_dequantize(codes: torch.Tensor, absmax: torch.Tensor, block_size: 
     return (codes.to(torch.float32) * scale[:, None]).reshape(-1)
 
 
+def blockwise_dequantize_window(codes: torch.Tensor, absmax: torch.Tensor, row_stride: int, base: int,
+                                block_size: int = BLOCKWISE_BLOCK_SIZE) -> torch.Tensor:
+    """:func:`blockwise_dequantize` of a window of a tensor's flat codes: ``codes``
+    ``[rows, cols]`` holds flat elements ``base + i * row_stride + j``, and ``absmax``
+    is the whole tensor's. Returns fp32 ``[rows, cols]``, bit for bit what the whole
+    tensor's dequantize holds there."""
+    rows, cols = codes.shape
+    flat = (base + torch.arange(rows, device=codes.device)[:, None] * row_stride
+            + torch.arange(cols, device=codes.device)[None, :])
+    scale = absmax / torch.full_like(absmax, 127.0)
+    return codes.to(torch.float32) * scale[flat // block_size]
+
+
 # ------------------------------------------------------------------ host codec helpers
 
 

@@ -15,6 +15,11 @@ transposed (``[in, out]``) order. Both packages then cut the same 4096-element
 blocks from one checkpoint and hold bit-identical int8 codes and absmax; the
 dequantized weight comes back as a transposed view, which ``F.linear`` takes
 without a copy.
+
+A shard of a tensor-parallel serving mesh holds a :class:`QuantizedWindow`: the
+rows or columns of one quantized 2-D weight that the shard computes with, cut from
+the whole tensor's codes, beside the whole tensor's absmax. Its codes are the same
+bytes, so a mesh and a single device serve the same int8 weights.
 """
 
 from __future__ import annotations
@@ -24,7 +29,11 @@ from typing import Dict, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from hivemind_tpu_torch.ops.blockwise_int8 import blockwise_int8_dequantize, blockwise_int8_quantize
+from hivemind_tpu_torch.ops.blockwise_int8 import (
+    blockwise_int8_dequantize,
+    blockwise_int8_dequantize_window,
+    blockwise_int8_quantize,
+)
 from hivemind_tpu_torch.ops.quantization import BLOCKWISE_BLOCK_SIZE
 
 QUANT_BLOCK_SIZE = BLOCKWISE_BLOCK_SIZE
@@ -54,6 +63,66 @@ class QuantizedTensor:
 
     def __repr__(self):
         return f"QuantizedTensor(shape={self.shape}, blocks={self.codes.shape[0]}, device={self.codes.device})"
+
+
+class QuantizedWindow:
+    """A shard of a 2-D :class:`QuantizedTensor`: ``codes`` ``[rows, cols]`` int8 are
+    the flax-ordered (``[in, out]``) codes of input rows ``[r0, r0 + rows)`` and output
+    columns ``[c0, c0 + cols)``, and ``absmax`` is the whole tensor's, as the JAX
+    package replicates a 1-D leaf. ``base = r0 * out + c0`` and ``row_stride = out``
+    place the window in the whole tensor's flat codes. ``dequantize`` gives the
+    shard's weight ``[cols, rows]`` (``nn.Linear`` layout, a transposed view)."""
+
+    def __init__(self, codes: torch.Tensor, absmax: torch.Tensor, row_stride: int, base: int, dtype: torch.dtype):
+        self.codes, self.absmax = codes, absmax
+        self.row_stride, self.base, self.dtype = row_stride, base, dtype
+        self.shape = (codes.shape[1], codes.shape[0])
+
+    @property
+    def nbytes(self) -> int:
+        return self.codes.numel() * self.codes.element_size() + self.absmax.numel() * self.absmax.element_size()
+
+    def _whole_blocks(self) -> bool:
+        """Whole rows that start a block and fill whole blocks (a row-parallel shard at
+        Llama widths), with a 16-byte aligned absmax slice: the blockwise kernel's input.
+        On such shards the blockwise kernel beats the window entry on an H100 (chip_smoke's
+        ``[mesh_serving]`` times both on ffn_down's and attention_out's row shards)."""
+        rows, cols = self.codes.shape
+        return (cols == self.row_stride and self.base % QUANT_BLOCK_SIZE == 0
+                and (rows * cols) % QUANT_BLOCK_SIZE == 0 and (self.base // QUANT_BLOCK_SIZE) % 4 == 0)
+
+    def dequantize(self) -> torch.Tensor:
+        rows, cols = self.codes.shape
+        if self._whole_blocks():
+            first = self.base // QUANT_BLOCK_SIZE
+            blocks = self.codes.reshape(-1, QUANT_BLOCK_SIZE)
+            flat = blockwise_int8_dequantize(blocks, self.absmax[first : first + blocks.shape[0]], QUANT_BLOCK_SIZE)
+            window = flat.reshape(rows, cols)
+        else:
+            window = blockwise_int8_dequantize_window(self.codes, self.absmax, self.row_stride, self.base,
+                                                      QUANT_BLOCK_SIZE)
+        return window.T.to(self.dtype)
+
+    def __repr__(self):
+        return f"QuantizedWindow(shape={self.shape}, base={self.base}, device={self.codes.device})"
+
+
+def cut_window(tensor: QuantizedTensor, dim: int, index: int, parts: int, device) -> QuantizedWindow:
+    """Shard ``index`` of ``parts`` of a quantized ``nn.Linear`` weight ``[out, in]``,
+    split along ``dim`` (0: output features, the flax columns; 1: input features, the
+    flax rows), copied to ``device`` with the whole tensor's absmax."""
+    if not tensor.transposed:
+        raise ValueError("only 2-D weights (coded in flax [in, out] order) split into windows")
+    n_out, n_in = tensor.shape
+    codes = tensor.codes.reshape(-1)[: tensor.size].reshape(n_in, n_out)
+    if dim == 0:
+        width = n_out // parts
+        window, base = codes[:, index * width : (index + 1) * width], index * width
+    else:
+        height = n_in // parts
+        window, base = codes[index * height : (index + 1) * height], index * height * n_out
+    own = torch.empty(window.shape, dtype=window.dtype, device=device).copy_(window)  # never a view of the whole
+    return QuantizedWindow(own, tensor.absmax.to(device, copy=True), n_out, base, tensor.dtype)
 
 
 ParamDict = Dict[str, Union[torch.Tensor, QuantizedTensor]]

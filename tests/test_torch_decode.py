@@ -290,7 +290,7 @@ def test_merged_step_leaves_each_session_its_own_cache():
     sessions = [uuid.uuid4().hex for _ in range(3)]
     for length, session in zip((4, 5, 6), sessions):
         manager.decode("own.0", session, rng.randn(1, length, HID).astype(np.float32), reset=True)
-    before = {s: manager._sessions[("own.0", s)].cache_k.untyped_storage().data_ptr() for s in sessions}
+    before = {s: manager._sessions[("own.0", s)].cache_k[0].untyped_storage().data_ptr() for s in sessions}
     steps = [rng.randn(1, 1, HID).astype(np.float32) for _ in sessions]
 
     async def one_round():
@@ -298,22 +298,23 @@ def test_merged_step_leaves_each_session_its_own_cache():
 
     asyncio.run(one_round())
     assert stacks, "no merged step ran"
-    _, stack_k, stack_v = stacks[-1]
+    _, [stack_k], [stack_v] = stacks[-1]  # one shard: a single-device backend
     stack_storages = {stack_k.untyped_storage().data_ptr(), stack_v.untyped_storage().data_ptr()}
     for row, (length, session) in enumerate(zip((4, 5, 6), sessions)):
         state = manager._sessions[("own.0", session)]
         assert state.index == length + 1
-        assert state.cache_k.untyped_storage().data_ptr() == before[session]
-        assert {state.cache_k.untyped_storage().data_ptr(), state.cache_v.untyped_storage().data_ptr()}.isdisjoint(stack_storages)
-        torch.testing.assert_close(state.cache_k[0], stack_k[row], rtol=0, atol=0)
-        torch.testing.assert_close(state.cache_v[0], stack_v[row], rtol=0, atol=0)
+        [cache_k], [cache_v] = state.cache_k, state.cache_v
+        assert cache_k.untyped_storage().data_ptr() == before[session]
+        assert {cache_k.untyped_storage().data_ptr(), cache_v.untyped_storage().data_ptr()}.isdisjoint(stack_storages)
+        torch.testing.assert_close(cache_k[0], stack_k[row], rtol=0, atol=0)
+        torch.testing.assert_close(cache_v[0], stack_v[row], rtol=0, atol=0)
     # the survivor of a group that left the merge steps alone, on its own cache
     survivor = manager._sessions[("own.0", sessions[0])]
     for session in sessions[1:]:
         del manager._sessions[("own.0", session)]
     del stacks[:], stack_k, stack_v
     manager.decode("own.0", sessions[0], rng.randn(1, 1, HID).astype(np.float32), reset=False)
-    assert survivor.index == 6 and survivor.cache_k.untyped_storage().data_ptr() == before[sessions[0]]
+    assert survivor.index == 6 and survivor.cache_k[0].untyped_storage().data_ptr() == before[sessions[0]]
 
 
 def test_drain_cancellation_releases_pins_and_unblocks_callers():

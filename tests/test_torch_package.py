@@ -63,7 +63,10 @@ for name in ("hivemind_tpu_torch.moe.server.decode_session", "hivemind_tpu_torch
              "hivemind_tpu_torch.parallel", "hivemind_tpu_torch.parallel.mesh", "hivemind_tpu_torch.parallel.ici",
              "hivemind_tpu_torch.averaging.ici", "hivemind_tpu_torch.averaging.slice",
              "hivemind_tpu_torch.optim.slice_optimizer", "hivemind_tpu_torch.examples.slice_training",
-             "hivemind_tpu_torch.examples.slice_collaborative_training"):
+             "hivemind_tpu_torch.examples.slice_collaborative_training", "hivemind_tpu_torch.hivemind_cli.run_dht",
+             "hivemind_tpu_torch.hivemind_cli.run_server", "hivemind_tpu_torch.moe.server.mesh_backend",
+             "hivemind_tpu_torch.utils.limits", "hivemind_tpu_torch.utils.platform",
+             "hivemind_tpu_torch.examples.llama_generate", "hivemind_tpu_torch.examples.pipeline_inference"):
     assert name in sys.modules, name
 assert not leaked(), leaked()
 
@@ -77,6 +80,8 @@ from hivemind_tpu_torch.moe.client.moe import RemoteMixtureOfExperts
 from hivemind_tpu_torch.dht import DHT
 from hivemind_tpu_torch.examples.albert import run_trainer
 from hivemind_tpu_torch.parallel import make_mesh
+from hivemind_tpu_torch.hivemind_cli import run_server
+from hivemind_tpu_torch.moe.server.mesh_backend import ServingMesh
 refused = 0
 for entry_point in (
     lambda: ModuleBackend("nop", NopExpert(4), sample_input=np.zeros((1, 4), np.float32)),
@@ -87,13 +92,15 @@ for entry_point in (
     lambda: RemoteMixtureOfExperts(dht=DHT(), in_features=4, grid_size=(2,), uid_prefix="nop."),
     lambda: run_trainer.main(["--tiny", "--max_steps", "0"]),
     lambda: make_mesh(2, backend="gloo"),
+    lambda: run_server.main(["--expert_cls", "nop", "--expert_uids", "nop.0", "--hidden_dim", "4"]),
+    lambda: ServingMesh(["cuda", "cuda"]),
 ):
     try:
         entry_point()
     except RuntimeError as e:
         assert "no CUDA device" in str(e), e
         refused += 1
-assert refused == 8, refused
+assert refused == 10, refused
 backend = ModuleBackend("nop", NopExpert(4), sample_input=np.zeros((1, 4), np.float32), device="cpu")
 assert backend.forward(np.ones((2, 4), np.float32))[0].tolist() == [[1.0] * 4] * 2
 assert backend.backward(np.ones((2, 4), np.float32), np.ones((2, 4), np.float32))[0].tolist() == [[1.0] * 4] * 2
