@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke test of hivemind_tpu_torch: builds the port's Hopper kernels,
 holds each against its plain PyTorch version at the shapes of the paths that run
-it, then drives thirteen paths and checks each against the CPU, the local path or
+it, then drives fourteen paths and checks each against the CPU, the local path or
 the exact result:
 - serving: two Llama-2-7B-width blocks (fp and int8 weight-only) through
   load_llama_blocks → ModuleBackend → TaskPool/Runtime, and an expert of
@@ -28,6 +28,8 @@ the exact result:
   peer's verified state download (no kernel: the reduction is host numpy);
 - expert training: ModuleBackend.backward (one SGD step) on a Llama-2-7B-width block;
 - ALBERT-base MLM training: make_train_step with AdamW at batch 32 × seq 512.
+- causal: the causal LM (CausalLMConfig.base(), GPT-2-small widths, vocab 32000) trained
+  with AdamW at batch 8 × seq 1024 through the causal flash kernels in both directions;
 - collab: collaborative ALBERT-base training (BASELINE config 3, examples/albert): four
   peer processes train one model through the DHT with the collaborative Optimizer and
   LAMB, held to large-batch training; a fifth joins by downloading the state.
@@ -41,7 +43,8 @@ the exact result:
 - mesh_serving: the same blocks tensor-parallel over a serving mesh of 4 shards
   (MeshModuleBackend: one shard a card on a host of 4 cards, else all on one card), fp32
   and int8: prefill and merged greedy decode of 8 sessions against the single-device
-  blocks, each card's memory against its shards, and the window dequantize kernel;
+  blocks, each card's memory against its shards, the window dequantize kernel, and a
+  backward with an SGD step of every shard against the single-device backend;
 - cli: the entry points as a user runs them, run_dht and run_server --mesh_devices
   <every card> as child processes, and a RemoteSequential client generating through them.
 Telemetry rides the serving and decode runs, as a server would arm it (the event-loop
@@ -92,12 +95,15 @@ SEED = 0
 LLAMA2_7B = dict(hidden_size=4096, num_attention_heads=32, num_key_value_heads=32, intermediate_size=11008,
                  num_hidden_layers=2, rope_theta=10000.0, rms_norm_eps=1e-5, vocab_size=32000)
 ALBERT_ATTENTION = (32, 512, 12, 64)  # ALBERT-base's [B, T, H, D] at batch 32, seq 512
+# the causal LM's (CausalLMConfig.base(): GPT-2-small widths) [B, T, H, D] at batch 8 x seq 1024, causal
+CAUSAL_BATCH, CAUSAL_SEQ = 8, 1024
+CAUSAL_ATTENTION = (CAUSAL_BATCH, CAUSAL_SEQ, 12, 64)
 EXPERT_TOKENS = 256  # [1, 256, 4096] through ModuleBackend.backward
 EXPERT_ATTENTION = (1, EXPERT_TOKENS, 32, 128)  # that block's [B, T, H, D]
 # the serving path's [B, T, H, D] (2000: a ragged tail tile; batch 4: the merged 512-long
 # requests), head_dim 64 (the kernel's other width), ALBERT's and the expert backward's
 FLASH_SHAPES = ([(1, t, 32, 128) for t in (512, 2048, 2000)] + [(4, 512, 32, 128), (2, 1000, 16, 64)]
-                + [ALBERT_ATTENTION, EXPERT_ATTENTION])
+                + [ALBERT_ATTENTION, EXPERT_ATTENTION, CAUSAL_ATTENTION])
 # Flash vs its plain version. Each element's error within atol + rtol*scale, where an
 # output's scale is sum_j p_j*|v_j| (the plain version run on |v|; it bounds the output,
 # and the rounding of the terms). The bf16 kernel rounds each p_j to bf16 and both
@@ -135,6 +141,7 @@ SERVING_TOL = 2e-2  # max relative error, card vs CPU (hivemind_tpu/ops/device_c
 # request at full length, a ragged tail, head_dim 64 both ways, and the fp32 path.
 FLASH_BWD_CASES = [
     (ALBERT_ATTENTION, "bfloat16", False), (EXPERT_ATTENTION, "bfloat16", True), ((1, 2048, 32, 128), "bfloat16", True),
+    (CAUSAL_ATTENTION, "bfloat16", True),
     ((1, 2000, 32, 128), "bfloat16", True), ((2, 1000, 16, 64), "bfloat16", False),
     ((2, 1000, 16, 64), "bfloat16", True), ((2, 1000, 16, 64), "float32", False),
     ((2, 1000, 16, 64), "float32", True), ((1, 512, 32, 128), "float32", True),
@@ -186,6 +193,25 @@ TRAIN_LOSS_RTOL = 3e-4
 TRAIN_GRAD_REL_L2 = 8 * BF16_UNIT_ROUNDOFF
 REMAT_GRAD_REL_L2 = 1e-6
 ZERO_GRADIENT = "key.bias"  # softmax ignores it: its gradient is rounding noise on both sides
+# [causal]: the causal LM at CausalLMConfig.base() widths and depth, [train]'s AdamW, one
+# synthetic batch; held to the CPU plain path on a sub-batch (the limits below)
+CAUSAL_WARMUP, CAUSAL_STEPS = 2, 10
+CAUSAL_CHECK_BATCH = 2
+# The loss and the gradients are held with [train]'s limits against the CPU plain path and
+# against the card with fp32 attention (the plain version on fp32 q, k, v), except the query
+# and key projections' gradients, held to 16u. Each row of the exact dS sums to 0 (softmax
+# ignores a shift of a query's scores), so dQ_i = sum_j dS_ij k_j and dK_j = sum_i dS_ij q_i
+# lose the keys' and queries' common component to cancellation. The kernels take delta =
+# rowsum(dO * O) from the bf16 output O (as the JAX package's _flash_backward does), which
+# errs by up to u * sum|dO||O|, so their rows of dS sum to that error instead of 0 and leave
+# it times the common component in dQ and dK: u-sized against a remainder that may be far
+# smaller, in the query and key projections' gradients. Measured on an H100 (700 W): those of
+# layers 7, 9 and 11 at 2.9-3.6e-2 (worst 3.578e-2 against the CPU, 3.553e-2 against fp32
+# attention, layer 9's key weight); every other gradient at most 1.309e-2; the CPU's own
+# bf16 path at most 1.702e-2 against fp32 attention.
+QK_PROJECTION = re.compile(r"\.(query|key)\.")
+CAUSAL_QK_GRAD_REL_L2 = 16 * BF16_UNIT_ROUNDOFF
+CAUSAL_PHASE_LIMIT_S = 60.0
 EXPERT_LR = 1e-3  # SGD; the steps are compared, not the (barely moved) weights
 EXPERT_TOL = SERVING_TOL
 REQUEST_LENGTHS = (512, 512, 512, 512, 2048)
@@ -882,19 +908,29 @@ def loss_and_grads(model, loss_fn, batch):
     return loss.item(), {name: p.grad.detach().float().cpu() for name, p in model.named_parameters()}
 
 
+def gradient_gaps(got: dict, ref: dict) -> list:
+    """Each gradient's error norm over its reference's norm, largest first (a NaN
+    first of all), as (gap, parameter), the key bias (exact gradient 0) left out."""
+    gaps = [(((got[name] - g).norm() / g.norm().clamp_min(1e-30)).item(), name)
+            for name, g in ref.items() if not name.endswith(ZERO_GRADIENT)]
+    return sorted(gaps, key=lambda gap: -gap[0] if math.isfinite(gap[0]) else -math.inf)
+
+
+def gradient_gap(got: dict, ref: dict) -> tuple:
+    """The largest gradient error norm over reference norm (a NaN if any), and its
+    parameter, the key bias left out."""
+    gaps = gradient_gaps(got, ref)
+    return gaps[0] if gaps else (0.0, "")
+
+
 def compare_grads(torch, got: dict, ref: dict, limit: float, what: str, phase: str = "train") -> float:
     """The largest gradient error norm over reference norm; raises past ``limit``.
     The key bias (exact gradient 0) is held to 1% of the largest gradient instead."""
     largest = max(g.abs().max().item() for g in ref.values())
-    worst, worst_name = 0.0, ""
     for name, g in ref.items():
-        if name.endswith(ZERO_GRADIENT):
-            if max(got[name].abs().max().item(), g.abs().max().item()) > 1e-2 * largest:
-                raise AssertionError(f"{what}: {name} (exact gradient 0) is above 1% of the largest gradient")
-            continue
-        rel = ((got[name] - g).norm() / g.norm().clamp_min(1e-30)).item()
-        if not rel <= worst:
-            worst, worst_name = rel, name
+        if name.endswith(ZERO_GRADIENT) and max(got[name].abs().max().item(), g.abs().max().item()) > 1e-2 * largest:
+            raise AssertionError(f"{what}: {name} (exact gradient 0) is above 1% of the largest gradient")
+    worst, worst_name = gradient_gap(got, ref)
     log(f"[{phase}] {what}: largest gradient error norm / norm {worst:.3e} ({worst_name})")
     if not worst <= limit:
         raise AssertionError(f"{what}: gradient {worst_name} differs by {worst:.3e} > {limit}")
@@ -937,6 +973,31 @@ def profile_step(torch, train_step, batch):
     return wall_ms, sorted(families.items(), key=by_time), sorted(rest.items(), key=by_time)[:6]
 
 
+def timed_steps(torch, train_step, batch, wrappers: dict, warmup: int, steps: int) -> tuple:
+    """The main path of a training phase: ``warmup`` steps, then ``steps`` timed ones, the
+    kernels' launches counted from 0. Returns (losses, ms a timed step, launches)."""
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+    losses = [train_step(batch) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    started = time.perf_counter()
+    losses += [train_step(batch) for _ in range(steps)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - started) * 1e3 / steps
+    launches = {name: wrapper.launches for name, wrapper in wrappers.items()}
+    return [loss.item() for loss in losses], step_ms, launches
+
+
+def log_step_profile(torch, train_step, batch, what: str) -> None:
+    wall_ms, families, rest = profile_step(torch, train_step, batch)
+    busy = sum(ms for _, ms in families)
+    log(f"[profile] one {what} step: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms ({busy / wall_ms:.1%})")
+    for family, ms in families:
+        log(f"[profile]   {ms:8.3f} ms  {family}")
+    for kernel, ms in rest:
+        log(f"[profile]     {ms:8.3f} ms  of the rest: {kernel[:100]}")
+
+
 def phase_train(torch, peaks, wrappers: dict, telemetry: Telemetry) -> dict:
     from hivemind_tpu_torch.models import (
         AlbertConfig,
@@ -954,16 +1015,7 @@ def phase_train(torch, peaks, wrappers: dict, telemetry: Telemetry) -> dict:
     initial = {key: value.detach().clone() for key, value in model.state_dict().items()}
 
     torch.cuda.reset_peak_memory_stats()
-    for wrapper in wrappers.values():
-        wrapper.launches = 0  # the main path starts here: the train steps
-    losses = [train_step(batch) for _ in range(TRAIN_WARMUP)]
-    torch.cuda.synchronize()
-    started = time.perf_counter()
-    losses += [train_step(batch) for _ in range(TRAIN_STEPS)]
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - started) * 1e3 / TRAIN_STEPS
-    launches = {name: wrapper.launches for name, wrapper in wrappers.items()}
-    losses = [loss.item() for loss in losses]
+    losses, step_ms, launches = timed_steps(torch, train_step, batch, wrappers, TRAIN_WARMUP, TRAIN_STEPS)
     tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
     telemetry.readings["train"] = dict(tokens_per_s=tokens_per_s)  # [collab] prints its rate beside it
     mfu = tokens_per_s * flops_per_token(config, TRAIN_SEQ, TRAIN_MASKED_FRACTION) / peaks["bf16"]
@@ -980,13 +1032,7 @@ def phase_train(torch, peaks, wrappers: dict, telemetry: Telemetry) -> dict:
         if launches[name] != per_step * steps:
             raise AssertionError(f"{name}: {launches[name]} launches in {steps} steps, expected {per_step} per step")
 
-    wall_ms, families, rest = profile_step(torch, train_step, batch)
-    busy = sum(ms for _, ms in families)
-    log(f"[profile] one train step: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms ({busy / wall_ms:.1%})")
-    for family, ms in families:
-        log(f"[profile]   {ms:8.3f} ms  {family}")
-    for kernel, ms in rest:
-        log(f"[profile]     {ms:8.3f} ms  of the rest: {kernel[:100]}")
+    log_step_profile(torch, train_step, batch, "train")
 
     # the same initial weights and a sub-batch: card vs the CPU plain path, and remat
     sub = {key: value[:TRAIN_CHECK_BATCH] for key, value in batch.items()}
@@ -1015,6 +1061,135 @@ def phase_train(torch, peaks, wrappers: dict, telemetry: Telemetry) -> dict:
         raise AssertionError(f"remat changed the loss: {remat_loss} != {card_loss}")
     compare_grads(torch, card_grads, cpu_grads, TRAIN_GRAD_REL_L2, "card vs CPU")
     compare_grads(torch, remat_grads, card_grads, REMAT_GRAD_REL_L2, "remat vs not, on the card")
+    return launches
+
+
+def causal_flops_per_token(config, seq_len: int) -> float:
+    """fwd+bwd FLOPs per token of the causal LM, 6 x its matmul MACs per token: the
+    projections and the FFN, attention over the (T + 1) / 2 keys a causal query sees on
+    average (QK^T and PV), and the tied head (hidden x vocab)."""
+    h, i, L = config.hidden_size, config.intermediate_size, config.num_layers
+    per_layer = 4 * h * h + 2 * h * i
+    attention = 2 * h * (seq_len + 1) / 2
+    return 6.0 * (L * (per_layer + attention) + h * config.vocab_size)
+
+
+@contextlib.contextmanager
+def attention_variant(variant: Optional[str]):
+    """The causal LM's attention as [causal] varies it: ``"non_causal"``, its planted fault
+    (every layer's attention with causal=False); ``"fp32"``, the plain version on fp32
+    copies of q, k, v, its output rounded once to their dtype (the reference the kernels'
+    rounding is read against); None, as the model runs it."""
+    from hivemind_tpu_torch.models import causal_lm
+    from hivemind_tpu_torch.parallel.ring_attention import plain_attention
+
+    core = causal_lm.mesh_attention_core
+    if variant == "non_causal":
+        causal_lm.mesh_attention_core = lambda mesh, q, k, v, causal=False: core(mesh, q, k, v, causal=False)
+    elif variant == "fp32":
+        causal_lm.mesh_attention_core = lambda mesh, q, k, v, causal=False: plain_attention(
+            q.float(), k.float(), v.float(), causal=causal).to(q.dtype)
+    try:
+        yield
+    finally:
+        causal_lm.mesh_attention_core = core
+
+
+def qk_part(grads: dict, projections: bool) -> dict:
+    """The gradients of the query and key projections, or of every other parameter."""
+    return {name: g for name, g in grads.items() if bool(QK_PROJECTION.search(name)) == projections}
+
+
+def phase_causal(torch, peaks, wrappers: dict) -> dict:
+    from hivemind_tpu_torch.models import CausalLM, CausalLMConfig, make_causal_train_step, make_synthetic_lm_batch
+    from hivemind_tpu_torch.models.causal_lm import make_lm_loss_fn
+
+    phase_started = time.perf_counter()
+    config = CausalLMConfig.base(max_position=CAUSAL_SEQ)
+    adamw = lambda params: torch.optim.AdamW(params, lr=1e-4, weight_decay=1e-4)  # [train]'s, optax.adamw(1e-4)
+    generator = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    batch = make_synthetic_lm_batch(generator, config, CAUSAL_BATCH, CAUSAL_SEQ)
+    model, train_step = make_causal_train_step(config, adamw, device="cuda", rng_seed=SEED + 26)
+    initial = {key: value.detach().clone() for key, value in model.state_dict().items()}
+
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, launches = timed_steps(torch, train_step, batch, wrappers, CAUSAL_WARMUP, CAUSAL_STEPS)
+    tokens_per_s = CAUSAL_BATCH * CAUSAL_SEQ / (step_ms / 1e3)
+    flops = causal_flops_per_token(config, CAUSAL_SEQ)
+    mfu = tokens_per_s * flops / peaks["bf16"]
+    steps = CAUSAL_WARMUP + CAUSAL_STEPS
+    log(f"[causal] CausalLM base ({config.num_layers} layers, hidden {config.hidden_size}, {config.num_heads} heads, "
+        f"vocab {config.vocab_size}) batch {CAUSAL_BATCH} x seq {CAUSAL_SEQ}, AdamW: step {step_ms:.3f} ms, "
+        f"{tokens_per_s:.0f} tokens/s, {flops / 1e9:.3f} GFLOP a token, MFU {mfu:.2%} of the published bf16 peak; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"[causal] losses: {[round(loss, 5) for loss in losses]}")
+    log(f"[causal] launches per step: " + json.dumps({name: count / steps for name, count in launches.items()}))
+    if not all(math.isfinite(loss) for loss in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall over {steps} steps: {losses[0]} -> {losses[-1]}")
+    for name in ("flash_attention_forward", "flash_attention_backward_dq", "flash_attention_backward_dkv"):
+        if launches[name] != config.num_layers * steps:
+            raise AssertionError(f"{name}: {launches[name]} launches in {steps} steps, expected {config.num_layers} "
+                                 f"per step")
+
+    log_step_profile(torch, train_step, batch, "causal train")
+    del model, train_step
+
+    # the same initial weights and a sub-batch: card vs the CPU plain path, remat, the
+    # card with fp32 attention (the kernels' reference), and a planted fault (the card's
+    # attention not causal) that the same limits must reject
+    sub = {"input_ids": batch["input_ids"][:CAUSAL_CHECK_BATCH]}
+    graded = {}
+    for where, remat, variant in (("cuda", False, None), ("cuda", True, None), ("cuda", False, "fp32"),
+                                  ("cuda", False, "non_causal"), ("cpu", False, None)):
+        check = CausalLM(dataclasses.replace(config, remat=remat), device=where)
+        check.load_state_dict(initial)
+        forward_before = wrappers["flash_attention_forward"].launches
+        with attention_variant(variant):
+            graded[(where, remat, variant)] = loss_and_grads(check, make_lm_loss_fn(check),
+                                                             {key: value.to(where) for key, value in sub.items()})
+        if where == "cuda" and variant is None:
+            torch.cuda.synchronize()
+            forwards = wrappers["flash_attention_forward"].launches - forward_before
+            if forwards != config.num_layers * (2 if remat else 1):
+                raise AssertionError(f"remat={remat}: {forwards} flash forward launches in one step")
+        del check
+    card_loss, card_grads = graded[("cuda", False, None)]
+    cpu_loss, cpu_grads = graded[("cpu", False, None)]
+    remat_loss, remat_grads = graded[("cuda", True, None)]
+    ref_loss, ref_grads = graded[("cuda", False, "fp32")]
+    fault_loss, fault_grads = graded[("cuda", False, "non_causal")]
+    loss_gap = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    fault_gap = abs(fault_loss - cpu_loss) / abs(cpu_loss)
+    fault_grad, fault_name = gradient_gap(fault_grads, cpu_grads)
+    log(f"[causal] [{CAUSAL_CHECK_BATCH}, {CAUSAL_SEQ}] sub-batch, initial weights: card loss {card_loss:.6f}, "
+        f"CPU plain path {cpu_loss:.6f} (relative gap {loss_gap:.3e}), card with remat {remat_loss:.6f}, card with "
+        f"fp32 attention {ref_loss:.6f}")
+    for what, got, ref in (("the card", card_grads, ref_grads), ("the CPU plain path", cpu_grads, ref_grads),
+                           ("the card against the CPU", card_grads, cpu_grads)):
+        gaps = gradient_gaps(got, ref)
+        rest = [gap for gap in gaps if not QK_PROJECTION.search(gap[1])]
+        log(f"[causal] {what}{'' if ref is cpu_grads else ' against the card with fp32 attention'}, the largest "
+            f"gradient error norms / norm: " + ", ".join(f"{gap:.3e} ({name})" for gap, name in gaps[:5])
+            + "; outside the query and key projections " + ", ".join(f"{gap:.3e} ({name})" for gap, name in rest[:3]))
+    log(f"[causal] planted fault, the card's attention with causal=False: loss {fault_loss:.6f} (relative gap "
+        f"{fault_gap:.3e}), largest gradient error norm / norm {fault_grad:.3e} ({fault_name})")
+    if fault_gap <= TRAIN_LOSS_RTOL and fault_grad <= CAUSAL_QK_GRAD_REL_L2:
+        raise AssertionError("the card-vs-CPU check passed a model whose attention is not causal")
+    if not loss_gap <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"card loss differs from the CPU's by {loss_gap:.3e} > {TRAIN_LOSS_RTOL}")
+    if remat_loss != card_loss:
+        raise AssertionError(f"remat changed the loss: {remat_loss} != {card_loss}")
+    for what, ref in (("card vs the card with fp32 attention", ref_grads), ("card vs CPU", cpu_grads)):
+        for projections, limit in ((False, TRAIN_GRAD_REL_L2), (True, CAUSAL_QK_GRAD_REL_L2)):
+            compare_grads(torch, qk_part(card_grads, projections), qk_part(ref, projections), limit,
+                          what + (", query and key projections" if projections else ", the rest"), phase="causal")
+    compare_grads(torch, remat_grads, card_grads, REMAT_GRAD_REL_L2, "remat vs not, on the card", phase="causal")
+    wall = time.perf_counter() - phase_started
+    log(f"[causal] phase wall {wall:.1f} s (limit {CAUSAL_PHASE_LIMIT_S:.0f})")
+    if wall > CAUSAL_PHASE_LIMIT_S:
+        raise AssertionError(f"the phase took {wall:.1f} s, over its {CAUSAL_PHASE_LIMIT_S:.0f} s")
     return launches
 
 
@@ -4397,6 +4572,10 @@ MESH_WINDOW = (4096, 11008, 1)  # the window kernel's shape: shard 1 of MESH_TP 
 # rows of whole blocks, which the blockwise kernel takes as well as the window entry
 MESH_ROW_SHARDS = {"ffn_down": (11008, 4096), "attention_out": (4096, 4096)}
 MESH_PHASE_LIMIT_S = 150.0
+# the mesh's backward: block 0 at [1, MESH_BACKWARD_TOKENS, 4096] with SGD(EXPERT_LR), held to
+# the single-device backend of the same weights on the card as [expert_backward] holds its
+MESH_BACKWARD_TOKENS = 512
+MESH_BACKWARD_LIMIT_S = 30.0
 # [cli]: run_dht and run_server --mesh_devices <the host's cards> as child processes, a
 # RemoteSequential client forwarding [1, CLI_FORWARD, 4096] (the flash kernel on every
 # shard) and generating CLI_NEW tokens through them
@@ -4582,6 +4761,21 @@ def phase_mesh_serving(torch, checkpoint_dir: str, wrappers: dict, peaks: dict):
             batched_step, sizes[mode])
         generated[mode], prefill_s, round_s = merged_greedy(manager, list(meshed[mode]), head, prompts, MESH_NEW)
         timing[mode] = dict(prefill_s=prefill_s, round_s=round_s)
+    # the mesh's backward: block 0 with SGD, one step of every shard
+    backward_started = time.perf_counter()
+    sgd = lambda params: torch.optim.SGD(params, lr=EXPERT_LR)
+    trained = load_llama_blocks(checkpoint_dir, layers=[0], mesh=mesh, optimizer=sgd, uid_prefix="train.")[0]["train.0"]
+    initial = trained.gather_params()
+    grad_rng = np.random.default_rng(SEED + 27)
+    bx, bgrad = (grad_rng.standard_normal((1, MESH_BACKWARD_TOKENS, hid), dtype=np.float32) for _ in range(2))
+    synchronize_all = lambda: [torch.cuda.synchronize(device) for device in distinct]
+    synchronize_all()
+    before_backward = {name: wrapper.launches for name, wrapper in wrappers.items()}
+    started = time.perf_counter()
+    (mesh_grad_x,) = trained.backward(bx, bgrad)
+    synchronize_all()
+    backward_walls = {"mesh": [time.perf_counter() - started]}
+    backward_launches = {name: wrapper.launches - before_backward[name] for name, wrapper in wrappers.items()}
     torch.cuda.synchronize()
     launches = {name: wrapper.launches for name, wrapper in wrappers.items()}
 
@@ -4641,6 +4835,8 @@ def phase_mesh_serving(torch, checkpoint_dir: str, wrappers: dict, peaks: dict):
             f"device: {flips} near-tie flips, largest logit gap {worst:.3e} (limit {GREEDY_LOGIT_RTOL})")
         if not worst <= GREEDY_LOGIT_RTOL:
             faults.append(f"{mode}: a token the mesh generated lies {worst} below the best logit")
+    faults += mesh_backward_faults(torch, checkpoint_dir, trained, initial, (bx, bgrad), mesh_grad_x, backward_launches,
+                                   backward_walls, synchronize_all, backward_started)
     wall = time.perf_counter() - phase_started
     log(f"[mesh_serving] phase wall {wall:.1f} s (limit {MESH_PHASE_LIMIT_S:.0f})")
     if wall > MESH_PHASE_LIMIT_S:
@@ -4648,6 +4844,57 @@ def phase_mesh_serving(torch, checkpoint_dir: str, wrappers: dict, peaks: dict):
     if faults:
         raise AssertionError("; ".join(faults))
     return launches, entry
+
+
+def mesh_backward_faults(torch, checkpoint_dir: str, trained, initial: dict, inputs: tuple, mesh_grad_x,
+                         launches: dict, walls: dict, synchronize_all, started: float) -> list:
+    """The mesh's backward held as [expert_backward] holds one: its input gradient and
+    each leaf's step, assembled from the shards, against the single-device backend of the
+    same weights on the card; the norm copies identical on every shard; one dQ and one
+    dK/dV launch a shard. Then both backwards timed (each call takes a step)."""
+    from hivemind_tpu_torch.moe.server.llama_loader import load_llama_blocks
+
+    faults, hid = [], LLAMA2_7B["hidden_size"]
+    steps = {key: tensor - initial[key] for key, tensor in trained.gather_params().items()}
+    for key in ("attention_norm.weight", "ffn_norm.weight"):
+        copies = [shard[key].to("cpu") for shard in trained.params]
+        if not all(torch.equal(copy, copies[0]) for copy in copies[1:]):
+            faults.append(f"the mesh's copies of {key} differ after a step")
+    sgd = lambda params: torch.optim.SGD(params, lr=EXPERT_LR)
+    reference = load_llama_blocks(checkpoint_dir, layers=[0], device="cuda", optimizer=sgd)[0]["llama.0"]
+    ref_initial = {key: tensor.to("cpu", copy=True) for key, tensor in reference.snapshot_params().items()}
+    synchronize_all()
+    begun = time.perf_counter()
+    (ref_grad_x,) = reference.backward(*inputs)
+    torch.cuda.synchronize()
+    walls["single"] = [time.perf_counter() - begun]
+    readings = {"input gradient": max_rel_err(mesh_grad_x, ref_grad_x)}
+    for key, tensor in reference.snapshot_params().items():
+        expected = tensor.to("cpu") - ref_initial[key]
+        readings[key] = ((steps[key] - expected).abs().max() / expected.abs().max().clamp_min(1e-30)).item()
+    for _ in range(2):  # warm walls: both take two more steps
+        for what, backend, sync in (("mesh", trained, synchronize_all), ("single", reference, torch.cuda.synchronize)):
+            begun = time.perf_counter()
+            backend.backward(*inputs)
+            sync()
+            walls[what].append(time.perf_counter() - begun)
+    log(f"[mesh_serving] backward [1, {MESH_BACKWARD_TOKENS}, {hid}] of block 0 over {len(trained.devices)} shards with "
+        f"SGD(lr={EXPERT_LR}) vs the single device, max relative error: "
+        + ", ".join(f"{key} {value:.3e}" for key, value in readings.items()) + f" (limit {EXPERT_TOL})")
+    log(f"[mesh_serving] backward walls (first, then warm) mesh {[round(w * 1e3, 3) for w in walls['mesh']]} ms vs "
+        f"single {[round(w * 1e3, 3) for w in walls['single']]} ms; launches in the mesh's first backward "
+        f"{json.dumps(launches)}")
+    worst = max(readings, key=readings.get)
+    if not readings[worst] < EXPERT_TOL:
+        faults.append(f"the mesh's backward: {worst} differs from the single device's by {readings[worst]:.3e}")
+    for name in ("flash_attention_backward_dq", "flash_attention_backward_dkv"):
+        if launches[name] != len(trained.devices):
+            faults.append(f"{name} launched {launches[name]} times in the mesh's backward, not once a shard")
+    wall = time.perf_counter() - started
+    log(f"[mesh_serving] backward part's wall {wall:.1f} s (limit {MESH_BACKWARD_LIMIT_S:.0f})")
+    if wall > MESH_BACKWARD_LIMIT_S:
+        faults.append(f"the backward part took {wall:.1f} s, over its {MESH_BACKWARD_LIMIT_S:.0f} s")
+    return faults
 
 
 def read_line(process, log_path: Path, pattern: str, limit_s: float) -> re.Match:
@@ -4942,8 +5189,9 @@ def main(argv=None) -> int:
         "collab": ("flash_attention_forward", "flash_attention_backward_dq", "flash_attention_backward_dkv"),
         "ring": ("flash_attention_forward",),
         "slice": ("flash_attention_forward", "flash_attention_backward_dq", "flash_attention_backward_dkv"),
-        "mesh_serving": ("flash_attention_forward", "blockwise_int8_quantize", "blockwise_int8_dequantize",
-                         "blockwise_int8_dequantize_window"),
+        "causal": ("flash_attention_forward", "flash_attention_backward_dq", "flash_attention_backward_dkv"),
+        "mesh_serving": ("flash_attention_forward", "flash_attention_backward_dq", "flash_attention_backward_dkv",
+                         "blockwise_int8_quantize", "blockwise_int8_dequantize", "blockwise_int8_dequantize_window"),
         "cli": ("flash_attention_forward",),
     }
 
@@ -4991,6 +5239,7 @@ def main(argv=None) -> int:
         run("averaging", phase_averaging, torch)  # host numpy reduction: no kernel on its path
         path_launches["expert_backward"] = run("expert_backward", phase_expert_backward, torch, checkpoint.name, wrappers)
         path_launches["train"] = run("train", phase_train, torch, peaks, wrappers, telemetry)
+        path_launches["causal"] = run("causal", phase_causal, torch, peaks, wrappers)
         # after [train], whose solo step it reads beside its own: the swarm of peer processes
         path_launches["collab"] = run("collab", phase_collab, torch, wrappers, telemetry)
         # the mesh tier: ranks that share the card over gloo

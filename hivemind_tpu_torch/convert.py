@@ -7,11 +7,12 @@ numpy arrays) becomes the port model's ``state_dict``, and a block's
 - a norm's ``scale`` ↔ the norm's ``weight``;
 - an ``nn.Embed``'s ``embedding`` ↔ the ``nn.Embedding``'s ``weight``;
 - a parameter of the model itself (the 'nop' expert's ``scale``, ALBERT's
-  ``position_embeddings`` and ``mlm_bias``) keeps its name.
+  ``position_embeddings`` and ``mlm_bias``, the causal LM's ``position_embeddings``)
+  keeps its name.
 
 Module names are shared between the two packages (``query``, ``ffn_norm``,
-``LayerNorm_0``, ``shared_layer``, ...), so ``shared_layer/query/kernel`` becomes
-``shared_layer.query.weight``.
+``LayerNorm_0``, ``shared_layer``, the causal LM's ``layer_0``, ...), so
+``shared_layer/query/kernel`` becomes ``shared_layer.query.weight``.
 """
 
 from __future__ import annotations

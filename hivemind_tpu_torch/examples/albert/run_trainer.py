@@ -2,7 +2,8 @@
 upstream: examples/albert/run_trainer.py): every peer runs this module, joins the swarm
 through the DHT, and trains one shared ALBERT with the collaborative Optimizer and LAMB;
 peers may come and go at any time. JAX peers running the JAX example with the same
-``--run_id`` and widths train the same model.
+``--run_id`` and widths train the same model. ``--model causal`` trains the decoder-only
+causal LM (``models/causal_lm.py``) instead, on the sampler's unmasked token stream.
 
     python -m hivemind_tpu_torch.examples.albert.run_trainer --initial_peers <maddr> ...
 
@@ -23,6 +24,9 @@ import numpy as np
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--run_id", default="albert_demo")
+    parser.add_argument("--model", choices=("albert", "causal"), default="albert",
+                        help="albert: the masked-LM flagship; causal: decoder-only next-token pretraining "
+                             "(models/causal_lm.py)")
     parser.add_argument("--initial_peers", nargs="*", default=[])
     parser.add_argument("--target_batch_size", type=int, default=4096)
     parser.add_argument("--batch_size", type=int, default=16)
@@ -33,7 +37,7 @@ def main(argv=None):
     parser.add_argument("--matchmaking_time", type=float, default=3.0)
     parser.add_argument("--max_steps", type=int, default=10**9)
     parser.add_argument("--client_mode", action="store_true")
-    parser.add_argument("--tiny", action="store_true", help="albert-tiny config (CPU-friendly)")
+    parser.add_argument("--tiny", action="store_true", help="the model's tiny config (CPU-friendly)")
     parser.add_argument("--powersgd_rank", type=int, default=0, help=">0: PowerSGD gradient compression")
     parser.add_argument("--dataset_path", default=None, help="local text corpus")
     parser.add_argument("--vocab_path", default=None,
@@ -52,7 +56,14 @@ def main(argv=None):
     from hivemind_tpu_torch.compression import NoCompression
     from hivemind_tpu_torch.dht import DHT
     from hivemind_tpu_torch.examples.albert.data import make_batch_sampler
-    from hivemind_tpu_torch.models import AlbertConfig, AlbertForMaskedLM, make_mlm_loss_fn
+    from hivemind_tpu_torch.models import (
+        AlbertConfig,
+        AlbertForMaskedLM,
+        CausalLM,
+        CausalLMConfig,
+        causal_lm_loss,
+        make_mlm_loss_fn,
+    )
     from hivemind_tpu_torch.moe.server.layers import lamb_with_warmup
     from hivemind_tpu_torch.optim import NaNGuard, Optimizer, PowerSGDGradientAverager
     from hivemind_tpu_torch.utils.device import resolve_device
@@ -62,12 +73,18 @@ def main(argv=None):
     logger = get_logger("albert_trainer")
     device = resolve_device(args.device)
 
-    config = AlbertConfig.tiny(max_position=args.seq_len) if args.tiny else AlbertConfig.base(max_position=args.seq_len)
-    model = AlbertForMaskedLM(config, device=device)
+    config_cls, model_cls = (CausalLMConfig, CausalLM) if args.model == "causal" else (AlbertConfig, AlbertForMaskedLM)
+    config = config_cls.tiny(max_position=args.seq_len) if args.tiny else config_cls.base(max_position=args.seq_len)
+    model = model_cls(config, device=device)
     # every peer starts from the same weights: the swarm averages one model
     model.reset_parameters(torch.Generator(device=device).manual_seed(0))
-    # masked-only loss: a ~4x cheaper MLM head (the same objective at 15% masking)
-    loss_fn = make_mlm_loss_fn(model, masked_loss_fraction=0.25)
+    if args.model == "causal":
+        # the sampler's "labels" field is the unmasked token stream: what next-token
+        # prediction trains on
+        loss_fn = lambda batch: causal_lm_loss(model(batch["labels"]), batch["labels"])
+    else:
+        # masked-only loss: a ~4x cheaper MLM head (the same objective at 15% masking)
+        loss_fn = make_mlm_loss_fn(model, masked_loss_fraction=0.25)
 
     dht = DHT(initial_peers=args.initial_peers, start=True)
     for maddr in dht.get_visible_maddrs():

@@ -33,9 +33,20 @@ the codes with the whole absmax (``ops/quantized_params.py::QuantizedWindow``).
 KV caches are split over the kv-heads axis (``shard_decode_cache``): a decode
 session holds one cache a shard, on the shard's device.
 
+Training: ``backward`` runs the same shard-by-shard forward under autograd, which
+carries the gradients back through the cross-device copies of the broadcast and of
+the fp32 reduce (so each shard's attention runs the flash backward kernels on its own
+card), then applies one step of the backend's optimizer, built over every shard's
+tensors. A norm weight has a copy on every shard: its gradient is the sum of the
+shards', computed once on the first device and given to every copy, so the copies
+take the same step and stay identical. ``state_dict`` assembles the optimizer's
+statistics from the shards in the single-device optax layout, and
+``load_state_dict`` cuts them back. An int8 mesh refuses the backward, as an int8
+single-device backend does.
+
 Not ported: the JAX mesh serves any block and any N (GSPMD resolves every
-placement); this one serves ``llama_block`` with ``num_kv_heads % N == 0``, and
-its backward raises (ROADMAP: the serving mesh's follow-ups).
+placement); this one serves ``llama_block`` with ``num_kv_heads % N == 0``
+(ROADMAP: the serving mesh's follow-ups).
 """
 
 from __future__ import annotations
@@ -50,7 +61,7 @@ from torch import nn
 from hivemind_tpu_torch.convert import from_flax_albert_params, to_flax_tree
 from hivemind_tpu_torch.moe.server.layers import init_parameters
 from hivemind_tpu_torch.moe.server.layers.common import _decode_attention, apply_rope, dense, rms_norm
-from hivemind_tpu_torch.moe.server.module_backend import ModuleBackend, optax_state
+from hivemind_tpu_torch.moe.server.module_backend import ModuleBackend, load_optax_state, optax_state
 from hivemind_tpu_torch.ops.flash_attention import attention_auto
 from hivemind_tpu_torch.ops.quantized_params import QuantizedTensor, QuantizedWindow, cut_window, quantize_params
 from hivemind_tpu_torch.utils import flax_msgpack
@@ -137,7 +148,6 @@ class MeshModuleBackend(ModuleBackend):
             params = {key: tensor.detach() for key, tensor in module.state_dict().items()}
         self.module = module.to("meta").eval().requires_grad_(False)
         self._shapes = {key: tuple(tensor.shape) for key, tensor in self.module.state_dict().items()}
-        self.optimizer = None  # serving only: backward raises
         self.load_params(params)
         with torch.inference_mode():
             return (self._apply(self._to_device(sample_inputs[0][:1])),)
@@ -191,14 +201,17 @@ class MeshModuleBackend(ModuleBackend):
 
     def load_params(self, params: Dict[str, torch.Tensor]) -> None:
         """Replace the block's weights: each leaf lands straight on its shards (int8:
-        quantized whole on the first device, then cut)."""
+        quantized whole on the first device, then cut); a trainable mesh restarts its
+        optimizer over the new shards."""
         self._check_params(params)
         shards: List[Shard] = [{} for _ in self.devices]
         for key, tensor in params.items():
             for shard, piece in zip(shards, self._split_leaf(key, torch.as_tensor(tensor))):
                 shard[key] = piece
+        optimizer = None if self.weight_quantization else self._make_optimizer(
+            [tensor for shard in shards for tensor in shard.values()])
         with self._state_lock:
-            self.params = shards
+            self.params, self.optimizer = shards, optimizer
 
     # ------------------------------------------------------------------ execution
 
@@ -210,17 +223,22 @@ class MeshModuleBackend(ModuleBackend):
 
     def _reduce(self, partials: List[torch.Tensor]) -> torch.Tensor:
         """The shards' partials summed in fp32 on the first device, rounded once to bf16."""
+        return self._reduce_fp32(partials).to(torch.bfloat16)
+
+    def _reduce_fp32(self, partials: List[torch.Tensor]) -> torch.Tensor:
         total = partials[0].to(torch.float32)
         for partial in partials[1:]:
             total = total + partial.to(self.devices[0], torch.float32, non_blocking=True)
-        return total.to(torch.bfloat16)
+        return total
 
     def _apply(self, x: torch.Tensor, cache_k: Optional[List[torch.Tensor]] = None,
-               cache_v: Optional[List[torch.Tensor]] = None, index=None):
+               cache_v: Optional[List[torch.Tensor]] = None, index=None, params: Optional[List[Shard]] = None):
         """The block, tensor-parallel: ``x`` [batch, seq, hid] on the first device; with
         per-shard caches (``shard_decode_cache``) and ``index``, one decode step that
-        returns ``(y, cache_k, cache_v)``, as the block does."""
+        returns ``(y, cache_k, cache_v)``, as the block does. ``params``: the shards to
+        run (the backend's own by default; the backward's leaves)."""
         block, parts = self.module, self._axis_size()
+        params = self.params if params is None else params
         batch, seq, hid = x.shape
         heads, kv_heads = block.num_heads // parts, block.num_kv_heads // parts
         head_dim, eps = hid // block.num_heads, block.attention_norm.eps
@@ -230,7 +248,7 @@ class MeshModuleBackend(ModuleBackend):
             offsets = [index.to(device, non_blocking=True) if isinstance(index, torch.Tensor) else index
                        for device in self.devices]
         partials, new_k, new_v = [], [], []
-        for r, (shard, xr) in enumerate(zip(self.params, self._broadcast(x))):
+        for r, (shard, xr) in enumerate(zip(params, self._broadcast(x))):
             w, offset = _weights(shard, _ATTENTION), offsets[r]
             normed = rms_norm(xr, w["attention_norm.weight"], eps)
             q = apply_rope(dense(normed, w["query.weight"]).reshape(batch, seq, heads, head_dim), block.rope_theta, offset)
@@ -249,7 +267,7 @@ class MeshModuleBackend(ModuleBackend):
             partials.append(dense(context.reshape(batch, seq, heads * head_dim), w["attention_out.weight"]))
         x = x + self._reduce(partials)
         partials = []
-        for shard, xr in zip(self.params, self._broadcast(x)):
+        for shard, xr in zip(params, self._broadcast(x)):
             w = _weights(shard, _FFN)
             normed = rms_norm(xr, w["ffn_norm.weight"], eps)
             gated = F.silu(dense(normed, w["ffn_gate.weight"])) * dense(normed, w["ffn_up.weight"])
@@ -257,11 +275,26 @@ class MeshModuleBackend(ModuleBackend):
         y = (x + self._reduce(partials)).to(torch.float32)
         return (y, new_k, new_v) if decoding else y
 
-    def backward(self, *tensors: np.ndarray) -> List[np.ndarray]:
-        raise NotImplementedError(
-            f"expert {self.name!r} is served over a mesh, which is inference-only in the port "
-            f"(ROADMAP queue A, the serving mesh's follow-ups: the mesh's backward)"
-        )
+    def _input_grads(self, xs: List[torch.Tensor], grad_outputs: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The shard-by-shard forward under autograd: the input's gradient, and each shard
+        tensor's left in its ``.grad`` for the optimizer's step (``ModuleBackend.backward``
+        runs it and the step). A copied leaf's copies all get the sum of the shards'."""
+        leaves = [{key: tensor.detach().requires_grad_(True) for key, tensor in shard.items()} for shard in self.params]
+        y = self._apply(xs[0], params=leaves)
+        flat = [leaf for shard in leaves for leaf in shard.values()]
+        grad_x, *grads = torch.autograd.grad(y, [xs[0], *flat], grad_outputs=grad_outputs[0], allow_unused=True,
+                                             materialize_grads=True)
+        grads = iter(grads)
+        shard_grads = [{key: next(grads) for key in shard} for shard in leaves]
+        for key, dim in _SPLIT.items():
+            if dim is None:  # summed once on the first device: every copy takes the same step
+                total = self._reduce_fp32([shard[key] for shard in shard_grads])
+                for shard, device in zip(shard_grads, self.devices):
+                    shard[key] = total.to(device, non_blocking=True)
+        for shard, shard_grad in zip(self.params, shard_grads):
+            for key, tensor in shard.items():
+                tensor.grad = shard_grad[key]
+        return [grad_x]
 
     # ------------------------------------------------------------------ accounting
 
@@ -294,31 +327,45 @@ class MeshModuleBackend(ModuleBackend):
 
     # ------------------------------------------------------------------ state
 
+    def _gather(self, shards: List[Shard], pieces_of) -> Dict[str, torch.Tensor]:
+        """``pieces_of(shard, key)`` of every shard, assembled into whole tensors on the
+        host (new tensors, never the shards' own): cut leaves concatenated, a copied
+        leaf taken from the first shard."""
+        gathered = {}
+        for key in self._shapes:
+            if _SPLIT[key] is None:
+                gathered[key] = pieces_of(shards[0], key).to("cpu", copy=True)
+            else:
+                gathered[key] = torch.cat([pieces_of(shard, key).to("cpu") for shard in shards], dim=_SPLIT[key])
+        return gathered
+
     def gather_params(self) -> Dict[str, torch.Tensor]:
         """The shards gathered into the whole block's weights, fp32 on the host (int8:
         dequantized, bit for bit the whole tensor's dequantize)."""
-        gathered = {}
-        for key in self._shapes:
-            pieces = [shard[key] for shard in self.snapshot_params()]
-            pieces = [(piece.dequantize() if isinstance(piece, QuantizedWindow) else piece).to("cpu") for piece in pieces]
-            gathered[key] = pieces[0] if _SPLIT[key] is None else torch.cat(pieces, dim=_SPLIT[key])
-        return gathered
+        return self._gather(self.snapshot_params(), _dense_piece)
 
     def state_dict(self) -> bytes:
-        """The bytes a single-device backend of the same weights writes: the gathered
-        weights in flax layout, and a fresh optimizer's state (the mesh never steps;
-        ``{}`` for int8, as the reference writes)."""
-        dense_params = self.gather_params()
-        opt_state = {} if self.weight_quantization else optax_state(
-            self._make_optimizer(list(dense_params.values())), dense_params)
-        return flax_msgpack.to_bytes({"params": to_flax_tree(dense_params), "opt_state": opt_state,
-                                      "updates": self.update_count})
+        """The bytes a single-device backend of the same weights and optimizer state
+        writes: the gathered weights in flax layout, the optimizer's statistics assembled
+        from the shards in its optax twin's layout (``{}`` for int8, as the reference
+        writes)."""
+        with self._state_lock:
+            dense_params = self._gather(self.params, _dense_piece)
+            opt_state = {} if self.optimizer is None else optax_state(
+                self.optimizer, None, lambda slot: self._gather(self.params, lambda shard, key: self.optimizer.state.get(
+                    shard[key], {}).get(slot, torch.zeros_like(shard[key]))))
+            updates = self.update_count
+        return flax_msgpack.to_bytes({"params": to_flax_tree(dense_params), "opt_state": opt_state, "updates": updates})
 
     def load_state_dict(self, blob: bytes) -> None:
-        """Restore a blob of either package's backend: the weights go to their shards."""
+        """Restore a blob of either package's backend: the weights, and the optimizer's
+        statistics where its optax twin wrote them, go to their shards."""
         restored = flax_msgpack.msgpack_restore(blob)
         self.load_params(from_flax_albert_params(restored["params"]))
         with self._state_lock:
+            if self.optimizer is not None:
+                load_optax_state(self.optimizer, None, restored.get("opt_state") or {}, lambda key, whole: list(
+                    zip((shard[key] for shard in self.params), self._split_leaf(key, whole))))
             self.update_count = int(restored.get("updates", 0))
 
 
@@ -326,7 +373,11 @@ def _nbytes(tensor: torch.Tensor) -> int:
     return tensor.numel() * tensor.element_size()
 
 
+def _dense_piece(shard: Shard, key: str) -> torch.Tensor:
+    """A shard's piece of a leaf, an int8 window dequantized (transient)."""
+    return shard[key].dequantize() if isinstance(shard[key], QuantizedWindow) else shard[key]
+
+
 def _weights(shard: Shard, names: Sequence[str]) -> Dict[str, torch.Tensor]:
     """A shard's weights for one stage, int8 windows dequantized (transient)."""
-    return {name: shard[name].dequantize() if isinstance(shard[name], QuantizedWindow) else shard[name]
-            for name in names}
+    return {name: _dense_piece(shard, name) for name in names}

@@ -246,21 +246,27 @@ class ModuleBackend:
         grad_outputs = [self._to_device(g) for g in tensors[self.num_inputs:]]
         record_transfer(sum(tensor_nbytes(t) for t in (*xs, *grad_outputs)), "host_to_device")
         with self._state_lock, torch.enable_grad():
-            leaves = {key: tensor.detach().requires_grad_(True) for key, tensor in self.params.items()}
-            outs = _as_tuple(torch.func.functional_call(self.module, leaves, tuple(xs)))
-            # an unused parameter (or input) gets a zero gradient, not None: optimizers
-            # skip a None, while optax updates it (weight decay, moment decay) as the
-            # JAX backend does
-            grads = torch.autograd.grad(outs, [*xs, *leaves.values()], grad_outputs=grad_outputs,
-                                        allow_unused=True, materialize_grads=True)
-            for tensor, grad in zip(self.params.values(), grads[self.num_inputs:]):
-                tensor.grad = grad
+            grads = self._input_grads(xs, grad_outputs)
             self.optimizer.step()
             self.optimizer.zero_grad(set_to_none=True)
             self.update_count += 1
-            grads_in = [grad.to("cpu").numpy() for grad in grads[: self.num_inputs]]
+            grads_in = [grad.to("cpu").numpy() for grad in grads]
         record_transfer(sum(grad.nbytes for grad in grads_in), "device_to_host")
         return grads_in
+
+    def _input_grads(self, xs: List[torch.Tensor], grad_outputs: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The inputs' gradients, each parameter tensor's left in its ``.grad`` for the
+        optimizer's step. The caller holds ``_state_lock`` with autograd on."""
+        leaves = {key: tensor.detach().requires_grad_(True) for key, tensor in self.params.items()}
+        outs = _as_tuple(torch.func.functional_call(self.module, leaves, tuple(xs)))
+        # an unused parameter (or input) gets a zero gradient, not None: optimizers
+        # skip a None, while optax updates it (weight decay, moment decay) as the
+        # JAX backend does
+        grads = torch.autograd.grad(outs, [*xs, *leaves.values()], grad_outputs=grad_outputs,
+                                    allow_unused=True, materialize_grads=True)
+        for tensor, grad in zip(self.params.values(), grads[self.num_inputs:]):
+            tensor.grad = grad
+        return list(grads[: self.num_inputs])
 
     # ------------------------------------------------------------------ metadata
 
@@ -325,40 +331,47 @@ def _optax_layout(optimizer: torch.optim.Optimizer) -> Optional[str]:
     return None
 
 
-def optax_state(optimizer: torch.optim.Optimizer, params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+def optax_state(optimizer: torch.optim.Optimizer, params: Optional[Dict[str, torch.Tensor]],
+                moments: Optional[Callable[[str], Dict[str, torch.Tensor]]] = None) -> Dict[str, Any]:
     """``optimizer``'s statistics over ``params`` in its optax twin's layout ({} when
-    it has none)."""
+    it has none). ``moments(slot)`` gives one slot's tensors keyed like the block's
+    parameters: by default each tensor of ``params``'s own (a serving mesh assembles
+    them from its shards instead)."""
     layout = _optax_layout(optimizer)
     if layout is None:
         return {}
-
-    def moments(slot: str) -> Dict[str, Any]:
-        return to_flax_tree({key: optimizer.state.get(tensor, {}).get(slot, torch.zeros_like(tensor))
-                             for key, tensor in params.items()})
-
+    if moments is None:
+        moments = lambda slot: {key: optimizer.state.get(tensor, {}).get(slot, torch.zeros_like(tensor))
+                                for key, tensor in params.items()}
     if layout in ("sgd", "sgd_momentum"):
-        first = {"trace": moments("momentum_buffer")} if layout == "sgd_momentum" else {}
+        first = {"trace": to_flax_tree(moments("momentum_buffer"))} if layout == "sgd_momentum" else {}
         return {"0": first, "1": {}}
-    steps = [optimizer.state[tensor]["step"] for tensor in params.values() if "step" in optimizer.state.get(tensor, {})]
+    steps = [state["step"] for state in optimizer.state.values() if "step" in state]
     count = np.asarray(int(steps[0]) if steps else 0, np.int32)
-    return {"0": {"count": count, "mu": moments("exp_avg"), "nu": moments("exp_avg_sq")}, "1": {}}
+    return {"0": {"count": count, "mu": to_flax_tree(moments("exp_avg")), "nu": to_flax_tree(moments("exp_avg_sq"))},
+            "1": {}}
 
 
-def load_optax_state(optimizer: torch.optim.Optimizer, params: Dict[str, torch.Tensor], state: Dict[str, Any]) -> None:
+def load_optax_state(optimizer: torch.optim.Optimizer, params: Optional[Dict[str, torch.Tensor]], state: Dict[str, Any],
+                     place: Optional[Callable[[str, torch.Tensor], List[Tuple[torch.Tensor, torch.Tensor]]]] = None) -> None:
     """Set ``optimizer``'s statistics from an optax state tree (the inverse of
-    :func:`optax_state`); a layout the optimizer does not have leaves it fresh."""
+    :func:`optax_state`); a layout the optimizer does not have leaves it fresh.
+    ``place(key, whole)`` gives the ``(parameter tensor, value)`` pairs that a whole
+    statistic of the parameter ``key`` lands on: by default ``params[key]`` and the
+    whole (a serving mesh cuts it into its shards instead)."""
     layout, first = _optax_layout(optimizer), state.get("0")
     if layout is None or not isinstance(first, dict):
         return
-
-    def tensors(tree) -> Dict[str, torch.Tensor]:
-        return {key: value.to(params[key].device) for key, value in from_flax_albert_params(tree).items()}
+    if place is None:
+        place = lambda key, whole: [(params[key], whole.to(params[key].device))]
 
     if layout == "sgd_momentum" and "trace" in first:
-        for key, value in tensors(first["trace"]).items():
-            optimizer.state[params[key]] = {"momentum_buffer": value}
+        for key, value in from_flax_albert_params(first["trace"]).items():
+            for tensor, piece in place(key, value):
+                optimizer.state[tensor] = {"momentum_buffer": piece}
     elif layout == "adam" and {"count", "mu", "nu"} <= set(first):
-        mu, nu = tensors(first["mu"]), tensors(first["nu"])
-        for key, tensor in params.items():
-            optimizer.state[tensor] = {"step": torch.tensor(float(first["count"]), dtype=torch.float32),
-                                       "exp_avg": mu[key], "exp_avg_sq": nu[key]}
+        mu, nu = from_flax_albert_params(first["mu"]), from_flax_albert_params(first["nu"])
+        for key in mu:
+            for (tensor, m), (_, v) in zip(place(key, mu[key]), place(key, nu[key])):
+                optimizer.state[tensor] = {"step": torch.tensor(float(first["count"]), dtype=torch.float32),
+                                           "exp_avg": m, "exp_avg_sq": v}

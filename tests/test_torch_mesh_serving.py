@@ -8,8 +8,12 @@ blocks the port's single device and the JAX package agree within 1.2e-2
 (``tests/test_torch_serving.py``'s chain limit); the mesh rounds each shard's partial of
 ``attention_out`` and ``ffn_down`` to bf16 before the fp32 sum, one more bf16 rounding
 (2⁻⁸ relative) of each partial, so the mesh is held within 2e-2 of the JAX mesh and of
-the port's single device (measured: 6.3e-3 to 1.1e-2). The int8 codes, absmax, byte
-counts, cache shapes and capacity plans are exact."""
+the port's single device (measured: 6.3e-3 to 1.1e-2). The backward (one SGD step) is the
+same bf16 block run the other way, held the same way: the input gradient and each
+parameter's step within 2e-2 of the reference's largest (measured against the JAX mesh:
+8.7e-3 and up to 1.45e-2, the query kernel; against the single device: 7.8e-3 and
+1.15e-2). The int8 codes, absmax, byte counts, cache shapes, capacity plans, the norm
+copies after a step and the state blobs are exact."""
 
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import time
 
 import jax
 import numpy as np
+import optax
 import pytest
 import torch
 from jax.sharding import Mesh
@@ -29,6 +34,7 @@ from hivemind_tpu.moe.server.llama_loader import decode_cache_bytes as jax_decod
 from hivemind_tpu.moe.server.llama_loader import load_llama_blocks as jax_load_llama_blocks
 from hivemind_tpu.moe.server.llama_loader import plan_block_capacity as jax_plan_block_capacity
 from hivemind_tpu.moe.server.llama_loader import predict_block_param_bytes as jax_predict_block_param_bytes
+from hivemind_tpu_torch.convert import from_flax_albert_params
 from hivemind_tpu_torch.dht import DHT
 from hivemind_tpu_torch.moe import RemoteSequential
 from hivemind_tpu_torch.moe.server.decode_session import DecodeSessionManager
@@ -45,6 +51,7 @@ from hivemind_tpu_torch.ops.blockwise_int8 import blockwise_int8_dequantize_wind
 from hivemind_tpu_torch.ops.quantization import blockwise_dequantize, blockwise_dequantize_window, blockwise_quantize
 from hivemind_tpu_torch.ops.quantized_params import QuantizedWindow
 from hivemind_tpu_torch.telemetry import REGISTRY
+from hivemind_tpu_torch.utils import flax_msgpack
 
 from test_llama_loader import HEADS, HID, KV_HEADS, LAYERS, _write_checkpoint
 
@@ -52,6 +59,7 @@ torch.set_num_threads(1)  # tiny shapes; leave the cores to the timing-sensitive
 
 SHARDS = 2
 MESH_TOL = 2e-2
+BACKWARD_LR = 1e-2
 QUANTIZATIONS = [None, "int8"]
 
 
@@ -247,10 +255,80 @@ def test_a_mesh_that_does_not_divide_the_kv_heads_is_refused(checkpoint):
 
 
 def test_the_mesh_refuses_the_backward(checkpoint):
-    backend = _port_mesh(checkpoint, None)["mesh.0"]
+    """An int8 mesh refuses the backward, as the int8 single-device backend does (and
+    the JAX package's): its weights are codes, not trainable tensors."""
+    backend = _port_mesh(checkpoint, "int8")["mesh.0"]
     x = np.zeros((1, 3, HID), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="int8 weight-only"):
         backend.backward(x, x)
+    assert backend.optimizer is None and backend.update_count == 0
+
+
+def _steps(after: dict, before: dict) -> dict:
+    return {key: np.asarray(after[key], np.float32) - np.asarray(before[key], np.float32) for key in before}
+
+
+def test_mesh_backward_matches_the_jax_mesh_and_the_single_device(checkpoint):
+    """One backward with an SGD step on the port's 2 × cpu mesh, the JAX mesh of 2 devices
+    (GSPMD differentiates its sharded forward) and the port's single device, from the same
+    weights, input and output gradient: the input gradient and each parameter's step within
+    MESH_TOL of the largest, and the norm copies identical on every shard after the step."""
+    rng = np.random.RandomState(11)
+    x, grad_out = (rng.randn(2, 9, HID).astype(np.float32) for _ in range(2))
+    mesh = load_llama_blocks(checkpoint, layers=[0], mesh=ServingMesh(["cpu"] * SHARDS),
+                             optimizer=lambda p: torch.optim.SGD(p, lr=BACKWARD_LR))[0]["llama.0"]
+    single = load_llama_blocks(checkpoint, layers=[0], device="cpu",
+                               optimizer=lambda p: torch.optim.SGD(p, lr=BACKWARD_LR))[0]["llama.0"]
+    reference = jax_load_llama_blocks(checkpoint, layers=[0], optimizer=optax.sgd(BACKWARD_LR),
+                                      mesh=Mesh(np.array(jax.devices()[:SHARDS]).reshape(SHARDS), ("tp",)))[0]["llama.0"]
+    before = {key: tensor.clone() for key, tensor in mesh.gather_params().items()}
+    (grad_x,) = mesh.backward(x, grad_out)
+    (single_grad_x,) = single.backward(x, grad_out)
+    (jax_grad_x,) = reference.backward(x, grad_out)
+    assert mesh.update_count == 1 and mesh.get_info()["updates"] == 1
+    assert grad_x.shape == x.shape and np.isfinite(grad_x).all()
+    assert _max_rel_err(grad_x, jax_grad_x) < MESH_TOL
+    assert _max_rel_err(grad_x, single_grad_x) < MESH_TOL
+    steps = _steps(mesh.gather_params(), before)
+    jax_after = from_flax_albert_params(jax.tree_util.tree_map(np.asarray, reference.params))
+    for name, expected in (("jax", _steps(jax_after, before)), ("single", _steps(single.snapshot_params(), before))):
+        for key, step in steps.items():
+            assert np.abs(step).max() > 0, key
+            assert _max_rel_err(step, expected[key]) < MESH_TOL, (name, key, _max_rel_err(step, expected[key]))
+    for key in ("attention_norm.weight", "ffn_norm.weight"):
+        copies = [shard[key] for shard in mesh.params]
+        assert all(torch.equal(copy, copies[0]) for copy in copies[1:]), key
+    # the next forward runs on the stepped shards
+    np.testing.assert_allclose(mesh.forward(x)[0], _chain({"s": single}, x), rtol=0, atol=MESH_TOL * np.abs(
+        _chain({"s": single}, x)).max())
+
+
+@pytest.mark.parametrize("optimizer", ["adam", "sgd_momentum"])
+def test_a_stepped_mesh_state_dict_loads_into_a_single_device_and_back(checkpoint, optimizer):
+    """After a step, the mesh's blob holds its optimizer's statistics assembled from the
+    shards, in the single-device optax layout: a single-device backend restores it and
+    writes the same bytes, and a mesh restores those bytes and steps on as the first
+    mesh does."""
+    factory = {"adam": lambda p: torch.optim.Adam(p, lr=1e-3),
+               "sgd_momentum": lambda p: torch.optim.SGD(p, lr=1e-2, momentum=0.9)}[optimizer]
+    rng = np.random.RandomState(12)
+    x, grad_out = (rng.randn(1, 5, HID).astype(np.float32) for _ in range(2))
+    mesh = load_llama_blocks(checkpoint, layers=[0], mesh=ServingMesh(["cpu"] * SHARDS), optimizer=factory)[0]["llama.0"]
+    mesh.backward(x, grad_out)
+    blob = mesh.state_dict()
+    restored = flax_msgpack.msgpack_restore(blob)
+    first = restored["opt_state"]["0"]
+    assert (set(first) == {"count", "mu", "nu"} and int(first["count"]) == 1) if optimizer == "adam" else "trace" in first
+    single = load_llama_blocks(checkpoint, layers=[1], device="cpu", optimizer=factory)[0]["llama.1"]
+    single.load_state_dict(blob)
+    assert single.state_dict() == blob
+    other = load_llama_blocks(checkpoint, layers=[1], mesh=ServingMesh(["cpu"] * SHARDS), optimizer=factory)[0]["llama.1"]
+    other.load_state_dict(single.state_dict())
+    assert other.state_dict() == blob
+    # both meshes take the same second step
+    mesh.backward(x, grad_out)
+    other.backward(x, grad_out)
+    assert other.state_dict() == mesh.state_dict()
 
 
 @pytest.mark.parametrize("quantization", QUANTIZATIONS, ids=["fp32", "int8"])

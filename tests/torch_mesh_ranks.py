@@ -194,9 +194,9 @@ def albert_train_step(rank, shape, flax_params, batch, masked_loss_fraction, lr,
     through the bridge."""
     import torch
 
-    from hivemind_tpu_torch.convert import flax_path, from_flax_albert_params
+    from hivemind_tpu_torch.convert import from_flax_albert_params
     from hivemind_tpu_torch.models import AlbertConfig, make_train_step
-    from hivemind_tpu_torch.parallel import MeshTensorBridge, params_shardings, shard_batch, shard_state_dict
+    from hivemind_tpu_torch.parallel import shard_batch, shard_state_dict
 
     mesh = _mesh(shape)
     config = AlbertConfig.tiny(dtype=torch.float32, max_position=seq, mesh=mesh)
@@ -204,13 +204,40 @@ def albert_train_step(rank, shape, flax_params, batch, masked_loss_fraction, lr,
                                         masked_loss_fraction=masked_loss_fraction, device="cpu")
     model.load_state_dict(shard_state_dict(from_flax_albert_params(flax_params), mesh))
     loss = train_step(shard_batch({key: torch.from_numpy(value) for key, value in batch.items()}, mesh))
+    return dict(loss=float(loss), **_gathered(model, mesh))
+
+
+def causal_lm_train_step(rank, shape, flax_params, input_ids, lr):
+    """One SGD step of the tiny causal LM (fp32) on the mesh from the given weights and
+    global token batch: the loss, and the whole updated parameters (flax layout, on rank
+    0) gathered through the bridge."""
+    import torch
+
+    from hivemind_tpu_torch.convert import from_flax_albert_params
+    from hivemind_tpu_torch.models import CausalLMConfig, make_causal_train_step
+    from hivemind_tpu_torch.parallel import shard_batch, shard_state_dict
+
+    mesh = _mesh(shape)
+    config = CausalLMConfig.tiny(dtype=torch.float32, mesh=mesh)
+    model, train_step = make_causal_train_step(config, lambda p: torch.optim.SGD(p, lr=lr), device="cpu")
+    model.load_state_dict(shard_state_dict(from_flax_albert_params(flax_params), mesh))
+    loss = train_step(shard_batch({"input_ids": torch.from_numpy(input_ids)}, mesh))
+    return dict(loss=float(loss), **_gathered(model, mesh))
+
+
+def _gathered(model, mesh) -> dict:
+    """The model's parameters gathered whole to rank 0 (flax paths; None elsewhere), and
+    each local shard's shape."""
+    from hivemind_tpu_torch.convert import flax_path
+    from hivemind_tpu_torch.parallel import MeshTensorBridge, params_shardings
+
     named = dict(model.named_parameters())
     shardings = params_shardings(named, mesh)
     mirrors = MeshTensorBridge(mesh).gather_to_host(list(named.values()), list(shardings.values()))
     local_shapes = {name: tuple(p.shape) for name, p in named.items()}
     whole = None if mirrors is None else {"/".join(flax_path(name, p.ndim)[0]): m for (name, p), m in
                                           zip(named.items(), mirrors)}
-    return dict(loss=float(loss), params=whole, local_shapes=local_shapes)
+    return dict(params=whole, local_shapes=local_shapes)
 
 
 # ---------------------------------------------------------------- the bridge
