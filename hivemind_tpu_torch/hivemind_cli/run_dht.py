@@ -86,7 +86,7 @@ def main(argv: Optional[Sequence[str]] = None):
 
         exporter = MetricsExporter(port=args.metrics_port, host=args.metrics_host)
     if args.telemetry_key:
-        from hivemind_tpu_torch.telemetry import TelemetryPublisher
+        from hivemind_tpu_torch.telemetry.monitor import TelemetryPublisher
 
         publisher = TelemetryPublisher(dht, args.telemetry_key, interval=args.refresh_period)
 

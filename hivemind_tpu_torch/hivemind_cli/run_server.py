@@ -268,7 +268,7 @@ def _start_telemetry(args, dht):
 
         components.append(MetricsExporter(port=args.metrics_port, host=args.metrics_host))
     if args.telemetry_key:
-        from hivemind_tpu_torch.telemetry import TelemetryPublisher
+        from hivemind_tpu_torch.telemetry.monitor import TelemetryPublisher
 
         components.append(TelemetryPublisher(dht, args.telemetry_key, interval=args.telemetry_interval))
     return tuple(components)

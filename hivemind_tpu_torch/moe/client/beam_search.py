@@ -49,11 +49,15 @@ class MoEBeamSearcher:
             raise ValueError(f"{len(scores)} score arrays for a grid of {len(self.grid_size)} dimensions")
 
         async def _search(_dht, node) -> List[List[ExpertInfo]]:
-            with _tracing_span("moe.beam_search", peer=str(node.protocol.p2p.peer_id), prefix=self.uid_prefix,
-                               beam_size=beam_size):
-                return await self._beam_search(node, scores, beam_size)
+            return await self._find_best_experts_async(node, scores, beam_size)
 
         return self.dht.run_coroutine(_search)
+
+    async def _find_best_experts_async(self, node, scores, beam_size: int) -> List[List[ExpertInfo]]:
+        """The traced search on ``node`` (the swarm simulator calls it on its own loop)."""
+        with _tracing_span("moe.beam_search", peer=str(node.protocol.p2p.peer_id), prefix=self.uid_prefix,
+                           beam_size=beam_size):
+            return await self._beam_search(node, scores, beam_size)
 
     async def _beam_search(self, node, scores, beam_size: int) -> List[List[ExpertInfo]]:
         batch_size = scores[0].shape[0]

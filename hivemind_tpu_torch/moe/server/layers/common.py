@@ -152,7 +152,8 @@ class TransformerExpert(nn.Module):
         return self.LayerNorm_1(x + h).to(torch.float32)
 
 
-def _decode_attention(q, k_new, v_new, cache_k, cache_v, index: Index, groups: int = 1):
+def _decode_attention(q, k_new, v_new, cache_k, cache_v, index: Index, groups: int = 1,
+                      kv_map: Optional[torch.Tensor] = None):
     """The KV-cache attention step of the decoder blocks (the JAX package's
     ``_decode_attention``). Writes ``k_new``/``v_new`` into the caches at
     ``index``, IN PLACE, then attends the chunk's queries over every position the
@@ -160,7 +161,9 @@ def _decode_attention(q, k_new, v_new, cache_k, cache_v, index: Index, groups: i
     length, causal within it) and a 1-token step (attends every position ≤ its
     index). With a tensor ``index`` (1-token steps only) each row writes and
     attends at its own position. ``groups`` > 1 repeats the grouped-query KV heads
-    at attention time: the caches stay in the compact kv-heads layout.
+    at attention time: the caches stay in the compact kv-heads layout. ``kv_map``
+    (a [heads] index tensor) names each query head's KV head instead: a serving
+    mesh's shard whose query heads start inside a group.
     Returns (context, cache_k, cache_v)."""
     batch, new_len = q.shape[0], q.shape[1]
     max_len = cache_k.shape[1]
@@ -175,7 +178,10 @@ def _decode_attention(q, k_new, v_new, cache_k, cache_v, index: Index, groups: i
         cache_k[:, index : index + new_len] = k_new.to(cache_k.dtype)
         cache_v[:, index : index + new_len] = v_new.to(cache_v.dtype)
         last = index
-    expand = (lambda t: t.repeat_interleave(groups, dim=2)) if groups > 1 else (lambda t: t)
+    if kv_map is not None:
+        expand = lambda t: t.index_select(2, kv_map)
+    else:
+        expand = (lambda t: t.repeat_interleave(groups, dim=2)) if groups > 1 else (lambda t: t)
     if new_len == 1:
         valid = (torch.arange(max_len, device=q.device)[None, :] <= last).expand(batch, max_len)  # key validity
         context = plain_attention(q, expand(cache_k), expand(cache_v), mask=valid)

@@ -276,9 +276,11 @@ def plan_block_capacity(
     ``mesh_devices`` > 1 plans a mesh-sharded server (``MeshModuleBackend``) from
     the block's global bytes, assuming ideal ``1/mesh_devices`` residency:
     ``hbm_bytes`` stays the per-card budget and the pooled budget scales with the
-    mesh. When a probe block exists, pass its ``param_bytes_per_device()`` with the
-    default ``mesh_devices=1`` instead (``run_server`` does); never both, which
-    would count the mesh twice. ``reserve_fraction`` keeps headroom for
+    mesh. It is the JAX package's public API, kept for parity: the port places
+    leaves by each block's tensor-parallel plan (copies of norms and of shared KV
+    heads, uneven cuts), so a shard holds a little more than ``1/mesh_devices``.
+    ``run_server`` plans from a probe block's ``param_bytes_per_device()`` with the
+    default ``mesh_devices=1`` instead; passing both counts the mesh twice. ``reserve_fraction`` keeps headroom for
     activations, the transient dense weights of int8 serving and the allocator's
     cache. Returns at least 0."""
     if hbm_bytes is None:

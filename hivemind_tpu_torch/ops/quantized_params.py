@@ -107,20 +107,19 @@ class QuantizedWindow:
         return f"QuantizedWindow(shape={self.shape}, base={self.base}, device={self.codes.device})"
 
 
-def cut_window(tensor: QuantizedTensor, dim: int, index: int, parts: int, device) -> QuantizedWindow:
-    """Shard ``index`` of ``parts`` of a quantized ``nn.Linear`` weight ``[out, in]``,
-    split along ``dim`` (0: output features, the flax columns; 1: input features, the
-    flax rows), copied to ``device`` with the whole tensor's absmax."""
+def cut_window(tensor: QuantizedTensor, dim: int, start: int, stop: int, device) -> QuantizedWindow:
+    """The ``[start, stop)`` range along ``dim`` of a quantized ``nn.Linear`` weight
+    ``[out, in]`` (0: output features, the flax columns; 1: input features, the flax
+    rows), copied to ``device`` with the whole tensor's absmax. A serving mesh cuts
+    uneven ranges, and overlapping ones where two shards read one KV head."""
     if not tensor.transposed:
         raise ValueError("only 2-D weights (coded in flax [in, out] order) split into windows")
     n_out, n_in = tensor.shape
     codes = tensor.codes.reshape(-1)[: tensor.size].reshape(n_in, n_out)
     if dim == 0:
-        width = n_out // parts
-        window, base = codes[:, index * width : (index + 1) * width], index * width
+        window, base = codes[:, start:stop], start
     else:
-        height = n_in // parts
-        window, base = codes[index * height : (index + 1) * height], index * height * n_out
+        window, base = codes[start:stop], start * n_out
     own = torch.empty(window.shape, dtype=window.dtype, device=device).copy_(window)  # never a view of the whole
     return QuantizedWindow(own, tensor.absmax.to(device, copy=True), n_out, base, tensor.dtype)
 

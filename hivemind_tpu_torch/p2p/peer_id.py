@@ -59,7 +59,7 @@ class PeerID:
 
     def __init__(self, peer_id_bytes: bytes):
         self._bytes = bytes(peer_id_bytes)
-        self._b58 = base58_encode(self._bytes)
+        self._b58: Optional[str] = None  # rendered at first use: most ids are only compared and hashed
 
     @classmethod
     def from_public_key(cls, public_key: Ed25519PublicKey) -> "PeerID":
@@ -78,13 +78,16 @@ class PeerID:
         return self._bytes
 
     def to_base58(self) -> str:
+        if self._b58 is None:
+            self._b58 = base58_encode(self._bytes)
         return self._b58
 
     def __repr__(self) -> str:
-        return f"<PeerID {self._b58[:12]}…>" if len(self._b58) > 12 else f"<PeerID {self._b58}>"
+        b58 = self.to_base58()
+        return f"<PeerID {b58[:12]}…>" if len(b58) > 12 else f"<PeerID {b58}>"
 
     def __str__(self) -> str:
-        return self._b58
+        return self.to_base58()
 
     def __eq__(self, other) -> bool:
         return isinstance(other, PeerID) and self._bytes == other._bytes

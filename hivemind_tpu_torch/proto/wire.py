@@ -88,8 +88,10 @@ def varint_size(value: int) -> int:
 
 def decode_varint(buf: memoryview, pos: int) -> Tuple[int, int]:
     """(value, position after it) of the varint at ``pos``."""
-    result = shift = 0
     end = len(buf)
+    if pos < end and buf[pos] < 0x80:  # one byte: most tags and lengths
+        return buf[pos], pos + 1
+    result = shift = 0
     while True:
         if pos >= end:
             raise DecodeError("truncated varint")
@@ -161,6 +163,10 @@ class Field(NamedTuple):
 def _coerce(field: Field, value: Any) -> Any:
     """``value`` as the field's Python type, or TypeError/ValueError as protobuf raises."""
     kind = field.type
+    if kind == MESSAGE:
+        if not isinstance(value, field.message_type):
+            raise TypeError(f"field {field.name!r} takes {field.message_type.__name__}, not {type(value).__name__}")
+        return value
     if kind in _INT_RANGES:
         if isinstance(value, bool) and kind != ENUM:
             value = int(value)
@@ -184,9 +190,6 @@ def _coerce(field: Field, value: Any) -> Any:
     if kind == BYTES:
         if not isinstance(value, (bytes, bytearray, memoryview)):
             raise TypeError(f"field {field.name!r} takes bytes, not {type(value).__name__}")
-        return value
-    if not isinstance(value, field.message_type):
-        raise TypeError(f"field {field.name!r} takes {field.message_type.__name__}, not {type(value).__name__}")
     return value
 
 
@@ -197,7 +200,8 @@ class RepeatedField(list):
     __slots__ = ("_field", "_owner")
 
     def __init__(self, field: Field, values: Iterable[Any] = (), owner: Optional["Message"] = None):
-        super().__init__(_coerce(field, value) for value in values)
+        if type(values) not in (tuple, list) or values:  # an empty one is already the empty list
+            super().__init__(_coerce(field, value) for value in values)
         self._field = field
         self._owner = owner  # the message holding this list, told when it grows
 
@@ -242,8 +246,42 @@ class _MessageMeta(type):
             namespace[field.name] = _singular_message_property(field)
         namespace.update(FIELDS=fields, __slots__=tuple(slots),
                          _FIELDS_BY_NAME={field.name: field for field in fields},
-                         _FIELDS_BY_NUMBER={field.number: field for field in fields})
+                         _FIELDS_BY_NUMBER={field.number: field for field in fields},
+                         _DEFAULT_INIT=tuple(_default_init(field) for field in fields),
+                         _ENCODE_PLAN=tuple(_encode_step(field) for field in fields),
+                         _DECODE_PLAN={field.number: (field, field.name, field.wire_type, _encode_step(field)[2])
+                                       for field in fields})
         return super().__new__(mcs, name, bases, namespace)
+
+
+# how a field is set in a message built without arguments, and how it is written: one
+# plan a class, so neither walks the field's type on every message
+_REPEATED, _SINGULAR_MESSAGE, _SCALAR = range(3)
+_PACKED, _MESSAGES, _BYTES, _STRING, _DOUBLE_VALUE, _VARINT_VALUE = range(3, 9)
+
+
+def _default_init(field: Field) -> Tuple[str, int, Field, Any]:
+    if field.repeated:
+        return field.name, _REPEATED, field, None
+    if field.type == MESSAGE:
+        return f"_m_{field.name}", _SINGULAR_MESSAGE, field, None
+    return field.name, _SCALAR, field, _DEFAULTS[field.type]
+
+
+def _encode_step(field: Field) -> Tuple[Field, str, int, bytes]:
+    if field.type == MESSAGE:
+        kind = _MESSAGES if field.repeated else _SINGULAR_MESSAGE
+    elif field.repeated and field.type in _PACKABLE:
+        return field, field.name, _PACKED, encode_tag(field.number, LENGTH_DELIMITED)
+    elif field.type == BYTES:
+        kind = _BYTES
+    elif field.type == STRING:
+        kind = _STRING
+    elif field.type == DOUBLE:
+        kind = _DOUBLE_VALUE
+    else:
+        kind = _VARINT_VALUE
+    return field, field.name, kind, encode_tag(field.number, field.wire_type)
 
 
 def _singular_message_property(field: Field) -> property:
@@ -288,17 +326,20 @@ class Message(metaclass=_MessageMeta):
         object.__setattr__(self, "_present", set())
         if not hasattr(self, "_owner"):
             object.__setattr__(self, "_owner", None)
-        for field in self.FIELDS:
+        if not fields:  # every field at its default, by the class's plan
+            for slot, kind, field, default in self._DEFAULT_INIT:
+                object.__setattr__(self, slot, RepeatedField(field, (), owner=self) if kind == _REPEATED else default)
+            return
+        for slot, kind, field, default in self._DEFAULT_INIT:
             value = fields.pop(field.name, None)
-            if field.repeated:
-                object.__setattr__(self, field.name,
-                                   RepeatedField(field, value if value is not None else (), owner=self))
-            elif field.type == MESSAGE:
-                object.__setattr__(self, f"_m_{field.name}", None)
+            if kind == _SCALAR:
+                object.__setattr__(self, slot, default if value is None else _coerce(field, value))
+            elif kind == _REPEATED:
+                object.__setattr__(self, slot, RepeatedField(field, () if value is None else value, owner=self))
+            else:
+                object.__setattr__(self, slot, None)
                 if value is not None:
                     self._set_message(field, _coerce(field, value))
-            else:
-                object.__setattr__(self, field.name, _DEFAULTS[field.type] if value is None else _coerce(field, value))
         if fields:
             raise ValueError(f"{type(self).__name__} has no field(s) {sorted(fields)}")
 
@@ -361,33 +402,42 @@ class Message(metaclass=_MessageMeta):
     # ---------------------------------------------------------------- encoding
 
     def _encode_into(self, out: List[Any]) -> None:
-        for field in self.FIELDS:
-            if field.type == MESSAGE and not field.repeated:
-                if field.name not in self._present:
+        present = self._present
+        for field, name, kind, tag in self._ENCODE_PLAN:
+            if kind == _SINGULAR_MESSAGE:
+                if name not in present:
                     continue
-                value = getattr(self, field.name)
-            else:
-                value = getattr(self, field.name)
-                if _is_default(field, value):
-                    continue
-            if field.repeated and field.type in _PACKABLE:
-                body = b"".join(_scalar_bytes(field, item) for item in value)
-                out += (encode_tag(field.number, LENGTH_DELIMITED), encode_varint(len(body)), body)
+                inner: List[Any] = []
+                getattr(self, name)._encode_into(inner)
+                out += (tag, encode_varint(sum(map(len, inner))))
+                out += inner
                 continue
-            for item in (value if field.repeated else (value,)):
-                out.append(encode_tag(field.number, field.wire_type))
-                if field.type == MESSAGE:
-                    inner: List[Any] = []
-                    item._encode_into(inner)
-                    out.append(encode_varint(sum(len(part) for part in inner)))
-                    out += inner
-                elif field.type == BYTES:
-                    out += (encode_varint(len(item)), item)
-                elif field.type == STRING:
+            value = getattr(self, name)
+            if kind == _DOUBLE_VALUE:  # 0.0 is the default, -0.0 is written
+                data = _DOUBLE.pack(value)
+                if data != b"\0" * 8:
+                    out += (tag, data)
+                continue
+            if not value:  # 0, False, "", b"" or an empty repeated field
+                continue
+            if kind == _VARINT_VALUE:
+                out += (tag, encode_varint(int(value)))
+            elif kind == _BYTES:
+                for item in (value if field.repeated else (value,)):
+                    out += (tag, encode_varint(len(item)), item)
+            elif kind == _STRING:
+                for item in (value if field.repeated else (value,)):
                     data = item.encode("utf-8")
-                    out += (encode_varint(len(data)), data)
-                else:
-                    out.append(_scalar_bytes(field, item))
+                    out += (tag, encode_varint(len(data)), data)
+            elif kind == _MESSAGES:
+                for item in value:
+                    inner = []
+                    item._encode_into(inner)
+                    out += (tag, encode_varint(sum(map(len, inner))))
+                    out += inner
+            else:  # a packed repeated scalar
+                body = b"".join(_scalar_bytes(field, item) for item in value)
+                out += (tag, encode_varint(len(body)), body)
 
     def SerializeToString(self) -> bytes:
         parts: List[Any] = []
@@ -426,54 +476,54 @@ class Message(metaclass=_MessageMeta):
     # ---------------------------------------------------------------- decoding
 
     def _merge(self, buf: memoryview) -> None:
-        by_number = self._FIELDS_BY_NUMBER
+        plan = self._DECODE_PLAN
         pos, end = 0, len(buf)
         while pos < end:
             key, pos = decode_varint(buf, pos)
             number, wire_type = key >> 3, key & 7
             if number == 0:
                 raise DecodeError("field number 0")
-            field = by_number.get(number)
-            if field is None or (wire_type != field.wire_type
-                                 and not (field.repeated and field.type in _PACKABLE and wire_type == LENGTH_DELIMITED)):
+            step = plan.get(number)
+            if step is None or (wire_type != step[2] and not (step[3] == _PACKED and wire_type == LENGTH_DELIMITED)):
                 pos = _skip(buf, pos, wire_type, number)
                 continue
+            field, name, _wire_type, kind = step
             if wire_type == LENGTH_DELIMITED:
                 length, pos = decode_varint(buf, pos)
                 if pos + length > end:
-                    raise DecodeError(f"field {field.name!r} runs past the end of the input")
+                    raise DecodeError(f"field {name!r} runs past the end of the input")
                 chunk, pos = buf[pos:pos + length], pos + length
-                if field.type in _PACKABLE:  # a packed repeated scalar
-                    values = getattr(self, field.name)
+                if kind == _PACKED:  # a packed repeated scalar
+                    values = getattr(self, name)
                     inner = 0
                     while inner < length:
                         value, inner = _read_scalar(field, chunk, inner)
                         list.append(values, value)
                     if inner != length:
-                        raise DecodeError(f"packed field {field.name!r} overruns its length")
+                        raise DecodeError(f"packed field {name!r} overruns its length")
                     continue
-                if field.type == MESSAGE:
-                    if field.repeated:
-                        message = field.message_type()
-                        message._merge(chunk)
-                        list.append(getattr(self, field.name), message)
-                    else:  # a singular message merges every occurrence, as protobuf does
-                        getattr(self, field.name)._merge(chunk)
-                        self._present.add(field.name)
+                if kind == _MESSAGES:
+                    message = field.message_type()
+                    message._merge(chunk)
+                    list.append(getattr(self, name), message)
                     continue
-                if field.type == STRING:
+                if kind == _SINGULAR_MESSAGE:  # merges every occurrence, as protobuf does
+                    getattr(self, name)._merge(chunk)
+                    self._present.add(name)
+                    continue
+                if kind == _STRING:
                     try:
                         value = str(chunk, "utf-8")
                     except UnicodeDecodeError as e:
-                        raise DecodeError(f"field {field.name!r} is not valid UTF-8") from e
+                        raise DecodeError(f"field {name!r} is not valid UTF-8") from e
                 else:
                     value = chunk if length >= ZERO_COPY_BYTES else bytes(chunk)
             else:
                 value, pos = _read_scalar(field, buf, pos)
             if field.repeated:
-                list.append(getattr(self, field.name), value)
+                list.append(getattr(self, name), value)
             else:
-                object.__setattr__(self, field.name, value)
+                object.__setattr__(self, name, value)
 
     def ParseFromString(self, data) -> int:
         """Replace this message's fields with the ones ``data`` (bytes-like) encodes."""

@@ -55,6 +55,10 @@ class TensorDescriptor:
     def itemsize(self) -> int:
         return 2 if self.dtype == "bfloat16" else np.dtype(self.dtype).itemsize
 
+    @property
+    def nbytes(self) -> int:
+        return self.numel * self.itemsize
+
     def packb(self) -> bytes:
         from hivemind_tpu_torch.utils.serializer import MSGPackSerializer
 

@@ -121,6 +121,38 @@ def test_run_dht_and_run_server_serve_a_client_on_the_cpu(tmp_path):
                 child.wait()
 
 
+def test_run_server_publishes_telemetry_that_run_top_reads(tmp_path):
+    """``run_server --telemetry_key`` publishes its snapshot to the DHT, and ``run_top
+    --serving`` (a child, as a user runs it) renders the served experts' board from it."""
+    checkpoint = tmp_path / "tiny"
+    checkpoint.mkdir()
+    _write_checkpoint_with_head(checkpoint)
+    logs = {name: tmp_path / f"{name}.log" for name in ("run_dht", "run_server")}
+    children = []
+    try:
+        children.append(_start("run_dht", "--listen_host", "127.0.0.1", log_path=logs["run_dht"]))
+        maddr = _wait_for(children[0], logs["run_dht"], r"--initial_peers (\S+)").group(1)
+        children.append(_start("run_server", "--device", "cpu", "--llama_checkpoint", str(checkpoint),
+                               "--initial_peers", maddr, "--telemetry_key", "cli_telemetry", "--telemetry_interval",
+                               "1", log_path=logs["run_server"]))
+        _wait_for(children[1], logs["run_server"], r"serving 2 experts")
+        llama_generate.main(["--checkpoint", str(checkpoint), "--generate", "2", "--initial_peers", maddr,
+                             "--device", "cpu", "--prompt_ids", *map(str, PROMPT[0])])
+        time.sleep(1.5)  # the publisher's next snapshot holds the served requests
+        top = subprocess.run([sys.executable, "-m", "hivemind_tpu_torch.hivemind_cli.run_top", "--initial_peers", maddr,
+                              "--key", "cli_telemetry", "--frames", "1", "--no-ansi", "--serving", "--device"],
+                             capture_output=True, text=True, timeout=120, cwd=REPO)
+        assert top.returncode == 0, top.stderr
+        board = top.stdout[top.stdout.index("serving board"):]
+        assert "llama.0" in board and "kind=decode" in board, top.stdout
+        assert "device board" in top.stdout
+    finally:
+        for child in children:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+
+
 def test_mesh_devices_without_a_card_raises_the_jax_packages_error(tmp_path):
     _write_checkpoint(tmp_path)
     for device in (["--device", "cpu"], []):  # asked for the CPU, or by default on a host without cards

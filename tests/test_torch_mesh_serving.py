@@ -29,12 +29,17 @@ import pytest
 import torch
 from jax.sharding import Mesh
 
+from hivemind_tpu.moe.server.decode_session import DecodeSessionManager as JaxDecodeSessionManager
+from hivemind_tpu.moe.server.layers import name_to_block as jax_blocks
 from hivemind_tpu.moe.server.llama_loader import LlamaCheckpointConfig as JaxLlamaCheckpointConfig
 from hivemind_tpu.moe.server.llama_loader import decode_cache_bytes as jax_decode_cache_bytes
 from hivemind_tpu.moe.server.llama_loader import load_llama_blocks as jax_load_llama_blocks
 from hivemind_tpu.moe.server.llama_loader import plan_block_capacity as jax_plan_block_capacity
 from hivemind_tpu.moe.server.llama_loader import predict_block_param_bytes as jax_predict_block_param_bytes
-from hivemind_tpu_torch.convert import from_flax_albert_params
+from hivemind_tpu.moe.server.mesh_backend import MeshModuleBackend as JaxMeshModuleBackend
+from hivemind_tpu.moe.server.module_backend import ModuleBackend as JaxModuleBackend
+from hivemind_tpu.ops.quantized_params import dequantize_tree as jax_dequantize_tree
+from hivemind_tpu_torch.convert import from_flax_albert_params, from_flax_params
 from hivemind_tpu_torch.dht import DHT
 from hivemind_tpu_torch.moe import RemoteSequential
 from hivemind_tpu_torch.moe.server.decode_session import DecodeSessionManager
@@ -45,7 +50,9 @@ from hivemind_tpu_torch.moe.server.llama_loader import (
     plan_block_capacity,
     predict_block_param_bytes,
 )
-from hivemind_tpu_torch.moe.server.mesh_backend import MeshModuleBackend, ServingMesh
+from hivemind_tpu_torch.moe.server.layers import name_to_block
+from hivemind_tpu_torch.moe.server.mesh_backend import MeshModuleBackend, ServingMesh, kv_ranges
+from hivemind_tpu_torch.moe.server.module_backend import ModuleBackend
 from hivemind_tpu_torch.moe.server.server import Server
 from hivemind_tpu_torch.ops.blockwise_int8 import blockwise_int8_dequantize_window
 from hivemind_tpu_torch.ops.quantization import blockwise_dequantize, blockwise_dequantize_window, blockwise_quantize
@@ -54,6 +61,7 @@ from hivemind_tpu_torch.telemetry import REGISTRY
 from hivemind_tpu_torch.utils import flax_msgpack
 
 from test_llama_loader import HEADS, HID, KV_HEADS, LAYERS, _write_checkpoint
+from test_torch_serving import _random_flax_params
 
 torch.set_num_threads(1)  # tiny shapes; leave the cores to the timing-sensitive swarm tests
 
@@ -249,11 +257,6 @@ def test_window_dequantize_plain_matches_numpy_and_the_whole_tensor():
         blockwise_int8_dequantize_window(grid[:4, :8].contiguous().to("meta"), absmax.to("meta"), n_out, 0)
 
 
-def test_a_mesh_that_does_not_divide_the_kv_heads_is_refused(checkpoint):
-    with pytest.raises(ValueError, match=r"num_kv_heads=2 is not a multiple of the mesh's 4 shards"):
-        load_llama_blocks(checkpoint, layers=[0], mesh=ServingMesh(["cpu"] * 4))
-
-
 def test_the_mesh_refuses_the_backward(checkpoint):
     """An int8 mesh refuses the backward, as the int8 single-device backend does (and
     the JAX package's): its weights are codes, not trainable tensors."""
@@ -430,3 +433,169 @@ def test_mesh_sharded_server_is_token_identical_over_rpc(checkpoint):
         server.shutdown()
         dht.shutdown()
 
+
+
+# ---------------------------------------------------------------------- every block, any N
+#
+# Each registered block over meshes of N CPU shards, against the JAX MeshModuleBackend
+# on a JAX mesh of the first N virtual devices and against the port's single device,
+# from the same seeded numpy weights (``convert.py``). The widths are chosen so that the
+# cuts are uneven: hidden 80 and 5 heads (1/2/2 heads over 3 shards, 1/1/1/2 over 4), an
+# ffn of 320 (106/107/107 over 3); the Llama cases read 2 KV heads from 8 heads over 4
+# and 8 shards (each KV head copied to 2 and 4 shards) and from 6 heads over 4 (2/3/2/3
+# heads; shards 1 and 3 start inside a group) and 5 heads over 3. Leaves of at least 4096 elements quantize
+# (``ffn_up`` and the like, their windows cutting blocks). Limits: MESH_TOL for every
+# output, input gradient and step (the blocks compute in bf16; a row-parallel bias is
+# added after the fp32 reduce, where the single device adds it inside its bf16 Dense
+# output: one more bf16 rounding, inside the limit); the copies after a step, the state
+# blobs and the weights gathered back are exact.
+
+BLOCK_HID = 80
+MESH_BLOCKS = [
+    (block, kwargs, parts)
+    for block, kwargs in (("ffn", {}), ("transformer", {"num_heads": 5}), ("causal_transformer", {"num_heads": 5}),
+                          ("det_dropout", {}), ("nop", {}))
+    for parts in (2, 3, 4)
+] + [
+    ("llama_block", {"num_heads": 8, "num_kv_heads": 2}, 4),  # each KV head on 2 shards
+    ("llama_block", {"num_heads": 8, "num_kv_heads": 2}, 8),  # each KV head on 4 shards
+    ("llama_block", {"num_heads": 5, "num_kv_heads": 5}, 3),  # uneven heads, no groups
+    ("llama_block", {"num_heads": 10, "num_kv_heads": 2}, 4),  # 2/3/2/3 heads, shards starting inside a group
+]
+DECODING_BLOCKS = ("causal_transformer", "llama_block")
+
+
+def _block_inputs(block: str, rng) -> tuple:
+    if block in ("ffn", "nop"):
+        return (rng.randn(3, BLOCK_HID).astype(np.float32),)
+    if block == "det_dropout":
+        return rng.randn(3, BLOCK_HID).astype(np.float32), (rng.rand(3, BLOCK_HID) > 0.2).astype(np.float32)
+    return (rng.randn(2, 9, BLOCK_HID).astype(np.float32),)
+
+
+def _block_triplet(block, kwargs, parts, quantization, inputs, seed=0):
+    """The JAX mesh, the port's mesh and the port's single device of one block, all
+    loaded with the same seeded weights and SGD(BACKWARD_LR)."""
+    sample = dict(sample_inputs=inputs) if len(inputs) > 1 else dict(sample_input=inputs[0])
+    jax_mesh = Mesh(np.array(jax.devices()[:parts]).reshape(parts), ("tp",))
+    reference = JaxMeshModuleBackend("ref", jax_blocks[block](BLOCK_HID, **kwargs), mesh=jax_mesh,
+                                     optimizer=optax.sgd(BACKWARD_LR), weight_quantization=quantization, **sample)
+    flax_params = _random_flax_params(jax_dequantize_tree(reference.params), np.random.RandomState(seed))
+    reference.load_params(flax_params)
+    params = from_flax_params(block, flax_params)
+    sgd = lambda tensors: torch.optim.SGD(tensors, lr=BACKWARD_LR)
+    mesh = MeshModuleBackend("mesh", name_to_block[block](BLOCK_HID, **kwargs), mesh=ServingMesh(["cpu"] * parts),
+                             optimizer=sgd, weight_quantization=quantization, params=params, **sample)
+    single = ModuleBackend("single", name_to_block[block](BLOCK_HID, **kwargs), optimizer=sgd, device="cpu",
+                           weight_quantization=quantization, params=params, **sample)
+    return reference, mesh, single, params
+
+
+def _mesh_case_id(case):
+    block, kwargs, parts = case
+    heads = f"-{kwargs['num_heads']}h{kwargs['num_kv_heads']}kv" if "num_kv_heads" in kwargs else ""
+    return f"{block}{heads}-N{parts}"
+
+
+@pytest.mark.parametrize("quantization", QUANTIZATIONS, ids=["fp32", "int8"])
+@pytest.mark.parametrize("case", MESH_BLOCKS, ids=[_mesh_case_id(case) for case in MESH_BLOCKS])
+def test_every_block_over_any_mesh_matches_the_jax_mesh(case, quantization):
+    """Forward, decode (prefill and two steps), the state blob loaded both ways and, for
+    fp32, one backward with an SGD step: the port's mesh of N shards against the JAX
+    mesh of N devices and the port's single device."""
+    block, kwargs, parts = case
+    rng = np.random.RandomState(parts + len(block))
+    inputs = _block_inputs(block, rng)
+    reference, mesh, single, params = _block_triplet(block, kwargs, parts, quantization, inputs)
+
+    got = mesh.forward(*inputs)[0]
+    assert got.shape == inputs[0].shape and np.isfinite(got).all()
+    assert _max_rel_err(got, reference.forward(*inputs)[0]) < MESH_TOL
+    assert _max_rel_err(got, single.forward(*inputs)[0]) < MESH_TOL
+    # every distinct tensor once; a quantized leaf's windows hold no padding to a whole block
+    padding = sum(value.codes.numel() - value.size for value in single.params.values() if hasattr(value, "codes"))
+    assert mesh.param_bytes() == single.param_bytes() - padding
+    assert mesh.get_info()["mesh_devices"] == parts
+
+    if block in DECODING_BLOCKS:
+        prompt, steps = inputs[0][:1, :5], [rng.randn(1, 1, BLOCK_HID).astype(np.float32) for _ in range(2)]
+        managers = [DecodeSessionManager({"b": mesh}, max_len=16), DecodeSessionManager({"b": single}, max_len=16),
+                    JaxDecodeSessionManager({"b": reference}, max_len=16)]
+        for chunk, reset in ((prompt, True), (steps[0], False), (steps[1], False)):
+            ours, alone, theirs = (np.asarray(manager.decode("b", "s", chunk, reset=reset)) for manager in managers)
+            assert _max_rel_err(ours, theirs) < MESH_TOL and _max_rel_err(ours, alone) < MESH_TOL
+        session = managers[0]._sessions[("b", "s")]
+        heads = kwargs["num_heads"]
+        expected = [stop - start for start, stop in kv_ranges(heads, kwargs.get("num_kv_heads", heads), parts)]
+        assert [c.shape[2] for c in session.cache_k] == expected
+        assert all(c.shape[:2] == (1, 16) for c in session.cache_k + session.cache_v)
+
+    # the mesh's blob is the single device's, and each loads the other's
+    blob = mesh.state_dict()
+    assert blob == single.state_dict()
+    _, other_mesh, other_single, _ = _block_triplet(block, kwargs, parts, quantization, inputs, seed=1)
+    other_mesh.load_state_dict(single.state_dict())
+    other_single.load_state_dict(blob)
+    assert other_mesh.state_dict() == other_single.state_dict() == blob
+
+    if quantization is not None:
+        with pytest.raises(RuntimeError, match="int8 weight-only"):
+            mesh.backward(*inputs, got)
+        return
+    grad_out = rng.randn(*got.shape).astype(np.float32)
+    before = mesh.gather_params()
+    grads = mesh.backward(*inputs, grad_out)
+    jax_grads = reference.backward(*inputs, grad_out)
+    single_grads = single.backward(*inputs, grad_out)
+    for ours, theirs, alone in zip(grads, jax_grads, single_grads):
+        assert ours.shape == np.shape(theirs) and np.isfinite(ours).all()
+        assert _max_rel_err(ours, theirs) < MESH_TOL and _max_rel_err(ours, alone) < MESH_TOL
+    steps = _steps(mesh.gather_params(), before)
+    largest = max(np.abs(step).max() for step in steps.values())
+    jax_after = from_flax_params(block, jax.tree_util.tree_map(np.asarray, reference.params))
+    for name, expected in (("jax", _steps(jax_after, before)), ("single", _steps(single.snapshot_params(), before))):
+        for key, step in steps.items():
+            if key == "key.bias":  # softmax ignores it: its exact gradient is 0, rounding noise on every side
+                assert np.abs(step).max() < MESH_TOL * largest
+                continue
+            assert _max_rel_err(step, expected[key]) < MESH_TOL, (name, key, _max_rel_err(step, expected[key]))
+    # every copy took the same step: the norms on every shard, a KV head's rows on each of its shards
+    for key, leaf in mesh.plan.leaves.items():
+        if leaf.kind == "copy":
+            copies = [shard[key] for shard in mesh.params]
+            assert all(torch.equal(copy, copies[0]) for copy in copies[1:]), key
+        elif leaf.unit == "kv":
+            size = mesh._unit_size["kv"]
+            rows = {}
+            for (start, stop), shard in zip(mesh._ranges["kv"], mesh.params):
+                for j in range(start, stop):
+                    row = shard[key].narrow(0, (j - start) * size, size)
+                    assert torch.equal(rows.setdefault(j, row), row), (key, j)
+    # the stepped mesh still writes the single device's blob shape and loads back
+    single.load_state_dict(mesh.state_dict())
+    assert single.state_dict() == mesh.state_dict()
+
+
+def test_a_module_with_no_plan_is_refused():
+    """A custom expert no plan names cannot be served over a mesh."""
+
+    class Custom(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.weight = torch.nn.Parameter(torch.ones(8, 8))
+
+        def forward(self, x):
+            return x @ self.weight
+
+    with pytest.raises(TypeError, match="no tensor-parallel plan for Custom"):
+        MeshModuleBackend("custom", Custom(), mesh=ServingMesh(["cpu"] * 2), sample_input=np.zeros((2, 8), np.float32))
+
+
+@pytest.mark.parametrize("parts", [3, 4])
+def test_a_checkpoint_whose_kv_heads_do_not_divide_the_mesh_is_served(checkpoint, parts):
+    """The tiny checkpoint's 2 KV heads over 3 and 4 shards (each KV head copied):
+    load_llama_blocks serves it, and the two chained blocks match the single device."""
+    mesh = load_llama_blocks(checkpoint, mesh=ServingMesh(["cpu"] * parts))[0]
+    x = np.random.RandomState(parts).randn(1, 6, HID).astype(np.float32)
+    expected = _chain(load_llama_blocks(checkpoint, device="cpu")[0], x)
+    assert _max_rel_err(_chain(mesh, x), expected) < MESH_TOL

@@ -66,8 +66,15 @@ for name in ("hivemind_tpu_torch.moe.server.decode_session", "hivemind_tpu_torch
              "hivemind_tpu_torch.examples.slice_collaborative_training", "hivemind_tpu_torch.hivemind_cli.run_dht",
              "hivemind_tpu_torch.hivemind_cli.run_server", "hivemind_tpu_torch.moe.server.mesh_backend",
              "hivemind_tpu_torch.utils.limits", "hivemind_tpu_torch.utils.platform",
-             "hivemind_tpu_torch.examples.llama_generate", "hivemind_tpu_torch.examples.pipeline_inference"):
+             "hivemind_tpu_torch.examples.llama_generate", "hivemind_tpu_torch.examples.pipeline_inference",
+             "hivemind_tpu_torch.sim", "hivemind_tpu_torch.sim.scenarios", "hivemind_tpu_torch.sim.network",
+             "hivemind_tpu_torch.hivemind_cli.run_top", "hivemind_tpu_torch.hivemind_cli.run_blackbox",
+             "hivemind_tpu_torch.hivemind_cli.run_chaos_soak", "hivemind_tpu_torch.utils.nested"):
     assert name in sys.modules, name
+assert not leaked(), leaked()
+import hivemind_tpu_torch as top_level
+for name in top_level._LAZY:  # every lazy top-level name resolves without the JAX stack
+    getattr(top_level, name)
 assert not leaked(), leaked()
 
 assert not torch.cuda.is_available()
