@@ -5,7 +5,7 @@ it, then drives sixteen paths and checks each against the CPU, the local path or
 the exact result:
 - serving: two Llama-2-7B-width blocks (fp and int8 weight-only) through
   load_llama_blocks → ModuleBackend → TaskPool/Runtime, and an expert of
-  head_dim 32, which the flash kernel does not take, through ModuleBackend;
+  head_dim 32 (the wgmma flash forward below its padded width) through ModuleBackend;
 - decode: greedy generation and continuous batching of single-token steps through
   DecodeSessionManager's KV-cache sessions on the same blocks;
 - remote: the same blocks served over the wire, in this process over loopback TCP
@@ -120,8 +120,10 @@ FLASH_SHAPES = ([(1, t, 32, 128) for t in (512, 2048, 2000)] + [(4, 512, 32, 128
 # computation errs by at most 3u*scale. The largest error stays within max_abs, and the
 # error's norm over the reference's norm within rel_l2 (about u for bf16): what catches
 # a kernel that is a few percent off on the many small outputs, each within its own limit.
-# fp16 (the SIMT kernel: fp32 math, the output rounded once) is held the same way with
-# fp16's unit roundoff; its cap is one fp16 ulp of an output in [4, 8).
+# fp16 is held the same way with fp16's unit roundoff, u = 2^-11: the wgmma kernel rounds
+# each p_j to fp16 and both versions round the output, so the same derivation gives
+# 3u*scale and a norm ratio of u; the SIMT kernel (fp32 math, the output rounded once)
+# errs less. Its cap is one fp16 ulp of an output in [4, 8).
 BF16_UNIT_ROUNDOFF = 2.0**-8
 FP16_UNIT_ROUNDOFF = 2.0**-11
 FLASH_TOL = {
@@ -131,19 +133,24 @@ FLASH_TOL = {
 }
 LSE_TOL = dict(atol=1e-4, rtol=0.0, max_abs=1e-4, rel_l2=1e-5)  # lse is fp32 on both paths
 MANTISSA_BITS = {"bfloat16": 7, "float16": 10, "float32": 23}
-# The SIMT kernels (fp32, fp16, and bf16 at a head_dim other than 64 or 128) beyond the
-# fp32 cases of FLASH_SHAPES, each held and timed like them: (shape, dtype, causal).
-# The head_dim-32 expert's attention ([head_dim32] below), head dims 16, 32, 80, 96
-# and 256, fp16 at a Llama request's shape, and B*H = 65536 on both designs.
+# Beyond FLASH_SHAPES, each held and timed like them: (shape, dtype, causal). The
+# head_dim-32 expert's attention ([head_dim32] below), head dims 16, 32, 80, 96 and
+# 256, fp16 at a Llama request's shape, and B*H = 65536, on the wgmma design (bf16 and
+# fp16 at a head_dim that is a multiple of 8); bf16 at head_dim 20, on the SIMT design
+# (as fp32, whose cases are FLASH_SHAPES'); and Phi-2's and Gemma-7B's attention widths
+# at a 2048-token request (microsoft/phi-2 config.json: hidden 2560, 32 heads, head_dim
+# 80; google/gemma-7b config.json: 16 heads of head_dim 256).
 FLASH_EXTRA_CASES = [
     ((2, 64, 8, 32), "bfloat16", False), ((2, 1000, 16, 32), "bfloat16", True), ((2, 1000, 16, 16), "bfloat16", True),
     ((2, 1000, 16, 80), "bfloat16", False), ((1, 512, 8, 96), "bfloat16", True), ((1, 512, 4, 256), "float16", True),
     ((2, 1000, 16, 64), "float16", True), ((1, 2048, 32, 128), "float16", True),
     ((65536, 16, 1, 64), "bfloat16", True), ((32768, 16, 2, 32), "float16", False),
+    ((2, 1000, 16, 20), "bfloat16", True), ((1, 2048, 32, 80), "bfloat16", True), ((1, 2048, 16, 256), "float16", True),
 ]
 # views whose base is one element off 16-byte alignment, which TMA cannot read: the
-# wrappers copy them first (bf16, head_dim 64), or the SIMT kernel reads them (head_dim 32)
-UNALIGNED_CASES = [((2, 1000, 16, 64), True), ((2, 64, 8, 32), False)]
+# wrappers copy them first (bf16, head_dims 64 and 32), or the SIMT kernel reads them
+# through their strides (head_dim 20)
+UNALIGNED_CASES = [((2, 1000, 16, 64), True), ((2, 64, 8, 32), False), ((2, 64, 8, 20), True)]
 SERVING_TOL = 2e-2  # max relative error, card vs CPU (hivemind_tpu/ops/device_check.py's tolerance)
 # The flash backward passes vs their plain versions: (shape, dtype, causal). The
 # training path's shape, the expert backward's as chip_smoke drives it, a Llama
@@ -154,12 +161,17 @@ FLASH_BWD_CASES = [
     ((1, 2000, 32, 128), "bfloat16", True), ((2, 1000, 16, 64), "bfloat16", False),
     ((2, 1000, 16, 64), "bfloat16", True), ((2, 1000, 16, 64), "float32", False),
     ((2, 1000, 16, 64), "float32", True), ((1, 512, 32, 128), "float32", True),
-    # the SIMT kernels at other head dims and in fp16, and B*H = 65536 on both designs
+    # other head dims and fp16 (the dK/dV pass on wgmma, the dQ pass on SIMT), and
+    # B*H = 65536 on both designs
     ((2, 64, 8, 32), "bfloat16", False), ((2, 1000, 16, 32), "bfloat16", True), ((1, 512, 8, 80), "bfloat16", False),
     ((2, 1000, 16, 64), "float16", True), ((1, 512, 4, 256), "float16", False),
     ((65536, 16, 1, 64), "bfloat16", True), ((32768, 16, 2, 32), "float16", False),
-    # the forward's SIMT shapes of [flash], so each kernel's SIMT row is timed at one shape
+    # the forward's shapes of the rows PERF.md keeps for them, so each pass is timed at one shape
     ((1, 512, 8, 96), "bfloat16", True), ((1, 512, 4, 256), "float16", True),
+    # bf16 at head_dim 20: both passes on SIMT, which keeps its 16-bit path held; fp16 at a
+    # Llama request's shape beside bf16's; Phi-2's and Gemma-7B's widths (as FLASH_EXTRA_CASES)
+    ((2, 1000, 16, 20), "bfloat16", True), ((1, 2048, 32, 128), "float16", True),
+    ((1, 2048, 32, 80), "bfloat16", True), ((1, 2048, 16, 256), "float16", True),
 ]
 # Each backward output element within atol + rtol*scale, where scale is the plain
 # backward run on absolute values: sum_k |dS||K| for dq, sum_q |dS||Q| for dk,
@@ -170,8 +182,11 @@ FLASH_BWD_CASES = [
 # [2, 512, 4, 64] and [1, 1024, 2, 128]: 2.5e-3 to 2.7e-3), while dS 5% off on half
 # the tiles reads about 9u (2.5e-2 to 3.6e-2). The cap is two bf16 ulps of an
 # output in [4, 8). fp32: only the order of fp32 sums differs, bounded by
-# T*2^-24*scale (1.2e-4 at T = 2048). fp16 (the SIMT kernels: P and dS in fp32, the
-# output rounded once) is held like bf16 with fp16's unit roundoff.
+# T*2^-24*scale (1.2e-4 at T = 2048). fp16 is held like bf16 with fp16's unit
+# roundoff, u = 2^-11: the wgmma dK/dV pass rounds each P and dS term to fp16 as bf16's
+# does to bf16, so the same derivation gives 3u*scale and a norm ratio of 2u (the SIMT
+# dQ pass keeps P and dS in fp32 and errs less); its cap is two fp16 ulps of an output
+# in [4, 8). fp16's dS overflows past 65504 (no timed input comes near it).
 FLASH_BWD_TOL = {
     "bfloat16": dict(atol=1e-5, rtol=3 * BF16_UNIT_ROUNDOFF, max_abs=6.25e-2, rel_l2=2 * BF16_UNIT_ROUNDOFF),
     "float16": dict(atol=1e-5, rtol=3 * FP16_UNIT_ROUNDOFF, max_abs=2.0**-7, rel_l2=2 * FP16_UNIT_ROUNDOFF),
@@ -184,8 +199,11 @@ FAULTY_BWD_SHAPES = (ALBERT_ATTENTION, (1, 2048, 32, 128))
 # q, k, v sliced from one fused [B, T, 3, H, D] tensor (T stride 3*H*D): the TMA views of a
 # projection that is not split into three tensors, for each head_dim, held like FLASH_SHAPES
 STRIDED_CASES = [((2, 1000, 16, 64), True), ((1, 512, 32, 128), False)]
-# the kernels that issue wgmma fed by TMA, with setmaxnreg: the build fails if one spills
-WGMMA_KERNELS = ("flash_forward_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16")
+# the kernels that issue wgmma fed by TMA, with setmaxnreg: the build fails if any
+# instantiation spills (flash_forward_wgmma and flash_bwd_dkv_wgmma for bf16 and fp16 at
+# padded widths 64, 128 and 256, each full-width and narrower; flash_bwd_dq_bf16 at 64
+# and 128)
+WGMMA_KERNELS = ("flash_forward_wgmma", "flash_bwd_dq_bf16", "flash_bwd_dkv_wgmma")
 # ALBERT-base MLM training, bench.py's workload: its first batch candidate
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_WARMUP, TRAIN_STEPS = 32, 512, 2, 10
 TRAIN_MASKED_FRACTION = 0.25
@@ -225,7 +243,7 @@ EXPERT_LR = 1e-3  # SGD; the steps are compared, not the (barely moved) weights
 EXPERT_TOL = SERVING_TOL
 REQUEST_LENGTHS = (512, 512, 512, 512, 2048)
 REFERENCE_LENGTH = 256  # a request of its own; the first 512-long request is checked too
-# an expert of head_dim 32, which the SIMT flash kernel serves on the card
+# an expert of head_dim 32, which the wgmma flash forward serves on the card below its padded width
 SMALL_HEADS_EXPERT = dict(hidden=256, heads=8, shape=(2, 64, 256))
 # decode sessions on the served blocks: greedy generation from a 512-token prompt, then
 # 8 sessions with prompts of 128, 136, ..., 184 tokens stepping in lock-step through
@@ -622,7 +640,7 @@ def read_forward(out, lse, reference, dtype_name):
 def phase_flash(torch, peaks) -> dict:
     import torch.nn.functional as F
 
-    from hivemind_tpu_torch.ops.flash_attention import flash_attention_lse, flash_attention_plain, flash_route, needs_copy
+    from hivemind_tpu_torch.ops.flash_attention import flash_attention_lse, flash_attention_plain, flash_routes, needs_copy
 
     rng = np.random.default_rng(SEED)
     main_entry = None
@@ -637,7 +655,7 @@ def phase_flash(torch, peaks) -> dict:
                 reference = plain_forward(torch, q, k, v, causal)
                 out_reading, lse_reading = read_forward(out, lse, reference, dtype_name)
                 readings = f"out {format_reading(out_reading)}; lse {format_reading(lse_reading)}"
-                label = f"B={batch} T={seq} H={heads} D={dim} {dtype_name} causal={causal}"
+                label = f"B={batch} T={seq} H={heads} D={dim} {dtype_name} causal={causal} ({flash_routes(q)})"
                 if not (out_reading["ok"] and lse_reading["ok"]):
                     raise AssertionError(f"flash {label} exceeds out {FLASH_TOL[dtype_name]}, lse {LSE_TOL}: {readings}")
                 if shape == ALBERT_ATTENTION and dtype == torch.bfloat16 and not causal:  # a planted fault, rejected
@@ -669,7 +687,7 @@ def phase_flash(torch, peaks) -> dict:
         batch, seq, heads, dim = shape
         q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda().to(getattr(torch, dtype_name))
                    for _ in range(3))
-        label = f"B={batch} T={seq} H={heads} D={dim} {dtype_name} causal={causal} ({flash_route(q)})"
+        label = f"B={batch} T={seq} H={heads} D={dim} {dtype_name} causal={causal} ({flash_routes(q)})"
         readings = check_forward(torch, q, k, v, causal, dtype_name, label)
         ms = time_ms(torch, lambda: flash_attention_lse(q, k, v, causal))
         plain_ms = time_ms(torch, lambda: flash_attention_plain(q, k, v, causal))
@@ -686,12 +704,13 @@ def phase_flash(torch, peaks) -> dict:
         fused = torch.from_numpy(rng.standard_normal((batch, seq, 3, heads, dim), dtype=np.float32)).cuda().bfloat16()
         q, k, v = fused.unbind(2)
         readings = check_forward(torch, q, k, v, causal, "bfloat16", "on a fused qkv tensor")
-        log(f"[flash] q, k, v of one fused [{batch}, {seq}, 3, {heads}, {dim}] bf16 tensor, causal={causal}: {readings}")
+        log(f"[flash] q, k, v of one fused [{batch}, {seq}, 3, {heads}, {dim}] bf16 tensor, causal={causal} "
+            f"({flash_routes(q)}): {readings}")
     for shape, causal in UNALIGNED_CASES:
         q, k, v = (unaligned(torch, torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda().bfloat16())
                    for _ in range(3))
         readings = check_forward(torch, q, k, v, causal, "bfloat16", "on unaligned views")
-        log(f"[flash] q, k, v bf16 {list(shape)} one element off 16-byte alignment ({flash_route(q)}, "
+        log(f"[flash] q, k, v bf16 {list(shape)} one element off 16-byte alignment ({flash_routes(q)}, "
             f"copied first: {needs_copy(q)}), causal={causal}: {readings}")
     return main_entry
 
@@ -825,7 +844,7 @@ def phase_flash_bwd(torch, peaks) -> dict:
         flash_attention_backward_dq,
         flash_attention_backward_dq_plain,
         flash_attention_plain,
-        flash_route,
+        flash_routes,
     )
 
     rng = np.random.default_rng(SEED + 5)
@@ -843,7 +862,7 @@ def phase_flash_bwd(torch, peaks) -> dict:
         scales = backward_scales(torch, *args)
         readings = read_backward(dtype_name, got, ref, scales)
         text = "; ".join(f"{name} {format_reading(r)}" for name, r in readings.items())
-        label = f"B={batch} T={seq} H={heads} D={dim} {dtype_name} causal={causal} ({flash_route(q)})"
+        label = f"B={batch} T={seq} H={heads} D={dim} {dtype_name} causal={causal} ({flash_routes(q)})"
         if not all(r["ok"] for r in readings.values()):
             raise AssertionError(f"flash backward {label} exceeds {FLASH_BWD_TOL[dtype_name]}: {text}")
         if shape in FAULTY_BWD_SHAPES and dtype == torch.bfloat16:  # the check must reject a planted fault
@@ -887,6 +906,7 @@ def phase_flash_bwd(torch, peaks) -> dict:
                [unaligned(torch, torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda().bfloat16())
                 for _ in range(4)], causal) for shape, causal in UNALIGNED_CASES]
     for what, (q, k, v, dout), causal in views:
+        what = f"{what} ({flash_routes(q)})"
         out, lse = flash_attention_plain(q, k, v, causal)
         args = (q, k, v, dout, lse, _delta(out, dout), causal)
         got = (flash_attention_backward_dq(*args), *flash_attention_backward_dkv(*args))
@@ -1475,10 +1495,12 @@ def phase_serving(torch, checkpoint_dir: str, wrappers: dict, telemetry: Telemet
 
 
 def phase_small_heads(torch, wrappers: dict) -> dict:
-    """A served ``transformer`` expert of head_dim 32 on the card, through the SIMT
-    flash kernel, against the same expert on the CPU (``plain_attention``)."""
+    """A served ``transformer`` expert of head_dim 32 on the card (bf16 attention:
+    the wgmma flash forward at a padded width of 64), against the same expert on the
+    CPU (``plain_attention``)."""
     from hivemind_tpu_torch.moe.server.layers import name_to_block
     from hivemind_tpu_torch.moe.server.module_backend import ModuleBackend
+    from hivemind_tpu_torch.ops.flash_attention import flash_routes
 
     hid, heads, shape = SMALL_HEADS_EXPERT["hidden"], SMALL_HEADS_EXPERT["heads"], SMALL_HEADS_EXPERT["shape"]
     x = np.random.default_rng(SEED + 10).standard_normal(shape, dtype=np.float32)
@@ -1493,9 +1515,10 @@ def phase_small_heads(torch, wrappers: dict) -> dict:
     torch.cuda.synchronize()
     launches = {name: wrapper.launches for name, wrapper in wrappers.items()}
     rel_err = max_rel_err(got, cpu.forward(x)[0])
-    log(f"[head_dim32] transformer expert hidden {hid}, {heads} heads, input {list(shape)}: "
-        f"{launches['flash_attention_forward']} flash forward launch(es) on the card; card vs CPU (plain_attention) "
-        f"max_rel_err={rel_err:.3e}")
+    attention = torch.empty(shape[0], shape[1], heads, hid // heads, dtype=torch.bfloat16, device="meta")
+    log(f"[head_dim32] transformer expert hidden {hid}, {heads} heads, input {list(shape)} "
+        f"({flash_routes(attention)}): {launches['flash_attention_forward']} flash forward launch(es) on the card; "
+        f"card vs CPU (plain_attention) max_rel_err={rel_err:.3e}")
     if not (got.shape == x.shape and np.isfinite(got).all() and rel_err < SERVING_TOL):
         raise AssertionError(f"head_dim-32 expert: output {got.shape}, card vs CPU {rel_err} >= {SERVING_TOL}")
     return launches

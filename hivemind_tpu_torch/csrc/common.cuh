@@ -3,6 +3,7 @@
 // library exports this helper so a Python wrapper can name a CUDA error code.
 #pragma once
 
+#include <cuda.h>  // CUtensorMapDataType (types only)
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -26,8 +27,19 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) { re
 template <>
 __device__ __forceinline__ __half from_float<__half>(float x) { return __float2half_rn(x); }
 
-// The element types of the SIMT kernels, as the Python wrappers name them.
+// The element types of the flash kernels, as the Python wrappers name them: the
+// SIMT kernels take all three, the wgmma kernels bf16 and fp16.
 enum SimtDtype { kSimtF32 = 0, kSimtBf16 = 1, kSimtF16 = 2 };
+
+// What the wgmma kernels take: bf16 or fp16 at a head_dim that is a multiple of 8
+// (TMA's 16-byte strides) from 16 to 256.
+inline bool wgmma_takes(int dtype, int head_dim) {
+    return (dtype == kSimtBf16 || dtype == kSimtF16) && head_dim % 8 == 0 && head_dim >= 16 && head_dim <= 256;
+}
+
+inline CUtensorMapDataType tma_type(int dtype) {
+    return dtype == kSimtF16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
 
 // The padded widths the SIMT kernels are built for: a head_dim is computed at the
 // least of these that holds it, its extra columns staged as zeros. `launch` has a

@@ -13,21 +13,35 @@
 // registers (never in device memory) and keeps the tensor cores fed from tiles
 // that TMA brings in ahead of use.
 //
-// Design, bf16 (the serving and training path; the building blocks are sm90.cuh):
+// Design, wgmma (`flash_forward_wgmma<T, Dp, kFull>`: bf16 and fp16 at a head_dim that
+// is a multiple of 8 from 16 to 256, the serving and training paths; the building
+// blocks are sm90.cuh). T is the element type, Dp the head_dim padded to 64, 128
+// or 256, kFull whether head_dim is Dp; all are template arguments, never runtime
+// branches.
 //  * One thread block per (128 query rows, batch*head); three warpgroups. Two
 //    consumer warpgroups own 64 query rows each; one warp of the third (the
 //    producer) issues the TMA loads: the block's Q tile once, then K and V tiles
-//    of 128 rows through a ring of two stages. Each K and V slot has a "full"
-//    mbarrier (TMA bytes) and an "empty" one (the 8 consumer warps), so a K slot
-//    is refilled as soon as its S product is done. The producer warpgroup gives
-//    its registers to the consumers (setmaxnreg 24 / 240), which hold two
-//    64 x 128 fp32 accumulators at D = 128.
+//    through a ring of two stages. Each K and V slot has a "full" mbarrier (TMA
+//    bytes) and an "empty" one (the 8 consumer warps), so a K slot is refilled as
+//    soon as its S product is done. The producer warpgroup gives its registers to
+//    the consumers (setmaxnreg 24 / 240).
+//  * KV tiles are 128 rows at Dp <= 128 and 64 rows at Dp = 256, where a consumer
+//    thread holds O (64 x 256 fp32: 128 registers), S (32) and P (16) within its
+//    240. Shared memory: Q 32 KB and K, V 2 x 2 x 32 KB at Dp = 128 (160 KB in
+//    all); Q 64 KB and K, V 2 x 2 x 32 KB at Dp = 256 (192 KB).
 //  * Tiles live in shared memory in the 128-byte-swizzled layout TMA writes and
-//    wgmma reads: Q 32 KB, K and V 2 x 2 x 32 KB at D = 128 (160 KB in all).
-//  * S = Q K^T is wgmma m64n128k16 with Q and K both K-major in shared memory.
-//    O += P V is wgmma with P from registers (the S accumulator's layout is the
-//    A-register layout, so P is packed to bf16 in place) and V read MN-major
-//    through the transpose-B flag: no transposed copy of V exists anywhere.
+//    wgmma reads, Dp / 64 regions of 64 columns. A head_dim below Dp: TMA reads
+//    the columns past it as zeros, which add nothing to S or to O, and the
+//    epilogue stores only the columns below it; a region wholly past it (Dp = 256,
+//    head_dim <= 192) is zeroed once and never loaded. The scale is the real
+//    head_dim's D^-1/2.
+//  * S = Q K^T is wgmma m64nNk16 (N = the KV tile's rows) with Q and K both
+//    K-major in shared memory. O += P V is wgmma m64nDpk16 with P from registers
+//    (the S accumulator's layout is the A-register layout, so P is packed to T in
+//    place) and V read MN-major through the transpose-B flag: no transposed copy
+//    of V exists anywhere. fp16 uses the .f16 forms; its P rounds to fp16 as
+//    bf16's rounds to bf16, the only rounding the tensor cores add to the TPU
+//    kernel's fp32 arithmetic (a product of two 16-bit values is exact in fp32).
 //  * The consumer warpgroups take turns on the tensor cores ("ping-pong", two
 //    named barriers): a turn issues S of tile j and P V of tile j - 1 as one
 //    wgmma group, then hands the turn over, so one warpgroup's softmax runs while
@@ -36,24 +50,25 @@
 //  * Online softmax in base 2: 2^x (ex2.approx) of the raw score times
 //    D^-1/2 * log2(e), less the running row maximum likewise scaled; lse is
 //    stored as a natural log (the backward recomputes P = exp(S * scale - lse)).
-//  * Masking only where it can bite: the diagonal tile when causal (column >
-//    row takes the finite -1e30, as the TPU kernel) and the tile holding T.
-//    TMA reads rows past T as zeros, which still score 0, so columns past T are
-//    masked there; rows past T are never stored.
+//  * Masking only where it can bite: the tiles that meet the diagonal when causal
+//    (column > row takes the finite -1e30, as the TPU kernel) and the tile
+//    holding T. TMA reads rows past T as zeros, which still score 0, so columns
+//    past T are masked there; rows past T are never stored.
 //  * Query tiles are launched heaviest first (the last tile of each batch*head
 //    first), so the causal tail is short.
 //  * Later work (not here): a persistent grid, so that one tile's loads and
 //    epilogue overlap another's products (at D = 64 and T = 512 a block runs
 //    only 4 KV tiles), and TMA stores of O.
 //
-// Design, SIMT (every input the bf16 design does not take: fp32, fp16, and bf16 at
-// a head_dim other than 64 or 128, any head_dim up to 256, as the TPU kernel takes
-// the whole head_dim as its block): the same online softmax on the CUDA cores in
-// fp32 FMAs only (no TF32), the inputs widened to fp32 as they are staged, as the
-// TPU kernel casts its tiles. A block owns 16 query rows of one batch*head, a warp
-// 4 of them; lane j scores key j of a 32-key tile, and each lane accumulates
-// kD/32 output columns from probabilities broadcast by shuffles. kD is head_dim
-// rounded up to 32, 64, 96, 128 or 256, its extra columns zeros.
+// Design, SIMT (every input the wgmma design does not take: fp32, where tensor
+// cores would round the inputs to TF32, and bf16 or fp16 at a head_dim that is not
+// a multiple of 8, up to 256, as the TPU kernel takes the whole head_dim as its
+// block): the same online softmax on the CUDA cores in fp32 FMAs only (no TF32),
+// the inputs widened to fp32 as they are staged, as the TPU kernel casts its
+// tiles. A block owns 16 query rows of one batch*head, a warp 4 of them; lane j
+// scores key j of a 32-key tile, and each lane accumulates kD/32 output columns
+// from probabilities broadcast by shuffles. kD is head_dim rounded up to 32, 64,
+// 96, 128 or 256, its extra columns zeros.
 
 #include <cuda_bf16.h>
 
@@ -81,47 +96,65 @@ struct Params {
     int causal;
 };
 
-// ------------------------------------------------------------------ bf16 path
+// ------------------------------------------------------------------ wgmma path
 
-constexpr int kRows = 128;        // query rows per block, and KV rows per tile
+constexpr int kRows = 128;        // query rows per block
 constexpr int kStages = 2;        // depth of the K/V ring
 constexpr int kConsumerWarps = 8;
-constexpr int kThreadsBf16 = 384;  // two consumer warpgroups and the producer's
+constexpr int kThreadsWgmma = 384;  // two consumer warpgroups and the producer's
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;  // 128 * 24 + 256 * 240 = 384 * 168
 
-struct Bf16Params {
+struct WgmmaParams {
     void* out;
     float* lse;  // [B, H, T] contiguous
-    int seq, heads;
+    int seq, heads, head_dim;
     long long o_sb, o_st, o_sh;
     float scale;
     int causal;
 };
 
-// Shared-memory layout (byte offsets from a 1024-aligned base).
-template <int D>
+// Shared-memory layout at the padded width Dp (byte offsets from a 1024-aligned base).
+template <int Dp>
 struct ForwardTiles {
-    static constexpr uint32_t kBox = kRows * sm90::kSwizzleRowBytes;  // 64 columns x 128 rows: 16 KB
-    static constexpr uint32_t kTile = kBox * (D / sm90::kBoxCols);
-    static constexpr uint32_t kQ = 0, kK = kTile, kV = kK + kStages * kTile;
-    static constexpr uint32_t kBarriers = kV + kStages * kTile;  // full_q, full_k[S], full_v[S], empty_k[S], empty_v[S]
+    // KV rows per tile, and the rows of every TMA box: at Dp = 256 a 128-row tile's
+    // scores would not fit the registers beside O (64 x 256 fp32: 128 a thread)
+    static constexpr int kKvRows = Dp > 128 ? 64 : 128;
+    static constexpr int kBoxes = Dp / sm90::kBoxCols;                          // 64-column regions of a tile
+    static constexpr uint32_t kQBox = kRows * sm90::kSwizzleRowBytes;          // one region of the Q tile
+    static constexpr uint32_t kKvBox = kKvRows * sm90::kSwizzleRowBytes;       // one region of a K or V tile
+    static constexpr uint32_t kQTile = kQBox * kBoxes, kKvTile = kKvBox * kBoxes;
+    static constexpr uint32_t kQ = 0, kK = kQTile, kV = kK + kStages * kKvTile;
+    static constexpr uint32_t kBarriers = kV + kStages * kKvTile;  // full_q, full_k[S], full_v[S], empty_k[S], empty_v[S]
     static constexpr uint32_t kBytes = kBarriers + (1 + 4 * kStages) * 8 + sm90::kSwizzleAtomBytes;  // + alignment
 };
 
-// TMA of one 128-row tile: D/64 boxes of 64 columns, each its own swizzle region.
-template <int D>
-__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar, int h, int row0, int b) {
+// TMA of a tile of kTileRows rows from row `row0`: in each of its first `boxes`
+// 64-column regions, kTileRows / kBoxRows boxes of kBoxRows rows, one after the
+// other (8 rows of 128 bytes are one swizzle period, so a box lands where the same
+// rows of one taller box would).
+template <int kBoxRows, int kTileRows>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar, int boxes, int h, int row0,
+                                          int b) {
 #pragma unroll
-    for (int box = 0; box < D / sm90::kBoxCols; ++box) {
-        sm90::tma_load_4d(dst + box * ForwardTiles<D>::kBox, map, bar, box * sm90::kBoxCols, h, row0, b);
+    for (int col = 0; col < boxes; ++col) {
+#pragma unroll
+        for (int part = 0; part < kTileRows / kBoxRows; ++part) {
+            sm90::tma_load_4d(dst + (col * kTileRows + part * kBoxRows) * sm90::kSwizzleRowBytes, map, bar,
+                              col * sm90::kBoxCols, h, row0 + part * kBoxRows, b);
+        }
     }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreadsBf16, 1)
-    flash_forward_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-                       const __grid_constant__ CUtensorMap tm_v, const Bf16Params p) {
-    using L = ForwardTiles<D>;
+// T: __nv_bfloat16 or __half. Dp: head_dim padded to 64, 128 or 256; columns at or
+// past head_dim read as zeros and are never stored. kFull: head_dim == Dp, whose
+// stores need no column test (its mere presence in a kernel costs a full-width
+// tile about 1%, as measured against one without it).
+template <typename T, int Dp, bool kFull>
+__global__ void __launch_bounds__(kThreadsWgmma, 1)
+    flash_forward_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v, const WgmmaParams p) {
+    using L = ForwardTiles<Dp>;
+    constexpr int kKvRows = L::kKvRows;
     extern __shared__ unsigned char smem_raw[];
     const uint32_t base = (sm90::smem_addr(smem_raw) + sm90::kSwizzleAtomBytes - 1) & ~(sm90::kSwizzleAtomBytes - 1);
     const uint32_t full_q = base + L::kBarriers;
@@ -135,7 +168,22 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
     const int q_tiles = (p.seq + kRows - 1) / kRows;
     const int q_tile = q_tiles - 1 - static_cast<int>(blockIdx.y);  // heaviest first
     const int q0 = q_tile * kRows;
-    const int kv_tiles = p.causal ? q_tile + 1 : q_tiles;  // causal: up to the diagonal tile
+    const int kv_end = p.causal ? min(p.seq, q0 + kRows) : p.seq;  // causal: up to the diagonal
+    const int kv_tiles = (kv_end + kKvRows - 1) / kKvRows;
+    // The regions TMA loads: at Dp <= 128 every one holds a column below head_dim
+    // (head_dim >= 16, and > 64 at Dp = 128); at Dp = 256 the last lies wholly past a
+    // head_dim of 192 or less, so it is zeroed once here and never loaded.
+    const int boxes = !kFull && Dp > 128 ? (p.head_dim + sm90::kBoxCols - 1) / sm90::kBoxCols : L::kBoxes;
+    if (!kFull && Dp > 128 && boxes < L::kBoxes) {
+        for (int region = boxes; region < L::kBoxes; ++region) {
+            sm90::zero_shared(base + L::kQ + region * L::kQBox, L::kQBox);
+            for (int s = 0; s < kStages; ++s) {
+                sm90::zero_shared(base + L::kK + s * L::kKvTile + region * L::kKvBox, L::kKvBox);
+                sm90::zero_shared(base + L::kV + s * L::kKvTile + region * L::kKvBox, L::kKvBox);
+            }
+        }
+        sm90::fence_proxy_async();
+    }
 
     if (threadIdx.x == 0) {
         sm90::mbar_init(full_q, 1);
@@ -152,17 +200,17 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
     if (threadIdx.x >= kConsumerWarps * 32) {  // the producer warpgroup; one thread issues every load
         sm90::setmaxnreg_dec<kProducerRegs>();
         if (threadIdx.x == kConsumerWarps * 32) {
-            sm90::mbar_arrive_expect_tx(full_q, L::kTile);
-            load_tile<D>(base + L::kQ, &tm_q, full_q, h, q0, b);
+            sm90::mbar_arrive_expect_tx(full_q, boxes * L::kQBox);
+            load_tile<kKvRows, kRows>(base + L::kQ, &tm_q, full_q, boxes, h, q0, b);
             for (int j = 0; j < kv_tiles; ++j) {
                 const int s = j % kStages;
                 const uint32_t parity = ((j / kStages) & 1) ^ 1;  // the first round passes at once
                 sm90::mbar_wait(empty_k(s), parity);
-                sm90::mbar_arrive_expect_tx(full_k(s), L::kTile);
-                load_tile<D>(base + L::kK + s * L::kTile, &tm_k, full_k(s), h, j * kRows, b);
+                sm90::mbar_arrive_expect_tx(full_k(s), boxes * L::kKvBox);
+                load_tile<kKvRows, kKvRows>(base + L::kK + s * L::kKvTile, &tm_k, full_k(s), boxes, h, j * kKvRows, b);
                 sm90::mbar_wait(empty_v(s), parity);
-                sm90::mbar_arrive_expect_tx(full_v(s), L::kTile);
-                load_tile<D>(base + L::kV + s * L::kTile, &tm_v, full_v(s), h, j * kRows, b);
+                sm90::mbar_arrive_expect_tx(full_v(s), boxes * L::kKvBox);
+                load_tile<kKvRows, kKvRows>(base + L::kV + s * L::kKvTile, &tm_v, full_v(s), boxes, h, j * kKvRows, b);
             }
         }
     } else {  // two consumer warpgroups, 64 query rows each
@@ -173,41 +221,43 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
         const int row_lo = wg * 64 + warp * 16 + g;  // this thread's rows of the tile: row_lo, row_lo + 8
         const float scale2 = p.scale * sm90::kLog2e;
 
-        float o[D / 2];
+        float o[Dp / 2];
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+        for (int i = 0; i < Dp / 2; ++i) o[i] = 0.0f;
         float m_lo = kNegInf, m_hi = kNegInf, l_lo = 0.0f, l_hi = 0.0f;  // raw row maxima, partial row sums
 
         const uint32_t q_wg = base + L::kQ + wg * 64 * sm90::kSwizzleRowBytes;  // this warpgroup's 64 rows
-        float sc[kRows / 2];         // S = Q K^T of one KV tile, 64 x 128, then its P
-        uint32_t pf[kRows / 16][4];  // P as the A operand of P V, one 16-column k-step each
+        float sc[kKvRows / 2];         // S = Q K^T of one KV tile, 64 x kKvRows, then its P
+        uint32_t pf[kKvRows / 16][4];  // P as the A operand of P V, one 16-column k-step each
         float corr_lo = 0.0f, corr_hi = 0.0f;
 
         // S = Q K^T of KV tile j into sc
         const auto issue_s = [&](int j) {
-            const uint32_t k_tile = base + L::kK + (j % kStages) * L::kTile;
+            const uint32_t k_tile = base + L::kK + (j % kStages) * L::kKvTile;
 #pragma unroll
-            for (int kk = 0; kk < D / 16; ++kk) {
-                // box kk / 4, then 32 bytes (16 columns) along its swizzled 128-byte rows
-                const uint32_t off = (kk / 4) * L::kBox + (kk % 4) * 32;
-                sm90::wgmma_ss(sc, sm90::desc_kmajor(q_wg + off), sm90::desc_kmajor(k_tile + off), kk > 0);
+            for (int kk = 0; kk < Dp / 16; ++kk) {
+                // region kk / 4, then 32 bytes (16 columns) along its swizzled 128-byte rows
+                const uint32_t q_off = (kk / 4) * L::kQBox + (kk % 4) * 32;
+                const uint32_t k_off = (kk / 4) * L::kKvBox + (kk % 4) * 32;
+                sm90::wgmma_ss<T>(sc, sm90::desc_kmajor(q_wg + q_off), sm90::desc_kmajor(k_tile + k_off), kk > 0);
             }
         };
         // O += P V of KV tile j, P from pf
         const auto issue_pv = [&](int j) {
-            const uint32_t v_tile = base + L::kV + (j % kStages) * L::kTile;
+            const uint32_t v_tile = base + L::kV + (j % kStages) * L::kKvTile;
 #pragma unroll
-            for (int kc = 0; kc < kRows / 16; ++kc) {  // 16 KV rows per k-step: 2048 bytes down V's boxes
-                sm90::wgmma_rs_tb(o, pf[kc], sm90::desc_mnmajor(v_tile + kc * 16 * sm90::kSwizzleRowBytes, L::kBox), 1);
+            for (int kc = 0; kc < kKvRows / 16; ++kc) {  // 16 KV rows per k-step: 2048 bytes down V's regions
+                sm90::wgmma_rs_tb<T>(o, pf[kc], sm90::desc_mnmajor(v_tile + kc * 16 * sm90::kSwizzleRowBytes, L::kKvBox),
+                                     1);
             }
         };
         // Mask and exponentiate tile j's scores in place; fold them into the row
         // maxima and partial sums; corr_* take the factor that rescales O.
         const auto softmax = [&](int j) {
-            const int kv0 = j * kRows;
-            if ((p.causal && j == q_tile) || kv0 + kRows > p.seq) {
+            const int kv0 = j * kKvRows;
+            if ((p.causal && kv0 + kKvRows > q0) || kv0 + kKvRows > p.seq) {  // the diagonal's tiles, the tile holding T
 #pragma unroll
-                for (int i = 0; i < kRows / 2; ++i) {
+                for (int i = 0; i < kKvRows / 2; ++i) {
                     const int col = kv0 + (i / 4) * 8 + 2 * t + (i & 1);
                     const int row = q0 + row_lo + (i & 2) * 4;
                     if (col >= p.seq || (p.causal && col > row)) sc[i] = kNegInf;
@@ -215,7 +265,7 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
             }
             float max_lo = m_lo, max_hi = m_hi;
 #pragma unroll
-            for (int i = 0; i < kRows / 2; ++i) {
+            for (int i = 0; i < kKvRows / 2; ++i) {
                 if (i & 2) {
                     max_hi = fmaxf(max_hi, sc[i]);
                 } else {
@@ -234,7 +284,7 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
             const float shift_lo = max_lo * scale2, shift_hi = max_hi * scale2;
             float sum_lo = 0.0f, sum_hi = 0.0f;
 #pragma unroll
-            for (int i = 0; i < kRows / 2; ++i) {
+            for (int i = 0; i < kKvRows / 2; ++i) {
                 if (i & 2) {
                     sc[i] = sm90::exp2_approx(fmaf(sc[i], scale2, -shift_hi));
                     sum_hi += sc[i];
@@ -249,9 +299,9 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
 
         const auto pack_p = [&]() {
 #pragma unroll
-            for (int kc = 0; kc < kRows / 16; ++kc) {
+            for (int kc = 0; kc < kKvRows / 16; ++kc) {
 #pragma unroll
-                for (int r = 0; r < 4; ++r) pf[kc][r] = sm90::pack_bf16(sc[8 * kc + 2 * r], sc[8 * kc + 2 * r + 1]);
+                for (int r = 0; r < 4; ++r) pf[kc][r] = sm90::pack2<T>(sc[8 * kc + 2 * r], sc[8 * kc + 2 * r + 1]);
             }
         };
         // Turn j issues S of tile j and P V of tile j - 1 as one wgmma group (the
@@ -299,7 +349,7 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
             }
             softmax(j);
 #pragma unroll
-            for (int i = 0; i < D / 2; ++i) o[i] *= (i & 2) ? corr_hi : corr_lo;
+            for (int i = 0; i < Dp / 2; ++i) o[i] *= (i & 2) ? corr_hi : corr_lo;
             pack_p();
         }
         const int last = kv_tiles - 1;
@@ -317,17 +367,19 @@ __global__ void __launch_bounds__(kThreadsBf16, 1)
         }
         const float denom_lo = fmaxf(l_lo, 1e-30f), denom_hi = fmaxf(l_hi, 1e-30f);
         const int row_a = q0 + row_lo, row_b = row_a + 8;
-        __nv_bfloat16* o_base = static_cast<__nv_bfloat16*>(p.out) + b * p.o_sb + h * p.o_sh;
+        T* o_base = static_cast<T*>(p.out) + b * p.o_sb + h * p.o_sh;
 #pragma unroll
-        for (int c = 0; c < D / 8; ++c) {
+        for (int c = 0; c < Dp / 8; ++c) {
             const int col = c * 8 + t * 2;
-            if (row_a < p.seq) {
-                *reinterpret_cast<__nv_bfloat162*>(o_base + row_a * p.o_st + col) =
-                    __floats2bfloat162_rn(o[4 * c] / denom_lo, o[4 * c + 1] / denom_lo);
-            }
-            if (row_b < p.seq) {
-                *reinterpret_cast<__nv_bfloat162*>(o_base + row_b * p.o_st + col) =
-                    __floats2bfloat162_rn(o[4 * c + 2] / denom_hi, o[4 * c + 3] / denom_hi);
+            if (kFull || c * 8 < p.head_dim) {  // columns past a head_dim below Dp (a multiple of 8) are not stored
+                if (row_a < p.seq) {
+                    *reinterpret_cast<uint32_t*>(o_base + row_a * p.o_st + col) =
+                        sm90::pack2<T>(o[4 * c] / denom_lo, o[4 * c + 1] / denom_lo);
+                }
+                if (row_b < p.seq) {
+                    *reinterpret_cast<uint32_t*>(o_base + row_b * p.o_st + col) =
+                        sm90::pack2<T>(o[4 * c + 2] / denom_hi, o[4 * c + 3] / denom_hi);
+                }
             }
         }
         if (t == 0) {
@@ -450,16 +502,28 @@ __global__ void __launch_bounds__(kWarpsSimt * 32) flash_forward_simt(const Para
 
 // ------------------------------------------------------------------ launch
 
-template <int D>
-int launch_bf16(const CUtensorMap& q, const CUtensorMap& k, const CUtensorMap& v, const Bf16Params& p, int batch,
-                cudaStream_t stream) {
-    constexpr size_t smem = ForwardTiles<D>::kBytes;
-    cudaError_t err = cudaFuncSetAttribute(flash_forward_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
+template <typename T, int Dp, bool kFull>
+int launch_wgmma(const CUtensorMap (&maps)[3], const WgmmaParams& p, int batch, cudaStream_t stream) {
+    constexpr size_t smem = ForwardTiles<Dp>::kBytes;
+    const auto kernel = flash_forward_wgmma<T, Dp, kFull>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid(batch * p.heads, (p.seq + kRows - 1) / kRows);
-    flash_forward_bf16<D><<<grid, kThreadsBf16, smem, stream>>>(q, k, v, p);
+    kernel<<<grid, kThreadsWgmma, smem, stream>>>(maps[0], maps[1], maps[2], p);
     return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int Dp>
+int launch_width(const CUtensorMap (&maps)[3], const WgmmaParams& p, int batch, cudaStream_t stream) {
+    if (p.head_dim == Dp) return launch_wgmma<T, Dp, true>(maps, p, batch, stream);
+    return launch_wgmma<T, Dp, false>(maps, p, batch, stream);
+}
+
+template <typename T>
+int dispatch_wgmma_width(const CUtensorMap (&maps)[3], const WgmmaParams& p, int batch, cudaStream_t stream) {
+    if (p.head_dim <= 64) return launch_width<T, 64>(maps, p, batch, stream);
+    if (p.head_dim <= 128) return launch_width<T, 128>(maps, p, batch, stream);
+    return launch_width<T, 256>(maps, p, batch, stream);
 }
 
 // A block per (batch*head, 16 query rows): grid (B*H, ceil(T / 16)).
@@ -482,27 +546,30 @@ struct ForwardSimt {
 
 }  // namespace
 
-// q, k, v: [B, T, H, D] bf16, each described by its TMA geometry (sm90::TmaGeometry:
-// dims, byte strides, box of 64 columns x 128 rows) -> out [B, T, H, D] bf16
-// (strides in elements) and lse [B, H, T] fp32 contiguous.
-extern "C" int hm_flash_forward_bf16(const void* q, const void* k, const void* v, void* out, float* lse,
-                                     int batch, int seq, int heads, int head_dim,
-                                     const long long* q_geometry, const long long* k_geometry,
-                                     const long long* v_geometry, long long o_sb, long long o_st, long long o_sh,
-                                     int causal, float scale, cudaStream_t stream) {
+// q, k, v: [B, T, H, D] of one element type `dtype` (SimtDtype: bf16 or fp16),
+// head_dim a multiple of 8 from 16 to 256, each described by its TMA geometry
+// (sm90::TmaGeometry: dims, byte strides, box of 64 columns x wgmma_box_rows(head_dim)
+// rows) -> out [B, T, H, D] of that type (strides in elements) and lse [B, H, T]
+// fp32 contiguous.
+extern "C" int hm_flash_forward_wgmma(const void* q, const void* k, const void* v, void* out, float* lse, int dtype,
+                                      int batch, int seq, int heads, int head_dim,
+                                      const long long* q_geometry, const long long* k_geometry,
+                                      const long long* v_geometry, long long o_sb, long long o_st, long long o_sh,
+                                      int causal, float scale, cudaStream_t stream) {
     if (batch <= 0 || seq <= 0 || heads <= 0) return 0;
-    if (head_dim != 64 && head_dim != 128) return static_cast<int>(cudaErrorInvalidValue);
+    if (!wgmma_takes(dtype, head_dim)) return static_cast<int>(cudaErrorInvalidValue);
     const void* bases[3] = {q, k, v};
     const long long* geometries[3] = {q_geometry, k_geometry, v_geometry};
+    const int box_rows = head_dim > 128 ? ForwardTiles<256>::kKvRows : ForwardTiles<128>::kKvRows;
     CUtensorMap maps[3];
     for (int i = 0; i < 3; ++i) {
         const int err = sm90::encode_tma_map(&maps[i], bases[i], *reinterpret_cast<const sm90::TmaGeometry*>(geometries[i]),
-                                             kRows, head_dim);
+                                             box_rows, head_dim, tma_type(dtype));
         if (err != 0) return err;
     }
-    const Bf16Params p{out, lse, seq, heads, o_sb, o_st, o_sh, scale, causal};
-    if (head_dim == 64) return launch_bf16<64>(maps[0], maps[1], maps[2], p, batch, stream);
-    return launch_bf16<128>(maps[0], maps[1], maps[2], p, batch, stream);
+    const WgmmaParams p{out, lse, seq, heads, head_dim, o_sb, o_st, o_sh, scale, causal};
+    if (dtype == kSimtF16) return dispatch_wgmma_width<__half>(maps, p, batch, stream);
+    return dispatch_wgmma_width<__nv_bfloat16>(maps, p, batch, stream);
 }
 
 // q, k, v: [B, T, H, D] of one element type `dtype` (SimtDtype: fp32, bf16 or

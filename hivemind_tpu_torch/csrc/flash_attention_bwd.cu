@@ -23,26 +23,31 @@
 // The TPU carried dq_acc and dk_acc/dv_acc in VMEM across sequential grid steps;
 // blocks here run in parallel in no order, so each sweep is a loop inside the
 // block and its accumulators live in registers in fp32. Two passes and no
-// atomics: the result is deterministic. P and dS are rounded to bf16 before their
-// products: that rounding is the kernels' main difference from the TPU kernel,
-// which multiplied fp32 tiles. Columns past T (and above the diagonal when
-// causal) are masked to P = 0 explicitly, so nothing relies on a padded lse.
+// atomics: the result is deterministic. In the wgmma passes P and dS are rounded
+// to the input type (bf16 or fp16) before their products: that rounding is their
+// only difference from the TPU kernel, which multiplied fp32 tiles (a product of
+// two 16-bit values is exact in fp32, and every sum is fp32). fp16's dS overflows
+// past 65504, as FlashAttention-2's does: |dS| = P |dP - delta| D^-1/2 <= 65504
+// holds while |dP - delta| stays below 65504 * D^1/2 (5.2e5 at D = 64). Columns
+// past T (and above the diagonal when causal) are masked to P = 0 explicitly, so
+// nothing relies on a padded lse.
 //
-// Both bf16 passes (building blocks in sm90.cuh) run one thread block per 128
-// rows (query rows for dQ, KV rows for dK/dV) of one batch*head, in three
-// warpgroups: two consumer warpgroups own 64 of those rows each, whose tiles stay
-// resident in shared memory, and one warp of the third (the producer) streams the
-// other side's 64-row tiles by TMA through a ring. The producer warpgroup gives
-// its registers to the consumers (setmaxnreg 24 / 240). Every tensor is read by
-// TMA through one geometry shared by both passes: boxes of 64 columns x 64 rows,
-// so a 128-row tile is two boxes per 64 columns, which land where one 128-row box
-// would. Every wgmma is issued outside any branch (ptxas serializes them all
-// otherwise, note C7520). The exponent is 2^(S * D^-1/2 * log2(e) - lse * log2(e))
-// by ex2.approx. Masking is applied only on the tiles that meet the diagonal when
-// causal and on the tile holding T; TMA reads rows past T as zeros, and rows past
-// T are never stored.
+// Both wgmma passes (building blocks in sm90.cuh) run one thread block per 128
+// rows (query rows for dQ, KV rows for dK/dV; 64 KV rows at a padded width of
+// 256) of one batch*head, in three warpgroups: two consumer warpgroups own 64 of
+// those rows each (or, at 256, the same 64 rows and half the columns each), whose
+// tiles stay resident in shared memory, and one warp of the third (the producer)
+// streams the other side's 64-row tiles by TMA through a ring. The producer
+// warpgroup gives its registers to the consumers (setmaxnreg 24 / 240). Every
+// tensor is read by TMA through one geometry shared by both passes: boxes of 64
+// columns x 64 rows, so a 128-row tile is two boxes per 64 columns, which land
+// where one 128-row box would. Every wgmma is issued outside any branch (ptxas
+// serializes them all otherwise, note C7520). The exponent is
+// 2^(S * D^-1/2 * log2(e) - lse * log2(e)) by ex2.approx. Masking is applied only
+// on the tiles that meet the diagonal when causal and on the tile holding T; TMA
+// reads rows past T as zeros, and rows past T are never stored.
 //
-// dQ pass, bf16:
+// dQ pass, wgmma (`flash_bwd_dq_bf16<D>`: bf16 at head_dim 64 or 128 only):
 //  * Grid (B*H, query tiles), the heaviest query tiles first when causal (the
 //    last tile of each batch*head first), as the forward. Q and dO of the block's
 //    128 rows are loaded once; K and V tiles of 64 rows stream through a ring of
@@ -69,25 +74,43 @@
 //    the last KV tile, which lies wholly above its rows and masks to zero, so that
 //    both warpgroups release every ring slot.
 //
-// dK/dV pass, bf16:
-//  * Grid (B*H, KV tiles of 128 rows). K and V of the block stay resident; Q and
-//    dO tiles of 64 rows stream through a ring of two stages, and the producer
+// dK/dV pass, wgmma (`flash_bwd_dkv_wgmma<T, Dp, kFull>`: bf16 and fp16 at a head_dim
+// that is a multiple of 8 from 16 to 256; T the element type, Dp the head_dim padded
+// to 64, 128 or 256, kFull whether head_dim is Dp, all template arguments):
+//  * A head_dim below Dp as in the forward: TMA reads the columns past it as
+//    zeros, a region wholly past it (Dp = 256, head_dim <= 192) is zeroed once and
+//    never loaded, and only columns below it are stored. fp16 uses the .f16 wgmma
+//    forms; swizzle, descriptors and boxes are bf16's (both are 2 bytes).
+//  * Grid (B*H, KV tiles of 128 rows; 64 at Dp = 256). K and V of the block stay
+//    resident; Q and dO tiles of 64 rows stream through a ring of two stages, and
+//    the producer
 //    warp stages their lse (times log2 e) and delta by plain loads, which a TMA
 //    map on [B*H, T] fp32 could not take for a T that is not a multiple of 4. At
 //    D = 128 each consumer thread holds dK and dV (64 + 64 fp32) and S^T, dP^T
 //    (32 + 32).
 //  * S^T = K Q^T and dP^T = V dO^T are wgmma m64n64k16 with every operand K-major
-//    in shared memory; P^T and dS^T are rounded to bf16 in place as A operands.
+//    in shared memory; P^T and dS^T are rounded to T in place as A operands.
 //  * dV += P^T dO and dK += dS^T Q are wgmma with the A operand from registers
 //    and dO, Q read MN-major through the transpose-B flag.
 //  * Causal: the query loop starts at the diagonal tile.
+//  * Dp = 256: a consumer warpgroup cannot hold dK and dV of 64 rows (2 x 128 fp32
+//    registers a thread) beside S^T and dP^T. The block owns 64 KV rows and the
+//    two warpgroups split the head dim's columns: each computes S^T and dP^T of
+//    the same rows (over all 256 columns) and accumulates dK and dV of its 128
+//    columns. That keeps both warpgroups on one code path, with no role branch
+//    around a wgmma, and each thread's registers exactly as at Dp = 128 (dK, dV
+//    64 + 64, S^T, dP^T 32 + 32), which builds without a spill; it costs S^T and
+//    dP^T twice, 1.5x the products of one pass (FlashAttention-3's alternative,
+//    P^T and dS^T through shared memory, computes them once). Shared memory: K, V
+//    2 x 32 KB resident, Q, dO 2 stages x 2 x 32 KB, lse and delta (193 KB).
 //
 // Later work (not here): the ping-pong of the two consumer warpgroups and a deeper
 // ring in the dK/dV pass, a persistent grid, TMA stores of the outputs.
 //
-// SIMT (every input the bf16 passes do not take: fp32, fp16, and bf16 at a head_dim
-// other than 64 or 128, any head_dim up to 256, as the TPU kernels take the whole
-// head_dim as their block): plain fp32 FMAs on the CUDA cores, no TF32, the inputs
+// SIMT (every input a wgmma pass does not take: fp32, where tensor cores would
+// round the inputs to TF32; bf16 and fp16 at a head_dim that is not a multiple of
+// 8; and in the dQ pass every input but bf16 at 64 or 128; any head_dim up to 256,
+// as the TPU kernels take the whole head_dim as their block): plain fp32 FMAs on the CUDA cores, no TF32, the inputs
 // widened to fp32 as they are staged and P and dS kept in fp32, as the TPU
 // kernels. A warp owns 4 rows (query rows in the dQ kernel, KV rows in the dK/dV
 // kernel); lane j takes column j of a 32-wide tile, and each lane accumulates
@@ -124,55 +147,58 @@ struct Params {
 
 constexpr int kWarps = 4;  // warps of an fp32 block
 
-// ------------------------------------------------------------------ bf16 path
+// ------------------------------------------------------------------ wgmma path
 
-constexpr int kBlockRows = 128;  // rows a bf16 block owns: two consumer warpgroups of 64
+constexpr int kBlockRows = 128;  // rows a dQ block owns: two consumer warpgroups of 64
 constexpr int kBoxRows = 64;     // rows of a TMA box, and of every streamed tile
 constexpr int kConsumerWarps = 8;
 constexpr int kThreads = 384;  // two consumer warpgroups and the producer's
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;  // 128 * 24 + 256 * 240 = 384 * 168
 
-struct Bf16Params {
+struct WgmmaParams {
     const float* lse;    // [B, H, T]
     const float* delta;  // [B, H, T]
     void* out0;          // dq, or dk
     void* out1;          // dv (dK/dV pass)
-    int seq, heads;
+    int seq, heads, head_dim;
     long long o_sb, o_st, o_sh;  // the outputs' layout
     float scale;
     int causal;
 };
 
-// Write a warpgroup's 64 x D fp32 accumulator as bf16 rows `row_a` and `row_a + 8`
-// of this thread: acc[4n + e] holds row row_a + 8*(e >> 1), column 8n + 2t + (e & 1)
-// (the wgmma m64nD accumulator layout); rows at or past `seq` are not stored.
-template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* base, long long row_stride, const float* acc,
-                                           int row_a, int seq, int t) {
+// Write a warpgroup's 64 x N fp32 accumulator as T into rows `row_a` and `row_a + 8`
+// of this thread and columns from `col0`: acc[4n + e] holds row row_a + 8*(e >> 1),
+// column col0 + 8n + 2t + (e & 1) (the wgmma m64nN accumulator layout); rows at or
+// past `seq` are not stored, nor (kMasked) columns at or past `head_dim`, a multiple
+// of 8.
+template <bool kMasked, typename T, int N>
+__device__ __forceinline__ void store_rows(T* base, long long row_stride, const float* acc, int row_a, int seq, int t,
+                                           int col0, int head_dim) {
     const int row_b = row_a + 8;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-        const int col = n * 8 + t * 2;
-        if (row_a < seq) {
-            *reinterpret_cast<__nv_bfloat162*>(base + row_a * row_stride + col) =
-                __floats2bfloat162_rn(acc[4 * n], acc[4 * n + 1]);
-        }
-        if (row_b < seq) {
-            *reinterpret_cast<__nv_bfloat162*>(base + row_b * row_stride + col) =
-                __floats2bfloat162_rn(acc[4 * n + 2], acc[4 * n + 3]);
+    for (int n = 0; n < N / 8; ++n) {
+        const int col = col0 + n * 8 + t * 2;
+        if (!kMasked || col0 + n * 8 < head_dim) {
+            if (row_a < seq) {
+                *reinterpret_cast<uint32_t*>(base + row_a * row_stride + col) = sm90::pack2<T>(acc[4 * n], acc[4 * n + 1]);
+            }
+            if (row_b < seq) {
+                *reinterpret_cast<uint32_t*>(base + row_b * row_stride + col) =
+                    sm90::pack2<T>(acc[4 * n + 2], acc[4 * n + 3]);
+            }
         }
     }
 }
 
-// TMA of one tile of kRows rows (a multiple of 64) from row `row0`: D/64 regions of
-// 64 columns x kRows rows, one after the other, each loaded as kRows/64 boxes of
-// 64 rows (8 rows of 128 bytes are one swizzle period, so a box lands where the
-// same rows of one taller box would).
-template <int D, int kRows>
-__device__ __forceinline__ void load_tile_tma(uint32_t dst, const CUtensorMap* map, uint32_t bar, int h, int row0,
-                                              int b) {
+// TMA of one tile of kRows rows (a multiple of 64) from row `row0`: its first
+// `boxes` regions of 64 columns x kRows rows, one after the other, each loaded as
+// kRows/64 boxes of 64 rows (8 rows of 128 bytes are one swizzle period, so a box
+// lands where the same rows of one taller box would).
+template <int kRows>
+__device__ __forceinline__ void load_tile_tma(uint32_t dst, const CUtensorMap* map, uint32_t bar, int boxes, int h,
+                                              int row0, int b) {
 #pragma unroll
-    for (int col = 0; col < D / sm90::kBoxCols; ++col) {
+    for (int col = 0; col < boxes; ++col) {
 #pragma unroll
         for (int part = 0; part < kRows / kBoxRows; ++part) {
             sm90::tma_load_4d(dst + (col * kRows + part * kBoxRows) * sm90::kSwizzleRowBytes, map, bar,
@@ -198,7 +224,7 @@ template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
-                      const Bf16Params p) {
+                      const WgmmaParams p) {
     using L = DqTiles<D>;
     extern __shared__ unsigned char smem_raw[];
     const uint32_t base = (sm90::smem_addr(smem_raw) + sm90::kSwizzleAtomBytes - 1) & ~(sm90::kSwizzleAtomBytes - 1);
@@ -231,17 +257,19 @@ __global__ void __launch_bounds__(kThreads, 1)
         sm90::setmaxnreg_dec<kProducerRegs>();
         if (threadIdx.x == kConsumerWarps * 32) {
             sm90::mbar_arrive_expect_tx(full_qdo, 2 * L::kQTile);
-            load_tile_tma<D, kBlockRows>(base + L::kQ, &tm_q, full_qdo, h, q0, b);
-            load_tile_tma<D, kBlockRows>(base + L::kDo, &tm_do, full_qdo, h, q0, b);
+            load_tile_tma<kBlockRows>(base + L::kQ, &tm_q, full_qdo, D / sm90::kBoxCols, h, q0, b);
+            load_tile_tma<kBlockRows>(base + L::kDo, &tm_do, full_qdo, D / sm90::kBoxCols, h, q0, b);
             for (int j = 0; j < kv_tiles; ++j) {
                 const int s = j % kDqStages;
                 const uint32_t parity = ((j / kDqStages) & 1) ^ 1;  // the first round passes at once
                 sm90::mbar_wait(empty_k(s), parity);
                 sm90::mbar_arrive_expect_tx(full_k(s), L::kKvTile);
-                load_tile_tma<D, kBoxRows>(base + L::kK + s * L::kKvTile, &tm_k, full_k(s), h, j * kBoxRows, b);
+                load_tile_tma<kBoxRows>(base + L::kK + s * L::kKvTile, &tm_k, full_k(s), D / sm90::kBoxCols, h,
+                                        j * kBoxRows, b);
                 sm90::mbar_wait(empty_v(s), parity);
                 sm90::mbar_arrive_expect_tx(full_v(s), L::kKvTile);
-                load_tile_tma<D, kBoxRows>(base + L::kV + s * L::kKvTile, &tm_v, full_v(s), h, j * kBoxRows, b);
+                load_tile_tma<kBoxRows>(base + L::kV + s * L::kKvTile, &tm_v, full_v(s), D / sm90::kBoxCols, h,
+                                        j * kBoxRows, b);
             }
         }
     } else {  // two consumer warpgroups, 64 query rows each
@@ -308,7 +336,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
             for (int kc = 0; kc < kBoxRows / 16; ++kc) {
 #pragma unroll
-                for (int r = 0; r < 4; ++r) df[kc][r] = sm90::pack_bf16(sc[8 * kc + 2 * r], sc[8 * kc + 2 * r + 1]);
+                for (int r = 0; r < 4; ++r) df[kc][r] = sm90::pack2<__nv_bfloat16>(sc[8 * kc + 2 * r], sc[8 * kc + 2 * r + 1]);
             }
         };
         // Turn j issues S and dP of tile j and dS K of tile j - 1 as one wgmma group
@@ -362,18 +390,29 @@ __global__ void __launch_bounds__(kThreads, 1)
         sm90::wgmma_commit();
         if (wg == 0) pass_turn();  // warpgroup 1's last turn has no taker
         finish_turn();
-        store_rows<D>(static_cast<__nv_bfloat16*>(p.out0) + b * p.o_sb + h * p.o_sh, p.o_st, dq, row_a, p.seq, t);
+        store_rows<false, __nv_bfloat16, D>(static_cast<__nv_bfloat16*>(p.out0) + b * p.o_sb + h * p.o_sh, p.o_st, dq,
+                                            row_a, p.seq, t, 0, D);
     }
 }
 
-// dK/dV pass: shared-memory layout (byte offsets from a 1024-aligned base).
+// dK/dV pass: shared-memory layout at the padded width Dp (byte offsets from a
+// 1024-aligned base).
 constexpr int kDkvStages = 2;  // depth of the Q / dO ring
-template <int D>
+template <int Dp>
 struct DkvTiles {
-    static constexpr uint32_t kKvBox = kBlockRows * sm90::kSwizzleRowBytes;  // 64 columns x 128 rows: 16 KB
-    static constexpr uint32_t kQBox = kBoxRows * sm90::kSwizzleRowBytes;     // 64 columns x 64 rows: 8 KB
-    static constexpr uint32_t kKvTile = kKvBox * (D / sm90::kBoxCols);
-    static constexpr uint32_t kQTile = kQBox * (D / sm90::kBoxCols);
+    // The block's KV rows: 128 (two warpgroups of 64 rows) at Dp <= 128. At Dp = 256
+    // a warpgroup cannot hold dK and dV of 64 rows (2 x 128 fp32 registers a
+    // thread) beside S^T and dP^T, so the block owns 64 rows and its two
+    // warpgroups split the head dim's columns: each computes S^T and dP^T of the
+    // same rows and accumulates dK and dV of its 128 columns.
+    static constexpr int kKvRows = Dp > 128 ? 64 : 128;
+    static constexpr int kColGroups = Dp > 128 ? 2 : 1;   // warpgroups splitting the columns
+    static constexpr int kAccCols = Dp / kColGroups;      // dK and dV columns a warpgroup accumulates
+    static constexpr int kBoxes = Dp / sm90::kBoxCols;    // 64-column regions of a tile
+    static constexpr uint32_t kKvBox = kKvRows * sm90::kSwizzleRowBytes;  // one region of K or V: 16 or 8 KB
+    static constexpr uint32_t kQBox = kBoxRows * sm90::kSwizzleRowBytes;  // one region of a Q or dO tile: 8 KB
+    static constexpr uint32_t kKvTile = kKvBox * kBoxes;
+    static constexpr uint32_t kQTile = kQBox * kBoxes;
     static constexpr uint32_t kK = 0, kV = kKvTile, kQ = 2 * kKvTile, kDo = kQ + kDkvStages * kQTile;
     static constexpr uint32_t kLse = kDo + kDkvStages * kQTile;             // [S][64] fp32: lse * log2(e)
     static constexpr uint32_t kDelta = kLse + kDkvStages * kBoxRows * 4;    // [S][64] fp32
@@ -381,12 +420,17 @@ struct DkvTiles {
     static constexpr uint32_t kBytes = kBarriers + (1 + 2 * kDkvStages) * 8 + sm90::kSwizzleAtomBytes;  // + alignment
 };
 
-template <int D>
+// T: __nv_bfloat16 or __half. Dp: head_dim padded to 64, 128 or 256; columns at or
+// past head_dim read as zeros and are never stored. kFull: head_dim == Dp, whose
+// stores need no column test (its mere presence in a kernel costs a full-width
+// tile 1-3%, as measured against one without it).
+template <typename T, int Dp, bool kFull>
 __global__ void __launch_bounds__(kThreads, 1)
-    flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-                       const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
-                       const Bf16Params p) {
-    using L = DkvTiles<D>;
+    flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                        const WgmmaParams p) {
+    using L = DkvTiles<Dp>;
+    constexpr int kAccCols = L::kAccCols;
     extern __shared__ unsigned char smem_raw[];
     const uint32_t raw = sm90::smem_addr(smem_raw);
     const uint32_t base = (raw + sm90::kSwizzleAtomBytes - 1) & ~(sm90::kSwizzleAtomBytes - 1);
@@ -398,9 +442,23 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     const int bh = blockIdx.x;
     const int b = bh / p.heads, h = bh % p.heads;
-    const int kv0 = blockIdx.y * kBlockRows;
+    const int kv0 = blockIdx.y * L::kKvRows;
     const int q_tiles = (p.seq + kBoxRows - 1) / kBoxRows;
     const int q_begin = p.causal ? kv0 / kBoxRows : 0;  // causal: start at the diagonal tile
+    // The regions TMA loads, as the forward: at Dp = 256 a region wholly past a
+    // head_dim of 192 or less is zeroed once here and never loaded.
+    const int boxes = !kFull && Dp > 128 ? (p.head_dim + sm90::kBoxCols - 1) / sm90::kBoxCols : L::kBoxes;
+    if (!kFull && Dp > 128 && boxes < L::kBoxes) {
+        for (int region = boxes; region < L::kBoxes; ++region) {
+            sm90::zero_shared(base + L::kK + region * L::kKvBox, L::kKvBox);
+            sm90::zero_shared(base + L::kV + region * L::kKvBox, L::kKvBox);
+            for (int s = 0; s < kDkvStages; ++s) {
+                sm90::zero_shared(base + L::kQ + s * L::kQTile + region * L::kQBox, L::kQBox);
+                sm90::zero_shared(base + L::kDo + s * L::kQTile + region * L::kQBox, L::kQBox);
+            }
+        }
+        sm90::fence_proxy_async();
+    }
 
     if (threadIdx.x == 0) {
         sm90::mbar_init(full_kv, 1);
@@ -417,9 +475,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int lane = threadIdx.x - kConsumerWarps * 32;
         if (lane < 32) {
             if (lane == 0) {
-                sm90::mbar_arrive_expect_tx(full_kv, 2 * L::kKvTile);
-                load_tile_tma<D, kBlockRows>(base + L::kK, &tm_k, full_kv, h, kv0, b);
-                load_tile_tma<D, kBlockRows>(base + L::kV, &tm_v, full_kv, h, kv0, b);
+                sm90::mbar_arrive_expect_tx(full_kv, 2 * boxes * L::kKvBox);
+                load_tile_tma<L::kKvRows>(base + L::kK, &tm_k, full_kv, boxes, h, kv0, b);
+                load_tile_tma<L::kKvRows>(base + L::kV, &tm_v, full_kv, boxes, h, kv0, b);
             }
             const float* lse = p.lse + static_cast<long long>(bh) * p.seq;
             const float* delta = p.delta + static_cast<long long>(bh) * p.seq;
@@ -434,28 +492,31 @@ __global__ void __launch_bounds__(kThreads, 1)
                     delta_s[s * kBoxRows + r] = valid ? delta[q0 + r] : 0.0f;
                 }
                 if (lane == 0) {
-                    sm90::mbar_arrive_expect_tx(full(s), 2 * L::kQTile);
-                    load_tile_tma<D, kBoxRows>(base + L::kQ + s * L::kQTile, &tm_q, full(s), h, q0, b);
-                    load_tile_tma<D, kBoxRows>(base + L::kDo + s * L::kQTile, &tm_do, full(s), h, q0, b);
+                    sm90::mbar_arrive_expect_tx(full(s), 2 * boxes * L::kQBox);
+                    load_tile_tma<kBoxRows>(base + L::kQ + s * L::kQTile, &tm_q, full(s), boxes, h, q0, b);
+                    load_tile_tma<kBoxRows>(base + L::kDo + s * L::kQTile, &tm_do, full(s), boxes, h, q0, b);
                 } else {
                     sm90::mbar_arrive(full(s));
                 }
             }
         }
-    } else {  // two consumer warpgroups, 64 KV rows each
+    } else {  // two consumer warpgroups: 64 KV rows each, or the same 64 rows and half the columns each
         sm90::setmaxnreg_inc<kConsumerRegs>();
         const int wg = threadIdx.x / 128;
         const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
         const int g = lane / 4, t = lane % 4;
-        const int row_a = kv0 + wg * 64 + warp * 16 + g;  // this thread's KV rows: row_a, row_a + 8
+        const int wg_row = L::kColGroups == 1 ? wg * 64 : 0;      // this warpgroup's first row of the block
+        const int col0 = L::kColGroups == 1 ? 0 : wg * kAccCols;  // and its first column of dK and dV
+        const int row_a = kv0 + wg_row + warp * 16 + g;  // this thread's KV rows: row_a, row_a + 8
         const float scale2 = p.scale * sm90::kLog2e;
 
-        float dk[D / 2], dv[D / 2];
+        float dk[kAccCols / 2], dv[kAccCols / 2];
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.0f;
+        for (int i = 0; i < kAccCols / 2; ++i) dk[i] = dv[i] = 0.0f;
 
-        const uint32_t k_wg = base + L::kK + wg * 64 * sm90::kSwizzleRowBytes;  // this warpgroup's 64 rows
-        const uint32_t v_wg = base + L::kV + wg * 64 * sm90::kSwizzleRowBytes;
+        const uint32_t k_wg = base + L::kK + wg_row * sm90::kSwizzleRowBytes;  // this warpgroup's 64 rows
+        const uint32_t v_wg = base + L::kV + wg_row * sm90::kSwizzleRowBytes;
+        const uint32_t col_off = (col0 / sm90::kBoxCols) * L::kQBox;  // its columns' first region of Q and dO
         sm90::mbar_wait(full_kv, 0);
         for (int i = q_begin; i < q_tiles; ++i) {
             const int n = i - q_begin, s = n % kDkvStages;
@@ -465,17 +526,17 @@ __global__ void __launch_bounds__(kThreads, 1)
             sm90::mbar_wait(full(s), (n / kDkvStages) & 1);
             sm90::wgmma_fence();
 #pragma unroll
-            for (int kk = 0; kk < D / 16; ++kk) {
-                // box kk / 4, then 32 bytes (16 columns) along its swizzled 128-byte rows
+            for (int kk = 0; kk < Dp / 16; ++kk) {
+                // region kk / 4, then 32 bytes (16 columns) along its swizzled 128-byte rows
                 const uint32_t kv_off = (kk / 4) * L::kKvBox + (kk % 4) * 32;
                 const uint32_t q_off = (kk / 4) * L::kQBox + (kk % 4) * 32;
-                sm90::wgmma_ss(st, sm90::desc_kmajor(k_wg + kv_off), sm90::desc_kmajor(q_tile + q_off), kk > 0);
+                sm90::wgmma_ss<T>(st, sm90::desc_kmajor(k_wg + kv_off), sm90::desc_kmajor(q_tile + q_off), kk > 0);
             }
 #pragma unroll
-            for (int kk = 0; kk < D / 16; ++kk) {
+            for (int kk = 0; kk < Dp / 16; ++kk) {
                 const uint32_t kv_off = (kk / 4) * L::kKvBox + (kk % 4) * 32;
                 const uint32_t q_off = (kk / 4) * L::kQBox + (kk % 4) * 32;
-                sm90::wgmma_ss(dpt, sm90::desc_kmajor(v_wg + kv_off), sm90::desc_kmajor(do_tile + q_off), kk > 0);
+                sm90::wgmma_ss<T>(dpt, sm90::desc_kmajor(v_wg + kv_off), sm90::desc_kmajor(do_tile + q_off), kk > 0);
             }
             sm90::wgmma_commit();
             sm90::wgmma_wait<0>();
@@ -486,7 +547,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             const int q0 = i * kBoxRows;
             const float* lse_t = lse_s + s * kBoxRows;
             const float* delta_t = delta_s + s * kBoxRows;
-            const bool edge = q0 + kBoxRows > p.seq || (p.causal && q0 < kv0 + kBlockRows);
+            const bool edge = q0 + kBoxRows > p.seq || (p.causal && q0 < kv0 + L::kKvRows);
 #pragma unroll
             for (int e = 0; e < kBoxRows / 2; ++e) {
                 const int c = (e / 4) * 8 + 2 * t + (e & 1);
@@ -503,8 +564,8 @@ __global__ void __launch_bounds__(kThreads, 1)
             for (int kc = 0; kc < kBoxRows / 16; ++kc) {
 #pragma unroll
                 for (int r = 0; r < 4; ++r) {
-                    pf[kc][r] = sm90::pack_bf16(st[8 * kc + 2 * r], st[8 * kc + 2 * r + 1]);
-                    df[kc][r] = sm90::pack_bf16(dpt[8 * kc + 2 * r], dpt[8 * kc + 2 * r + 1]);
+                    pf[kc][r] = sm90::pack2<T>(st[8 * kc + 2 * r], st[8 * kc + 2 * r + 1]);
+                    df[kc][r] = sm90::pack2<T>(dpt[8 * kc + 2 * r], dpt[8 * kc + 2 * r + 1]);
                 }
             }
 
@@ -514,12 +575,14 @@ __global__ void __launch_bounds__(kThreads, 1)
             sm90::fence_regs(df);
             sm90::wgmma_fence();
 #pragma unroll
-            for (int kc = 0; kc < kBoxRows / 16; ++kc) {  // 16 query rows per k-step: 2048 bytes down the boxes
-                sm90::wgmma_rs_tb(dv, pf[kc], sm90::desc_mnmajor(do_tile + kc * 16 * sm90::kSwizzleRowBytes, L::kQBox), 1);
+            for (int kc = 0; kc < kBoxRows / 16; ++kc) {  // 16 query rows per k-step: 2048 bytes down the regions
+                sm90::wgmma_rs_tb<T>(dv, pf[kc],
+                                     sm90::desc_mnmajor(do_tile + col_off + kc * 16 * sm90::kSwizzleRowBytes, L::kQBox), 1);
             }
 #pragma unroll
             for (int kc = 0; kc < kBoxRows / 16; ++kc) {
-                sm90::wgmma_rs_tb(dk, df[kc], sm90::desc_mnmajor(q_tile + kc * 16 * sm90::kSwizzleRowBytes, L::kQBox), 1);
+                sm90::wgmma_rs_tb<T>(dk, df[kc],
+                                     sm90::desc_mnmajor(q_tile + col_off + kc * 16 * sm90::kSwizzleRowBytes, L::kQBox), 1);
             }
             sm90::wgmma_commit();
             sm90::wgmma_wait<0>();
@@ -527,8 +590,10 @@ __global__ void __launch_bounds__(kThreads, 1)
             sm90::fence_regs(dk);
             if (lane == 0) sm90::mbar_arrive(empty(s));  // this warp is done with stage s
         }
-        store_rows<D>(static_cast<__nv_bfloat16*>(p.out0) + b * p.o_sb + h * p.o_sh, p.o_st, dk, row_a, p.seq, t);
-        store_rows<D>(static_cast<__nv_bfloat16*>(p.out1) + b * p.o_sb + h * p.o_sh, p.o_st, dv, row_a, p.seq, t);
+        store_rows<!kFull, T, kAccCols>(static_cast<T*>(p.out0) + b * p.o_sb + h * p.o_sh, p.o_st, dk, row_a, p.seq, t,
+                                        col0, p.head_dim);
+        store_rows<!kFull, T, kAccCols>(static_cast<T*>(p.out1) + b * p.o_sb + h * p.o_sh, p.o_st, dv, row_a, p.seq, t,
+                                        col0, p.head_dim);
     }
 }
 
@@ -756,26 +821,41 @@ int launch_simt(const Params& p, int dtype, cudaStream_t stream) {
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Both bf16 passes: a block per (batch*head, 128 rows).
+// Both wgmma passes: a block per (batch*head, `rows` rows).
 template <typename Kernel>
-int launch_bf16(Kernel kernel, size_t smem, const CUtensorMap (&maps)[4], const Bf16Params& p, int batch,
-                cudaStream_t stream) {
+int launch_wgmma(Kernel kernel, size_t smem, int rows, const CUtensorMap (&maps)[4], const WgmmaParams& p, int batch,
+                 cudaStream_t stream) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid(batch * p.heads, (p.seq + kBlockRows - 1) / kBlockRows);
+    const dim3 grid(batch * p.heads, (p.seq + rows - 1) / rows);
     kernel<<<grid, kThreads, smem, stream>>>(maps[0], maps[1], maps[2], maps[3], p);
     return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int Dp>
+int launch_dkv(const CUtensorMap (&maps)[4], const WgmmaParams& p, int batch, cudaStream_t stream) {
+    constexpr size_t smem = DkvTiles<Dp>::kBytes;
+    constexpr int rows = DkvTiles<Dp>::kKvRows;
+    if (p.head_dim == Dp) return launch_wgmma(flash_bwd_dkv_wgmma<T, Dp, true>, smem, rows, maps, p, batch, stream);
+    return launch_wgmma(flash_bwd_dkv_wgmma<T, Dp, false>, smem, rows, maps, p, batch, stream);
+}
+
+template <typename T>
+int dispatch_dkv_width(const CUtensorMap (&maps)[4], const WgmmaParams& p, int batch, cudaStream_t stream) {
+    if (p.head_dim <= 64) return launch_dkv<T, 64>(maps, p, batch, stream);
+    if (p.head_dim <= 128) return launch_dkv<T, 128>(maps, p, batch, stream);
+    return launch_dkv<T, 256>(maps, p, batch, stream);
 }
 
 // The tensor maps of q, k, v, dout from their geometries (boxes of 64 x 64).
 int encode_maps(CUtensorMap (&maps)[4], const void* q, const void* k, const void* v, const void* dout,
                 const long long* q_geometry, const long long* k_geometry, const long long* v_geometry,
-                const long long* d_geometry, int head_dim) {
+                const long long* d_geometry, int head_dim, int dtype) {
     const void* bases[4] = {q, k, v, dout};
     const long long* geometries[4] = {q_geometry, k_geometry, v_geometry, d_geometry};
     for (int i = 0; i < 4; ++i) {
         const int err = sm90::encode_tma_map(&maps[i], bases[i], *reinterpret_cast<const sm90::TmaGeometry*>(geometries[i]),
-                                             kBoxRows, head_dim);
+                                             kBoxRows, head_dim, tma_type(dtype));
         if (err != 0) return err;
     }
     return 0;
@@ -827,41 +907,43 @@ extern "C" int hm_flash_backward_dkv_simt(const void* q, const void* k, const vo
     return launch_simt<false>(p, dtype, stream);
 }
 
-// q, k, v, dout: [B, T, H, D] bf16, each described by its TMA geometry
-// (sm90::TmaGeometry, boxes of 64 columns x 64 rows; one set serves both passes);
-// lse, delta: [B, H, T] fp32 contiguous -> dq [B, T, H, D] bf16 (strides o_*, in
-// elements).
-extern "C" int hm_flash_backward_dq_bf16(const void* q, const void* k, const void* v, const void* dout,
-                                         const float* lse, const float* delta, void* dq,
-                                         int batch, int seq, int heads, int head_dim,
-                                         const long long* q_geometry, const long long* k_geometry,
-                                         const long long* v_geometry, const long long* d_geometry,
-                                         long long o_sb, long long o_st, long long o_sh,
-                                         int causal, float scale, cudaStream_t stream) {
-    if (batch <= 0 || seq <= 0 || heads <= 0) return 0;
-    if (head_dim != 64 && head_dim != 128) return static_cast<int>(cudaErrorInvalidValue);
-    CUtensorMap maps[4];
-    const int err = encode_maps(maps, q, k, v, dout, q_geometry, k_geometry, v_geometry, d_geometry, head_dim);
-    if (err != 0) return err;
-    const Bf16Params p{lse, delta, dq, nullptr, seq, heads, o_sb, o_st, o_sh, scale, causal};
-    if (head_dim == 64) return launch_bf16(flash_bwd_dq_bf16<64>, DqTiles<64>::kBytes, maps, p, batch, stream);
-    return launch_bf16(flash_bwd_dq_bf16<128>, DqTiles<128>::kBytes, maps, p, batch, stream);
-}
-
-// As above -> dk, dv [B, T, H, D] bf16, sharing one layout (o_*).
-extern "C" int hm_flash_backward_dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
-                                          const float* lse, const float* delta, void* dk, void* dv,
+// q, k, v, dout: [B, T, H, D] of one element type `dtype` (SimtDtype), each described
+// by its TMA geometry (sm90::TmaGeometry, boxes of 64 columns x 64 rows; one set
+// serves both passes); lse, delta: [B, H, T] fp32 contiguous -> dq [B, T, H, D] of
+// that type (strides o_*, in elements). The dQ pass takes bf16 at head_dim 64 or
+// 128 only.
+extern "C" int hm_flash_backward_dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                                          const float* lse, const float* delta, void* dq, int dtype,
                                           int batch, int seq, int heads, int head_dim,
                                           const long long* q_geometry, const long long* k_geometry,
                                           const long long* v_geometry, const long long* d_geometry,
                                           long long o_sb, long long o_st, long long o_sh,
                                           int causal, float scale, cudaStream_t stream) {
     if (batch <= 0 || seq <= 0 || heads <= 0) return 0;
-    if (head_dim != 64 && head_dim != 128) return static_cast<int>(cudaErrorInvalidValue);
+    if (dtype != kSimtBf16 || (head_dim != 64 && head_dim != 128)) return static_cast<int>(cudaErrorInvalidValue);
     CUtensorMap maps[4];
-    const int err = encode_maps(maps, q, k, v, dout, q_geometry, k_geometry, v_geometry, d_geometry, head_dim);
+    const int err = encode_maps(maps, q, k, v, dout, q_geometry, k_geometry, v_geometry, d_geometry, head_dim, dtype);
     if (err != 0) return err;
-    const Bf16Params p{lse, delta, dk, dv, seq, heads, o_sb, o_st, o_sh, scale, causal};
-    if (head_dim == 64) return launch_bf16(flash_bwd_dkv_bf16<64>, DkvTiles<64>::kBytes, maps, p, batch, stream);
-    return launch_bf16(flash_bwd_dkv_bf16<128>, DkvTiles<128>::kBytes, maps, p, batch, stream);
+    const WgmmaParams p{lse, delta, dq, nullptr, seq, heads, head_dim, o_sb, o_st, o_sh, scale, causal};
+    if (head_dim == 64) return launch_wgmma(flash_bwd_dq_bf16<64>, DqTiles<64>::kBytes, kBlockRows, maps, p, batch, stream);
+    return launch_wgmma(flash_bwd_dq_bf16<128>, DqTiles<128>::kBytes, kBlockRows, maps, p, batch, stream);
+}
+
+// As above -> dk, dv [B, T, H, D] of that type, sharing one layout (o_*): bf16 or
+// fp16 at a head_dim that is a multiple of 8 from 16 to 256.
+extern "C" int hm_flash_backward_dkv_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                                           const float* lse, const float* delta, void* dk, void* dv, int dtype,
+                                           int batch, int seq, int heads, int head_dim,
+                                           const long long* q_geometry, const long long* k_geometry,
+                                           const long long* v_geometry, const long long* d_geometry,
+                                           long long o_sb, long long o_st, long long o_sh,
+                                           int causal, float scale, cudaStream_t stream) {
+    if (batch <= 0 || seq <= 0 || heads <= 0) return 0;
+    if (!wgmma_takes(dtype, head_dim)) return static_cast<int>(cudaErrorInvalidValue);
+    CUtensorMap maps[4];
+    const int err = encode_maps(maps, q, k, v, dout, q_geometry, k_geometry, v_geometry, d_geometry, head_dim, dtype);
+    if (err != 0) return err;
+    const WgmmaParams p{lse, delta, dk, dv, seq, heads, head_dim, o_sb, o_st, o_sh, scale, causal};
+    if (dtype == kSimtF16) return dispatch_dkv_width<__half>(maps, p, batch, stream);
+    return dispatch_dkv_width<__nv_bfloat16>(maps, p, batch, stream);
 }

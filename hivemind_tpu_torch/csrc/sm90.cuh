@@ -1,40 +1,47 @@
-// Hopper (sm_90a) building blocks shared by the bf16 flash kernels
+// Hopper (sm_90a) building blocks shared by the wgmma flash kernels
 // (flash_attention.cu, flash_attention_bwd.cu), written as inline PTX:
 //  * mbarriers: init, arrive, arrive with an expected transaction byte count,
 //    parity wait;
 //  * 4-D tiled TMA loads that complete on an mbarrier, and the host-side encoding
 //    of their tensor maps (cuTensorMapEncodeTiled, reached through the runtime's
-//    driver entry point, so no -lcuda is needed);
+//    driver entry point, so no -lcuda is needed), for bf16 or fp16;
 //  * wgmma shared-memory descriptors for 128-byte-swizzled tiles, K-major and
 //    MN-major;
-//  * wgmma.mma_async m64nNk16, bf16 in, fp32 accumulate, N in {64, 128}: A and B
-//    from shared memory (SS, both K-major), or A from registers and B MN-major
-//    (RS with the transpose-B immediate); fence / commit / wait;
+//  * wgmma.mma_async m64nNk16, bf16 or fp16 in (the element type is a template
+//    argument), fp32 accumulate: A and B from shared memory (SS, both K-major,
+//    N in {64, 128}), or A from registers and B MN-major (RS with the
+//    transpose-B immediate, N in {64, 128, 256}); fence / commit / wait;
 //  * setmaxnreg, to move registers from the producer warpgroup to the consumers.
 //
-// Tile layout. A TMA box of 64 bf16 columns (128 bytes) x R rows, loaded with
+// Tile layout. A TMA box of 64 16-bit columns (128 bytes) x R rows, loaded with
 // CU_TENSOR_MAP_SWIZZLE_128B, lands as R rows of 128 bytes whose 16-byte chunks
 // are XOR-permuted by (row % 8): the canonical 128-byte-swizzled layout that
 // wgmma reads. The box's shared-memory base must be 1024-byte aligned (8 rows,
-// one swizzle period). A head_dim-128 tile is two such boxes, one after the other.
+// one swizzle period). A tile of padded width Dp (64, 128 or 256) is Dp / 64
+// such regions, one after the other. bf16 and fp16 are both 2 bytes, so they
+// share every layout, descriptor and box. A head_dim below Dp reads its columns
+// past head_dim as zeros (TMA's out-of-bounds fill), which add nothing to a
+// product.
 //  * K-major operand (rows = M or N, the 64 columns = K): a k16 step is 32 bytes
 //    along the row; SBO = 1024 bytes (the next 8 rows); LBO is unused.
 //  * MN-major operand (rows = K, the 64 columns = N): a k16 step is 16 rows
 //    (2048 bytes); SBO = 1024 bytes (the next 8 k-rows); LBO = the distance to
-//    the next 64-column box (N = 128 spans two).
+//    the next 64-column region (N = 128 spans two, N = 256 four).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <cudaTypedefs.h>  // PFN_cuTensorMapEncodeTiled
 
 #include <cstdint>
+#include <type_traits>
 
 namespace sm90 {
 
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr uint32_t kSwizzleRowBytes = 128;    // one row of a 64-column bf16 box
+constexpr uint32_t kSwizzleRowBytes = 128;    // one row of a 64-column 16-bit box
 constexpr uint32_t kSwizzleAtomBytes = 1024;  // 8 rows: the swizzle period
 constexpr int kBoxCols = 64;
 
@@ -50,10 +57,35 @@ __device__ __forceinline__ float exp2_approx(float x) {
     return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    __nv_bfloat162 pair = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low 16 bits
-    return *reinterpret_cast<uint32_t*>(&pair);
+template <typename T>
+constexpr bool kIsHalf = std::is_same<T, __half>::value;
+
+// Two floats rounded to nearest even as a pair of T (bf16 or fp16), `lo` in the
+// low 16 bits: an A-operand register, or two neighbouring columns of a row.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+    if constexpr (kIsHalf<T>) {
+        __half2 pair = __floats2half2_rn(lo, hi);
+        return *reinterpret_cast<uint32_t*>(&pair);
+    } else {
+        __nv_bfloat162 pair = __floats2bfloat162_rn(lo, hi);
+        return *reinterpret_cast<uint32_t*>(&pair);
+    }
 }
+
+// Zero `bytes` (a multiple of 16) of shared memory from `addr`, the block's
+// threads striding by 16 bytes. A region that wgmma reads afterwards needs
+// fence_proxy_async() and a barrier between.
+__device__ __forceinline__ void zero_shared(uint32_t addr, uint32_t bytes) {
+    for (uint32_t off = threadIdx.x * 16; off < bytes; off += blockDim.x * 16) {
+        asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n"
+                     ::"r"(addr + off), "r"(0), "r"(0), "r"(0), "r"(0) : "memory");
+    }
+}
+
+// Orders this thread's generic shared-memory writes before the async proxy's
+// (TMA, wgmma) accesses.
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
 
 // ------------------------------------------------------------------ mbarrier
 
@@ -104,9 +136,11 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
         : "memory");
 }
 
-// The geometry of a [B, T, H, D] bf16 tensor as the wrapper computes it
+// The geometry of a [B, T, H, D] bf16 or fp16 tensor as the wrapper computes it
 // (hivemind_tpu_torch/ops/flash_attention.py, tma_geometry): dims (D, H, T, B),
-// innermost first; byte strides of H, T and B; the box (64, 1, rows, 1).
+// innermost first; byte strides of H, T and B; the box (64, 1, rows, 1). D may be
+// below the box's 64 columns, or not a multiple of 64: the columns past D read
+// as zeros.
 struct TmaGeometry {
     long long dims[4];
     long long strides[3];
@@ -114,8 +148,10 @@ struct TmaGeometry {
 };
 
 // Encode the tensor map of `base` with `geometry`, whose box must be 64 columns
-// by `rows` rows of a head_dim-`head_dim` tensor. Returns a cudaError_t.
-inline int encode_tma_map(CUtensorMap* map, const void* base, const TmaGeometry& geometry, int rows, int head_dim) {
+// by `rows` rows of a head_dim-`head_dim` tensor of `type` (bf16 or fp16).
+// Returns a cudaError_t.
+inline int encode_tma_map(CUtensorMap* map, const void* base, const TmaGeometry& geometry, int rows, int head_dim,
+                          CUtensorMapDataType type) {
     static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
     if (encode == nullptr) {
         void* fn = nullptr;
@@ -136,7 +172,7 @@ inline int encode_tma_map(CUtensorMap* map, const void* base, const TmaGeometry&
         box[i] = static_cast<cuuint32_t>(geometry.box[i]);
     }
     for (int i = 0; i < 3; ++i) strides[i] = static_cast<cuuint64_t>(geometry.strides[i]);
-    const CUresult result = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+    const CUresult result = encode(map, type, 4, const_cast<void*>(base), dims, strides,
                                    box, element_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                                    CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     return result == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
@@ -188,83 +224,105 @@ __device__ __forceinline__ void fence_regs(uint32_t (&regs)[N][4]) {
 // Accumulator layout of m64nN (per thread, per warp w of the warpgroup, lane =
 // 4g + t): d[4c + e] holds row 16w + g + 8*(e >> 1), column 8c + 2t + (e & 1).
 // That is the register layout of an m64k16 A operand, so a score tile becomes
-// the A operand of the next product by packing pairs to bf16: for k-step kc,
+// the A operand of the next product by packing pairs to T: for k-step kc,
 // a = {d[8kc..8kc+1], d[8kc+2..+3], d[8kc+4..+5], d[8kc+6..+7]}.
+//
+// Each helper below is templated on the element type T (__nv_bfloat16 or __half,
+// bf16 by default) and overloaded on N through the accumulator's length N / 2.
+
+// The accumulator operands of m64nN: "{%0, ..., %(N/2 - 1)}" and their "+f" bindings.
+#define HM_ACC32 \
+    "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+    "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define HM_ACC64 \
+    "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+    "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+    "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+    "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define HM_ACC128 \
+    "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+    "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+    "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+    "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
+    "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+    "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
+    "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+    "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}"
+#define HM_OUT32_AT(d, o) \
+    "+f"(d[o + 0]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]), "+f"(d[o + 4]), "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7]), \
+    "+f"(d[o + 8]), "+f"(d[o + 9]), "+f"(d[o + 10]), "+f"(d[o + 11]), "+f"(d[o + 12]), "+f"(d[o + 13]), "+f"(d[o + 14]), "+f"(d[o + 15]), \
+    "+f"(d[o + 16]), "+f"(d[o + 17]), "+f"(d[o + 18]), "+f"(d[o + 19]), "+f"(d[o + 20]), "+f"(d[o + 21]), "+f"(d[o + 22]), "+f"(d[o + 23]), \
+    "+f"(d[o + 24]), "+f"(d[o + 25]), "+f"(d[o + 26]), "+f"(d[o + 27]), "+f"(d[o + 28]), "+f"(d[o + 29]), "+f"(d[o + 30]), "+f"(d[o + 31])
+#define HM_OUT32(d) HM_OUT32_AT(d, 0)
+#define HM_OUT64(d) HM_OUT32_AT(d, 0), HM_OUT32_AT(d, 32)
+#define HM_OUT128(d) HM_OUT32_AT(d, 0), HM_OUT32_AT(d, 32), HM_OUT32_AT(d, 64), HM_OUT32_AT(d, 96)
+
+// d (+)= A * B, A and B K-major in shared memory; SCALE is the operand number of scale_d.
+#define HM_WGMMA_SS(SHAPE, TYPE, ACC, OUTS, A, B, SCALE)                                          \
+    asm volatile("{\n.reg .pred p;\n"                                                            \
+                 "setp.ne.b32 p, " SCALE ", 0;\n"                                                 \
+                 "wgmma.mma_async.sync.aligned." SHAPE ".f32." TYPE "." TYPE " " ACC ", " A ", " B \
+                 ", p, 1, 1, 0, 0;\n}\n"                                                         \
+                 : OUTS                                                                          \
+                 : "l"(desc_a), "l"(desc_b), "r"(scale_d))
+// d (+)= A * B, A in registers (operands A0..A3), B MN-major through the transpose-B immediate.
+#define HM_WGMMA_RS(SHAPE, TYPE, ACC, OUTS, A0, B, SCALE)                                         \
+    asm volatile("{\n.reg .pred p;\n"                                                            \
+                 "setp.ne.b32 p, " SCALE ", 0;\n"                                                 \
+                 "wgmma.mma_async.sync.aligned." SHAPE ".f32." TYPE "." TYPE " " ACC ", " A0 ", " B \
+                 ", p, 1, 1, 1;\n}\n"                                                            \
+                 : OUTS                                                                          \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d))
 
 // d (+)= A[64 x 16] * B[16 x N], A and B K-major in shared memory (scale_d = 0: d = A*B).
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+    if constexpr (kIsHalf<T>) {
+        HM_WGMMA_SS("m64n64k16", "f16", HM_ACC32, HM_OUT32(d), "%32", "%33", "%34");
+    } else {
+        HM_WGMMA_SS("m64n64k16", "bf16", HM_ACC32, HM_OUT32(d), "%32", "%33", "%34");
+    }
 }
 
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+    if constexpr (kIsHalf<T>) {
+        HM_WGMMA_SS("m64n128k16", "f16", HM_ACC64, HM_OUT64(d), "%64", "%65", "%66");
+    } else {
+        HM_WGMMA_SS("m64n128k16", "bf16", HM_ACC64, HM_OUT64(d), "%64", "%65", "%66");
+    }
 }
 
 // d (+)= A[64 x 16] * B[16 x N], A in registers, B MN-major in shared memory.
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs_tb(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+    if constexpr (kIsHalf<T>) {
+        HM_WGMMA_RS("m64n64k16", "f16", HM_ACC32, HM_OUT32(d), "{%32, %33, %34, %35}", "%36", "%37");
+    } else {
+        HM_WGMMA_RS("m64n64k16", "bf16", HM_ACC32, HM_OUT32(d), "{%32, %33, %34, %35}", "%36", "%37");
+    }
 }
 
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs_tb(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+    if constexpr (kIsHalf<T>) {
+        HM_WGMMA_RS("m64n128k16", "f16", HM_ACC64, HM_OUT64(d), "{%64, %65, %66, %67}", "%68", "%69");
+    } else {
+        HM_WGMMA_RS("m64n128k16", "bf16", HM_ACC64, HM_OUT64(d), "{%64, %65, %66, %67}", "%68", "%69");
+    }
 }
 
+template <typename T = __nv_bfloat16>
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[128], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+    if constexpr (kIsHalf<T>) {
+        HM_WGMMA_RS("m64n256k16", "f16", HM_ACC128, HM_OUT128(d), "{%128, %129, %130, %131}", "%132", "%133");
+    } else {
+        HM_WGMMA_RS("m64n256k16", "bf16", HM_ACC128, HM_OUT128(d), "{%128, %129, %130, %131}", "%132", "%133");
+    }
+}
+
+#undef HM_WGMMA_SS
+#undef HM_WGMMA_RS
 
 // ------------------------------------------------------------------ named barriers
 

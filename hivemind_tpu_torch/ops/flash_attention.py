@@ -15,18 +15,23 @@ a kernel or raises. Each kernel wrapper counts its launches in ``.launches``
 (``flash_attention_lse``, ``flash_attention_backward_dq``,
 ``flash_attention_backward_dkv``).
 
-Each direction has two designs (:func:`flash_route`): ``"wgmma"`` for bf16 at
-head_dim 64 or 128 (the served and trained widths), and ``"simt"`` for the rest:
-fp32, fp16, and bf16 at any other head_dim up to 256, as the TPU kernels take any
-head_dim as their block. :func:`flash_refusal` names the few inputs neither takes.
-A view a kernel cannot read through its strides is copied first
+Each pass (the forward, the dQ pass, the dK/dV pass) has two designs, chosen per
+pass by :func:`flash_route`: ``"wgmma"`` (tensor cores fed by TMA) and ``"simt"``
+(fp32 FMAs on the CUDA cores). The forward and the dK/dV pass run wgmma for bf16
+and fp16 at a head_dim that is a multiple of 8 from 16 to 256; the dQ pass for
+bf16 at head_dim 64 or 128. SIMT takes the rest: fp32 (tensor cores would round
+its inputs to TF32), a 16-bit head_dim that is not a multiple of 8, and the dQ
+pass outside bf16 64/128; any head_dim up to 256, as the TPU kernels take any
+head_dim as their block. A CUDA input launches its pass's route or raises: no
+route falls back to another. :func:`flash_refusal` names the few inputs no design
+takes. A view a kernel cannot read through its strides is copied first
 (:func:`_kernel_layout`).
 
 The wgmma kernels read q, k, v (and dout) by TMA: the wrapper describes each
 tensor to the kernel's C entry point as a 4-D view (:func:`tma_geometry`), from
 which the entry point encodes the tensor maps. The two backward passes share one
 view of each tensor (:func:`backward_geometries`), which
-``flash_attention_backward`` computes once for both.
+``flash_attention_backward`` computes once, when a pass runs wgmma.
 """
 
 from __future__ import annotations
@@ -39,9 +44,13 @@ import torch
 from hivemind_tpu_torch.ops import _build
 from hivemind_tpu_torch.parallel.ring_attention import plain_attention
 
-WGMMA_HEAD_DIMS = (64, 128)  # the bf16 head dims of the wgmma kernels
+PASSES = ("forward", "dq", "dkv")
+WGMMA_DTYPES = (torch.bfloat16, torch.float16)  # the forward's and the dK/dV pass's
+WGMMA_WIDTHS = (64, 128, 256)  # the padded head dims the wgmma kernels are built for
+WGMMA_MIN_HEAD_DIM = 16
+DQ_WGMMA_HEAD_DIMS = (64, 128)  # the dQ pass's wgmma kernel: bf16 at these only
 SIMT_MAX_HEAD_DIM = 256  # the SIMT kernels take head_dim 1 to 256
-SIMT_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}  # the C entry points' dtype codes
+SIMT_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}  # every C entry point's dtype codes
 SIMT_ROWS = 16  # rows a SIMT block owns
 _MAX_ROW_TILES = 65535  # the grid's y dimension: row tiles of one batch*head
 _NEG_INF = -1e30  # large-but-finite: keeps fully-masked rows NaN-free
@@ -69,17 +78,36 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cau
 
 # ------------------------------------------------------------------ TMA geometry
 
-TMA_BOX_COLS = 64  # bf16 columns per TMA box: one 128-byte swizzled row
-FORWARD_TILE_ROWS = 128  # the forward's query and KV tiles
-BACKWARD_BOX_ROWS = 64  # both backward passes: a box is a streamed tile, or half of a resident one
+TMA_BOX_COLS = 64  # 16-bit columns per TMA box: one 128-byte swizzled row
+FORWARD_TILE_ROWS = 128  # the forward's query tile (and its KV tiles below a padded width of 256)
+BACKWARD_BOX_ROWS = 64  # both backward passes: a box is a streamed tile, or part of a resident one
 _TMA_MAX_STRIDE = 2**40  # cuTensorMapEncodeTiled's bound on a byte stride
 
 
+def padded_head_dim(head_dim: int) -> int:
+    """The width a wgmma kernel computes ``head_dim`` at: the least of 64, 128 and
+    256 that holds it (its columns past head_dim read as zeros)."""
+    return next(width for width in WGMMA_WIDTHS if head_dim <= width)
+
+
+def forward_box_rows(head_dim: int) -> int:
+    """Rows of the forward's KV tiles and TMA boxes: 128, or 64 at a padded width
+    of 256, where a 128-row tile's scores would not fit the registers beside O."""
+    return 64 if padded_head_dim(head_dim) > 128 else FORWARD_TILE_ROWS
+
+
+def dkv_block_rows(head_dim: int) -> int:
+    """KV rows a dK/dV block owns: 128, or 64 at a padded width of 256, where its
+    two warpgroups split the columns of the same rows."""
+    return 64 if padded_head_dim(head_dim) > 128 else 128
+
+
 class TmaGeometry(NamedTuple):
-    """A bf16 ``[B, T, H, D]`` tensor as a 4-D TMA view, innermost dimension first:
-    ``dims`` (D, H, T, B), the byte ``strides`` of H, T and B, and the ``box`` one
-    load copies, (64, 1, rows, 1). A tile row of D columns takes D / 64 such
-    boxes, each its own 128-byte swizzle region in shared memory."""
+    """A bf16 or fp16 ``[B, T, H, D]`` tensor as a 4-D TMA view, innermost dimension
+    first: ``dims`` (D, H, T, B), the byte ``strides`` of H, T and B, and the
+    ``box`` one load copies, (64, 1, rows, 1). A tile row takes
+    ``padded_head_dim(D) / 64`` such boxes, each its own 128-byte swizzle region in
+    shared memory; the columns past D read as zeros."""
 
     dims: Tuple[int, int, int, int]
     strides: Tuple[int, int, int]
@@ -91,18 +119,19 @@ class TmaGeometry(NamedTuple):
 
 
 def tma_geometry(t: torch.Tensor, rows: int) -> TmaGeometry:
-    """The TMA view of ``t`` (bf16 ``[B, T, H, D]``) with boxes of 64 columns by
-    ``rows`` rows; raises ``ValueError`` on a view TMA cannot take: a head dim that
-    is not contiguous or not a multiple of 64, a base address that is not 16-byte
-    aligned, or a B, T or H stride that is not a multiple of 16 bytes below 2^40."""
-    if t.dim() != 4 or t.dtype != torch.bfloat16:
-        raise ValueError(f"TMA views take bf16 [B, T, H, D] tensors, got {t.dtype} of shape {tuple(t.shape)}")
+    """The TMA view of ``t`` (bf16 or fp16 ``[B, T, H, D]``) with boxes of 64
+    columns by ``rows`` rows; raises ``ValueError`` on a view TMA cannot take: a
+    head dim that is not contiguous, not a multiple of 8 or outside 16 to 256, a
+    base address that is not 16-byte aligned, or a B, T or H stride that is not a
+    multiple of 16 bytes below 2^40."""
+    if t.dim() != 4 or t.dtype not in WGMMA_DTYPES:
+        raise ValueError(f"TMA views take bf16 or fp16 [B, T, H, D] tensors, got {t.dtype} of shape {tuple(t.shape)}")
     batch, seq, heads, dim = t.shape
     stride_b, stride_t, stride_h, stride_d = t.stride()
-    if stride_d != 1 or dim % TMA_BOX_COLS:
-        raise ValueError(f"TMA needs a contiguous head dim that is a multiple of {TMA_BOX_COLS}, got "
-                         f"shape {tuple(t.shape)}, strides {t.stride()}")
-    strides = (2 * stride_h, 2 * stride_t, 2 * stride_b)  # bf16: 2 bytes an element
+    if stride_d != 1 or dim % 8 or not WGMMA_MIN_HEAD_DIM <= dim <= WGMMA_WIDTHS[-1]:
+        raise ValueError(f"TMA needs a contiguous head dim that is a multiple of 8 from {WGMMA_MIN_HEAD_DIM} to "
+                         f"{WGMMA_WIDTHS[-1]}, got shape {tuple(t.shape)}, strides {t.stride()}")
+    strides = (2 * stride_h, 2 * stride_t, 2 * stride_b)  # 2 bytes an element
     if (strides[0] | strides[1] | strides[2]) % 16 or max(strides) >= _TMA_MAX_STRIDE:
         raise ValueError(f"TMA needs H, T and B strides that are multiples of 16 bytes below 2^40, got {strides} bytes")
     if t.data_ptr() % 16:
@@ -111,8 +140,8 @@ def tma_geometry(t: torch.Tensor, rows: int) -> TmaGeometry:
 
 
 def backward_geometries(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor) -> Tuple[TmaGeometry, ...]:
-    """The TMA views of q, k, v, dout (bf16 ``[B, T, H, D]``) that both backward
-    passes read: boxes of 64 columns by 64 rows."""
+    """The TMA views of q, k, v, dout (bf16 or fp16 ``[B, T, H, D]``) that both
+    backward passes' wgmma kernels read: boxes of 64 columns by 64 rows."""
     return tuple(tma_geometry(t, BACKWARD_BOX_ROWS) for t in (q, k, v, dout))
 
 
@@ -121,13 +150,13 @@ def backward_geometries(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout:
 
 def _library() -> ctypes.CDLL:
     library = _build.load_library("flash_attention")
-    bf16, simt = library.hm_flash_forward_bf16, library.hm_flash_forward_simt
-    if bf16.argtypes is None:
+    wgmma, simt = library.hm_flash_forward_wgmma, library.hm_flash_forward_simt
+    if wgmma.argtypes is None:
         geometry = ctypes.POINTER(ctypes.c_longlong)
-        # q, k, v, out, lse; B, T, H, D; geometries of q, k, v; out's strides; causal, scale, stream
-        bf16.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [geometry] * 3 + [ctypes.c_longlong] * 3
-                         + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
-        bf16.restype = ctypes.c_int
+        # q, k, v, out, lse; dtype, B, T, H, D; geometries of q, k, v; out's strides; causal, scale, stream
+        wgmma.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [geometry] * 3 + [ctypes.c_longlong] * 3
+                          + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+        wgmma.restype = ctypes.c_int
         # q, k, v, out, lse; dtype, B, T, H, D; strides of q, k, v, out; causal, scale, stream
         simt.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12
                          + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
@@ -135,23 +164,38 @@ def _library() -> ctypes.CDLL:
     return library
 
 
-def flash_route(q: torch.Tensor) -> str:
-    """Which design runs ``q`` (and k, v of its shape and dtype): ``"wgmma"`` for
-    bf16 at head_dim 64 or 128, ``"simt"`` otherwise."""
-    return "wgmma" if q.dtype == torch.bfloat16 and q.shape[-1] in WGMMA_HEAD_DIMS else "simt"
+def flash_route(q: torch.Tensor, which: str = "forward") -> str:
+    """Which design runs the pass ``which`` ("forward", "dq" or "dkv") on ``q`` (and
+    the tensors of its shape and dtype): ``"wgmma"`` for bf16 and fp16 at a head_dim
+    that is a multiple of 8 (TMA's 16-byte strides) from 16 to 256 in the forward
+    and the dK/dV pass, and for bf16 at head_dim 64 or 128 in the dQ pass;
+    ``"simt"`` otherwise."""
+    if which not in PASSES:
+        raise ValueError(f"flash_route answers for {PASSES}, got {which!r}")
+    head_dim = q.shape[-1]
+    if which == "dq":
+        return "wgmma" if q.dtype == torch.bfloat16 and head_dim in DQ_WGMMA_HEAD_DIMS else "simt"
+    takes = q.dtype in WGMMA_DTYPES and head_dim % 8 == 0 and WGMMA_MIN_HEAD_DIM <= head_dim <= WGMMA_WIDTHS[-1]
+    return "wgmma" if takes else "simt"
 
 
-def _bf16_aligned(t: torch.Tensor) -> bool:
-    """What TMA needs of a bf16 view: a 16-byte aligned base and batch, time and
+def flash_routes(q: torch.Tensor) -> str:
+    """Each pass's route, as the labels print it: ``forward=wgmma dq=simt dkv=wgmma``."""
+    return " ".join(f"{which}={flash_route(q, which)}" for which in PASSES)
+
+
+def _tma_aligned(t: torch.Tensor) -> bool:
+    """What TMA needs of a 16-bit view: a 16-byte aligned base and batch, time and
     head strides that are multiples of 8 elements."""
     return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
 
 
 def needs_copy(t: torch.Tensor) -> bool:
     """Whether the kernels must read a contiguous copy of ``t`` rather than ``t``
-    through its strides: a head dim that is not contiguous, or a view the wgmma
-    kernels' TMA cannot take (an unaligned base or stride)."""
-    return t.stride(-1) != 1 or (flash_route(t) == "wgmma" and not _bf16_aligned(t))
+    through its strides: a head dim that is not contiguous, or a view that a pass
+    reading it by TMA cannot take (an unaligned base or stride). Every input a
+    wgmma pass takes, the wgmma forward takes too."""
+    return t.stride(-1) != 1 or (flash_route(t, "forward") == "wgmma" and not _tma_aligned(t))
 
 
 def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
@@ -175,10 +219,17 @@ def flash_refusal(q: torch.Tensor, *others: Tuple[str, torch.Tensor]) -> Optiona
     batch, seq, heads, head_dim = q.shape
     if not 0 < head_dim <= SIMT_MAX_HEAD_DIM:
         return ValueError, f"the flash kernels take head_dim 1 to {SIMT_MAX_HEAD_DIM}, got {head_dim}"
-    rows = FORWARD_TILE_ROWS if flash_route(q) == "wgmma" else SIMT_ROWS
+    rows = min(_block_rows(q, which) for which in PASSES)  # every pass's grid, the finest the tightest
     if batch * heads >= 2**31 or -(-seq // rows) > _MAX_ROW_TILES:
         return ValueError, f"shape {tuple(q.shape)} exceeds the kernels' grid (B*H < 2^31, T <= {rows * _MAX_ROW_TILES})"
     return None
+
+
+def _block_rows(q: torch.Tensor, which: str) -> int:
+    """Rows (of the grid's row dimension) a block of the pass ``which`` owns."""
+    if flash_route(q, which) == "simt":
+        return SIMT_ROWS
+    return dkv_block_rows(q.shape[-1]) if which == "dkv" else FORWARD_TILE_ROWS
 
 
 def _check_cuda_inputs(q: torch.Tensor, *others: Tuple[str, torch.Tensor]) -> None:
@@ -223,10 +274,11 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causa
     pointers = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if flash_route(q) == "wgmma":
-            status = library.hm_flash_forward_bf16(
-                *pointers, batch, seq, heads, head_dim,
-                *(tma_geometry(t, FORWARD_TILE_ROWS).as_ctypes() for t in (q, k, v)), *out.stride()[:3],
+        if flash_route(q, "forward") == "wgmma":
+            rows = forward_box_rows(head_dim)
+            status = library.hm_flash_forward_wgmma(
+                *pointers, SIMT_DTYPES[q.dtype], batch, seq, heads, head_dim,
+                *(tma_geometry(t, rows).as_ctypes() for t in (q, k, v)), *out.stride()[:3],
                 int(causal), head_dim ** -0.5, stream,
             )
         else:
@@ -285,18 +337,17 @@ def flash_attention_backward_plain(q, k, v, out, lse, dout, causal: bool = False
 
 def _bwd_library() -> ctypes.CDLL:
     library = _build.load_library("flash_attention_bwd")
-    if library.hm_flash_backward_dq_bf16.argtypes is None:
-        # each: q, k, v, dout, lse, delta, its outputs (dq, or dk and dv); then SIMT
-        # its dtype code; B, T, H, D; then the layout: SIMT, the strides of q, k, v,
-        # dout and of the outputs; bf16, the geometries of q, k, v, dout and the
-        # outputs' strides; causal, scale, stream
+    if library.hm_flash_backward_dq_wgmma.argtypes is None:
+        # each: q, k, v, dout, lse, delta, its outputs (dq, or dk and dv); its dtype
+        # code; B, T, H, D; then the layout: SIMT, the strides of q, k, v, dout and of
+        # the outputs; wgmma, the geometries of q, k, v, dout and the outputs'
+        # strides; causal, scale, stream
         simt_layout = [ctypes.c_longlong] * 15
-        bf16_layout = [ctypes.POINTER(ctypes.c_longlong)] * 4 + [ctypes.c_longlong] * 3
-        for name, outputs, dtype, layout in (("dq_simt", 1, [ctypes.c_int], simt_layout),
-                                             ("dkv_simt", 2, [ctypes.c_int], simt_layout),
-                                             ("dq_bf16", 1, [], bf16_layout), ("dkv_bf16", 2, [], bf16_layout)):
+        wgmma_layout = [ctypes.POINTER(ctypes.c_longlong)] * 4 + [ctypes.c_longlong] * 3
+        for name, outputs, layout in (("dq_simt", 1, simt_layout), ("dkv_simt", 2, simt_layout),
+                                      ("dq_wgmma", 1, wgmma_layout), ("dkv_wgmma", 2, wgmma_layout)):
             fn = getattr(library, f"hm_flash_backward_{name}")
-            fn.argtypes = ([ctypes.c_void_p] * (6 + outputs) + dtype + [ctypes.c_int] * 4 + layout
+            fn.argtypes = ([ctypes.c_void_p] * (6 + outputs) + [ctypes.c_int] * 5 + layout
                            + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
             fn.restype = ctypes.c_int
     return library
@@ -314,23 +365,24 @@ def _check_backward_inputs(q, k, v, dout, lse, delta) -> None:
 
 
 def _launch_pass(name: str, q, k, v, dout, lse, delta, outputs, causal: bool, geometries) -> None:
-    """Launch the pass ``name`` ("dq" or "dkv") of q's route on the pointers of q,
-    k, v, dout, lse, delta and ``outputs``: wgmma reads the four TMA views
+    """Launch the pass ``name`` ("dq" or "dkv") on its route for q on the pointers
+    of q, k, v, dout, lse, delta and ``outputs``: wgmma reads the four TMA views
     ``geometries`` (:func:`backward_geometries` when None), SIMT the strides."""
-    if flash_route(q) == "wgmma":
+    route = flash_route(q, name)
+    if route == "wgmma":
         if geometries is None:
             geometries = backward_geometries(q, k, v, dout)
-        entry, dtype = f"hm_flash_backward_{name}_bf16", ()
         layout = (*(g.as_ctypes() for g in geometries), *outputs[0].stride()[:3])
     else:
-        entry, dtype = f"hm_flash_backward_{name}_simt", (SIMT_DTYPES[q.dtype],)
         layout = _strides(q, k, v, dout, outputs[0])
+    entry = f"hm_flash_backward_{name}_{route}"
     library = _bwd_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = getattr(library, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            *(t.data_ptr() for t in outputs), *dtype, *q.shape, *layout, int(causal), q.shape[-1] ** -0.5, stream,
+            *(t.data_ptr() for t in outputs), SIMT_DTYPES[q.dtype], *q.shape, *layout, int(causal), q.shape[-1] ** -0.5,
+            stream,
         )
     _build.check_launch(library, status, entry)
 
@@ -338,7 +390,8 @@ def _launch_pass(name: str, q, k, v, dout, lse, delta, outputs, causal: bool, ge
 def flash_attention_backward_dq(q, k, v, dout, lse, delta, causal: bool = False,
                                 geometries: Optional[Tuple[TmaGeometry, ...]] = None) -> torch.Tensor:
     """The dQ pass (``_flash_bwd_dq_kernel``): ``dq`` in q's dtype. ``geometries``:
-    the bf16 inputs' TMA views, if the caller has them already."""
+    the inputs' TMA views, if the caller has them already (read on the wgmma
+    route only)."""
     if _on_cpu(q, k, v, dout, lse, delta):
         return flash_attention_backward_dq_plain(q, k, v, dout, lse, delta, causal)
     _check_backward_inputs(q, k, v, dout, lse, delta)
@@ -375,16 +428,19 @@ flash_attention_backward_dkv.launches = 0
 def flash_attention_backward(q, k, v, out, lse, dout, causal: bool = False) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` from the forward's ``(out, lse)`` and the cotangent ``dout``
     (cast to q's dtype first, as the JAX package's ``_flash_bwd``): the dQ kernel,
-    then the dK/dV kernel; ``δ`` and, for bf16, the TMA views both read are
-    computed here, once."""
+    then the dK/dV kernel, each on its own route; ``δ`` and, when a pass runs
+    wgmma, the TMA views it reads are computed here, once, and handed to the
+    passes that read them."""
     dout = dout.to(q.dtype)
     if _on_cpu(q, k, v, out, lse, dout):
         return flash_attention_backward_plain(q, k, v, out, lse, dout, causal)
     q, k, v, dout = (_kernel_layout(t) for t in (q, k, v, dout))
     delta = _delta(out, dout)
-    geometries = backward_geometries(q, k, v, dout) if flash_route(q) == "wgmma" else None
-    dq = flash_attention_backward_dq(q, k, v, dout, lse, delta, causal, geometries)
-    return (dq, *flash_attention_backward_dkv(q, k, v, dout, lse, delta, causal, geometries))
+    routes = {which: flash_route(q, which) for which in ("dq", "dkv")}
+    geometries = backward_geometries(q, k, v, dout) if "wgmma" in routes.values() else None
+    views = {which: geometries if route == "wgmma" else None for which, route in routes.items()}
+    dq = flash_attention_backward_dq(q, k, v, dout, lse, delta, causal, views["dq"])
+    return (dq, *flash_attention_backward_dkv(q, k, v, dout, lse, delta, causal, views["dkv"]))
 
 
 class FlashAttentionFunction(torch.autograd.Function):

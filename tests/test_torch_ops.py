@@ -23,6 +23,7 @@ from hivemind_tpu_torch.ops.blockwise_int8 import blockwise_int8_dequantize, blo
 from hivemind_tpu_torch.ops.flash_attention import (
     BACKWARD_BOX_ROWS,
     FORWARD_TILE_ROWS,
+    PASSES,
     FlashAttentionFunction,
     TmaGeometry,
     attention_auto,
@@ -33,8 +34,12 @@ from hivemind_tpu_torch.ops.flash_attention import (
     flash_attention_backward_plain,
     flash_attention_lse,
     flash_refusal,
+    dkv_block_rows,
     flash_route,
+    flash_routes,
+    forward_box_rows,
     needs_copy,
+    padded_head_dim,
     tma_geometry,
 )
 from hivemind_tpu_torch.ops.quantized_params import (
@@ -59,7 +64,7 @@ torch.set_num_threads(1)
 # ------------------------------------------------------------------ flash attention
 
 
-@pytest.mark.parametrize("head_dim", [16, 32])
+@pytest.mark.parametrize("head_dim", [16, 32, 80, 256])  # 80: Phi-2's, 256: Gemma-7B's
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("seq", [128, 200])  # 200: a ragged tail block
 def test_flash_plain_matches_jax_kernel_and_plain(seq, causal, head_dim):
@@ -79,7 +84,7 @@ def test_flash_plain_matches_jax_kernel_and_plain(seq, causal, head_dim):
     )
 
 
-@pytest.mark.parametrize("head_dim", [16, 64])
+@pytest.mark.parametrize("head_dim", [16, 64, 80, 256])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("seq", [128, 200])  # 200: a ragged tail block
 def test_flash_backward_plain_matches_jax_backward_kernels(seq, causal, head_dim):
@@ -100,6 +105,49 @@ def test_flash_backward_plain_matches_jax_backward_kernels(seq, causal, head_dim
     for name, ours, theirs in zip(("dq", "dk", "dv"), got, expected):
         assert ours.dtype == torch.float32 and ours.shape == q.shape
         np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), rtol=2e-4, atol=2e-5, err_msg=name)
+
+
+def _within_fp16_ulp(ours: torch.Tensor, theirs, what: str) -> None:
+    """Each element within one fp16 ulp of the JAX kernel's, plus 1e-6: both sum in
+    fp32, in another order, before rounding to fp16 once; near zero, where an fp16
+    ulp shrinks to 2^-24, that order's noise (measured: <= 5.4e-7 beyond one ulp)
+    is the larger."""
+    ours, theirs = ours.numpy().astype(np.float32), np.asarray(theirs)
+    assert ours.dtype == np.float32 and theirs.dtype == np.float16
+    excess = np.abs(ours - theirs.astype(np.float32)) - np.spacing(np.abs(theirs)).astype(np.float32)
+    assert excess.max() <= 1e-6, f"{what}: {excess.max()} beyond one fp16 ulp"
+
+
+@pytest.mark.parametrize("head_dim", [80, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_plain_matches_jax_kernel_in_fp16(causal, head_dim):
+    """fp16 inputs (the dtype Llama-2 checkpoints ship in) through the plain forward
+    and the JAX kernel in interpret mode: both cast the tiles to fp32 and round the
+    output to fp16 once, so they agree within one fp16 ulp; lse (fp32) within 1e-5."""
+    rng = np.random.RandomState(head_dim + causal)
+    q, k, v = (rng.randn(2, 200, 4, head_dim).astype(np.float16) for _ in range(3))
+    out_j, lse_j = jax_flash_attention_lse(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal, True)
+    out_t, lse_t = flash_attention_lse(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), causal)
+    assert out_t.dtype == torch.float16
+    _within_fp16_ulp(out_t.float(), out_j, "out")
+    np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("head_dim", [80, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_backward_plain_matches_jax_backward_kernels_in_fp16(causal, head_dim):
+    """The plain backward against the JAX package's two passes in interpret mode on
+    fp16 inputs, from the same (out, lse): dq, dk, dv within one fp16 ulp."""
+    rng = np.random.RandomState(head_dim + 2 * causal)
+    q, k, v = (rng.randn(2, 200, 4, head_dim).astype(np.float16) for _ in range(3))
+    dout = (rng.randn(2, 200, 4, head_dim) * np.cos(np.arange(head_dim))).astype(np.float16)
+    out, lse = jax_flash_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal, interpret=True)
+    expected = jax_flash_backward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), out, lse, jnp.asarray(dout),
+                                  causal=causal, interpret=True)
+    got = flash_attention_backward_plain(*[torch.from_numpy(np.array(a)) for a in (q, k, v, out, lse, dout)], causal)
+    for name, ours, theirs in zip(("dq", "dk", "dv"), got, expected):
+        assert ours.dtype == torch.float16 and ours.shape == q.shape
+        _within_fp16_ulp(ours.float(), theirs, name)
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -153,38 +201,49 @@ def _misaligned_view(shape) -> torch.Tensor:
     return torch.empty(int(np.prod(shape)) + 1, dtype=torch.bfloat16, device="meta")[1:].view(shape)
 
 
+W, S = "wgmma", "simt"
+
+
+# each input -> its routes (forward, dq, dkv), whether the kernels read a copy, what no kernel takes
 @pytest.mark.parametrize(
-    "make,route,copy,refusal",
+    "make,routes,copy,refusal",
     [
-        (lambda: _meta((2, 64, 4, 16)), "simt", False, None),
-        (lambda: _meta((2, 64, 4, 32)), "simt", False, None),
-        (lambda: _meta((2, 64, 4, 64)), "wgmma", False, None),
-        (lambda: _meta((2, 64, 4, 80)), "simt", False, None),
-        (lambda: _meta((2, 64, 4, 96)), "simt", False, None),
-        (lambda: _meta((2, 64, 4, 128)), "wgmma", False, None),
-        (lambda: _meta((2, 64, 4, 256)), "simt", False, None),
-        (lambda: _meta((2, 64, 4, 64), torch.float32), "simt", False, None),
-        (lambda: _meta((2, 64, 4, 64), torch.float16), "simt", False, None),
-        (lambda: _meta((4096, 8, 16, 64)), "wgmma", False, None),  # B·H = 65536
-        (lambda: _meta((4096, 8, 16, 32), torch.float16), "simt", False, None),  # B·H = 65536
-        (lambda: _misaligned_view((2, 64, 4, 64)), "wgmma", True, None),  # TMA needs a copy
-        (lambda: _misaligned_view((2, 64, 4, 32)), "simt", False, None),  # read through its strides
-        (lambda: _meta((2, 4, 64, 64)).transpose(1, 2), "wgmma", False, None),  # a strided view TMA takes
-        (lambda: _meta((2, 64, 64, 4)).transpose(2, 3), "wgmma", True, None),  # head dim not contiguous
-        (lambda: _meta((2, 64, 4, 64), torch.float64), "simt", False, (TypeError, "bfloat16, float16 or float32")),
-        (lambda: _meta((2, 64, 4, 512)), "simt", False, (ValueError, "head_dim")),
-        (lambda: _meta((1, 16 * 65535 + 1, 1, 32)), "simt", False, (ValueError, "grid")),
-        (lambda: _meta((1, 128 * 65535 + 1, 1, 64)), "wgmma", False, (ValueError, "grid")),
+        (lambda: _meta((2, 64, 4, 16)), (W, S, W), False, None),
+        (lambda: _meta((2, 64, 4, 32)), (W, S, W), False, None),
+        (lambda: _meta((2, 64, 4, 64)), (W, W, W), False, None),
+        (lambda: _meta((2, 64, 4, 80)), (W, S, W), False, None),
+        (lambda: _meta((2, 64, 4, 96)), (W, S, W), False, None),
+        (lambda: _meta((2, 64, 4, 128)), (W, W, W), False, None),
+        (lambda: _meta((2, 64, 4, 256)), (W, S, W), False, None),
+        (lambda: _meta((2, 64, 4, 64), torch.float32), (S, S, S), False, None),
+        (lambda: _meta((2, 64, 4, 64), torch.float16), (W, S, W), False, None),
+        (lambda: _meta((4096, 8, 16, 64)), (W, W, W), False, None),  # B·H = 65536
+        (lambda: _meta((4096, 8, 16, 32), torch.float16), (W, S, W), False, None),  # B·H = 65536
+        (lambda: _misaligned_view((2, 64, 4, 64)), (W, W, W), True, None),  # TMA needs a copy
+        (lambda: _misaligned_view((2, 64, 4, 32)), (W, S, W), True, None),  # so does d32 now
+        (lambda: _meta((2, 4, 64, 64)).transpose(1, 2), (W, W, W), False, None),  # a strided view TMA takes
+        (lambda: _meta((2, 64, 64, 4)).transpose(2, 3), (W, W, W), True, None),  # head dim not contiguous
+        (lambda: _meta((2, 64, 4, 64), torch.float64), (S, S, S), False, (TypeError, "bfloat16, float16 or float32")),
+        (lambda: _meta((2, 64, 4, 512)), (S, S, S), False, (ValueError, "head_dim")),
+        (lambda: _meta((1, 16 * 65535 + 1, 1, 32)), (W, S, W), False, (ValueError, "grid")),  # the dQ pass's rows
+        (lambda: _meta((1, 128 * 65535 + 1, 1, 64)), (W, W, W), False, (ValueError, "grid")),
+        (lambda: _meta((2, 64, 4, 128), torch.float16), (W, S, W), False, None),
+        (lambda: _meta((2, 64, 4, 20)), (S, S, S), False, None),  # 40-byte rows: not TMA's 16-byte strides
+        (lambda: _meta((2, 64, 4, 128), torch.float32), (S, S, S), False, None),  # tensor cores would round to TF32
+        (lambda: _misaligned_view((2, 64, 4, 20)), (S, S, S), False, None),  # SIMT reads it through its strides
     ],
     ids=["d16", "d32", "d64", "d80", "d96", "d128", "d256", "fp32", "fp16", "bh65536", "bh65536_fp16",
-         "misaligned", "misaligned_d32", "strided", "d_strided", "fp64", "d512", "simt_rows", "wgmma_rows"],
+         "misaligned", "misaligned_d32", "strided", "d_strided", "fp64", "d512", "simt_rows", "wgmma_rows",
+         "fp16_d128", "d20", "fp32_d128", "misaligned_d20"],
 )
-def test_flash_refusal_predicts_what_the_kernel_takes(make, route, copy, refusal):
-    """The wrappers' predicates, on meta tensors: which design runs an input, whether
-    the kernels read a copy of it, and what no kernel takes (the wrapper raises it;
-    every other unmasked square call on the card runs a flash kernel)."""
+def test_flash_refusal_predicts_what_the_kernel_takes(make, routes, copy, refusal):
+    """The wrappers' predicates, on meta tensors: which design runs each pass of an
+    input, whether the kernels read a copy of it, and what no kernel takes (the
+    wrapper raises it; every other unmasked square call on the card runs a flash
+    kernel)."""
     q = make()
-    assert flash_route(q) == route
+    assert tuple(flash_route(q, which) for which in PASSES) == routes
+    assert flash_route(q) == routes[0]  # the forward's, by default
     assert needs_copy(q) is copy
     laid_out = flash_module._kernel_layout(q)
     assert (laid_out is not q) is copy and not needs_copy(laid_out)  # a copy the kernels can read
@@ -195,6 +254,30 @@ def test_flash_refusal_predicts_what_the_kernel_takes(make, route, copy, refusal
         assert got[0] is refusal[0] and refusal[1] in got[1], got
     mixed = flash_refusal(_meta((2, 64, 4, 64)), ("k", _meta((2, 64, 4, 64), torch.float32)))
     assert mixed[0] is TypeError and "share a dtype" in mixed[1]
+    with pytest.raises(ValueError, match="answers for"):
+        flash_route(q, "backward")
+
+
+# head_dim -> the padded width the wgmma kernels compute it at, the forward's KV tile and box
+# rows, and the KV rows a dK/dV block owns (64 at 256, where its warpgroups split the columns)
+@pytest.mark.parametrize("head_dim, padded, box_rows, dkv_rows", [
+    (16, 64, 128, 128), (64, 64, 128, 128), (72, 128, 128, 128), (128, 128, 128, 128),
+    (136, 256, 64, 64), (192, 256, 64, 64), (256, 256, 64, 64),
+])
+def test_wgmma_widths_and_tiles(head_dim, padded, box_rows, dkv_rows):
+    assert (padded_head_dim(head_dim), forward_box_rows(head_dim), dkv_block_rows(head_dim)) == (padded, box_rows, dkv_rows)
+
+
+def test_flash_routes_name_each_pass_and_the_grid_takes_the_finest_rows():
+    """The labels' route string, and the grid check against each pass's block rows: at
+    bf16 head_dim 256 the dK/dV pass's 64-row blocks bound T before the forward's 128,
+    and the SIMT dQ pass's 16 before both."""
+    assert flash_routes(_meta((1, 64, 2, 256))) == "forward=wgmma dq=simt dkv=wgmma"
+    assert flash_routes(_meta((1, 64, 2, 20), torch.float16)) == "forward=simt dq=simt dkv=simt"
+    assert flash_refusal(_meta((1, 16 * 65535, 1, 256))) is None
+    error, message = flash_refusal(_meta((1, 16 * 65535 + 1, 1, 256)))
+    assert error is ValueError and f"T <= {16 * 65535}" in message
+    assert flash_refusal(_meta((1, 128 * 65535, 1, 128))) is None  # bf16 128: every pass 128 rows a block
 
 
 def test_flash_wrapper_refuses_what_it_cannot_take():
@@ -218,8 +301,8 @@ def _fused_q() -> torch.Tensor:
 
 
 # (tensor, box rows) -> dims (D, H, T, B), byte strides of (H, T, B), box, and the boxes
-# a tile row takes (D / 64), worked out by hand: bf16 is 2 bytes, so a stride of s
-# elements is 2s bytes
+# a tile row takes (its padded width, 64, 128 or 256, over 64), worked out by hand: bf16
+# and fp16 are 2 bytes, so a stride of s elements is 2s bytes
 @pytest.mark.parametrize("make, rows, dims, strides, box, boxes", [
     (lambda: torch.empty(2, 1000, 16, 64, dtype=torch.bfloat16, device="meta"), FORWARD_TILE_ROWS,
      (64, 16, 1000, 2), (2 * 64, 2 * 16 * 64, 2 * 1000 * 16 * 64), (64, 1, 128, 1), 1),
@@ -228,11 +311,22 @@ def _fused_q() -> torch.Tensor:
     (lambda: torch.empty(1, 2048, 32, 128, dtype=torch.bfloat16, device="meta"), BACKWARD_BOX_ROWS,  # D = 128: two boxes
      (128, 32, 2048, 1), (256, 8192, 16777216), (64, 1, 64, 1), 2),
     (_fused_q, BACKWARD_BOX_ROWS, (64, 12, 512, 2), (128, 2 * 3 * 12 * 64, 2 * 512 * 3 * 12 * 64), (64, 1, 64, 1), 1),
-], ids=["contiguous", "albert", "head_dim_128", "fused_qkv"])
+    (lambda: torch.empty(1, 2048, 32, 128, dtype=torch.float16, device="meta"), BACKWARD_BOX_ROWS,  # fp16: bf16's
+     (128, 32, 2048, 1), (256, 8192, 16777216), (64, 1, 64, 1), 2),
+    (lambda: torch.empty(2, 1000, 16, 32, dtype=torch.bfloat16, device="meta"), FORWARD_TILE_ROWS,  # one box, half past D
+     (32, 16, 1000, 2), (64, 1024, 1024000), (64, 1, 128, 1), 1),
+    (lambda: torch.empty(1, 2048, 32, 80, dtype=torch.bfloat16, device="meta"), FORWARD_TILE_ROWS,  # Phi-2's: padded to 128
+     (80, 32, 2048, 1), (160, 5120, 10485760), (64, 1, 128, 1), 2),
+    (lambda: torch.empty(1, 512, 8, 96, dtype=torch.bfloat16, device="meta"), BACKWARD_BOX_ROWS,
+     (96, 8, 512, 1), (192, 1536, 786432), (64, 1, 64, 1), 2),
+    (lambda: torch.empty(1, 2048, 16, 256, dtype=torch.float16, device="meta"), forward_box_rows(256),  # Gemma-7B's
+     (256, 16, 2048, 1), (512, 8192, 16777216), (64, 1, 64, 1), 4),
+], ids=["contiguous", "albert", "head_dim_128", "fused_qkv", "fp16", "head_dim_32", "head_dim_80", "head_dim_96",
+        "head_dim_256_fp16"])
 def test_tma_geometry_describes_the_kernels_views(make, rows, dims, strides, box, boxes):
     geometry = tma_geometry(make(), rows)
     assert (geometry.dims, geometry.strides, geometry.box) == (dims, strides, box)
-    assert geometry.dims[0] // geometry.box[0] == boxes
+    assert padded_head_dim(geometry.dims[0]) // geometry.box[0] == boxes
     assert list(geometry.as_ctypes()) == [*dims, *strides, *box]  # the order sm90::TmaGeometry reads
 
 
@@ -240,8 +334,10 @@ def test_tma_geometry_describes_the_kernels_views(make, rows, dims, strides, box
     (lambda: torch.empty(1, 64, 8, 66, dtype=torch.bfloat16, device="meta")[..., :64], "multiples of 16 bytes"),
     (lambda: torch.empty(1, 64, 8, 72, dtype=torch.bfloat16, device="meta")[..., 1:65], "16-byte aligned"),
     (lambda: torch.empty(1, 64, 64, 8, dtype=torch.bfloat16, device="meta").transpose(2, 3), "contiguous head dim"),
-    (lambda: torch.empty(1, 64, 8, 64, dtype=torch.float32, device="meta"), "bf16"),
-], ids=["head_stride_132_bytes", "misaligned_base", "strided_head_dim", "fp32"])
+    (lambda: torch.empty(1, 64, 8, 64, dtype=torch.float32, device="meta"), "bf16 or fp16"),
+    (lambda: torch.empty(1, 64, 8, 20, dtype=torch.bfloat16, device="meta"), "multiple of 8"),
+    (lambda: torch.empty(1, 64, 8, 8, dtype=torch.float16, device="meta"), "from 16 to 256"),
+], ids=["head_stride_132_bytes", "misaligned_base", "strided_head_dim", "fp32", "head_dim_20", "head_dim_8"])
 def test_tma_geometry_refuses_views_tma_cannot_take(make, match):
     with pytest.raises(ValueError, match=match):
         tma_geometry(make(), FORWARD_TILE_ROWS)
@@ -262,11 +358,13 @@ def _backward_inputs(batch, seq, heads, dim, fused):
     ((2, 1000, 16, 64), True, (64, 16, 1000, 2), (128, 4 * 16 * 128, 1000 * 4 * 16 * 128)),  # ragged T
     ((1, 2000, 32, 128), False, (128, 32, 2000, 1), (256, 8192, 2000 * 8192)),  # ragged T, D = 128
     ((1, 256, 32, 128), True, (128, 32, 256, 1), (256, 4 * 32 * 256, 256 * 4 * 32 * 256)),  # the expert's, fused
-], ids=["albert", "fused_ragged_d64", "ragged_d128", "fused_d128"])
+    ((1, 512, 8, 96), False, (96, 8, 512, 1), (192, 1536, 786432)),  # mixed: dQ on SIMT, dK/dV on wgmma
+], ids=["albert", "fused_ragged_d64", "ragged_d128", "fused_d128", "mixed_d96"])
 def test_backward_hands_both_passes_one_geometry_per_tensor(monkeypatch, shape, fused, dims, strides):
     """``flash_attention_backward`` computes the TMA views of q, k, v, dout once and
-    hands the same four to the dQ and the dK/dV pass. Meta tensors stand in for CUDA
-    ones; the launches are recorded instead of made."""
+    hands the same four to each pass that runs wgmma, and none to a pass on SIMT
+    (bf16 at head_dim 96: the dQ pass). Meta tensors stand in for CUDA ones; the
+    launches are recorded instead of made."""
     q, k, v, dout = _backward_inputs(*shape, fused)
     batch, seq, heads, _ = shape
     views, launched = [], []
@@ -279,8 +377,12 @@ def test_backward_hands_both_passes_one_geometry_per_tensor(monkeypatch, shape, 
     lse = torch.empty(batch, heads, seq, device="meta")
     flash_attention_backward(q, k, v, torch.empty_like(q), lse, dout, causal=True)
     assert views == [BACKWARD_BOX_ROWS] * 4  # one view per tensor, for both passes
-    assert [name for name, _ in launched] == ["dq", "dkv"] and launched[0][1] is launched[1][1]
-    assert launched[0][1] == (TmaGeometry(dims, strides, (64, 1, 64, 1)),) * 4
+    expected = (TmaGeometry(dims, strides, (64, 1, 64, 1)),) * 4
+    assert [name for name, _ in launched] == ["dq", "dkv"] and launched[1][1] == expected
+    if flash_route(q, "dq") == "wgmma":
+        assert launched[0][1] is launched[1][1]
+    else:
+        assert shape[-1] == 96 and launched[0][1] is None
 
 
 # ------------------------------------------------------------------ blockwise int8

@@ -1,0 +1,198 @@
+#!/usr/bin/env python3
+"""The flash kernels' two designs timed against each other on one card, in one process.
+
+For each input that the wgmma design takes, the forward and the dK/dV pass run
+through the wrappers (``flash_attention_lse``, ``flash_attention_backward_dkv``:
+the wgmma kernels) and through the SIMT kernels' C entry points on the same tensors,
+in turns (SIMT, wgmma, wgmma, SIMT), each held to the plain PyTorch version first.
+Each line gives both designs' device times (CUDA events behind a spin kernel, as
+``chip_smoke.py``'s), the least time the card could take (``bound_ms``) and the
+library's (``F.scaled_dot_product_attention``; for the dK/dV pass its whole
+backward). The last line is a JSON object with every reading, beside the card's
+name and power limit.
+
+``--rows`` times instead the three passes through their wrappers alone at the shapes
+of PERF.md's bf16 rows 1-3 and 1c-3c, and ``--root DIR`` imports the package and
+``chip_smoke.py`` from another checkout: run on the parent's and this checkout's in
+turns in one call, it compares two versions of the kernels on one card.
+
+Run from the repository root on a machine with one NVIDIA card:
+
+    python3 tools/flash_route_ab.py
+    python3 tools/flash_route_ab.py --cases 2,1000,16,32,bfloat16,1 1,2048,16,256,float16,1
+    for root in parent . . parent; do python3 tools/flash_route_ab.py --rows --root $root; done
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parents[1]
+
+# (shape, dtype, causal): the three shapes PERF.md timed the SIMT kernels at (rows 1s, 3s),
+# head_dim 16 (padded 4x by the wgmma design), Phi-2's and Gemma-7B's widths and fp16 at a
+# Llama-2-7B request of 2048 tokens
+DEFAULT_CASES = [
+    ((2, 1000, 16, 32), "bfloat16", True), ((1, 512, 8, 96), "bfloat16", True), ((1, 512, 4, 256), "float16", True),
+    ((2, 1000, 16, 16), "bfloat16", True), ((1, 2048, 32, 80), "bfloat16", True),
+    ((1, 2048, 16, 256), "float16", True), ((1, 2048, 32, 128), "float16", True),
+]
+
+
+# PERF.md's bf16 rows: 1 (forward), 2 and 3 (dQ, dK/dV) at the served and ALBERT's shapes,
+# 1c-3c at the causal LM's
+ROWS = [("1", "forward", (1, 2048, 32, 128), True), ("1c", "forward", (8, 1024, 12, 64), True),
+        ("2", "dq", (32, 512, 12, 64), False), ("2c", "dq", (8, 1024, 12, 64), True),
+        ("3", "dkv", (32, 512, 12, 64), False), ("3c", "dkv", (8, 1024, 12, 64), True)]
+
+
+def time_rows(torch, smoke, flash) -> list:
+    """Each of ROWS through its wrapper alone, bf16, on tensors drawn from one seed."""
+    rng = np.random.default_rng(smoke.SEED + 21)
+    readings = []
+    for row, which, shape, causal in ROWS:
+        q, k, v, dout = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda().bfloat16()
+                         for _ in range(4))
+        if which == "forward":
+            fn = lambda: flash.flash_attention_lse(q, k, v, causal)  # noqa: E731
+        else:
+            out, lse = flash.flash_attention_plain(q, k, v, causal)
+            args = (q, k, v, dout, lse, flash._delta(out, dout), causal)
+            wrapper = flash.flash_attention_backward_dq if which == "dq" else flash.flash_attention_backward_dkv
+            fn = lambda: wrapper(*args)  # noqa: E731
+        ms = smoke.time_ms(torch, fn)
+        print(f"[rows] {row} {which} {list(shape)} bf16 causal={causal}: ms={ms:.4f}", flush=True)
+        readings.append(dict(row=row, which=which, shape=list(shape), causal=causal, ms=ms))
+    return readings
+
+
+def parse_case(text: str):
+    batch, seq, heads, dim, dtype, causal = text.split(",")
+    return (int(batch), int(seq), int(heads), int(dim)), dtype, bool(int(causal))
+
+
+def simt_forward(torch, flash, q, k, v):
+    """A closure that runs the SIMT forward kernel on q, k, v (whatever route the
+    wrapper would take), into fresh outputs."""
+    library = flash._library()
+    batch, seq, heads, head_dim = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((batch, heads, seq), dtype=torch.float32, device=q.device)
+
+    def run(causal: bool):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = library.hm_flash_forward_simt(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), flash.SIMT_DTYPES[q.dtype],
+            batch, seq, heads, head_dim, *flash._strides(q, k, v, out), int(causal), head_dim ** -0.5, stream)
+        flash._build.check_launch(library, status, "hm_flash_forward_simt")
+        return out, lse
+
+    return run
+
+
+def simt_dkv(torch, flash, q, k, v, dout, lse, delta):
+    """As ``simt_forward``, for the SIMT dK/dV kernel."""
+    library = flash._bwd_library()
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+
+    def run(causal: bool):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = library.hm_flash_backward_dkv_simt(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), flash.SIMT_DTYPES[q.dtype], *q.shape, *flash._strides(q, k, v, dout, dk),
+            int(causal), q.shape[-1] ** -0.5, stream)
+        flash._build.check_launch(library, status, "hm_flash_backward_dkv_simt")
+        return dk, dv
+
+    return run
+
+
+def turns(torch, time_ms, simt, wgmma) -> dict:
+    """SIMT, wgmma, wgmma, SIMT: each design's mean of its two readings, and all four."""
+    readings = [time_ms(torch, fn) for fn in (simt, wgmma, wgmma, simt)]
+    return dict(simt_ms=(readings[0] + readings[3]) / 2, wgmma_ms=(readings[1] + readings[2]) / 2, turns=readings)
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--cases", nargs="*", type=parse_case, default=DEFAULT_CASES,
+                        help="B,T,H,D,dtype,causal each (dtype bfloat16 or float16; causal 0 or 1)")
+    parser.add_argument("--rows", action="store_true", help="time PERF.md's bf16 rows 1-3 and 1c-3c instead")
+    parser.add_argument("--root", default=str(ROOT), help="the checkout whose package and chip_smoke.py to import")
+    args = parser.parse_args(argv)
+    sys.path.insert(0, str(Path(args.root).resolve()))
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        print("flash_route_ab: no CUDA device is available; it times kernels on the card", file=sys.stderr)
+        return 2
+    import chip_smoke as smoke
+    from hivemind_tpu_torch.ops import flash_attention as flash
+
+    if args.rows:
+        print(json.dumps({"card": smoke.card_line(), "root": args.root, "rows": time_rows(torch, smoke, flash)}))
+        return 0
+    name = torch.cuda.get_device_name(0)
+    peaks = smoke.card_peaks(name)
+    rng = np.random.default_rng(smoke.SEED + 20)
+    results = []
+    for shape, dtype_name, causal in args.cases:
+        batch, seq, heads, dim = shape
+        dtype = getattr(torch, dtype_name)
+        q, k, v, dout = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda().to(dtype)
+                         for _ in range(4))
+        label = f"B={batch} T={seq} H={heads} D={dim} {dtype_name} causal={causal} ({flash.flash_routes(q)})"
+        pairs = seq * (seq + 1) / 2 if causal else seq * seq
+        element, rows = q.numel() * q.element_size(), batch * heads * seq * 4
+
+        # forward: both designs held to the plain version, then timed in turns
+        reference = smoke.plain_forward(torch, q, k, v, causal)
+        run_simt = simt_forward(torch, flash, q, k, v)
+        for design, (out, lse) in (("wgmma", flash.flash_attention_lse(q, k, v, causal)), ("simt", run_simt(causal))):
+            out_reading, lse_reading = smoke.read_forward(out, lse, reference, dtype_name)
+            if not (out_reading["ok"] and lse_reading["ok"]):
+                raise AssertionError(f"{design} forward {label}: {smoke.format_reading(out_reading)}; "
+                                     f"lse {smoke.format_reading(lse_reading)}")
+        del reference
+        forward = turns(torch, smoke.time_ms, lambda: run_simt(causal), lambda: flash.flash_attention_lse(q, k, v, causal))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        forward["library_ms"] = smoke.time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal))
+        forward["bound_ms"], forward["bound_by"] = smoke.bound_ms(4.0 * batch * heads * dim * pairs, peaks["bf16"],
+                                                                  4 * element + rows, peaks["bytes"])
+
+        # the dK/dV pass, likewise, from the plain forward's (out, lse)
+        out, lse = flash.flash_attention_plain(q, k, v, causal)
+        delta = flash._delta(out, dout)
+        args_ = (q, k, v, dout, lse, delta, causal)
+        ref = flash.flash_attention_backward_dkv_plain(*args_)
+        scales = smoke.backward_scales(torch, *args_)[1:]
+        run_dkv = simt_dkv(torch, flash, q, k, v, dout, lse, delta)
+        for design, got in (("wgmma", flash.flash_attention_backward_dkv(*args_)), ("simt", run_dkv(causal))):
+            tol = smoke.FLASH_BWD_TOL[dtype_name]
+            readings = [smoke.error_reading(g, r, sc, tol, smoke.MANTISSA_BITS[dtype_name])
+                        for g, r, sc in zip(got, ref, scales)]
+            if not all(r["ok"] for r in readings):
+                raise AssertionError(f"{design} dK/dV {label}: " + "; ".join(map(smoke.format_reading, readings)))
+        del ref, scales
+        dkv = turns(torch, smoke.time_ms, lambda: run_dkv(causal), lambda: flash.flash_attention_backward_dkv(*args_))
+        dkv["library_ms"] = smoke.library_backward_ms(torch, q, k, v, dout, causal)
+        dkv["bound_ms"], dkv["bound_by"] = smoke.bound_ms(8.0 * batch * heads * dim * pairs, peaks["bf16"],
+                                                          6 * element + 2 * rows, peaks["bytes"])
+        for what, reading in (("forward", forward), ("dkv", dkv)):
+            print(f"[ab] {label} {what}: simt_ms={reading['simt_ms']:.4f} wgmma_ms={reading['wgmma_ms']:.4f} "
+                  f"({reading['simt_ms'] / reading['wgmma_ms']:.2f}x) library_ms={reading['library_ms']:.4f} "
+                  f"bound_ms={reading['bound_ms']:.4f} ({reading['bound_by']}); turns "
+                  + " ".join(f"{t:.4f}" for t in reading["turns"]), flush=True)
+        results.append(dict(shape=list(shape), dtype=dtype_name, causal=causal, forward=forward, dkv=dkv))
+    print(json.dumps({"card": smoke.card_line(), "results": results}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
