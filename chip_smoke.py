@@ -161,8 +161,7 @@ FLASH_BWD_CASES = [
     ((1, 2000, 32, 128), "bfloat16", True), ((2, 1000, 16, 64), "bfloat16", False),
     ((2, 1000, 16, 64), "bfloat16", True), ((2, 1000, 16, 64), "float32", False),
     ((2, 1000, 16, 64), "float32", True), ((1, 512, 32, 128), "float32", True),
-    # other head dims and fp16 (the dK/dV pass on wgmma, the dQ pass on SIMT), and
-    # B*H = 65536 on both designs
+    # other head dims and fp16, and B*H = 65536, on the wgmma passes
     ((2, 64, 8, 32), "bfloat16", False), ((2, 1000, 16, 32), "bfloat16", True), ((1, 512, 8, 80), "bfloat16", False),
     ((2, 1000, 16, 64), "float16", True), ((1, 512, 4, 256), "float16", False),
     ((65536, 16, 1, 64), "bfloat16", True), ((32768, 16, 2, 32), "float16", False),
@@ -172,6 +171,12 @@ FLASH_BWD_CASES = [
     # Llama request's shape beside bf16's; Phi-2's and Gemma-7B's widths (as FLASH_EXTRA_CASES)
     ((2, 1000, 16, 20), "bfloat16", True), ((1, 2048, 32, 128), "float16", True),
     ((1, 2048, 32, 80), "bfloat16", True), ((1, 2048, 16, 256), "float16", True),
+    # with the cases above, every instantiation of the wgmma passes (bf16 and fp16, padded
+    # widths 64, 128 and 256, full width or not): head dim 16; 96 in fp16; 256 in bf16;
+    # 136, whose last 64-column region lies wholly past it (zeroed, never loaded); 200,
+    # whose last region TMA reads partly past it
+    ((2, 1000, 16, 16), "bfloat16", True), ((1, 512, 8, 96), "float16", False), ((1, 512, 4, 256), "bfloat16", False),
+    ((2, 1000, 16, 136), "float16", True), ((1, 512, 4, 200), "bfloat16", True),
 ]
 # Each backward output element within atol + rtol*scale, where scale is the plain
 # backward run on absolute values: sum_k |dS||K| for dq, sum_q |dS||Q| for dk,
@@ -183,27 +188,28 @@ FLASH_BWD_CASES = [
 # the tiles reads about 9u (2.5e-2 to 3.6e-2). The cap is two bf16 ulps of an
 # output in [4, 8). fp32: only the order of fp32 sums differs, bounded by
 # T*2^-24*scale (1.2e-4 at T = 2048). fp16 is held like bf16 with fp16's unit
-# roundoff, u = 2^-11: the wgmma dK/dV pass rounds each P and dS term to fp16 as bf16's
-# does to bf16, so the same derivation gives 3u*scale and a norm ratio of 2u (the SIMT
-# dQ pass keeps P and dS in fp32 and errs less); its cap is two fp16 ulps of an output
-# in [4, 8). fp16's dS overflows past 65504 (no timed input comes near it).
+# roundoff, u = 2^-11: both wgmma passes round each P and dS term to fp16 as bf16's
+# do to bf16, so the same derivation gives 3u*scale and a norm ratio of 2u; its cap is
+# two fp16 ulps of an output in [4, 8). fp16's dS overflows past 65504 (no timed
+# input comes near it).
 FLASH_BWD_TOL = {
     "bfloat16": dict(atol=1e-5, rtol=3 * BF16_UNIT_ROUNDOFF, max_abs=6.25e-2, rel_l2=2 * BF16_UNIT_ROUNDOFF),
     "float16": dict(atol=1e-5, rtol=3 * FP16_UNIT_ROUNDOFF, max_abs=2.0**-7, rel_l2=2 * FP16_UNIT_ROUNDOFF),
     "float32": dict(atol=1e-5, rtol=1.2e-4, max_abs=1e-3, rel_l2=1e-5),
 }
 FAULTY_TILE = 64  # planted faults the checks must reject: P (forward) or dS (backward) 5% too large on every other 64-wide tile
-# where the backward's planted fault is checked: the training path's shape, and a Llama
-# request at full length, causal (the dQ kernel masks only its diagonal tiles)
-FAULTY_BWD_SHAPES = (ALBERT_ATTENTION, (1, 2048, 32, 128))
+# where the backward's planted fault is checked, (shape, dtype): the training path's
+# shape, and a Llama request at full length, causal (the dQ kernel masks only its
+# diagonal tiles), in bf16 and in fp16; and Gemma-7B's fp16 at a padded width of 256
+FAULTY_BWD_SHAPES = ((ALBERT_ATTENTION, "bfloat16"), ((1, 2048, 32, 128), "bfloat16"),
+                     ((1, 2048, 32, 128), "float16"), ((1, 2048, 16, 256), "float16"))
 # q, k, v sliced from one fused [B, T, 3, H, D] tensor (T stride 3*H*D): the TMA views of a
 # projection that is not split into three tensors, for each head_dim, held like FLASH_SHAPES
 STRIDED_CASES = [((2, 1000, 16, 64), True), ((1, 512, 32, 128), False)]
 # the kernels that issue wgmma fed by TMA, with setmaxnreg: the build fails if any
-# instantiation spills (flash_forward_wgmma and flash_bwd_dkv_wgmma for bf16 and fp16 at
-# padded widths 64, 128 and 256, each full-width and narrower; flash_bwd_dq_bf16 at 64
-# and 128)
-WGMMA_KERNELS = ("flash_forward_wgmma", "flash_bwd_dq_bf16", "flash_bwd_dkv_wgmma")
+# instantiation spills (each for bf16 and fp16 at padded widths 64, 128 and 256, each
+# full-width and narrower)
+WGMMA_KERNELS = ("flash_forward_wgmma", "flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma")
 # ALBERT-base MLM training, bench.py's workload: its first batch candidate
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_WARMUP, TRAIN_STEPS = 32, 512, 2, 10
 TRAIN_MASKED_FRACTION = 0.25
@@ -865,7 +871,7 @@ def phase_flash_bwd(torch, peaks) -> dict:
         label = f"B={batch} T={seq} H={heads} D={dim} {dtype_name} causal={causal} ({flash_routes(q)})"
         if not all(r["ok"] for r in readings.values()):
             raise AssertionError(f"flash backward {label} exceeds {FLASH_BWD_TOL[dtype_name]}: {text}")
-        if shape in FAULTY_BWD_SHAPES and dtype == torch.bfloat16:  # the check must reject a planted fault
+        if (shape, dtype_name) in FAULTY_BWD_SHAPES:  # the check must reject a planted fault
             faulty = read_backward(dtype_name, (*faulty_backward(torch, *args), ref[2]), ref, scales)
             log(f"[flash_bwd] {label}, dS x 1.05 on every other tile (planted in the plain version): " +
                 "; ".join(f"{name} {format_reading(faulty[name])} ok={faulty[name]['ok']}" for name in ("dq", "dk")))
@@ -1495,32 +1501,51 @@ def phase_serving(torch, checkpoint_dir: str, wrappers: dict, telemetry: Telemet
 
 
 def phase_small_heads(torch, wrappers: dict) -> dict:
-    """A served ``transformer`` expert of head_dim 32 on the card (bf16 attention:
-    the wgmma flash forward at a padded width of 64), against the same expert on the
-    CPU (``plain_attention``)."""
+    """A served ``transformer`` expert of head_dim 32 on the card, bf16 attention
+    through the wgmma flash kernels at a padded width of 64: one forward, then one
+    ``ModuleBackend.backward`` with its SGD step (the dQ and dK/dV passes), each held
+    to the same expert on the CPU (``plain_attention``): the output, the input
+    gradient and each parameter's step. A few seconds."""
     from hivemind_tpu_torch.moe.server.layers import name_to_block
     from hivemind_tpu_torch.moe.server.module_backend import ModuleBackend
     from hivemind_tpu_torch.ops.flash_attention import flash_routes
 
     hid, heads, shape = SMALL_HEADS_EXPERT["hidden"], SMALL_HEADS_EXPERT["heads"], SMALL_HEADS_EXPERT["shape"]
-    x = np.random.default_rng(SEED + 10).standard_normal(shape, dtype=np.float32)
+    rng = np.random.default_rng(SEED + 10)
+    x, grad_out = (rng.standard_normal(shape, dtype=np.float32) for _ in range(2))
+    sgd = lambda params: torch.optim.SGD(params, lr=EXPERT_LR)  # noqa: E731
     card = ModuleBackend("transformer.0", name_to_block["transformer"](hid, num_heads=heads, device="meta"),
-                         sample_input=x, device="cuda", rng_seed=SEED)
+                         sample_input=x, device="cuda", rng_seed=SEED, optimizer=sgd)
+    initial = {key: tensor.to("cpu", copy=True) for key, tensor in card.snapshot_params().items()}
     cpu = ModuleBackend("transformer.0", name_to_block["transformer"](hid, num_heads=heads, device="meta"),
-                        sample_input=x, device="cpu", params={k: t.cpu() for k, t in card.snapshot_params().items()})
+                        sample_input=x, device="cpu", params={k: t.clone() for k, t in initial.items()}, optimizer=sgd)
     torch.cuda.synchronize()
     for wrapper in wrappers.values():
-        wrapper.launches = 0  # the main path starts here: one forward of the expert
+        wrapper.launches = 0  # the main path starts here: one forward of the expert, one backward with its step
     got = card.forward(x)[0]
+    (grad_x,) = card.backward(x, grad_out)
     torch.cuda.synchronize()
     launches = {name: wrapper.launches for name, wrapper in wrappers.items()}
+    steps = {key: tensor.to("cpu") - initial[key] for key, tensor in card.snapshot_params().items()}
     rel_err = max_rel_err(got, cpu.forward(x)[0])
+    (cpu_grad_x,) = cpu.backward(x, grad_out)
+    readings = {"input gradient": max_rel_err(grad_x, cpu_grad_x)}
+    readings.update(step_errors(torch, steps, {key: t - initial[key] for key, t in cpu.snapshot_params().items()}))
     attention = torch.empty(shape[0], shape[1], heads, hid // heads, dtype=torch.bfloat16, device="meta")
     log(f"[head_dim32] transformer expert hidden {hid}, {heads} heads, input {list(shape)} "
-        f"({flash_routes(attention)}): {launches['flash_attention_forward']} flash forward launch(es) on the card; "
+        f"({flash_routes(attention)}): flash launches forward {launches['flash_attention_forward']}, "
+        f"dq {launches['flash_attention_backward_dq']}, dkv {launches['flash_attention_backward_dkv']}; "
         f"card vs CPU (plain_attention) max_rel_err={rel_err:.3e}")
+    log(f"[head_dim32] backward with SGD(lr={EXPERT_LR}), card vs CPU, max relative error: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in readings.items()))
     if not (got.shape == x.shape and np.isfinite(got).all() and rel_err < SERVING_TOL):
         raise AssertionError(f"head_dim-32 expert: output {got.shape}, card vs CPU {rel_err} >= {SERVING_TOL}")
+    if card.update_count != 1:
+        raise AssertionError(f"head_dim-32 expert: {card.update_count} updates after one backward")
+    worst = max(readings, key=readings.get)
+    if not readings[worst] < EXPERT_TOL:
+        raise AssertionError(f"head_dim-32 expert backward: {worst} differs from the CPU by {readings[worst]:.3e} "
+                             f">= {EXPERT_TOL}")
     return launches
 
 
@@ -5646,7 +5671,7 @@ def main(argv=None) -> int:
         "serving": ("flash_attention_forward", "blockwise_int8_quantize", "blockwise_int8_dequantize"),
         "expert_backward": ("flash_attention_forward", "flash_attention_backward_dq", "flash_attention_backward_dkv"),
         "train": ("flash_attention_forward", "flash_attention_backward_dq", "flash_attention_backward_dkv"),
-        "head_dim32": ("flash_attention_forward",),
+        "head_dim32": ("flash_attention_forward", "flash_attention_backward_dq", "flash_attention_backward_dkv"),
         "decode": ("blockwise_int8_dequantize",),
         "remote": ("flash_attention_forward", "flash_attention_backward_dq", "flash_attention_backward_dkv",
                    "blockwise_int8_dequantize"),

@@ -32,38 +32,60 @@
 // past T (and above the diagonal when causal) are masked to P = 0 explicitly, so
 // nothing relies on a padded lse.
 //
-// Both wgmma passes (building blocks in sm90.cuh) run one thread block per 128
-// rows (query rows for dQ, KV rows for dK/dV; 64 KV rows at a padded width of
-// 256) of one batch*head, in three warpgroups: two consumer warpgroups own 64 of
-// those rows each (or, at 256, the same 64 rows and half the columns each), whose
-// tiles stay resident in shared memory, and one warp of the third (the producer)
-// streams the other side's 64-row tiles by TMA through a ring. The producer
-// warpgroup gives its registers to the consumers (setmaxnreg 24 / 240). Every
-// tensor is read by TMA through one geometry shared by both passes: boxes of 64
-// columns x 64 rows, so a 128-row tile is two boxes per 64 columns, which land
-// where one 128-row box would. Every wgmma is issued outside any branch (ptxas
-// serializes them all otherwise, note C7520). The exponent is
+// Both wgmma passes (building blocks in sm90.cuh; bf16 and fp16 at a head_dim that
+// is a multiple of 8 from 16 to 256; templates <T, Dp, kFull>: T the element type, Dp
+// the head_dim padded to 64, 128 or 256, kFull whether head_dim is Dp) run one
+// thread block per 128 rows (query rows for dQ, KV rows for dK/dV; 64 KV rows at a
+// padded width of 256) of one batch*head, in three warpgroups: two consumer
+// warpgroups own 64 of those rows each (or, in the dK/dV pass at 256, the same 64
+// rows and half the columns each), whose tiles stay resident in shared memory, and
+// one warp of the third (the producer) streams the other side's tiles by TMA
+// through a ring. The producer warpgroup gives its registers to the consumers
+// (setmaxnreg 24 / 240). Every tensor is read by TMA through one geometry the
+// wrapper gives both passes: boxes of 64 columns x 64 rows, so a 128-row tile is
+// two boxes per 64 columns, which land where one 128-row box would (the dQ pass at
+// 256 encodes K's and V's maps with boxes of 32 rows). A head_dim below Dp: TMA
+// reads the columns past it as zeros, a 64-column region wholly past it (Dp = 256,
+// head_dim <= 192) is zeroed once and never loaded, and only columns below it are
+// stored (kFull keeps the full-width stores free of the column test, which costs a
+// full-width tile 1-3%). fp16 uses the .f16 wgmma forms; swizzle, descriptors and
+// boxes are bf16's (both are 2 bytes). Every wgmma is issued outside any branch
+// (ptxas serializes them all otherwise, note C7520). The exponent is
 // 2^(S * D^-1/2 * log2(e) - lse * log2(e)) by ex2.approx. Masking is applied only
 // on the tiles that meet the diagonal when causal and on the tile holding T; TMA
 // reads rows past T as zeros, and rows past T are never stored.
 //
-// dQ pass, wgmma (`flash_bwd_dq_bf16<D>`: bf16 at head_dim 64 or 128 only):
-//  * Grid (B*H, query tiles), the heaviest query tiles first when causal (the
-//    last tile of each batch*head first), as the forward. Q and dO of the block's
-//    128 rows are loaded once; K and V tiles of 64 rows stream through a ring of
-//    four stages, with separate full / empty mbarriers for K and for V: V's slot
-//    is freed once dP is done, K's once dS K is (Q, dO and the ring: 192 KB of
-//    shared memory at D = 128). Each consumer thread keeps lse
-//    (times log2 e) and delta of its two rows in registers for the whole sweep.
-//  * S = Q K^T and dP = dO V^T are wgmma m64n64k16 with every operand K-major in
-//    shared memory; dS = P * (dP - delta) * D^-1/2 is computed in place in the
-//    accumulator layout, which is the A-register layout, and packed to bf16.
-//  * dQ += dS K is wgmma with dS from registers and K read MN-major through the
-//    transpose-B flag (the k dimension is K's rows): no transposed copy of K.
+// dQ pass, wgmma (`flash_bwd_dq_wgmma<T, Dp, kFull>`):
+//  * Grid (B*H, query tiles of 128 rows), the heaviest query tiles first when
+//    causal (the last tile of each batch*head first), as the forward. Q and dO of
+//    the block's 128 rows are loaded once; K and V tiles stream through a ring,
+//    with separate full / empty mbarriers for K and for V: V's slot is freed once
+//    dP is done, K's once dS K is. At Dp <= 128 the tiles are 64 rows and the ring
+//    four stages (Q, dO and the ring: 192 KB of shared memory at 128). Each
+//    consumer thread keeps lse (times log2 e) and delta of its two rows in
+//    registers for the whole sweep.
+//  * S = Q K^T and dP = dO V^T are wgmma m64nNk16 (N = the KV tile's rows) with
+//    every operand K-major in shared memory; dS = P * (dP - delta) * D^-1/2 is
+//    computed in place in the accumulator layout, which is the A-register layout,
+//    and packed to T.
+//  * dQ += dS K is wgmma m64nDpk16 with dS from registers and K read MN-major
+//    through the transpose-B flag (the k dimension is K's rows): no transposed
+//    copy of K.
 //  * One wgmma group per KV tile: S and dP of tile j with dS K of tile j - 1
 //    (the first group S and dP only, a last one dS K only), so each tile waits on
-//    the tensor cores once. At D = 128 a consumer thread holds S, dP (32 + 32),
+//    the tensor cores once. At Dp = 128 a consumer thread holds S, dP (32 + 32),
 //    dQ (64) and the dS fragments (16): 144 of its 240 registers.
+//  * Dp = 256: dQ of a warpgroup's 64 rows is 128 fp32 registers a thread, and Q
+//    and dO of 128 rows take 128 KB, so K and V tiles are 32 rows (S and dP are
+//    m64n32k16: 16 + 16 registers, dS 8) in a ring of three 32 KB stages (224 KB
+//    in all). Each turn computes dO's descriptors anew (an empty asm on its base):
+//    held across the sweep beside Q's, they are 64 more registers, and spill.
+//    The other candidate, the dK/dV pass's layout (64 query rows a block, each
+//    warpgroup half of dQ's columns and the whole S and dP: 5/3 of the products;
+//    a ring of two 64 KB stages), measured 1.7-1.9x slower at 2048 tokens
+//    (PERF.md, the dQ pass at 256): a K slot is freed only a turn after its S,
+//    so two stages leave the producer a turn behind. It was faster only where
+//    128-row blocks leave most SMs idle ([1, 512, 4, 256]: 16 blocks).
 //  * The two consumer warpgroups take turns issuing their groups (ping-pong, two
 //    named barriers, as the forward), so one computes dS while the other's
 //    products run: faster on an H100 than letting them issue freely, at every
@@ -71,16 +93,10 @@
 //    its tile's S: at ALBERT's shape two stages were slower than three, and
 //    three slower than four (PERF.md, the dQ pass's redesign).
 //  * Causal: the KV loop ends at the block's diagonal tiles; warpgroup 0 also runs
-//    the last KV tile, which lies wholly above its rows and masks to zero, so that
-//    both warpgroups release every ring slot.
+//    the last 64 KV rows (a tile, or two at 256), which lie wholly above its rows
+//    and mask to zero, so that both warpgroups release every ring slot.
 //
-// dK/dV pass, wgmma (`flash_bwd_dkv_wgmma<T, Dp, kFull>`: bf16 and fp16 at a head_dim
-// that is a multiple of 8 from 16 to 256; T the element type, Dp the head_dim padded
-// to 64, 128 or 256, kFull whether head_dim is Dp, all template arguments):
-//  * A head_dim below Dp as in the forward: TMA reads the columns past it as
-//    zeros, a region wholly past it (Dp = 256, head_dim <= 192) is zeroed once and
-//    never loaded, and only columns below it are stored. fp16 uses the .f16 wgmma
-//    forms; swizzle, descriptors and boxes are bf16's (both are 2 bytes).
+// dK/dV pass, wgmma (`flash_bwd_dkv_wgmma<T, Dp, kFull>`):
 //  * Grid (B*H, KV tiles of 128 rows; 64 at Dp = 256). K and V of the block stay
 //    resident; Q and dO tiles of 64 rows stream through a ring of two stages, and
 //    the producer
@@ -107,10 +123,10 @@
 // Later work (not here): the ping-pong of the two consumer warpgroups and a deeper
 // ring in the dK/dV pass, a persistent grid, TMA stores of the outputs.
 //
-// SIMT (every input a wgmma pass does not take: fp32, where tensor cores would
+// SIMT (every input the wgmma passes do not take: fp32, where tensor cores would
 // round the inputs to TF32; bf16 and fp16 at a head_dim that is not a multiple of
-// 8; and in the dQ pass every input but bf16 at 64 or 128; any head_dim up to 256,
-// as the TPU kernels take the whole head_dim as their block): plain fp32 FMAs on the CUDA cores, no TF32, the inputs
+// 8; any head_dim up to 256, as the TPU kernels take the whole head_dim as their
+// block): plain fp32 FMAs on the CUDA cores, no TF32, the inputs
 // widened to fp32 as they are staged and P and dS kept in fp32, as the TPU
 // kernels. A warp owns 4 rows (query rows in the dQ kernel, KV rows in the dK/dV
 // kernel); lane j takes column j of a 32-wide tile, and each lane accumulates
@@ -149,8 +165,8 @@ constexpr int kWarps = 4;  // warps of an fp32 block
 
 // ------------------------------------------------------------------ wgmma path
 
-constexpr int kBlockRows = 128;  // rows a dQ block owns: two consumer warpgroups of 64
-constexpr int kBoxRows = 64;     // rows of a TMA box, and of every streamed tile
+constexpr int kBlockRows = 128;  // query rows a dQ block owns: two consumer warpgroups of 64
+constexpr int kBoxRows = 64;     // rows of the wrapper's TMA boxes, and of every streamed tile but the dQ pass's at 256
 constexpr int kConsumerWarps = 8;
 constexpr int kThreads = 384;  // two consumer warpgroups and the producer's
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;  // 128 * 24 + 256 * 240 = 384 * 168
@@ -190,60 +206,83 @@ __device__ __forceinline__ void store_rows(T* base, long long row_stride, const 
     }
 }
 
-// TMA of one tile of kRows rows (a multiple of 64) from row `row0`: its first
-// `boxes` regions of 64 columns x kRows rows, one after the other, each loaded as
-// kRows/64 boxes of 64 rows (8 rows of 128 bytes are one swizzle period, so a box
-// lands where the same rows of one taller box would).
-template <int kRows>
+// TMA of one tile of kRows rows from row `row0`: its first `boxes` regions of 64
+// columns x kRows rows, one after the other, each loaded as kRows / kBox boxes of
+// kBox rows (8 rows of 128 bytes are one swizzle period, so a box lands where the
+// same rows of one taller box would).
+template <int kBox, int kRows>
 __device__ __forceinline__ void load_tile_tma(uint32_t dst, const CUtensorMap* map, uint32_t bar, int boxes, int h,
                                               int row0, int b) {
 #pragma unroll
     for (int col = 0; col < boxes; ++col) {
 #pragma unroll
-        for (int part = 0; part < kRows / kBoxRows; ++part) {
-            sm90::tma_load_4d(dst + (col * kRows + part * kBoxRows) * sm90::kSwizzleRowBytes, map, bar,
-                              col * sm90::kBoxCols, h, row0 + part * kBoxRows, b);
+        for (int part = 0; part < kRows / kBox; ++part) {
+            sm90::tma_load_4d(dst + (col * kRows + part * kBox) * sm90::kSwizzleRowBytes, map, bar,
+                              col * sm90::kBoxCols, h, row0 + part * kBox, b);
         }
     }
 }
 
-// dQ pass: shared-memory layout (byte offsets from a 1024-aligned base).
-constexpr int kDqStages = 4;  // depth of the K / V ring
-template <int D>
+// dQ pass: shared-memory layout at the padded width Dp (byte offsets from a
+// 1024-aligned base).
+template <int Dp>
 struct DqTiles {
-    static constexpr uint32_t kQBox = kBlockRows * sm90::kSwizzleRowBytes;  // 64 columns x 128 rows: 16 KB
-    static constexpr uint32_t kKvBox = kBoxRows * sm90::kSwizzleRowBytes;   // 64 columns x 64 rows: 8 KB
-    static constexpr uint32_t kQTile = kQBox * (D / sm90::kBoxCols);
-    static constexpr uint32_t kKvTile = kKvBox * (D / sm90::kBoxCols);
-    static constexpr uint32_t kQ = 0, kDo = kQTile, kK = 2 * kQTile, kV = kK + kDqStages * kKvTile;
-    static constexpr uint32_t kBarriers = kV + kDqStages * kKvTile;  // full_qdo, full_k[S], full_v[S], empty_k[S], empty_v[S]
-    static constexpr uint32_t kBytes = kBarriers + (1 + 4 * kDqStages) * 8 + sm90::kSwizzleAtomBytes;  // + alignment
+    // K and V tiles of 64 rows, or 32 at Dp = 256, where a consumer thread holds dQ of
+    // its warpgroup's 64 rows (64 x 256 fp32: 128 registers) beside S and dP of a tile;
+    // a ring of four stages, or three at 256 (3 x 32 KB beside Q and dO's 128 KB)
+    static constexpr int kKvRows = Dp > 128 ? 32 : 64;
+    static constexpr int kStages = Dp > 128 ? 3 : 4;
+    static constexpr int kBoxes = Dp / sm90::kBoxCols;  // 64-column regions of a tile
+    static constexpr uint32_t kQBox = kBlockRows * sm90::kSwizzleRowBytes;  // one region of Q or dO: 16 KB
+    static constexpr uint32_t kKvBox = kKvRows * sm90::kSwizzleRowBytes;    // one region of a K or V tile: 8 or 4 KB
+    static constexpr uint32_t kQTile = kQBox * kBoxes, kKvTile = kKvBox * kBoxes;
+    static constexpr uint32_t kQ = 0, kDo = kQTile, kK = 2 * kQTile, kV = kK + kStages * kKvTile;
+    static constexpr uint32_t kBarriers = kV + kStages * kKvTile;  // full_qdo, full_k[S], full_v[S], empty_k[S], empty_v[S]
+    static constexpr uint32_t kBytes = kBarriers + (1 + 4 * kStages) * 8 + sm90::kSwizzleAtomBytes;  // + alignment
 };
 
-template <int D>
+// T: __nv_bfloat16 or __half. Dp: head_dim padded to 64, 128 or 256; columns at or
+// past head_dim read as zeros and are never stored. kFull: head_dim == Dp, whose
+// stores need no column test.
+template <typename T, int Dp, bool kFull>
 __global__ void __launch_bounds__(kThreads, 1)
-    flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-                      const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
-                      const WgmmaParams p) {
-    using L = DqTiles<D>;
+    flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                       const WgmmaParams p) {
+    using L = DqTiles<Dp>;
+    constexpr int kKvRows = L::kKvRows, kStages = L::kStages;
     extern __shared__ unsigned char smem_raw[];
     const uint32_t base = (sm90::smem_addr(smem_raw) + sm90::kSwizzleAtomBytes - 1) & ~(sm90::kSwizzleAtomBytes - 1);
     const uint32_t full_qdo = base + L::kBarriers;
     const auto full_k = [&](int s) { return full_qdo + 8 * (1 + s); };
-    const auto full_v = [&](int s) { return full_qdo + 8 * (1 + kDqStages + s); };
-    const auto empty_k = [&](int s) { return full_qdo + 8 * (1 + 2 * kDqStages + s); };
-    const auto empty_v = [&](int s) { return full_qdo + 8 * (1 + 3 * kDqStages + s); };
+    const auto full_v = [&](int s) { return full_qdo + 8 * (1 + kStages + s); };
+    const auto empty_k = [&](int s) { return full_qdo + 8 * (1 + 2 * kStages + s); };
+    const auto empty_v = [&](int s) { return full_qdo + 8 * (1 + 3 * kStages + s); };
 
     const int bh = blockIdx.x;
     const int b = bh / p.heads, h = bh % p.heads;
     const int q_tiles = (p.seq + kBlockRows - 1) / kBlockRows;
     const int q0 = (q_tiles - 1 - static_cast<int>(blockIdx.y)) * kBlockRows;  // heaviest first
-    const int kv_end = p.causal ? min(p.seq, q0 + kBlockRows) : p.seq;   // causal: up to the diagonal
-    const int kv_tiles = (kv_end + kBoxRows - 1) / kBoxRows;
+    const int kv_end = p.causal ? min(p.seq, q0 + kBlockRows) : p.seq;        // causal: up to the diagonal
+    const int kv_tiles = (kv_end + kKvRows - 1) / kKvRows;
+    // The regions TMA loads, as the other passes: at Dp = 256 a region wholly past a
+    // head_dim of 192 or less is zeroed once here and never loaded.
+    const int boxes = !kFull && Dp > 128 ? (p.head_dim + sm90::kBoxCols - 1) / sm90::kBoxCols : L::kBoxes;
+    if (!kFull && Dp > 128 && boxes < L::kBoxes) {
+        for (int region = boxes; region < L::kBoxes; ++region) {
+            sm90::zero_shared(base + L::kQ + region * L::kQBox, L::kQBox);
+            sm90::zero_shared(base + L::kDo + region * L::kQBox, L::kQBox);
+            for (int s = 0; s < kStages; ++s) {
+                sm90::zero_shared(base + L::kK + s * L::kKvTile + region * L::kKvBox, L::kKvBox);
+                sm90::zero_shared(base + L::kV + s * L::kKvTile + region * L::kKvBox, L::kKvBox);
+            }
+        }
+        sm90::fence_proxy_async();
+    }
 
     if (threadIdx.x == 0) {
         sm90::mbar_init(full_qdo, 1);
-        for (int s = 0; s < kDqStages; ++s) {
+        for (int s = 0; s < kStages; ++s) {
             sm90::mbar_init(full_k(s), 1);
             sm90::mbar_init(full_v(s), 1);
             sm90::mbar_init(empty_k(s), kConsumerWarps);
@@ -256,20 +295,20 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (threadIdx.x >= kConsumerWarps * 32) {  // the producer warpgroup; one thread issues every load
         sm90::setmaxnreg_dec<kProducerRegs>();
         if (threadIdx.x == kConsumerWarps * 32) {
-            sm90::mbar_arrive_expect_tx(full_qdo, 2 * L::kQTile);
-            load_tile_tma<kBlockRows>(base + L::kQ, &tm_q, full_qdo, D / sm90::kBoxCols, h, q0, b);
-            load_tile_tma<kBlockRows>(base + L::kDo, &tm_do, full_qdo, D / sm90::kBoxCols, h, q0, b);
+            sm90::mbar_arrive_expect_tx(full_qdo, 2 * boxes * L::kQBox);
+            load_tile_tma<kBoxRows, kBlockRows>(base + L::kQ, &tm_q, full_qdo, boxes, h, q0, b);
+            load_tile_tma<kBoxRows, kBlockRows>(base + L::kDo, &tm_do, full_qdo, boxes, h, q0, b);
             for (int j = 0; j < kv_tiles; ++j) {
-                const int s = j % kDqStages;
-                const uint32_t parity = ((j / kDqStages) & 1) ^ 1;  // the first round passes at once
+                const int s = j % kStages;
+                const uint32_t parity = ((j / kStages) & 1) ^ 1;  // the first round passes at once
                 sm90::mbar_wait(empty_k(s), parity);
-                sm90::mbar_arrive_expect_tx(full_k(s), L::kKvTile);
-                load_tile_tma<kBoxRows>(base + L::kK + s * L::kKvTile, &tm_k, full_k(s), D / sm90::kBoxCols, h,
-                                        j * kBoxRows, b);
+                sm90::mbar_arrive_expect_tx(full_k(s), boxes * L::kKvBox);
+                load_tile_tma<kKvRows, kKvRows>(base + L::kK + s * L::kKvTile, &tm_k, full_k(s), boxes, h,
+                                                j * kKvRows, b);
                 sm90::mbar_wait(empty_v(s), parity);
-                sm90::mbar_arrive_expect_tx(full_v(s), L::kKvTile);
-                load_tile_tma<kBoxRows>(base + L::kV + s * L::kKvTile, &tm_v, full_v(s), D / sm90::kBoxCols, h,
-                                        j * kBoxRows, b);
+                sm90::mbar_arrive_expect_tx(full_v(s), boxes * L::kKvBox);
+                load_tile_tma<kKvRows, kKvRows>(base + L::kV + s * L::kKvTile, &tm_v, full_v(s), boxes, h,
+                                                j * kKvRows, b);
             }
         }
     } else {  // two consumer warpgroups, 64 query rows each
@@ -285,46 +324,54 @@ __global__ void __launch_bounds__(kThreads, 1)
         const float delta_a = row_a < p.seq ? p.delta[rows + row_a] : 0.0f;
         const float delta_b = row_b < p.seq ? p.delta[rows + row_b] : 0.0f;
 
-        float dq[D / 2];
+        float dq[Dp / 2];
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i) dq[i] = 0.0f;
-        float sc[kBoxRows / 2], dp[kBoxRows / 2];  // S = Q K^T (then dS) and dP = dO V^T of one KV tile: 64 x 64
-        uint32_t df[kBoxRows / 16][4];             // dS as the A operand of dS K, 16 keys each
+        for (int i = 0; i < Dp / 2; ++i) dq[i] = 0.0f;
+        float sc[kKvRows / 2], dp[kKvRows / 2];  // S = Q K^T (then dS) and dP = dO V^T of one KV tile: 64 x kKvRows
+        uint32_t df[kKvRows / 16][4];            // dS as the A operand of dS K, 16 keys each
 
         const uint32_t q_wg = base + L::kQ + wg * 64 * sm90::kSwizzleRowBytes;  // this warpgroup's 64 rows
         const uint32_t do_wg = base + L::kDo + wg * 64 * sm90::kSwizzleRowBytes;
-        // S and dP of KV tile j
+        // S and dP of KV tile j. The descriptors of Q and dO are loop-invariant, and the
+        // compiler holds them across the sweep; at Dp = 256 their 32 (64 registers)
+        // beside dQ's 128 spill, so dO's base passes through an empty asm at each
+        // call and its 16 are stepped from one descriptor there (by the offset / 16:
+        // the 14-bit address field cannot carry).
         const auto issue_s_dp = [&](int j) {
-            const uint32_t k_tile = base + L::kK + (j % kDqStages) * L::kKvTile;
-            const uint32_t v_tile = base + L::kV + (j % kDqStages) * L::kKvTile;
+            uint32_t do_rows = do_wg;
+            if constexpr (Dp > 128) asm volatile("" : "+r"(do_rows));
+            const uint64_t q_desc = sm90::desc_kmajor(q_wg), do_desc = sm90::desc_kmajor(do_rows);
+            const uint32_t k_tile = base + L::kK + (j % kStages) * L::kKvTile;
+            const uint32_t v_tile = base + L::kV + (j % kStages) * L::kKvTile;
 #pragma unroll
-            for (int kk = 0; kk < D / 16; ++kk) {
-                // box kk / 4, then 32 bytes (16 columns) along its swizzled 128-byte rows
+            for (int kk = 0; kk < Dp / 16; ++kk) {
+                // region kk / 4, then 32 bytes (16 columns) along its swizzled 128-byte rows
                 const uint32_t q_off = (kk / 4) * L::kQBox + (kk % 4) * 32;
                 const uint32_t kv_off = (kk / 4) * L::kKvBox + (kk % 4) * 32;
-                sm90::wgmma_ss(sc, sm90::desc_kmajor(q_wg + q_off), sm90::desc_kmajor(k_tile + kv_off), kk > 0);
+                sm90::wgmma_ss<T>(sc, q_desc + (q_off >> 4), sm90::desc_kmajor(k_tile + kv_off), kk > 0);
             }
 #pragma unroll
-            for (int kk = 0; kk < D / 16; ++kk) {
+            for (int kk = 0; kk < Dp / 16; ++kk) {
                 const uint32_t q_off = (kk / 4) * L::kQBox + (kk % 4) * 32;
                 const uint32_t kv_off = (kk / 4) * L::kKvBox + (kk % 4) * 32;
-                sm90::wgmma_ss(dp, sm90::desc_kmajor(do_wg + q_off), sm90::desc_kmajor(v_tile + kv_off), kk > 0);
+                sm90::wgmma_ss<T>(dp, do_desc + (q_off >> 4), sm90::desc_kmajor(v_tile + kv_off), kk > 0);
             }
         };
         // dQ += dS K of KV tile j, dS from df
         const auto issue_dq = [&](int j) {
-            const uint32_t k_tile = base + L::kK + (j % kDqStages) * L::kKvTile;
+            const uint32_t k_tile = base + L::kK + (j % kStages) * L::kKvTile;
 #pragma unroll
-            for (int kc = 0; kc < kBoxRows / 16; ++kc) {  // 16 keys per k-step: 2048 bytes down K's boxes
-                sm90::wgmma_rs_tb(dq, df[kc], sm90::desc_mnmajor(k_tile + kc * 16 * sm90::kSwizzleRowBytes, L::kKvBox), 1);
+            for (int kc = 0; kc < kKvRows / 16; ++kc) {  // 16 keys per k-step: 2048 bytes down K's regions
+                sm90::wgmma_rs_tb<T>(dq, df[kc], sm90::desc_mnmajor(k_tile + kc * 16 * sm90::kSwizzleRowBytes, L::kKvBox),
+                                     1);
             }
         };
         // dS of tile j in place of its scores (column c of the tile is key kv0 + c), packed into df
         const auto make_ds = [&](int j) {
-            const int kv0 = j * kBoxRows;
-            const bool edge = kv0 + kBoxRows > p.seq || (p.causal && kv0 + kBoxRows - 1 > q0 + wg * 64);
+            const int kv0 = j * kKvRows;
+            const bool edge = kv0 + kKvRows > p.seq || (p.causal && kv0 + kKvRows - 1 > q0 + wg * 64);
 #pragma unroll
-            for (int e = 0; e < kBoxRows / 2; ++e) {
+            for (int e = 0; e < kKvRows / 2; ++e) {
                 const bool hi = e & 2;  // row_b's entries
                 float prob = sm90::exp2_approx(fmaf(sc[e], scale2, -(hi ? lse_b : lse_a)));
                 if (edge) {
@@ -334,9 +381,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                 sc[e] = prob * (dp[e] - (hi ? delta_b : delta_a)) * p.scale;
             }
 #pragma unroll
-            for (int kc = 0; kc < kBoxRows / 16; ++kc) {
+            for (int kc = 0; kc < kKvRows / 16; ++kc) {
 #pragma unroll
-                for (int r = 0; r < 4; ++r) df[kc][r] = sm90::pack2<__nv_bfloat16>(sc[8 * kc + 2 * r], sc[8 * kc + 2 * r + 1]);
+                for (int r = 0; r < 4; ++r) df[kc][r] = sm90::pack2<T>(sc[8 * kc + 2 * r], sc[8 * kc + 2 * r + 1]);
             }
         };
         // Turn j issues S and dP of tile j and dS K of tile j - 1 as one wgmma group
@@ -370,9 +417,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (lane == 0) sm90::mbar_arrive(empty_v(0));  // this warp is done with V of tile 0
         make_ds(0);
         for (int j = 1; j < kv_tiles; ++j) {
-            const int s = j % kDqStages;
-            sm90::mbar_wait(full_k(s), (j / kDqStages) & 1);
-            sm90::mbar_wait(full_v(s), (j / kDqStages) & 1);
+            const int s = j % kStages;
+            sm90::mbar_wait(full_k(s), (j / kStages) & 1);
+            sm90::mbar_wait(full_v(s), (j / kStages) & 1);
             take_turn();
             issue_s_dp(j);
             issue_dq(j - 1);
@@ -381,7 +428,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             finish_turn();
             if (lane == 0) {  // this warp is done with V of tile j and K of tile j - 1
                 sm90::mbar_arrive(empty_v(s));
-                sm90::mbar_arrive(empty_k((j - 1) % kDqStages));
+                sm90::mbar_arrive(empty_k((j - 1) % kStages));
             }
             make_ds(j);
         }
@@ -390,8 +437,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         sm90::wgmma_commit();
         if (wg == 0) pass_turn();  // warpgroup 1's last turn has no taker
         finish_turn();
-        store_rows<false, __nv_bfloat16, D>(static_cast<__nv_bfloat16*>(p.out0) + b * p.o_sb + h * p.o_sh, p.o_st, dq,
-                                            row_a, p.seq, t, 0, D);
+        store_rows<!kFull, T, Dp>(static_cast<T*>(p.out0) + b * p.o_sb + h * p.o_sh, p.o_st, dq, row_a, p.seq, t, 0,
+                                  p.head_dim);
     }
 }
 
@@ -476,8 +523,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (lane < 32) {
             if (lane == 0) {
                 sm90::mbar_arrive_expect_tx(full_kv, 2 * boxes * L::kKvBox);
-                load_tile_tma<L::kKvRows>(base + L::kK, &tm_k, full_kv, boxes, h, kv0, b);
-                load_tile_tma<L::kKvRows>(base + L::kV, &tm_v, full_kv, boxes, h, kv0, b);
+                load_tile_tma<kBoxRows, L::kKvRows>(base + L::kK, &tm_k, full_kv, boxes, h, kv0, b);
+                load_tile_tma<kBoxRows, L::kKvRows>(base + L::kV, &tm_v, full_kv, boxes, h, kv0, b);
             }
             const float* lse = p.lse + static_cast<long long>(bh) * p.seq;
             const float* delta = p.delta + static_cast<long long>(bh) * p.seq;
@@ -493,8 +540,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                 }
                 if (lane == 0) {
                     sm90::mbar_arrive_expect_tx(full(s), 2 * boxes * L::kQBox);
-                    load_tile_tma<kBoxRows>(base + L::kQ + s * L::kQTile, &tm_q, full(s), boxes, h, q0, b);
-                    load_tile_tma<kBoxRows>(base + L::kDo + s * L::kQTile, &tm_do, full(s), boxes, h, q0, b);
+                    load_tile_tma<kBoxRows, kBoxRows>(base + L::kQ + s * L::kQTile, &tm_q, full(s), boxes, h, q0, b);
+                    load_tile_tma<kBoxRows, kBoxRows>(base + L::kDo + s * L::kQTile, &tm_do, full(s), boxes, h, q0, b);
                 } else {
                     sm90::mbar_arrive(full(s));
                 }
@@ -832,33 +879,57 @@ int launch_wgmma(Kernel kernel, size_t smem, int rows, const CUtensorMap (&maps)
     return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int Dp>
-int launch_dkv(const CUtensorMap (&maps)[4], const WgmmaParams& p, int batch, cudaStream_t stream) {
-    constexpr size_t smem = DkvTiles<Dp>::kBytes;
-    constexpr int rows = DkvTiles<Dp>::kKvRows;
-    if (p.head_dim == Dp) return launch_wgmma(flash_bwd_dkv_wgmma<T, Dp, true>, smem, rows, maps, p, batch, stream);
-    return launch_wgmma(flash_bwd_dkv_wgmma<T, Dp, false>, smem, rows, maps, p, batch, stream);
+// A wgmma pass (kDq: the dQ pass, else the dK/dV pass) at the padded width Dp:
+// full width or not, with its tiles' shared memory and its block's rows.
+template <bool kDq, typename T, int Dp>
+int launch_pass(const CUtensorMap (&maps)[4], const WgmmaParams& p, int batch, cudaStream_t stream) {
+    constexpr size_t smem = kDq ? DqTiles<Dp>::kBytes : DkvTiles<Dp>::kBytes;
+    constexpr int rows = kDq ? kBlockRows : DkvTiles<Dp>::kKvRows;
+    const auto full = kDq ? flash_bwd_dq_wgmma<T, Dp, true> : flash_bwd_dkv_wgmma<T, Dp, true>;
+    const auto narrower = kDq ? flash_bwd_dq_wgmma<T, Dp, false> : flash_bwd_dkv_wgmma<T, Dp, false>;
+    return launch_wgmma(p.head_dim == Dp ? full : narrower, smem, rows, maps, p, batch, stream);
 }
 
-template <typename T>
-int dispatch_dkv_width(const CUtensorMap (&maps)[4], const WgmmaParams& p, int batch, cudaStream_t stream) {
-    if (p.head_dim <= 64) return launch_dkv<T, 64>(maps, p, batch, stream);
-    if (p.head_dim <= 128) return launch_dkv<T, 128>(maps, p, batch, stream);
-    return launch_dkv<T, 256>(maps, p, batch, stream);
+template <bool kDq, typename T>
+int dispatch_width(const CUtensorMap (&maps)[4], const WgmmaParams& p, int batch, cudaStream_t stream) {
+    if (p.head_dim <= 64) return launch_pass<kDq, T, 64>(maps, p, batch, stream);
+    if (p.head_dim <= 128) return launch_pass<kDq, T, 128>(maps, p, batch, stream);
+    return launch_pass<kDq, T, 256>(maps, p, batch, stream);
 }
 
-// The tensor maps of q, k, v, dout from their geometries (boxes of 64 x 64).
-int encode_maps(CUtensorMap (&maps)[4], const void* q, const void* k, const void* v, const void* dout,
-                const long long* q_geometry, const long long* k_geometry, const long long* v_geometry,
-                const long long* d_geometry, int head_dim, int dtype) {
-    const void* bases[4] = {q, k, v, dout};
-    const long long* geometries[4] = {q_geometry, k_geometry, v_geometry, d_geometry};
+// The tensor maps of q, k, v, dout from the wrapper's geometries (boxes of 64 x 64),
+// with boxes of `kv_rows` rows for k and v.
+int encode_maps(CUtensorMap (&maps)[4], const void* const (&bases)[4], const long long* const (&geometries)[4],
+                int head_dim, int dtype, int kv_rows) {
     for (int i = 0; i < 4; ++i) {
-        const int err = sm90::encode_tma_map(&maps[i], bases[i], *reinterpret_cast<const sm90::TmaGeometry*>(geometries[i]),
-                                             kBoxRows, head_dim, tma_type(dtype));
+        sm90::TmaGeometry geometry = *reinterpret_cast<const sm90::TmaGeometry*>(geometries[i]);
+        if (geometry.box[2] != kBoxRows) return static_cast<int>(cudaErrorInvalidValue);
+        const int rows = i == 1 || i == 2 ? kv_rows : kBoxRows;
+        geometry.box[2] = rows;
+        const int err = sm90::encode_tma_map(&maps[i], bases[i], geometry, rows, head_dim, tma_type(dtype));
         if (err != 0) return err;
     }
     return 0;
+}
+
+// Both wgmma passes' C entries: bf16 or fp16 at a head_dim that is a multiple of 8
+// from 16 to 256.
+template <bool kDq>
+int launch_wgmma_pass(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                      const float* delta, void* out0, void* out1, int dtype, int batch, int seq, int heads,
+                      int head_dim, const long long* q_geometry, const long long* k_geometry,
+                      const long long* v_geometry, const long long* d_geometry, long long o_sb, long long o_st,
+                      long long o_sh, int causal, float scale, cudaStream_t stream) {
+    if (batch <= 0 || seq <= 0 || heads <= 0) return 0;
+    if (!wgmma_takes(dtype, head_dim)) return static_cast<int>(cudaErrorInvalidValue);
+    CUtensorMap maps[4];
+    const int kv_rows = kDq && head_dim > 128 ? DqTiles<256>::kKvRows : kBoxRows;
+    const int err = encode_maps(maps, {q, k, v, dout}, {q_geometry, k_geometry, v_geometry, d_geometry}, head_dim,
+                                dtype, kv_rows);
+    if (err != 0) return err;
+    const WgmmaParams p{lse, delta, out0, out1, seq, heads, head_dim, o_sb, o_st, o_sh, scale, causal};
+    if (dtype == kSimtF16) return dispatch_width<kDq, __half>(maps, p, batch, stream);
+    return dispatch_width<kDq, __nv_bfloat16>(maps, p, batch, stream);
 }
 
 Params make_params(const void* q, const void* k, const void* v, const void* dout, const float* lse,
@@ -907,11 +978,11 @@ extern "C" int hm_flash_backward_dkv_simt(const void* q, const void* k, const vo
     return launch_simt<false>(p, dtype, stream);
 }
 
-// q, k, v, dout: [B, T, H, D] of one element type `dtype` (SimtDtype), each described
-// by its TMA geometry (sm90::TmaGeometry, boxes of 64 columns x 64 rows; one set
-// serves both passes); lse, delta: [B, H, T] fp32 contiguous -> dq [B, T, H, D] of
-// that type (strides o_*, in elements). The dQ pass takes bf16 at head_dim 64 or
-// 128 only.
+// q, k, v, dout: [B, T, H, D] of one element type `dtype` (SimtDtype: bf16 or fp16, at
+// a head_dim that is a multiple of 8 from 16 to 256), each described by its TMA
+// geometry (sm90::TmaGeometry, boxes of 64 columns x 64 rows; one set serves both
+// passes); lse, delta: [B, H, T] fp32 contiguous -> dq [B, T, H, D] of that type
+// (strides o_*, in elements).
 extern "C" int hm_flash_backward_dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
                                           const float* lse, const float* delta, void* dq, int dtype,
                                           int batch, int seq, int heads, int head_dim,
@@ -919,18 +990,12 @@ extern "C" int hm_flash_backward_dq_wgmma(const void* q, const void* k, const vo
                                           const long long* v_geometry, const long long* d_geometry,
                                           long long o_sb, long long o_st, long long o_sh,
                                           int causal, float scale, cudaStream_t stream) {
-    if (batch <= 0 || seq <= 0 || heads <= 0) return 0;
-    if (dtype != kSimtBf16 || (head_dim != 64 && head_dim != 128)) return static_cast<int>(cudaErrorInvalidValue);
-    CUtensorMap maps[4];
-    const int err = encode_maps(maps, q, k, v, dout, q_geometry, k_geometry, v_geometry, d_geometry, head_dim, dtype);
-    if (err != 0) return err;
-    const WgmmaParams p{lse, delta, dq, nullptr, seq, heads, head_dim, o_sb, o_st, o_sh, scale, causal};
-    if (head_dim == 64) return launch_wgmma(flash_bwd_dq_bf16<64>, DqTiles<64>::kBytes, kBlockRows, maps, p, batch, stream);
-    return launch_wgmma(flash_bwd_dq_bf16<128>, DqTiles<128>::kBytes, kBlockRows, maps, p, batch, stream);
+    return launch_wgmma_pass<true>(q, k, v, dout, lse, delta, dq, nullptr, dtype, batch, seq, heads, head_dim,
+                                   q_geometry, k_geometry, v_geometry, d_geometry, o_sb, o_st, o_sh, causal, scale,
+                                   stream);
 }
 
-// As above -> dk, dv [B, T, H, D] of that type, sharing one layout (o_*): bf16 or
-// fp16 at a head_dim that is a multiple of 8 from 16 to 256.
+// As above -> dk, dv [B, T, H, D] of that type, sharing one layout (o_*).
 extern "C" int hm_flash_backward_dkv_wgmma(const void* q, const void* k, const void* v, const void* dout,
                                            const float* lse, const float* delta, void* dk, void* dv, int dtype,
                                            int batch, int seq, int heads, int head_dim,
@@ -938,12 +1003,7 @@ extern "C" int hm_flash_backward_dkv_wgmma(const void* q, const void* k, const v
                                            const long long* v_geometry, const long long* d_geometry,
                                            long long o_sb, long long o_st, long long o_sh,
                                            int causal, float scale, cudaStream_t stream) {
-    if (batch <= 0 || seq <= 0 || heads <= 0) return 0;
-    if (!wgmma_takes(dtype, head_dim)) return static_cast<int>(cudaErrorInvalidValue);
-    CUtensorMap maps[4];
-    const int err = encode_maps(maps, q, k, v, dout, q_geometry, k_geometry, v_geometry, d_geometry, head_dim, dtype);
-    if (err != 0) return err;
-    const WgmmaParams p{lse, delta, dk, dv, seq, heads, head_dim, o_sb, o_st, o_sh, scale, causal};
-    if (dtype == kSimtF16) return dispatch_dkv_width<__half>(maps, p, batch, stream);
-    return dispatch_dkv_width<__nv_bfloat16>(maps, p, batch, stream);
+    return launch_wgmma_pass<false>(q, k, v, dout, lse, delta, dk, dv, dtype, batch, seq, heads, head_dim,
+                                    q_geometry, k_geometry, v_geometry, d_geometry, o_sb, o_st, o_sh, causal, scale,
+                                    stream);
 }

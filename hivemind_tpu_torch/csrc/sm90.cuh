@@ -9,7 +9,7 @@
 //    MN-major;
 //  * wgmma.mma_async m64nNk16, bf16 or fp16 in (the element type is a template
 //    argument), fp32 accumulate: A and B from shared memory (SS, both K-major,
-//    N in {64, 128}), or A from registers and B MN-major (RS with the
+//    N in {32, 64, 128}), or A from registers and B MN-major (RS with the
 //    transpose-B immediate, N in {64, 128, 256}); fence / commit / wait;
 //  * setmaxnreg, to move registers from the producer warpgroup to the consumers.
 //
@@ -231,6 +231,7 @@ __device__ __forceinline__ void fence_regs(uint32_t (&regs)[N][4]) {
 // bf16 by default) and overloaded on N through the accumulator's length N / 2.
 
 // The accumulator operands of m64nN: "{%0, ..., %(N/2 - 1)}" and their "+f" bindings.
+#define HM_ACC16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define HM_ACC32 \
     "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
     "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
@@ -253,6 +254,9 @@ __device__ __forceinline__ void fence_regs(uint32_t (&regs)[N][4]) {
     "+f"(d[o + 8]), "+f"(d[o + 9]), "+f"(d[o + 10]), "+f"(d[o + 11]), "+f"(d[o + 12]), "+f"(d[o + 13]), "+f"(d[o + 14]), "+f"(d[o + 15]), \
     "+f"(d[o + 16]), "+f"(d[o + 17]), "+f"(d[o + 18]), "+f"(d[o + 19]), "+f"(d[o + 20]), "+f"(d[o + 21]), "+f"(d[o + 22]), "+f"(d[o + 23]), \
     "+f"(d[o + 24]), "+f"(d[o + 25]), "+f"(d[o + 26]), "+f"(d[o + 27]), "+f"(d[o + 28]), "+f"(d[o + 29]), "+f"(d[o + 30]), "+f"(d[o + 31])
+#define HM_OUT16(d) \
+    "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+    "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
 #define HM_OUT32(d) HM_OUT32_AT(d, 0)
 #define HM_OUT64(d) HM_OUT32_AT(d, 0), HM_OUT32_AT(d, 32)
 #define HM_OUT128(d) HM_OUT32_AT(d, 0), HM_OUT32_AT(d, 32), HM_OUT32_AT(d, 64), HM_OUT32_AT(d, 96)
@@ -275,6 +279,15 @@ __device__ __forceinline__ void fence_regs(uint32_t (&regs)[N][4]) {
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d))
 
 // d (+)= A[64 x 16] * B[16 x N], A and B K-major in shared memory (scale_d = 0: d = A*B).
+template <typename T = __nv_bfloat16>
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+    if constexpr (kIsHalf<T>) {
+        HM_WGMMA_SS("m64n32k16", "f16", HM_ACC16, HM_OUT16(d), "%16", "%17", "%18");
+    } else {
+        HM_WGMMA_SS("m64n32k16", "bf16", HM_ACC16, HM_OUT16(d), "%16", "%17", "%18");
+    }
+}
+
 template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int scale_d) {
     if constexpr (kIsHalf<T>) {

@@ -17,12 +17,11 @@ a kernel or raises. Each kernel wrapper counts its launches in ``.launches``
 
 Each pass (the forward, the dQ pass, the dK/dV pass) has two designs, chosen per
 pass by :func:`flash_route`: ``"wgmma"`` (tensor cores fed by TMA) and ``"simt"``
-(fp32 FMAs on the CUDA cores). The forward and the dK/dV pass run wgmma for bf16
-and fp16 at a head_dim that is a multiple of 8 from 16 to 256; the dQ pass for
-bf16 at head_dim 64 or 128. SIMT takes the rest: fp32 (tensor cores would round
-its inputs to TF32), a 16-bit head_dim that is not a multiple of 8, and the dQ
-pass outside bf16 64/128; any head_dim up to 256, as the TPU kernels take any
-head_dim as their block. A CUDA input launches its pass's route or raises: no
+(fp32 FMAs on the CUDA cores). Every pass runs wgmma for bf16 and fp16 at a
+head_dim that is a multiple of 8 from 16 to 256. SIMT takes the rest: fp32 (tensor
+cores would round its inputs to TF32) and a 16-bit head_dim that is not a multiple
+of 8 (TMA needs 16-byte strides); any head_dim up to 256, as the TPU kernels take
+any head_dim as their block. A CUDA input launches its pass's route or raises: no
 route falls back to another. :func:`flash_refusal` names the few inputs no design
 takes. A view a kernel cannot read through its strides is copied first
 (:func:`_kernel_layout`).
@@ -45,10 +44,9 @@ from hivemind_tpu_torch.ops import _build
 from hivemind_tpu_torch.parallel.ring_attention import plain_attention
 
 PASSES = ("forward", "dq", "dkv")
-WGMMA_DTYPES = (torch.bfloat16, torch.float16)  # the forward's and the dK/dV pass's
+WGMMA_DTYPES = (torch.bfloat16, torch.float16)
 WGMMA_WIDTHS = (64, 128, 256)  # the padded head dims the wgmma kernels are built for
 WGMMA_MIN_HEAD_DIM = 16
-DQ_WGMMA_HEAD_DIMS = (64, 128)  # the dQ pass's wgmma kernel: bf16 at these only
 SIMT_MAX_HEAD_DIM = 256  # the SIMT kernels take head_dim 1 to 256
 SIMT_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}  # every C entry point's dtype codes
 SIMT_ROWS = 16  # rows a SIMT block owns
@@ -79,8 +77,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cau
 # ------------------------------------------------------------------ TMA geometry
 
 TMA_BOX_COLS = 64  # 16-bit columns per TMA box: one 128-byte swizzled row
-FORWARD_TILE_ROWS = 128  # the forward's query tile (and its KV tiles below a padded width of 256)
-BACKWARD_BOX_ROWS = 64  # both backward passes: a box is a streamed tile, or part of a resident one
+FORWARD_TILE_ROWS = 128  # query rows a forward or dQ block owns (and the forward's KV tiles below a padded width of 256)
+# rows of the boxes of the views both backward passes are handed (from which the dQ pass at
+# a padded width of 256 encodes K's and V's maps with boxes of 32 rows)
+BACKWARD_BOX_ROWS = 64
 _TMA_MAX_STRIDE = 2**40  # cuTensorMapEncodeTiled's bound on a byte stride
 
 
@@ -166,21 +166,18 @@ def _library() -> ctypes.CDLL:
 
 def flash_route(q: torch.Tensor, which: str = "forward") -> str:
     """Which design runs the pass ``which`` ("forward", "dq" or "dkv") on ``q`` (and
-    the tensors of its shape and dtype): ``"wgmma"`` for bf16 and fp16 at a head_dim
-    that is a multiple of 8 (TMA's 16-byte strides) from 16 to 256 in the forward
-    and the dK/dV pass, and for bf16 at head_dim 64 or 128 in the dQ pass;
-    ``"simt"`` otherwise."""
+    the tensors of its shape and dtype), the same for every pass: ``"wgmma"`` for
+    bf16 and fp16 at a head_dim that is a multiple of 8 (TMA's 16-byte strides) from
+    16 to 256; ``"simt"`` otherwise."""
     if which not in PASSES:
         raise ValueError(f"flash_route answers for {PASSES}, got {which!r}")
     head_dim = q.shape[-1]
-    if which == "dq":
-        return "wgmma" if q.dtype == torch.bfloat16 and head_dim in DQ_WGMMA_HEAD_DIMS else "simt"
     takes = q.dtype in WGMMA_DTYPES and head_dim % 8 == 0 and WGMMA_MIN_HEAD_DIM <= head_dim <= WGMMA_WIDTHS[-1]
     return "wgmma" if takes else "simt"
 
 
 def flash_routes(q: torch.Tensor) -> str:
-    """Each pass's route, as the labels print it: ``forward=wgmma dq=simt dkv=wgmma``."""
+    """Each pass's route, as the labels print it: ``forward=wgmma dq=wgmma dkv=wgmma``."""
     return " ".join(f"{which}={flash_route(q, which)}" for which in PASSES)
 
 
@@ -428,19 +425,16 @@ flash_attention_backward_dkv.launches = 0
 def flash_attention_backward(q, k, v, out, lse, dout, causal: bool = False) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` from the forward's ``(out, lse)`` and the cotangent ``dout``
     (cast to q's dtype first, as the JAX package's ``_flash_bwd``): the dQ kernel,
-    then the dK/dV kernel, each on its own route; ``δ`` and, when a pass runs
-    wgmma, the TMA views it reads are computed here, once, and handed to the
-    passes that read them."""
+    then the dK/dV kernel, on one route; ``δ`` and, when they run wgmma, the TMA
+    views both passes read are computed here, once, and handed to both."""
     dout = dout.to(q.dtype)
     if _on_cpu(q, k, v, out, lse, dout):
         return flash_attention_backward_plain(q, k, v, out, lse, dout, causal)
     q, k, v, dout = (_kernel_layout(t) for t in (q, k, v, dout))
     delta = _delta(out, dout)
-    routes = {which: flash_route(q, which) for which in ("dq", "dkv")}
-    geometries = backward_geometries(q, k, v, dout) if "wgmma" in routes.values() else None
-    views = {which: geometries if route == "wgmma" else None for which, route in routes.items()}
-    dq = flash_attention_backward_dq(q, k, v, dout, lse, delta, causal, views["dq"])
-    return (dq, *flash_attention_backward_dkv(q, k, v, dout, lse, delta, causal, views["dkv"]))
+    geometries = backward_geometries(q, k, v, dout) if flash_route(q, "dq") == "wgmma" else None
+    dq = flash_attention_backward_dq(q, k, v, dout, lse, delta, causal, geometries)
+    return (dq, *flash_attention_backward_dkv(q, k, v, dout, lse, delta, causal, geometries))
 
 
 class FlashAttentionFunction(torch.autograd.Function):

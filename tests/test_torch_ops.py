@@ -133,7 +133,7 @@ def test_flash_plain_matches_jax_kernel_in_fp16(causal, head_dim):
     np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("head_dim", [80, 128])
+@pytest.mark.parametrize("head_dim", [32, 80, 128, 256])
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_backward_plain_matches_jax_backward_kernels_in_fp16(causal, head_dim):
     """The plain backward against the JAX package's two passes in interpret mode on
@@ -208,33 +208,34 @@ W, S = "wgmma", "simt"
 @pytest.mark.parametrize(
     "make,routes,copy,refusal",
     [
-        (lambda: _meta((2, 64, 4, 16)), (W, S, W), False, None),
-        (lambda: _meta((2, 64, 4, 32)), (W, S, W), False, None),
+        (lambda: _meta((2, 64, 4, 16)), (W, W, W), False, None),
+        (lambda: _meta((2, 64, 4, 32)), (W, W, W), False, None),
         (lambda: _meta((2, 64, 4, 64)), (W, W, W), False, None),
-        (lambda: _meta((2, 64, 4, 80)), (W, S, W), False, None),
-        (lambda: _meta((2, 64, 4, 96)), (W, S, W), False, None),
+        (lambda: _meta((2, 64, 4, 80)), (W, W, W), False, None),
+        (lambda: _meta((2, 64, 4, 96)), (W, W, W), False, None),
         (lambda: _meta((2, 64, 4, 128)), (W, W, W), False, None),
-        (lambda: _meta((2, 64, 4, 256)), (W, S, W), False, None),
+        (lambda: _meta((2, 64, 4, 256)), (W, W, W), False, None),
         (lambda: _meta((2, 64, 4, 64), torch.float32), (S, S, S), False, None),
-        (lambda: _meta((2, 64, 4, 64), torch.float16), (W, S, W), False, None),
+        (lambda: _meta((2, 64, 4, 64), torch.float16), (W, W, W), False, None),
         (lambda: _meta((4096, 8, 16, 64)), (W, W, W), False, None),  # B·H = 65536
-        (lambda: _meta((4096, 8, 16, 32), torch.float16), (W, S, W), False, None),  # B·H = 65536
+        (lambda: _meta((4096, 8, 16, 32), torch.float16), (W, W, W), False, None),  # B·H = 65536
         (lambda: _misaligned_view((2, 64, 4, 64)), (W, W, W), True, None),  # TMA needs a copy
-        (lambda: _misaligned_view((2, 64, 4, 32)), (W, S, W), True, None),  # so does d32 now
+        (lambda: _misaligned_view((2, 64, 4, 32)), (W, W, W), True, None),  # so does d32
         (lambda: _meta((2, 4, 64, 64)).transpose(1, 2), (W, W, W), False, None),  # a strided view TMA takes
         (lambda: _meta((2, 64, 64, 4)).transpose(2, 3), (W, W, W), True, None),  # head dim not contiguous
         (lambda: _meta((2, 64, 4, 64), torch.float64), (S, S, S), False, (TypeError, "bfloat16, float16 or float32")),
         (lambda: _meta((2, 64, 4, 512)), (S, S, S), False, (ValueError, "head_dim")),
-        (lambda: _meta((1, 16 * 65535 + 1, 1, 32)), (W, S, W), False, (ValueError, "grid")),  # the dQ pass's rows
+        (lambda: _meta((1, 16 * 65535 + 1, 1, 20)), (S, S, S), False, (ValueError, "grid")),  # SIMT's 16 rows
         (lambda: _meta((1, 128 * 65535 + 1, 1, 64)), (W, W, W), False, (ValueError, "grid")),
-        (lambda: _meta((2, 64, 4, 128), torch.float16), (W, S, W), False, None),
+        (lambda: _meta((2, 64, 4, 128), torch.float16), (W, W, W), False, None),
         (lambda: _meta((2, 64, 4, 20)), (S, S, S), False, None),  # 40-byte rows: not TMA's 16-byte strides
         (lambda: _meta((2, 64, 4, 128), torch.float32), (S, S, S), False, None),  # tensor cores would round to TF32
         (lambda: _misaligned_view((2, 64, 4, 20)), (S, S, S), False, None),  # SIMT reads it through its strides
+        (lambda: _meta((1, 128 * 65535 + 1, 1, 32)), (W, W, W), False, (ValueError, "grid")),  # the dQ pass's 128
     ],
     ids=["d16", "d32", "d64", "d80", "d96", "d128", "d256", "fp32", "fp16", "bh65536", "bh65536_fp16",
          "misaligned", "misaligned_d32", "strided", "d_strided", "fp64", "d512", "simt_rows", "wgmma_rows",
-         "fp16_d128", "d20", "fp32_d128", "misaligned_d20"],
+         "fp16_d128", "d20", "fp32_d128", "misaligned_d20", "dq_rows"],
 )
 def test_flash_refusal_predicts_what_the_kernel_takes(make, routes, copy, refusal):
     """The wrappers' predicates, on meta tensors: which design runs each pass of an
@@ -270,14 +271,17 @@ def test_wgmma_widths_and_tiles(head_dim, padded, box_rows, dkv_rows):
 
 def test_flash_routes_name_each_pass_and_the_grid_takes_the_finest_rows():
     """The labels' route string, and the grid check against each pass's block rows: at
-    bf16 head_dim 256 the dK/dV pass's 64-row blocks bound T before the forward's 128,
-    and the SIMT dQ pass's 16 before both."""
-    assert flash_routes(_meta((1, 64, 2, 256))) == "forward=wgmma dq=simt dkv=wgmma"
+    bf16 head_dim 256 the dK/dV pass's 64-row blocks bound T before the forward's and
+    the dQ pass's 128; at head_dim 20 the SIMT passes' 16 do."""
+    assert flash_routes(_meta((1, 64, 2, 256))) == "forward=wgmma dq=wgmma dkv=wgmma"
     assert flash_routes(_meta((1, 64, 2, 20), torch.float16)) == "forward=simt dq=simt dkv=simt"
-    assert flash_refusal(_meta((1, 16 * 65535, 1, 256))) is None
-    error, message = flash_refusal(_meta((1, 16 * 65535 + 1, 1, 256)))
-    assert error is ValueError and f"T <= {16 * 65535}" in message
+    assert flash_refusal(_meta((1, 64 * 65535, 1, 256))) is None
+    error, message = flash_refusal(_meta((1, 64 * 65535 + 1, 1, 256)))
+    assert error is ValueError and f"T <= {64 * 65535}" in message
     assert flash_refusal(_meta((1, 128 * 65535, 1, 128))) is None  # bf16 128: every pass 128 rows a block
+    assert flash_refusal(_meta((1, 16 * 65535, 1, 20))) is None
+    error, message = flash_refusal(_meta((1, 16 * 65535 + 1, 1, 20)))
+    assert error is ValueError and f"T <= {16 * 65535}" in message
 
 
 def test_flash_wrapper_refuses_what_it_cannot_take():
@@ -343,29 +347,32 @@ def test_tma_geometry_refuses_views_tma_cannot_take(make, match):
         tma_geometry(make(), FORWARD_TILE_ROWS)
 
 
-def _backward_inputs(batch, seq, heads, dim, fused):
-    """q, k, v, dout as bf16 meta tensors: four of one shape, or four views of one
-    fused [B, T, 4, H, D] tensor (T stride 4·H·D)."""
+def _backward_inputs(batch, seq, heads, dim, fused, dtype=torch.bfloat16):
+    """q, k, v, dout as meta tensors: four of one shape, or four views of one fused
+    [B, T, 4, H, D] tensor (T stride 4·H·D)."""
     if fused:
-        return torch.empty(batch, seq, 4, heads, dim, dtype=torch.bfloat16, device="meta").unbind(2)
-    return [torch.empty(batch, seq, heads, dim, dtype=torch.bfloat16, device="meta") for _ in range(4)]
+        return torch.empty(batch, seq, 4, heads, dim, dtype=dtype, device="meta").unbind(2)
+    return [torch.empty(batch, seq, heads, dim, dtype=dtype, device="meta") for _ in range(4)]
 
 
-# [B, T, H, D] and fused or not -> the dims (D, H, T, B) and byte strides of (H, T, B) of
-# all four views, worked out by hand; every box is 64 columns x 64 rows
-@pytest.mark.parametrize("shape, fused, dims, strides", [
-    ((32, 512, 12, 64), False, (64, 12, 512, 32), (128, 1536, 786432)),  # ALBERT's
-    ((2, 1000, 16, 64), True, (64, 16, 1000, 2), (128, 4 * 16 * 128, 1000 * 4 * 16 * 128)),  # ragged T
-    ((1, 2000, 32, 128), False, (128, 32, 2000, 1), (256, 8192, 2000 * 8192)),  # ragged T, D = 128
-    ((1, 256, 32, 128), True, (128, 32, 256, 1), (256, 4 * 32 * 256, 256 * 4 * 32 * 256)),  # the expert's, fused
-    ((1, 512, 8, 96), False, (96, 8, 512, 1), (192, 1536, 786432)),  # mixed: dQ on SIMT, dK/dV on wgmma
-], ids=["albert", "fused_ragged_d64", "ragged_d128", "fused_d128", "mixed_d96"])
-def test_backward_hands_both_passes_one_geometry_per_tensor(monkeypatch, shape, fused, dims, strides):
+# [B, T, H, D], fused or not, and dtype -> the dims (D, H, T, B) and byte strides of (H, T,
+# B) of all four views, worked out by hand (2 bytes an element); every box is 64 columns x
+# 64 rows
+@pytest.mark.parametrize("shape, fused, dtype, dims, strides", [
+    ((32, 512, 12, 64), False, torch.bfloat16, (64, 12, 512, 32), (128, 1536, 786432)),  # ALBERT's
+    ((2, 1000, 16, 64), True, torch.bfloat16, (64, 16, 1000, 2), (128, 4 * 16 * 128, 1000 * 4 * 16 * 128)),  # ragged T
+    ((1, 2000, 32, 128), False, torch.bfloat16, (128, 32, 2000, 1), (256, 8192, 2000 * 8192)),  # ragged T, D = 128
+    ((1, 256, 32, 128), True, torch.bfloat16, (128, 32, 256, 1), (256, 4 * 32 * 256, 256 * 4 * 32 * 256)),  # fused
+    ((1, 512, 8, 96), False, torch.bfloat16, (96, 8, 512, 1), (192, 1536, 786432)),  # padded to 128
+    ((1, 2048, 32, 128), False, torch.float16, (128, 32, 2048, 1), (256, 8192, 2048 * 8192)),  # fp16 Llama-2's
+    ((1, 512, 4, 256), True, torch.bfloat16, (256, 4, 512, 1), (512, 4 * 4 * 512, 512 * 4 * 4 * 512)),  # D = 256
+], ids=["albert", "fused_ragged_d64", "ragged_d128", "fused_d128", "mixed_d96", "fp16_d128", "fused_d256"])
+def test_backward_hands_both_passes_one_geometry_per_tensor(monkeypatch, shape, fused, dtype, dims, strides):
     """``flash_attention_backward`` computes the TMA views of q, k, v, dout once and
-    hands the same four to each pass that runs wgmma, and none to a pass on SIMT
-    (bf16 at head_dim 96: the dQ pass). Meta tensors stand in for CUDA ones; the
-    launches are recorded instead of made."""
-    q, k, v, dout = _backward_inputs(*shape, fused)
+    hands the same four to both passes, which run wgmma on every input one of them
+    does. Meta tensors stand in for CUDA ones; the launches are recorded instead of
+    made."""
+    q, k, v, dout = _backward_inputs(*shape, fused, dtype)
     batch, seq, heads, _ = shape
     views, launched = [], []
     tma_geometry_of = flash_module.tma_geometry
@@ -379,10 +386,7 @@ def test_backward_hands_both_passes_one_geometry_per_tensor(monkeypatch, shape, 
     assert views == [BACKWARD_BOX_ROWS] * 4  # one view per tensor, for both passes
     expected = (TmaGeometry(dims, strides, (64, 1, 64, 1)),) * 4
     assert [name for name, _ in launched] == ["dq", "dkv"] and launched[1][1] == expected
-    if flash_route(q, "dq") == "wgmma":
-        assert launched[0][1] is launched[1][1]
-    else:
-        assert shape[-1] == 96 and launched[0][1] is None
+    assert flash_route(q, "dq") == flash_route(q, "dkv") == "wgmma" and launched[0][1] is launched[1][1]
 
 
 # ------------------------------------------------------------------ blockwise int8

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """The flash kernels' two designs timed against each other on one card, in one process.
 
-For each input that the wgmma design takes, the forward and the dK/dV pass run
-through the wrappers (``flash_attention_lse``, ``flash_attention_backward_dkv``:
-the wgmma kernels) and through the SIMT kernels' C entry points on the same tensors,
-in turns (SIMT, wgmma, wgmma, SIMT), each held to the plain PyTorch version first.
-Each line gives both designs' device times (CUDA events behind a spin kernel, as
+For each input that the wgmma design takes, the forward, the dQ pass and the dK/dV
+pass run through the wrappers (``flash_attention_lse``,
+``flash_attention_backward_dq``, ``flash_attention_backward_dkv``: the wgmma
+kernels) and through the SIMT kernels' C entry points on the same tensors, in turns
+(SIMT, wgmma, wgmma, SIMT), each held to the plain PyTorch version first. Each line
+gives both designs' device times (CUDA events behind a spin kernel, as
 ``chip_smoke.py``'s), the least time the card could take (``bound_ms``) and the
-library's (``F.scaled_dot_product_attention``; for the dK/dV pass its whole
+library's (``F.scaled_dot_product_attention``; for a backward pass its whole
 backward). The last line is a JSON object with every reading, beside the card's
 name and power limit.
 
@@ -95,6 +96,23 @@ def simt_forward(torch, flash, q, k, v):
     return run
 
 
+def simt_dq(torch, flash, q, k, v, dout, lse, delta):
+    """As ``simt_forward``, for the SIMT dQ kernel."""
+    library = flash._bwd_library()
+    dq = torch.empty_like(q)
+
+    def run(causal: bool):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = library.hm_flash_backward_dq_simt(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), flash.SIMT_DTYPES[q.dtype], *q.shape, *flash._strides(q, k, v, dout, dq),
+            int(causal), q.shape[-1] ** -0.5, stream)
+        flash._build.check_launch(library, status, "hm_flash_backward_dq_simt")
+        return (dq,)
+
+    return run
+
+
 def simt_dkv(torch, flash, q, k, v, dout, lse, delta):
     """As ``simt_forward``, for the SIMT dK/dV kernel."""
     library = flash._bwd_library()
@@ -166,30 +184,40 @@ def main(argv=None) -> int:
         forward["bound_ms"], forward["bound_by"] = smoke.bound_ms(4.0 * batch * heads * dim * pairs, peaks["bf16"],
                                                                   4 * element + rows, peaks["bytes"])
 
-        # the dK/dV pass, likewise, from the plain forward's (out, lse)
+        # the dQ and dK/dV passes, likewise, from the plain forward's (out, lse); the
+        # library's time is its whole backward's, beside each pass
         out, lse = flash.flash_attention_plain(q, k, v, causal)
         delta = flash._delta(out, dout)
         args_ = (q, k, v, dout, lse, delta, causal)
-        ref = flash.flash_attention_backward_dkv_plain(*args_)
-        scales = smoke.backward_scales(torch, *args_)[1:]
-        run_dkv = simt_dkv(torch, flash, q, k, v, dout, lse, delta)
-        for design, got in (("wgmma", flash.flash_attention_backward_dkv(*args_)), ("simt", run_dkv(causal))):
-            tol = smoke.FLASH_BWD_TOL[dtype_name]
-            readings = [smoke.error_reading(g, r, sc, tol, smoke.MANTISSA_BITS[dtype_name])
-                        for g, r, sc in zip(got, ref, scales)]
-            if not all(r["ok"] for r in readings):
-                raise AssertionError(f"{design} dK/dV {label}: " + "; ".join(map(smoke.format_reading, readings)))
-        del ref, scales
-        dkv = turns(torch, smoke.time_ms, lambda: run_dkv(causal), lambda: flash.flash_attention_backward_dkv(*args_))
-        dkv["library_ms"] = smoke.library_backward_ms(torch, q, k, v, dout, causal)
-        dkv["bound_ms"], dkv["bound_by"] = smoke.bound_ms(8.0 * batch * heads * dim * pairs, peaks["bf16"],
-                                                          6 * element + 2 * rows, peaks["bytes"])
-        for what, reading in (("forward", forward), ("dkv", dkv)):
+        scales = smoke.backward_scales(torch, *args_)
+        library_ms = smoke.library_backward_ms(torch, q, k, v, dout, causal)
+        passes = {}
+        for which, wrapper, plain, simt, operations, nbytes, outputs in (
+                ("dq", flash.flash_attention_backward_dq, flash.flash_attention_backward_dq_plain, simt_dq, 6.0,
+                 5 * element + 2 * rows, slice(0, 1)),
+                ("dkv", flash.flash_attention_backward_dkv, flash.flash_attention_backward_dkv_plain, simt_dkv, 8.0,
+                 6 * element + 2 * rows, slice(1, 3))):
+            as_tuple = (lambda result: (result,)) if which == "dq" else tuple
+            ref = as_tuple(plain(*args_))
+            run_simt = simt(torch, flash, q, k, v, dout, lse, delta)
+            for design, got in (("wgmma", as_tuple(wrapper(*args_))), ("simt", run_simt(causal))):
+                tol = smoke.FLASH_BWD_TOL[dtype_name]
+                readings = [smoke.error_reading(g, r, sc, tol, smoke.MANTISSA_BITS[dtype_name])
+                            for g, r, sc in zip(got, ref, scales[outputs])]
+                if not all(r["ok"] for r in readings):
+                    raise AssertionError(f"{design} {which} {label}: " + "; ".join(map(smoke.format_reading, readings)))
+            del ref
+            passes[which] = turns(torch, smoke.time_ms, lambda: run_simt(causal), lambda: wrapper(*args_))
+            passes[which]["library_ms"] = library_ms
+            passes[which]["bound_ms"], passes[which]["bound_by"] = smoke.bound_ms(
+                operations * batch * heads * dim * pairs, peaks["bf16"], nbytes, peaks["bytes"])
+        del scales
+        for what, reading in (("forward", forward), ("dq", passes["dq"]), ("dkv", passes["dkv"])):
             print(f"[ab] {label} {what}: simt_ms={reading['simt_ms']:.4f} wgmma_ms={reading['wgmma_ms']:.4f} "
                   f"({reading['simt_ms'] / reading['wgmma_ms']:.2f}x) library_ms={reading['library_ms']:.4f} "
                   f"bound_ms={reading['bound_ms']:.4f} ({reading['bound_by']}); turns "
                   + " ".join(f"{t:.4f}" for t in reading["turns"]), flush=True)
-        results.append(dict(shape=list(shape), dtype=dtype_name, causal=causal, forward=forward, dkv=dkv))
+        results.append(dict(shape=list(shape), dtype=dtype_name, causal=causal, forward=forward, **passes))
     print(json.dumps({"card": smoke.card_line(), "results": results}))
     return 0
 
