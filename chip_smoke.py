@@ -4,8 +4,9 @@ holds each against its plain PyTorch version at the shapes of the paths that run
 it, then drives sixteen paths and checks each against the CPU, the local path or
 the exact result:
 - serving: two Llama-2-7B-width blocks (fp and int8 weight-only) through
-  load_llama_blocks → ModuleBackend → TaskPool/Runtime, and an expert of
-  head_dim 32 (the wgmma flash forward below its padded width) through ModuleBackend;
+  load_llama_blocks → ModuleBackend → TaskPool/Runtime, and two experts below the wgmma
+  flash kernels' padded width through ModuleBackend, forward and backward: one of head_dim 32
+  and one at TinyBERT's attention widths (head_dim 26, TMA's packed-heads view);
 - decode: greedy generation and continuous batching of single-token steps through
   DecodeSessionManager's KV-cache sessions on the same blocks;
 - remote: the same blocks served over the wire, in this process over loopback TCP
@@ -135,22 +136,39 @@ LSE_TOL = dict(atol=1e-4, rtol=0.0, max_abs=1e-4, rel_l2=1e-5)  # lse is fp32 on
 MANTISSA_BITS = {"bfloat16": 7, "float16": 10, "float32": 23}
 # Beyond FLASH_SHAPES, each held and timed like them: (shape, dtype, causal). The
 # head_dim-32 expert's attention ([head_dim32] below), head dims 16, 32, 80, 96 and
-# 256, fp16 at a Llama request's shape, and B*H = 65536, on the wgmma design (bf16 and
-# fp16 at a head_dim that is a multiple of 8); bf16 at head_dim 20, on the SIMT design
-# (as fp32, whose cases are FLASH_SHAPES'); and Phi-2's and Gemma-7B's attention widths
-# at a 2048-token request (microsoft/phi-2 config.json: hidden 2560, 32 heads, head_dim
-# 80; google/gemma-7b config.json: 16 heads of head_dim 256).
+# 256, fp16 at a Llama request's shape, and B*H = 65536, on the wgmma design's 4-D view
+# (bf16 and fp16 at a head_dim that is a multiple of 8); Phi-2's and Gemma-7B's
+# attention widths at a 2048-token request (microsoft/phi-2 config.json: hidden 2560, 32
+# heads, head_dim 80; google/gemma-7b config.json: 16 heads of head_dim 256). Then the
+# packed-heads view (16-bit head dims that are not a multiple of 8, H*D a multiple of 8):
+# head dim 20 in bf16 and fp16, the TinyBERT-width expert's attention ([head_dim32]'s
+# second expert: huawei-noah/TinyBERT_General_4L_312D config.json, hidden 312, 12 heads
+# of 26), an odd head dim (rows 2-byte aligned), 196 (padded to 256, its last region
+# partly past it) and a ragged T of 333; and bf16 at head dim 20 with H*D = 100, which no
+# TMA view takes, on the SIMT design (as fp32, whose cases are FLASH_SHAPES').
 FLASH_EXTRA_CASES = [
     ((2, 64, 8, 32), "bfloat16", False), ((2, 1000, 16, 32), "bfloat16", True), ((2, 1000, 16, 16), "bfloat16", True),
     ((2, 1000, 16, 80), "bfloat16", False), ((1, 512, 8, 96), "bfloat16", True), ((1, 512, 4, 256), "float16", True),
     ((2, 1000, 16, 64), "float16", True), ((1, 2048, 32, 128), "float16", True),
     ((65536, 16, 1, 64), "bfloat16", True), ((32768, 16, 2, 32), "float16", False),
     ((2, 1000, 16, 20), "bfloat16", True), ((1, 2048, 32, 80), "bfloat16", True), ((1, 2048, 16, 256), "float16", True),
+    ((2, 1000, 16, 20), "float16", True), ((4, 128, 12, 26), "bfloat16", False), ((2, 1000, 16, 25), "bfloat16", True),
+    ((1, 512, 4, 196), "float16", True), ((3, 333, 12, 26), "bfloat16", True), ((2, 1000, 5, 20), "bfloat16", True),
+    # with those, every instantiation of the packed forward (bf16 and fp16 at padded widths 64, 128 and 256)
+    ((1, 512, 8, 100), "bfloat16", True), ((1, 512, 8, 100), "float16", False), ((1, 512, 4, 196), "bfloat16", False),
 ]
+# where the forward's planted fault is checked beside FLASH_SHAPES' ALBERT shape, and the
+# backward's beside FAULTY_BWD_SHAPES': head dim 20 in bf16 on the packed-heads view. There
+# too, every other head is made NaN in the tensors whose tiles the kernels keep resident and
+# zero around the head (Q and V in the forward, K and V in the dK/dV pass), and the other
+# heads must stay within the limits: a missing or misplaced zeroing lets the NaN through. (A
+# NaN in a neighbour's K in the forward, or Q or dO in the dK/dV pass, the streamed tiles,
+# does reach a head: the kernels' stated limit.)
+FAULTY_PACKED = ((2, 1000, 16, 20), "bfloat16")
 # views whose base is one element off 16-byte alignment, which TMA cannot read: the
-# wrappers copy them first (bf16, head_dims 64 and 32), or the SIMT kernel reads them
-# through their strides (head_dim 20)
-UNALIGNED_CASES = [((2, 1000, 16, 64), True), ((2, 64, 8, 32), False), ((2, 64, 8, 20), True)]
+# wrappers copy them first (bf16, head_dims 64, 32 and 20 with H*D = 160), or the SIMT
+# kernel reads them through their strides (head dim 20 with H*D = 100)
+UNALIGNED_CASES = [((2, 1000, 16, 64), True), ((2, 64, 8, 32), False), ((2, 64, 8, 20), True), ((2, 64, 5, 20), True)]
 SERVING_TOL = 2e-2  # max relative error, card vs CPU (hivemind_tpu/ops/device_check.py's tolerance)
 # The flash backward passes vs their plain versions: (shape, dtype, causal). The
 # training path's shape, the expert backward's as chip_smoke drives it, a Llama
@@ -167,8 +185,8 @@ FLASH_BWD_CASES = [
     ((65536, 16, 1, 64), "bfloat16", True), ((32768, 16, 2, 32), "float16", False),
     # the forward's shapes of the rows PERF.md keeps for them, so each pass is timed at one shape
     ((1, 512, 8, 96), "bfloat16", True), ((1, 512, 4, 256), "float16", True),
-    # bf16 at head_dim 20: both passes on SIMT, which keeps its 16-bit path held; fp16 at a
-    # Llama request's shape beside bf16's; Phi-2's and Gemma-7B's widths (as FLASH_EXTRA_CASES)
+    # bf16 at head_dim 20: the dK/dV pass on the packed-heads view, the dQ pass on SIMT; fp16
+    # at a Llama request's shape beside bf16's; Phi-2's and Gemma-7B's widths (as FLASH_EXTRA_CASES)
     ((2, 1000, 16, 20), "bfloat16", True), ((1, 2048, 32, 128), "float16", True),
     ((1, 2048, 32, 80), "bfloat16", True), ((1, 2048, 16, 256), "float16", True),
     # with the cases above, every instantiation of the wgmma passes (bf16 and fp16, padded
@@ -177,6 +195,12 @@ FLASH_BWD_CASES = [
     # whose last region TMA reads partly past it
     ((2, 1000, 16, 16), "bfloat16", True), ((1, 512, 8, 96), "float16", False), ((1, 512, 4, 256), "bfloat16", False),
     ((2, 1000, 16, 136), "float16", True), ((1, 512, 4, 200), "bfloat16", True),
+    # the packed-heads view's cases of FLASH_EXTRA_CASES (every instantiation of the packed
+    # dK/dV pass: bf16 and fp16 at padded widths 64 and 256; 128 by head dim 100), and H*D =
+    # 100 on both SIMT passes, which keeps their 16-bit path held
+    ((2, 1000, 16, 20), "float16", True), ((4, 128, 12, 26), "bfloat16", False), ((2, 1000, 16, 25), "bfloat16", True),
+    ((1, 512, 4, 196), "float16", True), ((3, 333, 12, 26), "bfloat16", True), ((2, 1000, 5, 20), "bfloat16", True),
+    ((1, 512, 8, 100), "bfloat16", True), ((1, 512, 8, 100), "float16", False), ((1, 512, 4, 196), "bfloat16", False),
 ]
 # Each backward output element within atol + rtol*scale, where scale is the plain
 # backward run on absolute values: sum_k |dS||K| for dq, sum_q |dS||Q| for dk,
@@ -202,7 +226,7 @@ FAULTY_TILE = 64  # planted faults the checks must reject: P (forward) or dS (ba
 # shape, and a Llama request at full length, causal (the dQ kernel masks only its
 # diagonal tiles), in bf16 and in fp16; and Gemma-7B's fp16 at a padded width of 256
 FAULTY_BWD_SHAPES = ((ALBERT_ATTENTION, "bfloat16"), ((1, 2048, 32, 128), "bfloat16"),
-                     ((1, 2048, 32, 128), "float16"), ((1, 2048, 16, 256), "float16"))
+                     ((1, 2048, 32, 128), "float16"), ((1, 2048, 16, 256), "float16"), FAULTY_PACKED)
 # q, k, v sliced from one fused [B, T, 3, H, D] tensor (T stride 3*H*D): the TMA views of a
 # projection that is not split into three tensors, for each head_dim, held like FLASH_SHAPES
 STRIDED_CASES = [((2, 1000, 16, 64), True), ((1, 512, 32, 128), False)]
@@ -249,8 +273,21 @@ EXPERT_LR = 1e-3  # SGD; the steps are compared, not the (barely moved) weights
 EXPERT_TOL = SERVING_TOL
 REQUEST_LENGTHS = (512, 512, 512, 512, 2048)
 REFERENCE_LENGTH = 256  # a request of its own; the first 512-long request is checked too
-# an expert of head_dim 32, which the wgmma flash forward serves on the card below its padded width
-SMALL_HEADS_EXPERT = dict(hidden=256, heads=8, shape=(2, 64, 256))
+# [head_dim32]'s served transformer experts, each a forward and a backward with its SGD step
+# on the card through the wgmma flash kernels below their padded width of 64: one of
+# head_dim 32 (all three passes on wgmma), and one at TinyBERT_General_4L_312D's attention
+# widths (huawei-noah/TinyBERT_General_4L_312D config.json: hidden 312, 12 heads, so
+# head_dim 26: the forward and the dK/dV pass on the packed-heads view, the dQ pass on
+# SIMT); each must launch the forward twice (its forward, the backward's recompute) and
+# each backward pass once
+SMALL_HEADS_EXPERTS = (
+    dict(tag="head_dim 32", hidden=256, heads=8, shape=(2, 64, 256), seed=SEED + 10,
+         routes="forward=wgmma dq=wgmma dkv=wgmma"),
+    dict(tag="TinyBERT width", hidden=312, heads=12, shape=(4, 128, 312), seed=SEED + 12,
+         routes="forward=wgmma dq=simt dkv=wgmma"),
+)
+SMALL_HEADS_LAUNCHES = {"flash_attention_forward": 2, "flash_attention_backward_dq": 1,
+                        "flash_attention_backward_dkv": 1}
 # decode sessions on the served blocks: greedy generation from a 512-token prompt, then
 # 8 sessions with prompts of 128, 136, ..., 184 tokens stepping in lock-step through
 # decode_async (each merged step writes, masks and rotates every row at its own position)
@@ -695,6 +732,16 @@ def phase_flash(torch, peaks) -> dict:
                    for _ in range(3))
         label = f"B={batch} T={seq} H={heads} D={dim} {dtype_name} causal={causal} ({flash_routes(q)})"
         readings = check_forward(torch, q, k, v, causal, dtype_name, label)
+        if (shape, dtype_name) == FAULTY_PACKED:  # a planted fault, rejected
+            reference = plain_forward(torch, q, k, v, causal)
+            faulty = read_forward(faulty_forward(torch, q, k, v, causal), reference[1], reference, dtype_name)[0]
+            log(f"[flash] {label}, P x 1.05 on every other KV tile (planted in the plain version): "
+                f"out {format_reading(faulty)} ok={faulty['ok']}")
+            if faulty["ok"]:
+                raise AssertionError("flash check passed a P that is 5% off on half the KV tiles")
+            del reference
+            log(f"[flash] {label}, Q and V NaN in every other head: the other heads' "
+                f"{isolated_heads(torch, q, k, v, causal)}")
         ms = time_ms(torch, lambda: flash_attention_lse(q, k, v, causal))
         plain_ms = time_ms(torch, lambda: flash_attention_plain(q, k, v, causal))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -719,6 +766,55 @@ def phase_flash(torch, peaks) -> dict:
         log(f"[flash] q, k, v bf16 {list(shape)} one element off 16-byte alignment ({flash_routes(q)}, "
             f"copied first: {needs_copy(q)}), causal={causal}: {readings}")
     return main_entry
+
+
+def isolated_heads(torch, q, k, v, causal) -> str:
+    """The forward with Q and V NaN in every other head, held to the plain version on the
+    other heads (each head's attention reads only its own columns); raises past the limits."""
+    from hivemind_tpu_torch.ops.flash_attention import flash_attention_lse
+
+    q, v = q.clone(), v.clone()
+    q[:, :, 1::2] = v[:, :, 1::2] = float("nan")
+    out, lse = flash_attention_lse(q, k, v, causal)
+    heads = torch.arange(0, q.shape[2], 2, device=q.device)
+    kept = lambda t: t.index_select(2 if t.dim() == 4 else 1, heads)  # noqa: E731  (lse is [B, H, T])
+    reference = tuple(kept(t) for t in plain_forward(torch, q, k, v, causal))
+    dtype_name = str(q.dtype).removeprefix("torch.")
+    out_reading, lse_reading = read_forward(kept(out), kept(lse), reference, dtype_name)
+    readings = f"out {format_reading(out_reading)}; lse {format_reading(lse_reading)}"
+    if not (out_reading["ok"] and lse_reading["ok"]):
+        raise AssertionError(f"flash forward: a NaN in a neighbouring head's Q or V reaches a head: {readings}")
+    return readings
+
+
+def isolated_heads_backward(torch, q, k, v, dout, causal) -> str:
+    """The dK/dV pass with K and V NaN in every other head (lse and delta from the plain
+    forward of those inputs), held to the plain version on the other heads; raises past
+    the limits."""
+    from hivemind_tpu_torch.ops.flash_attention import (
+        _delta,
+        flash_attention_backward_dkv,
+        flash_attention_backward_dkv_plain,
+        flash_attention_plain,
+    )
+
+    k, v = k.clone(), v.clone()
+    k[:, :, 1::2] = v[:, :, 1::2] = float("nan")
+    out, lse = flash_attention_plain(q, k, v, causal)
+    args = (q, k, v, dout, lse, _delta(out, dout), causal)
+    heads = torch.arange(0, q.shape[2], 2, device=q.device)
+    got, ref = flash_attention_backward_dkv(*args), flash_attention_backward_dkv_plain(*args)
+    clean = [t.index_select(2, heads) for t in args[:4]]
+    rows = [t.index_select(1, heads) for t in args[4:6]]
+    scales = backward_scales(torch, *clean, *rows, causal)[1:]
+    dtype_name = str(q.dtype).removeprefix("torch.")
+    readings = {name: error_reading(g.index_select(2, heads), r.index_select(2, heads), sc,
+                                    FLASH_BWD_TOL[dtype_name], MANTISSA_BITS[dtype_name])
+                for name, g, r, sc in zip(("dk", "dv"), got, ref, scales)}
+    text = "; ".join(f"{name} {format_reading(r)}" for name, r in readings.items())
+    if not all(r["ok"] for r in readings.values()):
+        raise AssertionError(f"flash dK/dV pass: a NaN in a neighbouring head's K or V reaches a head: {text}")
+    return text
 
 
 def unaligned(torch, t):
@@ -877,6 +973,9 @@ def phase_flash_bwd(torch, peaks) -> dict:
                 "; ".join(f"{name} {format_reading(faulty[name])} ok={faulty[name]['ok']}" for name in ("dq", "dk")))
             if faulty["dq"]["ok"] or faulty["dk"]["ok"]:
                 raise AssertionError("flash backward check passed a dS that is 5% off on half the tiles")
+        if (shape, dtype_name) == FAULTY_PACKED:
+            log(f"[flash_bwd] {label}, K and V NaN in every other head: the other heads' "
+                f"{isolated_heads_backward(torch, q, k, v, dout, causal)}")
         del got, ref, scales
 
         ms = {"dq": time_ms(torch, lambda: flash_attention_backward_dq(*args)),
@@ -1501,23 +1600,34 @@ def phase_serving(torch, checkpoint_dir: str, wrappers: dict, telemetry: Telemet
 
 
 def phase_small_heads(torch, wrappers: dict) -> dict:
-    """A served ``transformer`` expert of head_dim 32 on the card, bf16 attention
-    through the wgmma flash kernels at a padded width of 64: one forward, then one
-    ``ModuleBackend.backward`` with its SGD step (the dQ and dK/dV passes), each held
-    to the same expert on the CPU (``plain_attention``): the output, the input
-    gradient and each parameter's step. A few seconds."""
+    """Each of SMALL_HEADS_EXPERTS, a served ``transformer`` expert with bf16 attention
+    on the card through the flash kernels at a padded width of 64: one forward, then
+    one ``ModuleBackend.backward`` with its SGD step (the dQ and dK/dV passes), each
+    held to the same expert on the CPU (``plain_attention``): the output, the input
+    gradient and each parameter's step. The launch counts are set to 0 just before
+    each expert and read just after; the phase returns their sums. A few seconds."""
+    totals = {}
+    for expert in SMALL_HEADS_EXPERTS:
+        launches = serve_small_heads_expert(torch, wrappers, **expert)
+        for name, count in launches.items():
+            totals[name] = totals.get(name, 0) + count
+    return totals
+
+
+def serve_small_heads_expert(torch, wrappers: dict, tag: str, hidden: int, heads: int, shape: tuple, seed: int,
+                             routes: str) -> dict:
+    """One expert of SMALL_HEADS_EXPERTS on the card against the CPU: its launches."""
     from hivemind_tpu_torch.moe.server.layers import name_to_block
     from hivemind_tpu_torch.moe.server.module_backend import ModuleBackend
     from hivemind_tpu_torch.ops.flash_attention import flash_routes
 
-    hid, heads, shape = SMALL_HEADS_EXPERT["hidden"], SMALL_HEADS_EXPERT["heads"], SMALL_HEADS_EXPERT["shape"]
-    rng = np.random.default_rng(SEED + 10)
+    rng = np.random.default_rng(seed)
     x, grad_out = (rng.standard_normal(shape, dtype=np.float32) for _ in range(2))
     sgd = lambda params: torch.optim.SGD(params, lr=EXPERT_LR)  # noqa: E731
-    card = ModuleBackend("transformer.0", name_to_block["transformer"](hid, num_heads=heads, device="meta"),
+    card = ModuleBackend("transformer.0", name_to_block["transformer"](hidden, num_heads=heads, device="meta"),
                          sample_input=x, device="cuda", rng_seed=SEED, optimizer=sgd)
     initial = {key: tensor.to("cpu", copy=True) for key, tensor in card.snapshot_params().items()}
-    cpu = ModuleBackend("transformer.0", name_to_block["transformer"](hid, num_heads=heads, device="meta"),
+    cpu = ModuleBackend("transformer.0", name_to_block["transformer"](hidden, num_heads=heads, device="meta"),
                         sample_input=x, device="cpu", params={k: t.clone() for k, t in initial.items()}, optimizer=sgd)
     torch.cuda.synchronize()
     for wrapper in wrappers.values():
@@ -1531,20 +1641,24 @@ def phase_small_heads(torch, wrappers: dict) -> dict:
     (cpu_grad_x,) = cpu.backward(x, grad_out)
     readings = {"input gradient": max_rel_err(grad_x, cpu_grad_x)}
     readings.update(step_errors(torch, steps, {key: t - initial[key] for key, t in cpu.snapshot_params().items()}))
-    attention = torch.empty(shape[0], shape[1], heads, hid // heads, dtype=torch.bfloat16, device="meta")
-    log(f"[head_dim32] transformer expert hidden {hid}, {heads} heads, input {list(shape)} "
-        f"({flash_routes(attention)}): flash launches forward {launches['flash_attention_forward']}, "
-        f"dq {launches['flash_attention_backward_dq']}, dkv {launches['flash_attention_backward_dkv']}; "
-        f"card vs CPU (plain_attention) max_rel_err={rel_err:.3e}")
-    log(f"[head_dim32] backward with SGD(lr={EXPERT_LR}), card vs CPU, max relative error: "
+    label = flash_routes(torch.empty(shape[0], shape[1], heads, hidden // heads, dtype=torch.bfloat16, device="meta"))
+    log(f"[head_dim32] {tag}: transformer expert hidden {hidden}, {heads} heads, input {list(shape)} ({label}): "
+        f"flash launches forward {launches['flash_attention_forward']}, dq {launches['flash_attention_backward_dq']}, "
+        f"dkv {launches['flash_attention_backward_dkv']}; card vs CPU (plain_attention) max_rel_err={rel_err:.3e}")
+    log(f"[head_dim32] {tag}: backward with SGD(lr={EXPERT_LR}), card vs CPU, max relative error: "
         + ", ".join(f"{k} {v:.3e}" for k, v in readings.items()))
+    if label != routes:
+        raise AssertionError(f"{tag} expert: its attention routes {label}, expected {routes}")
+    counted = {name: launches[name] for name in SMALL_HEADS_LAUNCHES}
+    if counted != SMALL_HEADS_LAUNCHES:
+        raise AssertionError(f"{tag} expert: flash launches {counted}, expected {SMALL_HEADS_LAUNCHES}")
     if not (got.shape == x.shape and np.isfinite(got).all() and rel_err < SERVING_TOL):
-        raise AssertionError(f"head_dim-32 expert: output {got.shape}, card vs CPU {rel_err} >= {SERVING_TOL}")
+        raise AssertionError(f"{tag} expert: output {got.shape}, card vs CPU {rel_err} >= {SERVING_TOL}")
     if card.update_count != 1:
-        raise AssertionError(f"head_dim-32 expert: {card.update_count} updates after one backward")
+        raise AssertionError(f"{tag} expert: {card.update_count} updates after one backward")
     worst = max(readings, key=readings.get)
     if not readings[worst] < EXPERT_TOL:
-        raise AssertionError(f"head_dim-32 expert backward: {worst} differs from the CPU by {readings[worst]:.3e} "
+        raise AssertionError(f"{tag} expert backward: {worst} differs from the CPU by {readings[worst]:.3e} "
                              f">= {EXPERT_TOL}")
     return launches
 
@@ -2792,10 +2906,13 @@ def phase_dmoe(torch, wrappers: dict, telemetry: Telemetry) -> dict:
                                        weight_quantization="int8" if uid in DMOE_LAYOUT["B"] else None)
         for child in children.values():
             _, child.peer_id, child.device = child.receive(DMOE_STARTUP_LIMIT_S - (time.perf_counter() - started))
+        peers_up = time.perf_counter() - started
         client_dht = DHT(initial_peers=initial_peers, start=True)
         dhts.append(client_dht)
+        for role in ("A", "B", "C", "E"):  # the servers build their experts side by side
+            children[role].conn.send(("serve",))
         for role in ("A", "B", "C", "E"):
-            children[role].ask("serve", timeout=DMOE_STARTUP_LIMIT_S - (time.perf_counter() - started))
+            children[role].receive(DMOE_STARTUP_LIMIT_S - (time.perf_counter() - started))
         servers_up = time.perf_counter() - started
         started = time.perf_counter()
         rows = {DMOE_PREFIX.rstrip("."): set(range(DMOE_GRID[0])),
@@ -2812,7 +2929,8 @@ def phase_dmoe(torch, wrappers: dict, telemetry: Telemetry) -> dict:
             raise AssertionError("the client never resolved the 64 experts and their prefix records")
         owner = {uid: role for role in "ABC" for uid in DMOE_LAYOUT[role]}
         log(f"[dmoe] {line}: servers A (8 fp32 experts, Adam, checkpoints, hot-expert adverts), B (28 int8), C (28 "
-            f"fp32) and E up, and D's process waiting to serve, in {servers_up:.1f} s (devices {sorted({c.device for c in children.values()})}); 64 uids "
+            f"fp32) and E up, and D's process waiting to serve, in {servers_up:.1f} s (processes and DHT peers up in "
+            f"{peers_up:.1f} s, then the four servers built side by side; devices {sorted({c.device for c in children.values()})}); 64 uids "
             f"and their prefix records resolved in {time.perf_counter() - started:.2f} s")
 
         moe = RemoteMixtureOfExperts(dht=client_dht, in_features=DMOE_HIDDEN, grid_size=DMOE_GRID,
@@ -2927,9 +3045,10 @@ def phase_dmoe(torch, wrappers: dict, telemetry: Telemetry) -> dict:
             f"{median_p90(walls)}, of which beam search {median_p90(searches)}; {DMOE_BATCH / np.median(walls):.0f} "
             f"samples/s forward, {DMOE_BATCH / (wall + backward_wall):.0f} samples/s forward + backward")
 
-        # 5. checkpoint: A stores, E restores in a fresh process; blobs and a forward equal A's
+        # 5. checkpoint: A stores, E restores in a fresh process while this process fetches
+        # A's blobs over rpc_replica_state; blobs and a forward equal A's
         _, store_s = children["A"].ask("store", timeout=120)
-        _, restore_s, digests = children["E"].ask("restore", timeout=120)
+        children["E"].conn.send(("restore",))
         fetched, blobs, fetch_s = {}, {}, 0.0
         for uid in DMOE_LAYOUT["A"]:
             started = time.perf_counter()
@@ -2938,13 +3057,14 @@ def phase_dmoe(torch, wrappers: dict, telemetry: Telemetry) -> dict:
             fetch_s += time.perf_counter() - started
             fetched[uid] = (len(blob), hashlib.blake2b(blob).hexdigest())
             blobs[uid] = blob
+        _, restore_s, digests = children["E"].receive(120)
         x_small = x[:256]
         _, ours = children["A"].ask("forward", x_small, timeout=60)
         _, restored = children["E"].ask("forward", x_small, timeout=60)
         same_forward = all(np.array_equal(ours[uid], restored[uid]) for uid in DMOE_LAYOUT["A"])
         total = sum(length for length, _ in fetched.values())
         log(f"[dmoe] {line}: checkpoint of A's 8 experts stored in {store_s:.2f} s, restored by a fresh process "
-            f"(Server.create(checkpoint_dir=...)) in {restore_s:.2f} s; its 8 blobs equal A's over rpc_replica_state "
+            f"(Server.create(checkpoint_dir=...)) in {restore_s:.2f} s, beside the fetch below; its 8 blobs equal A's over rpc_replica_state "
             f"(length and blake2b-512): {digests == fetched} ({total} B fetched in {fetch_s:.2f} s, "
             f"{total / fetch_s / 1e6:.1f} MB/s); a [256, {DMOE_HIDDEN}] forward through each restored expert equals "
             f"A's: {same_forward}")

@@ -31,10 +31,32 @@ __device__ __forceinline__ __half from_float<__half>(float x) { return __float2h
 // SIMT kernels take all three, the wgmma kernels bf16 and fp16.
 enum SimtDtype { kSimtF32 = 0, kSimtBf16 = 1, kSimtF16 = 2 };
 
-// What the wgmma kernels take: bf16 or fp16 at a head_dim that is a multiple of 8
-// (TMA's 16-byte strides) from 16 to 256.
-inline bool wgmma_takes(int dtype, int head_dim) {
-    return (dtype == kSimtBf16 || dtype == kSimtF16) && head_dim % 8 == 0 && head_dim >= 16 && head_dim <= 256;
+// Whether a head_dim is read through the packed-heads view (heads * head_dim columns
+// a row) rather than the 4-D view, whose head stride of 2 * head_dim bytes TMA takes
+// only as a multiple of 16.
+inline bool packed_heads(int head_dim) { return head_dim % 8 != 0; }
+
+// The columns a wgmma tile of one head spans: head_dim in the 4-D view; in the
+// packed-heads view head_dim plus the most columns any head's boxes start before it
+// (TMA takes only a start column that is a multiple of 8, so head h's boxes start
+// (h * head_dim) % 8 columns early: sm90::head_shift). The kernels pad it to 64, 128
+// or 256.
+inline int tma_span(int head_dim, int heads) {
+    int shift = 0;
+    for (int h = 1; packed_heads(head_dim) && h < heads && h < 8; ++h) {
+        shift = h * head_dim % 8 > shift ? h * head_dim % 8 : shift;
+    }
+    return head_dim + shift;
+}
+
+// What the wgmma kernels take: bf16 or fp16 at a head_dim from 16 to 256 that TMA can
+// read: a multiple of 8 (the 4-D view), or, where `packed` (the forward and the dK/dV
+// pass), any other whose heads * head_dim is a multiple of 8 and whose span is at
+// most 256 (the packed-heads view).
+inline bool wgmma_takes(int dtype, int head_dim, int heads, bool packed) {
+    if (!((dtype == kSimtBf16 || dtype == kSimtF16) && head_dim >= 16 && head_dim <= 256)) return false;
+    if (!packed_heads(head_dim)) return true;
+    return packed && static_cast<long long>(heads) * head_dim % 8 == 0 && tma_span(head_dim, heads) <= 256;
 }
 
 inline CUtensorMapDataType tma_type(int dtype) {

@@ -13,11 +13,12 @@
 // registers (never in device memory) and keeps the tensor cores fed from tiles
 // that TMA brings in ahead of use.
 //
-// Design, wgmma (`flash_forward_wgmma<T, Dp, kFull>`: bf16 and fp16 at a head_dim that
-// is a multiple of 8 from 16 to 256, the serving and training paths; the building
-// blocks are sm90.cuh). T is the element type, Dp the head_dim padded to 64, 128
-// or 256, kFull whether head_dim is Dp; all are template arguments, never runtime
-// branches.
+// Design, wgmma (`flash_forward_wgmma<T, Dp, kFull, kPacked>`: bf16 and fp16 at a
+// head_dim from 16 to 256 that is a multiple of 8, the serving and training paths, or
+// any other whose H * head_dim is; the building blocks are sm90.cuh). T is the
+// element type, Dp the head_dim padded to 64, 128 or 256, kFull whether head_dim is
+// Dp, kPacked whether TMA reads the packed-heads view (below); all are template
+// arguments, never runtime branches.
 //  * One thread block per (128 query rows, batch*head); three warpgroups. Two
 //    consumer warpgroups own 64 query rows each; one warp of the third (the
 //    producer) issues the TMA loads: the block's Q tile once, then K and V tiles
@@ -56,19 +57,42 @@
 //    past T are masked there; rows past T are never stored.
 //  * Query tiles are launched heaviest first (the last tile of each batch*head
 //    first), so the causal tail is short.
+//  * The packed-heads view (kPacked: a head_dim that is not a multiple of 8, such
+//    as TinyBERT's 26). TMA takes strides in multiples of 16 bytes, and a head stride
+//    of 2 * head_dim bytes is not one, so the tensor is described as (H * head_dim,
+//    T, B) with the heads packed in the row. TMA also takes only a start column that
+//    is a multiple of 8 (any other raised an illegal instruction on an H100), so head
+//    h's boxes start at h * head_dim rounded down to one, and its columns land at the
+//    tile's [s, s + head_dim), s = (h * head_dim) % 8 (sm90::head_shift); the padded
+//    width holds head_dim + the largest s (tma_span). The columns around the head's
+//    are its neighbours' values, not zeros: the consumers zero Q's once it lands
+//    (swizzle-aware stores, a proxy fence and a named barrier before any wgmma), so
+//    S = Q K^T, a sum over columns shifted alike in Q and K, meets zeros on Q's side
+//    outside the head and is exact. Column s + d of O = P V is the head's column d;
+//    the rest hold other heads' sums and are never stored. Each output column is
+//    stored by a 2-byte store of its own (a row starts only 2-byte aligned at an odd
+//    head_dim). The streamed K and V tiles keep their neighbours' columns. The limit
+//    this leaves: 0 * inf is NaN, so a non-finite K value in a neighbouring head
+//    within a box's 64 columns makes head h's output NaN, where the TPU kernel keeps
+//    heads apart (a non-finite Q or V value there does not reach it: Q is zeroed, and
+//    column d of O reads only V's column d). Zeroing each streamed K tile as well, by
+//    the producer warpgroup's idle second warp, closed it but made this forward 41%
+//    slower at [2, 1000, 16, 20] on an H100 (PERF.md, row 1p's findings), so it is
+//    not done.
 //  * Later work (not here): a persistent grid, so that one tile's loads and
 //    epilogue overlap another's products (at D = 64 and T = 512 a block runs
 //    only 4 KV tiles), and TMA stores of O.
 //
 // Design, SIMT (every input the wgmma design does not take: fp32, where tensor
 // cores would round the inputs to TF32, and bf16 or fp16 at a head_dim that is not
-// a multiple of 8, up to 256, as the TPU kernel takes the whole head_dim as its
-// block): the same online softmax on the CUDA cores in fp32 FMAs only (no TF32),
-// the inputs widened to fp32 as they are staged, as the TPU kernel casts its
-// tiles. A block owns 16 query rows of one batch*head, a warp 4 of them; lane j
-// scores key j of a 32-key tile, and each lane accumulates kD/32 output columns
-// from probabilities broadcast by shuffles. kD is head_dim rounded up to 32, 64,
-// 96, 128 or 256, its extra columns zeros.
+// a multiple of 8 whose H * head_dim is not one either, or outside 16 to 256; any
+// head_dim up to 256, as the TPU kernel takes the whole head_dim as its block): the
+// same online softmax on the CUDA cores in fp32 FMAs only (no TF32), the inputs
+// widened to fp32 as they are staged, as the TPU kernel casts its tiles. A block
+// owns 16 query rows of one batch*head, a warp 4 of them; lane j scores key j of a
+// 32-key tile, and each lane accumulates kD/32 output columns from probabilities
+// broadcast by shuffles. kD is head_dim rounded up to 32, 64, 96, 128 or 256, its
+// extra columns zeros.
 
 #include <cuda_bf16.h>
 
@@ -131,16 +155,16 @@ struct ForwardTiles {
 // TMA of a tile of kTileRows rows from row `row0`: in each of its first `boxes`
 // 64-column regions, kTileRows / kBoxRows boxes of kBoxRows rows, one after the
 // other (8 rows of 128 bytes are one swizzle period, so a box lands where the same
-// rows of one taller box would).
+// rows of one taller box would). `origin`: the head's (column, head) coordinates.
 template <int kBoxRows, int kTileRows>
-__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar, int boxes, int h, int row0,
-                                          int b) {
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar, int boxes, int2 origin,
+                                          int row0, int b) {
 #pragma unroll
     for (int col = 0; col < boxes; ++col) {
 #pragma unroll
         for (int part = 0; part < kTileRows / kBoxRows; ++part) {
             sm90::tma_load_4d(dst + (col * kTileRows + part * kBoxRows) * sm90::kSwizzleRowBytes, map, bar,
-                              col * sm90::kBoxCols, h, row0 + part * kBoxRows, b);
+                              origin.x + col * sm90::kBoxCols, origin.y, row0 + part * kBoxRows, b);
         }
     }
 }
@@ -148,8 +172,10 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, 
 // T: __nv_bfloat16 or __half. Dp: head_dim padded to 64, 128 or 256; columns at or
 // past head_dim read as zeros and are never stored. kFull: head_dim == Dp, whose
 // stores need no column test (its mere presence in a kernel costs a full-width
-// tile about 1%, as measured against one without it).
-template <typename T, int Dp, bool kFull>
+// tile about 1%, as measured against one without it). kPacked: the packed-heads
+// view (a head_dim that is not a multiple of 8): Q's columns past head_dim are
+// zeroed once it lands, and each column is stored by its own 2-byte store.
+template <typename T, int Dp, bool kFull, bool kPacked>
 __global__ void __launch_bounds__(kThreadsWgmma, 1)
     flash_forward_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                         const __grid_constant__ CUtensorMap tm_v, const WgmmaParams p) {
@@ -170,10 +196,16 @@ __global__ void __launch_bounds__(kThreadsWgmma, 1)
     const int q0 = q_tile * kRows;
     const int kv_end = p.causal ? min(p.seq, q0 + kRows) : p.seq;  // causal: up to the diagonal
     const int kv_tiles = (kv_end + kKvRows - 1) / kKvRows;
+    // the head's TMA coordinates, and the tile column its first column lands at (0 but
+    // in the packed-heads view)
+    const int2 origin = sm90::head_origin(h, p.head_dim, kPacked);
+    const int shift = sm90::head_shift(h, p.head_dim, kPacked);
     // The regions TMA loads: at Dp <= 128 every one holds a column below head_dim
-    // (head_dim >= 16, and > 64 at Dp = 128); at Dp = 256 the last lies wholly past a
-    // head_dim of 192 or less, so it is zeroed once here and never loaded.
-    const int boxes = !kFull && Dp > 128 ? (p.head_dim + sm90::kBoxCols - 1) / sm90::kBoxCols : L::kBoxes;
+    // (head_dim >= 16, and > 64 at Dp = 128; packed, each is loaded and zeroed around the
+    // head); at Dp = 256 the last lies wholly past a head_dim of 192 or less (past shift
+    // + head_dim, packed), so it is zeroed once here and never loaded.
+    const int boxes =
+        !kFull && Dp > 128 ? (shift + p.head_dim + sm90::kBoxCols - 1) / sm90::kBoxCols : L::kBoxes;
     if (!kFull && Dp > 128 && boxes < L::kBoxes) {
         for (int region = boxes; region < L::kBoxes; ++region) {
             sm90::zero_shared(base + L::kQ + region * L::kQBox, L::kQBox);
@@ -201,16 +233,18 @@ __global__ void __launch_bounds__(kThreadsWgmma, 1)
         sm90::setmaxnreg_dec<kProducerRegs>();
         if (threadIdx.x == kConsumerWarps * 32) {
             sm90::mbar_arrive_expect_tx(full_q, boxes * L::kQBox);
-            load_tile<kKvRows, kRows>(base + L::kQ, &tm_q, full_q, boxes, h, q0, b);
+            load_tile<kKvRows, kRows>(base + L::kQ, &tm_q, full_q, boxes, origin, q0, b);
             for (int j = 0; j < kv_tiles; ++j) {
                 const int s = j % kStages;
                 const uint32_t parity = ((j / kStages) & 1) ^ 1;  // the first round passes at once
                 sm90::mbar_wait(empty_k(s), parity);
                 sm90::mbar_arrive_expect_tx(full_k(s), boxes * L::kKvBox);
-                load_tile<kKvRows, kKvRows>(base + L::kK + s * L::kKvTile, &tm_k, full_k(s), boxes, h, j * kKvRows, b);
+                load_tile<kKvRows, kKvRows>(base + L::kK + s * L::kKvTile, &tm_k, full_k(s), boxes, origin, j * kKvRows,
+                                            b);
                 sm90::mbar_wait(empty_v(s), parity);
                 sm90::mbar_arrive_expect_tx(full_v(s), boxes * L::kKvBox);
-                load_tile<kKvRows, kKvRows>(base + L::kV + s * L::kKvTile, &tm_v, full_v(s), boxes, h, j * kKvRows, b);
+                load_tile<kKvRows, kKvRows>(base + L::kV + s * L::kKvTile, &tm_v, full_v(s), boxes, origin, j * kKvRows,
+                                            b);
             }
         }
     } else {  // two consumer warpgroups, 64 query rows each
@@ -325,6 +359,12 @@ __global__ void __launch_bounds__(kThreadsWgmma, 1)
         };
         if (wg == 1) pass_turn();
         sm90::mbar_wait(full_q, 0);
+        if constexpr (kPacked) {  // Q's columns around the head's hold its neighbours': zero them before any S
+            sm90::zero_around_head(base + L::kQ, L::kQBox, kRows, shift, p.head_dim, boxes * sm90::kBoxCols, threadIdx.x,
+                                   kConsumerWarps * 32);
+            sm90::fence_proxy_async();
+            sm90::named_bar_sync(3, kConsumerWarps * 32);
+        }
         sm90::mbar_wait(full_k(0), 0);
         take_turn();
         issue_s(0);
@@ -371,7 +411,15 @@ __global__ void __launch_bounds__(kThreadsWgmma, 1)
 #pragma unroll
         for (int c = 0; c < Dp / 8; ++c) {
             const int col = c * 8 + t * 2;
-            if (kFull || c * 8 < p.head_dim) {  // columns past a head_dim below Dp (a multiple of 8) are not stored
+            if constexpr (kPacked) {  // tile column shift + d is the head's d; a row starts only 2-byte aligned
+                const float vals[4] = {o[4 * c] / denom_lo, o[4 * c + 1] / denom_lo, o[4 * c + 2] / denom_hi,
+                                       o[4 * c + 3] / denom_hi};
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int row = e < 2 ? row_a : row_b, d = col + (e & 1) - shift;
+                    if (row < p.seq && d >= 0 && d < p.head_dim) o_base[row * p.o_st + d] = from_float<T>(vals[e]);
+                }
+            } else if (kFull || c * 8 < p.head_dim) {  // columns past a head_dim below Dp (a multiple of 8) are not stored
                 if (row_a < p.seq) {
                     *reinterpret_cast<uint32_t*>(o_base + row_a * p.o_st + col) =
                         sm90::pack2<T>(o[4 * c] / denom_lo, o[4 * c + 1] / denom_lo);
@@ -502,10 +550,10 @@ __global__ void __launch_bounds__(kWarpsSimt * 32) flash_forward_simt(const Para
 
 // ------------------------------------------------------------------ launch
 
-template <typename T, int Dp, bool kFull>
+template <typename T, int Dp, bool kFull, bool kPacked>
 int launch_wgmma(const CUtensorMap (&maps)[3], const WgmmaParams& p, int batch, cudaStream_t stream) {
     constexpr size_t smem = ForwardTiles<Dp>::kBytes;
-    const auto kernel = flash_forward_wgmma<T, Dp, kFull>;
+    const auto kernel = flash_forward_wgmma<T, Dp, kFull, kPacked>;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid(batch * p.heads, (p.seq + kRows - 1) / kRows);
@@ -515,14 +563,17 @@ int launch_wgmma(const CUtensorMap (&maps)[3], const WgmmaParams& p, int batch, 
 
 template <typename T, int Dp>
 int launch_width(const CUtensorMap (&maps)[3], const WgmmaParams& p, int batch, cudaStream_t stream) {
-    if (p.head_dim == Dp) return launch_wgmma<T, Dp, true>(maps, p, batch, stream);
-    return launch_wgmma<T, Dp, false>(maps, p, batch, stream);
+    if (p.head_dim == Dp) return launch_wgmma<T, Dp, true, false>(maps, p, batch, stream);
+    if (packed_heads(p.head_dim)) return launch_wgmma<T, Dp, false, true>(maps, p, batch, stream);
+    return launch_wgmma<T, Dp, false, false>(maps, p, batch, stream);
 }
 
+// The padded width: the least of 64, 128 and 256 that holds the tile's span (tma_span).
 template <typename T>
 int dispatch_wgmma_width(const CUtensorMap (&maps)[3], const WgmmaParams& p, int batch, cudaStream_t stream) {
-    if (p.head_dim <= 64) return launch_width<T, 64>(maps, p, batch, stream);
-    if (p.head_dim <= 128) return launch_width<T, 128>(maps, p, batch, stream);
+    const int span = tma_span(p.head_dim, p.heads);
+    if (span <= 64) return launch_width<T, 64>(maps, p, batch, stream);
+    if (span <= 128) return launch_width<T, 128>(maps, p, batch, stream);
     return launch_width<T, 256>(maps, p, batch, stream);
 }
 
@@ -547,24 +598,24 @@ struct ForwardSimt {
 }  // namespace
 
 // q, k, v: [B, T, H, D] of one element type `dtype` (SimtDtype: bf16 or fp16),
-// head_dim a multiple of 8 from 16 to 256, each described by its TMA geometry
-// (sm90::TmaGeometry: dims, byte strides, box of 64 columns x wgmma_box_rows(head_dim)
-// rows) -> out [B, T, H, D] of that type (strides in elements) and lse [B, H, T]
-// fp32 contiguous.
+// head_dim from 16 to 256, a multiple of 8 or with H * head_dim one, each described by
+// its TMA geometry (sm90::TmaGeometry: the 4-D or the packed-heads view, byte strides,
+// box of 64 columns x forward_box_rows(head_dim) rows) -> out [B, T, H, D] of that type
+// (strides in elements) and lse [B, H, T] fp32 contiguous.
 extern "C" int hm_flash_forward_wgmma(const void* q, const void* k, const void* v, void* out, float* lse, int dtype,
                                       int batch, int seq, int heads, int head_dim,
                                       const long long* q_geometry, const long long* k_geometry,
                                       const long long* v_geometry, long long o_sb, long long o_st, long long o_sh,
                                       int causal, float scale, cudaStream_t stream) {
     if (batch <= 0 || seq <= 0 || heads <= 0) return 0;
-    if (!wgmma_takes(dtype, head_dim)) return static_cast<int>(cudaErrorInvalidValue);
+    if (!wgmma_takes(dtype, head_dim, heads, true)) return static_cast<int>(cudaErrorInvalidValue);
     const void* bases[3] = {q, k, v};
     const long long* geometries[3] = {q_geometry, k_geometry, v_geometry};
-    const int box_rows = head_dim > 128 ? ForwardTiles<256>::kKvRows : ForwardTiles<128>::kKvRows;
+    const int box_rows = tma_span(head_dim, heads) > 128 ? ForwardTiles<256>::kKvRows : ForwardTiles<128>::kKvRows;
     CUtensorMap maps[3];
     for (int i = 0; i < 3; ++i) {
         const int err = sm90::encode_tma_map(&maps[i], bases[i], *reinterpret_cast<const sm90::TmaGeometry*>(geometries[i]),
-                                             box_rows, head_dim, tma_type(dtype));
+                                             box_rows, head_dim, heads, tma_type(dtype));
         if (err != 0) return err;
     }
     const WgmmaParams p{out, lse, seq, heads, head_dim, o_sb, o_st, o_sh, scale, causal};

@@ -33,8 +33,10 @@
 // nothing relies on a padded lse.
 //
 // Both wgmma passes (building blocks in sm90.cuh; bf16 and fp16 at a head_dim that
-// is a multiple of 8 from 16 to 256; templates <T, Dp, kFull>: T the element type, Dp
-// the head_dim padded to 64, 128 or 256, kFull whether head_dim is Dp) run one
+// is a multiple of 8 from 16 to 256, and the dK/dV pass also at any other from 16 to
+// 256 whose H * head_dim is; templates <T, Dp, kFull> and the dK/dV pass's kPacked: T
+// the element type, Dp the head_dim padded to 64, 128 or 256, kFull whether head_dim
+// is Dp, kPacked whether TMA reads the packed-heads view) run one
 // thread block per 128 rows (query rows for dQ, KV rows for dK/dV; 64 KV rows at a
 // padded width of 256) of one batch*head, in three warpgroups: two consumer
 // warpgroups own 64 of those rows each (or, in the dK/dV pass at 256, the same 64
@@ -109,6 +111,22 @@
 //  * dV += P^T dO and dK += dS^T Q are wgmma with the A operand from registers
 //    and dO, Q read MN-major through the transpose-B flag.
 //  * Causal: the query loop starts at the diagonal tile.
+//  * The packed-heads view (`flash_bwd_dkv_wgmma<T, Dp, false, true>`: a head_dim
+//    that is not a multiple of 8, as the forward's kPacked): every tensor is read as
+//    (H * head_dim, T, B), head h's boxes from column h * head_dim rounded down to a
+//    multiple of 8, so the head's columns land at the tile's [s, s + head_dim), s =
+//    (h * head_dim) % 8, among its neighbours' values. The consumers zero K's and V's
+//    columns outside the head's once they land (before the first S^T), so S^T = K Q^T
+//    and dP^T = V dO^T meet zeros on the resident side and are exact; column s + d of
+//    dK and dV is the head's column d, the rest are never stored, and each stored
+//    column is a 2-byte store of its own. The streamed Q and dO tiles keep their
+//    neighbours' columns: a non-finite Q or dO value in a neighbouring head within a
+//    box's 64 columns makes head h's dK or dV NaN (0 * inf), where the TPU kernel keeps
+//    heads apart (a non-finite K or V value there does not reach it: both are zeroed).
+//    Zeroing each streamed stage as well, by the producer warpgroup's idle second warp,
+//    closed it but made this pass 74% slower at [2, 1000, 16, 20] on an H100 and
+//    spilled in the producer's 24 registers (PERF.md, row 3p's findings), so it is not
+//    done. The dQ pass has no packed form: it stays SIMT there.
 //  * Dp = 256: a consumer warpgroup cannot hold dK and dV of 64 rows (2 x 128 fp32
 //    registers a thread) beside S^T and dP^T. The block owns 64 KV rows and the
 //    two warpgroups split the head dim's columns: each computes S^T and dP^T of
@@ -125,13 +143,14 @@
 //
 // SIMT (every input the wgmma passes do not take: fp32, where tensor cores would
 // round the inputs to TF32; bf16 and fp16 at a head_dim that is not a multiple of
-// 8; any head_dim up to 256, as the TPU kernels take the whole head_dim as their
-// block): plain fp32 FMAs on the CUDA cores, no TF32, the inputs
-// widened to fp32 as they are staged and P and dS kept in fp32, as the TPU
-// kernels. A warp owns 4 rows (query rows in the dQ kernel, KV rows in the dK/dV
-// kernel); lane j takes column j of a 32-wide tile, and each lane accumulates
-// kD/32 output columns from the per-column terms broadcast by shuffles. kD is
-// head_dim rounded up to 32, 64, 96, 128 or 256, its extra columns zeros.
+// 8, in the dQ pass, and in the dK/dV pass where H * head_dim is not one either; any
+// head_dim up to 256, as the TPU kernels take the whole head_dim as their block):
+// plain fp32 FMAs on the CUDA cores, no TF32, the inputs widened to fp32 as they are
+// staged and P and dS kept in fp32, as the TPU kernels. A warp owns 4 rows (query
+// rows in the dQ kernel, KV rows in the dK/dV kernel); lane j takes column j of a
+// 32-wide tile, and each lane accumulates kD/32 output columns from the per-column
+// terms broadcast by shuffles. kD is head_dim rounded up to 32, 64, 96, 128 or 256,
+// its extra columns zeros.
 
 #include <cuda_bf16.h>
 
@@ -186,15 +205,23 @@ struct WgmmaParams {
 // of this thread and columns from `col0`: acc[4n + e] holds row row_a + 8*(e >> 1),
 // column col0 + 8n + 2t + (e & 1) (the wgmma m64nN accumulator layout); rows at or
 // past `seq` are not stored, nor (kMasked) columns at or past `head_dim`, a multiple
-// of 8.
-template <bool kMasked, typename T, int N>
+// of 8. kPacked: `head_dim` is any other, in the packed-heads view, where tile column
+// shift + d holds the head's column d and a row starts only 2-byte aligned: each
+// column is stored (or not) on its own.
+template <bool kMasked, bool kPacked, typename T, int N>
 __device__ __forceinline__ void store_rows(T* base, long long row_stride, const float* acc, int row_a, int seq, int t,
-                                           int col0, int head_dim) {
+                                           int col0, int head_dim, int shift = 0) {
     const int row_b = row_a + 8;
 #pragma unroll
     for (int n = 0; n < N / 8; ++n) {
         const int col = col0 + n * 8 + t * 2;
-        if (!kMasked || col0 + n * 8 < head_dim) {
+        if constexpr (kPacked) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int row = e < 2 ? row_a : row_b, d = col + (e & 1) - shift;
+                if (row < seq && d >= 0 && d < head_dim) base[row * row_stride + d] = from_float<T>(acc[4 * n + e]);
+            }
+        } else if (!kMasked || col0 + n * 8 < head_dim) {
             if (row_a < seq) {
                 *reinterpret_cast<uint32_t*>(base + row_a * row_stride + col) = sm90::pack2<T>(acc[4 * n], acc[4 * n + 1]);
             }
@@ -209,16 +236,16 @@ __device__ __forceinline__ void store_rows(T* base, long long row_stride, const 
 // TMA of one tile of kRows rows from row `row0`: its first `boxes` regions of 64
 // columns x kRows rows, one after the other, each loaded as kRows / kBox boxes of
 // kBox rows (8 rows of 128 bytes are one swizzle period, so a box lands where the
-// same rows of one taller box would).
+// same rows of one taller box would). `origin`: the head's (column, head) coordinates.
 template <int kBox, int kRows>
-__device__ __forceinline__ void load_tile_tma(uint32_t dst, const CUtensorMap* map, uint32_t bar, int boxes, int h,
+__device__ __forceinline__ void load_tile_tma(uint32_t dst, const CUtensorMap* map, uint32_t bar, int boxes, int2 origin,
                                               int row0, int b) {
 #pragma unroll
     for (int col = 0; col < boxes; ++col) {
 #pragma unroll
         for (int part = 0; part < kRows / kBox; ++part) {
             sm90::tma_load_4d(dst + (col * kRows + part * kBox) * sm90::kSwizzleRowBytes, map, bar,
-                              col * sm90::kBoxCols, h, row0 + part * kBox, b);
+                              origin.x + col * sm90::kBoxCols, origin.y, row0 + part * kBox, b);
         }
     }
 }
@@ -265,6 +292,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int q0 = (q_tiles - 1 - static_cast<int>(blockIdx.y)) * kBlockRows;  // heaviest first
     const int kv_end = p.causal ? min(p.seq, q0 + kBlockRows) : p.seq;        // causal: up to the diagonal
     const int kv_tiles = (kv_end + kKvRows - 1) / kKvRows;
+    const int2 origin = sm90::head_origin(h, p.head_dim, false);  // the 4-D view: the dQ pass takes no packed heads
     // The regions TMA loads, as the other passes: at Dp = 256 a region wholly past a
     // head_dim of 192 or less is zeroed once here and never loaded.
     const int boxes = !kFull && Dp > 128 ? (p.head_dim + sm90::kBoxCols - 1) / sm90::kBoxCols : L::kBoxes;
@@ -296,18 +324,18 @@ __global__ void __launch_bounds__(kThreads, 1)
         sm90::setmaxnreg_dec<kProducerRegs>();
         if (threadIdx.x == kConsumerWarps * 32) {
             sm90::mbar_arrive_expect_tx(full_qdo, 2 * boxes * L::kQBox);
-            load_tile_tma<kBoxRows, kBlockRows>(base + L::kQ, &tm_q, full_qdo, boxes, h, q0, b);
-            load_tile_tma<kBoxRows, kBlockRows>(base + L::kDo, &tm_do, full_qdo, boxes, h, q0, b);
+            load_tile_tma<kBoxRows, kBlockRows>(base + L::kQ, &tm_q, full_qdo, boxes, origin, q0, b);
+            load_tile_tma<kBoxRows, kBlockRows>(base + L::kDo, &tm_do, full_qdo, boxes, origin, q0, b);
             for (int j = 0; j < kv_tiles; ++j) {
                 const int s = j % kStages;
                 const uint32_t parity = ((j / kStages) & 1) ^ 1;  // the first round passes at once
                 sm90::mbar_wait(empty_k(s), parity);
                 sm90::mbar_arrive_expect_tx(full_k(s), boxes * L::kKvBox);
-                load_tile_tma<kKvRows, kKvRows>(base + L::kK + s * L::kKvTile, &tm_k, full_k(s), boxes, h,
+                load_tile_tma<kKvRows, kKvRows>(base + L::kK + s * L::kKvTile, &tm_k, full_k(s), boxes, origin,
                                                 j * kKvRows, b);
                 sm90::mbar_wait(empty_v(s), parity);
                 sm90::mbar_arrive_expect_tx(full_v(s), boxes * L::kKvBox);
-                load_tile_tma<kKvRows, kKvRows>(base + L::kV + s * L::kKvTile, &tm_v, full_v(s), boxes, h,
+                load_tile_tma<kKvRows, kKvRows>(base + L::kV + s * L::kKvTile, &tm_v, full_v(s), boxes, origin,
                                                 j * kKvRows, b);
             }
         }
@@ -437,8 +465,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         sm90::wgmma_commit();
         if (wg == 0) pass_turn();  // warpgroup 1's last turn has no taker
         finish_turn();
-        store_rows<!kFull, T, Dp>(static_cast<T*>(p.out0) + b * p.o_sb + h * p.o_sh, p.o_st, dq, row_a, p.seq, t, 0,
-                                  p.head_dim);
+        store_rows<!kFull, false, T, Dp>(static_cast<T*>(p.out0) + b * p.o_sb + h * p.o_sh, p.o_st, dq, row_a, p.seq,
+                                         t, 0, p.head_dim);
     }
 }
 
@@ -470,8 +498,10 @@ struct DkvTiles {
 // T: __nv_bfloat16 or __half. Dp: head_dim padded to 64, 128 or 256; columns at or
 // past head_dim read as zeros and are never stored. kFull: head_dim == Dp, whose
 // stores need no column test (its mere presence in a kernel costs a full-width
-// tile 1-3%, as measured against one without it).
-template <typename T, int Dp, bool kFull>
+// tile 1-3%, as measured against one without it). kPacked: the packed-heads view (a
+// head_dim that is not a multiple of 8): K's and V's columns past head_dim are
+// zeroed once they land, and each column of dK and dV is stored on its own.
+template <typename T, int Dp, bool kFull, bool kPacked>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                         const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
@@ -492,9 +522,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int kv0 = blockIdx.y * L::kKvRows;
     const int q_tiles = (p.seq + kBoxRows - 1) / kBoxRows;
     const int q_begin = p.causal ? kv0 / kBoxRows : 0;  // causal: start at the diagonal tile
+    const int2 origin = sm90::head_origin(h, p.head_dim, kPacked);  // as the forward's
+    const int shift = sm90::head_shift(h, p.head_dim, kPacked);
     // The regions TMA loads, as the forward: at Dp = 256 a region wholly past a
-    // head_dim of 192 or less is zeroed once here and never loaded.
-    const int boxes = !kFull && Dp > 128 ? (p.head_dim + sm90::kBoxCols - 1) / sm90::kBoxCols : L::kBoxes;
+    // head_dim of 192 or less (past shift + head_dim, packed) is zeroed once here and
+    // never loaded.
+    const int boxes =
+        !kFull && Dp > 128 ? (shift + p.head_dim + sm90::kBoxCols - 1) / sm90::kBoxCols : L::kBoxes;
     if (!kFull && Dp > 128 && boxes < L::kBoxes) {
         for (int region = boxes; region < L::kBoxes; ++region) {
             sm90::zero_shared(base + L::kK + region * L::kKvBox, L::kKvBox);
@@ -523,8 +557,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (lane < 32) {
             if (lane == 0) {
                 sm90::mbar_arrive_expect_tx(full_kv, 2 * boxes * L::kKvBox);
-                load_tile_tma<kBoxRows, L::kKvRows>(base + L::kK, &tm_k, full_kv, boxes, h, kv0, b);
-                load_tile_tma<kBoxRows, L::kKvRows>(base + L::kV, &tm_v, full_kv, boxes, h, kv0, b);
+                load_tile_tma<kBoxRows, L::kKvRows>(base + L::kK, &tm_k, full_kv, boxes, origin, kv0, b);
+                load_tile_tma<kBoxRows, L::kKvRows>(base + L::kV, &tm_v, full_kv, boxes, origin, kv0, b);
             }
             const float* lse = p.lse + static_cast<long long>(bh) * p.seq;
             const float* delta = p.delta + static_cast<long long>(bh) * p.seq;
@@ -540,8 +574,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                 }
                 if (lane == 0) {
                     sm90::mbar_arrive_expect_tx(full(s), 2 * boxes * L::kQBox);
-                    load_tile_tma<kBoxRows, kBoxRows>(base + L::kQ + s * L::kQTile, &tm_q, full(s), boxes, h, q0, b);
-                    load_tile_tma<kBoxRows, kBoxRows>(base + L::kDo + s * L::kQTile, &tm_do, full(s), boxes, h, q0, b);
+                    load_tile_tma<kBoxRows, kBoxRows>(base + L::kQ + s * L::kQTile, &tm_q, full(s), boxes, origin, q0, b);
+                    load_tile_tma<kBoxRows, kBoxRows>(base + L::kDo + s * L::kQTile, &tm_do, full(s), boxes, origin, q0,
+                                                      b);
                 } else {
                     sm90::mbar_arrive(full(s));
                 }
@@ -565,6 +600,14 @@ __global__ void __launch_bounds__(kThreads, 1)
         const uint32_t v_wg = base + L::kV + wg_row * sm90::kSwizzleRowBytes;
         const uint32_t col_off = (col0 / sm90::kBoxCols) * L::kQBox;  // its columns' first region of Q and dO
         sm90::mbar_wait(full_kv, 0);
+        if constexpr (kPacked) {  // K's and V's columns around the head's hold its neighbours': zero them
+            sm90::zero_around_head(base + L::kK, L::kKvBox, L::kKvRows, shift, p.head_dim, boxes * sm90::kBoxCols,
+                                   threadIdx.x, kConsumerWarps * 32);
+            sm90::zero_around_head(base + L::kV, L::kKvBox, L::kKvRows, shift, p.head_dim, boxes * sm90::kBoxCols,
+                                   threadIdx.x, kConsumerWarps * 32);
+            sm90::fence_proxy_async();
+            sm90::named_bar_sync(1, kConsumerWarps * 32);
+        }
         for (int i = q_begin; i < q_tiles; ++i) {
             const int n = i - q_begin, s = n % kDkvStages;
             const uint32_t q_tile = base + L::kQ + s * L::kQTile, do_tile = base + L::kDo + s * L::kQTile;
@@ -637,10 +680,10 @@ __global__ void __launch_bounds__(kThreads, 1)
             sm90::fence_regs(dk);
             if (lane == 0) sm90::mbar_arrive(empty(s));  // this warp is done with stage s
         }
-        store_rows<!kFull, T, kAccCols>(static_cast<T*>(p.out0) + b * p.o_sb + h * p.o_sh, p.o_st, dk, row_a, p.seq, t,
-                                        col0, p.head_dim);
-        store_rows<!kFull, T, kAccCols>(static_cast<T*>(p.out1) + b * p.o_sb + h * p.o_sh, p.o_st, dv, row_a, p.seq, t,
-                                        col0, p.head_dim);
+        store_rows<!kFull, kPacked, T, kAccCols>(static_cast<T*>(p.out0) + b * p.o_sb + h * p.o_sh, p.o_st, dk, row_a,
+                                                 p.seq, t, col0, p.head_dim, shift);
+        store_rows<!kFull, kPacked, T, kAccCols>(static_cast<T*>(p.out1) + b * p.o_sb + h * p.o_sh, p.o_st, dv, row_a,
+                                                 p.seq, t, col0, p.head_dim, shift);
     }
 }
 
@@ -883,37 +926,43 @@ int launch_wgmma(Kernel kernel, size_t smem, int rows, const CUtensorMap (&maps)
 // full width or not, with its tiles' shared memory and its block's rows.
 template <bool kDq, typename T, int Dp>
 int launch_pass(const CUtensorMap (&maps)[4], const WgmmaParams& p, int batch, cudaStream_t stream) {
-    constexpr size_t smem = kDq ? DqTiles<Dp>::kBytes : DkvTiles<Dp>::kBytes;
-    constexpr int rows = kDq ? kBlockRows : DkvTiles<Dp>::kKvRows;
-    const auto full = kDq ? flash_bwd_dq_wgmma<T, Dp, true> : flash_bwd_dkv_wgmma<T, Dp, true>;
-    const auto narrower = kDq ? flash_bwd_dq_wgmma<T, Dp, false> : flash_bwd_dkv_wgmma<T, Dp, false>;
-    return launch_wgmma(p.head_dim == Dp ? full : narrower, smem, rows, maps, p, batch, stream);
+    if constexpr (kDq) {
+        const auto kernel = p.head_dim == Dp ? flash_bwd_dq_wgmma<T, Dp, true> : flash_bwd_dq_wgmma<T, Dp, false>;
+        return launch_wgmma(kernel, DqTiles<Dp>::kBytes, kBlockRows, maps, p, batch, stream);
+    } else {  // the dK/dV pass also takes the packed-heads view
+        const auto kernel = p.head_dim == Dp            ? flash_bwd_dkv_wgmma<T, Dp, true, false>
+                            : packed_heads(p.head_dim) ? flash_bwd_dkv_wgmma<T, Dp, false, true>
+                                                       : flash_bwd_dkv_wgmma<T, Dp, false, false>;
+        return launch_wgmma(kernel, DkvTiles<Dp>::kBytes, DkvTiles<Dp>::kKvRows, maps, p, batch, stream);
+    }
 }
 
+// The padded width: the least of 64, 128 and 256 that holds the tile's span (tma_span).
 template <bool kDq, typename T>
 int dispatch_width(const CUtensorMap (&maps)[4], const WgmmaParams& p, int batch, cudaStream_t stream) {
-    if (p.head_dim <= 64) return launch_pass<kDq, T, 64>(maps, p, batch, stream);
-    if (p.head_dim <= 128) return launch_pass<kDq, T, 128>(maps, p, batch, stream);
+    const int span = tma_span(p.head_dim, p.heads);
+    if (span <= 64) return launch_pass<kDq, T, 64>(maps, p, batch, stream);
+    if (span <= 128) return launch_pass<kDq, T, 128>(maps, p, batch, stream);
     return launch_pass<kDq, T, 256>(maps, p, batch, stream);
 }
 
 // The tensor maps of q, k, v, dout from the wrapper's geometries (boxes of 64 x 64),
 // with boxes of `kv_rows` rows for k and v.
 int encode_maps(CUtensorMap (&maps)[4], const void* const (&bases)[4], const long long* const (&geometries)[4],
-                int head_dim, int dtype, int kv_rows) {
+                int head_dim, int heads, int dtype, int kv_rows) {
     for (int i = 0; i < 4; ++i) {
         sm90::TmaGeometry geometry = *reinterpret_cast<const sm90::TmaGeometry*>(geometries[i]);
         if (geometry.box[2] != kBoxRows) return static_cast<int>(cudaErrorInvalidValue);
         const int rows = i == 1 || i == 2 ? kv_rows : kBoxRows;
         geometry.box[2] = rows;
-        const int err = sm90::encode_tma_map(&maps[i], bases[i], geometry, rows, head_dim, tma_type(dtype));
+        const int err = sm90::encode_tma_map(&maps[i], bases[i], geometry, rows, head_dim, heads, tma_type(dtype));
         if (err != 0) return err;
     }
     return 0;
 }
 
-// Both wgmma passes' C entries: bf16 or fp16 at a head_dim that is a multiple of 8
-// from 16 to 256.
+// Both wgmma passes' C entries: bf16 or fp16 at a head_dim from 16 to 256 that is a
+// multiple of 8, and for the dK/dV pass any other whose heads * head_dim is.
 template <bool kDq>
 int launch_wgmma_pass(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                       const float* delta, void* out0, void* out1, int dtype, int batch, int seq, int heads,
@@ -921,11 +970,11 @@ int launch_wgmma_pass(const void* q, const void* k, const void* v, const void* d
                       const long long* v_geometry, const long long* d_geometry, long long o_sb, long long o_st,
                       long long o_sh, int causal, float scale, cudaStream_t stream) {
     if (batch <= 0 || seq <= 0 || heads <= 0) return 0;
-    if (!wgmma_takes(dtype, head_dim)) return static_cast<int>(cudaErrorInvalidValue);
+    if (!wgmma_takes(dtype, head_dim, heads, !kDq)) return static_cast<int>(cudaErrorInvalidValue);
     CUtensorMap maps[4];
     const int kv_rows = kDq && head_dim > 128 ? DqTiles<256>::kKvRows : kBoxRows;
     const int err = encode_maps(maps, {q, k, v, dout}, {q_geometry, k_geometry, v_geometry, d_geometry}, head_dim,
-                                dtype, kv_rows);
+                                heads, dtype, kv_rows);
     if (err != 0) return err;
     const WgmmaParams p{lse, delta, out0, out1, seq, heads, head_dim, o_sb, o_st, o_sh, scale, causal};
     if (dtype == kSimtF16) return dispatch_width<kDq, __half>(maps, p, batch, stream);
@@ -982,7 +1031,8 @@ extern "C" int hm_flash_backward_dkv_simt(const void* q, const void* k, const vo
 // a head_dim that is a multiple of 8 from 16 to 256), each described by its TMA
 // geometry (sm90::TmaGeometry, boxes of 64 columns x 64 rows; one set serves both
 // passes); lse, delta: [B, H, T] fp32 contiguous -> dq [B, T, H, D] of that type
-// (strides o_*, in elements).
+// (strides o_*, in elements). The dK/dV entry below also takes a head_dim that is not
+// a multiple of 8 whose H * head_dim is, in the packed-heads view.
 extern "C" int hm_flash_backward_dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
                                           const float* lse, const float* delta, void* dq, int dtype,
                                           int batch, int seq, int heads, int head_dim,

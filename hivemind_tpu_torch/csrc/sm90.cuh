@@ -21,7 +21,10 @@
 // such regions, one after the other. bf16 and fp16 are both 2 bytes, so they
 // share every layout, descriptor and box. A head_dim below Dp reads its columns
 // past head_dim as zeros (TMA's out-of-bounds fill), which add nothing to a
-// product.
+// product. In the packed-heads view (a head_dim that is not a multiple of 8, see
+// TmaGeometry) a head's columns start head_shift columns into the tile, and the
+// columns around them hold the neighbouring heads' values; a kernel zeroes those in
+// the tiles it keeps resident (zero_columns).
 //  * K-major operand (rows = M or N, the 64 columns = K): a k16 step is 32 bytes
 //    along the row; SBO = 1024 bytes (the next 8 rows); LBO is unused.
 //  * MN-major operand (rows = K, the 64 columns = N): a k16 step is 16 rows
@@ -83,6 +86,39 @@ __device__ __forceinline__ void zero_shared(uint32_t addr, uint32_t bytes) {
     }
 }
 
+// Zero columns [col_begin, col_end) of the first `rows` rows of a tile in the
+// 128-byte-swizzled layout at `tile`, whose 64-column regions lie `region_bytes`
+// apart: a 16-byte chunk wholly inside by one vector store at its swizzled place
+// (chunk ^ row % 8), a chunk holding either end by 2-byte stores. Thread `thread` of
+// `threads` takes every threads-th (row, chunk), neighbouring threads on neighbouring
+// rows (8 rows fill the 32 banks). A tile that wgmma reads afterwards needs
+// fence_proxy_async() and a barrier between.
+__device__ __forceinline__ void zero_columns(uint32_t tile, uint32_t region_bytes, int rows, int col_begin, int col_end,
+                                             int thread, int threads) {
+    const int chunk0 = col_begin / 8, chunks = (col_end + 7) / 8 - chunk0;
+    for (int i = thread; i < rows * chunks; i += threads) {
+        const int row = i % rows, chunk = chunk0 + i / rows;
+        const uint32_t addr = tile + (chunk / 8) * region_bytes + row * kSwizzleRowBytes + (((chunk % 8) ^ (row % 8)) * 16);
+        if (chunk * 8 >= col_begin && chunk * 8 + 8 <= col_end) {
+            asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n"
+                         ::"r"(addr), "r"(0), "r"(0), "r"(0), "r"(0) : "memory");
+        } else {
+            for (int col = max(col_begin, chunk * 8); col < min(col_end, chunk * 8 + 8); ++col) {
+                asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(addr + 2 * (col % 8)),
+                             "h"(static_cast<unsigned short>(0)) : "memory");
+            }
+        }
+    }
+}
+
+// Zero the columns of a packed-heads tile (as zero_columns) around its head's, [shift,
+// shift + head_dim), up to `width`, the columns TMA loaded.
+__device__ __forceinline__ void zero_around_head(uint32_t tile, uint32_t region_bytes, int rows, int shift, int head_dim,
+                                                 int width, int thread, int threads) {
+    zero_columns(tile, region_bytes, rows, 0, shift, thread, threads);
+    zero_columns(tile, region_bytes, rows, shift + head_dim, width, thread, threads);
+}
+
 // Orders this thread's generic shared-memory writes before the async proxy's
 // (TMA, wgmma) accesses.
 __device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
@@ -137,21 +173,37 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
 }
 
 // The geometry of a [B, T, H, D] bf16 or fp16 tensor as the wrapper computes it
-// (hivemind_tpu_torch/ops/flash_attention.py, tma_geometry): dims (D, H, T, B),
-// innermost first; byte strides of H, T and B; the box (64, 1, rows, 1). D may be
-// below the box's 64 columns, or not a multiple of 64: the columns past D read
-// as zeros.
+// (hivemind_tpu_torch/ops/flash_attention.py, tma_geometry), innermost first, with
+// byte strides of the outer three dimensions and the box (64, 1, rows, 1):
+//  * D a multiple of 8: the 4-D view, dims (D, H, T, B). Head h's boxes start at
+//    coordinates (64 j, h). D may be below the box's 64 columns, or not a multiple
+//    of 64: the columns past D read as zeros.
+//  * any other D (the packed-heads view): dims (H * D, 1, T, B), H * D a multiple of
+//    8, the heads packed in the row. TMA takes only a start column that is a multiple
+//    of 8 (16 bytes; any other raises an illegal instruction on an H100), so head h's
+//    boxes start at (h * D - s + 64 j, 0), s = head_shift(h) = (h * D) % 8: head h's
+//    columns are the tile's [s, s + D), the columns around them the neighbouring
+//    heads' values, and past H * D zeros.
 struct TmaGeometry {
     long long dims[4];
     long long strides[3];
     long long box[4];
 };
 
+// The columns head h's boxes start before its first column: (h * head_dim) % 8 in the
+// packed-heads view (`packed`), 0 in the 4-D view.
+__device__ __forceinline__ int head_shift(int h, int head_dim, bool packed) { return packed ? h * head_dim % 8 : 0; }
+
+// Head h's TMA coordinates (column, head) in the view of a head_dim-`head_dim` tensor.
+__device__ __forceinline__ int2 head_origin(int h, int head_dim, bool packed) {
+    return packed ? make_int2(h * head_dim - head_shift(h, head_dim, packed), 0) : make_int2(0, h);
+}
+
 // Encode the tensor map of `base` with `geometry`, whose box must be 64 columns
-// by `rows` rows of a head_dim-`head_dim` tensor of `type` (bf16 or fp16).
-// Returns a cudaError_t.
+// by `rows` rows of a tensor of `heads` heads of head_dim `head_dim` of `type`
+// (bf16 or fp16), in the view its head_dim takes. Returns a cudaError_t.
 inline int encode_tma_map(CUtensorMap* map, const void* base, const TmaGeometry& geometry, int rows, int head_dim,
-                          CUtensorMapDataType type) {
+                          int heads, CUtensorMapDataType type) {
     static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
     if (encode == nullptr) {
         void* fn = nullptr;
@@ -161,7 +213,10 @@ inline int encode_tma_map(CUtensorMap* map, const void* base, const TmaGeometry&
         if (found != cudaDriverEntryPointSuccess || fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
         encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
     }
-    if (geometry.dims[0] != head_dim || geometry.box[0] != kBoxCols || geometry.box[1] != 1 ||
+    const bool packed = head_dim % 8 != 0;
+    const long long columns = packed ? static_cast<long long>(heads) * head_dim : head_dim;
+    if (geometry.dims[0] != columns || geometry.dims[1] != (packed ? 1 : heads) || geometry.box[0] != kBoxCols ||
+        geometry.box[1] != 1 ||
         geometry.box[2] != rows || geometry.box[3] != 1) {
         return static_cast<int>(cudaErrorInvalidValue);
     }

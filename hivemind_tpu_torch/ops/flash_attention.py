@@ -18,19 +18,25 @@ a kernel or raises. Each kernel wrapper counts its launches in ``.launches``
 Each pass (the forward, the dQ pass, the dK/dV pass) has two designs, chosen per
 pass by :func:`flash_route`: ``"wgmma"`` (tensor cores fed by TMA) and ``"simt"``
 (fp32 FMAs on the CUDA cores). Every pass runs wgmma for bf16 and fp16 at a
-head_dim that is a multiple of 8 from 16 to 256. SIMT takes the rest: fp32 (tensor
-cores would round its inputs to TF32) and a 16-bit head_dim that is not a multiple
-of 8 (TMA needs 16-byte strides); any head_dim up to 256, as the TPU kernels take
-any head_dim as their block. A CUDA input launches its pass's route or raises: no
-route falls back to another. :func:`flash_refusal` names the few inputs no design
-takes. A view a kernel cannot read through its strides is copied first
-(:func:`_kernel_layout`).
+head_dim that is a multiple of 8 from 16 to 256; the forward and the dK/dV pass
+also at any other head_dim from 16 to 256 whose H·D is a multiple of 8 (TinyBERT's
+26, through the packed-heads view below). SIMT takes the rest: fp32 (tensor cores
+would round its inputs to TF32), the dQ pass at a 16-bit head_dim that is not a
+multiple of 8, and the other passes there when H·D is not a multiple of 8 either;
+any head_dim up to 256, as the TPU kernels take any head_dim as their block. A
+CUDA input launches its pass's route or raises: no route falls back to another.
+:func:`flash_refusal` names the few inputs no design takes. A view a kernel cannot
+read through its strides is copied first (:func:`_kernel_layout`).
 
 The wgmma kernels read q, k, v (and dout) by TMA: the wrapper describes each
-tensor to the kernel's C entry point as a 4-D view (:func:`tma_geometry`), from
-which the entry point encodes the tensor maps. The two backward passes share one
-view of each tensor (:func:`backward_geometries`), which
-``flash_attention_backward`` computes once, when a pass runs wgmma.
+tensor to the kernel's C entry point as a view (:func:`tma_geometry`), from which
+the entry point encodes the tensor maps: the 4-D view (D, H, T, B) at a head_dim
+that is a multiple of 8, else the packed-heads view (H·D, T, B), whose rows are
+whole tokens (its head stride of 2·D bytes would not be TMA's multiple of 16). TMA
+takes only a start column that is a multiple of 8 there, so head h's boxes start
+(h·D) mod 8 columns before it, and a tile spans up to :func:`tma_span` columns.
+The two backward passes share one view of each tensor (:func:`backward_geometries`),
+which ``flash_attention_backward`` computes once, when a pass runs wgmma.
 """
 
 from __future__ import annotations
@@ -84,59 +90,98 @@ BACKWARD_BOX_ROWS = 64
 _TMA_MAX_STRIDE = 2**40  # cuTensorMapEncodeTiled's bound on a byte stride
 
 
-def padded_head_dim(head_dim: int) -> int:
-    """The width a wgmma kernel computes ``head_dim`` at: the least of 64, 128 and
-    256 that holds it (its columns past head_dim read as zeros)."""
-    return next(width for width in WGMMA_WIDTHS if head_dim <= width)
+def padded_head_dim(span: int) -> int:
+    """The width a wgmma kernel computes a tile that spans ``span`` columns at (the
+    head_dim, or :func:`tma_span`'s): the least of 64, 128 and 256 that holds it (the
+    columns past the head's read as zeros, or are zeroed)."""
+    return next(width for width in WGMMA_WIDTHS if span <= width)
 
 
-def forward_box_rows(head_dim: int) -> int:
+def forward_box_rows(span: int) -> int:
     """Rows of the forward's KV tiles and TMA boxes: 128, or 64 at a padded width
     of 256, where a 128-row tile's scores would not fit the registers beside O."""
-    return 64 if padded_head_dim(head_dim) > 128 else FORWARD_TILE_ROWS
+    return 64 if padded_head_dim(span) > 128 else FORWARD_TILE_ROWS
 
 
-def dkv_block_rows(head_dim: int) -> int:
+def dkv_block_rows(span: int) -> int:
     """KV rows a dK/dV block owns: 128, or 64 at a padded width of 256, where its
     two warpgroups split the columns of the same rows."""
-    return 64 if padded_head_dim(head_dim) > 128 else 128
+    return 64 if padded_head_dim(span) > 128 else 128
 
 
 class TmaGeometry(NamedTuple):
     """A bf16 or fp16 ``[B, T, H, D]`` tensor as a 4-D TMA view, innermost dimension
-    first: ``dims`` (D, H, T, B), the byte ``strides`` of H, T and B, and the
-    ``box`` one load copies, (64, 1, rows, 1). A tile row takes
-    ``padded_head_dim(D) / 64`` such boxes, each its own 128-byte swizzle region in
-    shared memory; the columns past D read as zeros."""
+    first: ``dims``, the byte ``strides`` of the outer three, and the ``box`` one
+    load copies, (64, 1, rows, 1). A tile row takes ``padded_head_dim(tma_span(D, H))
+    / 64`` such boxes, each its own 128-byte swizzle region in shared memory.
+
+    * D a multiple of 8, the 4-D view: dims (D, H, T, B), strides of H, T and B.
+      The columns past D read as zeros.
+    * Any other D, the packed-heads view (H·D, T, B) with a head dimension of one:
+      dims (H·D, 1, T, B), strides (2·H·D, T's, B's). TMA takes only a start column
+      that is a multiple of 8 (16 bytes), so head h's boxes start at column h·D
+      rounded down to one (``head_column`` = D), (h·D) mod 8 columns before the
+      head's first: the tile's columns around the head's hold its neighbours' values
+      (zeroed by the kernels where they matter), past H·D zeros."""
 
     dims: Tuple[int, int, int, int]
     strides: Tuple[int, int, int]
     box: Tuple[int, int, int, int]
+    head_column: int = 0  # the column head h's boxes start at, per h: D in the packed-heads view
 
     def as_ctypes(self) -> ctypes.Array:
         """The 11 int64s the C entry points read as ``sm90::TmaGeometry``."""
         return (ctypes.c_longlong * 11)(*self.dims, *self.strides, *self.box)
 
+    def head_origin(self, head: int) -> Tuple[int, int]:
+        """The (column, head) coordinates of head ``head``'s first box, as the kernels
+        compute them (``sm90::head_origin``)."""
+        if self.head_column:
+            return head * self.head_column // 8 * 8, 0
+        return 0, head
+
+
+def packed_heads(head_dim: int) -> bool:
+    """Whether TMA reads a head_dim through the packed-heads view: one that is not a
+    multiple of 8, whose 2·D-byte head stride TMA cannot take."""
+    return head_dim % 8 != 0
+
+
+def tma_span(head_dim: int, heads: int) -> int:
+    """The columns a wgmma tile of one head spans (the C side's ``tma_span``): the
+    head_dim in the 4-D view; in the packed-heads view the head_dim plus the most
+    columns any head's boxes start before it, (h·D) mod 8 over the heads."""
+    if not packed_heads(head_dim):
+        return head_dim
+    return head_dim + max(h * head_dim % 8 for h in range(min(heads, 8)))
+
 
 def tma_geometry(t: torch.Tensor, rows: int) -> TmaGeometry:
     """The TMA view of ``t`` (bf16 or fp16 ``[B, T, H, D]``) with boxes of 64
     columns by ``rows`` rows; raises ``ValueError`` on a view TMA cannot take: a
-    head dim that is not contiguous, not a multiple of 8 or outside 16 to 256, a
-    base address that is not 16-byte aligned, or a B, T or H stride that is not a
-    multiple of 16 bytes below 2^40."""
+    head dim that is not contiguous or outside 16 to 256; at a head dim that is not
+    a multiple of 8, heads not packed in the row (head stride D) or an H·D that is
+    not a multiple of 8; a base address that is not 16-byte aligned, or an outer
+    stride that is not a multiple of 16 bytes below 2^40."""
     if t.dim() != 4 or t.dtype not in WGMMA_DTYPES:
         raise ValueError(f"TMA views take bf16 or fp16 [B, T, H, D] tensors, got {t.dtype} of shape {tuple(t.shape)}")
     batch, seq, heads, dim = t.shape
     stride_b, stride_t, stride_h, stride_d = t.stride()
-    if stride_d != 1 or dim % 8 or not WGMMA_MIN_HEAD_DIM <= dim <= WGMMA_WIDTHS[-1]:
-        raise ValueError(f"TMA needs a contiguous head dim that is a multiple of 8 from {WGMMA_MIN_HEAD_DIM} to "
-                         f"{WGMMA_WIDTHS[-1]}, got shape {tuple(t.shape)}, strides {t.stride()}")
-    strides = (2 * stride_h, 2 * stride_t, 2 * stride_b)  # 2 bytes an element
+    if stride_d != 1 or not WGMMA_MIN_HEAD_DIM <= dim <= WGMMA_WIDTHS[-1]:
+        raise ValueError(f"TMA needs a contiguous head dim from {WGMMA_MIN_HEAD_DIM} to {WGMMA_WIDTHS[-1]}, got shape "
+                         f"{tuple(t.shape)}, strides {t.stride()}")
+    if not packed_heads(dim):
+        dims, strides, head_column = (dim, heads, seq, batch), (2 * stride_h, 2 * stride_t, 2 * stride_b), 0
+    elif stride_h == dim and heads * dim % 8 == 0:
+        dims, strides, head_column = (heads * dim, 1, seq, batch), (2 * heads * dim, 2 * stride_t, 2 * stride_b), dim
+    else:
+        raise ValueError(f"a head dim that is not a multiple of 8 takes TMA's packed-heads view: heads packed in the row "
+                         f"(head stride D) and H·D a multiple of 8, got shape {tuple(t.shape)}, strides {t.stride()}")
     if (strides[0] | strides[1] | strides[2]) % 16 or max(strides) >= _TMA_MAX_STRIDE:
-        raise ValueError(f"TMA needs H, T and B strides that are multiples of 16 bytes below 2^40, got {strides} bytes")
+        raise ValueError(f"TMA needs outer strides that are multiples of 16 bytes below 2^40, got {strides} bytes")
     if t.data_ptr() % 16:
         raise ValueError("TMA needs a 16-byte aligned base address")
-    return TmaGeometry((dim, heads, seq, batch), strides, (TMA_BOX_COLS, 1, rows, 1))
+    return TmaGeometry(dims, strides, (TMA_BOX_COLS, 1, rows, 1), head_column)
 
 
 def backward_geometries(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor) -> Tuple[TmaGeometry, ...]:
@@ -166,14 +211,20 @@ def _library() -> ctypes.CDLL:
 
 def flash_route(q: torch.Tensor, which: str = "forward") -> str:
     """Which design runs the pass ``which`` ("forward", "dq" or "dkv") on ``q`` (and
-    the tensors of its shape and dtype), the same for every pass: ``"wgmma"`` for
-    bf16 and fp16 at a head_dim that is a multiple of 8 (TMA's 16-byte strides) from
-    16 to 256; ``"simt"`` otherwise."""
+    the tensors of its shape and dtype): ``"wgmma"`` for bf16 and fp16 at a head_dim
+    from 16 to 256 that TMA reads, in every pass at a multiple of 8 (the 4-D view),
+    and in the forward and the dK/dV pass at any other whose H·D is a multiple of 8
+    and whose :func:`tma_span` is at most 256 (the packed-heads view); ``"simt"``
+    otherwise."""
     if which not in PASSES:
         raise ValueError(f"flash_route answers for {PASSES}, got {which!r}")
-    head_dim = q.shape[-1]
-    takes = q.dtype in WGMMA_DTYPES and head_dim % 8 == 0 and WGMMA_MIN_HEAD_DIM <= head_dim <= WGMMA_WIDTHS[-1]
-    return "wgmma" if takes else "simt"
+    heads, head_dim = q.shape[-2:]
+    if q.dtype not in WGMMA_DTYPES or not WGMMA_MIN_HEAD_DIM <= head_dim <= WGMMA_WIDTHS[-1]:
+        return "simt"
+    if not packed_heads(head_dim):
+        return "wgmma"
+    packed = which != "dq" and heads * head_dim % 8 == 0 and tma_span(head_dim, heads) <= WGMMA_WIDTHS[-1]
+    return "wgmma" if packed else "simt"
 
 
 def flash_routes(q: torch.Tensor) -> str:
@@ -182,16 +233,21 @@ def flash_routes(q: torch.Tensor) -> str:
 
 
 def _tma_aligned(t: torch.Tensor) -> bool:
-    """What TMA needs of a 16-bit view: a 16-byte aligned base and batch, time and
-    head strides that are multiples of 8 elements."""
-    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
+    """What TMA needs of a 16-bit view: a 16-byte aligned base and batch and time
+    strides that are multiples of 8 elements; a head stride that is one too (the 4-D
+    view), or, at a head_dim that is not a multiple of 8, the head_dim itself (the
+    packed-heads view)."""
+    stride_b, stride_t, stride_h, _ = t.stride()
+    head_ok = stride_h == t.shape[-1] if packed_heads(t.shape[-1]) else stride_h % 8 == 0
+    return t.data_ptr() % 16 == 0 and stride_b % 8 == 0 and stride_t % 8 == 0 and head_ok
 
 
 def needs_copy(t: torch.Tensor) -> bool:
     """Whether the kernels must read a contiguous copy of ``t`` rather than ``t``
     through its strides: a head dim that is not contiguous, or a view that a pass
-    reading it by TMA cannot take (an unaligned base or stride). Every input a
-    wgmma pass takes, the wgmma forward takes too."""
+    reading it by TMA cannot take (an unaligned base or stride, or heads not packed
+    in the row at a head_dim that is not a multiple of 8). Every input a wgmma pass
+    takes, the wgmma forward takes too."""
     return t.stride(-1) != 1 or (flash_route(t, "forward") == "wgmma" and not _tma_aligned(t))
 
 
@@ -206,8 +262,11 @@ def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
 def flash_refusal(q: torch.Tensor, *others: Tuple[str, torch.Tensor]) -> Optional[Tuple[type, str]]:
     """Why no flash kernel can take ``q`` and ``others`` (named tensors of q's
     shape), as ``(exception type, message)``, or None when one can (after a copy,
-    where :func:`needs_copy` says so). It reads shapes and dtypes only, so it
-    answers for ``meta`` tensors too; the caller tests the device."""
+    where :func:`needs_copy` says so: a fresh copy is 16-byte aligned, with its
+    heads packed). It reads shapes and dtypes only, so it answers for ``meta``
+    tensors too; the caller tests the device. The grid is checked against each
+    pass's route: an input whose dQ pass runs SIMT while the others run wgmma is
+    bounded by SIMT's 16-row blocks."""
     for name, tensor in others:
         if tensor.dtype != q.dtype:
             return TypeError, f"q, k, v must share a dtype; {name} is {tensor.dtype}, q is {q.dtype}"
@@ -226,7 +285,7 @@ def _block_rows(q: torch.Tensor, which: str) -> int:
     """Rows (of the grid's row dimension) a block of the pass ``which`` owns."""
     if flash_route(q, which) == "simt":
         return SIMT_ROWS
-    return dkv_block_rows(q.shape[-1]) if which == "dkv" else FORWARD_TILE_ROWS
+    return dkv_block_rows(tma_span(q.shape[-1], q.shape[-2])) if which == "dkv" else FORWARD_TILE_ROWS
 
 
 def _check_cuda_inputs(q: torch.Tensor, *others: Tuple[str, torch.Tensor]) -> None:
@@ -272,7 +331,7 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causa
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if flash_route(q, "forward") == "wgmma":
-            rows = forward_box_rows(head_dim)
+            rows = forward_box_rows(tma_span(head_dim, heads))
             status = library.hm_flash_forward_wgmma(
                 *pointers, SIMT_DTYPES[q.dtype], batch, seq, heads, head_dim,
                 *(tma_geometry(t, rows).as_ctypes() for t in (q, k, v)), *out.stride()[:3],
@@ -425,14 +484,15 @@ flash_attention_backward_dkv.launches = 0
 def flash_attention_backward(q, k, v, out, lse, dout, causal: bool = False) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` from the forward's ``(out, lse)`` and the cotangent ``dout``
     (cast to q's dtype first, as the JAX package's ``_flash_bwd``): the dQ kernel,
-    then the dK/dV kernel, on one route; ``δ`` and, when they run wgmma, the TMA
-    views both passes read are computed here, once, and handed to both."""
+    then the dK/dV kernel, each on its route; ``δ`` and, when a pass runs wgmma,
+    the TMA views the wgmma passes read are computed here, once, and handed to both
+    (the dK/dV pass runs wgmma wherever the dQ pass does)."""
     dout = dout.to(q.dtype)
     if _on_cpu(q, k, v, out, lse, dout):
         return flash_attention_backward_plain(q, k, v, out, lse, dout, causal)
     q, k, v, dout = (_kernel_layout(t) for t in (q, k, v, dout))
     delta = _delta(out, dout)
-    geometries = backward_geometries(q, k, v, dout) if flash_route(q, "dq") == "wgmma" else None
+    geometries = backward_geometries(q, k, v, dout) if flash_route(q, "dkv") == "wgmma" else None
     dq = flash_attention_backward_dq(q, k, v, dout, lse, delta, causal, geometries)
     return (dq, *flash_attention_backward_dkv(q, k, v, dout, lse, delta, causal, geometries))
 

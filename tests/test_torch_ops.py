@@ -41,6 +41,7 @@ from hivemind_tpu_torch.ops.flash_attention import (
     needs_copy,
     padded_head_dim,
     tma_geometry,
+    tma_span,
 )
 from hivemind_tpu_torch.ops.quantized_params import (
     QuantizedTensor,
@@ -64,7 +65,7 @@ torch.set_num_threads(1)
 # ------------------------------------------------------------------ flash attention
 
 
-@pytest.mark.parametrize("head_dim", [16, 32, 80, 256])  # 80: Phi-2's, 256: Gemma-7B's
+@pytest.mark.parametrize("head_dim", [16, 32, 80, 256, 26])  # 80: Phi-2's, 256: Gemma-7B's, 26: TinyBERT's
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("seq", [128, 200])  # 200: a ragged tail block
 def test_flash_plain_matches_jax_kernel_and_plain(seq, causal, head_dim):
@@ -133,7 +134,7 @@ def test_flash_plain_matches_jax_kernel_in_fp16(causal, head_dim):
     np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("head_dim", [32, 80, 128, 256])
+@pytest.mark.parametrize("head_dim", [32, 80, 128, 256, 26])
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_backward_plain_matches_jax_backward_kernels_in_fp16(causal, head_dim):
     """The plain backward against the JAX package's two passes in interpret mode on
@@ -228,14 +229,26 @@ W, S = "wgmma", "simt"
         (lambda: _meta((1, 16 * 65535 + 1, 1, 20)), (S, S, S), False, (ValueError, "grid")),  # SIMT's 16 rows
         (lambda: _meta((1, 128 * 65535 + 1, 1, 64)), (W, W, W), False, (ValueError, "grid")),
         (lambda: _meta((2, 64, 4, 128), torch.float16), (W, W, W), False, None),
-        (lambda: _meta((2, 64, 4, 20)), (S, S, S), False, None),  # 40-byte rows: not TMA's 16-byte strides
+        # 40-byte head strides: the packed-heads view (H·D = 80) for the forward and the dK/dV pass
+        (lambda: _meta((2, 64, 4, 20)), (W, S, W), False, None),
         (lambda: _meta((2, 64, 4, 128), torch.float32), (S, S, S), False, None),  # tensor cores would round to TF32
-        (lambda: _misaligned_view((2, 64, 4, 20)), (S, S, S), False, None),  # SIMT reads it through its strides
+        (lambda: _misaligned_view((2, 64, 4, 20)), (W, S, W), True, None),  # TMA needs a copy
         (lambda: _meta((1, 128 * 65535 + 1, 1, 32)), (W, W, W), False, (ValueError, "grid")),  # the dQ pass's 128
+        (lambda: _meta((2, 64, 5, 20)), (S, S, S), False, None),  # H·D = 100: no TMA view
+        (lambda: _misaligned_view((2, 64, 5, 20)), (S, S, S), False, None),  # SIMT reads it through its strides
+        (lambda: _meta((2, 64, 8, 25)), (W, S, W), False, None),  # an odd head dim: rows start 2-byte aligned
+        (lambda: _meta((2, 64, 4, 196), torch.float16), (W, S, W), False, None),  # padded to 256
+        (lambda: _meta((4, 128, 12, 26)), (W, S, W), False, None),  # TinyBERT's 12 heads of 26
+        (lambda: _meta((2, 4, 64, 20)).transpose(1, 2), (W, S, W), True, None),  # heads not packed in the row
+        (lambda: _meta((1, 16 * 65535 + 1, 2, 20)), (W, S, W), False, (ValueError, "grid")),  # the SIMT dQ pass's 16
+        # boxes start up to 6 columns early (254 mod 8), so a tile spans 260: past 256
+        (lambda: _meta((2, 64, 4, 254), torch.float16), (S, S, S), False, None),
+        (lambda: _meta((2, 64, 4, 252), torch.float16), (W, S, W), False, None),  # spans 256
     ],
     ids=["d16", "d32", "d64", "d80", "d96", "d128", "d256", "fp32", "fp16", "bh65536", "bh65536_fp16",
          "misaligned", "misaligned_d32", "strided", "d_strided", "fp64", "d512", "simt_rows", "wgmma_rows",
-         "fp16_d128", "d20", "fp32_d128", "misaligned_d20", "dq_rows"],
+         "fp16_d128", "d20", "fp32_d128", "misaligned_d20", "dq_rows", "d20_hd100", "misaligned_d20_hd100", "d25",
+         "fp16_d196", "tinybert", "d20_heads_strided", "mixed_rows", "d254_span", "d252_span"],
 )
 def test_flash_refusal_predicts_what_the_kernel_takes(make, routes, copy, refusal):
     """The wrappers' predicates, on meta tensors: which design runs each pass of an
@@ -269,12 +282,28 @@ def test_wgmma_widths_and_tiles(head_dim, padded, box_rows, dkv_rows):
     assert (padded_head_dim(head_dim), forward_box_rows(head_dim), dkv_block_rows(head_dim)) == (padded, box_rows, dkv_rows)
 
 
+# (head_dim, heads) -> the columns a tile spans (head_dim plus the most (h·D) mod 8 over the
+# heads, in the packed-heads view) and the padded width, worked out by hand
+@pytest.mark.parametrize("head_dim, heads, span, padded", [
+    (64, 12, 64, 64), (20, 16, 24, 64), (26, 12, 32, 64), (25, 16, 32, 64), (25, 2, 26, 64),
+    (62, 4, 68, 128), (100, 8, 104, 128), (196, 4, 200, 256), (252, 2, 256, 256),
+])
+def test_packed_tiles_span_the_head_and_its_shift(head_dim, heads, span, padded):
+    assert (tma_span(head_dim, heads), padded_head_dim(tma_span(head_dim, heads))) == (span, padded)
+
+
 def test_flash_routes_name_each_pass_and_the_grid_takes_the_finest_rows():
     """The labels' route string, and the grid check against each pass's block rows: at
     bf16 head_dim 256 the dK/dV pass's 64-row blocks bound T before the forward's and
-    the dQ pass's 128; at head_dim 20 the SIMT passes' 16 do."""
+    the dQ pass's 128; at head_dim 20 the SIMT passes' 16 do, the dQ pass's alone
+    where H·D is a multiple of 8 and the other two run wgmma."""
     assert flash_routes(_meta((1, 64, 2, 256))) == "forward=wgmma dq=wgmma dkv=wgmma"
-    assert flash_routes(_meta((1, 64, 2, 20), torch.float16)) == "forward=simt dq=simt dkv=simt"
+    assert flash_routes(_meta((1, 64, 2, 20), torch.float16)) == "forward=wgmma dq=simt dkv=wgmma"
+    assert flash_routes(_meta((1, 64, 5, 20), torch.float16)) == "forward=simt dq=simt dkv=simt"
+    assert flash_routes(_meta((4, 128, 12, 26))) == "forward=wgmma dq=simt dkv=wgmma"
+    assert flash_refusal(_meta((1, 16 * 65535, 2, 20))) is None
+    error, message = flash_refusal(_meta((1, 16 * 65535 + 1, 2, 20)))
+    assert error is ValueError and f"T <= {16 * 65535}" in message
     assert flash_refusal(_meta((1, 64 * 65535, 1, 256))) is None
     error, message = flash_refusal(_meta((1, 64 * 65535 + 1, 1, 256)))
     assert error is ValueError and f"T <= {64 * 65535}" in message
@@ -304,34 +333,55 @@ def _fused_q() -> torch.Tensor:
     return torch.empty(2, 512, 3, 12, 64, dtype=torch.bfloat16, device="meta")[:, :, 0]
 
 
-# (tensor, box rows) -> dims (D, H, T, B), byte strides of (H, T, B), box, and the boxes
-# a tile row takes (its padded width, 64, 128 or 256, over 64), worked out by hand: bf16
-# and fp16 are 2 bytes, so a stride of s elements is 2s bytes
-@pytest.mark.parametrize("make, rows, dims, strides, box, boxes", [
+def _fused_q26() -> torch.Tensor:
+    """TinyBERT's q sliced out of a fused [B, T, 3, 12, 26] projection: T stride 3·312."""
+    return torch.empty(2, 128, 3, 12, 26, dtype=torch.bfloat16, device="meta")[:, :, 0]
+
+
+# (tensor, box rows) -> dims, byte strides of the outer three dimensions, box, the boxes a
+# tile row takes (its padded width, 64, 128 or 256, over 64) and head 3's first box's
+# (column, head) coordinates, worked out by hand: bf16 and fp16 are 2 bytes, so a stride of s
+# elements is 2s bytes. A head dim that is a multiple of 8 takes the 4-D view: dims (D, H, T,
+# B), strides of (H, T, B), head h at (0, h). Any other takes the packed-heads view: dims (H·D,
+# 1, T, B), strides (2·H·D, T's, B's), head h at (h·D rounded down to a multiple of 8, 0).
+@pytest.mark.parametrize("make, rows, dims, strides, box, boxes, origin", [
     (lambda: torch.empty(2, 1000, 16, 64, dtype=torch.bfloat16, device="meta"), FORWARD_TILE_ROWS,
-     (64, 16, 1000, 2), (2 * 64, 2 * 16 * 64, 2 * 1000 * 16 * 64), (64, 1, 128, 1), 1),
+     (64, 16, 1000, 2), (2 * 64, 2 * 16 * 64, 2 * 1000 * 16 * 64), (64, 1, 128, 1), 1, (0, 3)),
     (lambda: torch.empty(32, 512, 12, 64, dtype=torch.bfloat16, device="meta"), BACKWARD_BOX_ROWS,  # ALBERT's
-     (64, 12, 512, 32), (128, 1536, 786432), (64, 1, 64, 1), 1),
+     (64, 12, 512, 32), (128, 1536, 786432), (64, 1, 64, 1), 1, (0, 3)),
     (lambda: torch.empty(1, 2048, 32, 128, dtype=torch.bfloat16, device="meta"), BACKWARD_BOX_ROWS,  # D = 128: two boxes
-     (128, 32, 2048, 1), (256, 8192, 16777216), (64, 1, 64, 1), 2),
-    (_fused_q, BACKWARD_BOX_ROWS, (64, 12, 512, 2), (128, 2 * 3 * 12 * 64, 2 * 512 * 3 * 12 * 64), (64, 1, 64, 1), 1),
+     (128, 32, 2048, 1), (256, 8192, 16777216), (64, 1, 64, 1), 2, (0, 3)),
+    (_fused_q, BACKWARD_BOX_ROWS, (64, 12, 512, 2), (128, 2 * 3 * 12 * 64, 2 * 512 * 3 * 12 * 64), (64, 1, 64, 1), 1, (0, 3)),
     (lambda: torch.empty(1, 2048, 32, 128, dtype=torch.float16, device="meta"), BACKWARD_BOX_ROWS,  # fp16: bf16's
-     (128, 32, 2048, 1), (256, 8192, 16777216), (64, 1, 64, 1), 2),
+     (128, 32, 2048, 1), (256, 8192, 16777216), (64, 1, 64, 1), 2, (0, 3)),
     (lambda: torch.empty(2, 1000, 16, 32, dtype=torch.bfloat16, device="meta"), FORWARD_TILE_ROWS,  # one box, half past D
-     (32, 16, 1000, 2), (64, 1024, 1024000), (64, 1, 128, 1), 1),
+     (32, 16, 1000, 2), (64, 1024, 1024000), (64, 1, 128, 1), 1, (0, 3)),
     (lambda: torch.empty(1, 2048, 32, 80, dtype=torch.bfloat16, device="meta"), FORWARD_TILE_ROWS,  # Phi-2's: padded to 128
-     (80, 32, 2048, 1), (160, 5120, 10485760), (64, 1, 128, 1), 2),
+     (80, 32, 2048, 1), (160, 5120, 10485760), (64, 1, 128, 1), 2, (0, 3)),
     (lambda: torch.empty(1, 512, 8, 96, dtype=torch.bfloat16, device="meta"), BACKWARD_BOX_ROWS,
-     (96, 8, 512, 1), (192, 1536, 786432), (64, 1, 64, 1), 2),
+     (96, 8, 512, 1), (192, 1536, 786432), (64, 1, 64, 1), 2, (0, 3)),
     (lambda: torch.empty(1, 2048, 16, 256, dtype=torch.float16, device="meta"), forward_box_rows(256),  # Gemma-7B's
-     (256, 16, 2048, 1), (512, 8192, 16777216), (64, 1, 64, 1), 4),
+     (256, 16, 2048, 1), (512, 8192, 16777216), (64, 1, 64, 1), 4, (0, 3)),
+    # the packed-heads view: TinyBERT's 26 (H·D = 312), head dim 20 backward, an odd 25, fp16 196
+    (lambda: torch.empty(4, 128, 12, 26, dtype=torch.bfloat16, device="meta"), FORWARD_TILE_ROWS,
+     (312, 1, 128, 4), (624, 624, 128 * 624), (64, 1, 128, 1), 1, (72, 0)),  # 78 rounded down to 72
+    (lambda: torch.empty(2, 1000, 16, 20, dtype=torch.bfloat16, device="meta"), BACKWARD_BOX_ROWS,
+     (320, 1, 1000, 2), (640, 640, 1000 * 640), (64, 1, 64, 1), 1, (56, 0)),
+    (lambda: torch.empty(2, 1000, 16, 25, dtype=torch.bfloat16, device="meta"), FORWARD_TILE_ROWS,
+     (400, 1, 1000, 2), (800, 800, 1000 * 800), (64, 1, 128, 1), 1, (72, 0)),
+    (lambda: torch.empty(1, 512, 4, 196, dtype=torch.float16, device="meta"), forward_box_rows(200),  # span 196 + 4
+     (784, 1, 512, 1), (1568, 1568, 512 * 1568), (64, 1, 64, 1), 4, (584, 0)),
+    (_fused_q26, BACKWARD_BOX_ROWS, (312, 1, 128, 2), (624, 3 * 624, 128 * 3 * 624), (64, 1, 64, 1), 1, (72, 0)),
 ], ids=["contiguous", "albert", "head_dim_128", "fused_qkv", "fp16", "head_dim_32", "head_dim_80", "head_dim_96",
-        "head_dim_256_fp16"])
-def test_tma_geometry_describes_the_kernels_views(make, rows, dims, strides, box, boxes):
-    geometry = tma_geometry(make(), rows)
+        "head_dim_256_fp16", "packed_tinybert", "packed_head_dim_20", "packed_head_dim_25", "packed_head_dim_196_fp16",
+        "packed_fused_qkv"])
+def test_tma_geometry_describes_the_kernels_views(make, rows, dims, strides, box, boxes, origin):
+    t = make()
+    geometry = tma_geometry(t, rows)
     assert (geometry.dims, geometry.strides, geometry.box) == (dims, strides, box)
-    assert padded_head_dim(geometry.dims[0]) // geometry.box[0] == boxes
+    assert padded_head_dim(tma_span(t.shape[-1], t.shape[-2])) // geometry.box[0] == boxes
     assert list(geometry.as_ctypes()) == [*dims, *strides, *box]  # the order sm90::TmaGeometry reads
+    assert geometry.head_origin(3) == origin
 
 
 @pytest.mark.parametrize("make, match", [
@@ -339,9 +389,12 @@ def test_tma_geometry_describes_the_kernels_views(make, rows, dims, strides, box
     (lambda: torch.empty(1, 64, 8, 72, dtype=torch.bfloat16, device="meta")[..., 1:65], "16-byte aligned"),
     (lambda: torch.empty(1, 64, 64, 8, dtype=torch.bfloat16, device="meta").transpose(2, 3), "contiguous head dim"),
     (lambda: torch.empty(1, 64, 8, 64, dtype=torch.float32, device="meta"), "bf16 or fp16"),
-    (lambda: torch.empty(1, 64, 8, 20, dtype=torch.bfloat16, device="meta"), "multiple of 8"),
+    (lambda: torch.empty(1, 64, 5, 20, dtype=torch.bfloat16, device="meta"), "multiple of 8"),  # H·D = 100
     (lambda: torch.empty(1, 64, 8, 8, dtype=torch.float16, device="meta"), "from 16 to 256"),
-], ids=["head_stride_132_bytes", "misaligned_base", "strided_head_dim", "fp32", "head_dim_20", "head_dim_8"])
+    (lambda: torch.empty(1, 8, 64, 20, dtype=torch.bfloat16, device="meta").transpose(1, 2), "packed in the row"),
+    (lambda: torch.empty(1, 64, 8, 28, dtype=torch.bfloat16, device="meta")[..., :20], "packed in the row"),
+], ids=["head_stride_132_bytes", "misaligned_base", "strided_head_dim", "fp32", "head_dim_20", "head_dim_8",
+        "head_dim_20_heads_strided", "head_dim_20_sliced"])
 def test_tma_geometry_refuses_views_tma_cannot_take(make, match):
     with pytest.raises(ValueError, match=match):
         tma_geometry(make(), FORWARD_TILE_ROWS)
@@ -387,6 +440,33 @@ def test_backward_hands_both_passes_one_geometry_per_tensor(monkeypatch, shape, 
     expected = (TmaGeometry(dims, strides, (64, 1, 64, 1)),) * 4
     assert [name for name, _ in launched] == ["dq", "dkv"] and launched[1][1] == expected
     assert flash_route(q, "dq") == flash_route(q, "dkv") == "wgmma" and launched[0][1] is launched[1][1]
+
+
+# [B, T, H, D], fused or not -> the packed-heads views' dims (H·D, 1, T, B) and byte strides
+# (2·H·D, T's, B's), worked out by hand
+@pytest.mark.parametrize("shape, fused, dims, strides", [
+    ((2, 1000, 16, 20), False, (320, 1, 1000, 2), (640, 640, 1000 * 640)),
+    ((4, 128, 12, 26), True, (312, 1, 128, 4), (624, 4 * 624, 128 * 4 * 624)),  # TinyBERT's, fused
+    ((1, 512, 4, 196), False, (784, 1, 512, 1), (1568, 1568, 512 * 1568)),
+], ids=["d20", "fused_tinybert", "d196"])
+def test_backward_computes_the_packed_views_once_for_the_dkv_pass(monkeypatch, shape, fused, dims, strides):
+    """At a head dim that is not a multiple of 8 (H·D a multiple of 8) the dQ pass runs
+    SIMT and the dK/dV pass wgmma: ``flash_attention_backward`` computes the four
+    packed-heads views once, for the dK/dV pass."""
+    q, k, v, dout = _backward_inputs(*shape, fused)
+    batch, seq, heads, dim = shape
+    views, launched = [], []
+    tma_geometry_of = flash_module.tma_geometry
+    monkeypatch.setattr(flash_module, "tma_geometry", lambda t, rows: views.append(rows) or tma_geometry_of(t, rows))
+    monkeypatch.setattr(flash_module, "_check_cuda_inputs", lambda *tensors: None)
+    monkeypatch.setattr(flash_module, "_launch_pass", lambda name, *args: launched.append((name, args[-1])))
+    monkeypatch.setattr(flash_attention_backward_dq, "launches", 0)
+    monkeypatch.setattr(flash_attention_backward_dkv, "launches", 0)
+    flash_attention_backward(q, k, v, torch.empty_like(q), torch.empty(batch, heads, seq, device="meta"), dout, True)
+    assert (flash_route(q, "dq"), flash_route(q, "dkv")) == ("simt", "wgmma")
+    assert views == [BACKWARD_BOX_ROWS] * 4
+    expected = (TmaGeometry(dims, strides, (64, 1, 64, 1), dim),) * 4
+    assert [name for name, _ in launched] == ["dq", "dkv"] and launched[1][1] == expected
 
 
 # ------------------------------------------------------------------ blockwise int8

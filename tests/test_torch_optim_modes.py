@@ -76,9 +76,13 @@ def _loss(model, rng):
     return torch.mean((model(x) - y) ** 2)
 
 
-def _run_peers(dhts, make_opt, epochs: int, steps: int = 80, pause: float = 0.2, limit: float = 90):
+def _run_peers(dhts, make_opt, epochs: int, steps: int = 80, pause: float = 0.2, limit: float = 90,
+               landed: bool = False):
     """Each peer trains in its own thread until ``epochs``; returns per peer (the mean
-    loss of its first two batches, of its last three, its epoch, its parameters)."""
+    loss of its first two batches, of its last three, its epoch, its parameters).
+    ``landed``: read the last three losses (on three more batches) and the parameters
+    once the optimizer's shutdown has finished and landed the epoch's update, which a
+    delayed-update (DPU) peer still has in flight when it reaches ``epochs``."""
     results, errors = {}, []
 
     def run(index, dht):
@@ -97,9 +101,15 @@ def _run_peers(dhts, make_opt, epochs: int, steps: int = 80, pause: float = 0.2,
                 opt.step(batch_size=16)
                 opt.zero_grad()
                 time.sleep(pause)
-            results[index] = (float(np.mean(losses[:2])), float(np.mean(losses[-3:])), opt.local_epoch,
+            epoch = opt.local_epoch
+            if landed:
+                opt.shutdown()
+                with torch.no_grad():
+                    losses += [_loss(model, rng).item() for _ in range(3)]
+            results[index] = (float(np.mean(losses[:2])), float(np.mean(losses[-3:])), epoch,
                               {k: v.detach().clone() for k, v in opt.params.items()})
-            opt.shutdown()
+            if not landed:
+                opt.shutdown()
         except Exception:
             import traceback
 
@@ -274,7 +284,14 @@ def test_delayed_update_never_writes_parameters_under_a_running_step():
 def test_delayed_updates_train_two_peers():
     """Two DPU peers (the update runs in the background) reach epoch 3, halve their
     loss (gradients one epoch stale: a smaller rate than the synchronous tests', which
-    would oscillate with the delay) and agree within 1e-4 (lossless wire)."""
+    would oscillate with the delay) and agree within 1e-4 (lossless wire), both read
+    once the last epoch's update has landed: the losses of the last training steps
+    lag the updates by as many steps as each background update takes to land, so under
+    the whole suite's load they had fallen by a factor of only 1.7 and 2.0 (2.5-6.5
+    alone beside busy loops; 5.4-11.0 once landed). A round whose all-reduce fails (a
+    peer answering PROTOCOL_VIOLATION: 3 of 8 runs on an idle host) waits out its 20-30
+    s in the background while the peers keep stepping, 0.2 s a step; the budget of 480
+    steps and 150 s holds three such rounds (160 steps did not hold two)."""
     dhts = _swarm(2)
     try:
         make = lambda i, dht, model: Optimizer(
@@ -282,7 +299,8 @@ def test_delayed_updates_train_two_peers():
             optimizer=T.sgd(0.05), batch_size_per_step=16, matchmaking_time=1.0, averaging_timeout=20,
             target_group_size=2, delay_optimizer_step=True, grad_compression=NoCompression(),
             state_averaging_compression=NoCompression(), tracker_opts=TRACKER)
-        _assert_trained_together(_run_peers(dhts, make, epochs=3, steps=160), 3, atol=1e-4, factor=2.0)
+        _assert_trained_together(_run_peers(dhts, make, epochs=3, steps=480, limit=150, landed=True), 3, atol=1e-4,
+                                 factor=2.0)
     finally:
         for dht in dhts:
             dht.shutdown()

@@ -169,12 +169,14 @@ BLOCK_CASES = [
     ("llama_block", {"num_heads": 4, "num_kv_heads": 2}, (2, 16, 64), None),  # grouped-query
     ("llama_block", {"num_heads": 4, "num_kv_heads": 2, "ffn_inner": 96, "rms_eps": 1e-5}, (2, 16, 64), "int8"),
     ("nop", {}, (3, 32), None),
+    # TinyBERT_General_4L_312D's attention widths: hidden 312, 12 heads of 26
+    ("transformer", {"num_heads": 12}, (2, 16, 312), None),
 ]
 
 
 @pytest.mark.parametrize(
     "block,kwargs,shape,quantization", BLOCK_CASES,
-    ids=["ffn", "transformer", "causal_transformer", "llama", "llama_gqa", "llama_int8", "nop"],
+    ids=["ffn", "transformer", "causal_transformer", "llama", "llama_gqa", "llama_int8", "nop", "transformer_tinybert"],
 )
 def test_block_backend_matches_jax(block, kwargs, shape, quantization):
     rng = np.random.RandomState(len(block) + len(kwargs))

@@ -220,10 +220,12 @@ BACKWARD_CASES = [
     ("transformer", {"num_heads": 4}, (2, 16, 32)),
     ("causal_transformer", {"num_heads": 4}, (2, 16, 32)),
     ("llama_block", {"num_heads": 4}, (2, 16, 64)),
+    ("transformer", {"num_heads": 12}, (2, 16, 312)),  # TinyBERT_General_4L_312D's attention widths
 ]
 
 
-@pytest.mark.parametrize("block,kwargs,shape", BACKWARD_CASES, ids=[case[0] for case in BACKWARD_CASES])
+@pytest.mark.parametrize("block,kwargs,shape", BACKWARD_CASES,
+                         ids=["ffn", "transformer", "causal_transformer", "llama_block", "transformer_tinybert"])
 def test_module_backend_backward_matches_jax(block, kwargs, shape):
     rng = np.random.RandomState(len(block) + 7)
     x = rng.randn(*shape).astype(np.float32)

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """The flash kernels' two designs timed against each other on one card, in one process.
 
-For each input that the wgmma design takes, the forward, the dQ pass and the dK/dV
-pass run through the wrappers (``flash_attention_lse``,
-``flash_attention_backward_dq``, ``flash_attention_backward_dkv``: the wgmma
-kernels) and through the SIMT kernels' C entry points on the same tensors, in turns
-(SIMT, wgmma, wgmma, SIMT), each held to the plain PyTorch version first. Each line
+For each input that the wgmma design takes, each pass the wrappers route to wgmma
+(the forward, the dQ pass and the dK/dV pass at a head dim that is a multiple of 8;
+the forward and the dK/dV pass alone on the packed-heads view, whose dQ pass is SIMT)
+runs through its wrapper (``flash_attention_lse``, ``flash_attention_backward_dq``,
+``flash_attention_backward_dkv``: the wgmma kernels) and through the SIMT kernel's C
+entry point on the same tensors, in turns (SIMT, wgmma, wgmma, SIMT), each held to
+the plain PyTorch version first. Each line
 gives both designs' device times (CUDA events behind a spin kernel, as
 ``chip_smoke.py``'s), the least time the card could take (``bound_ms``) and the
 library's (``F.scaled_dot_product_attention``; for a backward pass its whole
@@ -37,11 +39,15 @@ ROOT = Path(__file__).resolve().parents[1]
 
 # (shape, dtype, causal): the three shapes PERF.md timed the SIMT kernels at (rows 1s, 3s),
 # head_dim 16 (padded 4x by the wgmma design), Phi-2's and Gemma-7B's widths and fp16 at a
-# Llama-2-7B request of 2048 tokens
+# Llama-2-7B request of 2048 tokens; then the packed-heads view: head dim 20 at row 1s's
+# shape, the TinyBERT-width expert's attention (12 heads of 26), an odd head dim, and fp16 at
+# 196 (padded to 256)
 DEFAULT_CASES = [
     ((2, 1000, 16, 32), "bfloat16", True), ((1, 512, 8, 96), "bfloat16", True), ((1, 512, 4, 256), "float16", True),
     ((2, 1000, 16, 16), "bfloat16", True), ((1, 2048, 32, 80), "bfloat16", True),
     ((1, 2048, 16, 256), "float16", True), ((1, 2048, 32, 128), "float16", True),
+    ((2, 1000, 16, 20), "bfloat16", True), ((4, 128, 12, 26), "bfloat16", False), ((2, 1000, 16, 25), "bfloat16", True),
+    ((1, 512, 4, 196), "float16", True),
 ]
 
 
@@ -184,8 +190,8 @@ def main(argv=None) -> int:
         forward["bound_ms"], forward["bound_by"] = smoke.bound_ms(4.0 * batch * heads * dim * pairs, peaks["bf16"],
                                                                   4 * element + rows, peaks["bytes"])
 
-        # the dQ and dK/dV passes, likewise, from the plain forward's (out, lse); the
-        # library's time is its whole backward's, beside each pass
+        # the dQ and dK/dV passes the wrappers route to wgmma, likewise, from the plain
+        # forward's (out, lse); the library's time is its whole backward's, beside each pass
         out, lse = flash.flash_attention_plain(q, k, v, causal)
         delta = flash._delta(out, dout)
         args_ = (q, k, v, dout, lse, delta, causal)
@@ -197,6 +203,9 @@ def main(argv=None) -> int:
                  5 * element + 2 * rows, slice(0, 1)),
                 ("dkv", flash.flash_attention_backward_dkv, flash.flash_attention_backward_dkv_plain, simt_dkv, 8.0,
                  6 * element + 2 * rows, slice(1, 3))):
+            if flash.flash_route(q, which) != "wgmma":
+                print(f"[ab] {label} {which}: SIMT alone (the wrapper's route); not timed", flush=True)
+                continue
             as_tuple = (lambda result: (result,)) if which == "dq" else tuple
             ref = as_tuple(plain(*args_))
             run_simt = simt(torch, flash, q, k, v, dout, lse, delta)
@@ -212,7 +221,7 @@ def main(argv=None) -> int:
             passes[which]["bound_ms"], passes[which]["bound_by"] = smoke.bound_ms(
                 operations * batch * heads * dim * pairs, peaks["bf16"], nbytes, peaks["bytes"])
         del scales
-        for what, reading in (("forward", forward), ("dq", passes["dq"]), ("dkv", passes["dkv"])):
+        for what, reading in (("forward", forward), *passes.items()):
             print(f"[ab] {label} {what}: simt_ms={reading['simt_ms']:.4f} wgmma_ms={reading['wgmma_ms']:.4f} "
                   f"({reading['simt_ms'] / reading['wgmma_ms']:.2f}x) library_ms={reading['library_ms']:.4f} "
                   f"bound_ms={reading['bound_ms']:.4f} ({reading['bound_by']}); turns "
