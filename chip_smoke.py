@@ -159,11 +159,10 @@ FLASH_EXTRA_CASES = [
 ]
 # where the forward's planted fault is checked beside FLASH_SHAPES' ALBERT shape, and the
 # backward's beside FAULTY_BWD_SHAPES': head dim 20 in bf16 on the packed-heads view. There
-# too, every other head is made NaN in the tensors whose tiles the kernels keep resident and
-# zero around the head (Q and V in the forward, K and V in the dK/dV pass), and the other
-# heads must stay within the limits: a missing or misplaced zeroing lets the NaN through. (A
-# NaN in a neighbour's K in the forward, or Q or dO in the dK/dV pass, the streamed tiles,
-# does reach a head: the kernels' stated limit.)
+# too, every other head holds NaN, inf and -inf in every input (q, k, v, and dout in the
+# backward), and the other heads' outputs of all three passes must stay within the limits:
+# a neighbour's column left in a tile a product sums over (a resident tile's missed
+# zeroing, a streamed tile's stray byte) turns a head's output NaN through 0 * inf.
 FAULTY_PACKED = ((2, 1000, 16, 20), "bfloat16")
 # views whose base is one element off 16-byte alignment, which TMA cannot read: the
 # wrappers copy them first (bf16, head_dims 64, 32 and 20 with H*D = 160), or the SIMT
@@ -185,7 +184,7 @@ FLASH_BWD_CASES = [
     ((65536, 16, 1, 64), "bfloat16", True), ((32768, 16, 2, 32), "float16", False),
     # the forward's shapes of the rows PERF.md keeps for them, so each pass is timed at one shape
     ((1, 512, 8, 96), "bfloat16", True), ((1, 512, 4, 256), "float16", True),
-    # bf16 at head_dim 20: the dK/dV pass on the packed-heads view, the dQ pass on SIMT; fp16
+    # bf16 at head_dim 20: both passes on the packed-heads view; fp16
     # at a Llama request's shape beside bf16's; Phi-2's and Gemma-7B's widths (as FLASH_EXTRA_CASES)
     ((2, 1000, 16, 20), "bfloat16", True), ((1, 2048, 32, 128), "float16", True),
     ((1, 2048, 32, 80), "bfloat16", True), ((1, 2048, 16, 256), "float16", True),
@@ -195,9 +194,9 @@ FLASH_BWD_CASES = [
     # whose last region TMA reads partly past it
     ((2, 1000, 16, 16), "bfloat16", True), ((1, 512, 8, 96), "float16", False), ((1, 512, 4, 256), "bfloat16", False),
     ((2, 1000, 16, 136), "float16", True), ((1, 512, 4, 200), "bfloat16", True),
-    # the packed-heads view's cases of FLASH_EXTRA_CASES (every instantiation of the packed
-    # dK/dV pass: bf16 and fp16 at padded widths 64 and 256; 128 by head dim 100), and H*D =
-    # 100 on both SIMT passes, which keeps their 16-bit path held
+    # the packed-heads view's cases of FLASH_EXTRA_CASES (every instantiation of both packed
+    # passes: bf16 and fp16 at padded widths 64 and 256; 128 by head dim 100), and H*D = 100
+    # on both SIMT passes, which keeps their 16-bit path held
     ((2, 1000, 16, 20), "float16", True), ((4, 128, 12, 26), "bfloat16", False), ((2, 1000, 16, 25), "bfloat16", True),
     ((1, 512, 4, 196), "float16", True), ((3, 333, 12, 26), "bfloat16", True), ((2, 1000, 5, 20), "bfloat16", True),
     ((1, 512, 8, 100), "bfloat16", True), ((1, 512, 8, 100), "float16", False), ((1, 512, 4, 196), "bfloat16", False),
@@ -277,14 +276,13 @@ REFERENCE_LENGTH = 256  # a request of its own; the first 512-long request is ch
 # on the card through the wgmma flash kernels below their padded width of 64: one of
 # head_dim 32 (all three passes on wgmma), and one at TinyBERT_General_4L_312D's attention
 # widths (huawei-noah/TinyBERT_General_4L_312D config.json: hidden 312, 12 heads, so
-# head_dim 26: the forward and the dK/dV pass on the packed-heads view, the dQ pass on
-# SIMT); each must launch the forward twice (its forward, the backward's recompute) and
-# each backward pass once
+# head_dim 26: all three passes on the packed-heads view); each must launch the forward
+# twice (its forward, the backward's recompute) and each backward pass once
 SMALL_HEADS_EXPERTS = (
     dict(tag="head_dim 32", hidden=256, heads=8, shape=(2, 64, 256), seed=SEED + 10,
-         routes="forward=wgmma dq=wgmma dkv=wgmma"),
+         routes="forward=wgmma dq=wgmma dkv=wgmma", packed=False),
     dict(tag="TinyBERT width", hidden=312, heads=12, shape=(4, 128, 312), seed=SEED + 12,
-         routes="forward=wgmma dq=simt dkv=wgmma"),
+         routes="forward=wgmma dq=wgmma dkv=wgmma", packed=True),
 )
 SMALL_HEADS_LAUNCHES = {"flash_attention_forward": 2, "flash_attention_backward_dq": 1,
                         "flash_attention_backward_dkv": 1}
@@ -681,12 +679,14 @@ def read_forward(out, lse, reference, dtype_name):
 
 
 def phase_flash(torch, peaks) -> dict:
+    """The forward against its plain version; returns the kernels line's entries: the
+    longest served request's, and the packed-heads view's at FAULTY_PACKED."""
     import torch.nn.functional as F
 
     from hivemind_tpu_torch.ops.flash_attention import flash_attention_lse, flash_attention_plain, flash_routes, needs_copy
 
     rng = np.random.default_rng(SEED)
-    main_entry = None
+    entries = {}
     for shape in FLASH_SHAPES:
         batch, seq, heads, dim = shape
         base = [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda() for _ in range(3)]
@@ -724,8 +724,8 @@ def phase_flash(torch, peaks) -> dict:
                     f"library_ms={library_ms:.4f} bound_ms={bound:.4f} ({bound_by})")
                 log(f"[flash]   {readings}")
                 if shape == (1, 2048, 32, 128) and causal and dtype == torch.bfloat16:  # the longest served request
-                    main_entry = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                                      bound_by=bound_by, library_ms=library_ms)
+                    entries["flash_attention_forward"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                                              bound_ms=bound, bound_by=bound_by, library_ms=library_ms)
     for shape, dtype_name, causal in FLASH_EXTRA_CASES:
         batch, seq, heads, dim = shape
         q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda().to(getattr(torch, dtype_name))
@@ -734,13 +734,14 @@ def phase_flash(torch, peaks) -> dict:
         readings = check_forward(torch, q, k, v, causal, dtype_name, label)
         if (shape, dtype_name) == FAULTY_PACKED:  # a planted fault, rejected
             reference = plain_forward(torch, q, k, v, causal)
+            packed_err = read_forward(*flash_attention_lse(q, k, v, causal), reference, dtype_name)[0]["max_abs"]
             faulty = read_forward(faulty_forward(torch, q, k, v, causal), reference[1], reference, dtype_name)[0]
             log(f"[flash] {label}, P x 1.05 on every other KV tile (planted in the plain version): "
                 f"out {format_reading(faulty)} ok={faulty['ok']}")
             if faulty["ok"]:
                 raise AssertionError("flash check passed a P that is 5% off on half the KV tiles")
             del reference
-            log(f"[flash] {label}, Q and V NaN in every other head: the other heads' "
+            log(f"[flash] {label}, NaN, inf and -inf in every other head's q, k and v: the other heads' "
                 f"{isolated_heads(torch, q, k, v, causal)}")
         ms = time_ms(torch, lambda: flash_attention_lse(q, k, v, causal))
         plain_ms = time_ms(torch, lambda: flash_attention_plain(q, k, v, causal))
@@ -753,6 +754,9 @@ def phase_flash(torch, peaks) -> dict:
         log(f"[flash] {label}: ms={ms:.4f} ({operations / ms / 1e9:.1f} TFLOP/s) plain_ms={plain_ms:.4f} "
             f"library_ms={library_ms:.4f} bound_ms={bound:.4f} ({bound_by})")
         log(f"[flash]   {readings}")
+        if (shape, dtype_name) == FAULTY_PACKED:
+            entries["flash_attention_forward_packed"] = dict(max_abs_err=packed_err, ms=ms, plain_ms=plain_ms,
+                                                             bound_ms=bound, bound_by=bound_by, library_ms=library_ms)
     for (batch, seq, heads, dim), causal in STRIDED_CASES:
         fused = torch.from_numpy(rng.standard_normal((batch, seq, 3, heads, dim), dtype=np.float32)).cuda().bfloat16()
         q, k, v = fused.unbind(2)
@@ -765,16 +769,25 @@ def phase_flash(torch, peaks) -> dict:
         readings = check_forward(torch, q, k, v, causal, "bfloat16", "on unaligned views")
         log(f"[flash] q, k, v bf16 {list(shape)} one element off 16-byte alignment ({flash_routes(q)}, "
             f"copied first: {needs_copy(q)}), causal={causal}: {readings}")
-    return main_entry
+    return entries
+
+
+def poisoned(torch, t):
+    """A copy of ``t`` ([B, T, H, D]) whose every other head (1, 3, ...) holds NaN, inf
+    and -inf in turn along its columns."""
+    t = t.clone()
+    values = torch.tensor([float("nan"), float("inf"), -float("inf")], dtype=t.dtype, device=t.device)
+    t[:, :, 1::2] = values.repeat(-(-t.shape[-1] // 3))[: t.shape[-1]]
+    return t
 
 
 def isolated_heads(torch, q, k, v, causal) -> str:
-    """The forward with Q and V NaN in every other head, held to the plain version on the
-    other heads (each head's attention reads only its own columns); raises past the limits."""
+    """The forward with NaN, inf and -inf in every other head of q, k and v, held to the
+    plain version on the other heads (each head's attention reads only its own columns);
+    raises past the limits."""
     from hivemind_tpu_torch.ops.flash_attention import flash_attention_lse
 
-    q, v = q.clone(), v.clone()
-    q[:, :, 1::2] = v[:, :, 1::2] = float("nan")
+    q, k, v = (poisoned(torch, t) for t in (q, k, v))
     out, lse = flash_attention_lse(q, k, v, causal)
     heads = torch.arange(0, q.shape[2], 2, device=q.device)
     kept = lambda t: t.index_select(2 if t.dim() == 4 else 1, heads)  # noqa: E731  (lse is [B, H, T])
@@ -783,37 +796,39 @@ def isolated_heads(torch, q, k, v, causal) -> str:
     out_reading, lse_reading = read_forward(kept(out), kept(lse), reference, dtype_name)
     readings = f"out {format_reading(out_reading)}; lse {format_reading(lse_reading)}"
     if not (out_reading["ok"] and lse_reading["ok"]):
-        raise AssertionError(f"flash forward: a NaN in a neighbouring head's Q or V reaches a head: {readings}")
+        raise AssertionError(f"flash forward: a non-finite value in a neighbouring head reaches a head: {readings}")
     return readings
 
 
 def isolated_heads_backward(torch, q, k, v, dout, causal) -> str:
-    """The dK/dV pass with K and V NaN in every other head (lse and delta from the plain
-    forward of those inputs), held to the plain version on the other heads; raises past
-    the limits."""
+    """Both backward passes with NaN, inf and -inf in every other head of q, k, v and dout
+    (lse and delta from the plain forward of those inputs), held to the plain versions on
+    the other heads; raises past the limits."""
     from hivemind_tpu_torch.ops.flash_attention import (
         _delta,
         flash_attention_backward_dkv,
         flash_attention_backward_dkv_plain,
+        flash_attention_backward_dq,
+        flash_attention_backward_dq_plain,
         flash_attention_plain,
     )
 
-    k, v = k.clone(), v.clone()
-    k[:, :, 1::2] = v[:, :, 1::2] = float("nan")
+    q, k, v, dout = (poisoned(torch, t) for t in (q, k, v, dout))
     out, lse = flash_attention_plain(q, k, v, causal)
     args = (q, k, v, dout, lse, _delta(out, dout), causal)
     heads = torch.arange(0, q.shape[2], 2, device=q.device)
-    got, ref = flash_attention_backward_dkv(*args), flash_attention_backward_dkv_plain(*args)
+    got = (flash_attention_backward_dq(*args), *flash_attention_backward_dkv(*args))
+    ref = (flash_attention_backward_dq_plain(*args), *flash_attention_backward_dkv_plain(*args))
     clean = [t.index_select(2, heads) for t in args[:4]]
     rows = [t.index_select(1, heads) for t in args[4:6]]
-    scales = backward_scales(torch, *clean, *rows, causal)[1:]
+    scales = backward_scales(torch, *clean, *rows, causal)
     dtype_name = str(q.dtype).removeprefix("torch.")
     readings = {name: error_reading(g.index_select(2, heads), r.index_select(2, heads), sc,
                                     FLASH_BWD_TOL[dtype_name], MANTISSA_BITS[dtype_name])
-                for name, g, r, sc in zip(("dk", "dv"), got, ref, scales)}
+                for name, g, r, sc in zip(("dq", "dk", "dv"), got, ref, scales)}
     text = "; ".join(f"{name} {format_reading(r)}" for name, r in readings.items())
     if not all(r["ok"] for r in readings.values()):
-        raise AssertionError(f"flash dK/dV pass: a NaN in a neighbouring head's K or V reaches a head: {text}")
+        raise AssertionError(f"flash backward: a non-finite value in a neighbouring head reaches a head: {text}")
     return text
 
 
@@ -974,7 +989,7 @@ def phase_flash_bwd(torch, peaks) -> dict:
             if faulty["dq"]["ok"] or faulty["dk"]["ok"]:
                 raise AssertionError("flash backward check passed a dS that is 5% off on half the tiles")
         if (shape, dtype_name) == FAULTY_PACKED:
-            log(f"[flash_bwd] {label}, K and V NaN in every other head: the other heads' "
+            log(f"[flash_bwd] {label}, NaN, inf and -inf in every other head's q, k, v and dout: the other heads' "
                 f"{isolated_heads_backward(torch, q, k, v, dout, causal)}")
         del got, ref, scales
 
@@ -999,9 +1014,11 @@ def phase_flash_bwd(torch, peaks) -> dict:
             f"plain_ms={plain_ms[kernel]:.4f} bound_ms={bounds[kernel][0]:.4f} ({bounds[kernel][1]})"
             for kernel in ("dq", "dkv")) + f"; library (whole backward) ms={library_ms:.4f}{host}")
         log(f"[flash_bwd]   {text}")
-        if shape == ALBERT_ATTENTION:  # the training path's shape
+        # the training path's shape, and the packed-heads view's
+        suffix = "" if shape == ALBERT_ATTENTION else "_packed" if (shape, dtype_name) == FAULTY_PACKED else None
+        if suffix is not None:
             for kernel, names in (("dq", ("dq",)), ("dkv", ("dk", "dv"))):
-                entries[f"flash_attention_backward_{kernel}"] = dict(
+                entries[f"flash_attention_backward_{kernel}{suffix}"] = dict(
                     max_abs_err=max(readings[n]["max_abs"] for n in names), ms=ms[kernel], plain_ms=plain_ms[kernel],
                     bound_ms=bounds[kernel][0], bound_by=bounds[kernel][1], library_ms=library_ms)
     views = [(f"q, k, v, dout of one fused [{b}, {t}, 4, {h}, {d}] bf16 tensor, causal={causal}",
@@ -1615,7 +1632,7 @@ def phase_small_heads(torch, wrappers: dict) -> dict:
 
 
 def serve_small_heads_expert(torch, wrappers: dict, tag: str, hidden: int, heads: int, shape: tuple, seed: int,
-                             routes: str) -> dict:
+                             routes: str, packed: bool) -> dict:
     """One expert of SMALL_HEADS_EXPERTS on the card against the CPU: its launches."""
     from hivemind_tpu_torch.moe.server.layers import name_to_block
     from hivemind_tpu_torch.moe.server.module_backend import ModuleBackend
@@ -1644,7 +1661,9 @@ def serve_small_heads_expert(torch, wrappers: dict, tag: str, hidden: int, heads
     label = flash_routes(torch.empty(shape[0], shape[1], heads, hidden // heads, dtype=torch.bfloat16, device="meta"))
     log(f"[head_dim32] {tag}: transformer expert hidden {hidden}, {heads} heads, input {list(shape)} ({label}): "
         f"flash launches forward {launches['flash_attention_forward']}, dq {launches['flash_attention_backward_dq']}, "
-        f"dkv {launches['flash_attention_backward_dkv']}; card vs CPU (plain_attention) max_rel_err={rel_err:.3e}")
+        f"dkv {launches['flash_attention_backward_dkv']} (on the packed-heads view "
+        f"{launches['flash_attention_forward_packed']} / {launches['flash_attention_backward_dq_packed']} / "
+        f"{launches['flash_attention_backward_dkv_packed']}); card vs CPU (plain_attention) max_rel_err={rel_err:.3e}")
     log(f"[head_dim32] {tag}: backward with SGD(lr={EXPERT_LR}), card vs CPU, max relative error: "
         + ", ".join(f"{k} {v:.3e}" for k, v in readings.items()))
     if label != routes:
@@ -1652,6 +1671,9 @@ def serve_small_heads_expert(torch, wrappers: dict, tag: str, hidden: int, heads
     counted = {name: launches[name] for name in SMALL_HEADS_LAUNCHES}
     if counted != SMALL_HEADS_LAUNCHES:
         raise AssertionError(f"{tag} expert: flash launches {counted}, expected {SMALL_HEADS_LAUNCHES}")
+    on_packed = {name: launches[f"{name}_packed"] for name in SMALL_HEADS_LAUNCHES}  # every launch, or none
+    if on_packed != {name: count * packed for name, count in SMALL_HEADS_LAUNCHES.items()}:
+        raise AssertionError(f"{tag} expert: flash launches on the packed-heads view {on_packed}, packed={packed}")
     if not (got.shape == x.shape and np.isfinite(got).all() and rel_err < SERVING_TOL):
         raise AssertionError(f"{tag} expert: output {got.shape}, card vs CPU {rel_err} >= {SERVING_TOL}")
     if card.update_count != 1:
@@ -5574,7 +5596,10 @@ def phase_cli(torch, checkpoint_dir: str, wrappers: dict) -> dict:
                 child.wait()
         server_log = logs["run_server"].read_text(errors="replace")
         scratch.cleanup()
-    launches = {name: counts[wrapper.__name__] - loaded[wrapper.__name__] for name, wrapper in wrappers.items()}
+    # the server logs each kernel wrapper's launches by its name (run_server.kernel_launches), not the
+    # packed-heads view's counts, which its Llama-width blocks never launch
+    launches = {name: counts[wrapper.__name__] - loaded[wrapper.__name__] for name, wrapper in wrappers.items()
+                if not name.endswith("_packed")}
     layers = LLAMA2_7B["num_hidden_layers"]
     local = load_llama_blocks(checkpoint_dir, device="cuda")[0]
     rel_err = max_rel_err(forwarded, forward_chain(local, x))
@@ -5785,13 +5810,19 @@ def main(argv=None) -> int:
         "blockwise_int8_quantize": blockwise_int8.blockwise_int8_quantize,
         "blockwise_int8_dequantize": blockwise_int8.blockwise_int8_dequantize,
         "blockwise_int8_dequantize_window": blockwise_int8.blockwise_int8_dequantize_window,
+        # the flash kernels' launches on the packed-heads view (16-bit head dims that are not a multiple of 8)
+        "flash_attention_forward_packed": flash_attention.flash_attention_lse.packed,
+        "flash_attention_backward_dq_packed": flash_attention.flash_attention_backward_dq.packed,
+        "flash_attention_backward_dkv_packed": flash_attention.flash_attention_backward_dkv.packed,
     }
     # each path, and the kernels that must launch in its run
     path_kernels = {
         "serving": ("flash_attention_forward", "blockwise_int8_quantize", "blockwise_int8_dequantize"),
         "expert_backward": ("flash_attention_forward", "flash_attention_backward_dq", "flash_attention_backward_dkv"),
         "train": ("flash_attention_forward", "flash_attention_backward_dq", "flash_attention_backward_dkv"),
-        "head_dim32": ("flash_attention_forward", "flash_attention_backward_dq", "flash_attention_backward_dkv"),
+        "head_dim32": ("flash_attention_forward", "flash_attention_backward_dq", "flash_attention_backward_dkv",
+                       "flash_attention_forward_packed", "flash_attention_backward_dq_packed",
+                       "flash_attention_backward_dkv_packed"),
         "decode": ("blockwise_int8_dequantize",),
         "remote": ("flash_attention_forward", "flash_attention_backward_dq", "flash_attention_backward_dkv",
                    "blockwise_int8_dequantize"),
@@ -5837,7 +5868,7 @@ def main(argv=None) -> int:
 
     try:
         run("build", phase_build, torch, telemetry)
-        entries["flash_attention_forward"] = run("flash", phase_flash, torch, peaks)
+        entries.update(run("flash", phase_flash, torch, peaks) or {})
         entries["blockwise_int8_quantize"], entries["blockwise_int8_dequantize"] = (
             run("quantize", phase_quantization, torch, peaks) or (None, None))
         entries.update(run("flash_bwd", phase_flash_bwd, torch, peaks) or {})
@@ -5896,6 +5927,13 @@ def main(argv=None) -> int:
         # row 5 on a shard of the serving mesh, whose cut the JAX package leaves to GSPMD
         "blockwise_int8_dequantize_window": ("hivemind_tpu_torch/csrc/blockwise_int8.cu",
                                              "hivemind_tpu/ops/pallas_quantization.py:73"),
+        # rows 1-3 on the packed-heads view (kPacked instantiations)
+        "flash_attention_forward_packed": ("hivemind_tpu_torch/csrc/flash_attention.cu",
+                                           "hivemind_tpu/ops/pallas_attention.py:108"),
+        "flash_attention_backward_dq_packed": ("hivemind_tpu_torch/csrc/flash_attention_bwd.cu",
+                                               "hivemind_tpu/ops/pallas_attention.py:279"),
+        "flash_attention_backward_dkv_packed": ("hivemind_tpu_torch/csrc/flash_attention_bwd.cu",
+                                                "hivemind_tpu/ops/pallas_attention.py:292"),
     }
     kernels = [
         {"name": kernel, "route": "cuda", "source": meta[kernel][0], "replaces": meta[kernel][1],

@@ -15,12 +15,13 @@ gradients are ready (upstream averager.py:367-419 + control.py)."""
 from __future__ import annotations
 
 import asyncio
+import concurrent.futures
 import contextlib
 import hashlib
 import os
 import threading
 import time
-from typing import Any, AsyncIterator, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, AsyncIterator, Dict, List, Optional, Sequence, Set, Tuple, Union
 
 import numpy as np
 import torch
@@ -192,6 +193,9 @@ class DecentralizedAverager(ServicerBase):
         self.matchmaking: Optional[Matchmaking] = None
         self.key_manager: Optional[GroupKeyManager] = None
         self._declare_state_task: Optional[asyncio.Task] = None
+        # the steps in flight on the loop: shutdown cancels them, else a step that finds no
+        # group (its DHT gone) keeps looking, on a loop other averagers and tests share
+        self._running_steps: Set[concurrent.futures.Future] = set()
         self.initial_group_bits = initial_group_bits
 
         if start:
@@ -303,6 +307,8 @@ class DecentralizedAverager(ServicerBase):
             self._shutdown = True
             return
         self._shutdown = True
+        for running in list(self._running_steps):
+            running.cancel()  # its StepControl is cancelled with it (_step)
 
         async def _teardown():
             if self._declare_state_task is not None:
@@ -408,7 +414,9 @@ class DecentralizedAverager(ServicerBase):
         )
         if not require_trigger:
             control.allow_allreduce()
-        self._runner.run_coroutine(self._step(control), return_future=True)
+        running = self._runner.run_coroutine(self._step(control), return_future=True)
+        self._running_steps.add(running)
+        running.add_done_callback(self._running_steps.discard)
         return control.result(timeout) if wait else control
 
     async def _step(self, control: StepControl) -> None:

@@ -49,14 +49,13 @@ inline int tma_span(int head_dim, int heads) {
     return head_dim + shift;
 }
 
-// What the wgmma kernels take: bf16 or fp16 at a head_dim from 16 to 256 that TMA can
-// read: a multiple of 8 (the 4-D view), or, where `packed` (the forward and the dK/dV
-// pass), any other whose heads * head_dim is a multiple of 8 and whose span is at
-// most 256 (the packed-heads view).
-inline bool wgmma_takes(int dtype, int head_dim, int heads, bool packed) {
+// What the wgmma kernels (every pass) take: bf16 or fp16 at a head_dim from 16 to 256
+// that TMA can read: a multiple of 8 (the 4-D view), or any other whose heads *
+// head_dim is a multiple of 8 and whose span is at most 256 (the packed-heads view).
+inline bool wgmma_takes(int dtype, int head_dim, int heads) {
     if (!((dtype == kSimtBf16 || dtype == kSimtF16) && head_dim >= 16 && head_dim <= 256)) return false;
     if (!packed_heads(head_dim)) return true;
-    return packed && static_cast<long long>(heads) * head_dim % 8 == 0 && tma_span(head_dim, heads) <= 256;
+    return static_cast<long long>(heads) * head_dim % 8 == 0 && tma_span(head_dim, heads) <= 256;
 }
 
 inline CUtensorMapDataType tma_type(int dtype) {

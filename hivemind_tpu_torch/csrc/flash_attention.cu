@@ -25,7 +25,7 @@
 //    through a ring of two stages. Each K and V slot has a "full" mbarrier (TMA
 //    bytes) and an "empty" one (the 8 consumer warps), so a K slot is refilled as
 //    soon as its S product is done. The producer warpgroup gives its registers to
-//    the consumers (setmaxnreg 24 / 240).
+//    the consumers (setmaxnreg 24 / 240; 40 / 232 on the packed-heads view, below).
 //  * KV tiles are 128 rows at Dp <= 128 and 64 rows at Dp = 256, where a consumer
 //    thread holds O (64 x 256 fp32: 128 registers), S (32) and P (16) within its
 //    240. Shared memory: Q 32 KB and K, V 2 x 2 x 32 KB at Dp = 128 (160 KB in
@@ -64,21 +64,18 @@
 //    is a multiple of 8 (any other raised an illegal instruction on an H100), so head
 //    h's boxes start at h * head_dim rounded down to one, and its columns land at the
 //    tile's [s, s + head_dim), s = (h * head_dim) % 8 (sm90::head_shift); the padded
-//    width holds head_dim + the largest s (tma_span). The columns around the head's
-//    are its neighbours' values, not zeros: the consumers zero Q's once it lands
-//    (swizzle-aware stores, a proxy fence and a named barrier before any wgmma), so
-//    S = Q K^T, a sum over columns shifted alike in Q and K, meets zeros on Q's side
-//    outside the head and is exact. Column s + d of O = P V is the head's column d;
-//    the rest hold other heads' sums and are never stored. Each output column is
-//    stored by a 2-byte store of its own (a row starts only 2-byte aligned at an odd
-//    head_dim). The streamed K and V tiles keep their neighbours' columns. The limit
-//    this leaves: 0 * inf is NaN, so a non-finite K value in a neighbouring head
-//    within a box's 64 columns makes head h's output NaN, where the TPU kernel keeps
-//    heads apart (a non-finite Q or V value there does not reach it: Q is zeroed, and
-//    column d of O reads only V's column d). Zeroing each streamed K tile as well, by
-//    the producer warpgroup's idle second warp, closed it but made this forward 41%
-//    slower at [2, 1000, 16, 20] on an H100 (PERF.md, row 1p's findings), so it is
-//    not done.
+//    width holds head_dim + the largest s (tma_span). Heads are kept apart as the TPU
+//    kernel keeps them: S = Q K^T sums over the tile's columns, so outside the head's
+//    both operands must be zeros, not merely one (0 * inf is NaN). Q's box brings its
+//    neighbours' columns, and the consumers zero them once it lands (swizzle-aware
+//    stores, a proxy fence and a named barrier before any wgmma). The streamed K tiles
+//    are never given them: the producer warpgroup's 128 threads copy each K tile's head
+//    bytes alone by cp.async, a row each (sm90::load_head_row: 16-byte pieces, 8-, 4-
+//    and 2-byte ones at the ends), into a ring zeroed once at the start, and the
+//    consumers fence the async proxy after each K tile's barrier. V keeps its TMA box: column s + d of O = P V
+//    reads only V's column s + d, and it is the head's column d; the rest hold other
+//    heads' sums and are never stored. Each output column is stored by a 2-byte store
+//    of its own (a row starts only 2-byte aligned at an odd head_dim).
 //  * Later work (not here): a persistent grid, so that one tile's loads and
 //    epilogue overlap another's products (at D = 64 and T = 512 a block runs
 //    only 4 KV tiles), and TMA stores of O.
@@ -126,7 +123,11 @@ constexpr int kRows = 128;        // query rows per block
 constexpr int kStages = 2;        // depth of the K/V ring
 constexpr int kConsumerWarps = 8;
 constexpr int kThreadsWgmma = 384;  // two consumer warpgroups and the producer's
+constexpr int kProducerThreads = kThreadsWgmma - kConsumerWarps * 32;
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;  // 128 * 24 + 256 * 240 = 384 * 168
+// the packed-heads view's producer threads copy rows by cp.async (sm90::load_head_row), which
+// spilled 4-8 bytes in 24 registers: 128 * 40 + 256 * 232 = 384 * 168, with no spill on either side
+constexpr int kPackedProducerRegs = 40, kPackedConsumerRegs = 232;
 
 struct WgmmaParams {
     void* out;
@@ -135,6 +136,8 @@ struct WgmmaParams {
     long long o_sb, o_st, o_sh;
     float scale;
     int causal;
+    const void* k;             // the packed-heads view's K, which its kernel copies by cp.async
+    long long k_sb, k_st;      // its batch and row strides, in bytes
 };
 
 // Shared-memory layout at the padded width Dp (byte offsets from a 1024-aligned base).
@@ -173,8 +176,9 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, 
 // past head_dim read as zeros and are never stored. kFull: head_dim == Dp, whose
 // stores need no column test (its mere presence in a kernel costs a full-width
 // tile about 1%, as measured against one without it). kPacked: the packed-heads
-// view (a head_dim that is not a multiple of 8): Q's columns past head_dim are
-// zeroed once it lands, and each column is stored by its own 2-byte store.
+// view (a head_dim that is not a multiple of 8): Q's columns outside the head's are
+// zeroed once it lands, K is copied a head's bytes at a time into a ring zeroed once,
+// and each column is stored by its own 2-byte store.
 template <typename T, int Dp, bool kFull, bool kPacked>
 __global__ void __launch_bounds__(kThreadsWgmma, 1)
     flash_forward_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
@@ -216,11 +220,15 @@ __global__ void __launch_bounds__(kThreadsWgmma, 1)
         }
         sm90::fence_proxy_async();
     }
+    if constexpr (kPacked) {  // K's ring: zeros, of which load_head_row overwrites only the head's columns
+        sm90::zero_shared(base + L::kK, kStages * L::kKvTile);
+        sm90::fence_proxy_async();
+    }
 
     if (threadIdx.x == 0) {
         sm90::mbar_init(full_q, 1);
         for (int s = 0; s < kStages; ++s) {
-            sm90::mbar_init(full_k(s), 1);
+            sm90::mbar_init(full_k(s), kPacked ? kProducerThreads : 1);  // packed: every producer thread
             sm90::mbar_init(full_v(s), 1);
             sm90::mbar_init(empty_k(s), kConsumerWarps);
             sm90::mbar_init(empty_v(s), kConsumerWarps);
@@ -229,9 +237,33 @@ __global__ void __launch_bounds__(kThreadsWgmma, 1)
     }
     __syncthreads();
 
-    if (threadIdx.x >= kConsumerWarps * 32) {  // the producer warpgroup; one thread issues every load
-        sm90::setmaxnreg_dec<kProducerRegs>();
-        if (threadIdx.x == kConsumerWarps * 32) {
+    if (threadIdx.x >= kConsumerWarps * 32) {  // the producer warpgroup; one thread issues every TMA load
+        sm90::setmaxnreg_dec<kPacked ? kPackedProducerRegs : kProducerRegs>();
+        if constexpr (kPacked) {  // every producer thread copies K's head bytes of a row (or half); thread 0 Q and V by TMA
+            const int thread = threadIdx.x - kConsumerWarps * 32;
+            if (thread == 0) {
+                sm90::mbar_arrive_expect_tx(full_q, boxes * L::kQBox);
+                load_tile<kKvRows, kRows>(base + L::kQ, &tm_q, full_q, boxes, origin, q0, b);
+            }
+            const char* k_line = static_cast<const char*>(p.k) + b * p.k_sb + 2LL * origin.x;
+            constexpr int kParts = kProducerThreads / kKvRows;  // threads a row: 1, or 2 at Dp = 256
+            const int2 bytes = sm90::row_part(2 * shift, 2 * (shift + p.head_dim), thread / kKvRows, kParts);
+            for (int j = 0; j < kv_tiles; ++j) {
+                const int s = j % kStages;
+                const uint32_t parity = ((j / kStages) & 1) ^ 1;  // the first round passes at once
+                sm90::mbar_wait(empty_k(s), parity);
+                sm90::load_head_row(base + L::kK + s * L::kKvTile, L::kKvBox, k_line, p.k_st, bytes.x, bytes.y,
+                                    j * kKvRows, thread % kKvRows, p.seq);
+                sm90::cp_async_arrive(full_k(s));
+                sm90::mbar_arrive(full_k(s));
+                if (thread == 0) {
+                    sm90::mbar_wait(empty_v(s), parity);
+                    sm90::mbar_arrive_expect_tx(full_v(s), boxes * L::kKvBox);
+                    load_tile<kKvRows, kKvRows>(base + L::kV + s * L::kKvTile, &tm_v, full_v(s), boxes, origin,
+                                                j * kKvRows, b);
+                }
+            }
+        } else if (threadIdx.x == kConsumerWarps * 32) {
             sm90::mbar_arrive_expect_tx(full_q, boxes * L::kQBox);
             load_tile<kKvRows, kRows>(base + L::kQ, &tm_q, full_q, boxes, origin, q0, b);
             for (int j = 0; j < kv_tiles; ++j) {
@@ -248,7 +280,7 @@ __global__ void __launch_bounds__(kThreadsWgmma, 1)
             }
         }
     } else {  // two consumer warpgroups, 64 query rows each
-        sm90::setmaxnreg_inc<kConsumerRegs>();
+        sm90::setmaxnreg_inc<kPacked ? kPackedConsumerRegs : kConsumerRegs>();
         const int wg = threadIdx.x / 128;
         const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
         const int g = lane / 4, t = lane % 4;
@@ -357,6 +389,11 @@ __global__ void __launch_bounds__(kThreadsWgmma, 1)
             sm90::fence_regs(sc);
             sm90::fence_regs(o);
         };
+        // K tile j has landed; packed, its cp.async bytes are then fenced for wgmma's reads
+        const auto wait_k = [&](int j) {
+            sm90::mbar_wait(full_k(j % kStages), (j / kStages) & 1);
+            if constexpr (kPacked) sm90::fence_proxy_async();
+        };
         if (wg == 1) pass_turn();
         sm90::mbar_wait(full_q, 0);
         if constexpr (kPacked) {  // Q's columns around the head's hold its neighbours': zero them before any S
@@ -365,7 +402,7 @@ __global__ void __launch_bounds__(kThreadsWgmma, 1)
             sm90::fence_proxy_async();
             sm90::named_bar_sync(3, kConsumerWarps * 32);
         }
-        sm90::mbar_wait(full_k(0), 0);
+        wait_k(0);
         take_turn();
         issue_s(0);
         sm90::wgmma_commit();
@@ -375,7 +412,7 @@ __global__ void __launch_bounds__(kThreadsWgmma, 1)
         softmax(0);  // O is still 0: no rescale
         pack_p();
         for (int j = 1; j < kv_tiles; ++j) {
-            sm90::mbar_wait(full_k(j % kStages), (j / kStages) & 1);
+            wait_k(j);
             sm90::mbar_wait(full_v((j - 1) % kStages), ((j - 1) / kStages) & 1);
             take_turn();
             issue_s(j);
@@ -608,7 +645,7 @@ extern "C" int hm_flash_forward_wgmma(const void* q, const void* k, const void* 
                                       const long long* v_geometry, long long o_sb, long long o_st, long long o_sh,
                                       int causal, float scale, cudaStream_t stream) {
     if (batch <= 0 || seq <= 0 || heads <= 0) return 0;
-    if (!wgmma_takes(dtype, head_dim, heads, true)) return static_cast<int>(cudaErrorInvalidValue);
+    if (!wgmma_takes(dtype, head_dim, heads)) return static_cast<int>(cudaErrorInvalidValue);
     const void* bases[3] = {q, k, v};
     const long long* geometries[3] = {q_geometry, k_geometry, v_geometry};
     const int box_rows = tma_span(head_dim, heads) > 128 ? ForwardTiles<256>::kKvRows : ForwardTiles<128>::kKvRows;
@@ -618,7 +655,9 @@ extern "C" int hm_flash_forward_wgmma(const void* q, const void* k, const void* 
                                              box_rows, head_dim, heads, tma_type(dtype));
         if (err != 0) return err;
     }
-    const WgmmaParams p{out, lse, seq, heads, head_dim, o_sb, o_st, o_sh, scale, causal};
+    const auto& k_view = *reinterpret_cast<const sm90::TmaGeometry*>(k_geometry);
+    const WgmmaParams p{out, lse, seq, heads, head_dim, o_sb, o_st, o_sh, scale, causal,
+                        k, k_view.strides[2], k_view.strides[1]};
     if (dtype == kSimtF16) return dispatch_wgmma_width<__half>(maps, p, batch, stream);
     return dispatch_wgmma_width<__nv_bfloat16>(maps, p, batch, stream);
 }

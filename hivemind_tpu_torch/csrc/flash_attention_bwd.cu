@@ -32,21 +32,20 @@
 // past T (and above the diagonal when causal) are masked to P = 0 explicitly, so
 // nothing relies on a padded lse.
 //
-// Both wgmma passes (building blocks in sm90.cuh; bf16 and fp16 at a head_dim that
-// is a multiple of 8 from 16 to 256, and the dK/dV pass also at any other from 16 to
-// 256 whose H * head_dim is; templates <T, Dp, kFull> and the dK/dV pass's kPacked: T
-// the element type, Dp the head_dim padded to 64, 128 or 256, kFull whether head_dim
-// is Dp, kPacked whether TMA reads the packed-heads view) run one
+// Both wgmma passes (building blocks in sm90.cuh; bf16 and fp16 at a head_dim from 16
+// to 256 that is a multiple of 8, or any other whose H * head_dim is; templates <T, Dp,
+// kFull, kPacked>: T the element type, Dp the head_dim padded to 64, 128 or 256, kFull
+// whether head_dim is Dp, kPacked whether the packed-heads view is read, below) run one
 // thread block per 128 rows (query rows for dQ, KV rows for dK/dV; 64 KV rows at a
 // padded width of 256) of one batch*head, in three warpgroups: two consumer
 // warpgroups own 64 of those rows each (or, in the dK/dV pass at 256, the same 64
 // rows and half the columns each), whose tiles stay resident in shared memory, and
 // one warp of the third (the producer) streams the other side's tiles by TMA
 // through a ring. The producer warpgroup gives its registers to the consumers
-// (setmaxnreg 24 / 240). Every tensor is read by TMA through one geometry the
-// wrapper gives both passes: boxes of 64 columns x 64 rows, so a 128-row tile is
-// two boxes per 64 columns, which land where one 128-row box would (the dQ pass at
-// 256 encodes K's and V's maps with boxes of 32 rows). A head_dim below Dp: TMA
+// (setmaxnreg 24 / 240; 40 / 232 on the packed-heads view). Every tensor is read by
+// TMA through one geometry the wrapper gives both passes: boxes of 64 columns x 64
+// rows, so a 128-row tile is two boxes per 64 columns, which land where one 128-row
+// box would (the dQ pass at 256 encodes K's and V's maps with boxes of 32 rows). A head_dim below Dp: TMA
 // reads the columns past it as zeros, a 64-column region wholly past it (Dp = 256,
 // head_dim <= 192) is zeroed once and never loaded, and only columns below it are
 // stored (kFull keeps the full-width stores free of the column test, which costs a
@@ -57,7 +56,7 @@
 // on the tiles that meet the diagonal when causal and on the tile holding T; TMA
 // reads rows past T as zeros, and rows past T are never stored.
 //
-// dQ pass, wgmma (`flash_bwd_dq_wgmma<T, Dp, kFull>`):
+// dQ pass, wgmma (`flash_bwd_dq_wgmma<T, Dp, kFull, kPacked>`):
 //  * Grid (B*H, query tiles of 128 rows), the heaviest query tiles first when
 //    causal (the last tile of each batch*head first), as the forward. Q and dO of
 //    the block's 128 rows are loaded once; K and V tiles stream through a ring,
@@ -98,7 +97,7 @@
 //    the last 64 KV rows (a tile, or two at 256), which lie wholly above its rows
 //    and mask to zero, so that both warpgroups release every ring slot.
 //
-// dK/dV pass, wgmma (`flash_bwd_dkv_wgmma<T, Dp, kFull>`):
+// dK/dV pass, wgmma (`flash_bwd_dkv_wgmma<T, Dp, kFull, kPacked>`):
 //  * Grid (B*H, KV tiles of 128 rows; 64 at Dp = 256). K and V of the block stay
 //    resident; Q and dO tiles of 64 rows stream through a ring of two stages, and
 //    the producer
@@ -111,22 +110,6 @@
 //  * dV += P^T dO and dK += dS^T Q are wgmma with the A operand from registers
 //    and dO, Q read MN-major through the transpose-B flag.
 //  * Causal: the query loop starts at the diagonal tile.
-//  * The packed-heads view (`flash_bwd_dkv_wgmma<T, Dp, false, true>`: a head_dim
-//    that is not a multiple of 8, as the forward's kPacked): every tensor is read as
-//    (H * head_dim, T, B), head h's boxes from column h * head_dim rounded down to a
-//    multiple of 8, so the head's columns land at the tile's [s, s + head_dim), s =
-//    (h * head_dim) % 8, among its neighbours' values. The consumers zero K's and V's
-//    columns outside the head's once they land (before the first S^T), so S^T = K Q^T
-//    and dP^T = V dO^T meet zeros on the resident side and are exact; column s + d of
-//    dK and dV is the head's column d, the rest are never stored, and each stored
-//    column is a 2-byte store of its own. The streamed Q and dO tiles keep their
-//    neighbours' columns: a non-finite Q or dO value in a neighbouring head within a
-//    box's 64 columns makes head h's dK or dV NaN (0 * inf), where the TPU kernel keeps
-//    heads apart (a non-finite K or V value there does not reach it: both are zeroed).
-//    Zeroing each streamed stage as well, by the producer warpgroup's idle second warp,
-//    closed it but made this pass 74% slower at [2, 1000, 16, 20] on an H100 and
-//    spilled in the producer's 24 registers (PERF.md, row 3p's findings), so it is not
-//    done. The dQ pass has no packed form: it stays SIMT there.
 //  * Dp = 256: a consumer warpgroup cannot hold dK and dV of 64 rows (2 x 128 fp32
 //    registers a thread) beside S^T and dP^T. The block owns 64 KV rows and the
 //    two warpgroups split the head dim's columns: each computes S^T and dP^T of
@@ -138,13 +121,30 @@
 //    P^T and dS^T through shared memory, computes them once). Shared memory: K, V
 //    2 x 32 KB resident, Q, dO 2 stages x 2 x 32 KB, lse and delta (193 KB).
 //
+// The packed-heads view (kPacked, both passes: a head_dim that is not a multiple of 8,
+// as the forward's): every tensor is read as (H * head_dim, T, B), head h's columns at
+// the tile's [s, s + head_dim), s = (h * head_dim) % 8, as the forward lands them.
+// Heads are kept apart as the TPU kernels keep them: every product that sums over the
+// tile's columns (S, dP; S^T, dP^T) must meet zeros on both sides outside the head's
+// (0 * inf is NaN). The resident tiles come by TMA with their neighbours' columns,
+// which the consumers zero once they land (Q and dO in the dQ pass, K and V in the
+// dK/dV pass; a proxy fence and a named barrier before the first wgmma). The streamed
+// tiles (K and V; Q and dO) are never given them: the producer warpgroup's 128
+// threads copy each tile's head bytes alone by cp.async, a row a thread (half of them
+// on each of the two streamed tensors; sm90::load_head_row), into rings zeroed once at
+// the start, and the consumers fence the async proxy after each stage's barrier.
+// The products that sum over rows (dS K; P^T dO, dS^T Q) read column c of the streamed
+// tile into column c of the result alone. Column s + d of dQ, dK and dV is the head's
+// column d, the rest are never stored, and each stored column is a 2-byte store of its
+// own.
+//
 // Later work (not here): the ping-pong of the two consumer warpgroups and a deeper
 // ring in the dK/dV pass, a persistent grid, TMA stores of the outputs.
 //
 // SIMT (every input the wgmma passes do not take: fp32, where tensor cores would
-// round the inputs to TF32; bf16 and fp16 at a head_dim that is not a multiple of
-// 8, in the dQ pass, and in the dK/dV pass where H * head_dim is not one either; any
-// head_dim up to 256, as the TPU kernels take the whole head_dim as their block):
+// round the inputs to TF32; bf16 and fp16 at a head_dim that is not a multiple of 8
+// whose H * head_dim is not one either, or whose span passes 256; any head_dim up to
+// 256, as the TPU kernels take the whole head_dim as their block):
 // plain fp32 FMAs on the CUDA cores, no TF32, the inputs widened to fp32 as they are
 // staged and P and dS kept in fp32, as the TPU kernels. A warp owns 4 rows (query
 // rows in the dQ kernel, KV rows in the dK/dV kernel); lane j takes column j of a
@@ -188,7 +188,11 @@ constexpr int kBlockRows = 128;  // query rows a dQ block owns: two consumer war
 constexpr int kBoxRows = 64;     // rows of the wrapper's TMA boxes, and of every streamed tile but the dQ pass's at 256
 constexpr int kConsumerWarps = 8;
 constexpr int kThreads = 384;  // two consumer warpgroups and the producer's
+constexpr int kProducerThreads = kThreads - kConsumerWarps * 32;
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;  // 128 * 24 + 256 * 240 = 384 * 168
+// the packed-heads view's producer threads copy rows by cp.async (sm90::load_head_row), which
+// spilled 4-8 bytes in 24 registers: 128 * 40 + 256 * 232 = 384 * 168, with no spill on either side
+constexpr int kPackedProducerRegs = 40, kPackedConsumerRegs = 232;
 
 struct WgmmaParams {
     const float* lse;    // [B, H, T]
@@ -199,6 +203,10 @@ struct WgmmaParams {
     long long o_sb, o_st, o_sh;  // the outputs' layout
     float scale;
     int causal;
+    // the tensors a pass streams (dQ: k, v; dK/dV: q, dout), which the packed-heads
+    // view's kernels copy by cp.async; their batch and row strides in bytes
+    const void* streamed[2];
+    long long streamed_sb[2], streamed_st[2];
 };
 
 // Write a warpgroup's 64 x N fp32 accumulator as T into rows `row_a` and `row_a + 8`
@@ -270,8 +278,11 @@ struct DqTiles {
 
 // T: __nv_bfloat16 or __half. Dp: head_dim padded to 64, 128 or 256; columns at or
 // past head_dim read as zeros and are never stored. kFull: head_dim == Dp, whose
-// stores need no column test.
-template <typename T, int Dp, bool kFull>
+// stores need no column test. kPacked: the packed-heads view (a head_dim that is not a
+// multiple of 8): Q's and dO's columns outside the head's are zeroed once they land, K
+// and V are copied a head's bytes at a time into rings zeroed once, and each column of
+// dQ is stored on its own.
+template <typename T, int Dp, bool kFull, bool kPacked>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
@@ -292,10 +303,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int q0 = (q_tiles - 1 - static_cast<int>(blockIdx.y)) * kBlockRows;  // heaviest first
     const int kv_end = p.causal ? min(p.seq, q0 + kBlockRows) : p.seq;        // causal: up to the diagonal
     const int kv_tiles = (kv_end + kKvRows - 1) / kKvRows;
-    const int2 origin = sm90::head_origin(h, p.head_dim, false);  // the 4-D view: the dQ pass takes no packed heads
+    const int2 origin = sm90::head_origin(h, p.head_dim, kPacked);  // as the forward's
+    const int shift = sm90::head_shift(h, p.head_dim, kPacked);
     // The regions TMA loads, as the other passes: at Dp = 256 a region wholly past a
-    // head_dim of 192 or less is zeroed once here and never loaded.
-    const int boxes = !kFull && Dp > 128 ? (p.head_dim + sm90::kBoxCols - 1) / sm90::kBoxCols : L::kBoxes;
+    // head_dim of 192 or less (past shift + head_dim, packed) is zeroed once here and
+    // never loaded.
+    const int boxes =
+        !kFull && Dp > 128 ? (shift + p.head_dim + sm90::kBoxCols - 1) / sm90::kBoxCols : L::kBoxes;
     if (!kFull && Dp > 128 && boxes < L::kBoxes) {
         for (int region = boxes; region < L::kBoxes; ++region) {
             sm90::zero_shared(base + L::kQ + region * L::kQBox, L::kQBox);
@@ -307,12 +321,16 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
         sm90::fence_proxy_async();
     }
+    if constexpr (kPacked) {  // K's and V's rings: zeros, of which load_head_row overwrites only the head's columns
+        sm90::zero_shared(base + L::kK, 2 * kStages * L::kKvTile);
+        sm90::fence_proxy_async();
+    }
 
     if (threadIdx.x == 0) {
         sm90::mbar_init(full_qdo, 1);
         for (int s = 0; s < kStages; ++s) {
-            sm90::mbar_init(full_k(s), 1);
-            sm90::mbar_init(full_v(s), 1);
+            sm90::mbar_init(full_k(s), kPacked ? kProducerThreads / 2 : 1);  // packed: half the producer threads each
+            sm90::mbar_init(full_v(s), kPacked ? kProducerThreads / 2 : 1);
             sm90::mbar_init(empty_k(s), kConsumerWarps);
             sm90::mbar_init(empty_v(s), kConsumerWarps);
         }
@@ -320,9 +338,34 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     __syncthreads();
 
-    if (threadIdx.x >= kConsumerWarps * 32) {  // the producer warpgroup; one thread issues every load
-        sm90::setmaxnreg_dec<kProducerRegs>();
-        if (threadIdx.x == kConsumerWarps * 32) {
+    if (threadIdx.x >= kConsumerWarps * 32) {  // the producer warpgroup; one thread issues every TMA load
+        sm90::setmaxnreg_dec<kPacked ? kPackedProducerRegs : kProducerRegs>();
+        if constexpr (kPacked) {  // half the producer threads copy K's head bytes, half V's, a row (or half) each;
+                                  // thread 0 also loads Q and dO by TMA
+            const int thread = threadIdx.x - kConsumerWarps * 32;
+            if (thread == 0) {
+                sm90::mbar_arrive_expect_tx(full_qdo, 2 * boxes * L::kQBox);
+                load_tile_tma<kBoxRows, kBlockRows>(base + L::kQ, &tm_q, full_qdo, boxes, origin, q0, b);
+                load_tile_tma<kBoxRows, kBlockRows>(base + L::kDo, &tm_do, full_qdo, boxes, origin, q0, b);
+            }
+            constexpr int kHalf = kProducerThreads / 2, kParts = kHalf / kKvRows;  // threads a row: 1, or 2 at Dp = 256
+            const int which = thread / kHalf, row = thread % kKvRows;  // which: 0 K, 1 V
+            const int2 bytes = sm90::row_part(2 * shift, 2 * (shift + p.head_dim), thread % kHalf / kKvRows, kParts);
+            // selects, not p.streamed[which]: a kernel parameter indexed at run time is copied to local memory
+            const char* line = static_cast<const char*>(which ? p.streamed[1] : p.streamed[0]) +
+                               b * (which ? p.streamed_sb[1] : p.streamed_sb[0]) + 2LL * origin.x;
+            const long long row_bytes = which ? p.streamed_st[1] : p.streamed_st[0];
+            const uint32_t ring = base + (which ? L::kV : L::kK);
+            for (int j = 0; j < kv_tiles; ++j) {
+                const int s = j % kStages;
+                const uint32_t parity = ((j / kStages) & 1) ^ 1;  // the first round passes at once
+                sm90::mbar_wait(which ? empty_v(s) : empty_k(s), parity);
+                sm90::load_head_row(ring + s * L::kKvTile, L::kKvBox, line, row_bytes, bytes.x, bytes.y, j * kKvRows,
+                                    row, p.seq);
+                sm90::cp_async_arrive(which ? full_v(s) : full_k(s));
+                sm90::mbar_arrive(which ? full_v(s) : full_k(s));
+            }
+        } else if (threadIdx.x == kConsumerWarps * 32) {
             sm90::mbar_arrive_expect_tx(full_qdo, 2 * boxes * L::kQBox);
             load_tile_tma<kBoxRows, kBlockRows>(base + L::kQ, &tm_q, full_qdo, boxes, origin, q0, b);
             load_tile_tma<kBoxRows, kBlockRows>(base + L::kDo, &tm_do, full_qdo, boxes, origin, q0, b);
@@ -340,7 +383,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             }
         }
     } else {  // two consumer warpgroups, 64 query rows each
-        sm90::setmaxnreg_inc<kConsumerRegs>();
+        sm90::setmaxnreg_inc<kPacked ? kPackedConsumerRegs : kConsumerRegs>();
         const int wg = threadIdx.x / 128;
         const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
         const int g = lane / 4, t = lane % 4;
@@ -433,10 +476,23 @@ __global__ void __launch_bounds__(kThreads, 1)
             sm90::fence_regs(dp);
             sm90::fence_regs(dq);
         };
+        // K and V of tile j have landed; packed, their cp.async bytes are then fenced for wgmma's reads
+        const auto wait_kv = [&](int j) {
+            sm90::mbar_wait(full_k(j % kStages), (j / kStages) & 1);
+            sm90::mbar_wait(full_v(j % kStages), (j / kStages) & 1);
+            if constexpr (kPacked) sm90::fence_proxy_async();
+        };
         if (wg == 1) pass_turn();
         sm90::mbar_wait(full_qdo, 0);
-        sm90::mbar_wait(full_k(0), 0);
-        sm90::mbar_wait(full_v(0), 0);
+        if constexpr (kPacked) {  // Q's and dO's columns around the head's hold its neighbours': zero them before any S
+            sm90::zero_around_head(base + L::kQ, L::kQBox, kBlockRows, shift, p.head_dim, boxes * sm90::kBoxCols,
+                                   threadIdx.x, kConsumerWarps * 32);
+            sm90::zero_around_head(base + L::kDo, L::kQBox, kBlockRows, shift, p.head_dim, boxes * sm90::kBoxCols,
+                                   threadIdx.x, kConsumerWarps * 32);
+            sm90::fence_proxy_async();
+            sm90::named_bar_sync(3, kConsumerWarps * 32);
+        }
+        wait_kv(0);
         take_turn();
         issue_s_dp(0);
         sm90::wgmma_commit();
@@ -446,8 +502,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         make_ds(0);
         for (int j = 1; j < kv_tiles; ++j) {
             const int s = j % kStages;
-            sm90::mbar_wait(full_k(s), (j / kStages) & 1);
-            sm90::mbar_wait(full_v(s), (j / kStages) & 1);
+            wait_kv(j);
             take_turn();
             issue_s_dp(j);
             issue_dq(j - 1);
@@ -465,8 +520,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         sm90::wgmma_commit();
         if (wg == 0) pass_turn();  // warpgroup 1's last turn has no taker
         finish_turn();
-        store_rows<!kFull, false, T, Dp>(static_cast<T*>(p.out0) + b * p.o_sb + h * p.o_sh, p.o_st, dq, row_a, p.seq,
-                                         t, 0, p.head_dim);
+        store_rows<!kFull, kPacked, T, Dp>(static_cast<T*>(p.out0) + b * p.o_sb + h * p.o_sh, p.o_st, dq, row_a,
+                                           p.seq, t, 0, p.head_dim, shift);
     }
 }
 
@@ -499,8 +554,9 @@ struct DkvTiles {
 // past head_dim read as zeros and are never stored. kFull: head_dim == Dp, whose
 // stores need no column test (its mere presence in a kernel costs a full-width
 // tile 1-3%, as measured against one without it). kPacked: the packed-heads view (a
-// head_dim that is not a multiple of 8): K's and V's columns past head_dim are
-// zeroed once they land, and each column of dK and dV is stored on its own.
+// head_dim that is not a multiple of 8): K's and V's columns outside the head's are
+// zeroed once they land, Q and dO are copied a head's bytes at a time into rings zeroed
+// once, and each column of dK and dV is stored on its own.
 template <typename T, int Dp, bool kFull, bool kPacked>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
@@ -540,11 +596,16 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
         sm90::fence_proxy_async();
     }
+    if constexpr (kPacked) {  // Q's and dO's rings: zeros, of which load_head_row overwrites only the head's columns
+        sm90::zero_shared(base + L::kQ, 2 * kDkvStages * L::kQTile);
+        sm90::fence_proxy_async();
+    }
 
     if (threadIdx.x == 0) {
         sm90::mbar_init(full_kv, 1);
         for (int s = 0; s < kDkvStages; ++s) {
-            sm90::mbar_init(full(s), 32);  // the producer warp's lanes, one of them with the TMA bytes
+            // the producer warp's lanes, one of them with the TMA bytes; packed, every producer thread
+            sm90::mbar_init(full(s), kPacked ? kProducerThreads : 32);
             sm90::mbar_init(empty(s), kConsumerWarps);
         }
         sm90::fence_mbar_init();
@@ -552,9 +613,35 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();
 
     if (threadIdx.x >= kConsumerWarps * 32) {  // the producer warpgroup; its first warp loads
-        sm90::setmaxnreg_dec<kProducerRegs>();
+        sm90::setmaxnreg_dec<kPacked ? kPackedProducerRegs : kProducerRegs>();
         const int lane = threadIdx.x - kConsumerWarps * 32;
-        if (lane < 32) {
+        if constexpr (kPacked) {  // half the producer threads copy Q's head bytes and stage lse, half dO's and
+                                  // delta, a row each; thread 0 also loads K and V by TMA
+            if (lane == 0) {
+                sm90::mbar_arrive_expect_tx(full_kv, 2 * boxes * L::kKvBox);
+                load_tile_tma<kBoxRows, L::kKvRows>(base + L::kK, &tm_k, full_kv, boxes, origin, kv0, b);
+                load_tile_tma<kBoxRows, L::kKvRows>(base + L::kV, &tm_v, full_kv, boxes, origin, kv0, b);
+            }
+            const int which = lane / kBoxRows, row = lane % kBoxRows;  // which: 0 Q and lse, 1 dO and delta
+            // selects, not p.streamed[which]: a kernel parameter indexed at run time is copied to local memory
+            const char* line = static_cast<const char*>(which ? p.streamed[1] : p.streamed[0]) +
+                               b * (which ? p.streamed_sb[1] : p.streamed_sb[0]) + 2LL * origin.x;
+            const long long row_bytes = which ? p.streamed_st[1] : p.streamed_st[0];
+            const float* stat = (which ? p.delta : p.lse) + static_cast<long long>(bh) * p.seq;
+            const uint32_t stat_s = sm90::smem_addr(which ? delta_s : lse_s) + 4 * row;
+            const uint32_t ring = base + (which ? L::kDo : L::kQ);
+            for (int i = q_begin; i < q_tiles; ++i) {
+                const int n = i - q_begin, s = n % kDkvStages;
+                sm90::mbar_wait(empty(s), ((n / kDkvStages) & 1) ^ 1);  // the first round passes at once
+                const int q0 = i * kBoxRows;
+                sm90::load_head_row(ring + s * L::kQTile, L::kQBox, line, row_bytes, 2 * shift, 2 * (shift + p.head_dim),
+                                    q0, row, p.seq);
+                sm90::cp_async_arrive(full(s));  // the copies are in flight while the statistic is loaded
+                const float value = q0 + row < p.seq ? stat[q0 + row] * (which ? 1.0f : sm90::kLog2e) : 0.0f;
+                asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(stat_s + s * kBoxRows * 4), "f"(value) : "memory");
+                sm90::mbar_arrive(full(s));
+            }
+        } else if (lane < 32) {
             if (lane == 0) {
                 sm90::mbar_arrive_expect_tx(full_kv, 2 * boxes * L::kKvBox);
                 load_tile_tma<kBoxRows, L::kKvRows>(base + L::kK, &tm_k, full_kv, boxes, origin, kv0, b);
@@ -583,7 +670,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             }
         }
     } else {  // two consumer warpgroups: 64 KV rows each, or the same 64 rows and half the columns each
-        sm90::setmaxnreg_inc<kConsumerRegs>();
+        sm90::setmaxnreg_inc<kPacked ? kPackedConsumerRegs : kConsumerRegs>();
         const int wg = threadIdx.x / 128;
         const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
         const int g = lane / 4, t = lane % 4;
@@ -614,6 +701,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
             float st[kBoxRows / 2], dpt[kBoxRows / 2];  // S^T = K Q^T and dP^T = V dO^T: 64 x 64 each
             sm90::mbar_wait(full(s), (n / kDkvStages) & 1);
+            if constexpr (kPacked) sm90::fence_proxy_async();  // the stage's cp.async bytes, for wgmma's reads
             sm90::wgmma_fence();
 #pragma unroll
             for (int kk = 0; kk < Dp / 16; ++kk) {
@@ -927,9 +1015,11 @@ int launch_wgmma(Kernel kernel, size_t smem, int rows, const CUtensorMap (&maps)
 template <bool kDq, typename T, int Dp>
 int launch_pass(const CUtensorMap (&maps)[4], const WgmmaParams& p, int batch, cudaStream_t stream) {
     if constexpr (kDq) {
-        const auto kernel = p.head_dim == Dp ? flash_bwd_dq_wgmma<T, Dp, true> : flash_bwd_dq_wgmma<T, Dp, false>;
+        const auto kernel = p.head_dim == Dp            ? flash_bwd_dq_wgmma<T, Dp, true, false>
+                            : packed_heads(p.head_dim) ? flash_bwd_dq_wgmma<T, Dp, false, true>
+                                                       : flash_bwd_dq_wgmma<T, Dp, false, false>;
         return launch_wgmma(kernel, DqTiles<Dp>::kBytes, kBlockRows, maps, p, batch, stream);
-    } else {  // the dK/dV pass also takes the packed-heads view
+    } else {
         const auto kernel = p.head_dim == Dp            ? flash_bwd_dkv_wgmma<T, Dp, true, false>
                             : packed_heads(p.head_dim) ? flash_bwd_dkv_wgmma<T, Dp, false, true>
                                                        : flash_bwd_dkv_wgmma<T, Dp, false, false>;
@@ -962,7 +1052,7 @@ int encode_maps(CUtensorMap (&maps)[4], const void* const (&bases)[4], const lon
 }
 
 // Both wgmma passes' C entries: bf16 or fp16 at a head_dim from 16 to 256 that is a
-// multiple of 8, and for the dK/dV pass any other whose heads * head_dim is.
+// multiple of 8, or any other whose heads * head_dim is (and whose span is at most 256).
 template <bool kDq>
 int launch_wgmma_pass(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                       const float* delta, void* out0, void* out1, int dtype, int batch, int seq, int heads,
@@ -970,13 +1060,18 @@ int launch_wgmma_pass(const void* q, const void* k, const void* v, const void* d
                       const long long* v_geometry, const long long* d_geometry, long long o_sb, long long o_st,
                       long long o_sh, int causal, float scale, cudaStream_t stream) {
     if (batch <= 0 || seq <= 0 || heads <= 0) return 0;
-    if (!wgmma_takes(dtype, head_dim, heads, !kDq)) return static_cast<int>(cudaErrorInvalidValue);
+    if (!wgmma_takes(dtype, head_dim, heads)) return static_cast<int>(cudaErrorInvalidValue);
     CUtensorMap maps[4];
-    const int kv_rows = kDq && head_dim > 128 ? DqTiles<256>::kKvRows : kBoxRows;
+    const int kv_rows = kDq && tma_span(head_dim, heads) > 128 ? DqTiles<256>::kKvRows : kBoxRows;
     const int err = encode_maps(maps, {q, k, v, dout}, {q_geometry, k_geometry, v_geometry, d_geometry}, head_dim,
                                 heads, dtype, kv_rows);
     if (err != 0) return err;
-    const WgmmaParams p{lse, delta, out0, out1, seq, heads, head_dim, o_sb, o_st, o_sh, scale, causal};
+    // the tensors the pass streams, as the packed-heads view's kernels copy them
+    const auto& view0 = *reinterpret_cast<const sm90::TmaGeometry*>(kDq ? k_geometry : q_geometry);
+    const auto& view1 = *reinterpret_cast<const sm90::TmaGeometry*>(kDq ? v_geometry : d_geometry);
+    const WgmmaParams p{lse, delta, out0, out1, seq, heads, head_dim, o_sb, o_st, o_sh, scale, causal,
+                        {kDq ? k : q, kDq ? v : dout}, {view0.strides[2], view1.strides[2]},
+                        {view0.strides[1], view1.strides[1]}};
     if (dtype == kSimtF16) return dispatch_width<kDq, __half>(maps, p, batch, stream);
     return dispatch_width<kDq, __nv_bfloat16>(maps, p, batch, stream);
 }
@@ -1028,11 +1123,10 @@ extern "C" int hm_flash_backward_dkv_simt(const void* q, const void* k, const vo
 }
 
 // q, k, v, dout: [B, T, H, D] of one element type `dtype` (SimtDtype: bf16 or fp16, at
-// a head_dim that is a multiple of 8 from 16 to 256), each described by its TMA
-// geometry (sm90::TmaGeometry, boxes of 64 columns x 64 rows; one set serves both
-// passes); lse, delta: [B, H, T] fp32 contiguous -> dq [B, T, H, D] of that type
-// (strides o_*, in elements). The dK/dV entry below also takes a head_dim that is not
-// a multiple of 8 whose H * head_dim is, in the packed-heads view.
+// a head_dim from 16 to 256 that is a multiple of 8, or any other whose H * head_dim is,
+// in the packed-heads view), each described by its TMA geometry (sm90::TmaGeometry,
+// boxes of 64 columns x 64 rows; one set serves both passes); lse, delta: [B, H, T]
+// fp32 contiguous -> dq [B, T, H, D] of that type (strides o_*, in elements).
 extern "C" int hm_flash_backward_dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
                                           const float* lse, const float* delta, void* dq, int dtype,
                                           int batch, int seq, int heads, int head_dim,

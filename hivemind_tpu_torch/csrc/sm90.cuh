@@ -11,7 +11,9 @@
 //    argument), fp32 accumulate: A and B from shared memory (SS, both K-major,
 //    N in {32, 64, 128}), or A from registers and B MN-major (RS with the
 //    transpose-B immediate, N in {64, 128, 256}); fence / commit / wait;
-//  * setmaxnreg, to move registers from the producer warpgroup to the consumers.
+//  * setmaxnreg, to move registers from the producer warpgroup to the consumers;
+//  * cp.async of one head's bytes of a packed-heads tensor into a swizzled tile,
+//    completing on an mbarrier (load_head_row).
 //
 // Tile layout. A TMA box of 64 16-bit columns (128 bytes) x R rows, loaded with
 // CU_TENSOR_MAP_SWIZZLE_128B, lands as R rows of 128 bytes whose 16-byte chunks
@@ -24,7 +26,9 @@
 // product. In the packed-heads view (a head_dim that is not a multiple of 8, see
 // TmaGeometry) a head's columns start head_shift columns into the tile, and the
 // columns around them hold the neighbouring heads' values; a kernel zeroes those in
-// the tiles it keeps resident (zero_columns).
+// the tiles it keeps resident (zero_columns), and fills the tiles it streams with the
+// head's bytes alone (load_head_row, by cp.async), so no neighbour's value meets a
+// product.
 //  * K-major operand (rows = M or N, the 64 columns = K): a k16 step is 32 bytes
 //    along the row; SBO = 1024 bytes (the next 8 rows); LBO is unused.
 //  * MN-major operand (rows = K, the 64 columns = N): a k16 step is 16 rows
@@ -120,8 +124,77 @@ __device__ __forceinline__ void zero_around_head(uint32_t tile, uint32_t region_
 }
 
 // Orders this thread's generic shared-memory writes before the async proxy's
-// (TMA, wgmma) accesses.
+// (TMA, wgmma) accesses; after an mbarrier wait, also the writes that wait made visible
+// (cp.async's and other threads' plain stores) before this thread's wgmma reads them.
 __device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+// ------------------------------------------------------------------ cp.async
+
+// Copy kBytes (16, 8 or 4) from global `src` to shared `dst`, both aligned to kBytes, or
+// write kBytes of zeros where `valid` is false (src is then not read).
+template <int kBytes>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src, bool valid) {
+    const int src_bytes = valid ? kBytes : 0;
+    if constexpr (kBytes == 16) {
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes) : "memory");
+    } else {
+        asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(src), "n"(kBytes), "r"(src_bytes)
+                     : "memory");
+    }
+}
+
+// An arrival on the mbarrier `bar` once every cp.async this thread issued before it has
+// landed. The barrier's pending count is raised by one now, so the thread's own
+// mbar_arrive is what counts it among the barrier's arrivals.
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+    asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Row r of a tile of rows from row0 of one head of a packed-heads tensor, in the
+// 128-byte-swizzled layout TMA writes (region j of 64 columns at tile + j * region_bytes),
+// the head's column d at the tile's column shift + d, as a TMA box from the head's origin
+// lands it; but only the head's own bytes are copied, by cp.async: `line` points at the
+// head's origin column (16-byte aligned) of row 0, a row is `row_bytes` long, and the
+// head's bytes are [first, last) from there (2 * shift, 2 * (shift + head_dim)). Every
+// aligned 16-byte piece is one copy; the ends take 8-, 4- and, at an odd head_dim, 2-byte
+// pieces (a plain load and store: cp.async copies 4 bytes or more). A row at or past `seq`
+// is written as zeros. The tile's other columns are never written, so once zeroed they
+// stay zeros: a neighbouring head's values never reach the tile. A producer thread copies
+// a row of a tile, or half of one (row_part; one warp copying every row was what bounded
+// the packed passes on an H100), then calls cp_async_arrive and mbar_arrive on the tile's
+// barrier, which counts every such thread; its waiters fence_proxy_async() before their
+// wgmma reads.
+__device__ __forceinline__ void load_head_row(uint32_t tile, uint32_t region_bytes, const char* line,
+                                              long long row_bytes, int first, int last, int row0, int r, int seq) {
+    const bool valid = row0 + r < seq;
+    const char* src = line + (valid ? row0 + r : 0) * row_bytes;
+    const uint32_t dst_row = tile + r * kSwizzleRowBytes;
+    for (int x = first; x < last;) {
+        const uint32_t dst = dst_row + (x / 128) * region_bytes + ((((x / 16) % 8) ^ (r % 8)) * 16) + x % 16;
+        if (x % 16 == 0 && x + 16 <= last) {
+            cp_async<16>(dst, src + x, valid);
+            x += 16;
+        } else if (x % 8 == 0 && x + 8 <= last) {
+            cp_async<8>(dst, src + x, valid);
+            x += 8;
+        } else if (x % 4 == 0 && x + 4 <= last) {
+            cp_async<4>(dst, src + x, valid);
+            x += 4;
+        } else {
+            const unsigned short value = valid ? *reinterpret_cast<const unsigned short*>(src + x) : 0;
+            asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(dst), "h"(value) : "memory");
+            x += 2;
+        }
+    }
+}
+
+// The bytes of a row's [first, last) that part `part` of the `parts` (1 or 2) producer
+// threads sharing a row copies (where a tile has fewer rows than its threads): the row
+// is cut at a 16-byte boundary near its middle.
+__device__ __forceinline__ int2 row_part(int first, int last, int part, int parts) {
+    const int cut = parts == 1 ? last : max(first, (first + last) / 32 * 16);
+    return part == 0 ? make_int2(first, cut) : make_int2(cut, last);
+}
 
 // ------------------------------------------------------------------ mbarrier
 

@@ -13,18 +13,19 @@ outside the kernels, as the JAX package does.
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it launches
 a kernel or raises. Each kernel wrapper counts its launches in ``.launches``
 (``flash_attention_lse``, ``flash_attention_backward_dq``,
-``flash_attention_backward_dkv``).
+``flash_attention_backward_dkv``), and those on the packed-heads view also in
+``.packed.launches``.
 
-Each pass (the forward, the dQ pass, the dK/dV pass) has two designs, chosen per
-pass by :func:`flash_route`: ``"wgmma"`` (tensor cores fed by TMA) and ``"simt"``
-(fp32 FMAs on the CUDA cores). Every pass runs wgmma for bf16 and fp16 at a
-head_dim that is a multiple of 8 from 16 to 256; the forward and the dK/dV pass
-also at any other head_dim from 16 to 256 whose H·D is a multiple of 8 (TinyBERT's
-26, through the packed-heads view below). SIMT takes the rest: fp32 (tensor cores
-would round its inputs to TF32), the dQ pass at a 16-bit head_dim that is not a
-multiple of 8, and the other passes there when H·D is not a multiple of 8 either;
-any head_dim up to 256, as the TPU kernels take any head_dim as their block. A
-CUDA input launches its pass's route or raises: no route falls back to another.
+Each pass (the forward, the dQ pass, the dK/dV pass) has two designs, chosen by
+:func:`flash_route`: ``"wgmma"`` (tensor cores fed by TMA) and ``"simt"`` (fp32
+FMAs on the CUDA cores). The three passes take the same route for one input. Every
+pass runs wgmma for bf16 and fp16 at a head_dim from 16 to 256 that is a multiple
+of 8, or any other whose H·D is a multiple of 8 and whose :func:`tma_span` is at
+most 256 (TinyBERT's 26, through the packed-heads view below). SIMT takes the rest:
+fp32 (tensor cores would round its inputs to TF32), a 16-bit head_dim that is not a
+multiple of 8 whose H·D is not one either, or whose span passes 256; any head_dim
+up to 256, as the TPU kernels take any head_dim as their block. A CUDA input
+launches its pass's route or raises: no route falls back to another.
 :func:`flash_refusal` names the few inputs no design takes. A view a kernel cannot
 read through its strides is copied first (:func:`_kernel_layout`).
 
@@ -34,9 +35,11 @@ the entry point encodes the tensor maps: the 4-D view (D, H, T, B) at a head_dim
 that is a multiple of 8, else the packed-heads view (H·D, T, B), whose rows are
 whole tokens (its head stride of 2·D bytes would not be TMA's multiple of 16). TMA
 takes only a start column that is a multiple of 8 there, so head h's boxes start
-(h·D) mod 8 columns before it, and a tile spans up to :func:`tma_span` columns.
-The two backward passes share one view of each tensor (:func:`backward_geometries`),
-which ``flash_attention_backward`` computes once, when a pass runs wgmma.
+(h·D) mod 8 columns before it, and a tile spans up to :func:`tma_span` columns;
+the tiles a kernel streams are copied a head's bytes at a time instead (cp.async),
+so a neighbouring head's values never reach a head's products. The two backward
+passes share one view of each tensor (:func:`backward_geometries`), which
+``flash_attention_backward`` computes once, when they run wgmma.
 """
 
 from __future__ import annotations
@@ -211,11 +214,10 @@ def _library() -> ctypes.CDLL:
 
 def flash_route(q: torch.Tensor, which: str = "forward") -> str:
     """Which design runs the pass ``which`` ("forward", "dq" or "dkv") on ``q`` (and
-    the tensors of its shape and dtype): ``"wgmma"`` for bf16 and fp16 at a head_dim
-    from 16 to 256 that TMA reads, in every pass at a multiple of 8 (the 4-D view),
-    and in the forward and the dK/dV pass at any other whose H·D is a multiple of 8
-    and whose :func:`tma_span` is at most 256 (the packed-heads view); ``"simt"``
-    otherwise."""
+    the tensors of its shape and dtype); every pass takes the same: ``"wgmma"`` for
+    bf16 and fp16 at a head_dim from 16 to 256 that TMA reads, a multiple of 8 (the
+    4-D view) or any other whose H·D is a multiple of 8 and whose :func:`tma_span` is
+    at most 256 (the packed-heads view); ``"simt"`` otherwise."""
     if which not in PASSES:
         raise ValueError(f"flash_route answers for {PASSES}, got {which!r}")
     heads, head_dim = q.shape[-2:]
@@ -223,7 +225,7 @@ def flash_route(q: torch.Tensor, which: str = "forward") -> str:
         return "simt"
     if not packed_heads(head_dim):
         return "wgmma"
-    packed = which != "dq" and heads * head_dim % 8 == 0 and tma_span(head_dim, heads) <= WGMMA_WIDTHS[-1]
+    packed = heads * head_dim % 8 == 0 and tma_span(head_dim, heads) <= WGMMA_WIDTHS[-1]
     return "wgmma" if packed else "simt"
 
 
@@ -265,8 +267,7 @@ def flash_refusal(q: torch.Tensor, *others: Tuple[str, torch.Tensor]) -> Optiona
     where :func:`needs_copy` says so: a fresh copy is 16-byte aligned, with its
     heads packed). It reads shapes and dtypes only, so it answers for ``meta``
     tensors too; the caller tests the device. The grid is checked against each
-    pass's route: an input whose dQ pass runs SIMT while the others run wgmma is
-    bounded by SIMT's 16-row blocks."""
+    pass's block rows, the finest the tightest."""
     for name, tensor in others:
         if tensor.dtype != q.dtype:
             return TypeError, f"q, k, v must share a dtype; {name} is {tensor.dtype}, q is {q.dtype}"
@@ -343,11 +344,29 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causa
                 int(causal), head_dim ** -0.5, stream,
             )
     _build.check_launch(library, status, "flash_attention_lse")
-    flash_attention_lse.launches += 1
+    _count_launch(flash_attention_lse, q)
     return out, lse
 
 
+class LaunchCount:
+    """A launch count read and reset as a wrapper's ``.launches``: a wrapper's
+    ``.packed`` counts its launches on the packed-heads view."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+def _count_launch(wrapper, q: torch.Tensor) -> None:
+    """One launch of ``wrapper``'s kernel on q: in ``.launches``, and in
+    ``.packed.launches`` when it read the packed-heads view (a wgmma kernel at a
+    head_dim that is not a multiple of 8)."""
+    wrapper.launches += 1
+    if packed_heads(q.shape[-1]) and flash_route(q) == "wgmma":
+        wrapper.packed.launches += 1
+
+
 flash_attention_lse.launches = 0
+flash_attention_lse.packed = LaunchCount()
 
 
 # ------------------------------------------------------------------ backward
@@ -456,7 +475,7 @@ def flash_attention_backward_dq(q, k, v, dout, lse, delta, causal: bool = False,
     if dq.numel() == 0:
         return dq
     _launch_pass("dq", q, k, v, dout, lse, delta, (dq,), causal, geometries)
-    flash_attention_backward_dq.launches += 1
+    _count_launch(flash_attention_backward_dq, q)
     return dq
 
 
@@ -473,26 +492,27 @@ def flash_attention_backward_dkv(q, k, v, dout, lse, delta, causal: bool = False
     if dk.numel() == 0:
         return dk, dv
     _launch_pass("dkv", q, k, v, dout, lse, delta, (dk, dv), causal, geometries)
-    flash_attention_backward_dkv.launches += 1
+    _count_launch(flash_attention_backward_dkv, q)
     return dk, dv
 
 
 flash_attention_backward_dq.launches = 0
 flash_attention_backward_dkv.launches = 0
+flash_attention_backward_dq.packed = LaunchCount()
+flash_attention_backward_dkv.packed = LaunchCount()
 
 
 def flash_attention_backward(q, k, v, out, lse, dout, causal: bool = False) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` from the forward's ``(out, lse)`` and the cotangent ``dout``
     (cast to q's dtype first, as the JAX package's ``_flash_bwd``): the dQ kernel,
-    then the dK/dV kernel, each on its route; ``δ`` and, when a pass runs wgmma,
-    the TMA views the wgmma passes read are computed here, once, and handed to both
-    (the dK/dV pass runs wgmma wherever the dQ pass does)."""
+    then the dK/dV kernel, on their route; ``δ`` and, when they run wgmma, the TMA
+    views the wgmma passes read are computed here, once, and handed to both."""
     dout = dout.to(q.dtype)
     if _on_cpu(q, k, v, out, lse, dout):
         return flash_attention_backward_plain(q, k, v, out, lse, dout, causal)
     q, k, v, dout = (_kernel_layout(t) for t in (q, k, v, dout))
     delta = _delta(out, dout)
-    geometries = backward_geometries(q, k, v, dout) if flash_route(q, "dkv") == "wgmma" else None
+    geometries = backward_geometries(q, k, v, dout) if flash_route(q) == "wgmma" else None
     dq = flash_attention_backward_dq(q, k, v, dout, lse, delta, causal, geometries)
     return (dq, *flash_attention_backward_dkv(q, k, v, dout, lse, delta, causal, geometries))
 

@@ -101,3 +101,39 @@ def test_port_allreduce_fault_tolerance(fault):
             averager.shutdown()
         for dht in dhts:
             dht.shutdown()
+
+
+def _steps_on_the_loop(ours: DecentralizedAverager) -> list:
+    """The ``_step`` tasks of ``ours`` still running on its event loop."""
+    import asyncio
+
+    async def snapshot():
+        return [task for task in asyncio.all_tasks() if not task.done()
+                and getattr(task.get_coro(), "__qualname__", "") == "DecentralizedAverager._step"
+                and task.get_coro().cr_frame is not None and task.get_coro().cr_frame.f_locals.get("self") is ours]
+
+    return ours._runner.run_coroutine(snapshot())
+
+
+def test_shutdown_ends_a_step_that_finds_no_group():
+    """An averager alone in its swarm looks for a group until its step's deadline, which
+    an Optimizer's scheduled step does not set. Its shutdown must end that step: left
+    running on the loop that every averager of the process shares, it went on retrying
+    with jitter drawn from the process-global random stream, which the swarm simulator's
+    scenarios seed and read (a whole test run's smoke scenario then lost its digest)."""
+    import time
+
+    dht = DHT(start=True)
+    ours = DecentralizedAverager([torch.zeros(8)], dht, prefix="alone", start=True, target_group_size=2,
+                                 min_matchmaking_time=0.5, request_timeout=0.5)
+    try:
+        control = ours.step(wait=False)  # no timeout: it looks until it is cancelled
+        time.sleep(1.5)
+        assert not control.done() and len(_steps_on_the_loop(ours)) == 1
+    finally:
+        ours.shutdown()
+        dht.shutdown()
+    deadline = time.monotonic() + 10
+    while _steps_on_the_loop(ours) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    assert _steps_on_the_loop(ours) == [] and control.done()

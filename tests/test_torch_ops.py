@@ -108,6 +108,32 @@ def test_flash_backward_plain_matches_jax_backward_kernels(seq, causal, head_dim
         np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), rtol=2e-4, atol=2e-5, err_msg=name)
 
 
+@pytest.mark.parametrize("head_dim", [20, 26])  # 26: TinyBERT's; both on the packed-heads view at H = 4
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("seq", [128, 200])
+def test_flash_backward_plain_matches_jax_backward_kernels_in_bf16(seq, causal, head_dim):
+    """The plain backward against the JAX package's two Pallas passes in interpret mode on
+    bf16 inputs at head dims that are not a multiple of 8, where H·D is (the inputs every
+    wgmma pass reads through the packed-heads view, whose kernels are held to this plain
+    version on the card): both sum in fp32 from the same bf16 inputs and (out, lse), in
+    another order, and round to bf16 once, so dq, dk, dv agree within one bf16 ulp plus
+    that order's noise near zero."""
+    rng = np.random.RandomState(seq + head_dim + 2 * causal)
+    q, k, v = (jnp.asarray(rng.randn(1, seq, 4, head_dim), jnp.bfloat16) for _ in range(3))
+    dout = jnp.asarray(rng.randn(1, seq, 4, head_dim) * np.cos(np.arange(head_dim)), jnp.bfloat16)
+    out, lse = jax_flash_forward(q, k, v, causal=causal, interpret=True)
+    expected = jax_flash_backward(q, k, v, out, lse, dout, causal=causal, interpret=True)
+    args = [torch.from_numpy(np.array(a, np.float32)) for a in (q, k, v, out, lse, dout)]
+    args = [a.to(torch.bfloat16) if i != 4 else a for i, a in enumerate(args)]  # lse stays fp32
+    got = flash_attention_backward_plain(*args, causal)
+    for name, ours, theirs in zip(("dq", "dk", "dv"), got, expected):
+        assert ours.dtype == torch.bfloat16 and ours.shape == tuple(q.shape)
+        ours, theirs = ours.float().numpy(), np.asarray(theirs, np.float32)
+        ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(theirs), 2.0**-126))) - 7)
+        excess = np.abs(ours - theirs) - ulp
+        assert excess.max() <= 1e-6, f"{name}: {excess.max()} beyond one bf16 ulp"
+
+
 def _within_fp16_ulp(ours: torch.Tensor, theirs, what: str) -> None:
     """Each element within one fp16 ulp of the JAX kernel's, plus 1e-6: both sum in
     fp32, in another order, before rounding to fp16 once; near zero, where an fp16
@@ -229,21 +255,22 @@ W, S = "wgmma", "simt"
         (lambda: _meta((1, 16 * 65535 + 1, 1, 20)), (S, S, S), False, (ValueError, "grid")),  # SIMT's 16 rows
         (lambda: _meta((1, 128 * 65535 + 1, 1, 64)), (W, W, W), False, (ValueError, "grid")),
         (lambda: _meta((2, 64, 4, 128), torch.float16), (W, W, W), False, None),
-        # 40-byte head strides: the packed-heads view (H·D = 80) for the forward and the dK/dV pass
-        (lambda: _meta((2, 64, 4, 20)), (W, S, W), False, None),
+        # 40-byte head strides: the packed-heads view (H·D = 80) for every pass
+        (lambda: _meta((2, 64, 4, 20)), (W, W, W), False, None),
         (lambda: _meta((2, 64, 4, 128), torch.float32), (S, S, S), False, None),  # tensor cores would round to TF32
-        (lambda: _misaligned_view((2, 64, 4, 20)), (W, S, W), True, None),  # TMA needs a copy
+        (lambda: _misaligned_view((2, 64, 4, 20)), (W, W, W), True, None),  # TMA needs a copy
         (lambda: _meta((1, 128 * 65535 + 1, 1, 32)), (W, W, W), False, (ValueError, "grid")),  # the dQ pass's 128
         (lambda: _meta((2, 64, 5, 20)), (S, S, S), False, None),  # H·D = 100: no TMA view
         (lambda: _misaligned_view((2, 64, 5, 20)), (S, S, S), False, None),  # SIMT reads it through its strides
-        (lambda: _meta((2, 64, 8, 25)), (W, S, W), False, None),  # an odd head dim: rows start 2-byte aligned
-        (lambda: _meta((2, 64, 4, 196), torch.float16), (W, S, W), False, None),  # padded to 256
-        (lambda: _meta((4, 128, 12, 26)), (W, S, W), False, None),  # TinyBERT's 12 heads of 26
-        (lambda: _meta((2, 4, 64, 20)).transpose(1, 2), (W, S, W), True, None),  # heads not packed in the row
-        (lambda: _meta((1, 16 * 65535 + 1, 2, 20)), (W, S, W), False, (ValueError, "grid")),  # the SIMT dQ pass's 16
+        (lambda: _meta((2, 64, 8, 25)), (W, W, W), False, None),  # an odd head dim: rows start 2-byte aligned
+        (lambda: _meta((2, 64, 4, 196), torch.float16), (W, W, W), False, None),  # padded to 256
+        (lambda: _meta((4, 128, 12, 26)), (W, W, W), False, None),  # TinyBERT's 12 heads of 26
+        (lambda: _meta((2, 4, 64, 20)).transpose(1, 2), (W, W, W), True, None),  # heads not packed in the row
+        # every packed pass's 128-row blocks (the dQ pass's 16-row SIMT blocks bounded it before it took the view)
+        (lambda: _meta((1, 128 * 65535 + 1, 2, 20)), (W, W, W), False, (ValueError, "grid")),
         # boxes start up to 6 columns early (254 mod 8), so a tile spans 260: past 256
         (lambda: _meta((2, 64, 4, 254), torch.float16), (S, S, S), False, None),
-        (lambda: _meta((2, 64, 4, 252), torch.float16), (W, S, W), False, None),  # spans 256
+        (lambda: _meta((2, 64, 4, 252), torch.float16), (W, W, W), False, None),  # spans 256
     ],
     ids=["d16", "d32", "d64", "d80", "d96", "d128", "d256", "fp32", "fp16", "bh65536", "bh65536_fp16",
          "misaligned", "misaligned_d32", "strided", "d_strided", "fp64", "d512", "simt_rows", "wgmma_rows",
@@ -295,15 +322,16 @@ def test_packed_tiles_span_the_head_and_its_shift(head_dim, heads, span, padded)
 def test_flash_routes_name_each_pass_and_the_grid_takes_the_finest_rows():
     """The labels' route string, and the grid check against each pass's block rows: at
     bf16 head_dim 256 the dK/dV pass's 64-row blocks bound T before the forward's and
-    the dQ pass's 128; at head_dim 20 the SIMT passes' 16 do, the dQ pass's alone
-    where H·D is a multiple of 8 and the other two run wgmma."""
+    the dQ pass's 128; at head_dim 20 where H·D is a multiple of 8 every pass runs wgmma
+    on the packed-heads view (a span of 24, padded to 64), so 128-row blocks bound it;
+    where H·D is not, the SIMT passes' 16 do."""
     assert flash_routes(_meta((1, 64, 2, 256))) == "forward=wgmma dq=wgmma dkv=wgmma"
-    assert flash_routes(_meta((1, 64, 2, 20), torch.float16)) == "forward=wgmma dq=simt dkv=wgmma"
+    assert flash_routes(_meta((1, 64, 2, 20), torch.float16)) == "forward=wgmma dq=wgmma dkv=wgmma"
     assert flash_routes(_meta((1, 64, 5, 20), torch.float16)) == "forward=simt dq=simt dkv=simt"
-    assert flash_routes(_meta((4, 128, 12, 26))) == "forward=wgmma dq=simt dkv=wgmma"
-    assert flash_refusal(_meta((1, 16 * 65535, 2, 20))) is None
-    error, message = flash_refusal(_meta((1, 16 * 65535 + 1, 2, 20)))
-    assert error is ValueError and f"T <= {16 * 65535}" in message
+    assert flash_routes(_meta((4, 128, 12, 26))) == "forward=wgmma dq=wgmma dkv=wgmma"
+    assert flash_refusal(_meta((1, 128 * 65535, 2, 20))) is None
+    error, message = flash_refusal(_meta((1, 128 * 65535 + 1, 2, 20)))
+    assert error is ValueError and f"T <= {128 * 65535}" in message
     assert flash_refusal(_meta((1, 64 * 65535, 1, 256))) is None
     error, message = flash_refusal(_meta((1, 64 * 65535 + 1, 1, 256)))
     assert error is ValueError and f"T <= {64 * 65535}" in message
@@ -450,9 +478,9 @@ def test_backward_hands_both_passes_one_geometry_per_tensor(monkeypatch, shape, 
     ((1, 512, 4, 196), False, (784, 1, 512, 1), (1568, 1568, 512 * 1568)),
 ], ids=["d20", "fused_tinybert", "d196"])
 def test_backward_computes_the_packed_views_once_for_the_dkv_pass(monkeypatch, shape, fused, dims, strides):
-    """At a head dim that is not a multiple of 8 (H·D a multiple of 8) the dQ pass runs
-    SIMT and the dK/dV pass wgmma: ``flash_attention_backward`` computes the four
-    packed-heads views once, for the dK/dV pass."""
+    """At a head dim that is not a multiple of 8 (H·D a multiple of 8) both backward
+    passes run wgmma on the packed-heads view: ``flash_attention_backward`` computes the
+    four views once and hands the one set to the dQ pass and to the dK/dV pass."""
     q, k, v, dout = _backward_inputs(*shape, fused)
     batch, seq, heads, dim = shape
     views, launched = [], []
@@ -460,13 +488,18 @@ def test_backward_computes_the_packed_views_once_for_the_dkv_pass(monkeypatch, s
     monkeypatch.setattr(flash_module, "tma_geometry", lambda t, rows: views.append(rows) or tma_geometry_of(t, rows))
     monkeypatch.setattr(flash_module, "_check_cuda_inputs", lambda *tensors: None)
     monkeypatch.setattr(flash_module, "_launch_pass", lambda name, *args: launched.append((name, args[-1])))
-    monkeypatch.setattr(flash_attention_backward_dq, "launches", 0)
-    monkeypatch.setattr(flash_attention_backward_dkv, "launches", 0)
+    for wrapper in (flash_attention_backward_dq, flash_attention_backward_dkv):
+        monkeypatch.setattr(wrapper, "launches", 0)
+        monkeypatch.setattr(wrapper, "packed", flash_module.LaunchCount())
     flash_attention_backward(q, k, v, torch.empty_like(q), torch.empty(batch, heads, seq, device="meta"), dout, True)
-    assert (flash_route(q, "dq"), flash_route(q, "dkv")) == ("simt", "wgmma")
+    assert (flash_route(q, "dq"), flash_route(q, "dkv")) == ("wgmma", "wgmma")
+    # each launch counted, and counted as one on the packed-heads view
+    assert [(w.launches, w.packed.launches) for w in (flash_attention_backward_dq, flash_attention_backward_dkv)] == [
+        (1, 1), (1, 1)]
     assert views == [BACKWARD_BOX_ROWS] * 4
     expected = (TmaGeometry(dims, strides, (64, 1, 64, 1), dim),) * 4
     assert [name for name, _ in launched] == ["dq", "dkv"] and launched[1][1] == expected
+    assert launched[0][1] is launched[1][1]
 
 
 # ------------------------------------------------------------------ blockwise int8

@@ -2,9 +2,9 @@
 """The flash kernels' two designs timed against each other on one card, in one process.
 
 For each input that the wgmma design takes, each pass the wrappers route to wgmma
-(the forward, the dQ pass and the dK/dV pass at a head dim that is a multiple of 8;
-the forward and the dK/dV pass alone on the packed-heads view, whose dQ pass is SIMT)
-runs through its wrapper (``flash_attention_lse``, ``flash_attention_backward_dq``,
+(all three passes, on the 4-D view at a head dim that is a multiple of 8 and on the
+packed-heads view at any other whose H·D is one; a checkout where a pass is SIMT for
+the input is noted and not timed) runs through its wrapper (``flash_attention_lse``, ``flash_attention_backward_dq``,
 ``flash_attention_backward_dkv``: the wgmma kernels) and through the SIMT kernel's C
 entry point on the same tensors, in turns (SIMT, wgmma, wgmma, SIMT), each held to
 the plain PyTorch version first. Each line
