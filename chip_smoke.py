@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke test of hivemind_tpu_torch: builds the port's Hopper kernels,
 holds each against its plain PyTorch version at the shapes of the paths that run
-it, then drives sixteen paths and checks each against the CPU, the local path or
+it, then drives seventeen paths and checks each against the CPU, the local path or
 the exact result:
 - serving: two Llama-2-7B-width blocks (fp and int8 weight-only) through
   load_llama_blocks → ModuleBackend → TaskPool/Runtime, and two experts below the wgmma
@@ -28,7 +28,8 @@ the exact result:
   card to the exact group mean, GB/s per peer, a peer killed mid-round, and a late
   peer's verified state download (no kernel: the reduction is host numpy);
 - expert training: ModuleBackend.backward (one SGD step) on a Llama-2-7B-width block;
-- ALBERT-base MLM training: make_train_step with AdamW at batch 32 × seq 512.
+- ALBERT-base MLM training: make_train_step with AdamW at batch 32 × seq 512, in bf16 and in
+  fp32 (the fp32 forward and dK/dV pass on the tensor cores in 3xTF32, the dQ pass on SIMT);
 - causal: the causal LM (CausalLMConfig.base(), GPT-2-small widths, vocab 32000) trained
   with AdamW at batch 8 × seq 1024 through the causal flash kernels in both directions;
 - collab: collaborative ALBERT-base training (BASELINE config 3, examples/albert): four
@@ -156,6 +157,11 @@ FLASH_EXTRA_CASES = [
     ((1, 512, 4, 196), "float16", True), ((3, 333, 12, 26), "bfloat16", True), ((2, 1000, 5, 20), "bfloat16", True),
     # with those, every instantiation of the packed forward (bf16 and fp16 at padded widths 64, 128 and 256)
     ((1, 512, 8, 100), "bfloat16", True), ((1, 512, 8, 100), "float16", False), ((1, 512, 4, 196), "bfloat16", False),
+    # fp32 on the 3xTF32 forward beside FLASH_SHAPES' (ALBERT's, the served shapes, T 2000 at D = 128): head dim 20
+    # (a multiple of 4, not of 8) and 100 (padded to 128, its columns past 100 zeros), with a ragged T; fp32 at
+    # head dims the 3xTF32 kernels do not take (18, 256) stays on SIMT
+    ((2, 1000, 16, 20), "float32", True), ((3, 333, 12, 100), "float32", True), ((2, 1000, 4, 18), "float32", True),
+    ((1, 512, 4, 256), "float32", False),
 ]
 # where the forward's planted fault is checked beside FLASH_SHAPES' ALBERT shape, and the
 # backward's beside FAULTY_BWD_SHAPES': head dim 20 in bf16 on the packed-heads view. There
@@ -164,10 +170,12 @@ FLASH_EXTRA_CASES = [
 # a neighbour's column left in a tile a product sums over (a resident tile's missed
 # zeroing, a streamed tile's stray byte) turns a head's output NaN through 0 * inf.
 FAULTY_PACKED = ((2, 1000, 16, 20), "bfloat16")
-# views whose base is one element off 16-byte alignment, which TMA cannot read: the
-# wrappers copy them first (bf16, head_dims 64, 32 and 20 with H*D = 160), or the SIMT
-# kernel reads them through their strides (head dim 20 with H*D = 100)
-UNALIGNED_CASES = [((2, 1000, 16, 64), True), ((2, 64, 8, 32), False), ((2, 64, 8, 20), True), ((2, 64, 5, 20), True)]
+# views whose base is one element off 16-byte alignment, which TMA and the 3xTF32 kernels' 16-byte
+# loads cannot read: the wrappers copy them first (bf16, head_dims 64, 32 and 20 with H*D = 160;
+# fp32 at 64), or the SIMT kernel reads them through their strides (bf16 head dim 20 with H*D = 100)
+UNALIGNED_CASES = [((2, 1000, 16, 64), True, "bfloat16"), ((2, 64, 8, 32), False, "bfloat16"),
+                   ((2, 64, 8, 20), True, "bfloat16"), ((2, 64, 5, 20), True, "bfloat16"),
+                   ((2, 1000, 16, 64), True, "float32")]
 SERVING_TOL = 2e-2  # max relative error, card vs CPU (hivemind_tpu/ops/device_check.py's tolerance)
 # The flash backward passes vs their plain versions: (shape, dtype, causal). The
 # training path's shape, the expert backward's as chip_smoke drives it, a Llama
@@ -200,6 +208,11 @@ FLASH_BWD_CASES = [
     ((2, 1000, 16, 20), "float16", True), ((4, 128, 12, 26), "bfloat16", False), ((2, 1000, 16, 25), "bfloat16", True),
     ((1, 512, 4, 196), "float16", True), ((3, 333, 12, 26), "bfloat16", True), ((2, 1000, 5, 20), "bfloat16", True),
     ((1, 512, 8, 100), "bfloat16", True), ((1, 512, 8, 100), "float16", False), ((1, 512, 4, 196), "bfloat16", False),
+    # fp32 beside the cases above (the 3xTF32 dK/dV pass and the SIMT dQ pass): ALBERT's shape, the training
+    # path's; head dim 20 (a multiple of 4, not of 8); 128 and 100 (padded to 128) at a ragged T; a Llama request at
+    # full length; and 18, which stays on SIMT
+    (ALBERT_ATTENTION, "float32", False), ((2, 1000, 16, 20), "float32", True), ((3, 333, 12, 128), "float32", True),
+    ((3, 333, 12, 100), "float32", True), ((1, 2048, 32, 128), "float32", True), ((2, 1000, 4, 18), "float32", True),
 ]
 # Each backward output element within atol + rtol*scale, where scale is the plain
 # backward run on absolute values: sum_k |dS||K| for dq, sum_q |dS||Q| for dk,
@@ -226,13 +239,20 @@ FAULTY_TILE = 64  # planted faults the checks must reject: P (forward) or dS (ba
 # diagonal tiles), in bf16 and in fp16; and Gemma-7B's fp16 at a padded width of 256
 FAULTY_BWD_SHAPES = ((ALBERT_ATTENTION, "bfloat16"), ((1, 2048, 32, 128), "bfloat16"),
                      ((1, 2048, 32, 128), "float16"), ((1, 2048, 16, 256), "float16"), FAULTY_PACKED)
+# where the fp32 checks must reject the inputs rounded to plain TF32 (10 mantissa bits, what one
+# TF32 product would read; the plain version run on tf32_split's hi parts), in both phases: the
+# training path's shape and a Llama request at full length, causal
+FAULTY_TF32_SHAPES = ((ALBERT_ATTENTION, False), ((1, 2048, 32, 128), True))
 # q, k, v sliced from one fused [B, T, 3, H, D] tensor (T stride 3*H*D): the TMA views of a
-# projection that is not split into three tensors, for each head_dim, held like FLASH_SHAPES
-STRIDED_CASES = [((2, 1000, 16, 64), True), ((1, 512, 32, 128), False)]
-# the kernels that issue wgmma fed by TMA, with setmaxnreg: the build fails if any
-# instantiation spills (each for bf16 and fp16 at padded widths 64, 128 and 256, each
-# full-width and narrower)
-WGMMA_KERNELS = ("flash_forward_wgmma", "flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma")
+# projection that is not split into three tensors, for each head_dim, held like FLASH_SHAPES; and in
+# fp32 the strided views the 3xTF32 kernels' 16-byte loads read (head dims 64 and 20)
+STRIDED_CASES = [((2, 1000, 16, 64), True, "bfloat16"), ((1, 512, 32, 128), False, "bfloat16"),
+                 ((2, 1000, 16, 64), True, "float32"), ((2, 333, 8, 20), False, "float32")]
+# the kernels that issue wgmma: the build fails if any instantiation spills (the TMA-fed ones for
+# bf16 and fp16 at padded widths 64, 128 and 256, each full-width and narrower; the 3xTF32 ones at
+# padded widths 64 and 128)
+WGMMA_KERNELS = ("flash_forward_wgmma", "flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma", "flash_forward_tf32x3",
+                 "flash_bwd_dkv_tf32x3")
 # ALBERT-base MLM training, bench.py's workload: its first batch candidate
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_WARMUP, TRAIN_STEPS = 32, 512, 2, 10
 TRAIN_MASKED_FRACTION = 0.25
@@ -249,6 +269,19 @@ TRAIN_LOSS_RTOL = 3e-4
 TRAIN_GRAD_REL_L2 = 8 * BF16_UNIT_ROUNDOFF
 REMAT_GRAD_REL_L2 = 1e-6
 ZERO_GRADIENT = "key.bias"  # softmax ignores it: its gradient is rounding noise on both sides
+# [train_fp32]: [train]'s ALBERT-base, batch, AdamW and masked fraction in fp32 (AlbertConfig.base(dtype=
+# float32); GEMMs in full fp32, allow_tf32 off), its attention's forward and dK/dV pass on the 3xTF32 kernels
+# and its dQ pass on SIMT; a few timed steps, then from the initial weights, on a sub-batch, the loss and every
+# gradient against the same step on the card with plain fp32 attention, and against a planted fault: that
+# attention on q, k, v rounded to plain TF32, which the limits must reject. Derived in PERF.md section 2: the
+# kernels' products err near 2^-21 of a term, TF32's near 2^-11; on an H100 the gradients' error norms over
+# their norms read at most 3.7e-6 with the kernels and at least 1.45e-4 with the fault, and the limit sits near
+# their geometric middle; the loss moved by less than an ulp with the kernels and by 2.6e-7 with the fault
+TRAIN_FP32_WARMUP, TRAIN_FP32_STEPS = 1, 3
+TRAIN_FP32_LOSS_RTOL = 1e-6
+TRAIN_FP32_GRAD_REL_L2 = 2e-5
+TRAIN_FP32_ROUTES = "forward=tf32x3 dq=simt dkv=tf32x3"
+TRAIN_FP32_LIMIT_S = 30.0
 # [causal]: the causal LM at CausalLMConfig.base() widths and depth, [train]'s AdamW, one
 # synthetic batch; held to the CPU plain path on a sub-batch (the limits below)
 CAUSAL_WARMUP, CAUSAL_STEPS = 2, 10
@@ -433,15 +466,32 @@ def card_line() -> str:
 def card_peaks(name: str) -> dict:
     """Published dense peaks (NVIDIA data sheets) for the card's variant, at its full power limit."""
     if "H200" in name:
-        return {"bf16": 989e12, "fp32": 67e12, "bytes": 4.8e12}
+        return {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12, "bytes": 4.8e12}
     if "H100" in name and "PCIe" in name:
-        return {"bf16": 756e12, "fp32": 51e12, "bytes": 2.0e12}
-    return {"bf16": 989e12, "fp32": 67e12, "bytes": 3.35e12}  # H100 SXM
+        return {"bf16": 756e12, "tf32": 378e12, "fp32": 51e12, "bytes": 2.0e12}
+    return {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12, "bytes": 3.35e12}  # H100 SXM
 
 
 def bound_ms(operations: float, op_rate: float, nbytes: float, byte_rate: float):
     op_ms, byte_ms = operations / op_rate * 1e3, nbytes / byte_rate * 1e3
     return (op_ms, "operations") if op_ms >= byte_ms else (byte_ms, "bytes")
+
+
+def flash_bound(torch, peaks, dtype, operations: float, nbytes: float) -> dict:
+    """The least time a flash pass of ``operations`` on ``nbytes`` takes the card: ``bound``
+    (ms, what bounds it) at the rate of the inputs' type, bf16's for 16-bit inputs and, for
+    fp32, three TF32 products for each at the TF32 rate (3xTF32: an fp32-accurate product on
+    the tensor cores, the least an fp32 input takes); for fp32 also ``fma``, at the CUDA cores'
+    fp32 rate (the SIMT kernels' arithmetic)."""
+    if dtype != torch.float32:
+        return dict(bound=bound_ms(operations, peaks["bf16"], nbytes, peaks["bytes"]))
+    return dict(bound=bound_ms(3.0 * operations, peaks["tf32"], nbytes, peaks["bytes"]),
+                fma=bound_ms(operations, peaks["fp32"], nbytes, peaks["bytes"]))
+
+
+def format_bound(bounds: dict) -> str:
+    text = f"bound_ms={bounds['bound'][0]:.4f} ({bounds['bound'][1]})"
+    return text + (f" fma_bound_ms={bounds['fma'][0]:.4f} ({bounds['fma'][1]})" if "fma" in bounds else "")
 
 
 def metric_value(name: str, **labels) -> float:
@@ -678,11 +728,61 @@ def read_forward(out, lse, reference, dtype_name):
             error_reading(lse, ref_lse, ref_lse.abs(), LSE_TOL, MANTISSA_BITS["float32"]))
 
 
+def simt_forward(torch, q, k, v):
+    """A closure ``run(causal)`` that launches the SIMT forward kernel on q, k, v through its C
+    entry point (whatever route the wrapper takes), into fresh outputs: the design a redesigned
+    route replaced, timed beside it on the same tensors. Not counted as a launch."""
+    from hivemind_tpu_torch.ops import flash_attention as flash
+
+    library = flash._library()
+    batch, seq, heads, head_dim = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((batch, heads, seq), dtype=torch.float32, device=q.device)
+
+    def run(causal: bool):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = library.hm_flash_forward_simt(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), flash.SIMT_DTYPES[q.dtype],
+            batch, seq, heads, head_dim, *flash._strides(q, k, v, out), int(causal), head_dim ** -0.5, stream)
+        flash._build.check_launch(library, status, "hm_flash_forward_simt")
+        return out, lse
+
+    return run
+
+
+def simt_backward(torch, which: str, q, k, v, dout, lse, delta):
+    """As ``simt_forward``, for the SIMT kernel of the backward pass ``which`` ("dq" or
+    "dkv"): ``run(causal)`` returns its outputs."""
+    from hivemind_tpu_torch.ops import flash_attention as flash
+
+    library = flash._bwd_library()
+    outputs = (torch.empty_like(q),) if which == "dq" else (torch.empty_like(k), torch.empty_like(v))
+    entry = f"hm_flash_backward_{which}_simt"
+
+    def run(causal: bool):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = getattr(library, entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            *(t.data_ptr() for t in outputs), flash.SIMT_DTYPES[q.dtype], *q.shape,
+            *flash._strides(q, k, v, dout, outputs[0]), int(causal), q.shape[-1] ** -0.5, stream)
+        flash._build.check_launch(library, status, entry)
+        return outputs
+
+    return run
+
+
+def tf32_rounded(*tensors):
+    """The tensors rounded to plain TF32 (tf32_split's hi parts): the inputs one TF32 product
+    reads, where the fp32 checks must fail. Gradients pass through the rounding unchanged."""
+    from hivemind_tpu_torch.ops.flash_attention import tf32_split
+
+    return tuple(t + (tf32_split(t)[0] - t).detach() for t in tensors)
+
+
 def phase_flash(torch, peaks) -> dict:
     """The forward against its plain version; returns the kernels line's entries: the
-    longest served request's, and the packed-heads view's at FAULTY_PACKED."""
-    import torch.nn.functional as F
-
+    longest served request's, the packed-heads view's at FAULTY_PACKED and the 3xTF32 kernel's
+    at ALBERT's fp32 shape."""
     from hivemind_tpu_torch.ops.flash_attention import flash_attention_lse, flash_attention_plain, flash_routes, needs_copy
 
     rng = np.random.default_rng(SEED)
@@ -707,25 +807,23 @@ def phase_flash(torch, peaks) -> dict:
                         f"out {format_reading(faulty)} ok={faulty['ok']}")
                     if faulty["ok"]:
                         raise AssertionError("flash check passed a P that is 5% off on half the KV tiles")
+                if dtype == torch.float32 and (shape, causal) in FAULTY_TF32_SHAPES:  # a planted fault, rejected
+                    faulty = read_forward(*flash_attention_plain(*tf32_rounded(q, k, v), causal), reference, dtype_name)
+                    log(f"[flash] {label}, q, k, v rounded to plain TF32 (planted in the plain version): "
+                        f"out {format_reading(faulty[0])}; lse {format_reading(faulty[1])}")
+                    if faulty[0]["ok"] and faulty[1]["ok"]:
+                        raise AssertionError("flash check passed fp32 attention on inputs rounded to TF32")
                 del reference
                 err, lse_err = out_reading["max_abs"], lse_reading["max_abs"]
-                ms = time_ms(torch, lambda: flash_attention_lse(q, k, v, causal))
+                timing = forward_timing(torch, peaks, q, k, v, causal)
                 host = host_us(torch, lambda: flash_attention_lse(q, k, v, causal))
-                plain_ms = time_ms(torch, lambda: flash_attention_plain(q, k, v, causal))
-                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-                library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal))
-                pairs = seq * (seq + 1) / 2 if causal else seq * seq  # query-key pairs this data needs
-                operations = 4.0 * batch * heads * dim * pairs
-                nbytes = 4 * q.numel() * q.element_size() + lse.numel() * 4
-                rate = peaks["bf16"] if dtype == torch.bfloat16 else peaks["fp32"]
-                bound, bound_by = bound_ms(operations, rate, nbytes, peaks["bytes"])
-                log(f"[flash] {label}: max_err={err:.3e} lse_err={lse_err:.3e} ms={ms:.4f} "
-                    f"({operations / ms / 1e9:.1f} TFLOP/s) host_us={host:.1f} plain_ms={plain_ms:.4f} "
-                    f"library_ms={library_ms:.4f} bound_ms={bound:.4f} ({bound_by})")
+                log(f"[flash] {label}: max_err={err:.3e} lse_err={lse_err:.3e} {timing['text']} host_us={host:.1f}")
                 log(f"[flash]   {readings}")
+                entry = dict(max_abs_err=err, **{key: timing[key] for key in KERNEL_TIMES})
                 if shape == (1, 2048, 32, 128) and causal and dtype == torch.bfloat16:  # the longest served request
-                    entries["flash_attention_forward"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                                              bound_ms=bound, bound_by=bound_by, library_ms=library_ms)
+                    entries["flash_attention_forward"] = entry
+                if shape == ALBERT_ATTENTION and not causal and dtype == torch.float32:  # the fp32 training path's
+                    entries["flash_attention_forward_tf32x3"] = entry
     for shape, dtype_name, causal in FLASH_EXTRA_CASES:
         batch, seq, heads, dim = shape
         q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda().to(getattr(torch, dtype_name))
@@ -743,33 +841,56 @@ def phase_flash(torch, peaks) -> dict:
             del reference
             log(f"[flash] {label}, NaN, inf and -inf in every other head's q, k and v: the other heads' "
                 f"{isolated_heads(torch, q, k, v, causal)}")
-        ms = time_ms(torch, lambda: flash_attention_lse(q, k, v, causal))
-        plain_ms = time_ms(torch, lambda: flash_attention_plain(q, k, v, causal))
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal))
-        pairs = seq * (seq + 1) / 2 if causal else seq * seq
-        operations = 4.0 * batch * heads * dim * pairs
-        nbytes = 4 * q.numel() * q.element_size() + batch * heads * seq * 4
-        bound, bound_by = bound_ms(operations, peaks["bf16"], nbytes, peaks["bytes"])
-        log(f"[flash] {label}: ms={ms:.4f} ({operations / ms / 1e9:.1f} TFLOP/s) plain_ms={plain_ms:.4f} "
-            f"library_ms={library_ms:.4f} bound_ms={bound:.4f} ({bound_by})")
+        timing = forward_timing(torch, peaks, q, k, v, causal)
+        log(f"[flash] {label}: {timing['text']}")
         log(f"[flash]   {readings}")
         if (shape, dtype_name) == FAULTY_PACKED:
-            entries["flash_attention_forward_packed"] = dict(max_abs_err=packed_err, ms=ms, plain_ms=plain_ms,
-                                                             bound_ms=bound, bound_by=bound_by, library_ms=library_ms)
-    for (batch, seq, heads, dim), causal in STRIDED_CASES:
-        fused = torch.from_numpy(rng.standard_normal((batch, seq, 3, heads, dim), dtype=np.float32)).cuda().bfloat16()
-        q, k, v = fused.unbind(2)
-        readings = check_forward(torch, q, k, v, causal, "bfloat16", "on a fused qkv tensor")
-        log(f"[flash] q, k, v of one fused [{batch}, {seq}, 3, {heads}, {dim}] bf16 tensor, causal={causal} "
-            f"({flash_routes(q)}): {readings}")
-    for shape, causal in UNALIGNED_CASES:
-        q, k, v = (unaligned(torch, torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda().bfloat16())
-                   for _ in range(3))
-        readings = check_forward(torch, q, k, v, causal, "bfloat16", "on unaligned views")
-        log(f"[flash] q, k, v bf16 {list(shape)} one element off 16-byte alignment ({flash_routes(q)}, "
+            entries["flash_attention_forward_packed"] = dict(max_abs_err=packed_err,
+                                                             **{key: timing[key] for key in KERNEL_TIMES})
+    for (batch, seq, heads, dim), causal, dtype_name in STRIDED_CASES:
+        fused = torch.from_numpy(rng.standard_normal((batch, seq, 3, heads, dim), dtype=np.float32)).cuda()
+        q, k, v = fused.to(getattr(torch, dtype_name)).unbind(2)
+        readings = check_forward(torch, q, k, v, causal, dtype_name, "on a fused qkv tensor")
+        log(f"[flash] q, k, v of one fused [{batch}, {seq}, 3, {heads}, {dim}] {dtype_name} tensor, causal={causal} "
+            f"({flash_routes(q)}, copied first: {needs_copy(q)}): {readings}")
+    for shape, causal, dtype_name in UNALIGNED_CASES:
+        q, k, v = (unaligned(torch, torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda()
+                             .to(getattr(torch, dtype_name))) for _ in range(3))
+        readings = check_forward(torch, q, k, v, causal, dtype_name, "on unaligned views")
+        log(f"[flash] q, k, v {dtype_name} {list(shape)} one element off 16-byte alignment ({flash_routes(q)}, "
             f"copied first: {needs_copy(q)}), causal={causal}: {readings}")
     return entries
+
+
+KERNEL_TIMES = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")  # a kernels line entry's times
+
+
+def forward_timing(torch, peaks, q, k, v, causal) -> dict:
+    """The forward wrapper's device time on q, k, v, its plain version's, the library's
+    (``F.scaled_dot_product_attention``) and the bound (``flash_bound``); on the 3xTF32 route
+    also the SIMT kernel's on the same tensors (``simt_ms``), the design it replaced. ``text``
+    is the log's reading."""
+    import torch.nn.functional as F
+
+    from hivemind_tpu_torch.ops.flash_attention import flash_attention_lse, flash_attention_plain, flash_route
+
+    batch, seq, heads, dim = q.shape
+    timing = dict(ms=time_ms(torch, lambda: flash_attention_lse(q, k, v, causal)),
+                  plain_ms=time_ms(torch, lambda: flash_attention_plain(q, k, v, causal)))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    timing["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal))
+    pairs = seq * (seq + 1) / 2 if causal else seq * seq  # query-key pairs this data needs
+    operations = 4.0 * batch * heads * dim * pairs
+    bounds = flash_bound(torch, peaks, q.dtype, operations, 4 * q.numel() * q.element_size() + batch * heads * seq * 4)
+    timing["bound_ms"], timing["bound_by"] = bounds["bound"]
+    simt = ""
+    if flash_route(q, "forward") == "tf32x3":
+        run_simt = simt_forward(torch, q, k, v)
+        timing["simt_ms"] = time_ms(torch, lambda: run_simt(causal))
+        simt = f" simt_ms={timing['simt_ms']:.4f} ({timing['simt_ms'] / timing['ms']:.2f}x the kernel's)"
+    timing["text"] = (f"ms={timing['ms']:.4f} ({operations / timing['ms'] / 1e9:.1f} TFLOP/s){simt} "
+                      f"plain_ms={timing['plain_ms']:.4f} library_ms={timing['library_ms']:.4f} {format_bound(bounds)}")
+    return timing
 
 
 def poisoned(torch, t):
@@ -961,7 +1082,9 @@ def phase_flash_bwd(torch, peaks) -> dict:
         flash_attention_backward_dq,
         flash_attention_backward_dq_plain,
         flash_attention_plain,
+        flash_route,
         flash_routes,
+        needs_copy,
     )
 
     rng = np.random.default_rng(SEED + 5)
@@ -988,6 +1111,14 @@ def phase_flash_bwd(torch, peaks) -> dict:
                 "; ".join(f"{name} {format_reading(faulty[name])} ok={faulty[name]['ok']}" for name in ("dq", "dk")))
             if faulty["dq"]["ok"] or faulty["dk"]["ok"]:
                 raise AssertionError("flash backward check passed a dS that is 5% off on half the tiles")
+        if dtype == torch.float32 and (shape, causal) in FAULTY_TF32_SHAPES:  # the same, on inputs rounded to TF32
+            rounded = (*tf32_rounded(q, k, v, dout), lse, delta, causal)
+            faulty = read_backward(dtype_name, (flash_attention_backward_dq_plain(*rounded),
+                                                *flash_attention_backward_dkv_plain(*rounded)), ref, scales)
+            log(f"[flash_bwd] {label}, q, k, v, dout rounded to plain TF32 (planted in the plain version): " +
+                "; ".join(f"{name} {format_reading(faulty[name])} ok={faulty[name]['ok']}" for name in faulty))
+            if faulty["dk"]["ok"] and faulty["dv"]["ok"]:
+                raise AssertionError("flash backward check passed fp32 dK and dV on inputs rounded to TF32")
         if (shape, dtype_name) == FAULTY_PACKED:
             log(f"[flash_bwd] {label}, NaN, inf and -inf in every other head's q, k, v and dout: the other heads' "
                 f"{isolated_heads_backward(torch, q, k, v, dout, causal)}")
@@ -998,6 +1129,11 @@ def phase_flash_bwd(torch, peaks) -> dict:
         plain_ms = {"dq": time_ms(torch, lambda: flash_attention_backward_dq_plain(*args), budget_ms=100.0),
                     "dkv": time_ms(torch, lambda: flash_attention_backward_dkv_plain(*args), budget_ms=100.0)}
         library_ms = library_backward_ms(torch, q, k, v, dout, causal)
+        simt = {}  # the SIMT kernel on the same tensors, where the pass runs 3xTF32: the design it replaced
+        for kernel in ("dq", "dkv"):
+            if flash_route(q, kernel) == "tf32x3":
+                run_simt = simt_backward(torch, kernel, *args[:6])
+                simt[kernel] = f" simt_ms={time_ms(torch, lambda: run_simt(causal)):.4f}"
         host = ""
         if dtype == torch.bfloat16:  # the wrappers' host time per call: each pass, and the whole backward
             host = "; host_us " + " ".join(f"{name}={host_us(torch, fn):.1f}" for name, fn in (
@@ -1005,35 +1141,38 @@ def phase_flash_bwd(torch, peaks) -> dict:
                 ("backward", lambda: flash_attention_backward(q, k, v, out, lse, dout, causal))))
         pairs = seq * (seq + 1) / 2 if causal else seq * seq  # query-key pairs this data needs
         element, rows = q.numel() * q.element_size(), batch * heads * seq * 4
-        rate = peaks["fp32"] if dtype == torch.float32 else peaks["bf16"]
         operations = {"dq": 6.0 * batch * heads * dim * pairs, "dkv": 8.0 * batch * heads * dim * pairs}
-        bounds = {"dq": bound_ms(operations["dq"], rate, 5 * element + 2 * rows, peaks["bytes"]),
-                  "dkv": bound_ms(operations["dkv"], rate, 6 * element + 2 * rows, peaks["bytes"])}
+        bounds = {"dq": flash_bound(torch, peaks, dtype, operations["dq"], 5 * element + 2 * rows),
+                  "dkv": flash_bound(torch, peaks, dtype, operations["dkv"], 6 * element + 2 * rows)}
         log(f"[flash_bwd] {label}: " + "; ".join(
-            f"{kernel} ms={ms[kernel]:.4f} ({operations[kernel] / ms[kernel] / 1e9:.1f} TFLOP/s) "
-            f"plain_ms={plain_ms[kernel]:.4f} bound_ms={bounds[kernel][0]:.4f} ({bounds[kernel][1]})"
+            f"{kernel} ms={ms[kernel]:.4f} ({operations[kernel] / ms[kernel] / 1e9:.1f} TFLOP/s){simt.get(kernel, '')} "
+            f"plain_ms={plain_ms[kernel]:.4f} {format_bound(bounds[kernel])}"
             for kernel in ("dq", "dkv")) + f"; library (whole backward) ms={library_ms:.4f}{host}")
         log(f"[flash_bwd]   {text}")
-        # the training path's shape, and the packed-heads view's
-        suffix = "" if shape == ALBERT_ATTENTION else "_packed" if (shape, dtype_name) == FAULTY_PACKED else None
-        if suffix is not None:
-            for kernel, names in (("dq", ("dq",)), ("dkv", ("dk", "dv"))):
-                entries[f"flash_attention_backward_{kernel}{suffix}"] = dict(
-                    max_abs_err=max(readings[n]["max_abs"] for n in names), ms=ms[kernel], plain_ms=plain_ms[kernel],
-                    bound_ms=bounds[kernel][0], bound_by=bounds[kernel][1], library_ms=library_ms)
-    views = [(f"q, k, v, dout of one fused [{b}, {t}, 4, {h}, {d}] bf16 tensor, causal={causal}",
-              torch.from_numpy(rng.standard_normal((b, t, 4, h, d), dtype=np.float32)).cuda().bfloat16().unbind(2), causal)
-             for (b, t, h, d), causal in STRIDED_CASES]
-    views += [(f"q, k, v, dout bf16 {list(shape)} one element off 16-byte alignment, causal={causal}",
-               [unaligned(torch, torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda().bfloat16())
-                for _ in range(4)], causal) for shape, causal in UNALIGNED_CASES]
-    for what, (q, k, v, dout), causal in views:
-        what = f"{what} ({flash_routes(q)})"
+        # the training path's shape (bf16 and fp32: the fp32 path's 3xTF32 dK/dV and SIMT dQ), and the
+        # packed-heads view's
+        names = {(ALBERT_ATTENTION, "bfloat16"): {"dq": "", "dkv": ""}, FAULTY_PACKED: {"dq": "_packed", "dkv": "_packed"},
+                 (ALBERT_ATTENTION, "float32"): {"dq": "_simt", "dkv": "_tf32x3"}}.get((shape, dtype_name), {})
+        for kernel, suffix in names.items():
+            outputs = ("dq",) if kernel == "dq" else ("dk", "dv")
+            entries[f"flash_attention_backward_{kernel}{suffix}"] = dict(
+                max_abs_err=max(readings[n]["max_abs"] for n in outputs), ms=ms[kernel], plain_ms=plain_ms[kernel],
+                bound_ms=bounds[kernel]["bound"][0], bound_by=bounds[kernel]["bound"][1], library_ms=library_ms)
+    views = [(f"q, k, v, dout of one fused [{b}, {t}, 4, {h}, {d}] {dtype_name} tensor, causal={causal}",
+              torch.from_numpy(rng.standard_normal((b, t, 4, h, d), dtype=np.float32)).cuda()
+              .to(getattr(torch, dtype_name)).unbind(2), causal, dtype_name)
+             for (b, t, h, d), causal, dtype_name in STRIDED_CASES]
+    views += [(f"q, k, v, dout {dtype_name} {list(shape)} one element off 16-byte alignment, causal={causal}",
+               [unaligned(torch, torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda()
+                          .to(getattr(torch, dtype_name))) for _ in range(4)], causal, dtype_name)
+              for shape, causal, dtype_name in UNALIGNED_CASES]
+    for what, (q, k, v, dout), causal, dtype_name in views:
+        what = f"{what} ({flash_routes(q)}, copied first: {needs_copy(q)})"
         out, lse = flash_attention_plain(q, k, v, causal)
         args = (q, k, v, dout, lse, _delta(out, dout), causal)
         got = (flash_attention_backward_dq(*args), *flash_attention_backward_dkv(*args))
         ref = (flash_attention_backward_dq_plain(*args), *flash_attention_backward_dkv_plain(*args))
-        readings = read_backward("bfloat16", got, ref, backward_scales(torch, *args))
+        readings = read_backward(dtype_name, got, ref, backward_scales(torch, *args))
         text = "; ".join(f"{name} {format_reading(r)}" for name, r in readings.items())
         log(f"[flash_bwd] {what}: {text}")
         if not all(r["ok"] for r in readings.values()):
@@ -1212,6 +1351,113 @@ def phase_train(torch, peaks, wrappers: dict, telemetry: Telemetry) -> dict:
         raise AssertionError(f"remat changed the loss: {remat_loss} != {card_loss}")
     compare_grads(torch, card_grads, cpu_grads, TRAIN_GRAD_REL_L2, "card vs CPU")
     compare_grads(torch, remat_grads, card_grads, REMAT_GRAD_REL_L2, "remat vs not, on the card")
+    return launches
+
+
+@contextlib.contextmanager
+def albert_attention(variant: Optional[str]):
+    """ALBERT's attention as [train_fp32] varies it: ``"plain"``, the plain version on the
+    layer's fp32 q, k, v (the reference); ``"tf32"``, the same on q, k, v rounded to plain TF32
+    (the planted fault); None, as the model runs it (the flash kernels)."""
+    from hivemind_tpu_torch.models import albert
+    from hivemind_tpu_torch.parallel.ring_attention import plain_attention
+
+    core = albert.mesh_attention_core
+    if variant is not None:
+        prepare = tf32_rounded if variant == "tf32" else lambda *tensors: tensors
+        albert.mesh_attention_core = lambda mesh, q, k, v, mask=None: plain_attention(*prepare(q, k, v), mask=mask)
+    try:
+        yield
+    finally:
+        albert.mesh_attention_core = core
+
+
+def phase_train_fp32(torch, peaks, wrappers: dict, telemetry: Telemetry) -> dict:
+    from hivemind_tpu_torch.models import (
+        AlbertConfig,
+        AlbertForMaskedLM,
+        make_mlm_loss_fn,
+        make_synthetic_mlm_batch,
+        make_train_step,
+    )
+    from hivemind_tpu_torch.ops.flash_attention import flash_routes
+
+    phase_started = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False  # the GEMMs in full fp32, as the JAX package's
+    torch.backends.cudnn.allow_tf32 = False
+    config = AlbertConfig.base(max_position=TRAIN_SEQ, dtype=torch.float32)
+    shape = (TRAIN_BATCH, TRAIN_SEQ, config.num_heads, config.hidden_size // config.num_heads)
+    routes = flash_routes(torch.empty(shape, dtype=config.dtype, device="meta"))
+    log(f"[train_fp32] torch.backends.cuda.matmul.allow_tf32 = {torch.backends.cuda.matmul.allow_tf32}, "
+        f"torch.backends.cudnn.allow_tf32 = {torch.backends.cudnn.allow_tf32}; attention {list(shape)} fp32: {routes}")
+    if routes != TRAIN_FP32_ROUTES:
+        raise AssertionError(f"fp32 attention at {list(shape)} routes {routes}, expected {TRAIN_FP32_ROUTES}")
+    adamw = lambda params: torch.optim.AdamW(params, lr=1e-4, weight_decay=1e-4)  # [train]'s
+    batch = make_synthetic_mlm_batch(torch.Generator(device="cuda").manual_seed(SEED + 6), config, TRAIN_BATCH, TRAIN_SEQ)
+    model, train_step = make_train_step(config, adamw, masked_loss_fraction=TRAIN_MASKED_FRACTION, device="cuda",
+                                        rng_seed=SEED + 7)
+    initial = {key: value.detach().clone() for key, value in model.state_dict().items()}
+
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, launches = timed_steps(torch, train_step, batch, wrappers, TRAIN_FP32_WARMUP, TRAIN_FP32_STEPS)
+    tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
+    flops = flops_per_token(config, TRAIN_SEQ, TRAIN_MASKED_FRACTION)
+    bf16 = telemetry.readings.get("train", {}).get("tokens_per_s")
+    beside = f"; [train]'s bf16 step {bf16:.0f} tokens/s ({bf16 / tokens_per_s:.2f}x)" if bf16 else ""
+    log(f"[train_fp32] ALBERT-base fp32 batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, AdamW, masked_loss_fraction "
+        f"{TRAIN_MASKED_FRACTION}: step {step_ms:.3f} ms, {tokens_per_s:.0f} tokens/s, "
+        f"{tokens_per_s * flops / 1e12:.1f} TFLOP/s ({tokens_per_s * flops / peaks['fp32']:.1%} of the published fp32 "
+        f"peak){beside}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    steps = TRAIN_FP32_WARMUP + TRAIN_FP32_STEPS
+    log(f"[train_fp32] losses: {[round(loss, 5) for loss in losses]}")
+    log(f"[train_fp32] launches per step: " + json.dumps({name: count / steps for name, count in launches.items()}))
+    if not all(math.isfinite(loss) for loss in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    for name in ("flash_attention_forward", "flash_attention_backward_dq", "flash_attention_backward_dkv",
+                 "flash_attention_forward_tf32x3", "flash_attention_backward_dkv_tf32x3",
+                 "flash_attention_backward_dq_simt"):
+        if launches[name] != config.num_layers * steps:
+            raise AssertionError(f"{name}: {launches[name]} launches in {steps} steps, expected {config.num_layers} "
+                                 f"per step")
+    log_step_profile(torch, train_step, batch, "fp32 train")
+    del model, train_step, batch
+
+    # from the initial weights, a sub-batch: the kernels against plain fp32 attention, and the planted fault
+    sub = make_synthetic_mlm_batch(torch.Generator(device="cuda").manual_seed(SEED + 6), config, TRAIN_CHECK_BATCH,
+                                   TRAIN_SEQ)
+    graded = {}
+    for variant in (None, "plain", "tf32"):
+        check = AlbertForMaskedLM(config, device="cuda")
+        check.load_state_dict(initial)
+        forward_before = wrappers["flash_attention_forward_tf32x3"].launches
+        with albert_attention(variant):
+            graded[variant] = loss_and_grads(check, make_mlm_loss_fn(check, TRAIN_MASKED_FRACTION), sub)
+        torch.cuda.synchronize()
+        forwards = wrappers["flash_attention_forward_tf32x3"].launches - forward_before
+        if forwards != (config.num_layers if variant is None else 0):
+            raise AssertionError(f"attention {variant or 'kernels'}: {forwards} 3xTF32 forward launches in one step")
+        del check
+    ref_loss, ref_grads = graded["plain"]
+    readings = {}
+    for variant, what in ((None, "the kernels"), ("tf32", "planted fault, plain attention on q, k, v rounded to TF32")):
+        loss, grads = graded[variant]
+        gaps = gradient_gaps(grads, ref_grads)
+        readings[variant] = (abs(loss - ref_loss) / abs(ref_loss), gaps[0][0])
+        log(f"[train_fp32] [{TRAIN_CHECK_BATCH}, {TRAIN_SEQ}] sub-batch, initial weights, {what}: loss {loss:.8f} "
+            f"against plain fp32 attention's {ref_loss:.8f} (relative gap {readings[variant][0]:.3e}); largest "
+            f"gradient error norms / norm " + ", ".join(f"{gap:.3e} ({name})" for gap, name in gaps[:3]))
+    fault_loss, fault_grad = readings["tf32"]
+    if fault_loss <= TRAIN_FP32_LOSS_RTOL and fault_grad <= TRAIN_FP32_GRAD_REL_L2:
+        raise AssertionError("the fp32 check passed attention on inputs rounded to TF32")
+    if not readings[None][0] <= TRAIN_FP32_LOSS_RTOL:
+        raise AssertionError(f"the kernels' loss differs from plain fp32 attention's by {readings[None][0]:.3e} > "
+                             f"{TRAIN_FP32_LOSS_RTOL}")
+    compare_grads(torch, graded[None][1], ref_grads, TRAIN_FP32_GRAD_REL_L2, "the kernels vs plain fp32 attention",
+                  phase="train_fp32")
+    wall = time.perf_counter() - phase_started
+    log(f"[train_fp32] phase wall {wall:.1f} s (limit {TRAIN_FP32_LIMIT_S:.0f})")
+    if wall > TRAIN_FP32_LIMIT_S:
+        raise AssertionError(f"the phase took {wall:.1f} s, over its {TRAIN_FP32_LIMIT_S:.0f} s")
     return launches
 
 
@@ -5597,9 +5843,9 @@ def phase_cli(torch, checkpoint_dir: str, wrappers: dict) -> dict:
         server_log = logs["run_server"].read_text(errors="replace")
         scratch.cleanup()
     # the server logs each kernel wrapper's launches by its name (run_server.kernel_launches), not the
-    # packed-heads view's counts, which its Llama-width blocks never launch
+    # packed-heads view's or a route's counts (no functions), which its Llama-width blocks never launch
     launches = {name: counts[wrapper.__name__] - loaded[wrapper.__name__] for name, wrapper in wrappers.items()
-                if not name.endswith("_packed")}
+                if callable(wrapper)}
     layers = LLAMA2_7B["num_hidden_layers"]
     local = load_llama_blocks(checkpoint_dir, device="cuda")[0]
     rel_err = max_rel_err(forwarded, forward_chain(local, x))
@@ -5814,12 +6060,19 @@ def main(argv=None) -> int:
         "flash_attention_forward_packed": flash_attention.flash_attention_lse.packed,
         "flash_attention_backward_dq_packed": flash_attention.flash_attention_backward_dq.packed,
         "flash_attention_backward_dkv_packed": flash_attention.flash_attention_backward_dkv.packed,
+        # fp32's kernels: the forward and dK/dV pass on 3xTF32, the dQ pass on SIMT
+        "flash_attention_forward_tf32x3": flash_attention.flash_attention_lse.tf32x3,
+        "flash_attention_backward_dkv_tf32x3": flash_attention.flash_attention_backward_dkv.tf32x3,
+        "flash_attention_backward_dq_simt": flash_attention.flash_attention_backward_dq.simt,
     }
     # each path, and the kernels that must launch in its run
     path_kernels = {
         "serving": ("flash_attention_forward", "blockwise_int8_quantize", "blockwise_int8_dequantize"),
         "expert_backward": ("flash_attention_forward", "flash_attention_backward_dq", "flash_attention_backward_dkv"),
         "train": ("flash_attention_forward", "flash_attention_backward_dq", "flash_attention_backward_dkv"),
+        "train_fp32": ("flash_attention_forward", "flash_attention_backward_dq", "flash_attention_backward_dkv",
+                       "flash_attention_forward_tf32x3", "flash_attention_backward_dkv_tf32x3",
+                       "flash_attention_backward_dq_simt"),
         "head_dim32": ("flash_attention_forward", "flash_attention_backward_dq", "flash_attention_backward_dkv",
                        "flash_attention_forward_packed", "flash_attention_backward_dq_packed",
                        "flash_attention_backward_dkv_packed"),
@@ -5885,6 +6138,7 @@ def main(argv=None) -> int:
         run("averaging", phase_averaging, torch)  # host numpy reduction: no kernel on its path
         path_launches["expert_backward"] = run("expert_backward", phase_expert_backward, torch, checkpoint.name, wrappers)
         path_launches["train"] = run("train", phase_train, torch, peaks, wrappers, telemetry)
+        path_launches["train_fp32"] = run("train_fp32", phase_train_fp32, torch, peaks, wrappers, telemetry)
         path_launches["causal"] = run("causal", phase_causal, torch, peaks, wrappers)
         # after [train], whose solo step it reads beside its own: the swarm of peer processes
         path_launches["collab"] = run("collab", phase_collab, torch, wrappers, telemetry)
@@ -5934,6 +6188,13 @@ def main(argv=None) -> int:
                                                "hivemind_tpu/ops/pallas_attention.py:279"),
         "flash_attention_backward_dkv_packed": ("hivemind_tpu_torch/csrc/flash_attention_bwd.cu",
                                                 "hivemind_tpu/ops/pallas_attention.py:292"),
+        # rows 1 and 3 on fp32 (flash_forward_tf32x3, flash_bwd_dkv_tf32x3), row 2 on fp32 (flash_bwd_dq_simt)
+        "flash_attention_forward_tf32x3": ("hivemind_tpu_torch/csrc/flash_attention.cu",
+                                           "hivemind_tpu/ops/pallas_attention.py:108"),
+        "flash_attention_backward_dkv_tf32x3": ("hivemind_tpu_torch/csrc/flash_attention_bwd.cu",
+                                                "hivemind_tpu/ops/pallas_attention.py:292"),
+        "flash_attention_backward_dq_simt": ("hivemind_tpu_torch/csrc/flash_attention_bwd.cu",
+                                             "hivemind_tpu/ops/pallas_attention.py:279"),
     }
     kernels = [
         {"name": kernel, "route": "cuda", "source": meta[kernel][0], "replaces": meta[kernel][1],

@@ -58,6 +58,12 @@ inline bool wgmma_takes(int dtype, int head_dim, int heads) {
     return static_cast<long long>(heads) * head_dim % 8 == 0 && tma_span(head_dim, heads) <= 256;
 }
 
+// What the 3xTF32 kernels (the fp32 forward and dK/dV pass) take: fp32 at a head_dim from 16
+// to 128 that is a multiple of 4, so a head's row is whole 16-byte chunks.
+inline bool tf32x3_takes(int dtype, int head_dim) {
+    return dtype == kSimtF32 && head_dim >= 16 && head_dim <= 128 && head_dim % 4 == 0;
+}
+
 inline CUtensorMapDataType tma_type(int dtype) {
     return dtype == kSimtF16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 }

@@ -80,8 +80,51 @@
 //    epilogue overlap another's products (at D = 64 and T = 512 a block runs
 //    only 4 KV tiles), and TMA stores of O.
 //
-// Design, SIMT (every input the wgmma design does not take: fp32, where tensor
-// cores would round the inputs to TF32, and bf16 or fp16 at a head_dim that is not
+// Design, 3xTF32 (`flash_forward_tf32x3<Dp>`: fp32 at a head_dim from 16 to 128 that is a
+// multiple of 4; Dp 64 or 128). The TPU kernel multiplies fp32 tiles in fp32; one TF32
+// product rounds each input to 10 mantissa bits (about 2^-11 relative), which the fp32 limits
+// reject. So every operand x is split as hi = rna_tf32(x), lo = rna_tf32(x - hi) (both kept
+// with their low 13 bits zero, sm90::tf32_split) and each product a b is formed as a_lo b_hi
+// + a_hi b_lo + a_hi b_hi, the small terms first, in one fp32 accumulator: about 2^-21
+// relative a product, at three times the tensor work (the bound: 3 x operations at the TF32
+// rate, 495 TFLOP/s on an H100 SXM, against the CUDA cores' 67 fp32 TFLOP/s).
+//  * tf32 wgmma (m64nNk8) reads its shared-memory operands K-major only (the transpose
+//    flags exist for 16-bit types alone). S = Q K^T reads Q and K as they stand; O += P V
+//    takes P from registers and V as V^T, a copy the producer writes transposed.
+//  * P's register fragment: the f32 accumulator gives a thread columns 2t and 2t + 1 of each
+//    group of 8, where the tf32 A fragment wants t and t + 4. No register moves: the k-step's
+//    8 keys are taken in the order 0, 2, 4, 6, 1, 3, 5, 7 in A (sm90::tf32_a_fragment) and the
+//    producer stores V^T's columns in the same order (sm90::tf32_k_slot); a sum over k is the
+//    same in any order.
+//  * TMA can neither split nor transpose, so the producer warpgroup's 128 threads load each
+//    tile with 16-byte loads (a warp on 32 rows, each thread whole 32-byte sectors), split the
+//    values in registers and store hi and lo into 128-byte-swizzled tiles (sm90::Tf32RowLoader;
+//    V^T by 4-byte stores, a warp's 32 keys to 32 words of one row: no bank conflict), then
+//    fence the async proxy and arrive on the slot's "full" mbarrier (every producer thread
+//    counts). Q is split once a block. The next K and V tiles are loaded into registers as
+//    soon as the ones before are stored, so the loads run while their slot drains.
+//  * Tiles (each twice, hi and lo; 32-column regions of 128 bytes): at Dp = 64, two consumer
+//    warpgroups of 64 query rows take turns (the 16-bit design's ping-pong, turns of S of
+//    tile j and P V of tile j - 1); Q 2 x 32 KB, 64-key K and V^T tiles in two slots each
+//    (2 x 2 x 16 KB each): 192 KB. At Dp = 128, Q of 128 rows would take 128 KB, so a block
+//    owns 64 query rows (one consumer warpgroup, 256 threads): Q 2 x 32 KB, 32-key K and V^T
+//    tiles in two slots each (2 x 2 x 16 KB each): 192 KB. Registers: at Dp = 64 setmaxnreg
+//    104 / 200 (the producer holds 64 fp32 of the next tiles); at Dp = 128 no setmaxnreg. On an
+//    H100 at Dp = 64, one consumer warpgroup of 64 rows (no ping-pong) was the slower.
+//  * O is summed a tile at a time: P V of a tile into a partial from zero, added to O (and O
+//    rescaled) by the CUDA cores, as the dK/dV pass sums dK and dV (its note on the tensor
+//    core's rounding); carried on the tensor cores, O's norm ratio to the plain version was
+//    3.6e-6 at ALBERT's shape, a tile's partial 6.8e-7, and the query and key projections'
+//    gradients of [train_fp32] followed (7.3e-5 against 3.7e-6 of plain fp32 attention's).
+//  * Otherwise as the wgmma design: every wgmma outside a branch; masks only on the
+//    diagonal's tiles and the tile holding T; query tiles heaviest first; lse as a natural
+//    log; rows past T never stored; views read through their strides (a fused [B, T, 3, H,
+//    D] projection's slices included), and an unaligned one copied by the wrapper. The
+//    exponent is ex2.approx, as the 16-bit design's: its error (about 2 ulp) is far inside
+//    the fp32 limits, which chip_smoke.py holds every fp32 case to.
+//
+// Design, SIMT (every input the wgmma and 3xTF32 designs do not take: fp32 at a head_dim
+// that is not a multiple of 4 or outside 16 to 128, and bf16 or fp16 at a head_dim that is not
 // a multiple of 8 whose H * head_dim is not one either, or outside 16 to 256; any
 // head_dim up to 256, as the TPU kernel takes the whole head_dim as its block): the
 // same online softmax on the CUDA cores in fp32 FMAs only (no TF32), the inputs
@@ -475,6 +518,313 @@ __global__ void __launch_bounds__(kThreadsWgmma, 1)
     }
 }
 
+// ------------------------------------------------------------------ 3xTF32 path (fp32)
+
+// Shared-memory layout at the padded width Dp (64 or 128; byte offsets from a 1024-aligned
+// base). Every tile is fp32 in 32-column (128-byte) regions, 128-byte-swizzled (sm90.cuh,
+// kmajor_chunk), and held twice, as its TF32 hi part and its lo part.
+template <int Dp>
+struct Tf32ForwardTiles {
+    // consumer warpgroups of 64 query rows: two at Dp = 64, taking turns (ping-pong); one at
+    // Dp = 128, where Q of 128 rows (hi and lo: 128 KB) and two stages of K and V^T would not fit
+    static constexpr int kConsumers = Dp > 64 ? 1 : 2;
+    static constexpr int kThreads = 128 * (kConsumers + 1);
+    static constexpr int kRows = 64 * kConsumers;       // query rows a block
+    static constexpr int kKvRows = Dp > 64 ? 32 : 64;   // KV rows a tile
+    static constexpr int kRegions = Dp / 32;
+    static constexpr uint32_t kQBox = kRows * sm90::kSwizzleRowBytes, kQTile = kQBox * kRegions;
+    static constexpr uint32_t kKBox = kKvRows * sm90::kSwizzleRowBytes, kKTile = kKBox * kRegions;
+    // V^T: Dp rows (V's columns) of kKvRows keys, in kKvRows / 32 regions
+    static constexpr uint32_t kVtBox = Dp * sm90::kSwizzleRowBytes, kVtTile = kVtBox * (kKvRows / 32);
+    static constexpr uint32_t kQ = 0;                        // Q hi, then Q lo
+    static constexpr uint32_t kK = 2 * kQTile;               // slot s: K hi at kK + 2 s kKTile, K lo after it
+    static constexpr uint32_t kVt = kK + 2 * kStages * kKTile;
+    static constexpr uint32_t kBarriers = kVt + 2 * kStages * kVtTile;  // full_q, full_k[S], full_v[S], empty_k[S], empty_v[S]
+    static constexpr uint32_t kBytes = kBarriers + (1 + 4 * kStages) * 8 + sm90::kSwizzleAtomBytes;  // + alignment
+};
+
+// The producer warpgroup's registers where two consumer warpgroups take the rest: it holds a
+// prefetched K and V tile (64 fp32 a thread). 128 * 104 + 256 * 200 = 384 * 168, the registers the
+// block is launched with: setmaxnreg.inc waits for registers the other warpgroups released, so a
+// split past that total never completes.
+constexpr int kTf32ProducerRegs = 104, kTf32ConsumerRegs = 200;
+
+// fp32 q, k, v at a head_dim from 16 to Dp that is a multiple of 4 (a head's row is whole
+// 16-byte chunks). Dp: 64 or 128. The producer warpgroup loads each tile with 16-byte loads,
+// splits every value into TF32 hi and lo in registers and stores both, K-major: Q and K as
+// they stand, V transposed (tf32 wgmma reads its shared-memory operands K-major only), its
+// keys in tf32_k_slot order to match P's register fragments. Columns past head_dim and rows
+// past T are stored as zeros.
+template <int Dp>
+__global__ void __launch_bounds__(Tf32ForwardTiles<Dp>::kThreads, 1) flash_forward_tf32x3(const Params p) {
+    using L = Tf32ForwardTiles<Dp>;
+    constexpr int kKvRows = L::kKvRows, kConsumers = L::kConsumers;
+    extern __shared__ unsigned char smem_raw[];
+    const uint32_t base = (sm90::smem_addr(smem_raw) + sm90::kSwizzleAtomBytes - 1) & ~(sm90::kSwizzleAtomBytes - 1);
+    const uint32_t full_q = base + L::kBarriers;
+    const auto full_k = [&](int s) { return full_q + 8 * (1 + s); };
+    const auto full_v = [&](int s) { return full_q + 8 * (1 + kStages + s); };
+    const auto empty_k = [&](int s) { return full_q + 8 * (1 + 2 * kStages + s); };
+    const auto empty_v = [&](int s) { return full_q + 8 * (1 + 3 * kStages + s); };
+    const auto k_slot = [&](int s) { return base + L::kK + 2 * s * L::kKTile; };    // hi; lo at + kKTile
+    const auto vt_slot = [&](int s) { return base + L::kVt + 2 * s * L::kVtTile; };  // hi; lo at + kVtTile
+
+    const int bh = blockIdx.x;
+    const int b = bh / p.heads, h = bh % p.heads;
+    const int q_tiles = (p.seq + L::kRows - 1) / L::kRows;
+    const int q0 = (q_tiles - 1 - static_cast<int>(blockIdx.y)) * L::kRows;  // heaviest first
+    const int kv_end = p.causal ? min(p.seq, q0 + L::kRows) : p.seq;         // causal: up to the diagonal
+    const int kv_tiles = (kv_end + kKvRows - 1) / kKvRows;
+
+    if (threadIdx.x == 0) {
+        sm90::mbar_init(full_q, 128);
+        for (int s = 0; s < kStages; ++s) {
+            sm90::mbar_init(full_k(s), 128);  // every producer thread stores a part of each tile
+            sm90::mbar_init(full_v(s), 128);
+            sm90::mbar_init(empty_k(s), 4 * kConsumers);
+            sm90::mbar_init(empty_v(s), 4 * kConsumers);
+        }
+        sm90::fence_mbar_init();
+    }
+    __syncthreads();
+
+    if (threadIdx.x >= kConsumers * 128) {  // the producer warpgroup
+        if constexpr (kConsumers == 2) sm90::setmaxnreg_dec<kTf32ProducerRegs>();
+        const int thread = threadIdx.x - kConsumers * 128;
+        const float* q_base = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+        const float* k_base = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+        const float* v_base = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+        using QRows = sm90::Tf32RowLoader<64, Dp>;  // Q a warpgroup's 64 rows at a time
+        using KvRows = sm90::Tf32RowLoader<kKvRows, Dp>;
+#pragma unroll 1
+        for (int rows = 0; rows < L::kRows; rows += 64) {
+            float4 q_regs[QRows::kChunks];
+            QRows::load(q_regs, q_base, p.q_st, q0 + rows, thread, p.seq, p.head_dim);
+            const uint32_t q_rows = base + L::kQ + rows * sm90::kSwizzleRowBytes;
+            QRows::store(q_regs, q_rows, q_rows + L::kQTile, L::kQBox, thread);
+        }
+        sm90::fence_proxy_async();
+        sm90::mbar_arrive(full_q);
+        // K and V of tile j in registers, each loaded as soon as the one before is stored, so
+        // the loads are in flight while the slot they go to drains
+        float4 k_regs[KvRows::kChunks], v_regs[KvRows::kChunks];
+        KvRows::load(k_regs, k_base, p.k_st, 0, thread, p.seq, p.head_dim);
+        KvRows::load(v_regs, v_base, p.v_st, 0, thread, p.seq, p.head_dim);
+        for (int j = 0; j < kv_tiles; ++j) {
+            const int s = j % kStages;
+            const uint32_t parity = ((j / kStages) & 1) ^ 1;  // the first round passes at once
+            const bool next = j + 1 < kv_tiles;
+            sm90::mbar_wait(empty_k(s), parity);
+            KvRows::store(k_regs, k_slot(s), k_slot(s) + L::kKTile, L::kKBox, thread);
+            sm90::fence_proxy_async();
+            sm90::mbar_arrive(full_k(s));
+            if (next) KvRows::load(k_regs, k_base, p.k_st, (j + 1) * kKvRows, thread, p.seq, p.head_dim);
+            sm90::mbar_wait(empty_v(s), parity);
+            KvRows::store_transposed(v_regs, vt_slot(s), vt_slot(s) + L::kVtTile, L::kVtBox, thread);
+            sm90::fence_proxy_async();
+            sm90::mbar_arrive(full_v(s));
+            if (next) KvRows::load(v_regs, v_base, p.v_st, (j + 1) * kKvRows, thread, p.seq, p.head_dim);
+        }
+    } else {  // the consumer warpgroups, 64 query rows each
+        if constexpr (kConsumers == 2) sm90::setmaxnreg_inc<kTf32ConsumerRegs>();
+        const int wg = threadIdx.x / 128;
+        const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+        const int g = lane / 4, t = lane % 4;
+        const int row_lo = wg * 64 + warp * 16 + g;  // this thread's rows of the tile: row_lo, row_lo + 8
+        const float scale2 = p.scale * sm90::kLog2e;
+
+        float o[Dp / 2];
+#pragma unroll
+        for (int i = 0; i < Dp / 2; ++i) o[i] = 0.0f;
+        float m_lo = kNegInf, m_hi = kNegInf, l_lo = 0.0f, l_hi = 0.0f;  // raw row maxima, partial row sums
+
+        const uint32_t q_hi = base + L::kQ + wg * 64 * sm90::kSwizzleRowBytes;  // this warpgroup's 64 rows
+        const uint32_t q_lo = q_hi + L::kQTile;
+        float sc[kKvRows / 2];                               // S = Q K^T of one KV tile, then its P
+        uint32_t p_hi[kKvRows / 8][4], p_lo[kKvRows / 8][4];  // P's A fragments, 8 keys each
+        // P V of one tile, summed from zero and added to O by the CUDA cores: the tensor core's
+        // additions round toward zero relative to the sum they add to, so O carried through the
+        // sweep on the tensor cores drifted by the sweep's length (as dK and dV did; the dK/dV
+        // pass's note), and a tile's partial drifts by the tile's
+        float part[Dp / 2];
+        float corr_lo = 0.0f, corr_hi = 0.0f;
+
+        // S = Q K^T of KV tile j: Q_lo K_hi + Q_hi K_lo, then Q_hi K_hi (the small terms first). The
+        // tiles' bases pass through an empty asm, so the descriptors are made at each call, not
+        // held across the sweep (Q's 16 and both slots' 32 of K: 96 registers; the consumers spilled)
+        const auto issue_s = [&](int j) {
+            uint32_t q_hi_j = q_hi, q_lo_j = q_lo, k_hi = k_slot(j % kStages);
+            asm volatile("" : "+r"(q_hi_j), "+r"(q_lo_j), "+r"(k_hi));
+            const uint32_t k_lo = k_hi + L::kKTile;
+#pragma unroll
+            for (int term = 0; term < 3; ++term) {
+#pragma unroll
+                for (int kk = 0; kk < Dp / 8; ++kk) {
+                    // region kk / 4, then 32 bytes (8 columns) along its swizzled 128-byte rows
+                    const uint32_t q_off = (kk / 4) * L::kQBox + (kk % 4) * 32;
+                    const uint32_t k_off = (kk / 4) * L::kKBox + (kk % 4) * 32;
+                    sm90::wgmma_ss_tf32(sc, sm90::desc_kmajor((term == 0 ? q_lo_j : q_hi_j) + q_off),
+                                        sm90::desc_kmajor((term == 1 ? k_lo : k_hi) + k_off), term > 0 || kk > 0);
+                }
+            }
+        };
+        // part = P V of KV tile j: P_lo V_hi + P_hi V_lo + P_hi V_hi, V^T K-major
+        const auto issue_pv = [&](int j) {
+            uint32_t vt_hi = vt_slot(j % kStages);
+            asm volatile("" : "+r"(vt_hi));  // as issue_s's bases
+            const uint32_t vt_lo = vt_hi + L::kVtTile;
+#pragma unroll
+            for (int term = 0; term < 3; ++term) {
+#pragma unroll
+                for (int kc = 0; kc < kKvRows / 8; ++kc) {
+                    const uint32_t vt_off = (kc / 4) * L::kVtBox + (kc % 4) * 32;
+                    sm90::wgmma_rs_tf32(part, term == 0 ? p_lo[kc] : p_hi[kc],
+                                        sm90::desc_kmajor((term == 1 ? vt_lo : vt_hi) + vt_off), term > 0 || kc > 0);
+                }
+            }
+        };
+        // as the 16-bit kernel's: mask and exponentiate tile j's scores in place, fold them
+        // into the row maxima and partial sums; corr_* take the factor that rescales O
+        const auto softmax = [&](int j) {
+            const int kv0 = j * kKvRows;
+            if ((p.causal && kv0 + kKvRows > q0) || kv0 + kKvRows > p.seq) {  // the diagonal's tiles, the tile holding T
+#pragma unroll
+                for (int i = 0; i < kKvRows / 2; ++i) {
+                    const int col = kv0 + (i / 4) * 8 + 2 * t + (i & 1);
+                    const int row = q0 + row_lo + (i & 2) * 4;
+                    if (col >= p.seq || (p.causal && col > row)) sc[i] = kNegInf;
+                }
+            }
+            float max_lo = m_lo, max_hi = m_hi;
+#pragma unroll
+            for (int i = 0; i < kKvRows / 2; ++i) {
+                if (i & 2) {
+                    max_hi = fmaxf(max_hi, sc[i]);
+                } else {
+                    max_lo = fmaxf(max_lo, sc[i]);
+                }
+            }
+#pragma unroll
+            for (int offset = 1; offset < 4; offset <<= 1) {  // the 4 threads of a quad share a row
+                max_lo = fmaxf(max_lo, __shfl_xor_sync(0xffffffffu, max_lo, offset));
+                max_hi = fmaxf(max_hi, __shfl_xor_sync(0xffffffffu, max_hi, offset));
+            }
+            corr_lo = sm90::exp2_approx((m_lo - max_lo) * scale2);
+            corr_hi = sm90::exp2_approx((m_hi - max_hi) * scale2);
+            m_lo = max_lo;
+            m_hi = max_hi;
+            const float shift_lo = max_lo * scale2, shift_hi = max_hi * scale2;
+            float sum_lo = 0.0f, sum_hi = 0.0f;
+#pragma unroll
+            for (int i = 0; i < kKvRows / 2; ++i) {
+                if (i & 2) {
+                    sc[i] = sm90::exp2_approx(fmaf(sc[i], scale2, -shift_hi));
+                    sum_hi += sc[i];
+                } else {
+                    sc[i] = sm90::exp2_approx(fmaf(sc[i], scale2, -shift_lo));
+                    sum_lo += sc[i];
+                }
+            }
+            l_lo = l_lo * corr_lo + sum_lo;  // per-thread partial; the quad is summed at the end
+            l_hi = l_hi * corr_hi + sum_hi;
+        };
+        const auto split_p = [&]() {
+#pragma unroll
+            for (int kc = 0; kc < kKvRows / 8; ++kc) sm90::tf32_a_fragment(sc, kc, p_hi[kc], p_lo[kc]);
+        };
+        // the 16-bit kernel's turns: turn j issues S of tile j and P V of tile j - 1 as one
+        // wgmma group; with two consumer warpgroups they take turns (named barriers 1 and 2)
+        const auto take_turn = [&]() {
+            if constexpr (kConsumers == 2) sm90::named_bar_sync(1 + wg, 2 * 128);
+            sm90::fence_regs(sc);
+            sm90::fence_regs(part);
+            sm90::fence_regs(p_hi);
+            sm90::fence_regs(p_lo);
+            sm90::wgmma_fence();
+        };
+        const auto pass_turn = [&]() {
+            if constexpr (kConsumers == 2) sm90::named_bar_arrive(2 - wg, 2 * 128);
+        };
+        const auto finish_turn = [&]() {
+            sm90::wgmma_wait<0>();
+            sm90::fence_regs(sc);
+            sm90::fence_regs(part);
+        };
+        // a tile the producer stored has landed: its generic-proxy stores are fenced for wgmma's reads
+        const auto wait_full = [&](uint32_t bar, int j) {
+            sm90::mbar_wait(bar, (j / kStages) & 1);
+            sm90::fence_proxy_async();
+        };
+        if (wg == 1) pass_turn();
+        sm90::mbar_wait(full_q, 0);
+        sm90::fence_proxy_async();
+        wait_full(full_k(0), 0);
+        take_turn();
+        issue_s(0);
+        sm90::wgmma_commit();
+        pass_turn();
+        finish_turn();
+        if (lane == 0) sm90::mbar_arrive(empty_k(0));
+        softmax(0);  // O is still 0: no rescale
+        split_p();
+        for (int j = 1; j < kv_tiles; ++j) {
+            wait_full(full_k(j % kStages), j);
+            wait_full(full_v((j - 1) % kStages), j - 1);
+            take_turn();
+            issue_s(j);
+            issue_pv(j - 1);
+            sm90::wgmma_commit();
+            pass_turn();
+            finish_turn();
+            if (lane == 0) {  // this warp is done with K of tile j and V of tile j - 1
+                sm90::mbar_arrive(empty_k(j % kStages));
+                sm90::mbar_arrive(empty_v((j - 1) % kStages));
+            }
+            softmax(j);
+#pragma unroll
+            for (int i = 0; i < Dp / 2; ++i) o[i] = (o[i] + part[i]) * ((i & 2) ? corr_hi : corr_lo);
+            split_p();
+        }
+        const int last = kv_tiles - 1;
+        wait_full(full_v(last % kStages), last);
+        take_turn();
+        issue_pv(last);
+        sm90::wgmma_commit();
+        if (wg == 0) pass_turn();  // warpgroup 1's last turn has no taker
+        finish_turn();
+#pragma unroll
+        for (int i = 0; i < Dp / 2; ++i) o[i] += part[i];
+
+#pragma unroll
+        for (int offset = 1; offset < 4; offset <<= 1) {
+            l_lo += __shfl_xor_sync(0xffffffffu, l_lo, offset);
+            l_hi += __shfl_xor_sync(0xffffffffu, l_hi, offset);
+        }
+        const float denom_lo = fmaxf(l_lo, 1e-30f), denom_hi = fmaxf(l_hi, 1e-30f);
+        const int row_a = q0 + row_lo, row_b = row_a + 8;
+        float* o_base = static_cast<float*>(p.out) + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+        for (int c = 0; c < Dp / 8; ++c) {
+            const int col = c * 8 + t * 2;  // a pair below head_dim (a multiple of 4) or none of it
+            if (col < p.head_dim) {
+                if (row_a < p.seq) {
+                    *reinterpret_cast<float2*>(o_base + row_a * p.o_st + col) =
+                        make_float2(o[4 * c] / denom_lo, o[4 * c + 1] / denom_lo);
+                }
+                if (row_b < p.seq) {
+                    *reinterpret_cast<float2*>(o_base + row_b * p.o_st + col) =
+                        make_float2(o[4 * c + 2] / denom_hi, o[4 * c + 3] / denom_hi);
+                }
+            }
+        }
+        if (t == 0) {
+            float* lse = p.lse + static_cast<long long>(bh) * p.seq;
+            if (row_a < p.seq) lse[row_a] = m_lo * p.scale + logf(denom_lo);
+            if (row_b < p.seq) lse[row_b] = m_hi * p.scale + logf(denom_hi);
+        }
+    }
+}
+
 // ------------------------------------------------------------------ SIMT path
 
 constexpr int kWarpsSimt = 4;
@@ -614,6 +964,17 @@ int dispatch_wgmma_width(const CUtensorMap (&maps)[3], const WgmmaParams& p, int
     return launch_width<T, 256>(maps, p, batch, stream);
 }
 
+template <int Dp>
+int launch_tf32x3(const Params& p, cudaStream_t stream) {
+    using L = Tf32ForwardTiles<Dp>;
+    const auto kernel = flash_forward_tf32x3<Dp>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(L::kBytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid(p.batch * p.heads, (p.seq + L::kRows - 1) / L::kRows);
+    kernel<<<grid, L::kThreads, L::kBytes, stream>>>(p);
+    return static_cast<int>(cudaGetLastError());
+}
+
 // A block per (batch*head, 16 query rows): grid (B*H, ceil(T / 16)).
 template <typename T>
 struct ForwardSimt {
@@ -660,6 +1021,25 @@ extern "C" int hm_flash_forward_wgmma(const void* q, const void* k, const void* 
                         k, k_view.strides[2], k_view.strides[1]};
     if (dtype == kSimtF16) return dispatch_wgmma_width<__half>(maps, p, batch, stream);
     return dispatch_wgmma_width<__nv_bfloat16>(maps, p, batch, stream);
+}
+
+// q, k, v: [B, T, H, D] fp32 (`dtype` kSimtF32) at a head_dim from 16 to 128 that is a
+// multiple of 4, 16-byte aligned with strides in elements that are multiples of 4 (last dim
+// contiguous) -> out [B, T, H, D] fp32 and lse [B, H, T] fp32 contiguous, on the tensor cores
+// in 3xTF32.
+extern "C" int hm_flash_forward_tf32x3(const void* q, const void* k, const void* v, void* out, float* lse, int dtype,
+                                       int batch, int seq, int heads, int head_dim,
+                                       long long q_sb, long long q_st, long long q_sh,
+                                       long long k_sb, long long k_st, long long k_sh,
+                                       long long v_sb, long long v_st, long long v_sh,
+                                       long long o_sb, long long o_st, long long o_sh,
+                                       int causal, float scale, cudaStream_t stream) {
+    if (batch <= 0 || seq <= 0 || heads <= 0) return 0;
+    if (!tf32x3_takes(dtype, head_dim)) return static_cast<int>(cudaErrorInvalidValue);
+    const Params p{q, k, v, out, lse, batch, seq, heads, head_dim,
+                   q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_st, o_sh,
+                   scale, causal};
+    return head_dim <= 64 ? launch_tf32x3<64>(p, stream) : launch_tf32x3<128>(p, stream);
 }
 
 // q, k, v: [B, T, H, D] of one element type `dtype` (SimtDtype: fp32, bf16 or

@@ -141,8 +141,35 @@
 // Later work (not here): the ping-pong of the two consumer warpgroups and a deeper
 // ring in the dK/dV pass, a persistent grid, TMA stores of the outputs.
 //
-// SIMT (every input the wgmma passes do not take: fp32, where tensor cores would
-// round the inputs to TF32; bf16 and fp16 at a head_dim that is not a multiple of 8
+// dK/dV pass, 3xTF32 (`flash_bwd_dkv_tf32x3<Dp>`: fp32 at a head_dim from 16 to 128 that is
+// a multiple of 4; Dp 64 or 128), the arithmetic of the forward's 3xTF32 design
+// (flash_attention.cu): every operand split into TF32 hi and lo, each product a_lo b_hi +
+// a_hi b_lo + a_hi b_hi, the small terms first; three times the tensor work, each product
+// near 2^-21 relative where plain TF32 errs near 2^-10.
+//  * One consumer warpgroup owns the block's 64 KV rows (grid (B*H, T / 64)); K and V stay
+//    resident (hi and lo), Q and dO stream in stages of 32 query rows (Dp = 64, two stages)
+//    or 16 (Dp = 128, one stage: K and V take 128 KB there).
+//  * S^T = K Q^T and dP^T = V dO^T read every operand K-major as it stands. dV += P^T dO and
+//    dK += dS^T Q sum over query rows, and tf32 wgmma reads shared memory K-major only, so a
+//    stage also holds dO^T and Q^T, stored transposed by the producer with their queries in
+//    sm90::tf32_k_slot order to match the A fragments of P^T and dS^T built from the
+//    accumulators in registers (sm90::tf32_a_fragment). A stage: Q, dO, Q^T, dO^T, each hi and
+//    lo (Q^T and dO^T in one 32-query region, half unread at 16 queries), with lse (times log2
+//    e) and delta: 64 KB at Dp = 64 (192 KB in all with K and V), 96 KB at 128 (224 KB).
+//  * The producer warpgroup's 128 threads load each stage with 16-byte loads into registers
+//    while the ring drains (sm90::Tf32RowLoader), split and store it, fence the async proxy
+//    and arrive on the stage's "full" mbarrier.
+//  * dV and dK are summed over each stage's queries into a partial that starts from zero
+//    and added to their accumulators by the CUDA cores. The tensor core's additions round
+//    toward zero, relative to the sum they add to: carried through the whole sweep, dK and dV
+//    drifted by the sweep's length (their norm ratio to the plain version grew with T, past
+//    fp32's 1e-5 on an H100); a stage's partial drifts by the stage's.
+//  * Masks only on the tiles that meet the diagonal and the tile holding T; rows past T are
+//    never stored; views read through their strides.
+//
+// SIMT (every input the wgmma and 3xTF32 passes do not take: the fp32 dQ pass, fp32 dK/dV at
+// a head_dim that is not a multiple of 4 or outside 16 to 128; bf16 and fp16 at a head_dim
+// that is not a multiple of 8
 // whose H * head_dim is not one either, or whose span passes 256; any head_dim up to
 // 256, as the TPU kernels take the whole head_dim as their block):
 // plain fp32 FMAs on the CUDA cores, no TF32, the inputs widened to fp32 as they are
@@ -775,6 +802,251 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
 }
 
+// ------------------------------------------------------------------ 3xTF32 dK/dV pass (fp32)
+
+// Shared-memory layout at the padded width Dp (64 or 128; byte offsets from a 1024-aligned
+// base). Every tile is fp32 in 32-column (128-byte) regions, 128-byte-swizzled
+// (sm90::kmajor_chunk), held as its TF32 hi part and its lo part.
+template <int Dp>
+struct Tf32DkvTiles {
+    static constexpr int kKvRows = 64;                  // one consumer warpgroup's rows, resident
+    static constexpr int kQRows = Dp > 64 ? 16 : 32;    // query rows a stage
+    static constexpr int kStages = Dp > 64 ? 1 : 2;     // at 128 the resident K and V (hi, lo) take 128 KB
+    static constexpr int kRegions = Dp / 32;
+    static constexpr uint32_t kKvBox = kKvRows * sm90::kSwizzleRowBytes, kKvTile = kKvBox * kRegions;
+    static constexpr uint32_t kQBox = kQRows * sm90::kSwizzleRowBytes, kQTile = kQBox * kRegions;
+    // Q^T and dO^T: Dp rows of kQRows queries, in one 32-column region (at kQRows = 16 half of
+    // each 128-byte row is never read)
+    static constexpr uint32_t kQtBox = Dp * sm90::kSwizzleRowBytes, kQtTile = kQtBox;
+    // a stage: Q hi, lo, dO hi, lo (row-major), Q^T hi, lo, dO^T hi, lo
+    static constexpr uint32_t kStage = 4 * kQTile + 4 * kQtTile;
+    static constexpr uint32_t kK = 0, kV = 2 * kKvTile, kStages0 = 4 * kKvTile;  // K hi, lo; V hi, lo
+    static constexpr uint32_t kLse = kStages0 + kStages * kStage;             // [S][kQRows] fp32: lse * log2(e)
+    static constexpr uint32_t kDelta = kLse + kStages * kQRows * 4;           // [S][kQRows] fp32
+    static constexpr uint32_t kBarriers = kDelta + kStages * kQRows * 4;      // full_kv, full[S], empty[S]
+    static constexpr uint32_t kBytes = kBarriers + (1 + 2 * kStages) * 8 + sm90::kSwizzleAtomBytes;  // + alignment
+};
+
+// fp32 q, k, v, dout at a head_dim from 16 to Dp that is a multiple of 4 (whole 16-byte
+// chunks a head's row). One consumer warpgroup owns the block's 64 KV rows, K and V resident;
+// Q and dO stream in tiles of kQRows rows. The producer warpgroup loads each tile with 16-byte
+// loads (the next stage's while the consumers drain the ring), splits every value into TF32 hi
+// and lo and stores Q and dO K-major as they stand (the B operands of S^T = K Q^T and dP^T =
+// V dO^T) and transposed, their queries in tf32_k_slot order (the B operands of dK += dS^T Q
+// and dV += P^T dO, whose A operands are dS^T and P^T from registers). Columns past head_dim
+// and rows past T are stored as zeros.
+template <int Dp>
+__global__ void __launch_bounds__(256, 1) flash_bwd_dkv_tf32x3(const Params p) {
+    using L = Tf32DkvTiles<Dp>;
+    constexpr int kQRows = L::kQRows, kStages = L::kStages;
+    extern __shared__ unsigned char smem_raw[];
+    const uint32_t raw = sm90::smem_addr(smem_raw);
+    const uint32_t base = (raw + sm90::kSwizzleAtomBytes - 1) & ~(sm90::kSwizzleAtomBytes - 1);
+    float* lse_s = reinterpret_cast<float*>(smem_raw + (base - raw) + L::kLse);
+    float* delta_s = reinterpret_cast<float*>(smem_raw + (base - raw) + L::kDelta);
+    const uint32_t full_kv = base + L::kBarriers;
+    const auto full = [&](int s) { return full_kv + 8 * (1 + s); };
+    const auto empty = [&](int s) { return full_kv + 8 * (1 + kStages + s); };
+    // stage s: Q hi, Q lo, dO hi, dO lo, then Q^T hi, Q^T lo, dO^T hi, dO^T lo
+    const auto stage = [&](int s) { return base + L::kStages0 + s * L::kStage; };
+    const auto q_t = [&](int s) { return stage(s) + 4 * L::kQTile; };
+
+    const int bh = blockIdx.x;
+    const int b = bh / p.heads, h = bh % p.heads;
+    const int kv0 = blockIdx.y * L::kKvRows;  // the first KV tiles are the heaviest when causal
+    const int q_tiles = (p.seq + kQRows - 1) / kQRows;
+    const int q_begin = p.causal ? kv0 / kQRows : 0;  // causal: start at the diagonal tile
+
+    if (threadIdx.x == 0) {
+        sm90::mbar_init(full_kv, 128);
+        for (int s = 0; s < kStages; ++s) {
+            sm90::mbar_init(full(s), 128);  // every producer thread stores a part of each stage
+            sm90::mbar_init(empty(s), 4);   // the consumer warps
+        }
+        sm90::fence_mbar_init();
+    }
+    __syncthreads();
+
+    if (threadIdx.x >= 128) {  // the producer warpgroup
+        const int thread = threadIdx.x - 128;
+        using KvRows = sm90::Tf32RowLoader<L::kKvRows, Dp>;
+        using QRows = sm90::Tf32RowLoader<kQRows, Dp>;
+        {
+            float4 regs[KvRows::kChunks];
+            KvRows::load(regs, static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh, p.k_st, kv0, thread, p.seq,
+                         p.head_dim);
+            KvRows::store(regs, base + L::kK, base + L::kK + L::kKvTile, L::kKvBox, thread);
+            KvRows::load(regs, static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh, p.v_st, kv0, thread, p.seq,
+                         p.head_dim);
+            KvRows::store(regs, base + L::kV, base + L::kV + L::kKvTile, L::kKvBox, thread);
+        }
+        sm90::fence_proxy_async();
+        sm90::mbar_arrive(full_kv);
+        const float* q_base = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+        const float* d_base = static_cast<const float*>(p.dout) + b * p.d_sb + h * p.d_sh;
+        // lse (times log2 e) by threads 0 to kQRows - 1, delta by the next kQRows
+        const bool stat_thread = thread < 2 * kQRows;
+        const float* stat = (thread < kQRows ? p.lse : p.delta) + static_cast<long long>(bh) * p.seq;
+        float4 q_regs[QRows::kChunks], d_regs[QRows::kChunks];  // stage i, loaded while the ring drains
+        float stat_value = 0.0f;
+        const auto load = [&](int i) {
+            const int q0 = i * kQRows;
+            QRows::load(q_regs, q_base, p.q_st, q0, thread, p.seq, p.head_dim);
+            QRows::load(d_regs, d_base, p.d_st, q0, thread, p.seq, p.head_dim);
+            const int r = q0 + thread % kQRows;
+            stat_value = stat_thread && r < p.seq ? stat[r] * (thread < kQRows ? sm90::kLog2e : 1.0f) : 0.0f;
+        };
+        load(q_begin);
+        for (int i = q_begin; i < q_tiles; ++i) {
+            const int n = i - q_begin, s = n % kStages;
+            sm90::mbar_wait(empty(s), ((n / kStages) & 1) ^ 1);  // the first round passes at once
+            const uint32_t st = stage(s), qt = q_t(s);
+            QRows::store(q_regs, st, st + L::kQTile, L::kQBox, thread);
+            QRows::store(d_regs, st + 2 * L::kQTile, st + 3 * L::kQTile, L::kQBox, thread);
+            QRows::store_transposed(q_regs, qt, qt + L::kQtTile, L::kQtBox, thread);
+            QRows::store_transposed(d_regs, qt + 2 * L::kQtTile, qt + 3 * L::kQtTile, L::kQtBox, thread);
+            if (stat_thread) (thread < kQRows ? lse_s : delta_s)[s * kQRows + thread % kQRows] = stat_value;
+            sm90::fence_proxy_async();
+            sm90::mbar_arrive(full(s));
+            if (i + 1 < q_tiles) load(i + 1);
+        }
+    } else {  // the consumer warpgroup: 64 KV rows
+        const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+        const int g = lane / 4, t = lane % 4;
+        const int row_a = kv0 + warp * 16 + g;  // this thread's KV rows: row_a, row_a + 8
+        const float scale2 = p.scale * sm90::kLog2e;
+
+        float dk[Dp / 2], dv[Dp / 2];
+#pragma unroll
+        for (int i = 0; i < Dp / 2; ++i) dk[i] = dv[i] = 0.0f;
+        const uint32_t k_hi = base + L::kK, k_lo = k_hi + L::kKvTile, v_hi = base + L::kV, v_lo = v_hi + L::kKvTile;
+        sm90::mbar_wait(full_kv, 0);
+        sm90::fence_proxy_async();
+        for (int i = q_begin; i < q_tiles; ++i) {
+            const int n = i - q_begin, s = n % kStages;
+            const uint32_t q_hi = stage(s), q_lo = q_hi + L::kQTile, do_hi = q_hi + 2 * L::kQTile,
+                           do_lo = q_hi + 3 * L::kQTile;
+            const uint32_t qt_hi = q_t(s), qt_lo = qt_hi + L::kQtTile, dot_hi = qt_hi + 2 * L::kQtTile,
+                           dot_lo = qt_hi + 3 * L::kQtTile;
+
+            float st[kQRows / 2], dpt[kQRows / 2];  // S^T = K Q^T and dP^T = V dO^T: 64 x kQRows each
+            sm90::mbar_wait(full(s), (n / kStages) & 1);
+            sm90::fence_proxy_async();
+            sm90::wgmma_fence();
+            // the small terms first: A_lo B_hi, A_hi B_lo, then A_hi B_hi
+#pragma unroll
+            for (int term = 0; term < 3; ++term) {
+#pragma unroll
+                for (int kk = 0; kk < Dp / 8; ++kk) {
+                    // region kk / 4, then 32 bytes (8 columns) along its swizzled 128-byte rows
+                    const uint32_t kv_off = (kk / 4) * L::kKvBox + (kk % 4) * 32;
+                    const uint32_t q_off = (kk / 4) * L::kQBox + (kk % 4) * 32;
+                    sm90::wgmma_ss_tf32(st, sm90::desc_kmajor((term == 0 ? k_lo : k_hi) + kv_off),
+                                        sm90::desc_kmajor((term == 1 ? q_lo : q_hi) + q_off), term > 0 || kk > 0);
+                }
+            }
+#pragma unroll
+            for (int term = 0; term < 3; ++term) {
+#pragma unroll
+                for (int kk = 0; kk < Dp / 8; ++kk) {
+                    const uint32_t kv_off = (kk / 4) * L::kKvBox + (kk % 4) * 32;
+                    const uint32_t q_off = (kk / 4) * L::kQBox + (kk % 4) * 32;
+                    sm90::wgmma_ss_tf32(dpt, sm90::desc_kmajor((term == 0 ? v_lo : v_hi) + kv_off),
+                                        sm90::desc_kmajor((term == 1 ? do_lo : do_hi) + q_off), term > 0 || kk > 0);
+                }
+            }
+            sm90::wgmma_commit();
+            sm90::wgmma_wait<0>();
+            sm90::fence_regs(st);
+            sm90::fence_regs(dpt);
+
+            // P^T and dS^T in place, column c of the tile being query q0 + c
+            const int q0 = i * kQRows;
+            const float* lse_t = lse_s + s * kQRows;
+            const float* delta_t = delta_s + s * kQRows;
+            const bool edge = q0 + kQRows > p.seq || (p.causal && q0 < kv0 + L::kKvRows);
+#pragma unroll
+            for (int e = 0; e < kQRows / 2; ++e) {
+                const int c = (e / 4) * 8 + 2 * t + (e & 1);
+                float prob = sm90::exp2_approx(fmaf(st[e], scale2, -lse_t[c]));
+                if (edge) {
+                    const int row = row_a + (e & 2) * 4;
+                    if (q0 + c >= p.seq || (p.causal && row > q0 + c)) prob = 0.0f;
+                }
+                st[e] = prob;
+                dpt[e] = prob * (dpt[e] - delta_t[c]) * p.scale;
+            }
+            // P^T and dS^T as A fragments, 8 queries each
+            uint32_t pf_hi[kQRows / 8][4], pf_lo[kQRows / 8][4], df_hi[kQRows / 8][4], df_lo[kQRows / 8][4];
+#pragma unroll
+            for (int kc = 0; kc < kQRows / 8; ++kc) {
+                sm90::tf32_a_fragment(st, kc, pf_hi[kc], pf_lo[kc]);
+                sm90::tf32_a_fragment(dpt, kc, df_hi[kc], df_lo[kc]);
+            }
+
+            // dV += P^T dO, then dK += dS^T Q, each summed over the stage's queries into `part`
+            // (from zero) and added to its accumulator by the CUDA cores: the tensor core's
+            // additions round toward zero (relative to the sum they add to), so a sum carried
+            // through the whole sweep would drift by the sweep's length; a stage's partial drifts by
+            // the stage's
+            float part[Dp / 2];
+            sm90::fence_regs(pf_hi);
+            sm90::fence_regs(pf_lo);
+            sm90::fence_regs(df_hi);
+            sm90::fence_regs(df_lo);
+            sm90::wgmma_fence();
+#pragma unroll
+            for (int term = 0; term < 3; ++term) {
+#pragma unroll
+                for (int kc = 0; kc < kQRows / 8; ++kc) {  // 8 queries a k-step: 32 bytes along dO^T's rows
+                    sm90::wgmma_rs_tf32(part, term == 0 ? pf_lo[kc] : pf_hi[kc],
+                                        sm90::desc_kmajor((term == 1 ? dot_lo : dot_hi) + kc * 32), term > 0 || kc > 0);
+                }
+            }
+            sm90::wgmma_commit();
+            sm90::wgmma_wait<0>();
+            sm90::fence_regs(part);
+#pragma unroll
+            for (int i = 0; i < Dp / 2; ++i) dv[i] += part[i];
+            sm90::fence_regs(part);
+            sm90::wgmma_fence();
+#pragma unroll
+            for (int term = 0; term < 3; ++term) {
+#pragma unroll
+                for (int kc = 0; kc < kQRows / 8; ++kc) {
+                    sm90::wgmma_rs_tf32(part, term == 0 ? df_lo[kc] : df_hi[kc],
+                                        sm90::desc_kmajor((term == 1 ? qt_lo : qt_hi) + kc * 32), term > 0 || kc > 0);
+                }
+            }
+            sm90::wgmma_commit();
+            sm90::wgmma_wait<0>();
+            sm90::fence_regs(part);
+            if (lane == 0) sm90::mbar_arrive(empty(s));  // this warp is done with stage s
+#pragma unroll
+            for (int i = 0; i < Dp / 2; ++i) dk[i] += part[i];
+        }
+        float* dk_base = static_cast<float*>(p.out0) + b * p.o_sb + h * p.o_sh;
+        float* dv_base = static_cast<float*>(p.out1) + b * p.o_sb + h * p.o_sh;
+        const int row_b = row_a + 8;
+#pragma unroll
+        for (int c = 0; c < Dp / 8; ++c) {
+            const int col = c * 8 + t * 2;  // a pair below head_dim (a multiple of 4) or none of it
+            if (col < p.head_dim) {
+                if (row_a < p.seq) {
+                    *reinterpret_cast<float2*>(dk_base + row_a * p.o_st + col) = make_float2(dk[4 * c], dk[4 * c + 1]);
+                    *reinterpret_cast<float2*>(dv_base + row_a * p.o_st + col) = make_float2(dv[4 * c], dv[4 * c + 1]);
+                }
+                if (row_b < p.seq) {
+                    *reinterpret_cast<float2*>(dk_base + row_b * p.o_st + col) =
+                        make_float2(dk[4 * c + 2], dk[4 * c + 3]);
+                    *reinterpret_cast<float2*>(dv_base + row_b * p.o_st + col) =
+                        make_float2(dv[4 * c + 2], dv[4 * c + 3]);
+                }
+            }
+        }
+    }
+}
+
 // ------------------------------------------------------------------ SIMT path
 
 constexpr int kRowsPerWarp = 4;
@@ -1076,6 +1348,18 @@ int launch_wgmma_pass(const void* q, const void* k, const void* v, const void* d
     return dispatch_width<kDq, __nv_bfloat16>(maps, p, batch, stream);
 }
 
+// The 3xTF32 dK/dV pass: a block per (batch*head, 64 KV rows).
+template <int Dp>
+int launch_dkv_tf32x3(const Params& p, cudaStream_t stream) {
+    using L = Tf32DkvTiles<Dp>;
+    const auto kernel = flash_bwd_dkv_tf32x3<Dp>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(L::kBytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid(p.batch * p.heads, (p.seq + L::kKvRows - 1) / L::kKvRows);
+    kernel<<<grid, 256, L::kBytes, stream>>>(p);
+    return static_cast<int>(cudaGetLastError());
+}
+
 Params make_params(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                    const float* delta, void* out0, void* out1, int batch, int seq, int heads, int head_dim,
                    long long q_sb, long long q_st, long long q_sh, long long k_sb, long long k_st, long long k_sh,
@@ -1120,6 +1404,26 @@ extern "C" int hm_flash_backward_dkv_simt(const void* q, const void* k, const vo
                                  k_sb, k_st, k_sh, v_sb, v_st, v_sh, d_sb, d_st, d_sh, o_sb, o_st, o_sh,
                                  causal, scale);
     return launch_simt<false>(p, dtype, stream);
+}
+
+// As hm_flash_backward_dkv_simt, for fp32 (`dtype` kSimtF32) at a head_dim from 16 to 128 that
+// is a multiple of 4, q, k, v, dout 16-byte aligned with strides that are multiples of 4
+// elements -> dk, dv fp32, on the tensor cores in 3xTF32.
+extern "C" int hm_flash_backward_dkv_tf32x3(const void* q, const void* k, const void* v, const void* dout,
+                                            const float* lse, const float* delta, void* dk, void* dv, int dtype,
+                                            int batch, int seq, int heads, int head_dim,
+                                            long long q_sb, long long q_st, long long q_sh,
+                                            long long k_sb, long long k_st, long long k_sh,
+                                            long long v_sb, long long v_st, long long v_sh,
+                                            long long d_sb, long long d_st, long long d_sh,
+                                            long long o_sb, long long o_st, long long o_sh,
+                                            int causal, float scale, cudaStream_t stream) {
+    if (batch <= 0 || seq <= 0 || heads <= 0) return 0;
+    if (!tf32x3_takes(dtype, head_dim)) return static_cast<int>(cudaErrorInvalidValue);
+    const Params p = make_params(q, k, v, dout, lse, delta, dk, dv, batch, seq, heads, head_dim, q_sb, q_st, q_sh,
+                                 k_sb, k_st, k_sh, v_sb, v_st, v_sh, d_sb, d_st, d_sh, o_sb, o_st, o_sh,
+                                 causal, scale);
+    return head_dim <= 64 ? launch_dkv_tf32x3<64>(p, stream) : launch_dkv_tf32x3<128>(p, stream);
 }
 
 // q, k, v, dout: [B, T, H, D] of one element type `dtype` (SimtDtype: bf16 or fp16, at

@@ -13,7 +13,14 @@
 //    transpose-B immediate, N in {64, 128, 256}); fence / commit / wait;
 //  * setmaxnreg, to move registers from the producer warpgroup to the consumers;
 //  * cp.async of one head's bytes of a packed-heads tensor into a swizzled tile,
-//    completing on an mbarrier (load_head_row).
+//    completing on an mbarrier (load_head_row);
+//  * 3xTF32 for fp32 inputs: the TF32 hi / lo split, wgmma m64nNk8 .tf32 (SS with both
+//    operands K-major, N in {16, 32, 64}; RS with A from registers, N in {64, 128}), the A
+//    fragment taken from an accumulator without register moves (tf32_a_fragment,
+//    tf32_k_slot), and a producer thread's 16-byte loads of fp32 rows split and stored into
+//    swizzled tiles, as they stand or transposed (Tf32RowLoader). An fp32 tile uses the same
+//    128-byte-swizzled regions as a 16-bit box, 32 columns a region, and a k8 step is 32 bytes
+//    along a K-major row, as a k16 step is for 16-bit types.
 //
 // Tile layout. A TMA box of 64 16-bit columns (128 bytes) x R rows, loaded with
 // CU_TENSOR_MAP_SWIZZLE_128B, lands as R rows of 128 bytes whose 16-byte chunks
@@ -464,6 +471,178 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[128], const uint32_t (&a)
 
 #undef HM_WGMMA_SS
 #undef HM_WGMMA_RS
+
+// ------------------------------------------------------------------ 3xTF32 (fp32 on the tensor cores)
+
+// x rounded to TF32 (10 explicit mantissa bits, to nearest with ties away from zero, as
+// cvt.rna.tf32.f32 rounds a finite x), as the bits of an fp32 whose low 13 bits are zero: what a
+// tf32 wgmma operand is given, so nothing rests on what the tensor core does with an operand's
+// low bits. Half of the dropped bits' range is added to the magnitude, which carries into the kept
+// bits from the half-way point up, and the dropped bits are cleared: two integer operations. (cvt
+// runs on the conversion unit, at a quarter of their rate, and was the slower of the two on an
+// H100.)
+__device__ __forceinline__ uint32_t tf32_bits(float x) { return (__float_as_uint(x) + 0x1000u) & 0xffffe000u; }
+
+// x = hi + lo + e with hi, lo TF32 values and |e| <= 2^-22 |x| (x - hi is exact in fp32; each
+// rounding keeps 11 significant bits). A product a b is then a_lo b_hi + a_hi b_lo + a_hi b_hi
+// with an error near 2^-21 |a b| (3xTF32), where a_hi b_hi alone errs near 2^-10.
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
+    hi = tf32_bits(x);
+    lo = tf32_bits(x - __uint_as_float(hi));
+}
+
+// The tf32 A-operand fragment (m64k8) of k-step kc of an m64nN fp32 accumulator d, split:
+// the register of an A fragment at (row g or g + 8, column t or t + 4) of the k-step, as
+// mma.m16n8k8.tf32 lays it, gets the accumulator's (same row, column 2t or 2t + 1). The
+// k-step's 8 columns are so read in the order 0, 2, 4, 6, 1, 3, 5, 7, and the B operand's 8
+// k-rows must be stored in that order too (tf32_k_slot): the product sums over k alike.
+__device__ __forceinline__ void tf32_a_fragment(const float* d, int kc, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+    const float regs[4] = {d[4 * kc], d[4 * kc + 2], d[4 * kc + 1], d[4 * kc + 3]};
+#pragma unroll
+    for (int r = 0; r < 4; ++r) tf32_split(regs[r], hi[r], lo[r]);
+}
+
+// Where k-row `k` of a B operand stands in its K-major tile when A comes from tf32_a_fragment:
+// within each group of 8, row 2i at slot i and row 2i + 1 at slot 4 + i.
+__host__ __device__ constexpr int tf32_k_slot(int k) { return (k & ~7) | ((k & 7) >> 1) | ((k & 1) << 2); }
+
+#define HM_ACC8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
+#define HM_OUT8(d) "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+
+// d (+)= A * B, tf32 operands, A and B K-major in shared memory (tf32 has no transpose flag).
+#define HM_WGMMA_TF32_SS(SHAPE, ACC, OUTS, A, B, SCALE)                                                         \
+    asm volatile("{\n.reg .pred p;\n"                                                                          \
+                 "setp.ne.b32 p, " SCALE ", 0;\n"                                                               \
+                 "wgmma.mma_async.sync.aligned." SHAPE ".f32.tf32.tf32 " ACC ", " A ", " B ", p, 1, 1;\n}\n"    \
+                 : OUTS                                                                                        \
+                 : "l"(desc_a), "l"(desc_b), "r"(scale_d))
+// d (+)= A * B, A in registers (tf32_a_fragment), B K-major in shared memory.
+#define HM_WGMMA_TF32_RS(SHAPE, ACC, OUTS, A0, B, SCALE)                                                        \
+    asm volatile("{\n.reg .pred p;\n"                                                                          \
+                 "setp.ne.b32 p, " SCALE ", 0;\n"                                                               \
+                 "wgmma.mma_async.sync.aligned." SHAPE ".f32.tf32.tf32 " ACC ", " A0 ", " B ", p, 1, 1;\n}\n"   \
+                 : OUTS                                                                                        \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d))
+
+// d (+)= A[64 x 8] * B[8 x N], tf32, both from shared memory (scale_d = 0: d = A*B).
+__device__ __forceinline__ void wgmma_ss_tf32(float (&d)[8], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+    HM_WGMMA_TF32_SS("m64n16k8", HM_ACC8, HM_OUT8(d), "%8", "%9", "%10");
+}
+__device__ __forceinline__ void wgmma_ss_tf32(float (&d)[16], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+    HM_WGMMA_TF32_SS("m64n32k8", HM_ACC16, HM_OUT16(d), "%16", "%17", "%18");
+}
+__device__ __forceinline__ void wgmma_ss_tf32(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+    HM_WGMMA_TF32_SS("m64n64k8", HM_ACC32, HM_OUT32(d), "%32", "%33", "%34");
+}
+
+// d (+)= A[64 x 8] * B[8 x N], tf32, A from registers.
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+    HM_WGMMA_TF32_RS("m64n64k8", HM_ACC32, HM_OUT32(d), "{%32, %33, %34, %35}", "%36", "%37");
+}
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+    HM_WGMMA_TF32_RS("m64n128k8", HM_ACC64, HM_OUT64(d), "{%64, %65, %66, %67}", "%68", "%69");
+}
+
+#undef HM_WGMMA_TF32_SS
+#undef HM_WGMMA_TF32_RS
+
+// Split the 4 fp32 of `v` and store hi at `hi` and lo at `lo` (shared addresses, 16-byte aligned).
+// The values pass through an empty asm first, which keeps the split after the stores before it, so
+// that a producer holds the parts of one chunk at a time, not of a whole tile.
+__device__ __forceinline__ void st_split4(uint32_t hi, uint32_t lo, float4 v) {
+    asm volatile("" : "+f"(v.x), "+f"(v.y), "+f"(v.z), "+f"(v.w));
+    uint32_t h[4], l[4];
+    tf32_split(v.x, h[0], l[0]);
+    tf32_split(v.y, h[1], l[1]);
+    tf32_split(v.z, h[2], l[2]);
+    tf32_split(v.w, h[3], l[3]);
+    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(hi), "r"(h[0]), "r"(h[1]), "r"(h[2]), "r"(h[3])
+                 : "memory");
+    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(lo), "r"(l[0]), "r"(l[1]), "r"(l[2]), "r"(l[3])
+                 : "memory");
+}
+
+// Split x and store hi at `hi`, lo at `lo` (shared addresses), as st_split4.
+__device__ __forceinline__ void st_split(uint32_t hi, uint32_t lo, float x) {
+    asm volatile("" : "+f"(x));
+    uint32_t h, l;
+    tf32_split(x, h, l);
+    asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(hi), "r"(h) : "memory");
+    asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(lo), "r"(l) : "memory");
+}
+
+// An fp32 tile of `rows` rows and 32 * regions columns in shared memory, K-major for tf32
+// wgmma: region j (columns 32 j to 32 j + 31, 128 bytes a row) at j * region_bytes, each
+// 128-byte-swizzled as a 16-bit TMA box would be (16-byte chunk c of row r at (c ^ r % 8) * 16).
+// The byte address of 16-byte chunk `chunk` (columns 4 chunk to 4 chunk + 3) of row `row`.
+__device__ __forceinline__ uint32_t kmajor_chunk(uint32_t tile, uint32_t region_bytes, int row, int chunk) {
+    return tile + (chunk / 8) * region_bytes + row * kSwizzleRowBytes + (((chunk % 8) ^ (row % 8)) * 16);
+}
+
+// 16-byte chunks of rows of an fp32 [rows, columns] source as one producer thread of
+// a warpgroup reads them: thread `thread` of 128 takes row thread % kRows (a warp 32 rows) and,
+// of the row's head_dim / 4 chunks (padded to Dp / 4), the pairs (2 i, 2 i + 1) with
+// i = part, part + kParts, ... (part = thread / kRows, kParts = 128 / kRows): each pair a whole
+// 32-byte sector. Rows at or past `seq` and chunks at or past head_dim read as zeros.
+template <int kRows, int Dp>
+struct Tf32RowLoader {
+    static constexpr int kParts = 128 / kRows;
+    static constexpr int kChunks = Dp / 4 / kParts;  // chunks a thread holds
+    static __device__ __forceinline__ int row(int thread) { return thread % kRows; }
+    static __device__ __forceinline__ int chunk(int thread, int i) {
+        return 2 * (thread / kRows + kParts * (i / 2)) + i % 2;
+    }
+    // (Chunk i of a thread is its first, 2 part, plus a constant, 2 kParts (i / 2) + i % 2: one
+    // pointer a thread, and each load and column test against an immediate.)
+    static __device__ __forceinline__ void load(float4 (&regs)[kChunks], const float* base, long long row_stride,
+                                                int row0, int thread, int seq, int head_dim) {
+        const int r = row0 + row(thread), first = 2 * (thread / kRows);
+        const float4* src = reinterpret_cast<const float4*>(base + static_cast<long long>(r < seq ? r : 0) * row_stride) +
+                            first;
+        const int chunks = r < seq ? head_dim / 4 - first : 0;  // the row's chunks from `first` on
+#pragma unroll
+        for (int i = 0; i < kChunks; ++i) {
+            const int offset = 2 * kParts * (i / 2) + i % 2;
+            regs[i] = offset < chunks ? __ldg(src + offset) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        }
+    }
+    // the chunks as they stand: row-major, K-major for wgmma (tile_hi, tile_lo of `rows` rows).
+    // `thread` passes through an empty asm, so that the addresses are computed at each call and
+    // not held in registers across a producer's loop.
+    static __device__ __forceinline__ void store(const float4 (&regs)[kChunks], uint32_t tile_hi, uint32_t tile_lo,
+                                                 uint32_t region_bytes, int thread) {
+        asm volatile("" : "+r"(thread));
+#pragma unroll
+        for (int i = 0; i < kChunks; ++i) {
+            const uint32_t off = kmajor_chunk(0, region_bytes, row(thread), chunk(thread, i));
+            st_split4(tile_hi + off, tile_lo + off, regs[i]);
+        }
+    }
+    // the chunks transposed: column d of the source becomes row d of a K-major tile whose
+    // columns are the source's rows, each at its tf32_k_slot (a warp's 32 rows then store to
+    // 32 words of one 128-byte row: no bank conflict)
+    // (Row d = 4 chunk + e of the tile, chunk = 2 (part + kParts (i / 2)) + i % 2, so d % 8 =
+    // 4 (i % 2) + e is known at compile time and each element's address is a per-thread base
+    // plus a constant: the arithmetic is unsigned so that the compiler can see it.)
+    static __device__ __forceinline__ void store_transposed(const float4 (&regs)[kChunks], uint32_t tile_hi,
+                                                            uint32_t tile_lo, uint32_t region_bytes, int thread) {
+        asm volatile("" : "+r"(thread));
+        const uint32_t slot = tf32_k_slot(row(thread)), part = static_cast<uint32_t>(thread) / kRows;
+        // the slot's 128-byte row offset (without the swizzle) and its swizzled chunk before the XOR
+        const uint32_t base = (slot / 32) * region_bytes + part * 8 * kSwizzleRowBytes + (slot % 4) * 4;
+        const uint32_t slot_chunk = (slot % 32) / 4;
+#pragma unroll
+        for (int i = 0; i < kChunks; ++i) {
+            const float values[4] = {regs[i].x, regs[i].y, regs[i].z, regs[i].w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const uint32_t d_high = 8 * kParts * (i / 2) * kSwizzleRowBytes, d_low = 4 * (i % 2) + e;
+                const uint32_t off = base + d_high + d_low * kSwizzleRowBytes + ((slot_chunk ^ d_low) * 16);
+                st_split(tile_hi + off, tile_lo + off, values[e]);
+            }
+        }
+    }
+};
 
 // ------------------------------------------------------------------ named barriers
 

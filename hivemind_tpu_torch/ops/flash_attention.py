@@ -13,19 +13,23 @@ outside the kernels, as the JAX package does.
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it launches
 a kernel or raises. Each kernel wrapper counts its launches in ``.launches``
 (``flash_attention_lse``, ``flash_attention_backward_dq``,
-``flash_attention_backward_dkv``), and those on the packed-heads view also in
-``.packed.launches``.
+``flash_attention_backward_dkv``), those on the packed-heads view also in
+``.packed.launches``, the 3xTF32 kernels' also in ``.tf32x3.launches`` (forward,
+dK/dV) and the SIMT dQ kernel's also in ``.simt.launches``.
 
-Each pass (the forward, the dQ pass, the dK/dV pass) has two designs, chosen by
-:func:`flash_route`: ``"wgmma"`` (tensor cores fed by TMA) and ``"simt"`` (fp32
-FMAs on the CUDA cores). The three passes take the same route for one input. Every
-pass runs wgmma for bf16 and fp16 at a head_dim from 16 to 256 that is a multiple
-of 8, or any other whose H·D is a multiple of 8 and whose :func:`tma_span` is at
-most 256 (TinyBERT's 26, through the packed-heads view below). SIMT takes the rest:
-fp32 (tensor cores would round its inputs to TF32), a 16-bit head_dim that is not a
-multiple of 8 whose H·D is not one either, or whose span passes 256; any head_dim
-up to 256, as the TPU kernels take any head_dim as their block. A CUDA input
-launches its pass's route or raises: no route falls back to another.
+Each pass (the forward, the dQ pass, the dK/dV pass) has up to three designs,
+chosen by :func:`flash_route`: ``"wgmma"`` (tensor cores fed by TMA), ``"tf32x3"``
+(fp32 on the tensor cores: every product formed from TF32 hi and lo parts, 3xTF32)
+and ``"simt"`` (fp32 FMAs on the CUDA cores). A 16-bit input takes one route in all
+three passes: wgmma for bf16 and fp16 at a head_dim from 16 to 256 that is a
+multiple of 8, or any other whose H·D is a multiple of 8 and whose :func:`tma_span`
+is at most 256 (TinyBERT's 26, through the packed-heads view below); SIMT for the
+rest, a 16-bit head_dim that is not a multiple of 8 whose H·D is not one either, or
+whose span passes 256. fp32 runs the forward and the dK/dV pass on tf32x3 at a
+head_dim from 16 to 128 that is a multiple of 4, and its dQ pass, and every other
+fp32 head_dim, on SIMT (plain TF32 would round its inputs to 10 mantissa bits). SIMT
+takes any head_dim up to 256, as the TPU kernels take any head_dim as their block.
+A CUDA input launches its pass's route or raises: no route falls back to another.
 :func:`flash_refusal` names the few inputs no design takes. A view a kernel cannot
 read through its strides is copied first (:func:`_kernel_layout`).
 
@@ -40,6 +44,11 @@ the tiles a kernel streams are copied a head's bytes at a time instead (cp.async
 so a neighbouring head's values never reach a head's products. The two backward
 passes share one view of each tensor (:func:`backward_geometries`), which
 ``flash_attention_backward`` computes once, when they run wgmma.
+
+The tf32x3 kernels read fp32 q, k, v (and dout) through their strides with 16-byte
+loads (a 16-byte aligned base, strides that are multiples of 4 elements) and split
+each value into its TF32 hi and lo parts on the card; :func:`tf32_split` is that
+split in PyTorch, for the tests' emulation and ``chip_smoke.py``'s planted fault.
 """
 
 from __future__ import annotations
@@ -57,6 +66,9 @@ WGMMA_DTYPES = (torch.bfloat16, torch.float16)
 WGMMA_WIDTHS = (64, 128, 256)  # the padded head dims the wgmma kernels are built for
 WGMMA_MIN_HEAD_DIM = 16
 SIMT_MAX_HEAD_DIM = 256  # the SIMT kernels take head_dim 1 to 256
+TF32X3_PASSES = ("forward", "dkv")  # the passes with a 3xTF32 kernel (fp32 dQ runs SIMT)
+TF32X3_HEAD_DIMS = (16, 128)  # fp32 head dims they take, multiples of TF32X3_ALIGN
+TF32X3_ALIGN = 4  # elements: a head's row is whole 16-byte chunks
 SIMT_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}  # every C entry point's dtype codes
 SIMT_ROWS = 16  # rows a SIMT block owns
 _MAX_ROW_TILES = 65535  # the grid's y dimension: row tiles of one batch*head
@@ -81,6 +93,26 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cau
     probs = torch.exp(scores - lse[..., None])
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v.to(torch.float32))
     return out.to(q.dtype), lse
+
+
+# ------------------------------------------------------------------ 3xTF32
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``x`` (cast to fp32) as ``(hi, lo)``: hi is x rounded to TF32 (10 explicit
+    mantissa bits, to nearest with ties away from zero, as ``cvt.rna.tf32.f32``), lo is
+    ``x − hi`` rounded likewise; both keep their low 13 bits zero, and
+    ``|x − hi − lo| ≤ 2⁻²²·|x|``. The split the tf32x3 kernels make of every operand (a
+    product ``a·b`` is then ``a_lo·b_hi + a_hi·b_lo + a_hi·b_hi``), for the tests'
+    emulation of them and for the planted fault ``chip_smoke.py`` rejects (inputs
+    rounded to plain TF32); no kernel path calls it. Finite inputs only."""
+
+    def rna(t: torch.Tensor) -> torch.Tensor:
+        bits = t.contiguous().view(torch.int32)  # + half of the dropped bits' range carries into the kept ones
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(x.to(torch.float32))
+    return hi, rna(x.to(torch.float32) - hi)
 
 
 # ------------------------------------------------------------------ TMA geometry
@@ -206,21 +238,35 @@ def _library() -> ctypes.CDLL:
                           + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
         wgmma.restype = ctypes.c_int
         # q, k, v, out, lse; dtype, B, T, H, D; strides of q, k, v, out; causal, scale, stream
-        simt.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12
-                         + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
-        simt.restype = ctypes.c_int
+        # tf32x3: the same arguments as SIMT
+        for fn in (simt, library.hm_flash_forward_tf32x3):
+            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12
+                           + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
     return library
+
+
+def tf32x3_takes(q: torch.Tensor, which: str) -> bool:
+    """Whether the pass ``which`` has a 3xTF32 kernel for ``q``: the forward or the
+    dK/dV pass, fp32 at a head_dim from 16 to 128 that is a multiple of 4."""
+    head_dim = q.shape[-1]
+    low, high = TF32X3_HEAD_DIMS
+    return (which in TF32X3_PASSES and q.dtype == torch.float32 and low <= head_dim <= high
+            and head_dim % TF32X3_ALIGN == 0)
 
 
 def flash_route(q: torch.Tensor, which: str = "forward") -> str:
     """Which design runs the pass ``which`` ("forward", "dq" or "dkv") on ``q`` (and
-    the tensors of its shape and dtype); every pass takes the same: ``"wgmma"`` for
-    bf16 and fp16 at a head_dim from 16 to 256 that TMA reads, a multiple of 8 (the
-    4-D view) or any other whose H·D is a multiple of 8 and whose :func:`tma_span` is
-    at most 256 (the packed-heads view); ``"simt"`` otherwise."""
+    the tensors of its shape and dtype): ``"wgmma"`` in every pass for bf16 and fp16
+    at a head_dim from 16 to 256 that TMA reads, a multiple of 8 (the 4-D view) or any
+    other whose H·D is a multiple of 8 and whose :func:`tma_span` is at most 256 (the
+    packed-heads view); ``"tf32x3"`` for fp32's forward and dK/dV pass where
+    :func:`tf32x3_takes`; ``"simt"`` otherwise."""
     if which not in PASSES:
         raise ValueError(f"flash_route answers for {PASSES}, got {which!r}")
     heads, head_dim = q.shape[-2:]
+    if tf32x3_takes(q, which):
+        return "tf32x3"
     if q.dtype not in WGMMA_DTYPES or not WGMMA_MIN_HEAD_DIM <= head_dim <= WGMMA_WIDTHS[-1]:
         return "simt"
     if not packed_heads(head_dim):
@@ -244,13 +290,23 @@ def _tma_aligned(t: torch.Tensor) -> bool:
     return t.data_ptr() % 16 == 0 and stride_b % 8 == 0 and stride_t % 8 == 0 and head_ok
 
 
+def _vector_aligned(t: torch.Tensor) -> bool:
+    """What the tf32x3 kernels' 16-byte loads need of an fp32 view: a 16-byte aligned
+    base and batch, time and head strides that are multiples of 4 elements."""
+    stride_b, stride_t, stride_h, _ = t.stride()
+    return t.data_ptr() % 16 == 0 and not (stride_b | stride_t | stride_h) % TF32X3_ALIGN
+
+
 def needs_copy(t: torch.Tensor) -> bool:
     """Whether the kernels must read a contiguous copy of ``t`` rather than ``t``
     through its strides: a head dim that is not contiguous, or a view that a pass
     reading it by TMA cannot take (an unaligned base or stride, or heads not packed
-    in the row at a head_dim that is not a multiple of 8). Every input a wgmma pass
-    takes, the wgmma forward takes too."""
-    return t.stride(-1) != 1 or (flash_route(t, "forward") == "wgmma" and not _tma_aligned(t))
+    in the row at a head_dim that is not a multiple of 8), or by 16-byte loads (the
+    tf32x3 passes: an unaligned base or stride). Every input a wgmma or tf32x3 pass
+    takes, the forward takes on the same route."""
+    route = flash_route(t, "forward")
+    return (t.stride(-1) != 1 or (route == "wgmma" and not _tma_aligned(t))
+            or (route == "tf32x3" and not _vector_aligned(t)))
 
 
 def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
@@ -282,10 +338,19 @@ def flash_refusal(q: torch.Tensor, *others: Tuple[str, torch.Tensor]) -> Optiona
     return None
 
 
+def tf32x3_block_rows(head_dim: int, which: str) -> int:
+    """Rows a block of a tf32x3 pass owns: the forward's query rows, 128 (two
+    warpgroups) up to a head_dim of 64 and 64 above; the dK/dV pass's 64 KV rows."""
+    return 128 if which == "forward" and head_dim <= 64 else 64
+
+
 def _block_rows(q: torch.Tensor, which: str) -> int:
     """Rows (of the grid's row dimension) a block of the pass ``which`` owns."""
-    if flash_route(q, which) == "simt":
+    route = flash_route(q, which)
+    if route == "simt":
         return SIMT_ROWS
+    if route == "tf32x3":
+        return tf32x3_block_rows(q.shape[-1], which)
     return dkv_block_rows(tma_span(q.shape[-1], q.shape[-2])) if which == "dkv" else FORWARD_TILE_ROWS
 
 
@@ -329,44 +394,52 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causa
         return out, lse
     library = _library()
     pointers = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr())
+    route = flash_route(q, "forward")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if flash_route(q, "forward") == "wgmma":
+        if route == "wgmma":
             rows = forward_box_rows(tma_span(head_dim, heads))
             status = library.hm_flash_forward_wgmma(
                 *pointers, SIMT_DTYPES[q.dtype], batch, seq, heads, head_dim,
                 *(tma_geometry(t, rows).as_ctypes() for t in (q, k, v)), *out.stride()[:3],
                 int(causal), head_dim ** -0.5, stream,
             )
-        else:
-            status = library.hm_flash_forward_simt(
+        else:  # simt or tf32x3: the strides
+            status = getattr(library, f"hm_flash_forward_{route}")(
                 *pointers, SIMT_DTYPES[q.dtype], batch, seq, heads, head_dim, *_strides(q, k, v, out),
                 int(causal), head_dim ** -0.5, stream,
             )
     _build.check_launch(library, status, "flash_attention_lse")
-    _count_launch(flash_attention_lse, q)
+    _count_launch(flash_attention_lse, q, "forward")
     return out, lse
 
 
 class LaunchCount:
     """A launch count read and reset as a wrapper's ``.launches``: a wrapper's
-    ``.packed`` counts its launches on the packed-heads view."""
+    ``.packed`` counts its launches on the packed-heads view, ``.tf32x3`` (forward,
+    dK/dV) those of its 3xTF32 kernel, ``.simt`` (dQ) those of its SIMT kernel."""
 
     def __init__(self):
         self.launches = 0
 
 
-def _count_launch(wrapper, q: torch.Tensor) -> None:
-    """One launch of ``wrapper``'s kernel on q: in ``.launches``, and in
-    ``.packed.launches`` when it read the packed-heads view (a wgmma kernel at a
-    head_dim that is not a multiple of 8)."""
+def _count_launch(wrapper, q: torch.Tensor, which: str) -> None:
+    """One launch of ``wrapper``'s kernel (the pass ``which``) on q: in ``.launches``;
+    in ``.packed.launches`` when it read the packed-heads view (a wgmma kernel at a
+    head_dim that is not a multiple of 8); in ``.tf32x3.launches`` or
+    ``.simt.launches`` where the wrapper counts that route."""
     wrapper.launches += 1
-    if packed_heads(q.shape[-1]) and flash_route(q) == "wgmma":
+    route = flash_route(q, which)
+    if packed_heads(q.shape[-1]) and route == "wgmma":
         wrapper.packed.launches += 1
+    counted = getattr(wrapper, route, None)  # the route's own count, where the wrapper keeps one
+    if isinstance(counted, LaunchCount):
+        counted.launches += 1
 
 
 flash_attention_lse.launches = 0
 flash_attention_lse.packed = LaunchCount()
+flash_attention_lse.tf32x3 = LaunchCount()
 
 
 # ------------------------------------------------------------------ backward
@@ -420,7 +493,8 @@ def _bwd_library() -> ctypes.CDLL:
         simt_layout = [ctypes.c_longlong] * 15
         wgmma_layout = [ctypes.POINTER(ctypes.c_longlong)] * 4 + [ctypes.c_longlong] * 3
         for name, outputs, layout in (("dq_simt", 1, simt_layout), ("dkv_simt", 2, simt_layout),
-                                      ("dq_wgmma", 1, wgmma_layout), ("dkv_wgmma", 2, wgmma_layout)):
+                                      ("dq_wgmma", 1, wgmma_layout), ("dkv_wgmma", 2, wgmma_layout),
+                                      ("dkv_tf32x3", 2, simt_layout)):
             fn = getattr(library, f"hm_flash_backward_{name}")
             fn.argtypes = ([ctypes.c_void_p] * (6 + outputs) + [ctypes.c_int] * 5 + layout
                            + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
@@ -442,7 +516,8 @@ def _check_backward_inputs(q, k, v, dout, lse, delta) -> None:
 def _launch_pass(name: str, q, k, v, dout, lse, delta, outputs, causal: bool, geometries) -> None:
     """Launch the pass ``name`` ("dq" or "dkv") on its route for q on the pointers
     of q, k, v, dout, lse, delta and ``outputs``: wgmma reads the four TMA views
-    ``geometries`` (:func:`backward_geometries` when None), SIMT the strides."""
+    ``geometries`` (:func:`backward_geometries` when None), SIMT and tf32x3 the
+    strides."""
     route = flash_route(q, name)
     if route == "wgmma":
         if geometries is None:
@@ -475,7 +550,7 @@ def flash_attention_backward_dq(q, k, v, dout, lse, delta, causal: bool = False,
     if dq.numel() == 0:
         return dq
     _launch_pass("dq", q, k, v, dout, lse, delta, (dq,), causal, geometries)
-    _count_launch(flash_attention_backward_dq, q)
+    _count_launch(flash_attention_backward_dq, q, "dq")
     return dq
 
 
@@ -492,7 +567,7 @@ def flash_attention_backward_dkv(q, k, v, dout, lse, delta, causal: bool = False
     if dk.numel() == 0:
         return dk, dv
     _launch_pass("dkv", q, k, v, dout, lse, delta, (dk, dv), causal, geometries)
-    _count_launch(flash_attention_backward_dkv, q)
+    _count_launch(flash_attention_backward_dkv, q, "dkv")
     return dk, dv
 
 
@@ -500,6 +575,8 @@ flash_attention_backward_dq.launches = 0
 flash_attention_backward_dkv.launches = 0
 flash_attention_backward_dq.packed = LaunchCount()
 flash_attention_backward_dkv.packed = LaunchCount()
+flash_attention_backward_dq.simt = LaunchCount()
+flash_attention_backward_dkv.tf32x3 = LaunchCount()
 
 
 def flash_attention_backward(q, k, v, out, lse, dout, causal: bool = False) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -1,18 +1,18 @@
 #!/usr/bin/env python3
-"""The flash kernels' two designs timed against each other on one card, in one process.
+"""The flash kernels' designs timed against the SIMT design on one card, in one process.
 
-For each input that the wgmma design takes, each pass the wrappers route to wgmma
-(all three passes, on the 4-D view at a head dim that is a multiple of 8 and on the
-packed-heads view at any other whose H·D is one; a checkout where a pass is SIMT for
-the input is noted and not timed) runs through its wrapper (``flash_attention_lse``, ``flash_attention_backward_dq``,
-``flash_attention_backward_dkv``: the wgmma kernels) and through the SIMT kernel's C
-entry point on the same tensors, in turns (SIMT, wgmma, wgmma, SIMT), each held to
-the plain PyTorch version first. Each line
-gives both designs' device times (CUDA events behind a spin kernel, as
-``chip_smoke.py``'s), the least time the card could take (``bound_ms``) and the
-library's (``F.scaled_dot_product_attention``; for a backward pass its whole
-backward). The last line is a JSON object with every reading, beside the card's
-name and power limit.
+For each input, each pass the wrappers route to a redesign of SIMT (wgmma: all three
+passes, on the 4-D view at a 16-bit head dim that is a multiple of 8 and on the
+packed-heads view at any other whose H·D is one; tf32x3: fp32's forward and dK/dV pass;
+a pass that is SIMT for the input is noted and not timed) runs through its wrapper
+(``flash_attention_lse``, ``flash_attention_backward_dq``, ``flash_attention_backward_dkv``)
+and through the SIMT kernel's C entry point on the same tensors, in turns (SIMT, route,
+route, SIMT), each held to the plain PyTorch version first. Each line gives both
+designs' device times (CUDA events behind a spin kernel, as ``chip_smoke.py``'s), the
+least time the card could take (``bound_ms``, ``chip_smoke.flash_bound``) and the
+library's (``F.scaled_dot_product_attention``; for a backward pass its whole backward).
+The last line is a JSON object with every reading, beside the card's name and power
+limit.
 
 ``--rows`` times instead the three passes through their wrappers alone at the shapes
 of PERF.md's bf16 rows 1-3 and 1c-3c, and ``--root DIR`` imports the package and
@@ -23,6 +23,7 @@ Run from the repository root on a machine with one NVIDIA card:
 
     python3 tools/flash_route_ab.py
     python3 tools/flash_route_ab.py --cases 2,1000,16,32,bfloat16,1 1,2048,16,256,float16,1
+    python3 tools/flash_route_ab.py --cases 32,512,12,64,float32,0 1,2048,32,128,float32,1
     for root in parent . . parent; do python3 tools/flash_route_ab.py --rows --root $root; done
 """
 
@@ -41,13 +42,15 @@ ROOT = Path(__file__).resolve().parents[1]
 # head_dim 16 (padded 4x by the wgmma design), Phi-2's and Gemma-7B's widths and fp16 at a
 # Llama-2-7B request of 2048 tokens; then the packed-heads view: head dim 20 at row 1s's
 # shape, the TinyBERT-width expert's attention (12 heads of 26), an odd head dim, and fp16 at
-# 196 (padded to 256)
+# 196 (padded to 256); then fp32 on the 3xTF32 forward and dK/dV pass: ALBERT's training shape, a
+# Llama-2-7B request of 2048 tokens and PERF.md row 3s's dK/dV shape
 DEFAULT_CASES = [
     ((2, 1000, 16, 32), "bfloat16", True), ((1, 512, 8, 96), "bfloat16", True), ((1, 512, 4, 256), "float16", True),
     ((2, 1000, 16, 16), "bfloat16", True), ((1, 2048, 32, 80), "bfloat16", True),
     ((1, 2048, 16, 256), "float16", True), ((1, 2048, 32, 128), "float16", True),
     ((2, 1000, 16, 20), "bfloat16", True), ((4, 128, 12, 26), "bfloat16", False), ((2, 1000, 16, 25), "bfloat16", True),
     ((1, 512, 4, 196), "float16", True),
+    ((32, 512, 12, 64), "float32", False), ((1, 2048, 32, 128), "float32", True), ((1, 512, 32, 128), "float32", True),
 ]
 
 
@@ -83,69 +86,16 @@ def parse_case(text: str):
     return (int(batch), int(seq), int(heads), int(dim)), dtype, bool(int(causal))
 
 
-def simt_forward(torch, flash, q, k, v):
-    """A closure that runs the SIMT forward kernel on q, k, v (whatever route the
-    wrapper would take), into fresh outputs."""
-    library = flash._library()
-    batch, seq, heads, head_dim = q.shape
-    out = torch.empty_like(q)
-    lse = torch.empty((batch, heads, seq), dtype=torch.float32, device=q.device)
-
-    def run(causal: bool):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = library.hm_flash_forward_simt(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), flash.SIMT_DTYPES[q.dtype],
-            batch, seq, heads, head_dim, *flash._strides(q, k, v, out), int(causal), head_dim ** -0.5, stream)
-        flash._build.check_launch(library, status, "hm_flash_forward_simt")
-        return out, lse
-
-    return run
-
-
-def simt_dq(torch, flash, q, k, v, dout, lse, delta):
-    """As ``simt_forward``, for the SIMT dQ kernel."""
-    library = flash._bwd_library()
-    dq = torch.empty_like(q)
-
-    def run(causal: bool):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = library.hm_flash_backward_dq_simt(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dq.data_ptr(), flash.SIMT_DTYPES[q.dtype], *q.shape, *flash._strides(q, k, v, dout, dq),
-            int(causal), q.shape[-1] ** -0.5, stream)
-        flash._build.check_launch(library, status, "hm_flash_backward_dq_simt")
-        return (dq,)
-
-    return run
-
-
-def simt_dkv(torch, flash, q, k, v, dout, lse, delta):
-    """As ``simt_forward``, for the SIMT dK/dV kernel."""
-    library = flash._bwd_library()
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-
-    def run(causal: bool):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = library.hm_flash_backward_dkv_simt(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), flash.SIMT_DTYPES[q.dtype], *q.shape, *flash._strides(q, k, v, dout, dk),
-            int(causal), q.shape[-1] ** -0.5, stream)
-        flash._build.check_launch(library, status, "hm_flash_backward_dkv_simt")
-        return dk, dv
-
-    return run
-
-
-def turns(torch, time_ms, simt, wgmma) -> dict:
-    """SIMT, wgmma, wgmma, SIMT: each design's mean of its two readings, and all four."""
-    readings = [time_ms(torch, fn) for fn in (simt, wgmma, wgmma, simt)]
-    return dict(simt_ms=(readings[0] + readings[3]) / 2, wgmma_ms=(readings[1] + readings[2]) / 2, turns=readings)
+def turns(torch, time_ms, simt, route) -> dict:
+    """SIMT, the route, the route, SIMT: each design's mean of its two readings, and all four."""
+    readings = [time_ms(torch, fn) for fn in (simt, route, route, simt)]
+    return dict(simt_ms=(readings[0] + readings[3]) / 2, route_ms=(readings[1] + readings[2]) / 2, turns=readings)
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--cases", nargs="*", type=parse_case, default=DEFAULT_CASES,
-                        help="B,T,H,D,dtype,causal each (dtype bfloat16 or float16; causal 0 or 1)")
+                        help="B,T,H,D,dtype,causal each (dtype bfloat16, float16 or float32; causal 0 or 1)")
     parser.add_argument("--rows", action="store_true", help="time PERF.md's bf16 rows 1-3 and 1c-3c instead")
     parser.add_argument("--root", default=str(ROOT), help="the checkout whose package and chip_smoke.py to import")
     args = parser.parse_args(argv)
@@ -176,57 +126,66 @@ def main(argv=None) -> int:
         element, rows = q.numel() * q.element_size(), batch * heads * seq * 4
 
         # forward: both designs held to the plain version, then timed in turns
-        reference = smoke.plain_forward(torch, q, k, v, causal)
-        run_simt = simt_forward(torch, flash, q, k, v)
-        for design, (out, lse) in (("wgmma", flash.flash_attention_lse(q, k, v, causal)), ("simt", run_simt(causal))):
-            out_reading, lse_reading = smoke.read_forward(out, lse, reference, dtype_name)
-            if not (out_reading["ok"] and lse_reading["ok"]):
-                raise AssertionError(f"{design} forward {label}: {smoke.format_reading(out_reading)}; "
-                                     f"lse {smoke.format_reading(lse_reading)}")
-        del reference
-        forward = turns(torch, smoke.time_ms, lambda: run_simt(causal), lambda: flash.flash_attention_lse(q, k, v, causal))
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        forward["library_ms"] = smoke.time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal))
-        forward["bound_ms"], forward["bound_by"] = smoke.bound_ms(4.0 * batch * heads * dim * pairs, peaks["bf16"],
-                                                                  4 * element + rows, peaks["bytes"])
+        passes = {}
+        route = flash.flash_route(q, "forward")
+        if route == "simt":
+            print(f"[ab] {label} forward: SIMT alone (the wrapper's route); not timed", flush=True)
+        else:
+            reference = smoke.plain_forward(torch, q, k, v, causal)
+            run_simt = smoke.simt_forward(torch, q, k, v)
+            for design, (out, lse) in ((route, flash.flash_attention_lse(q, k, v, causal)), ("simt", run_simt(causal))):
+                out_reading, lse_reading = smoke.read_forward(out, lse, reference, dtype_name)
+                if not (out_reading["ok"] and lse_reading["ok"]):
+                    raise AssertionError(f"{design} forward {label}: {smoke.format_reading(out_reading)}; "
+                                         f"lse {smoke.format_reading(lse_reading)}")
+            del reference
+            forward = turns(torch, smoke.time_ms, lambda: run_simt(causal),
+                            lambda: flash.flash_attention_lse(q, k, v, causal))
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            forward["library_ms"] = smoke.time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                                                is_causal=causal))
+            forward["bound_ms"], forward["bound_by"] = smoke.flash_bound(
+                torch, peaks, dtype, 4.0 * batch * heads * dim * pairs, 4 * element + rows)["bound"]
+            passes["forward"] = dict(route=route, **forward)
 
-        # the dQ and dK/dV passes the wrappers route to wgmma, likewise, from the plain
+        # the dQ and dK/dV passes the wrappers route to a redesign, likewise, from the plain
         # forward's (out, lse); the library's time is its whole backward's, beside each pass
         out, lse = flash.flash_attention_plain(q, k, v, causal)
         delta = flash._delta(out, dout)
         args_ = (q, k, v, dout, lse, delta, causal)
         scales = smoke.backward_scales(torch, *args_)
         library_ms = smoke.library_backward_ms(torch, q, k, v, dout, causal)
-        passes = {}
-        for which, wrapper, plain, simt, operations, nbytes, outputs in (
-                ("dq", flash.flash_attention_backward_dq, flash.flash_attention_backward_dq_plain, simt_dq, 6.0,
+        for which, wrapper, plain, operations, nbytes, outputs in (
+                ("dq", flash.flash_attention_backward_dq, flash.flash_attention_backward_dq_plain, 6.0,
                  5 * element + 2 * rows, slice(0, 1)),
-                ("dkv", flash.flash_attention_backward_dkv, flash.flash_attention_backward_dkv_plain, simt_dkv, 8.0,
+                ("dkv", flash.flash_attention_backward_dkv, flash.flash_attention_backward_dkv_plain, 8.0,
                  6 * element + 2 * rows, slice(1, 3))):
-            if flash.flash_route(q, which) != "wgmma":
+            route = flash.flash_route(q, which)
+            if route == "simt":
                 print(f"[ab] {label} {which}: SIMT alone (the wrapper's route); not timed", flush=True)
                 continue
             as_tuple = (lambda result: (result,)) if which == "dq" else tuple
             ref = as_tuple(plain(*args_))
-            run_simt = simt(torch, flash, q, k, v, dout, lse, delta)
-            for design, got in (("wgmma", as_tuple(wrapper(*args_))), ("simt", run_simt(causal))):
+            run_simt = smoke.simt_backward(torch, which, q, k, v, dout, lse, delta)
+            for design, got in ((route, as_tuple(wrapper(*args_))), ("simt", run_simt(causal))):
                 tol = smoke.FLASH_BWD_TOL[dtype_name]
                 readings = [smoke.error_reading(g, r, sc, tol, smoke.MANTISSA_BITS[dtype_name])
                             for g, r, sc in zip(got, ref, scales[outputs])]
                 if not all(r["ok"] for r in readings):
                     raise AssertionError(f"{design} {which} {label}: " + "; ".join(map(smoke.format_reading, readings)))
             del ref
-            passes[which] = turns(torch, smoke.time_ms, lambda: run_simt(causal), lambda: wrapper(*args_))
+            passes[which] = dict(route=route, **turns(torch, smoke.time_ms, lambda: run_simt(causal),
+                                                        lambda: wrapper(*args_)))
             passes[which]["library_ms"] = library_ms
-            passes[which]["bound_ms"], passes[which]["bound_by"] = smoke.bound_ms(
-                operations * batch * heads * dim * pairs, peaks["bf16"], nbytes, peaks["bytes"])
+            passes[which]["bound_ms"], passes[which]["bound_by"] = smoke.flash_bound(
+                torch, peaks, dtype, operations * batch * heads * dim * pairs, nbytes)["bound"]
         del scales
-        for what, reading in (("forward", forward), *passes.items()):
-            print(f"[ab] {label} {what}: simt_ms={reading['simt_ms']:.4f} wgmma_ms={reading['wgmma_ms']:.4f} "
-                  f"({reading['simt_ms'] / reading['wgmma_ms']:.2f}x) library_ms={reading['library_ms']:.4f} "
+        for what, reading in passes.items():
+            print(f"[ab] {label} {what}: simt_ms={reading['simt_ms']:.4f} {reading['route']}_ms={reading['route_ms']:.4f} "
+                  f"({reading['simt_ms'] / reading['route_ms']:.2f}x) library_ms={reading['library_ms']:.4f} "
                   f"bound_ms={reading['bound_ms']:.4f} ({reading['bound_by']}); turns "
                   + " ".join(f"{t:.4f}" for t in reading["turns"]), flush=True)
-        results.append(dict(shape=list(shape), dtype=dtype_name, causal=causal, forward=forward, **passes))
+        results.append(dict(shape=list(shape), dtype=dtype_name, causal=causal, **passes))
     print(json.dumps({"card": smoke.card_line(), "results": results}))
     return 0
 
