@@ -17,7 +17,7 @@ the exact result:
   DHT peer with a Server; block 1 on two replicas) and a client of DHT,
   RemoteSequential and the client head in this process: forward, greedy decode,
   failover when a replica process is killed, and autograd backward, against the
-  local path;
+  local path (in a thread of its own beside [collab]);
 - dmoe: the decentralized mixture of experts (BASELINE config 4: 64 ffn experts of
   width 1024, top-4, a [2048, 1024] batch) on server processes found through the DHT,
   fp32 and int8, with RemoteMixtureOfExperts as the client: beam search, forward and
@@ -26,15 +26,17 @@ the exact result:
 - averaging: DecentralizedAverager (BASELINE config 2: 8 peer processes, 100M float32
   parameters each made on the card, groups of 4, fp16 wire): three rounds held on the
   card to the exact group mean, GB/s per peer, a peer killed mid-round, and a late
-  peer's verified state download (no kernel: the reduction is host numpy);
+  peer's verified state download (no kernel: the reduction is host numpy; it runs in a
+  thread of its own beside [slice]);
 - expert training: ModuleBackend.backward (one SGD step) on a Llama-2-7B-width block;
 - ALBERT-base MLM training: make_train_step with AdamW at batch 32 × seq 512, in bf16 and in
-  fp32 (the fp32 forward and dK/dV pass on the tensor cores in 3xTF32, the dQ pass on SIMT);
+  fp32 (all three fp32 flash passes on the tensor cores in 3xTF32);
 - causal: the causal LM (CausalLMConfig.base(), GPT-2-small widths, vocab 32000) trained
   with AdamW at batch 8 × seq 1024 through the causal flash kernels in both directions;
 - collab: collaborative ALBERT-base training (BASELINE config 3, examples/albert): four
   peer processes train one model through the DHT with the collaborative Optimizer and
-  LAMB, held to large-batch training; a fifth joins by downloading the state.
+  LAMB over two epochs, held to large-batch training; a fifth joins by downloading the
+  state and trains a third with them.
 - ring: ring attention over a mesh's sequence axis, four rank processes sharing the
   card over gloo, the flash kernel at every ring step, at Llama-2-7B widths (T 8192,
   causal) and ALBERT-base's, against plain fp32 attention and the whole-sequence
@@ -68,6 +70,13 @@ Run from the repository root on a machine with one NVIDIA card:
 
     python3 chip_smoke.py
 
+The whole run must end within 1200 s on the card's host, whose speed varies by a third
+from run to run: each kernel library builds as several ``nvcc`` processes at once, the
+checkpoint is written meanwhile, the kernel checks draw their inputs a few cases ahead,
+every child process forks from a server that imported torch and the package once, and
+[swarm] and [averaging] run beside [collab] and [slice]. No kernel is timed while
+another phase runs.
+
 ``--only mesh_serving,cli,chaos,sim`` runs those phases alone (after [build] and [checkpoint]),
 e.g. on a host of four cards, where the mesh puts one shard on each. Such a partial
 run checks and logs as a whole run does, but prints neither the kernels line nor
@@ -85,6 +94,7 @@ Needs no JAX and imports nothing of the JAX package.
 from __future__ import annotations
 
 import asyncio
+import concurrent.futures
 import contextlib
 import dataclasses
 import json
@@ -208,9 +218,9 @@ FLASH_BWD_CASES = [
     ((2, 1000, 16, 20), "float16", True), ((4, 128, 12, 26), "bfloat16", False), ((2, 1000, 16, 25), "bfloat16", True),
     ((1, 512, 4, 196), "float16", True), ((3, 333, 12, 26), "bfloat16", True), ((2, 1000, 5, 20), "bfloat16", True),
     ((1, 512, 8, 100), "bfloat16", True), ((1, 512, 8, 100), "float16", False), ((1, 512, 4, 196), "bfloat16", False),
-    # fp32 beside the cases above (the 3xTF32 dK/dV pass and the SIMT dQ pass): ALBERT's shape, the training
-    # path's; head dim 20 (a multiple of 4, not of 8); 128 and 100 (padded to 128) at a ragged T; a Llama request at
-    # full length; and 18, which stays on SIMT
+    # fp32 beside the cases above (the 3xTF32 dQ and dK/dV passes): ALBERT's shape, the training path's; head dim
+    # 20 (a multiple of 4, not of 8); 128 and 100 (padded to 128) at a ragged T; a Llama request at full length; and
+    # 18, which stays on SIMT
     (ALBERT_ATTENTION, "float32", False), ((2, 1000, 16, 20), "float32", True), ((3, 333, 12, 128), "float32", True),
     ((3, 333, 12, 100), "float32", True), ((1, 2048, 32, 128), "float32", True), ((2, 1000, 4, 18), "float32", True),
 ]
@@ -243,6 +253,9 @@ FAULTY_BWD_SHAPES = ((ALBERT_ATTENTION, "bfloat16"), ((1, 2048, 32, 128), "bfloa
 # TF32 product would read; the plain version run on tf32_split's hi parts), in both phases: the
 # training path's shape and a Llama request at full length, causal
 FAULTY_TF32_SHAPES = ((ALBERT_ATTENTION, False), ((1, 2048, 32, 128), True))
+# where the kernels line's entry of the SIMT dQ kernel is timed: an fp32 head dim the 3xTF32 kernels do
+# not take (18, not a multiple of 4), one of FLASH_BWD_CASES
+SIMT_DQ_SHAPE = ((2, 1000, 4, 18), "float32")
 # q, k, v sliced from one fused [B, T, 3, H, D] tensor (T stride 3*H*D): the TMA views of a
 # projection that is not split into three tensors, for each head_dim, held like FLASH_SHAPES; and in
 # fp32 the strided views the 3xTF32 kernels' 16-byte loads read (head dims 64 and 20)
@@ -252,7 +265,16 @@ STRIDED_CASES = [((2, 1000, 16, 64), True, "bfloat16"), ((1, 512, 32, 128), Fals
 # bf16 and fp16 at padded widths 64, 128 and 256, each full-width and narrower; the 3xTF32 ones at
 # padded widths 64 and 128)
 WGMMA_KERNELS = ("flash_forward_wgmma", "flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma", "flash_forward_tf32x3",
-                 "flash_bwd_dkv_tf32x3")
+                 "flash_bwd_dq_tf32x3", "flash_bwd_dkv_tf32x3")
+# the inputs [flash] and [flash_bwd] draw from their generators (seeds SEED and SEED + 5), in the order
+# the checks take them
+FLASH_DRAWS = ([shape for shape in FLASH_SHAPES for _ in range(3)]
+               + [shape for shape, _, _ in FLASH_EXTRA_CASES for _ in range(3)]
+               + [(b, t, 3, h, d) for (b, t, h, d), _, _ in STRIDED_CASES]
+               + [shape for shape, _, _ in UNALIGNED_CASES for _ in range(3)])
+FLASH_BWD_DRAWS = ([shape for shape, _, _ in FLASH_BWD_CASES for _ in range(4)]
+                   + [(b, t, 4, h, d) for (b, t, h, d), _, _ in STRIDED_CASES]
+                   + [shape for shape, _, _ in UNALIGNED_CASES for _ in range(4)])
 # ALBERT-base MLM training, bench.py's workload: its first batch candidate
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_WARMUP, TRAIN_STEPS = 32, 512, 2, 10
 TRAIN_MASKED_FRACTION = 0.25
@@ -270,8 +292,8 @@ TRAIN_GRAD_REL_L2 = 8 * BF16_UNIT_ROUNDOFF
 REMAT_GRAD_REL_L2 = 1e-6
 ZERO_GRADIENT = "key.bias"  # softmax ignores it: its gradient is rounding noise on both sides
 # [train_fp32]: [train]'s ALBERT-base, batch, AdamW and masked fraction in fp32 (AlbertConfig.base(dtype=
-# float32); GEMMs in full fp32, allow_tf32 off), its attention's forward and dK/dV pass on the 3xTF32 kernels
-# and its dQ pass on SIMT; a few timed steps, then from the initial weights, on a sub-batch, the loss and every
+# float32); GEMMs in full fp32, allow_tf32 off), its attention's three passes on the 3xTF32 kernels; a few
+# timed steps, then from the initial weights, on a sub-batch, the loss and every
 # gradient against the same step on the card with plain fp32 attention, and against a planted fault: that
 # attention on q, k, v rounded to plain TF32, which the limits must reject. Derived in PERF.md section 2: the
 # kernels' products err near 2^-21 of a term, TF32's near 2^-11; on an H100 the gradients' error norms over
@@ -280,7 +302,7 @@ ZERO_GRADIENT = "key.bias"  # softmax ignores it: its gradient is rounding noise
 TRAIN_FP32_WARMUP, TRAIN_FP32_STEPS = 1, 3
 TRAIN_FP32_LOSS_RTOL = 1e-6
 TRAIN_FP32_GRAD_REL_L2 = 2e-5
-TRAIN_FP32_ROUTES = "forward=tf32x3 dq=simt dkv=tf32x3"
+TRAIN_FP32_ROUTES = "forward=tf32x3 dq=tf32x3 dkv=tf32x3"
 TRAIN_FP32_LIMIT_S = 30.0
 # [causal]: the causal LM at CausalLMConfig.base() widths and depth, [train]'s AdamW, one
 # synthetic batch; held to the CPU plain path on a sub-batch (the limits below)
@@ -388,7 +410,7 @@ DMOE_PHASE_LIMIT_S = 120.0
 # [averaging]: BASELINE config 2, benchmarks/benchmark_averaging.py's defaults at the
 # published size: 8 peers, groups of 4, 100M float32 parameters a peer in one tensor,
 # Float16Compression on the wire, 2 MiB parts, min_matchmaking_time 1 s. Each peer is a
-# spawned process and DHT peer on one host and one card; peers 0-3 hold group bits "0"
+# child process and DHT peer on one host and one card; peers 0-3 hold group bits "0"
 # and 4-7 "1", reset before every round, and min_group_size is 4, so each round's two
 # groups are the same 4 and 4: a peer whose join misses the 1 s window makes its whole
 # group retry instead of leaving it to average as 3 + 1.
@@ -415,7 +437,7 @@ AVG_U16, AVG_U32 = 2.0**-11, 2.0**-24  # unit roundoffs of fp16 and fp32
 # default fp16 wire and the state every epoch over fp32 (upstream hivemind's default
 # state wire: the fp16 state wire turns small second moments negative, and LAMB's
 # square root of them NaN; PERF.md §6), min_group_size 4 and groups unbounded (so every
-# round holds every peer). After epoch 3 a fifth peer joins by load_state_from_peers()
+# round holds every peer). After epoch 2 a fifth peer joins by load_state_from_peers()
 # and trains an epoch with the swarm. One card: what is measured is the protocol
 # between processes on one host, not a collective across cards.
 COLLAB_PEERS = 4
@@ -423,7 +445,7 @@ COLLAB_RUN_ID = "albert_collab"
 COLLAB_TARGET = 4096
 COLLAB_MATCHMAKING_S = 3.0
 COLLAB_LAMB = (1e-3, 100, 10_000)  # peak lr, warmup epochs, total epochs
-COLLAB_EPOCHS = 3  # epochs 0-2 by the first four peers; the joiner's epoch is the fourth
+COLLAB_EPOCHS = 2  # epochs 0-1 by the first four peers (two, for the run's time limit); the joiner's is the third
 COLLAB_CHECKED = (0, 1)  # the transitions held to large-batch training
 COLLAB_FAULT_PEER = COLLAB_PEERS - 1  # the planted fault leaves its batches out of the reference
 COLLAB_STARTUP_LIMIT_S = 120.0
@@ -440,13 +462,25 @@ COLLAB_F16_ABS = 2.0**-25
 COLLAB_STATE_FACTOR = 16 * AVG_U32
 
 
+# The phases' child processes come from multiprocessing's fork server, started by main() with
+# these modules imported: each child starts without the seconds of importing torch and the
+# package anew, as a spawned one would. Forking is safe there, unlike from this process: the
+# server runs no thread (importing these starts none) and never touches CUDA.
+CHILD_PRELOAD = ("__main__", "torch", "hivemind_tpu_torch.averaging", "hivemind_tpu_torch.compression",
+                 "hivemind_tpu_torch.dht", "hivemind_tpu_torch.models", "hivemind_tpu_torch.moe.server",
+                 "hivemind_tpu_torch.ops.blockwise_int8", "hivemind_tpu_torch.ops.flash_attention",
+                 "hivemind_tpu_torch.optim", "hivemind_tpu_torch.parallel", "hivemind_tpu_torch.parallel.ring_attention",
+                 "hivemind_tpu_torch.telemetry", "hivemind_tpu_torch.telemetry.monitor")
+
+
 def collab_batch_seed(peer: int, k: int) -> int:
     """The seed of peer ``peer``'s ``k``-th batch (torch.Generator on the card)."""
     return SEED + 1_000 + 100_000 * peer + k
 
 
 def log(message: str) -> None:
-    print(message, flush=True)
+    sys.stdout.write(message + "\n")  # one write a line: [swarm] and [averaging] log from a thread of their own
+    sys.stdout.flush()
 
 
 def max_rel_err(got, expected) -> float:
@@ -664,6 +698,45 @@ def phase_build(torch, telemetry: Telemetry):
         raise AssertionError("; ".join(faults))
 
 
+class Draws:
+    """``rng.standard_normal(shape, dtype=np.float32)`` for each of ``shapes`` in turn, drawn a
+    few ahead by a thread while the caller checks the last ones on the card (numpy fills
+    without holding the GIL): the same arrays as drawing each when it is needed."""
+
+    def __init__(self, rng, shapes, ahead: int = 4):
+        import queue
+        import threading
+
+        self._queue, self._stopped = queue.Queue(maxsize=ahead), threading.Event()
+        self._thread = threading.Thread(target=self._fill, args=(rng, [tuple(shape) for shape in shapes]), daemon=True)
+        self._thread.start()
+
+    def _fill(self, rng, shapes) -> None:
+        import queue
+
+        for shape in shapes:
+            array = rng.standard_normal(shape, dtype=np.float32)
+            while not self._stopped.is_set():
+                try:
+                    self._queue.put(array, timeout=0.1)
+                    break
+                except queue.Full:
+                    continue
+
+    def __call__(self, shape) -> np.ndarray:
+        array = self._queue.get()
+        if array.shape != tuple(shape):
+            raise AssertionError(f"drew {array.shape} where the check takes {tuple(shape)}: the draws are out of order")
+        return array
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stopped.set()
+        self._thread.join()
+
+
 def host_us(torch, fn, calls: int = 50) -> float:
     """Mean host time of one call of ``fn``, which only enqueues work: the
     wrapper's overhead (checks, TMA geometry, map encoding, launch)."""
@@ -783,13 +856,17 @@ def phase_flash(torch, peaks) -> dict:
     """The forward against its plain version; returns the kernels line's entries: the
     longest served request's, the packed-heads view's at FAULTY_PACKED and the 3xTF32 kernel's
     at ALBERT's fp32 shape."""
+    with Draws(np.random.default_rng(SEED), FLASH_DRAWS) as draw:
+        return check_flash(torch, peaks, draw)
+
+
+def check_flash(torch, peaks, draw) -> dict:
     from hivemind_tpu_torch.ops.flash_attention import flash_attention_lse, flash_attention_plain, flash_routes, needs_copy
 
-    rng = np.random.default_rng(SEED)
     entries = {}
     for shape in FLASH_SHAPES:
         batch, seq, heads, dim = shape
-        base = [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda() for _ in range(3)]
+        base = [torch.from_numpy(draw(shape)).cuda() for _ in range(3)]
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = (t.to(dtype) for t in base)
             dtype_name = str(dtype).removeprefix("torch.")
@@ -826,8 +903,7 @@ def phase_flash(torch, peaks) -> dict:
                     entries["flash_attention_forward_tf32x3"] = entry
     for shape, dtype_name, causal in FLASH_EXTRA_CASES:
         batch, seq, heads, dim = shape
-        q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda().to(getattr(torch, dtype_name))
-                   for _ in range(3))
+        q, k, v = (torch.from_numpy(draw(shape)).cuda().to(getattr(torch, dtype_name)) for _ in range(3))
         label = f"B={batch} T={seq} H={heads} D={dim} {dtype_name} causal={causal} ({flash_routes(q)})"
         readings = check_forward(torch, q, k, v, causal, dtype_name, label)
         if (shape, dtype_name) == FAULTY_PACKED:  # a planted fault, rejected
@@ -848,14 +924,13 @@ def phase_flash(torch, peaks) -> dict:
             entries["flash_attention_forward_packed"] = dict(max_abs_err=packed_err,
                                                              **{key: timing[key] for key in KERNEL_TIMES})
     for (batch, seq, heads, dim), causal, dtype_name in STRIDED_CASES:
-        fused = torch.from_numpy(rng.standard_normal((batch, seq, 3, heads, dim), dtype=np.float32)).cuda()
+        fused = torch.from_numpy(draw((batch, seq, 3, heads, dim))).cuda()
         q, k, v = fused.to(getattr(torch, dtype_name)).unbind(2)
         readings = check_forward(torch, q, k, v, causal, dtype_name, "on a fused qkv tensor")
         log(f"[flash] q, k, v of one fused [{batch}, {seq}, 3, {heads}, {dim}] {dtype_name} tensor, causal={causal} "
             f"({flash_routes(q)}, copied first: {needs_copy(q)}): {readings}")
     for shape, causal, dtype_name in UNALIGNED_CASES:
-        q, k, v = (unaligned(torch, torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda()
-                             .to(getattr(torch, dtype_name))) for _ in range(3))
+        q, k, v = (unaligned(torch, torch.from_numpy(draw(shape)).cuda().to(getattr(torch, dtype_name))) for _ in range(3))
         readings = check_forward(torch, q, k, v, causal, dtype_name, "on unaligned views")
         log(f"[flash] q, k, v {dtype_name} {list(shape)} one element off 16-byte alignment ({flash_routes(q)}, "
             f"copied first: {needs_copy(q)}), causal={causal}: {readings}")
@@ -1074,6 +1149,12 @@ def library_backward_ms(torch, q, k, v, dout, causal) -> float:
 
 
 def phase_flash_bwd(torch, peaks) -> dict:
+    """Both backward passes against their plain versions; returns the kernels line's entries."""
+    with Draws(np.random.default_rng(SEED + 5), FLASH_BWD_DRAWS) as draw:
+        return check_flash_bwd(torch, peaks, draw)
+
+
+def check_flash_bwd(torch, peaks, draw) -> dict:
     from hivemind_tpu_torch.ops.flash_attention import (
         _delta,
         flash_attention_backward,
@@ -1087,13 +1168,11 @@ def phase_flash_bwd(torch, peaks) -> dict:
         needs_copy,
     )
 
-    rng = np.random.default_rng(SEED + 5)
     entries = {}
     for shape, dtype_name, causal in FLASH_BWD_CASES:
         batch, seq, heads, dim = shape
         dtype = getattr(torch, dtype_name)
-        q, k, v, dout = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda().to(dtype)
-                         for _ in range(4))
+        q, k, v, dout = (torch.from_numpy(draw(shape)).cuda().to(dtype) for _ in range(4))
         out, lse = flash_attention_plain(q, k, v, causal)
         delta = _delta(out, dout)
         args = (q, k, v, dout, lse, delta, causal)
@@ -1117,6 +1196,8 @@ def phase_flash_bwd(torch, peaks) -> dict:
                                                 *flash_attention_backward_dkv_plain(*rounded)), ref, scales)
             log(f"[flash_bwd] {label}, q, k, v, dout rounded to plain TF32 (planted in the plain version): " +
                 "; ".join(f"{name} {format_reading(faulty[name])} ok={faulty[name]['ok']}" for name in faulty))
+            if faulty["dq"]["ok"]:
+                raise AssertionError("flash backward check passed fp32 dQ on inputs rounded to TF32")
             if faulty["dk"]["ok"] and faulty["dv"]["ok"]:
                 raise AssertionError("flash backward check passed fp32 dK and dV on inputs rounded to TF32")
         if (shape, dtype_name) == FAULTY_PACKED:
@@ -1149,22 +1230,22 @@ def phase_flash_bwd(torch, peaks) -> dict:
             f"plain_ms={plain_ms[kernel]:.4f} {format_bound(bounds[kernel])}"
             for kernel in ("dq", "dkv")) + f"; library (whole backward) ms={library_ms:.4f}{host}")
         log(f"[flash_bwd]   {text}")
-        # the training path's shape (bf16 and fp32: the fp32 path's 3xTF32 dK/dV and SIMT dQ), and the
-        # packed-heads view's
+        # the training path's shape (bf16 and fp32: the fp32 path's 3xTF32 dQ and dK/dV), the packed-heads
+        # view's, and an fp32 head dim the SIMT dQ pass still takes
         names = {(ALBERT_ATTENTION, "bfloat16"): {"dq": "", "dkv": ""}, FAULTY_PACKED: {"dq": "_packed", "dkv": "_packed"},
-                 (ALBERT_ATTENTION, "float32"): {"dq": "_simt", "dkv": "_tf32x3"}}.get((shape, dtype_name), {})
+                 (ALBERT_ATTENTION, "float32"): {"dq": "_tf32x3", "dkv": "_tf32x3"},
+                 SIMT_DQ_SHAPE: {"dq": "_simt"}}.get((shape, dtype_name), {})
         for kernel, suffix in names.items():
             outputs = ("dq",) if kernel == "dq" else ("dk", "dv")
             entries[f"flash_attention_backward_{kernel}{suffix}"] = dict(
                 max_abs_err=max(readings[n]["max_abs"] for n in outputs), ms=ms[kernel], plain_ms=plain_ms[kernel],
                 bound_ms=bounds[kernel]["bound"][0], bound_by=bounds[kernel]["bound"][1], library_ms=library_ms)
     views = [(f"q, k, v, dout of one fused [{b}, {t}, 4, {h}, {d}] {dtype_name} tensor, causal={causal}",
-              torch.from_numpy(rng.standard_normal((b, t, 4, h, d), dtype=np.float32)).cuda()
-              .to(getattr(torch, dtype_name)).unbind(2), causal, dtype_name)
+              torch.from_numpy(draw((b, t, 4, h, d))).cuda().to(getattr(torch, dtype_name)).unbind(2), causal, dtype_name)
              for (b, t, h, d), causal, dtype_name in STRIDED_CASES]
     views += [(f"q, k, v, dout {dtype_name} {list(shape)} one element off 16-byte alignment, causal={causal}",
-               [unaligned(torch, torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda()
-                          .to(getattr(torch, dtype_name))) for _ in range(4)], causal, dtype_name)
+               [unaligned(torch, torch.from_numpy(draw(shape)).cuda().to(getattr(torch, dtype_name))) for _ in range(4)],
+               causal, dtype_name)
               for shape, causal, dtype_name in UNALIGNED_CASES]
     for what, (q, k, v, dout), causal, dtype_name in views:
         what = f"{what} ({flash_routes(q)}, copied first: {needs_copy(q)})"
@@ -1414,8 +1495,8 @@ def phase_train_fp32(torch, peaks, wrappers: dict, telemetry: Telemetry) -> dict
     if not all(math.isfinite(loss) for loss in losses):
         raise AssertionError(f"non-finite loss: {losses}")
     for name in ("flash_attention_forward", "flash_attention_backward_dq", "flash_attention_backward_dkv",
-                 "flash_attention_forward_tf32x3", "flash_attention_backward_dkv_tf32x3",
-                 "flash_attention_backward_dq_simt"):
+                 "flash_attention_forward_tf32x3", "flash_attention_backward_dq_tf32x3",
+                 "flash_attention_backward_dkv_tf32x3"):
         if launches[name] != config.num_layers * steps:
             raise AssertionError(f"{name}: {launches[name]} launches in {steps} steps, expected {config.num_layers} "
                                  f"per step")
@@ -1682,6 +1763,16 @@ def write_safetensors(path: Path, tensors: dict) -> None:
             f.write(np.ascontiguousarray(array).tobytes())
 
 
+def plain_blocks(checkpoint_dir: str, quantization, loaded: dict) -> dict:
+    """The checkpoint's blocks on the CPU, the plain path [serving] and then [decode] hold the
+    card to, loaded once into ``loaded`` for both (each only runs them forward)."""
+    from hivemind_tpu_torch.moe.server.llama_loader import load_llama_blocks
+
+    if quantization not in loaded:
+        loaded[quantization] = load_llama_blocks(checkpoint_dir, device="cpu", weight_quantization=quantization)[0]
+    return loaded[quantization]
+
+
 class RecordedForward:
     """A backend's forward as a TaskPool's process function. It notes each batch's
     [batch, seq] and whether the batch that held the watched request's input also
@@ -1787,7 +1878,7 @@ def serving_counters(pools) -> dict:
     return counters
 
 
-def phase_serving(torch, checkpoint_dir: str, wrappers: dict, telemetry: Telemetry) -> dict:
+def phase_serving(torch, checkpoint_dir: str, wrappers: dict, telemetry: Telemetry, cpu_blocks_loaded: dict) -> dict:
     from hivemind_tpu_torch.moe.server.llama_loader import load_llama_blocks
     from hivemind_tpu_torch.telemetry.device import MEMORY_MONITOR
 
@@ -1848,7 +1939,7 @@ def phase_serving(torch, checkpoint_dir: str, wrappers: dict, telemetry: Telemet
             log(f"[profile]   {us / 1e3:8.3f} ms  {name[:100]}")
 
     for mode, quantization in (("fp", None), ("int8", "int8")):
-        cpu_blocks = load_llama_blocks(checkpoint_dir, device="cpu", weight_quantization=quantization)[0]
+        cpu_blocks = plain_blocks(checkpoint_dir, quantization, cpu_blocks_loaded)
         for index, what in ((len(requests) - 1, "a batch of its own"), (merged_index, "a merged batch")):
             expected = requests[index]
             for backend in cpu_blocks.values():
@@ -1858,7 +1949,6 @@ def phase_serving(torch, checkpoint_dir: str, wrappers: dict, telemetry: Telemet
                 f"({what}): max_rel_err={rel_err:.3e}")
             if not rel_err < SERVING_TOL:
                 raise AssertionError(f"{mode}: card output differs from the CPU reference by {rel_err} >= {SERVING_TOL}")
-        del cpu_blocks
     return launches
 
 
@@ -2068,7 +2158,8 @@ def hooks_cost(pipe, head, prompt, token) -> dict:
     return dict(cost, updates_per_step=counted[0] / HOOK_COST_ROUNDS, update_us=labeled_update_us())
 
 
-def phase_decode(torch, checkpoint_dir: str, wrappers: dict, peaks: dict, telemetry: Telemetry) -> dict:
+def phase_decode(torch, checkpoint_dir: str, wrappers: dict, peaks: dict, telemetry: Telemetry,
+                 cpu_blocks_loaded: dict) -> dict:
     from hivemind_tpu_torch.moe.server.decode_session import DecodeSessionManager
     from hivemind_tpu_torch.moe.server.llama_loader import (
         LlamaCheckpointConfig,
@@ -2190,7 +2281,7 @@ def phase_decode(torch, checkpoint_dir: str, wrappers: dict, peaks: dict, teleme
 
     # the prefill and the first step against the CPU plain path
     for mode, quantization in modes.items():
-        cpu_blocks = load_llama_blocks(checkpoint_dir, device="cpu", weight_quantization=quantization)[0]
+        cpu_blocks = plain_blocks(checkpoint_dir, quantization, cpu_blocks_loaded)
         cpu_pipe = LocalPipe(DecodeSessionManager(cpu_blocks, max_len=DECODE_MAX_LEN), cpu_blocks)
         ids = generated[mode]
         cpu_pipe.decode_step(head.embed(prompt).cpu(), "cpu", reset=True)
@@ -2201,6 +2292,7 @@ def phase_decode(torch, checkpoint_dir: str, wrappers: dict, peaks: dict, teleme
             if not rel_err < SERVING_TOL:
                 raise AssertionError(f"{mode}: decode {what} differs from the CPU by {rel_err}")
         del cpu_blocks, cpu_pipe
+    cpu_blocks_loaded.clear()  # [decode] is their last reader
     return launches
 
 
@@ -2723,7 +2815,7 @@ class SwarmPipe:
 def phase_swarm(torch, checkpoint_dir: str, wrappers: dict, telemetry: Telemetry) -> dict:
     """Peers find the blocks through the DHT and generate over them, across processes:
     this process is a bootstrap DHT peer and the client (``DHT(initial_peers=...)``,
-    ``RemoteSequential``, ``LlamaClientHead``); three spawned server processes are each
+    ``RemoteSequential``, ``LlamaClientHead``); three server processes (children) are each
     a DHT peer with a ``Server`` over ``load_llama_blocks`` on the card (SWARM_LAYOUT).
     Forward, greedy decode (fp and int8), failover when the replica pinned for block 1
     is killed, and autograd backward last, each against the local chain. Returns the
@@ -2763,7 +2855,7 @@ def phase_swarm(torch, checkpoint_dir: str, wrappers: dict, telemetry: Telemetry
     torch.cuda.synchronize()
     log(f"[swarm] loaded the blocks and ran the local references in {time.perf_counter() - phase_started:.1f} s")
 
-    context = multiprocessing.get_context("spawn")
+    context = multiprocessing.get_context("forkserver")  # CHILD_PRELOAD
     children, dhts, faults, readings = [], [], [], {}
     timer = None
 
@@ -3093,7 +3185,7 @@ def dmoe_slots_on(experts, k: int, uids) -> np.ndarray:
 def phase_dmoe(torch, wrappers: dict, telemetry: Telemetry) -> dict:
     """The decentralized mixture of experts across processes (BASELINE config 4): this
     process is the bootstrap DHT peer and the client (``RemoteMixtureOfExperts``); the
-    spawned processes A, B, C serve the 64 experts on the card, D acquires hot experts
+    child processes A, B, C serve the 64 experts on the card, D acquires hot experts
     of A, E restores A's checkpoint. Checks, in order: beam search vs the exhaustive
     top-4, forward vs a twin mixture, replication, backward vs the twins, checkpoint,
     a killed server, the swarm monitor; returns the launch counts summed over the
@@ -3118,7 +3210,7 @@ def phase_dmoe(torch, wrappers: dict, telemetry: Telemetry) -> dict:
     x = rng.standard_normal((DMOE_BATCH, DMOE_HIDDEN), dtype=np.float32)
     w = rng.standard_normal((DMOE_BATCH, DMOE_HIDDEN), dtype=np.float32)
     checkpoint_dir = tempfile.mkdtemp(prefix="dmoe_checkpoints_")
-    context = multiprocessing.get_context("spawn")
+    context = multiprocessing.get_context("forkserver")  # CHILD_PRELOAD
     children, dhts, faults, readings = {}, [], [], {}
     timer = None
     line = card_line()
@@ -3612,6 +3704,13 @@ class AveragingChild(SwarmChild):
         self.peer_id = self.device = self.last_report = None
 
 
+def on_own_stream(torch, fn, *args):
+    """``fn(*args)`` with this thread's card work on a CUDA stream of its own, so that it
+    never queues between the calls that another thread times on the default stream."""
+    with torch.cuda.stream(torch.cuda.Stream()):
+        return fn(*args)
+
+
 def host_line() -> str:
     """The host's cores, CPU model and memory: host-bound phases read against them."""
     model, memory = "?", float("nan")
@@ -3625,7 +3724,7 @@ def host_line() -> str:
 def phase_averaging(torch) -> None:
     """Decentralized averaging across processes (BASELINE config 2,
     benchmarks/benchmark_averaging.py at its published size): this process is the
-    bootstrap DHT peer; AVG_PEERS spawned peers each average AVG_PARAMS float32
+    bootstrap DHT peer; AVG_PEERS child peers each average AVG_PARAMS float32
     parameters made on the card, in two groups of AVG_GROUP_SIZE over the fp16 wire.
     Checks, in order: three rounds held on the card to the exact group mean (a planted
     fault must fail the same check); GB/s per peer, as benchmark_averaging.py computes
@@ -3639,7 +3738,7 @@ def phase_averaging(torch) -> None:
     from hivemind_tpu_torch.dht import DHT
 
     phase_started = time.perf_counter()
-    context = multiprocessing.get_context("spawn")
+    context = multiprocessing.get_context("forkserver")  # CHILD_PRELOAD
     children, dhts, faults = [], [], []
     scratch = tempfile.TemporaryDirectory(prefix="averaging_")
     timer = None
@@ -3813,7 +3912,7 @@ def collab_split(torch, flat: np.ndarray, layout: list) -> tuple:
 
 def collab_peer_main(conn, index: int, initial_peers: list, scratch: str, recipe: dict) -> None:
     """One peer of ``[collab]`` (index COLLAB_PEERS: the late joiner) or of ``[slice]``
-    (``recipe``: its run id, group size and initial weights' seed): its own DHT peer,
+    (``recipe``: its run id, group size, target batch and initial weights' seed): its own DHT peer,
     bootstrapped from the parent's, and ALBERT-base on the card trained through the
     collaborative Optimizer. Answers the parent's commands over ``conn``: ``train``
     (batches until the given epoch; the reading carries every accumulated batch's
@@ -3844,7 +3943,7 @@ def collab_peer_main(conn, index: int, initial_peers: list, scratch: str, recipe
         model.reset_parameters(torch.Generator(device="cuda").manual_seed(recipe["init_seed"]))
         loss_fn = make_mlm_loss_fn(model, TRAIN_MASKED_FRACTION)
         dht = DHT(initial_peers=initial_peers, start=True)
-        opt = Optimizer(dht=dht, run_id=recipe["run_id"], target_batch_size=COLLAB_TARGET,
+        opt = Optimizer(dht=dht, run_id=recipe["run_id"], target_batch_size=recipe["target"],
                         params=model.named_parameters(), optimizer=lamb_with_warmup(*COLLAB_LAMB),
                         batch_size_per_step=TRAIN_BATCH, matchmaking_time=COLLAB_MATCHMAKING_S, average_state_every=1,
                         min_group_size=recipe["min_group_size"], state_averaging_compression=NoCompression())
@@ -3946,7 +4045,8 @@ class CollabChild(SwarmChild):
     def __init__(self, context, index: int, initial_peers: list, scratch: str, recipe: Optional[dict] = None):
         self.index = index
         self.name = f"collab peer {index}" if index < COLLAB_PEERS else "the joining collab peer"
-        recipe = recipe or dict(run_id=COLLAB_RUN_ID, min_group_size=COLLAB_PEERS, init_seed=COLLAB_INIT_SEED)
+        recipe = recipe or dict(run_id=COLLAB_RUN_ID, min_group_size=COLLAB_PEERS, init_seed=COLLAB_INIT_SEED,
+                                target=COLLAB_TARGET)
         self.conn, child_conn = context.Pipe()
         self.process = context.Process(target=collab_peer_main,
                                        args=(child_conn, index, initial_peers, scratch, recipe), daemon=True)
@@ -4202,12 +4302,12 @@ def collab_agreement(torch, epoch: int, peers: list, scratch: str, layout: list)
 
 def phase_collab(torch, wrappers: dict, telemetry: Telemetry) -> dict:
     """Collaborative ALBERT-base training (BASELINE config 3, examples/albert): this
-    process is the bootstrap DHT peer; COLLAB_PEERS spawned peers train one model
+    process is the bootstrap DHT peer; COLLAB_PEERS child peers train one model
     through the collaborative Optimizer on the card, epoch by epoch; a fifth joins by
     downloading the state and trains an epoch with them. Checks, in order: large-batch
     equivalence of transitions COLLAB_CHECKED (a planted fault must fail), agreement
     after every epoch, the joiner's state against its donor's bytes, and throughput:
-    ALBERT-base tokens/s/chip over epochs 1-2 beside [train]'s solo step. The flash
+    ALBERT-base tokens/s/chip over epoch 1 beside [train]'s solo step. The flash
     launches are the children's, reported over their pipes."""
     import multiprocessing
     import threading
@@ -4217,7 +4317,7 @@ def phase_collab(torch, wrappers: dict, telemetry: Telemetry) -> dict:
 
     phase_started = time.perf_counter()
     torch.cuda.empty_cache()  # the peers need the card's memory, not this process's cache
-    context = multiprocessing.get_context("spawn")
+    context = multiprocessing.get_context("forkserver")  # CHILD_PRELOAD
     children, dhts, faults = [], [], []
     scratch = tempfile.TemporaryDirectory(prefix="collab_")
     timer = None
@@ -4312,11 +4412,12 @@ def phase_collab(torch, wrappers: dict, telemetry: Telemetry) -> dict:
                   f"{child.name}: launches {reading['launches']} in {reading['steps']} steps, expected 12 each a step")
         launches = {name: sum(r["launches"].get(name, 0) for r in reading_of.values()) for name in wrappers}
 
-        tokens = sum(size * TRAIN_SEQ for epoch in (1, 2) for r in readings[epoch].values() for _, size, _ in r["batches"])
-        rate = tokens / (walls[1] + walls[2])
+        timed = range(1, COLLAB_EPOCHS)  # the four peers' epochs after the first
+        tokens = sum(size * TRAIN_SEQ for epoch in timed for r in readings[epoch].values() for _, size, _ in r["batches"])
+        rate = tokens / sum(walls[epoch] for epoch in timed)
         telemetry.readings["collab"] = {"tokens_per_s": rate}
-        log(f"[collab] ALBERT-base tokens/s/chip over epochs 1-2: {rate:.0f} ({tokens:,} tokens of {COLLAB_PEERS} peers "
-            f"in {walls[1] + walls[2]:.3f} s; one card); [train]'s solo step in this run: "
+        log(f"[collab] ALBERT-base tokens/s/chip over epochs {list(timed)}: {rate:.0f} ({tokens:,} tokens of "
+            f"{COLLAB_PEERS} peers in {sum(walls[epoch] for epoch in timed):.3f} s; one card); [train]'s solo step in this run: "
             f"{telemetry.readings.get('train', {}).get('tokens_per_s', float('nan')):.0f} tokens/s")
 
         # the checks that need the card's memory run after the peers are gone
@@ -4546,7 +4647,7 @@ def ring_references(torch, q, k, v, w, causal: bool):
 
 
 def ring_check(torch, context, backend: str, scratch: str, check) -> int:
-    """RING_SP spawned ranks run the ring over ``backend``; each case's assembled output is
+    """RING_SP child ranks run the ring over ``backend``; each case's assembled output is
     held to plain fp32 attention and to the whole-sequence flash kernel, its gradients (the
     einsum ring in bf16) to plain fp32 attention's, and the planted faults must fail.
     Returns the launches of the ranks' counted calls."""
@@ -4628,7 +4729,7 @@ def phase_ring(torch) -> dict:
     import multiprocessing
 
     torch.cuda.empty_cache()
-    context = multiprocessing.get_context("spawn")
+    context = multiprocessing.get_context("forkserver")  # CHILD_PRELOAD
     scratch = tempfile.TemporaryDirectory(prefix="ring_")
     faults, launches = [], 0
 
@@ -4664,13 +4765,14 @@ def phase_ring(torch) -> dict:
 # ---------------------------------------------------------------- [slice]: a mesh as one swarm peer
 # One SliceOptimizer slice of SLICE_SHAPE ranks (dp 2 x sp 2) on the one card over gloo, and
 # one port Optimizer peer, train ALBERT-base with [collab]'s recipe (LAMB with warmup,
-# target 4096 samples an epoch, the fp16 gradient wire and the fp32 state wire) in one
+# target SLICE_TARGET samples an epoch, the fp16 gradient wire and the fp32 state wire) in one
 # swarm. The slice's step is a global microbatch of TRAIN_BATCH x TRAIN_SEQ, each rank
 # taking its [dp, sp] block (batch 16 x seq 256), ring attention over sp.
 SLICE_SHAPE = (2, 1, 2)
 SLICE_RANKS = SLICE_SHAPE[0] * SLICE_SHAPE[1] * SLICE_SHAPE[2]
 SLICE_RUN_ID = "albert_slice"
 SLICE_EPOCHS = 2  # transitions 0 and 1, both held to large-batch training
+SLICE_TARGET = COLLAB_TARGET // 2  # halved for the run's time limit: each epoch and its recomputed sums half as long
 SLICE_PEER = 1  # the port Optimizer peer's index (the slice is peer 0 of the reference)
 SLICE_INIT_SEED = SEED + 11
 SLICE_STARTUP_LIMIT_S = 150.0
@@ -4716,7 +4818,7 @@ def slice_rank_main(conn, rank: int, port: int, initial_peers: list, scratch: st
         layout = collab_layout(AlbertForMaskedLM(AlbertConfig.base(max_position=TRAIN_SEQ), device="meta"))
         opt = SliceOptimizer(mesh=mesh, params=model.named_parameters(), optimizer=lamb_with_warmup(*COLLAB_LAMB),
                              dht_factory=lambda: DHT(initial_peers=initial_peers, start=True), run_id=SLICE_RUN_ID,
-                             target_batch_size=COLLAB_TARGET, batch_size_per_step=TRAIN_BATCH,
+                             target_batch_size=SLICE_TARGET, batch_size_per_step=TRAIN_BATCH,
                              matchmaking_time=COLLAB_MATCHMAKING_S, average_state_every=1, min_group_size=2,
                              state_averaging_compression=NoCompression())
 
@@ -4825,7 +4927,7 @@ def slice_rank_main(conn, rank: int, port: int, initial_peers: list, scratch: st
 
 def phase_slice(torch, wrappers: dict, telemetry: Telemetry) -> dict:
     """A mesh as one swarm peer (the slice tier): this process is the bootstrap DHT peer;
-    a SliceOptimizer slice of SLICE_RANKS spawned ranks and one spawned port Optimizer
+    a SliceOptimizer slice of SLICE_RANKS child ranks and one child port Optimizer
     peer train ALBERT-base through one swarm with [collab]'s recipe. Checks, in order:
     the mesh's loss and gradients of one batch against a single-rank step of the same
     weights and batch ([train]'s limits); after SLICE_EPOCHS transitions, [collab]'s
@@ -4841,7 +4943,7 @@ def phase_slice(torch, wrappers: dict, telemetry: Telemetry) -> dict:
 
     phase_started = time.perf_counter()
     torch.cuda.empty_cache()
-    context = multiprocessing.get_context("spawn")
+    context = multiprocessing.get_context("forkserver")  # CHILD_PRELOAD
     scratch = tempfile.TemporaryDirectory(prefix="slice_")
     ranks, peer, dhts, faults, timer = [], None, [], [], None
 
@@ -4855,7 +4957,7 @@ def phase_slice(torch, wrappers: dict, telemetry: Telemetry) -> dict:
     log(f"[slice] host {host_line()}; a SliceOptimizer slice of {SLICE_RANKS} ranks (dp {SLICE_SHAPE[0]} x sp "
         f"{SLICE_SHAPE[2]}, gloo, all on the one card: collectives through the host) + 1 port Optimizer peer; "
         f"[collab]'s recipe: ALBERT-base, global microbatch {TRAIN_BATCH} x {TRAIN_SEQ}, lamb_with_warmup{COLLAB_LAMB}, "
-        f"target {COLLAB_TARGET}, fp16 gradient wire, fp32 state wire")
+        f"target {SLICE_TARGET} (halved for the run's time limit), fp16 gradient wire, fp32 state wire")
     readings, extras = {}, {}  # by epoch: each peer's reading; the ranks' readings, wall and tokens
     try:
         bootstrap = DHT(start=True)
@@ -4866,7 +4968,7 @@ def phase_slice(torch, wrappers: dict, telemetry: Telemetry) -> dict:
         ranks.extend(MeshChild(context, f"slice rank {rank}", slice_rank_main, rank, port, initial_peers, scratch.name)
                      for rank in range(SLICE_RANKS))
         peer = CollabChild(context, SLICE_PEER, initial_peers, scratch.name,
-                           dict(run_id=SLICE_RUN_ID, min_group_size=2, init_seed=SLICE_INIT_SEED))
+                           dict(run_id=SLICE_RUN_ID, min_group_size=2, init_seed=SLICE_INIT_SEED, target=SLICE_TARGET))
         timer = threading.Timer(SLICE_KILL_LIMIT_S, lambda: [child.kill() for child in everyone()])
         timer.daemon = True
         timer.start()
@@ -6022,6 +6124,8 @@ def phase_telemetry(torch, telemetry: Telemetry, exporter_port: int) -> None:
 
 def main(argv=None) -> int:
     import argparse
+    import multiprocessing
+    import multiprocessing.forkserver
 
     parser = argparse.ArgumentParser(description="On-card smoke test of hivemind_tpu_torch (every phase by default)")
     parser.add_argument("--only", default=None,
@@ -6060,8 +6164,9 @@ def main(argv=None) -> int:
         "flash_attention_forward_packed": flash_attention.flash_attention_lse.packed,
         "flash_attention_backward_dq_packed": flash_attention.flash_attention_backward_dq.packed,
         "flash_attention_backward_dkv_packed": flash_attention.flash_attention_backward_dkv.packed,
-        # fp32's kernels: the forward and dK/dV pass on 3xTF32, the dQ pass on SIMT
+        # fp32's kernels: every pass on 3xTF32; the SIMT dQ kernel at the head dims 3xTF32 does not take
         "flash_attention_forward_tf32x3": flash_attention.flash_attention_lse.tf32x3,
+        "flash_attention_backward_dq_tf32x3": flash_attention.flash_attention_backward_dq.tf32x3,
         "flash_attention_backward_dkv_tf32x3": flash_attention.flash_attention_backward_dkv.tf32x3,
         "flash_attention_backward_dq_simt": flash_attention.flash_attention_backward_dq.simt,
     }
@@ -6071,8 +6176,8 @@ def main(argv=None) -> int:
         "expert_backward": ("flash_attention_forward", "flash_attention_backward_dq", "flash_attention_backward_dkv"),
         "train": ("flash_attention_forward", "flash_attention_backward_dq", "flash_attention_backward_dkv"),
         "train_fp32": ("flash_attention_forward", "flash_attention_backward_dq", "flash_attention_backward_dkv",
-                       "flash_attention_forward_tf32x3", "flash_attention_backward_dkv_tf32x3",
-                       "flash_attention_backward_dq_simt"),
+                       "flash_attention_forward_tf32x3", "flash_attention_backward_dq_tf32x3",
+                       "flash_attention_backward_dkv_tf32x3"),
         "head_dim32": ("flash_attention_forward", "flash_attention_backward_dq", "flash_attention_backward_dkv",
                        "flash_attention_forward_packed", "flash_attention_backward_dq_packed",
                        "flash_attention_backward_dkv_packed"),
@@ -6104,6 +6209,9 @@ def main(argv=None) -> int:
     arm_device_telemetry()
     add_tick_sampler(telemetry.sample_backlog)
     exporter = MetricsExporter(port=0, host="127.0.0.1")
+    # the fork server of the phases' children imports CHILD_PRELOAD beside the build
+    multiprocessing.set_forkserver_preload(list(CHILD_PRELOAD))
+    multiprocessing.forkserver.ensure_running()
     # the simulator's children start first and run on the host's spare cores ([sim] collects them)
     sim = start_sim() if only is None or "sim" in only else None
 
@@ -6119,32 +6227,43 @@ def main(argv=None) -> int:
         finally:
             log(f"[time] {phase}: {time.perf_counter() - started:.1f} s")
 
+    # the checkpoint is written while nvcc builds the kernels; [checkpoint] waits for it
+    writer, lane = concurrent.futures.ThreadPoolExecutor(max_workers=1), concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    written = writer.submit(write_checkpoint, Path(checkpoint.name), LLAMA2_7B, SEED + 3)
     try:
         run("build", phase_build, torch, telemetry)
         entries.update(run("flash", phase_flash, torch, peaks) or {})
         entries["blockwise_int8_quantize"], entries["blockwise_int8_dequantize"] = (
             run("quantize", phase_quantization, torch, peaks) or (None, None))
         entries.update(run("flash_bwd", phase_flash_bwd, torch, peaks) or {})
-        run("checkpoint", write_checkpoint, Path(checkpoint.name), LLAMA2_7B, SEED + 3)
-        path_launches["serving"] = run("serving", phase_serving, torch, checkpoint.name, wrappers, telemetry)
+        run("checkpoint", written.result)
+        cpu_blocks_loaded = {}  # by quantization: [serving] loads, [decode] reads and frees
+        path_launches["serving"] = run("serving", phase_serving, torch, checkpoint.name, wrappers, telemetry,
+                                       cpu_blocks_loaded)
         path_launches["head_dim32"] = run("head_dim32", phase_small_heads, torch, wrappers)
-        path_launches["decode"] = run("decode", phase_decode, torch, checkpoint.name, wrappers, peaks, telemetry)
+        path_launches["decode"] = run("decode", phase_decode, torch, checkpoint.name, wrappers, peaks, telemetry,
+                                      cpu_blocks_loaded)
         path_launches["remote"] = run("remote", phase_remote, torch, checkpoint.name, wrappers, telemetry)
         run("telemetry", phase_telemetry, torch, telemetry, exporter.port)
-        # after [telemetry]: the swarm's DHT and server arm a watchdog on the port's shared
-        # loop, which stays open, so the registry would not hold still for its scrape
-        path_launches["swarm"] = run("swarm", phase_swarm, torch, checkpoint.name, wrappers, telemetry)
         path_launches["dmoe"] = run("dmoe", phase_dmoe, torch, wrappers, telemetry)
-        run("averaging", phase_averaging, torch)  # host numpy reduction: no kernel on its path
         path_launches["expert_backward"] = run("expert_backward", phase_expert_backward, torch, checkpoint.name, wrappers)
         path_launches["train"] = run("train", phase_train, torch, peaks, wrappers, telemetry)
         path_launches["train_fp32"] = run("train_fp32", phase_train_fp32, torch, peaks, wrappers, telemetry)
         path_launches["causal"] = run("causal", phase_causal, torch, peaks, wrappers)
-        # after [train], whose solo step it reads beside its own: the swarm of peer processes
+        # Two host-bound swarm phases run in a lane of their own (a thread; this process's card work there on a
+        # stream of its own), each beside a phase that times no kernel and keeps its limits with room to spare:
+        # [swarm] beside [collab] (after [telemetry]: the swarm's DHT and servers arm a watchdog on the port's
+        # shared loop, which stays open, so the registry would not hold still for its scrape), and [averaging]
+        # (host numpy, no kernel; its peers' card work is a few ms a round) beside [slice]. Their readings are
+        # taken beside those phases. [collab] runs after [train], whose solo step it reads beside its own.
+        swarmed = lane.submit(run, "swarm", on_own_stream, torch, phase_swarm, torch, checkpoint.name, wrappers, telemetry)
         path_launches["collab"] = run("collab", phase_collab, torch, wrappers, telemetry)
+        path_launches["swarm"] = swarmed.result()
         # the mesh tier: ranks that share the card over gloo
         path_launches["ring"] = run("ring", phase_ring, torch)
+        averaged = lane.submit(run, "averaging", on_own_stream, torch, phase_averaging, torch)
         path_launches["slice"] = run("slice", phase_slice, torch, wrappers, telemetry)
+        averaged.result()
         # the serving mesh: tensor-parallel blocks in this process, then the entry points as children
         path_launches["mesh_serving"], entries["blockwise_int8_dequantize_window"] = (
             run("mesh_serving", phase_mesh_serving, torch, checkpoint.name, wrappers, peaks) or (None, None))
@@ -6154,6 +6273,8 @@ def main(argv=None) -> int:
         run("sim", phase_sim, sim)
     finally:
         stop_sim(sim)
+        writer.shutdown()
+        lane.shutdown()
         checkpoint.cleanup()
         exporter.shutdown()
 
@@ -6188,9 +6309,12 @@ def main(argv=None) -> int:
                                                "hivemind_tpu/ops/pallas_attention.py:279"),
         "flash_attention_backward_dkv_packed": ("hivemind_tpu_torch/csrc/flash_attention_bwd.cu",
                                                 "hivemind_tpu/ops/pallas_attention.py:292"),
-        # rows 1 and 3 on fp32 (flash_forward_tf32x3, flash_bwd_dkv_tf32x3), row 2 on fp32 (flash_bwd_dq_simt)
+        # rows 1-3 on fp32 (flash_forward_tf32x3, flash_bwd_dq_tf32x3, flash_bwd_dkv_tf32x3), and row 2 on
+        # the SIMT kernel (flash_bwd_dq_simt) at an fp32 head dim 3xTF32 does not take
         "flash_attention_forward_tf32x3": ("hivemind_tpu_torch/csrc/flash_attention.cu",
                                            "hivemind_tpu/ops/pallas_attention.py:108"),
+        "flash_attention_backward_dq_tf32x3": ("hivemind_tpu_torch/csrc/flash_attention_bwd.cu",
+                                               "hivemind_tpu/ops/pallas_attention.py:279"),
         "flash_attention_backward_dkv_tf32x3": ("hivemind_tpu_torch/csrc/flash_attention_bwd.cu",
                                                 "hivemind_tpu/ops/pallas_attention.py:292"),
         "flash_attention_backward_dq_simt": ("hivemind_tpu_torch/csrc/flash_attention_bwd.cu",

@@ -8,9 +8,21 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+// A source whose kernels take long to compile is built from several translation units at
+// once (ops/_build.py's PARTS): each is compiled with -DHM_PART=<i> and keeps only the entry
+// points that the source assigns to part i (HM_IN_PART(i)), so it instantiates only their
+// kernels; nvcc then links the parts into the one library. Without HM_PART a source is whole.
+#ifdef HM_PART
+#define HM_IN_PART(i) (HM_PART == (i))
+#else
+#define HM_IN_PART(i) 1
+#endif
+
+#if HM_IN_PART(0)
 extern "C" const char* hm_cuda_error_string(int code) {
     return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+#endif
 
 // Element conversions of the SIMT flash kernels, which read fp32, bf16 or fp16
 // and compute in fp32: a load widens exactly, a store rounds to nearest even.
@@ -58,7 +70,7 @@ inline bool wgmma_takes(int dtype, int head_dim, int heads) {
     return static_cast<long long>(heads) * head_dim % 8 == 0 && tma_span(head_dim, heads) <= 256;
 }
 
-// What the 3xTF32 kernels (the fp32 forward and dK/dV pass) take: fp32 at a head_dim from 16
+// What the 3xTF32 kernels (every fp32 pass) take: fp32 at a head_dim from 16
 // to 128 that is a multiple of 4, so a head's row is whole 16-byte chunks.
 inline bool tf32x3_takes(int dtype, int head_dim) {
     return dtype == kSimtF32 && head_dim >= 16 && head_dim <= 128 && head_dim % 4 == 0;

@@ -995,6 +995,9 @@ struct ForwardSimt {
 
 }  // namespace
 
+// Built in two parts (HM_IN_PART): the wgmma entry, whose kernels take most of the compile, and
+// the others.
+#if HM_IN_PART(1)
 // q, k, v: [B, T, H, D] of one element type `dtype` (SimtDtype: bf16 or fp16),
 // head_dim from 16 to 256, a multiple of 8 or with H * head_dim one, each described by
 // its TMA geometry (sm90::TmaGeometry: the 4-D or the packed-heads view, byte strides,
@@ -1023,6 +1026,9 @@ extern "C" int hm_flash_forward_wgmma(const void* q, const void* k, const void* 
     return dispatch_wgmma_width<__nv_bfloat16>(maps, p, batch, stream);
 }
 
+#endif
+
+#if HM_IN_PART(0)
 // q, k, v: [B, T, H, D] fp32 (`dtype` kSimtF32) at a head_dim from 16 to 128 that is a
 // multiple of 4, 16-byte aligned with strides in elements that are multiples of 4 (last dim
 // contiguous) -> out [B, T, H, D] fp32 and lse [B, H, T] fp32 contiguous, on the tensor cores
@@ -1061,3 +1067,4 @@ extern "C" int hm_flash_forward_simt(const void* q, const void* k, const void* v
     if (dtype == kSimtF16) return dispatch_simt_width(head_dim, ForwardSimt<__half>{p, stream});
     return static_cast<int>(cudaErrorInvalidValue);
 }
+#endif

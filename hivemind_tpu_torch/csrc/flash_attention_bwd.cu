@@ -167,8 +167,38 @@
 //  * Masks only on the tiles that meet the diagonal and the tile holding T; rows past T are
 //    never stored; views read through their strides.
 //
-// SIMT (every input the wgmma and 3xTF32 passes do not take: the fp32 dQ pass, fp32 dK/dV at
-// a head_dim that is not a multiple of 4 or outside 16 to 128; bf16 and fp16 at a head_dim
+// dQ pass, 3xTF32 (`flash_bwd_dq_tf32x3<Dp>`: the inputs the 3xTF32 dK/dV pass takes), the
+// dK/dV pass turned round, in the 3xTF32 forward's block shape. What bounds it: operations, three
+// TF32 products for each of the pass's 6 D a (query, key) pair (0.2343 ms at ALBERT's
+// [32, 512, 12, 64] on an H100 SXM); the SIMT pass it replaces reached 22% of the CUDA cores' FMA
+// bound, restaging K and V for every 16 query rows.
+//  * Q and dO of the block's query rows stay resident (hi and lo, split once a block); K and V
+//    stream in 32-key tiles through a ring. S = Q K^T and dP = dO V^T read every operand
+//    K-major as it stands, three SS wgmmas a k-step. dQ += dS K sums over keys, and tf32 wgmma
+//    reads shared memory K-major only, so the producer also stores K^T, its keys in tf32_k_slot
+//    order, through a ring of its own: dS is the A operand, taken from the accumulator by
+//    sm90::tf32_a_fragment without register moves. K and V of a tile are freed once S and dP are
+//    done, K^T a turn later, once dS K is, so each has its own full / empty mbarriers, and the
+//    producer stores K and V of tile j before K^T of tile j - 1, the order the consumers read them.
+//  * Turns as the 16-bit dQ pass's: turn j issues S and dP of tile j with dS K of tile j - 1 as
+//    one wgmma group. Dp = 64: two consumer warpgroups of 64 query rows take turns (ping-pong,
+//    setmaxnreg 104 / 200); Q and dO of 128 rows (hi and lo) 128 KB, 32-key K and V tiles in two
+//    slots (2 x 32 KB), K^T in two (2 x 16 KB): 224 KB; on an H100 one consumer warpgroup of 64
+//    rows with three slots of each ring (208 KB) was the slower. Dp = 128: one consumer warpgroup
+//    of 64 rows; Q and dO 128 KB, 32-key K and V tiles in one slot (64 KB), K^T in one (32 KB):
+//    224 KB; 16-key tiles in two K and V slots (S and dP as m64n16k8 wgmmas) were the slower. A
+//    consumer thread at Dp = 128 holds dQ (64 fp32), the tile's partial (64), S and dP (16 + 16)
+//    and dS's fragments (32).
+//  * dQ is summed a tile at a time: dS K of a tile into a partial from zero, added to dQ by the
+//    CUDA cores (the tensor core's rounding, above). lse (times log2 e) and delta of a thread's
+//    two rows stay in registers for the whole sweep; P = ex2.approx(S scale log2 e - lse log2 e).
+//  * Query tiles heaviest first; causal, the KV loop ends at the block's diagonal, both
+//    warpgroups run every tile (the first one's last 64 keys mask to zero) and free every slot;
+//    masks only on the tiles that meet a warpgroup's diagonal and the tile holding T; rows past T
+//    never stored, dQ stored as float2 pairs below head_dim; views read through their strides.
+//
+// SIMT (every input the wgmma and 3xTF32 passes do not take: fp32 at a head_dim that is not a
+// multiple of 4 or outside 16 to 128; bf16 and fp16 at a head_dim
 // that is not a multiple of 8
 // whose H * head_dim is not one either, or whose span passes 256; any head_dim up to
 // 256, as the TPU kernels take the whole head_dim as their block):
@@ -1047,6 +1077,291 @@ __global__ void __launch_bounds__(256, 1) flash_bwd_dkv_tf32x3(const Params p) {
     }
 }
 
+// ------------------------------------------------------------------ 3xTF32 dQ pass (fp32)
+
+// Shared-memory layout at the padded width Dp (64 or 128; byte offsets from a 1024-aligned
+// base), in the dK/dV pass's fp32 regions. Q and dO of the block's rows stay resident (hi, lo);
+// K and V tiles stream through a ring, K^T tiles through a ring of its own.
+template <int Dp>
+struct Tf32DqTiles {
+    // consumer warpgroups of 64 query rows: two at Dp = 64, taking turns (ping-pong); one at
+    // Dp = 128, where Q and dO of 64 rows (hi and lo) already take 128 KB
+    static constexpr int kConsumers = Dp > 64 ? 1 : 2;
+    static constexpr int kThreads = 128 * (kConsumers + 1);
+    static constexpr int kRows = 64 * kConsumers;      // query rows a block
+    static constexpr int kKvRows = 32;                 // keys a tile
+    static constexpr int kStages = Dp > 64 ? 1 : 2;    // slots of the K and V ring, and of the K^T ring
+    static constexpr int kRegions = Dp / 32;
+    static constexpr uint32_t kQBox = kRows * sm90::kSwizzleRowBytes, kQTile = kQBox * kRegions;
+    static constexpr uint32_t kKBox = kKvRows * sm90::kSwizzleRowBytes, kKTile = kKBox * kRegions;
+    // K^T: Dp rows (K's columns) of kKvRows keys, in one 32-column region
+    static constexpr uint32_t kKtBox = Dp * sm90::kSwizzleRowBytes, kKtTile = kKtBox;
+    static constexpr uint32_t kQ = 0;                      // Q hi, Q lo, dO hi, dO lo
+    static constexpr uint32_t kKv = 4 * kQTile;            // slot s: K hi, K lo, V hi, V lo at kKv + 4 s kKTile
+    static constexpr uint32_t kKt = kKv + 4 * kStages * kKTile;  // slot s: K^T hi, lo at kKt + 2 s kKtTile
+    // full_qdo, full_kv[S], empty_kv[S], full_kt[S], empty_kt[S]
+    static constexpr uint32_t kBarriers = kKt + 2 * kStages * kKtTile;
+    static constexpr uint32_t kBytes = kBarriers + (1 + 4 * kStages) * 8 + sm90::kSwizzleAtomBytes;  // + alignment
+};
+
+// The producer warpgroup's registers where two consumer warpgroups take the rest (Dp = 64), as the
+// 3xTF32 forward's: 128 * 104 + 256 * 200 = 384 * 168, the registers the block is launched with.
+constexpr int kTf32DqProducerRegs = 104, kTf32DqConsumerRegs = 200;
+
+// fp32 q, k, v, dout at a head_dim from 16 to Dp that is a multiple of 4. The producer warpgroup
+// loads Q and dO of the block's rows once, then each K and V tile, with 16-byte loads, splits every
+// value into TF32 hi and lo and stores Q, dO, K and V K-major as they stand (the operands of S = Q K^T
+// and dP = dO V^T) and K once more transposed, its keys in tf32_k_slot order (the B operand of
+// dQ += dS K, whose A operand is dS from registers). Columns past head_dim and rows past T are
+// stored as zeros.
+template <int Dp>
+__global__ void __launch_bounds__(Tf32DqTiles<Dp>::kThreads, 1) flash_bwd_dq_tf32x3(const Params p) {
+    using L = Tf32DqTiles<Dp>;
+    constexpr int kKvRows = L::kKvRows, kConsumers = L::kConsumers, kStages = L::kStages;
+    extern __shared__ unsigned char smem_raw[];
+    const uint32_t base = (sm90::smem_addr(smem_raw) + sm90::kSwizzleAtomBytes - 1) & ~(sm90::kSwizzleAtomBytes - 1);
+    const uint32_t full_qdo = base + L::kBarriers;
+    const auto full_kv = [&](int s) { return full_qdo + 8 * (1 + s); };
+    const auto empty_kv = [&](int s) { return full_qdo + 8 * (1 + kStages + s); };
+    const auto full_kt = [&](int s) { return full_qdo + 8 * (1 + 2 * kStages + s); };
+    const auto empty_kt = [&](int s) { return full_qdo + 8 * (1 + 3 * kStages + s); };
+    const auto kv_slot = [&](int s) { return base + L::kKv + 4 * s * L::kKTile; };  // K hi; K lo, V hi, V lo after it
+    const auto kt_slot = [&](int s) { return base + L::kKt + 2 * s * L::kKtTile; };  // hi; lo at + kKtTile
+
+    const int bh = blockIdx.x;
+    const int b = bh / p.heads, h = bh % p.heads;
+    const int q_tiles = (p.seq + L::kRows - 1) / L::kRows;
+    const int q0 = (q_tiles - 1 - static_cast<int>(blockIdx.y)) * L::kRows;  // heaviest first
+    const int kv_end = p.causal ? min(p.seq, q0 + L::kRows) : p.seq;         // causal: up to the diagonal
+    const int kv_tiles = (kv_end + kKvRows - 1) / kKvRows;
+
+    if (threadIdx.x == 0) {
+        sm90::mbar_init(full_qdo, 128);  // every producer thread stores a part of each tile
+        for (int s = 0; s < kStages; ++s) {
+            sm90::mbar_init(full_kv(s), 128);
+            sm90::mbar_init(full_kt(s), 128);
+            sm90::mbar_init(empty_kv(s), 4 * kConsumers);  // the consumer warps
+            sm90::mbar_init(empty_kt(s), 4 * kConsumers);
+        }
+        sm90::fence_mbar_init();
+    }
+    __syncthreads();
+
+    if (threadIdx.x >= kConsumers * 128) {  // the producer warpgroup
+        if constexpr (kConsumers == 2) sm90::setmaxnreg_dec<kTf32DqProducerRegs>();
+        const int thread = threadIdx.x - kConsumers * 128;
+        const float* k_base = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+        const float* v_base = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+        using QRows = sm90::Tf32RowLoader<64, Dp>;  // Q and dO a warpgroup's 64 rows at a time
+        using KvRows = sm90::Tf32RowLoader<kKvRows, Dp>;
+#pragma unroll 1
+        for (int i = 0; i < 2 * L::kRows / 64; ++i) {  // Q's rows, then dO's
+            const bool is_q = i < L::kRows / 64;
+            const int rows = (is_q ? i : i - L::kRows / 64) * 64;
+            const float* src = is_q ? static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh
+                                    : static_cast<const float*>(p.dout) + b * p.d_sb + h * p.d_sh;
+            float4 regs[QRows::kChunks];
+            QRows::load(regs, src, is_q ? p.q_st : p.d_st, q0 + rows, thread, p.seq, p.head_dim);
+            const uint32_t tile = base + L::kQ + (is_q ? 0 : 2 * L::kQTile) + rows * sm90::kSwizzleRowBytes;
+            QRows::store(regs, tile, tile + L::kQTile, L::kQBox, thread);
+        }
+        sm90::fence_proxy_async();
+        sm90::mbar_arrive(full_qdo);
+        // Iteration j stores K and V of tile j, then K^T of tile j - 1: the order the consumers take
+        // them in (turn j reads K and V of tile j and K^T of tile j - 1). K of tile j is loaded into
+        // registers as soon as its K^T's predecessor is stored, V as soon as V of the tile before is
+        // stored, so the loads run while the slots drain.
+        float4 k_regs[KvRows::kChunks], k_prev[KvRows::kChunks], v_regs[KvRows::kChunks];
+        KvRows::load(k_regs, k_base, p.k_st, 0, thread, p.seq, p.head_dim);
+        KvRows::load(v_regs, v_base, p.v_st, 0, thread, p.seq, p.head_dim);
+        for (int j = 0; j <= kv_tiles; ++j) {
+            if (j < kv_tiles) {
+                const int s = j % kStages;
+                sm90::mbar_wait(empty_kv(s), ((j / kStages) & 1) ^ 1);  // the first round passes at once
+                const uint32_t slot = kv_slot(s);
+                KvRows::store(k_regs, slot, slot + L::kKTile, L::kKBox, thread);
+                KvRows::store(v_regs, slot + 2 * L::kKTile, slot + 3 * L::kKTile, L::kKBox, thread);
+                sm90::fence_proxy_async();
+                sm90::mbar_arrive(full_kv(s));
+                if (j + 1 < kv_tiles) KvRows::load(v_regs, v_base, p.v_st, (j + 1) * kKvRows, thread, p.seq, p.head_dim);
+            }
+            if (j > 0) {
+                const int s = (j - 1) % kStages;
+                sm90::mbar_wait(empty_kt(s), (((j - 1) / kStages) & 1) ^ 1);
+                KvRows::store_transposed(k_prev, kt_slot(s), kt_slot(s) + L::kKtTile, L::kKtBox, thread);
+                sm90::fence_proxy_async();
+                sm90::mbar_arrive(full_kt(s));
+            }
+            if (j < kv_tiles) {
+#pragma unroll
+                for (int i = 0; i < KvRows::kChunks; ++i) k_prev[i] = k_regs[i];
+                if (j + 1 < kv_tiles) KvRows::load(k_regs, k_base, p.k_st, (j + 1) * kKvRows, thread, p.seq, p.head_dim);
+            }
+        }
+    } else {  // the consumer warpgroups, 64 query rows each
+        if constexpr (kConsumers == 2) sm90::setmaxnreg_inc<kTf32DqConsumerRegs>();
+        const int wg = threadIdx.x / 128;
+        const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+        const int g = lane / 4, t = lane % 4;
+        const int row_a = q0 + wg * 64 + warp * 16 + g, row_b = row_a + 8;  // this thread's query rows
+        const float scale2 = p.scale * sm90::kLog2e;
+        const long long rows = static_cast<long long>(bh) * p.seq;
+        const float lse_a = row_a < p.seq ? p.lse[rows + row_a] * sm90::kLog2e : 0.0f;
+        const float lse_b = row_b < p.seq ? p.lse[rows + row_b] * sm90::kLog2e : 0.0f;
+        const float delta_a = row_a < p.seq ? p.delta[rows + row_a] : 0.0f;
+        const float delta_b = row_b < p.seq ? p.delta[rows + row_b] : 0.0f;
+
+        float dq[Dp / 2];
+#pragma unroll
+        for (int i = 0; i < Dp / 2; ++i) dq[i] = 0.0f;
+        float sc[kKvRows / 2], dp[kKvRows / 2];               // S = Q K^T (then dS) and dP = dO V^T of one tile
+        uint32_t df_hi[kKvRows / 8][4], df_lo[kKvRows / 8][4];  // dS's A fragments, 8 keys each
+        // dS K of one tile, summed from zero and added to dQ by the CUDA cores: the tensor core's
+        // additions round toward zero relative to the sum they add to, so dQ carried through the
+        // sweep would drift by the sweep's length (the dK/dV pass's note); a tile's partial drifts by
+        // the tile's
+        float part[Dp / 2];
+        const uint32_t q_wg = base + L::kQ + wg * 64 * sm90::kSwizzleRowBytes;  // this warpgroup's rows of Q hi
+
+        // S and dP of tile j: the small terms first (A_lo B_hi, A_hi B_lo, then A_hi B_hi). The bases pass
+        // through an empty asm, so the descriptors are made at each call, not held across the sweep.
+        const auto issue_s_dp = [&](int j) {
+            uint32_t q_hi = q_wg, k_hi = kv_slot(j % kStages);
+            asm volatile("" : "+r"(q_hi), "+r"(k_hi));
+            const uint32_t q_lo = q_hi + L::kQTile, do_hi = q_hi + 2 * L::kQTile, do_lo = q_hi + 3 * L::kQTile;
+            const uint32_t k_lo = k_hi + L::kKTile, v_hi = k_hi + 2 * L::kKTile, v_lo = k_hi + 3 * L::kKTile;
+#pragma unroll
+            for (int term = 0; term < 3; ++term) {
+#pragma unroll
+                for (int kk = 0; kk < Dp / 8; ++kk) {
+                    // region kk / 4, then 32 bytes (8 columns) along its swizzled 128-byte rows
+                    const uint32_t q_off = (kk / 4) * L::kQBox + (kk % 4) * 32;
+                    const uint32_t k_off = (kk / 4) * L::kKBox + (kk % 4) * 32;
+                    sm90::wgmma_ss_tf32(sc, sm90::desc_kmajor((term == 0 ? q_lo : q_hi) + q_off),
+                                        sm90::desc_kmajor((term == 1 ? k_lo : k_hi) + k_off), term > 0 || kk > 0);
+                }
+            }
+#pragma unroll
+            for (int term = 0; term < 3; ++term) {
+#pragma unroll
+                for (int kk = 0; kk < Dp / 8; ++kk) {
+                    const uint32_t q_off = (kk / 4) * L::kQBox + (kk % 4) * 32;
+                    const uint32_t k_off = (kk / 4) * L::kKBox + (kk % 4) * 32;
+                    sm90::wgmma_ss_tf32(dp, sm90::desc_kmajor((term == 0 ? do_lo : do_hi) + q_off),
+                                        sm90::desc_kmajor((term == 1 ? v_lo : v_hi) + k_off), term > 0 || kk > 0);
+                }
+            }
+        };
+        // part = dS K of tile j: dS_lo K_hi + dS_hi K_lo + dS_hi K_hi, K^T K-major
+        const auto issue_dq = [&](int j) {
+            uint32_t kt_hi = kt_slot(j % kStages);
+            asm volatile("" : "+r"(kt_hi));  // as issue_s_dp's bases
+            const uint32_t kt_lo = kt_hi + L::kKtTile;
+#pragma unroll
+            for (int term = 0; term < 3; ++term) {
+#pragma unroll
+                for (int kc = 0; kc < kKvRows / 8; ++kc) {  // 8 keys a k-step: 32 bytes along K^T's rows
+                    sm90::wgmma_rs_tf32(part, term == 0 ? df_lo[kc] : df_hi[kc],
+                                        sm90::desc_kmajor((term == 1 ? kt_lo : kt_hi) + kc * 32), term > 0 || kc > 0);
+                }
+            }
+        };
+        // dS of tile j in place of its scores (column c of the tile is key kv0 + c), split into df_*
+        const auto make_ds = [&](int j) {
+            const int kv0 = j * kKvRows;
+            const bool edge = kv0 + kKvRows > p.seq || (p.causal && kv0 + kKvRows - 1 > q0 + wg * 64);
+#pragma unroll
+            for (int e = 0; e < kKvRows / 2; ++e) {
+                const bool hi = e & 2;  // row_b's entries
+                float prob = sm90::exp2_approx(fmaf(sc[e], scale2, -(hi ? lse_b : lse_a)));
+                if (edge) {
+                    const int col = kv0 + (e / 4) * 8 + 2 * t + (e & 1);
+                    if (col >= p.seq || (p.causal && col > (hi ? row_b : row_a))) prob = 0.0f;
+                }
+                sc[e] = prob * (dp[e] - (hi ? delta_b : delta_a)) * p.scale;
+            }
+#pragma unroll
+            for (int kc = 0; kc < kKvRows / 8; ++kc) sm90::tf32_a_fragment(sc, kc, df_hi[kc], df_lo[kc]);
+        };
+        // the 16-bit dQ pass's turns: turn j issues S and dP of tile j and dS K of tile j - 1 as one
+        // wgmma group; with two consumer warpgroups they take turns (named barriers 1 and 2)
+        const auto take_turn = [&]() {
+            if constexpr (kConsumers == 2) sm90::named_bar_sync(1 + wg, 2 * 128);
+            sm90::fence_regs(sc);
+            sm90::fence_regs(dp);
+            sm90::fence_regs(part);
+            sm90::fence_regs(df_hi);
+            sm90::fence_regs(df_lo);
+            sm90::wgmma_fence();
+        };
+        const auto pass_turn = [&]() {
+            if constexpr (kConsumers == 2) sm90::named_bar_arrive(2 - wg, 2 * 128);
+        };
+        const auto finish_turn = [&]() {
+            sm90::wgmma_wait<0>();
+            sm90::fence_regs(sc);
+            sm90::fence_regs(dp);
+            sm90::fence_regs(part);
+        };
+        // a tile the producer stored has landed: its generic-proxy stores are fenced for wgmma's reads
+        const auto wait_full = [&](uint32_t bar, int n) {
+            sm90::mbar_wait(bar, n & 1);
+            sm90::fence_proxy_async();
+        };
+        if (wg == 1) pass_turn();
+        wait_full(full_qdo, 0);
+        wait_full(full_kv(0), 0);
+        take_turn();
+        issue_s_dp(0);
+        sm90::wgmma_commit();
+        pass_turn();
+        finish_turn();
+        if (lane == 0) sm90::mbar_arrive(empty_kv(0));  // this warp is done with K and V of tile 0
+        make_ds(0);
+        for (int j = 1; j < kv_tiles; ++j) {
+            wait_full(full_kv(j % kStages), j / kStages);
+            wait_full(full_kt((j - 1) % kStages), (j - 1) / kStages);
+            take_turn();
+            issue_s_dp(j);
+            issue_dq(j - 1);
+            sm90::wgmma_commit();
+            pass_turn();
+            finish_turn();
+            if (lane == 0) {  // this warp is done with K and V of tile j and K^T of tile j - 1
+                sm90::mbar_arrive(empty_kv(j % kStages));
+                sm90::mbar_arrive(empty_kt((j - 1) % kStages));
+            }
+#pragma unroll
+            for (int i = 0; i < Dp / 2; ++i) dq[i] += part[i];
+            make_ds(j);
+        }
+        const int last = kv_tiles - 1;
+        wait_full(full_kt(last % kStages), last / kStages);
+        take_turn();
+        issue_dq(last);
+        sm90::wgmma_commit();
+        if (wg == 0) pass_turn();  // warpgroup 1's last turn has no taker
+        finish_turn();
+#pragma unroll
+        for (int i = 0; i < Dp / 2; ++i) dq[i] += part[i];
+
+        float* dq_base = static_cast<float*>(p.out0) + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+        for (int c = 0; c < Dp / 8; ++c) {
+            const int col = c * 8 + t * 2;  // a pair below head_dim (a multiple of 4) or none of it
+            if (col < p.head_dim) {
+                if (row_a < p.seq) {
+                    *reinterpret_cast<float2*>(dq_base + row_a * p.o_st + col) = make_float2(dq[4 * c], dq[4 * c + 1]);
+                }
+                if (row_b < p.seq) {
+                    *reinterpret_cast<float2*>(dq_base + row_b * p.o_st + col) =
+                        make_float2(dq[4 * c + 2], dq[4 * c + 3]);
+                }
+            }
+        }
+    }
+}
+
 // ------------------------------------------------------------------ SIMT path
 
 constexpr int kRowsPerWarp = 4;
@@ -1310,6 +1625,7 @@ int dispatch_width(const CUtensorMap (&maps)[4], const WgmmaParams& p, int batch
 
 // The tensor maps of q, k, v, dout from the wrapper's geometries (boxes of 64 x 64),
 // with boxes of `kv_rows` rows for k and v.
+#if HM_IN_PART(1) || HM_IN_PART(2)
 int encode_maps(CUtensorMap (&maps)[4], const void* const (&bases)[4], const long long* const (&geometries)[4],
                 int head_dim, int heads, int dtype, int kv_rows) {
     for (int i = 0; i < 4; ++i) {
@@ -1347,6 +1663,7 @@ int launch_wgmma_pass(const void* q, const void* k, const void* v, const void* d
     if (dtype == kSimtF16) return dispatch_width<kDq, __half>(maps, p, batch, stream);
     return dispatch_width<kDq, __nv_bfloat16>(maps, p, batch, stream);
 }
+#endif
 
 // The 3xTF32 dK/dV pass: a block per (batch*head, 64 KV rows).
 template <int Dp>
@@ -1360,6 +1677,19 @@ int launch_dkv_tf32x3(const Params& p, cudaStream_t stream) {
     return static_cast<int>(cudaGetLastError());
 }
 
+// The 3xTF32 dQ pass: a block per (batch*head, 128 query rows at Dp = 64, 64 at 128).
+template <int Dp>
+int launch_dq_tf32x3(const Params& p, cudaStream_t stream) {
+    using L = Tf32DqTiles<Dp>;
+    const auto kernel = flash_bwd_dq_tf32x3<Dp>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(L::kBytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid(p.batch * p.heads, (p.seq + L::kRows - 1) / L::kRows);
+    kernel<<<grid, L::kThreads, L::kBytes, stream>>>(p);
+    return static_cast<int>(cudaGetLastError());
+}
+
+#if HM_IN_PART(0)
 Params make_params(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                    const float* delta, void* out0, void* out1, int batch, int seq, int heads, int head_dim,
                    long long q_sb, long long q_st, long long q_sh, long long k_sb, long long k_st, long long k_sh,
@@ -1369,9 +1699,13 @@ Params make_params(const void* q, const void* k, const void* v, const void* dout
                   q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, d_sb, d_st, d_sh, o_sb, o_st, o_sh,
                   scale, causal};
 }
+#endif
 
 }  // namespace
 
+// Built in three parts (HM_IN_PART): the wgmma dQ entry, the wgmma dK/dV entry, whose kernels take
+// most of the compile, and the others.
+#if HM_IN_PART(0)
 // q, k, v, dout: [B, T, H, D] of one element type `dtype` (SimtDtype: fp32, bf16
 // or fp16; last dim contiguous, strides in elements), head_dim 1 to 256; lse,
 // delta: [B, H, T] fp32 contiguous -> dq [B, T, H, D] of that type.
@@ -1426,6 +1760,29 @@ extern "C" int hm_flash_backward_dkv_tf32x3(const void* q, const void* k, const 
     return head_dim <= 64 ? launch_dkv_tf32x3<64>(p, stream) : launch_dkv_tf32x3<128>(p, stream);
 }
 
+// As hm_flash_backward_dq_simt, for fp32 (`dtype` kSimtF32) at a head_dim from 16 to 128 that is
+// a multiple of 4, q, k, v, dout 16-byte aligned with strides that are multiples of 4 elements
+// -> dq fp32, on the tensor cores in 3xTF32.
+extern "C" int hm_flash_backward_dq_tf32x3(const void* q, const void* k, const void* v, const void* dout,
+                                           const float* lse, const float* delta, void* dq, int dtype,
+                                           int batch, int seq, int heads, int head_dim,
+                                           long long q_sb, long long q_st, long long q_sh,
+                                           long long k_sb, long long k_st, long long k_sh,
+                                           long long v_sb, long long v_st, long long v_sh,
+                                           long long d_sb, long long d_st, long long d_sh,
+                                           long long o_sb, long long o_st, long long o_sh,
+                                           int causal, float scale, cudaStream_t stream) {
+    if (batch <= 0 || seq <= 0 || heads <= 0) return 0;
+    if (!tf32x3_takes(dtype, head_dim)) return static_cast<int>(cudaErrorInvalidValue);
+    const Params p = make_params(q, k, v, dout, lse, delta, dq, nullptr, batch, seq, heads, head_dim, q_sb, q_st, q_sh,
+                                 k_sb, k_st, k_sh, v_sb, v_st, v_sh, d_sb, d_st, d_sh, o_sb, o_st, o_sh,
+                                 causal, scale);
+    return head_dim <= 64 ? launch_dq_tf32x3<64>(p, stream) : launch_dq_tf32x3<128>(p, stream);
+}
+
+#endif
+
+#if HM_IN_PART(1)
 // q, k, v, dout: [B, T, H, D] of one element type `dtype` (SimtDtype: bf16 or fp16, at
 // a head_dim from 16 to 256 that is a multiple of 8, or any other whose H * head_dim is,
 // in the packed-heads view), each described by its TMA geometry (sm90::TmaGeometry,
@@ -1443,6 +1800,9 @@ extern "C" int hm_flash_backward_dq_wgmma(const void* q, const void* k, const vo
                                    stream);
 }
 
+#endif
+
+#if HM_IN_PART(2)
 // As above -> dk, dv [B, T, H, D] of that type, sharing one layout (o_*).
 extern "C" int hm_flash_backward_dkv_wgmma(const void* q, const void* k, const void* v, const void* dout,
                                            const float* lse, const float* delta, void* dk, void* dv, int dtype,
@@ -1455,3 +1815,4 @@ extern "C" int hm_flash_backward_dkv_wgmma(const void* q, const void* k, const v
                                     q_geometry, k_geometry, v_geometry, d_geometry, o_sb, o_st, o_sh, causal, scale,
                                     stream);
 }
+#endif

@@ -3,7 +3,11 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
 shared library with a plain C interface, then loaded with ``ctypes``. Nothing is
 built at import: a library is compiled at the first launch of one of its kernels
-(or by :func:`build_all`, which starts one ``nvcc`` per source, all at once).
+(or by :func:`build_all`, which starts every ``nvcc`` at once). A source in
+``PARTS`` is compiled as that many translation units side by side, each with
+``-DHM_PART=<i>`` (which keeps the entry points ``csrc/common.cuh``'s
+``HM_IN_PART(i)`` assigns to it), and its objects are then linked into the one
+library: its kernels compile in parallel.
 
 Libraries land in ``build/hivemind_tpu_torch/`` beside the package, named by a
 hash of the sources and flags, so an edited kernel is rebuilt and an unchanged
@@ -36,9 +40,12 @@ SOURCES = ("blockwise_int8", "flash_attention", "flash_attention_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills of every kernel, kept in the build log
 )
+# the translation units of a source whose kernels take long to compile (the flash passes' wgmma
+# instantiations), each built by its own nvcc
+PARTS = {"flash_attention": 2, "flash_attention_bwd": 3}
 
 _lock = threading.Lock()
 _libraries: Dict[str, ctypes.CDLL] = {}
@@ -69,24 +76,43 @@ def library_path(name: str) -> Path:
 
 
 class _Build:
-    """One running ``nvcc``: it writes a temporary file that replaces ``target``
-    atomically on success, so a concurrent loader never sees a half-written library."""
+    """The running ``nvcc`` of one library: one for a whole source, or one for each part
+    (``PARTS``) and then one that links them. It writes a temporary file that replaces
+    ``target`` atomically on success, so a concurrent loader never sees a half-written
+    library."""
 
     def __init__(self, name: str, target: Path):
         self.name, self.target = name, target
         target.parent.mkdir(parents=True, exist_ok=True)
         fd, self.tmp = tempfile.mkstemp(prefix=f".{target.name}.", dir=target.parent)
         os.close(fd)
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", self.tmp, str(CSRC / f"{name}.cu")]
+        source, parts = str(CSRC / f"{name}.cu"), PARTS.get(name, 1)
+        if parts == 1:
+            self.objects, commands = [], [[find_nvcc(), *NVCC_FLAGS, "-shared", "-o", self.tmp, source]]
+        else:
+            self.objects = [f"{self.tmp}.part{i}.o" for i in range(parts)]
+            commands = [[find_nvcc(), *NVCC_FLAGS, f"-DHM_PART={i}", "-c", "-o", obj, source]
+                        for i, obj in enumerate(self.objects)]
         self.started = time.perf_counter()
-        self.proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self.procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                      for cmd in commands]
 
     def finish(self) -> None:
-        log, _ = self.proc.communicate()
+        logs = [proc.communicate()[0] for proc in self.procs]
+        failed = next((proc.returncode for proc in self.procs if proc.returncode != 0), 0)
+        if not failed and self.objects:
+            link = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-shared", "-o", self.tmp, *self.objects],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            logs.append(link.stdout)
+            failed = link.returncode
+        for obj in self.objects:
+            if os.path.exists(obj):
+                os.unlink(obj)
+        log = "".join(logs)
         self.target.with_suffix(".log").write_text(log)
-        if self.proc.returncode != 0:
+        if failed:
             os.unlink(self.tmp)
-            raise RuntimeError(f"nvcc failed to build {self.name} (exit {self.proc.returncode}):\n{log}")
+            raise RuntimeError(f"nvcc failed to build {self.name} (exit {failed}):\n{log}")
         os.replace(self.tmp, self.target)
         COMPILE_TRACKER.record_compile(f"build.{self.name}", duration_s=time.perf_counter() - self.started,
                                        signature=self.target.name)

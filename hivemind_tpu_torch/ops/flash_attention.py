@@ -14,8 +14,8 @@ A wrapper given CPU tensors runs the plain version; given CUDA tensors it launch
 a kernel or raises. Each kernel wrapper counts its launches in ``.launches``
 (``flash_attention_lse``, ``flash_attention_backward_dq``,
 ``flash_attention_backward_dkv``), those on the packed-heads view also in
-``.packed.launches``, the 3xTF32 kernels' also in ``.tf32x3.launches`` (forward,
-dK/dV) and the SIMT dQ kernel's also in ``.simt.launches``.
+``.packed.launches``, the 3xTF32 kernels' also in ``.tf32x3.launches`` (every pass)
+and the SIMT dQ kernel's also in ``.simt.launches``.
 
 Each pass (the forward, the dQ pass, the dK/dV pass) has up to three designs,
 chosen by :func:`flash_route`: ``"wgmma"`` (tensor cores fed by TMA), ``"tf32x3"``
@@ -25,10 +25,10 @@ three passes: wgmma for bf16 and fp16 at a head_dim from 16 to 256 that is a
 multiple of 8, or any other whose H·D is a multiple of 8 and whose :func:`tma_span`
 is at most 256 (TinyBERT's 26, through the packed-heads view below); SIMT for the
 rest, a 16-bit head_dim that is not a multiple of 8 whose H·D is not one either, or
-whose span passes 256. fp32 runs the forward and the dK/dV pass on tf32x3 at a
-head_dim from 16 to 128 that is a multiple of 4, and its dQ pass, and every other
-fp32 head_dim, on SIMT (plain TF32 would round its inputs to 10 mantissa bits). SIMT
-takes any head_dim up to 256, as the TPU kernels take any head_dim as their block.
+whose span passes 256. fp32 runs all three passes on tf32x3 at a head_dim from 16
+to 128 that is a multiple of 4 (plain TF32 would round its inputs to 10 mantissa
+bits), and every other fp32 head_dim on SIMT. SIMT takes any head_dim up to 256, as
+the TPU kernels take any head_dim as their block.
 A CUDA input launches its pass's route or raises: no route falls back to another.
 :func:`flash_refusal` names the few inputs no design takes. A view a kernel cannot
 read through its strides is copied first (:func:`_kernel_layout`).
@@ -66,8 +66,7 @@ WGMMA_DTYPES = (torch.bfloat16, torch.float16)
 WGMMA_WIDTHS = (64, 128, 256)  # the padded head dims the wgmma kernels are built for
 WGMMA_MIN_HEAD_DIM = 16
 SIMT_MAX_HEAD_DIM = 256  # the SIMT kernels take head_dim 1 to 256
-TF32X3_PASSES = ("forward", "dkv")  # the passes with a 3xTF32 kernel (fp32 dQ runs SIMT)
-TF32X3_HEAD_DIMS = (16, 128)  # fp32 head dims they take, multiples of TF32X3_ALIGN
+TF32X3_HEAD_DIMS = (16, 128)  # fp32 head dims the 3xTF32 kernels take, multiples of TF32X3_ALIGN
 TF32X3_ALIGN = 4  # elements: a head's row is whole 16-byte chunks
 SIMT_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}  # every C entry point's dtype codes
 SIMT_ROWS = 16  # rows a SIMT block owns
@@ -246,13 +245,12 @@ def _library() -> ctypes.CDLL:
     return library
 
 
-def tf32x3_takes(q: torch.Tensor, which: str) -> bool:
-    """Whether the pass ``which`` has a 3xTF32 kernel for ``q``: the forward or the
-    dK/dV pass, fp32 at a head_dim from 16 to 128 that is a multiple of 4."""
+def tf32x3_takes(q: torch.Tensor) -> bool:
+    """Whether the 3xTF32 kernels (one for each pass) take ``q``: fp32 at a head_dim
+    from 16 to 128 that is a multiple of 4."""
     head_dim = q.shape[-1]
     low, high = TF32X3_HEAD_DIMS
-    return (which in TF32X3_PASSES and q.dtype == torch.float32 and low <= head_dim <= high
-            and head_dim % TF32X3_ALIGN == 0)
+    return q.dtype == torch.float32 and low <= head_dim <= high and head_dim % TF32X3_ALIGN == 0
 
 
 def flash_route(q: torch.Tensor, which: str = "forward") -> str:
@@ -260,12 +258,12 @@ def flash_route(q: torch.Tensor, which: str = "forward") -> str:
     the tensors of its shape and dtype): ``"wgmma"`` in every pass for bf16 and fp16
     at a head_dim from 16 to 256 that TMA reads, a multiple of 8 (the 4-D view) or any
     other whose H·D is a multiple of 8 and whose :func:`tma_span` is at most 256 (the
-    packed-heads view); ``"tf32x3"`` for fp32's forward and dK/dV pass where
-    :func:`tf32x3_takes`; ``"simt"`` otherwise."""
+    packed-heads view); ``"tf32x3"`` for fp32 where :func:`tf32x3_takes`; ``"simt"``
+    otherwise."""
     if which not in PASSES:
         raise ValueError(f"flash_route answers for {PASSES}, got {which!r}")
     heads, head_dim = q.shape[-2:]
-    if tf32x3_takes(q, which):
+    if tf32x3_takes(q):
         return "tf32x3"
     if q.dtype not in WGMMA_DTYPES or not WGMMA_MIN_HEAD_DIM <= head_dim <= WGMMA_WIDTHS[-1]:
         return "simt"
@@ -339,9 +337,10 @@ def flash_refusal(q: torch.Tensor, *others: Tuple[str, torch.Tensor]) -> Optiona
 
 
 def tf32x3_block_rows(head_dim: int, which: str) -> int:
-    """Rows a block of a tf32x3 pass owns: the forward's query rows, 128 (two
-    warpgroups) up to a head_dim of 64 and 64 above; the dK/dV pass's 64 KV rows."""
-    return 128 if which == "forward" and head_dim <= 64 else 64
+    """Rows a block of a tf32x3 pass owns: the forward's and the dQ pass's query rows,
+    128 (two warpgroups) up to a head_dim of 64 and 64 above; the dK/dV pass's 64 KV
+    rows."""
+    return 128 if which != "dkv" and head_dim <= 64 else 64
 
 
 def _block_rows(q: torch.Tensor, which: str) -> int:
@@ -416,8 +415,8 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causa
 
 class LaunchCount:
     """A launch count read and reset as a wrapper's ``.launches``: a wrapper's
-    ``.packed`` counts its launches on the packed-heads view, ``.tf32x3`` (forward,
-    dK/dV) those of its 3xTF32 kernel, ``.simt`` (dQ) those of its SIMT kernel."""
+    ``.packed`` counts its launches on the packed-heads view, ``.tf32x3`` those of its
+    3xTF32 kernel, ``.simt`` (dQ) those of its SIMT kernel."""
 
     def __init__(self):
         self.launches = 0
@@ -494,7 +493,7 @@ def _bwd_library() -> ctypes.CDLL:
         wgmma_layout = [ctypes.POINTER(ctypes.c_longlong)] * 4 + [ctypes.c_longlong] * 3
         for name, outputs, layout in (("dq_simt", 1, simt_layout), ("dkv_simt", 2, simt_layout),
                                       ("dq_wgmma", 1, wgmma_layout), ("dkv_wgmma", 2, wgmma_layout),
-                                      ("dkv_tf32x3", 2, simt_layout)):
+                                      ("dq_tf32x3", 1, simt_layout), ("dkv_tf32x3", 2, simt_layout)):
             fn = getattr(library, f"hm_flash_backward_{name}")
             fn.argtypes = ([ctypes.c_void_p] * (6 + outputs) + [ctypes.c_int] * 5 + layout
                            + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
@@ -576,6 +575,7 @@ flash_attention_backward_dkv.launches = 0
 flash_attention_backward_dq.packed = LaunchCount()
 flash_attention_backward_dkv.packed = LaunchCount()
 flash_attention_backward_dq.simt = LaunchCount()
+flash_attention_backward_dq.tf32x3 = LaunchCount()
 flash_attention_backward_dkv.tf32x3 = LaunchCount()
 
 

@@ -242,7 +242,7 @@ W, S, T = "wgmma", "simt", "tf32x3"
         (lambda: _meta((2, 64, 4, 96)), (W, W, W), False, None),
         (lambda: _meta((2, 64, 4, 128)), (W, W, W), False, None),
         (lambda: _meta((2, 64, 4, 256)), (W, W, W), False, None),
-        (lambda: _meta((2, 64, 4, 64), torch.float32), (T, S, T), False, None),  # 3xTF32 but the dQ pass
+        (lambda: _meta((2, 64, 4, 64), torch.float32), (T, T, T), False, None),  # 3xTF32 in every pass
         (lambda: _meta((2, 64, 4, 64), torch.float16), (W, W, W), False, None),
         (lambda: _meta((4096, 8, 16, 64)), (W, W, W), False, None),  # B·H = 65536
         (lambda: _meta((4096, 8, 16, 32), torch.float16), (W, W, W), False, None),  # B·H = 65536
@@ -257,7 +257,7 @@ W, S, T = "wgmma", "simt", "tf32x3"
         (lambda: _meta((2, 64, 4, 128), torch.float16), (W, W, W), False, None),
         # 40-byte head strides: the packed-heads view (H·D = 80) for every pass
         (lambda: _meta((2, 64, 4, 20)), (W, W, W), False, None),
-        (lambda: _meta((2, 64, 4, 128), torch.float32), (T, S, T), False, None),  # 3xTF32, not plain TF32
+        (lambda: _meta((2, 64, 4, 128), torch.float32), (T, T, T), False, None),  # 3xTF32, not plain TF32
         (lambda: _misaligned_view((2, 64, 4, 20)), (W, W, W), True, None),  # TMA needs a copy
         (lambda: _meta((1, 128 * 65535 + 1, 1, 32)), (W, W, W), False, (ValueError, "grid")),  # the dQ pass's 128
         (lambda: _meta((2, 64, 5, 20)), (S, S, S), False, None),  # H·D = 100: no TMA view

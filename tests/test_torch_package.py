@@ -233,6 +233,71 @@ def test_kernel_build_is_keyed_by_source_and_needs_nvcc(tmp_path, monkeypatch):
         _build.find_nvcc()
 
 
+def test_kernel_build_compiles_each_part_at_once_then_links_them(tmp_path, monkeypatch):
+    """A source in PARTS is compiled as that many objects, each with its -DHM_PART, and
+    linked into one library; a whole source is one shared build; no object is left."""
+    log = tmp_path / "nvcc.log"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text('#!/bin/sh\necho "$@" >> "%s"\nout=""\nprev=""\n'
+                    'for a in "$@"; do [ "$prev" = "-o" ] && out="$a"; prev="$a"; done\necho built > "$out"\n' % log)
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    built = _build.build_all()
+    calls = [line.split() for line in log.read_text().splitlines()]
+    for name in _build.SOURCES:
+        source = str(_build.CSRC / f"{name}.cu")
+        compiles = [call for call in calls if call[-1] == source]
+        parts = _build.PARTS.get(name, 1)
+        if parts == 1:
+            assert len(compiles) == 1 and "-shared" in compiles[0] and "-c" not in compiles[0]
+            continue
+        assert sorted(next(a for a in call if a.startswith("-DHM_PART=")) for call in compiles) == [
+            f"-DHM_PART={i}" for i in range(parts)]
+        assert all("-c" in call and "-shared" not in call for call in compiles)
+        objects = [call[call.index("-o") + 1] for call in compiles]
+        (link,) = [call for call in calls if sorted(call[-parts:]) == sorted(objects)]  # compiles log in any order
+        assert "-shared" in link and "-c" not in link
+        assert built[name].read_text() == "built\n"
+    assert not list((tmp_path / "build").glob("*.o"))
+
+
+def test_chip_smoke_children_fork_from_a_server_that_starts_no_thread():
+    """chip_smoke.py's children fork from a server that imports CHILD_PRELOAD: forking is safe
+    only while importing those modules starts no thread (and touches no card)."""
+    probe = ("import importlib, importlib.util, sys, threading\n"
+             "spec = importlib.util.spec_from_file_location('chip_smoke', sys.argv[1])\n"
+             "smoke = importlib.util.module_from_spec(spec); spec.loader.exec_module(smoke)\n"
+             "for name in smoke.CHILD_PRELOAD[1:]: importlib.import_module(name)\n"
+             "import torch\n"
+             "print(threading.active_count(), torch.cuda.is_initialized(), smoke.CHILD_PRELOAD[0])\n")
+    result = subprocess.run([sys.executable, "-c", probe, str(REPO / "chip_smoke.py")], cwd=REPO,
+                            capture_output=True, text=True, timeout=300)
+    assert result.returncode == 0, result.stderr
+    assert result.stdout.split() == ["1", "False", "__main__"]
+
+
+def test_chip_smoke_draws_ahead_the_arrays_drawn_in_turn():
+    """The kernel checks' inputs, drawn ahead by a thread, equal those drawn one by one, and
+    a shape out of order is refused."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    shapes = [(3, 4), (5,), (2, 2, 2)] * 4
+    rng = np.random.default_rng(7)
+    expected = [rng.standard_normal(shape, dtype=np.float32) for shape in shapes]
+    with smoke.Draws(np.random.default_rng(7), shapes, ahead=2) as draw:
+        got = [draw(shape) for shape in shapes]
+    assert all(np.array_equal(a, b) for a, b in zip(expected, got))
+    with smoke.Draws(np.random.default_rng(7), shapes, ahead=2) as draw:  # left early: its thread ends
+        with pytest.raises(AssertionError, match="out of order"):
+            draw((5,))
+    assert len(smoke.FLASH_DRAWS) == 3 * (len(smoke.FLASH_SHAPES) + len(smoke.FLASH_EXTRA_CASES) + len(
+        smoke.UNALIGNED_CASES)) + len(smoke.STRIDED_CASES)
+
+
 @pytest.mark.parametrize("where", ["repo", "alone"])
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path, where):
     script = REPO / "chip_smoke.py"

@@ -1,4 +1,4 @@
-"""The 3xTF32 flash kernels (fp32's forward and dK/dV pass on the tensor cores), on the CPU.
+"""The 3xTF32 flash kernels (fp32's forward, dQ and dK/dV passes on the tensor cores), on the CPU.
 
 The kernels split every fp32 operand into TF32 hi and lo parts and form each product
 from three TF32 products, a_lo·b_hi + a_hi·b_lo + a_hi·b_hi. They run only on the card,
@@ -118,6 +118,19 @@ def _emulated_dkv(q, k, v, dout, lse, delta, causal: bool, split: bool):
     return _products("bhqk,bqhd->bkhd", ds, q, split), _products("bhqk,bqhd->bkhd", p, dout, split)
 
 
+def _emulated_dq(q, k, v, dout, lse, delta, causal: bool, split: bool):
+    """The plain dQ pass with its three products in TF32 arithmetic: S and dP, then
+    dQ = Σ dS·K."""
+    seq, scale = q.shape[1], q.shape[-1] ** -0.5
+    scores = _products("bqhd,bkhd->bhqk", q, k, split) * scale
+    if causal:
+        positions = torch.arange(seq)
+        scores = scores.masked_fill(positions[None, :] > positions[:, None], -1e30)
+    p = torch.exp(scores - lse[..., None])
+    ds = p * (_products("bqhd,bkhd->bhqk", dout, v, split) - delta[..., None]) * scale
+    return _products("bhqk,bkhd->bqhd", ds, k, split)
+
+
 # (B, T, H, D, causal): ALBERT's head dim at a ragged T, head dim 20 (a multiple of 4, not of 8),
 # and 128 (the 3xTF32 kernels' other width)
 EMULATED_CASES = [(1, 200, 2, 64, False), (1, 200, 2, 64, True), (1, 136, 2, 20, True), (1, 128, 2, 128, True)]
@@ -176,6 +189,31 @@ def test_tf32x3_dkv_emulation_meets_the_fp32_limits_against_the_jax_kernel(batch
     assert not all(r["ok"] for r in readings[False]), readings[False]
 
 
+@pytest.mark.parametrize("batch, seq, heads, dim, causal", EMULATED_CASES)
+def test_tf32x3_dq_emulation_meets_the_fp32_limits_against_the_jax_kernel(batch, seq, heads, dim, causal):
+    """The dQ pass with its three products in 3xTF32 against the JAX package's Pallas dQ pass in
+    interpret mode, from the JAX forward's (out, lse) and a non-uniform cotangent, within
+    ``chip_smoke.py``'s fp32 limits (FLASH_BWD_TOL["float32"], each element against atol +
+    rtol·Σ|dS||K|); the same pass in plain TF32 misses them, as the card's planted fault does.
+    Measured: 3xTF32 at most 0.11 of an element's limit (norm ratios <= 7.4e-7, the limit 1e-5);
+    plain TF32 4.4 to 32 limits (norm ratios 5.5e-4 to 6.4e-4)."""
+    q, k, v, dout = _inputs(batch, seq, heads, dim, causal)
+    dout = (dout * np.cos(np.arange(dim))).astype(np.float32)
+    out, lse = jax_flash_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal, interpret=True)
+    dq_j, _, _ = jax_flash_backward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), out, lse, jnp.asarray(dout),
+                                    causal=causal, interpret=True)
+    tq, tk, tv, tdout = (torch.from_numpy(t) for t in (q, k, v, dout))
+    tlse = torch.from_numpy(np.array(lse))
+    delta = flash_module._delta(torch.from_numpy(np.array(out)), tdout)
+    scale = smoke.backward_scales(torch, tq, tk, tv, tdout, tlse, delta, causal)[0]
+    ref = torch.from_numpy(np.array(dq_j))
+    readings = {split: smoke.error_reading(_emulated_dq(tq, tk, tv, tdout, tlse, delta, causal, split), ref, scale,
+                                           smoke.FLASH_BWD_TOL["float32"], 23)
+                for split in (True, False)}
+    assert readings[True]["ok"], readings[True]
+    assert not readings[False]["ok"], readings[False]
+
+
 def _meta(shape, dtype=torch.float32) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device="meta")
 
@@ -185,22 +223,22 @@ T, S = "tf32x3", "simt"
 
 # fp32 input -> each pass's route (forward, dq, dkv), whether the kernels read a copy
 @pytest.mark.parametrize("make, routes, copy", [
-    (lambda: _meta((2, 64, 4, 64)), (T, S, T), False),
-    (lambda: _meta((2, 64, 4, 128)), (T, S, T), False),
-    (lambda: _meta((2, 64, 4, 20)), (T, S, T), False),  # a multiple of 4, not of 8
-    (lambda: _meta((2, 64, 4, 16)), (T, S, T), False),
+    (lambda: _meta((2, 64, 4, 64)), (T, T, T), False),
+    (lambda: _meta((2, 64, 4, 128)), (T, T, T), False),
+    (lambda: _meta((2, 64, 4, 20)), (T, T, T), False),  # a multiple of 4, not of 8
+    (lambda: _meta((2, 64, 4, 16)), (T, T, T), False),
     (lambda: _meta((2, 64, 4, 18)), (S, S, S), False),  # not a multiple of 4: rows not whole 16-byte chunks
     (lambda: _meta((2, 64, 4, 12)), (S, S, S), False),  # below 16
     (lambda: _meta((2, 64, 4, 132)), (S, S, S), False),  # past 128
     (lambda: _meta((2, 64, 4, 256)), (S, S, S), False),
-    (lambda: _meta((2, 64, 3, 4, 64))[:, :, 1], (T, S, T), False),  # a fused projection's slice: 16-byte aligned
-    (lambda: _meta((2, 64, 4, 66))[..., :64], (T, S, T), True),  # head stride 66: not a multiple of 4
-    (lambda: _meta((2 * 64 * 4 * 64 + 1,))[1:].view(2, 64, 4, 64), (T, S, T), True),  # 4 bytes off 16-byte alignment
-    (lambda: _meta((2, 64, 4, 18))[..., :16], (T, S, T), True),  # head stride 18
-    (lambda: _meta((2, 64, 64, 4)).transpose(2, 3), (T, S, T), True),  # head dim not contiguous
+    (lambda: _meta((2, 64, 3, 4, 64))[:, :, 1], (T, T, T), False),  # a fused projection's slice: 16-byte aligned
+    (lambda: _meta((2, 64, 4, 66))[..., :64], (T, T, T), True),  # head stride 66: not a multiple of 4
+    (lambda: _meta((2 * 64 * 4 * 64 + 1,))[1:].view(2, 64, 4, 64), (T, T, T), True),  # 4 bytes off 16-byte alignment
+    (lambda: _meta((2, 64, 4, 18))[..., :16], (T, T, T), True),  # head stride 18
+    (lambda: _meta((2, 64, 64, 4)).transpose(2, 3), (T, T, T), True),  # head dim not contiguous
 ], ids=["d64", "d128", "d20", "d16", "d18", "d12", "d132", "d256", "fused", "head_stride_66", "misaligned",
         "head_stride_18", "strided_head_dim"])
-def test_fp32_routes_take_tf32x3_for_the_forward_and_dkv_and_simt_for_dq(make, routes, copy):
+def test_fp32_routes_take_tf32x3_in_every_pass_and_simt_outside_its_head_dims(make, routes, copy):
     q = make()
     assert tuple(flash_route(q, which) for which in PASSES) == routes
     assert flash_routes(q) == " ".join(f"{which}={route}" for which, route in zip(PASSES, routes))
@@ -211,13 +249,15 @@ def test_fp32_routes_take_tf32x3_for_the_forward_and_dkv_and_simt_for_dq(make, r
 
 
 def test_tf32x3_blocks_and_the_grid_take_the_finest_rows():
-    """A tf32x3 forward block owns 128 query rows up to a head_dim of 64 and 64 above, a
-    dK/dV block 64 KV rows; fp32's dQ pass on SIMT (16 rows a block) bounds T."""
+    """A tf32x3 forward or dQ block owns 128 query rows up to a head_dim of 64 and 64 above, a
+    dK/dV block 64 KV rows, which bound T; at a head_dim SIMT takes, its 16 rows a block do."""
     assert [tf32x3_block_rows(d, "forward") for d in (16, 64, 68, 128)] == [128, 128, 64, 64]
+    assert [tf32x3_block_rows(d, "dq") for d in (16, 64, 68, 128)] == [128, 128, 64, 64]
     assert [tf32x3_block_rows(d, "dkv") for d in (16, 64, 128)] == [64, 64, 64]
-    assert flash_refusal(_meta((1, 16 * 65535, 1, 64))) is None
-    error, message = flash_refusal(_meta((1, 16 * 65535 + 1, 1, 64)))
-    assert error is ValueError and f"T <= {16 * 65535}" in message
+    for head_dim, rows in ((64, 64), (128, 64), (18, 16)):
+        assert flash_refusal(_meta((1, rows * 65535, 1, head_dim))) is None
+        error, message = flash_refusal(_meta((1, rows * 65535 + 1, 1, head_dim)))
+        assert error is ValueError and f"T <= {rows * 65535}" in message
 
 
 @pytest.fixture
@@ -236,7 +276,8 @@ def recorded_launches(monkeypatch):
     monkeypatch.setattr(flash_module._build, "check_launch", lambda library, status, what: None)
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: type("Stream", (), {"cuda_stream": 7})())
-    for wrapper, routes in ((flash_attention_lse, ("packed", "tf32x3")), (flash_attention_backward_dq, ("packed", "simt")),
+    for wrapper, routes in ((flash_attention_lse, ("packed", "tf32x3")),
+                            (flash_attention_backward_dq, ("packed", "simt", "tf32x3")),
                             (flash_attention_backward_dkv, ("packed", "tf32x3"))):
         monkeypatch.setattr(wrapper, "launches", 0)
         for route in routes:
@@ -246,22 +287,32 @@ def recorded_launches(monkeypatch):
 
 def test_fp32_wrappers_launch_tf32x3_and_simt_through_the_strides_and_count_each_route(recorded_launches):
     """An fp32 [B, T, H, 64] forward and backward launch ``hm_flash_forward_tf32x3``,
-    ``hm_flash_backward_dq_simt`` and ``hm_flash_backward_dkv_tf32x3`` with the tensors'
-    B, T, H strides in elements (no TMA views), and each launch counts on its route."""
+    ``hm_flash_backward_dq_tf32x3`` and ``hm_flash_backward_dkv_tf32x3`` with the tensors'
+    B, T, H strides in elements (no TMA views); at head_dim 18 the three SIMT kernels run; each
+    launch counts on its route."""
     fused = _meta((2, 96, 3, 4, 64))
     q, k, v = fused.unbind(2)  # T stride 3·4·64, read through it
     out, lse = flash_attention_lse(q, k, v, causal=True)
     assert out.is_contiguous() and lse.shape == (2, 4, 96)
     flash_attention_backward(q, k, v, out, lse, _meta((2, 96, 4, 64)), causal=True)
     names = [name for name, _ in recorded_launches]
-    assert names == ["hm_flash_forward_tf32x3", "hm_flash_backward_dq_simt", "hm_flash_backward_dkv_tf32x3"]
+    assert names == ["hm_flash_forward_tf32x3", "hm_flash_backward_dq_tf32x3", "hm_flash_backward_dkv_tf32x3"]
     forward_args = recorded_launches[0][1]
     assert forward_args[5:10] == (0, 2, 96, 4, 64)  # dtype code (fp32), B, T, H, D
     assert forward_args[10:22] == (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
     assert forward_args[-3:-1] == (1, 64 ** -0.5)
+    dq_args = recorded_launches[1][1]
+    assert dq_args[7:12] == (0, 2, 96, 4, 64) and dq_args[12:15] == q.stride()[:3]
+    assert dq_args[24:27] == (96 * 4 * 64, 4 * 64, 64)  # dq's, contiguous
     dkv_args = recorded_launches[2][1]
     assert dkv_args[8:13] == (0, 2, 96, 4, 64) and dkv_args[13:16] == q.stride()[:3]
+    q18 = _meta((2, 96, 4, 18))
+    out18, lse18 = flash_attention_lse(q18, q18, q18)
+    flash_attention_backward(q18, q18, q18, out18, lse18, q18)
+    assert [name for name, _ in recorded_launches[3:]] == [
+        "hm_flash_forward_simt", "hm_flash_backward_dq_simt", "hm_flash_backward_dkv_simt"]
     counts = [(flash_attention_lse.launches, flash_attention_lse.tf32x3.launches, flash_attention_lse.packed.launches),
-              (flash_attention_backward_dq.launches, flash_attention_backward_dq.simt.launches),
+              (flash_attention_backward_dq.launches, flash_attention_backward_dq.tf32x3.launches,
+               flash_attention_backward_dq.simt.launches),
               (flash_attention_backward_dkv.launches, flash_attention_backward_dkv.tf32x3.launches)]
-    assert counts == [(1, 1, 0), (1, 1), (1, 1)]
+    assert counts == [(2, 1, 0), (2, 1, 1), (2, 1)]

@@ -3,8 +3,9 @@
 
 For each input, each pass the wrappers route to a redesign of SIMT (wgmma: all three
 passes, on the 4-D view at a 16-bit head dim that is a multiple of 8 and on the
-packed-heads view at any other whose H·D is one; tf32x3: fp32's forward and dK/dV pass;
-a pass that is SIMT for the input is noted and not timed) runs through its wrapper
+packed-heads view at any other whose H·D is one; tf32x3: all three fp32 passes at a head
+dim from 16 to 128 that is a multiple of 4; a pass that is SIMT for the input is noted and
+not timed) runs through its wrapper
 (``flash_attention_lse``, ``flash_attention_backward_dq``, ``flash_attention_backward_dkv``)
 and through the SIMT kernel's C entry point on the same tensors, in turns (SIMT, route,
 route, SIMT), each held to the plain PyTorch version first. Each line gives both
@@ -42,8 +43,8 @@ ROOT = Path(__file__).resolve().parents[1]
 # head_dim 16 (padded 4x by the wgmma design), Phi-2's and Gemma-7B's widths and fp16 at a
 # Llama-2-7B request of 2048 tokens; then the packed-heads view: head dim 20 at row 1s's
 # shape, the TinyBERT-width expert's attention (12 heads of 26), an odd head dim, and fp16 at
-# 196 (padded to 256); then fp32 on the 3xTF32 forward and dK/dV pass: ALBERT's training shape, a
-# Llama-2-7B request of 2048 tokens and PERF.md row 3s's dK/dV shape
+# 196 (padded to 256); then fp32 on the three 3xTF32 passes: ALBERT's training shape, a Llama-2-7B
+# request of 2048 tokens and PERF.md rows 2t's and 3t's [1, 512, 32, 128] causal
 DEFAULT_CASES = [
     ((2, 1000, 16, 32), "bfloat16", True), ((1, 512, 8, 96), "bfloat16", True), ((1, 512, 4, 256), "float16", True),
     ((2, 1000, 16, 16), "bfloat16", True), ((1, 2048, 32, 80), "bfloat16", True),
