@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke test of hivemind_tpu_torch: builds the port's Hopper kernels,
 holds each against its plain PyTorch version at the shapes of the paths that run
-it, then drives seventeen paths and checks each against the CPU, the local path or
+it, then drives eighteen paths and checks each against the CPU, the local path or
 the exact result:
 - serving: two Llama-2-7B-width blocks (fp and int8 weight-only) through
   load_llama_blocks → ModuleBackend → TaskPool/Runtime, and two experts below the wgmma
@@ -18,6 +18,11 @@ the exact result:
   RemoteSequential and the client head in this process: forward, greedy decode,
   failover when a replica process is killed, and autograd backward, against the
   local path (in a thread of its own beside [collab]);
+- relay: the relay tier: run_relay (the entry point) builds the port's relay daemon from
+  source and advertises it in the DHT; a NATed server process with the same fp blocks
+  registers there through its AutoRelay, and a client that knows it only through the DHT
+  forwards and generates through the relay; then a server P2P and a client P2P each with
+  a private daemon (the native transport) carry a lossless forward through its C++ AEAD;
 - dmoe: the decentralized mixture of experts (BASELINE config 4: 64 ffn experts of
   width 1024, top-4, a [2048, 1024] batch) on server processes found through the DHT,
   fp32 and int8, with RemoteMixtureOfExperts as the client: beam search, forward and
@@ -380,6 +385,15 @@ SWARM_FORWARD_LENGTH = 512
 SWARM_KILL_AFTER = 12
 SWARM_STARTUP_LIMIT_S = 120.0
 SWARM_PHASE_LIMIT_S = 180.0
+# [relay]: the relay tier: run_relay's daemon advertised in the DHT, a NATed
+# server process with the two fp blocks reached only through it, and the native transport's
+# private daemons in this process. Budget: the phase, children included, must end within
+# RELAY_PHASE_LIMIT_S (a timer kills the children past it, which fails the phase).
+RELAY_PREFIX = "relay_fp."
+RELAY_FORWARD_LENGTH = 512
+RELAY_TIMED_RUNS = 3
+RELAY_STARTUP_LIMIT_S = 45.0
+RELAY_PHASE_LIMIT_S = 60.0
 # [dmoe]: BASELINE config 4, the reference's MoE throughput setup (upstream hivemind
 # docs/user/benchmarks.md: ffn experts at hid_dim 1024, client batches of 2048): 64 `ffn`
 # experts (hid -> 4 hid -> hid with LayerNorm, 8.4 M parameters each) on the grid
@@ -3018,6 +3032,367 @@ def phase_swarm(torch, checkpoint_dir: str, wrappers: dict, telemetry: Telemetry
     log(f"[swarm] phase wall {elapsed:.1f} s (limit {SWARM_PHASE_LIMIT_S} s)")
     check(elapsed <= SWARM_PHASE_LIMIT_S, f"[swarm] took {elapsed:.1f} s > {SWARM_PHASE_LIMIT_S} s")
     telemetry.readings["swarm"] = readings
+    if faults:
+        raise AssertionError("; ".join(faults))
+    return launches
+
+
+def relay_server_main(conn, checkpoint_dir: str, initial_peers: list) -> None:
+    """The server process of ``[relay]``: a NATed peer. Its DHT announces a port that
+    nothing listens on (an unforwarded NAT mapping), so a direct dial to it is refused;
+    a Server over ``load_llama_blocks`` serves the two fp blocks on ``cuda``. Answers
+    the parent over ``conn``: ``("autorelay", bootstrap)`` runs ``AutoRelay.create``
+    with the AutoNAT dial-back through the bootstrap peer and replies with its diagnosis,
+    the relays it registered at and its seconds; ``reset`` and ``report`` (the flash
+    forward's launches) and ``stop``."""
+    import socket
+    import traceback
+
+    try:
+        import torch
+
+        from hivemind_tpu_torch.dht import DHT
+        from hivemind_tpu_torch.moe.server import Server, load_llama_blocks
+        from hivemind_tpu_torch.ops import flash_attention
+        from hivemind_tpu_torch.p2p import AutoRelay, PeerID
+        from hivemind_tpu_torch.utils.loop import get_loop_runner
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        forward = flash_attention.flash_attention_lse
+        backends = load_llama_blocks(checkpoint_dir, uid_prefix=RELAY_PREFIX, device="cuda")[0]
+        devices = sorted({backend.device.type for backend in backends.values()})
+        if devices != ["cuda"]:
+            raise RuntimeError(f"the relay server's blocks are on {devices}, not the card")
+        with socket.socket() as probe:
+            probe.bind(("127.0.0.1", 0))
+            dead_port = probe.getsockname()[1]
+        dht = DHT(initial_peers=initial_peers, start=True, announce_port=dead_port)
+        server = Server(dht, backends, decode_max_len=DECODE_MAX_LEN)
+        server.run_in_background(await_ready=True, timeout=60)
+        runner, auto = get_loop_runner(), None
+        conn.send(("ready", dht.peer_id.to_base58(), torch.cuda.get_device_name(torch.cuda.current_device())))
+        while True:
+            command = conn.recv()
+            if command[0] == "autorelay":
+                started = time.perf_counter()
+                p2p = runner.run_coroutine(dht.replicate_p2p())
+                auto = runner.run_coroutine(AutoRelay.create(p2p, dht, probe_via=PeerID.from_base58(command[1])))
+                conn.send(("autorelay", auto.natted, sorted(f"{host}:{port}" for host, port in auto.relay_clients),
+                           time.perf_counter() - started, [str(maddr) for maddr in p2p.get_visible_maddrs()]))
+                continue
+            if command[0] == "reset":
+                forward.launches = 0
+            elif command[0] == "report":
+                conn.send(("report", {"flash_attention_forward": forward.launches}))
+                continue
+            elif command[0] == "stop":
+                if auto is not None:
+                    runner.run_coroutine(auto.close())
+                server.shutdown()
+                dht.shutdown()
+                conn.send(("stopped",))
+                return
+            conn.send(("ok",))
+    except BaseException:
+        conn.send(("error", traceback.format_exc()))
+        raise
+
+
+class RelayChild(SwarmChild):
+    """The parent's handle on the server process of ``[relay]``."""
+
+    def __init__(self, context, checkpoint_dir: str, initial_peers: list):
+        self.layer, self.name = "relay", "the NATed server process of [relay]"
+        self.conn, child_conn = context.Pipe()
+        self.process = context.Process(target=relay_server_main, args=(child_conn, checkpoint_dir, initial_peers),
+                                       daemon=True)
+        self.process.start()
+        child_conn.close()
+        self.peer_id = self.device = self.last_report = None
+
+    def ask(self, *command, timeout: float = 30.0):
+        self.conn.send(command)
+        return self.receive(timeout)
+
+    def report(self) -> dict:
+        _, counts = self.ask("report")
+        self.last_report = dict(counts=counts)
+        return self.last_report
+
+
+def timed_median(fn, runs: int) -> tuple:
+    """(the median wall of ``runs`` calls of ``fn``, the last call's result)."""
+    walls = []
+    for _ in range(runs):
+        started = time.perf_counter()
+        result = fn()
+        walls.append(time.perf_counter() - started)
+    return float(np.median(walls)), result
+
+
+def phase_relay(torch, checkpoint_dir: str, wrappers: dict, telemetry: Telemetry) -> dict:
+    """The relay tier on the card's host. This process is a bootstrap DHT peer (with an
+    AutoRelay, so it serves the AutoNAT dial-back) and runs ``python -m
+    hivemind_tpu_torch.hivemind_cli.run_relay`` as a child, which builds the port's relay
+    daemon from source, starts it and advertises it in the DHT; its banner must show an
+    Ed25519 identity (authenticated registration). One server process (forked as
+    [swarm]'s are) serves the two fp Llama-2-7B-width blocks on the card behind a DHT that
+    announces a dead port: its AutoRelay must find it NATed, register at the relay and
+    publish its circuits. The client here (a client-mode DHT peer with an AutoRelay and a
+    RemoteSequential) knows the server only through the DHT and reaches it only through
+    the relay: the forward [1, 512, 4096] (fp16 wire, < 2e-2 of the local chain) and 32
+    greedy tokens (the teacher-forced rule) ride the relayed connection. Then the native
+    transport in this process: a server P2P and a client P2P each with a private daemon
+    (``native_transport=True``), the server hosting a ConnectionHandler over the same
+    blocks; a "none"-wire forward at T 512 must equal the local call within 1e-6 (the
+    same bytes through the daemons' C++ AEAD), and both daemons are reaped at shutdown.
+    Returns the flash forward's launches on the path, summed over the server process."""
+    import multiprocessing
+    import threading
+
+    from hivemind_tpu_torch.dht import DHT
+    from hivemind_tpu_torch.moe import RemoteSequential, get_experts
+    from hivemind_tpu_torch.moe.client import RemoteExpert
+    from hivemind_tpu_torch.moe.expert_uid import ExpertInfo
+    from hivemind_tpu_torch.moe.server import ConnectionHandler, Runtime
+    from hivemind_tpu_torch.moe.server.llama_loader import LlamaClientHead, generate_greedy, load_llama_blocks
+    from hivemind_tpu_torch.p2p import P2P, AutoRelay, PeerID
+    from hivemind_tpu_torch.utils.loop import get_loop_runner
+
+    phase_started = time.perf_counter()
+    hid, vocab = LLAMA2_7B["hidden_size"], LLAMA2_7B["vocab_size"]
+    scratch = tempfile.TemporaryDirectory(prefix="chip_smoke_relay_")
+    relay_log = Path(scratch.name) / "run_relay.log"
+    context = multiprocessing.get_context("forkserver")  # CHILD_PRELOAD
+    faults, dhts, autos, nodes, readings = [], [], [], [], {}
+    relay_process = child = timer = runtime = runner = None
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            faults.append(what)
+
+    def kill_all() -> None:
+        if child is not None:
+            child.kill()
+        if relay_process is not None and relay_process.poll() is None:
+            relay_process.kill()
+
+    try:
+        bootstrap = DHT(start=True)
+        dhts.append(bootstrap)
+        # the shared loop, started by the DHT: a runner taken before it starts is replaced by the next caller's
+        runner = get_loop_runner()
+        bootstrap_p2p = runner.run_coroutine(bootstrap.replicate_p2p())
+        # a public peer: nobody to probe through yet, so it diagnoses itself reachable and serves nat.check
+        autos.append(runner.run_coroutine(AutoRelay.create(bootstrap_p2p, bootstrap)))
+        initial_peers = [str(maddr) for maddr in bootstrap.get_visible_maddrs()]
+        with open(relay_log, "w") as out:
+            relay_process = subprocess.Popen(
+                [sys.executable, "-m", "hivemind_tpu_torch.hivemind_cli.run_relay", "--initial_peers", *initial_peers,
+                 "--announce_host", "127.0.0.1", "--identity_path", str(Path(scratch.name) / "relay.key")],
+                stdout=out, stderr=subprocess.STDOUT, cwd=Path(__file__).resolve().parent)
+        child = RelayChild(context, checkpoint_dir, initial_peers)
+        # a child or a call that hangs past the limit: both are killed, which fails every call in flight
+        timer = threading.Timer(RELAY_PHASE_LIMIT_S, kill_all)
+        timer.daemon = True
+        timer.start()
+
+        # this process's blocks (loaded once: the local references, then the native transport's server)
+        backends = load_llama_blocks(checkpoint_dir, uid_prefix=RELAY_PREFIX, device="cuda")[0]
+        head = LlamaClientHead.load(checkpoint_dir, device="cuda")
+        x = np.random.default_rng(SEED + 31).standard_normal((1, RELAY_FORWARD_LENGTH, hid), dtype=np.float32)
+        prompt = np.random.default_rng(SEED + 9).integers(0, vocab, size=(1, DECODE_PROMPT))  # [decode]'s prompt
+        expected = forward_chain(backends, x)
+        torch.cuda.synchronize()
+        loaded_s = time.perf_counter() - phase_started
+
+        up = read_line(relay_process, relay_log, r"relay daemon up on port (\d+) \(identity ([0-9a-f]{64}), pid (\d+)\)",
+                       RELAY_STARTUP_LIMIT_S - (time.perf_counter() - phase_started))
+        relay_port, relay_identity, daemon_pid = int(up.group(1)), up.group(2), int(up.group(3))
+        read_line(relay_process, relay_log, rf"advertised 127\.0\.0\.1:{relay_port} in the DHT \(stored=True\)",
+                  RELAY_STARTUP_LIMIT_S - (time.perf_counter() - phase_started))
+        relay_up_s = time.perf_counter() - phase_started
+        banner_log = relay_log.read_text(errors="replace")
+        check("UNAUTHENTICATED" not in banner_log, "the relay daemon runs without libcrypto: registrations are "
+                                                   "UNAUTHENTICATED")
+        _, child.peer_id, child.device = child.receive(RELAY_STARTUP_LIMIT_S - (time.perf_counter() - phase_started))
+        server_up_s = time.perf_counter() - phase_started
+        server_id = PeerID.from_base58(child.peer_id)
+
+        # 1. the server diagnoses itself NATed, registers at the relay found in the DHT, publishes its circuits
+        _, natted, registered, autorelay_s, announced = child.ask("autorelay", bootstrap_p2p.peer_id.to_base58())
+        log(f"[relay] this process's blocks and local references in {loaded_s:.1f} s; by then, or after: run_relay's "
+            f"daemon up on port {relay_port} (identity {relay_identity[:16]}..., pid {daemon_pid}) and advertised at "
+            f"{relay_up_s:.1f} s, the server process up at {server_up_s:.1f} s (device {child.device}), announcing "
+            f"{announced}")
+        log(f"[relay] the server's AutoRelay.create (AutoNAT dial-back through the bootstrap, relay lookup in the "
+            f"DHT, registration, circuits published): NATed={natted}, registered at {registered}, "
+            f"{autorelay_s * 1e3:.1f} ms")
+        check(natted and registered == [f"127.0.0.1:{relay_port}"],
+              f"the server diagnosed NATed={natted} and registered at {registered}, not at 127.0.0.1:{relay_port}")
+
+        # 2. the client: a client-mode DHT peer (no peer's routing table holds it, so the server's
+        # DHT never dials it), with an AutoRelay whose resolver is its only route to the server
+        client_dht = DHT(initial_peers=initial_peers, start=True, client_mode=True)
+        dhts.append(client_dht)
+        client_p2p = runner.run_coroutine(client_dht.replicate_p2p())
+        client_auto = runner.run_coroutine(AutoRelay.create(client_p2p, client_dht, probe_via=bootstrap_p2p.peer_id))
+        autos.append(client_auto)
+        check(not client_auto.natted, "the client diagnosed itself NATed")
+        uids = [f"{RELAY_PREFIX}{index}" for index in range(LLAMA2_7B["num_hidden_layers"])]
+        child.ask("reset")
+        for wrapper in wrappers.values():
+            wrapper.launches = 0  # the main path starts here; the server process counts its own launches
+        # resolve to first byte: the blocks' uids through the DHT, then rpc_info of block 0 (the dead
+        # port refused, the circuit looked up in the DHT, the relay's control handshake and DIAL, the
+        # end-to-end handshake through the splice, the reply). The client's DHT lookups may reach the
+        # server's DHT node through the resolver first, and so make the relayed connection
+        started = time.perf_counter()
+        while not all(get_experts(client_dht, uids)) and time.perf_counter() - started < 20:
+            time.sleep(0.05)
+        resolve_s = time.perf_counter() - started
+        check(all(get_experts(client_dht, uids)), f"the DHT did not resolve {uids}")
+        before_call = client_p2p._connections.get(server_id)
+        check(before_call is None or getattr(before_call, "is_relayed", False),
+              "the client held a direct connection to the NATed server before its first call")
+        RemoteExpert(ExpertInfo(uids[0], server_id), client_p2p).info
+        first_byte_s = time.perf_counter() - started
+        pipe = RemoteSequential(client_dht, RELAY_PREFIX, len(uids))
+        relayed = client_p2p._connections.get(server_id)
+        check(relayed is not None and getattr(relayed, "is_relayed", False),
+              "the client's first call to the NATed server did not ride a relayed connection")
+        streams_before = relayed._next_stream_id if relayed is not None else 0
+        # 3. the first forward, through the relay
+        with torch.no_grad():
+            got = pipe(torch.tensor(x, device="cuda")).cpu().numpy()
+        rode = relayed is not None and client_p2p._connections.get(server_id) is relayed and not relayed.is_closed \
+            and relayed._next_stream_id > streams_before
+        check(rode, "the first forward did not ride the relayed connection")
+        err = max_rel_err(got, expected)
+        check(err < SERVING_TOL, f"relayed forward: rel err {err}")
+        with torch.no_grad():
+            forward_s, _ = timed_median(lambda: pipe(torch.tensor(x, device="cuda")).cpu().numpy(), RELAY_TIMED_RUNS)
+        # 4. greedy generation through the relay
+        relay_pipe = SwarmPipe(pipe)
+        ids = generate_greedy(head, relay_pipe, prompt, DECODE_NEW, session_id="relay")
+        steps = np.array([seconds for seconds, _ in relay_pipe.calls[1:]])
+        now = client_p2p._connections.get(server_id)
+        upgraded = now is not None and not getattr(now, "is_relayed", False)
+        child.report()
+
+        # 5. the native transport in this process: private daemons, the same blocks
+        native_launches_before = wrappers["flash_attention_forward"].launches
+
+        async def start_native():
+            handlers = {name: ConnectionHandler(dict(backends), decode_max_len=DECODE_MAX_LEN,
+                                                activation_compression="none") for name in ("native", "asyncio")}
+            servers = {"native": await P2P.create(listen_host="127.0.0.1", native_transport=True),
+                       "asyncio": await P2P.create(listen_host="127.0.0.1", native_transport=False)}
+            clients = {"native": await P2P.create(listen_host="127.0.0.1", native_transport=True),
+                       "asyncio": await P2P.create(listen_host="127.0.0.1", native_transport=False)}
+            nodes.extend([*clients.values(), *servers.values()])
+            for name, server in servers.items():
+                await handlers[name].add_p2p_handlers(server)
+                clients[name].add_peer_addr(server.peer_id, server.get_visible_maddrs()[0])
+            started_runtime = Runtime([pool for handler in handlers.values() for pool in handler.all_pools()])
+            started_runtime.start()
+            return servers, clients, started_runtime
+
+        servers, clients, runtime = runner.run_coroutine(start_native(), return_future=True).result(30)
+        daemons = [node._native_daemon for node in (servers["native"], clients["native"])]
+        check(all(daemon is not None and daemon.alive for daemon in daemons),
+              "a native transport fell back to asyncio: its private daemon is not alive")
+        check(servers["native"]._inbound_proxy_active, "the native server's inbound proxy is not active")
+        socket_modes = [oct(os.stat(daemon.unix_path).st_mode & 0o777) for daemon in daemons if daemon is not None]
+        check(socket_modes == ["0o600", "0o600"], f"the daemons' unix sockets are {socket_modes}, not 0600")
+        native_experts = {name: [RemoteExpert(ExpertInfo(uid, servers[name].peer_id), clients[name]) for uid in uids]
+                          for name in servers}
+        native_got = remote_chain(native_experts["native"], x)
+        native_err = max_rel_err(native_got, expected)
+        check(native_err <= REMOTE_LOSSLESS_TOL, f"native transport: rel err {native_err} > {REMOTE_LOSSLESS_TOL}")
+        check(clients["native"]._proxied_dials >= 1, "the native client's dial did not ride its daemon")
+        native_s = {name: timed_median(lambda name=name: remote_chain(native_experts[name], x), RELAY_TIMED_RUNS)[0]
+                    for name in servers}
+        native_launches = wrappers["flash_attention_forward"].launches - native_launches_before
+        launches = {name: wrapper.launches for name, wrapper in wrappers.items()}
+        proxied_dials = clients["native"]._proxied_dials
+
+        async def stop_native():
+            await runtime.shutdown()
+            for node in nodes:
+                await node.shutdown()
+
+        runner.run_coroutine(stop_native(), return_future=True).result(30)
+        runtime = None
+        nodes.clear()
+        check(all(daemon is None or daemon.process.poll() is not None for daemon in daemons),
+              "a native transport's daemon outlived its P2P's shutdown")
+    finally:
+        if timer is not None:
+            timer.cancel()
+        if runner is not None and (runtime is not None or nodes):
+            async def stop_rest():
+                if runtime is not None:
+                    await runtime.shutdown()
+                for node in nodes:
+                    await node.shutdown()
+
+            with contextlib.suppress(Exception):
+                runner.run_coroutine(stop_rest(), return_future=True).result(30)
+        for auto in autos:  # taken after the runner, so it is set
+            with contextlib.suppress(Exception):
+                runner.run_coroutine(auto.close(), return_future=True).result(10)
+        if child is not None:
+            if child.process.is_alive():
+                with contextlib.suppress(Exception):
+                    child.ask("stop", timeout=20)
+            child.kill()
+        if relay_process is not None:
+            if relay_process.poll() is None:
+                relay_process.send_signal(signal.SIGINT)
+            try:
+                relay_process.wait(15)
+            except subprocess.TimeoutExpired:
+                relay_process.kill()
+                relay_process.wait()
+        for dht in reversed(dhts):
+            dht.shutdown()
+        relay_tail = relay_log.read_text(errors="replace")[-3000:] if relay_log.exists() else ""
+        scratch.cleanup()
+
+    check(not Path(f"/proc/{daemon_pid}").exists(), f"run_relay's daemon (pid {daemon_pid}) outlived it")
+    check("Traceback" not in relay_tail, f"run_relay logged a traceback:\n{relay_tail}")
+    launches["flash_attention_forward"] += child.last_report["counts"]["flash_attention_forward"]
+    gaps = greedy_gaps(head, backends, ids, DECODE_PROMPT)
+    check(gaps.max() <= GREEDY_LOGIT_RTOL, f"a token generated through the relay lies {gaps.max()} below the best")
+    swarm = telemetry.readings.get("swarm", {}).get("fp", {})
+    remote = telemetry.readings.get("remote", {}).get("decode", {}).get("fp", {})
+    log(f"[relay] resolve to first byte {first_byte_s * 1e3:.1f} ms: {len(uids)} block uids through the client's DHT "
+        f"in {resolve_s * 1e3:.1f} ms (a relayed connection made by then: {before_call is not None}), then rpc_info "
+        f"of block 0 (with no connection: the dead port refused, the circuit from the DHT, the relay's handshake and "
+        f"DIAL, the end-to-end handshake, the reply); the connection is relayed: {getattr(relayed, 'is_relayed', False)}; "
+        f"the first forward rode it: {rode}")
+    log(f"[relay] forward fp [1, {RELAY_FORWARD_LENGTH}, {hid}] through the relay (fp16 wire) vs the local chain: "
+        f"max_rel_err={err:.3e} (limit {SERVING_TOL}); median of {RELAY_TIMED_RUNS} {forward_s * 1e3:.1f} ms")
+    log(f"[relay] decode fp: {DECODE_NEW} tokens from a {DECODE_PROMPT}-token prompt through the relay; teacher-forced "
+        f"replay largest logit gap {gaps.max():.3e} (limit {GREEDY_LOGIT_RTOL}); per-token latency median / p90 "
+        f"{median_p90(steps)}" + (f"; [swarm]'s direct connection {median_p90(swarm['steps'])}" if "steps" in swarm
+                                  else "") + (f"; [remote] in one process {median_p90(remote['remote_step'])}"
+                                              if "remote_step" in remote else "")
+        + f"; prefill {relay_pipe.calls[0][0] * 1e3:.1f} ms; hole punch upgraded the connection to a direct one: "
+        f"{upgraded}")
+    log(f"[relay] native transport (a private daemon on each side, 0600 unix sockets {socket_modes}, the server's "
+        f"inbound proxy active, {proxied_dials} proxied dial(s)): \"none\"-wire forward [1, {RELAY_FORWARD_LENGTH}, "
+        f"{hid}] through 2 blocks vs the local call max_rel_err={native_err:.3e} (limit <= {REMOTE_LOSSLESS_TOL}); "
+        f"median of {RELAY_TIMED_RUNS}: native {native_s['native'] * 1e3:.1f} ms, the asyncio transport "
+        f"{native_s['asyncio'] * 1e3:.1f} ms on the same blocks; {native_launches} flash forward launches here; both "
+        f"daemons reaped at shutdown")
+    elapsed = time.perf_counter() - phase_started
+    log(f"[relay] phase wall {elapsed:.1f} s (limit {RELAY_PHASE_LIMIT_S} s)")
+    check(elapsed <= RELAY_PHASE_LIMIT_S, f"[relay] took {elapsed:.1f} s > {RELAY_PHASE_LIMIT_S} s")
+    readings.update(first_byte_s=first_byte_s, forward_s=forward_s, steps=steps, native_s=native_s, upgraded=upgraded)
+    telemetry.readings["relay"] = readings
     if faults:
         raise AssertionError("; ".join(faults))
     return launches
@@ -6186,6 +6561,7 @@ def main(argv=None) -> int:
                    "blockwise_int8_dequantize"),
         "swarm": ("flash_attention_forward", "flash_attention_backward_dq", "flash_attention_backward_dkv",
                   "blockwise_int8_dequantize"),
+        "relay": ("flash_attention_forward",),
         "dmoe": ("blockwise_int8_quantize", "blockwise_int8_dequantize"),
         "collab": ("flash_attention_forward", "flash_attention_backward_dq", "flash_attention_backward_dkv"),
         "ring": ("flash_attention_forward",),
@@ -6259,6 +6635,8 @@ def main(argv=None) -> int:
         swarmed = lane.submit(run, "swarm", on_own_stream, torch, phase_swarm, torch, checkpoint.name, wrappers, telemetry)
         path_launches["collab"] = run("collab", phase_collab, torch, wrappers, telemetry)
         path_launches["swarm"] = swarmed.result()
+        # the relay tier, alone: its readings sit beside [swarm]'s and [remote]'s
+        path_launches["relay"] = run("relay", phase_relay, torch, checkpoint.name, wrappers, telemetry)
         # the mesh tier: ranks that share the card over gloo
         path_launches["ring"] = run("ring", phase_ring, torch)
         averaged = lane.submit(run, "averaging", on_own_stream, torch, phase_averaging, torch)

@@ -31,6 +31,7 @@ _LAZY = {
     "PeerID": "hivemind_tpu_torch.p2p",
     "DecentralizedAverager": "hivemind_tpu_torch.averaging",
     "MeshAverager": "hivemind_tpu_torch.averaging",
+    "NATTraversal": "hivemind_tpu_torch.p2p",
     "Optimizer": "hivemind_tpu_torch.optim",
     "GradientAverager": "hivemind_tpu_torch.optim",
     "TrainingStateAverager": "hivemind_tpu_torch.optim",
@@ -61,7 +62,4 @@ def __getattr__(name):
 
     if name in _LAZY:
         return getattr(importlib.import_module(_LAZY[name]), name)
-    if name == "NATTraversal":
-        raise AttributeError("hivemind_tpu_torch has no NATTraversal yet: relays and NAT traversal are not ported "
-                             "(ROADMAP 5c)")
     raise AttributeError(f"module 'hivemind_tpu_torch' has no attribute {name!r}")

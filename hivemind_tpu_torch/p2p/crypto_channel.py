@@ -14,7 +14,9 @@ Frame wire format: [u32 big-endian ciphertext length][ciphertext].
 
 The primitives are the libcrypto shim's (``utils/_libcrypto.py``) on every
 machine; without libcrypto every handshake raises, naming the library, and
-nothing falls back to plaintext. Both directions are pipelined: ``send`` assigns
+nothing falls back to plaintext (a channel through the native daemon's data-plane
+proxy hands its keys to the daemon, which seals and opens the wire's frames:
+``handshake(proxy_upgrade=True)``). Both directions are pipelined: ``send`` assigns
 the nonce and enqueues the seal, a writer task emits ciphertexts strictly in
 nonce order, and the reader task prefetches and unseals ahead of ``recv``. Frames
 above ``_OFFLOAD_THRESHOLD`` are sealed and opened in a shared thread pool of
@@ -316,6 +318,21 @@ async def _recv_plain(reader: asyncio.StreamReader, max_size: int = 4096) -> byt
     return await reader.readexactly(length)
 
 
+class _PassThroughAEAD:
+    """The cipher of a channel proxied by the native daemon: the local hop to the
+    daemon (a 0600 unix socket, or loopback) carries plaintext frames, and the daemon
+    runs ChaCha20-Poly1305 with the keys of the 'K' frame. The wire toward the remote
+    peer is unchanged."""
+
+    @staticmethod
+    def encrypt_parts(nonce: bytes, parts: Tuple[bytes, ...]) -> bytes:
+        return b"".join(parts)
+
+    @staticmethod
+    def decrypt(nonce: bytes, data: bytes) -> bytes:
+        return data
+
+
 async def handshake(
     reader: asyncio.StreamReader,
     writer: asyncio.StreamWriter,
@@ -323,9 +340,15 @@ async def handshake(
     is_initiator: bool,
     announced_addrs: Optional[list] = None,
     timeout: float = 15.0,
+    proxy_upgrade: bool = False,
 ) -> Tuple[SecureChannel, dict]:
     """Perform the mutual-authentication handshake. Returns (channel, peer_hello_extras)
-    where extras carries the peer's announced listen addresses."""
+    where extras carries the peer's announced listen addresses.
+
+    ``proxy_upgrade``: the stream runs through the native daemon's data-plane proxy
+    ('X' outbound, 'Y' inbound): after deriving keys, hand them to the daemon in a
+    'K' frame and switch this end to plaintext framing; the daemon seals and opens
+    every later frame (the key confirmation included) in C++."""
 
     async def _run() -> Tuple[SecureChannel, dict]:
         ephemeral = X25519PrivateKey.generate()
@@ -357,6 +380,13 @@ async def handshake(
             (initiator_key, responder_key) if is_initiator else (responder_key, initiator_key)
         )
         channel = SecureChannel(reader, writer, send_key, recv_key, peer_static)
+        if proxy_upgrade:
+            # the channel keys and the current counters (the confirm below is the first
+            # sealed frame each way) go to the local daemon; this hop is plaintext from here
+            upgrade = (b"K" + send_key + recv_key + struct.pack("<Q", channel._send_counter)
+                       + struct.pack("<Q", channel._recv_counter))
+            await _send_plain(writer, upgrade)
+            channel._send_aead = channel._recv_aead = _PassThroughAEAD()
         # key confirmation: proves the peer holds the ephemeral private key, which a
         # replayed hello cannot (helloes alone are replayable — sig covers only the
         # static prefix + own ephemeral). Both sides send first, then verify.

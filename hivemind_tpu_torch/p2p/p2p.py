@@ -2,17 +2,24 @@
 port's copy of hivemind_tpu/p2p/p2p.py, on the same wire).
 
 The transport runs in-process on asyncio: one encrypted multiplexed TCP connection
-per peer pair carries all RPCs, unary and streaming. This copy dials direct TCP
-only. Relays, NAT traversal and the native transport daemon (``relays=``,
-``native_transport=True``, ``data_proxy_*``, ``inbound_data_proxy``) come with a
-later slice of the port, and until then those arguments raise
-``NotImplementedError``. No environment variable selects a transport.
+per peer pair carries all RPCs, unary and streaming. Optionally the data plane runs
+through the relay daemon (``native/hm_relayd.cpp``): outbound dials ('X') and the
+public listener ('Y') through a local daemon that does the AEAD in C++
+(``data_proxy_port``, ``data_proxy_path``, ``inbound_data_proxy``), or a private
+daemon spawned for this node (``native_transport=True``). ``relays=`` registers the
+node at relay daemons, and a peer resolver (``set_peer_resolver``, installed by
+``p2p/autorelay.py``) finds a route when no direct address answers. The environment
+variables ``HIVEMIND_TPU_DATA_PROXY_PATH``, ``HIVEMIND_TPU_DATA_PROXY_PORT``,
+``HIVEMIND_TPU_NATIVE_TRANSPORT`` and ``HIVEMIND_TPU_INBOUND_DATA_PROXY`` select the
+same, under the JAX package's names.
 """
 
 from __future__ import annotations
 
 import asyncio
 import os
+import socket
+import struct
 import time
 from dataclasses import dataclass
 from typing import (
@@ -38,10 +45,12 @@ from hivemind_tpu_torch.p2p.mux import (
 )
 from hivemind_tpu_torch.p2p.peer_id import Multiaddr, PeerID
 from hivemind_tpu_torch.resilience import CHAOS as _CHAOS
+from hivemind_tpu_torch.resilience import Deadline
 from hivemind_tpu_torch.telemetry import REGISTRY as _TELEMETRY
 from hivemind_tpu_torch.telemetry.tracing import finish_span as _finish_span
 from hivemind_tpu_torch.telemetry.tracing import start_span as _start_span
 from hivemind_tpu_torch.telemetry.tracing import trace as _trace
+from hivemind_tpu_torch.utils.asyncio_utils import spawn
 from hivemind_tpu_torch.utils.crypto import Ed25519PrivateKey, Ed25519PublicKey
 from hivemind_tpu_torch.utils.logging import get_logger
 from hivemind_tpu_torch.utils.streaming import WireParts
@@ -155,23 +164,28 @@ class P2P:
         inbound_data_proxy: bool = False,
         native_transport: Optional[bool] = None,
     ) -> "P2P":
-        """``max_connections``: connection-manager high water. 0 disables. Above
+        """``relays``: relay daemons to register at on startup. Each spec is
+        ``host:port`` or ``<relay_pubkey_hex>@host:port``; the pinned form refuses a
+        relay that cannot prove the expected Ed25519 identity over the encrypted
+        control channel. Registration makes this peer dialable through the relay;
+        failures are logged, not raised, as for ``initial_peers``.
+
+        ``max_connections``: connection-manager high water. 0 disables. Above
         it, idle (stream-less) connections are closed least-recently-used-first
         down to 90% of the cap; a trimmed peer is simply re-dialed on next use.
 
-        ``relays``, ``data_proxy_port``, ``data_proxy_path``,
-        ``inbound_data_proxy`` and ``native_transport=True`` belong to the relay,
-        NAT and native-transport modules, which a later slice of the port brings:
-        until then they raise ``NotImplementedError``."""
-        later = [name for name, value in (("relays", tuple(relays)), ("data_proxy_port", data_proxy_port),
-                                          ("data_proxy_path", data_proxy_path),
-                                          ("inbound_data_proxy", inbound_data_proxy),
-                                          ("native_transport", native_transport)) if value]
-        if later:
-            raise NotImplementedError(
-                f"P2P.create({', '.join(later)}=...): relays, NAT traversal and the native transport are not "
-                f"ported yet (hivemind_tpu_torch/p2p dials direct TCP); they come with the relay/NAT slice"
-            )
+        ``data_proxy_path`` / ``data_proxy_port``: route outbound dials through a
+        local relay daemon's data-plane proxy ('X'), which takes the session keys
+        ('K' frame) and seals and opens the wire in C++. The unix socket (created
+        0600 by the daemon) confines that key handoff to this user; the loopback TCP
+        port carries no peer credential and must not be used on a host shared with
+        other users. When both are set, the unix socket wins.
+        ``inbound_data_proxy``: the daemon also owns this node's public listener
+        ('Y') and forwards each wire connection to a loopback listener here; falls
+        back to listening directly if the daemon refuses.
+        ``native_transport``: spawn a private daemon for this node on a 0600 unix
+        socket and route both directions through it (None: the environment
+        decides). Without a C++ toolchain it warns and stays on asyncio."""
         self = object.__new__(cls)
         self._identity_lock_fd: Optional[int] = None
         if identity is None:
@@ -187,18 +201,78 @@ class P2P:
         self._dial_locks: Dict[PeerID, asyncio.Lock] = {}
         self._peerstore: Dict[PeerID, Set[Multiaddr]] = {}
         self._dial_timeout = dial_timeout
+        if data_proxy_path is None:
+            data_proxy_path = os.environ.get("HIVEMIND_TPU_DATA_PROXY_PATH") or None
+        if data_proxy_port is None:
+            env_port = os.environ.get("HIVEMIND_TPU_DATA_PROXY_PORT")
+            data_proxy_port = int(env_port) if env_port else None
+        self._native_daemon = None
+        if native_transport is None:  # None: the environment decides; an explicit False wins over it
+            native_transport = os.environ.get("HIVEMIND_TPU_NATIVE_TRANSPORT", "0") == "1"
+        if native_transport and data_proxy_path is None and data_proxy_port is None:
+            from hivemind_tpu_torch.p2p.native_transport import spawn_native_transport
+
+            # the spawn may build the daemon (seconds): keep the loop live. If this
+            # coroutine is cancelled mid-spawn, the executor thread still finishes: its
+            # daemon is reaped from a done callback, so no orphan outlives the cancellation
+            spawn_future = asyncio.get_running_loop().run_in_executor(None, spawn_native_transport)
+            try:
+                self._native_daemon = await asyncio.shield(spawn_future)
+            except asyncio.CancelledError:
+                def _reap(future):
+                    if not future.cancelled() and future.exception() is None and future.result() is not None:
+                        future.result().shutdown()
+
+                spawn_future.add_done_callback(_reap)
+                raise
+            if self._native_daemon is not None:
+                data_proxy_path = self._native_daemon.unix_path
+                inbound_data_proxy = True
+        self._data_proxy_path = data_proxy_path or None
+        self._data_proxy_port = data_proxy_port or None
+        self._proxied_dials = 0  # outbound dials that rode the daemon
+        if not inbound_data_proxy:
+            inbound_data_proxy = os.environ.get("HIVEMIND_TPU_INBOUND_DATA_PROXY", "0") == "1"
+        self._inbound_proxy_requested = bool(inbound_data_proxy) and (
+            self._data_proxy_port is not None or self._data_proxy_path is not None
+        )
+        self._inbound_proxy_active = False
+        self._inbound_proxy_writer: Optional[asyncio.StreamWriter] = None
+        self._announce_port_from_proxy = False
+        self._bg_tasks: Set[asyncio.Task] = set()  # strong refs: the loop holds tasks weakly
         self._alive_refs = 1  # P2P.replicate: shared instance refcount
+        self._peer_resolver = None  # an optional async route lookup when no address answers (auto-relay)
         self._max_connections = max_connections
         self._shutting_down = False
+        self._relays: list = []  # RelayClients registered through `relays`
         self._listen_host = listen_host
         self._announce_host = announce_host or listen_host
-        # port-forwarded deployments: the externally visible port can differ from the bound one
+        # NATed or port-forwarded deployments: the externally visible port can differ
+        # from the bound one (or be closed entirely: AutoNAT then diagnoses it)
         self._announce_port = announce_port
 
         self._server = None
+        self._requested_listen_port = listen_port
         try:
-            self._server = await asyncio.start_server(self._on_inbound_connection, listen_host, listen_port)
-            self._listen_port = self._server.sockets[0].getsockname()[1]
+            if self._inbound_proxy_requested:
+                # bind loopback only: the public listener belongs to the daemon
+                self._server = await asyncio.start_server(self._on_inbound_connection, "127.0.0.1", 0)
+                local_port = self._server.sockets[0].getsockname()[1]
+                public_port = await self._register_inbound_proxy(listen_port, local_port)
+                if public_port is not None:
+                    self._inbound_proxy_active = True
+                    self._listen_port = local_port
+                    if self._announce_port is None:
+                        self._announce_port = public_port
+                        self._announce_port_from_proxy = True
+                    logger.debug(f"P2P {self.peer_id} behind the daemon's inbound proxy: "
+                                 f"public :{public_port} -> loopback :{local_port}")
+                else:
+                    logger.warning("inbound data-plane proxy registration failed; falling back to direct listening")
+                    self._server.close()
+                    await self._start_direct_server()
+            else:
+                await self._start_direct_server()
             logger.debug(f"P2P {self.peer_id} listening on {listen_host}:{self._listen_port}")
 
             for maddr in initial_peers:
@@ -207,11 +281,28 @@ class P2P:
                     await self.connect(maddr)
                 except Exception as e:
                     logger.warning(f"could not reach initial peer {maddr}: {e}")
+
+            for relay_spec in relays:
+                from hivemind_tpu_torch.p2p.relay import RelayClient
+
+                pubkey, _, hostport = relay_spec.rpartition("@")
+                relay_host, _, relay_port = hostport.rpartition(":")
+                try:
+                    self._relays.append(
+                        await RelayClient.create(self, relay_host, int(relay_port), relay_pubkey=pubkey or None)
+                    )
+                except Exception as e:
+                    logger.warning(f"could not register at relay {relay_spec}: {e}")
         except BaseException:
             # any failure mid-create must not leak the listener, peer connections
-            # already established, or the identity flock ("taken") for the process
+            # already established, the daemon, or the identity flock ("taken")
             if self._server is not None:
                 self._server.close()
+            for relay in self._relays:
+                try:
+                    await asyncio.shield(relay.close())
+                except BaseException:
+                    pass
             for conn in list(self._all_connections):
                 try:
                     await asyncio.shield(conn.close())
@@ -219,6 +310,8 @@ class P2P:
                     pass  # best-effort: cancellation must not strand later closes
             if self._identity_lock_fd is not None:
                 os.close(self._identity_lock_fd)
+            if self._native_daemon is not None:
+                self._native_daemon.shutdown()
             raise
         return self
 
@@ -226,6 +319,14 @@ class P2P:
 
     class IdentityTakenError(RuntimeError):
         """Another live process already uses this identity file."""
+
+    @classmethod
+    def generate_identity(cls, identity_path: str) -> None:
+        """Write a fresh Ed25519 identity file (0600)."""
+        key = Ed25519PrivateKey()
+        fd = os.open(identity_path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o600)
+        with os.fdopen(fd, "wb") as f:
+            f.write(key.to_bytes())
 
     @staticmethod
     def _load_or_create_identity(identity_path: str):
@@ -285,6 +386,85 @@ class P2P:
 
     # ------------------------------------------------------------------ connections
 
+    async def _start_direct_server(self) -> None:
+        """Bind the ordinary public listener (at create, after a refused proxy
+        registration, and after the daemon's death)."""
+        self._server = await asyncio.start_server(
+            self._on_inbound_connection, self._listen_host, self._requested_listen_port
+        )
+        self._listen_port = self._server.sockets[0].getsockname()[1]
+
+    async def _open_daemon_connection(self):
+        """One framed connection to the local proxy daemon (the unix socket wins)."""
+        if self._data_proxy_path is not None:
+            return await asyncio.open_unix_connection(self._data_proxy_path)
+        return await asyncio.open_connection("127.0.0.1", self._data_proxy_port)
+
+    async def _register_inbound_proxy(self, public_port: int, local_port: int) -> Optional[int]:
+        """Ask the daemon to own our public listener ('Y' frame) and forward wire
+        connections to ``local_port``; returns the actual public port, or None on
+        refusal. The control connection stays open: the daemon ties the listener's
+        lifetime to it."""
+        writer = None
+        registered = failed = False
+        budget = Deadline(self._dial_timeout)  # one budget for the whole registration
+        try:
+            reader, writer = await budget.wait_for(self._open_daemon_connection())
+            request = b"Y" + struct.pack(">HH", public_port, local_port)
+            writer.write(struct.pack(">I", len(request)) + request)
+            await writer.drain()
+            (length,) = struct.unpack(">I", await budget.wait_for(reader.readexactly(4)))
+            response = await budget.wait_for(reader.readexactly(length))
+            if len(response) == 3 and response[0:1] == b"O":
+                self._inbound_proxy_writer = writer
+                registered = True
+                # a daemon crash otherwise leaves this node announcing a dead port, while
+                # outbound dials keep working and mask the loss
+                watchdog = spawn(self._watch_inbound_proxy(reader), name="p2p.inbound_proxy_watchdog")
+                self._bg_tasks.add(watchdog)
+                watchdog.add_done_callback(self._bg_tasks.discard)
+                return struct.unpack(">H", response[1:3])[0]
+            # a well-formed reply other than 'O' is a refusal, not an error
+        except (ConnectionError, OSError, asyncio.TimeoutError, asyncio.IncompleteReadError) as e:
+            failed = True
+            logger.debug(f"inbound proxy registration failed: {e!r}")
+        finally:
+            # a registration that did not become the control connection always closes its
+            # writer; only failures mid-handshake count as errors (refusals and
+            # cancellations are expected outcomes)
+            if writer is not None and not registered:
+                if failed:
+                    _RPC_ERRORS.inc(handler="_register_inbound_proxy", side="client")
+                writer.close()
+        return None
+
+    async def _watch_inbound_proxy(self, reader: asyncio.StreamReader) -> None:
+        """EOF on the 'Y' control connection means the daemon (and our public
+        listener) died: fall back to listening directly and re-announce, loudly."""
+        try:
+            while await reader.read(4096):
+                pass  # the daemon sends nothing after 'O'
+        except (ConnectionError, OSError):
+            pass
+        if self._shutting_down or not self._inbound_proxy_active:
+            return
+        logger.warning("the data-plane proxy daemon died and its public listener with it; "
+                       "falling back to a direct listener and re-announcing")
+        self._inbound_proxy_active = False
+        self._inbound_proxy_writer = None
+        if self._announce_port_from_proxy:
+            self._announce_port = None
+            self._announce_port_from_proxy = False
+        old_server = self._server
+        try:
+            await self._start_direct_server()
+        except OSError as e:
+            logger.error(f"direct-listener fallback failed: {e!r}; this peer is undialable")
+            return
+        if old_server is not None:
+            old_server.close()  # in-flight loopback connections finish on their transports
+        logger.warning(f"now listening directly on {self._listen_host}:{self._listen_port}")
+
     async def _on_inbound_connection(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter):
         if self._shutting_down:
             writer.close()
@@ -293,6 +473,9 @@ class P2P:
             channel, extras = await handshake(
                 reader, writer, self.identity, is_initiator=False,
                 announced_addrs=self.get_visible_maddrs(),
+                # behind the daemon's listener every inbound connection is a proxy's
+                # local leg: hand it the session keys and go plaintext here
+                proxy_upgrade=self._inbound_proxy_active,
             )
         except (HandshakeError, asyncio.TimeoutError, asyncio.IncompleteReadError, ConnectionError, OSError) as e:
             logger.debug(f"inbound handshake failed: {e!r}")
@@ -318,7 +501,9 @@ class P2P:
 
     async def _trim_connections(self, protect: Optional[MuxConnection] = None) -> None:
         """Connection manager (see ``create``): close idle LRU connections past the
-        high water mark. Never touches connections with live streams."""
+        high water mark. Never touches connections with live streams, nor relayed
+        circuits (their route may not be re-dialable without the relay client that
+        made them)."""
         if not self._max_connections:
             return
         self._prune_dead_connections()  # dead entries must not count toward the marks
@@ -332,6 +517,7 @@ class P2P:
                 if conn is not protect
                 and not conn.is_closed
                 and conn.num_streams == 0
+                and not getattr(conn, "is_relayed", False)
             ),
             key=lambda conn: conn.last_used,
         )
@@ -362,19 +548,36 @@ class P2P:
 
     _DIALABLE_PROTOS = frozenset({"ip4", "ip6", "dns", "dns4", "dns6"})
 
-    async def _dial(self, maddr: Multiaddr, expected_peer: Optional[PeerID]) -> MuxConnection:
-        """Dial one address (direct TCP)."""
+    async def _dial(
+        self, maddr: Multiaddr, expected_peer: Optional[PeerID], replace_existing: bool = False
+    ) -> MuxConnection:
+        """Dial one address. With ``replace_existing`` a live connection to the same
+        peer is superseded for future streams (a hole punch's direct path replaces the
+        relayed one; streams in flight finish on the old connection)."""
         if maddr.host_proto not in self._DIALABLE_PROTOS:
             # peer-announced unix/onion3 addresses parse (codec parity) but the
             # TCP transport cannot reach them: fail instantly, so an attacker
             # announcing them cannot burn a dial timeout per reconnect attempt
             raise ConnectionError(f"no transport for {maddr.host_proto!r} address {maddr}")
-        reader, writer = await asyncio.wait_for(
-            asyncio.open_connection(maddr.host, maddr.port), timeout=self._dial_timeout
-        )
+        via_proxy = self._data_proxy_port is not None or self._data_proxy_path is not None
+        if via_proxy:
+            try:
+                reader, writer = await asyncio.wait_for(
+                    self._open_proxied_connection(maddr.host, maddr.port), timeout=self._dial_timeout
+                )
+            except (ConnectionError, OSError, asyncio.TimeoutError) as e:
+                # the proxy is an optimization, not a reachability requirement: an
+                # address a plain socket reaches is still dialed
+                logger.debug(f"data-plane proxy dial to {maddr.host}:{maddr.port} failed ({e!r}); dialing directly")
+                via_proxy = False
+        if not via_proxy:
+            reader, writer = await asyncio.wait_for(
+                asyncio.open_connection(maddr.host, maddr.port), timeout=self._dial_timeout
+            )
         try:
             channel, extras = await handshake(
-                reader, writer, self.identity, is_initiator=True, announced_addrs=self.get_visible_maddrs()
+                reader, writer, self.identity, is_initiator=True, announced_addrs=self.get_visible_maddrs(),
+                proxy_upgrade=via_proxy,
             )
         except BaseException:
             writer.close()
@@ -387,14 +590,58 @@ class P2P:
         self._register_peer_addrs(peer_id, extras.get("addrs", ()))
         existing = self._connections.get(peer_id)
         if existing is not None and not existing.is_closed:
-            channel.close()
-            return existing
+            if not replace_existing:
+                channel.close()
+                return existing
+            # the superseded (e.g. relayed) connection: streams in flight finish, then it
+            # closes, or every punch would leak a socket on both ends and a spliced pair
+            # on the relay
+            self._close_after_grace(existing)
         conn = MuxConnection(channel, peer_id, is_initiator=True, on_inbound_stream=self._route_stream)
         self._connections[peer_id] = conn
         self._all_connections.add(conn)
         conn.start()
         await self._trim_connections(protect=conn)
         return conn
+
+    async def _open_proxied_connection(self, host: str, port: int):
+        """Open an outbound connection through the local data-plane proxy: 'X'
+        <port><host> to the daemon, wait for 'O'; the stream then behaves like a
+        direct socket (the daemon forwards, and takes over the AEAD at the
+        handshake's 'K' frame)."""
+        try:
+            socket.inet_aton(host)
+        except OSError:
+            # the daemon's 'X' takes IPv4 literals only: resolve a dns or ip6 host here
+            infos = await asyncio.get_running_loop().getaddrinfo(
+                host, port, family=socket.AF_INET, type=socket.SOCK_STREAM
+            )
+            if not infos:
+                raise ConnectionError(f"no IPv4 address for {host!r} (the data-plane proxy is IPv4-only)")
+            host = infos[0][4][0]
+        reader, writer = await self._open_daemon_connection()
+        request = b"X" + struct.pack(">H", port) + host.encode()
+        writer.write(struct.pack(">I", len(request)) + request)
+        await writer.drain()
+        (length,) = struct.unpack(">I", await reader.readexactly(4))
+        response = await reader.readexactly(length)
+        if response != b"O":
+            writer.close()
+            raise ConnectionError(f"data-plane proxy could not reach {host}:{port} (reply {response!r})")
+        self._proxied_dials += 1
+        return reader, writer
+
+    def _close_after_grace(self, conn: MuxConnection, grace: float = 30.0) -> None:
+        """Close a superseded connection once streams in flight have had time to
+        finish."""
+
+        async def _close():
+            await asyncio.sleep(grace)
+            await conn.close()
+
+        task = spawn(_close(), name="p2p.close_after_grace")
+        self._bg_tasks.add(task)
+        task.add_done_callback(self._bg_tasks.discard)
 
     def _prune_dead_connections(self) -> None:
         dead = [c for c in self._all_connections if c.is_closed]
@@ -419,7 +666,22 @@ class P2P:
                     return await self._dial(maddr, expected_peer=peer_id)
                 except Exception as e:
                     last_error = e
+            if self._peer_resolver is not None:
+                # no direct route: ask the installed resolver (auto-relay finds the
+                # target's published circuits in the DHT and dials through a relay)
+                try:
+                    conn = await self._peer_resolver(peer_id)
+                except Exception as e:
+                    conn = None
+                    last_error = e
+                if conn is not None and not conn.is_closed:
+                    return conn
             raise PeerNotFoundError(f"no reachable address for {peer_id}") from last_error
+
+    def set_peer_resolver(self, resolver) -> None:
+        """Install an async ``fn(peer_id) -> Optional[MuxConnection]`` used when no
+        direct address works. Pass None to remove it."""
+        self._peer_resolver = resolver
 
     # ------------------------------------------------------------------ handlers
 
@@ -682,14 +944,36 @@ class P2P:
 
     # ------------------------------------------------------------------ lifecycle
 
+    async def list_peers(self) -> List[PeerID]:
+        return [pid for pid, conn in self._connections.items() if not conn.is_closed]
+
+    async def disconnect(self, peer_id: PeerID) -> None:
+        conn = self._connections.pop(peer_id, None)
+        if conn is not None:
+            await conn.close()
+
     async def shutdown(self) -> None:
         self._alive_refs -= 1
         if self._alive_refs > 0:
             return
         self._shutting_down = True
         self._server.close()
-        # loop until drained: a connection may land (accepted before server.close)
-        # while earlier closes are awaited
+        if self._inbound_proxy_writer is not None:
+            # closing the control connection tears down the daemon's public listener
+            self._inbound_proxy_writer.close()
+            self._inbound_proxy_writer = None
+        if self._native_daemon is not None:
+            self._native_daemon.shutdown()
+            self._native_daemon = None
+        for relay in self._relays:
+            await relay.close()
+        self._relays.clear()
+        tasks = list(self._bg_tasks)
+        for task in tasks:
+            task.cancel()
+        await asyncio.gather(*tasks, return_exceptions=True)
+        # loop until drained: a connection may land (accepted before server.close, e.g.
+        # a peer's hole-punch dial) while earlier closes are awaited
         while self._all_connections:
             for conn in list(self._all_connections):
                 await conn.close()

@@ -69,7 +69,10 @@ for name in ("hivemind_tpu_torch.moe.server.decode_session", "hivemind_tpu_torch
              "hivemind_tpu_torch.examples.llama_generate", "hivemind_tpu_torch.examples.pipeline_inference",
              "hivemind_tpu_torch.sim", "hivemind_tpu_torch.sim.scenarios", "hivemind_tpu_torch.sim.network",
              "hivemind_tpu_torch.hivemind_cli.run_top", "hivemind_tpu_torch.hivemind_cli.run_blackbox",
-             "hivemind_tpu_torch.hivemind_cli.run_chaos_soak", "hivemind_tpu_torch.utils.nested"):
+             "hivemind_tpu_torch.hivemind_cli.run_chaos_soak", "hivemind_tpu_torch.utils.nested",
+             "hivemind_tpu_torch.p2p.relay", "hivemind_tpu_torch.p2p.nat", "hivemind_tpu_torch.p2p.autorelay",
+             "hivemind_tpu_torch.p2p.native_transport", "hivemind_tpu_torch.hivemind_cli.run_relay",
+             "hivemind_tpu_torch.ops._build_relayd", "hivemind_tpu_torch.proto.test_pb2"):
     assert name in sys.modules, name
 assert not leaked(), leaked()
 import hivemind_tpu_torch as top_level

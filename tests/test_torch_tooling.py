@@ -28,6 +28,7 @@ from hivemind_tpu.hivemind_cli import run_blackbox as jax_blackbox
 from hivemind_tpu.hivemind_cli import run_top as jax_top
 from hivemind_tpu.utils import nested as jax_nested
 from hivemind_tpu_torch.hivemind_cli import run_blackbox, run_top
+from hivemind_tpu_torch.p2p.nat import NATTraversal
 from hivemind_tpu_torch.telemetry.blackbox import BlackBox, read_spool
 from hivemind_tpu_torch.telemetry.tracing import start_span, trace
 from hivemind_tpu_torch.utils import nested
@@ -181,9 +182,9 @@ def test_top_boards_render_the_jax_tools_frames(spools):
 
 def test_every_top_level_name_resolves_to_the_ports_class():
     table = re.findall(r'"(\w+)": "hivemind_tpu[.\w]*"', inspect.getsource(hivemind_tpu.__getattr__))
-    names = [name for name in table if name != "NATTraversal"]
-    assert len(names) == len(table) - 1 == 28
-    for name in names:
+    assert len(table) == 29 and "NATTraversal" in table
+    assert sorted(hivemind_tpu_torch._LAZY) == sorted(table)  # the JAX package's table, NATTraversal included
+    for name in table:
         ours, theirs = getattr(hivemind_tpu_torch, name), getattr(hivemind_tpu, name)
         assert getattr(ours, "__name__", type(ours).__name__) == getattr(theirs, "__name__", type(theirs).__name__)
         assert (getattr(ours, "__module__", None) or type(ours).__module__).startswith("hivemind_tpu_torch."), name
@@ -194,8 +195,7 @@ def test_every_top_level_name_resolves_to_the_ports_class():
                           (timed_storage, ("DHTExpiration", "TimedStorage", "ValueWithExpiration", "get_dht_time"))):
         for name in names:  # the eager names, as the JAX package's
             assert getattr(hivemind_tpu_torch, name) is getattr(module, name) and hasattr(hivemind_tpu, name), name
-    with pytest.raises(AttributeError, match="ROADMAP 5c"):
-        hivemind_tpu_torch.NATTraversal
+    assert hivemind_tpu_torch.NATTraversal is NATTraversal  # resolves since the relay/NAT slice
     with pytest.raises(AttributeError, match="no attribute 'nonexistent'"):
         hivemind_tpu_torch.nonexistent
 

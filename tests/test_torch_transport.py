@@ -25,6 +25,7 @@ import optax
 import pytest
 import torch
 from torch import nn
+from torch_relay_support import add_echo, call_echo, running_daemon
 
 from hivemind_tpu.moe.client.expert import RemoteExpert as JaxRemoteExpert
 from hivemind_tpu.moe.expert_uid import ExpertInfo as JaxExpertInfo
@@ -265,10 +266,30 @@ async def test_port_and_jax_peers_handshake_and_call_namespaced_servicers_both_w
 
 
 async def test_transport_options_of_a_later_slice_raise():
-    for kwargs in ({"relays": ["127.0.0.1:1"]}, {"native_transport": True}, {"data_proxy_port": 1},
-                   {"inbound_data_proxy": True}):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            await P2P.create(**kwargs)
+    """The options that raised NotImplementedError until the relay/NAT slice landed now
+    each do what the JAX package's do, against the port's relay daemon: ``relays``
+    registers at it, ``native_transport`` spawns a private daemon that owns the public
+    listener, ``data_proxy_port`` routes outbound dials through the daemon and
+    ``inbound_data_proxy`` moves the listener into it."""
+    with deadline(40), running_daemon() as daemon:
+        nodes = [await P2P.create(relays=[f"127.0.0.1:{daemon.port}"]), await P2P.create(native_transport=True),
+                 await P2P.create(data_proxy_port=daemon.port),
+                 await P2P.create(data_proxy_port=daemon.port, inbound_data_proxy=True)]
+        relayed, native, outbound, inbound = nodes
+        try:
+            assert len(relayed._relays) == 1 and relayed._relays[0].registered
+            assert native._native_daemon is not None and native._native_daemon.alive
+            assert native._inbound_proxy_active and inbound._inbound_proxy_active
+            for server in (native, inbound):
+                assert server.get_visible_maddrs()[0].port != server._listen_port  # the daemon's listener
+                await add_echo(server, "echo", lambda n: n + 1)
+                await outbound.connect(server.get_visible_maddrs()[0])
+                assert await call_echo(outbound, server.peer_id, "echo", 41) == 42
+            assert outbound._proxied_dials == 2
+        finally:
+            for node in nodes:
+                await node.shutdown()
+        assert native._native_daemon is None and not relayed._relays
 
 
 # ------------------------------------------------------------------ expert RPCs across packages
