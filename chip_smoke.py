@@ -160,8 +160,11 @@ MANTISSA_BITS = {"bfloat16": 7, "float16": 10, "float32": 23}
 # head dim 20 in bf16 and fp16, the TinyBERT-width expert's attention ([head_dim32]'s
 # second expert: huawei-noah/TinyBERT_General_4L_312D config.json, hidden 312, 12 heads
 # of 26), an odd head dim (rows 2-byte aligned), 196 (padded to 256, its last region
-# partly past it) and a ragged T of 333; and bf16 at head dim 20 with H*D = 100, which no
-# TMA view takes, on the SIMT design (as fp32, whose cases are FLASH_SHAPES').
+# partly past it) and a ragged T of 333. Then the copied-rows view (16-bit inputs no TMA view
+# takes, the forward and dK/dV on wgmma, dQ on SIMT), every instantiation: bf16 at head dim 20
+# with H*D = 100 (padded to 64), fp16 at 21 with H*D = 63 (rows 2-byte aligned: 2-byte pieces),
+# head dim 8 (below wgmma's k-step of 16), 100 with H*D = 300 in bf16 and fp16 (padded to 128),
+# fp16 254 (its shift would pass 256: a narrower modulus) and bf16 196 (padded to 256).
 FLASH_EXTRA_CASES = [
     ((2, 64, 8, 32), "bfloat16", False), ((2, 1000, 16, 32), "bfloat16", True), ((2, 1000, 16, 16), "bfloat16", True),
     ((2, 1000, 16, 80), "bfloat16", False), ((1, 512, 8, 96), "bfloat16", True), ((1, 512, 4, 256), "float16", True),
@@ -169,9 +172,13 @@ FLASH_EXTRA_CASES = [
     ((65536, 16, 1, 64), "bfloat16", True), ((32768, 16, 2, 32), "float16", False),
     ((2, 1000, 16, 20), "bfloat16", True), ((1, 2048, 32, 80), "bfloat16", True), ((1, 2048, 16, 256), "float16", True),
     ((2, 1000, 16, 20), "float16", True), ((4, 128, 12, 26), "bfloat16", False), ((2, 1000, 16, 25), "bfloat16", True),
-    ((1, 512, 4, 196), "float16", True), ((3, 333, 12, 26), "bfloat16", True), ((2, 1000, 5, 20), "bfloat16", True),
+    ((1, 512, 4, 196), "float16", True), ((3, 333, 12, 26), "bfloat16", True),
     # with those, every instantiation of the packed forward (bf16 and fp16 at padded widths 64, 128 and 256)
     ((1, 512, 8, 100), "bfloat16", True), ((1, 512, 8, 100), "float16", False), ((1, 512, 4, 196), "bfloat16", False),
+    # the copied-rows view
+    ((2, 1000, 5, 20), "bfloat16", True), ((2, 1000, 3, 21), "float16", True), ((2, 1000, 4, 8), "bfloat16", False),
+    ((1, 512, 3, 100), "bfloat16", True), ((1, 512, 3, 100), "float16", True), ((1, 512, 4, 254), "float16", True),
+    ((1, 512, 3, 196), "bfloat16", True),
     # fp32 on the 3xTF32 forward beside FLASH_SHAPES' (ALBERT's, the served shapes, T 2000 at D = 128): head dim 20
     # (a multiple of 4, not of 8) and 100 (padded to 128, its columns past 100 zeros), with a ragged T; fp32 at
     # head dims the 3xTF32 kernels do not take (18, 256) stays on SIMT
@@ -185,9 +192,13 @@ FLASH_EXTRA_CASES = [
 # a neighbour's column left in a tile a product sums over (a resident tile's missed
 # zeroing, a streamed tile's stray byte) turns a head's output NaN through 0 * inf.
 FAULTY_PACKED = ((2, 1000, 16, 20), "bfloat16")
+# the same two checks (and the backward's planted fault) on the copied-rows view: head dim 20 with
+# H*D = 100, whose tiles the producer fills a head's bytes at a time, resident ones too
+FAULTY_COPIED = ((2, 1000, 5, 20), "bfloat16")
 # views whose base is one element off 16-byte alignment, which TMA and the 3xTF32 kernels' 16-byte
 # loads cannot read: the wrappers copy them first (bf16, head_dims 64, 32 and 20 with H*D = 160;
-# fp32 at 64), or the SIMT kernel reads them through their strides (bf16 head dim 20 with H*D = 100)
+# fp32 at 64), or the copied-rows view (and the SIMT dQ pass) reads them through their strides (bf16
+# head dim 20 with H*D = 100)
 UNALIGNED_CASES = [((2, 1000, 16, 64), True, "bfloat16"), ((2, 64, 8, 32), False, "bfloat16"),
                    ((2, 64, 8, 20), True, "bfloat16"), ((2, 64, 5, 20), True, "bfloat16"),
                    ((2, 1000, 16, 64), True, "float32")]
@@ -218,11 +229,15 @@ FLASH_BWD_CASES = [
     ((2, 1000, 16, 16), "bfloat16", True), ((1, 512, 8, 96), "float16", False), ((1, 512, 4, 256), "bfloat16", False),
     ((2, 1000, 16, 136), "float16", True), ((1, 512, 4, 200), "bfloat16", True),
     # the packed-heads view's cases of FLASH_EXTRA_CASES (every instantiation of both packed
-    # passes: bf16 and fp16 at padded widths 64 and 256; 128 by head dim 100), and H*D = 100
-    # on both SIMT passes, which keeps their 16-bit path held
+    # passes: bf16 and fp16 at padded widths 64 and 256; 128 by head dim 100)
     ((2, 1000, 16, 20), "float16", True), ((4, 128, 12, 26), "bfloat16", False), ((2, 1000, 16, 25), "bfloat16", True),
-    ((1, 512, 4, 196), "float16", True), ((3, 333, 12, 26), "bfloat16", True), ((2, 1000, 5, 20), "bfloat16", True),
+    ((1, 512, 4, 196), "float16", True), ((3, 333, 12, 26), "bfloat16", True),
     ((1, 512, 8, 100), "bfloat16", True), ((1, 512, 8, 100), "float16", False), ((1, 512, 4, 196), "bfloat16", False),
+    # the copied-rows view's cases of FLASH_EXTRA_CASES (every instantiation of its dK/dV pass), whose dQ pass is
+    # the 16-bit SIMT kernel's
+    ((2, 1000, 5, 20), "bfloat16", True), ((2, 1000, 3, 21), "float16", True), ((2, 1000, 4, 8), "bfloat16", False),
+    ((1, 512, 3, 100), "bfloat16", True), ((1, 512, 3, 100), "float16", True), ((1, 512, 4, 254), "float16", True),
+    ((1, 512, 3, 196), "bfloat16", True),
     # fp32 beside the cases above (the 3xTF32 dQ and dK/dV passes): ALBERT's shape, the training path's; head dim
     # 20 (a multiple of 4, not of 8); 128 and 100 (padded to 128) at a ragged T; a Llama request at full length; and
     # 18, which stays on SIMT
@@ -251,9 +266,10 @@ FLASH_BWD_TOL = {
 FAULTY_TILE = 64  # planted faults the checks must reject: P (forward) or dS (backward) 5% too large on every other 64-wide tile
 # where the backward's planted fault is checked, (shape, dtype): the training path's
 # shape, and a Llama request at full length, causal (the dQ kernel masks only its
-# diagonal tiles), in bf16 and in fp16; and Gemma-7B's fp16 at a padded width of 256
+# diagonal tiles), in bf16 and in fp16; Gemma-7B's fp16 at a padded width of 256; the packed-heads
+# and the copied-rows views
 FAULTY_BWD_SHAPES = ((ALBERT_ATTENTION, "bfloat16"), ((1, 2048, 32, 128), "bfloat16"),
-                     ((1, 2048, 32, 128), "float16"), ((1, 2048, 16, 256), "float16"), FAULTY_PACKED)
+                     ((1, 2048, 32, 128), "float16"), ((1, 2048, 16, 256), "float16"), FAULTY_PACKED, FAULTY_COPIED)
 # where the fp32 checks must reject the inputs rounded to plain TF32 (10 mantissa bits, what one
 # TF32 product would read; the plain version run on tf32_split's hi parts), in both phases: the
 # training path's shape and a Llama request at full length, causal
@@ -262,10 +278,12 @@ FAULTY_TF32_SHAPES = ((ALBERT_ATTENTION, False), ((1, 2048, 32, 128), True))
 # not take (18, not a multiple of 4), one of FLASH_BWD_CASES
 SIMT_DQ_SHAPE = ((2, 1000, 4, 18), "float32")
 # q, k, v sliced from one fused [B, T, 3, H, D] tensor (T stride 3*H*D): the TMA views of a
-# projection that is not split into three tensors, for each head_dim, held like FLASH_SHAPES; and in
-# fp32 the strided views the 3xTF32 kernels' 16-byte loads read (head dims 64 and 20)
+# projection that is not split into three tensors, for each head_dim, held like FLASH_SHAPES; in
+# fp32 the strided views the 3xTF32 kernels' 16-byte loads read (head dims 64 and 20); and fp16 at
+# head dim 21 with H*D = 105 on the copied-rows view, whose k and v rows lie 2 bytes off q's words
 STRIDED_CASES = [((2, 1000, 16, 64), True, "bfloat16"), ((1, 512, 32, 128), False, "bfloat16"),
-                 ((2, 1000, 16, 64), True, "float32"), ((2, 333, 8, 20), False, "float32")]
+                 ((2, 1000, 16, 64), True, "float32"), ((2, 333, 8, 20), False, "float32"),
+                 ((2, 333, 5, 21), True, "float16")]
 # the kernels that issue wgmma: the build fails if any instantiation spills (the TMA-fed ones for
 # bf16 and fp16 at padded widths 64, 128 and 256, each full-width and narrower; the 3xTF32 ones at
 # padded widths 64 and 128)
@@ -868,8 +886,8 @@ def tf32_rounded(*tensors):
 
 def phase_flash(torch, peaks) -> dict:
     """The forward against its plain version; returns the kernels line's entries: the
-    longest served request's, the packed-heads view's at FAULTY_PACKED and the 3xTF32 kernel's
-    at ALBERT's fp32 shape."""
+    longest served request's, the packed-heads view's at FAULTY_PACKED, the copied-rows view's
+    at FAULTY_COPIED and the 3xTF32 kernel's at ALBERT's fp32 shape."""
     with Draws(np.random.default_rng(SEED), FLASH_DRAWS) as draw:
         return check_flash(torch, peaks, draw)
 
@@ -920,9 +938,9 @@ def check_flash(torch, peaks, draw) -> dict:
         q, k, v = (torch.from_numpy(draw(shape)).cuda().to(getattr(torch, dtype_name)) for _ in range(3))
         label = f"B={batch} T={seq} H={heads} D={dim} {dtype_name} causal={causal} ({flash_routes(q)})"
         readings = check_forward(torch, q, k, v, causal, dtype_name, label)
-        if (shape, dtype_name) == FAULTY_PACKED:  # a planted fault, rejected
+        if (shape, dtype_name) in (FAULTY_PACKED, FAULTY_COPIED):  # a planted fault, rejected
             reference = plain_forward(torch, q, k, v, causal)
-            packed_err = read_forward(*flash_attention_lse(q, k, v, causal), reference, dtype_name)[0]["max_abs"]
+            view_err = read_forward(*flash_attention_lse(q, k, v, causal), reference, dtype_name)[0]["max_abs"]
             faulty = read_forward(faulty_forward(torch, q, k, v, causal), reference[1], reference, dtype_name)[0]
             log(f"[flash] {label}, P x 1.05 on every other KV tile (planted in the plain version): "
                 f"out {format_reading(faulty)} ok={faulty['ok']}")
@@ -934,9 +952,10 @@ def check_flash(torch, peaks, draw) -> dict:
         timing = forward_timing(torch, peaks, q, k, v, causal)
         log(f"[flash] {label}: {timing['text']}")
         log(f"[flash]   {readings}")
-        if (shape, dtype_name) == FAULTY_PACKED:
-            entries["flash_attention_forward_packed"] = dict(max_abs_err=packed_err,
-                                                             **{key: timing[key] for key in KERNEL_TIMES})
+        if (shape, dtype_name) in (FAULTY_PACKED, FAULTY_COPIED):
+            view = "packed" if (shape, dtype_name) == FAULTY_PACKED else "copied"
+            entries[f"flash_attention_forward_{view}"] = dict(max_abs_err=view_err,
+                                                              **{key: timing[key] for key in KERNEL_TIMES})
     for (batch, seq, heads, dim), causal, dtype_name in STRIDED_CASES:
         fused = torch.from_numpy(draw((batch, seq, 3, heads, dim))).cuda()
         q, k, v = fused.to(getattr(torch, dtype_name)).unbind(2)
@@ -957,11 +976,16 @@ KERNEL_TIMES = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")  # a ker
 def forward_timing(torch, peaks, q, k, v, causal) -> dict:
     """The forward wrapper's device time on q, k, v, its plain version's, the library's
     (``F.scaled_dot_product_attention``) and the bound (``flash_bound``); on the 3xTF32 route
-    also the SIMT kernel's on the same tensors (``simt_ms``), the design it replaced. ``text``
-    is the log's reading."""
+    and on the copied-rows view also the SIMT kernel's on the same tensors (``simt_ms``), the
+    design each replaced. ``text`` is the log's reading."""
     import torch.nn.functional as F
 
-    from hivemind_tpu_torch.ops.flash_attention import flash_attention_lse, flash_attention_plain, flash_route
+    from hivemind_tpu_torch.ops.flash_attention import (
+        copied_rows,
+        flash_attention_lse,
+        flash_attention_plain,
+        flash_route,
+    )
 
     batch, seq, heads, dim = q.shape
     timing = dict(ms=time_ms(torch, lambda: flash_attention_lse(q, k, v, causal)),
@@ -973,7 +997,7 @@ def forward_timing(torch, peaks, q, k, v, causal) -> dict:
     bounds = flash_bound(torch, peaks, q.dtype, operations, 4 * q.numel() * q.element_size() + batch * heads * seq * 4)
     timing["bound_ms"], timing["bound_by"] = bounds["bound"]
     simt = ""
-    if flash_route(q, "forward") == "tf32x3":
+    if flash_route(q, "forward") == "tf32x3" or copied_rows(q):
         run_simt = simt_forward(torch, q, k, v)
         timing["simt_ms"] = time_ms(torch, lambda: run_simt(causal))
         simt = f" simt_ms={timing['simt_ms']:.4f} ({timing['simt_ms'] / timing['ms']:.2f}x the kernel's)"
@@ -1171,6 +1195,7 @@ def phase_flash_bwd(torch, peaks) -> dict:
 def check_flash_bwd(torch, peaks, draw) -> dict:
     from hivemind_tpu_torch.ops.flash_attention import (
         _delta,
+        copied_rows,
         flash_attention_backward,
         flash_attention_backward_dkv,
         flash_attention_backward_dkv_plain,
@@ -1214,7 +1239,7 @@ def check_flash_bwd(torch, peaks, draw) -> dict:
                 raise AssertionError("flash backward check passed fp32 dQ on inputs rounded to TF32")
             if faulty["dk"]["ok"] and faulty["dv"]["ok"]:
                 raise AssertionError("flash backward check passed fp32 dK and dV on inputs rounded to TF32")
-        if (shape, dtype_name) == FAULTY_PACKED:
+        if (shape, dtype_name) in (FAULTY_PACKED, FAULTY_COPIED):
             log(f"[flash_bwd] {label}, NaN, inf and -inf in every other head's q, k, v and dout: the other heads' "
                 f"{isolated_heads_backward(torch, q, k, v, dout, causal)}")
         del got, ref, scales
@@ -1224,9 +1249,10 @@ def check_flash_bwd(torch, peaks, draw) -> dict:
         plain_ms = {"dq": time_ms(torch, lambda: flash_attention_backward_dq_plain(*args), budget_ms=100.0),
                     "dkv": time_ms(torch, lambda: flash_attention_backward_dkv_plain(*args), budget_ms=100.0)}
         library_ms = library_backward_ms(torch, q, k, v, dout, causal)
-        simt = {}  # the SIMT kernel on the same tensors, where the pass runs 3xTF32: the design it replaced
+        # the SIMT kernel on the same tensors, where the pass runs 3xTF32 or the copied-rows view: the design it replaced
+        simt = {}
         for kernel in ("dq", "dkv"):
-            if flash_route(q, kernel) == "tf32x3":
+            if flash_route(q, kernel) == "tf32x3" or (kernel == "dkv" and copied_rows(q)):
                 run_simt = simt_backward(torch, kernel, *args[:6])
                 simt[kernel] = f" simt_ms={time_ms(torch, lambda: run_simt(causal)):.4f}"
         host = ""
@@ -1245,8 +1271,9 @@ def check_flash_bwd(torch, peaks, draw) -> dict:
             for kernel in ("dq", "dkv")) + f"; library (whole backward) ms={library_ms:.4f}{host}")
         log(f"[flash_bwd]   {text}")
         # the training path's shape (bf16 and fp32: the fp32 path's 3xTF32 dQ and dK/dV), the packed-heads
-        # view's, and an fp32 head dim the SIMT dQ pass still takes
+        # and copied-rows views', and an fp32 head dim the SIMT dQ pass still takes
         names = {(ALBERT_ATTENTION, "bfloat16"): {"dq": "", "dkv": ""}, FAULTY_PACKED: {"dq": "_packed", "dkv": "_packed"},
+                 FAULTY_COPIED: {"dkv": "_copied"},
                  (ALBERT_ATTENTION, "float32"): {"dq": "_tf32x3", "dkv": "_tf32x3"},
                  SIMT_DQ_SHAPE: {"dq": "_simt"}}.get((shape, dtype_name), {})
         for kernel, suffix in names.items():
@@ -6539,6 +6566,9 @@ def main(argv=None) -> int:
         "flash_attention_forward_packed": flash_attention.flash_attention_lse.packed,
         "flash_attention_backward_dq_packed": flash_attention.flash_attention_backward_dq.packed,
         "flash_attention_backward_dkv_packed": flash_attention.flash_attention_backward_dkv.packed,
+        # the forward's and the dK/dV pass's launches on the copied-rows view (16-bit inputs no TMA view takes)
+        "flash_attention_forward_copied": flash_attention.flash_attention_lse.copied,
+        "flash_attention_backward_dkv_copied": flash_attention.flash_attention_backward_dkv.copied,
         # fp32's kernels: every pass on 3xTF32; the SIMT dQ kernel at the head dims 3xTF32 does not take
         "flash_attention_forward_tf32x3": flash_attention.flash_attention_lse.tf32x3,
         "flash_attention_backward_dq_tf32x3": flash_attention.flash_attention_backward_dq.tf32x3,
@@ -6686,6 +6716,11 @@ def main(argv=None) -> int:
         "flash_attention_backward_dq_packed": ("hivemind_tpu_torch/csrc/flash_attention_bwd.cu",
                                                "hivemind_tpu/ops/pallas_attention.py:279"),
         "flash_attention_backward_dkv_packed": ("hivemind_tpu_torch/csrc/flash_attention_bwd.cu",
+                                                "hivemind_tpu/ops/pallas_attention.py:292"),
+        # rows 1 and 3 on the copied-rows view (kCopied instantiations)
+        "flash_attention_forward_copied": ("hivemind_tpu_torch/csrc/flash_attention.cu",
+                                           "hivemind_tpu/ops/pallas_attention.py:108"),
+        "flash_attention_backward_dkv_copied": ("hivemind_tpu_torch/csrc/flash_attention_bwd.cu",
                                                 "hivemind_tpu/ops/pallas_attention.py:292"),
         # rows 1-3 on fp32 (flash_forward_tf32x3, flash_bwd_dq_tf32x3, flash_bwd_dkv_tf32x3), and row 2 on
         # the SIMT kernel (flash_bwd_dq_simt) at an fp32 head dim 3xTF32 does not take

@@ -70,6 +70,30 @@ inline bool wgmma_takes(int dtype, int head_dim, int heads) {
     return static_cast<long long>(heads) * head_dim % 8 == 0 && tma_span(head_dim, heads) <= 256;
 }
 
+// What the copied-rows view of the wgmma forward and dK/dV pass takes (every 16-bit input
+// that no TMA view does): bf16 or fp16 at a head_dim from 1 to 256, and a shift modulus of
+// 2, 4, 8 or 16 bytes (sm90::copied_shift).
+inline bool copied_takes(int dtype, int head_dim, int modulus) {
+    return (dtype == kSimtBf16 || dtype == kSimtF16) && head_dim >= 1 && head_dim <= 256 &&
+           (modulus == 2 || modulus == 4 || modulus == 8 || modulus == 16);
+}
+
+// The columns a copied-rows tile spans: head_dim plus the largest shift of any block
+// (sm90::copied_shift of its head's row 0 of q, at byte strides sb and sh). b * sb and h * sh
+// modulo a modulus of at most 16 bytes repeat within 8 steps (the strides are even), so the
+// first 8 batches and heads show every shift.
+inline int copied_span(const void* q, long long sb, long long sh, int batch, int heads, int head_dim, int modulus) {
+    int shift = 0;
+    for (int b = 0; b < batch && b < 8; ++b) {
+        for (int h = 0; h < heads && h < 8; ++h) {
+            const unsigned long long row0 = reinterpret_cast<unsigned long long>(q) + b * sb + h * sh;
+            const int s = static_cast<int>(row0 & static_cast<unsigned long long>(modulus - 1)) / 2;
+            shift = s > shift ? s : shift;
+        }
+    }
+    return head_dim + shift;
+}
+
 // What the 3xTF32 kernels (every fp32 pass) take: fp32 at a head_dim from 16
 // to 128 that is a multiple of 4, so a head's row is whole 16-byte chunks.
 inline bool tf32x3_takes(int dtype, int head_dim) {

@@ -13,12 +13,13 @@
 // registers (never in device memory) and keeps the tensor cores fed from tiles
 // that TMA brings in ahead of use.
 //
-// Design, wgmma (`flash_forward_wgmma<T, Dp, kFull, kPacked>`: bf16 and fp16 at a
-// head_dim from 16 to 256 that is a multiple of 8, the serving and training paths, or
-// any other whose H * head_dim is; the building blocks are sm90.cuh). T is the
-// element type, Dp the head_dim padded to 64, 128 or 256, kFull whether head_dim is
-// Dp, kPacked whether TMA reads the packed-heads view (below); all are template
-// arguments, never runtime branches.
+// Design, wgmma (`flash_forward_wgmma<T, Dp, kFull, kPacked, kCopied>`: bf16 and fp16 at
+// a head_dim from 16 to 256 that is a multiple of 8, the serving and training paths, or
+// any other whose H * head_dim is; and, on the copied-rows view, every other 16-bit
+// head_dim from 1 to 256; the building blocks are sm90.cuh). T is the element type, Dp
+// the head_dim padded to 64, 128 or 256, kFull whether head_dim is Dp, kPacked whether
+// TMA reads the packed-heads view, kCopied whether the producer copies every tile (the
+// copied-rows view; both below); all are template arguments, never runtime branches.
 //  * One thread block per (128 query rows, batch*head); three warpgroups. Two
 //    consumer warpgroups own 64 query rows each; one warp of the third (the
 //    producer) issues the TMA loads: the block's Q tile once, then K and V tiles
@@ -76,6 +77,25 @@
 //    reads only V's column s + d, and it is the head's column d; the rest hold other
 //    heads' sums and are never stored. Each output column is stored by a 2-byte store
 //    of its own (a row starts only 2-byte aligned at an odd head_dim).
+//  * The copied-rows view (kCopied: a 16-bit input no TMA view takes, a head_dim below 16,
+//    or one that is not a multiple of 8 whose H * head_dim is not one either or whose
+//    packed span passes 256). TMA needs outer strides that are multiples of 16 bytes, and
+//    such a tensor's rows are 2 * H * head_dim bytes apart. So the producer warpgroup's
+//    128 threads copy every tile a head's bytes at a time: Q once (a row a thread), then
+//    each K and V tile (a row, or half of one at Dp = 256) by sm90::load_head_row<true>, into
+//    tiles zeroed once at the start in the 128-byte-swizzled layout the descriptors read; no
+//    tensor map is read. A head's rows are congruent modulo the largest power of two up to
+//    16 that divides the row stride in bytes (the wrapper's modulus, copy_plan), so the head
+//    lands at one column s of its tiles for all rows, s = (address of q's row 0 of the head
+//    mod the modulus) / 2 (sm90::copied_shift), and q's rows are copied in pieces as wide as
+//    the modulus: cp.async of 16, 8 or 4 bytes where both sides are that aligned, plain
+//    2-byte loads below (eight in flight before their stores). k and v follow q's shift in
+//    pieces their own alignment allows. Where s would carry the head into a wider tile than
+//    head_dim alone needs, the wrapper halves the modulus (at 2 the shift is 0). A
+//    neighbour's byte never enters a tile, so the consumers zero nothing (C10); they fence
+//    the async proxy after each barrier, and every producer thread arrives on each "full"
+//    barrier. The consumers, masks, turns and the 2-byte column stores are the packed view's.
+//    setmaxnreg 40 / 232 as the packed view's: no spill on either side.
 //  * Later work (not here): a persistent grid, so that one tile's loads and
 //    epilogue overlap another's products (at D = 64 and T = 512 a block runs
 //    only 4 KV tiles), and TMA stores of O.
@@ -124,9 +144,9 @@
 //    the fp32 limits, which chip_smoke.py holds every fp32 case to.
 //
 // Design, SIMT (every input the wgmma and 3xTF32 designs do not take: fp32 at a head_dim
-// that is not a multiple of 4 or outside 16 to 128, and bf16 or fp16 at a head_dim that is not
-// a multiple of 8 whose H * head_dim is not one either, or outside 16 to 256; any
-// head_dim up to 256, as the TPU kernel takes the whole head_dim as its block): the
+// that is not a multiple of 4 or outside 16 to 128; any head_dim up to 256, as the TPU kernel
+// takes the whole head_dim as its block. Its bf16 and fp16 instantiations run on no path since
+// the copied-rows view; chip_smoke.py times them beside it on the same tensors): the
 // same online softmax on the CUDA cores in fp32 FMAs only (no TF32), the inputs
 // widened to fp32 as they are staged, as the TPU kernel casts its tiles. A block
 // owns 16 query rows of one batch*head, a warp 4 of them; lane j scores key j of a
@@ -137,6 +157,7 @@
 #include <cuda_bf16.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 #include "sm90.cuh"
@@ -171,6 +192,8 @@ constexpr int kProducerRegs = 24, kConsumerRegs = 240;  // 128 * 24 + 256 * 240 
 // the packed-heads view's producer threads copy rows by cp.async (sm90::load_head_row), which
 // spilled 4-8 bytes in 24 registers: 128 * 40 + 256 * 232 = 384 * 168, with no spill on either side
 constexpr int kPackedProducerRegs = 40, kPackedConsumerRegs = 232;
+// the copied-rows view's producer threads copy Q, K and V by cp.async (load_head_row<true>)
+constexpr int kCopiedProducerRegs = 40, kCopiedConsumerRegs = 232;
 
 struct WgmmaParams {
     void* out;
@@ -182,6 +205,20 @@ struct WgmmaParams {
     const void* k;             // the packed-heads view's K, which its kernel copies by cp.async
     long long k_sb, k_st;      // its batch and row strides, in bytes
 };
+
+// The copied-rows view's parameters, which copies q, k and v by cp.async: q and v, the head
+// strides and q's and v's other strides (bytes), and the shift modulus (sm90::copied_shift). A
+// struct of its own, so that the other views' kernels take WgmmaParams alone (a larger parameter
+// struct changed their SASS and cost the 4-D view's forward 2-5% on an H100).
+struct CopiedParams : WgmmaParams {
+    const void* q;
+    const void* v;
+    long long k_sh, q_sb, q_st, q_sh, v_sb, v_st, v_sh;
+    int modulus;
+};
+
+template <bool kCopied>
+using ForwardParams = std::conditional_t<kCopied, CopiedParams, WgmmaParams>;
 
 // Shared-memory layout at the padded width Dp (byte offsets from a 1024-aligned base).
 template <int Dp>
@@ -221,11 +258,14 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, 
 // tile about 1%, as measured against one without it). kPacked: the packed-heads
 // view (a head_dim that is not a multiple of 8): Q's columns outside the head's are
 // zeroed once it lands, K is copied a head's bytes at a time into a ring zeroed once,
-// and each column is stored by its own 2-byte store.
-template <typename T, int Dp, bool kFull, bool kPacked>
+// and each column is stored by its own 2-byte store. kCopied: the copied-rows view (a
+// 16-bit input no TMA view takes): Q, K and V are all copied a head's bytes at a time into
+// tiles zeroed once, the maps are not read, and each column is stored as kPacked's.
+template <typename T, int Dp, bool kFull, bool kPacked, bool kCopied>
 __global__ void __launch_bounds__(kThreadsWgmma, 1)
     flash_forward_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-                        const __grid_constant__ CUtensorMap tm_v, const WgmmaParams p) {
+                        const __grid_constant__ CUtensorMap tm_v, const ForwardParams<kCopied> p) {
+    static_assert(!(kPacked && kCopied), "one view at a time");
     using L = ForwardTiles<Dp>;
     constexpr int kKvRows = L::kKvRows;
     extern __shared__ unsigned char smem_raw[];
@@ -246,14 +286,17 @@ __global__ void __launch_bounds__(kThreadsWgmma, 1)
     // the head's TMA coordinates, and the tile column its first column lands at (0 but
     // in the packed-heads view)
     const int2 origin = sm90::head_origin(h, p.head_dim, kPacked);
-    const int shift = sm90::head_shift(h, p.head_dim, kPacked);
+    int shift = sm90::head_shift(h, p.head_dim, kPacked);
+    if constexpr (kCopied) {  // where q's row 0 of the head lies decides it (the wrapper's copy_plan)
+        shift = sm90::copied_shift(static_cast<const char*>(p.q) + b * p.q_sb + h * p.q_sh, p.modulus);
+    }
     // The regions TMA loads: at Dp <= 128 every one holds a column below head_dim
     // (head_dim >= 16, and > 64 at Dp = 128; packed, each is loaded and zeroed around the
     // head); at Dp = 256 the last lies wholly past a head_dim of 192 or less (past shift
     // + head_dim, packed), so it is zeroed once here and never loaded.
     const int boxes =
         !kFull && Dp > 128 ? (shift + p.head_dim + sm90::kBoxCols - 1) / sm90::kBoxCols : L::kBoxes;
-    if (!kFull && Dp > 128 && boxes < L::kBoxes) {
+    if (!kCopied && !kFull && Dp > 128 && boxes < L::kBoxes) {
         for (int region = boxes; region < L::kBoxes; ++region) {
             sm90::zero_shared(base + L::kQ + region * L::kQBox, L::kQBox);
             for (int s = 0; s < kStages; ++s) {
@@ -267,12 +310,16 @@ __global__ void __launch_bounds__(kThreadsWgmma, 1)
         sm90::zero_shared(base + L::kK, kStages * L::kKvTile);
         sm90::fence_proxy_async();
     }
+    if constexpr (kCopied) {  // Q and both rings: zeros, of which load_head_row overwrites only the head's columns
+        sm90::zero_shared(base, L::kBarriers);
+        sm90::fence_proxy_async();
+    }
 
     if (threadIdx.x == 0) {
-        sm90::mbar_init(full_q, 1);
+        sm90::mbar_init(full_q, kCopied ? kProducerThreads : 1);  // copied: every producer thread
         for (int s = 0; s < kStages; ++s) {
-            sm90::mbar_init(full_k(s), kPacked ? kProducerThreads : 1);  // packed: every producer thread
-            sm90::mbar_init(full_v(s), 1);
+            sm90::mbar_init(full_k(s), kPacked || kCopied ? kProducerThreads : 1);  // packed: every producer thread
+            sm90::mbar_init(full_v(s), kCopied ? kProducerThreads : 1);
             sm90::mbar_init(empty_k(s), kConsumerWarps);
             sm90::mbar_init(empty_v(s), kConsumerWarps);
         }
@@ -281,8 +328,34 @@ __global__ void __launch_bounds__(kThreadsWgmma, 1)
     __syncthreads();
 
     if (threadIdx.x >= kConsumerWarps * 32) {  // the producer warpgroup; one thread issues every TMA load
-        sm90::setmaxnreg_dec<kPacked ? kPackedProducerRegs : kProducerRegs>();
-        if constexpr (kPacked) {  // every producer thread copies K's head bytes of a row (or half); thread 0 Q and V by TMA
+        sm90::setmaxnreg_dec<kCopied ? kCopiedProducerRegs : kPacked ? kPackedProducerRegs : kProducerRegs>();
+        if constexpr (kCopied) {  // every producer thread copies a row of Q, then a row (or half) of each K and V tile
+            const int thread = threadIdx.x - kConsumerWarps * 32;
+            // where tile byte 0 of the head's row 0 of each tensor would lie
+            const char* q_line = static_cast<const char*>(p.q) + b * p.q_sb + h * p.q_sh - 2 * shift;
+            const char* k_line = static_cast<const char*>(p.k) + b * p.k_sb + h * p.k_sh - 2 * shift;
+            const char* v_line = static_cast<const char*>(p.v) + b * p.v_sb + h * p.v_sh - 2 * shift;
+            sm90::load_head_row<true>(base + L::kQ, L::kQBox, q_line, p.q_st, 2 * shift, 2 * (shift + p.head_dim), q0,
+                                      thread, p.seq);
+            sm90::cp_async_arrive(full_q);
+            sm90::mbar_arrive(full_q);
+            constexpr int kParts = kProducerThreads / kKvRows;  // threads a row: 1, or 2 at Dp = 256
+            const int2 bytes = sm90::row_part(2 * shift, 2 * (shift + p.head_dim), thread / kKvRows, kParts);
+            for (int j = 0; j < kv_tiles; ++j) {
+                const int s = j % kStages;
+                const uint32_t parity = ((j / kStages) & 1) ^ 1;  // the first round passes at once
+                sm90::mbar_wait(empty_k(s), parity);
+                sm90::load_head_row<true>(base + L::kK + s * L::kKvTile, L::kKvBox, k_line, p.k_st, bytes.x, bytes.y,
+                                          j * kKvRows, thread % kKvRows, p.seq);
+                sm90::cp_async_arrive(full_k(s));
+                sm90::mbar_arrive(full_k(s));
+                sm90::mbar_wait(empty_v(s), parity);
+                sm90::load_head_row<true>(base + L::kV + s * L::kKvTile, L::kKvBox, v_line, p.v_st, bytes.x, bytes.y,
+                                          j * kKvRows, thread % kKvRows, p.seq);
+                sm90::cp_async_arrive(full_v(s));
+                sm90::mbar_arrive(full_v(s));
+            }
+        } else if constexpr (kPacked) {  // every producer thread copies K's head bytes of a row (or half); thread 0 Q and V by TMA
             const int thread = threadIdx.x - kConsumerWarps * 32;
             if (thread == 0) {
                 sm90::mbar_arrive_expect_tx(full_q, boxes * L::kQBox);
@@ -323,7 +396,7 @@ __global__ void __launch_bounds__(kThreadsWgmma, 1)
             }
         }
     } else {  // two consumer warpgroups, 64 query rows each
-        sm90::setmaxnreg_inc<kPacked ? kPackedConsumerRegs : kConsumerRegs>();
+        sm90::setmaxnreg_inc<kCopied ? kCopiedConsumerRegs : kPacked ? kPackedConsumerRegs : kConsumerRegs>();
         const int wg = threadIdx.x / 128;
         const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
         const int g = lane / 4, t = lane % 4;
@@ -432,13 +505,14 @@ __global__ void __launch_bounds__(kThreadsWgmma, 1)
             sm90::fence_regs(sc);
             sm90::fence_regs(o);
         };
-        // K tile j has landed; packed, its cp.async bytes are then fenced for wgmma's reads
+        // K tile j has landed; packed or copied, its cp.async bytes are then fenced for wgmma's reads
         const auto wait_k = [&](int j) {
             sm90::mbar_wait(full_k(j % kStages), (j / kStages) & 1);
-            if constexpr (kPacked) sm90::fence_proxy_async();
+            if constexpr (kPacked || kCopied) sm90::fence_proxy_async();
         };
         if (wg == 1) pass_turn();
         sm90::mbar_wait(full_q, 0);
+        if constexpr (kCopied) sm90::fence_proxy_async();
         if constexpr (kPacked) {  // Q's columns around the head's hold its neighbours': zero them before any S
             sm90::zero_around_head(base + L::kQ, L::kQBox, kRows, shift, p.head_dim, boxes * sm90::kBoxCols, threadIdx.x,
                                    kConsumerWarps * 32);
@@ -457,6 +531,7 @@ __global__ void __launch_bounds__(kThreadsWgmma, 1)
         for (int j = 1; j < kv_tiles; ++j) {
             wait_k(j);
             sm90::mbar_wait(full_v((j - 1) % kStages), ((j - 1) / kStages) & 1);
+            if constexpr (kCopied) sm90::fence_proxy_async();  // V's cp.async bytes too
             take_turn();
             issue_s(j);
             issue_pv(j - 1);
@@ -474,6 +549,7 @@ __global__ void __launch_bounds__(kThreadsWgmma, 1)
         }
         const int last = kv_tiles - 1;
         sm90::mbar_wait(full_v(last % kStages), (last / kStages) & 1);
+        if constexpr (kCopied) sm90::fence_proxy_async();
         take_turn();
         issue_pv(last);
         sm90::wgmma_commit();
@@ -491,7 +567,7 @@ __global__ void __launch_bounds__(kThreadsWgmma, 1)
 #pragma unroll
         for (int c = 0; c < Dp / 8; ++c) {
             const int col = c * 8 + t * 2;
-            if constexpr (kPacked) {  // tile column shift + d is the head's d; a row starts only 2-byte aligned
+            if constexpr (kPacked || kCopied) {  // tile column shift + d is the head's d; a row starts only 2-byte aligned
                 const float vals[4] = {o[4 * c] / denom_lo, o[4 * c + 1] / denom_lo, o[4 * c + 2] / denom_hi,
                                        o[4 * c + 3] / denom_hi};
 #pragma unroll
@@ -937,10 +1013,10 @@ __global__ void __launch_bounds__(kWarpsSimt * 32) flash_forward_simt(const Para
 
 // ------------------------------------------------------------------ launch
 
-template <typename T, int Dp, bool kFull, bool kPacked>
-int launch_wgmma(const CUtensorMap (&maps)[3], const WgmmaParams& p, int batch, cudaStream_t stream) {
+template <typename T, int Dp, bool kFull, bool kPacked, bool kCopied = false>
+int launch_wgmma(const CUtensorMap (&maps)[3], const ForwardParams<kCopied>& p, int batch, cudaStream_t stream) {
     constexpr size_t smem = ForwardTiles<Dp>::kBytes;
-    const auto kernel = flash_forward_wgmma<T, Dp, kFull, kPacked>;
+    const auto kernel = flash_forward_wgmma<T, Dp, kFull, kPacked, kCopied>;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid(batch * p.heads, (p.seq + kRows - 1) / kRows);
@@ -962,6 +1038,14 @@ int dispatch_wgmma_width(const CUtensorMap (&maps)[3], const WgmmaParams& p, int
     if (span <= 64) return launch_width<T, 64>(maps, p, batch, stream);
     if (span <= 128) return launch_width<T, 128>(maps, p, batch, stream);
     return launch_width<T, 256>(maps, p, batch, stream);
+}
+
+// The copied-rows view at the least padded width that holds its span (copied_span).
+template <typename T>
+int dispatch_copied_width(const CUtensorMap (&maps)[3], const CopiedParams& p, int batch, int span, cudaStream_t stream) {
+    if (span <= 64) return launch_wgmma<T, 64, false, false, true>(maps, p, batch, stream);
+    if (span <= 128) return launch_wgmma<T, 128, false, false, true>(maps, p, batch, stream);
+    return launch_wgmma<T, 256, false, false, true>(maps, p, batch, stream);
 }
 
 template <int Dp>
@@ -995,8 +1079,8 @@ struct ForwardSimt {
 
 }  // namespace
 
-// Built in two parts (HM_IN_PART): the wgmma entry, whose kernels take most of the compile, and
-// the others.
+// Built in three parts (HM_IN_PART): the wgmma entry, whose kernels take most of the compile, the
+// copied-rows entry, and the others.
 #if HM_IN_PART(1)
 // q, k, v: [B, T, H, D] of one element type `dtype` (SimtDtype: bf16 or fp16),
 // head_dim from 16 to 256, a multiple of 8 or with H * head_dim one, each described by
@@ -1026,6 +1110,47 @@ extern "C" int hm_flash_forward_wgmma(const void* q, const void* k, const void* 
     return dispatch_wgmma_width<__nv_bfloat16>(maps, p, batch, stream);
 }
 
+#endif
+
+#if HM_IN_PART(2)
+// q, k, v: [B, T, H, D] of one element type `dtype` (SimtDtype: bf16 or fp16), head_dim 1 to
+// 256, last dim contiguous, strides in elements, of which no TMA view exists (the wrapper's
+// copied_rows): read through the copied-rows view, each block's head landing at its
+// sm90::copied_shift under `modulus` (2, 4, 8 or 16 bytes) -> out [B, T, H, D] of that type and
+// lse [B, H, T] fp32 contiguous, on the tensor cores.
+extern "C" int hm_flash_forward_copied(const void* q, const void* k, const void* v, void* out, float* lse, int dtype,
+                                       int batch, int seq, int heads, int head_dim,
+                                       long long q_sb, long long q_st, long long q_sh,
+                                       long long k_sb, long long k_st, long long k_sh,
+                                       long long v_sb, long long v_st, long long v_sh,
+                                       long long o_sb, long long o_st, long long o_sh,
+                                       int modulus, int causal, float scale, cudaStream_t stream) {
+    if (batch <= 0 || seq <= 0 || heads <= 0) return 0;
+    if (!copied_takes(dtype, head_dim, modulus)) return static_cast<int>(cudaErrorInvalidValue);
+    const int span = copied_span(q, 2 * q_sb, 2 * q_sh, batch, heads, head_dim, modulus);
+    if (span > 256) return static_cast<int>(cudaErrorInvalidValue);
+    CopiedParams p{};
+    p.out = out;
+    p.lse = lse;
+    p.seq = seq;
+    p.heads = heads;
+    p.head_dim = head_dim;
+    p.o_sb = o_sb;
+    p.o_st = o_st;
+    p.o_sh = o_sh;
+    p.scale = scale;
+    p.causal = causal;
+    p.q = q;
+    p.k = k;
+    p.v = v;
+    p.q_sb = 2 * q_sb, p.q_st = 2 * q_st, p.q_sh = 2 * q_sh;  // bytes
+    p.k_sb = 2 * k_sb, p.k_st = 2 * k_st, p.k_sh = 2 * k_sh;
+    p.v_sb = 2 * v_sb, p.v_st = 2 * v_st, p.v_sh = 2 * v_sh;
+    p.modulus = modulus;
+    const CUtensorMap maps[3] = {};  // not read: the copied-rows view copies every tile
+    if (dtype == kSimtF16) return dispatch_copied_width<__half>(maps, p, batch, span, stream);
+    return dispatch_copied_width<__nv_bfloat16>(maps, p, batch, span, stream);
+}
 #endif
 
 #if HM_IN_PART(0)

@@ -33,9 +33,11 @@
 // nothing relies on a padded lse.
 //
 // Both wgmma passes (building blocks in sm90.cuh; bf16 and fp16 at a head_dim from 16
-// to 256 that is a multiple of 8, or any other whose H * head_dim is; templates <T, Dp,
-// kFull, kPacked>: T the element type, Dp the head_dim padded to 64, 128 or 256, kFull
-// whether head_dim is Dp, kPacked whether the packed-heads view is read, below) run one
+// to 256 that is a multiple of 8, or any other whose H * head_dim is, and the dK/dV pass
+// on the copied-rows view at every other 16-bit head_dim from 1 to 256; templates <T, Dp,
+// kFull, kPacked> and, dK/dV, kCopied: T the element type, Dp the head_dim padded to 64,
+// 128 or 256, kFull whether head_dim is Dp, kPacked whether the packed-heads view is read,
+// kCopied whether the producer copies every tile, below) run one
 // thread block per 128 rows (query rows for dQ, KV rows for dK/dV; 64 KV rows at a
 // padded width of 256) of one batch*head, in three warpgroups: two consumer
 // warpgroups own 64 of those rows each (or, in the dK/dV pass at 256, the same 64
@@ -138,6 +140,17 @@
 // column d, the rest are never stored, and each stored column is a 2-byte store of its
 // own.
 //
+// The copied-rows view (kCopied, the dK/dV pass: a 16-bit input no TMA view takes, as the
+// forward's, flash_attention.cu). No tensor map is read: the producer warpgroup's 128 threads
+// copy K and V once (half the threads each, two rows a thread at 128 rows) and then each Q
+// and dO tile (a row a thread, half on each) a head's bytes at a time by
+// sm90::load_head_row<true>, into tiles and rings zeroed once, the head at column s =
+// sm90::copied_shift of q's row 0 under the wrapper's modulus, each row in pieces its own
+// alignment allows; lse and delta are staged as the packed view's. The consumers zero
+// nothing and fence the async proxy after the K/V barrier and each stage's; stores as the
+// packed view's; the Dp = 256 column split as above; setmaxnreg 40 / 232. The dQ pass on
+// these inputs stays on SIMT (the next redesign).
+//
 // Later work (not here): the ping-pong of the two consumer warpgroups and a deeper
 // ring in the dK/dV pass, a persistent grid, TMA stores of the outputs.
 //
@@ -198,10 +211,9 @@
 //    never stored, dQ stored as float2 pairs below head_dim; views read through their strides.
 //
 // SIMT (every input the wgmma and 3xTF32 passes do not take: fp32 at a head_dim that is not a
-// multiple of 4 or outside 16 to 128; bf16 and fp16 at a head_dim
-// that is not a multiple of 8
-// whose H * head_dim is not one either, or whose span passes 256; any head_dim up to
-// 256, as the TPU kernels take the whole head_dim as their block):
+// multiple of 4 or outside 16 to 128; and the dQ pass of the 16-bit inputs the copied-rows view
+// takes, whose dK/dV pass SIMT ran before it and chip_smoke.py still times beside it; any
+// head_dim up to 256, as the TPU kernels take the whole head_dim as their block):
 // plain fp32 FMAs on the CUDA cores, no TF32, the inputs widened to fp32 as they are
 // staged and P and dS kept in fp32, as the TPU kernels. A warp owns 4 rows (query
 // rows in the dQ kernel, KV rows in the dK/dV kernel); lane j takes column j of a
@@ -212,6 +224,7 @@
 #include <cuda_bf16.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 #include "sm90.cuh"
@@ -250,6 +263,8 @@ constexpr int kProducerRegs = 24, kConsumerRegs = 240;  // 128 * 24 + 256 * 240 
 // the packed-heads view's producer threads copy rows by cp.async (sm90::load_head_row), which
 // spilled 4-8 bytes in 24 registers: 128 * 40 + 256 * 232 = 384 * 168, with no spill on either side
 constexpr int kPackedProducerRegs = 40, kPackedConsumerRegs = 232;
+// the copied-rows view's producer threads copy K and V, then Q and dO, by cp.async (load_head_row<true>)
+constexpr int kCopiedProducerRegs = 40, kCopiedConsumerRegs = 232;
 
 struct WgmmaParams {
     const float* lse;    // [B, H, T]
@@ -265,6 +280,31 @@ struct WgmmaParams {
     const void* streamed[2];
     long long streamed_sb[2], streamed_st[2];
 };
+
+// The copied-rows view's parameters (the dK/dV pass), which copies every tile by cp.async:
+// WgmmaParams' fields, then the streamed tensors' head strides, the resident ones (k, v) with their
+// batch, row and head strides (bytes), and the shift modulus (sm90::copied_shift). A struct of its
+// own, so that the other views' kernels take WgmmaParams alone, as the forward's
+// (flash_attention.cu); and a flat one: the same fields in a struct derived from WgmmaParams ran
+// this pass 20% slower at head dim 20 on an H100 (PERF.md, section 6).
+struct CopiedParams {
+    const float* lse;
+    const float* delta;
+    void* out0;
+    void* out1;
+    int seq, heads, head_dim;
+    long long o_sb, o_st, o_sh;
+    float scale;
+    int causal;
+    const void* streamed[2];
+    long long streamed_sb[2], streamed_st[2], streamed_sh[2];
+    const void* resident[2];
+    long long resident_sb[2], resident_st[2], resident_sh[2];
+    int modulus;
+};
+
+template <bool kCopied>
+using DkvParams = std::conditional_t<kCopied, CopiedParams, WgmmaParams>;
 
 // Write a warpgroup's 64 x N fp32 accumulator as T into rows `row_a` and `row_a + 8`
 // of this thread and columns from `col0`: acc[4n + e] holds row row_a + 8*(e >> 1),
@@ -613,12 +653,15 @@ struct DkvTiles {
 // tile 1-3%, as measured against one without it). kPacked: the packed-heads view (a
 // head_dim that is not a multiple of 8): K's and V's columns outside the head's are
 // zeroed once they land, Q and dO are copied a head's bytes at a time into rings zeroed
-// once, and each column of dK and dV is stored on its own.
-template <typename T, int Dp, bool kFull, bool kPacked>
+// once, and each column of dK and dV is stored on its own. kCopied: the copied-rows view (a
+// 16-bit input no TMA view takes): K and V too are copied a head's bytes at a time, into
+// tiles zeroed once, the maps are not read, and the stores are kPacked's.
+template <typename T, int Dp, bool kFull, bool kPacked, bool kCopied>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                         const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
-                        const WgmmaParams p) {
+                        const DkvParams<kCopied> p) {
+    static_assert(!(kPacked && kCopied), "one view at a time");
     using L = DkvTiles<Dp>;
     constexpr int kAccCols = L::kAccCols;
     extern __shared__ unsigned char smem_raw[];
@@ -636,13 +679,17 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int q_tiles = (p.seq + kBoxRows - 1) / kBoxRows;
     const int q_begin = p.causal ? kv0 / kBoxRows : 0;  // causal: start at the diagonal tile
     const int2 origin = sm90::head_origin(h, p.head_dim, kPacked);  // as the forward's
-    const int shift = sm90::head_shift(h, p.head_dim, kPacked);
+    int shift = sm90::head_shift(h, p.head_dim, kPacked);
+    if constexpr (kCopied) {  // where q's row 0 of the head lies decides it, as in the forward
+        shift = sm90::copied_shift(static_cast<const char*>(p.streamed[0]) + b * p.streamed_sb[0] + h * p.streamed_sh[0],
+                                   p.modulus);
+    }
     // The regions TMA loads, as the forward: at Dp = 256 a region wholly past a
     // head_dim of 192 or less (past shift + head_dim, packed) is zeroed once here and
     // never loaded.
     const int boxes =
         !kFull && Dp > 128 ? (shift + p.head_dim + sm90::kBoxCols - 1) / sm90::kBoxCols : L::kBoxes;
-    if (!kFull && Dp > 128 && boxes < L::kBoxes) {
+    if (!kCopied && !kFull && Dp > 128 && boxes < L::kBoxes) {
         for (int region = boxes; region < L::kBoxes; ++region) {
             sm90::zero_shared(base + L::kK + region * L::kKvBox, L::kKvBox);
             sm90::zero_shared(base + L::kV + region * L::kKvBox, L::kKvBox);
@@ -657,12 +704,16 @@ __global__ void __launch_bounds__(kThreads, 1)
         sm90::zero_shared(base + L::kQ, 2 * kDkvStages * L::kQTile);
         sm90::fence_proxy_async();
     }
+    if constexpr (kCopied) {  // K, V and both rings: zeros, of which load_head_row overwrites only the head's columns
+        sm90::zero_shared(base, L::kLse);
+        sm90::fence_proxy_async();
+    }
 
     if (threadIdx.x == 0) {
-        sm90::mbar_init(full_kv, 1);
+        sm90::mbar_init(full_kv, kCopied ? kProducerThreads : 1);  // copied: every producer thread
         for (int s = 0; s < kDkvStages; ++s) {
-            // the producer warp's lanes, one of them with the TMA bytes; packed, every producer thread
-            sm90::mbar_init(full(s), kPacked ? kProducerThreads : 32);
+            // the producer warp's lanes, one of them with the TMA bytes; packed or copied, every producer thread
+            sm90::mbar_init(full(s), kPacked || kCopied ? kProducerThreads : 32);
             sm90::mbar_init(empty(s), kConsumerWarps);
         }
         sm90::fence_mbar_init();
@@ -670,10 +721,43 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();
 
     if (threadIdx.x >= kConsumerWarps * 32) {  // the producer warpgroup; its first warp loads
-        sm90::setmaxnreg_dec<kPacked ? kPackedProducerRegs : kProducerRegs>();
+        sm90::setmaxnreg_dec<kCopied ? kCopiedProducerRegs : kPacked ? kPackedProducerRegs : kProducerRegs>();
         const int lane = threadIdx.x - kConsumerWarps * 32;
-        if constexpr (kPacked) {  // half the producer threads copy Q's head bytes and stage lse, half dO's and
-                                  // delta, a row each; thread 0 also loads K and V by TMA
+        if constexpr (kCopied) {  // half the producer threads copy K's rows and then Q's and stage lse, half V's
+                                  // and then dO's and stage delta, a row (of K and V two at 128 rows) each
+            const int which = lane / kBoxRows, row = lane % kBoxRows;  // which: 0 K, Q and lse, 1 V, dO and delta
+            const int first = 2 * shift, last = 2 * (shift + p.head_dim);
+            // selects, not p.resident[which]: a kernel parameter indexed at run time is copied to local memory;
+            // each line is where tile byte 0 of the head's row 0 would lie
+            const char* kv_line = static_cast<const char*>(which ? p.resident[1] : p.resident[0]) +
+                                  b * (which ? p.resident_sb[1] : p.resident_sb[0]) +
+                                  h * (which ? p.resident_sh[1] : p.resident_sh[0]) - 2 * shift;
+            const uint32_t kv_tile = base + (which ? L::kV : L::kK);
+            for (int r = row; r < L::kKvRows; r += kBoxRows) {
+                sm90::load_head_row<true>(kv_tile, L::kKvBox, kv_line, which ? p.resident_st[1] : p.resident_st[0], first,
+                                          last, kv0, r, p.seq);
+            }
+            sm90::cp_async_arrive(full_kv);
+            sm90::mbar_arrive(full_kv);
+            const char* line = static_cast<const char*>(which ? p.streamed[1] : p.streamed[0]) +
+                               b * (which ? p.streamed_sb[1] : p.streamed_sb[0]) +
+                               h * (which ? p.streamed_sh[1] : p.streamed_sh[0]) - 2 * shift;
+            const long long row_bytes = which ? p.streamed_st[1] : p.streamed_st[0];
+            const float* stat = (which ? p.delta : p.lse) + static_cast<long long>(bh) * p.seq;
+            const uint32_t stat_s = sm90::smem_addr(which ? delta_s : lse_s) + 4 * row;
+            const uint32_t ring = base + (which ? L::kDo : L::kQ);
+            for (int i = q_begin; i < q_tiles; ++i) {
+                const int n = i - q_begin, s = n % kDkvStages;
+                sm90::mbar_wait(empty(s), ((n / kDkvStages) & 1) ^ 1);  // the first round passes at once
+                const int q0 = i * kBoxRows;
+                sm90::load_head_row<true>(ring + s * L::kQTile, L::kQBox, line, row_bytes, first, last, q0, row, p.seq);
+                sm90::cp_async_arrive(full(s));  // the copies are in flight while the statistic is loaded
+                const float value = q0 + row < p.seq ? stat[q0 + row] * (which ? 1.0f : sm90::kLog2e) : 0.0f;
+                asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(stat_s + s * kBoxRows * 4), "f"(value) : "memory");
+                sm90::mbar_arrive(full(s));
+            }
+        } else if constexpr (kPacked) {  // half the producer threads copy Q's head bytes and stage lse, half dO's and
+                                         // delta, a row each; thread 0 also loads K and V by TMA
             if (lane == 0) {
                 sm90::mbar_arrive_expect_tx(full_kv, 2 * boxes * L::kKvBox);
                 load_tile_tma<kBoxRows, L::kKvRows>(base + L::kK, &tm_k, full_kv, boxes, origin, kv0, b);
@@ -727,7 +811,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             }
         }
     } else {  // two consumer warpgroups: 64 KV rows each, or the same 64 rows and half the columns each
-        sm90::setmaxnreg_inc<kPacked ? kPackedConsumerRegs : kConsumerRegs>();
+        sm90::setmaxnreg_inc<kCopied ? kCopiedConsumerRegs : kPacked ? kPackedConsumerRegs : kConsumerRegs>();
         const int wg = threadIdx.x / 128;
         const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
         const int g = lane / 4, t = lane % 4;
@@ -744,6 +828,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const uint32_t v_wg = base + L::kV + wg_row * sm90::kSwizzleRowBytes;
         const uint32_t col_off = (col0 / sm90::kBoxCols) * L::kQBox;  // its columns' first region of Q and dO
         sm90::mbar_wait(full_kv, 0);
+        if constexpr (kCopied) sm90::fence_proxy_async();  // K's and V's cp.async bytes, for wgmma's reads
         if constexpr (kPacked) {  // K's and V's columns around the head's hold its neighbours': zero them
             sm90::zero_around_head(base + L::kK, L::kKvBox, L::kKvRows, shift, p.head_dim, boxes * sm90::kBoxCols,
                                    threadIdx.x, kConsumerWarps * 32);
@@ -758,7 +843,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
             float st[kBoxRows / 2], dpt[kBoxRows / 2];  // S^T = K Q^T and dP^T = V dO^T: 64 x 64 each
             sm90::mbar_wait(full(s), (n / kDkvStages) & 1);
-            if constexpr (kPacked) sm90::fence_proxy_async();  // the stage's cp.async bytes, for wgmma's reads
+            if constexpr (kPacked || kCopied) sm90::fence_proxy_async();  // the stage's cp.async bytes, for wgmma's reads
             sm90::wgmma_fence();
 #pragma unroll
             for (int kk = 0; kk < Dp / 16; ++kk) {
@@ -825,10 +910,10 @@ __global__ void __launch_bounds__(kThreads, 1)
             sm90::fence_regs(dk);
             if (lane == 0) sm90::mbar_arrive(empty(s));  // this warp is done with stage s
         }
-        store_rows<!kFull, kPacked, T, kAccCols>(static_cast<T*>(p.out0) + b * p.o_sb + h * p.o_sh, p.o_st, dk, row_a,
-                                                 p.seq, t, col0, p.head_dim, shift);
-        store_rows<!kFull, kPacked, T, kAccCols>(static_cast<T*>(p.out1) + b * p.o_sb + h * p.o_sh, p.o_st, dv, row_a,
-                                                 p.seq, t, col0, p.head_dim, shift);
+        store_rows<!kFull, kPacked || kCopied, T, kAccCols>(static_cast<T*>(p.out0) + b * p.o_sb + h * p.o_sh, p.o_st,
+                                                            dk, row_a, p.seq, t, col0, p.head_dim, shift);
+        store_rows<!kFull, kPacked || kCopied, T, kAccCols>(static_cast<T*>(p.out1) + b * p.o_sb + h * p.o_sh, p.o_st,
+                                                            dv, row_a, p.seq, t, col0, p.head_dim, shift);
     }
 }
 
@@ -1586,9 +1671,9 @@ int launch_simt(const Params& p, int dtype, cudaStream_t stream) {
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Both wgmma passes: a block per (batch*head, `rows` rows).
-template <typename Kernel>
-int launch_wgmma(Kernel kernel, size_t smem, int rows, const CUtensorMap (&maps)[4], const WgmmaParams& p, int batch,
+// Both wgmma passes: a block per (batch*head, `rows` rows); P: WgmmaParams, or CopiedParams.
+template <typename Kernel, typename P>
+int launch_wgmma(Kernel kernel, size_t smem, int rows, const CUtensorMap (&maps)[4], const P& p, int batch,
                  cudaStream_t stream) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -1607,9 +1692,9 @@ int launch_pass(const CUtensorMap (&maps)[4], const WgmmaParams& p, int batch, c
                                                        : flash_bwd_dq_wgmma<T, Dp, false, false>;
         return launch_wgmma(kernel, DqTiles<Dp>::kBytes, kBlockRows, maps, p, batch, stream);
     } else {
-        const auto kernel = p.head_dim == Dp            ? flash_bwd_dkv_wgmma<T, Dp, true, false>
-                            : packed_heads(p.head_dim) ? flash_bwd_dkv_wgmma<T, Dp, false, true>
-                                                       : flash_bwd_dkv_wgmma<T, Dp, false, false>;
+        const auto kernel = p.head_dim == Dp            ? flash_bwd_dkv_wgmma<T, Dp, true, false, false>
+                            : packed_heads(p.head_dim) ? flash_bwd_dkv_wgmma<T, Dp, false, true, false>
+                                                       : flash_bwd_dkv_wgmma<T, Dp, false, false, false>;
         return launch_wgmma(kernel, DkvTiles<Dp>::kBytes, DkvTiles<Dp>::kKvRows, maps, p, batch, stream);
     }
 }
@@ -1621,6 +1706,18 @@ int dispatch_width(const CUtensorMap (&maps)[4], const WgmmaParams& p, int batch
     if (span <= 64) return launch_pass<kDq, T, 64>(maps, p, batch, stream);
     if (span <= 128) return launch_pass<kDq, T, 128>(maps, p, batch, stream);
     return launch_pass<kDq, T, 256>(maps, p, batch, stream);
+}
+
+// The dK/dV pass on the copied-rows view at the least padded width that holds its span (copied_span).
+template <typename T>
+int dispatch_dkv_copied(const CopiedParams& p, int batch, int span, cudaStream_t stream) {
+    const CUtensorMap maps[4] = {};  // not read: the copied-rows view copies every tile
+    if (span <= 64) return launch_wgmma(flash_bwd_dkv_wgmma<T, 64, false, false, true>, DkvTiles<64>::kBytes,
+                                        DkvTiles<64>::kKvRows, maps, p, batch, stream);
+    if (span <= 128) return launch_wgmma(flash_bwd_dkv_wgmma<T, 128, false, false, true>, DkvTiles<128>::kBytes,
+                                         DkvTiles<128>::kKvRows, maps, p, batch, stream);
+    return launch_wgmma(flash_bwd_dkv_wgmma<T, 256, false, false, true>, DkvTiles<256>::kBytes, DkvTiles<256>::kKvRows,
+                        maps, p, batch, stream);
 }
 
 // The tensor maps of q, k, v, dout from the wrapper's geometries (boxes of 64 x 64),
@@ -1703,8 +1800,8 @@ Params make_params(const void* q, const void* k, const void* v, const void* dout
 
 }  // namespace
 
-// Built in three parts (HM_IN_PART): the wgmma dQ entry, the wgmma dK/dV entry, whose kernels take
-// most of the compile, and the others.
+// Built in four parts (HM_IN_PART): the wgmma dQ entry, the wgmma dK/dV entry, whose kernels take
+// most of the compile, the copied-rows dK/dV entry, and the others.
 #if HM_IN_PART(0)
 // q, k, v, dout: [B, T, H, D] of one element type `dtype` (SimtDtype: fp32, bf16
 // or fp16; last dim contiguous, strides in elements), head_dim 1 to 256; lse,
@@ -1814,5 +1911,34 @@ extern "C" int hm_flash_backward_dkv_wgmma(const void* q, const void* k, const v
     return launch_wgmma_pass<false>(q, k, v, dout, lse, delta, dk, dv, dtype, batch, seq, heads, head_dim,
                                     q_geometry, k_geometry, v_geometry, d_geometry, o_sb, o_st, o_sh, causal, scale,
                                     stream);
+}
+#endif
+
+#if HM_IN_PART(3)
+// q, k, v, dout: [B, T, H, D] of one element type `dtype` (SimtDtype: bf16 or fp16), head_dim 1
+// to 256, last dim contiguous, strides in elements, of which no TMA view exists (the wrapper's
+// copied_rows): read through the copied-rows view, each block's head landing at its
+// sm90::copied_shift under `modulus` (2, 4, 8 or 16 bytes); lse, delta: [B, H, T] fp32
+// contiguous -> dk, dv [B, T, H, D] of that type, sharing one layout (o_*), on the tensor cores.
+extern "C" int hm_flash_backward_dkv_copied(const void* q, const void* k, const void* v, const void* dout,
+                                            const float* lse, const float* delta, void* dk, void* dv, int dtype,
+                                            int batch, int seq, int heads, int head_dim,
+                                            long long q_sb, long long q_st, long long q_sh,
+                                            long long k_sb, long long k_st, long long k_sh,
+                                            long long v_sb, long long v_st, long long v_sh,
+                                            long long d_sb, long long d_st, long long d_sh,
+                                            long long o_sb, long long o_st, long long o_sh,
+                                            int modulus, int causal, float scale, cudaStream_t stream) {
+    if (batch <= 0 || seq <= 0 || heads <= 0) return 0;
+    if (!copied_takes(dtype, head_dim, modulus)) return static_cast<int>(cudaErrorInvalidValue);
+    const int span = copied_span(q, 2 * q_sb, 2 * q_sh, batch, heads, head_dim, modulus);
+    if (span > 256) return static_cast<int>(cudaErrorInvalidValue);
+    // byte strides; the streamed tensors are q and dout, the resident ones k and v
+    const CopiedParams p{lse, delta, dk, dv, seq, heads, head_dim, o_sb, o_st, o_sh, scale, causal,
+                         {q, dout}, {2 * q_sb, 2 * d_sb}, {2 * q_st, 2 * d_st},
+                         {2 * q_sh, 2 * d_sh}, {k, v}, {2 * k_sb, 2 * v_sb}, {2 * k_st, 2 * v_st}, {2 * k_sh, 2 * v_sh},
+                         modulus};
+    if (dtype == kSimtF16) return dispatch_dkv_copied<__half>(p, batch, span, stream);
+    return dispatch_dkv_copied<__nv_bfloat16>(p, batch, span, stream);
 }
 #endif

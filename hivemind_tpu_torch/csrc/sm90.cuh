@@ -13,7 +13,9 @@
 //    transpose-B immediate, N in {64, 128, 256}); fence / commit / wait;
 //  * setmaxnreg, to move registers from the producer warpgroup to the consumers;
 //  * cp.async of one head's bytes of a packed-heads tensor into a swizzled tile,
-//    completing on an mbarrier (load_head_row);
+//    completing on an mbarrier (load_head_row); the same for a row of any even alignment
+//    (the copied-rows view: load_head_row<true>, with copied_shift; a row 2 bytes off the
+//    tile's words by aligned 4-byte loads and byte permutes, copy_row_permuted);
 //  * 3xTF32 for fp32 inputs: the TF32 hi / lo split, wgmma m64nNk8 .tf32 (SS with both
 //    operands K-major, N in {16, 32, 64}; RS with A from registers, N in {64, 128}), the A
 //    fragment taken from an accumulator without register moves (tf32_a_fragment,
@@ -35,7 +37,9 @@
 // columns around them hold the neighbouring heads' values; a kernel zeroes those in
 // the tiles it keeps resident (zero_columns), and fills the tiles it streams with the
 // head's bytes alone (load_head_row, by cp.async), so no neighbour's value meets a
-// product.
+// product. In the copied-rows view (a 16-bit tensor no TMA view takes) a kernel fills
+// every tile so (load_head_row<true>), the head at column copied_shift, from rows of any
+// even alignment.
 //  * K-major operand (rows = M or N, the 64 columns = K): a k16 step is 32 bytes
 //    along the row; SBO = 1024 bytes (the next 8 rows); LBO is unused.
 //  * MN-major operand (rows = K, the 64 columns = N): a k16 step is 16 rows
@@ -150,11 +154,65 @@ __device__ __forceinline__ void cp_async(uint32_t dst, const void* src, bool val
     }
 }
 
+// Copy `bytes` (2, or 0 where the row is not valid) from global `src` to shared `dst`, both
+// 4-byte aligned, and zero the rest of the 4 bytes at `dst`.
+__device__ __forceinline__ void cp_async_zfill4(uint32_t dst, const void* src, int bytes) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+
 // An arrival on the mbarrier `bar` once every cp.async this thread issued before it has
 // landed. The barrier's pending count is raised by one now, so the thread's own
 // mbar_arrive is what counts it among the barrier's arrivals.
 __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
     asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// The shared address of byte x of row r of a 128-byte-swizzled tile whose 64-column regions lie
+// region_bytes apart (dst_row: the row's address in region 0).
+__device__ __forceinline__ uint32_t swizzled_byte(uint32_t dst_row, uint32_t region_bytes, int r, int x) {
+    return dst_row + (x / 128) * region_bytes + ((((x / 16) % 8) ^ (r % 8)) * 16) + x % 16;
+}
+
+// The copied-rows view (a 16-bit [B, T, H, D] tensor that no TMA view takes): the column a block's
+// head lands at in its tiles, (address of the head's row 0 of q) mod `modulus` bytes, halved. Every
+// row of the head is congruent to row 0 modulo `modulus` (the wrapper takes it from the row
+// stride), so each of q's rows is copied by pieces as wide as the modulus; the wrapper narrows it
+// where the shift would carry the head into a wider tile (ops/flash_attention.py, copy_plan).
+__device__ __forceinline__ int copied_shift(const void* row0, int modulus) {
+    return static_cast<int>(reinterpret_cast<uintptr_t>(row0) & static_cast<uintptr_t>(modulus - 1)) / 2;
+}
+
+// Tile bytes [first, last) of row r (dst_row: its address in region 0) from a source `src`
+// (where tile byte 0 would lie) that is 2 bytes off the tile's 4-byte words: each tile word at
+// x takes the upper half of the aligned source word at src + x - 2 and the lower half of the
+// next (a byte permute), so the row is read as aligned 4-byte words, kWords tile words (kWords
+// + 1 loads) in flight at a time. A half outside [first, last) is stored as zero (the tile's
+// own), and a source word that holds none of the head's bytes is not read. `valid` false:
+// zeros.
+__device__ __forceinline__ void copy_row_permuted(uint32_t dst_row, uint32_t region_bytes, const char* src, int first,
+                                                  int last, int r, bool valid) {
+    constexpr int kWords = 8;  // 16 spilled in the producer's 40 registers
+    const unsigned int* words = reinterpret_cast<const unsigned int*>(src - 2);  // words[i]: tile bytes [4i - 2, 4i + 2)
+    const int x0 = first & ~3, x1 = (last + 3) & ~3;
+    for (int x = x0; x < x1; x += 4 * kWords) {
+        unsigned int w[kWords + 1];
+#pragma unroll
+        for (int i = 0; i <= kWords; ++i) {
+            const int y = x + 4 * i;
+            w[i] = valid && y + 2 > first && y - 2 < last ? __ldg(words + y / 4) : 0u;
+        }
+#pragma unroll
+        for (int i = 0; i < kWords; ++i) {
+            const int y = x + 4 * i;
+            if (y < x1) {
+                unsigned int value = __byte_perm(w[i], w[i + 1], 0x5432);
+                if (y < first) value &= 0xffff0000u;     // tile bytes [y, y + 2) precede the head
+                if (y + 4 > last) value &= 0x0000ffffu;  // [y + 2, y + 4) follow it
+                asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(swizzled_byte(dst_row, region_bytes, r, y)), "r"(value)
+                             : "memory");
+            }
+        }
+    }
 }
 
 // Row r of a tile of rows from row0 of one head of a packed-heads tensor, in the
@@ -171,22 +229,42 @@ __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
 // the packed passes on an H100), then calls cp_async_arrive and mbar_arrive on the tile's
 // barrier, which counts every such thread; its waiters fence_proxy_async() before their
 // wgmma reads.
+// kAnySource (the copied-rows view): `line` is where the tile's byte 0 of row 0 would lie,
+// of any even alignment, and so is each row, so a piece is also as narrow as the row's
+// source alignment: the widest of 16, 8 and 4 bytes that divides both its tile offset and
+// its source address, else 2; a 2-byte piece at a multiple of 4 (a row's last, past which
+// the tile holds zeros) goes by a 4-byte cp.async of which 2 bytes are zero-filled, not by
+// a load the thread waits for. A row whose source is only 2-byte aligned (an odd row stride
+// in elements) takes every tile word from two source words (copy_row_permuted).
+template <bool kAnySource = false>
 __device__ __forceinline__ void load_head_row(uint32_t tile, uint32_t region_bytes, const char* line,
                                               long long row_bytes, int first, int last, int row0, int r, int seq) {
     const bool valid = row0 + r < seq;
     const char* src = line + (valid ? row0 + r : 0) * row_bytes;
     const uint32_t dst_row = tile + r * kSwizzleRowBytes;
+    int align = 16;  // the packed-heads view: the source is aligned as the tile
+    if constexpr (kAnySource) {
+        const int low = static_cast<int>(reinterpret_cast<uintptr_t>(src) & 15);
+        align = low == 0 ? 16 : low & -low;
+        if (align == 2) {
+            copy_row_permuted(dst_row, region_bytes, src, first, last, r, valid);
+            return;
+        }
+    }
     for (int x = first; x < last;) {
-        const uint32_t dst = dst_row + (x / 128) * region_bytes + ((((x / 16) % 8) ^ (r % 8)) * 16) + x % 16;
-        if (x % 16 == 0 && x + 16 <= last) {
+        const uint32_t dst = swizzled_byte(dst_row, region_bytes, r, x);
+        if (align >= 16 && x % 16 == 0 && x + 16 <= last) {
             cp_async<16>(dst, src + x, valid);
             x += 16;
-        } else if (x % 8 == 0 && x + 8 <= last) {
+        } else if (align >= 8 && x % 8 == 0 && x + 8 <= last) {
             cp_async<8>(dst, src + x, valid);
             x += 8;
-        } else if (x % 4 == 0 && x + 4 <= last) {
+        } else if (align >= 4 && x % 4 == 0 && x + 4 <= last) {
             cp_async<4>(dst, src + x, valid);
             x += 4;
+        } else if (kAnySource && align >= 4 && x % 4 == 0) {  // the row's last 2 bytes; the tile's next 2 are zeros
+            cp_async_zfill4(dst, src + x, valid ? 2 : 0);
+            x += 2;
         } else {
             const unsigned short value = valid ? *reinterpret_cast<const unsigned short*>(src + x) : 0;
             asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(dst), "h"(value) : "memory");

@@ -45,7 +45,7 @@ NVCC_FLAGS = (
 )
 # the translation units of a source whose kernels take long to compile (the flash passes' wgmma
 # instantiations), each built by its own nvcc
-PARTS = {"flash_attention": 2, "flash_attention_bwd": 3}
+PARTS = {"flash_attention": 3, "flash_attention_bwd": 4}
 
 _lock = threading.Lock()
 _libraries: Dict[str, ctypes.CDLL] = {}

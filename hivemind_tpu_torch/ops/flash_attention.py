@@ -14,21 +14,23 @@ A wrapper given CPU tensors runs the plain version; given CUDA tensors it launch
 a kernel or raises. Each kernel wrapper counts its launches in ``.launches``
 (``flash_attention_lse``, ``flash_attention_backward_dq``,
 ``flash_attention_backward_dkv``), those on the packed-heads view also in
-``.packed.launches``, the 3xTF32 kernels' also in ``.tf32x3.launches`` (every pass)
+``.packed.launches``, those on the copied-rows view (the forward, dK/dV) also in
+``.copied.launches``, the 3xTF32 kernels' also in ``.tf32x3.launches`` (every pass)
 and the SIMT dQ kernel's also in ``.simt.launches``.
 
 Each pass (the forward, the dQ pass, the dK/dV pass) has up to three designs,
 chosen by :func:`flash_route`: ``"wgmma"`` (tensor cores fed by TMA), ``"tf32x3"``
 (fp32 on the tensor cores: every product formed from TF32 hi and lo parts, 3xTF32)
-and ``"simt"`` (fp32 FMAs on the CUDA cores). A 16-bit input takes one route in all
-three passes: wgmma for bf16 and fp16 at a head_dim from 16 to 256 that is a
-multiple of 8, or any other whose H·D is a multiple of 8 and whose :func:`tma_span`
-is at most 256 (TinyBERT's 26, through the packed-heads view below); SIMT for the
-rest, a 16-bit head_dim that is not a multiple of 8 whose H·D is not one either, or
-whose span passes 256. fp32 runs all three passes on tf32x3 at a head_dim from 16
-to 128 that is a multiple of 4 (plain TF32 would round its inputs to 10 mantissa
-bits), and every other fp32 head_dim on SIMT. SIMT takes any head_dim up to 256, as
-the TPU kernels take any head_dim as their block.
+and ``"simt"`` (fp32 FMAs on the CUDA cores). A 16-bit input runs wgmma in all three
+passes at a head_dim from 16 to 256 that is a multiple of 8, or any other whose H·D
+is a multiple of 8 and whose :func:`tma_span` is at most 256 (TinyBERT's 26, through
+the packed-heads view below); every other 16-bit head_dim from 1 to 256 (below 16,
+or one whose H·D is not a multiple of 8, or whose span passes 256) runs the forward
+and the dK/dV pass on wgmma through the copied-rows view below and the dQ pass on
+SIMT. fp32 runs all three passes on tf32x3 at a head_dim from 16 to 128 that is a
+multiple of 4 (plain TF32 would round its inputs to 10 mantissa bits), and every
+other fp32 head_dim on SIMT. SIMT takes any head_dim up to 256, as the TPU kernels
+take any head_dim as their block.
 A CUDA input launches its pass's route or raises: no route falls back to another.
 :func:`flash_refusal` names the few inputs no design takes. A view a kernel cannot
 read through its strides is copied first (:func:`_kernel_layout`).
@@ -44,6 +46,16 @@ the tiles a kernel streams are copied a head's bytes at a time instead (cp.async
 so a neighbouring head's values never reach a head's products. The two backward
 passes share one view of each tensor (:func:`backward_geometries`), which
 ``flash_attention_backward`` computes once, when they run wgmma.
+
+A 16-bit tensor with no TMA view (its rows 2·H·D bytes apart, not a multiple of 16, or
+a head_dim below 16) is read through the copied-rows view (:func:`copied_rows`): the
+wgmma forward and dK/dV kernels take its strides, and their producer warpgroup copies
+every tile, resident or streamed, a head's bytes at a time by cp.async (by aligned
+4-byte loads and byte permutes where a row's source is 2 bytes off the tile's words;
+:func:`row_pieces`), into tiles
+zeroed once, so a neighbour's bytes never reach them. A head lands at one column of
+its tiles for every row, set by where q's row 0 of the head lies modulo a power of two
+(:func:`copy_plan`); no copy of the tensor is made, an unaligned view included.
 
 The tf32x3 kernels read fp32 q, k, v (and dout) through their strides with 16-byte
 loads (a 16-byte aligned base, strides that are multiples of 4 elements) and split
@@ -218,6 +230,95 @@ def tma_geometry(t: torch.Tensor, rows: int) -> TmaGeometry:
     return TmaGeometry(dims, strides, (TMA_BOX_COLS, 1, rows, 1), head_column)
 
 
+# ------------------------------------------------------------------ the copied-rows view
+
+COPY_MAX_PIECE = 16  # bytes: the widest cp.async piece, and the most a shift can take from a row's alignment
+COPY_PIECES = (16, 8, 4)  # cp.async's pieces; a 2-byte piece is a plain load and store
+
+
+def copied_rows(t: torch.Tensor) -> bool:
+    """Whether the wgmma forward and dK/dV pass read ``t`` through the copied-rows view: a
+    bf16 or fp16 head_dim from 1 to 256 that no TMA view takes, one below 16 or one that is
+    not a multiple of 8 whose H·D is not one either or whose :func:`tma_span` passes 256.
+    The producer copies every tile (resident and streamed) a head's bytes at a time
+    (:func:`row_pieces`), at the shift :func:`copy_plan` sets; the dQ pass stays on SIMT."""
+    heads, head_dim = t.shape[-2:]
+    if t.dtype not in WGMMA_DTYPES or not 0 < head_dim <= WGMMA_WIDTHS[-1]:
+        return False
+    if head_dim < WGMMA_MIN_HEAD_DIM:
+        return True
+    return packed_heads(head_dim) and not (heads * head_dim % 8 == 0 and tma_span(head_dim, heads) <= WGMMA_WIDTHS[-1])
+
+
+def copy_shift(address: int, modulus: int) -> int:
+    """The tile column a block's head lands at on the copied-rows view: the byte address of
+    the head's row 0 of q modulo ``modulus``, halved (``sm90::copied_shift``)."""
+    return address % modulus // 2
+
+
+class CopyPlan(NamedTuple):
+    """How the copied-rows view lands q's heads in the tiles: ``modulus`` (16, 8, 4 or 2
+    bytes), from which each block's shift is :func:`copy_shift`, and ``span``, the columns a
+    tile spans, head_dim plus the largest shift (``copied_span`` on the C side)."""
+
+    modulus: int
+    span: int
+
+
+def copy_plan(q: torch.Tensor) -> CopyPlan:
+    """The copied-rows view's plan for ``q`` (the tensors of its shape and dtype land at q's
+    shifts). Every row of a head is congruent to its row 0 modulo the largest power of two up
+    to 16 that divides the row stride in bytes, so with that modulus each of q's rows is
+    copied in pieces that wide. A smaller modulus keeps the shift from carrying the head into
+    a wider tile than the head_dim alone needs (it would double the products at 128 or 256),
+    at the price of narrower pieces; at 2 the shift is 0. The residues of b·sb and h·sh
+    repeat within 8 steps, so the first 8 batches and heads show every shift."""
+    batch, _, heads, head_dim = q.shape
+    stride_b, stride_t, stride_h = (2 * s for s in q.stride()[:3])
+    modulus = COPY_MAX_PIECE
+    while modulus > 2 and stride_t % modulus:
+        modulus //= 2
+    while True:
+        shift = max(copy_shift(q.data_ptr() + b * stride_b + h * stride_h, modulus)
+                    for b in range(min(batch, 8)) for h in range(min(heads, 8)))
+        span = head_dim + shift
+        if modulus == 2 or (span <= WGMMA_WIDTHS[-1] and padded_head_dim(span) == padded_head_dim(head_dim)):
+            return CopyPlan(modulus, span)
+        modulus //= 2
+
+
+def row_pieces(source: int, first: int, last: int) -> Tuple[Tuple[int, int], ...]:
+    """The pieces ``sm90::load_head_row<true>`` stores one row in, as (tile byte, bytes):
+    tile bytes [first, last) of the row, whose tile byte x is the source byte ``source + x``.
+    Each piece is the widest of :data:`COPY_PIECES` that divides both its tile offset and
+    its source address and fits before ``last``, else 2 bytes (a row's last, at a multiple
+    of 4, by a 4-byte cp.async whose other 2 bytes are zero-filled; any other by a plain
+    load and store). A row whose source is 2 bytes
+    off the tile's 4-byte words is stored as whole tile words instead, from ``first``
+    rounded down to a multiple of 4 to ``last`` rounded up, each from two aligned source
+    words (:func:`permuted_words`), its halves outside [first, last) zero."""
+    align = COPY_MAX_PIECE
+    while align > 2 and source % align:
+        align //= 2
+    if align == 2:
+        return tuple((x, 4) for x in range(first & ~3, (last + 3) & ~3, 4))
+    pieces, x = [], first
+    while x < last:
+        width = next((w for w in COPY_PIECES if w <= align and x % w == 0 and x + w <= last), 2)
+        pieces.append((x, width))
+        x += width
+    return tuple(pieces)
+
+
+def permuted_words(source: int, first: int, last: int) -> Tuple[int, ...]:
+    """The aligned 4-byte source words ``sm90::copy_row_permuted`` reads for a row whose
+    source is 2 bytes off the tile's words: the word at ``source + y − 2`` for each multiple
+    of 4, y, from ``first`` rounded down to ``last`` rounded up, whose bytes meet the head's,
+    [source + first, source + last). Tile word y takes the upper half of word y and the
+    lower half of word y + 4."""
+    return tuple(source + y - 2 for y in range(first & ~3, ((last + 3) & ~3) + 1, 4) if y + 2 > first and y - 2 < last)
+
+
 def backward_geometries(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor) -> Tuple[TmaGeometry, ...]:
     """The TMA views of q, k, v, dout (bf16 or fp16 ``[B, T, H, D]``) that both
     backward passes' wgmma kernels read: boxes of 64 columns by 64 rows."""
@@ -237,9 +338,10 @@ def _library() -> ctypes.CDLL:
                           + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
         wgmma.restype = ctypes.c_int
         # q, k, v, out, lse; dtype, B, T, H, D; strides of q, k, v, out; causal, scale, stream
-        # tf32x3: the same arguments as SIMT
-        for fn in (simt, library.hm_flash_forward_tf32x3):
-            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12
+        # tf32x3: the same arguments as SIMT; copied: and the shift modulus before causal
+        copied = library.hm_flash_forward_copied
+        for fn, extra in ((simt, []), (library.hm_flash_forward_tf32x3, []), (copied, [ctypes.c_int])):
+            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12 + extra
                            + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
             fn.restype = ctypes.c_int
     return library
@@ -258,19 +360,20 @@ def flash_route(q: torch.Tensor, which: str = "forward") -> str:
     the tensors of its shape and dtype): ``"wgmma"`` in every pass for bf16 and fp16
     at a head_dim from 16 to 256 that TMA reads, a multiple of 8 (the 4-D view) or any
     other whose H·D is a multiple of 8 and whose :func:`tma_span` is at most 256 (the
-    packed-heads view); ``"tf32x3"`` for fp32 where :func:`tf32x3_takes`; ``"simt"``
+    packed-heads view); on every other bf16 or fp16 head_dim from 1 to 256
+    (:func:`copied_rows`), ``"wgmma"`` for the forward and the dK/dV pass and ``"simt"``
+    for the dQ pass; ``"tf32x3"`` for fp32 where :func:`tf32x3_takes`; ``"simt"``
     otherwise."""
     if which not in PASSES:
         raise ValueError(f"flash_route answers for {PASSES}, got {which!r}")
-    heads, head_dim = q.shape[-2:]
+    head_dim = q.shape[-1]
     if tf32x3_takes(q):
         return "tf32x3"
+    if copied_rows(q):
+        return "simt" if which == "dq" else "wgmma"
     if q.dtype not in WGMMA_DTYPES or not WGMMA_MIN_HEAD_DIM <= head_dim <= WGMMA_WIDTHS[-1]:
         return "simt"
-    if not packed_heads(head_dim):
-        return "wgmma"
-    packed = heads * head_dim % 8 == 0 and tma_span(head_dim, heads) <= WGMMA_WIDTHS[-1]
-    return "wgmma" if packed else "simt"
+    return "wgmma"
 
 
 def flash_routes(q: torch.Tensor) -> str:
@@ -301,9 +404,11 @@ def needs_copy(t: torch.Tensor) -> bool:
     reading it by TMA cannot take (an unaligned base or stride, or heads not packed
     in the row at a head_dim that is not a multiple of 8), or by 16-byte loads (the
     tf32x3 passes: an unaligned base or stride). Every input a wgmma or tf32x3 pass
-    takes, the forward takes on the same route."""
+    takes, the forward takes on the same route. The copied-rows view reads any 16-bit
+    view whose head dim is contiguous through its strides (each row's pieces follow its
+    own alignment), as the SIMT dQ pass beside it does."""
     route = flash_route(t, "forward")
-    return (t.stride(-1) != 1 or (route == "wgmma" and not _tma_aligned(t))
+    return (t.stride(-1) != 1 or (route == "wgmma" and not copied_rows(t) and not _tma_aligned(t))
             or (route == "tf32x3" and not _vector_aligned(t)))
 
 
@@ -350,7 +455,9 @@ def _block_rows(q: torch.Tensor, which: str) -> int:
         return SIMT_ROWS
     if route == "tf32x3":
         return tf32x3_block_rows(q.shape[-1], which)
-    return dkv_block_rows(tma_span(q.shape[-1], q.shape[-2])) if which == "dkv" else FORWARD_TILE_ROWS
+    if which != "dkv":
+        return FORWARD_TILE_ROWS
+    return dkv_block_rows(copy_plan(q).span if copied_rows(q) else tma_span(q.shape[-1], q.shape[-2]))
 
 
 def _check_cuda_inputs(q: torch.Tensor, *others: Tuple[str, torch.Tensor]) -> None:
@@ -396,7 +503,12 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causa
     route = flash_route(q, "forward")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if route == "wgmma":
+        if route == "wgmma" and copied_rows(q):  # the strides, and where the heads land
+            status = library.hm_flash_forward_copied(
+                *pointers, SIMT_DTYPES[q.dtype], batch, seq, heads, head_dim, *_strides(q, k, v, out),
+                copy_plan(q).modulus, int(causal), head_dim ** -0.5, stream,
+            )
+        elif route == "wgmma":
             rows = forward_box_rows(tma_span(head_dim, heads))
             status = library.hm_flash_forward_wgmma(
                 *pointers, SIMT_DTYPES[q.dtype], batch, seq, heads, head_dim,
@@ -415,8 +527,9 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causa
 
 class LaunchCount:
     """A launch count read and reset as a wrapper's ``.launches``: a wrapper's
-    ``.packed`` counts its launches on the packed-heads view, ``.tf32x3`` those of its
-    3xTF32 kernel, ``.simt`` (dQ) those of its SIMT kernel."""
+    ``.packed`` counts its launches on the packed-heads view, ``.copied`` (the forward,
+    dK/dV) those on the copied-rows view, ``.tf32x3`` those of its 3xTF32 kernel,
+    ``.simt`` (dQ) those of its SIMT kernel."""
 
     def __init__(self):
         self.launches = 0
@@ -425,11 +538,14 @@ class LaunchCount:
 def _count_launch(wrapper, q: torch.Tensor, which: str) -> None:
     """One launch of ``wrapper``'s kernel (the pass ``which``) on q: in ``.launches``;
     in ``.packed.launches`` when it read the packed-heads view (a wgmma kernel at a
-    head_dim that is not a multiple of 8); in ``.tf32x3.launches`` or
-    ``.simt.launches`` where the wrapper counts that route."""
+    head_dim that is not a multiple of 8 with a TMA view), in ``.copied.launches`` when it
+    read the copied-rows view; in ``.tf32x3.launches`` or ``.simt.launches`` where the
+    wrapper counts that route."""
     wrapper.launches += 1
     route = flash_route(q, which)
-    if packed_heads(q.shape[-1]) and route == "wgmma":
+    if route == "wgmma" and copied_rows(q):
+        wrapper.copied.launches += 1
+    elif route == "wgmma" and packed_heads(q.shape[-1]):
         wrapper.packed.launches += 1
     counted = getattr(wrapper, route, None)  # the route's own count, where the wrapper keeps one
     if isinstance(counted, LaunchCount):
@@ -438,6 +554,7 @@ def _count_launch(wrapper, q: torch.Tensor, which: str) -> None:
 
 flash_attention_lse.launches = 0
 flash_attention_lse.packed = LaunchCount()
+flash_attention_lse.copied = LaunchCount()
 flash_attention_lse.tf32x3 = LaunchCount()
 
 
@@ -489,11 +606,13 @@ def _bwd_library() -> ctypes.CDLL:
         # code; B, T, H, D; then the layout: SIMT, the strides of q, k, v, dout and of
         # the outputs; wgmma, the geometries of q, k, v, dout and the outputs'
         # strides; causal, scale, stream
+        # (the copied-rows dK/dV pass: SIMT's, and the shift modulus)
         simt_layout = [ctypes.c_longlong] * 15
         wgmma_layout = [ctypes.POINTER(ctypes.c_longlong)] * 4 + [ctypes.c_longlong] * 3
         for name, outputs, layout in (("dq_simt", 1, simt_layout), ("dkv_simt", 2, simt_layout),
                                       ("dq_wgmma", 1, wgmma_layout), ("dkv_wgmma", 2, wgmma_layout),
-                                      ("dq_tf32x3", 1, simt_layout), ("dkv_tf32x3", 2, simt_layout)):
+                                      ("dq_tf32x3", 1, simt_layout), ("dkv_tf32x3", 2, simt_layout),
+                                      ("dkv_copied", 2, simt_layout + [ctypes.c_int])):
             fn = getattr(library, f"hm_flash_backward_{name}")
             fn.argtypes = ([ctypes.c_void_p] * (6 + outputs) + [ctypes.c_int] * 5 + layout
                            + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
@@ -515,10 +634,12 @@ def _check_backward_inputs(q, k, v, dout, lse, delta) -> None:
 def _launch_pass(name: str, q, k, v, dout, lse, delta, outputs, causal: bool, geometries) -> None:
     """Launch the pass ``name`` ("dq" or "dkv") on its route for q on the pointers
     of q, k, v, dout, lse, delta and ``outputs``: wgmma reads the four TMA views
-    ``geometries`` (:func:`backward_geometries` when None), SIMT and tf32x3 the
-    strides."""
+    ``geometries`` (:func:`backward_geometries` when None), or on the copied-rows view
+    the strides and :func:`copy_plan`'s modulus; SIMT and tf32x3 the strides."""
     route = flash_route(q, name)
-    if route == "wgmma":
+    if route == "wgmma" and copied_rows(q):
+        route, layout = "copied", (*_strides(q, k, v, dout, outputs[0]), copy_plan(q).modulus)
+    elif route == "wgmma":
         if geometries is None:
             geometries = backward_geometries(q, k, v, dout)
         layout = (*(g.as_ctypes() for g in geometries), *outputs[0].stride()[:3])
@@ -574,6 +695,7 @@ flash_attention_backward_dq.launches = 0
 flash_attention_backward_dkv.launches = 0
 flash_attention_backward_dq.packed = LaunchCount()
 flash_attention_backward_dkv.packed = LaunchCount()
+flash_attention_backward_dkv.copied = LaunchCount()
 flash_attention_backward_dq.simt = LaunchCount()
 flash_attention_backward_dq.tf32x3 = LaunchCount()
 flash_attention_backward_dkv.tf32x3 = LaunchCount()
@@ -589,7 +711,7 @@ def flash_attention_backward(q, k, v, out, lse, dout, causal: bool = False) -> T
         return flash_attention_backward_plain(q, k, v, out, lse, dout, causal)
     q, k, v, dout = (_kernel_layout(t) for t in (q, k, v, dout))
     delta = _delta(out, dout)
-    geometries = backward_geometries(q, k, v, dout) if flash_route(q) == "wgmma" else None
+    geometries = backward_geometries(q, k, v, dout) if flash_route(q, "dq") == "wgmma" else None
     dq = flash_attention_backward_dq(q, k, v, dout, lse, delta, causal, geometries)
     return (dq, *flash_attention_backward_dkv(q, k, v, dout, lse, delta, causal, geometries))
 

@@ -252,7 +252,7 @@ W, S, T = "wgmma", "simt", "tf32x3"
         (lambda: _meta((2, 64, 64, 4)).transpose(2, 3), (W, W, W), True, None),  # head dim not contiguous
         (lambda: _meta((2, 64, 4, 64), torch.float64), (S, S, S), False, (TypeError, "bfloat16, float16 or float32")),
         (lambda: _meta((2, 64, 4, 512)), (S, S, S), False, (ValueError, "head_dim")),
-        (lambda: _meta((1, 16 * 65535 + 1, 1, 20)), (S, S, S), False, (ValueError, "grid")),  # SIMT's 16 rows
+        (lambda: _meta((1, 16 * 65535 + 1, 1, 20)), (W, S, W), False, (ValueError, "grid")),  # SIMT dQ's 16 rows
         (lambda: _meta((1, 128 * 65535 + 1, 1, 64)), (W, W, W), False, (ValueError, "grid")),
         (lambda: _meta((2, 64, 4, 128), torch.float16), (W, W, W), False, None),
         # 40-byte head strides: the packed-heads view (H·D = 80) for every pass
@@ -260,22 +260,26 @@ W, S, T = "wgmma", "simt", "tf32x3"
         (lambda: _meta((2, 64, 4, 128), torch.float32), (T, T, T), False, None),  # 3xTF32, not plain TF32
         (lambda: _misaligned_view((2, 64, 4, 20)), (W, W, W), True, None),  # TMA needs a copy
         (lambda: _meta((1, 128 * 65535 + 1, 1, 32)), (W, W, W), False, (ValueError, "grid")),  # the dQ pass's 128
-        (lambda: _meta((2, 64, 5, 20)), (S, S, S), False, None),  # H·D = 100: no TMA view
-        (lambda: _misaligned_view((2, 64, 5, 20)), (S, S, S), False, None),  # SIMT reads it through its strides
+        (lambda: _meta((2, 64, 5, 20)), (W, S, W), False, None),  # H·D = 100: no TMA view, the copied-rows view
+        (lambda: _misaligned_view((2, 64, 5, 20)), (W, S, W), False, None),  # read through its strides
         (lambda: _meta((2, 64, 8, 25)), (W, W, W), False, None),  # an odd head dim: rows start 2-byte aligned
         (lambda: _meta((2, 64, 4, 196), torch.float16), (W, W, W), False, None),  # padded to 256
         (lambda: _meta((4, 128, 12, 26)), (W, W, W), False, None),  # TinyBERT's 12 heads of 26
         (lambda: _meta((2, 4, 64, 20)).transpose(1, 2), (W, W, W), True, None),  # heads not packed in the row
         # every packed pass's 128-row blocks (the dQ pass's 16-row SIMT blocks bounded it before it took the view)
         (lambda: _meta((1, 128 * 65535 + 1, 2, 20)), (W, W, W), False, (ValueError, "grid")),
-        # boxes start up to 6 columns early (254 mod 8), so a tile spans 260: past 256
-        (lambda: _meta((2, 64, 4, 254), torch.float16), (S, S, S), False, None),
+        # boxes start up to 6 columns early (254 mod 8), so a tile spans 260 (past 256): the copied-rows view
+        (lambda: _meta((2, 64, 4, 254), torch.float16), (W, S, W), False, None),
         (lambda: _meta((2, 64, 4, 252), torch.float16), (W, W, W), False, None),  # spans 256
+        (lambda: _meta((2, 64, 4, 8)), (W, S, W), False, None),  # below wgmma's 16: the copied-rows view
+        (lambda: _meta((2, 64, 3, 21), torch.float16), (W, S, W), False, None),  # H·D = 63: rows 2-byte aligned
+        (lambda: _meta((1, 64, 3, 100)), (W, S, W), False, None),  # H·D = 300
     ],
     ids=["d16", "d32", "d64", "d80", "d96", "d128", "d256", "fp32", "fp16", "bh65536", "bh65536_fp16",
          "misaligned", "misaligned_d32", "strided", "d_strided", "fp64", "d512", "simt_rows", "wgmma_rows",
          "fp16_d128", "d20", "fp32_d128", "misaligned_d20", "dq_rows", "d20_hd100", "misaligned_d20_hd100", "d25",
-         "fp16_d196", "tinybert", "d20_heads_strided", "mixed_rows", "d254_span", "d252_span"],
+         "fp16_d196", "tinybert", "d20_heads_strided", "mixed_rows", "d254_span", "d252_span", "d8_copied",
+         "fp16_d21_hd63", "d100_hd300"],
 )
 def test_flash_refusal_predicts_what_the_kernel_takes(make, routes, copy, refusal):
     """The wrappers' predicates, on meta tensors: which design runs each pass of an
@@ -324,10 +328,11 @@ def test_flash_routes_name_each_pass_and_the_grid_takes_the_finest_rows():
     bf16 head_dim 256 the dK/dV pass's 64-row blocks bound T before the forward's and
     the dQ pass's 128; at head_dim 20 where H·D is a multiple of 8 every pass runs wgmma
     on the packed-heads view (a span of 24, padded to 64), so 128-row blocks bound it;
-    where H·D is not, the SIMT passes' 16 do."""
+    where H·D is not, the forward and the dK/dV pass run wgmma on the copied-rows view and
+    the SIMT dQ pass's 16 rows bound it."""
     assert flash_routes(_meta((1, 64, 2, 256))) == "forward=wgmma dq=wgmma dkv=wgmma"
     assert flash_routes(_meta((1, 64, 2, 20), torch.float16)) == "forward=wgmma dq=wgmma dkv=wgmma"
-    assert flash_routes(_meta((1, 64, 5, 20), torch.float16)) == "forward=simt dq=simt dkv=simt"
+    assert flash_routes(_meta((1, 64, 5, 20), torch.float16)) == "forward=wgmma dq=simt dkv=wgmma"
     assert flash_routes(_meta((4, 128, 12, 26))) == "forward=wgmma dq=wgmma dkv=wgmma"
     assert flash_refusal(_meta((1, 128 * 65535, 2, 20))) is None
     error, message = flash_refusal(_meta((1, 128 * 65535 + 1, 2, 20)))

@@ -3,7 +3,8 @@
 
 For each input, each pass the wrappers route to a redesign of SIMT (wgmma: all three
 passes, on the 4-D view at a 16-bit head dim that is a multiple of 8 and on the
-packed-heads view at any other whose H·D is one; tf32x3: all three fp32 passes at a head
+packed-heads view at any other whose H·D is one, and the forward and dK/dV pass on the
+copied-rows view at every other 16-bit head dim; tf32x3: all three fp32 passes at a head
 dim from 16 to 128 that is a multiple of 4; a pass that is SIMT for the input is noted and
 not timed) runs through its wrapper
 (``flash_attention_lse``, ``flash_attention_backward_dq``, ``flash_attention_backward_dkv``)
@@ -16,7 +17,7 @@ The last line is a JSON object with every reading, beside the card's name and po
 limit.
 
 ``--rows`` times instead the three passes through their wrappers alone at the shapes
-of PERF.md's bf16 rows 1-3 and 1c-3c, and ``--root DIR`` imports the package and
+of PERF.md's rows 1-3, 1c-3c, 1h-3h, 1p-3p, 1t-3t and 1x, 3x, and ``--root DIR`` imports the package and
 ``chip_smoke.py`` from another checkout: run on the parent's and this checkout's in
 turns in one call, it compares two versions of the kernels on one card.
 
@@ -44,7 +45,8 @@ ROOT = Path(__file__).resolve().parents[1]
 # Llama-2-7B request of 2048 tokens; then the packed-heads view: head dim 20 at row 1s's
 # shape, the TinyBERT-width expert's attention (12 heads of 26), an odd head dim, and fp16 at
 # 196 (padded to 256); then fp32 on the three 3xTF32 passes: ALBERT's training shape, a Llama-2-7B
-# request of 2048 tokens and PERF.md rows 2t's and 3t's [1, 512, 32, 128] causal
+# request of 2048 tokens and PERF.md rows 2t's and 3t's [1, 512, 32, 128] causal; then the
+# copied-rows view (forward and dK/dV): head dim 20 with H·D = 100 and fp16 21 with H·D = 63
 DEFAULT_CASES = [
     ((2, 1000, 16, 32), "bfloat16", True), ((1, 512, 8, 96), "bfloat16", True), ((1, 512, 4, 256), "float16", True),
     ((2, 1000, 16, 16), "bfloat16", True), ((1, 2048, 32, 80), "bfloat16", True),
@@ -52,23 +54,38 @@ DEFAULT_CASES = [
     ((2, 1000, 16, 20), "bfloat16", True), ((4, 128, 12, 26), "bfloat16", False), ((2, 1000, 16, 25), "bfloat16", True),
     ((1, 512, 4, 196), "float16", True),
     ((32, 512, 12, 64), "float32", False), ((1, 2048, 32, 128), "float32", True), ((1, 512, 32, 128), "float32", True),
+    ((2, 1000, 5, 20), "bfloat16", True), ((2, 1000, 3, 21), "float16", True),
 ]
 
 
-# PERF.md's bf16 rows: 1 (forward), 2 and 3 (dQ, dK/dV) at the served and ALBERT's shapes,
-# 1c-3c at the causal LM's
-ROWS = [("1", "forward", (1, 2048, 32, 128), True), ("1c", "forward", (8, 1024, 12, 64), True),
-        ("2", "dq", (32, 512, 12, 64), False), ("2c", "dq", (8, 1024, 12, 64), True),
-        ("3", "dkv", (32, 512, 12, 64), False), ("3c", "dkv", (8, 1024, 12, 64), True)]
+# PERF.md's rows, (row, pass, shape, causal, dtype): 1 (forward), 2 and 3 (dQ, dK/dV) at the
+# served and ALBERT's shapes, 1c-3c at the causal LM's; 1h-3h at their six shapes (three small
+# ones, Phi-2's, Gemma-7B's and Llama-2-7B's fp16); 1p-3p on the packed-heads view; 1t-3t in fp32;
+# 1x and 3x on the copied-rows view (SIMT before it)
+_H_SHAPES = [((2, 1000, 16, 32), "bfloat16"), ((1, 512, 8, 96), "bfloat16"), ((1, 512, 4, 256), "float16"),
+             ((1, 2048, 32, 80), "bfloat16"), ((1, 2048, 16, 256), "float16"), ((1, 2048, 32, 128), "float16")]
+ROWS = ([("1", "forward", (1, 2048, 32, 128), True, "bfloat16"), ("1", "forward", (32, 512, 12, 64), False, "bfloat16"),
+         ("1c", "forward", (8, 1024, 12, 64), True, "bfloat16"),
+         ("2", "dq", (32, 512, 12, 64), False, "bfloat16"), ("2c", "dq", (8, 1024, 12, 64), True, "bfloat16"),
+         ("3", "dkv", (32, 512, 12, 64), False, "bfloat16"), ("3c", "dkv", (8, 1024, 12, 64), True, "bfloat16")]
+        + [(f"{n}h", which, shape, True, dtype) for n, which in (("1", "forward"), ("2", "dq"), ("3", "dkv"))
+           for shape, dtype in _H_SHAPES]
+        + [(f"{n}p", which, shape, causal, "bfloat16") for n, which in (("1", "forward"), ("2", "dq"), ("3", "dkv"))
+           for shape, causal in (((2, 1000, 16, 20), True), ((4, 128, 12, 26), False))]
+        + [("1t", "forward", (32, 512, 12, 64), False, "float32"),
+           ("1t", "forward", (1, 2048, 32, 128), True, "float32")]
+        + [(f"{n}t", which, shape, causal, "float32") for n, which in (("2", "dq"), ("3", "dkv"))
+           for shape, causal in (((32, 512, 12, 64), False), ((1, 512, 32, 128), True))]
+        + [("1x", "forward", (2, 1000, 5, 20), True, "bfloat16"), ("3x", "dkv", (2, 1000, 5, 20), True, "bfloat16")])
 
 
 def time_rows(torch, smoke, flash) -> list:
-    """Each of ROWS through its wrapper alone, bf16, on tensors drawn from one seed."""
+    """Each of ROWS through its wrapper alone, on tensors drawn from one seed."""
     rng = np.random.default_rng(smoke.SEED + 21)
     readings = []
-    for row, which, shape, causal in ROWS:
-        q, k, v, dout = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda().bfloat16()
-                         for _ in range(4))
+    for row, which, shape, causal, dtype_name in ROWS:
+        dtype = getattr(torch, dtype_name)
+        q, k, v, dout = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda().to(dtype) for _ in range(4))
         if which == "forward":
             fn = lambda: flash.flash_attention_lse(q, k, v, causal)  # noqa: E731
         else:
@@ -77,8 +94,9 @@ def time_rows(torch, smoke, flash) -> list:
             wrapper = flash.flash_attention_backward_dq if which == "dq" else flash.flash_attention_backward_dkv
             fn = lambda: wrapper(*args)  # noqa: E731
         ms = smoke.time_ms(torch, fn)
-        print(f"[rows] {row} {which} {list(shape)} bf16 causal={causal}: ms={ms:.4f}", flush=True)
-        readings.append(dict(row=row, which=which, shape=list(shape), causal=causal, ms=ms))
+        print(f"[rows] {row} {which} {list(shape)} {dtype_name} causal={causal} ({flash.flash_route(q, which)}): "
+              f"ms={ms:.4f}", flush=True)
+        readings.append(dict(row=row, which=which, shape=list(shape), dtype=dtype_name, causal=causal, ms=ms))
     return readings
 
 
@@ -97,7 +115,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--cases", nargs="*", type=parse_case, default=DEFAULT_CASES,
                         help="B,T,H,D,dtype,causal each (dtype bfloat16, float16 or float32; causal 0 or 1)")
-    parser.add_argument("--rows", action="store_true", help="time PERF.md's bf16 rows 1-3 and 1c-3c instead")
+    parser.add_argument("--rows", action="store_true", help="time PERF.md's rows (ROWS) through the wrappers instead")
     parser.add_argument("--root", default=str(ROOT), help="the checkout whose package and chip_smoke.py to import")
     args = parser.parse_args(argv)
     sys.path.insert(0, str(Path(args.root).resolve()))
